@@ -1,0 +1,17 @@
+"""The one message for a knob the port keeps in its signature but has not
+ported yet: it names the ROADMAP.md item that will port it."""
+
+from __future__ import annotations
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch package yet "
+        f"(ROADMAP.md, Queue A: {item})")
+
+
+GPT_TRAINING = "item 2, GPT training with the flash kernels K1-K3"
+SERVE_ROBUSTNESS = "item 4, serving robustness"
+SERVE_EXTENSIONS = "item 5, serving extensions"
+PARALLEL_AXES = "item 6, remaining parallel axes"
+ANALYSIS = "item 7, analysis"

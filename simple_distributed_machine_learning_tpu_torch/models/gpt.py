@@ -1,0 +1,820 @@
+"""The GPT and its serving decode programs (port of ``models/gpt.py``).
+
+The model is a tree of ``nn.Module`` parameter containers — :class:`GPT`
+(the whole model, or one pipeline stage's slice of it), :class:`Block`,
+:class:`Attention`, :class:`Linear`, :class:`LayerNorm`, :class:`Embed`,
+:class:`Head` — whose ``state_dict`` keys are the JAX param tree's paths
+(``blocks.0.attn.wq``, ``embed.tok``, ``head.out.w``) and whose layouts are
+the JAX package's (``[in, out]`` linear weights, ``[vocab, d]`` token and
+``[seq_len, d]`` position embeddings), so weights cross between the
+packages with no transposes (``interop.params_from_numpy``). Containers
+index like the JAX dicts (``bp["attn"]["wq"]``), so the math below reads
+as the reference's does.
+
+The serving programs are plain closures over the shape scalars — the
+JAX package's ``jit`` builders without ``jit``: PyTorch runs eagerly.
+
+- :func:`make_cached_decoder` — solo KV-cache decode, the correctness
+  anchor every served stream is held against;
+- :func:`make_paged_prefill_chunk` — one prompt chunk of one request into
+  its paged blocks;
+- :func:`make_paged_decode_step` — the batched one-token tick over all
+  slots; ``kernel="fused"`` attends through the CUDA paged-attention
+  kernel (``ops/paged_attention.py``), ``"dense"`` gathers each slot's
+  blocks and runs masked softmax einsums;
+- :func:`make_paged_block_copy` — the copy-on-write block copy.
+
+The pool tensors are updated IN PLACE (the JAX programs donate them); the
+programs return them anyway, so the engine's call shape is the JAX one.
+
+Sampling keeps the JAX split discipline on the port's own counter-based
+generator (``ops/random.py``): greedy consumes no randomness, every
+sampled token splits the request's key exactly once, ``top_k == 0`` and
+``top_p > 1`` disable the filters.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from simple_distributed_machine_learning_tpu_torch import _roadmap
+from simple_distributed_machine_learning_tpu_torch._device import (
+    resolve_device,
+)
+from simple_distributed_machine_learning_tpu_torch.ops import random as _rng
+from simple_distributed_machine_learning_tpu_torch.ops.attention import (
+    _merge_heads,
+    _split_heads,
+    causal_attention_core,
+    mha_init,
+)
+from simple_distributed_machine_learning_tpu_torch.ops.layers import (
+    embedding_init,
+    embedding_lookup,
+    layer_norm,
+    layer_norm_init,
+    linear,
+    linear_init,
+)
+from simple_distributed_machine_learning_tpu_torch.ops.losses import (
+    log_softmax,
+)
+from simple_distributed_machine_learning_tpu_torch.ops.paged_attention import (
+    gather_paged_rows as _gather_paged_rows,
+    paged_attention,
+    paged_attention_reference,
+)
+from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (
+    Stage,
+)
+
+# sampling-param sentinels: 0 disables top-k, anything > 1 disables top-p
+_NO_TOP_K = 0
+_NO_TOP_P = 2.0
+
+
+@dataclasses.dataclass(frozen=True)
+class GPTConfig:
+    """The JAX package's ``GPTConfig``, field for field, so one config
+    describes one model in both packages. The port builds dense blocks
+    only: the other values of ``attn_impl``, ``n_seq``, MoE and the
+    sharded axes raise ``NotImplementedError`` where a builder meets
+    them."""
+    vocab: int = 128
+    seq_len: int = 64
+    d_model: int = 128
+    n_heads: int = 4
+    n_layers: int = 2
+    mlp_ratio: int = 4
+    dropout_rate: float = 0.0
+    attn_impl: str = "dense"
+    flash_block_q: int = 128
+    flash_block_k: int = 128
+    n_seq: int = 1
+    n_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 2.0
+    moe_aux_weight: float = 0.01
+    n_expert_parallel: int = 1
+    n_tensor_parallel: int = 1
+    overlap: str = "none"
+
+    def __post_init__(self):
+        if self.attn_impl not in ("dense", "flash", "ring", "ulysses"):
+            raise ValueError(
+                f"attn_impl must be one of dense/flash/ring/ulysses, got "
+                f"{self.attn_impl!r}")
+        if self.n_seq < 1 or self.seq_len % self.n_seq:
+            raise ValueError(
+                f"seq_len {self.seq_len} not divisible by n_seq {self.n_seq}")
+        if self.n_experts < 0 or (self.n_experts > 0 and not
+                                  1 <= self.moe_top_k <= self.n_experts):
+            raise ValueError(
+                f"invalid MoE config: n_experts={self.n_experts}, "
+                f"top_k={self.moe_top_k}")
+        if self.n_tensor_parallel < 1 or self.n_expert_parallel < 1:
+            raise ValueError("parallel widths must be >= 1")
+        if self.overlap not in ("none", "ring"):
+            raise ValueError(
+                f"overlap must be 'none' or 'ring', got {self.overlap!r}")
+
+
+def _check_ported(cfg: GPTConfig, caller: str) -> None:
+    """Raise for the config values whose code paths this port has not
+    reached yet, naming the ROADMAP item that ports each."""
+    if cfg.attn_impl != "dense":
+        raise _roadmap.not_ported(f"{caller}: attn_impl={cfg.attn_impl!r}",
+                                  _roadmap.GPT_TRAINING
+                                  if cfg.attn_impl == "flash"
+                                  else _roadmap.PARALLEL_AXES)
+    if cfg.n_experts > 0 or cfg.n_expert_parallel > 1:
+        raise _roadmap.not_ported(f"{caller}: MoE blocks (n_experts > 0)",
+                                  _roadmap.PARALLEL_AXES)
+    if cfg.n_seq > 1:
+        raise _roadmap.not_ported(f"{caller}: sequence parallelism",
+                                  _roadmap.PARALLEL_AXES)
+    if cfg.n_tensor_parallel > 1:
+        raise _roadmap.not_ported(f"{caller}: n_tensor_parallel > 1",
+                                  _roadmap.SERVE_EXTENSIONS)
+
+
+# -- the model as parameter containers -------------------------------------
+
+class _Tree(nn.Module):
+    """A parameter container that indexes like the JAX param dict."""
+
+    def __getitem__(self, key: str):
+        if key not in self:
+            raise KeyError(key)
+        return getattr(self, key)
+
+    def __contains__(self, key) -> bool:
+        return key in self._parameters or key in self._modules
+
+    def get(self, key: str, default=None):
+        return self[key] if key in self else default
+
+
+class Linear(_Tree):
+    def __init__(self, w: torch.Tensor, b: torch.Tensor) -> None:
+        super().__init__()
+        self.w = nn.Parameter(w)
+        self.b = nn.Parameter(b)
+
+
+class LayerNorm(_Tree):
+    def __init__(self, scale: torch.Tensor, bias: torch.Tensor) -> None:
+        super().__init__()
+        self.scale = nn.Parameter(scale)
+        self.bias = nn.Parameter(bias)
+
+
+class Attention(_Tree):
+    """QKVO projections, each ``[d, d]`` (heads split on the output)."""
+
+    def __init__(self, wq, wk, wv, wo) -> None:
+        super().__init__()
+        self.wq = nn.Parameter(wq)
+        self.wk = nn.Parameter(wk)
+        self.wv = nn.Parameter(wv)
+        self.wo = nn.Parameter(wo)
+
+
+class Embed(_Tree):
+    def __init__(self, tok: torch.Tensor, pos: torch.Tensor) -> None:
+        super().__init__()
+        self.tok = nn.Parameter(tok)
+        self.pos = nn.Parameter(pos)
+
+
+class Head(_Tree):
+    def __init__(self, ln_f: dict, out: dict) -> None:
+        super().__init__()
+        self.ln_f = LayerNorm(**ln_f)
+        self.out = Linear(**out)
+
+
+class Block(_Tree):
+    """One pre-LN transformer block: causal MHA + GELU MLP."""
+
+    def __init__(self, tree: dict) -> None:
+        super().__init__()
+        self.ln1 = LayerNorm(**tree["ln1"])
+        self.attn = Attention(**tree["attn"])
+        self.ln2 = LayerNorm(**tree["ln2"])
+        self.mlp_in = Linear(**tree["mlp_in"])
+        self.mlp_out = Linear(**tree["mlp_out"])
+
+    def forward(self, h: torch.Tensor, n_heads: int) -> torch.Tensor:
+        """The dense full-sequence block (dropout-free), h: [B, T, d]."""
+        q, k, v = _dense_qkv(self, h, n_heads)
+        return _dense_attn_tail(self, h, causal_attention_core(q, k, v))
+
+
+class GPT(_Tree):
+    """The GPT, or one pipeline stage of it: ``blocks`` always, ``embed``
+    on the first stage, ``head`` (final LN + untied vocab projection) on
+    the last. Built from JAX-shaped trees of tensors."""
+
+    def __init__(self, blocks: list[dict], embed: dict | None = None,
+                 head: dict | None = None) -> None:
+        super().__init__()
+        if embed is not None:
+            self.embed = Embed(**embed)
+        self.blocks = nn.ModuleList(Block(b) for b in blocks)
+        if head is not None:
+            self.head = Head(**head)
+
+    def forward(self, x: torch.Tensor, n_heads: int) -> torch.Tensor:
+        """Token ids [B, T] (first stage) or hidden [B, T, d] -> hidden,
+        or log-probs [B, T, V] on the last stage."""
+        if "embed" in self:
+            h = (embedding_lookup(self.embed.tok, x)
+                 + self.embed.pos[:x.shape[1]])
+        else:
+            h = x
+        for bp in self.blocks:
+            h = bp(h, n_heads)
+        if "head" in self:
+            h = _head_logprobs(self.head, h)
+        return h
+
+
+def _block_init(gen: torch.Generator, cfg: GPTConfig) -> dict:
+    d, dff = cfg.d_model, cfg.mlp_ratio * cfg.d_model
+    return {"ln1": layer_norm_init(d), "attn": mha_init(gen, d, cfg.n_heads),
+            "ln2": layer_norm_init(d), "mlp_in": linear_init(gen, d, dff),
+            "mlp_out": linear_init(gen, dff, d)}
+
+
+def make_gpt_stages(seed=0, cfg: GPTConfig = GPTConfig(), n_stages: int = 2,
+                    device=None) -> tuple[list[Stage], int, tuple[int, int]]:
+    """Build the GPT as ``n_stages`` pipeline stages on ``device``.
+
+    ``seed`` is an int or a CPU ``torch.Generator``; weights are drawn on
+    the CPU (one seed, one model, whatever the device) and moved.
+    Returns ``(stages, wire_dim, (seq_len, vocab))`` like the JAX builder;
+    each stage's ``params`` is a :class:`GPT` module holding its
+    contiguous share of the blocks."""
+    from simple_distributed_machine_learning_tpu_torch.parallel.staging import (
+        contiguous_split,
+    )
+    dev = resolve_device(device)
+    _check_ported(cfg, "make_gpt_stages")
+    if cfg.n_layers < n_stages and not (n_stages == 1 and cfg.n_layers == 0):
+        raise ValueError(
+            f"{cfg.n_layers} layers cannot fill {n_stages} stages")
+    gen = (seed if isinstance(seed, torch.Generator)
+           else torch.Generator().manual_seed(int(seed)))
+    embed = {"tok": embedding_init(gen, cfg.vocab, cfg.d_model),
+             "pos": 0.02 * torch.randn((cfg.seq_len, cfg.d_model),
+                                       generator=gen)}
+    head = {"ln_f": layer_norm_init(cfg.d_model),
+            "out": linear_init(gen, cfg.d_model, cfg.vocab)}
+    blocks = [_block_init(gen, cfg) for _ in range(cfg.n_layers)]
+    split = (contiguous_split(blocks, n_stages) if blocks
+             else [[] for _ in range(n_stages)])
+    apply = functools.partial(_stage_apply, n_heads=cfg.n_heads)
+    stages = []
+    for s in range(n_stages):
+        first, last = s == 0, s == n_stages - 1
+        module = GPT(split[s], embed if first else None,
+                     head if last else None).to(dev)
+        in_shape = (cfg.seq_len,) if first else (cfg.seq_len, cfg.d_model)
+        stages.append(Stage(apply=apply, params=module, in_shape=in_shape))
+    return stages, cfg.seq_len * cfg.d_model, (cfg.seq_len, cfg.vocab)
+
+
+def _stage_apply(params, x, key=None, deterministic=True, *, n_heads):
+    """``Stage.apply`` with the JAX signature; the port's blocks are
+    dropout-free (the serving slice runs deterministic forwards only)."""
+    return params(x, n_heads)
+
+
+# -- shared block math -------------------------------------------------------
+
+def _dense_qkv(bp, h, n_heads):
+    """ln1 + QKV projections of one dense block, split to [B, H, T, dh]."""
+    hn = layer_norm(bp["ln1"], h)
+    return (_split_heads(hn @ bp["attn"]["wq"], n_heads),
+            _split_heads(hn @ bp["attn"]["wk"], n_heads),
+            _split_heads(hn @ bp["attn"]["wv"], n_heads))
+
+
+def _dense_attn_tail(bp, h, a):
+    """wo merge + residual + ln2 + MLP (tanh GELU, ``jax.nn.gelu``'s
+    default) + residual."""
+    h = h + _merge_heads(a) @ bp["attn"]["wo"]
+    hn2 = layer_norm(bp["ln2"], h)
+    mid = F.gelu(linear(bp["mlp_in"], hn2), approximate="tanh")
+    return h + linear(bp["mlp_out"], mid)
+
+
+def _head_logprobs(head, h_last):
+    """[..., d] final hidden -> [..., V] log-probs (ln_f + untied head)."""
+    return log_softmax(linear(head["out"], layer_norm(head["ln_f"], h_last)))
+
+
+def _merged_stage_trees(params_list):
+    """Re-join per-stage params into ``(embed, blocks, head)``."""
+    embed = head = None
+    blocks = []
+    for p in params_list:
+        blocks.extend(p["blocks"])
+        embed = p.get("embed", embed)
+        head = p.get("head", head)
+    return embed, blocks, head
+
+
+def _check_embed_matches(stages, cfg: GPTConfig) -> None:
+    """A cfg that does not match the stages' embedding table raises
+    instead of silently slicing past the real position table."""
+    embed = next((s.params.get("embed") for s in stages
+                  if "embed" in s.params), None)
+    got = None if embed is None else tuple(embed["pos"].shape)
+    if got != (cfg.seq_len, cfg.d_model):
+        raise ValueError(
+            f"cfg (seq_len={cfg.seq_len}, d_model={cfg.d_model}) does not "
+            f"match the stages' embedding table {got} — pass the GPTConfig "
+            f"the stages were built with")
+
+
+# -- cache dtypes and quantised blocks ---------------------------------------
+
+_QUANT_QMAX = {"int8": 127.0, "float8_e4m3fn": 448.0, "float8_e5m2": 57344.0}
+
+
+def _cache_dtype(cache_dtype) -> torch.dtype:
+    """K/V cache storage dtype (None = f32). Accepts a ``torch.dtype`` or
+    a dtype name (``"bfloat16"``, ``"int8"``, ``"float8_e4m3fn"``, ...)."""
+    if cache_dtype is None:
+        return torch.float32
+    if isinstance(cache_dtype, torch.dtype):
+        return cache_dtype
+    name = str(getattr(cache_dtype, "name", cache_dtype))
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown cache_dtype {cache_dtype!r}")
+    return dt
+
+
+def _dtype_name(dt: torch.dtype) -> str:
+    return str(dt).removeprefix("torch.")
+
+
+def _is_quantized_dtype(cache_dtype) -> bool:
+    """Whether ``cache_dtype`` selects the quantised (data + scales)
+    block format."""
+    return (cache_dtype is not None
+            and _dtype_name(_cache_dtype(cache_dtype)) in _QUANT_QMAX)
+
+
+class QuantKV(NamedTuple):
+    """One quantised K or V pool buffer: narrow block ``data``
+    ``[L, n_blocks+1, H, bs, dh]`` and the per-row f32 ``scale`` plane
+    ``[L, n_blocks+1, H, bs]``, kept and moved together."""
+    data: torch.Tensor
+    scale: torch.Tensor
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @property
+    def nbytes(self) -> int:
+        return self.data.nbytes + self.scale.nbytes
+
+    @property
+    def shape(self):
+        return self.data.shape
+
+
+def _quantize_rows(rows: torch.Tensor, dtype
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantise rows ``[..., dh]`` with one f32 scale per row: ``scale =
+    max(amax|row| / qmax, 1e-8)``; data = ``round(row / scale)`` (half to
+    even) clipped to ±127 for int8, the plain cast for fp8."""
+    dtype = _cache_dtype(dtype)
+    name = _dtype_name(dtype)
+    qmax = _QUANT_QMAX[name]
+    rows = rows.float()
+    scale = torch.clamp_min(rows.abs().amax(dim=-1) / qmax, 1e-8)
+    q = rows / scale[..., None]
+    if name == "int8":
+        q = torch.clamp(torch.round(q), -127.0, 127.0)
+    return q.to(dtype), scale
+
+
+def _check_cache_quantization(cache_dtype, caller: str, paged: bool) -> None:
+    """Quantised caches are paged-pool-only (the dense layouts are the
+    parity anchors); unknown dtype names raise here."""
+    if cache_dtype is None:
+        return
+    _cache_dtype(cache_dtype)
+    if _is_quantized_dtype(cache_dtype) and not paged:
+        raise ValueError(
+            f"{caller}: quantized cache_dtype="
+            f"{_dtype_name(_cache_dtype(cache_dtype))} is a paged-pool "
+            f"feature (per-block scales live beside physical blocks); "
+            f"dense layouts are the parity anchors — use f32/bf16")
+
+
+# -- sampling ------------------------------------------------------------------
+
+def _check_sampling_args(temperature, top_k, top_p, vocab=None):
+    if (top_k is not None or top_p is not None) and temperature <= 0.0:
+        raise ValueError("top_k/top_p filtering needs temperature > 0 "
+                         "(greedy decoding ignores the filtered tail)")
+    if top_k is not None and (top_k < 1 or
+                              (vocab is not None and top_k > vocab)):
+        raise ValueError(f"top_k={top_k} out of range [1, vocab={vocab}]")
+    if top_p is not None and not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p={top_p} out of range (0, 1]")
+
+
+def _filter_top_dyn(scaled: torch.Tensor, top_k: torch.Tensor,
+                    top_p: torch.Tensor) -> torch.Tensor:
+    """Per-row top-k then nucleus filtering on temperature-scaled rows
+    [N, V] with per-row knobs [N]; masked entries become ``-inf``. The
+    top-1 token always survives (the exclusive-cumsum rule)."""
+    V = scaled.shape[-1]
+    srt = torch.sort(scaled, dim=-1, descending=True).values
+    kth = srt.gather(-1, (top_k.clamp(1, V) - 1).long()[:, None])
+    scaled = torch.where((top_k >= 1)[:, None] & (scaled < kth), -math.inf,
+                         scaled)
+    srt = torch.sort(scaled, dim=-1, descending=True).values
+    p = torch.softmax(srt, dim=-1)
+    exclusive = torch.cumsum(p, dim=-1) - p
+    keep = exclusive < top_p[:, None]
+    thresh = torch.where(keep, srt, math.inf).amin(dim=-1, keepdim=True)
+    return torch.where((top_p <= 1.0)[:, None] & (scaled < thresh),
+                       -math.inf, scaled)
+
+
+def _sample_dyn(rows: torch.Tensor, key_data: torch.Tensor,
+                temperature: torch.Tensor, top_k: torch.Tensor,
+                top_p: torch.Tensor, ctr0: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One decode step on rows [N, V] with per-row sampling params ->
+    ``(tokens int32 [N], next_key_data int64 [N, 2])``. Greedy rows
+    (``temperature == 0``) take the argmax and keep their key; sampled
+    rows split their key once and draw by Gumbel-max from the filtered,
+    temperature-scaled row."""
+    nk, ks = _rng.split(key_data)
+    hot = temperature > 0
+    safe_t = torch.where(hot, temperature, torch.ones_like(temperature))
+    filtered = _filter_top_dyn(rows / safe_t[:, None], top_k, top_p)
+    samp = torch.argmax(filtered + _rng.gumbel(ks, rows.shape[-1], ctr0),
+                        dim=-1)
+    tok = torch.where(hot, samp, torch.argmax(rows, dim=-1))
+    kd = torch.where(hot[:, None], nk, key_data)
+    return tok.to(torch.int32), kd
+
+
+def _on(x, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """A host array (numpy/list/scalar) or tensor as ``dtype`` on ``dev``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=dtype)
+    arr = np.asarray(x)
+    if arr.dtype == np.uint32:      # key data: widen on the host
+        arr = arr.astype(np.int64)
+    return torch.as_tensor(arr).to(device=dev, dtype=dtype)
+
+
+def _sampling_tensors(n: int, temperature, top_k, top_p, dev):
+    """Per-row sampling knobs [n] on ``dev`` (sentinels for None)."""
+    def col(v, dtype):
+        t = _on(v, dev, dtype)
+        return t.expand(n).contiguous() if t.dim() == 0 else t
+    return (col(temperature, torch.float32),
+            col(_NO_TOP_K if top_k is None else top_k, torch.int64),
+            col(_NO_TOP_P if top_p is None else top_p, torch.float32))
+
+
+# -- solo cached decode --------------------------------------------------------
+
+def _validate_decode_build(stages, cfg, prompt_len, n_new, caller):
+    _check_ported(cfg, caller)
+    if prompt_len < 1:
+        raise ValueError(f"{caller} needs a non-empty prompt (t0 >= 1)")
+    if n_new < 1:
+        raise ValueError(f"{caller} needs n_new >= 1")
+    total = prompt_len + n_new
+    if total > cfg.seq_len:
+        raise ValueError(
+            f"prompt {prompt_len} + n_new {n_new} exceeds the model's "
+            f"sequence length {cfg.seq_len}")
+    _check_embed_matches(stages, cfg)
+    return total
+
+
+def _dense_block_prefill(bp, h, li, kc, vc, prompt_len, n_heads):
+    """One block over the whole prompt [b, T0, d]; records cache rows
+    ``[0, prompt_len)`` of layer ``li`` in place, attends the fresh K/V."""
+    q, k, v = _dense_qkv(bp, h, n_heads)
+    kc[li, :, :, :prompt_len] = k.to(kc.dtype)
+    vc[li, :, :, :prompt_len] = v.to(vc.dtype)
+    return _dense_attn_tail(bp, h, causal_attention_core(q, k, v))
+
+
+def _dense_block_step(bp, h, li, kc, vc, i, total, n_heads):
+    """One block on ONE token [b, 1, d] against cache layer ``li``; writes
+    K/V at position ``i`` in place, attends positions ``[0, i]``."""
+    dh = h.shape[-1] // n_heads
+    q, knew, vnew = _dense_qkv(bp, h, n_heads)          # [B, H, 1, dh]
+    kc[li, :, :, i] = knew[:, :, 0].to(kc.dtype)
+    vc[li, :, :, i] = vnew[:, :, 0].to(vc.dtype)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, kc[li].float()) / math.sqrt(dh)
+    live = (torch.arange(total, device=h.device) <= i)[None, None, None, :]
+    scores = torch.where(live, scores, -math.inf)
+    a = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(scores, dim=-1),
+                     vc[li].float())
+    return _dense_attn_tail(bp, h, a)
+
+
+def make_cached_decoder(stages, cfg: GPTConfig, prompt_len: int, n_new: int,
+                        temperature: float = 0.0, top_k: int | None = None,
+                        top_p: float | None = None, cache_dtype=None,
+                        device=None):
+    """KV-cache decode: ``decode(params, prompt, key_data=None) -> int32
+    [B, prompt_len + n_new]`` on ``device``.
+
+    One prefill pass records every layer's K/V for the prompt into
+    ``[L, B, H, total, dh]`` buffers, then one token per step attends the
+    cache. ``key_data`` is uint32[2] (``ops.random.key_data(seed)``;
+    None = seed 0), shared by the batch, each row drawing from its own
+    counter range — for B = 1 exactly the draws the serving engine makes
+    for a request with the same key, so a served stream equals its solo
+    decode. Dense f32/bf16 caches only (quantised caches are paged)."""
+    dev = resolve_device(device)
+    _check_sampling_args(temperature, top_k, top_p, cfg.vocab)
+    _check_cache_quantization(cache_dtype, "make_cached_decoder", paged=False)
+    total = _validate_decode_build(stages, cfg, prompt_len, n_new,
+                                   "make_cached_decoder")
+    H = cfg.n_heads
+    dh = cfg.d_model // H
+    cd = _cache_dtype(cache_dtype)
+
+    @torch.no_grad()
+    def decode(params, prompt, key_data=None):
+        embed, blocks, head = _merged_stage_trees(params)
+        prompt = _on(prompt, dev, torch.int64)
+        b = prompt.shape[0]
+        kc = torch.zeros((len(blocks), b, H, total, dh), dtype=cd, device=dev)
+        vc = torch.zeros_like(kc)
+        kd = _on(_rng.key_data(0) if key_data is None else key_data, dev,
+                 torch.int64).reshape(1, 2).expand(b, 2)
+        knobs = _sampling_tensors(b, temperature, top_k, top_p, dev)
+        ctr0 = torch.arange(b, device=dev) * cfg.vocab
+
+        def pick(row, kd):
+            tok, kd2 = _sample_dyn(row, kd, *knobs, ctr0=ctr0)
+            return tok, kd2[:1].expand(b, 2)
+
+        h = embedding_lookup(embed["tok"], prompt) + embed["pos"][:prompt_len]
+        for li, bp in enumerate(blocks):
+            h = _dense_block_prefill(bp, h, li, kc, vc, prompt_len, H)
+        tok, kd = pick(_head_logprobs(head, h[:, -1]), kd)
+        out = [tok]
+        # each step consumes the token at position i and samples i + 1
+        for i in range(prompt_len, total - 1):
+            h = (embedding_lookup(embed["tok"], tok[:, None])
+                 + embed["pos"][i:i + 1])
+            for li, bp in enumerate(blocks):
+                h = _dense_block_step(bp, h, li, kc, vc, i, total, H)
+            tok, kd = pick(_head_logprobs(head, h[:, 0]), kd)
+            out.append(tok)
+        return torch.cat([prompt.to(torch.int32), torch.stack(out, 1)], 1)
+
+    return decode
+
+
+# -- paged serving programs ----------------------------------------------------
+
+def _validate_paged_build(stages, cfg: GPTConfig, max_len: int,
+                          block_size: int, caller: str, cache_dtype=None,
+                          mesh=None, adapters: bool = False) -> None:
+    _check_ported(cfg, caller)
+    if mesh is not None:
+        raise _roadmap.not_ported(f"{caller}: tensor-parallel serving (mesh)",
+                                  _roadmap.SERVE_EXTENSIONS)
+    if adapters:
+        raise _roadmap.not_ported(f"{caller}: LoRA adapters",
+                                  _roadmap.SERVE_EXTENSIONS)
+    _check_cache_quantization(cache_dtype, caller, paged=True)
+    if not 2 <= max_len <= cfg.seq_len:
+        raise ValueError(
+            f"slot max_len={max_len} outside [2, seq_len={cfg.seq_len}] "
+            f"(the position table bounds every slot's sequence budget)")
+    if block_size < 1:
+        raise ValueError(f"{caller} needs block_size >= 1, got {block_size}")
+    _check_embed_matches(stages, cfg)
+
+
+def _layer_put(layer: torch.Tensor, phys, off, rows: torch.Tensor) -> None:
+    """``layer[phys, :, off] = rows`` (rows [..., H, (dh)] aligned with the
+    index arrays), through a byte view for one-byte storage."""
+    if layer.element_size() == 1:
+        layer.view(torch.uint8)[phys, :, off] = rows.view(torch.uint8)
+    else:
+        layer[phys, :, off] = rows
+
+
+def _paged_scatter(kc, li, phys, off, rows):
+    """Land K/V ``rows`` ``[..., H, dh]`` at layer ``li``, physical block
+    ``phys``, offset ``off`` — in place. Plain buffers cast to the storage
+    dtype; :class:`QuantKV` buffers quantise each row and land its scale
+    in the matching plane in the same call."""
+    if isinstance(kc, QuantKV):
+        qd, sc = _quantize_rows(rows, kc.data.dtype)
+        _layer_put(kc.data[li], phys, off, qd)
+        kc.scale[li][phys, :, off] = sc
+        return kc
+    _layer_put(kc[li], phys, off, rows.to(kc.dtype))
+    return kc
+
+
+def _paged_gather(kc, li, table):
+    """Layer ``li``'s gathered sequence rows ``[..., H, span, dh]`` for the
+    dense attention path; :class:`QuantKV` buffers dequantise to f32."""
+    if isinstance(kc, QuantKV):
+        rows = _gather_paged_rows(kc.data[li], table).float()
+        return rows * _gather_paged_rows(kc.scale[li], table)[..., None]
+    return _gather_paged_rows(kc[li], table)
+
+
+def _paged_attend(kc, vc, li, q, tables, qpos, bs, dev, kernel="fused"):
+    """Attention over layer ``li``'s physical blocks
+    (``ops/paged_attention.py``): ``"fused"`` is one kernel pass,
+    ``"dense"`` its plain version (gather, mask, softmax, einsum). ``q``
+    [S, H, K, dh]; ``tables``/``qpos`` int32. Returns f32 [S, H, K, dh]."""
+    if isinstance(kc, QuantKV):
+        k, v, ks, vs = kc.data[li], vc.data[li], kc.scale[li], vc.scale[li]
+    else:
+        k, v, ks, vs = kc[li], vc[li], None, None
+    if kernel == "dense":
+        return paged_attention_reference(q, k, v, tables, qpos, block_size=bs,
+                                         kscale=ks, vscale=vs)
+    return paged_attention(q.contiguous(), k, v, tables, qpos, block_size=bs,
+                           kscale=ks, vscale=vs, device=dev)
+
+
+def _check_attn_kernel(kernel: str, caller: str) -> str:
+    if kernel not in ("dense", "fused"):
+        raise ValueError(
+            f"{caller}: kernel must be 'dense' (gather-then-dense "
+            f"attention, the parity anchor) or 'fused' (the CUDA "
+            f"paged-attention kernel), got {kernel!r}")
+    return kernel
+
+
+def make_paged_prefill_chunk(stages, cfg: GPTConfig, max_len: int,
+                             block_size: int, cache_dtype=None, mesh=None,
+                             adapters: bool = False, device=None):
+    """Chunked serving prefill into paged blocks: ``chunk(params, kc, vc,
+    tokens [1, c], p0, table [NB], key_data, temperature, top_k, top_p) ->
+    (kc, vc, token, key_data)``.
+
+    Runs ONE request's prompt positions ``[p0, p0+c)`` through every
+    block, scattering each position's K/V into its physical block
+    (``table[p // bs]``, offset ``p % bs``) and attending the gathered
+    block row masked to ``<= position`` — earlier chunks, shared prefix
+    blocks and the chunk's own rows alike. The last position's row is
+    sampled; the engine discards token and key for non-final chunks.
+    ``kc``/``vc`` are updated in place."""
+    _validate_paged_build(stages, cfg, max_len, block_size,
+                          "make_paged_prefill_chunk", cache_dtype, mesh,
+                          adapters)
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def chunk(params, kc, vc, tokens, p0, table, key_data, temperature,
+              top_k, top_p):
+        embed, blocks, head = _merged_stage_trees(params)
+        kc, vc, row = _paged_chunk_fwd(
+            blocks, embed, head, kc, vc, _on(tokens, dev, torch.int64),
+            int(p0), _on(table, dev, torch.int64), cfg.n_heads, block_size)
+        tok, kd = _sample_dyn(row[None],
+                              _on(key_data, dev, torch.int64)[None],
+                              *_sampling_tensors(1, temperature, top_k,
+                                                 top_p, dev))
+        return kc, vc, tok[0], kd[0]
+
+    return chunk
+
+
+def _paged_chunk_fwd(blocks, embed, head, kc, vc, tokens, p0, table, H, bs):
+    """One prompt chunk's scatter + block-gather attention: ``tokens``
+    [1, c] at positions ``[p0, p0+c)``, ``table`` [NB] int64. Returns
+    ``(kc, vc, row)`` — the last position's log-probs [V]."""
+    dev = tokens.device
+    c = tokens.shape[1]
+    dh = embed["tok"].shape[1] // H
+    h = embedding_lookup(embed["tok"], tokens) + embed["pos"][p0:p0 + c]
+    idx = p0 + torch.arange(c, device=dev)
+    phys = table[idx // bs]
+    off = idx % bs
+    span = table.shape[0] * bs
+    live = (torch.arange(span, device=dev)[None, :]
+            <= idx[:, None])[None, None]
+    for li, bp in enumerate(blocks):
+        q, k, v = _dense_qkv(bp, h, H)                     # [1, H, c, dh]
+        _paged_scatter(kc, li, phys, off, k[0].transpose(0, 1))
+        _paged_scatter(vc, li, phys, off, v[0].transpose(0, 1))
+        krow = _paged_gather(kc, li, table).float()        # [H, span, dh]
+        vrow = _paged_gather(vc, li, table).float()
+        scores = torch.einsum("bhqd,hkd->bhqk", q, krow) / math.sqrt(dh)
+        scores = torch.where(live, scores, -math.inf)
+        a = torch.einsum("bhqk,hkd->bhqd", torch.softmax(scores, dim=-1),
+                         vrow)
+        h = _dense_attn_tail(bp, h, a)
+    return kc, vc, _head_logprobs(head, h[:, -1])[0]
+
+
+def make_paged_decode_step(stages, cfg: GPTConfig, max_len: int,
+                           block_size: int, cache_dtype=None, mesh=None,
+                           kernel: str = "dense", adapters: bool = False,
+                           device=None):
+    """Paged serving decode tick: ``step(params, kc, vc, toks [S], pos [S],
+    tables [S, NB], key_data [S, 2], temps [S], top_ks [S], top_ps [S]) ->
+    (kc, vc, next_toks [S], next_key_data [S, 2])``.
+
+    ONE batched token step over all slots: each slot's new K/V lands in
+    physical block ``tables[s, pos // bs]`` at offset ``pos % bs`` (in
+    place) before attention reads it. The engine routes non-decoding
+    slots to the trash block 0 (``pos = 0``, all-trash table): their
+    writes all land there, where no real table points, so duplicate
+    indices in that scatter are harmless.
+
+    ``kernel="fused"`` attends through the CUDA paged-attention kernel
+    (one read of the resident K/V per layer); ``"dense"`` gathers each
+    slot's table span and runs masked softmax einsums (gather, then a
+    second read). Quantised pools dequantise inside either path."""
+    _validate_paged_build(stages, cfg, max_len, block_size,
+                          "make_paged_decode_step", cache_dtype, mesh,
+                          adapters)
+    _check_attn_kernel(kernel, "make_paged_decode_step")
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def step(params, kc, vc, toks, pos, tables, key_data, temps, top_ks,
+             top_ps):
+        embed, blocks, head = _merged_stage_trees(params)
+        kc, vc, rows = _paged_decode_fwd(
+            blocks, embed, head, kc, vc, _on(toks, dev, torch.int64),
+            _on(pos, dev, torch.int64), _on(tables, dev, torch.int64),
+            cfg.n_heads, block_size, kernel)
+        toks2, kd2 = _sample_dyn(rows, _on(key_data, dev, torch.int64),
+                                 *_sampling_tensors(rows.shape[0], temps,
+                                                    top_ks, top_ps, dev))
+        return kc, vc, toks2, kd2
+
+    return step
+
+
+def _paged_decode_fwd(blocks, embed, head, kc, vc, toks, pos, tables, H, bs,
+                      kernel="dense"):
+    """The batched one-token-per-slot step's forward: ``toks``/``pos``
+    [S] and ``tables`` [S, NB] int64. Scatter (and quantise) happens
+    before either attention path reads, so the new token's row is visible
+    at its own position. Returns ``(kc, vc, rows)`` — log-probs [S, V]."""
+    h = (embedding_lookup(embed["tok"], toks[:, None])
+         + embed["pos"][pos][:, None])                      # [S, 1, d]
+    phys = tables.gather(1, (pos // bs)[:, None])[:, 0]
+    off = pos % bs
+    tables_k = tables.to(torch.int32)
+    qpos_k = pos.to(torch.int32)[:, None].contiguous()
+    for li, bp in enumerate(blocks):
+        q, knew, vnew = _dense_qkv(bp, h, H)               # [S, H, 1, dh]
+        _paged_scatter(kc, li, phys, off, knew[:, :, 0, :])
+        _paged_scatter(vc, li, phys, off, vnew[:, :, 0, :])
+        a = _paged_attend(kc, vc, li, q, tables_k, qpos_k, bs, toks.device,
+                          kernel)
+        h = _dense_attn_tail(bp, h, a)
+    return kc, vc, _head_logprobs(head, h[:, 0])
+
+
+def make_paged_block_copy():
+    """The copy-on-write op: ``copy(kc, vc, dst, src) -> (kc, vc)``
+    duplicates physical block ``src`` into ``dst`` across every layer, in
+    place. A :class:`QuantKV` buffer copies its scale plane with its
+    data — a copy that moved rows without their scales would silently
+    rescale the destination block."""
+
+    @torch.no_grad()
+    def copy(kc, vc, dst, src):
+        dst, src = int(dst), int(src)
+        for buf in (kc, vc):
+            for leaf in (buf if isinstance(buf, QuantKV) else (buf,)):
+                leaf[:, dst] = leaf[:, src]
+        return kc, vc
+
+    return copy

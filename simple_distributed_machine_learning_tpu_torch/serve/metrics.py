@@ -1,0 +1,234 @@
+"""Serving telemetry on the metric registry (port of ``serve/metrics.py``).
+
+The instruments of the serve summary line, with the JAX package's names:
+
+- ``serve_ttft_ms`` / ``serve_tpot_ms`` (histograms) — time to first
+  token (queue wait + prefill) and time per output token after it;
+- ``serve_queue_depth`` / ``serve_slots_active`` / ``serve_slots_total``
+  (gauges) and ``serve_slot_occupancy`` (histogram of the decode batch's
+  active/total per tick);
+- ``serve_requests_submitted_total`` / ``serve_requests_completed_total``
+  / ``serve_tokens_generated_total`` (counters), ``serve_tokens_per_sec``
+  (gauge: tokens over first submit -> last token);
+- paged pool: ``serve_blocks_total`` / ``_in_use`` / ``_free`` /
+  ``_cached``, ``serve_kv_bytes_resident`` (gauges),
+  ``serve_prefix_hit_blocks_total`` / ``serve_cow_copies_total`` /
+  ``serve_block_evictions_total`` (counters, fed the pool's per-tick
+  deltas), ``serve_prefill_chunk_ms`` (histogram);
+- per traffic class: ``serve_class_ttft_ms`` / ``serve_class_tpot_ms``
+  (histograms), ``serve_class_completed_total`` /
+  ``serve_class_preemptions_total`` and ``serve_preemptions_total``.
+
+The supervisor, fleet, host-tier, adapter, speculative, deployment-shape
+(``serve_tp``/``serve_spec_k``/``serve_attn_kernel_fused``) and KV-drift
+instruments arrive with the slices that port those layers; until the
+analysis slice the summary has no ``kv_drift_bytes`` key, as the JAX CLI
+prints that line only when present.
+
+``emit()`` writes one ``kind: "serve"`` record to ``metrics.jsonl`` and
+rewrites ``metrics.prom``.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+from simple_distributed_machine_learning_tpu_torch.telemetry.registry import (
+    MetricsRegistry,
+    append_jsonl,
+)
+
+METRICS_FILE = "metrics.jsonl"
+PROM_FILE = "metrics.prom"
+
+# pool lifetime totals -> instrument names (the counters get the deltas)
+_POOL_COUNTERS = {
+    "prefix_hit_blocks_total": "serve_prefix_hit_blocks_total",
+    "cow_copies_total": "serve_cow_copies_total",
+    "evictions_total": "serve_block_evictions_total",
+}
+
+
+class ServeMetrics:
+    """One serving run's instruments; see module docstring."""
+
+    def __init__(self, registry: MetricsRegistry | None = None,
+                 outdir: str | None = None, clock=time.monotonic) -> None:
+        self.registry = registry if registry is not None else MetricsRegistry()
+        self.outdir = outdir
+        self._clock = clock
+        self._t_first_submit: float | None = None
+        self._t_last_token: float | None = None
+        r = self.registry
+        self.queue_depth = r.gauge("serve_queue_depth")
+        self.slots_active = r.gauge("serve_slots_active")
+        self.slots_total = r.gauge("serve_slots_total")
+        self.occupancy = r.histogram("serve_slot_occupancy")
+        self.ttft_ms = r.histogram("serve_ttft_ms")
+        self.tpot_ms = r.histogram("serve_tpot_ms")
+        self.submitted = r.counter("serve_requests_submitted_total")
+        self.completed = r.counter("serve_requests_completed_total")
+        self.tokens = r.counter("serve_tokens_generated_total")
+        self.tokens_per_sec = r.gauge("serve_tokens_per_sec")
+        self.blocks_total = r.gauge("serve_blocks_total")
+        self.blocks_in_use = r.gauge("serve_blocks_in_use")
+        self.blocks_free = r.gauge("serve_blocks_free")
+        self.blocks_cached = r.gauge("serve_blocks_cached")
+        self.kv_bytes_resident = r.gauge("serve_kv_bytes_resident")
+        self.prefill_chunk_ms = r.histogram("serve_prefill_chunk_ms")
+        self._pool_counters = {k: r.counter(v)
+                               for k, v in _POOL_COUNTERS.items()}
+        self._pool_counter_seen = dict.fromkeys(_POOL_COUNTERS, 0)
+        self._paged_seen = False
+        self.preemptions = r.counter("serve_preemptions_total")
+        self._classes: set[str] = set()
+        if outdir:
+            os.makedirs(outdir, exist_ok=True)
+
+    def _class_hist(self, name: str, cls: str):
+        self._classes.add(cls)
+        return self.registry.histogram(name, labels={"class": cls})
+
+    def _class_counter(self, name: str, cls: str):
+        self._classes.add(cls)
+        return self.registry.counter(name, labels={"class": cls})
+
+    # -- event hooks (engine-driven) --------------------------------------
+
+    def on_submit(self) -> None:
+        if self._t_first_submit is None:
+            self._t_first_submit = self._clock()
+        self.submitted.inc()
+
+    def on_first_token(self, ttft_s: float, cls: str | None = None) -> None:
+        self.ttft_ms.observe(ttft_s * 1e3)
+        if cls is not None:
+            self._class_hist("serve_class_ttft_ms", cls).observe(ttft_s * 1e3)
+        self._on_any_token()
+
+    def on_token(self, tpot_s: float, cls: str | None = None) -> None:
+        self.tpot_ms.observe(tpot_s * 1e3)
+        if cls is not None:
+            self._class_hist("serve_class_tpot_ms", cls).observe(tpot_s * 1e3)
+        self._on_any_token()
+
+    def on_preempt(self, cls: str | None = None) -> None:
+        self.preemptions.inc()
+        if cls is not None:
+            self._class_counter("serve_class_preemptions_total", cls).inc()
+
+    def _on_any_token(self) -> None:
+        self.tokens.inc()
+        self._t_last_token = self._clock()
+        span = self.window_s
+        if span and span > 0:
+            self.tokens_per_sec.set(self.tokens.value / span)
+
+    def on_complete(self, cls: str | None = None) -> None:
+        self.completed.inc()
+        if cls is not None:
+            self._class_counter("serve_class_completed_total", cls).inc()
+
+    def on_prefill_chunk(self, chunk_ms: float) -> None:
+        """One prefill chunk's wall latency."""
+        self.prefill_chunk_ms.observe(chunk_ms)
+
+    def on_tick(self, queue_depth: int, active: int, total: int,
+                decode_active: int | None = None,
+                block_stats: dict | None = None) -> None:
+        """End-of-tick gauges. ``decode_active`` is the occupancy the
+        tick's batched decode ran at (sampled before same-tick
+        retirement); ticks without a decode skip the occupancy sample.
+        ``block_stats`` is ``PagedKVPool.stats()``."""
+        self.queue_depth.set(queue_depth)
+        self.slots_active.set(active)
+        self.slots_total.set(total)
+        occ = active if decode_active is None else decode_active
+        if occ and total:
+            self.occupancy.observe(occ / total)
+        if block_stats is not None:
+            self._paged_seen = True
+            self.blocks_total.set(block_stats["blocks_total"])
+            self.blocks_in_use.set(block_stats["blocks_in_use"])
+            self.blocks_free.set(block_stats["blocks_free"])
+            self.blocks_cached.set(block_stats["blocks_cached"])
+            self.kv_bytes_resident.set(block_stats["kv_bytes_resident"])
+            for key, counter in self._pool_counters.items():
+                delta = block_stats[key] - self._pool_counter_seen[key]
+                if delta > 0:
+                    counter.inc(delta)
+                    self._pool_counter_seen[key] = block_stats[key]
+
+    # -- aggregation -------------------------------------------------------
+
+    @property
+    def window_s(self) -> float | None:
+        """First submit -> last token span (the throughput denominator)."""
+        if self._t_first_submit is None or self._t_last_token is None:
+            return None
+        return self._t_last_token - self._t_first_submit
+
+    def class_summary(self, cls: str) -> dict:
+        r3 = (lambda v: None if v is None else round(v, 3))
+        ttft = self._class_hist("serve_class_ttft_ms", cls)
+        tpot = self._class_hist("serve_class_tpot_ms", cls)
+        return {
+            "completed": int(self._class_counter(
+                "serve_class_completed_total", cls).value),
+            "preemptions": int(self._class_counter(
+                "serve_class_preemptions_total", cls).value),
+            "ttft_ms_p50": r3(ttft.quantile(0.5)),
+            "ttft_ms_p95": r3(ttft.quantile(0.95)),
+            "tpot_ms_p50": r3(tpot.quantile(0.5)),
+            "tpot_ms_p95": r3(tpot.quantile(0.95)),
+        }
+
+    def summary(self) -> dict:
+        """The serving record block (the CLI's serve line reads it)."""
+        r3 = (lambda v: None if v is None else round(v, 3))
+        out = {
+            "requests_submitted": int(self.submitted.value),
+            "requests_completed": int(self.completed.value),
+            "tokens_generated": int(self.tokens.value),
+            "tokens_per_sec": round(self.tokens_per_sec.value, 1),
+            "ttft_ms_p50": r3(self.ttft_ms.quantile(0.5)),
+            "ttft_ms_p95": r3(self.ttft_ms.quantile(0.95)),
+            "tpot_ms_p50": r3(self.tpot_ms.quantile(0.5)),
+            "tpot_ms_p95": r3(self.tpot_ms.quantile(0.95)),
+            "slot_occupancy_mean": r3(self.occupancy.mean),
+        }
+        if self.preemptions.value:
+            out["preemptions"] = int(self.preemptions.value)
+        if self._classes:
+            out["per_class"] = {cls: self.class_summary(cls)
+                                for cls in sorted(self._classes)}
+        if self._paged_seen:
+            out.update({
+                "blocks_total": int(self.blocks_total.value),
+                "blocks_in_use": int(self.blocks_in_use.value),
+                "blocks_cached": int(self.blocks_cached.value),
+                "kv_bytes_resident": int(self.kv_bytes_resident.value),
+                "prefix_hit_blocks": int(
+                    self._pool_counters["prefix_hit_blocks_total"].value),
+                "cow_copies": int(
+                    self._pool_counters["cow_copies_total"].value),
+                "block_evictions": int(
+                    self._pool_counters["evictions_total"].value),
+                "prefill_chunk_ms_p50": r3(
+                    self.prefill_chunk_ms.quantile(0.5)),
+                "prefill_chunk_ms_p95": r3(
+                    self.prefill_chunk_ms.quantile(0.95)),
+            })
+        return out
+
+    def emit(self, extra: dict | None = None) -> dict | None:
+        """Append one ``kind: "serve"`` JSONL record and rewrite the
+        Prometheus exposition into ``outdir`` (no-op without one)."""
+        if not self.outdir:
+            return None
+        rec = {"kind": "serve", **self.summary(), **(extra or {})}
+        rec = append_jsonl(os.path.join(self.outdir, METRICS_FILE), rec)
+        with open(os.path.join(self.outdir, PROM_FILE), "w") as f:
+            f.write(self.registry.prometheus_text())
+        return rec
