@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Prove that the PyTorch/CUDA port builds, is right and serves on one GPU.
+"""Prove that the PyTorch/CUDA port builds, is right, serves and trains on
+one GPU.
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU (H100):
 
@@ -10,8 +11,9 @@ and torch — no JAX — and exits non-zero, printing no result, without CUDA
 or without the port beside it. Phases, each fatal on failure:
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions, and
-   the build of every kernel of the serving path from the checkout's
-   sources (``nvcc`` into the git-ignored ``_build/`` directory);
+   the build of every kernel from the checkout's sources (one ``nvcc`` per
+   source, started together, into the git-ignored ``_build/`` directory),
+   with ptxas's registers and spills;
 2. every kernel against its plain PyTorch version on the card, at the
    serving shapes (H = 8, dh = 64, block 16, 8 slots, positions up to
    255), for every cache dtype and K = 1 and 4, within rtol = atol =
@@ -20,7 +22,12 @@ or without the port beside it. Phases, each fatal on failure:
    pool's. Each is timed with CUDA events (one pair around a run of 40
    calls, the L2 flushed before each call, the flushes' own time
    subtracted; median of 5 runs) beside its plain version and its bound;
-3. the port's main path at full width: ``InferenceEngine(attn_kernel=
+   then the flash kernels K1 (forward), K2 (dq) and K3 (dk/dv) against
+   their plain versions, f32 and bf16, at the training shape (16, 8, 256,
+   64), at a ragged T = 200 and at the tiny row's (32, 4, 64, 32), within
+   ``FLASH_TOL``, timed the same way beside their bounds and the library
+   yardstick (``scaled_dot_product_attention``, forward and backward);
+3. the port's serving path at full width: ``InferenceEngine(attn_kernel=
    "fused")`` serving the ``gpt_serve`` trace (24 requests, Poisson
    32/s, prompts 8/16/32, 24 new tokens) on the 21 M-parameter GPT
    (vocab 8192, seq 256, d 512, 8 heads, 4 layers; random weights from
@@ -29,7 +36,18 @@ or without the port beside it. Phases, each fatal on failure:
    "dense"`` engine's and to the solo ``make_cached_decoder``'s;
 4. where a decode tick's time goes: a steady window at full occupancy (8
    slots), timed on the host clock, then traced with ``torch.profiler`` —
-   the device's busy share and its time by kernel (``PERF.md`` section 5).
+   the device's busy share and its time by kernel (``PERF.md`` section 5);
+5. the port's training path: ``bench.py``'s ``gpt_bf16`` row at full width
+   (21 M parameters, batch 16, bf16, AdamW) and its tiny ``gpt`` row (f32,
+   SGD), each ``Pipeline`` + ``make_scanned_train_step`` with
+   ``attn_impl="flash"`` for 30 steps over a pool of 2 random batches:
+   finite losses that fall, K1-K3 launched exactly ``n_layers`` times per
+   step, and losses equal to an ``attn_impl="dense"`` run's from the same
+   weights within ``flash_vs_dense_rtol`` over 10 steps, while a run with
+   a known-wrong attention core (its causal mask one key too wide) falls
+   outside that limit;
+6. where a full-width flash training step's time goes, under
+   ``torch.profiler``.
 
 Before the last line it prints the kernels as one JSON object (times in
 ms, measured in this run; ``bound_ms`` computed from this run's inputs);
@@ -53,6 +71,27 @@ PORT = "simple_distributed_machine_learning_tpu_torch"
 # the tensor cores (the kernel's dots run on the CUDA cores in f32)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+# flash kernel shapes [B, H, T, dh]: the gpt_bf16 row (batch 16, 8 heads,
+# seq 256, d 512), the same at a ragged T, and the tiny gpt row's f32
+# shape (batch 32 as one fused microbatch, 4 heads, seq 64, d 128)
+FLASH_SHAPE = (16, 8, 256, 64)
+FLASH_RAGGED = (16, 8, 200, 64)
+FLASH_TINY_SHAPE = (32, 4, 64, 32)
+# (rtol, atol) of each flash kernel against its plain version, keyed by
+# (dtype, is a row statistic l/m, is a gradient): f32 at 1e-5 (o, l, m) and
+# 1e-4 (dq, dk, dv: tests/test_flash_attention.py's gradient tolerance);
+# bf16 outputs within 2^-6 = two bf16 ulps at 1.0 (bf16 keeps 8 significant
+# bits; the kernel's f32 sums run in another order, and K1 rounds p against
+# its running max, the plain version against the final one); l and m stay
+# f32 in both dtypes
+_BF16_ULP2 = 2.0 ** -6
+FLASH_TOL = {("float32", False, False): (1e-5, 1e-5),
+             ("float32", True, False): (1e-5, 1e-5),
+             ("float32", False, True): (1e-4, 1e-4),
+             ("bfloat16", False, False): (_BF16_ULP2, _BF16_ULP2),
+             ("bfloat16", True, False): (1e-5, 1e-5),
+             ("bfloat16", False, True): (_BF16_ULP2, _BF16_ULP2)}
 # (rtol, atol) of the kernel against its plain version: both read the same
 # stored bytes and scales, so only f32 summation order differs
 SAME_BYTES_TOL = (1e-5, 1e-5)
@@ -63,6 +102,27 @@ ATTN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (5e-2, 5e-2),
             "float8_e5m2": (1.5e-1, 1.5e-1)}
 SERVE_CFG = dict(vocab=8192, seq_len=256, d_model=512, n_heads=8, n_layers=4)
 SERVE_SLOTS, SERVE_BLOCK = 8, 16
+# bench.py's gpt_bf16 and gpt rows (bench.py::_configs), trained on the
+# port's main path with attn_impl="flash"; flash_vs_dense_rtol is the limit
+# on the largest relative gap between a flash run's and a dense run's
+# per-step losses from the same weights and batches. It sits between the
+# gap of the sound flash path and that of a known-wrong one (the dense path
+# with a causal mask one key too wide, the smallest gap of the wrong paths
+# tried), about a factor of 7 from each in bf16; every run measures both
+# gaps and fails unless the wrong one exceeds the limit. bf16 differs
+# because the dense bf16 path rounds scores and probabilities to bf16
+# where the kernels keep them in f32; f32 by summation order only.
+TRAIN_ROWS = {
+    "gpt_bf16": dict(cfg=dict(vocab=8192, seq_len=256, d_model=512,
+                              n_heads=8, n_layers=4),
+                     batch=16, n_micro=1, dtype="bfloat16", opt="adamw",
+                     flash_vs_dense_rtol=2e-3),
+    "gpt": dict(cfg=dict(vocab=128, seq_len=64, d_model=128, n_heads=4,
+                         n_layers=2),
+                batch=32, n_micro=4, dtype=None, opt="sgd",
+                flash_vs_dense_rtol=1e-4),
+}
+TRAIN_POOL, TRAIN_STEPS, TRAIN_COMPARE_STEPS = 2, 30, 10
 SERVE_SIM = dict(n_requests=24, rate=32.0, seed=0, prompt_lens=(8, 16, 32),
                  max_new_tokens=24)
 
@@ -160,14 +220,23 @@ def phase_build(record: dict) -> None:
     print(f"chip_smoke: python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    from simple_distributed_machine_learning_tpu_torch.ops.flash_attention import (  # noqa: E501
+        build_kernel as build_flash,
+    )
+    # one nvcc per source, all started together
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    built = build_kernel()
+    with ThreadPoolExecutor(2) as pool:
+        futures = [pool.submit(build_kernel), pool.submit(build_flash)]
+        builds = [f.result() for f in futures]
     record["build_s"] = round(time.perf_counter() - t0, 3)
-    print(f"chip_smoke: built {built.path.name} in {record['build_s']} s "
-          f"(nvcc {built.build_s:.3f} s)")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"chip_smoke:   ptxas {line.strip()}")
+    for built in builds:
+        print(f"chip_smoke: built {built.path.name} (nvcc "
+              f"{built.build_s:.3f} s)")
+        for line in built.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"chip_smoke:   ptxas {line.strip()}")
+    print(f"chip_smoke: kernels built in {record['build_s']} s")
 
 
 # -- phase 2 ------------------------------------------------------------------
@@ -299,6 +368,137 @@ def phase_kernels(record: dict) -> dict:
           "(scaled_dot_product_attention needs the rows gathered first)")
     record["kernel_variants"] = variants
     return variants
+
+
+def _flash_bound(name: str, shape, dtype) -> tuple[float, str]:
+    """Least time for one flash kernel's work at ``shape`` [B, H, T, dh]:
+    the larger of (bytes: each [B, H, T, dh] operand read once, each output
+    written once, f32 row statistics) / HBM rate and (the causal products'
+    operations: 2 per multiply-add over the T(T+1)/2 live pairs per head;
+    K1 does q.k and p.v, K2 adds do.v and ds.k, K3 q.k, do.v, p.do and
+    ds.q) / the peak rate of the input type (bf16 tensor cores; f32 outside
+    them, since TF32 is off)."""
+    B, H, T, dh = shape
+    e = 2 if dtype == "bfloat16" else 4
+    slab, rows = B * H * T * dh * e, B * H * T * 4
+    nbytes, products = {
+        "flash_forward": (3 * slab + slab + 2 * rows, 2),
+        "flash_dq": (4 * slab + 3 * rows + slab, 3),
+        "flash_dkv": (4 * slab + 3 * rows + 2 * slab, 4),
+    }[name]
+    flops = products * 2 * B * H * (T * (T + 1) // 2) * dh
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / (BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _flash_inputs(shape, dtype, gen, dev):
+    import torch
+    q, k, v, do = (torch.randn(shape, generator=gen).to(dev, getattr(
+        torch, dtype)) for _ in range(4))
+    return q, k, v, do
+
+
+def _flash_err(out, ref, rtol: float, atol: float) -> tuple[float, bool]:
+    import torch
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    ok = bool(torch.isfinite(out).all()) and bool(
+        (err <= atol + rtol * ref.abs()).all())
+    return float(err.max()), ok
+
+
+def phase_flash_kernels(record: dict) -> list[dict]:
+    """K1, K2 and K3 against their plain versions on the card, for f32 and
+    bf16, at the full-width training shape and at a ragged T = 200 (the
+    masked tail live), plus the tiny ``gpt`` row's f32 shape. K2 and K3 are
+    fed the plain forward's statistics, so each is held alone. Each kernel
+    is timed (as phase 2 times K4) at the shape its bench row gives it,
+    beside its plain version, its bound and the library yardstick:
+    ``scaled_dot_product_attention`` for K1, and SDPA's backward (forward
+    and ``autograd.grad`` less the forward) for K2 + K3 together."""
+    import torch
+    import torch.nn.functional as F
+    from simple_distributed_machine_learning_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1)
+    flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32,
+                        device=dev)
+    cases = [("bfloat16", FLASH_SHAPE), ("bfloat16", FLASH_RAGGED),
+             ("float32", FLASH_SHAPE), ("float32", FLASH_RAGGED),
+             ("float32", FLASH_TINY_SHAPE)]
+    timed = {("bfloat16", FLASH_SHAPE), ("float32", FLASH_TINY_SHAPE)}
+    out = []
+    for dtype, shape in cases:
+        q, k, v, do = _flash_inputs(shape, dtype, gen, dev)
+        o_ref, l_ref, m_ref = fa.flash_forward_reference(q, k, v)
+        linv, delta = fa._backward_stats(o_ref, l_ref, do)
+        bwd = (q, k, v, do, m_ref, linv, delta)
+        runs = {
+            "flash_forward": (lambda: fa.flash_forward(q, k, v),
+                              lambda: fa.flash_forward_reference(q, k, v)),
+            "flash_dq": (lambda: fa.flash_dq(*bwd),
+                         lambda: fa.flash_dq_reference(*bwd)),
+            "flash_dkv": (lambda: fa.flash_dkv(*bwd),
+                          lambda: fa.flash_dkv_reference(*bwd)),
+        }
+        lib = {}
+        if (dtype, shape) in timed:
+            qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qg, kg, vg,
+                                                      is_causal=True)
+
+            def sdpa_fb():
+                return torch.autograd.grad(sdpa(), (qg, kg, vg), do)
+
+            fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True), flush)
+            lib = {"flash_forward": fwd_ms,
+                   "backward": time_ms(sdpa_fb, flush) - fwd_ms}
+        for name, (kernel, plain) in runs.items():
+            got, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            parts = {"flash_forward": ("o", "l", "m"), "flash_dq": ("dq",),
+                     "flash_dkv": ("dk", "dv")}[name]
+            errs, ok = {}, True
+            for part, g, r in zip(parts, got, ref):
+                rtol, atol = FLASH_TOL[(dtype, part in ("l", "m"),
+                                        name != "flash_forward")]
+                errs[part], part_ok = _flash_err(g, r, rtol, atol)
+                ok = ok and part_ok
+            v_ = dict(name=name, dtype=dtype, shape=list(shape),
+                      max_abs_err=max(errs.values()), errs=errs)
+            line = (f"chip_smoke: {name:13} {dtype:>8} {tuple(shape)}: vs "
+                    f"plain max abs " + ", ".join(
+                        f"{p} {e:.3e}" for p, e in errs.items())
+                    + f" {'ok' if ok else 'FAIL'}")
+            if lib:
+                v_["ms"] = time_ms(kernel, flush)
+                v_["plain_ms"] = time_ms(plain, flush)
+                v_["bound_ms"], v_["bound_by"] = _flash_bound(name, shape,
+                                                              dtype)
+                v_["library_ms"] = lib.get(name, lib["backward"])
+                line += (f"; kernel {v_['ms']:.4f} ms, plain "
+                         f"{v_['plain_ms']:.4f} ms, bound "
+                         f"{v_['bound_ms']:.4f} ms ({v_['bound_by']}), "
+                         f"library {v_['library_ms']:.4f} ms")
+            print(line)
+            check(ok, f"{name} {dtype} {tuple(shape)} disagrees with its "
+                      f"plain version: {errs}")
+            out.append(v_)
+    print("chip_smoke: flash library_ms: K1's is "
+          "scaled_dot_product_attention(is_causal=True); K2's and K3's are "
+          "both SDPA's whole backward (forward + autograd.grad, less the "
+          "forward): one call computes dq, dk and dv together")
+    record["flash_variants"] = out
+    return out
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -464,6 +664,236 @@ def phase_profile(stages, cfg, record: dict, n_ticks: int = 20) -> None:
               f"{k['calls_per_tick']:6.1f} calls  {k['name']}")
 
 
+# -- phases 5-6: training ------------------------------------------------------
+
+def _flash_counts() -> tuple[int, int, int]:
+    from simple_distributed_machine_learning_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    return (fa.flash_forward.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches)
+
+
+def _reset_flash_counts() -> None:
+    from simple_distributed_machine_learning_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    fa.flash_forward.launches = fa.flash_dq.launches = 0
+    fa.flash_dkv.launches = 0
+
+
+def _train_setup(row: dict, attn_impl: str):
+    """The bench row's model (random weights from seed 0), pipeline,
+    optimizer and a pool of 2 random token batches (float ids, as
+    ``bench.py::_data_gpt`` makes them)."""
+    import torch
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        GPTConfig,
+        make_gpt_stages,
+    )
+    from simple_distributed_machine_learning_tpu_torch.parallel import (
+        Pipeline,
+    )
+    from simple_distributed_machine_learning_tpu_torch.train import (
+        adamw,
+        sgd,
+    )
+    cfg = GPTConfig(**row["cfg"], attn_impl=attn_impl)
+    stages, wire_dim, out_dim = make_gpt_stages(0, cfg, 1)
+    pipe = Pipeline(stages, None, wire_dim, out_dim,
+                    n_microbatches=row["n_micro"],
+                    compute_dtype=row["dtype"] and getattr(torch,
+                                                           row["dtype"]))
+    opt = (adamw(1e-3) if row["opt"] == "adamw"
+           else sgd(0.1, momentum=0.5))
+    gen = torch.Generator().manual_seed(1)
+    shape = (TRAIN_POOL, row["batch"], cfg.seq_len)
+    xs = torch.randint(0, cfg.vocab, shape, generator=gen).float()
+    ts = torch.randint(0, cfg.vocab, shape, generator=gen)
+    return cfg, pipe, opt, xs.to(pipe.device), ts.to(pipe.device)
+
+
+def _train_window(pipe, opt, xs, ts, steps: int):
+    """``steps`` optimizer steps from fresh weights through
+    ``make_scanned_train_step`` over the pool; host-clock seconds to the
+    synchronised end, and the per-step losses."""
+    import torch
+    from simple_distributed_machine_learning_tpu_torch.train import (
+        make_scanned_train_step,
+    )
+    params = pipe.init_params()
+    state = opt.init(params)
+    step = make_scanned_train_step(pipe, opt, pool_steps=steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, losses = step(params, state, xs, ts, 0)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, losses.cpu().tolist()
+
+
+def _leaky_core(q, k, v):
+    """A known-wrong attention core: the dense one with the causal mask one
+    key too wide, so each query also sees its successor."""
+    import math
+
+    import torch
+    t = q.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(q.shape[-1])
+    keep = torch.ones((t, t), dtype=torch.bool, device=q.device).tril(1)
+    p = torch.softmax(torch.where(keep, s, -math.inf), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v)
+
+
+def _wrong_attention_window(dpipe, dopt, xs, ts) -> list[float]:
+    """The flash-vs-dense gate's negative control: the dense pipeline's
+    ``TRAIN_COMPARE_STEPS`` steps with :func:`_leaky_core` in place of the
+    model's attention core; the per-step losses."""
+    from simple_distributed_machine_learning_tpu_torch.models import (
+        gpt as gpt_mod,
+    )
+    core = gpt_mod.causal_attention_core
+    gpt_mod.causal_attention_core = _leaky_core
+    try:
+        return _train_window(dpipe, dopt, xs, ts, TRAIN_COMPARE_STEPS)[1]
+    finally:
+        gpt_mod.causal_attention_core = core
+
+
+def phase_train(name: str, row: dict, record: dict) -> dict:
+    """One bench row's training on the port's main path: ``Pipeline`` +
+    ``make_scanned_train_step`` with ``attn_impl="flash"`` for
+    ``TRAIN_STEPS`` steps (after a 2-step warm-up window), then the same
+    weights and batches with ``attn_impl="dense"`` for
+    ``TRAIN_COMPARE_STEPS`` steps, and with a known-wrong attention core.
+    Checks: finite losses whose last-5 mean is below the first; K1, K2 and
+    K3 launched exactly ``n_layers`` times per step each (counts set to 0
+    just before the flash run, read just after), and never by the dense
+    run; flash and dense losses within the row's limit over the compared
+    steps, and the wrong run's losses outside it."""
+    import math
+
+    import torch
+    cfg, pipe, opt, xs, ts = _train_setup(row, "flash")
+    _train_window(pipe, opt, xs, ts, 2)                 # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    _reset_flash_counts()
+    wall_s, losses = _train_window(pipe, opt, xs, ts, TRAIN_STEPS)
+    counts = _flash_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    n_params = sum(p.numel() for p in pipe.stages[0].params.parameters())
+    step_ms = wall_s * 1e3 / TRAIN_STEPS
+    tokens = row["batch"] * cfg.seq_len
+    print(f"chip_smoke: train {name} (flash, {row['dtype'] or 'float32'}, "
+          f"{row['opt']}, batch {row['batch']}, {n_params} params): "
+          f"{TRAIN_STEPS} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"step {step_ms:.3f} ms (host clock), "
+          f"{row['batch'] * 1e3 / step_ms:.1f} samples/s, "
+          f"{tokens * 1e3 / step_ms:.0f} tokens/s, peak {peak_mb:.0f} MiB")
+    check(all(math.isfinite(v) for v in losses),
+          f"{name}: non-finite training loss {losses}")
+    last5 = sum(losses[-5:]) / 5
+    check(last5 < losses[0], f"{name}: the loss did not fall (first "
+                             f"{losses[0]}, mean of the last 5 {last5})")
+    want = cfg.n_layers * TRAIN_STEPS
+    print(f"chip_smoke: {name} launches K1/K2/K3 {counts} = {cfg.n_layers} "
+          f"layers x {TRAIN_STEPS} steps: {counts == (want,) * 3}")
+    check(counts == (want,) * 3, f"{name}: flash launches {counts} != "
+                                 f"{cfg.n_layers} x {TRAIN_STEPS} each")
+    _, dpipe, dopt, _, _ = _train_setup(row, "dense")
+    _reset_flash_counts()
+    _, dlosses = _train_window(dpipe, dopt, xs, ts, TRAIN_COMPARE_STEPS)
+    check(_flash_counts() == (0, 0, 0), f"{name}: the dense run launched "
+                                        f"a flash kernel")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, dlosses))
+    wlosses = _wrong_attention_window(dpipe, dopt, xs, ts)
+    wrong = max(abs(a - b) / abs(b) for a, b in zip(wlosses, dlosses))
+    limit = row["flash_vs_dense_rtol"]
+    print(f"chip_smoke: {name} flash vs dense losses over "
+          f"{TRAIN_COMPARE_STEPS} steps: max rel diff {rel:.3e} (limit "
+          f"{limit}) {'ok' if rel <= limit else 'FAIL'}; a causal mask one "
+          f"key too wide vs dense: {wrong:.3e} "
+          f"{'caught' if wrong > limit else 'MISSED'}")
+    check(rel <= limit, f"{name}: flash and dense losses differ by {rel} "
+                        f"relative (limit {limit})")
+    check(wrong > limit, f"{name}: the limit {limit} does not tell a wrong "
+                         f"attention path (gap {wrong}) from a sound one")
+    out = dict(steps=TRAIN_STEPS, losses=losses,
+               dense_losses=dlosses, flash_vs_dense_max_rel=rel,
+               wrong_attention_losses=wlosses,
+               wrong_vs_dense_max_rel=wrong,
+               flash_vs_dense_rtol=limit, step_ms=step_ms,
+               samples_per_s=row["batch"] * 1e3 / step_ms,
+               tokens_per_s=tokens * 1e3 / step_ms, launches=counts,
+               peak_mib=peak_mb, n_params=n_params)
+    record.setdefault("train", {})[name] = out
+    return out
+
+
+def phase_train_profile(row: dict, record: dict, n_steps: int = 5) -> None:
+    """Where a full-width flash training step's time goes: ``n_steps``
+    ``make_train_step`` calls under ``torch.profiler`` after a warm-up —
+    the device's busy share, kernel launches per step and device time by
+    kernel (Chrome trace in ``chiprun_out/``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from simple_distributed_machine_learning_tpu_torch.train import (
+        make_train_step,
+    )
+    cfg, pipe, opt, xs, ts = _train_setup(row, "flash")
+    params = pipe.init_params()
+    state = opt.init(params)
+    step = make_train_step(pipe, opt)
+    for i in range(3):
+        params, state, _ = step(params, state, xs[i % TRAIN_POOL],
+                                ts[i % TRAIN_POOL])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            params, state, _ = step(params, state, xs[i % TRAIN_POOL],
+                                    ts[i % TRAIN_POOL])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = (getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0))
+        kernels.append((float(t), e.count, e.key))
+    busy_us = sum(t for t, _, _ in kernels)
+    check(busy_us > 0, "torch.profiler recorded no device time")
+    names = " ".join(k for _, _, k in kernels)
+    for kern in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"):
+        check(kern in names, f"the profiled step shows no {kern}")
+    kernels.sort(reverse=True)
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "train_profile.json"))
+    flash_us = sum(t for t, _, k in kernels if "flash_" in k)
+    prof_rec = dict(profiled_step_ms=wall_us / 1e3 / n_steps,
+                    device_busy_share=busy_us / wall_us,
+                    device_ms_per_step=busy_us / 1e3 / n_steps,
+                    flash_kernels_ms_per_step=flash_us / 1e3 / n_steps,
+                    kernel_launches_per_step=sum(c for _, c, _ in kernels)
+                    / n_steps,
+                    top=[dict(name=k[:120], us_per_step=t / n_steps,
+                              calls_per_step=c / n_steps)
+                         for t, c, k in kernels[:12]])
+    record["train_profile"] = prof_rec
+    print(f"chip_smoke: profile: gpt_bf16 flash train step under the "
+          f"profiler {prof_rec['profiled_step_ms']:.3f} ms, device busy "
+          f"{prof_rec['device_busy_share']:.4f} "
+          f"({prof_rec['device_ms_per_step']:.3f} ms/step, flash kernels "
+          f"{prof_rec['flash_kernels_ms_per_step']:.3f} ms), "
+          f"{prof_rec['kernel_launches_per_step']:.1f} kernels/step")
+    for k in prof_rec["top"]:
+        print(f"chip_smoke:   {k['us_per_step']:9.2f} us/step "
+              f"{k['calls_per_step']:6.1f} calls  {k['name']}")
+
+
 def main() -> int:
     try:
         import torch
@@ -490,10 +920,15 @@ def main() -> int:
     try:
         phase_build(record)
         variants = phase_kernels(record)
+        flash_variants = phase_flash_kernels(record)
         cfg = GPTConfig(**SERVE_CFG)
         stages = make_gpt_stages(0, cfg, 1)[0]
         serve = phase_serve(stages, cfg, record)
         phase_profile(stages, cfg, record)
+        del stages
+        train = phase_train("gpt_bf16", TRAIN_ROWS["gpt_bf16"], record)
+        phase_train("gpt", TRAIN_ROWS["gpt"], record)
+        phase_train_profile(TRAIN_ROWS["gpt_bf16"], record)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -513,6 +948,29 @@ def main() -> int:
         "bound_by": main_v["bound_by"],
         "library_ms": None,
     }]}
+    # the flash kernels' times at the gpt_bf16 row's shape; launches from
+    # that row's flash training run
+    for i, (name, line) in enumerate((("flash_forward", 127),
+                                      ("flash_dq", 300),
+                                      ("flash_dkv", 338))):
+        timed = next(v for v in flash_variants if v["name"] == name
+                     and v["dtype"] == "bfloat16"
+                     and tuple(v["shape"]) == FLASH_SHAPE)
+        kernels["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": f"{PORT}/ops/csrc/flash_attention.cu",
+            "replaces": "simple_distributed_machine_learning_tpu/ops/"
+                        f"flash_attention.py:{line}",
+            "launches": train["launches"][i],
+            "max_abs_err": max(v["max_abs_err"] for v in flash_variants
+                               if v["name"] == name),
+            "ms": timed["ms"],
+            "plain_ms": timed["plain_ms"],
+            "bound_ms": timed["bound_ms"],
+            "bound_by": timed["bound_by"],
+            "library_ms": timed["library_ms"],
+        })
     record["kernels"] = kernels["kernels"]
     record["seconds"] = round(time.perf_counter() - t_start, 3)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

@@ -6,9 +6,11 @@ of ``X`` is ``X`` under this root:
 
 ``ops``        plain tensor functions (layers, losses, dense attention) and
                the hand-written Hopper kernels (``ops/csrc``)
-``models``     the GPT as ``nn.Module`` parameter trees plus the serving
-               decode programs (cached decoder, paged prefill/decode)
-``parallel``   the stage split rule and the ``Stage`` container
+``models``     the GPT as ``nn.Module`` parameter trees, its training
+               forward (dense or flash attention) and the serving decode
+               programs (cached decoder, paged prefill/decode)
+``parallel``   the stage split rule, ``Stage`` and the one-card ``Pipeline``
+``train``      optimizers, schedules, the train and eval steps
 ``serve``      continuous-batching serving over the paged KV pool
 ``telemetry``  the metric registry the serving metrics write through
 

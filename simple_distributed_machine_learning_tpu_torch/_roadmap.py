@@ -10,7 +10,6 @@ def not_ported(what: str, item: str) -> NotImplementedError:
         f"(ROADMAP.md, Queue A: {item})")
 
 
-GPT_TRAINING = "item 2, GPT training with the flash kernels K1-K3"
 SERVE_ROBUSTNESS = "item 4, serving robustness"
 SERVE_EXTENSIONS = "item 5, serving extensions"
 PARALLEL_AXES = "item 6, remaining parallel axes"

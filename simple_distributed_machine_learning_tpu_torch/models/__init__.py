@@ -1,4 +1,5 @@
-"""Models (port of ``models/``): the GPT and its serving decode programs."""
+"""Models (port of ``models/``): the GPT, its training forward and its
+serving decode programs."""
 
 from simple_distributed_machine_learning_tpu_torch.models.gpt import (  # noqa: F401
     GPT,

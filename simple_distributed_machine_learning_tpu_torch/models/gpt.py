@@ -1,4 +1,5 @@
-"""The GPT and its serving decode programs (port of ``models/gpt.py``).
+"""The GPT, its training forward and its serving decode programs (port of
+``models/gpt.py``).
 
 The model is a tree of ``nn.Module`` parameter containers — :class:`GPT`
 (the whole model, or one pipeline stage's slice of it), :class:`Block`,
@@ -10,6 +11,11 @@ the JAX package's (``[in, out]`` linear weights, ``[vocab, d]`` token and
 packages with no transposes (``interop.params_from_numpy``). Containers
 index like the JAX dicts (``bp["attn"]["wq"]``), so the math below reads
 as the reference's does.
+
+Training runs each stage's ``Stage.apply`` (:func:`_stage_apply`): dense-MLP
+blocks whose attention is the dense core or, with ``attn_impl="flash"``,
+the CUDA flash kernels K1-K3 (``ops/flash_attention.py``), with dropout
+drawn from an explicit ``torch.Generator``.
 
 The serving programs are plain closures over the shape scalars — the
 JAX package's ``jit`` builders without ``jit``: PyTorch runs eagerly.
@@ -56,7 +62,11 @@ from simple_distributed_machine_learning_tpu_torch.ops.attention import (
     causal_attention_core,
     mha_init,
 )
+from simple_distributed_machine_learning_tpu_torch.ops.flash_attention import (
+    flash_attention,
+)
 from simple_distributed_machine_learning_tpu_torch.ops.layers import (
+    dropout,
     embedding_init,
     embedding_lookup,
     layer_norm,
@@ -83,11 +93,13 @@ _NO_TOP_P = 2.0
 
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
-    """The JAX package's ``GPTConfig``, field for field, so one config
-    describes one model in both packages. The port builds dense blocks
-    only: the other values of ``attn_impl``, ``n_seq``, MoE and the
-    sharded axes raise ``NotImplementedError`` where a builder meets
-    them."""
+    """The JAX package's ``GPTConfig``, field for field and check for
+    check, so one config describes one model in both packages and a config
+    one rejects the other rejects too. The port builds dense-MLP blocks
+    with ``attn_impl="dense"`` or ``"flash"`` (``ring``/``ulysses`` at
+    ``n_seq == 1`` are the dense math, as in the JAX package); sequence
+    parallelism, MoE and the sharded axes raise ``NotImplementedError``
+    where ``make_gpt_stages`` or a serving program meets them."""
     vocab: int = 128
     seq_len: int = 64
     d_model: int = 128
@@ -112,35 +124,82 @@ class GPTConfig:
             raise ValueError(
                 f"attn_impl must be one of dense/flash/ring/ulysses, got "
                 f"{self.attn_impl!r}")
+        if self.flash_block_q < 1 or self.flash_block_k < 1:
+            raise ValueError(
+                f"flash blocks must be positive, got "
+                f"{self.flash_block_q}/{self.flash_block_k}")
         if self.n_seq < 1 or self.seq_len % self.n_seq:
             raise ValueError(
                 f"seq_len {self.seq_len} not divisible by n_seq {self.n_seq}")
+        if self.n_seq > 1 and self.attn_impl not in ("ring", "ulysses"):
+            raise ValueError(
+                f"n_seq={self.n_seq} needs a sequence-parallel attention "
+                f"(ring or ulysses), got {self.attn_impl!r}")
+        if (self.attn_impl == "ulysses" and self.n_seq > 1
+                and self.n_heads % self.n_seq):
+            raise ValueError(
+                f"ulysses needs n_heads ({self.n_heads}) divisible by "
+                f"n_seq ({self.n_seq})")
         if self.n_experts < 0 or (self.n_experts > 0 and not
                                   1 <= self.moe_top_k <= self.n_experts):
             raise ValueError(
                 f"invalid MoE config: n_experts={self.n_experts}, "
                 f"top_k={self.moe_top_k}")
-        if self.n_tensor_parallel < 1 or self.n_expert_parallel < 1:
-            raise ValueError("parallel widths must be >= 1")
+        if self.n_expert_parallel < 1 or (
+                self.n_expert_parallel > 1
+                and (self.n_experts == 0
+                     or self.n_experts % self.n_expert_parallel)):
+            raise ValueError(
+                f"n_expert_parallel={self.n_expert_parallel} needs "
+                f"n_experts ({self.n_experts}) > 0 and divisible by it")
         if self.overlap not in ("none", "ring"):
             raise ValueError(
                 f"overlap must be 'none' or 'ring', got {self.overlap!r}")
+        self._check_tensor_parallel()
+
+    def _check_tensor_parallel(self) -> None:
+        ntp = self.n_tensor_parallel
+        if ntp < 1:
+            raise ValueError(f"n_tensor_parallel must be >= 1, got {ntp}")
+        if ntp == 1:
+            return
+        if self.n_heads % ntp:
+            raise ValueError(
+                f"n_tensor_parallel={ntp} needs n_heads ({self.n_heads}) "
+                f"divisible by it")
+        if (self.mlp_ratio * self.d_model) % ntp:
+            raise ValueError(
+                f"n_tensor_parallel={ntp} needs the MLP hidden width "
+                f"({self.mlp_ratio * self.d_model}) divisible by it")
+        if self.attn_impl != "dense":
+            raise ValueError(
+                f"tensor parallelism shards attention by head and computes "
+                f"dense math on the local heads; attn_impl="
+                f"{self.attn_impl!r} is not composable with it")
+        if self.n_experts > 0 or self.n_expert_parallel > 1:
+            raise ValueError(
+                "a stage cannot be both tensor- and expert-sharded: use "
+                "n_tensor_parallel with dense-MLP blocks only")
+        if self.n_seq > 1:
+            raise ValueError(
+                "n_tensor_parallel > 1 with n_seq > 1 is not supported (the "
+                "wire's token sharding and the TP row scatter would both "
+                "claim the token axis)")
 
 
 def _check_ported(cfg: GPTConfig, caller: str) -> None:
     """Raise for the config values whose code paths this port has not
-    reached yet, naming the ROADMAP item that ports each."""
-    if cfg.attn_impl != "dense":
-        raise _roadmap.not_ported(f"{caller}: attn_impl={cfg.attn_impl!r}",
-                                  _roadmap.GPT_TRAINING
-                                  if cfg.attn_impl == "flash"
-                                  else _roadmap.PARALLEL_AXES)
+    reached yet, naming the ROADMAP item that ports each. Every
+    ``attn_impl`` is ported at ``n_seq == 1``: serving attends with the
+    dense einsums whatever the config (as the JAX engine does), and
+    training runs dense or flash blocks."""
     if cfg.n_experts > 0 or cfg.n_expert_parallel > 1:
         raise _roadmap.not_ported(f"{caller}: MoE blocks (n_experts > 0)",
                                   _roadmap.PARALLEL_AXES)
     if cfg.n_seq > 1:
-        raise _roadmap.not_ported(f"{caller}: sequence parallelism",
-                                  _roadmap.PARALLEL_AXES)
+        raise _roadmap.not_ported(
+            f"{caller}: sequence parallelism ({cfg.attn_impl}, n_seq="
+            f"{cfg.n_seq})", _roadmap.PARALLEL_AXES)
     if cfg.n_tensor_parallel > 1:
         raise _roadmap.not_ported(f"{caller}: n_tensor_parallel > 1",
                                   _roadmap.SERVE_EXTENSIONS)
@@ -213,11 +272,6 @@ class Block(_Tree):
         self.mlp_in = Linear(**tree["mlp_in"])
         self.mlp_out = Linear(**tree["mlp_out"])
 
-    def forward(self, h: torch.Tensor, n_heads: int) -> torch.Tensor:
-        """The dense full-sequence block (dropout-free), h: [B, T, d]."""
-        q, k, v = _dense_qkv(self, h, n_heads)
-        return _dense_attn_tail(self, h, causal_attention_core(q, k, v))
-
 
 class GPT(_Tree):
     """The GPT, or one pipeline stage of it: ``blocks`` always, ``embed``
@@ -232,20 +286,6 @@ class GPT(_Tree):
         self.blocks = nn.ModuleList(Block(b) for b in blocks)
         if head is not None:
             self.head = Head(**head)
-
-    def forward(self, x: torch.Tensor, n_heads: int) -> torch.Tensor:
-        """Token ids [B, T] (first stage) or hidden [B, T, d] -> hidden,
-        or log-probs [B, T, V] on the last stage."""
-        if "embed" in self:
-            h = (embedding_lookup(self.embed.tok, x)
-                 + self.embed.pos[:x.shape[1]])
-        else:
-            h = x
-        for bp in self.blocks:
-            h = bp(h, n_heads)
-        if "head" in self:
-            h = _head_logprobs(self.head, h)
-        return h
 
 
 def _block_init(gen: torch.Generator, cfg: GPTConfig) -> dict:
@@ -282,7 +322,7 @@ def make_gpt_stages(seed=0, cfg: GPTConfig = GPTConfig(), n_stages: int = 2,
     blocks = [_block_init(gen, cfg) for _ in range(cfg.n_layers)]
     split = (contiguous_split(blocks, n_stages) if blocks
              else [[] for _ in range(n_stages)])
-    apply = functools.partial(_stage_apply, n_heads=cfg.n_heads)
+    apply = functools.partial(_stage_apply, cfg=cfg)
     stages = []
     for s in range(n_stages):
         first, last = s == 0, s == n_stages - 1
@@ -293,10 +333,48 @@ def make_gpt_stages(seed=0, cfg: GPTConfig = GPTConfig(), n_stages: int = 2,
     return stages, cfg.seq_len * cfg.d_model, (cfg.seq_len, cfg.vocab)
 
 
-def _stage_apply(params, x, key=None, deterministic=True, *, n_heads):
-    """``Stage.apply`` with the JAX signature; the port's blocks are
-    dropout-free (the serving slice runs deterministic forwards only)."""
-    return params(x, n_heads)
+def _stage_apply(params, x, key=None, deterministic=True, *, cfg):
+    """``Stage.apply(params, x, key, deterministic)``, the JAX signature:
+    token ids ``[B, T]`` (integer, or float as the JAX wire carries them)
+    on the first stage, hidden ``[B, T, d]`` after it -> hidden, or
+    log-probs ``[B, T, V]`` on the last stage.
+
+    ``params`` is the stage's :class:`GPT` module or a tree of tensors that
+    indexes the same way (the pipeline's ``compute_dtype`` casts). ``key``
+    is a ``torch.Generator`` on x's device (None = torch's default there)
+    that the blocks' dropout draws from, in block order; with
+    ``deterministic`` (or ``dropout_rate == 0``) it draws nothing."""
+    if "embed" in params:
+        ids = x.long()                              # float ids are exact
+        h = (embedding_lookup(params["embed"]["tok"], ids)
+             + params["embed"]["pos"][:ids.shape[1]])
+    else:
+        h = x
+    for bp in params["blocks"]:
+        h = _block_train(bp, h, cfg, key, deterministic)
+    if "head" in params:
+        h = _head_logprobs(params["head"], h)
+    return h
+
+
+def _block_train(bp, h, cfg: GPTConfig, gen, deterministic: bool):
+    """One dense-MLP block of the training forward (the JAX package's
+    ``_block_apply``): ln1, causal attention by ``cfg.attn_impl`` — the
+    flash kernels (``ops/flash_attention.py``, K1 forward and K2 + K3 in
+    the backward) or the dense core — then dropout, residual, ln2, tanh
+    GELU MLP, dropout, residual. ``ring``/``ulysses`` at ``n_seq == 1``
+    are the dense math, as in the JAX package."""
+    q, k, v = _dense_qkv(bp, h, cfg.n_heads)
+    if cfg.attn_impl == "flash":
+        a = flash_attention(q, k, v, cfg.flash_block_q, cfg.flash_block_k,
+                            device=h.device)
+    else:
+        a = causal_attention_core(q, k, v)
+
+    def drop(x):
+        return dropout(gen, x, cfg.dropout_rate, deterministic)
+
+    return _dense_attn_tail(bp, h, a, drop)
 
 
 # -- shared block math -------------------------------------------------------
@@ -309,13 +387,15 @@ def _dense_qkv(bp, h, n_heads):
             _split_heads(hn @ bp["attn"]["wv"], n_heads))
 
 
-def _dense_attn_tail(bp, h, a):
+def _dense_attn_tail(bp, h, a, drop=None):
     """wo merge + residual + ln2 + MLP (tanh GELU, ``jax.nn.gelu``'s
-    default) + residual."""
-    h = h + _merge_heads(a) @ bp["attn"]["wo"]
+    default) + residual; ``drop`` (training) is applied to both residual
+    branches before they are added."""
+    drop = drop or (lambda x: x)
+    h = h + drop(_merge_heads(a) @ bp["attn"]["wo"])
     hn2 = layer_norm(bp["ln2"], h)
     mid = F.gelu(linear(bp["mlp_in"], hn2), approximate="tanh")
-    return h + linear(bp["mlp_out"], mid)
+    return h + drop(linear(bp["mlp_out"], mid))
 
 
 def _head_logprobs(head, h_last):

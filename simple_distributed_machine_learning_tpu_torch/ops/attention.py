@@ -1,8 +1,9 @@
 """Dense multi-head attention math (port of ``ops/attention.py``).
 
-Plain torch: the QKVO projection init, the head split/merge and the masked
-softmax core that the cached decoder's prefill and the training forward
-share. Ring attention waits for the sequence-parallel slice.
+Plain torch: the QKVO projection init, the head split/merge, the masked
+softmax core that the cached decoder's prefill and the dense training
+blocks share, and ``causal_attention`` (the whole dense MHA). Ring
+attention waits for the sequence-parallel slice.
 """
 
 from __future__ import annotations
@@ -43,3 +44,11 @@ def causal_attention_core(q: torch.Tensor, k: torch.Tensor,
     mask = torch.tril(torch.ones((t, t), dtype=torch.bool, device=q.device))
     scores = torch.where(mask, scores, -math.inf)
     return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(scores, dim=-1), v)
+
+
+def causal_attention(params, x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """Standard causal MHA on one device. x: [B, T, D] -> [B, T, D]."""
+    q = _split_heads(x @ params["wq"], n_heads)
+    k = _split_heads(x @ params["wk"], n_heads)
+    v = _split_heads(x @ params["wv"], n_heads)
+    return _merge_heads(causal_attention_core(q, k, v)) @ params["wo"]

@@ -60,3 +60,19 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int,
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return table[ids.long()]
+
+
+def dropout(gen: torch.Generator | None, x: torch.Tensor, rate: float = 0.5,
+            deterministic: bool = False) -> torch.Tensor:
+    """Inverted dropout with an explicit generator and mode (the JAX
+    package's ``dropout(key, x, rate, deterministic)``): each entry is kept
+    with probability ``1 - rate`` and scaled by ``1 / (1 - rate)``; the
+    identity when ``deterministic`` or ``rate == 0``. ``gen`` lies on x's
+    device (None draws from torch's default generator there); its bits
+    differ from ``jax.random``'s by design."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))

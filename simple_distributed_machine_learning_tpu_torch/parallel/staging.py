@@ -1,6 +1,7 @@
 """Stage split rule (port of ``parallel/staging.py``: ``contiguous_split``).
 
-The packed stage buffer and the wire codec wait for the training slice.
+The packed stage buffer and the wire codec exist to shard stages over a
+mesh; they wait for the multi-stage pipeline (ROADMAP Queue A item 6).
 """
 
 from __future__ import annotations

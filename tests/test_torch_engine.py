@@ -13,6 +13,7 @@ greedy decoding with every cache dtype.
 """
 
 import ast
+import dataclasses
 import pathlib
 
 import jax
@@ -149,6 +150,23 @@ def test_fused_equals_dense_greedy(weights, cache_dtype):
     assert [len(s) for s in fused] == [r["max_new_tokens"] for r in reqs]
 
 
+def test_flash_configured_model_serves_the_dense_streams(weights):
+    """``attn_impl="flash"`` names the training attention: serving attends
+    with the dense einsums whatever the config, in the JAX engine and in
+    the port, so a flash-configured model's greedy streams equal the dense
+    config's, and the JAX engine's for the same flash config."""
+    jcfg, jst, jparams, tcfg, tst, tparams = weights
+    reqs = _mix()
+    dense = _run(_port_engine(weights), reqs)
+    flash = _run(InferenceEngine(
+        tst, dataclasses.replace(tcfg, attn_impl="flash"), params=tparams,
+        device="cpu", metrics=ServeMetrics(), **ENGINE_KW), reqs)
+    jflash = _run(JaxEngine(jst, dataclasses.replace(jcfg, attn_impl="flash"),
+                            params=jparams, **ENGINE_KW), reqs)
+    assert flash == dense == jflash
+    assert [len(s) for s in flash] == [r["max_new_tokens"] for r in reqs]
+
+
 def test_engine_defaults_to_cuda_and_raises_without_it(weights):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: device=None is valid here")
@@ -175,7 +193,7 @@ def test_unported_engine_knobs_raise_with_roadmap_item(weights, kw):
 
 
 @pytest.mark.parametrize("cfg_kw", [dict(n_experts=4),
-                                    dict(attn_impl="flash")])
+                                    dict(attn_impl="ring", n_seq=2)])
 def test_unported_model_configs_raise_in_the_engine(weights, cfg_kw):
     _, _, _, _, tst, tparams = weights
     cfg = tgpt.GPTConfig(**{**SMALL, **cfg_kw})

@@ -210,7 +210,7 @@ def test_sampled_top1_equals_greedy_and_seeds_reproduce():
     assert not torch.equal(a, dec(tparams, prompt, key_data(2)))
 
 
-@pytest.mark.parametrize("kw", [dict(attn_impl="flash"),
+@pytest.mark.parametrize("kw", [dict(attn_impl="ulysses", n_seq=2),
                                 dict(n_experts=4),
                                 dict(attn_impl="ring", n_seq=2),
                                 dict(n_tensor_parallel=2)])

@@ -12,9 +12,10 @@ only f32 summation order differs, so they are held at
 1.5e-1) is used only where a narrow pool's answer is compared with the
 unquantised f32 pool's.
 
-The CUDA kernel itself runs only on the card: its test here is marked
-``cuda`` and skips without one; ``chip_smoke.py`` holds it against the
-plain version at the serving shapes on every chip run.
+The CUDA kernel itself runs only on the card: its test, which needs no
+JAX, is ``tests/test_torch_paged_attention_cuda.py``; ``chip_smoke.py``
+holds it against the plain version at the serving shapes on every chip
+run.
 """
 
 import jax.numpy as jnp
@@ -209,30 +210,3 @@ def test_tensors_off_the_requested_device_raise():
                         torch.from_numpy(qpos), block_size=BS,
                         device="cuda")
 
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("K", [1, 4])
-@pytest.mark.parametrize("name", DTYPES)
-def test_cuda_kernel_matches_plain_version(cuda_device, name, K):
-    q, kc, vc, tables, qpos = _toy_pool(11, K=K)
-    _, (tk, tv, tks, tvs) = _pools(name, kc, vc)
-    args = [torch.from_numpy(q), tk, tv, torch.from_numpy(tables),
-            torch.from_numpy(qpos), tks, tvs]
-    args = [None if a is None else a.to(cuda_device) for a in args]
-    before = paged_attention.launches
-    out = paged_attention(*args[:5], block_size=BS, kscale=args[5],
-                          vscale=args[6])
-    torch.cuda.synchronize()
-    assert paged_attention.launches == before + 1
-    ref = paged_attention_reference(*args[:5], block_size=BS,
-                                    kscale=args[5], vscale=args[6])
-    rtol, atol = SAME_BYTES_TOL
-    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
-                               rtol=rtol, atol=atol)
