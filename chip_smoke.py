@@ -13,7 +13,9 @@ or without the port beside it. Phases, each fatal on failure:
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions, and
    the build of every kernel from the checkout's sources (one ``nvcc`` per
    source, started together, into the git-ignored ``_build/`` directory),
-   with ptxas's registers and spills;
+   with ptxas's registers and spills, and the count of tensor-core
+   (``HMMA``) instructions in each flash kernel's SASS (``cuobjdump``):
+   the bf16 K2/K3 kernels must have some;
 2. every kernel against its plain PyTorch version on the card, at the
    serving shapes (H = 8, dh = 64, block 16, 8 slots, positions up to
    255), for every cache dtype and K = 1 and 4, within rtol = atol =
@@ -24,9 +26,12 @@ or without the port beside it. Phases, each fatal on failure:
    subtracted; median of 5 runs) beside its plain version and its bound;
    then the flash kernels K1 (forward), K2 (dq) and K3 (dk/dv) against
    their plain versions, f32 and bf16, at the training shape (16, 8, 256,
-   64), at a ragged T = 200 and at the tiny row's (32, 4, 64, 32), within
-   ``FLASH_TOL``, timed the same way beside their bounds and the library
-   yardstick (``scaled_dot_product_attention``, forward and backward);
+   64), at a ragged T = 200 and at the tiny row's (32, 4, 64, 32), and in
+   bf16 at the edges of the tensor-core K2/K3 (head dims 8, 32, 40 and
+   128, T = 1, 65 and 200), within ``FLASH_TOL``, timed the same way
+   beside their bounds and the library yardstick
+   (``scaled_dot_product_attention``, forward and backward; K2 + K3
+   against SDPA's backward on one line);
 3. the port's serving path at full width: ``InferenceEngine(attn_kernel=
    "fused")`` serving the ``gpt_serve`` trace (24 requests, Poisson
    32/s, prompts 8/16/32, 24 new tokens) on the 21 M-parameter GPT
@@ -67,8 +72,9 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PORT = "simple_distributed_machine_learning_tpu_torch"
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 FLOP/s outside
-# the tensor cores (the kernel's dots run on the CUDA cores in f32)
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s outside the
+# tensor cores (K4's and the f32 flash kernels' products: TF32 is off) and
+# dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
@@ -78,6 +84,13 @@ BF16_FLOPS = 989e12
 FLASH_SHAPE = (16, 8, 256, 64)
 FLASH_RAGGED = (16, 8, 200, 64)
 FLASH_TINY_SHAPE = (32, 4, 64, 32)
+# bf16 edge shapes of the tensor-core K2/K3 at a small B*H: head dims padded
+# to 32 and 128 and one not a multiple of 16 (40), each at T = 1 (one row),
+# 65 (one row past a tile) and 200 (a ragged tail); dh 64 at T = 1, 65; and
+# dh 8 (padded to 16, the smallest instantiation) at T = 65, 200
+FLASH_EDGES = ([(2, 4, t, dh) for dh in (32, 40, 128) for t in (1, 65, 200)]
+               + [(2, 4, t, 64) for t in (1, 65)]
+               + [(2, 4, t, 8) for t in (65, 200)])
 # (rtol, atol) of each flash kernel against its plain version, keyed by
 # (dtype, is a row statistic l/m, is a gradient): f32 at 1e-5 (o, l, m) and
 # 1e-4 (dq, dk, dv: tests/test_flash_attention.py's gradient tolerance);
@@ -210,6 +223,35 @@ def profiled_kernel_ms(fn, flush, name: str, n: int = 40) -> float:
 
 # -- phase 1 ------------------------------------------------------------------
 
+def sass_hmma_counts(lib_path) -> dict[str, int]:
+    """Tensor-core (``HMMA``) instructions in each kernel of a built
+    library, from ``cuobjdump -sass`` (beside ``nvcc``); names demangled
+    with ``cu++filt`` where the toolkit has it."""
+    from simple_distributed_machine_learning_tpu_torch.ops._cuda_build import (  # noqa: E501
+        nvcc_path,
+    )
+    bindir = os.path.dirname(nvcc_path())
+    out = subprocess.run([os.path.join(bindir, "cuobjdump"), "-sass",
+                          str(lib_path)], capture_output=True, text=True,
+                         timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
+    counts: dict[str, int] = {}
+    name = None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and "HMMA" in line:
+            counts[name] += 1
+    filt = os.path.join(bindir, "cu++filt")
+    if counts and os.path.exists(filt):
+        dem = subprocess.run([filt], input="\n".join(counts), text=True,
+                             capture_output=True, timeout=60)
+        if dem.returncode == 0 and len(dem.stdout.splitlines()) == len(counts):
+            counts = dict(zip(dem.stdout.splitlines(), counts.values()))
+    return counts
+
+
 def phase_build(record: dict) -> None:
     import torch
     from simple_distributed_machine_learning_tpu_torch.ops.paged_attention import (  # noqa: E501
@@ -237,6 +279,14 @@ def phase_build(record: dict) -> None:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"chip_smoke:   ptxas {line.strip()}")
     print(f"chip_smoke: kernels built in {record['build_s']} s")
+    hmma = sass_hmma_counts(builds[1].path)
+    for name, n in sorted(hmma.items()):
+        print(f"chip_smoke:   SASS HMMA {n:5d}  {name}")
+    mma = {n: c for n, c in hmma.items() if "_bf16_mma" in n}
+    # the bf16 K2 and K3, each at head dims padded to 16, 32, 64, 128
+    check(len(mma) == 8 and all(c > 0 for c in mma.values()),
+          f"the bf16 K2/K3 kernels are not all on the tensor cores: {mma}")
+    record["sass_hmma"] = hmma
 
 
 # -- phase 2 ------------------------------------------------------------------
@@ -412,7 +462,8 @@ def _flash_err(out, ref, rtol: float, atol: float) -> tuple[float, bool]:
 def phase_flash_kernels(record: dict) -> list[dict]:
     """K1, K2 and K3 against their plain versions on the card, for f32 and
     bf16, at the full-width training shape and at a ragged T = 200 (the
-    masked tail live), plus the tiny ``gpt`` row's f32 shape. K2 and K3 are
+    masked tail live), plus the tiny ``gpt`` row's f32 shape and the bf16
+    edge shapes ``FLASH_EDGES`` of the tensor-core K2/K3. K2 and K3 are
     fed the plain forward's statistics, so each is held alone. Each kernel
     is timed (as phase 2 times K4) at the shape its bench row gives it,
     beside its plain version, its bound and the library yardstick:
@@ -430,6 +481,7 @@ def phase_flash_kernels(record: dict) -> list[dict]:
     cases = [("bfloat16", FLASH_SHAPE), ("bfloat16", FLASH_RAGGED),
              ("float32", FLASH_SHAPE), ("float32", FLASH_RAGGED),
              ("float32", FLASH_TINY_SHAPE)]
+    cases += [("bfloat16", shape) for shape in FLASH_EDGES]
     timed = {("bfloat16", FLASH_SHAPE), ("float32", FLASH_TINY_SHAPE)}
     out = []
     for dtype, shape in cases:
@@ -493,6 +545,15 @@ def phase_flash_kernels(record: dict) -> list[dict]:
             check(ok, f"{name} {dtype} {tuple(shape)} disagrees with its "
                       f"plain version: {errs}")
             out.append(v_)
+    main = {v["name"]: v for v in out if v["dtype"] == "bfloat16"
+            and tuple(v["shape"]) == FLASH_SHAPE}
+    bwd_ms = main["flash_dq"]["ms"] + main["flash_dkv"]["ms"]
+    sdpa_bwd = main["flash_dq"]["library_ms"]
+    print(f"chip_smoke: K2 + K3 bf16 {FLASH_SHAPE}: {bwd_ms:.4f} ms against "
+          f"SDPA's backward {sdpa_bwd:.4f} ms: {bwd_ms / sdpa_bwd:.2f}x")
+    record["flash_backward_vs_sdpa"] = dict(k2_k3_ms=bwd_ms,
+                                            sdpa_backward_ms=sdpa_bwd,
+                                            ratio=bwd_ms / sdpa_bwd)
     print("chip_smoke: flash library_ms: K1's is "
           "scaled_dot_product_attention(is_causal=True); K2's and K3's are "
           "both SDPA's whole backward (forward + autograd.grad, less the "
@@ -865,9 +926,12 @@ def phase_train_profile(row: dict, record: dict, n_steps: int = 5) -> None:
         kernels.append((float(t), e.count, e.key))
     busy_us = sum(t for t, _, _ in kernels)
     check(busy_us > 0, "torch.profiler recorded no device time")
-    names = " ".join(k for _, _, k in kernels)
+    flash = {}                      # K1, K2, K3: (us per step, launches)
     for kern in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"):
-        check(kern in names, f"the profiled step shows no {kern}")
+        hits = [(t, c) for t, c, k in kernels if kern in k]
+        check(bool(hits), f"the profiled step shows no {kern}")
+        flash[kern] = (sum(t for t, _ in hits) / n_steps,
+                       sum(c for _, c in hits) / n_steps)
     kernels.sort(reverse=True)
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -879,6 +943,7 @@ def phase_train_profile(row: dict, record: dict, n_steps: int = 5) -> None:
                     flash_kernels_ms_per_step=flash_us / 1e3 / n_steps,
                     kernel_launches_per_step=sum(c for _, c, _ in kernels)
                     / n_steps,
+                    flash_us_per_step={k: v[0] for k, v in flash.items()},
                     top=[dict(name=k[:120], us_per_step=t / n_steps,
                               calls_per_step=c / n_steps)
                          for t, c, k in kernels[:12]])
@@ -889,6 +954,9 @@ def phase_train_profile(row: dict, record: dict, n_steps: int = 5) -> None:
           f"({prof_rec['device_ms_per_step']:.3f} ms/step, flash kernels "
           f"{prof_rec['flash_kernels_ms_per_step']:.3f} ms), "
           f"{prof_rec['kernel_launches_per_step']:.1f} kernels/step")
+    print("chip_smoke:   flash kernels per step: " + ", ".join(
+        f"{kern} {us:.2f} us ({n:.1f} calls)"
+        for kern, (us, n) in flash.items()))
     for k in prof_rec["top"]:
         print(f"chip_smoke:   {k['us_per_step']:9.2f} us/step "
               f"{k['calls_per_step']:6.1f} calls  {k['name']}")

@@ -4,8 +4,10 @@ The port's CUDA kernels have a plain C interface and are bound with
 ``ctypes`` (no PyTorch headers, so a build takes seconds). A library is
 built at first use, from the sources in the checkout alone, into
 ``simple_distributed_machine_learning_tpu_torch/_build/`` (git-ignored),
-named by a hash of its sources and flags: an unchanged source is built
-once per checkout, and a changed one can never load a stale binary.
+named by a hash of its sources, the ``csrc`` headers they include
+(``#include "x.cuh"``, followed through headers) and the flags: an
+unchanged source is built once per checkout, and a changed source or
+header can never load a stale binary.
 
 Nothing here runs at import: machines without ``nvcc`` (the CPU test
 runs) import the package freely and fail only if they ask for a kernel.
@@ -17,6 +19,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -54,16 +57,40 @@ def nvcc_path() -> str:
                        "CUDA kernels are built from source at first use")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _hashed_files(sources: list[str]) -> list[Path]:
+    """``sources`` under ``ops/csrc``, then every ``csrc`` header they
+    include, directly or through another header, each once."""
+    files, todo = [], [CSRC / s for s in sources]
+    while todo:
+        p = todo.pop(0)
+        if p in files:
+            continue
+        files.append(p)
+        for inc in _INCLUDE.findall(p.read_bytes()):
+            if (CSRC / inc.decode()).is_file():
+                todo.append(CSRC / inc.decode())
+    return files
+
+
+def library_path(name: str, sources: list[str]) -> Path:
+    """Where the library built from ``sources`` lives: ``_build/`` named
+    by the hash of the sources, their headers and the flags."""
+    digest = hashlib.sha256()
+    for p in _hashed_files(sources):
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
 def build(name: str, sources: list[str]) -> BuiltLibrary:
     """Compile ``sources`` (file names under ``ops/csrc``) into one shared
     library and load it. Raises with nvcc's output if the build fails."""
     paths = [CSRC / s for s in sources]
-    digest = hashlib.sha256()
-    for p in paths:
-        digest.update(p.name.encode())
-        digest.update(p.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    out = library_path(name, sources)
     log, build_s = "", 0.0
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

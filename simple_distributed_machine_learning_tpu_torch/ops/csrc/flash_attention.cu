@@ -32,23 +32,44 @@
 //
 // What bounds it: at the training shapes (B 16, H 8, T 256, dh 64, bf16)
 // each kernel does ~1-2 GFLOP of causal products against ~17-26 MB of
-// q/k/v/o/do traffic, so on paper all three are bound by bytes (~5-8 us at
-// 3.35 TB/s). This first version computes the products on the CUDA cores
-// in f32 (SIMT FMAs from shared memory, each thread a 4 x 4 score sub-tile
-// and a 4 x (dh/16) output sub-tile), so in practice it is bound by issuing
-// those FMAs and the shared-memory loads that feed them (8 loads per 16
-// FMAs), with a barrier between load, scores, softmax and accumulate: ~20x
-// the byte bound on an H100. A bf16 x bf16 product is exact in f32, so
-// only the order of sums differs from a tensor-core product. What the design
-// does about the bytes: each q (or k/v) tile is read from device memory once
-// per block and reused across the whole loop, the score matrix never leaves
-// shared memory, and causal tiles past the diagonal are neither loaded nor
-// computed. Tensor cores (wgmma), TMA and double buffering are the next
-// steps; a simple kernel that is right comes first.
+// q/k/v/o/do traffic, so all three are bound by bytes (K1 17.0 MB, K2 21.4
+// MB, K3 25.6 MB: ~5-8 us at 3.35 TB/s, against 1.1-2.2 us of products at
+// the 989 TFLOP/s bf16 tensor-core rate). Each q (or k/v) tile is read from
+// device memory once per block and reused across the whole loop, and causal
+// tiles past the diagonal are neither loaded nor computed.
+//
+// Two implementations:
+// - SIMT (K1 in f32 and bf16, K2 and K3 in f32): products on the CUDA cores
+//   in f32 from f32 shared-memory tiles (each thread a 4 x 4 score sub-tile
+//   and a 4 x (dh/16) output sub-tile), scores in shared memory, a barrier
+//   between load, scores, softmax and accumulate. Bound in practice by
+//   issuing FMAs and the shared loads feeding them (8 loads per 16 FMAs),
+//   ~20x the byte bound. f32 stays here: TF32 tensor cores would keep ~10
+//   bits and break the f32 gradients' 1e-4 parity.
+// - Tensor cores (K2 and K3 in bf16, flash_*_kernel_bf16_mma): every product
+//   is mma.sync m16n8k16, bf16 x bf16 summed in f32 — the same casts as the
+//   TPU kernels' preferred_element_type=f32 dots, only the order of the f32
+//   sums differs. 4 warps per 64-row tile, each owning 16 rows: in K2, 16 q
+//   rows (S = Q_w.K^T, dP = dO_w.V^T, then dq += dS.K); in K3, 16 k rows
+//   computing S^T = K_w.Q^T and dP^T = V_w.dO^T directly, so that p^T and
+//   ds^T come out as the A operands of dv += P^T.dO and dk += dS^T.Q. p and
+//   ds never leave the registers: an m16n8 accumulator pair is repacked in
+//   place as a k16 A fragment (mma_bf16.cuh). Tiles stay bf16 in shared
+//   memory (rows padded to dh + 8 so ldmatrix is free of bank conflicts;
+//   the head dim padded with zeros to DP in {16, 32, 64, 128}), and a
+//   2-stage cp.async ring copies the next k/v (K2) or q/dO + row-statistics
+//   (K3) tile while this one is multiplied. Shared memory is 55 KB a block
+//   at dh 64 (the SIMT K3 used ~100 KB). Inside the diagonal tile each warp
+//   skips the 16- or 32-wide sub-blocks its causal mask zeroes whole.
+// The next steps are wgmma and TMA (and K1 on this machinery).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -119,6 +140,8 @@ struct Args {
   void* dv;
   int T, dh;
   float scale;
+  int vec;             // dh % 8 == 0 and q/k/v/dout 16-byte aligned: rows
+                       // copy as 16-byte cp.async chunks (bf16 backward)
 };
 
 // s[i][j] = sum_d a[row_i][d] * b[col_j][d] over two [64, ld] tiles
@@ -270,8 +293,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   }
 }
 
-// p and ds of one (q tile, k tile) pair from the saved statistics, for this
-// thread's 4 x 4 entries (q rows ty + 16 i, k columns tx + 16 j); s and dp
+// SIMT K2/K3: p and ds of one (q tile, k tile) pair from the saved
+// statistics, for this thread's 4 x 4 entries (q rows ty + 16 i, k columns tx + 16 j); s and dp
 // are the raw q.k^T and do.v^T dots
 __device__ __forceinline__ void recompute_p_ds(float (&s)[kRows][kCols],
                                                float (&dp)[kRows][kCols],
@@ -292,7 +315,7 @@ __device__ __forceinline__ void recompute_p_ds(float (&s)[kRows][kCols],
   }
 }
 
-// ---- K2: dq ------------------------------------------------------------------
+// ---- K2: dq (SIMT, f32) ----------------------------------------------------------
 
 template <typename E, int JD>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
@@ -380,7 +403,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
   }
 }
 
-// ---- K3: dk, dv ----------------------------------------------------------------
+// ---- K3: dk, dv (SIMT, f32) ------------------------------------------------------
 
 template <typename E, int JD>
 __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
@@ -487,6 +510,404 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   }
 }
 
+// ---- K2, K3 in bf16: tensor cores ----------------------------------------------
+
+constexpr int kMmaWarps = 4;                    // each warp owns 16 of the 64 rows
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kPad = 8;                         // bf16 per shared row past DP
+
+// Shapes of the tensor-core kernels for a head dim padded to DP (a multiple
+// of 16). The row stride LD = DP + 8 bf16 puts the 8 rows one ldmatrix
+// reads 16 bytes apart modulo 128, in 8 distinct groups of 4 banks.
+template <int DP>
+struct MmaShape {
+  static constexpr int LD = DP + kPad;
+  static constexpr int KS = DP / 16;            // k16 slices along dh
+  static constexpr int ND = DP / 8;             // n8 tiles along dh
+  static constexpr int SUB = DP > 64 ? 16 : 32; // keys (K2) / queries (K3) per step
+  static constexpr int NS = SUB / 8;            // n8 tiles of a score sub-block
+  static constexpr int KSS = SUB / 16;          // k16 slices of a score sub-block
+  static constexpr int TILE = kTile * LD;       // bf16 per [64, LD] tile
+};
+
+// rows [r0, r0 + 64) of a contiguous [T, dh] bf16 slab into a [64, LD]
+// shared tile: 16-byte cp.async chunks where the slab allows (vec), else
+// element copies; rows at or past T and columns at or past dh are zero
+template <int DP>
+__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
+                                               const __nv_bfloat16* src, int r0,
+                                               int T, int dh, bool vec) {
+  constexpr int LD = MmaShape<DP>::LD, CH = DP / 8;
+  for (int i = threadIdx.x; i < kTile * CH; i += kMmaThreads) {
+    const int r = i / CH, c = (i - r * CH) * 8;
+    const int row = r0 + r;
+    __nv_bfloat16* d = dst + r * LD + c;
+    if (row < T && c < dh) {
+      const __nv_bfloat16* s = src + static_cast<long long>(row) * dh + c;
+      if (vec) {
+        sdml_mma::cp_async16(d, s);             // vec: dh % 8 == 0, so c + 8 <= dh
+      } else {
+        for (int j = 0; j < 8; ++j) d[j] = c + j < dh ? s[j] : __float2bfloat16(0.f);
+      }
+    } else {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// per-row f32 statistics [r0, r0 + 64) by 4-byte cp.async (0 past T)
+__device__ __forceinline__ void load_rows_async(float* dst, const float* src, int r0,
+                                                int T) {
+  for (int r = threadIdx.x; r < kTile; r += kMmaThreads) {
+    if (r0 + r < T) {
+      sdml_mma::cp_async4(dst + r, src + r0 + r);
+    } else {
+      dst[r] = 0.f;
+    }
+  }
+}
+
+// two adjacent output columns (col even) of a [T, dh] bf16 row
+__device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float x0, float x1,
+                                           int col, int dh) {
+  if ((dh & 1) == 0 && col + 1 < dh) {
+    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x0, x1);
+  } else {
+    if (col < dh) dst[0] = __float2bfloat16(x0);
+    if (col + 1 < dh) dst[1] = __float2bfloat16(x1);
+  }
+}
+
+// the A fragment of k16 slice kk from the accumulators of n8 tiles 2 kk and
+// 2 kk + 1, each value rounded to bf16
+template <int NS>
+__device__ __forceinline__ void pack_a(uint32_t (&af)[4], const float (&c)[NS][4],
+                                       int kk) {
+  af[0] = sdml_mma::pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+  af[1] = sdml_mma::pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+  af[2] = sdml_mma::pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+  af[3] = sdml_mma::pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+}
+
+// Offsets (in bf16) of this lane's ldmatrix.x4 row address in a [64, LD]
+// tile. a_off: the A operand of rows r0..r0+15, dh slice ks (matrices:
+// rows 0-7 / 8-15 x cols 0-7, then the same at cols 8-15). b_off: the B
+// operands of two n8 tiles whose n index is the tile row (rows r0..r0+7 and
+// r0+8..r0+15), dh slice ks — non-transposed, for s = x.y^T. bt_off: the B
+// operands of two n8 tiles of dh columns d0..d0+15 whose k index is the tile
+// row (rows r0..r0+15) — read with .trans, for acc += p.y.
+template <int LD>
+__device__ __forceinline__ int a_off(int r0, int ks, int lane) {
+  return (r0 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8;
+}
+template <int LD>
+__device__ __forceinline__ int b_off(int r0, int ks, int lane) {
+  return (r0 + (lane & 7) + ((lane >> 4) << 3)) * LD + ks * 16 + ((lane >> 3) & 1) * 8;
+}
+template <int LD>
+__device__ __forceinline__ int bt_off(int r0, int d0, int lane) {
+  return (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + d0 + (lane >> 4) * 8;
+}
+
+// K2 in bf16: one block per (b*h, 64 q rows), warp w owning q rows 16w..16w+15
+template <int DP>
+__global__ void __launch_bounds__(kMmaThreads) flash_dq_kernel_bf16_mma(Args a) {
+  using S = MmaShape<DP>;
+  using bf16 = __nv_bfloat16;
+  using namespace sdml_mma;
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;    // the longest rows start first
+  const int T = a.T, dh = a.dh;
+  const bool vec = a.vec != 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const long long base = static_cast<long long>(bh) * T * dh;
+  const long long rbase = static_cast<long long>(bh) * T;
+  const bf16* q = static_cast<const bf16*>(a.q) + base;
+  const bf16* k = static_cast<const bf16*>(a.k) + base;
+  const bf16* v = static_cast<const bf16*>(a.v) + base;
+  const bf16* dout = static_cast<const bf16*>(a.dout) + base;
+
+  extern __shared__ uint4 smem_mma[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_mma); // [64, LD]
+  bf16* do_s = q_s + S::TILE;                    // [64, LD]
+  bf16* kv_s = do_s + S::TILE;                   // 2 stages of k, v [64, LD]
+
+  const int q0 = qt * kTile;
+  const int n_kt = (T + kTile - 1) / kTile;
+  const int last = min(n_kt - 1, qt);
+  load_tile_bf16<DP>(q_s, q, q0, T, dh, vec);
+  load_tile_bf16<DP>(do_s, dout, q0, T, dh, vec);
+  load_tile_bf16<DP>(kv_s, k, 0, T, dh, vec);
+  load_tile_bf16<DP>(kv_s + S::TILE, v, 0, T, dh, vec);
+  cp_async_commit();
+
+  // this lane's two rows g and g + 8 of the warp's 16, and their statistics
+  const int wr = warp * 16;
+  const int r_lo = q0 + wr + g, r_hi = r_lo + 8;
+  const float m_lo = r_lo < T ? a.m[rbase + r_lo] : 0.f;
+  const float m_hi = r_hi < T ? a.m[rbase + r_hi] : 0.f;
+  const float li_lo = r_lo < T ? a.linv[rbase + r_lo] : 0.f;
+  const float li_hi = r_hi < T ? a.linv[rbase + r_hi] : 0.f;
+  const float dl_lo = r_lo < T ? a.delta[rbase + r_lo] : 0.f;
+  const float dl_hi = r_hi < T ? a.delta[rbase + r_hi] : 0.f;
+  // the last key any live row of this warp sees (-1: no live row)
+  const int kmax = q0 + wr < T ? min(q0 + wr + 15, T - 1) : -1;
+
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qa[S::KS][4], da[S::KS][4];          // q_w, do_w as A operands
+#pragma unroll
+  for (int s = 0; s < S::KS; ++s) {
+    ldmatrix_x4(qa[s], q_s + a_off<S::LD>(wr, s, lane));
+    ldmatrix_x4(da[s], do_s + a_off<S::LD>(wr, s, lane));
+  }
+  float acc[S::ND][4];
+#pragma unroll
+  for (int n = 0; n < S::ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+  for (int kt = 0; kt <= last; ++kt) {
+    if (kt < last) {                             // the next k, v tile, in flight
+      bf16* nxt = kv_s + ((kt + 1) & 1) * 2 * S::TILE;
+      load_tile_bf16<DP>(nxt, k, (kt + 1) * kTile, T, dh, vec);
+      load_tile_bf16<DP>(nxt + S::TILE, v, (kt + 1) * kTile, T, dh, vec);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();                          // this tile's copies have landed
+    __syncthreads();
+    const bf16* k_s = kv_s + (kt & 1) * 2 * S::TILE;
+    const bf16* v_s = k_s + S::TILE;
+    const int k0 = kt * kTile;
+#pragma unroll 1
+    for (int j0 = 0; j0 < kTile; j0 += S::SUB) {
+      const int kb = k0 + j0;
+      if (kb > kmax) break;                      // past every live row's diagonal
+      float s[S::NS][4], dp[S::NS][4];           // [q row, key] and [q row, key]
+#pragma unroll
+      for (int n = 0; n < S::NS; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < S::KS; ++ks) {
+#pragma unroll
+        for (int n2 = 0; n2 < S::NS / 2; ++n2) {
+          uint32_t kf[4], vf[4];
+          const int off = b_off<S::LD>(j0 + 16 * n2, ks, lane);
+          ldmatrix_x4(kf, k_s + off);
+          ldmatrix_x4(vf, v_s + off);
+          mma_bf16_16816(s[2 * n2], qa[ks], kf[0], kf[1]);
+          mma_bf16_16816(s[2 * n2 + 1], qa[ks], kf[2], kf[3]);
+          mma_bf16_16816(dp[2 * n2], da[ks], vf[0], vf[1]);
+          mma_bf16_16816(dp[2 * n2 + 1], da[ks], vf[2], vf[3]);
+        }
+      }
+      // p and ds * scale in place of s; element i of n8 tile n sits at row
+      // g + 8 (i / 2), key kb + 8 n + 2 t4 + i % 2
+#pragma unroll
+      for (int n = 0; n < S::NS; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const bool hi = i >= 2;
+          const int qp = hi ? r_hi : r_lo;
+          const int kp = kb + 8 * n + 2 * t4 + (i & 1);
+          const bool live = qp >= kp && kp < T && qp < T;
+          const float p =
+              live ? expf(s[n][i] * a.scale - (hi ? m_hi : m_lo)) * (hi ? li_hi : li_lo)
+                   : 0.f;
+          s[n][i] = p * (dp[n][i] - (hi ? dl_hi : dl_lo)) * a.scale;
+        }
+      }
+      // dq += round_bf16(ds * scale) . k over this sub-block's keys
+#pragma unroll
+      for (int kk = 0; kk < S::KSS; ++kk) {
+        uint32_t af[4];
+        pack_a<S::NS>(af, s, kk);
+#pragma unroll
+        for (int d2 = 0; d2 < S::ND / 2; ++d2) {
+          uint32_t kf[4];
+          ldmatrix_x4_trans(kf, k_s + bt_off<S::LD>(j0 + 16 * kk, 16 * d2, lane));
+          mma_bf16_16816(acc[2 * d2], af, kf[0], kf[1]);
+          mma_bf16_16816(acc[2 * d2 + 1], af, kf[2], kf[3]);
+        }
+      }
+    }
+    __syncthreads();                             // this stage is free for kt + 2
+  }
+
+  bf16* dq = static_cast<bf16*>(a.dq) + base;
+#pragma unroll
+  for (int n = 0; n < S::ND; ++n) {
+    const int col = 8 * n + 2 * t4;
+    if (r_lo < T) store_pair(dq + static_cast<long long>(r_lo) * dh + col, acc[n][0],
+                             acc[n][1], col, dh);
+    if (r_hi < T) store_pair(dq + static_cast<long long>(r_hi) * dh + col, acc[n][2],
+                             acc[n][3], col, dh);
+  }
+}
+
+// K3 in bf16: one block per (b*h, 64 k rows), warp w owning k rows
+// 16w..16w+15; scores are computed transposed ([key, query]), so the row
+// statistics m, linv, delta (per query) are per column, staged in shared
+// memory with each q tile
+template <int DP>
+__global__ void __launch_bounds__(kMmaThreads) flash_dkv_kernel_bf16_mma(Args a) {
+  using S = MmaShape<DP>;
+  using bf16 = __nv_bfloat16;
+  using namespace sdml_mma;
+  const int bh = blockIdx.x;
+  const int kt = blockIdx.y;                     // the longest columns start first
+  const int T = a.T, dh = a.dh;
+  const bool vec = a.vec != 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const long long base = static_cast<long long>(bh) * T * dh;
+  const long long rbase = static_cast<long long>(bh) * T;
+  const bf16* q = static_cast<const bf16*>(a.q) + base;
+  const bf16* k = static_cast<const bf16*>(a.k) + base;
+  const bf16* v = static_cast<const bf16*>(a.v) + base;
+  const bf16* dout = static_cast<const bf16*>(a.dout) + base;
+
+  extern __shared__ uint4 smem_mma[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_mma); // [64, LD]
+  bf16* v_s = k_s + S::TILE;                     // [64, LD]
+  bf16* qd_s = v_s + S::TILE;                    // 2 stages of q, do [64, LD]
+  float* st_s = reinterpret_cast<float*>(qd_s + 4 * S::TILE);  // 2 x m, linv, delta [64]
+
+  auto load_stage = [&](int stage, int qt) {
+    bf16* dst = qd_s + 2 * stage * S::TILE;
+    float* rows = st_s + 3 * kTile * stage;
+    const int q0 = qt * kTile;
+    load_tile_bf16<DP>(dst, q, q0, T, dh, vec);
+    load_tile_bf16<DP>(dst + S::TILE, dout, q0, T, dh, vec);
+    load_rows_async(rows, a.m + rbase, q0, T);
+    load_rows_async(rows + kTile, a.linv + rbase, q0, T);
+    load_rows_async(rows + 2 * kTile, a.delta + rbase, q0, T);
+  };
+
+  const int k0 = kt * kTile;
+  const int n_qt = (T + kTile - 1) / kTile;
+  load_tile_bf16<DP>(k_s, k, k0, T, dh, vec);
+  load_tile_bf16<DP>(v_s, v, k0, T, dh, vec);
+  load_stage(0, kt);                             // from the diagonal on
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int wr = warp * 16;
+  const int kr0 = k0 + wr;                       // this warp's first key
+  const bool live_w = kr0 < T;
+  float acc_k[S::ND][4], acc_v[S::ND][4];
+#pragma unroll
+  for (int n = 0; n < S::ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc_k[n][i] = acc_v[n][i] = 0.f;
+
+  for (int qt = kt; qt < n_qt; ++qt) {
+    const int stage = (qt - kt) & 1;
+    if (qt + 1 < n_qt) load_stage(stage ^ 1, qt + 1);  // the next q tile, in flight
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* q_s = qd_s + 2 * stage * S::TILE;
+    const bf16* do_s = q_s + S::TILE;
+    const float* m_s = st_s + 3 * kTile * stage;
+    const float* li_s = m_s + kTile;
+    const float* dl_s = li_s + kTile;
+    const int q0 = qt * kTile;
+#pragma unroll 1
+    for (int j0 = 0; j0 < kTile; j0 += S::SUB) {
+      const int qb = q0 + j0;
+      if (!live_w || qb >= T) break;
+      if (qb + S::SUB <= kr0) continue;          // every query precedes every key
+      float st[S::NS][4], dpt[S::NS][4];         // s^T, dp^T: [key row, query]
+#pragma unroll
+      for (int n = 0; n < S::NS; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) st[n][i] = dpt[n][i] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < S::KS; ++ks) {
+        // k_w, v_w re-read for every sub-block: held in registers across
+        // the loop they cost K3 a block per SM at dh 64 (173 registers
+        // against 160) and ran slower
+        uint32_t kf[4], vf[4];
+        ldmatrix_x4(kf, k_s + a_off<S::LD>(wr, ks, lane));
+        ldmatrix_x4(vf, v_s + a_off<S::LD>(wr, ks, lane));
+#pragma unroll
+        for (int n2 = 0; n2 < S::NS / 2; ++n2) {
+          uint32_t qf[4], df[4];
+          const int off = b_off<S::LD>(j0 + 16 * n2, ks, lane);
+          ldmatrix_x4(qf, q_s + off);
+          ldmatrix_x4(df, do_s + off);
+          mma_bf16_16816(st[2 * n2], kf, qf[0], qf[1]);
+          mma_bf16_16816(st[2 * n2 + 1], kf, qf[2], qf[3]);
+          mma_bf16_16816(dpt[2 * n2], vf, df[0], df[1]);
+          mma_bf16_16816(dpt[2 * n2 + 1], vf, df[2], df[3]);
+        }
+      }
+      // p^T in place of s^T and ds^T * scale in place of dp^T; element i of
+      // n8 tile n sits at key kr0 + g + 8 (i / 2), query column
+      // j0 + 8 n + 2 t4 + i % 2 of the tile
+#pragma unroll
+      for (int n = 0; n < S::NS; ++n) {
+        const int c = j0 + 8 * n + 2 * t4;
+        const float mc[2] = {m_s[c], m_s[c + 1]};
+        const float lc[2] = {li_s[c], li_s[c + 1]};
+        const float dc[2] = {dl_s[c], dl_s[c + 1]};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = i & 1;
+          const int kp = kr0 + g + 8 * (i >> 1);
+          const int qp = q0 + c + j;
+          const bool live = qp >= kp && kp < T && qp < T;
+          const float p = live ? expf(st[n][i] * a.scale - mc[j]) * lc[j] : 0.f;
+          dpt[n][i] = p * (dpt[n][i] - dc[j]) * a.scale;
+          st[n][i] = p;
+        }
+      }
+      // dv += round_bf16(p)^T . do and dk += round_bf16(ds * scale)^T . q
+#pragma unroll
+      for (int kk = 0; kk < S::KSS; ++kk) {
+        uint32_t pa[4], sa[4];
+        pack_a<S::NS>(pa, st, kk);
+        pack_a<S::NS>(sa, dpt, kk);
+#pragma unroll
+        for (int d2 = 0; d2 < S::ND / 2; ++d2) {
+          uint32_t of[4], qf[4];
+          const int off = bt_off<S::LD>(j0 + 16 * kk, 16 * d2, lane);
+          ldmatrix_x4_trans(of, do_s + off);
+          ldmatrix_x4_trans(qf, q_s + off);
+          mma_bf16_16816(acc_v[2 * d2], pa, of[0], of[1]);
+          mma_bf16_16816(acc_v[2 * d2 + 1], pa, of[2], of[3]);
+          mma_bf16_16816(acc_k[2 * d2], sa, qf[0], qf[1]);
+          mma_bf16_16816(acc_k[2 * d2 + 1], sa, qf[2], qf[3]);
+        }
+      }
+    }
+    __syncthreads();                             // this stage is free for qt + 2
+  }
+
+  if (!live_w) return;
+  bf16* dk = static_cast<bf16*>(a.dk) + base;
+  bf16* dv = static_cast<bf16*>(a.dv) + base;
+  const int r_lo = kr0 + g, r_hi = r_lo + 8;
+#pragma unroll
+  for (int n = 0; n < S::ND; ++n) {
+    const int col = 8 * n + 2 * t4;
+    if (r_lo < T) {
+      const long long at = static_cast<long long>(r_lo) * dh + col;
+      store_pair(dk + at, acc_k[n][0], acc_k[n][1], col, dh);
+      store_pair(dv + at, acc_v[n][0], acc_v[n][1], col, dh);
+    }
+    if (r_hi < T) {
+      const long long at = static_cast<long long>(r_hi) * dh + col;
+      store_pair(dk + at, acc_k[n][2], acc_k[n][3], col, dh);
+      store_pair(dv + at, acc_v[n][2], acc_v[n][3], col, dh);
+    }
+  }
+}
+
 // ---- launch --------------------------------------------------------------------
 
 enum Pass { kForward = 0, kDq = 1, kDkv = 2 };
@@ -501,25 +922,51 @@ size_t smem_bytes(Pass pass, int dh) {
   }
 }
 
-template <typename E, int JD>
-cudaError_t launch_typed(Pass pass, const Args& a, int BH, cudaStream_t stream) {
-  const int n_tiles = (a.T + kTile - 1) / kTile;
-  const size_t smem = smem_bytes(pass, a.dh);
-  const dim3 grid(BH, n_tiles);
-  void (*kernel)(Args) = pass == kForward ? flash_fwd_kernel<E, JD>
-                         : pass == kDq    ? flash_dq_kernel<E, JD>
-                                          : flash_dkv_kernel<E, JD>;
+cudaError_t launch_kernel(void (*kernel)(Args), const Args& a, int BH, int threads,
+                          size_t smem, cudaStream_t stream) {
+  const dim3 grid(BH, (a.T + kTile - 1) / kTile);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  kernel<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// the SIMT kernels: K1 in E, K2 and K3 in f32 only
+template <typename E, int JD>
+cudaError_t launch_simt(Pass pass, const Args& a, int BH, cudaStream_t stream) {
+  void (*kernel)(Args) = flash_fwd_kernel<E, JD>;
+  if constexpr (std::is_same<E, float>::value) {
+    if (pass == kDq) kernel = flash_dq_kernel<E, JD>;
+    if (pass == kDkv) kernel = flash_dkv_kernel<E, JD>;
+  } else if (pass != kForward) {
+    return cudaErrorInvalidValue;               // bf16 K2/K3: launch_bf16_backward
+  }
+  return launch_kernel(kernel, a, BH, kThreads, smem_bytes(pass, a.dh), stream);
 }
 
 template <typename E>
 cudaError_t launch_dh(Pass pass, const Args& a, int BH, cudaStream_t stream) {
-  return a.dh <= 64 ? launch_typed<E, 4>(pass, a, BH, stream)
-                    : launch_typed<E, 8>(pass, a, BH, stream);
+  return a.dh <= 64 ? launch_simt<E, 4>(pass, a, BH, stream)
+                    : launch_simt<E, 8>(pass, a, BH, stream);
+}
+
+template <int DP>
+cudaError_t launch_mma(Pass pass, const Args& a, int BH, cudaStream_t stream) {
+  const size_t tiles = 6 * static_cast<size_t>(MmaShape<DP>::TILE) * sizeof(__nv_bfloat16);
+  if (pass == kDq) {
+    return launch_kernel(flash_dq_kernel_bf16_mma<DP>, a, BH, kMmaThreads, tiles, stream);
+  }
+  return launch_kernel(flash_dkv_kernel_bf16_mma<DP>, a, BH, kMmaThreads,
+                       tiles + 2 * 3 * kTile * sizeof(float), stream);
+}
+
+// the tensor-core K2 / K3, head dim padded to 16, 32, 64 or 128
+cudaError_t launch_bf16_backward(Pass pass, const Args& a, int BH, cudaStream_t stream) {
+  if (a.dh <= 16) return launch_mma<16>(pass, a, BH, stream);
+  if (a.dh <= 32) return launch_mma<32>(pass, a, BH, stream);
+  if (a.dh <= 64) return launch_mma<64>(pass, a, BH, stream);
+  return launch_mma<128>(pass, a, BH, stream);
 }
 
 int launch(Pass pass, Args a, int BH, int dtype, void* stream) {
@@ -527,11 +974,18 @@ int launch(Pass pass, Args a, int BH, int dtype, void* stream) {
       a.dh > kMaxHeadDim) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+                         reinterpret_cast<uintptr_t>(a.v) |
+                         reinterpret_cast<uintptr_t>(a.dout);
+  a.vec = a.dh % 8 == 0 && (ptrs & 15u) == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (dtype) {
     case 0: err = launch_dh<float>(pass, a, BH, st); break;
-    case 1: err = launch_dh<__nv_bfloat16>(pass, a, BH, st); break;
+    case 1:
+      err = pass == kForward ? launch_dh<__nv_bfloat16>(pass, a, BH, st)
+                             : launch_bf16_backward(pass, a, BH, st);
+      break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

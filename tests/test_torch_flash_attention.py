@@ -116,6 +116,54 @@ def test_bf16_inputs_match_jax_kernel():
                                    rtol=rtol, atol=atol)
 
 
+@pytest.mark.parametrize("t,bq,bk", [(80, 16, 32), (80, 32, 16)])
+def test_bf16_backward_matches_jax_kernels(t, bq, bk):
+    """The function the bf16 K2/K3 compute, at the training head dim (64)
+    and a ragged T: the port's plain ``flash_dq_reference`` /
+    ``flash_dkv_reference`` against the JAX ``_flash_bwd`` (the Pallas dq
+    and dk/dv kernels in interpret mode), both fed the same residuals (q, k,
+    v and the JAX forward's o, l, m) and the same cotangent."""
+    q, k, v, do = _qkv(11 + t + bq, (1, 2, t, 64), n=4)
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(jnp.bfloat16)
+                       for a in (q, k, v, do))
+    jo, jl, jm = jfa._flash_fwd_call(jq, jk, jv, bq, bk)
+    jdq, jdk, jdv = jfa._flash_bwd(bq, bk, (jq, jk, jv, jo, jl, jm), jdo)
+    tq, tk, tv, tdo = _t(q, k, v, do, dtype=torch.bfloat16)
+    to, tl, tm = _t(*(np.array(a.astype(jnp.float32))
+                      for a in (jo, jl, jm)))
+    to = to.to(torch.bfloat16)                  # exact: jo holds bf16 values
+    linv, delta = tfa._backward_stats(to, tl, tdo)
+    bwd = (tq, tk, tv, tdo, tm, linv, delta)
+    rtol, atol = attn_tol(jnp.bfloat16)
+    for got, ref in zip((tfa.flash_dq_reference(*bwd),
+                         *tfa.flash_dkv_reference(*bwd)), (jdq, jdk, jdv)):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(ref.astype(jnp.float32)),
+                                   rtol=rtol, atol=atol)
+
+
+def test_kernel_build_hash_follows_included_headers(tmp_path, monkeypatch):
+    """A kernel library is named by a hash that covers the ``csrc`` headers
+    its sources include, through other headers too, so an edited header
+    never loads a stale build; the flash kernels include ``mma_bf16.cuh``."""
+    from simple_distributed_machine_learning_tpu_torch.ops import (
+        _cuda_build as cb,
+    )
+    assert [p.name for p in cb._hashed_files(["flash_attention.cu"])] == [
+        "flash_attention.cu", "mma_bf16.cuh"]
+    monkeypatch.setattr(cb, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <stdint.h>\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    assert [p.name for p in cb._hashed_files(["k.cu"])] == [
+        "k.cu", "a.cuh", "b.cuh"]
+    before = cb.library_path("k", ["k.cu"])
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    after = cb.library_path("k", ["k.cu"])
+    assert before != after and after.parent == cb.BUILD_DIR
+
+
 def test_gradcheck_in_float64():
     """The Function's backward (plain K2/K3 from the saved statistics)
     is the derivative of its forward: finite differences in f64."""

@@ -10,8 +10,10 @@ Without a card every test here skips. Tolerances are ``chip_smoke.py``'s:
 f32 ``(o, l, m)`` within rtol = atol = 1e-5 (f32 sums in another order),
 f32 gradients within 1e-4 (the JAX package's gradient tolerance,
 ``tests/test_flash_attention.py``), bf16 outputs within two bf16 ulps at 1.0
-(the kernel rounds p against its running max, the plain version against
-the final one); l and m stay f32 in both dtypes.
+(K1 rounds p against its running max, the plain version against the final
+one; the tensor-core K2/K3 sum in f32 in another order, which can move a
+bf16 rounding of p, ds or an output by one ulp); l and m stay f32 in both
+dtypes.
 """
 
 import numpy as np
@@ -46,14 +48,26 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (dtype, T, dh): f32 through the SIMT kernels at the training head dim, a
+# full and a ragged T; bf16 through the tensor-core K2/K3 at one T row (1),
+# one row past a tile (65), a ragged tail (200) and whole tiles (256), for
+# head dims padded to 32, 64 and 128 and one that is not a multiple of 16;
+# and dh 8, padded to 16 (the smallest instantiation)
+_CASES = ([(torch.float32, t, 64) for t in (256, 200)]
+          + [(torch.bfloat16, t, dh) for dh in (32, 64, 128, 40)
+             for t in (1, 65, 200, 256)]
+          + [(torch.bfloat16, t, 8) for t in (65, 200)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("t", [256, 200])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_kernels_match_plain_versions(cuda_device, dtype, t):
+@pytest.mark.parametrize("dtype,t,dh", _CASES)
+def test_cuda_kernels_match_plain_versions(cuda_device, dtype, t, dh):
     """K1, K2 and K3 on the card against their plain versions on the same
     inputs; K2 and K3 take the plain forward's statistics, so each kernel
-    is held alone. T = 200 leaves the last tile's tail masked."""
-    q, k, v, do = _inputs(9 + t, (2, 4, t, 64), cuda_device, dtype, n=4)
+    is held alone. T = 200 leaves the last tile's tail masked, T = 65 puts
+    one row in a second tile, T = 1 is a single row."""
+    q, k, v, do = _inputs(9 + t + dh, (2, 4, t, dh), cuda_device, dtype,
+                          n=4)
     before = _launches()
     got_f = tfa.flash_forward(q, k, v)
     ref_f = tfa.flash_forward_reference(q, k, v)
@@ -75,15 +89,25 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype, t):
 
 
 @pytest.mark.cuda
-def test_cuda_autograd_goes_through_the_kernels(cuda_device):
-    q, k, v, w = _inputs(10, (2, 2, 96, 32), cuda_device, n=4)
+@pytest.mark.parametrize("dtype,shape", [(torch.float32, (2, 2, 96, 32)),
+                                         (torch.bfloat16, (2, 4, 200, 64))])
+def test_cuda_autograd_goes_through_the_kernels(cuda_device, dtype, shape):
+    """``flash_attention``'s gradients (K1 forward, K2 + K3 backward)
+    against autograd through the dense ``causal_attention_core``. bf16
+    inputs are held against the dense core in f32 on the same (bf16)
+    values: the function the kernels compute, before their bf16 roundings
+    of p, ds and the outputs."""
+    q, k, v, w = _inputs(10, shape, cuda_device, dtype, n=4)
+    w = w.float()
     q, k, v = (a.requires_grad_() for a in (q, k, v))
     before = _launches()
     (tfa.flash_attention(q, k, v) * w).sum().backward()
     torch.cuda.synchronize()
     assert _launches() == tuple(n + 1 for n in before)
-    qr, kr, vr = (a.detach().clone().requires_grad_() for a in (q, k, v))
+    qr, kr, vr = (a.detach().float().requires_grad_() for a in (q, k, v))
     (tattn.causal_attention_core(qr, kr, vr) * w).sum().backward()
+    tol = GRAD_TOL if dtype == torch.float32 else BF16_KERNEL_TOL
     for g, r in ((q.grad, qr.grad), (k.grad, kr.grad), (v.grad, vr.grad)):
-        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
-                                   **GRAD_TOL)
+        assert g.dtype == dtype
+        np.testing.assert_allclose(g.float().cpu().numpy(), r.cpu().numpy(),
+                                   **tol)
