@@ -13,25 +13,31 @@ or without the port beside it. Phases, each fatal on failure:
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions, and
    the build of every kernel from the checkout's sources (one ``nvcc`` per
    source, started together, into the git-ignored ``_build/`` directory),
-   with ptxas's registers and spills, and the count of tensor-core
-   (``HMMA``) instructions in each flash kernel's SASS (``cuobjdump``):
-   the bf16 K2/K3 kernels must have some;
+   with ptxas's registers and spills per kernel (a spill in K4, or in K1
+   at a head dim up to 64, fails), and the count of tensor-core (``HMMA``)
+   instructions in each kernel's SASS (``cuobjdump``): all 12 bf16 K1-K3
+   instantiations must have some, the f32 flash kernels and K4 none;
 2. every kernel against its plain PyTorch version on the card, at the
    serving shapes (H = 8, dh = 64, block 16, 8 slots, positions up to
    255), for every cache dtype and K = 1 and 4, within rtol = atol =
    1e-5 (both read the same stored bytes); a narrow pool's answer also
    within ``tests/tolerances.py::attn_tol`` of the unquantised f32
-   pool's. Each is timed with CUDA events (one pair around a run of 40
-   calls, the L2 flushed before each call, the flushes' own time
-   subtracted; median of 5 runs) beside its plain version and its bound;
+   pool's; then K4's edge cases (``K4_EDGES``: head dims 40, 128, 256,
+   blocks of 8 and 32, a table longer than the warp count, K = 4 and 8, a
+   slot at position 0 beside a trash-routed one, a non-contiguous and a
+   misaligned pool view) against the plain version. Each serving case is
+   timed with CUDA events (one pair around a run of 40 calls, the L2
+   flushed before each call, the flushes' own time subtracted; median of 5
+   runs) beside its plain version and its bound, and K4 must beat its
+   plain version at the f32 K = 1 case;
    then the flash kernels K1 (forward), K2 (dq) and K3 (dk/dv) against
    their plain versions, f32 and bf16, at the training shape (16, 8, 256,
    64), at a ragged T = 200 and at the tiny row's (32, 4, 64, 32), and in
-   bf16 at the edges of the tensor-core K2/K3 (head dims 8, 32, 40 and
+   bf16 at the edges of the tensor-core K1-K3 (head dims 8, 32, 40 and
    128, T = 1, 65 and 200), within ``FLASH_TOL``, timed the same way
    beside their bounds and the library yardstick
-   (``scaled_dot_product_attention``, forward and backward; K2 + K3
-   against SDPA's backward on one line);
+   (``scaled_dot_product_attention``, forward and backward; K1 against
+   SDPA's forward and K2 + K3 against SDPA's backward, each on one line);
 3. the port's serving path at full width: ``InferenceEngine(attn_kernel=
    "fused")`` serving the ``gpt_serve`` trace (24 requests, Poisson
    32/s, prompts 8/16/32, 24 new tokens) on the 21 M-parameter GPT
@@ -52,7 +58,8 @@ or without the port beside it. Phases, each fatal on failure:
    a known-wrong attention core (its causal mask one key too wide) falls
    outside that limit;
 6. where a full-width flash training step's time goes, under
-   ``torch.profiler``.
+   ``torch.profiler``; the bf16 K1 must show there by its tensor-core
+   kernel's name, ``n_layers`` launches per step.
 
 Before the last line it prints the kernels as one JSON object (times in
 ms, measured in this run; ``bound_ms`` computed from this run's inputs);
@@ -84,7 +91,7 @@ BF16_FLOPS = 989e12
 FLASH_SHAPE = (16, 8, 256, 64)
 FLASH_RAGGED = (16, 8, 200, 64)
 FLASH_TINY_SHAPE = (32, 4, 64, 32)
-# bf16 edge shapes of the tensor-core K2/K3 at a small B*H: head dims padded
+# bf16 edge shapes of the tensor-core K1-K3 at a small B*H: head dims padded
 # to 32 and 128 and one not a multiple of 16 (40), each at T = 1 (one row),
 # 65 (one row past a tile) and 200 (a ragged tail); dh 64 at T = 1, 65; and
 # dh 8 (padded to 16, the smallest instantiation) at T = 65, 200
@@ -113,6 +120,18 @@ SAME_BYTES_TOL = (1e-5, 1e-5)
 ATTN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (5e-2, 5e-2),
             "int8": (6e-2, 6e-2), "float8_e4m3fn": (1.5e-1, 1.5e-1),
             "float8_e5m2": (1.5e-1, 1.5e-1)}
+# K4 edge cases beside the serving ones: (storage dtype, K, _pool_case
+# options), each held against the plain version; every one also has a slot
+# at position 0 with a real table entry beside the trash-routed slot
+K4_EDGES = [("float32", 1, dict(dh=40)), ("float32", 1, dict(dh=128)),
+            ("float32", 1, dict(dh=256)), ("bfloat16", 1, dict(dh=256)),
+            ("int8", 1, dict(dh=40)),
+            ("float32", 1, dict(bs=8)),     # 32 blocks: past the warp count
+            ("float32", 1, dict(bs=32)), ("float32", 4, dict(bs=8)),
+            ("float32", 8, {}), ("int8", 8, dict(dh=128)),
+            ("float8_e4m3fn", 4, dict(dh=40, bs=32)),
+            ("float32", 1, dict(layout="block-major")),
+            ("bfloat16", 4, dict(layout="misaligned"))]
 SERVE_CFG = dict(vocab=8192, seq_len=256, d_model=512, n_heads=8, n_layers=4)
 SERVE_SLOTS, SERVE_BLOCK = 8, 16
 # bench.py's gpt_bf16 and gpt rows (bench.py::_configs), trained on the
@@ -223,15 +242,66 @@ def profiled_kernel_ms(fn, flush, name: str, n: int = 40) -> float:
 
 # -- phase 1 ------------------------------------------------------------------
 
+def _toolkit_bin() -> str:
+    from simple_distributed_machine_learning_tpu_torch.ops._cuda_build import (  # noqa: E501
+        nvcc_path,
+    )
+    return os.path.dirname(nvcc_path())
+
+
+def _demangled(counts: dict) -> dict:
+    """``counts`` keyed by the demangled kernel names, where the toolkit
+    has ``cu++filt``."""
+    filt = os.path.join(_toolkit_bin(), "cu++filt")
+    if counts and os.path.exists(filt):
+        dem = subprocess.run([filt], input="\n".join(counts), text=True,
+                             capture_output=True, timeout=60)
+        if dem.returncode == 0 and len(dem.stdout.splitlines()) == len(counts):
+            return dict(zip(dem.stdout.splitlines(), counts.values()))
+    return counts
+
+
+def ptxas_report(log: str) -> dict[str, dict]:
+    """Registers and spill bytes of each kernel, from ``nvcc -Xptxas -v``'s
+    output: ``{name: {"registers", "spill_stores", "spill_loads"}}``."""
+    import re
+    out: dict[str, dict] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name is not None:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out[name]["registers"] = int(m.group(1))
+    return _demangled(out)
+
+
+def _no_spill_required(name: str) -> bool:
+    """K4 everywhere, and K1 at head dims up to 64: the bf16 tensor-core
+    K1 padded to 16, 32 or 64, and the f32 SIMT K1's 4-column variant."""
+    import re
+    if "paged_attn_kernel" in name:
+        return True
+    m = re.search(r"flash_fwd_kernel(_bf16_mma)?(?:<(?:\(int\))?|ILi)(\d+)",
+                  name)
+    if not m:
+        return False
+    return int(m.group(2)) <= 64 if m.group(1) else int(m.group(2)) == 4
+
+
 def sass_hmma_counts(lib_path) -> dict[str, int]:
     """Tensor-core (``HMMA``) instructions in each kernel of a built
     library, from ``cuobjdump -sass`` (beside ``nvcc``); names demangled
     with ``cu++filt`` where the toolkit has it."""
-    from simple_distributed_machine_learning_tpu_torch.ops._cuda_build import (  # noqa: E501
-        nvcc_path,
-    )
-    bindir = os.path.dirname(nvcc_path())
-    out = subprocess.run([os.path.join(bindir, "cuobjdump"), "-sass",
+    out = subprocess.run([os.path.join(_toolkit_bin(), "cuobjdump"), "-sass",
                           str(lib_path)], capture_output=True, text=True,
                          timeout=300)
     check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
@@ -243,13 +313,7 @@ def sass_hmma_counts(lib_path) -> dict[str, int]:
             counts[name] = 0
         elif name is not None and "HMMA" in line:
             counts[name] += 1
-    filt = os.path.join(bindir, "cu++filt")
-    if counts and os.path.exists(filt):
-        dem = subprocess.run([filt], input="\n".join(counts), text=True,
-                             capture_output=True, timeout=60)
-        if dem.returncode == 0 and len(dem.stdout.splitlines()) == len(counts):
-            counts = dict(zip(dem.stdout.splitlines(), counts.values()))
-    return counts
+    return _demangled(counts)
 
 
 def phase_build(record: dict) -> None:
@@ -272,38 +336,68 @@ def phase_build(record: dict) -> None:
         futures = [pool.submit(build_kernel), pool.submit(build_flash)]
         builds = [f.result() for f in futures]
     record["build_s"] = round(time.perf_counter() - t0, 3)
+    ptxas: dict[str, dict] = {}
     for built in builds:
         print(f"chip_smoke: built {built.path.name} (nvcc "
               f"{built.build_s:.3f} s)")
-        for line in built.log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                print(f"chip_smoke:   ptxas {line.strip()}")
+        if not built.log:
+            print("chip_smoke:   ptxas: no log (the library was built "
+                  "earlier in this checkout)")
+        ptxas.update(ptxas_report(built.log))
+    for name, r in sorted(ptxas.items()):
+        print(f"chip_smoke:   ptxas {r.get('registers', -1):4d} registers, "
+              f"spill {r.get('spill_stores', -1)}/{r.get('spill_loads', -1)}"
+              f" bytes  {name}")
+    held = [n for n in ptxas if _no_spill_required(n)]
+    # a fresh build reports the 4 K1 variants at dh <= 64 (f32, bf16 16 /
+    # 32 / 64) and K4's 18 (5 storage types x K up to 1, 4, 8, and f32 at
+    # dh > 128)
+    check(not ptxas or len(held) == 4 + 18,
+          f"ptxas reported {len(held)} K1/K4 kernels, not 22: {held}")
+    spills = [n for n in held if ptxas[n].get("spill_stores", 0)
+              or ptxas[n].get("spill_loads", 0)]
+    check(not spills, f"K4 or K1 at dh <= 64 spills registers: {spills}")
+    record["ptxas"] = ptxas
     print(f"chip_smoke: kernels built in {record['build_s']} s")
     hmma = sass_hmma_counts(builds[1].path)
-    for name, n in sorted(hmma.items()):
+    k4_hmma = sass_hmma_counts(builds[0].path)
+    for name, n in sorted({**hmma, **k4_hmma}.items()):
         print(f"chip_smoke:   SASS HMMA {n:5d}  {name}")
     mma = {n: c for n, c in hmma.items() if "_bf16_mma" in n}
-    # the bf16 K2 and K3, each at head dims padded to 16, 32, 64, 128
-    check(len(mma) == 8 and all(c > 0 for c in mma.values()),
-          f"the bf16 K2/K3 kernels are not all on the tensor cores: {mma}")
-    record["sass_hmma"] = hmma
+    # the bf16 K1, K2 and K3, each at head dims padded to 16, 32, 64, 128
+    check(len(mma) == 12 and all(c > 0 for c in mma.values()),
+          f"the bf16 K1-K3 kernels are not all on the tensor cores: {mma}")
+    simt = {n: c for n, c in {**hmma, **k4_hmma}.items()
+            if "_bf16_mma" not in n and c}
+    check(not simt, f"the f32 flash kernels or K4 use tensor cores: {simt}")
+    record["sass_hmma"] = {**hmma, **k4_hmma}
 
 
 # -- phase 2 ------------------------------------------------------------------
 
-def _pool_case(name: str, K: int, gen, dev):
+def _pool_case(name: str, K: int, gen, dev, dh: int = 64,
+               bs: int = SERVE_BLOCK, layout: str = "layer",
+               pos0: bool = False):
     """The serving pool's shapes: [L=4, 129 blocks, 8 heads, 16, 64], one
     layer's view handed to the kernel as the engine does; 8 slots with
     ragged tables (trash 0 past each slot's position), one slot routed
-    to the trash like a non-decoding slot."""
+    to the trash like a non-decoding slot. The options make K4's edge
+    cases: another head dim or block size (8 x 256 / bs + 1 blocks);
+    ``layout`` "block-major" (the pool stored [blocks, L, ...], so the
+    layer's view strides its block axis past the other layers) or
+    "misaligned" (rows of dh + 1, the view starting one element in, too
+    narrow an alignment for the vector loads); ``pos0``: slot 1 at
+    position 0 with a real table entry."""
     import torch
     from simple_distributed_machine_learning_tpu_torch.models.gpt import (
         _quantize_rows,
     )
-    L, nblk, H, bs, dh, S = 4, 129, 8, SERVE_BLOCK, 64, SERVE_SLOTS
+    L, H, S = 4, 8, SERVE_SLOTS
     NB = 256 // bs
-    kc = torch.randn((L, nblk, H, bs, dh), generator=gen)
-    vc = torch.randn((L, nblk, H, bs, dh), generator=gen)
+    nblk = S * NB + 1
+    wide = dh + 1 if layout == "misaligned" else dh
+    kc = torch.randn((L, nblk, H, bs, wide), generator=gen)
+    vc = torch.randn((L, nblk, H, bs, wide), generator=gen)
     if name in ("int8", "float8_e4m3fn", "float8_e5m2"):
         (kd, ks), (vd, vs) = _quantize_rows(kc, name), _quantize_rows(vc, name)
     else:
@@ -311,6 +405,8 @@ def _pool_case(name: str, K: int, gen, dev):
         ks = vs = None
     pos = torch.randint(0, 256, (S,), generator=gen)
     pos[0], pos[S - 1] = 255, 0
+    if pos0:
+        pos[1] = 0
     qpos = torch.clamp(pos[:, None] + torch.arange(K)[None, :], max=255)
     perm = torch.randperm(nblk - 1, generator=gen) + 1
     tables = torch.zeros((S, NB), dtype=torch.int32)
@@ -319,12 +415,53 @@ def _pool_case(name: str, K: int, gen, dev):
         tables[s, :n] = perm[s * NB:s * NB + n]
     q = torch.randn((S, H, K, dh), generator=gen)
     li = 2
-    to = (lambda t: None if t is None else t.to(dev))
-    return dict(q=to(q), kc=to(kd)[li], vc=to(vd)[li], tables=to(tables),
-                qpos=to(qpos.to(torch.int32).contiguous()),
-                kscale=None if ks is None else to(ks)[li],
-                vscale=None if vs is None else to(vs)[li], bs=bs,
-                kc32=to(kc[li]), vc32=to(vc[li]))
+
+    def layer(t, rows=True):
+        """Layer li's view of a pool on the card (``rows``: values, whose
+        last axis is sliced to dh on the card, not scales)."""
+        if t is None:
+            return None
+        if layout == "block-major":
+            return t.transpose(0, 1).contiguous().to(dev)[:, li]
+        t = t.to(dev)[li]
+        return t[..., wide - dh:] if rows else t
+
+    return dict(q=q.to(dev), kc=layer(kd), vc=layer(vd),
+                tables=tables.to(dev),
+                qpos=qpos.to(torch.int32).contiguous().to(dev),
+                kscale=layer(ks, False), vscale=layer(vs, False), bs=bs,
+                kc32=layer(kc), vc32=layer(vc))
+
+
+def _against_plain(name: str, c: dict) -> tuple[dict, bool, bool]:
+    """K4 on one case against its plain version (``SAME_BYTES_TOL``) and
+    against the unquantised f32 pool's answer (``ATTN_TOL``)."""
+    import torch
+    from simple_distributed_machine_learning_tpu_torch.ops.paged_attention import (  # noqa: E501
+        paged_attention,
+        paged_attention_reference,
+    )
+    args = (c["q"], c["kc"], c["vc"], c["tables"], c["qpos"])
+    kw = dict(block_size=c["bs"], kscale=c["kscale"], vscale=c["vscale"])
+    out = paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    ref = paged_attention_reference(*args, **kw)
+    err = (out - ref).abs()
+    rtol, atol = SAME_BYTES_TOL
+    ok = bool(torch.isfinite(out).all()) and bool(
+        (err <= atol + rtol * ref.abs()).all())
+    wide = paged_attention_reference(c["q"], c["kc32"], c["vc32"],
+                                     c["tables"], c["qpos"],
+                                     block_size=c["bs"])
+    werr = (out - wide).abs()
+    wrtol, watol = ATTN_TOL[name]
+    wide_ok = bool((werr <= watol + wrtol * wide.abs()).all())
+    v = dict(dtype=name, K=int(c["q"].shape[2]), dh=int(c["q"].shape[3]),
+             bs=c["bs"], max_abs_err=float(err.max()),
+             max_rel_err=float((err / ref.abs().clamp_min(1e-6)).max()),
+             rtol=rtol, atol=atol, max_abs_err_vs_f32=float(werr.max()),
+             rtol_vs_f32=wrtol, atol_vs_f32=watol)
+    return v, ok, wide_ok
 
 
 def _bound(case: dict) -> tuple[float, str]:
@@ -372,29 +509,14 @@ def phase_kernels(record: dict) -> dict:
             def plain():
                 return paged_attention_reference(*args, **kw)
 
-            out = kernel()
-            torch.cuda.synchronize()
-            ref = plain()
-            err = (out - ref).abs()
-            rtol, atol = SAME_BYTES_TOL
-            ok = bool(torch.isfinite(out).all()) and bool(
-                (err <= atol + rtol * ref.abs()).all())
-            max_abs = float(err.max())
-            max_rel = float((err / ref.abs().clamp_min(1e-6)).max())
-            # the narrow pool's answer against the unquantised pool's
-            wide = paged_attention_reference(
-                c["q"], c["kc32"], c["vc32"], c["tables"], c["qpos"],
-                block_size=c["bs"])
-            werr = (out - wide).abs()
-            wrtol, watol = ATTN_TOL[name]
-            wide_ok = bool((werr <= watol + wrtol * wide.abs()).all())
+            v, ok, wide_ok = _against_plain(name, c)
+            max_abs, max_rel = v["max_abs_err"], v["max_rel_err"]
+            rtol, atol = v["rtol"], v["atol"]
+            wrtol = v["rtol_vs_f32"]
             bound_ms, bound_by = _bound(c)
-            v = dict(dtype=name, K=K, max_abs_err=max_abs,
-                     max_rel_err=max_rel, rtol=rtol, atol=atol,
-                     max_abs_err_vs_f32=float(werr.max()),
-                     rtol_vs_f32=wrtol, atol_vs_f32=watol,
-                     ms=time_ms(kernel, flush), plain_ms=time_ms(plain, flush),
-                     bound_ms=bound_ms, bound_by=bound_by)
+            v.update(ms=time_ms(kernel, flush),
+                     plain_ms=time_ms(plain, flush), bound_ms=bound_ms,
+                     bound_by=bound_by)
             if name == "float32" and K == 1:
                 v["profiler_ms"] = profiled_kernel_ms(kernel, flush,
                                                       "paged_attn_kernel")
@@ -413,11 +535,32 @@ def phase_kernels(record: dict) -> dict:
             check(wide_ok, f"paged_attention {name} K={K} is outside "
                            f"attn_tol of the f32 pool's answer: max abs "
                            f"{v['max_abs_err_vs_f32']}")
+    main = next(v for v in variants
+                if v["dtype"] == "float32" and v["K"] == 1)
+    print(f"chip_smoke: paged_attention float32 K=1: kernel "
+          f"{main['ms']:.4f} ms against its plain version "
+          f"{main['plain_ms']:.4f} ms: {main['plain_ms'] / main['ms']:.2f}x "
+          f"faster")
+    check(main["ms"] < main["plain_ms"], "K4 is no faster than its plain "
+                                         "version at the f32 K = 1 case")
+    edges = []
+    for name, K, opts in K4_EDGES:
+        c = _pool_case(name, K, gen, dev, pos0=True, **opts)
+        v, ok, wide_ok = _against_plain(name, c)
+        v["case"] = opts
+        edges.append(v)
+        print(f"chip_smoke: paged_attention edge {name:>13} K={K} {opts}: "
+              f"vs plain max abs {v['max_abs_err']:.3e} "
+              f"{'ok' if ok else 'FAIL'}; vs the f32 pool max abs "
+              f"{v['max_abs_err_vs_f32']:.3e} {'ok' if wide_ok else 'FAIL'}")
+        check(ok and wide_ok, f"paged_attention edge case {name} K={K} "
+                              f"{opts} disagrees: {v}")
     print("chip_smoke: paged_attention library_ms: none — no single "
           "PyTorch call computes block-table-gathered attention "
           "(scaled_dot_product_attention needs the rows gathered first)")
     record["kernel_variants"] = variants
-    return variants
+    record["kernel_edges"] = edges
+    return variants + edges
 
 
 def _flash_bound(name: str, shape, dtype) -> tuple[float, str]:
@@ -463,7 +606,7 @@ def phase_flash_kernels(record: dict) -> list[dict]:
     """K1, K2 and K3 against their plain versions on the card, for f32 and
     bf16, at the full-width training shape and at a ragged T = 200 (the
     masked tail live), plus the tiny ``gpt`` row's f32 shape and the bf16
-    edge shapes ``FLASH_EDGES`` of the tensor-core K2/K3. K2 and K3 are
+    edge shapes ``FLASH_EDGES`` of the tensor-core K1-K3. K2 and K3 are
     fed the plain forward's statistics, so each is held alone. Each kernel
     is timed (as phase 2 times K4) at the shape its bench row gives it,
     beside its plain version, its bound and the library yardstick:
@@ -547,6 +690,13 @@ def phase_flash_kernels(record: dict) -> list[dict]:
             out.append(v_)
     main = {v["name"]: v for v in out if v["dtype"] == "bfloat16"
             and tuple(v["shape"]) == FLASH_SHAPE}
+    fwd = main["flash_forward"]
+    print(f"chip_smoke: K1 bf16 {FLASH_SHAPE}: {fwd['ms']:.4f} ms against "
+          f"SDPA's forward {fwd['library_ms']:.4f} ms: "
+          f"{fwd['ms'] / fwd['library_ms']:.2f}x")
+    record["flash_forward_vs_sdpa"] = dict(
+        k1_ms=fwd["ms"], sdpa_forward_ms=fwd["library_ms"],
+        ratio=fwd["ms"] / fwd["library_ms"])
     bwd_ms = main["flash_dq"]["ms"] + main["flash_dkv"]["ms"]
     sdpa_bwd = main["flash_dq"]["library_ms"]
     print(f"chip_smoke: K2 + K3 bf16 {FLASH_SHAPE}: {bwd_ms:.4f} ms against "
@@ -932,6 +1082,14 @@ def phase_train_profile(row: dict, record: dict, n_steps: int = 5) -> None:
         check(bool(hits), f"the profiled step shows no {kern}")
         flash[kern] = (sum(t for t, _ in hits) / n_steps,
                        sum(c for _, c in hits) / n_steps)
+    # the bf16 K1 runs the tensor-core kernel, once per layer per step
+    k1_mma = sum(c for _, c, k in kernels
+                 if "flash_fwd_kernel_bf16_mma" in k) / n_steps
+    print(f"chip_smoke:   flash_fwd_kernel_bf16_mma launches per step "
+          f"{k1_mma:.1f} (n_layers {cfg.n_layers})")
+    check(k1_mma == cfg.n_layers, f"the profiled step launched "
+                                  f"flash_fwd_kernel_bf16_mma {k1_mma} "
+                                  f"times per step, not {cfg.n_layers}")
     kernels.sort(reverse=True)
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

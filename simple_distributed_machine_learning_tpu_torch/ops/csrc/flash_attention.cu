@@ -39,35 +39,45 @@
 // tiles past the diagonal are neither loaded nor computed.
 //
 // Two implementations:
-// - SIMT (K1 in f32 and bf16, K2 and K3 in f32): products on the CUDA cores
-//   in f32 from f32 shared-memory tiles (each thread a 4 x 4 score sub-tile
-//   and a 4 x (dh/16) output sub-tile), scores in shared memory, a barrier
-//   between load, scores, softmax and accumulate. Bound in practice by
-//   issuing FMAs and the shared loads feeding them (8 loads per 16 FMAs),
-//   ~20x the byte bound. f32 stays here: TF32 tensor cores would keep ~10
-//   bits and break the f32 gradients' 1e-4 parity.
-// - Tensor cores (K2 and K3 in bf16, flash_*_kernel_bf16_mma): every product
-//   is mma.sync m16n8k16, bf16 x bf16 summed in f32 — the same casts as the
-//   TPU kernels' preferred_element_type=f32 dots, only the order of the f32
-//   sums differs. 4 warps per 64-row tile, each owning 16 rows: in K2, 16 q
-//   rows (S = Q_w.K^T, dP = dO_w.V^T, then dq += dS.K); in K3, 16 k rows
-//   computing S^T = K_w.Q^T and dP^T = V_w.dO^T directly, so that p^T and
-//   ds^T come out as the A operands of dv += P^T.dO and dk += dS^T.Q. p and
-//   ds never leave the registers: an m16n8 accumulator pair is repacked in
-//   place as a k16 A fragment (mma_bf16.cuh). Tiles stay bf16 in shared
-//   memory (rows padded to dh + 8 so ldmatrix is free of bank conflicts;
-//   the head dim padded with zeros to DP in {16, 32, 64, 128}), and a
-//   2-stage cp.async ring copies the next k/v (K2) or q/dO + row-statistics
-//   (K3) tile while this one is multiplied. Shared memory is 55 KB a block
-//   at dh 64 (the SIMT K3 used ~100 KB). Inside the diagonal tile each warp
-//   skips the 16- or 32-wide sub-blocks its causal mask zeroes whole.
-// The next steps are wgmma and TMA (and K1 on this machinery).
+// - SIMT, for f32 (K1, K2, K3): products on the CUDA cores in f32 from f32
+//   shared-memory tiles (each thread a 4 x 4 score sub-tile and a 4 x (dh/16)
+//   output sub-tile), scores in shared memory, a barrier between load,
+//   scores, softmax and accumulate. Bound in practice by issuing FMAs and
+//   the shared loads feeding them (8 loads per 16 FMAs), ~20x the byte
+//   bound. f32 stays here: TF32 tensor cores would keep ~10 bits and break
+//   the 1e-5 parity of f32 o and the 1e-4 parity of the f32 gradients.
+// - Tensor cores, for bf16 (K1, K2, K3: flash_*_kernel_bf16_mma): every
+//   product is mma.sync m16n8k16, bf16 x bf16 summed in f32 — the same
+//   casts as the TPU kernels' preferred_element_type=f32 dots, only the
+//   order of the f32 sums differs. 4 warps per 64-row tile, each owning 16
+//   rows: in K1 and K2, 16 q rows (K1: S = Q_w.K^T, the online softmax on
+//   the accumulator fragments, then O += round(P).V; K2: S = Q_w.K^T,
+//   dP = dO_w.V^T, then dq += dS.K); in K3, 16 k rows computing S^T =
+//   K_w.Q^T and dP^T = V_w.dO^T directly, so that p^T and ds^T come out as
+//   the A operands of dv += P^T.dO and dk += dS^T.Q. p and ds never leave
+//   the registers: an m16n8 accumulator pair is repacked in place as a k16
+//   A fragment (mma_bf16.cuh). Tiles stay bf16 in shared memory (rows
+//   padded to dh + 8 so ldmatrix is free of bank conflicts; the head dim
+//   padded with zeros to DP in {16, 32, 64, 128}), and a 2-stage cp.async
+//   ring copies the next k/v (K1, K2) or q/dO + row-statistics (K3) tile
+//   while this one is multiplied. Shared memory at dh 64: K1 45 KB a block
+//   (q + 2 x (k, v)), so 4 blocks fit an SM; K2 and K3 55 KB. Inside the
+//   diagonal tile each warp skips the 16- or 32-wide sub-blocks its causal
+//   mask zeroes whole.
+//   K1's online softmax runs per 16- or 32-key sub-block on the fragments:
+//   a row's max and sum reduce over the quad of lanes that holds it
+//   (__shfl_xor_sync 1, 2); l sums the unrounded f32 p, as the TPU kernel
+//   does, and p is rounded to bf16 only as the A operand of O += P.V, so p
+//   is rounded against the running max of the sub-blocks seen so far (the
+//   TPU kernel: of its k blocks so far; the plain version: the final max).
+//   m and l are saved in the natural units of the scaled scores, which K2
+//   and K3 read back. A row wholly masked in a sub-block keeps m (the max
+//   with NEG_INF) and gets p = 0 from the mask, never from exp(0) = 1.
+// The next steps are wgmma and TMA.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "mma_bf16.cuh"
 
@@ -81,20 +91,6 @@ constexpr int kCols = kTile / 16;          // score columns per thread: tx + 16 
 constexpr int kLdS = kTile + 1;            // padded row stride of a score tile
 constexpr int kMaxHeadDim = 128;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename E> __device__ __forceinline__ E from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);   // round to nearest even, as torch's .to(bfloat16)
-}
-
-// x rounded through E (the TPU kernel's .astype(dtype) before a product)
-template <typename E> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<E>(x));
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
@@ -105,16 +101,15 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// rows [r0, r0 + 64) of a contiguous [T, dh] slab into shared memory as f32
+// rows [r0, r0 + 64) of a contiguous [T, dh] f32 slab into shared memory
 // with row stride ld = dh + 1 (the pad keeps column reads conflict-free);
 // rows at or past T are zero
-template <typename E>
-__device__ void load_tile(float* dst, const E* src, int r0, int T, int dh) {
+__device__ void load_tile(float* dst, const float* src, int r0, int T, int dh) {
   const int ld = dh + 1;
   for (int i = threadIdx.x; i < kTile * dh; i += kThreads) {
     const int r = i / dh, d = i - r * dh;
     const int row = r0 + r;
-    dst[r * ld + d] = row < T ? to_f32(src[static_cast<long long>(row) * dh + d]) : 0.f;
+    dst[r * ld + d] = row < T ? src[static_cast<long long>(row) * dh + d] : 0.f;
   }
 }
 
@@ -126,7 +121,7 @@ __device__ void load_rows(float* dst, const float* src, int r0, int T) {
 }
 
 struct Args {
-  const void* q;       // [BH, T, dh], contiguous, all four in dtype E
+  const void* q;       // [BH, T, dh], contiguous, all four in the dtype
   const void* k;
   const void* v;
   const void* dout;    // backward only
@@ -141,7 +136,7 @@ struct Args {
   int T, dh;
   float scale;
   int vec;             // dh % 8 == 0 and q/k/v/dout 16-byte aligned: rows
-                       // copy as 16-byte cp.async chunks (bf16 backward)
+                       // copy as 16-byte cp.async chunks (bf16 kernels)
 };
 
 // s[i][j] = sum_d a[row_i][d] * b[col_j][d] over two [64, ld] tiles
@@ -166,9 +161,9 @@ __device__ __forceinline__ void tile_dots(float (&s)[kRows][kCols], const float*
   }
 }
 
-// ---- K1: forward -------------------------------------------------------------
+// ---- K1: forward (SIMT, f32) ---------------------------------------------------
 
-template <typename E, int JD>
+template <int JD>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   const int bh = blockIdx.x;
   const int n_tiles = gridDim.y;
@@ -177,9 +172,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int warp = tid >> 5, lane = tid & 31;
   const long long base = static_cast<long long>(bh) * T * dh;
-  const E* q = static_cast<const E*>(a.q) + base;
-  const E* k = static_cast<const E*>(a.k) + base;
-  const E* v = static_cast<const E*>(a.v) + base;
+  const float* q = static_cast<const float*>(a.q) + base;
+  const float* k = static_cast<const float*>(a.k) + base;
+  const float* v = static_cast<const float*>(a.v) + base;
 
   extern __shared__ float smem[];
   float* q_s = smem;                    // [64, ld]
@@ -241,8 +236,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
       const float p0 = (qp >= kp0 && kp0 < T) ? expf(x0 - m_new) : 0.f;
       const float p1 = (qp >= kp1 && kp1 < T) ? expf(x1 - m_new) : 0.f;
       const float sum = warp_sum(p0 + p1);
-      row[lane] = round_to<E>(p0);
-      row[lane + 32] = round_to<E>(p1);
+      row[lane] = p0;
+      row[lane + 32] = p1;
       if (lane == 0) {
         const float corr = expf(m_prev - m_new);
         c_s[r] = corr;
@@ -273,7 +268,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   }
   __syncthreads();
 
-  E* o = static_cast<E*>(a.o) + base;
+  float* o = static_cast<float*>(a.o) + base;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int r = ty + 16 * i, qp = q0 + r;
@@ -282,7 +277,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
 #pragma unroll
     for (int j = 0; j < JD; ++j) {
       const int d = tx + 16 * j;
-      if (d < dh) o[static_cast<long long>(qp) * dh + d] = from_f32<E>(acc[i][j] / den);
+      if (d < dh) o[static_cast<long long>(qp) * dh + d] = acc[i][j] / den;
     }
   }
   for (int r = tid; r < kTile; r += kThreads) {
@@ -317,7 +312,7 @@ __device__ __forceinline__ void recompute_p_ds(float (&s)[kRows][kCols],
 
 // ---- K2: dq (SIMT, f32) ----------------------------------------------------------
 
-template <typename E, int JD>
+template <int JD>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
   const int bh = blockIdx.x;
   const int n_tiles = gridDim.y;
@@ -326,10 +321,10 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const long long base = static_cast<long long>(bh) * T * dh;
   const long long rbase = static_cast<long long>(bh) * T;
-  const E* q = static_cast<const E*>(a.q) + base;
-  const E* k = static_cast<const E*>(a.k) + base;
-  const E* v = static_cast<const E*>(a.v) + base;
-  const E* dout = static_cast<const E*>(a.dout) + base;
+  const float* q = static_cast<const float*>(a.q) + base;
+  const float* k = static_cast<const float*>(a.k) + base;
+  const float* v = static_cast<const float*>(a.v) + base;
+  const float* dout = static_cast<const float*>(a.dout) + base;
 
   extern __shared__ float smem[];
   float* q_s = smem;                    // [64, ld]
@@ -373,7 +368,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
     for (int i = 0; i < kRows; ++i)
 #pragma unroll
       for (int j = 0; j < kCols; ++j)
-        ds_s[(ty + 16 * i) * kLdS + tx + 16 * j] = round_to<E>(dp[i][j] * a.scale);
+        ds_s[(ty + 16 * i) * kLdS + tx + 16 * j] = dp[i][j] * a.scale;
     __syncthreads();
 
 #pragma unroll 4
@@ -390,7 +385,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
     }
   }
 
-  E* dq = static_cast<E*>(a.dq) + base;
+  float* dq = static_cast<float*>(a.dq) + base;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int qp = q0 + ty + 16 * i;
@@ -398,14 +393,14 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
 #pragma unroll
     for (int j = 0; j < JD; ++j) {
       const int d = tx + 16 * j;
-      if (d < dh) dq[static_cast<long long>(qp) * dh + d] = from_f32<E>(acc[i][j]);
+      if (d < dh) dq[static_cast<long long>(qp) * dh + d] = acc[i][j];
     }
   }
 }
 
 // ---- K3: dk, dv (SIMT, f32) ------------------------------------------------------
 
-template <typename E, int JD>
+template <int JD>
 __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   const int bh = blockIdx.x;
   const int kt = blockIdx.y;                    // the longest columns start first
@@ -413,10 +408,10 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const long long base = static_cast<long long>(bh) * T * dh;
   const long long rbase = static_cast<long long>(bh) * T;
-  const E* q = static_cast<const E*>(a.q) + base;
-  const E* k = static_cast<const E*>(a.k) + base;
-  const E* v = static_cast<const E*>(a.v) + base;
-  const E* dout = static_cast<const E*>(a.dout) + base;
+  const float* q = static_cast<const float*>(a.q) + base;
+  const float* k = static_cast<const float*>(a.k) + base;
+  const float* v = static_cast<const float*>(a.v) + base;
+  const float* dout = static_cast<const float*>(a.dout) + base;
 
   extern __shared__ float smem[];
   float* k_s = smem;                    // [64, ld]
@@ -465,8 +460,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const int at = (ty + 16 * i) * kLdS + tx + 16 * j;
-        p_s[at] = round_to<E>(s[i][j]);
-        ds_s[at] = round_to<E>(dp[i][j] * a.scale);
+        p_s[at] = s[i][j];
+        ds_s[at] = dp[i][j] * a.scale;
       }
     __syncthreads();
 
@@ -493,8 +488,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
     }
   }
 
-  E* dk = static_cast<E*>(a.dk) + base;
-  E* dv = static_cast<E*>(a.dv) + base;
+  float* dk = static_cast<float*>(a.dk) + base;
+  float* dv = static_cast<float*>(a.dv) + base;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int kp = k0 + ty + 16 * i;
@@ -503,8 +498,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
     for (int j = 0; j < JD; ++j) {
       const int d = tx + 16 * j;
       if (d < dh) {
-        dk[static_cast<long long>(kp) * dh + d] = from_f32<E>(acc_k[i][j]);
-        dv[static_cast<long long>(kp) * dh + d] = from_f32<E>(acc_v[i][j]);
+        dk[static_cast<long long>(kp) * dh + d] = acc_k[i][j];
+        dv[static_cast<long long>(kp) * dh + d] = acc_v[i][j];
       }
     }
   }
@@ -607,6 +602,172 @@ __device__ __forceinline__ int b_off(int r0, int ks, int lane) {
 template <int LD>
 __device__ __forceinline__ int bt_off(int r0, int d0, int lane) {
   return (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + d0 + (lane >> 4) * 8;
+}
+
+// K1 in bf16: one block per (b*h, 64 q rows), warp w owning q rows
+// 16w..16w+15; each lane holds the running (m, l) of its rows g and g + 8
+template <int DP>
+__global__ void __launch_bounds__(kMmaThreads) flash_fwd_kernel_bf16_mma(Args a) {
+  using S = MmaShape<DP>;
+  using bf16 = __nv_bfloat16;
+  using namespace sdml_mma;
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;    // the longest rows start first
+  const int T = a.T, dh = a.dh;
+  const bool vec = a.vec != 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const long long base = static_cast<long long>(bh) * T * dh;
+  const long long rbase = static_cast<long long>(bh) * T;
+  const bf16* q = static_cast<const bf16*>(a.q) + base;
+  const bf16* k = static_cast<const bf16*>(a.k) + base;
+  const bf16* v = static_cast<const bf16*>(a.v) + base;
+
+  extern __shared__ uint4 smem_mma[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_mma); // [64, LD]
+  bf16* kv_s = q_s + S::TILE;                    // 2 stages of k, v [64, LD]
+
+  const int q0 = qt * kTile;
+  const int n_kt = (T + kTile - 1) / kTile;
+  const int last = min(n_kt - 1, qt);
+  load_tile_bf16<DP>(q_s, q, q0, T, dh, vec);
+  load_tile_bf16<DP>(kv_s, k, 0, T, dh, vec);
+  load_tile_bf16<DP>(kv_s + S::TILE, v, 0, T, dh, vec);
+  cp_async_commit();
+
+  const int wr = warp * 16;
+  const int r_lo = q0 + wr + g, r_hi = r_lo + 8;
+  // the last key any live row of this warp sees (-1: no live row)
+  const int kmax = q0 + wr < T ? min(q0 + wr + 15, T - 1) : -1;
+
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qa[S::KS][4];                        // q_w as A operands
+#pragma unroll
+  for (int s = 0; s < S::KS; ++s) ldmatrix_x4(qa[s], q_s + a_off<S::LD>(wr, s, lane));
+  float acc[S::ND][4];
+#pragma unroll
+  for (int n = 0; n < S::ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
+
+  for (int kt = 0; kt <= last; ++kt) {
+    if (kt < last) {                             // the next k, v tile, in flight
+      bf16* nxt = kv_s + ((kt + 1) & 1) * 2 * S::TILE;
+      load_tile_bf16<DP>(nxt, k, (kt + 1) * kTile, T, dh, vec);
+      load_tile_bf16<DP>(nxt + S::TILE, v, (kt + 1) * kTile, T, dh, vec);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();                          // this tile's copies have landed
+    __syncthreads();
+    const bf16* k_s = kv_s + (kt & 1) * 2 * S::TILE;
+    const bf16* v_s = k_s + S::TILE;
+    const int k0 = kt * kTile;
+#pragma unroll 1
+    for (int j0 = 0; j0 < kTile; j0 += S::SUB) {
+      const int kb = k0 + j0;
+      if (kb > kmax) break;                      // past every live row's diagonal
+      float s[S::NS][4];                         // [q row, key]
+#pragma unroll
+      for (int n = 0; n < S::NS; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < S::KS; ++ks) {
+#pragma unroll
+        for (int n2 = 0; n2 < S::NS / 2; ++n2) {
+          uint32_t kf[4];
+          ldmatrix_x4(kf, k_s + b_off<S::LD>(j0 + 16 * n2, ks, lane));
+          mma_bf16_16816(s[2 * n2], qa[ks], kf[0], kf[1]);
+          mma_bf16_16816(s[2 * n2 + 1], qa[ks], kf[2], kf[3]);
+        }
+      }
+      // element i of n8 tile n sits at row g + 8 (i / 2), key
+      // kb + 8 n + 2 t4 + i % 2; live: qpos >= kpos and kpos < T
+      bool live[S::NS][4];
+      float mx_lo = kNegInf, mx_hi = kNegInf;
+#pragma unroll
+      for (int n = 0; n < S::NS; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kp = kb + 8 * n + 2 * t4 + (i & 1);
+          live[n][i] = (i < 2 ? r_lo : r_hi) >= kp && kp < T;
+          s[n][i] = live[n][i] ? s[n][i] * a.scale : kNegInf;
+        }
+        mx_lo = fmaxf(mx_lo, fmaxf(s[n][0], s[n][1]));
+        mx_hi = fmaxf(mx_hi, fmaxf(s[n][2], s[n][3]));
+      }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {         // over the quad holding a row
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, o));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, o));
+      }
+      const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+      const float c_lo = expf(m_lo - mn_lo), c_hi = expf(m_hi - mn_hi);
+      float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+      for (int n = 0; n < S::NS; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = live[n][i] ? expf(s[n][i] - (i < 2 ? mn_lo : mn_hi)) : 0.f;
+          s[n][i] = p;
+          if (i < 2) sum_lo += p; else sum_hi += p;
+        }
+      }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, o);
+        sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, o);
+      }
+      l_lo = l_lo * c_lo + sum_lo;               // the unrounded f32 p
+      l_hi = l_hi * c_hi + sum_hi;
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+#pragma unroll
+      for (int n = 0; n < S::ND; ++n) {
+        acc[n][0] *= c_lo;
+        acc[n][1] *= c_lo;
+        acc[n][2] *= c_hi;
+        acc[n][3] *= c_hi;
+      }
+      // acc += round_bf16(p) . v over this sub-block's keys
+#pragma unroll
+      for (int kk = 0; kk < S::KSS; ++kk) {
+        uint32_t af[4];
+        pack_a<S::NS>(af, s, kk);
+#pragma unroll
+        for (int d2 = 0; d2 < S::ND / 2; ++d2) {
+          uint32_t vf[4];
+          ldmatrix_x4_trans(vf, v_s + bt_off<S::LD>(j0 + 16 * kk, 16 * d2, lane));
+          mma_bf16_16816(acc[2 * d2], af, vf[0], vf[1]);
+          mma_bf16_16816(acc[2 * d2 + 1], af, vf[2], vf[3]);
+        }
+      }
+    }
+    __syncthreads();                             // this stage is free for kt + 2
+  }
+
+  bf16* o = static_cast<bf16*>(a.o) + base;
+  const float den_lo = fmaxf(l_lo, 1e-30f), den_hi = fmaxf(l_hi, 1e-30f);
+#pragma unroll
+  for (int n = 0; n < S::ND; ++n) {
+    const int col = 8 * n + 2 * t4;
+    if (r_lo < T) store_pair(o + static_cast<long long>(r_lo) * dh + col,
+                             acc[n][0] / den_lo, acc[n][1] / den_lo, col, dh);
+    if (r_hi < T) store_pair(o + static_cast<long long>(r_hi) * dh + col,
+                             acc[n][2] / den_hi, acc[n][3] / den_hi, col, dh);
+  }
+  if (t4 == 0) {                                 // the quad's lanes agree
+    if (r_lo < T) {
+      a.l[rbase + r_lo] = l_lo;
+      a.m[rbase + r_lo] = m_lo;
+    }
+    if (r_hi < T) {
+      a.l[rbase + r_hi] = l_hi;
+      a.m[rbase + r_hi] = m_hi;
+    }
+  }
 }
 
 // K2 in bf16: one block per (b*h, 64 q rows), warp w owning q rows 16w..16w+15
@@ -932,37 +1093,38 @@ cudaError_t launch_kernel(void (*kernel)(Args), const Args& a, int BH, int threa
   return cudaGetLastError();
 }
 
-// the SIMT kernels: K1 in E, K2 and K3 in f32 only
-template <typename E, int JD>
+// the SIMT kernels, f32
+template <int JD>
 cudaError_t launch_simt(Pass pass, const Args& a, int BH, cudaStream_t stream) {
-  void (*kernel)(Args) = flash_fwd_kernel<E, JD>;
-  if constexpr (std::is_same<E, float>::value) {
-    if (pass == kDq) kernel = flash_dq_kernel<E, JD>;
-    if (pass == kDkv) kernel = flash_dkv_kernel<E, JD>;
-  } else if (pass != kForward) {
-    return cudaErrorInvalidValue;               // bf16 K2/K3: launch_bf16_backward
-  }
+  void (*kernel)(Args) = pass == kForward ? flash_fwd_kernel<JD>
+                         : pass == kDq    ? flash_dq_kernel<JD>
+                                          : flash_dkv_kernel<JD>;
   return launch_kernel(kernel, a, BH, kThreads, smem_bytes(pass, a.dh), stream);
 }
 
-template <typename E>
-cudaError_t launch_dh(Pass pass, const Args& a, int BH, cudaStream_t stream) {
-  return a.dh <= 64 ? launch_simt<E, 4>(pass, a, BH, stream)
-                    : launch_simt<E, 8>(pass, a, BH, stream);
+cudaError_t launch_f32(Pass pass, const Args& a, int BH, cudaStream_t stream) {
+  return a.dh <= 64 ? launch_simt<4>(pass, a, BH, stream)
+                    : launch_simt<8>(pass, a, BH, stream);
 }
 
 template <int DP>
 cudaError_t launch_mma(Pass pass, const Args& a, int BH, cudaStream_t stream) {
-  const size_t tiles = 6 * static_cast<size_t>(MmaShape<DP>::TILE) * sizeof(__nv_bfloat16);
-  if (pass == kDq) {
-    return launch_kernel(flash_dq_kernel_bf16_mma<DP>, a, BH, kMmaThreads, tiles, stream);
+  constexpr size_t tile = static_cast<size_t>(MmaShape<DP>::TILE) * sizeof(__nv_bfloat16);
+  switch (pass) {
+    case kForward:                               // q + 2 stages of k, v
+      return launch_kernel(flash_fwd_kernel_bf16_mma<DP>, a, BH, kMmaThreads, 5 * tile,
+                           stream);
+    case kDq:                                    // q, do + 2 stages of k, v
+      return launch_kernel(flash_dq_kernel_bf16_mma<DP>, a, BH, kMmaThreads, 6 * tile,
+                           stream);
+    default:                                     // k, v + 2 stages of q, do, rows
+      return launch_kernel(flash_dkv_kernel_bf16_mma<DP>, a, BH, kMmaThreads,
+                           6 * tile + 2 * 3 * kTile * sizeof(float), stream);
   }
-  return launch_kernel(flash_dkv_kernel_bf16_mma<DP>, a, BH, kMmaThreads,
-                       tiles + 2 * 3 * kTile * sizeof(float), stream);
 }
 
-// the tensor-core K2 / K3, head dim padded to 16, 32, 64 or 128
-cudaError_t launch_bf16_backward(Pass pass, const Args& a, int BH, cudaStream_t stream) {
+// the tensor-core K1-K3, head dim padded to 16, 32, 64 or 128
+cudaError_t launch_bf16(Pass pass, const Args& a, int BH, cudaStream_t stream) {
   if (a.dh <= 16) return launch_mma<16>(pass, a, BH, stream);
   if (a.dh <= 32) return launch_mma<32>(pass, a, BH, stream);
   if (a.dh <= 64) return launch_mma<64>(pass, a, BH, stream);
@@ -981,11 +1143,8 @@ int launch(Pass pass, Args a, int BH, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (dtype) {
-    case 0: err = launch_dh<float>(pass, a, BH, st); break;
-    case 1:
-      err = pass == kForward ? launch_dh<__nv_bfloat16>(pass, a, BH, st)
-                             : launch_bf16_backward(pass, a, BH, st);
-      break;
+    case 0: err = launch_f32(pass, a, BH, st); break;
+    case 1: err = launch_bf16(pass, a, BH, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -23,10 +23,10 @@ Casts mirror the TPU kernels': products take their operands in the input
 dtype (f32 or bf16) and sum in f32; ``p`` is rounded to v's dtype before
 p·v, and ``ds·scale`` to k's (q's) dtype before the dq (dk) product. Masks:
 ``qpos >= kpos & kpos < T`` in the forward, ``& qpos < T`` in the backward,
-with the finite ``NEG_INF`` and ``l`` floored at ``1e-30``. K1 and the f32
-K2/K3 compute on the CUDA cores in f32; the bf16 K2/K3 run every product
-on the tensor cores (``mma.sync``: bf16 operands, f32 sums, the same casts),
-with p and ds kept in registers.
+with the finite ``NEG_INF`` and ``l`` floored at ``1e-30``. The f32 K1-K3
+compute on the CUDA cores in f32; the bf16 K1-K3 run every product on the
+tensor cores (``mma.sync``: bf16 operands, f32 sums, the same casts), with
+p and ds kept in registers.
 
 On a CPU tensor every wrapper computes its plain version
 (:func:`flash_forward_reference`, :func:`flash_backward_reference`) —

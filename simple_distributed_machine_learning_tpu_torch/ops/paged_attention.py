@@ -4,13 +4,14 @@ Port of ``ops/paged_attention.py``. The serving decode tick
 (``models/gpt.py::_paged_decode_fwd`` with ``kernel="fused"``) calls
 :func:`paged_attention` once per layer. On a CUDA tensor it launches the
 hand-written Hopper kernel ``csrc/paged_attention.cu``, which replaces the
-Pallas TPU kernel ``_paged_attn_kernel``: per (slot, head) it walks the
-slot's block table up to its newest query position, reads each K/V row of
-those blocks once (dequantising int8/fp8 rows with their per-row f32
-scales on the way into shared memory), and folds the position-masked f32
-scores into an online softmax — no gathered copy and no score matrix ever
-reaches device memory. The tick is bound by those K/V bytes; see the
-source's header for what the design does about it.
+Pallas TPU kernel ``_paged_attn_kernel``: per (slot, head) its warps split
+the slot's block table up to its newest query position, read each K/V row
+of those blocks once straight into registers (dequantising int8/fp8 rows
+with their per-row f32 scales there), fold the position-masked f32 scores
+into online softmaxes of their own, and merge them once at the end — no
+gathered copy and no score matrix ever reaches device memory. The tick is
+bound by those K/V bytes, and at serving sizes by how many of their loads
+are in flight; see the source's header for the design.
 
 On a CPU tensor the wrapper computes :func:`paged_attention_reference`,
 the plain version (gather rows, mask, softmax, einsum in f32) — the CPU
@@ -43,6 +44,9 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                   torch.float8_e4m3fn: 3, torch.float8_e5m2: 4}
 _QUANTIZED = (torch.int8, torch.float8_e4m3fn, torch.float8_e5m2)
 _MAX_HEAD_DIM = 256
+#: queries per slot the kernel takes: each lane holds its output columns
+#: for every query in registers
+_MAX_QUERIES = 8
 
 
 @functools.lru_cache(maxsize=None)
@@ -185,9 +189,12 @@ paged_attention.launches = 0
 def _launch(q, kc, vc, tables, qpos, bs, kscale, vscale) -> torch.Tensor:
     S, H, K, dh = q.shape
     if dh > _MAX_HEAD_DIM:
-        raise ValueError(f"head dim {dh} > {_MAX_HEAD_DIM}: the kernel keeps "
-                         f"a query tile of dh floats per query in shared "
-                         f"memory")
+        raise ValueError(f"head dim {dh} > {_MAX_HEAD_DIM}: the kernel's "
+                         f"lanes hold at most 8 of 32 x 8 output columns")
+    if K > _MAX_QUERIES:
+        raise ValueError(f"{K} queries per slot > {_MAX_QUERIES}: the "
+                         f"kernel holds every query's output columns in "
+                         f"registers")
     if q.dtype != torch.float32 or not q.is_contiguous():
         raise ValueError("q must be contiguous float32")
     if kc.dtype not in _KERNEL_DTYPES or vc.dtype != kc.dtype:

@@ -93,11 +93,19 @@ def test_gradients_match_jax_kernels(t, bq, bk):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), **GRAD_TOL)
 
 
-def test_bf16_inputs_match_jax_kernel():
-    q, k, v, w = _qkv(4, (1, 2, 32, 16), n=4)
+@pytest.mark.parametrize("t,dh,bq,bk", [
+    (32, 16, 16, 16),
+    (65, 40, 16, 32),     # a ragged tail past the card's 64-row tile
+    (80, 64, 32, 16),     # the training head dim, several k blocks a row
+])
+def test_bf16_inputs_match_jax_kernel(t, dh, bq, bk):
+    """The plain K1-K3 in bf16 against the JAX kernels at the shapes the
+    card holds the tensor-core kernels to: with blocks smaller than T the
+    JAX K1 rounds p against a running max, as the card's K1 does."""
+    q, k, v, w = _qkv(4 if t == 32 else t + dh, (1, 2, t, dh), n=4)
     rtol, atol = attn_tol(jnp.bfloat16)
     jo, jl, jm = jfa._flash_fwd_call(
-        *(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)), 16, 16)
+        *(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)), bq, bk)
     o, l, m = tfa.flash_forward(*_t(q, k, v, dtype=torch.bfloat16))
     assert o.dtype == torch.bfloat16 and l.dtype == m.dtype == torch.float32
     np.testing.assert_allclose(o.float().numpy(),
@@ -107,8 +115,8 @@ def test_bf16_inputs_match_jax_kernel():
                                atol=atol)
     np.testing.assert_allclose(l.numpy(), np.asarray(jl), rtol=rtol,
                                atol=atol)
-    got = _port_grads(q, k, v, w, 16, 16, torch.bfloat16)
-    ref = _jax_grads(q, k, v, w, 16, 16, jnp.bfloat16)
+    got = _port_grads(q, k, v, w, bq, bk, torch.bfloat16)
+    ref = _jax_grads(q, k, v, w, bq, bk, jnp.bfloat16)
     for g, r in zip(got, ref):
         assert g.dtype == torch.bfloat16
         np.testing.assert_allclose(g.float().numpy(),

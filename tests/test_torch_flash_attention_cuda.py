@@ -6,12 +6,14 @@ without JAX; the repo's ``tests/conftest.py`` sets JAX up, so skip it there:
 
     python -m pytest --noconftest -m cuda tests/test_torch_*_cuda.py
 
-Without a card every test here skips. Tolerances are ``chip_smoke.py``'s:
+Without a card every test here skips. In bf16 all three kernels run on
+the tensor cores (K1 since its redesign, beside K2 and K3); in f32 on the
+CUDA cores. Tolerances are ``chip_smoke.py``'s:
 f32 ``(o, l, m)`` within rtol = atol = 1e-5 (f32 sums in another order),
 f32 gradients within 1e-4 (the JAX package's gradient tolerance,
 ``tests/test_flash_attention.py``), bf16 outputs within two bf16 ulps at 1.0
 (K1 rounds p against its running max, the plain version against the final
-one; the tensor-core K2/K3 sum in f32 in another order, which can move a
+one; the tensor-core kernels sum in f32 in another order, which can move a
 bf16 rounding of p, ds or an output by one ulp); l and m stay f32 in both
 dtypes.
 """
@@ -49,7 +51,7 @@ def cuda_device():
 
 
 # (dtype, T, dh): f32 through the SIMT kernels at the training head dim, a
-# full and a ragged T; bf16 through the tensor-core K2/K3 at one T row (1),
+# full and a ragged T; bf16 through the tensor-core K1-K3 at one T row (1),
 # one row past a tile (65), a ragged tail (200) and whole tiles (256), for
 # head dims padded to 32, 64 and 128 and one that is not a multiple of 16;
 # and dh 8, padded to 16 (the smallest instantiation)

@@ -18,6 +18,8 @@ holds it against the plain version at the serving shapes on every chip
 run.
 """
 
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -103,6 +105,49 @@ def test_plain_version_matches_jax_kernel(name, K):
     rtol, atol = attn_tol(jnp.dtype(name))
     np.testing.assert_allclose(out.numpy(), wide.numpy(), rtol=rtol,
                                atol=atol)
+
+
+@pytest.mark.parametrize("name", DTYPES)
+def test_plain_version_matches_jax_kernel_at_kernel_edges(name):
+    """The shapes the card holds the CUDA kernel to beside the serving
+    ones: K = 8 queries, blocks of 8 with a table of 20 (longer than 16
+    blocks), head dim 40; slot 0 at the last position its table spans,
+    slot 1 at position 0 with a real block, slot 2 routed to the trash."""
+    S, H, K, dh, bs, NB = 3, 2, 8, 40, 8, 20
+    n = S * NB + 1
+    rng = np.random.default_rng(40 + DTYPES.index(name))
+    q = rng.standard_normal((S, H, K, dh)).astype(np.float32)
+    kc = rng.standard_normal((n, H, bs, dh)).astype(np.float32)
+    vc = rng.standard_normal((n, H, bs, dh)).astype(np.float32)
+    pos = np.array([NB * bs - K, 0, 0])
+    qpos = (pos[:, None] + np.arange(K)[None, :]).astype(np.int32)
+    tables = np.zeros((S, NB), np.int32)
+    tables[0] = rng.permutation(n - 1)[:NB] + 1
+    tables[1, :1] = [n - 1]
+    (jk, jv, jks, jvs), (tk, tv, tks, tvs) = _pools(name, kc, vc)
+    ref = jax_paged_attention(jnp.asarray(q), jk, jv, jnp.asarray(tables),
+                              jnp.asarray(qpos), block_size=bs,
+                              kscale=jks, vscale=jvs)
+    out = paged_attention(torch.from_numpy(q), tk, tv,
+                          torch.from_numpy(tables), torch.from_numpy(qpos),
+                          block_size=bs, kscale=tks, vscale=tvs,
+                          device="cpu")
+    rtol, atol = SAME_BYTES_TOL
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                               rtol=rtol, atol=atol)
+
+
+def test_kernel_takes_at_most_8_queries():
+    """The CUDA kernel holds each query's output columns in registers, for
+    up to 8 queries per slot: its wrapper raises on a ninth before it
+    builds or launches anything (the plain version takes any K)."""
+    launch = sys.modules[paged_attention.__module__]._launch
+    q, kc, vc, tables, qpos = _toy_pool(2, K=9)
+    args = [torch.from_numpy(a) for a in (q, kc, vc, tables, qpos)]
+    with pytest.raises(ValueError, match="queries per slot"):
+        launch(*args, BS, None, None)
+    out = paged_attention(*args, block_size=BS, device="cpu")
+    assert out.shape == q.shape and torch.isfinite(out).all()
 
 
 def test_paged_flash_decode_matches_jax():
