@@ -59,7 +59,23 @@ or without the port beside it. Phases, each fatal on failure:
    outside that limit;
 6. where a full-width flash training step's time goes, under
    ``torch.profiler``; the bf16 K1 must show there by its tensor-core
-   kernel's name, ``n_layers`` launches per step.
+   kernel's name, ``n_layers`` launches per step;
+7. the reference's main path, through the port's CLI and ``Trainer`` on
+   the card: LeNet for 2 epochs at the reference's sizing (6000/1000
+   synthetic samples, batch 60, SGD lr 0.1 momentum 0.5) with a
+   checkpoint directory and ``--metrics-json`` — every console line in
+   the reference's formats, 2 schema-2 records, finite losses — and a
+   rerun with ``--epochs 3`` that resumes at epoch 3; 20 deterministic
+   SGD steps of LeNet on the card within ``rel=1e-4*(i+1)+1e-5`` of the
+   port's CPU path from the same weights and batches, while a (C, H, W)
+   flatten lands outside; ``mlp2`` (784-512-10) above 50% test accuracy
+   after 2 epochs, and 1 + 1 resumed epochs equal to 2 straight, bit for
+   bit, for ``mlp2`` and LeNet; ``--model gpt --attn flash --dryrun 5``
+   through the CLI with K2 and K3 launched exactly ``n_layers`` times per
+   step and K1 also once per layer per eval batch; and the ``lenet``,
+   ``mlp2`` and ``mlp4`` rows' step time at batch 60 on the host clock,
+   then under ``torch.profiler`` (device busy share, device and host ops
+   per step).
 
 Before the last line it prints the kernels as one JSON object (times in
 ms, measured in this run; ``bound_ms`` computed from this run's inputs);
@@ -71,6 +87,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -157,6 +174,25 @@ TRAIN_ROWS = {
 TRAIN_POOL, TRAIN_STEPS, TRAIN_COMPARE_STEPS = 2, 30, 10
 SERVE_SIM = dict(n_requests=24, rate=32.0, seed=0, prompt_lens=(8, 16, 32),
                  max_new_tokens=24)
+# phase 7, the reference's main path: bench.py::_configs's mlp2 and mlp4
+# widths (lenet is the reference's own model); the reference's console
+# formats (tests/test_trainer.py) and the Trainer's throughput line
+MLP2 = [784, 512, 10]
+MLP4 = [784, 512, 512, 512, 10]
+TRAIN_RE = re.compile(
+    r"^Train Epoch: (\d+) \[(\d+)/(\d+) \((\d+)%\)\]\tLoss: (\d+\.\d{6})$")
+TEST_RE = re.compile(
+    r"^Test set: Average loss: (\d+\.\d{4}), Accuracy: (\d+)/(\d+) "
+    r"\((\d+)%\)$")
+EPOCH_RE = re.compile(r"^\| epoch (\d+): (\d+\.\d) samples/sec$")
+# LeNet steps held against the port's CPU path; steps of each row's timing
+# (warm-up, host-clock window, profiled window); GPT steps through the CLI
+MAIN_COMPARE_STEPS = 20
+MAIN_WARMUP_STEPS, MAIN_TIMED_STEPS, MAIN_PROFILED_STEPS = 20, 300, 20
+MAIN_GPT_STEPS = 5
+# where phase 7 runs: the card ("cpu" only to rehearse the phase without
+# one, where its device checks cannot pass)
+MAIN_DEVICE = "cuda"
 
 
 class SmokeFailure(RuntimeError):
@@ -1120,6 +1156,347 @@ def phase_train_profile(row: dict, record: dict, n_steps: int = 5) -> None:
               f"{k['calls_per_step']:6.1f} calls  {k['name']}")
 
 
+# -- phase 7: the reference's main path ----------------------------------------
+
+def _quiet(fn, *args):
+    """``fn(*args)`` with its console captured: ``(result, text)``."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def _cli(argv: list[str]) -> list[str]:
+    """``cli.main(argv)`` in this process on ``MAIN_DEVICE``; its console
+    lines, blank ones dropped."""
+    from simple_distributed_machine_learning_tpu_torch.cli import main as cli
+    text = _quiet(cli, ["--rank", "0", "--world_size", "1", "--device",
+                        MAIN_DEVICE] + argv)[1]
+    return [line for line in text.split("\n") if line]
+
+
+def _main_rows() -> dict:
+    """``bench.py::_configs``'s lenet, mlp2 and mlp4 rows: each builder
+    (random weights from seed 0, one stage on the card) and whether its
+    input is the image or the flattened image."""
+    from simple_distributed_machine_learning_tpu_torch.models import (
+        make_lenet_stages,
+        make_mlp_stages,
+    )
+    return {"lenet": (lambda dev: make_lenet_stages(0, 1, dev), False),
+            "mlp2": (lambda dev: make_mlp_stages(0, MLP2, 1, dev), True),
+            "mlp4": (lambda dev: make_mlp_stages(0, MLP4, 1, dev), True)}
+
+
+def _row_data(flat: bool):
+    """The reference's data as the CLI loads it without MNIST files: the
+    synthetic set at 6000/1000 samples."""
+    from simple_distributed_machine_learning_tpu_torch.data.mnist import (
+        Dataset,
+        synthetic_mnist,
+    )
+    train, test = synthetic_mnist(n_train=6000, n_test=1000)
+    if flat:
+        train = Dataset(train.x.reshape(len(train.x), -1), train.y)
+        test = Dataset(test.x.reshape(len(test.x), -1), test.y)
+    return train, test
+
+
+def _trainer(row: str, device, epochs: int, ckpt_dir: str | None):
+    """A reference-configured ``Trainer`` (batch 60, SGD lr 0.1 momentum
+    0.5) on one of ``_main_rows``; its console goes nowhere."""
+    from simple_distributed_machine_learning_tpu_torch.parallel import (
+        Pipeline,
+    )
+    from simple_distributed_machine_learning_tpu_torch.train import (
+        TrainConfig,
+        Trainer,
+    )
+    build, flat = _main_rows()[row]
+    stages, wire_dim, out_dim = build(device)
+    train, test = _row_data(flat)
+    cfg = TrainConfig(epochs=epochs, checkpoint_dir=ckpt_dir,
+                      print_throughput=False)
+    return Trainer(Pipeline(stages, None, wire_dim, out_dim, device=device),
+                   train, test, cfg)
+
+
+def _sync() -> None:
+    import torch
+    if MAIN_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _resume_gap(row: str, tmp: str) -> tuple[float, int]:
+    """Two epochs straight against one epoch, a checkpoint and a resumed
+    second epoch, on the card: the largest relative difference of the
+    final parameters and momentum (0.0 = bit-exact), and the accuracy of
+    the straight run on the 1000 test samples."""
+    straight = _trainer(row, MAIN_DEVICE, 2, None)
+    _quiet(straight.fit)
+    _, correct = _quiet(straight.evaluate)[0]
+    ck = os.path.join(tmp, f"{row}_resume")
+    _quiet(_trainer(row, MAIN_DEVICE, 1, ck).fit)
+    resumed, log = _quiet(_trainer, row, MAIN_DEVICE, 2, ck)
+    check("| resumed from" in log and resumed.start_epoch == 2,
+          f"{row}: the second trainer did not resume: {log!r}")
+    _quiet(resumed.fit)
+    gap = 0.0
+    pairs = (list(zip(straight.params[0].parameters(),
+                      resumed.params[0].parameters()))
+             + list(zip(straight.opt_state, resumed.opt_state)))
+    for a, b in pairs:
+        d = (a - b).abs().max().item()
+        gap = max(gap, d / max(a.abs().max().item(), 1e-30))
+    return gap, correct
+
+
+def _lenet_steps(device, batches, conv_apply=None) -> list[float]:
+    """``MAIN_COMPARE_STEPS`` deterministic SGD steps (lr 0.1, momentum
+    0.5, dropout off) of the fused LeNet from seed 0's weights on
+    ``device``; the per-step losses. ``conv_apply`` replaces the conv
+    stage (the known-wrong twin)."""
+    import dataclasses
+
+    from simple_distributed_machine_learning_tpu_torch.models import lenet
+    from simple_distributed_machine_learning_tpu_torch.parallel import (
+        Pipeline,
+    )
+    from simple_distributed_machine_learning_tpu_torch.train import sgd
+    stages, wire_dim, out_dim = lenet.make_lenet_stages(0, 1, device)
+    if conv_apply is not None:
+        def fused(params, x, key=None, deterministic=True):
+            h = conv_apply(params["conv"], x, key, deterministic)
+            return lenet._fc_apply(params["fc"], h, key, deterministic)
+        stages = [dataclasses.replace(stages[0], apply=fused)]
+    pipe = Pipeline(stages, None, wire_dim, out_dim, device=device)
+    opt = sgd(0.1, 0.5)
+    params = pipe.init_params()
+    state = opt.init(params)
+    losses = []
+    for b in batches:
+        loss, grads = pipe.loss_and_grads(params, b.x, b.y,
+                                          deterministic=True)
+        params, state = opt.update(grads, state, params)
+        losses.append(float(loss))
+    return losses
+
+
+def _chw_conv_apply(params, x, key=None, deterministic=True):
+    """LeNet's conv stage flattened in torch's (C, H, W) order where the
+    JAX layout flattens (H, W, C): fc1 reads the wrong features."""
+    from simple_distributed_machine_learning_tpu_torch.models import lenet
+    h = lenet.relu(lenet.max_pool2d(lenet.conv2d(params["conv1"], x), 2))
+    h = lenet.relu(lenet.max_pool2d(lenet.conv2d(params["conv2"], h), 2))
+    return h.permute(0, 3, 1, 2).reshape(h.shape[0], lenet.FEATURES)
+
+
+def _time_row(row: str) -> dict:
+    """One row's training step at batch 60 on the card: ``make_train_step``
+    (SGD lr 0.1, momentum 0.5) fed one pageable host -> device copy per
+    batch as the Trainer feeds it. Host-clock ms per step over
+    ``MAIN_TIMED_STEPS`` steps after ``MAIN_WARMUP_STEPS``, ending in a
+    synchronise; then ``MAIN_PROFILED_STEPS`` steps under
+    ``torch.profiler``: the device's busy share and device ms per step."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from simple_distributed_machine_learning_tpu_torch.data.mnist import (
+        batches,
+    )
+    from simple_distributed_machine_learning_tpu_torch.parallel import (
+        Pipeline,
+    )
+    from simple_distributed_machine_learning_tpu_torch.train import (
+        make_train_step,
+        sgd,
+    )
+    build, flat = _main_rows()[row]
+    stages, wire_dim, out_dim = build(MAIN_DEVICE)
+    pipe = Pipeline(stages, None, wire_dim, out_dim, device=MAIN_DEVICE)
+    opt = sgd(0.1, 0.5)
+    params = pipe.init_params()
+    state = opt.init(params)
+    step = make_train_step(pipe, opt)
+    feed = list(batches(_row_data(flat)[0], 60))
+    n_params = sum(p.numel() for p in params[0].parameters())
+
+    def run(i0: int, n: int):
+        nonlocal params, state
+        for i in range(i0, i0 + n):
+            b = feed[i % len(feed)]
+            params, state, _ = step(params, state, torch.from_numpy(b.x),
+                                    torch.from_numpy(b.y), i)
+
+    run(0, MAIN_WARMUP_STEPS)
+    _sync()
+    t0 = time.perf_counter()
+    run(MAIN_WARMUP_STEPS, MAIN_TIMED_STEPS)
+    _sync()
+    step_ms = (time.perf_counter() - t0) * 1e3 / MAIN_TIMED_STEPS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(0, MAIN_PROFILED_STEPS)
+        _sync()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us, launches, host = 0.0, 0, []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy_us += float(getattr(e, "self_device_time_total", None)
+                             or getattr(e, "self_cuda_time_total", 0))
+            launches += e.count
+        else:
+            host.append((float(e.self_cpu_time_total), e.count, e.key))
+    check(busy_us > 0, f"{row}: torch.profiler recorded no device time")
+    n = MAIN_PROFILED_STEPS
+    out = dict(batch=60, n_params=n_params, step_ms=step_ms,
+               samples_per_s=60e3 / step_ms,
+               profiled_step_ms=wall_us / 1e3 / n,
+               device_ms_per_step=busy_us / 1e3 / n,
+               device_busy_share=busy_us / wall_us,
+               device_ops_per_step=launches / n,
+               host_ops_ms_per_step=sum(t for t, _, _ in host) / 1e3 / n)
+    check(all(np.isfinite(v) for v in out.values()),
+          f"{row}: non-finite timing {out}")
+    out["host_top"] = [dict(name=k[:80], us_per_step=t / n,
+                            calls_per_step=c / n)
+                       for t, c, k in sorted(host, reverse=True)[:8]]
+    return out
+
+
+def phase_main_path(record: dict) -> None:
+    """The reference's main path on the card, through the port's CLI and
+    Trainer: the LeNet CLI run with checkpoints, metrics and a resume; the
+    LeNet trajectory on the card against the port's CPU path, with a
+    known-wrong twin outside the limit; ``mlp2`` learning and its resume
+    bit-exact; ``gpt --attn flash`` through the CLI with exactly
+    ``n_layers`` launches of K1, K2 and K3 per step; and the step times of
+    the lenet, mlp2 and mlp4 rows."""
+    import math
+    import re
+    import tempfile
+
+    from simple_distributed_machine_learning_tpu_torch.data.mnist import (
+        batches,
+    )
+    rec: dict = {}
+    record["main_path"] = rec
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, metrics = os.path.join(tmp, "lenet"), os.path.join(tmp, "m.jsonl")
+        argv = ["--model", "lenet", "--data-root",
+                os.path.join(tmp, "no-mnist"), "--checkpoint-dir", ck,
+                "--metrics-json", metrics]
+        t0 = time.perf_counter()
+        lines = _cli(argv + ["--epochs", "2"])
+        cli_s = time.perf_counter() - t0
+        bad = [ln for ln in lines if not (TRAIN_RE.match(ln) or
+                                          TEST_RE.match(ln) or
+                                          EPOCH_RE.match(ln))]
+        check(not bad, f"lenet CLI: lines off the reference formats: {bad}")
+        losses = [float(TRAIN_RE.match(ln).group(5)) for ln in lines
+                  if TRAIN_RE.match(ln)]
+        check(len(losses) == 20 and all(math.isfinite(v) for v in losses),
+              f"lenet CLI: expected 20 finite loss lines, got {losses}")
+        with open(metrics) as f:
+            recs = [json.loads(ln) for ln in f]
+        check(len(recs) == 2 and all(r["schema"] == 2 for r in recs),
+              f"lenet CLI: expected 2 schema-2 records, got {recs}")
+        again = _cli(argv + ["--epochs", "3"])
+        want = f"| resumed from {ck}/state.npz at epoch 3 (step 200)"
+        check(again[0] == want and any(ln.startswith("Train Epoch: 3 [")
+                                       for ln in again),
+              f"lenet CLI rerun: expected {want!r} then epoch 3, got "
+              f"{again[:3]}")
+        rec["lenet_cli"] = dict(
+            seconds=cli_s, console=lines, resumed=again,
+            samples_per_s=[float(EPOCH_RE.match(ln).group(2))
+                           for ln in lines if EPOCH_RE.match(ln)],
+            accuracy=[r["accuracy"] for r in recs])
+        print(f"chip_smoke: main path: lenet CLI 2 epochs in {cli_s:.1f} s, "
+              f"losses {losses[0]} -> {losses[-1]}, "
+              f"{[ln for ln in lines if EPOCH_RE.match(ln)]}, test "
+              f"accuracy {rec['lenet_cli']['accuracy']}; rerun: {again[0]}")
+
+        # the trajectory on the card against the port's CPU path
+        feed = list(batches(_row_data(False)[0], 60))[:MAIN_COMPARE_STEPS]
+        cpu = _lenet_steps("cpu", feed)
+        card = _lenet_steps(MAIN_DEVICE, feed)
+        wrong = _lenet_steps(MAIN_DEVICE, feed, _chw_conv_apply)
+
+        def worst(ls):
+            return max(abs(a - b) / abs(b) / (1e-4 * (i + 1) + 1e-5)
+                       for i, (a, b) in enumerate(zip(ls, cpu)))
+        ok, caught = worst(card), worst(wrong)
+        rec["lenet_card_vs_cpu"] = dict(cpu=cpu, card=card, wrong=wrong,
+                                        worst_share_of_limit=ok,
+                                        wrong_share_of_limit=caught)
+        print(f"chip_smoke: main path: lenet {MAIN_COMPARE_STEPS} "
+              f"deterministic SGD steps, card vs CPU: worst gap "
+              f"{ok:.3f} of rel=1e-4*(i+1)+1e-5 "
+              f"{'ok' if ok <= 1 else 'FAIL'}; a (C, H, W) flatten: "
+              f"{caught:.1f} of it {'caught' if caught > 1 else 'MISSED'}")
+        check(ok <= 1, f"lenet on the card left the CPU path's trajectory: "
+                       f"{card} vs {cpu}")
+        check(caught > 1, "the trajectory limit does not tell a (C, H, W) "
+                          "flatten from the sound LeNet")
+
+        # mlp2 learns, and resumes bit-exact; LeNet's resume gap
+        for row in ("mlp2", "lenet"):
+            gap, correct = _resume_gap(row, tmp)
+            rec[f"{row}_resume"] = dict(max_rel_gap=gap, accuracy=correct)
+            print(f"chip_smoke: main path: {row} 2 epochs: test accuracy "
+                  f"{correct}/1000; 1 + resumed 1 epoch vs 2 straight: max "
+                  f"rel gap {gap:.3e} "
+                  f"({'bit-exact' if gap == 0 else 'NOT bit-exact'})")
+        check(rec["mlp2_resume"]["accuracy"] > 500,
+              f"mlp2 did not learn: {rec['mlp2_resume']['accuracy']}/1000")
+        check(rec["mlp2_resume"]["max_rel_gap"] == 0.0,
+              "mlp2's resumed run is not bit-exact on the card")
+        check(rec["lenet_resume"]["max_rel_gap"] == 0.0,
+              "lenet's resumed run is not bit-exact on the card")
+
+        # the GPT through the CLI: K2 and K3 run per train step and layer,
+        # K1 also per eval batch (the 1000-sequence test set at batch 60)
+        _reset_flash_counts()
+        glines = _cli(["--model", "gpt", "--attn", "flash", "--dryrun",
+                       str(MAIN_GPT_STEPS), "--generate", "8"])
+        counts = _flash_counts()
+        n_layers = 2
+        evals = -(-1000 // 60)
+        want3 = (n_layers * (MAIN_GPT_STEPS + evals),
+                 n_layers * MAIN_GPT_STEPS, n_layers * MAIN_GPT_STEPS)
+        rec["gpt_cli"] = dict(console=glines, launches=counts,
+                              expected=want3)
+        print(f"chip_smoke: main path: gpt --attn flash --dryrun "
+              f"{MAIN_GPT_STEPS} through the CLI: K1/K2/K3 launches "
+              f"{counts} = {n_layers} layers x ({MAIN_GPT_STEPS} steps "
+              f"[+ {evals} eval batches for K1]): {counts == want3}; "
+              f"{[ln for ln in glines if TEST_RE.match(ln)]}")
+        check(counts == want3, f"gpt CLI: flash launches {counts} != "
+                               f"{want3}")
+        check(any(ln.startswith("| sample tokens") for ln in glines),
+              "gpt CLI: --generate printed no sample")
+
+    rows = {}
+    for row in ("lenet", "mlp2", "mlp4"):
+        rows[row] = r = _time_row(row)
+        print(f"chip_smoke: main path: {row} ({r['n_params']} params, "
+              f"batch 60, SGD): step {r['step_ms']:.4f} ms (host clock, "
+              f"{MAIN_TIMED_STEPS} steps), {r['samples_per_s']:.1f} "
+              f"samples/s; profiled: {r['profiled_step_ms']:.4f} ms/step, "
+              f"device {r['device_ms_per_step']:.4f} ms/step, busy "
+              f"{r['device_busy_share']:.4f}, "
+              f"{r['device_ops_per_step']:.1f} device ops/step; host ops "
+              f"{r['host_ops_ms_per_step']:.4f} ms/step, most: " + ", ".join(
+                  f"{h['name']} {h['us_per_step']:.1f} us"
+                  for h in r["host_top"][:4]))
+    rec["rows"] = rows
+
+
 def main() -> int:
     try:
         import torch
@@ -1155,6 +1532,7 @@ def main() -> int:
         train = phase_train("gpt_bf16", TRAIN_ROWS["gpt_bf16"], record)
         phase_train("gpt", TRAIN_ROWS["gpt"], record)
         phase_train_profile(TRAIN_ROWS["gpt_bf16"], record)
+        phase_main_path(record)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,5 +1,5 @@
-"""Models (port of ``models/``): the GPT, its training forward and its
-serving decode programs."""
+"""Models (port of ``models/``): the GPT (its training forward and its
+serving decode programs), the MLP and LeNet."""
 
 from simple_distributed_machine_learning_tpu_torch.models.gpt import (  # noqa: F401
     GPT,
@@ -9,4 +9,10 @@ from simple_distributed_machine_learning_tpu_torch.models.gpt import (  # noqa: 
     make_paged_block_copy,
     make_paged_decode_step,
     make_paged_prefill_chunk,
+)
+from simple_distributed_machine_learning_tpu_torch.models.lenet import (  # noqa: F401
+    make_lenet_stages,
+)
+from simple_distributed_machine_learning_tpu_torch.models.mlp import (  # noqa: F401
+    make_mlp_stages,
 )

@@ -55,6 +55,7 @@ from simple_distributed_machine_learning_tpu_torch import _roadmap
 from simple_distributed_machine_learning_tpu_torch._device import (
     resolve_device,
 )
+from simple_distributed_machine_learning_tpu_torch._tree import Tree
 from simple_distributed_machine_learning_tpu_torch.ops import random as _rng
 from simple_distributed_machine_learning_tpu_torch.ops.attention import (
     _merge_heads,
@@ -207,36 +208,21 @@ def _check_ported(cfg: GPTConfig, caller: str) -> None:
 
 # -- the model as parameter containers -------------------------------------
 
-class _Tree(nn.Module):
-    """A parameter container that indexes like the JAX param dict."""
-
-    def __getitem__(self, key: str):
-        if key not in self:
-            raise KeyError(key)
-        return getattr(self, key)
-
-    def __contains__(self, key) -> bool:
-        return key in self._parameters or key in self._modules
-
-    def get(self, key: str, default=None):
-        return self[key] if key in self else default
-
-
-class Linear(_Tree):
+class Linear(Tree):
     def __init__(self, w: torch.Tensor, b: torch.Tensor) -> None:
         super().__init__()
         self.w = nn.Parameter(w)
         self.b = nn.Parameter(b)
 
 
-class LayerNorm(_Tree):
+class LayerNorm(Tree):
     def __init__(self, scale: torch.Tensor, bias: torch.Tensor) -> None:
         super().__init__()
         self.scale = nn.Parameter(scale)
         self.bias = nn.Parameter(bias)
 
 
-class Attention(_Tree):
+class Attention(Tree):
     """QKVO projections, each ``[d, d]`` (heads split on the output)."""
 
     def __init__(self, wq, wk, wv, wo) -> None:
@@ -247,21 +233,21 @@ class Attention(_Tree):
         self.wo = nn.Parameter(wo)
 
 
-class Embed(_Tree):
+class Embed(Tree):
     def __init__(self, tok: torch.Tensor, pos: torch.Tensor) -> None:
         super().__init__()
         self.tok = nn.Parameter(tok)
         self.pos = nn.Parameter(pos)
 
 
-class Head(_Tree):
+class Head(Tree):
     def __init__(self, ln_f: dict, out: dict) -> None:
         super().__init__()
         self.ln_f = LayerNorm(**ln_f)
         self.out = Linear(**out)
 
 
-class Block(_Tree):
+class Block(Tree):
     """One pre-LN transformer block: causal MHA + GELU MLP."""
 
     def __init__(self, tree: dict) -> None:
@@ -273,7 +259,7 @@ class Block(_Tree):
         self.mlp_out = Linear(**tree["mlp_out"])
 
 
-class GPT(_Tree):
+class GPT(Tree):
     """The GPT, or one pipeline stage of it: ``blocks`` always, ``embed``
     on the first stage, ``head`` (final LN + untied vocab projection) on
     the last. Built from JAX-shaped trees of tensors."""

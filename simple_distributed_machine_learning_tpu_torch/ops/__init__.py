@@ -22,13 +22,18 @@ from simple_distributed_machine_learning_tpu_torch.ops.flash_attention import ( 
     flash_mha,
 )
 from simple_distributed_machine_learning_tpu_torch.ops.layers import (  # noqa: F401
+    conv2d,
+    conv2d_init,
     dropout,
+    dropout2d,
     embedding_init,
     embedding_lookup,
     layer_norm,
     layer_norm_init,
     linear,
     linear_init,
+    max_pool2d,
+    relu,
 )
 from simple_distributed_machine_learning_tpu_torch.ops.losses import (  # noqa: F401
     log_softmax,

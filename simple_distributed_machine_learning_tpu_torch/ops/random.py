@@ -49,7 +49,7 @@ def _fmix32(x: torch.Tensor) -> torch.Tensor:
 
 def _bits(k0: torch.Tensor, k1: torch.Tensor, ctr) -> torch.Tensor:
     """32 random bits for counter ``ctr`` under key ``(k0, k1)``
-    (broadcasting)."""
+    (broadcasting; Python ints give the same bits as int64 tensors)."""
     h = _fmix32(_mul32(k0, _C3) ^ k1)
     h = _fmix32(_mul32(h, _C1) ^ (ctr & _M32))
     return _fmix32((h + _C3) & _M32)
@@ -73,3 +73,15 @@ def gumbel(ks: torch.Tensor, n: int, ctr0: torch.Tensor | None = None
     b = _bits(ks[:, 0:1], ks[:, 1:2], ctr)
     u = ((b >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
     return -torch.log(-torch.log(u))
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A 63-bit seed for a ``torch.Generator``, derived from ``(seed,
+    data)`` alone through the murmur mix (the role of JAX's
+    ``fold_in(key(seed), data)``): a training step's dropout generator is
+    seeded by ``fold_in(config.seed, step)``, so a resumed or replayed
+    step draws the masks the uninterrupted run drew. Python ints, once per
+    step on the host."""
+    k0, k1 = (int(w) for w in key_data(seed))
+    ctr = 2 * (int(data) & 0x7FFFFFFF)
+    return (_bits(k0, k1, ctr) << 31) | (_bits(k0, k1, ctr + 1) >> 1)

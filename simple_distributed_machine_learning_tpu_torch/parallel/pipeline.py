@@ -7,11 +7,13 @@ and eval metrics run through ``_fused_logits`` / ``_fused_loss`` with no
 microbatching and no wire. That path is what this module ports. Several
 stages (GPipe over a mesh, 1F1B) wait for ROADMAP item 6 and raise.
 
-Parameters stay in the stage's ``nn.Module`` (``models/gpt.py::GPT``): a
+Parameters stay in the stage's ``nn.Module`` container (``models/gpt.py::
+GPT``, or the MLP's and LeNet's ``_tree.ParamTree`` lists and dicts): a
 training step passes the list of per-stage modules where the JAX package
 passes its packed ``[S, M, E, P]`` buffer. That buffer exists to shard
 stages over a mesh; on one card there is nothing to shard, and the
-optimizers update the modules' tensors in place.
+optimizers update the modules' tensors in place. The packed layout
+(``metas``) is still what a checkpoint writes (``train/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,9 @@ from simple_distributed_machine_learning_tpu_torch._device import (
     resolve_device,
 )
 from simple_distributed_machine_learning_tpu_torch.ops.losses import nll_loss
+from simple_distributed_machine_learning_tpu_torch.parallel.staging import (
+    stage_meta,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,9 +42,9 @@ class Stage:
     ``apply(params, x, key=None, deterministic=True) -> y`` runs the stage
     on real activations: ``x`` has per-sample shape ``in_shape`` (token ids
     for the first stage); the last stage returns log-probabilities.
-    ``params`` is the stage's ``nn.Module`` parameter tree
-    (``models/gpt.py::GPT``), whose ``state_dict`` keys are the JAX stage
-    tree's paths; ``key`` is a ``torch.Generator`` for dropout. The JAX
+    ``params`` is the stage's ``nn.Module`` parameter container, which
+    indexes like the JAX stage tree (``_tree.Tree``); ``key`` is a
+    ``torch.Generator`` for dropout. The JAX
     package's ``shards``/``expert_shards`` (tensor and expert parallelism)
     wait for the slices that port those axes.
     """
@@ -85,14 +90,15 @@ class Pipeline:
     """The pipeline engine on one card.
 
     Keeps the JAX signature as far as it means something here: ``mesh``
-    must be None (one card); ``wire_dim`` and ``out_dim`` are accepted as
+    must be None (one card: ``parallel/mesh.py::make_mesh`` returns it); ``wire_dim`` and ``out_dim`` are accepted as
     ``make_gpt_stages`` returns them; ``n_microbatches`` is accepted and, as on
     the JAX package's trivial mesh, does not split the batch; ``remat`` is
     accepted and, as there, recomputes nothing; ``schedule`` is
     ``"gpipe"`` or ``"1f1b"``, the same on one stage.
     ``compute_dtype`` casts the parameters and float activations to that
     dtype around the stage apply; master parameters and the loss stay f32.
-    Token ids are not cast: a bf16 cast rounds ids above 256. This departs
+    Token ids (the input of a stage that holds the ``embed`` table) are
+    not cast: a bf16 cast rounds ids above 256. This departs
     from the JAX package, which casts its float token wire, so that its
     ``gpt_bf16`` row trains on rounded ids;
     ``tests/test_torch_gpt_train.py`` pins the difference. ``device``
@@ -123,6 +129,8 @@ class Pipeline:
         # initial buffer: init_params() survives any number of in-place
         # steps on the copies it hands out
         self._params0 = [copy.deepcopy(s.params).cpu() for s in self.stages]
+        # the packed [S, 1, 1, P] layout of a checkpoint's params
+        self.metas = [stage_meta(p) for p in self._params0]
 
     def init_params(self) -> list[nn.Module]:
         """A fresh copy of the initial per-stage parameter modules on the
@@ -144,7 +152,7 @@ class Pipeline:
         xs = xs.reshape((xs.shape[0],) + tuple(stage.in_shape))
         if self.compute_dtype is not None:
             p = _cast_tree(p, self.compute_dtype)
-            if xs.is_floating_point() and len(stage.in_shape) > 1:
+            if xs.is_floating_point() and "embed" not in p:
                 xs = xs.to(self.compute_dtype)
         return stage.apply(p, xs, _generator(key, self.device),
                            deterministic).float()

@@ -1,12 +1,23 @@
 """Training (port of ``train/``): optimizers, schedules, the train and eval
-steps. The JAX package's trainer, checkpointing, ZeRO-1 and ``from_optax``
-wait for ROADMAP Queue A item 3."""
+steps, checkpoints that cross-restore with the JAX package, and the
+reference-style ``Trainer``."""
 
+from simple_distributed_machine_learning_tpu_torch.train.checkpoint import (  # noqa: F401
+    AsyncSave,
+    CheckpointCorruptError,
+    repack_checkpoint,
+    repack_packed_buffer,
+    repack_stage_trees,
+    restore_checkpoint,
+    save_checkpoint,
+    save_checkpoint_async,
+)
 from simple_distributed_machine_learning_tpu_torch.train.optimizer import (  # noqa: F401
     Optimizer,
     adamw,
     clip_by_global_norm,
     sgd,
+    shard_opt_state_zero1,
 )
 from simple_distributed_machine_learning_tpu_torch.train.schedules import (  # noqa: F401
     constant,
@@ -18,4 +29,8 @@ from simple_distributed_machine_learning_tpu_torch.train.step import (  # noqa: 
     make_eval_step,
     make_scanned_train_step,
     make_train_step,
+)
+from simple_distributed_machine_learning_tpu_torch.train.trainer import (  # noqa: F401
+    TrainConfig,
+    Trainer,
 )

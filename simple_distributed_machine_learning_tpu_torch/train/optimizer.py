@@ -11,8 +11,14 @@ and returns them, so a step's call shape is the JAX one:
 
 ``params`` is anything :func:`~..parallel.pipeline.param_leaves` flattens
 (the pipeline's list of stage modules); ``grads`` is aligned with those
-leaves. ZeRO-1 (``shard_opt_state_zero1``) and ``from_optax`` have no
-meaning on one card with no optax: ROADMAP Queue A item 3 lists them.
+leaves. ZeRO-1 (:func:`shard_opt_state_zero1`) is the identity on the
+one-card mesh, as the JAX package's is on a one-wide data axis; sharding
+the state over a real data axis waits for ROADMAP Queue A item 6. The JAX
+package's ``from_optax`` wraps a JAX library and has no port.
+
+State layout (``train/checkpoint.py`` maps it to the JAX package's): a
+list holds one tensor per :func:`param_leaves` entry (momentum, Adam
+moments); a tuple is structure; an int is a step counter.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from simple_distributed_machine_learning_tpu_torch import _roadmap
 from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (
     param_leaves,
 )
@@ -111,3 +118,14 @@ def clip_by_global_norm(opt: Optimizer, max_norm: float) -> Optimizer:
                           params)
 
     return Optimizer(opt.init, update)
+
+
+def shard_opt_state_zero1(state: Any, mesh=None, param_spec=None) -> Any:
+    """ZeRO-1: shard the optimizer state over the data axis. On the
+    one-card mesh (``mesh=None``) there is one data shard, so the state is
+    returned as it is — what the JAX package does on a one-wide data axis.
+    A real data axis is not ported yet."""
+    if mesh is None:
+        return state
+    raise _roadmap.not_ported(f"ZeRO-1 over the mesh {mesh!r}",
+                              _roadmap.PARALLEL_AXES)
