@@ -25,11 +25,16 @@ or without the port beside it. Phases, each fatal on failure:
    pool's; then K4's edge cases (``K4_EDGES``: head dims 40, 128, 256,
    blocks of 8 and 32, a table longer than the warp count, K = 4 and 8, a
    slot at position 0 beside a trash-routed one, a non-contiguous and a
-   misaligned pool view) against the plain version. Each serving case is
+   misaligned pool view) against the plain version; then K4 with more
+   queries per slot than one block takes (K = 9, 12 and 16: two query
+   groups in one launch) for every cache dtype, each plan with a slot whose
+   later queries are clamped to position 255 (so positions repeat) and one
+   whose queries straddle a block boundary. Each serving case is
    timed with CUDA events (one pair around a run of 40 calls, the L2
    flushed before each call, the flushes' own time subtracted; median of 5
    runs) beside its plain version and its bound, and K4 must beat its
-   plain version at the f32 K = 1 case;
+   plain version at the f32 K = 1 case; so are the speculative verify's
+   cases (f32, 4 slots, K = 4 and K = 16);
    then the flash kernels K1 (forward), K2 (dq) and K3 (dk/dv) against
    their plain versions, f32 and bf16, at the training shape (16, 8, 256,
    64), at a ragged T = 200 and at the tiny row's (32, 4, 64, 32), and in
@@ -45,6 +50,21 @@ or without the port beside it. Phases, each fatal on failure:
    seed 0). It must complete 24/24, launch the kernel n_layers times per
    decode tick, and give every greedy stream equal to an ``attn_kernel=
    "dense"`` engine's and to the solo ``make_cached_decoder``'s;
+3b. speculative decoding on the same model, block 16, ``attn_kernel=
+   "fused"`` (the verify step launches K4 with ``spec_k`` queries per
+   slot): (a) draft == target at ``spec_k`` 4, 4 slots, 24 greedy requests
+   submitted up front (prompts 8/16/32, 24 new tokens; the JAX package's
+   ``bench.py::_measure_spec_vs_plain``) — accept rate exactly 1.0, at
+   least 2x a plain engine's tokens per tick on the same workload, every
+   stream equal to the plain engine's and the solo decoder's, and K4
+   launched exactly ``n_layers`` times per speculative tick; (b) the CLI's
+   draft (half the layers, fresh weights from a derived seed) at
+   ``spec_k`` 4 on phase 3's trace — 24/24 served, every greedy stream
+   equal to phase 3's, its accept rate, TTFT/TPOT, tokens/s and host-clock
+   tick beside the plain engine's; (c) draft == target at ``spec_k`` 12,
+   K4's two-group path inside the engine — greedy streams equal to plain
+   decode's; and the CLI's ``--model gpt --serve-sim 8 --serve-spec-k 4``
+   exits 0 with its ``| serve: tp 1, spec_k 4 accept_rate ...`` line;
 4. where a decode tick's time goes: a steady window at full occupancy (8
    slots), timed on the host clock, then traced with ``torch.profiler`` —
    the device's busy share and its time by kernel (``PERF.md`` section 5);
@@ -174,6 +194,12 @@ TRAIN_ROWS = {
 TRAIN_POOL, TRAIN_STEPS, TRAIN_COMPARE_STEPS = 2, 30, 10
 SERVE_SIM = dict(n_requests=24, rate=32.0, seed=0, prompt_lens=(8, 16, 32),
                  max_new_tokens=24)
+# phase 2's K4 cases beyond one query group (K = 9, 12, 16, every dtype)
+# and the speculative verify's timed cases (f32, 4 slots); phase 3b's
+# drives: JAX bench.py's SPEC_BENCH_K = 4 on 4 slots, and spec_k 12
+K4_MULTI_GROUP = (9, 12, 16)
+SPEC_SLOTS, SPEC_K, SPEC_K_WIDE = 4, 4, 12
+SPEC_WORKLOAD = dict(n_requests=24, prompt_lens=(8, 16, 32), max_new=24)
 # phase 7, the reference's main path: bench.py::_configs's mlp2 and mlp4
 # widths (lenet is the reference's own model); the reference's console
 # formats (tests/test_trainer.py) and the Trainer's throughput line
@@ -413,7 +439,8 @@ def phase_build(record: dict) -> None:
 
 def _pool_case(name: str, K: int, gen, dev, dh: int = 64,
                bs: int = SERVE_BLOCK, layout: str = "layer",
-               pos0: bool = False):
+               pos0: bool = False, slots: int = SERVE_SLOTS,
+               spec_plan: bool = False):
     """The serving pool's shapes: [L=4, 129 blocks, 8 heads, 16, 64], one
     layer's view handed to the kernel as the engine does; 8 slots with
     ragged tables (trash 0 past each slot's position), one slot routed
@@ -423,12 +450,15 @@ def _pool_case(name: str, K: int, gen, dev, dh: int = 64,
     layer's view strides its block axis past the other layers) or
     "misaligned" (rows of dh + 1, the view starting one element in, too
     narrow an alignment for the vector loads); ``pos0``: slot 1 at
-    position 0 with a real table entry."""
+    position 0 with a real table entry; ``slots``: another slot count;
+    ``spec_plan``: slot 1 at 256 - K/2, so its later queries are clamped
+    to 255 and repeat, and slot 2 four positions before a block boundary,
+    so its queries straddle it."""
     import torch
     from simple_distributed_machine_learning_tpu_torch.models.gpt import (
         _quantize_rows,
     )
-    L, H, S = 4, 8, SERVE_SLOTS
+    L, H, S = 4, 8, slots
     NB = 256 // bs
     nblk = S * NB + 1
     wide = dh + 1 if layout == "misaligned" else dh
@@ -443,6 +473,8 @@ def _pool_case(name: str, K: int, gen, dev, dh: int = 64,
     pos[0], pos[S - 1] = 255, 0
     if pos0:
         pos[1] = 0
+    if spec_plan:
+        pos[1], pos[2] = 256 - K // 2, 5 * bs - 4
     qpos = torch.clamp(pos[:, None] + torch.arange(K)[None, :], max=255)
     perm = torch.randperm(nblk - 1, generator=gen) + 1
     tables = torch.zeros((S, NB), dtype=torch.int32)
@@ -591,12 +623,54 @@ def phase_kernels(record: dict) -> dict:
               f"{v['max_abs_err_vs_f32']:.3e} {'ok' if wide_ok else 'FAIL'}")
         check(ok and wide_ok, f"paged_attention edge case {name} K={K} "
                               f"{opts} disagrees: {v}")
+    multi = []
+    for name in ATTN_TOL:
+        for K in K4_MULTI_GROUP:
+            c = _pool_case(name, K, gen, dev, spec_plan=True)
+            v, ok, wide_ok = _against_plain(name, c)
+            v["case"] = "spec_plan"
+            multi.append(v)
+            # gated against the plain version only: the plan's early
+            # queries attend one or two rows, whose whole rounding error
+            # (fp8 e5m2: up to 1/8 of a value) no average dilutes, so the
+            # narrow pool's distance from the f32 pool's answer is shown,
+            # not held to attn_tol
+            print(f"chip_smoke: paged_attention {name:>13} K={K} "
+                  f"({-(-K // 8)} query groups, clamped and straddling "
+                  f"plans): vs plain max abs {v['max_abs_err']:.3e} "
+                  f"{'ok' if ok else 'FAIL'}; vs the f32 pool max abs "
+                  f"{v['max_abs_err_vs_f32']:.3e} (attn_tol "
+                  f"{v['atol_vs_f32']}: "
+                  f"{'within' if wide_ok else 'outside'}, not gated)")
+            check(ok, f"paged_attention {name} K={K} (query groups) "
+                      f"disagrees with its plain version: {v}")
+    spec_timed = []
+    for K in (SPEC_K, 16):
+        c = _pool_case("float32", K, gen, dev, slots=SPEC_SLOTS)
+        args = (c["q"], c["kc"], c["vc"], c["tables"], c["qpos"])
+        kw = dict(block_size=c["bs"])
+        v, ok, wide_ok = _against_plain("float32", c)
+        v["case"] = f"spec verify, {SPEC_SLOTS} slots"
+        v["bound_ms"], v["bound_by"] = _bound(c)
+        v["ms"] = time_ms(lambda: paged_attention(*args, **kw), flush)
+        v["plain_ms"] = time_ms(
+            lambda: paged_attention_reference(*args, **kw), flush)
+        spec_timed.append(v)
+        print(f"chip_smoke: paged_attention spec verify float32 K={K} "
+              f"{SPEC_SLOTS} slots: vs plain max abs {v['max_abs_err']:.3e} "
+              f"{'ok' if ok else 'FAIL'}; kernel {v['ms']:.4f} ms, plain "
+              f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
+              f"({v['bound_by']}): {v['ms'] / v['bound_ms']:.1f}x the bound")
+        check(ok and wide_ok, f"paged_attention spec verify K={K} "
+                              f"disagrees: {v}")
     print("chip_smoke: paged_attention library_ms: none — no single "
           "PyTorch call computes block-table-gathered attention "
           "(scaled_dot_product_attention needs the rows gathered first)")
     record["kernel_variants"] = variants
     record["kernel_edges"] = edges
-    return variants + edges
+    record["kernel_multi_group"] = multi
+    record["kernel_spec_verify"] = spec_timed
+    return variants + edges + multi + spec_timed
 
 
 def _flash_bound(name: str, shape, dtype) -> tuple[float, str]:
@@ -750,7 +824,25 @@ def phase_flash_kernels(record: dict) -> list[dict]:
 
 # -- phase 3 ------------------------------------------------------------------
 
-def _serve(stages, cfg, kernel: str):
+def _count_decode_calls(engine) -> list[int]:
+    """Count the engine's decode (or speculative) program calls from now
+    on: one per tick that decodes; the count is the list's one entry."""
+    calls = [0]
+    attr = "_spec_fused" if engine.speculative else "_decode"
+    inner = getattr(engine, attr)
+
+    def counted(*a):
+        calls[0] += 1
+        return inner(*a)
+
+    setattr(engine, attr, counted)
+    return calls
+
+
+def _serve(stages, cfg, kernel: str, **engine_kw):
+    """Phase 3's trace through an engine (``engine_kw``: a draft for the
+    speculative engine): ``(report, summary, handles, K4 launches, decode
+    or speculative ticks, host-clock ms per engine tick)``."""
     import numpy as np
     from simple_distributed_machine_learning_tpu_torch.ops.paged_attention import (  # noqa: E501
         paged_attention,
@@ -762,31 +854,36 @@ def _serve(stages, cfg, kernel: str):
         simulate,
     )
     engine = InferenceEngine(stages, cfg, n_slots=SERVE_SLOTS,
-                             block_size=SERVE_BLOCK, attn_kernel=kernel)
+                             block_size=SERVE_BLOCK, attn_kernel=kernel,
+                             **engine_kw)
     # warm every shape outside the measured trace (bench.py's warm-up):
     # one small request per prompt-length bucket, plus decode ticks
     for t0 in SERVE_SIM["prompt_lens"]:
         engine.submit(np.zeros(t0, np.int32), max_new_tokens=2)
     engine.drain()
     engine.metrics = metrics = ServeMetrics()
-    decode_calls = [0]
-    decode = engine._decode
+    decode_calls = _count_decode_calls(engine)
+    tick_s = []
+    step = engine.step
 
-    def counted(*a):
-        decode_calls[0] += 1
-        return decode(*a)
+    def timed_step():
+        t0 = time.perf_counter()
+        out = step()
+        tick_s.append(time.perf_counter() - t0)
+        return out
 
-    engine._decode = counted
+    engine.step = timed_step
     first_rid = engine._next_rid
     paged_attention.launches = 0
     rep = simulate(engine, SimConfig(**SERVE_SIM))
     launches = paged_attention.launches
     handles = [engine.requests[first_rid + i]
                for i in range(SERVE_SIM["n_requests"])]
-    return rep, metrics.summary(), handles, launches, decode_calls[0]
+    return (rep, metrics.summary(), handles, launches, decode_calls[0],
+            sum(tick_s) * 1e3 / len(tick_s))
 
 
-def phase_serve(stages, cfg, record: dict) -> dict:
+def phase_serve(stages, cfg, record: dict) -> tuple[dict, list]:
     import torch
     from simple_distributed_machine_learning_tpu_torch.models.gpt import (
         make_cached_decoder,
@@ -795,7 +892,8 @@ def phase_serve(stages, cfg, record: dict) -> dict:
         key_data,
     )
     n_params = sum(p.numel() for p in stages[0].params.parameters())
-    rep, s, handles, launches, ticks = _serve(stages, cfg, "fused")
+    rep, s, handles, launches, ticks, tick_ms = _serve(stages, cfg,
+                                                       "fused")
     print(f"chip_smoke: serve fused: {rep['completed']}/{rep['n_requests']} "
           f"requests, {s['tokens_generated']} tokens, "
           f"{s['tokens_per_sec']} tok/s, ttft p50/p95 {s['ttft_ms_p50']}/"
@@ -810,7 +908,7 @@ def phase_serve(stages, cfg, record: dict) -> dict:
           f"{launches == cfg.n_layers * ticks}")
     check(ticks > 0 and launches == cfg.n_layers * ticks,
           f"kernel launches {launches} != {cfg.n_layers} x {ticks} ticks")
-    drep, ds, dhandles, dlaunches, _ = _serve(stages, cfg, "dense")
+    drep, ds, dhandles, dlaunches, _, _ = _serve(stages, cfg, "dense")
     check(drep["completed"] == SERVE_SIM["n_requests"] and dlaunches == 0,
           "the dense engine did not complete (or launched the kernel)")
     print(f"chip_smoke: serve dense: {ds['tokens_per_sec']} tok/s, tpot "
@@ -836,12 +934,196 @@ def phase_serve(stages, cfg, record: dict) -> dict:
           "greedy streams through the kernel differ from the dense path's "
           "or the solo decoder's")
     serve = dict(summary=s, dense_summary=ds, launches=launches,
-                 decode_ticks=ticks, greedy=len(greedy),
+                 decode_ticks=ticks, tick_ms=tick_ms, greedy=len(greedy),
                  greedy_equal_dense=len(same_dense),
                  greedy_equal_solo=len(same_solo), n_params=n_params,
                  wall_s=rep["wall_s"], dense_wall_s=drep["wall_s"])
     record["serve"] = serve
-    return serve
+    return serve, handles
+
+
+def _spec_workload(vocab: int) -> list[dict]:
+    """``SPEC_WORKLOAD``'s greedy requests, as the JAX bench makes them."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    lens = SPEC_WORKLOAD["prompt_lens"]
+    return [dict(prompt=rng.integers(0, vocab, lens[i % len(lens)]).astype(
+                     np.int32), max_new_tokens=SPEC_WORKLOAD["max_new"])
+            for i in range(SPEC_WORKLOAD["n_requests"])]
+
+
+def _drain_counted(stages, cfg, reqs, **engine_kw) -> dict:
+    """``reqs``, all submitted up front, through a fresh fused engine on
+    ``SPEC_SLOTS`` slots after a warm-up request per prompt length; the
+    streams, engine ticks, K4 launches, decode or speculative calls, the
+    summary and the host-clock seconds of the drain."""
+    import numpy as np
+    from simple_distributed_machine_learning_tpu_torch.ops.paged_attention import (  # noqa: E501
+        paged_attention,
+    )
+    from simple_distributed_machine_learning_tpu_torch.serve import (
+        InferenceEngine,
+        ServeMetrics,
+    )
+    engine = InferenceEngine(stages, cfg, n_slots=SPEC_SLOTS,
+                             block_size=SERVE_BLOCK, attn_kernel="fused",
+                             **engine_kw)
+    for t0 in SPEC_WORKLOAD["prompt_lens"]:
+        engine.submit(np.zeros(t0, np.int32), max_new_tokens=2)
+    engine.drain()
+    engine.metrics = metrics = ServeMetrics()
+    calls = _count_decode_calls(engine)
+    handles = [engine.submit(**r) for r in reqs]
+    paged_attention.launches = 0
+    _sync()
+    t0 = time.perf_counter()
+    ticks = 0
+    while engine.busy:
+        engine.step()
+        ticks += 1
+    _sync()
+    wall_s = time.perf_counter() - t0
+    return dict(streams=[list(h.tokens) for h in handles], ticks=ticks,
+                launches=paged_attention.launches, calls=calls[0],
+                summary=metrics.summary(), wall_s=wall_s,
+                tokens=sum(len(h.tokens) for h in handles))
+
+
+def phase_spec_serve(stages, cfg, serve: dict, plain_handles: list,
+                     record: dict) -> dict:
+    """Speculative decoding through the port's engine at full width
+    (module docstring, phase 3b): drives (a) accept-all at ``SPEC_K``,
+    (b) the CLI's draft on phase 3's trace, (c) accept-all at
+    ``SPEC_K_WIDE`` (K4's two query groups), then the CLI itself. K4's
+    launch count is set to 0 just before each drive and read just after;
+    the kernel runs ``n_layers`` times per speculative tick."""
+    import dataclasses
+
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        make_cached_decoder,
+        make_gpt_stages,
+    )
+    from simple_distributed_machine_learning_tpu_torch.ops.random import (
+        fold_in,
+        key_data,
+    )
+    rec: dict = {}
+    record["spec_serve"] = rec
+    reqs = _spec_workload(cfg.vocab)
+    n_tok = SPEC_WORKLOAD["n_requests"] * SPEC_WORKLOAD["max_new"]
+
+    # (a) accept-all at spec_k 4 against the plain engine
+    plain = _drain_counted(stages, cfg, reqs)
+    spec = _drain_counted(stages, cfg, reqs, draft_stages=stages,
+                          draft_cfg=cfg, spec_k=SPEC_K)
+    s = spec["summary"]
+    tpt_plain, tpt_spec = n_tok / plain["ticks"], n_tok / spec["ticks"]
+    params = [st.params for st in stages]
+    solo_equal = 0
+    for r, got in zip(reqs, spec["streams"]):
+        t0 = int(r["prompt"].shape[0])
+        solo = make_cached_decoder(stages, cfg, t0, r["max_new_tokens"])(
+            params, r["prompt"][None], key_data(0))
+        solo_equal += solo[0, t0:].tolist() == got
+    rec["accept_all"] = dict(
+        spec_k=SPEC_K, slots=SPEC_SLOTS, ticks_spec=spec["ticks"],
+        ticks_plain=plain["ticks"], tokens_per_tick_spec=tpt_spec,
+        tokens_per_tick_plain=tpt_plain,
+        speedup_vs_plain=tpt_spec / tpt_plain,
+        accept_rate=s.get("spec_accept_rate"), launches=spec["launches"],
+        spec_ticks=spec["calls"], solo_equal=solo_equal,
+        host_tokens_per_s_spec=spec["tokens"] / spec["wall_s"],
+        host_tokens_per_s_plain=plain["tokens"] / plain["wall_s"],
+        host_tick_ms_spec=spec["wall_s"] * 1e3 / spec["ticks"],
+        host_tick_ms_plain=plain["wall_s"] * 1e3 / plain["ticks"])
+    a = rec["accept_all"]
+    print(f"chip_smoke: spec (a) accept-all spec_k {SPEC_K}, {SPEC_SLOTS} "
+          f"slots, {len(reqs)} greedy requests: accept rate "
+          f"{a['accept_rate']}, {spec['ticks']} ticks against plain "
+          f"{plain['ticks']}: {tpt_spec:.3f} tokens/tick against "
+          f"{tpt_plain:.3f} ({a['speedup_vs_plain']:.2f}x); host clock "
+          f"{a['host_tokens_per_s_spec']:.1f} against "
+          f"{a['host_tokens_per_s_plain']:.1f} tok/s, tick "
+          f"{a['host_tick_ms_spec']:.3f} against {a['host_tick_ms_plain']:.3f}"
+          f" ms; K4 launches {spec['launches']} = {cfg.n_layers} x "
+          f"{spec['calls']} spec ticks; streams equal to plain "
+          f"{sum(x == y for x, y in zip(spec['streams'], plain['streams']))}"
+          f"/{len(reqs)}, to solo {solo_equal}/{len(reqs)}")
+    check(a["accept_rate"] == 1.0, f"accept-all rate {a['accept_rate']}")
+    check(a["speedup_vs_plain"] >= 2.0,
+          f"accept-all tokens per tick {tpt_spec} < 2x plain's {tpt_plain}")
+    check(spec["streams"] == plain["streams"] and solo_equal == len(reqs),
+          "accept-all speculative streams differ from plain or solo decode")
+    check(spec["calls"] > 0
+          and spec["launches"] == cfg.n_layers * spec["calls"],
+          f"K4 launches {spec['launches']} != {cfg.n_layers} x "
+          f"{spec['calls']} speculative ticks")
+
+    # (b) the CLI's draft on phase 3's trace
+    dcfg = dataclasses.replace(cfg, n_layers=max(1, cfg.n_layers // 2))
+    dstages = make_gpt_stages(fold_in(0, 1), dcfg, 1)[0]
+    rep, bs_, handles, launches, calls, tick_ms = _serve(
+        stages, cfg, "fused", draft_stages=dstages, draft_cfg=dcfg,
+        spec_k=SPEC_K)
+    greedy = [i for i, h in enumerate(handles) if h.temperature == 0.0]
+    same = sum(handles[i].tokens == plain_handles[i].tokens for i in greedy)
+    ps = serve["summary"]
+    rec["cli_draft"] = dict(
+        completed=rep["completed"], summary=bs_, launches=launches,
+        spec_ticks=calls, tick_ms=tick_ms, plain_tick_ms=serve["tick_ms"],
+        greedy=len(greedy), greedy_equal_plain=same)
+    print(f"chip_smoke: spec (b) draft of {dcfg.n_layers} layers, spec_k "
+          f"{SPEC_K}, phase 3's trace: {rep['completed']}/"
+          f"{rep['n_requests']}, accept rate {bs_.get('spec_accept_rate')} "
+          f"({bs_.get('spec_accepted_tokens')}/"
+          f"{bs_.get('spec_proposed_tokens')}), {bs_['tokens_per_sec']} "
+          f"tok/s (plain {ps['tokens_per_sec']}), ttft p50/p95 "
+          f"{bs_['ttft_ms_p50']}/{bs_['ttft_ms_p95']} ms (plain "
+          f"{ps['ttft_ms_p50']}/{ps['ttft_ms_p95']}), tpot p50/p95 "
+          f"{bs_['tpot_ms_p50']}/{bs_['tpot_ms_p95']} ms (plain "
+          f"{ps['tpot_ms_p50']}/{ps['tpot_ms_p95']}), host-clock tick "
+          f"{tick_ms:.3f} ms (plain {serve['tick_ms']:.3f}); K4 launches "
+          f"{launches} = {cfg.n_layers} x {calls}; greedy streams equal to "
+          f"plain {same}/{len(greedy)}")
+    check(rep["completed"] == SERVE_SIM["n_requests"],
+          f"spec (b) served {rep['completed']}/{rep['n_requests']}")
+    check(len(greedy) >= 2 and same == len(greedy),
+          "spec (b): greedy streams differ from the plain engine's")
+    check(launches == cfg.n_layers * calls,
+          f"spec (b): K4 launches {launches} != {cfg.n_layers} x {calls}")
+
+    # (c) accept-all at spec_k 12: K4 with two query groups per launch
+    wide = _drain_counted(stages, cfg, reqs, draft_stages=stages,
+                          draft_cfg=cfg, spec_k=SPEC_K_WIDE)
+    same = sum(x == y for x, y in zip(wide["streams"], plain["streams"]))
+    rec["wide"] = dict(spec_k=SPEC_K_WIDE, ticks=wide["ticks"],
+                       launches=wide["launches"], spec_ticks=wide["calls"],
+                       accept_rate=wide["summary"].get("spec_accept_rate"),
+                       greedy_equal_plain=same)
+    print(f"chip_smoke: spec (c) accept-all spec_k {SPEC_K_WIDE}: "
+          f"{wide['ticks']} ticks, accept rate "
+          f"{rec['wide']['accept_rate']}, K4 launches {wide['launches']} = "
+          f"{cfg.n_layers} x {wide['calls']}; streams equal to plain "
+          f"{same}/{len(reqs)}")
+    check(same == len(reqs), "spec (c): streams differ from plain decode")
+    check(wide["calls"] > 0
+          and wide["launches"] == cfg.n_layers * wide["calls"],
+          f"spec (c): K4 launches {wide['launches']} != {cfg.n_layers} x "
+          f"{wide['calls']}")
+
+    # the CLI
+    lines = _cli(["--model", "gpt", "--serve-sim", "8", "--serve-spec-k",
+                  str(SPEC_K)])
+    spec_line = [ln for ln in lines if ln.startswith("| serve: tp 1, spec_k "
+                                                     f"{SPEC_K} accept_rate")]
+    rec["cli"] = lines
+    print(f"chip_smoke: spec CLI --serve-sim 8 --serve-spec-k {SPEC_K}: "
+          f"{lines[1] if len(lines) > 1 else lines}; {spec_line}")
+    check(len(spec_line) == 1
+          and lines[1].startswith("| serve: 8/8 requests completed"),
+          f"the CLI's speculative serve run printed {lines}")
+    rec["launches"] = spec["launches"] + launches + wide["launches"]
+    return rec
 
 
 def phase_profile(stages, cfg, record: dict, n_ticks: int = 20) -> None:
@@ -1526,7 +1808,8 @@ def main() -> int:
         flash_variants = phase_flash_kernels(record)
         cfg = GPTConfig(**SERVE_CFG)
         stages = make_gpt_stages(0, cfg, 1)[0]
-        serve = phase_serve(stages, cfg, record)
+        serve, plain_handles = phase_serve(stages, cfg, record)
+        spec = phase_spec_serve(stages, cfg, serve, plain_handles, record)
         phase_profile(stages, cfg, record)
         del stages
         train = phase_train("gpt_bf16", TRAIN_ROWS["gpt_bf16"], record)
@@ -1544,7 +1827,8 @@ def main() -> int:
         "source": f"{PORT}/ops/csrc/paged_attention.cu",
         "replaces": "simple_distributed_machine_learning_tpu/ops/"
                     "paged_attention.py:67",
-        "launches": serve["launches"],
+        # phase 3's decode ticks and phase 3b's speculative verify steps
+        "launches": serve["launches"] + spec["launches"],
         "max_abs_err": max(v["max_abs_err"] for v in variants),
         "ms": main_v["ms"],
         "plain_ms": main_v["plain_ms"],

@@ -8,13 +8,18 @@ card, with the reference's console output and the JAX CLI's flags and
 defaults. ``--model mlp`` trains the MLP of ``--mlp-dims``; ``--model
 gpt`` the tiny GPT on a synthetic Markov stream (or ``--text-corpus``),
 with ``--attn flash`` through the hand-written flash kernels and
-``--generate N`` through the port's ``make_cached_decoder``.
+``--generate N`` through the port's ``make_cached_decoder``. ``--model gpt
+--serve-sim N`` serves N simulated requests through the port's
+``InferenceEngine`` (the paged pool and its CUDA attention kernel), with
+``--serve-spec-k K`` speculatively: a draft of half the layers proposes K
+tokens per slot per tick and the target verifies them in one pass.
 
 One flag is the port's own: ``--device`` (default CUDA; the run raises
 without it unless ``--device cpu`` asks for the CPU). Every other flag of
 the JAX parser is accepted; a flag whose path is not ported exits, when
-set, with one line naming its ROADMAP item (the serve flags, scenarios,
-chaos, the sentinel, telemetry and profiling, the linter, and every
+set, with one line naming its ROADMAP item (the serve supervisor, fleet,
+tracing, host-tier and adapter flags, scenarios, chaos, the sentinel,
+telemetry and profiling, the linter, and every
 parallel axis: ``--stages`` above 1, ``--dp/--tp/--sp/--ep/--experts``,
 ``--world_size`` above 1). ``--microbatches`` is accepted and does not
 split the batch, as on the JAX package's one-device mesh.
@@ -112,13 +117,32 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument('--generate', type=int, default=0, metavar="N",
                    help="for --model=gpt: after training, decode N tokens "
                         "with the KV-cache decoder and print them")
+    g.add_argument('--serve-sim', type=int, default=0, metavar="N",
+                   help="for --model=gpt: serve N simulated requests "
+                        "(open-loop Poisson arrivals) through the "
+                        "continuous-batching engine instead of training")
+    g.add_argument('--serve-rate', type=float, default=8.0,
+                   help="with --serve-sim: mean arrival rate (requests/s)")
+    g.add_argument('--serve-slots', type=int, default=4,
+                   help="with --serve-sim: concurrent decode slots")
+    g.add_argument('--serve-max-new', type=int, default=16,
+                   help="with --serve-sim: new tokens per request")
+    g.add_argument('--serve-block-size', type=int, default=16,
+                   help="with --serve-sim: positions per paged K/V block")
+    g.add_argument('--serve-prefill-chunk', type=int, default=0,
+                   help="with --serve-sim: prompt positions per prefill "
+                        "chunk (0 = the whole prompt in one chunk)")
+    g.add_argument('--serve-shared-prefix', type=int, default=0,
+                   metavar="N", help="with --serve-sim: prepend one seeded "
+                                     "N-token prefix to every prompt")
+    g.add_argument('--serve-spec-k', type=int, default=0, metavar="K",
+                   help="with --serve-sim: speculative decoding — a draft "
+                        "of half the layers (fresh weights) proposes K "
+                        "tokens per slot per tick, the target verifies "
+                        "them in one batched step; 0 = plain decode, "
+                        "K >= 2 speculates")
     for flag, typ, default in (
-            ('--serve-sim', int, 0), ('--serve-rate', float, 8.0),
-            ('--serve-slots', int, 4), ('--serve-max-new', int, 16),
-            ('--serve-block-size', int, 16),
-            ('--serve-prefill-chunk', int, 0),
-            ('--serve-shared-prefix', int, 0), ('--serve-tp', int, 1),
-            ('--serve-spec-k', int, 0), ('--serve-chaos', str, None),
+            ('--serve-tp', int, 1), ('--serve-chaos', str, None),
             ('--serve-deadline-ms', float, 0.0),
             ('--serve-max-restarts', int, 3),
             ('--serve-replicas', int, 0), ('--serve-autoscale', str, None),
@@ -185,9 +209,12 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-_SERVE_EXTENSION_FLAGS = {"serve_tp", "serve_spec_k", "serve_host_blocks",
-                          "serve_prefetch_ticks", "serve_adapters",
-                          "serve_adapter_rank"}
+# the serve flags of the plain --serve-sim path, which this port runs
+_SERVE_PORTED = {"serve_sim", "serve_rate", "serve_slots", "serve_max_new",
+                 "serve_block_size", "serve_prefill_chunk",
+                 "serve_shared_prefix", "serve_spec_k"}
+_SERVE_EXTENSION_FLAGS = {"serve_host_blocks", "serve_prefetch_ticks",
+                          "serve_adapters", "serve_adapter_rank"}
 # flags whose paths are not ported: set to anything but the default, each
 # exits naming its ROADMAP item
 _UNPORTED = ({"scenario": _roadmap.SERVE_ROBUSTNESS,
@@ -205,7 +232,11 @@ _UNPORTED = ({"scenario": _roadmap.SERVE_ROBUSTNESS,
 
 def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
     for dest, value in vars(args).items():
-        if dest.startswith("serve_"):
+        if dest in _SERVE_PORTED:
+            item = None
+        elif dest == "serve_tp":
+            item = _roadmap.PARALLEL_AXES
+        elif dest.startswith("serve_"):
             item = (_roadmap.SERVE_EXTENSIONS
                     if dest in _SERVE_EXTENSION_FLAGS
                     else _roadmap.SERVE_ROBUSTNESS)
@@ -249,6 +280,12 @@ def _dispatch(args) -> None:
         raise SystemExit(f"--max-steps-per-epoch must be >= 1, got "
                          f"{args.max_steps_per_epoch}")
     device = resolve_device(args.device)
+    if args.serve_sim > 0:
+        if args.model != "gpt":
+            raise SystemExit("--serve-sim is only supported with "
+                             "--model=gpt")
+        _run_serve(args, device)
+        return
     if args.model == "gpt":
         _run_gpt(args, device)
         return
@@ -292,7 +329,8 @@ def _trainer(args, stages, wire_dim, out_dim, train_ds, test_ds, device):
     pipe = Pipeline(stages, make_mesh(n_stages=1, n_data=args.dp), wire_dim,
                     out_dim, n_microbatches=args.microbatches,
                     compute_dtype=torch.bfloat16 if args.bf16 else None,
-                    schedule=args.schedule, device=device)
+                    schedule=args.schedule, overlap=args.overlap,
+                    device=device)
     return Trainer(pipe, train_ds, test_ds, _train_config(args),
                    opt=_make_opt(args, _total_steps(args, train_ds)))
 
@@ -457,6 +495,131 @@ def _print_sample(args, trainer, cfg, test_ds) -> None:
     else:
         trainer._print(f"| sample tokens (prompt {t0} + {n_new} generated): "
                        f"{toks.tolist()}")
+
+
+# prompt-length buckets of the simulated serving workload
+GPT_SERVE_PROMPTS = (4, 8, 12)
+
+
+def _check_serve_args(args) -> None:
+    for flag, value, low in (("--serve-slots", args.serve_slots, 1),
+                             ("--serve-max-new", args.serve_max_new, 1),
+                             ("--serve-block-size", args.serve_block_size,
+                              1)):
+        if value < low:
+            raise SystemExit(f"{flag} must be >= {low}, got {value}")
+    if args.serve_prefill_chunk < 0:
+        raise SystemExit(f"--serve-prefill-chunk must be >= 1 (or 0 for "
+                         f"whole-prompt chunks), got "
+                         f"{args.serve_prefill_chunk}")
+    if args.serve_shared_prefix < 0:
+        raise SystemExit(f"--serve-shared-prefix must be >= 0, got "
+                         f"{args.serve_shared_prefix}")
+    if args.serve_spec_k == 1 or args.serve_spec_k < 0:
+        raise SystemExit(f"--serve-spec-k must be 0 (plain decode) or "
+                         f">= 2, got {args.serve_spec_k}")
+
+
+def _run_serve(args, device) -> None:
+    """--serve-sim N: continuous-batching inference over a simulated
+    open-loop Poisson trace. Params come from --checkpoint-dir when a
+    checkpoint exists, otherwise fresh weights from --seed; nothing
+    trains. The engine attends through the paged-attention kernel
+    (``attn_kernel="fused"``; on the CPU, its plain version), where the
+    JAX CLI keeps its engine's default gather-then-dense path: greedy
+    streams are equal either way. Exits 1 unless every request
+    completes."""
+    import dataclasses
+    import os
+
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        GPTConfig,
+        make_gpt_stages,
+    )
+    from simple_distributed_machine_learning_tpu_torch.ops.random import (
+        fold_in,
+    )
+    from simple_distributed_machine_learning_tpu_torch.serve import (
+        InferenceEngine,
+        ServeMetrics,
+        SimConfig,
+        simulate,
+    )
+    _check_serve_args(args)
+    cfg = GPTConfig(vocab=256 if args.text_corpus else 128)
+    longest = args.serve_shared_prefix + max(GPT_SERVE_PROMPTS)
+    if longest + 1 > cfg.seq_len:
+        raise SystemExit(
+            f"--serve-shared-prefix {args.serve_shared_prefix} leaves no "
+            f"room to generate: prefix + longest simulated prompt "
+            f"({max(GPT_SERVE_PROMPTS)}) + 1 token must fit seq_len "
+            f"{cfg.seq_len}")
+    stages, wire_dim, out_shape = make_gpt_stages(args.seed, cfg, 1, device)
+    draft_stages = draft_cfg = None
+    if args.serve_spec_k:
+        # the draft: the same config at half the layers, fresh weights
+        # from a derived seed — an untrained draft costs acceptance rate,
+        # never correctness
+        draft_cfg = dataclasses.replace(cfg,
+                                        n_layers=max(1, cfg.n_layers // 2))
+        draft_stages = make_gpt_stages(fold_in(args.seed, 1), draft_cfg, 1,
+                                       device)[0]
+    params = None
+    ckpt = (os.path.join(args.checkpoint_dir, "state.npz")
+            if args.checkpoint_dir else None)
+    if ckpt and os.path.exists(ckpt):
+        from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (  # noqa: E501
+            Pipeline,
+        )
+        from simple_distributed_machine_learning_tpu_torch.train.checkpoint import (  # noqa: E501
+            restore_checkpoint,
+        )
+        pipe = Pipeline(stages, None, wire_dim, out_shape, device=device)
+        st = restore_checkpoint(ckpt, pipe=pipe)
+        params = st["params"]
+        print(f"| serve: restored params from {ckpt} (step {st['step']})")
+    else:
+        print("| serve: fresh-initialized params"
+              + (f" (no checkpoint at {ckpt})" if ckpt else ""))
+    metrics = ServeMetrics()
+    engine = InferenceEngine(
+        stages, cfg, params=params, n_slots=args.serve_slots,
+        block_size=args.serve_block_size,
+        prefill_chunk=args.serve_prefill_chunk or None,
+        attn_kernel="fused",
+        metrics=metrics, draft_stages=draft_stages, draft_cfg=draft_cfg,
+        spec_k=args.serve_spec_k, device=device)
+    max_new = min(args.serve_max_new, cfg.seq_len - longest)
+    if max_new < args.serve_max_new:
+        print(f"| serve: --serve-max-new {args.serve_max_new} clamped to "
+              f"{max_new} (seq_len {cfg.seq_len} minus the longest "
+              f"{longest}-token simulated prompt)")
+    sim = SimConfig(n_requests=args.serve_sim, rate=args.serve_rate,
+                    seed=args.seed, prompt_lens=GPT_SERVE_PROMPTS,
+                    max_new_tokens=max_new,
+                    shared_prefix_len=args.serve_shared_prefix)
+    report = simulate(engine, sim)
+    s = metrics.summary()
+    print(f"| serve: {report['completed']}/{report['n_requests']} requests "
+          f"completed, {s['tokens_generated']} tokens, "
+          f"{s['tokens_per_sec']} tok/s, "
+          f"ttft p50/p95 {s['ttft_ms_p50']}/{s['ttft_ms_p95']} ms, "
+          f"tpot p50/p95 {s['tpot_ms_p50']}/{s['tpot_ms_p95']} ms, "
+          f"occupancy {s['slot_occupancy_mean']}")
+    print(f"| serve: paged pool {s['blocks_in_use']}/{s['blocks_total']} "
+          f"blocks in use ({s['blocks_cached']} cached), "
+          f"{s['kv_bytes_resident']} KV bytes resident, "
+          f"{s['prefix_hit_blocks']} prefix-share hits, "
+          f"{s['cow_copies']} CoW copies, "
+          f"prefill chunk p50/p95 {s['prefill_chunk_ms_p50']}/"
+          f"{s['prefill_chunk_ms_p95']} ms")
+    if args.serve_spec_k:
+        print(f"| serve: tp {args.serve_tp}, spec_k {s.get('spec_k', 0)} "
+              f"accept_rate {s.get('spec_accept_rate')} "
+              f"({s.get('spec_accepted_tokens', 0)}/"
+              f"{s.get('spec_proposed_tokens', 0)} draft tokens)")
+    if report["completed"] != report["n_requests"]:
+        raise SystemExit(1)
 
 
 if __name__ == "__main__":

@@ -28,7 +28,13 @@ JAX package's ``jit`` builders without ``jit``: PyTorch runs eagerly.
   slots; ``kernel="fused"`` attends through the CUDA paged-attention
   kernel (``ops/paged_attention.py``), ``"dense"`` gathers each slot's
   blocks and runs masked softmax einsums;
-- :func:`make_paged_block_copy` — the copy-on-write block copy.
+- :func:`make_paged_block_copy` — the copy-on-write block copy;
+- speculative decoding: :func:`make_slot_prefill` and
+  :func:`make_slot_propose` over the draft's dense slot pool
+  (``[L, n_slots, H, max_len, dh]``), :func:`make_paged_verify_step`
+  (the target scores ``spec_k`` tokens per slot in one pass; ``"fused"``
+  runs the CUDA kernel with ``spec_k`` queries per slot) and
+  :func:`make_paged_spec_tick`, the two composed.
 
 The pool tensors are updated IN PLACE (the JAX programs donate them); the
 programs return them anyway, so the engine's call shape is the JAX one.
@@ -203,7 +209,7 @@ def _check_ported(cfg: GPTConfig, caller: str) -> None:
             f"{cfg.n_seq})", _roadmap.PARALLEL_AXES)
     if cfg.n_tensor_parallel > 1:
         raise _roadmap.not_ported(f"{caller}: n_tensor_parallel > 1",
-                                  _roadmap.SERVE_EXTENSIONS)
+                                  _roadmap.PARALLEL_AXES)
 
 
 # -- the model as parameter containers -------------------------------------
@@ -663,6 +669,104 @@ def make_cached_decoder(stages, cfg: GPTConfig, prompt_len: int, n_new: int,
     return decode
 
 
+# -- dense slot-row programs (the speculative draft's pool) ------------------
+
+def _validate_slot_build(stages, cfg: GPTConfig, max_len: int, caller: str,
+                         cache_dtype=None) -> None:
+    """The slot programs' checks: a ported single-device dense-MLP config,
+    no quantised cache (dense slot rows hold no scales), ``max_len``
+    within the position table, and a cfg that matches the stages."""
+    _check_ported(cfg, caller)
+    _check_cache_quantization(cache_dtype, caller, paged=False)
+    if not 2 <= max_len <= cfg.seq_len:
+        raise ValueError(
+            f"slot max_len={max_len} outside [2, seq_len={cfg.seq_len}] "
+            f"(the position table bounds every slot's sequence budget)")
+    _check_embed_matches(stages, cfg)
+
+
+def make_slot_prefill(stages, cfg: GPTConfig, max_len: int,
+                      cache_dtype=None, mesh=None, adapters: bool = False,
+                      device=None):
+    """Prefill into one slot row of a dense pool: ``prefill(params, kc,
+    vc, prompt [1, T0], slot, key_data, temperature, top_k, top_p) ->
+    (kc, vc, token, key_data)``.
+
+    Runs one request's whole prompt through every block with the solo
+    decoder's math, writes each layer's K/V into pool row ``slot`` at
+    positions ``[0, T0)`` and samples the first token. ``kc``/``vc`` are
+    ``[L, n_slots, H, max_len, dh]`` f32 or bf16 tensors, updated in
+    place. The speculative engine prefills its draft pool with it."""
+    _validate_slot_build(stages, cfg, max_len, "make_slot_prefill",
+                         cache_dtype)
+    if mesh is not None:
+        raise _roadmap.not_ported("make_slot_prefill: tensor-parallel "
+                                  "serving (mesh)", _roadmap.PARALLEL_AXES)
+    if adapters:
+        raise _roadmap.not_ported("make_slot_prefill: LoRA adapters",
+                                  _roadmap.SERVE_EXTENSIONS)
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def prefill(params, kc, vc, prompt, slot, key_data, temperature, top_k,
+                top_p):
+        embed, blocks, head = _merged_stage_trees(params)
+        kc, vc, row = _slot_prefill_fwd(blocks, embed, head, kc, vc,
+                                        _on(prompt, dev, torch.int64),
+                                        int(slot), cfg.n_heads)
+        tok, kd = _sample_dyn(row[None],
+                              _on(key_data, dev, torch.int64)[None],
+                              *_sampling_tensors(1, temperature, top_k,
+                                                 top_p, dev))
+        return kc, vc, tok[0], kd[0]
+
+    return prefill
+
+
+def _slot_prefill_fwd(blocks, embed, head, kc, vc, prompt, slot, H):
+    """One request's whole-prompt prefill into pool row ``slot``; returns
+    ``(kc, vc, row)``, the last position's log-probs [V]."""
+    t0 = prompt.shape[1]
+    h = embedding_lookup(embed["tok"], prompt) + embed["pos"][:t0]
+    for li, bp in enumerate(blocks):
+        q, k, v = _dense_qkv(bp, h, H)                     # [1, H, T0, dh]
+        kc[li, slot, :, :t0] = k[0].to(kc.dtype)
+        vc[li, slot, :, :t0] = v[0].to(vc.dtype)
+        h = _dense_attn_tail(bp, h, causal_attention_core(q, k, v))
+    return kc, vc, _head_logprobs(head, h[:, -1])[0]
+
+
+def _dense_block_step_slots(bp, h, li, kc, vc, pos, n_heads):
+    """One block on one token per slot (``h`` [S, 1, d]) against pool
+    layer ``li``: each slot writes its K/V at its own position ``pos``
+    [S] in place and attends ``[0, pos]``, with the solo decoder's
+    per-slot math, so a slot's output depends on its own row only."""
+    q, knew, vnew = _dense_qkv(bp, h, n_heads)            # [S, H, 1, dh]
+    dh = q.shape[-1]
+    rows = torch.arange(h.shape[0], device=h.device)
+    kl, vl = kc[li], vc[li]                               # [S, H, ml, dh]
+    kl[rows, :, pos] = knew[:, :, 0].to(kl.dtype)
+    vl[rows, :, pos] = vnew[:, :, 0].to(vl.dtype)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, kl.float()) / math.sqrt(dh)
+    live = (torch.arange(kl.shape[-2], device=h.device)[None, None, None, :]
+            <= pos[:, None, None, None])
+    scores = torch.where(live, scores, -math.inf)
+    a = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(scores, dim=-1),
+                     vl.float())
+    return _dense_attn_tail(bp, h, a)
+
+
+def _slot_decode_fwd(blocks, embed, head, kc, vc, toks, pos, H):
+    """The batched one-token-per-slot step's forward over a dense pool:
+    ``toks``/``pos`` [S] int64 -> ``(kc, vc, rows)``, log-probs [S, V].
+    The speculative draft's propose loop runs it ``spec_k`` times."""
+    h = (embedding_lookup(embed["tok"], toks[:, None])
+         + embed["pos"][pos][:, None])                      # [S, 1, d]
+    for li, bp in enumerate(blocks):
+        h = _dense_block_step_slots(bp, h, li, kc, vc, pos, H)
+    return kc, vc, _head_logprobs(head, h[:, 0])
+
+
 # -- paged serving programs ----------------------------------------------------
 
 def _validate_paged_build(stages, cfg: GPTConfig, max_len: int,
@@ -671,7 +775,7 @@ def _validate_paged_build(stages, cfg: GPTConfig, max_len: int,
     _check_ported(cfg, caller)
     if mesh is not None:
         raise _roadmap.not_ported(f"{caller}: tensor-parallel serving (mesh)",
-                                  _roadmap.SERVE_EXTENSIONS)
+                                  _roadmap.PARALLEL_AXES)
     if adapters:
         raise _roadmap.not_ported(f"{caller}: LoRA adapters",
                                   _roadmap.SERVE_EXTENSIONS)
@@ -884,3 +988,294 @@ def make_paged_block_copy():
         return kc, vc
 
     return copy
+
+
+# -- speculative decoding --------------------------------------------------------
+#
+# A small draft model proposes tokens with cheap sequential steps over its
+# dense slot pool; the target scores all of them in one batched K-token
+# verify step over its paged pool and emits the longest prefix it agrees
+# with, plus its own token at the first disagreement: 1..K tokens per slot
+# per tick, from one draft loop and one target pass.
+#
+# Index discipline: a slot at position p with pending input t0 would
+# solo-decode by consuming t0@p -> g0, g0@p+1 -> g1, ... The draft's K
+# steps consume t0, d0, .., d_{K-2} at p..p+K-1 and propose d0..d_{K-1};
+# verify consumes [t0, d0, .., d_{K-2}] at p..p+K-1 in one forward, and
+# its row r_j is exactly the row solo decode samples token j+1 from, as
+# long as d0..d_{j-1} matched. Greedy acceptance emits argmax(r_j) up to
+# and including the first mismatch, so greedy speculative streams equal
+# solo decode token for token. The last proposal d_{K-1} is never
+# verified: that step keeps the draft cache one position ahead, so a tick
+# that accepts everything needs no catch-up step.
+#
+# Verify writes all K positions before it knows how many survive.
+# Positions inside the slot's remaining budget (j < valid_n) land in its
+# own blocks, where the next tick overwrites them before they can be
+# attended; positions past it go to the trash block 0, so a rejected tail
+# never lands past the reservation or in a neighbour's blocks.
+#
+# Sampled requests use residual rejection: accept draft token d with
+# probability min(1, p(d)/q(d)) on the filtered target/draft
+# distributions, else emit a sample from the normalised positive part of
+# p - q; the first rejection ends the slot's tick. The request's key
+# spends TWO splits on a rejected position (the accept draw, then the
+# residual draw), so sampled speculative streams are deterministic per
+# seed but not the solo stream; only greedy carries that anchor. The
+# draft samples from its own key stream (``serve/request.py::
+# draft_key_data``).
+
+def _check_spec_k(spec_k: int, caller: str) -> None:
+    if spec_k < 2:
+        raise ValueError(
+            f"{caller}: spec_k must be >= 2 (spec_k=1 is plain one-token "
+            f"decode — use the decode step), got {spec_k}")
+
+
+def _spec_accept_sampled(rows, drafts, draft_rows, valid_n, key_data,
+                         temperature, top_k, top_p):
+    """Residual-rejection acceptance for every slot at once: ``rows``
+    [S, K, V], ``drafts`` [S, K-1], ``draft_rows`` [S, K-1, V] ->
+    ``(toks [S, K], n_acc [S], key_data [S, 2])``; ``toks[s, :n_acc[s]]``
+    are slot s's emitted tokens. A host loop over the K positions; the
+    caller keeps only the sampled slots' results (``temperature`` is
+    guarded so greedy rows stay finite)."""
+    S, K, V = rows.shape
+    safe_t = torch.where(temperature > 0, temperature,
+                         torch.ones_like(temperature))[:, None]
+    kd = key_data
+    alive = torch.ones(S, dtype=torch.bool, device=rows.device)
+    toks, emits = [], []
+    for j in range(K):
+        nk, ks = _rng.split(kd)                    # _sample_dyn's split
+        pt_log = _filter_top_dyn(rows[:, j] / safe_t, top_k, top_p)
+        pt = torch.softmax(pt_log, dim=-1)
+        jj = min(j, K - 2)
+        d = drafts[:, jj].long()
+        qt = torch.softmax(_filter_top_dyn(draft_rows[:, jj] / safe_t,
+                                           top_k, top_p), dim=-1)
+        pd = pt.gather(1, d[:, None])[:, 0]
+        qd = qt.gather(1, d[:, None])[:, 0]
+        accept = _rng.uniform(ks) < torch.clamp(
+            pd / torch.clamp_min(qd, 1e-30), max=1.0)
+        # a rejection spends one more split on the residual draw; an empty
+        # residual (q >= p wherever it matters, a numerical corner) falls
+        # back to the filtered target distribution
+        nk2, kr = _rng.split(nk)
+        resid = torch.clamp_min(pt - qt, 0.0)
+        resid_log = torch.where(resid.sum(-1, keepdim=True) > 0,
+                                torch.log(torch.clamp_min(resid, 1e-38)),
+                                pt_log)
+        r_tok = torch.argmax(resid_log + _rng.gumbel(kr, V), dim=-1)
+        # the bonus row (j == K-1 has no draft): a plain solo-style sample
+        bonus = torch.argmax(pt_log + _rng.gumbel(ks, V), dim=-1)
+        has_draft = j < K - 1
+        tok = (torch.where(accept, d, r_tok) if has_draft else bonus)
+        kd_next = (torch.where(~accept[:, None], nk2, nk) if has_draft
+                   else nk)
+        emit = alive & (j < valid_n)
+        kd = torch.where(emit[:, None], kd_next, kd)
+        alive = emit & accept & has_draft
+        toks.append(tok)
+        emits.append(emit)
+    return (torch.stack(toks, 1).to(torch.int32),
+            torch.stack(emits, 1).sum(1).to(torch.int32), kd)
+
+
+def _spec_accept_rows(rows, drafts, draft_rows, valid_n, key_data, temps,
+                      top_ks, top_ps, any_hot: bool | None = None):
+    """Speculative acceptance over every slot: ``(rows [S, K, V], drafts
+    [S, K], draft_rows [S, K, V] — the propose outputs as they are, of
+    which the first K-1 proposals are verified — valid_n [S], key_data
+    [S, 2], temps/top_ks/top_ps [S]) -> (toks [S, K], n_acc [S], key_data
+    [S, 2])``.
+
+    Greedy (``temps[s] == 0``): the tokens are the target's argmaxes and
+    the emitted count is one more than the leading run of draft == argmax
+    matches, capped at ``valid_n``; no key is consumed, so the key stream
+    stays aligned with solo decode. Sampled: :func:`_spec_accept_sampled`.
+    ``any_hot`` (None: read from ``temps``) says whether any slot samples;
+    an all-greedy tick skips the sampled loop on the host."""
+    g = torch.argmax(rows, dim=-1).to(torch.int32)          # [S, K]
+    lead = torch.cumprod((drafts[:, :-1] == g[:, :-1]).to(torch.int32),
+                         dim=1)
+    m_greedy = torch.minimum(1 + lead.sum(1), valid_n).to(torch.int32)
+    if any_hot is None:
+        any_hot = bool((temps > 0).any())
+    if not any_hot:
+        return g, m_greedy, key_data
+    toks_s, n_s, kd_s = _spec_accept_sampled(
+        rows, drafts[:, :-1], draft_rows[:, :-1], valid_n, key_data, temps,
+        top_ks, top_ps)
+    sm = temps > 0
+    return (torch.where(sm[:, None], toks_s, g),
+            torch.where(sm, n_s, m_greedy),
+            torch.where(sm[:, None], kd_s, key_data))
+
+
+def make_slot_propose(stages, cfg: GPTConfig, max_len: int, spec_k: int,
+                      cache_dtype=None, device=None):
+    """The draft proposer: ``propose(params, kc, vc, toks [S], pos [S],
+    key_data [S, 2], temps [S], top_ks [S], top_ps [S]) -> (kc, vc,
+    drafts [S, K], draft_rows [S, K, V], key_data [S, 2])``.
+
+    ``spec_k`` sequential draft decode steps over the draft's dense slot
+    pool (``kc``/``vc`` updated in place). Step j consumes the carried
+    token at position ``pos + j``, clamped to the never-live trash row
+    ``max_len - 1`` past the budget, with the decode tick's per-slot math,
+    so the draft's K/V rows stay valid for every accepted continuation.
+    ``key_data`` is the requests' draft key stream; greedy proposals
+    consume none of it. The log-prob rows feed the sampled acceptance."""
+    _validate_slot_build(stages, cfg, max_len, "make_slot_propose",
+                         cache_dtype)
+    _check_spec_k(spec_k, "make_slot_propose")
+    dev = resolve_device(device)
+    H, ml = cfg.n_heads, max_len
+
+    @torch.no_grad()
+    def propose(params, kc, vc, toks, pos, key_data, temps, top_ks, top_ps):
+        embed, blocks, head = _merged_stage_trees(params)
+        tok = _on(toks, dev, torch.int64)
+        pos = _on(pos, dev, torch.int64)
+        kd = _on(key_data, dev, torch.int64)
+        knobs = _sampling_tensors(tok.shape[0], temps, top_ks, top_ps, dev)
+        drafts, rows = [], []
+        for j in range(spec_k):
+            kc, vc, row = _slot_decode_fwd(blocks, embed, head, kc, vc, tok,
+                                           torch.clamp(pos + j, max=ml - 1),
+                                           H)
+            nxt, kd = _sample_dyn(row, kd, *knobs)
+            tok = nxt.long()
+            drafts.append(nxt)
+            rows.append(row)
+        return kc, vc, torch.stack(drafts, 1), torch.stack(rows, 1), kd
+
+    return propose
+
+
+def _paged_verify_routing(pos, valid_n, tables, K, bs, ml):
+    """Query positions ``pos + j`` (clamped in-table) and each position's
+    write target: its physical block and offset, the trash block 0 once
+    past the slot's budget (``j >= valid_n``)."""
+    j = torch.arange(K, device=pos.device)[None, :]
+    qpos = torch.clamp(pos[:, None] + j, max=ml - 1)           # [S, K]
+    NB = tables.shape[1]
+    phys = tables.gather(1, torch.clamp(qpos // bs, 0, NB - 1))
+    wphys = torch.where(j < valid_n[:, None], phys, 0)         # 0 == trash
+    return qpos, wphys, qpos % bs
+
+
+def _paged_verify_fwd(blocks, embed, head, kc, vc, xs, qpos, wphys, woff,
+                      tables, H, bs, kernel="dense"):
+    """The K-tokens-per-slot verify forward over the paged pool: each
+    position's K/V lands at ``(wphys, woff)`` before attention reads it;
+    attention runs over the slot's table span with the ``[S, K]`` ``qpos``
+    plan as the per-query mask — the CUDA kernel K4 at K = spec_k
+    (``kernel="fused"``) or its plain version (``"dense"``). ``xs``,
+    ``qpos``, ``wphys``, ``woff`` [S, K] and ``tables`` [S, NB] int64.
+    Returns ``(kc, vc, rows)``, log-probs [S, K, V]."""
+    h = embedding_lookup(embed["tok"], xs) + embed["pos"][qpos]   # [S, K, d]
+    tables_k = tables.to(torch.int32)
+    qpos_k = qpos.to(torch.int32).contiguous()
+    for li, bp in enumerate(blocks):
+        q, knew, vnew = _dense_qkv(bp, h, H)               # [S, H, K, dh]
+        _paged_scatter(kc, li, wphys, woff, knew.transpose(1, 2))
+        _paged_scatter(vc, li, wphys, woff, vnew.transpose(1, 2))
+        a = _paged_attend(kc, vc, li, q, tables_k, qpos_k, bs, xs.device,
+                          kernel)
+        h = _dense_attn_tail(bp, h, a)
+    return kc, vc, _head_logprobs(head, h)
+
+
+def make_paged_verify_step(stages, cfg: GPTConfig, max_len: int,
+                           block_size: int, spec_k: int, cache_dtype=None,
+                           mesh=None, kernel: str = "dense",
+                           adapters: bool = False, device=None):
+    """The target's verify tick over the paged pool: ``verify(params, kc,
+    vc, toks [S], pos [S], drafts [S, K], draft_rows [S, K, V],
+    valid_n [S], tables [S, NB], key_data [S, 2], temps [S], top_ks [S],
+    top_ps [S]) -> (kc, vc, toks [S, K], n_acc [S], key_data [S, 2])``.
+
+    One batched forward scores all ``spec_k`` positions of every slot
+    (inputs ``[t0, d0, .., d_{K-2}]`` at ``pos .. pos+K-1``) and runs
+    :func:`_spec_accept_rows`. ``valid_n`` is each slot's
+    ``min(spec_k, remaining budget)`` (0 for non-decoding slots): it
+    bounds emission and which positions write real K/V; the rest go to
+    the trash block. The engine must have made positions
+    ``pos .. pos+valid_n-1`` writable first. ``kernel="fused"`` attends
+    through K4 with ``spec_k`` queries per slot, one launch per layer."""
+    _validate_paged_build(stages, cfg, max_len, block_size,
+                          "make_paged_verify_step", cache_dtype, mesh,
+                          adapters)
+    _check_spec_k(spec_k, "make_paged_verify_step")
+    _check_attn_kernel(kernel, "make_paged_verify_step")
+    dev = resolve_device(device)
+    K, ml = spec_k, max_len
+
+    @torch.no_grad()
+    def verify(params, kc, vc, toks, pos, drafts, draft_rows, valid_n,
+               tables, key_data, temps, top_ks, top_ps):
+        embed, blocks, head = _merged_stage_trees(params)
+        toks = _on(toks, dev, torch.int64)
+        pos = _on(pos, dev, torch.int64)
+        drafts = _on(drafts, dev, torch.int64)
+        valid_n = _on(valid_n, dev, torch.int64)
+        tables = _on(tables, dev, torch.int64)
+        xs = torch.cat([toks[:, None], drafts[:, :-1]], dim=1)
+        qpos, wphys, woff = _paged_verify_routing(pos, valid_n, tables, K,
+                                                  block_size, ml)
+        kc, vc, rows = _paged_verify_fwd(blocks, embed, head, kc, vc, xs,
+                                         qpos, wphys, woff, tables,
+                                         cfg.n_heads, block_size, kernel)
+        any_hot = (None if isinstance(temps, torch.Tensor)
+                   else bool(np.any(np.asarray(temps) > 0)))
+        knobs = _sampling_tensors(toks.shape[0], temps, top_ks, top_ps, dev)
+        toks2, n_acc, kd2 = _spec_accept_rows(
+            rows, drafts, _on(draft_rows, dev, torch.float32), valid_n,
+            _on(key_data, dev, torch.int64), *knobs, any_hot=any_hot)
+        return kc, vc, toks2, n_acc, kd2
+
+    return verify
+
+
+def _check_spec_tick_build(cfg: GPTConfig, draft_cfg: GPTConfig,
+                           caller: str) -> None:
+    if draft_cfg.vocab != cfg.vocab:
+        raise ValueError(
+            f"{caller}: draft vocab {draft_cfg.vocab} != target vocab "
+            f"{cfg.vocab}")
+
+
+def make_paged_spec_tick(stages, cfg: GPTConfig, draft_stages,
+                         draft_cfg: GPTConfig, max_len: int,
+                         block_size: int, spec_k: int, cache_dtype=None,
+                         kernel: str = "dense", adapters: bool = False,
+                         device=None):
+    """One speculative tick: ``tick(dparams, dkc, dvc, params, kc, vc,
+    toks [S], pos [S], valid_n [S], tables [S, NB], dkd [S, 2], kd [S, 2],
+    temps, top_ks, top_ps) -> (dkc, dvc, kc, vc, toks [S, K], n_acc [S],
+    key_data, draft_key_data)`` — :func:`make_slot_propose` over the
+    draft's dense pool composed with :func:`make_paged_verify_step` over
+    the target's paged pool (``kernel="fused"``: K4 at K = spec_k). The
+    proposals stay on the device between the two. A quantised target
+    cache gives the draft an f32 pool: dense slot rows hold no scales."""
+    _check_spec_tick_build(cfg, draft_cfg, "make_paged_spec_tick")
+    draft_cd = None if _is_quantized_dtype(cache_dtype) else cache_dtype
+    propose = make_slot_propose(draft_stages, draft_cfg, max_len, spec_k,
+                                draft_cd, device=device)
+    verify = make_paged_verify_step(stages, cfg, max_len, block_size,
+                                    spec_k, cache_dtype, kernel=kernel,
+                                    adapters=adapters, device=device)
+    dev = resolve_device(device)
+
+    def tick(dparams, dkc, dvc, params, kc, vc, toks, pos, valid_n, tables,
+             dkd, kd, temps, top_ks, top_ps):
+        toks, pos = _on(toks, dev, torch.int64), _on(pos, dev, torch.int64)
+        dkc, dvc, drafts, qrows, dkd2 = propose(
+            dparams, dkc, dvc, toks, pos, dkd, temps, top_ks, top_ps)
+        kc, vc, otoks, nacc, kd2 = verify(
+            params, kc, vc, toks, pos, drafts, qrows, valid_n, tables, kd,
+            temps, top_ks, top_ps)
+        return dkc, dvc, kc, vc, otoks, nacc, kd2, dkd2
+
+    return tick

@@ -2,16 +2,19 @@
 // online-softmax attention in one pass, with int8/fp8 dequantisation fused.
 //
 // Replaces simple_distributed_machine_learning_tpu/ops/paged_attention.py::
-// _paged_attn_kernel, the Pallas TPU kernel of the serving decode tick.
+// _paged_attn_kernel, the Pallas TPU kernel of the serving decode tick and
+// of the speculative verify step.
 //
-// What it computes, for each slot s and head h (one thread block each):
-//   for the logical blocks kb = 0 .. qpos[s, K-1] / bs (clamped to NB):
+// What it computes, for each slot s, head h and group g of at most 8 of the
+// slot's K queries (one thread block each):
+//   for the logical blocks kb = 0 .. qpos[s, last query of g] / bs
+//   (clamped to NB):
 //     phys = tables[s, kb]                 (read here; no scalar prefetch)
 //     K/V rows of that block for head h, times the per-row f32 scales
 //     when the pool is quantised
-//     for each of the K queries: f32 scores * 1/sqrt(dh), masked to
+//     for each query j of the group: f32 scores * 1/sqrt(dh), masked to
 //     kpos <= qpos[s, j], folded into an online softmax (m, l, acc) in f32
-//   out[s, h, j, :] = acc / max(l, 1e-30)   (f32)
+//   out[s, h, j, :] = acc / max(l, 1e-30)   (f32), for the group's rows j
 // The TPU kernel's sequential k-block grid axis becomes parallel warps
 // here, and its past-the-end clamp min(kb, last) the warps' loop bound. Its
 // packed layout and 128-lane l/m scratch were TPU tiling workarounds: not
@@ -41,6 +44,15 @@
 //   paged-block boundaries, so every warp keeps several rows' bytes in
 //   flight. Narrow values are dequantised in registers, times the row's
 //   f32 scale.
+// - The TPU kernel takes any number K of queries per slot (the speculative
+//   verify step runs it at K = spec_k). A lane holds its output columns for
+//   every query of its block in registers, so a block takes at most 8: the
+//   grid's third axis splits the K queries into ceil(K / 8) groups of
+//   consecutive queries, one launch for all of them. A group bounds its key
+//   loop by its own last position (qpos is non-decreasing), so a group of
+//   early queries stops early; it writes only its own rows of out. The cost:
+//   each group reads the slot's K/V rows again, so at K = 16 the kernel
+//   moves about twice the bytes of its bound.
 // - The partial states merge once at the end: across a warp's lane groups
 //   by shuffles, then across warps through shared memory behind a single
 //   barrier (m* = max m_w; acc = sum acc_w exp(m_w - m*); l likewise), in a
@@ -61,7 +73,7 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxQueries = 8;
+constexpr int kGroupQueries = 8;   // queries one block takes
 constexpr int kMaxHeadDim = 256;
 
 // Storage types: S is one stored element, V what a lane loads at once,
@@ -119,6 +131,7 @@ struct Args {
   const int* qpos;     // [S, K], contiguous, non-decreasing along K
   float* out;          // [S, H, K, dh], contiguous
   int S, H, K, dh, bs, NB;
+  int KG;              // queries per group: min(K, kGroupQueries)
   int lpr, lpr_log2;   // lanes per row (a power of two)
   int vec;             // rows load as whole V chunks (dh and strides allow)
   long long k_sb, k_sh, k_sr, v_sb, v_sh, v_sr;        // element strides
@@ -143,7 +156,9 @@ __global__ void __launch_bounds__(32 * warps_for(KQ)) paged_attn_kernel(Args a) 
   };
 
   const int s = blockIdx.x, h = blockIdx.y;
-  const int K = a.K, dh = a.dh, bs = a.bs, lpr = a.lpr;
+  const int j0 = blockIdx.z * a.KG;              // the group's first query
+  const int K = min(a.KG, a.K - j0);             // queries of this group
+  const int dh = a.dh, bs = a.bs, lpr = a.lpr;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rg = lane >> a.lpr_log2, cl = lane & (lpr - 1);
   const int rpw = 32 >> a.lpr_log2;              // rows a warp load covers
@@ -155,15 +170,16 @@ __global__ void __launch_bounds__(32 * warps_for(KQ)) paged_attn_kernel(Args a) 
   float* red = q_s + K * dhp;                    // [W, K, dhp] warp accumulators
   float* ml = red + W * K * dhp;                 // [W, K, 2] warp (m, l)
 
-  const float* qg = a.q + (static_cast<long long>(s) * a.H + h) * K * dh;
+  const long long row0 = (static_cast<long long>(s) * a.H + h) * a.K + j0;
+  const float* qg = a.q + row0 * dh;
   for (int i = threadIdx.x; i < K * dhp; i += 32 * W) {
     const int j = i / dhp, d = i - j * dhp;
     q_s[i] = d < dh ? qg[j * dh + d] : 0.f;
   }
   int qp[KQ];
 #pragma unroll
-  for (int j = 0; j < KQ; ++j) qp[j] = a.qpos[static_cast<long long>(s) * K + min(j, K - 1)];
-  const int last = a.qpos[static_cast<long long>(s) * K + K - 1];   // newest position
+  for (int j = 0; j < KQ; ++j) qp[j] = a.qpos[static_cast<long long>(s) * a.K + j0 + min(j, K - 1)];
+  const int last = a.qpos[static_cast<long long>(s) * a.K + j0 + K - 1];   // the group's newest
   const int n_kb = min(last / bs + 1, a.NB);
   const int n_items = warp < n_kb ? (n_kb - warp + W - 1) / W * nstep : 0;
   const int* table = a.tables + static_cast<long long>(s) * a.NB;
@@ -319,7 +335,7 @@ __global__ void __launch_bounds__(32 * warps_for(KQ)) paged_attn_kernel(Args a) 
   __syncthreads();
 
   // merge the warps, in warp order
-  float* og = a.out + (static_cast<long long>(s) * a.H + h) * K * dh;
+  float* og = a.out + row0 * dh;
   for (int i = threadIdx.x; i < K * dh; i += 32 * W) {
     const int j = i / dh, d = i - j * dh;
     float mx = kNegInf;
@@ -344,22 +360,23 @@ cudaError_t launch_kq(const Args& a, cudaStream_t stream) {
   constexpr int W = warps_for(KQ);
   constexpr int CPL = sizeof(typename D::V) / sizeof(typename D::S);
   const size_t dhp = static_cast<size_t>(NCU) * a.lpr * CPL;
-  const size_t smem = (a.K * dhp * (1 + W) + 2 * W * static_cast<size_t>(a.K)) * sizeof(float);
+  const size_t smem = (a.KG * dhp * (1 + W) + 2 * W * static_cast<size_t>(a.KG)) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         paged_attn_kernel<D, KQ, NCU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  paged_attn_kernel<D, KQ, NCU><<<dim3(a.S, a.H), 32 * W, smem, stream>>>(a);
+  const int groups = (a.K + a.KG - 1) / a.KG;
+  paged_attn_kernel<D, KQ, NCU><<<dim3(a.S, a.H, groups), 32 * W, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <class D, int NCU>
 cudaError_t launch_ncu(const Args& a, cudaStream_t stream) {
-  if (a.K == 1) return launch_kq<D, 1, NCU>(a, stream);
-  if (a.K <= 4) return launch_kq<D, 4, NCU>(a, stream);
-  return launch_kq<D, kMaxQueries, NCU>(a, stream);
+  if (a.KG == 1) return launch_kq<D, 1, NCU>(a, stream);
+  if (a.KG <= 4) return launch_kq<D, 4, NCU>(a, stream);
+  return launch_kq<D, kGroupQueries, NCU>(a, stream);
 }
 
 bool aligned(const void* p, long long stride_elems[3], size_t elem, size_t chunk) {
@@ -400,18 +417,20 @@ extern "C" {
 
 // dtype: 0 f32, 1 bf16, 2 int8, 3 float8_e4m3fn, 4 float8_e5m2.
 // strides: k_sb, k_sh, k_sr, v_sb, v_sh, v_sr, ks_sb, ks_sh, ks_sr,
-// vs_sb, vs_sh, vs_sr (elements). K <= 8, dh <= 256. Returns the launch's
-// cudaError_t.
+// vs_sb, vs_sh, vs_sr (elements). Any K (in groups of 8 along the grid's
+// third axis), dh <= 256. Returns the launch's cudaError_t.
 int sdml_paged_attention(const float* q, const void* kc, const void* vc,
                          const float* ks, const float* vs, const int* tables,
                          const int* qpos, float* out, int S, int H, int K,
                          int dh, int bs, int NB, const long long* strides,
                          int dtype, void* stream) {
-  if (S < 1 || H < 1 || H > 65535 || K < 1 || K > kMaxQueries || dh < 1 ||
+  if (S < 1 || H < 1 || H > 65535 || K < 1 ||
+      (K + kGroupQueries - 1) / kGroupQueries > 65535 || dh < 1 ||
       dh > kMaxHeadDim || bs < 1 || NB < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Args a{q, kc, vc, ks, vs, tables, qpos, out, S, H, K, dh, bs, NB, 1, 0, 0,
+  Args a{q, kc, vc, ks, vs, tables, qpos, out, S, H, K, dh, bs, NB,
+         K < kGroupQueries ? K : kGroupQueries, 1, 0, 0,
          strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
          strides[6], strides[7], strides[8], strides[9], strides[10], strides[11],
          1.0f / sqrtf(static_cast<float>(dh))};

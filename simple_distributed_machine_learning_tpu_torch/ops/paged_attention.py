@@ -1,10 +1,13 @@
 """Paged attention: block-table gather + masked attention in one kernel pass.
 
 Port of ``ops/paged_attention.py``. The serving decode tick
-(``models/gpt.py::_paged_decode_fwd`` with ``kernel="fused"``) calls
-:func:`paged_attention` once per layer. On a CUDA tensor it launches the
-hand-written Hopper kernel ``csrc/paged_attention.cu``, which replaces the
-Pallas TPU kernel ``_paged_attn_kernel``: per (slot, head) its warps split
+(``models/gpt.py::_paged_decode_fwd`` with ``kernel="fused"``, one query
+per slot) and the speculative verify step (``_paged_verify_fwd``,
+``spec_k`` queries per slot) call :func:`paged_attention` once per layer.
+On a CUDA tensor it launches the hand-written Hopper kernel
+``csrc/paged_attention.cu``, which replaces the Pallas TPU kernel
+``_paged_attn_kernel``: per (slot, head, group of at most 8 queries —
+:func:`query_groups`) its warps split
 the slot's block table up to its newest query position, read each K/V row
 of those blocks once straight into registers (dequantising int8/fp8 rows
 with their per-row f32 scales there), fold the position-masked f32 scores
@@ -44,9 +47,9 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                   torch.float8_e4m3fn: 3, torch.float8_e5m2: 4}
 _QUANTIZED = (torch.int8, torch.float8_e4m3fn, torch.float8_e5m2)
 _MAX_HEAD_DIM = 256
-#: queries per slot the kernel takes: each lane holds its output columns
-#: for every query in registers
-_MAX_QUERIES = 8
+#: queries one block of the kernel takes: each lane holds its output
+#: columns for every query of its block in registers
+QUERIES_PER_GROUP = 8
 
 
 @functools.lru_cache(maxsize=None)
@@ -64,6 +67,13 @@ def _library():
     built.lib.sdml_cuda_error_string.argtypes = [ctypes.c_int]
     built.lib.sdml_cuda_error_string.restype = ctypes.c_char_p
     return built
+
+
+def query_groups(K: int) -> int:
+    """Blocks per (slot, head) one launch runs for ``K`` queries per slot:
+    ``ceil(K / 8)`` groups of consecutive queries, each reading the slot's
+    K/V rows up to its own newest position."""
+    return -(-int(K) // QUERIES_PER_GROUP)
 
 
 def build_kernel():
@@ -128,7 +138,8 @@ def paged_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
                     _layout: str = "auto", device=None) -> torch.Tensor:
     """Fused paged attention over one layer's physical block pool.
 
-    ``q``: [S, H, K, dh] f32 queries (K = 1 for the decode tick);
+    ``q``: [S, H, K, dh] f32 queries (K = 1 for the decode tick, any
+    K >= 1: the verify step passes ``spec_k``);
     ``kc``/``vc``: [n_blocks+1, H, bs, dh] physical blocks (trash block 0
     included) in f32, bf16, int8 or fp8 — typically ``pool[li]``, a view
     of the ``[L, ...]`` pool, passed by pointer and strides with no copy;
@@ -191,10 +202,6 @@ def _launch(q, kc, vc, tables, qpos, bs, kscale, vscale) -> torch.Tensor:
     if dh > _MAX_HEAD_DIM:
         raise ValueError(f"head dim {dh} > {_MAX_HEAD_DIM}: the kernel's "
                          f"lanes hold at most 8 of 32 x 8 output columns")
-    if K > _MAX_QUERIES:
-        raise ValueError(f"{K} queries per slot > {_MAX_QUERIES}: the "
-                         f"kernel holds every query's output columns in "
-                         f"registers")
     if q.dtype != torch.float32 or not q.is_contiguous():
         raise ValueError("q must be contiguous float32")
     if kc.dtype not in _KERNEL_DTYPES or vc.dtype != kc.dtype:

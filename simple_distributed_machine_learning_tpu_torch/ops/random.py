@@ -75,6 +75,13 @@ def gumbel(ks: torch.Tensor, n: int, ctr0: torch.Tensor | None = None
     return -torch.log(-torch.log(u))
 
 
+def uniform(ks: torch.Tensor) -> torch.Tensor:
+    """One uniform f32 in (0, 1) per subkey ``ks`` int64 [N, 2] (counter
+    0, 24 bits): the speculative acceptance's accept draw."""
+    b = _bits(ks[:, 0], ks[:, 1], 0)
+    return ((b >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+
+
 def fold_in(seed: int, data: int) -> int:
     """A 63-bit seed for a ``torch.Generator``, derived from ``(seed,
     data)`` alone through the murmur mix (the role of JAX's

@@ -34,6 +34,16 @@ from simple_distributed_machine_learning_tpu_torch.parallel.staging import (
     stage_meta,
 )
 
+#: the collective schedules of the JAX package's ``parallel/overlap.py``
+OVERLAP_CHOICES = ("none", "ring")
+
+
+def check_overlap(overlap: str) -> str:
+    if overlap not in OVERLAP_CHOICES:
+        raise ValueError(
+            f"overlap must be one of {OVERLAP_CHOICES}, got {overlap!r}")
+    return overlap
+
 
 @dataclasses.dataclass(frozen=True)
 class Stage:
@@ -94,7 +104,9 @@ class Pipeline:
     ``make_gpt_stages`` returns them; ``n_microbatches`` is accepted and, as on
     the JAX package's trivial mesh, does not split the batch; ``remat`` is
     accepted and, as there, recomputes nothing; ``schedule`` is
-    ``"gpipe"`` or ``"1f1b"``, the same on one stage.
+    ``"gpipe"`` or ``"1f1b"``, the same on one stage; ``overlap`` is
+    ``"none"`` (the JAX default), and ``"ring"``, the chunked ring that
+    replaces the collectives of a sharded mesh, waits for ROADMAP item 6.
     ``compute_dtype`` casts the parameters and float activations to that
     dtype around the stage apply; master parameters and the loss stay f32.
     Token ids (the input of a stage that holds the ``embed`` table) are
@@ -109,9 +121,14 @@ class Pipeline:
                  wire_dim: int | None = None,
                  out_dim: int | tuple[int, ...] | None = None,
                  n_microbatches: int = 1, compute_dtype=None,
-                 remat: bool = False, schedule: str = "gpipe", device=None):
+                 remat: bool = False, schedule: str = "gpipe",
+                 overlap: str = "none", device=None):
         if schedule not in ("gpipe", "1f1b"):
             raise ValueError(f"unknown schedule {schedule!r}")
+        self.overlap = check_overlap(overlap)
+        if overlap == "ring":
+            raise _roadmap.not_ported("Pipeline(overlap='ring')",
+                                      _roadmap.PARALLEL_AXES)
         self.stages = list(stages)
         if len(self.stages) != 1:
             raise _roadmap.not_ported(

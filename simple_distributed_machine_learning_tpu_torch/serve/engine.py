@@ -11,19 +11,25 @@ Port of ``serve/engine.py`` for the paged layout on one device.
   request -> ONE batched decode step over every decoding slot -> retire;
 - ``drain()`` ticks until queue and slots are empty.
 
+With a draft model (``draft_stages``/``draft_cfg``/``spec_k``) the decode
+step is speculative: the draft proposes ``spec_k`` tokens per slot over
+its own dense slot pool, the target verifies them in one batched pass
+over its paged pool (``attn_kernel="fused"``: the CUDA kernel K4 with
+``spec_k`` queries per slot) and each slot emits 1..``spec_k`` tokens.
+
 Device state is the pool's K/V tensors, updated in place by the decode
 programs; positions, last tokens, block tables, key data and the request
 lifecycle are host-side numpy assembled into each tick's inputs.
 
 Correctness anchor: a request's tokens equal its solo
 ``make_cached_decoder`` decode with the same seed — admission order,
-co-residents, paged blocks, shared prefixes and chunk boundaries cannot
-change anyone's output.
+co-residents, paged blocks, shared prefixes, chunk boundaries and, for
+greedy requests, speculation cannot change anyone's output.
 
 The JAX engine's other knobs keep their place in the signature and raise
 ``NotImplementedError`` naming the ROADMAP item that ports them: the
-dense slot layout, speculative decoding, tensor parallelism, adapters,
-the host tier, the lint preflight, tracing and the flight recorder.
+dense slot layout, tensor parallelism, adapters, the host tier, the lint
+preflight, tracing and the flight recorder.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import collections
 import time
 
 import numpy as np
+import torch
 
 from simple_distributed_machine_learning_tpu_torch import _roadmap
 from simple_distributed_machine_learning_tpu_torch._device import (
@@ -40,11 +47,15 @@ from simple_distributed_machine_learning_tpu_torch._device import (
 from simple_distributed_machine_learning_tpu_torch.models.gpt import (
     _NO_TOP_K,
     _NO_TOP_P,
+    _cache_dtype,
     _check_ported,
+    _is_quantized_dtype,
     _merged_stage_trees,
     make_paged_block_copy,
     make_paged_decode_step,
     make_paged_prefill_chunk,
+    make_paged_spec_tick,
+    make_slot_prefill,
 )
 from simple_distributed_machine_learning_tpu_torch.ops.random import key_data
 from simple_distributed_machine_learning_tpu_torch.serve.metrics import (
@@ -56,6 +67,7 @@ from simple_distributed_machine_learning_tpu_torch.serve.request import (
     QUEUED,
     SHED,
     Request,
+    draft_key_data,
     validate_request,
 )
 from simple_distributed_machine_learning_tpu_torch.serve.scheduler import (
@@ -80,19 +92,30 @@ class DrainTimeout(RuntimeError):
         self.unfinished = unfinished
 
 
+def _check_speculative(draft_stages, draft_cfg, spec_k: int) -> None:
+    if (draft_stages is None) != (draft_cfg is None):
+        raise ValueError(
+            "speculative decoding needs BOTH draft_stages and "
+            "draft_cfg (the draft build's config)")
+    if draft_stages is not None and spec_k < 2:
+        raise ValueError(
+            f"speculative decoding needs spec_k >= 2 (got {spec_k}); "
+            f"spec_k=1 is plain one-token decode — drop the draft")
+    if draft_stages is None and spec_k:
+        raise ValueError(
+            f"spec_k={spec_k} without draft_stages/draft_cfg — the "
+            f"draft model is what proposes the speculated tokens")
+
+
 def _reject_unported(kv_layout, host_cache_blocks, prefetch_ticks, lint,
-                     mesh, cfg, draft_stages, draft_cfg, spec_k, trace,
-                     flight, adapters) -> None:
+                     mesh, cfg, trace, flight, adapters) -> None:
     if kv_layout == "dense":
         raise _roadmap.not_ported("kv_layout='dense'",
-                                  _roadmap.SERVE_EXTENSIONS)
-    if draft_stages is not None or draft_cfg is not None or spec_k:
-        raise _roadmap.not_ported("speculative decoding (draft_stages/"
-                                  "spec_k)", _roadmap.SERVE_EXTENSIONS)
+                                  _roadmap.SERVE_ROBUSTNESS)
     if mesh is not None or cfg.n_tensor_parallel > 1:
         raise _roadmap.not_ported("tensor-parallel serving (mesh/"
                                   "n_tensor_parallel > 1)",
-                                  _roadmap.SERVE_EXTENSIONS)
+                                  _roadmap.PARALLEL_AXES)
     if adapters is not None:
         raise _roadmap.not_ported("LoRA adapters",
                                   _roadmap.SERVE_EXTENSIONS)
@@ -125,10 +148,15 @@ class InferenceEngine:
     dense masked softmax; the parity anchor) or ``"fused"`` (the CUDA
     paged-attention kernel, ``ops/paged_attention.py``).
 
+    ``draft_stages``/``draft_cfg`` (a smaller ``make_gpt_stages`` build
+    of the same vocab) with ``spec_k >= 2`` make the decode step
+    speculative (module docstring); the draft keeps a dense slot pool of
+    its own (f32 when ``cache_dtype`` is quantised).
+
     ``device`` (None = ``"cuda"``; raises without CUDA unless ``"cpu"``)
-    holds the pool; the params must already live there. ``host_cache_blocks``
-    and ``prefetch_ticks`` (the host tier's knobs) keep their JAX defaults
-    only.
+    holds the pools; the params, the draft's too, must already live
+    there. ``host_cache_blocks`` and ``prefetch_ticks`` (the host tier's
+    knobs) keep their JAX defaults only.
     """
 
     def __init__(self, stages, cfg, *, params=None, n_slots: int = 4,
@@ -155,9 +183,9 @@ class InferenceEngine:
             raise ValueError(
                 f"prefill_chunk must be >= 1 (or None for whole-prompt "
                 f"chunks), got {prefill_chunk}")
+        _check_speculative(draft_stages, draft_cfg, spec_k)
         _reject_unported(kv_layout, host_cache_blocks, prefetch_ticks, lint,
-                         mesh, cfg, draft_stages, draft_cfg, spec_k, trace,
-                         flight, adapters)
+                         mesh, cfg, trace, flight, adapters)
         _check_ported(cfg, "InferenceEngine")
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -165,12 +193,7 @@ class InferenceEngine:
         self.prefill_chunk = prefill_chunk
         self.params = (params if params is not None
                        else [s.params for s in stages])
-        embed = _merged_stage_trees(self.params)[0]
-        if embed is None or embed["tok"].device.type != self.device.type:
-            raise ValueError(
-                f"the params must live on the engine's device "
-                f"{self.device}, got "
-                f"{None if embed is None else embed['tok'].device}")
+        self._check_on_device(self.params)
         self.max_len = int(max_len if max_len is not None else cfg.seq_len)
         n_layers = sum(len(p["blocks"]) for p in self.params)
         self.pool = PagedKVPool(n_layers, n_slots, cfg.n_heads, self.max_len,
@@ -184,6 +207,28 @@ class InferenceEngine:
             stages, cfg, self.max_len, block_size, cache_dtype,
             kernel=attn_kernel, device=self.device)
         self._copy_block = make_paged_block_copy()
+        self.spec_k = int(spec_k)
+        self.speculative = draft_stages is not None
+        self.draft_cfg = draft_cfg
+        if self.speculative:
+            if draft_cfg.vocab != cfg.vocab:
+                raise ValueError(
+                    f"draft vocab {draft_cfg.vocab} != target vocab "
+                    f"{cfg.vocab} — the draft proposes target token ids")
+            # the draft pool is dense slot rows (no per-row scales): a
+            # quantised target dtype gives the draft an f32 pool
+            self._draft_cache_dtype = (None if _is_quantized_dtype(
+                cache_dtype) else cache_dtype)
+            self._draft_params = [s.params for s in draft_stages]
+            self._check_on_device(self._draft_params)
+            self._draft_prefill = make_slot_prefill(
+                draft_stages, draft_cfg, self.max_len,
+                self._draft_cache_dtype, device=self.device)
+            self._spec_fused = make_paged_spec_tick(
+                stages, cfg, draft_stages, draft_cfg, self.max_len,
+                block_size, spec_k, cache_dtype, kernel=attn_kernel,
+                device=self.device)
+            self._init_draft_pool(n_slots)
         if scheduler is None:
             scheduler = FCFSScheduler(self.pool)
         elif not isinstance(scheduler, FCFSScheduler) and callable(scheduler):
@@ -200,6 +245,27 @@ class InferenceEngine:
         self._prefilling: collections.deque[int] = collections.deque()
         # per-request last-emit timestamps for TPOT accounting
         self._last_emit: dict[int, float] = {}
+
+    def _check_on_device(self, params) -> None:
+        embed = _merged_stage_trees(params)[0]
+        if embed is None or embed["tok"].device.type != self.device.type:
+            raise ValueError(
+                f"the params must live on the engine's device "
+                f"{self.device}, got "
+                f"{None if embed is None else embed['tok'].device}")
+
+    def _init_draft_pool(self, n_slots: int) -> None:
+        """The draft model's K/V buffers: always the dense slot layout (one
+        ``max_len`` row per slot), whatever the target's layout — the
+        draft is small by design, and a rejected tail's rows are
+        overwritten before they can be attended."""
+        dcfg = self.draft_cfg
+        dL = sum(len(p["blocks"]) for p in self._draft_params)
+        shape = (dL, n_slots, dcfg.n_heads, self.max_len,
+                 dcfg.d_model // dcfg.n_heads)
+        cd = _cache_dtype(self._draft_cache_dtype)
+        self._dkc = torch.zeros(shape, dtype=cd, device=self.device)
+        self._dvc = torch.zeros(shape, dtype=cd, device=self.device)
 
     # -- public API --------------------------------------------------------
 
@@ -241,6 +307,8 @@ class InferenceEngine:
         # the request's own key stream: the key a solo make_cached_decoder
         # call would be handed, so the streams align
         r.key_data = key_data(seed)
+        if self.speculative:
+            r.draft_key_data = draft_key_data(seed)
         r.submit_time = (self._clock() if arrival_time is None
                          else arrival_time)
         self._now = max(self._now, r.submit_time)
@@ -258,12 +326,13 @@ class InferenceEngine:
         self._admit_paged()
         emitted = self._prefill_tick()
         decoding = self._decoding_slots()
-        emitted += self._decode_tick_paged(decoding)
+        emitted += (self._spec_tick(decoding) if self.speculative
+                    else self._decode_tick_paged(decoding))
         if self.metrics is not None:
             self.metrics.on_tick(
                 self.scheduler.queue_depth, self.pool.n_active,
                 self.pool.n_slots, decode_active=len(decoding),
-                block_stats=self.pool.stats())
+                block_stats=self.pool.stats(), tp=1, spec_k=self.spec_k)
         return emitted
 
     def preempt(self, rid: int) -> None:
@@ -376,6 +445,11 @@ class InferenceEngine:
         # publish before any same-tick retirement, so even a 1-token
         # request leaves its prefix reusable
         self.pool.register_prefix(r.slot, seq)
+        if self.speculative:
+            # the draft prefills the whole sequence at the final target
+            # chunk: its pool must cover every prompt position before the
+            # first propose, and the draft is cheap by design
+            self._draft_prefill_slot(r, seq)
         if r.tokens:
             # resuming after preemption: the chunk only rebuilt K/V; its
             # sample and key are discarded, decode restarts from the stored
@@ -435,6 +509,93 @@ class InferenceEngine:
                 src, dst = cp
                 self.pool.kc, self.pool.vc = self._copy_block(
                     self.pool.kc, self.pool.vc, dst, src)
+
+    # -- speculative tick internals ----------------------------------------
+
+    def _draft_prefill_slot(self, r: Request, seq: np.ndarray) -> None:
+        """Write the draft model's K/V for ``seq`` into the draft pool's
+        slot row. Greedy arguments and a dummy key: the sampled token and
+        the key are discarded, so neither of the request's streams moves."""
+        self._dkc, self._dvc, _, _ = self._draft_prefill(
+            self._draft_params, self._dkc, self._dvc, seq[None, :], r.slot,
+            np.zeros(2, np.uint32), 0.0, _NO_TOP_K, _NO_TOP_P)
+
+    def _spec_tick(self, active: list[int]) -> int:
+        """One speculative tick over the decoding slots: the draft's
+        ``spec_k`` propose steps, then the batched target verify, emitting
+        1..``spec_k`` tokens per slot. The proposals stay on the device;
+        the host syncs once, at the end."""
+        if not active:
+            return 0
+        S, K = self.pool.n_slots, self.spec_k
+        kd, temps, top_ks, top_ps = self._sampling_inputs(active)
+        toks = np.zeros(S, np.int32)
+        pos = np.zeros(S, np.int32)
+        valid = np.zeros(S, np.int32)
+        dkd = np.zeros((S, 2), np.uint32)
+        tables = np.full((S, self.pool.blocks_per_seq), PagedKVPool.TRASH,
+                         np.int32)
+        for s in active:
+            r = self.requests[self.pool.occupant(s)]
+            toks[s] = self.pool.last_token[s]
+            pos[s] = self.pool.positions[s]
+            # never speculate past the remaining token budget, so every
+            # real K/V write stays inside the slot's reservation
+            # (non-decoding slots keep valid 0: all their writes go to
+            # the trash block)
+            valid[s] = min(K, r.max_new_tokens - len(r.tokens))
+            dkd[s] = r.draft_key_data
+            self._ensure_writable_range(s, int(pos[s]), int(valid[s]))
+            tables[s] = self.pool.device_table(s)
+        (self._dkc, self._dvc, self.pool.kc, self.pool.vc, otoks, nacc, kd2,
+         dkd2) = self._spec_fused(
+            self._draft_params, self._dkc, self._dvc, self.params,
+            self.pool.kc, self.pool.vc, toks, pos, valid, tables, dkd, kd,
+            temps, top_ks, top_ps)
+        return self._emit_spec(active, otoks, nacc, kd2, dkd2, valid)
+
+    def _emit_spec(self, active: list[int], otoks, nacc, kd2, dkd2,
+                   valid) -> int:
+        """Host tail of a speculative tick: emit each slot's accepted
+        tokens in order (truncated at EOS — the later positions' K/V is
+        written but overwritten before it can be attended), advance its
+        position by the count emitted, and feed the spec counters."""
+        otoks = otoks.cpu().numpy()              # host sync: tick endpoint
+        nacc = nacc.cpu().numpy()
+        kd2 = kd2.cpu().numpy().astype(np.uint32)
+        dkd2 = dkd2.cpu().numpy().astype(np.uint32)
+        now = self._now = self._clock()
+        emitted = proposed = accepted = 0
+        for s in active:
+            r = self.requests[self.pool.occupant(s)]
+            r.key_data = kd2[s]
+            r.draft_key_data = dkd2[s]
+            n_emit = 0
+            finish = None
+            for tok in otoks[s, :int(nacc[s])]:  # >= 1: valid[s] >= 1
+                n_emit += 1
+                r.emit(int(tok))
+                finish = r.finished_by(int(tok))
+                if finish is not None:
+                    break
+            dt = now - self._last_emit[r.rid]
+            if self.metrics is not None:
+                # n_emit tokens in one dt window: spread the interval so
+                # the TPOT mean stays the true cadence
+                for _ in range(n_emit):
+                    self.metrics.on_token(dt / n_emit, cls=r.cls)
+            self._last_emit[r.rid] = now
+            emitted += n_emit
+            proposed += max(int(valid[s]) - 1, 0)
+            accepted += max(n_emit - 1, 0)
+            if finish is not None:
+                self._finish(r, finish, now)
+            else:
+                self.pool.positions[s] += n_emit
+                self.pool.last_token[s] = r.tokens[-1]
+        if self.metrics is not None and proposed:
+            self.metrics.on_spec(proposed, accepted)
+        return emitted
 
     # -- shared tick tails -------------------------------------------------
 

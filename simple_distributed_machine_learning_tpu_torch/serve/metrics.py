@@ -17,11 +17,19 @@ The instruments of the serve summary line, with the JAX package's names:
   deltas), ``serve_prefill_chunk_ms`` (histogram);
 - per traffic class: ``serve_class_ttft_ms`` / ``serve_class_tpot_ms``
   (histograms), ``serve_class_completed_total`` /
-  ``serve_class_preemptions_total`` and ``serve_preemptions_total``.
+  ``serve_class_preemptions_total`` and ``serve_preemptions_total``;
+- the deployment shape: ``serve_tp`` / ``serve_spec_k`` (gauges: the
+  tensor-parallel width and the speculative verify width, 0 = plain
+  decode);
+- speculative decoding: ``serve_spec_proposed_tokens_total`` /
+  ``serve_spec_accepted_tokens_total`` /
+  ``serve_spec_rejected_tokens_total`` (counters) and
+  ``serve_spec_accept_rate`` (histogram, one observation per speculative
+  tick): how much of the draft's work the target agreed with.
 
-The supervisor, fleet, host-tier, adapter, speculative, deployment-shape
-(``serve_tp``/``serve_spec_k``/``serve_attn_kernel_fused``) and KV-drift
-instruments arrive with the slices that port those layers; until the
+The supervisor, fleet, host-tier, adapter, ``serve_attn_kernel_fused``
+and KV-drift instruments arrive with the slices that port those layers;
+until the
 analysis slice the summary has no ``kv_drift_bytes`` key, as the JAX CLI
 prints that line only when present.
 
@@ -82,6 +90,14 @@ class ServeMetrics:
         self._pool_counter_seen = dict.fromkeys(_POOL_COUNTERS, 0)
         self._paged_seen = False
         self.preemptions = r.counter("serve_preemptions_total")
+        self.tp_gauge = r.gauge("serve_tp")
+        self.spec_k_gauge = r.gauge("serve_spec_k")
+        self._shape_seen = False
+        self.spec_proposed = r.counter("serve_spec_proposed_tokens_total")
+        self.spec_accepted = r.counter("serve_spec_accepted_tokens_total")
+        self.spec_rejected = r.counter("serve_spec_rejected_tokens_total")
+        self.spec_accept_rate = r.histogram("serve_spec_accept_rate")
+        self._spec_seen = False
         self._classes: set[str] = set()
         if outdir:
             os.makedirs(outdir, exist_ok=True)
@@ -134,16 +150,36 @@ class ServeMetrics:
         """One prefill chunk's wall latency."""
         self.prefill_chunk_ms.observe(chunk_ms)
 
+    def on_spec(self, proposed: int, accepted: int) -> None:
+        """One speculative tick's draft tokens: ``proposed`` were verified,
+        ``accepted`` survived (the rest were rejected at or after the
+        target's first disagreement). The rate histogram gets one
+        observation per tick; with draft == target it stays at 1.0."""
+        self._spec_seen = True
+        rejected = proposed - accepted
+        self.spec_proposed.inc(proposed)
+        if accepted:
+            self.spec_accepted.inc(accepted)
+        if rejected:
+            self.spec_rejected.inc(rejected)
+        self.spec_accept_rate.observe(accepted / proposed)
+
     def on_tick(self, queue_depth: int, active: int, total: int,
                 decode_active: int | None = None,
-                block_stats: dict | None = None) -> None:
+                block_stats: dict | None = None,
+                tp: int | None = None, spec_k: int | None = None) -> None:
         """End-of-tick gauges. ``decode_active`` is the occupancy the
         tick's batched decode ran at (sampled before same-tick
         retirement); ticks without a decode skip the occupancy sample.
-        ``block_stats`` is ``PagedKVPool.stats()``."""
+        ``block_stats`` is ``PagedKVPool.stats()``; ``tp``/``spec_k`` the
+        deployment shape."""
         self.queue_depth.set(queue_depth)
         self.slots_active.set(active)
         self.slots_total.set(total)
+        if tp is not None:
+            self._shape_seen = True
+            self.tp_gauge.set(tp)
+            self.spec_k_gauge.set(spec_k or 0)
         occ = active if decode_active is None else decode_active
         if occ and total:
             self.occupancy.observe(occ / total)
@@ -198,6 +234,19 @@ class ServeMetrics:
             "tpot_ms_p95": r3(self.tpot_ms.quantile(0.95)),
             "slot_occupancy_mean": r3(self.occupancy.mean),
         }
+        if self._shape_seen:
+            out["tp"] = int(self.tp_gauge.value)
+            out["spec_k"] = int(self.spec_k_gauge.value)
+        if self._spec_seen:
+            proposed = int(self.spec_proposed.value)
+            accepted = int(self.spec_accepted.value)
+            out.update({
+                "spec_proposed_tokens": proposed,
+                "spec_accepted_tokens": accepted,
+                "spec_rejected_tokens": int(self.spec_rejected.value),
+                "spec_accept_rate": (round(accepted / proposed, 4)
+                                     if proposed else None),
+            })
         if self.preemptions.value:
             out["preemptions"] = int(self.preemptions.value)
         if self._classes:

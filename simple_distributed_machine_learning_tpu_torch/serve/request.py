@@ -54,6 +54,10 @@ class Request:
     prefill_pos: int | None = None
     tokens: list[int] = dataclasses.field(default_factory=list)
     key_data: np.ndarray | None = None  # live PRNG key data (uint32 [2])
+    # speculative decoding: the draft model's own key stream (set by the
+    # engine when a draft is configured, :func:`draft_key_data`), so
+    # sampled proposals never consume the target stream's splits
+    draft_key_data: np.ndarray | None = None
     submit_time: float | None = None
     first_token_time: float | None = None
     done_time: float | None = None
@@ -104,6 +108,18 @@ class Request:
         if len(self.tokens) >= self.max_new_tokens:
             return "length"
         return None
+
+
+def draft_key_data(seed: int) -> np.ndarray:
+    """The draft's key data for a request seeded ``seed``: derived from
+    the seed and disjoint from the target's ``key_data(seed)`` stream (the
+    JAX engine's ``fold_in(key(seed), 1)``), so greedy streams, which
+    consume neither, stay equal to solo decode."""
+    from simple_distributed_machine_learning_tpu_torch.ops.random import (
+        fold_in,
+        key_data,
+    )
+    return key_data(fold_in(seed, 1))
 
 
 def validate_request(prompt: np.ndarray, max_new_tokens: int,

@@ -148,13 +148,16 @@ def test_cli_metrics_json(tmp_path):
     (["--profile", "/tmp/p"], "item 6"),
     (["--scenario", "crash-serve"], "item 4"),
     (["--chaos", "host-kill@train.step=6"], "item 4"),
-    (["--serve-sim", "8"], "item 4"),
+    (["--serve-deadline-ms", "50"], "item 4"),
     (["--serve-trace"], "item 4"),
     (["--serve-replicas", "2"], "item 4"),
-    (["--serve-spec-k", "2"], "item 5"),
+    (["--serve-host-blocks", "4"], "item 5"),
     (["--serve-adapters", "2"], "item 5"),
     (["--lint"], "item 7"),
     (["--lint-only"], "item 7"),
+    (["--serve-tp", "2"], "item 6"),
+    (["--serve-chaos", "engine-crash@serve.tick=5"], "item 4"),
+    (["--serve-adapters", "2", "--serve-sim", "4"], "item 5"),
 ])
 def test_unported_flags_exit_naming_their_item(flag, item):
     with pytest.raises(SystemExit) as e:
@@ -171,10 +174,47 @@ def test_unported_flags_exit_naming_their_item(flag, item):
     (["--model", "gpt", "--flash-blocks", "16,16"], "needs --attn flash"),
     (["--model", "gpt", "--attn", "flash", "--flash-blocks", "x"],
      "Q,K integers"),
+    (["--model", "gpt", "--serve-sim", "4", "--serve-spec-k", "1"],
+     r"^--serve-spec-k must be 0 \(plain decode\) or >= 2, got 1$"),
+    (["--serve-sim", "4"], "only supported with --model=gpt"),
+    (["--model", "gpt", "--serve-sim", "4", "--serve-slots", "0"],
+     "--serve-slots must be >= 1, got 0"),
 ])
 def test_bad_values_exit_with_one_line(argv, match):
     with pytest.raises(SystemExit, match=match):
         main(BASE + argv)
+
+
+SERVE_LINE = re.compile(
+    r"^\| serve: 4/4 requests completed, 64 tokens, [0-9.]+ tok/s, ttft "
+    r"p50/p95 [0-9.]+/[0-9.]+ ms, tpot p50/p95 [0-9.]+/[0-9.]+ ms, "
+    r"occupancy [0-9.]+$")
+SPEC_LINE = re.compile(
+    r"^\| serve: tp 1, spec_k 3 accept_rate ([0-9.]+) \((\d+)/(\d+) "
+    r"draft tokens\)$")
+
+
+@pytest.mark.parametrize("spec_k", [0, 3])
+def test_cli_serve_sim_prints_the_jax_summary_lines(capsys, spec_k):
+    """``--model gpt --serve-sim 4`` serves every request and prints the
+    JAX CLI's lines; with ``--serve-spec-k 3`` also its ``| serve: tp``
+    line with the draft's accept rate (a fresh draft of half the layers:
+    some of its 3 - 1 proposals per tick are verified, few accepted)."""
+    main(BASE + ["--model", "gpt", "--serve-sim", "4", "--serve-spec-k",
+                 str(spec_k)])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "| serve: fresh-initialized params"
+    assert SERVE_LINE.match(out[1]), out[1]
+    assert out[2].startswith("| serve: paged pool 0/16 blocks in use")
+    spec = [ln for ln in out if ln.startswith("| serve: tp")]
+    if not spec_k:
+        assert spec == [] and len(out) == 3
+        return
+    m = SPEC_LINE.match(spec[0])
+    assert m, spec
+    rate, accepted, proposed = float(m[1]), int(m[2]), int(m[3])
+    assert 0 < proposed and 0 <= accepted <= proposed
+    assert rate == round(accepted / proposed, 4)
 
 
 def test_rank_required_for_multiprocess():

@@ -177,7 +177,10 @@ def test_engine_defaults_to_cuda_and_raises_without_it(weights):
 
 @pytest.mark.parametrize("kw", [
     dict(kv_layout="dense"),
-    dict(draft_stages=object(), draft_cfg=object(), spec_k=2),
+    # speculative decoding runs on the paged target pool; over the dense
+    # slot layout it waits for that layout (item 4)
+    dict(kv_layout="dense", draft_stages=object(), draft_cfg=object(),
+         spec_k=2),
     dict(mesh=object()),
     dict(adapters=object()),
     dict(host_cache_blocks=4),

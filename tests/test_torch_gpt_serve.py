@@ -215,7 +215,10 @@ def test_sampled_top1_equals_greedy_and_seeds_reproduce():
                                 dict(attn_impl="ring", n_seq=2),
                                 dict(n_tensor_parallel=2)])
 def test_unported_configs_raise_with_roadmap_item(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """MoE, sequence and tensor parallelism are all item 6's axes."""
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP\.md, Queue A: item 6, remaining "
+                             r"parallel axes"):
         tgpt.make_gpt_stages(0, tgpt.GPTConfig(**{**SMALL, **kw}), 1,
                              device="cpu")
 

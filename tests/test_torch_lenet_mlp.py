@@ -253,6 +253,31 @@ def test_two_stage_pipeline_raises_naming_item_6(builder):
         Pipeline(stages, None, device="cpu")
 
 
+@pytest.mark.parametrize("overlap", ["none", "ring", "all"])
+def test_pipeline_overlap_keyword_follows_the_jax_signature(overlap):
+    """``overlap`` as the JAX ``Pipeline`` takes it: ``"none"`` (its
+    default) runs, ``"ring"`` names item 6, anything else is the JAX
+    ``check_overlap`` error, word for word."""
+    stages, wd, od = tmlp.make_mlp_stages(0, [8, 6, 4], 1, device="cpu")
+    if overlap == "none":
+        pipe = Pipeline(stages, None, wd, od, overlap="none", device="cpu")
+        assert pipe.overlap == "none"
+        return
+    if overlap == "ring":
+        with pytest.raises(NotImplementedError,
+                           match="item 6, remaining parallel axes"):
+            Pipeline(stages, None, wd, od, overlap="ring", device="cpu")
+        return
+    from simple_distributed_machine_learning_tpu.parallel.overlap import (
+        check_overlap,
+    )
+    with pytest.raises(ValueError) as jax_err:
+        check_overlap(overlap)
+    with pytest.raises(ValueError) as port_err:
+        Pipeline(stages, None, wd, od, overlap=overlap, device="cpu")
+    assert str(port_err.value) == str(jax_err.value)
+
+
 def test_lenet_rejects_three_stages():
     with pytest.raises(ValueError, match="1 or 2 stages"):
         tlenet.make_lenet_stages(0, 3, device="cpu")

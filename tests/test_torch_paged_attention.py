@@ -33,9 +33,11 @@ from simple_distributed_machine_learning_tpu.ops.paged_attention import (
 )
 from simple_distributed_machine_learning_tpu_torch.models import gpt as tgpt
 from simple_distributed_machine_learning_tpu_torch.ops.paged_attention import (
+    QUERIES_PER_GROUP,
     paged_attention,
     paged_attention_reference,
     paged_flash_decode,
+    query_groups,
 )
 
 DTYPES = ["float32", "bfloat16", "int8", "float8_e4m3fn", "float8_e5m2"]
@@ -137,15 +139,42 @@ def test_plain_version_matches_jax_kernel_at_kernel_edges(name):
                                rtol=rtol, atol=atol)
 
 
+@pytest.mark.parametrize("K", [9, 16])
+@pytest.mark.parametrize("name", ["float32", "int8"])
+def test_plain_version_matches_jax_kernel_beyond_8_queries(name, K):
+    """More queries per slot than one block of the CUDA kernel takes (the
+    verify step at spec_k > 8): the plain version, the card's yardstick,
+    against the JAX kernel, which takes any K. Slot 0's queries run past
+    the table's last position and are clamped there (K = 16: positions
+    repeat), and every slot's queries straddle block boundaries."""
+    q, kc, vc, tables, qpos = _toy_pool(60 + K, K=K)
+    assert (np.diff(qpos, axis=1) >= 0).all()
+    if K == 16:
+        assert (qpos[0, -3:] == qpos[0, -1]).all()
+    (jk, jv, jks, jvs), (tk, tv, tks, tvs) = _pools(name, kc, vc)
+    ref = jax_paged_attention(jnp.asarray(q), jk, jv, jnp.asarray(tables),
+                              jnp.asarray(qpos), block_size=BS,
+                              kscale=jks, vscale=jvs)
+    out = paged_attention(torch.from_numpy(q), tk, tv,
+                          torch.from_numpy(tables), torch.from_numpy(qpos),
+                          block_size=BS, kscale=tks, vscale=tvs,
+                          device="cpu")
+    rtol, atol = SAME_BYTES_TOL
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                               rtol=rtol, atol=atol)
+
+
 def test_kernel_takes_at_most_8_queries():
-    """The CUDA kernel holds each query's output columns in registers, for
-    up to 8 queries per slot: its wrapper raises on a ninth before it
-    builds or launches anything (the plain version takes any K)."""
-    launch = sys.modules[paged_attention.__module__]._launch
+    """A block of the CUDA kernel holds each of its queries' output
+    columns in registers, for at most 8 queries: one launch splits a
+    slot's K queries into ceil(K / 8) groups along the grid, each reading
+    the slot's K/V rows up to its own newest position. The wrapper no
+    longer refuses K > 8, and the plain version takes any K."""
+    assert QUERIES_PER_GROUP == 8
+    assert [query_groups(k) for k in (1, 4, 8, 9, 12, 16, 17)] == \
+        [1, 1, 1, 2, 2, 2, 3]
     q, kc, vc, tables, qpos = _toy_pool(2, K=9)
     args = [torch.from_numpy(a) for a in (q, kc, vc, tables, qpos)]
-    with pytest.raises(ValueError, match="queries per slot"):
-        launch(*args, BS, None, None)
     out = paged_attention(*args, block_size=BS, device="cpu")
     assert out.shape == q.shape and torch.isfinite(out).all()
 

@@ -27,8 +27,10 @@ SAME_BYTES_TOL = dict(rtol=1e-5, atol=1e-5)
 # (storage dtype, K, _toy_pool options): every dtype at K = 1 and 4, then
 # K4's edge cases as chip_smoke.py holds them at full size: head dims 40,
 # 128 and 256, blocks of 8 (a table of 40 blocks, longer than the 16 warps
-# that split it) and 32, K = 8, and pool views strided past other layers
-# or misaligned for the kernel's vector loads
+# that split it) and 32, K = 8, pool views strided past other layers or
+# misaligned for the kernel's vector loads; then K = 9, 12 and 16 (two
+# query groups in one launch; slot 1's later queries clamped to the table's
+# last position, so positions repeat)
 _CASES = ([(name, K, {}) for name in DTYPES for K in (1, 4)]
           + [("float32", 1, dict(dh=40)), ("float32", 1, dict(dh=128)),
              ("float32", 1, dict(dh=256)), ("bfloat16", 1, dict(dh=256)),
@@ -37,7 +39,12 @@ _CASES = ([(name, K, {}) for name in DTYPES for K in (1, 4)]
              ("float32", 8, {}), ("int8", 8, dict(dh=128)),
              ("float8_e4m3fn", 4, dict(dh=40, bs=32)),
              ("float32", 1, dict(layout="block-major")),
-             ("bfloat16", 4, dict(layout="misaligned"))])
+             ("bfloat16", 4, dict(layout="misaligned"))]
+          + [("float32", 9, {}), ("int8", 9, {}), ("float32", 12, {}),
+             ("bfloat16", 12, {}), ("float8_e4m3fn", 12, {}),
+             ("float32", 16, {}), ("int8", 16, dict(dh=128)),
+             ("float8_e5m2", 16, dict(bs=8, NB=12)),
+             ("float32", 16, dict(layout="misaligned"))])
 
 
 def _toy_pool(seed, K, dh=16, bs=BS, NB=6, layout="layer"):
@@ -120,13 +127,16 @@ def test_cuda_kernel_matches_plain_version(cuda_device, name, K, opts):
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_rejects_more_than_8_queries(cuda_device):
-    """The kernel holds each query's output columns in registers, for up
-    to 8 queries per slot; a ninth raises before any launch."""
-    q, kc, vc, tables, qpos = _toy_pool(3, 9)
-    args = [torch.from_numpy(a).to(cuda_device)
-            for a in (q, kc, vc, tables, qpos)]
-    before = paged_attention.launches
-    with pytest.raises(ValueError, match="queries per slot"):
-        paged_attention(*args, block_size=BS)
-    assert paged_attention.launches == before
+def test_cuda_kernel_groups_of_8_queries_equal_one_group_each(cuda_device):
+    """K = 16 in one launch (two query groups) equals the same slots'
+    queries 0-7 and 8-15 in two launches of 8, bit for bit: a group reads
+    only its own queries and positions and writes only its own rows."""
+    q, kc, vc, tables, qpos = _toy_pool(5, 16)
+    t = [torch.from_numpy(a).to(cuda_device)
+         for a in (q, kc, vc, tables, qpos)]
+    both = paged_attention(*t, block_size=BS)
+    halves = [paged_attention(t[0][:, :, j:j + 8].contiguous(), t[1], t[2],
+                              t[3], t[4][:, j:j + 8].contiguous(),
+                              block_size=BS) for j in (0, 8)]
+    torch.cuda.synchronize()
+    assert torch.equal(both, torch.cat(halves, dim=2))
