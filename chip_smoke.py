@@ -23,7 +23,7 @@ or without the port beside it. Phases, each fatal on failure:
    1e-5 (both read the same stored bytes); a narrow pool's answer also
    within ``tests/tolerances.py::attn_tol`` of the unquantised f32
    pool's; then K4's edge cases (``K4_EDGES``: head dims 40, 128, 256,
-   blocks of 8 and 32, a table longer than the warp count, K = 4 and 8, a
+   phase 8's head dims 16 (blocks of 8) and 32, blocks of 8 and 32, a table longer than the warp count, K = 4 and 8, a
    slot at position 0 beside a trash-routed one, a non-contiguous and a
    misaligned pool view) against the plain version; then K4 with more
    queries per slot than one block takes (K = 9, 12 and 16: two query
@@ -95,7 +95,31 @@ or without the port beside it. Phases, each fatal on failure:
    step and K1 also once per layer per eval batch; and the ``lenet``,
    ``mlp2`` and ``mlp4`` rows' step time at batch 60 on the host clock,
    then under ``torch.profiler`` (device busy share, device and host ops
-   per step).
+   per step);
+8. serving under faults: (a) the six one-engine SLO scenarios (steady,
+   burst-interactive, multi-tenant, burst-slow-tick, crash-serve,
+   overload-shed) through the port's ``run_scenario`` on the card at the
+   virtual clock, attending through K4, on ``SCENARIO_CFG`` (2 stages,
+   weights from seed 0): every count, per-class TTFT p95 and the
+   overload-shed alert ticks equal ``SCENARIO_PINS``, K4 launched
+   ``n_layers`` times per decode call in every tick, and, since the pins
+   hold on any weights, every greedy stream (and the crash-serve and
+   overload-shed journals, line for line) equal to a second run through
+   the plain gather-then-dense path; (b) a wall-clock crash drill at full
+   width: phase 3's trace through ``ServeSupervisor(engine_factory(...,
+   attn_kernel="fused", n_slots=8, block_size=16))`` with an fsync'd
+   journal under ``DRILL_CHAOS`` — 24/24 served through exactly 1
+   restart, every greedy stream equal to phase 3's, K4 launched
+   ``n_layers`` times per decode call in every tick before and after the
+   restart, and the memory allocated after the rebuild within half a pool
+   of the figure before the crash; it prints the recovered count, the restart
+   cost (the crash to the next emitted token), tokens/s and the tick p50
+   against phase 3's and the journal's fsync cost; (c) the same with
+   ``degrade_after=1``: the rebuild serves on ``kv_layout="dense"``,
+   degraded 1, greedy streams equal to phase 3's; (d) the CLI's
+   ``--model gpt --serve-sim 8 --serve-chaos engine-crash@serve.tick=6``
+   (its restart line) and ``--scenario crash-serve`` (TTFT p95 23.16
+   vms, SLO attained).
 
 Before the last line it prints the kernels as one JSON object (times in
 ms, measured in this run; ``bound_ms`` computed from this run's inputs);
@@ -161,6 +185,9 @@ ATTN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (5e-2, 5e-2),
 # options), each held against the plain version; every one also has a slot
 # at position 0 with a real table entry beside the trash-routed slot
 K4_EDGES = [("float32", 1, dict(dh=40)), ("float32", 1, dict(dh=128)),
+            # phase 8's shapes: the scenario model (dh 16, blocks of 8)
+            # and the CLI's default GPTConfig (dh 32, blocks of 16)
+            ("float32", 1, dict(dh=16, bs=8)), ("float32", 1, dict(dh=32)),
             ("float32", 1, dict(dh=256)), ("bfloat16", 1, dict(dh=256)),
             ("int8", 1, dict(dh=40)),
             ("float32", 1, dict(bs=8)),     # 32 blocks: past the warp count
@@ -216,6 +243,28 @@ EPOCH_RE = re.compile(r"^\| epoch (\d+): (\d+\.\d) samples/sec$")
 MAIN_COMPARE_STEPS = 20
 MAIN_WARMUP_STEPS, MAIN_TIMED_STEPS, MAIN_PROFILED_STEPS = 20, 300, 20
 MAIN_GPT_STEPS = 5
+# phase 8: tests/test_scenarios.py's model for the six one-engine scenarios
+# at the virtual clock, and their pins — (completed, shed, restarts,
+# preemptions, {class: TTFT p95 in virtual ms}) — which hold on any
+# weights and any device (the virtual clock charges every clock read and
+# no traffic class sets an EOS); the wall-clock drill's fault schedule
+SCENARIO_CFG = dict(vocab=32, seq_len=48, d_model=32, n_heads=2, n_layers=2)
+SCENARIO_PINS = {
+    "steady": (16, 0, None, 0, {"interactive": 14.16}),
+    "burst-interactive": (28, 0, None, 3, {"interactive": 22.249,
+                                           "batch": 451.418}),
+    "multi-tenant": (30, 0, None, 0, {"interactive": 14.312,
+                                      "standard": 14.469, "batch": 92.16}),
+    "burst-slow-tick": (24, 0, None, 5, {"interactive": 25.484,
+                                         "batch": 443.309}),
+    "crash-serve": (16, 0, 1, 0, {"interactive": 23.16}),
+    "overload-shed": (11, 25, 0, 2, {"interactive": 75.651,
+                                     "batch": 351.149}),
+}
+SCENARIO_ALERTS = {"overload-shed": [
+    (37, "inactive", "pending"), (38, "pending", "firing"),
+    (49, "firing", "resolved"), (50, "resolved", "inactive")]}
+DRILL_CHAOS = "engine-crash@serve.tick=40"
 # where phase 7 runs: the card ("cpu" only to rehearse the phase without
 # one, where its device checks cannot pass)
 MAIN_DEVICE = "cuda"
@@ -839,48 +888,95 @@ def _count_decode_calls(engine) -> list[int]:
     return calls
 
 
-def _serve(stages, cfg, kernel: str, **engine_kw):
-    """Phase 3's trace through an engine (``engine_kw``: a draft for the
-    speculative engine): ``(report, summary, handles, K4 launches, decode
-    or speculative ticks, host-clock ms per engine tick)``."""
-    import numpy as np
+def _decode_calls_of(engine) -> list[int]:
+    """``engine``'s decode-call counter (``_count_decode_calls``), put on
+    it the first time it is asked for."""
+    calls = engine.__dict__.get("_chip_smoke_calls")
+    if calls is None:
+        calls = engine._chip_smoke_calls = _count_decode_calls(engine)
+    return calls
+
+
+def _record_ticks(target) -> list[dict]:
+    """Hook ``target.step`` (an engine, or a supervisor: the same surface,
+    its engine rebuilt by a crash) to record one row per tick: its start
+    and host ms, the decode (or speculative) program calls and K4 launches
+    in it, whether the supervisor restarted in it and the memory allocated
+    after it. ``del target.step`` unhooks it. The tick holds no reference
+    to the engine, so a crash leaves only the supervisor's new one
+    alive."""
+    import torch
     from simple_distributed_machine_learning_tpu_torch.ops.paged_attention import (  # noqa: E501
         paged_attention,
     )
+    rows: list[dict] = []
+    step = target.step
+
+    def recorded():
+        calls = _decode_calls_of(getattr(target, "engine", target))
+        c0, l0 = calls[0], paged_attention.launches
+        r0 = getattr(target, "restarts", 0)
+        t0 = time.perf_counter()
+        out = step()
+        rows.append(dict(
+            t0=t0, ms=(time.perf_counter() - t0) * 1e3,
+            decode=calls[0] - c0, launches=paged_attention.launches - l0,
+            crashed=getattr(target, "restarts", 0) > r0,
+            mem=torch.cuda.memory_allocated()))
+        return out
+
+    target.step = recorded
+    return rows
+
+
+def _warm_engine(stages, cfg, kernel: str, **engine_kw):
+    """Phase 3's engine (``engine_kw``: a draft for the speculative one),
+    every shape warmed outside the measured trace as bench.py does (one
+    small request per prompt-length bucket, plus decode ticks), with
+    fresh metrics."""
+    import numpy as np
     from simple_distributed_machine_learning_tpu_torch.serve import (
         InferenceEngine,
         ServeMetrics,
-        SimConfig,
-        simulate,
     )
     engine = InferenceEngine(stages, cfg, n_slots=SERVE_SLOTS,
                              block_size=SERVE_BLOCK, attn_kernel=kernel,
                              **engine_kw)
-    # warm every shape outside the measured trace (bench.py's warm-up):
-    # one small request per prompt-length bucket, plus decode ticks
     for t0 in SERVE_SIM["prompt_lens"]:
         engine.submit(np.zeros(t0, np.int32), max_new_tokens=2)
     engine.drain()
-    engine.metrics = metrics = ServeMetrics()
-    decode_calls = _count_decode_calls(engine)
-    tick_s = []
-    step = engine.step
+    engine.metrics = ServeMetrics()
+    return engine
 
-    def timed_step():
-        t0 = time.perf_counter()
-        out = step()
-        tick_s.append(time.perf_counter() - t0)
-        return out
 
-    engine.step = timed_step
-    first_rid = engine._next_rid
+def _serve(target) -> dict:
+    """Phase 3's trace through ``target`` (``_warm_engine``'s engine, or a
+    supervisor) under ``_record_ticks``: the report, the metrics summary,
+    the trace's handles, the tick rows, K4's launches, the decode (or
+    speculative) calls, and the host-clock ms per tick, mean and
+    median."""
+    from simple_distributed_machine_learning_tpu_torch.ops.paged_attention import (  # noqa: E501
+        paged_attention,
+    )
+    from simple_distributed_machine_learning_tpu_torch.serve import (
+        SimConfig,
+        simulate,
+    )
+    first_rid = getattr(target, "engine", target)._next_rid
+    rows = _record_ticks(target)
     paged_attention.launches = 0
-    rep = simulate(engine, SimConfig(**SERVE_SIM))
-    launches = paged_attention.launches
-    handles = [engine.requests[first_rid + i]
-               for i in range(SERVE_SIM["n_requests"])]
-    return (rep, metrics.summary(), handles, launches, decode_calls[0],
-            sum(tick_s) * 1e3 / len(tick_s))
+    try:
+        rep = simulate(target, SimConfig(**SERVE_SIM))
+    finally:
+        del target.step
+    ms = [t["ms"] for t in rows]
+    return dict(
+        report=rep, summary=target.metrics.summary(),
+        handles=[target.requests[first_rid + i]
+                 for i in range(SERVE_SIM["n_requests"])],
+        rows=rows, launches=paged_attention.launches,
+        decode=sum(t["decode"] for t in rows),
+        tick_ms=sum(ms) / len(ms), tick_ms_p50=statistics.median(ms))
 
 
 def phase_serve(stages, cfg, record: dict) -> tuple[dict, list]:
@@ -892,8 +988,9 @@ def phase_serve(stages, cfg, record: dict) -> tuple[dict, list]:
         key_data,
     )
     n_params = sum(p.numel() for p in stages[0].params.parameters())
-    rep, s, handles, launches, ticks, tick_ms = _serve(stages, cfg,
-                                                       "fused")
+    run = _serve(_warm_engine(stages, cfg, "fused"))
+    rep, s, handles = run["report"], run["summary"], run["handles"]
+    launches, ticks = run["launches"], run["decode"]
     print(f"chip_smoke: serve fused: {rep['completed']}/{rep['n_requests']} "
           f"requests, {s['tokens_generated']} tokens, "
           f"{s['tokens_per_sec']} tok/s, ttft p50/p95 {s['ttft_ms_p50']}/"
@@ -908,7 +1005,9 @@ def phase_serve(stages, cfg, record: dict) -> tuple[dict, list]:
           f"{launches == cfg.n_layers * ticks}")
     check(ticks > 0 and launches == cfg.n_layers * ticks,
           f"kernel launches {launches} != {cfg.n_layers} x {ticks} ticks")
-    drep, ds, dhandles, dlaunches, _, _ = _serve(stages, cfg, "dense")
+    drun = _serve(_warm_engine(stages, cfg, "dense"))
+    drep, ds, dhandles = drun["report"], drun["summary"], drun["handles"]
+    dlaunches = drun["launches"]
     check(drep["completed"] == SERVE_SIM["n_requests"] and dlaunches == 0,
           "the dense engine did not complete (or launched the kernel)")
     print(f"chip_smoke: serve dense: {ds['tokens_per_sec']} tok/s, tpot "
@@ -934,7 +1033,8 @@ def phase_serve(stages, cfg, record: dict) -> tuple[dict, list]:
           "greedy streams through the kernel differ from the dense path's "
           "or the solo decoder's")
     serve = dict(summary=s, dense_summary=ds, launches=launches,
-                 decode_ticks=ticks, tick_ms=tick_ms, greedy=len(greedy),
+                 decode_ticks=ticks, tick_ms=run["tick_ms"],
+                 tick_ms_p50=run["tick_ms_p50"], greedy=len(greedy),
                  greedy_equal_dense=len(same_dense),
                  greedy_equal_solo=len(same_solo), n_params=n_params,
                  wall_s=rep["wall_s"], dense_wall_s=drep["wall_s"])
@@ -1062,9 +1162,10 @@ def phase_spec_serve(stages, cfg, serve: dict, plain_handles: list,
     # (b) the CLI's draft on phase 3's trace
     dcfg = dataclasses.replace(cfg, n_layers=max(1, cfg.n_layers // 2))
     dstages = make_gpt_stages(fold_in(0, 1), dcfg, 1)[0]
-    rep, bs_, handles, launches, calls, tick_ms = _serve(
-        stages, cfg, "fused", draft_stages=dstages, draft_cfg=dcfg,
-        spec_k=SPEC_K)
+    run = _serve(_warm_engine(stages, cfg, "fused", draft_stages=dstages,
+                              draft_cfg=dcfg, spec_k=SPEC_K))
+    rep, bs_, handles = run["report"], run["summary"], run["handles"]
+    launches, calls, tick_ms = run["launches"], run["decode"], run["tick_ms"]
     greedy = [i for i, h in enumerate(handles) if h.temperature == 0.0]
     same = sum(handles[i].tokens == plain_handles[i].tokens for i in greedy)
     ps = serve["summary"]
@@ -1191,6 +1292,327 @@ def phase_profile(stages, cfg, record: dict, n_ticks: int = 20) -> None:
     for k in prof_rec["top"]:
         print(f"chip_smoke:   {k['us_per_tick']:9.2f} us/tick "
               f"{k['calls_per_tick']:6.1f} calls  {k['name']}")
+
+
+# -- phase 8: serving under faults ---------------------------------------------
+
+def _scenario_run(name: str, stages, cfg, kernel: str, outdir: str):
+    """One scenario through the port's ``run_scenario`` on the card with
+    ``attn_kernel=kernel`` and ``outdir``: ``(report, handles, tick
+    rows)``, the rows ``_record_ticks``'s over every engine the run
+    builds."""
+    from simple_distributed_machine_learning_tpu_torch.resilience import (
+        scenarios,
+    )
+    seen: dict = {}
+    inner = scenarios.simulate
+
+    def simulate(target, sim, **kw):
+        seen["rows"] = _record_ticks(target)
+        try:
+            return inner(target, sim, **kw)
+        finally:
+            del target.step
+            seen["handles"] = dict(target.requests)
+
+    scenarios.simulate = simulate
+    try:
+        r = scenarios.run_scenario(name, stages, cfg, device="cuda",
+                                   attn_kernel=kernel, outdir=outdir)
+    finally:
+        scenarios.simulate = inner
+    return r, seen["handles"], seen["rows"]
+
+
+def phase_scenarios(record: dict) -> int:
+    """(a) The six one-engine SLO scenarios through the port's
+    ``run_scenario`` on the card, at the virtual clock, on
+    ``SCENARIO_CFG`` (2 stages, random weights from seed 0), each run
+    twice: attending through K4, and through the plain gather-then-dense
+    path. The K4 run's counts, per-class TTFT p95 and overload-shed alert
+    ticks must equal ``SCENARIO_PINS`` (``journal_bytes`` depends on the
+    weights and is only printed), and K4 must launch ``n_layers`` times
+    in every tick for each decode call in it. The pins hold on any
+    weights, so what K4 computed is held by the dense run instead: the
+    same greedy streams, and the same journal line for line. Returns K4's
+    launches."""
+    import tempfile
+
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        GPTConfig,
+        make_gpt_stages,
+    )
+    cfg = GPTConfig(**SCENARIO_CFG)
+    stages = make_gpt_stages(0, cfg, 2)[0]
+    rec: dict = {}
+    record["scenarios"] = rec
+    launches = 0
+    for name, pin in SCENARIO_PINS.items():
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-scen-") as d:
+            runs = {k: _scenario_run(name, stages, cfg, k,
+                                     os.path.join(d, k))
+                    for k in ("fused", "dense")}
+            journals = {}
+            for k in runs:
+                path = os.path.join(d, k, f"journal-{name}.jsonl")
+                if os.path.exists(path):
+                    with open(path) as f:
+                        journals[k] = f.read().splitlines()
+        r, handles, rows = runs["fused"]
+        _, dhandles, drows = runs["dense"]
+        got = (r["completed"], r["shed"], r.get("restarts"),
+               r.get("preemptions", 0),
+               {c: b["ttft_ms_p95"] for c, b in r["per_class"].items()})
+        alerts = [(t["tick"], t["from"], t["to"])
+                  for t in r.get("slo_alerts", {}).get("transitions", [])]
+        decode = sum(t["decode"] for t in rows)
+        k4 = sum(t["launches"] for t in rows)
+        bad_ticks = _off_ticks(rows, cfg.n_layers)
+        greedy = [rid for rid, h in handles.items() if h.temperature == 0.0]
+        same = [rid for rid in greedy if rid in dhandles
+                and list(handles[rid].tokens) == list(dhandles[rid].tokens)]
+        same_journal = (journals.get("fused") == journals.get("dense")
+                        if journals else None)
+        launches += k4
+        rec[name] = dict(completed=got[0], shed=got[1], restarts=got[2],
+                         preemptions=got[3], ttft_p95_vms=got[4],
+                         shed_by_reason=r.get("shed_by_reason"),
+                         alerts=alerts, slo_ok=r["slo_ok"],
+                         journal_bytes=r.get("journal_bytes"),
+                         launches=k4, decode_calls=decode,
+                         dense_launches=sum(t["launches"] for t in drows),
+                         dense_decode_calls=sum(t["decode"] for t in drows),
+                         greedy=len(greedy), greedy_equal_dense=len(same),
+                         journal_lines=len(journals.get("fused", [])),
+                         journal_equal_dense=same_journal,
+                         seconds=time.perf_counter() - t0)
+        print(f"chip_smoke: scenario {name}: {got[0]} completed, {got[1]} "
+              f"shed {r.get('shed_by_reason', {})}, restarts {got[2]}, "
+              f"preemptions {got[3]}, ttft p95 {got[4]} vms, alerts "
+              f"{alerts}, slo_ok {r['slo_ok']}, journal_bytes "
+              f"{r.get('journal_bytes')}; K4 launches {k4} = "
+              f"{cfg.n_layers} x {decode} decode calls "
+              f"({len(bad_ticks)} ticks off); against the dense run: "
+              f"greedy streams {len(same)}/{len(greedy)}, journal "
+              f"{rec[name]['journal_lines']} lines equal {same_journal} "
+              f"({rec[name]['seconds']:.2f} s)")
+        check(got == pin and r["slo_ok"],
+              f"scenario {name}: {got} (slo_ok {r['slo_ok']}) != pin {pin}")
+        want = SCENARIO_ALERTS.get(name, [])
+        check(alerts == want, f"scenario {name}: alerts {alerts} != {want}")
+        check(decode > 0 and not bad_ticks,
+              f"scenario {name}: K4 launches {k4} over {decode} decode "
+              f"calls; ticks {bad_ticks[:8]} launch other than "
+              f"{cfg.n_layers} per decode call")
+        check(rec[name]["dense_launches"] == 0
+              and rec[name]["dense_decode_calls"] > 0,
+              f"scenario {name}: the dense run launched K4 "
+              f"{rec[name]['dense_launches']} times over "
+              f"{rec[name]['dense_decode_calls']} decode calls")
+        check(len(greedy) >= 4 and len(same) == len(greedy),
+              f"scenario {name}: {len(same)}/{len(greedy)} greedy streams "
+              f"through K4 equal the dense run's")
+        if name in ("crash-serve", "overload-shed"):
+            check(same_journal is True and rec[name]["journal_lines"] > 0,
+                  f"scenario {name}: the journal through K4 differs from "
+                  f"the dense run's")
+    check(rec["overload-shed"]["shed_by_reason"] == {
+        "backpressure": 5, "class": 18, "deadline": 2},
+        f"overload-shed sheds {rec['overload-shed']['shed_by_reason']}")
+    rec["launches"] = launches
+    return launches
+
+
+def _drill(stages, cfg, plain_handles: list, degrade_after=None) -> dict:
+    """Phase 3's trace (``_serve``) through ``ServeSupervisor(
+    engine_factory(..., attn_kernel="fused"))`` with an fsync'd journal in
+    a temporary directory, under ``DRILL_CHAOS``. Adds to ``_serve``'s
+    record the crash: the tick rows before and after it, the memory
+    allocated around it, the restart cost and the journal's host time per
+    append; and how many streams equal phase 3's ``plain_handles``."""
+    import tempfile
+
+    from simple_distributed_machine_learning_tpu_torch.resilience import (
+        faults,
+    )
+    from simple_distributed_machine_learning_tpu_torch.serve import (
+        ServeMetrics,
+        ServeSupervisor,
+        engine_factory,
+    )
+    metrics = ServeMetrics()
+    appends: list[float] = []
+    token_t: list[float] = []
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-journal-") as d:
+        sup = ServeSupervisor(
+            engine_factory(stages, cfg, attn_kernel="fused",
+                           n_slots=SERVE_SLOTS, block_size=SERVE_BLOCK,
+                           device="cuda", metrics=metrics),
+            os.path.join(d, "journal.jsonl"), metrics=metrics,
+            degrade_after=degrade_after)
+        check(sup.journal.sync, "the drill's journal must fsync")
+        kc = sup.engine.pool.kc
+        pool_bytes = 2 * kc.numel() * kc.element_size()
+        del kc
+        append = sup.journal.append
+
+        def timed_append(ev):
+            t0 = time.perf_counter()
+            append(ev)
+            appends.append(time.perf_counter() - t0)
+            if ev["ev"] == "tok":
+                token_t.append(time.perf_counter())
+
+        sup.journal.append = timed_append
+        faults.install(faults.FaultPlan.parse(DRILL_CHAOS))
+        try:
+            run = _serve(sup)
+        finally:
+            faults.uninstall()
+            sup.close()
+            # the wrapper closes over the supervisor: unhook it, so the
+            # supervisor and its engine free once this drill returns
+            del sup.journal.append
+    rows = run["rows"]
+    crash = [i for i, t in enumerate(rows) if t["crashed"]]
+    check(len(crash) == 1, f"drill: {len(crash)} crashed ticks, want 1")
+    ci = crash[0]
+    t_crash = rows[ci]["t0"]
+    next_tok = [t for t in token_t if t > t_crash]
+    s = run["summary"]
+    handles = run["handles"]
+    greedy = [i for i, h in enumerate(plain_handles)
+              if h.temperature == 0.0]
+    return dict(
+        completed=run["report"]["completed"], restarts=sup.restarts,
+        degraded=s.get("degraded"), layout_after=sup.engine.kv_layout,
+        recovered=s.get("recovered_requests"), summary=s,
+        launches=run["launches"],
+        before=rows[:ci], after=rows[ci + 1:],
+        decode_ticks_before=sum(t["decode"] for t in rows[:ci]),
+        launches_before=sum(t["launches"] for t in rows[:ci]),
+        decode_ticks_after=sum(t["decode"] for t in rows[ci + 1:]),
+        launches_after=sum(t["launches"] for t in rows[ci + 1:]),
+        crash_tick=ci, pool_bytes=pool_bytes,
+        mem_before=rows[ci - 1]["mem"], mem_after=rows[ci]["mem"],
+        restart_ms=(next_tok[0] - t_crash) * 1e3 if next_tok else None,
+        crash_tick_ms=rows[ci]["ms"], tick_ms_p50=run["tick_ms_p50"],
+        journal_records=len(appends),
+        journal_append_ms_mean=sum(appends) * 1e3 / len(appends),
+        journal_ms_total=sum(appends) * 1e3,
+        greedy=len(greedy),
+        greedy_equal=sum(handles[i].tokens == plain_handles[i].tokens
+                         for i in greedy),
+        sampled_equal=sum(handles[i].tokens == plain_handles[i].tokens
+                          for i in range(len(handles)) if i not in greedy))
+
+
+def _off_ticks(rows: list[dict], per_call: int) -> list[int]:
+    """The ticks whose K4 launches are not ``per_call`` per decode call."""
+    return [i for i, t in enumerate(rows)
+            if t["launches"] != per_call * t["decode"]]
+
+
+def phase_serve_faults(stages, cfg, serve: dict, plain_handles: list,
+                       record: dict) -> int:
+    """Phase 8 (module docstring): the six scenarios at the virtual clock
+    (a), the wall-clock crash drill at full width (b), the degraded
+    rebuild (c) and the CLI's chaos and scenario runs (d). Returns K4's
+    launches over (a)-(c)."""
+    rec: dict = {}
+    record["serve_faults"] = rec
+    launches = phase_scenarios(record)
+    n_layers = cfg.n_layers
+    ps = serve["summary"]
+
+    # (b) the crash drill
+    b = _drill(stages, cfg, plain_handles)
+    rec["drill"] = {k: v for k, v in b.items()
+                  if k not in ("summary", "before", "after")}
+    bs_ = b["summary"]
+    print(f"chip_smoke: drill (b) {DRILL_CHAOS!r} on phase 3's trace: "
+          f"{b['completed']}/{SERVE_SIM['n_requests']} served, "
+          f"{b['restarts']} restart at tick {b['crash_tick']}, "
+          f"{b['recovered']} recovered; restart cost {b['restart_ms']} ms "
+          f"(crash tick {b['crash_tick_ms']:.3f} ms); "
+          f"{bs_['tokens_per_sec']} tok/s against phase 3's "
+          f"{ps['tokens_per_sec']}; tick p50 {b['tick_ms_p50']:.3f} ms "
+          f"against {serve['tick_ms_p50']:.3f}; ttft p50/p95 "
+          f"{bs_['ttft_ms_p50']}/{bs_['ttft_ms_p95']} ms, tpot p50/p95 "
+          f"{bs_['tpot_ms_p50']}/{bs_['tpot_ms_p95']} ms; journal "
+          f"{b['journal_records']} fsync'd records, "
+          f"{b['journal_append_ms_mean']:.4f} ms each, "
+          f"{b['journal_ms_total']:.1f} ms in all; K4 launches "
+          f"{b['launches_before']} = {n_layers} x "
+          f"{b['decode_ticks_before']} before the crash, "
+          f"{b['launches_after']} = {n_layers} x "
+          f"{b['decode_ticks_after']} after; memory allocated "
+          f"{b['mem_before']} before the crash, {b['mem_after']} after the "
+          f"rebuild (pool {b['pool_bytes']}); greedy streams equal to "
+          f"phase 3's {b['greedy_equal']}/{b['greedy']} (sampled "
+          f"{b['sampled_equal']}/{SERVE_SIM['n_requests'] - b['greedy']})")
+    check(b["completed"] == SERVE_SIM["n_requests"] and b["restarts"] == 1
+          and b["recovered"] > 0,
+          f"drill: {b['completed']} served, {b['restarts']} restarts, "
+          f"{b['recovered']} recovered")
+    check(b["greedy"] >= 2 and b["greedy_equal"] == b["greedy"],
+          "drill: greedy streams differ from phase 3's")
+    for side in ("before", "after"):
+        off = _off_ticks(b[side], n_layers)
+        check(b[f"decode_ticks_{side}"] > 0 and not off,
+              f"drill: K4 launches other than {n_layers} per decode call "
+              f"in ticks {off[:8]} of the {len(b[side])} {side} the crash")
+    check(b["mem_after"] - b["mem_before"] <= b["pool_bytes"] // 2,
+          f"drill: {b['mem_after'] - b['mem_before']} more bytes allocated "
+          f"after the rebuild: the dead engine's pool "
+          f"({b['pool_bytes']}) is still alive")
+    check(b["restart_ms"] is not None, "drill: no token after the crash")
+
+    # (c) the degraded rebuild
+    c = _drill(stages, cfg, plain_handles, degrade_after=1)
+    rec["degraded"] = {k: v for k, v in c.items()
+                  if k not in ("summary", "before", "after")}
+    print(f"chip_smoke: drill (c) degrade_after=1: "
+          f"{c['completed']}/{SERVE_SIM['n_requests']} served, rebuilt "
+          f"on kv_layout={c['layout_after']!r}, degraded {c['degraded']}, "
+          f"{c['recovered']} recovered, restart cost {c['restart_ms']} ms, "
+          f"{c['summary']['tokens_per_sec']} tok/s; K4 launches "
+          f"{c['launches_before']} = {n_layers} x "
+          f"{c['decode_ticks_before']} before, {c['launches_after']} after "
+          f"({c['decode_ticks_after']} dense decode ticks); greedy streams "
+          f"equal to phase 3's {c['greedy_equal']}/{c['greedy']}")
+    check(c["completed"] == SERVE_SIM["n_requests"] and c["restarts"] == 1
+          and c["degraded"] == 1 and c["layout_after"] == "dense",
+          f"degraded drill: {c['completed']} served, restarts "
+          f"{c['restarts']}, degraded {c['degraded']}, layout "
+          f"{c['layout_after']}")
+    check(c["greedy_equal"] == c["greedy"],
+          "degraded drill: greedy streams differ from phase 3's")
+    off = _off_ticks(c["before"], n_layers)
+    check(c["decode_ticks_before"] > 0 and not off
+          and c["decode_ticks_after"] > 0 and c["launches_after"] == 0,
+          f"degraded drill: K4 launches {c['launches_before']} / "
+          f"{c['launches_after']}, other than {n_layers} per decode call "
+          f"in ticks {off[:8]} before the crash")
+
+    # (d) the CLI
+    lines = _cli(["--model", "gpt", "--serve-sim", "8", "--serve-chaos",
+                  "engine-crash@serve.tick=6"])
+    sup_line = [ln for ln in lines
+                if ln.startswith("| serve: supervisor running, 1 restart(s)")]
+    print(f"chip_smoke: CLI --serve-sim 8 --serve-chaos "
+          f"engine-crash@serve.tick=6: {lines[2:4]}")
+    check(len(sup_line) == 1 and any(
+        ln.startswith("| serve: 8/8 requests completed") for ln in lines),
+        f"the CLI's chaos run printed {lines}")
+    scen = _cli(["--scenario", "crash-serve"])
+    print(f"chip_smoke: CLI --scenario crash-serve: {scen}")
+    check(scen[-1] == "| scenario: SLO ATTAINED"
+          and "ttft p95 23.16 vms" in scen[1],
+          f"the CLI's crash-serve scenario printed {scen}")
+    rec["cli"] = lines + scen
+    return launches + b["launches"] + c["launches"]
 
 
 # -- phases 5-6: training ------------------------------------------------------
@@ -1811,6 +2233,8 @@ def main() -> int:
         serve, plain_handles = phase_serve(stages, cfg, record)
         spec = phase_spec_serve(stages, cfg, serve, plain_handles, record)
         phase_profile(stages, cfg, record)
+        fault_launches = phase_serve_faults(stages, cfg, serve,
+                                            plain_handles, record)
         del stages
         train = phase_train("gpt_bf16", TRAIN_ROWS["gpt_bf16"], record)
         phase_train("gpt", TRAIN_ROWS["gpt"], record)
@@ -1827,8 +2251,9 @@ def main() -> int:
         "source": f"{PORT}/ops/csrc/paged_attention.cu",
         "replaces": "simple_distributed_machine_learning_tpu/ops/"
                     "paged_attention.py:67",
-        # phase 3's decode ticks and phase 3b's speculative verify steps
-        "launches": serve["launches"] + spec["launches"],
+        # phase 3's decode ticks, phase 3b's speculative verify steps and
+        # phase 8's scenarios and drills
+        "launches": serve["launches"] + spec["launches"] + fault_launches,
         "max_abs_err": max(v["max_abs_err"] for v in variants),
         "ms": main_v["ms"],
         "plain_ms": main_v["plain_ms"],

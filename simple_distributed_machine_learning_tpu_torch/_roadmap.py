@@ -10,7 +10,8 @@ def not_ported(what: str, item: str) -> NotImplementedError:
         f"(ROADMAP.md, Queue A: {item})")
 
 
-SERVE_ROBUSTNESS = "item 4, serving robustness"
+SERVE_TRACING = "item 4b, request tracing and the SLO reports"
+SERVE_FLEET = "item 4c, the fleet and training resilience"
 SERVE_EXTENSIONS = "item 5, serving extensions"
 PARALLEL_AXES = "item 6, remaining parallel axes"
 ANALYSIS = "item 7, analysis"

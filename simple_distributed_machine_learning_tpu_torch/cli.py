@@ -12,17 +12,25 @@ with ``--attn flash`` through the hand-written flash kernels and
 --serve-sim N`` serves N simulated requests through the port's
 ``InferenceEngine`` (the paged pool and its CUDA attention kernel), with
 ``--serve-spec-k K`` speculatively: a draft of half the layers proposes K
-tokens per slot per tick and the target verifies them in one pass.
+tokens per slot per tick and the target verifies them in one pass. With
+``--serve-chaos SPEC`` or ``--serve-deadline-ms D`` the engine runs
+behind the serve supervisor: a journaled, crash-restartable engine with
+deadline shedding (``--serve-max-restarts`` bounds its rebuilds), and
+``--telemetry-dir`` keeps the journal, the serve record and the
+post-mortem bundles. SIGTERM/SIGINT during ``--serve-sim`` stop admission
+and drain what is in flight. ``--scenario NAME`` runs one of the six
+one-engine SLO scenarios on the virtual clock (``--scenario list`` names
+them).
 
 One flag is the port's own: ``--device`` (default CUDA; the run raises
 without it unless ``--device cpu`` asks for the CPU). Every other flag of
 the JAX parser is accepted; a flag whose path is not ported exits, when
-set, with one line naming its ROADMAP item (the serve supervisor, fleet,
-tracing, host-tier and adapter flags, scenarios, chaos, the sentinel,
-telemetry and profiling, the linter, and every
-parallel axis: ``--stages`` above 1, ``--dp/--tp/--sp/--ep/--experts``,
-``--world_size`` above 1). ``--microbatches`` is accepted and does not
-split the batch, as on the JAX package's one-device mesh.
+set, with one line naming its ROADMAP item (the fleet, tracing, host-tier
+and adapter flags, the fleet scenarios, training chaos, the sentinel,
+training telemetry and profiling, the linter, and every parallel axis:
+``--stages`` above 1, ``--dp/--tp/--sp/--ep/--experts``, ``--world_size``
+above 1). ``--microbatches`` is accepted and does not split the batch, as
+on the JAX package's one-device mesh.
 """
 
 from __future__ import annotations
@@ -141,10 +149,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "tokens per slot per tick, the target verifies "
                         "them in one batched step; 0 = plain decode, "
                         "K >= 2 speculates")
+    g.add_argument('--serve-chaos', type=str, default=None, metavar='SPEC',
+                   help="with --serve-sim: serve under a deterministic "
+                        "fault schedule through the crash-restartable "
+                        "serve supervisor, e.g. "
+                        "'engine-crash@serve.tick=5' (sites serve.tick "
+                        "and serve.admit)")
+    g.add_argument('--serve-deadline-ms', type=float, default=0.0,
+                   metavar='D',
+                   help="with --serve-sim: per-request completion deadline "
+                        "in ms, enforced by the serve supervisor (0 = no "
+                        "deadline)")
+    g.add_argument('--serve-max-restarts', type=int, default=3,
+                   help="with --serve-chaos: engine-rebuild budget")
     for flag, typ, default in (
-            ('--serve-tp', int, 1), ('--serve-chaos', str, None),
-            ('--serve-deadline-ms', float, 0.0),
-            ('--serve-max-restarts', int, 3),
+            ('--serve-tp', int, 1),
             ('--serve-replicas', int, 0), ('--serve-autoscale', str, None),
             ('--serve-prefill-replicas', int, 0),
             ('--serve-host-blocks', int, 0),
@@ -175,7 +194,9 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument('--profile', type=str, default=None, metavar='DIR',
                    help="profiler trace (ROADMAP item 6)")
     g.add_argument('--telemetry-dir', type=str, default=None, metavar='DIR',
-                   help="run telemetry (ROADMAP item 6)")
+                   help="with --serve-sim/--scenario: the serve record, "
+                        "journal and post-mortem bundles (training "
+                        "telemetry: ROADMAP item 6)")
     g.add_argument('--telemetry-every', type=int, default=1, metavar='N',
                    help="run telemetry (ROADMAP item 6)")
     g.add_argument('--max-steps-per-epoch', type=int, default=None,
@@ -187,14 +208,17 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument('--sentinel-snapshot-every', type=int, default=4,
                    metavar='K', help="self-healing training (ROADMAP item 6)")
     g.add_argument('--chaos', type=str, default=None, metavar='SPEC',
-                   help="fault-injection drill (ROADMAP item 4)")
+                   help="training fault-injection drill (ROADMAP item 4c)")
     g.add_argument('--chaos-stages', type=str, default=None,
-                   metavar='S1,S2', help="fault-injection drill (ROADMAP "
-                                         "item 4)")
+                   metavar='S1,S2', help="training fault-injection drill "
+                                         "(ROADMAP item 6)")
     g.add_argument('--chaos-max-restarts', type=int, default=3,
-                   help="fault-injection drill (ROADMAP item 4)")
+                   help="training fault-injection drill (ROADMAP item 4c)")
     g.add_argument('--scenario', type=str, default=None, metavar='NAME',
-                   help="SLO-gated serving scenario (ROADMAP item 4)")
+                   help="run one SLO-gated serving scenario on the "
+                        "virtual clock; exits nonzero unless every class "
+                        "attains its SLOs and every request is accounted "
+                        "for. NAME 'list' prints the catalog")
     g.add_argument('--dryrun', type=int, default=0, metavar='N',
                    help="smoke mode: train only N batches of one epoch, "
                         "then the normal eval")
@@ -209,39 +233,32 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-# the serve flags of the plain --serve-sim path, which this port runs
-_SERVE_PORTED = {"serve_sim", "serve_rate", "serve_slots", "serve_max_new",
-                 "serve_block_size", "serve_prefill_chunk",
-                 "serve_shared_prefix", "serve_spec_k"}
-_SERVE_EXTENSION_FLAGS = {"serve_host_blocks", "serve_prefetch_ticks",
-                          "serve_adapters", "serve_adapter_rank"}
 # flags whose paths are not ported: set to anything but the default, each
-# exits naming its ROADMAP item
-_UNPORTED = ({"scenario": _roadmap.SERVE_ROBUSTNESS,
-              "chaos": _roadmap.SERVE_ROBUSTNESS,
-              "chaos_stages": _roadmap.SERVE_ROBUSTNESS,
-              "chaos_max_restarts": _roadmap.SERVE_ROBUSTNESS,
-              "lint": _roadmap.ANALYSIS, "lint_only": _roadmap.ANALYSIS}
+# exits naming its ROADMAP item. The serve flags not named here run:
+# the plain --serve-sim path and the supervisor's --serve-chaos,
+# --serve-deadline-ms and --serve-max-restarts
+_UNPORTED = ({"serve_trace": _roadmap.SERVE_TRACING}
+             | {k: _roadmap.SERVE_FLEET for k in (
+                 "serve_replicas", "serve_autoscale", "serve_route",
+                 "serve_prefill_replicas", "chaos", "chaos_max_restarts")}
+             | {k: _roadmap.SERVE_EXTENSIONS for k in (
+                 "serve_host_blocks", "serve_prefetch_ticks",
+                 "serve_adapters", "serve_adapter_rank")}
+             | {"lint": _roadmap.ANALYSIS, "lint_only": _roadmap.ANALYSIS}
              | {k: _roadmap.PARALLEL_AXES for k in (
                  "world_size", "dp", "tp", "sp", "ep", "experts", "overlap",
                  "remat", "sentinel", "sentinel_window",
                  "sentinel_snapshot_every", "telemetry_dir",
                  "telemetry_every", "profile", "peer_timeout",
-                 "heartbeat_port")})
+                 "heartbeat_port", "serve_tp", "chaos_stages")})
 
 
 def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
+    serving = args.serve_sim > 0 or args.scenario is not None
     for dest, value in vars(args).items():
-        if dest in _SERVE_PORTED:
-            item = None
-        elif dest == "serve_tp":
-            item = _roadmap.PARALLEL_AXES
-        elif dest.startswith("serve_"):
-            item = (_roadmap.SERVE_EXTENSIONS
-                    if dest in _SERVE_EXTENSION_FLAGS
-                    else _roadmap.SERVE_ROBUSTNESS)
-        else:
-            item = _UNPORTED.get(dest)
+        item = _UNPORTED.get(dest)
+        if dest == "telemetry_dir" and serving:
+            item = None      # the serve record, journal and bundles
         if item is not None and value != parser.get_default(dest):
             flag = "--" + (dest if dest == "world_size"
                            else dest.replace("_", "-"))
@@ -280,6 +297,9 @@ def _dispatch(args) -> None:
         raise SystemExit(f"--max-steps-per-epoch must be >= 1, got "
                          f"{args.max_steps_per_epoch}")
     device = resolve_device(args.device)
+    if args.scenario is not None:
+        _run_scenario(args, device)
+        return
     if args.serve_sim > 0:
         if args.model != "gpt":
             raise SystemExit("--serve-sim is only supported with "
@@ -518,6 +538,32 @@ def _check_serve_args(args) -> None:
     if args.serve_spec_k == 1 or args.serve_spec_k < 0:
         raise SystemExit(f"--serve-spec-k must be 0 (plain decode) or "
                          f">= 2, got {args.serve_spec_k}")
+    if args.serve_deadline_ms < 0:
+        raise SystemExit(f"--serve-deadline-ms must be >= 0 (0 = none), "
+                         f"got {args.serve_deadline_ms}")
+    if args.serve_max_restarts < 0:
+        raise SystemExit(f"--serve-max-restarts must be >= 0, got "
+                         f"{args.serve_max_restarts}")
+
+
+def _serve_plan(args):
+    """The parsed ``--serve-chaos`` schedule (None without one)."""
+    if not args.serve_chaos:
+        return None
+    from simple_distributed_machine_learning_tpu_torch.resilience import (
+        faults,
+    )
+    try:
+        plan = faults.FaultPlan.parse(args.serve_chaos)
+    except ValueError as e:
+        raise SystemExit(f"bad --serve-chaos spec: {e}") from None
+    if any(s.site == "fleet.tick" for s in plan.specs):
+        # only a fleet probes fleet.tick: the fault would never fire
+        raise SystemExit(
+            "--serve-chaos at site fleet.tick needs --serve-replicas "
+            "(a single engine never probes the fleet site, so the "
+            "fault would never fire)")
+    return plan
 
 
 def _run_serve(args, device) -> None:
@@ -527,10 +573,14 @@ def _run_serve(args, device) -> None:
     trains. The engine attends through the paged-attention kernel
     (``attn_kernel="fused"``; on the CPU, its plain version), where the
     JAX CLI keeps its engine's default gather-then-dense path: greedy
-    streams are equal either way. Exits 1 unless every request
-    completes."""
+    streams are equal either way. With --serve-chaos or
+    --serve-deadline-ms the engine runs behind the serve supervisor.
+    Exits 1 unless every submitted request completed or was structurally
+    shed."""
     import dataclasses
     import os
+    import signal
+    import tempfile
 
     from simple_distributed_machine_learning_tpu_torch.models.gpt import (
         GPTConfig,
@@ -539,13 +589,20 @@ def _run_serve(args, device) -> None:
     from simple_distributed_machine_learning_tpu_torch.ops.random import (
         fold_in,
     )
+    from simple_distributed_machine_learning_tpu_torch.resilience import (
+        faults,
+    )
     from simple_distributed_machine_learning_tpu_torch.serve import (
         InferenceEngine,
         ServeMetrics,
+        ServeSupervisor,
         SimConfig,
+        engine_factory,
         simulate,
     )
     _check_serve_args(args)
+    serve_plan = _serve_plan(args)
+    supervised = bool(args.serve_chaos or args.serve_deadline_ms)
     cfg = GPTConfig(vocab=256 if args.text_corpus else 128)
     longest = args.serve_shared_prefix + max(GPT_SERVE_PROMPTS)
     if longest + 1 > cfg.seq_len:
@@ -581,14 +638,36 @@ def _run_serve(args, device) -> None:
     else:
         print("| serve: fresh-initialized params"
               + (f" (no checkpoint at {ckpt})" if ckpt else ""))
-    metrics = ServeMetrics()
-    engine = InferenceEngine(
-        stages, cfg, params=params, n_slots=args.serve_slots,
+    metrics = ServeMetrics(outdir=args.telemetry_dir)
+    engine_kw = dict(
+        params=params, n_slots=args.serve_slots,
         block_size=args.serve_block_size,
         prefill_chunk=args.serve_prefill_chunk or None,
-        attn_kernel="fused",
-        metrics=metrics, draft_stages=draft_stages, draft_cfg=draft_cfg,
-        spec_k=args.serve_spec_k, device=device)
+        attn_kernel="fused", metrics=metrics, draft_stages=draft_stages,
+        draft_cfg=draft_cfg, spec_k=args.serve_spec_k, device=device)
+    tmpdir = None
+    if supervised:
+        if args.telemetry_dir:
+            journal_path = os.path.join(args.telemetry_dir,
+                                        "journal.jsonl")
+            if os.path.exists(journal_path):
+                os.unlink(journal_path)        # each --serve-sim run is fresh
+        else:
+            tmpdir = tempfile.TemporaryDirectory(prefix="sdml-serve-")
+            journal_path = os.path.join(tmpdir.name, "journal.jsonl")
+        engine = ServeSupervisor(
+            engine_factory(stages, cfg, **engine_kw), journal_path,
+            metrics=metrics, max_restarts=args.serve_max_restarts,
+            default_deadline_s=(args.serve_deadline_ms / 1e3
+                                if args.serve_deadline_ms else None),
+            postmortem_dir=args.telemetry_dir or None)
+        print(f"| serve: supervised (journal {journal_path}"
+              + (f", chaos {args.serve_chaos!r}" if args.serve_chaos
+                 else "")
+              + (f", deadline {args.serve_deadline_ms:g} ms"
+                 if args.serve_deadline_ms else "") + ")")
+    else:
+        engine = InferenceEngine(stages, cfg, **engine_kw)
     max_new = min(args.serve_max_new, cfg.seq_len - longest)
     if max_new < args.serve_max_new:
         print(f"| serve: --serve-max-new {args.serve_max_new} clamped to "
@@ -598,7 +677,31 @@ def _run_serve(args, device) -> None:
                     seed=args.seed, prompt_lens=GPT_SERVE_PROMPTS,
                     max_new_tokens=max_new,
                     shared_prefix_len=args.serve_shared_prefix)
-    report = simulate(engine, sim)
+    # graceful shutdown: SIGTERM/SIGINT stop admission, drain in-flight
+    # requests, flush metrics and journal, exit 0
+    stop = {"sig": None}
+
+    def _on_signal(signum, frame):
+        stop["sig"] = signum
+
+    old_handlers = {}
+    try:
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            old_handlers[sig] = signal.signal(sig, _on_signal)
+    except ValueError:
+        old_handlers = {}              # not the main thread: no handlers
+    if serve_plan is not None:
+        faults.install(serve_plan)
+    try:
+        report = simulate(engine, sim,
+                          should_stop=lambda: stop["sig"] is not None)
+    finally:
+        if serve_plan is not None:
+            faults.uninstall()
+        for sig, h in old_handlers.items():
+            signal.signal(sig, h)
+        if supervised:
+            engine.close()             # journal flushed + closed
     s = metrics.summary()
     print(f"| serve: {report['completed']}/{report['n_requests']} requests "
           f"completed, {s['tokens_generated']} tokens, "
@@ -606,19 +709,119 @@ def _run_serve(args, device) -> None:
           f"ttft p50/p95 {s['ttft_ms_p50']}/{s['ttft_ms_p95']} ms, "
           f"tpot p50/p95 {s['tpot_ms_p50']}/{s['tpot_ms_p95']} ms, "
           f"occupancy {s['slot_occupancy_mean']}")
-    print(f"| serve: paged pool {s['blocks_in_use']}/{s['blocks_total']} "
-          f"blocks in use ({s['blocks_cached']} cached), "
-          f"{s['kv_bytes_resident']} KV bytes resident, "
-          f"{s['prefix_hit_blocks']} prefix-share hits, "
-          f"{s['cow_copies']} CoW copies, "
-          f"prefill chunk p50/p95 {s['prefill_chunk_ms_p50']}/"
-          f"{s['prefill_chunk_ms_p95']} ms")
+    if supervised:
+        print(f"| serve: supervisor {engine.state}, "
+              f"{s.get('restarts', 0)} restart(s), "
+              f"{s.get('recovered_requests', 0)} recovered, "
+              f"{report['shed']} shed {s.get('shed_by_reason', {})}, "
+              f"journal {s.get('journal_bytes', 0)} bytes")
+        if engine.postmortems:
+            print(f"| serve: {len(engine.postmortems)} post-mortem "
+                  f"bundle(s): "
+                  f"{[os.path.basename(p) for p in engine.postmortems]}")
+    if report["stopped"]:
+        print(f"| serve: graceful shutdown on signal {stop['sig']} — "
+              f"admission stopped, {report['submitted']} submitted "
+              f"request(s) drained, metrics/journal flushed")
+    if "blocks_total" in s:
+        print(f"| serve: paged pool {s['blocks_in_use']}/"
+              f"{s['blocks_total']} blocks in use ({s['blocks_cached']} "
+              f"cached), {s['kv_bytes_resident']} KV bytes resident, "
+              f"{s['prefix_hit_blocks']} prefix-share hits, "
+              f"{s['cow_copies']} CoW copies, "
+              f"prefill chunk p50/p95 {s['prefill_chunk_ms_p50']}/"
+              f"{s['prefill_chunk_ms_p95']} ms")
     if args.serve_spec_k:
         print(f"| serve: tp {args.serve_tp}, spec_k {s.get('spec_k', 0)} "
               f"accept_rate {s.get('spec_accept_rate')} "
               f"({s.get('spec_accepted_tokens', 0)}/"
               f"{s.get('spec_proposed_tokens', 0)} draft tokens)")
-    if report["completed"] != report["n_requests"]:
+    if args.telemetry_dir:
+        metrics.emit(extra={"rate": sim.rate, "n_slots": args.serve_slots,
+                            "block_size": args.serve_block_size,
+                            "shared_prefix": args.serve_shared_prefix,
+                            "completed": report["completed"]})
+    if tmpdir is not None:
+        tmpdir.cleanup()
+    # success = every SUBMITTED request accounted for: completed, or (a
+    # deadline run) structurally shed; a graceful shutdown judges only
+    # what was admitted before the signal
+    expected = (report["submitted"] if report["stopped"]
+                else report["n_requests"])
+    if report["completed"] + report["shed"] != expected:
+        raise SystemExit(1)
+
+
+def _run_scenario(args, device) -> None:
+    """--scenario NAME: one SLO-gated serving scenario
+    (``resilience/scenarios.py``) on a fresh GPT build, attending through
+    the paged-attention kernel; exits nonzero unless every gated class
+    attains its targets and every request is accounted for."""
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        GPTConfig,
+        make_gpt_stages,
+    )
+    from simple_distributed_machine_learning_tpu_torch.resilience.scenarios import (  # noqa: E501
+        SCENARIOS,
+        UNPORTED_SCENARIOS,
+        run_scenario,
+    )
+    if args.scenario == "list":
+        for sc in SCENARIOS.values():
+            print(f"| {sc.name}: {sc.description}")
+        return
+    if args.scenario in UNPORTED_SCENARIOS:
+        raise SystemExit(str(_roadmap.not_ported(
+            f"--scenario {args.scenario}",
+            UNPORTED_SCENARIOS[args.scenario])))
+    if args.scenario not in SCENARIOS:
+        raise SystemExit(
+            f"unknown --scenario {args.scenario!r}; available: "
+            f"{', '.join(sorted(SCENARIOS))} (or 'list')")
+    if args.serve_sim > 0:
+        raise SystemExit("--scenario runs alone (drop --serve-sim/--chaos)")
+    cfg = GPTConfig()
+    stages = make_gpt_stages(args.seed, cfg, 1, device)[0]
+    report = run_scenario(args.scenario, stages, cfg,
+                          outdir=args.telemetry_dir, device=device,
+                          attn_kernel="fused")
+    print(f"| scenario {report['scenario']} ({report['scheduler']}"
+          + (", supervised" if report.get("supervised") else "") + "): "
+          f"{report['completed']}/{report['n_requests']} completed, "
+          f"{report['shed']} shed, "
+          f"{report.get('preemptions', 0)} preemptions, "
+          + (f"{report['restarts']} restart(s), "
+             if report.get("supervised") else "")
+          + f"faults fired: "
+          f"{report.get('faults', {}).get('total_fired', 0)}")
+    for cls, att in sorted(report["slo"].items()):
+        parts = []
+        if "ttft_attainment" in att:
+            a = att["ttft_attainment"]
+            parts.append(f"ttft p95 {att['ttft_ms_p95']} vms vs SLO "
+                         f"{att['ttft_slo_ms']} "
+                         f"({'-' if a is None else round(a, 3)})")
+        if "tpot_attainment" in att:
+            a = att["tpot_attainment"]
+            parts.append(f"tpot p95 {att['tpot_ms_p95']} vms vs SLO "
+                         f"{att['tpot_slo_ms']} "
+                         f"({'-' if a is None else round(a, 3)})")
+        print(f"| scenario:   {cls} "
+              f"[{'OK' if att['ok'] else 'VIOLATED'}] " + "; ".join(parts))
+    sa = report.get("slo_alerts")
+    if sa:
+        for tr in sa["transitions"]:
+            print(f"| scenario:   alert {tr['alert']} {tr['from']} -> "
+                  f"{tr['to']} @tick {tr['tick']} (burn fast/slow "
+                  f"{tr.get('burn_fast', 0)}/{tr.get('burn_slow', 0)})")
+        if not sa["transitions"]:
+            print("| scenario:   alerts: no burn-rate transitions "
+                  "(error budget never breached)")
+    if report.get("postmortem_bundles"):
+        print(f"| scenario: {report['postmortem_bundles']} post-mortem "
+              f"bundle(s) under {args.telemetry_dir}")
+    print(f"| scenario: SLO {'ATTAINED' if report['slo_ok'] else 'MISSED'}")
+    if not report["slo_ok"]:
         raise SystemExit(1)
 
 

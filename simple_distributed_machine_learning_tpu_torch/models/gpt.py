@@ -669,7 +669,7 @@ def make_cached_decoder(stages, cfg: GPTConfig, prompt_len: int, n_new: int,
     return decode
 
 
-# -- dense slot-row programs (the speculative draft's pool) ------------------
+# -- dense slot-row programs (the degraded target's and the draft's pool) ----
 
 def _validate_slot_build(stages, cfg: GPTConfig, max_len: int, caller: str,
                          cache_dtype=None) -> None:
@@ -765,6 +765,43 @@ def _slot_decode_fwd(blocks, embed, head, kc, vc, toks, pos, H):
     for li, bp in enumerate(blocks):
         h = _dense_block_step_slots(bp, h, li, kc, vc, pos, H)
     return kc, vc, _head_logprobs(head, h[:, 0])
+
+
+def make_slot_decode_step(stages, cfg: GPTConfig, max_len: int,
+                          cache_dtype=None, mesh=None, adapters: bool = False,
+                          device=None):
+    """Serving decode tick over a dense slot pool: ``step(params, kc, vc,
+    toks [S], pos [S], key_data [S, 2], temps [S], top_ks [S], top_ps
+    [S]) -> (kc, vc, next_toks [S], next_key_data [S, 2])``.
+
+    ONE batched token step over ALL slots: each slot consumes its carried
+    token at its own position, lands its K/V row in place, attends its
+    masked cache row and samples with its own params and key stream.
+    Inactive slots compute garbage the engine discards; their stale
+    writes are invisible by construction (``serve/slots.py``). The
+    degraded rebuild of the serve supervisor decodes with it."""
+    _validate_slot_build(stages, cfg, max_len, "make_slot_decode_step",
+                         cache_dtype)
+    if mesh is not None:
+        raise _roadmap.not_ported("make_slot_decode_step: tensor-parallel "
+                                  "serving (mesh)", _roadmap.PARALLEL_AXES)
+    if adapters:
+        raise _roadmap.not_ported("make_slot_decode_step: LoRA adapters",
+                                  _roadmap.SERVE_EXTENSIONS)
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def step(params, kc, vc, toks, pos, key_data, temps, top_ks, top_ps):
+        embed, blocks, head = _merged_stage_trees(params)
+        kc, vc, rows = _slot_decode_fwd(
+            blocks, embed, head, kc, vc, _on(toks, dev, torch.int64),
+            _on(pos, dev, torch.int64), cfg.n_heads)
+        toks2, kd2 = _sample_dyn(rows, _on(key_data, dev, torch.int64),
+                                 *_sampling_tensors(rows.shape[0], temps,
+                                                    top_ks, top_ps, dev))
+        return kc, vc, toks2, kd2
+
+    return step
 
 
 # -- paged serving programs ----------------------------------------------------

@@ -1,0 +1,416 @@
+"""The serving scenario suite: SLO-gated, deterministic load + fault runs.
+
+Port of ``resilience/scenarios.py`` for the six one-engine scenarios. A
+*scenario* bundles one traffic shape (``serve/simulator.py``: arrival
+pattern + multi-tenant class mix with per-class TTFT/TPOT SLOs), one
+engine configuration (slots, blocks, chunking, scheduler policy) and
+optionally one fault schedule (``resilience/faults.py``).
+:func:`run_scenario` drives it through the engine (or the serve
+supervisor) and asserts SLO attainment from the telemetry registry: the
+run passes only when every gated class attains its SLOs and every request
+is accounted for.
+
+Determinism: scenarios run on a :class:`VirtualClock` — every clock read
+advances simulated time by a fixed quantum and ``sleep`` advances it by
+the requested amount, so latencies measure *scheduling structure* (ticks
+queued, prefill chunks, preemptions, injected stalls), not host or device
+speed. The engine, supervisor, metrics and simulator of this package read
+the clock at exactly the JAX package's points, so a scenario's counts,
+per-class TTFT quantiles and alert ticks equal the JAX package's on any
+weights and any device (no traffic class sets an EOS). SLO targets are
+virtual milliseconds.
+
+=================== =====================================================
+``steady``           single interactive class, homogeneous Poisson, FCFS
+``burst-interactive`` bursty arrivals, interactive (priority 2) vs batch
+                     (priority 0); priority scheduling with prefill
+                     preemption protects interactive TTFT
+``multi-tenant``     interactive/standard/batch over a diurnal cycle
+``burst-slow-tick``  burst-interactive's load with injected slow-tick
+                     stalls
+``crash-serve``      steady traffic with an injected ``engine-crash``: the
+                     serve supervisor recovers every in-flight request
+                     from the journal (gate: all complete AND >= 1
+                     restart happened)
+``overload-shed``    a sustained burst above capacity with per-class hard
+                     deadlines: the supervisor sheds expired and
+                     over-budget work so the interactive class keeps its
+                     SLO (gate: every request completed or structurally
+                     shed)
+=================== =====================================================
+
+The JAX package's fleet scenarios (ROADMAP.md, Queue A, item 4c) and its
+host-tier and adapter scenarios (item 5) raise naming their items, as do
+``run_scenario``'s ``route``, ``prefill_replicas``, ``host_cache_blocks``
+(the same items) and ``trace`` (item 4b).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+from simple_distributed_machine_learning_tpu_torch import _roadmap
+from simple_distributed_machine_learning_tpu_torch.resilience import faults
+from simple_distributed_machine_learning_tpu_torch.serve.metrics import (
+    ServeMetrics,
+)
+from simple_distributed_machine_learning_tpu_torch.serve.scheduler import (
+    FCFSScheduler,
+    PriorityScheduler,
+)
+from simple_distributed_machine_learning_tpu_torch.serve.simulator import (
+    SimConfig,
+    TrafficClass,
+    simulate,
+)
+from simple_distributed_machine_learning_tpu_torch.serve.supervisor import (
+    OverloadPolicy,
+    ServeSupervisor,
+    engine_factory,
+)
+
+
+class VirtualClock:
+    """Deterministic simulated time: each read costs ``per_call_s``, each
+    ``sleep(dt)`` advances ``dt``. Handed to the engine, its metrics, the
+    supervisor, the simulator and ``FaultPlan.sleep``, so all timestamps
+    share one origin and one cost model."""
+
+    def __init__(self, per_call_s: float = 0.001) -> None:
+        if per_call_s <= 0:
+            raise ValueError(f"per_call_s must be > 0, got {per_call_s}")
+        self.per_call_s = per_call_s
+        self._t = 0.0
+
+    def __call__(self) -> float:
+        self._t += self.per_call_s
+        return self._t
+
+    def sleep(self, dt: float) -> None:
+        self._t += max(0.0, float(dt))
+
+
+@dataclasses.dataclass(frozen=True)
+class Scenario:
+    """One catalog entry; see the module docstring. ``supervised`` runs go
+    through the :class:`ServeSupervisor` (journal, crash recovery,
+    deadlines, ``overload`` admission control); ``allow_shed`` counts a
+    structurally shed request as accounted for; ``min_restarts`` is the
+    chaos gate (a crash scenario whose fault never fired must fail)."""
+
+    name: str
+    description: str
+    sim: SimConfig
+    n_slots: int = 3
+    block_size: int = 8
+    n_blocks: int | None = None
+    max_len: int | None = None
+    prefill_chunk: int | None = None
+    scheduler: str = "priority"        # "fcfs" | "priority"
+    chaos: str | None = None           # FaultPlan.parse spec, or None
+    min_attainment: float = 0.9        # per-SLO pass bar
+    supervised: bool = False
+    max_restarts: int = 3
+    degrade_after: int | None = None
+    overload: OverloadPolicy | None = None
+    allow_shed: bool = False
+    min_restarts: int = 0
+
+    def __post_init__(self):
+        if self.scheduler not in ("fcfs", "priority"):
+            raise ValueError(
+                f"scheduler must be fcfs|priority, got {self.scheduler!r}")
+        if not 0 < self.min_attainment <= 1:
+            raise ValueError(f"min_attainment must be in (0, 1], got "
+                             f"{self.min_attainment}")
+        if self.min_restarts and not self.supervised:
+            raise ValueError(
+                "min_restarts needs supervised=True (only the supervisor "
+                "restarts an engine)")
+        if (self.overload is not None or self.allow_shed) \
+                and not self.supervised:
+            raise ValueError(
+                "overload/allow_shed need supervised=True (admission "
+                "control and shedding live in the supervisor)")
+
+
+# SLO targets are VIRTUAL milliseconds: an engine tick costs a few vms, so
+# "TTFT <= 60 vms" reads "first token within tens of ticks of arrival"
+_INTERACTIVE = TrafficClass("interactive", weight=0.35, priority=2,
+                            ttft_slo_ms=60.0, tpot_slo_ms=40.0,
+                            prompt_lens=(4, 6), max_new_tokens=8)
+_STANDARD = TrafficClass("standard", weight=0.3, priority=1,
+                         ttft_slo_ms=150.0, tpot_slo_ms=60.0,
+                         prompt_lens=(8,), max_new_tokens=12)
+_BATCH = TrafficClass("batch", weight=0.35, priority=0,
+                      prompt_lens=(12,), max_new_tokens=24)
+
+SCENARIOS: dict[str, Scenario] = {s.name: s for s in (
+    Scenario(
+        name="steady",
+        description="single interactive class, homogeneous Poisson, FCFS "
+                    "— the unstressed baseline must meet SLOs",
+        sim=SimConfig(n_requests=16, rate=12.0, seed=0,
+                      classes=(dataclasses.replace(_INTERACTIVE,
+                                                   weight=1.0),)),
+        n_slots=4, scheduler="fcfs"),
+    Scenario(
+        name="burst-interactive",
+        description="bursty arrivals, interactive vs batch tenants; "
+                    "priority scheduling + prefill preemption protect the "
+                    "interactive class's TTFT through the spikes",
+        sim=SimConfig(n_requests=28, rate=20.0, seed=0, arrival="bursty",
+                      burst_factor=6.0, burst_duty=0.2, period_s=1.0,
+                      classes=(_INTERACTIVE,
+                               dataclasses.replace(_BATCH, weight=0.65))),
+        n_slots=3, prefill_chunk=4),
+    Scenario(
+        name="multi-tenant",
+        description="three tenants (interactive/standard/batch) over a "
+                    "diurnal rate cycle, priority scheduling",
+        sim=SimConfig(n_requests=30, rate=16.0, seed=0, arrival="diurnal",
+                      diurnal_amplitude=0.8, period_s=2.0,
+                      classes=(_INTERACTIVE, _STANDARD, _BATCH)),
+        n_slots=4, prefill_chunk=4),
+    Scenario(
+        name="burst-slow-tick",
+        description="burst-interactive's load with injected slow-tick "
+                    "device stalls (deterministic chaos schedule) — SLOs "
+                    "must hold through a degraded device",
+        sim=SimConfig(n_requests=24, rate=18.0, seed=0, arrival="bursty",
+                      burst_factor=6.0, burst_duty=0.2, period_s=1.0,
+                      classes=(_INTERACTIVE,
+                               dataclasses.replace(_BATCH, weight=0.65))),
+        n_slots=3, prefill_chunk=4,
+        chaos="slow-tick@serve.tick,dur=0.004,after=5,times=10"),
+    Scenario(
+        name="crash-serve",
+        description="steady interactive traffic with an engine crash "
+                    "injected mid-serve: the serve supervisor re-admits "
+                    "every in-flight request from the journal bit-exact "
+                    "and the SLOs hold through the restart (gate: all "
+                    "complete AND >= 1 restart actually happened)",
+        sim=SimConfig(n_requests=16, rate=12.0, seed=0,
+                      classes=(dataclasses.replace(_INTERACTIVE,
+                                                   weight=1.0),)),
+        n_slots=4, prefill_chunk=4, scheduler="fcfs",
+        supervised=True, chaos="engine-crash@serve.tick=6",
+        min_restarts=1),
+    Scenario(
+        name="overload-shed",
+        description="a sustained burst at > 1.5x service capacity with "
+                    "per-class hard deadlines: the supervisor sheds "
+                    "expired/over-budget work (deadline + queue-depth "
+                    "backpressure) so the interactive class keeps "
+                    "attaining its SLOs; the no-deadline FCFS baseline "
+                    "fails the same gate",
+        sim=SimConfig(n_requests=36, rate=40.0, seed=0, arrival="bursty",
+                      burst_factor=5.0, burst_duty=0.3, period_s=1.0,
+                      classes=(
+                          # the hard deadline sits BELOW the SLO target:
+                          # anything not started by 75 vms sheds
+                          dataclasses.replace(_INTERACTIVE,
+                                              ttft_slo_ms=100.0,
+                                              ttft_deadline_ms=75.0,
+                                              deadline_ms=500.0),
+                          dataclasses.replace(_BATCH, weight=0.65,
+                                              deadline_ms=1500.0))),
+        n_slots=2, prefill_chunk=4,
+        supervised=True, allow_shed=True,
+        # past 6 queued the supervisor locks best-effort (priority 0)
+        # traffic out until the backlog drains to 2
+        overload=OverloadPolicy(max_queue_depth=8,
+                                degrade_queue_depth=6,
+                                recover_queue_depth=2,
+                                degraded_priority_floor=0)),
+)}
+
+#: the JAX package's other scenarios and the items that port them
+UNPORTED_SCENARIOS = {
+    "fleet-replica-loss": _roadmap.SERVE_FLEET,
+    "hot-prefix-skew": _roadmap.SERVE_FLEET,
+    "fleet-autoscale-diurnal": _roadmap.SERVE_FLEET,
+    "disagg-prefill-heavy": _roadmap.SERVE_FLEET,
+    "handoff-replica-loss": _roadmap.SERVE_FLEET,
+    "offload-churn": _roadmap.SERVE_EXTENSIONS,
+    "hot-adapter-churn": _roadmap.SERVE_EXTENSIONS,
+}
+
+
+def _reject_unported(scenario, trace, route, prefill_replicas,
+                     host_cache_blocks) -> None:
+    if isinstance(scenario, str) and scenario in UNPORTED_SCENARIOS:
+        raise _roadmap.not_ported(f"scenario {scenario!r}",
+                                  UNPORTED_SCENARIOS[scenario])
+    if trace:
+        raise _roadmap.not_ported("run_scenario(trace=): request tracing",
+                                  _roadmap.SERVE_TRACING)
+    if route is not None or prefill_replicas:
+        raise _roadmap.not_ported("run_scenario(route=/prefill_replicas=): "
+                                  "the fleet", _roadmap.SERVE_FLEET)
+    if host_cache_blocks:
+        raise _roadmap.not_ported("run_scenario(host_cache_blocks=): the "
+                                  "host offload tier",
+                                  _roadmap.SERVE_EXTENSIONS)
+
+
+def run_scenario(scenario: Scenario | str, stages, cfg, *,
+                 outdir: str | None = None, scheduler: str | None = None,
+                 virtual: bool = True, per_call_s: float = 0.001,
+                 supervised: bool | None = None, trace=None,
+                 route: str | None = None,
+                 prefill_replicas: int | None = None,
+                 host_cache_blocks: int | None = None,
+                 device=None, **engine_kw) -> dict:
+    """Run one scenario end to end; returns the report with the SLO block.
+
+    ``stages``/``cfg``: a ``make_gpt_stages`` build on ``device`` (None =
+    ``"cuda"``; raises without CUDA unless ``"cpu"``). ``scheduler``
+    overrides the scenario's policy; ``supervised=False`` on a
+    deadline-carrying scenario is the no-deadline baseline. Extra
+    ``engine_kw`` (``attn_kernel``, ``params``, ...) reach every engine
+    the run builds. With ``outdir`` the serve record and a ``kind:
+    "scenario"`` record land in ``metrics.jsonl`` + ``metrics.prom``, one
+    ``kind: "slo_alert"`` record per alert transition after it, the
+    supervised run's journal as ``journal-<name>.jsonl`` and a post-mortem
+    bundle per restart / drain timeout / shed burst.
+
+    ``report["slo_ok"]`` is True only when every gated class attains every
+    target at ``min_attainment`` or better AND every request is accounted
+    for — completed, or (``allow_shed``) structurally shed — AND a
+    supervised run restarted at least ``min_restarts`` times."""
+    import tempfile
+    import time
+
+    _reject_unported(scenario, trace, route, prefill_replicas,
+                     host_cache_blocks)
+    if isinstance(scenario, str):
+        if scenario not in SCENARIOS:
+            raise ValueError(
+                f"unknown scenario {scenario!r}; available: "
+                f"{sorted(SCENARIOS)} (see resilience/scenarios.py)")
+        scenario = SCENARIOS[scenario]
+    clock = VirtualClock(per_call_s) if virtual else time.monotonic
+    sleep = clock.sleep if virtual else time.sleep
+    policy = scheduler or scenario.scheduler
+    sched_cls = PriorityScheduler if policy == "priority" else FCFSScheduler
+    sup_flag = scenario.supervised if supervised is None else supervised
+
+    plan = None
+    if scenario.chaos:
+        plan = faults.install(faults.FaultPlan.parse(scenario.chaos,
+                                                     sleep=sleep))
+    target = None
+    tmpdir = None
+    try:
+        from simple_distributed_machine_learning_tpu_torch.serve.engine import (  # noqa: E501
+            InferenceEngine,
+        )
+        metrics = ServeMetrics(outdir=outdir, clock=clock)
+        # the streaming SLO engine, wherever a supervisor owns the tick
+        # (observation and evaluation read no clock)
+        slo_engine = None
+        if sup_flag:
+            from simple_distributed_machine_learning_tpu_torch.telemetry.slo import (  # noqa: E501
+                SLOEngine,
+            )
+            slo_engine = SLOEngine.from_classes(
+                scenario.sim.classes, registry=metrics.registry)
+        kw = dict(n_slots=scenario.n_slots, block_size=scenario.block_size,
+                  n_blocks=scenario.n_blocks, max_len=scenario.max_len,
+                  prefill_chunk=scenario.prefill_chunk,
+                  scheduler=sched_cls, metrics=metrics, clock=clock,
+                  device=device, **engine_kw)
+        if sup_flag:
+            from simple_distributed_machine_learning_tpu_torch.serve.journal import (  # noqa: E501
+                RequestJournal,
+            )
+            if outdir:
+                jpath = os.path.join(outdir,
+                                     f"journal-{scenario.name}.jsonl")
+                if os.path.exists(jpath):
+                    os.unlink(jpath)           # each run journals fresh
+            else:
+                tmpdir = tempfile.TemporaryDirectory(prefix="sdml-journal-")
+                jpath = os.path.join(tmpdir.name, "journal.jsonl")
+            target = ServeSupervisor(
+                engine_factory(stages, cfg, **kw),
+                # virtual-clock runs measure scheduling structure, not
+                # durability: no fsync per record
+                RequestJournal(jpath, sync=not virtual),
+                metrics=metrics, clock=clock,
+                max_restarts=scenario.max_restarts,
+                degrade_after=scenario.degrade_after,
+                overload=scenario.overload,
+                postmortem_dir=outdir, slo=slo_engine)
+        else:
+            target = InferenceEngine(stages, cfg, **kw)
+        report = simulate(target, scenario.sim, sleep=sleep)
+    finally:
+        if plan is not None:
+            faults.uninstall()
+        if sup_flag and target is not None:
+            target.close()
+        if tmpdir is not None:
+            tmpdir.cleanup()
+
+    n = scenario.sim.n_requests
+    accounted = report["completed"] + (report["shed"]
+                                       if scenario.allow_shed else 0)
+    slo: dict = {}
+    ok = accounted == n
+    if sup_flag:
+        report["restarts"] = target.restarts
+        report["supervisor_state"] = target.state
+        report["postmortem_bundles"] = len(target.postmortems)
+        ok &= target.restarts >= scenario.min_restarts
+    for tc in scenario.sim.classes:
+        if tc.ttft_slo_ms is None and tc.tpot_slo_ms is None:
+            continue
+        att = metrics.attainment(tc.name, ttft_slo_ms=tc.ttft_slo_ms,
+                                 tpot_slo_ms=tc.tpot_slo_ms)
+        cls_ok = True
+        for key in ("ttft_attainment", "tpot_attainment"):
+            if key in att:
+                cls_ok &= (att[key] is not None
+                           and att[key] >= scenario.min_attainment)
+        att["ok"] = cls_ok
+        slo[tc.name] = att
+        ok &= cls_ok
+    report["scenario"] = scenario.name
+    report["scheduler"] = policy
+    report["supervised"] = sup_flag
+    report["slo"] = slo
+    report["slo_ok"] = ok
+    if slo_engine is not None:
+        report["slo_alerts"] = slo_engine.summary()
+    if plan is not None:
+        report["faults"] = plan.stats()
+    if outdir:
+        from simple_distributed_machine_learning_tpu_torch.telemetry.registry import (  # noqa: E501
+            append_jsonl,
+        )
+        metrics.emit(extra={"scenario": scenario.name, "scheduler": policy,
+                            "completed": report["completed"]})
+        append_jsonl(os.path.join(outdir, "metrics.jsonl"), {
+            "kind": "scenario", "scenario": scenario.name,
+            "scheduler": policy, "supervised": sup_flag,
+            "completed": report["completed"], "shed": report["shed"],
+            "n_requests": report["n_requests"], "slo": slo, "slo_ok": ok,
+            **({"restarts": report["restarts"]} if sup_flag else {}),
+            **({"slo_alerts": {
+                "transitions": len(slo_engine.alerts.journal),
+                "firing": slo_engine.active_alerts(),
+                "states": slo_engine.alerts.states()}}
+               if slo_engine is not None else {}),
+            **({"faults_fired": plan.stats()["total_fired"]}
+               if plan is not None else {}),
+        })
+        if slo_engine is not None:
+            # one joinable row per alert transition
+            for tr in slo_engine.alerts.journal:
+                append_jsonl(os.path.join(outdir, "metrics.jsonl"),
+                             {"kind": "slo_alert",
+                              "scenario": scenario.name, **tr})
+    return report

@@ -1,15 +1,23 @@
 """Continuous-batching serving on one GPU (port of ``serve/``).
 
 - :mod:`.slots` — :class:`PagedKVPool`: block-table paged K/V pool with
-  refcounted blocks, prefix sharing, copy-on-write and reservations;
+  refcounted blocks, prefix sharing, copy-on-write and reservations, and
+  :class:`KVCachePool`, the dense slot-row layout;
 - :mod:`.request` — :class:`Request`: prompt, per-request sampling, key
   stream, lifecycle timestamps;
-- :mod:`.scheduler` — :class:`FCFSScheduler`;
+- :mod:`.scheduler` — :class:`FCFSScheduler` and
+  :class:`PriorityScheduler` (priority classes with preemption);
 - :mod:`.engine` — :class:`InferenceEngine`: ``submit`` / ``step`` /
-  ``drain`` over chunked prefill and one batched decode tick;
+  ``drain`` / ``restore`` over chunked prefill and one batched decode
+  tick;
+- :mod:`.journal` — :class:`RequestJournal`: the fsync'd write-ahead
+  request journal and its crash recovery;
+- :mod:`.supervisor` — :class:`ServeSupervisor`: engine rebuild and
+  journal recovery on faults, deadlines, :class:`OverloadPolicy`
+  shedding, :func:`engine_factory`;
 - :mod:`.simulator` — seeded open-loop traffic (:func:`simulate`);
-- :mod:`.metrics` — :class:`ServeMetrics`: TTFT/TPOT, occupancy, pool
-  gauges on the metric registry.
+- :mod:`.metrics` — :class:`ServeMetrics`: TTFT/TPOT, occupancy, pool,
+  restart and shed instruments on the metric registry.
 
 Correctness anchor: with the same seed every request's tokens equal its
 solo ``models.make_cached_decoder`` decode.
@@ -19,6 +27,9 @@ from simple_distributed_machine_learning_tpu_torch.serve.engine import (  # noqa
     DrainTimeout,
     InferenceEngine,
 )
+from simple_distributed_machine_learning_tpu_torch.serve.journal import (  # noqa: F401
+    RequestJournal,
+)
 from simple_distributed_machine_learning_tpu_torch.serve.metrics import (  # noqa: F401
     ServeMetrics,
 )
@@ -27,6 +38,7 @@ from simple_distributed_machine_learning_tpu_torch.serve.request import (  # noq
 )
 from simple_distributed_machine_learning_tpu_torch.serve.scheduler import (  # noqa: F401
     FCFSScheduler,
+    PriorityScheduler,
 )
 from simple_distributed_machine_learning_tpu_torch.serve.simulator import (  # noqa: F401
     SimConfig,
@@ -34,5 +46,12 @@ from simple_distributed_machine_learning_tpu_torch.serve.simulator import (  # n
     simulate,
 )
 from simple_distributed_machine_learning_tpu_torch.serve.slots import (  # noqa: F401
+    KVCachePool,
     PagedKVPool,
+)
+from simple_distributed_machine_learning_tpu_torch.serve.supervisor import (  # noqa: F401
+    OverloadPolicy,
+    RestartBudgetExceeded,
+    ServeSupervisor,
+    engine_factory,
 )

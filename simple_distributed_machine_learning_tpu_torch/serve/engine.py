@@ -1,15 +1,24 @@
 """The continuous-batching inference engine: submit / step / drain.
 
-Port of ``serve/engine.py`` for the paged layout on one device.
-:class:`InferenceEngine` serves a GPT over the paged KV pool
-(``serve/slots.py``) with the FCFS scheduler:
+Port of ``serve/engine.py`` on one device. :class:`InferenceEngine`
+serves a GPT over a KV pool (``serve/slots.py``) with a pluggable
+scheduler (FCFS by default, or the priority scheduler with preemption):
 
 - ``submit(prompt, ...) -> Request`` enqueues one sequence with its own
   sampling params and seeded key stream, and returns the live handle;
-- ``step()`` is one tick: admit (board slots, match shared prefixes,
-  reserve blocks) -> at most ONE prefill chunk of the oldest prefilling
-  request -> ONE batched decode step over every decoding slot -> retire;
-- ``drain()`` ticks until queue and slots are empty.
+- ``step()`` is one tick. Paged layout (the default): admit (board slots,
+  match shared prefixes, reserve blocks) -> at most ONE prefill chunk of
+  the oldest prefilling request -> ONE batched decode step over every
+  decoding slot -> retire. Dense slot rows (``kv_layout="dense"``, the
+  serve supervisor's degraded fallback): admit with a whole-prompt
+  prefill each -> one batched decode over every slot -> retire;
+- ``drain()`` ticks until queue and slots are empty;
+- ``restore(request)`` re-admits a journal-recovered request into a
+  rebuilt engine (the serve supervisor's recovery path).
+
+Two fault-injection sites (``resilience/faults.py``) sit where the JAX
+engine has them: ``serve.admit`` at the top of ``submit`` and
+``serve.tick`` at the top of every busy ``step``.
 
 With a draft model (``draft_stages``/``draft_cfg``/``spec_k``) the decode
 step is speculative: the draft proposes ``spec_k`` tokens per slot over
@@ -27,9 +36,15 @@ co-residents, paged blocks, shared prefixes, chunk boundaries and, for
 greedy requests, speculation cannot change anyone's output.
 
 The JAX engine's other knobs keep their place in the signature and raise
-``NotImplementedError`` naming the ROADMAP item that ports them: the
-dense slot layout, tensor parallelism, adapters, the host tier, the lint
-preflight, tracing and the flight recorder.
+``NotImplementedError`` naming the ROADMAP item that ports them:
+speculation over the dense layout, tensor parallelism, adapters, the host
+tier, the lint preflight, tracing and the flight recorder.
+
+Clock reads sit exactly where the JAX engine's do (submit without an
+arrival stamp, cancel, the dense admission's TTFT endpoint or reseat,
+each prefill chunk's two, each decode or speculative tick's one): the
+scenario suite's virtual clock charges every read, so one extra read
+would move every pinned number.
 """
 
 from __future__ import annotations
@@ -55,9 +70,13 @@ from simple_distributed_machine_learning_tpu_torch.models.gpt import (
     make_paged_decode_step,
     make_paged_prefill_chunk,
     make_paged_spec_tick,
+    make_slot_decode_step,
     make_slot_prefill,
 )
 from simple_distributed_machine_learning_tpu_torch.ops.random import key_data
+from simple_distributed_machine_learning_tpu_torch.resilience.faults import (
+    maybe_fire,
+)
 from simple_distributed_machine_learning_tpu_torch.serve.metrics import (
     ServeMetrics,
 )
@@ -74,6 +93,7 @@ from simple_distributed_machine_learning_tpu_torch.serve.scheduler import (
     FCFSScheduler,
 )
 from simple_distributed_machine_learning_tpu_torch.serve.slots import (
+    KVCachePool,
     PagedKVPool,
 )
 
@@ -107,11 +127,46 @@ def _check_speculative(draft_stages, draft_cfg, spec_k: int) -> None:
             f"draft model is what proposes the speculated tokens")
 
 
-def _reject_unported(kv_layout, host_cache_blocks, prefetch_ticks, lint,
-                     mesh, cfg, trace, flight, adapters) -> None:
-    if kv_layout == "dense":
-        raise _roadmap.not_ported("kv_layout='dense'",
-                                  _roadmap.SERVE_ROBUSTNESS)
+def _check_layout(kv_layout, attn_kernel, prefill_chunk, n_blocks,
+                  host_cache_blocks) -> None:
+    """The JAX engine's layout checks, in its order and words."""
+    if kv_layout not in ("paged", "dense"):
+        raise ValueError(
+            f"kv_layout must be 'paged' or 'dense', got {kv_layout!r}")
+    if attn_kernel not in ("dense", "fused"):
+        raise ValueError(
+            f"attn_kernel must be 'dense' (gather-then-dense "
+            f"attention) or 'fused' (the CUDA paged-attention "
+            f"kernel), got {attn_kernel!r}")
+    if attn_kernel == "fused" and kv_layout != "paged":
+        raise ValueError(
+            "attn_kernel='fused' is the paged pool's kernel (block-"
+            "table gather fused with attention); the dense layout has "
+            "no block tables — use kv_layout='paged'")
+    if prefill_chunk is not None and prefill_chunk < 1:
+        raise ValueError(
+            f"prefill_chunk must be >= 1 (or None for whole-prompt "
+            f"chunks), got {prefill_chunk}")
+    if kv_layout == "dense" and (prefill_chunk is not None
+                                 or n_blocks is not None):
+        raise ValueError(
+            "prefill_chunk/n_blocks are paged-pool knobs; the dense "
+            "layout prefills whole prompts into fixed rows")
+    if kv_layout == "dense" and host_cache_blocks:
+        raise ValueError(
+            "host_cache_blocks is a paged-pool knob (the host offload "
+            "tier demotes evicted prefix BLOCKS); the dense layout has "
+            "no blocks to demote — use kv_layout='paged'")
+
+
+def _reject_unported(kv_layout, speculative, host_cache_blocks,
+                     prefetch_ticks, lint, mesh, cfg, trace, flight,
+                     adapters) -> None:
+    if kv_layout == "dense" and speculative:
+        raise _roadmap.not_ported(
+            "speculative decoding over kv_layout='dense' "
+            "(make_slot_verify_step, make_slot_spec_tick)",
+            _roadmap.SERVE_EXTENSIONS)
     if mesh is not None or cfg.n_tensor_parallel > 1:
         raise _roadmap.not_ported("tensor-parallel serving (mesh/"
                                   "n_tensor_parallel > 1)",
@@ -128,11 +183,11 @@ def _reject_unported(kv_layout, host_cache_blocks, prefetch_ticks, lint,
                                   _roadmap.ANALYSIS)
     if trace is not None or flight is not None:
         raise _roadmap.not_ported("request tracing and the flight recorder",
-                                  _roadmap.SERVE_ROBUSTNESS)
+                                  _roadmap.SERVE_TRACING)
 
 
 class InferenceEngine:
-    """Continuous-batching serving over a dense single-device GPT build.
+    """Continuous-batching serving of a single-device GPT build.
 
     ``stages``/``cfg``: a ``make_gpt_stages`` build; ``params`` overrides
     the stages' weights (e.g. ``interop.params_from_numpy`` of a JAX
@@ -141,7 +196,10 @@ class InferenceEngine:
     (None/f32, bf16, int8, ``float8_e4m3fn``, ``float8_e5m2`` — the narrow
     ones store per-row f32 scales beside their blocks).
 
-    ``block_size`` positions per K/V block; ``n_blocks`` pool capacity
+    ``kv_layout``: ``"paged"`` (the block-table pool) or ``"dense"``
+    (one ``max_len`` row per slot; whole-prompt prefill, no prefix
+    sharing, f32/bf16 only). ``block_size`` positions per K/V block;
+    ``n_blocks`` pool capacity
     (default: ``n_slots * ceil(max_len / block_size)``); ``prefill_chunk``
     prompt positions per prefill chunk (None = the whole remaining prompt);
     ``attn_kernel`` the decode tick's attention: ``"dense"`` (gather, then
@@ -149,9 +207,13 @@ class InferenceEngine:
     paged-attention kernel, ``ops/paged_attention.py``).
 
     ``draft_stages``/``draft_cfg`` (a smaller ``make_gpt_stages`` build
-    of the same vocab) with ``spec_k >= 2`` make the decode step
+    of the same vocab) with ``spec_k >= 2`` make the paged decode step
     speculative (module docstring); the draft keeps a dense slot pool of
     its own (f32 when ``cache_dtype`` is quantised).
+
+    ``scheduler``: an instance over this engine's pool, or a class /
+    factory called with the pool (``PriorityScheduler``; the serve
+    supervisor's rebuilds pass the class).
 
     ``device`` (None = ``"cuda"``; raises without CUDA unless ``"cpu"``)
     holds the pools; the params, the draft's too, must already live
@@ -171,24 +233,16 @@ class InferenceEngine:
                  mesh=None, draft_stages=None, draft_cfg=None,
                  spec_k: int = 0, trace=None, flight=None,
                  adapters=None, device=None) -> None:
-        if kv_layout not in ("paged", "dense"):
-            raise ValueError(
-                f"kv_layout must be 'paged' or 'dense', got {kv_layout!r}")
-        if attn_kernel not in ("dense", "fused"):
-            raise ValueError(
-                f"attn_kernel must be 'dense' (gather-then-dense "
-                f"attention) or 'fused' (the CUDA paged-attention "
-                f"kernel), got {attn_kernel!r}")
-        if prefill_chunk is not None and prefill_chunk < 1:
-            raise ValueError(
-                f"prefill_chunk must be >= 1 (or None for whole-prompt "
-                f"chunks), got {prefill_chunk}")
+        _check_layout(kv_layout, attn_kernel, prefill_chunk, n_blocks,
+                      host_cache_blocks)
         _check_speculative(draft_stages, draft_cfg, spec_k)
-        _reject_unported(kv_layout, host_cache_blocks, prefetch_ticks, lint,
-                         mesh, cfg, trace, flight, adapters)
+        _reject_unported(kv_layout, draft_stages is not None,
+                         host_cache_blocks, prefetch_ticks, lint, mesh, cfg,
+                         trace, flight, adapters)
         _check_ported(cfg, "InferenceEngine")
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.kv_layout = kv_layout
         self.attn_kernel = attn_kernel
         self.prefill_chunk = prefill_chunk
         self.params = (params if params is not None
@@ -196,17 +250,27 @@ class InferenceEngine:
         self._check_on_device(self.params)
         self.max_len = int(max_len if max_len is not None else cfg.seq_len)
         n_layers = sum(len(p["blocks"]) for p in self.params)
-        self.pool = PagedKVPool(n_layers, n_slots, cfg.n_heads, self.max_len,
-                                cfg.d_model // cfg.n_heads, cache_dtype,
-                                block_size=block_size, n_blocks=n_blocks,
-                                device=self.device)
-        self._chunk_prefill = make_paged_prefill_chunk(
-            stages, cfg, self.max_len, block_size, cache_dtype,
-            device=self.device)
-        self._decode = make_paged_decode_step(
-            stages, cfg, self.max_len, block_size, cache_dtype,
-            kernel=attn_kernel, device=self.device)
-        self._copy_block = make_paged_block_copy()
+        head_dim = cfg.d_model // cfg.n_heads
+        if kv_layout == "paged":
+            self.pool = PagedKVPool(n_layers, n_slots, cfg.n_heads,
+                                    self.max_len, head_dim, cache_dtype,
+                                    block_size=block_size,
+                                    n_blocks=n_blocks, device=self.device)
+            self._chunk_prefill = make_paged_prefill_chunk(
+                stages, cfg, self.max_len, block_size, cache_dtype,
+                device=self.device)
+            self._decode = make_paged_decode_step(
+                stages, cfg, self.max_len, block_size, cache_dtype,
+                kernel=attn_kernel, device=self.device)
+            self._copy_block = make_paged_block_copy()
+        else:
+            self.pool = KVCachePool(n_layers, n_slots, cfg.n_heads,
+                                    self.max_len, head_dim, cache_dtype,
+                                    device=self.device)
+            self._prefill = make_slot_prefill(stages, cfg, self.max_len,
+                                              cache_dtype, device=self.device)
+            self._decode = make_slot_decode_step(
+                stages, cfg, self.max_len, cache_dtype, device=self.device)
         self.spec_k = int(spec_k)
         self.speculative = draft_stages is not None
         self.draft_cfg = draft_cfg
@@ -235,11 +299,14 @@ class InferenceEngine:
             # a scheduler class/factory: the pool is engine-built
             scheduler = scheduler(self.pool)
         self.scheduler = scheduler
+        self.scheduler.attach(self)
         self.metrics = metrics
         self._clock = clock
         # the most recent clock reading (stamps events that read no clock)
         self._now = 0.0
         self._next_rid = 0
+        # busy ticks so far: the serve.tick fault site's step
+        self._tick_count = 0
         self.requests: dict[int, Request] = {}
         # rids admitted but not yet fully prefilled, in admission order
         self._prefilling: collections.deque[int] = collections.deque()
@@ -285,10 +352,12 @@ class InferenceEngine:
 
         ``arrival_time`` backdates ``submit_time`` to when the request
         arrived (the simulator's Poisson stamp), so TTFT absorbs queue
-        wait accrued while the engine was inside a tick."""
-        if adapter is not None:
-            raise _roadmap.not_ported("LoRA adapters",
-                                      _roadmap.SERVE_EXTENSIONS)
+        wait accrued while the engine was inside a tick.
+        ``ttft_deadline_s``/``deadline_s`` are stored on the handle; the
+        serve supervisor enforces them."""
+        # fault-injection site: a crash while the request is being
+        # accepted (the supervisor journaled it; recovery re-admits it)
+        maybe_fire("serve.admit", step=self._next_rid)
         prompt = np.asarray(prompt, np.int32)
         validate_request(prompt, max_new_tokens, temperature, top_k, top_p,
                          self.cfg.vocab, self.max_len)
@@ -296,6 +365,7 @@ class InferenceEngine:
                         ("deadline_s", deadline_s)):
             if v is not None and v <= 0:
                 raise ValueError(f"{name} must be > 0, got {v}")
+        self._check_adapter(adapter)
         rid = self._next_rid
         self._next_rid += 1
         seed = rid if seed is None else seed
@@ -318,21 +388,40 @@ class InferenceEngine:
             self.metrics.on_submit()
         return r
 
+    def _check_adapter(self, adapter) -> None:
+        if adapter is not None:
+            raise _roadmap.not_ported("LoRA adapters",
+                                      _roadmap.SERVE_EXTENSIONS)
+
     def step(self) -> int:
         """One tick; returns the number of tokens emitted. A true no-op
         returning 0 when idle (idle ticks touch no metrics)."""
         if not self.busy:
             return 0
-        self._admit_paged()
-        emitted = self._prefill_tick()
-        decoding = self._decoding_slots()
-        emitted += (self._spec_tick(decoding) if self.speculative
-                    else self._decode_tick_paged(decoding))
+        # fault-injection site: slow-tick stalls the tick, engine-crash /
+        # wedged-device / host-kill raise (no-op without a plan)
+        maybe_fire("serve.tick", step=self._tick_count)
+        self._tick_count += 1
+        if self.kv_layout == "dense":
+            emitted = self._admit_dense()
+            # the occupancy the batched decode runs at, sampled before
+            # same-tick retirement
+            decode_active = self.pool.n_active
+            emitted += self._decode_tick_dense()
+        else:
+            self._admit_paged()
+            emitted = self._prefill_tick()
+            decoding = self._decoding_slots()
+            decode_active = len(decoding)
+            emitted += (self._spec_tick(decoding) if self.speculative
+                        else self._decode_tick_paged(decoding))
         if self.metrics is not None:
             self.metrics.on_tick(
                 self.scheduler.queue_depth, self.pool.n_active,
-                self.pool.n_slots, decode_active=len(decoding),
-                block_stats=self.pool.stats(), tp=1, spec_k=self.spec_k)
+                self.pool.n_slots, decode_active=decode_active,
+                block_stats=(self.pool.stats()
+                             if self.kv_layout == "paged" else None),
+                tp=1, spec_k=self.spec_k)
         return emitted
 
     def preempt(self, rid: int) -> None:
@@ -388,6 +477,36 @@ class InferenceEngine:
         self._last_emit.pop(rid, None)
         return r
 
+    def restore(self, request: Request) -> Request:
+        """Re-admit a journal-recovered request into THIS engine (the
+        serve supervisor's rebuild path): the handle keeps its rid,
+        emitted tokens and live key stream and re-enters the queue; like
+        a preemption victim it re-prefills ``resume_seq`` on boarding
+        with the sample and key advance discarded and reseats on its
+        stored newest token, so the continued decode equals the
+        uninterrupted run's. Callers re-admit in rid order to keep FCFS
+        arrival order across the restart."""
+        if request.rid in self.requests:
+            raise ValueError(f"request {request.rid} already lives in this "
+                             f"engine — restore() is for rebuilt engines")
+        validate_request(request.prompt, request.max_new_tokens,
+                         request.temperature, request.top_k, request.top_p,
+                         self.cfg.vocab, self.max_len)
+        self._check_adapter(request.adapter)
+        request.state = QUEUED
+        request.slot = None
+        request.prefill_pos = None
+        request._prefix_probe = None   # probed against THIS pool's registry
+        if request.key_data is None:
+            # never emitted a token: the stream starts where submit's would
+            request.key_data = key_data(request.seed)
+        if self.speculative and request.draft_key_data is None:
+            request.draft_key_data = draft_key_data(request.seed)
+        self.requests[request.rid] = request
+        self._next_rid = max(self._next_rid, request.rid + 1)
+        self.scheduler.enqueue(request)
+        return request
+
     def drain(self, max_ticks: int | None = None) -> list[Request]:
         """Tick until idle (or ``max_ticks``, then :class:`DrainTimeout`
         carrying the unfinished handles); returns the finished requests."""
@@ -400,6 +519,59 @@ class InferenceEngine:
             self.step()
             ticks += 1
         return [r for r in self.requests.values() if r.state == DONE]
+
+    # -- dense tick internals ---------------------------------------------
+
+    def _admit_dense(self) -> int:
+        """Board waiting requests, each with a whole-sequence prefill into
+        its slot row; the prefill samples the first token (TTFT endpoint)
+        unless the request is resuming."""
+        emitted = 0
+        for r in self.scheduler.admit():
+            seq = r.resume_seq       # == r.prompt unless resuming
+            t0 = int(seq.shape[0])
+            kc, vc, tok, kd = self._prefill(
+                self.params, self.pool.kc, self.pool.vc, seq[None, :],
+                r.slot, r.key_data, r.temperature,
+                r.top_k if r.top_k is not None else _NO_TOP_K,
+                r.top_p if r.top_p is not None else _NO_TOP_P)
+            self.pool.kc, self.pool.vc = kc, vc
+            if r.tokens:
+                # resuming: the prefill only rebuilt K/V; its sample and
+                # key advance are discarded and decode restarts from the
+                # stored newest token. The TPOT base resets to now: the
+                # stall is preemption wait, not decode cadence
+                self.pool.seat(r.slot, t0, r.tokens[-1])
+                now = self._now = self._clock()
+                self._last_emit[r.rid] = now
+                continue
+            tok = int(tok)                       # host sync: TTFT endpoint
+            r.key_data = kd.cpu().numpy().astype(np.uint32)
+            now = self._now = self._clock()
+            r.first_token_time = now
+            self._last_emit[r.rid] = now
+            r.emit(tok)
+            emitted += 1
+            if self.metrics is not None:
+                self.metrics.on_first_token(r.ttft_s, cls=r.cls)
+            reason = r.finished_by(tok)
+            if reason is not None:
+                self._finish(r, reason, now)
+            else:
+                self.pool.seat(r.slot, t0, tok)
+        return emitted
+
+    def _decode_tick_dense(self) -> int:
+        active = self.pool.active_slots()
+        if not active:
+            return 0
+        kd, temps, top_ks, top_ps = self._sampling_inputs(active)
+        kc, vc, toks, kd2 = self._decode(
+            self.params, self.pool.kc, self.pool.vc,
+            self.pool.last_token.copy(), self.pool.positions.copy(),
+            kd, temps, top_ks, top_ps)
+        self.pool.kc, self.pool.vc = kc, vc
+        return self._emit_decoded(active, toks, kd2)
 
     # -- paged tick internals ---------------------------------------------
 

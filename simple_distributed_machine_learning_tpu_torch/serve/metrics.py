@@ -25,11 +25,20 @@ The instruments of the serve summary line, with the JAX package's names:
   ``serve_spec_accepted_tokens_total`` /
   ``serve_spec_rejected_tokens_total`` (counters) and
   ``serve_spec_accept_rate`` (histogram, one observation per speculative
-  tick): how much of the draft's work the target agreed with.
+  tick): how much of the draft's work the target agreed with;
+- the serve supervisor's (``serve/supervisor.py``):
+  ``serve_restarts_total`` and ``serve_recovered_requests_total``
+  (counters: engine rebuilds, and in-flight requests re-admitted from the
+  journal across them), ``serve_shed_total{reason=deadline|backpressure|
+  class}`` and ``serve_class_shed_total{class=...}`` (structured
+  rejections), ``serve_degraded`` (gauge, 0/1: the fallback layout after
+  repeated crashes, or the overload best-effort lockout) and
+  ``serve_journal_bytes`` (gauge: the request journal's durable size).
+  With a bound :class:`~..telemetry.slo.SLOEngine` (``bind_slo``) every
+  TTFT/TPOT/shed observation also streams into its windowed series.
 
-The supervisor, fleet, host-tier, adapter, ``serve_attn_kernel_fused``
-and KV-drift instruments arrive with the slices that port those layers;
-until the
+The fleet, host-tier, adapter, ``serve_attn_kernel_fused`` and KV-drift
+instruments arrive with the slices that port those layers; until the
 analysis slice the summary has no ``kv_drift_bytes`` key, as the JAX CLI
 prints that line only when present.
 
@@ -98,6 +107,17 @@ class ServeMetrics:
         self.spec_rejected = r.counter("serve_spec_rejected_tokens_total")
         self.spec_accept_rate = r.histogram("serve_spec_accept_rate")
         self._spec_seen = False
+        # the supervisor's instruments (the summary's resilience block
+        # appears once any of its hooks fires)
+        self.restarts_total = r.counter("serve_restarts_total")
+        self.recovered_total = r.counter("serve_recovered_requests_total")
+        self.degraded_gauge = r.gauge("serve_degraded")
+        self.journal_bytes_gauge = r.gauge("serve_journal_bytes")
+        self._shed_reasons: dict[str, object] = {}
+        self._resilience_seen = False
+        # optional streaming SLO engine (telemetry/slo.py), fed every
+        # TTFT/TPOT/shed observation once bound
+        self.slo = None
         self._classes: set[str] = set()
         if outdir:
             os.makedirs(outdir, exist_ok=True)
@@ -117,22 +137,65 @@ class ServeMetrics:
             self._t_first_submit = self._clock()
         self.submitted.inc()
 
+    def bind_slo(self, slo) -> None:
+        """Attach a ``telemetry.slo.SLOEngine``: later latency and shed
+        observations stream into its windowed series."""
+        self.slo = slo
+
     def on_first_token(self, ttft_s: float, cls: str | None = None) -> None:
         self.ttft_ms.observe(ttft_s * 1e3)
         if cls is not None:
             self._class_hist("serve_class_ttft_ms", cls).observe(ttft_s * 1e3)
+            if self.slo is not None:
+                self.slo.observe_ttft(cls, ttft_s * 1e3)
         self._on_any_token()
 
     def on_token(self, tpot_s: float, cls: str | None = None) -> None:
         self.tpot_ms.observe(tpot_s * 1e3)
         if cls is not None:
             self._class_hist("serve_class_tpot_ms", cls).observe(tpot_s * 1e3)
+            if self.slo is not None:
+                self.slo.observe_tpot(cls, tpot_s * 1e3)
         self._on_any_token()
 
     def on_preempt(self, cls: str | None = None) -> None:
         self.preemptions.inc()
         if cls is not None:
             self._class_counter("serve_class_preemptions_total", cls).inc()
+
+    # -- supervisor hooks (crash restart + overload control) ---------------
+
+    def on_restart(self) -> None:
+        self._resilience_seen = True
+        self.restarts_total.inc()
+
+    def on_recovered(self, n: int) -> None:
+        """``n`` in-flight requests re-admitted from the journal."""
+        self._resilience_seen = True
+        if n:
+            self.recovered_total.inc(n)
+
+    def on_shed(self, reason: str, cls: str | None = None) -> None:
+        """One structured rejection; ``reason`` is the label value
+        (``deadline`` | ``backpressure`` | ``class``)."""
+        self._resilience_seen = True
+        counter = self._shed_reasons.get(reason)
+        if counter is None:
+            counter = self._shed_reasons[reason] = self.registry.counter(
+                "serve_shed_total", labels={"reason": reason})
+        counter.inc()
+        if cls is not None:
+            self._class_counter("serve_class_shed_total", cls).inc()
+            if self.slo is not None:
+                self.slo.observe_shed(cls)
+
+    def set_degraded(self, degraded) -> None:
+        self._resilience_seen = True
+        self.degraded_gauge.set(int(bool(degraded)))
+
+    def set_journal_bytes(self, n: int) -> None:
+        self._resilience_seen = True
+        self.journal_bytes_gauge.set(int(n))
 
     def _on_any_token(self) -> None:
         self.tokens.inc()
@@ -214,11 +277,30 @@ class ServeMetrics:
                 "serve_class_completed_total", cls).value),
             "preemptions": int(self._class_counter(
                 "serve_class_preemptions_total", cls).value),
+            "shed": int(self._class_counter(
+                "serve_class_shed_total", cls).value),
             "ttft_ms_p50": r3(ttft.quantile(0.5)),
             "ttft_ms_p95": r3(ttft.quantile(0.95)),
             "tpot_ms_p50": r3(tpot.quantile(0.5)),
             "tpot_ms_p95": r3(tpot.quantile(0.95)),
         }
+
+    def attainment(self, cls: str, ttft_slo_ms: float | None = None,
+                   tpot_slo_ms: float | None = None) -> dict:
+        """SLO attainment for one class from the registry histograms: the
+        weighted fraction of observations within target. None targets are
+        skipped; a class with no observations reports None (the scenario
+        runner counts that as a failure)."""
+        out = dict(self.class_summary(cls))
+        if ttft_slo_ms is not None:
+            out["ttft_slo_ms"] = ttft_slo_ms
+            out["ttft_attainment"] = self._class_hist(
+                "serve_class_ttft_ms", cls).fraction_below(ttft_slo_ms)
+        if tpot_slo_ms is not None:
+            out["tpot_slo_ms"] = tpot_slo_ms
+            out["tpot_attainment"] = self._class_hist(
+                "serve_class_tpot_ms", cls).fraction_below(tpot_slo_ms)
+        return out
 
     def summary(self) -> dict:
         """The serving record block (the CLI's serve line reads it)."""
@@ -249,6 +331,18 @@ class ServeMetrics:
             })
         if self.preemptions.value:
             out["preemptions"] = int(self.preemptions.value)
+        if self._resilience_seen:
+            shed = {reason: int(c.value)
+                    for reason, c in sorted(self._shed_reasons.items())
+                    if c.value}
+            out.update({
+                "restarts": int(self.restarts_total.value),
+                "recovered_requests": int(self.recovered_total.value),
+                "shed_total": sum(shed.values()),
+                "shed_by_reason": shed,
+                "degraded": int(self.degraded_gauge.value),
+                "journal_bytes": int(self.journal_bytes_gauge.value),
+            })
         if self._classes:
             out["per_class"] = {cls: self.class_summary(cls)
                                 for cls in sorted(self._classes)}

@@ -42,9 +42,13 @@ class Request:
     cls: str | None = None
     priority: int = 0
     # deadlines relative to submit_time: stored here, enforced by the
-    # serve supervisor of a later slice
+    # serve supervisor at tick boundaries (``serve/supervisor.py``)
     ttft_deadline_s: float | None = None
     deadline_s: float | None = None
+    # the LoRA adapter the request decodes under (journal key ``adp``);
+    # None = the base model, the only one the port serves until
+    # ROADMAP.md, Queue A, item 5.3
+    adapter: str | None = None
 
     # -- lifecycle (engine-owned) -----------------------------------------
     state: str = QUEUED
@@ -62,9 +66,15 @@ class Request:
     first_token_time: float | None = None
     done_time: float | None = None
     finish_reason: str | None = None    # "eos" | "length" | a shed reason
+    # migration cause of the last journal ``snap`` for this request (the
+    # record's ``why`` key); None for never-migrated requests
+    snap_reason: str | None = None
     # preemption: re-admission recomputes K/V from `resume_seq` without
     # touching the key stream, so the continued decode is unchanged
     n_preempted: int = 0
+    # boarding order (set at admission): the priority scheduler's
+    # newest-first victim pick
+    _board_seq: int = -1
 
     @property
     def resume_seq(self) -> np.ndarray:

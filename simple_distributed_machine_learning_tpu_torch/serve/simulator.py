@@ -190,21 +190,37 @@ def build_workload(sim: SimConfig, vocab: int) -> tuple[np.ndarray, list]:
     return arrivals, specs
 
 
-def simulate(engine, sim: SimConfig, clock=None, sleep=time.sleep) -> dict:
-    """Run the open-loop trace through ``engine``; returns the report dict
-    (JSON-serialisable; the live handles stay in ``engine.requests``).
+def simulate(engine, sim: SimConfig, clock=None, sleep=time.sleep,
+             should_stop=None) -> dict:
+    """Run the open-loop trace through ``engine`` (an ``InferenceEngine``
+    or a ``ServeSupervisor``, which has the same surface); returns the
+    report dict (JSON-serialisable; the live handles stay in
+    ``engine.requests``). Supervised runs report shed requests under
+    ``"shed"``.
 
     Submits every request whose arrival time has passed, ticks while
     anything is in flight, sleeps briefly only when idle. ``clock``
     defaults to the engine's, so arrival stamps and first-token stamps
-    share one origin. (The CLI's graceful-stop hook, ``should_stop``,
-    ports with the CLI's serve half.)"""
+    share one origin.
+
+    ``should_stop`` is the graceful-shutdown hook (the CLI's SIGTERM /
+    SIGINT handler): once it returns truthy, admission stops and the loop
+    drains every in-flight request before returning (``report["stopped"]``
+    is True, ``report["submitted"]`` counts what entered the engine)."""
     clock = engine._clock if clock is None else clock
     arrivals, specs = build_workload(sim, engine.cfg.vocab)
     handles = []
     start = clock()
     i = 0
+    stopped = False
     while i < sim.n_requests or engine.busy:
+        if not stopped and should_stop is not None and should_stop():
+            stopped = True
+        if stopped:
+            if not engine.busy:
+                break
+            engine.step()
+            continue
         t = clock() - start
         while i < sim.n_requests and arrivals[i] <= t:
             handles.append(engine.submit(
@@ -224,6 +240,7 @@ def simulate(engine, sim: SimConfig, clock=None, sleep=time.sleep) -> dict:
         "completed": completed,
         "shed": shed,
         "all_completed": completed == sim.n_requests,
+        "stopped": stopped,
         "wall_s": round(wall_s, 3),
         "requests": [
             {"rid": h.rid, "prompt_len": int(h.prompt.shape[0]),

@@ -1,20 +1,29 @@
-"""The paged KV pool: the serving engine's one device-resident state.
+"""KV-cache pools: the serving engine's one device-resident state.
 
-Port of ``serve/slots.py`` (the block-table layout; the dense slot-row
-layout and the host offload tier wait for later slices). A global pool of
-fixed-size K/V *blocks* ``[L, n_blocks+1, H, block_size, dh]`` lives on the
-device — physical block 0 is the trash block non-decoding slots write
-into — and everything else is host bookkeeping: a per-slot block table
-mapping logical block ``j`` (positions ``[j*bs, (j+1)*bs)``) to a physical
-block, on-demand allocation as positions advance, and copy-on-write
-prefix sharing: requests with a common prompt prefix reference the same
-physical blocks until they diverge, and the first write into a shared
-block copies it first.
+Port of ``serve/slots.py``, two layouts with one slot discipline (the
+host offload tier waits for ROADMAP.md, Queue A, item 5.2):
+
+- :class:`PagedKVPool` — a global pool of fixed-size K/V *blocks*
+  ``[L, n_blocks+1, H, block_size, dh]`` on the device (physical block 0
+  is the trash block non-decoding slots write into) and host bookkeeping:
+  a per-slot block table mapping logical block ``j`` (positions
+  ``[j*bs, (j+1)*bs)``) to a physical block, on-demand allocation as
+  positions advance, and copy-on-write prefix sharing — requests with a
+  common prompt prefix reference the same physical blocks until they
+  diverge, and the first write into a shared block copies it first.
+  Non-decoding slots' tick writes go to the trash block (a retired slot's
+  stale table may point at blocks a live request reuses).
+- :class:`KVCachePool` — the dense slot-row layout ``[L, n_slots, H,
+  max_len, dh]``: a slot is one row of every layer's cache, reserved at
+  ``max_len`` whatever the sequence uses. The serve supervisor's degraded
+  rebuild falls back to it. An idle slot keeps its stale position and the
+  batched decode keeps writing garbage there, which is safe: a row at
+  index ``p`` becomes visible only at the tick that first reaches ``p``,
+  and that tick overwrites it before attending.
 
 Invariants raise instead of corrupting a neighbour: no double occupancy,
 no double allocation or free, no write into a block another sequence
-still references. Non-decoding slots' tick writes go to the trash block
-(a retired slot's stale table may point at blocks a live request reuses).
+still references.
 """
 
 from __future__ import annotations
@@ -118,6 +127,60 @@ class _SlotPoolBase:
     def advance(self, slot: int, next_token: int) -> None:
         self.positions[slot] += 1
         self.last_token[slot] = int(next_token)
+
+    # -- layout hooks (scheduler-driven) -----------------------------------
+
+    def bind_seq(self, request) -> int | None:
+        """Attach an admitted request's sequence to its slot. The dense
+        layout has no sequence state (the row IS the state): None."""
+        return None
+
+    def unbind_seq(self, slot: int) -> None:
+        """Release the slot's sequence state (dense: nothing)."""
+
+    def admit_shortfall(self, request) -> int:
+        """Budget units ``request`` is short of admission beyond a free
+        slot (dense: the row is the whole budget — 0)."""
+        return 0
+
+    def freeable_blocks(self, slot: int) -> int:
+        """Budget guaranteed back if ``slot``'s sequence ends now (dense:
+        nothing beyond the slot itself — 0)."""
+        return 0
+
+
+class KVCachePool(_SlotPoolBase):
+    """Dense fixed-capacity slot pool; see module docstring. ``kc``/``vc``
+    are f32 or bf16 tensors on ``device`` (None = ``"cuda"``); quantised
+    dtypes are paged-only (dense rows hold no scales)."""
+
+    def __init__(self, n_layers: int, n_slots: int, n_heads: int,
+                 max_len: int, head_dim: int, cache_dtype=None,
+                 device=None) -> None:
+        super().__init__(n_slots, max_len)
+        from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+            _cache_dtype,
+            _check_cache_quantization,
+        )
+        _check_cache_quantization(cache_dtype, "KVCachePool", paged=False)
+        self.device = resolve_device(device)
+        shape = (n_layers, n_slots, n_heads, max_len, head_dim)
+        cd = _cache_dtype(cache_dtype)
+        self.cache_dtype = cd
+        self.kc = torch.zeros(shape, dtype=cd, device=self.device)
+        self.vc = torch.zeros(shape, dtype=cd, device=self.device)
+        # every row is pinned up front: occupancy never changes what a
+        # dense pool holds resident
+        self._bytes_total = kv_block_bytes(n_layers, n_heads, max_len,
+                                           head_dim, cd) * n_slots
+
+    def bytes_resident(self) -> int:
+        """The full allocation, regardless of occupancy."""
+        return self._bytes_total
+
+    def can_admit(self, request) -> bool:
+        """One free slot IS the whole budget."""
+        return self.n_free > 0
 
 
 class PagedKVPool(_SlotPoolBase):
@@ -254,6 +317,18 @@ class PagedKVPool(_SlotPoolBase):
             self._rows_needed(int(request.resume_seq.shape[0]),
                               request.resume_max_new)) - n_shared_full
         return max(0, budget - (self.blocks_available - n_shared_reclaimable))
+
+    def freeable_blocks(self, slot: int) -> int:
+        """Blocks GUARANTEED back into availability if ``slot``'s sequence
+        ends now: its unused reservation plus its solely-referenced
+        UNCACHED table blocks. Cached blocks are excluded even at ref 1
+        (they land on the reclaimable LRU, which ``admit_shortfall``
+        already discounts when a probe shares them): may under-report (a
+        missed preemption), never over-report (work destroyed for
+        nothing)."""
+        return int(self._resv[slot]) + sum(
+            1 for b in self.tables[slot]
+            if self.ref[b] == 1 and not self._cached.get(b))
 
     def bind_seq(self, request) -> int:
         """Attach an admitted request's sequence to its acquired slot:

@@ -103,9 +103,28 @@ class Histogram:
                 return v
         return pairs[-1][0]
 
+    def fraction_below(self, threshold: float) -> float | None:
+        """Weighted fraction of ring observations ``<= threshold`` — the
+        SLO-attainment primitive; None before any observation."""
+        if not self._ring:
+            return None
+        total = sum(w for _, w in self._ring)
+        hit = sum(w for v, w in self._ring if v <= threshold)
+        return hit / total
+
     @property
     def mean(self) -> float | None:
         return self.sum / self.count if self.count else None
+
+    def summary(self) -> dict:
+        return {
+            "count": self.count,
+            "sum": self.sum,
+            "mean": self.mean,
+            "max": self.max,
+            "p50": self.quantile(0.5),
+            "p95": self.quantile(0.95),
+        }
 
 
 class MetricsRegistry:
@@ -144,6 +163,14 @@ class MetricsRegistry:
                 self._series[key] = inst
                 self._schemas[name] = (cls.kind, label_keys)
             return inst
+
+    def snapshot(self) -> dict:
+        """JSON-serialisable map ``name{k=v,...} -> value`` (histograms map
+        to their summary dict)."""
+        return {_series_key(inst): (inst.summary()
+                                    if isinstance(inst, Histogram)
+                                    else inst.value)
+                for inst in self._series.values()}
 
     def prometheus_text(self) -> str:
         """Prometheus text exposition (histograms as summary quantiles),

@@ -3,6 +3,7 @@ flags and defaults, its console lines, checkpoints and ``--eval-only``,
 and a one-line exit naming the ROADMAP item for every flag whose path is
 not ported."""
 
+import json
 import re
 
 import pytest
@@ -146,9 +147,9 @@ def test_cli_metrics_json(tmp_path):
     (["--sentinel"], "item 6"),
     (["--telemetry-dir", "/tmp/t"], "item 6"),
     (["--profile", "/tmp/p"], "item 6"),
-    (["--scenario", "crash-serve"], "item 4"),
+    (["--scenario", "fleet-replica-loss"], "item 4"),
     (["--chaos", "host-kill@train.step=6"], "item 4"),
-    (["--serve-deadline-ms", "50"], "item 4"),
+    (["--serve-route", "round-robin"], "item 4"),
     (["--serve-trace"], "item 4"),
     (["--serve-replicas", "2"], "item 4"),
     (["--serve-host-blocks", "4"], "item 5"),
@@ -156,7 +157,7 @@ def test_cli_metrics_json(tmp_path):
     (["--lint"], "item 7"),
     (["--lint-only"], "item 7"),
     (["--serve-tp", "2"], "item 6"),
-    (["--serve-chaos", "engine-crash@serve.tick=5"], "item 4"),
+    (["--serve-autoscale", "1,3"], "item 4"),
     (["--serve-adapters", "2", "--serve-sim", "4"], "item 5"),
 ])
 def test_unported_flags_exit_naming_their_item(flag, item):
@@ -179,6 +180,19 @@ def test_unported_flags_exit_naming_their_item(flag, item):
     (["--serve-sim", "4"], "only supported with --model=gpt"),
     (["--model", "gpt", "--serve-sim", "4", "--serve-slots", "0"],
      "--serve-slots must be >= 1, got 0"),
+    (["--model", "gpt", "--serve-sim", "4", "--serve-deadline-ms", "-1"],
+     r"^--serve-deadline-ms must be >= 0 \(0 = none\), got -1.0$"),
+    (["--model", "gpt", "--serve-sim", "4", "--serve-max-restarts", "-1"],
+     "^--serve-max-restarts must be >= 0, got -1$"),
+    (["--model", "gpt", "--serve-sim", "4", "--serve-chaos",
+      "engine-crash@serve.tock"], "^bad --serve-chaos spec: unknown fault "
+                                  "site 'serve.tock'"),
+    (["--model", "gpt", "--serve-sim", "4", "--serve-chaos",
+      "replica-kill@fleet.tick=5"], "needs --serve-replicas"),
+    (["--scenario", "nope"], "^unknown --scenario 'nope'; available: "
+                             "burst-interactive, burst-slow-tick, "
+                             "crash-serve, multi-tenant, overload-shed, "
+                             r"steady \(or 'list'\)$"),
 ])
 def test_bad_values_exit_with_one_line(argv, match):
     with pytest.raises(SystemExit, match=match):
@@ -228,3 +242,105 @@ def test_without_device_and_without_cuda_the_cli_raises():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["--rank", "0", "--world_size", "1", "--model", "lenet",
               "--dryrun", "2", "--data-root", "/nonexistent"])
+
+
+def _skeleton(lines):
+    """Console lines with their numbers, paths and dict contents masked:
+    what the two CLIs must share on a wall-clock run."""
+    out = []
+    for line in lines:
+        line = re.sub(r"\(journal [^,)]*", "(journal J", line)
+        line = re.sub(r"\{[^}]*\}", "{...}", line)
+        out.append(re.sub(r"\d+(\.\d+)?", "N", line))
+    return out
+
+
+def test_cli_serve_chaos_prints_the_jax_lines(capsys, monkeypatch, tmp_path):
+    """``--model gpt --serve-sim 8 --serve-chaos engine-crash@serve.tick=6``
+    serves every request through one restart and prints the JAX CLI's
+    lines (the JAX run's kv-drift line is the analyzer's, ROADMAP item
+    7.3); ``--telemetry-dir`` gets the journal, the serve record and the
+    restart's post-mortem bundle."""
+    from simple_distributed_machine_learning_tpu import cli as jcli
+    from simple_distributed_machine_learning_tpu.serve.engine import (
+        InferenceEngine as JaxEngine,
+    )
+    monkeypatch.setattr(JaxEngine, "kv_drift", lambda self: (0, 0))
+    argv = ["--model", "gpt", "--serve-sim", "8", "--serve-chaos",
+            "engine-crash@serve.tick=6"]
+    main(BASE + argv + ["--telemetry-dir", str(tmp_path / "t")])
+    ours = capsys.readouterr().out.splitlines()
+    jcli.main(["--rank", "0", "--stages", "1", "--telemetry-dir",
+               str(tmp_path / "j")] + argv)
+    ref = [ln for ln in capsys.readouterr().out.splitlines()
+           if "kv drift" not in ln]
+    assert _skeleton(ours) == _skeleton(ref)
+    assert re.match(r"^\| serve: 8/8 requests completed", ours[2])
+    assert ours[3].startswith("| serve: supervisor running, 1 restart(s), ")
+    assert "1 post-mortem bundle(s): ['postmortem-000-restart.json']" in (
+        ours[4])
+    files = sorted(p.name for p in (tmp_path / "t").iterdir())
+    assert files == ["journal.jsonl", "metrics.jsonl", "metrics.prom",
+                     "postmortem-000-restart.json"]
+    rec = json.loads((tmp_path / "t" / "metrics.jsonl").read_text())
+    assert rec["kind"] == "serve" and rec["restarts"] == 1
+    assert rec["recovered_requests"] >= 1 and rec["completed"] == 8
+
+
+def test_cli_scenario_prints_the_jax_lines(capsys, monkeypatch):
+    """``--scenario crash-serve`` and ``overload-shed`` print exactly the
+    JAX CLI's lines: the virtual clock makes every number equal."""
+    from simple_distributed_machine_learning_tpu import cli as jcli
+    from simple_distributed_machine_learning_tpu.serve.engine import (
+        InferenceEngine as JaxEngine,
+    )
+    monkeypatch.setattr(JaxEngine, "kv_drift", lambda self: (0, 0))
+    for name in ("crash-serve", "overload-shed"):
+        main(BASE + ["--scenario", name])
+        ours = capsys.readouterr().out
+        jcli.main(["--rank", "0", "--scenario", name])
+        assert ours == capsys.readouterr().out
+        assert ours.splitlines()[-1] == "| scenario: SLO ATTAINED"
+        assert ("ttft p95 23.16 vms" in ours) == (name == "crash-serve")
+    main(BASE + ["--scenario", "list"])
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split(":")[0] for ln in lines] == [
+        "| steady", "| burst-interactive", "| multi-tenant",
+        "| burst-slow-tick", "| crash-serve", "| overload-shed"]
+    jcli.main(["--rank", "0", "--scenario", "list"])
+    assert set(lines) <= set(capsys.readouterr().out.splitlines())
+
+
+def test_should_stop_drains_in_process(capsys, monkeypatch):
+    """SIGTERM mid-run stops admission, drains what was submitted and
+    exits 0 with the graceful-shutdown line; ``simulate``'s hook is what
+    the handler drives."""
+    import signal
+
+    from simple_distributed_machine_learning_tpu_torch import serve
+
+    inner = serve.simulate
+
+    def simulate(engine, sim, should_stop=None, **kw):
+        def stop():
+            # the signal lands once the first arrival was submitted (the
+            # next arrival is ~1/8 s away), and only once the CLI's handler
+            # is in place: a default SIGTERM would end the test process
+            if engine.requests and callable(signal.getsignal(
+                    signal.SIGTERM)):
+                signal.raise_signal(signal.SIGTERM)
+            return should_stop()
+
+        return inner(engine, sim, should_stop=stop, **kw)
+
+    monkeypatch.setattr(serve, "simulate", simulate)
+    main(BASE + ["--model", "gpt", "--serve-sim", "8",
+                 "--serve-deadline-ms", "5000"])
+    out = capsys.readouterr().out.splitlines()
+    stop = [ln for ln in out if "graceful shutdown" in ln]
+    assert len(stop) == 1 and "on signal 15" in stop[0]
+    m = re.search(r"(\d+) submitted request\(s\) drained", stop[0])
+    assert 0 < int(m[1]) < 8
+    # every submitted request completed (none shed: the deadline is far)
+    assert out[2].startswith(f"| serve: {m[1]}/8 requests completed")
+    assert signal.getsignal(signal.SIGTERM) is signal.SIG_DFL

@@ -176,9 +176,9 @@ def test_engine_defaults_to_cuda_and_raises_without_it(weights):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(kv_layout="dense"),
     # speculative decoding runs on the paged target pool; over the dense
-    # slot layout it waits for that layout (item 4)
+    # slot layout (ported: the serve supervisor's fallback) it waits for
+    # the dense verify programs (item 5)
     dict(kv_layout="dense", draft_stages=object(), draft_cfg=object(),
          spec_k=2),
     dict(mesh=object()),
@@ -187,8 +187,8 @@ def test_engine_defaults_to_cuda_and_raises_without_it(weights):
     dict(lint=True),
     dict(trace=object()),
     dict(flight=object()),
-], ids=["dense-layout", "speculative", "tp", "adapters", "host-tier",
-        "lint", "trace", "flight"])
+], ids=["speculative", "tp", "adapters", "host-tier", "lint", "trace",
+        "flight"])
 def test_unported_engine_knobs_raise_with_roadmap_item(weights, kw):
     _, _, _, tcfg, tst, tparams = weights
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -223,6 +223,8 @@ def _imports(path: pathlib.Path) -> set[str]:
 def test_port_and_chip_smoke_import_no_jax():
     files = sorted((REPO / PORT).rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
+    assert {"faults.py", "scenarios.py"} <= {
+        p.name for p in files if p.parent.name == "resilience"}
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

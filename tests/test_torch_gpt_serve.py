@@ -210,17 +210,90 @@ def test_sampled_top1_equals_greedy_and_seeds_reproduce():
     assert not torch.equal(a, dec(tparams, prompt, key_data(2)))
 
 
-@pytest.mark.parametrize("kw", [dict(attn_impl="ulysses", n_seq=2),
-                                dict(n_experts=4),
-                                dict(attn_impl="ring", n_seq=2),
-                                dict(n_tensor_parallel=2)])
+@pytest.mark.parametrize("kw", [
+    dict(attn_impl="ulysses", n_seq=2),
+    dict(n_experts=4),
+    dict(attn_impl="ring", n_seq=2),
+    dict(n_tensor_parallel=2),
+    # serving builds: the dense slot-row target is ported (the degraded
+    # fallback); speculation over it, tracing and the TP/adapter slot
+    # programs still name their items
+    dict(engine=dict(kv_layout="dense"), item=None),
+    dict(engine=dict(kv_layout="dense", spec_k=2, draft=True),
+         item="item 5, serving extensions"),
+    dict(engine=dict(trace=object()),
+         item="item 4b, request tracing and the SLO reports"),
+    dict(slot_decode=dict(mesh=object()),
+         item="item 6, remaining parallel axes"),
+    dict(slot_decode=dict(adapters=True), item="item 5, serving extensions"),
+])
 def test_unported_configs_raise_with_roadmap_item(kw):
-    """MoE, sequence and tensor parallelism are all item 6's axes."""
+    """MoE, sequence and tensor parallelism are all item 6's axes; the
+    serving knobs name theirs, and what is ported builds."""
+    if "item" not in kw:
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP\.md, Queue A: item 6, remaining "
+                                 r"parallel axes"):
+            tgpt.make_gpt_stages(0, tgpt.GPTConfig(**{**SMALL, **kw}), 1,
+                                 device="cpu")
+        return
+    from simple_distributed_machine_learning_tpu_torch.serve import (
+        InferenceEngine,
+    )
+    _, _, _, tcfg, tst, tparams = _weights()
+    if "engine" in kw:
+        ekw = dict(kw["engine"])
+        if ekw.pop("draft", False):
+            ekw.update(draft_stages=tst, draft_cfg=tcfg)
+
+        def build():
+            return InferenceEngine(tst, tcfg, params=tparams, device="cpu",
+                                   **ekw)
+    else:
+        def build():
+            return tgpt.make_slot_decode_step(tst, tcfg, 16, device="cpu",
+                                              **kw["slot_decode"])
+    if kw["item"] is None:
+        eng = build()
+        h = eng.submit(np.arange(5) % 64, max_new_tokens=4, seed=3)
+        eng.drain()
+        solo = tgpt.make_cached_decoder(tst, tcfg, 5, 4, device="cpu")(
+            tparams, (np.arange(5) % 64)[None].astype(np.int32),
+            key_data(3))
+        assert eng.kv_layout == "dense" and h.tokens == solo[0, 5:].tolist()
+        return
     with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md, Queue A: item 6, remaining "
-                             r"parallel axes"):
-        tgpt.make_gpt_stages(0, tgpt.GPTConfig(**{**SMALL, **kw}), 1,
-                             device="cpu")
+                       match=rf"ROADMAP\.md, Queue A: {kw['item']}"):
+        build()
+
+
+def test_slot_decode_step_matches_the_jax_program():
+    """The dense slot-row decode tick against the JAX ``make_slot_decode_
+    step`` on one pool: same K/V rows written, same log-prob argmax,
+    greedy and sampled slots side by side (sampled tokens come from each
+    package's own generator, so only the greedy tokens are compared)."""
+    jcfg, jst, jparams, tcfg, tst, tparams = _weights()
+    S, ML, H, DH = 3, 16, SMALL["n_heads"], SMALL["d_model"] // 2
+    rng = np.random.default_rng(4)
+    kc = rng.normal(size=(2, S, H, ML, DH)).astype(np.float32)
+    vc = rng.normal(size=(2, S, H, ML, DH)).astype(np.float32)
+    toks = rng.integers(0, 64, S).astype(np.int32)
+    pos = np.asarray([3, 0, 9], np.int32)
+    kd = np.stack([key_data(s) for s in (1, 2, 3)])
+    temps = np.asarray([0.0, 0.0, 0.9], np.float32)
+    top_ks = np.asarray([0, 0, 5], np.int32)
+    top_ps = np.full(S, 2.0, np.float32)
+    jstep = jgpt.make_slot_decode_step(jst, jcfg, ML)
+    jkc, jvc, jt, _ = jstep(jparams, jnp.asarray(kc), jnp.asarray(vc),
+                            toks, pos, kd, temps, top_ks, top_ps)
+    tstep = tgpt.make_slot_decode_step(tst, tcfg, ML, device="cpu")
+    tkc, tvc, tt, tkd = tstep(tparams, torch.from_numpy(kc.copy()),
+                              torch.from_numpy(vc.copy()), toks, pos, kd,
+                              temps, top_ks, top_ps)
+    np.testing.assert_allclose(tkc.numpy(), np.asarray(jkc), **TOL)
+    np.testing.assert_allclose(tvc.numpy(), np.asarray(jvc), **TOL)
+    assert tt[:2].tolist() == np.asarray(jt)[:2].tolist()
+    assert tkd[:2].tolist() == kd[:2].astype(np.int64).tolist()  # greedy
 
 
 def test_block_copy_moves_scale_plane_with_data():
