@@ -119,7 +119,34 @@ or without the port beside it. Phases, each fatal on failure:
    degraded 1, greedy streams equal to phase 3's; (d) the CLI's
    ``--model gpt --serve-sim 8 --serve-chaos engine-crash@serve.tick=6``
    (its restart line) and ``--scenario crash-serve`` (TTFT p95 23.16
-   vms, SLO attained).
+   vms, SLO attained);
+9. the traced fleet: (a) the five fleet scenarios (fleet-replica-loss,
+   hot-prefix-skew, fleet-autoscale-diurnal, disagg-prefill-heavy,
+   handoff-replica-loss) and two variants (hot-prefix-skew under
+   round-robin, disagg-prefill-heavy on the symmetric fleet) through the
+   port's ``run_scenario`` on ``SCENARIO_CFG`` at the virtual clock,
+   attending through K4: every count, TTFT p95, fleet block and replica
+   log equal to ``FLEET_PINS``, K4 launched ``n_layers`` times per decode
+   call summed over the replicas in every fleet tick, every greedy stream
+   equal to a rerun through the dense path, and a third, traced run with
+   the same report and ``ATTRIBUTION_PINS`` (trace events, attributed
+   requests, the slowest rid's TTFT and its components); (b) phase 3's
+   trace through a two-replica ``ServeFleet`` at full width under
+   ``FLEET_DRILL_CHAOS`` with fsync'd journals — 24/24 served, 1 loss,
+   at least 1 migration, every greedy stream equal to phase 3's, no more
+   memory allocated after the loss than before it (the lost pool freed);
+   it prints the migration cost (from the start of the tick that fired
+   the kill to the next journaled token of a migrated request), tokens/s
+   and the fleet tick p50 against phase 3's; (c) the same trace on 1
+   prefill + 1 decode replica — 24 handoffs, greedy streams equal to
+   phase 3's, TTFT, tokens/s and the journal's host time per handoff;
+   (d) phase 3's trace through one engine with a ``ServeTrace``
+   and a ``FlightRecorder`` — 24 requests attributed within
+   ``DRIFT_TOL_MS`` on the host clock, balanced Chrome spans, greedy
+   streams equal to phase 3's, the report CLI exiting 0, and the decode
+   tick p50 traced against untraced; (e) the CLI's ``--serve-replicas 2
+   --serve-trace --telemetry-dir D``, ``--serve-replicas 2
+   --serve-prefill-replicas 1`` and ``--scenario disagg-prefill-heavy``.
 
 Before the last line it prints the kernels as one JSON object (times in
 ms, measured in this run; ``bound_ms`` computed from this run's inputs);
@@ -265,6 +292,46 @@ SCENARIO_ALERTS = {"overload-shed": [
     (37, "inactive", "pending"), (38, "pending", "firing"),
     (49, "firing", "resolved"), (50, "resolved", "inactive")]}
 DRILL_CHAOS = "engine-crash@serve.tick=40"
+# phase 9: the five fleet scenarios and two variants (hot-prefix-skew
+# under round-robin, disagg-prefill-heavy on the symmetric fleet) with
+# their pins on the virtual clock — (completed, interactive TTFT p95 vms
+# or None, fleet-block fields, prefix-hit blocks or None) — and, traced,
+# (trace events, attributed requests, recovered, slowest rid, its TTFT
+# vms, its components); the full-width drill's fault schedule
+FLEET_PINS = {
+    ("fleet-replica-loss", ()): (16, 22.16, dict(
+        replicas=3, alive=2, replica_losses=1, migrations=1,
+        replica_log=[("loss", 0, 5, 2)]), None),
+    ("hot-prefix-skew", ()): (18, 42.62, dict(
+        replicas=3, affinity_hits=17, replica_log=[]), 17),
+    ("hot-prefix-skew", (("route", "round-robin"),)): (18, None, dict(
+        affinity_hits=0, route="round-robin"), 5),
+    ("fleet-autoscale-diurnal", ()): (50, None, dict(
+        replicas=1, scale_outs=4, retired=2, replica_log=[
+            ("scale-out", 1, 30, 2), ("scale-out", 2, 36, 3),
+            ("retire", 2, 61, 2), ("retire", 1, 61, 1),
+            ("scale-out", 3, 76, 2), ("scale-out", 4, 78, 3)]), None),
+    ("disagg-prefill-heavy", ()): (16, 74.719, dict(
+        replicas=4, prefill_replicas=2, handoffs=16), None),
+    ("disagg-prefill-heavy", (("prefill_replicas", 0),)): (
+        16, 206.719, dict(replicas=4), None),
+    ("handoff-replica-loss", ()): (16, 25.16, dict(
+        replicas=3, prefill_replicas=1, handoffs=16, replica_losses=1,
+        migrations=1, replica_log=[("loss", 1, 6, 2)]), None),
+}
+ATTRIBUTION_PINS = {
+    "fleet-replica-loss": (207, 16, 0, 3, 22.16,
+                           {"queue": 1.16, "prefill": 21.0}),
+    "hot-prefix-skew": (227, 18, 0, 3, 42.62,
+                        {"queue": 34.397, "prefill": 8.224}),
+    "fleet-autoscale-diurnal": (625, 50, 0, 47, 138.614,
+                                {"queue": 112.614, "prefill": 26.0}),
+    "disagg-prefill-heavy": (624, 16, 0, 11, 74.719,
+                             {"queue": 3.719, "prefill": 71.0}),
+    "handoff-replica-loss": (303, 16, 0, 3, 25.16,
+                             {"queue": 6.16, "prefill": 19.0}),
+}
+FLEET_DRILL_CHAOS = "replica-kill@fleet.tick=40"
 # where phase 7 runs: the card ("cpu" only to rehearse the phase without
 # one, where its device checks cannot pass)
 MAIN_DEVICE = "cuda"
@@ -897,14 +964,24 @@ def _decode_calls_of(engine) -> list[int]:
     return calls
 
 
+def _engines_of(target) -> list:
+    """The engines a tick of ``target`` steps: an engine's own, a
+    supervisor's current one, or every alive replica's of a fleet."""
+    if hasattr(target, "replicas"):
+        return [r.supervisor.engine for r in target.replicas if r.alive]
+    return [getattr(target, "engine", target)]
+
+
 def _record_ticks(target) -> list[dict]:
-    """Hook ``target.step`` (an engine, or a supervisor: the same surface,
-    its engine rebuilt by a crash) to record one row per tick: its start
-    and host ms, the decode (or speculative) program calls and K4 launches
-    in it, whether the supervisor restarted in it and the memory allocated
-    after it. ``del target.step`` unhooks it. The tick holds no reference
-    to the engine, so a crash leaves only the supervisor's new one
-    alive."""
+    """Hook ``target.step`` (an engine, a supervisor or a fleet: the same
+    surface, engines rebuilt by a crash or dropped by a replica loss) to
+    record one row per tick: its start and host ms, the decode (or
+    speculative) program calls summed over the engines it stepped, K4's
+    launches in it (one global counter), whether a supervisor restarted or
+    a replica was lost in it, and the memory allocated after it. An
+    engine built inside a tick (a rebuild, an autoscaled replica) decodes
+    from the next one on. ``del target.step`` unhooks it. A row holds no
+    reference to an engine, so a crashed or lost one frees at once."""
     import torch
     from simple_distributed_machine_learning_tpu_torch.ops.paged_attention import (  # noqa: E501
         paged_attention,
@@ -913,15 +990,21 @@ def _record_ticks(target) -> list[dict]:
     step = target.step
 
     def recorded():
-        calls = _decode_calls_of(getattr(target, "engine", target))
-        c0, l0 = calls[0], paged_attention.launches
+        before = [(_decode_calls_of(e), _decode_calls_of(e)[0])
+                  for e in _engines_of(target)]
+        l0 = paged_attention.launches
         r0 = getattr(target, "restarts", 0)
+        x0 = getattr(target, "replica_losses", 0)
         t0 = time.perf_counter()
         out = step()
+        ms = (time.perf_counter() - t0) * 1e3
+        decode = sum(calls[0] - c0 for calls, c0 in before)
+        del before
         rows.append(dict(
-            t0=t0, ms=(time.perf_counter() - t0) * 1e3,
-            decode=calls[0] - c0, launches=paged_attention.launches - l0,
+            t0=t0, ms=ms, decode=decode,
+            launches=paged_attention.launches - l0,
             crashed=getattr(target, "restarts", 0) > r0,
+            lost=getattr(target, "replica_losses", 0) > x0,
             mem=torch.cuda.memory_allocated()))
         return out
 
@@ -1296,11 +1379,12 @@ def phase_profile(stages, cfg, record: dict, n_ticks: int = 20) -> None:
 
 # -- phase 8: serving under faults ---------------------------------------------
 
-def _scenario_run(name: str, stages, cfg, kernel: str, outdir: str):
+def _scenario_run(name: str, stages, cfg, kernel: str, outdir: str,
+                  **kw):
     """One scenario through the port's ``run_scenario`` on the card with
-    ``attn_kernel=kernel`` and ``outdir``: ``(report, handles, tick
-    rows)``, the rows ``_record_ticks``'s over every engine the run
-    builds."""
+    ``attn_kernel=kernel``, ``outdir`` and ``kw`` (``route``,
+    ``prefill_replicas``, ``trace``): ``(report, handles, tick rows)``, the
+    rows ``_record_ticks``'s over every engine the run builds."""
     from simple_distributed_machine_learning_tpu_torch.resilience import (
         scenarios,
     )
@@ -1318,7 +1402,7 @@ def _scenario_run(name: str, stages, cfg, kernel: str, outdir: str):
     scenarios.simulate = simulate
     try:
         r = scenarios.run_scenario(name, stages, cfg, device="cuda",
-                                   attn_kernel=kernel, outdir=outdir)
+                                   attn_kernel=kernel, outdir=outdir, **kw)
     finally:
         scenarios.simulate = inner
     return r, seen["handles"], seen["rows"]
@@ -1613,6 +1697,414 @@ def phase_serve_faults(stages, cfg, serve: dict, plain_handles: list,
           f"the CLI's crash-serve scenario printed {scen}")
     rec["cli"] = lines + scen
     return launches + b["launches"] + c["launches"]
+
+
+# -- phase 9: the traced fleet -----------------------------------------------
+
+def _fleet_scenarios(record: dict) -> int:
+    """(a) The five fleet scenarios and two variants (``FLEET_PINS``)
+    through the port's ``run_scenario`` on the card at the virtual clock,
+    on ``SCENARIO_CFG`` (2 stages, random weights from seed 0), each run
+    three times: through K4, through the plain gather-then-dense path, and
+    through K4 traced. The K4 run's counts, TTFT p95, fleet block and
+    replica log must equal the pins, with K4 launched ``n_layers`` times
+    per decode call summed over the replicas in every fleet tick; the
+    dense run's greedy streams must equal it (the pins hold on any
+    weights); the traced run must give the same report and the
+    ``ATTRIBUTION_PINS``. Returns K4's launches."""
+    import tempfile
+
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        GPTConfig,
+        make_gpt_stages,
+    )
+    from simple_distributed_machine_learning_tpu_torch.telemetry.attribution import (  # noqa: E501
+        DRIFT_TOL_MS,
+    )
+    cfg = GPTConfig(**SCENARIO_CFG)
+    stages = make_gpt_stages(0, cfg, 2)[0]
+    rec: dict = {}
+    record["fleet_scenarios"] = rec
+    launches = 0
+    for (name, over), pin in FLEET_PINS.items():
+        kw = dict(over)
+        label = name + "".join(f" {k}={v}" for k, v in over)
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-fleet-") as d:
+            runs = {k: _scenario_run(name, stages, cfg, k,
+                                     os.path.join(d, k), **kw)
+                    for k in ("fused", "dense")}
+            traced = _scenario_run(name, stages, cfg, "fused",
+                                   os.path.join(d, "traced"), trace=True,
+                                   **kw)[0]
+        r, handles, rows = runs["fused"]
+        _, dhandles, drows = runs["dense"]
+        fl = r["fleet"]
+        log = [(e["event"], e["replica"], e["tick"], e["alive"])
+               for e in fl["replica_log"]]
+        got_fleet = {k: (log if k == "replica_log" else fl[k])
+                     for k in pin[2]}
+        p95 = r["slo"].get("interactive", {}).get("ttft_ms_p95")
+        decode = sum(t["decode"] for t in rows)
+        k4 = sum(t["launches"] for t in rows)
+        bad_ticks = _off_ticks(rows, cfg.n_layers)
+        greedy = [rid for rid, h in handles.items() if h.temperature == 0.0]
+        same = [rid for rid in greedy if rid in dhandles
+                and list(handles[rid].tokens) == list(dhandles[rid].tokens)]
+        att = traced["attribution"]
+        top = att["top_slow"][0] if att["top_slow"] else {}
+        got_att = (traced["trace_events"], att["requests"],
+                   att["recovered"], top.get("rid"), top.get("ttft_ms"),
+                   top.get("components_ms"))
+        launches += k4
+        rec[label] = dict(
+            completed=r["completed"], ttft_p95_vms=p95, fleet=fl,
+            prefix_hit_blocks=r.get("prefix_hit_blocks"),
+            slo_ok=r["slo_ok"], launches=k4, decode_calls=decode,
+            dense_launches=sum(t["launches"] for t in drows),
+            greedy=len(greedy), greedy_equal_dense=len(same),
+            traced=dict(events=traced["trace_events"],
+                        attribution=att, slo_ok=traced["slo_ok"]),
+            seconds=time.perf_counter() - t0)
+        print(f"chip_smoke: fleet scenario {label}: {r['completed']} "
+              f"completed, ttft p95 {p95} vms, fleet {fl['replicas']} "
+              f"replica(s) ({fl['alive']} alive), losses "
+              f"{fl['replica_losses']}, migrations {fl['migrations']}, "
+              f"affinity hits {fl['affinity_hits']}, prefix hits "
+              f"{r.get('prefix_hit_blocks')}, handoffs "
+              f"{fl.get('handoffs', '-')}, log {log}, slo_ok {r['slo_ok']}; "
+              f"K4 launches {k4} = {cfg.n_layers} x {decode} decode calls "
+              f"over the replicas ({len(bad_ticks)} fleet ticks off); "
+              f"greedy streams equal to the dense run's "
+              f"{len(same)}/{len(greedy)}; traced: {got_att[0]} events, "
+              f"{att['requests']} attributed, {att['recovered']} "
+              f"recovered, max drift {att['max_abs_drift_ms']} ms, slowest "
+              f"rid {got_att[3]} {got_att[4]} vms = {got_att[5]} "
+              f"({rec[label]['seconds']:.2f} s)")
+        check(r["completed"] == pin[0] and r["shed"] == 0 and r["slo_ok"]
+              and (pin[1] is None or p95 == pin[1]) and got_fleet == pin[2]
+              and (pin[3] is None or r["prefix_hit_blocks"] == pin[3]),
+              f"fleet scenario {label}: completed {r['completed']}, p95 "
+              f"{p95}, fleet {got_fleet}, prefix hits "
+              f"{r.get('prefix_hit_blocks')}, slo_ok {r['slo_ok']} off "
+              f"the pin {pin}")
+        check(decode > 0 and not bad_ticks,
+              f"fleet scenario {label}: K4 launches {k4} over {decode} "
+              f"decode calls; fleet ticks {bad_ticks[:8]} launch other "
+              f"than {cfg.n_layers} per decode call")
+        check(rec[label]["dense_launches"] == 0,
+              f"fleet scenario {label}: the dense run launched K4")
+        check(len(greedy) >= 4 and len(same) == len(greedy),
+              f"fleet scenario {label}: {len(same)}/{len(greedy)} greedy "
+              f"streams through K4 equal the dense run's")
+        check(traced["fleet"] == fl and traced["slo"] == r["slo"]
+              and traced["completed"] == r["completed"]
+              and att["requests"] == r["completed"]
+              and att["max_abs_drift_ms"] <= DRIFT_TOL_MS,
+              f"fleet scenario {label}: tracing moved the report, or the "
+              f"attribution ({att['requests']} requests, drift "
+              f"{att['max_abs_drift_ms']} ms) does not hold")
+        if not over:
+            check(got_att == ATTRIBUTION_PINS[name],
+                  f"fleet scenario {name}: trace and attribution {got_att} "
+                  f"!= {ATTRIBUTION_PINS[name]}")
+    rec["launches"] = launches
+    return launches
+
+
+def _fleet_drill(stages, cfg, plain_handles: list, prefill: int = 0,
+                 chaos: str | None = None) -> dict:
+    """Phase 3's trace (``_serve``) through a two-replica ``ServeFleet``
+    of ``engine_factory(..., attn_kernel="fused", n_slots=SERVE_SLOTS,
+    block_size=SERVE_BLOCK)`` with fsync'd journals in a temporary
+    directory — disaggregated 1 + 1 with ``prefill=1`` — under ``chaos``.
+    Every replica's journal appends are timed, as ``_drill`` times them.
+    Adds to ``_serve``'s record the loss (its tick, the memory allocated
+    around it, the migrated rids: the adopters' ``snap`` records with
+    ``why`` "failure"; and the migration cost: from the start of the tick
+    whose top fired the kill to the next journaled token of a migrated
+    request, on the host clock), the handoffs and the journal's host time
+    per handoff (the destination's fsync'd snap and the source's fsync'd
+    tombstone), and how many greedy streams equal phase 3's."""
+    import tempfile
+
+    from simple_distributed_machine_learning_tpu_torch.resilience import (
+        faults,
+    )
+    from simple_distributed_machine_learning_tpu_torch.serve import (
+        ServeFleet,
+        ServeMetrics,
+        engine_factory,
+    )
+    metrics = ServeMetrics()
+    # (host-clock end of the append, its seconds, the record)
+    appends: list[tuple[float, float, dict]] = []
+
+    def timed(append):
+        def timed_append(ev):
+            t0 = time.perf_counter()
+            append(ev)
+            t1 = time.perf_counter()
+            appends.append((t1, t1 - t0, ev))
+        return timed_append
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-fleet-") as d:
+        fleet = ServeFleet(
+            engine_factory(stages, cfg, attn_kernel="fused",
+                           n_slots=SERVE_SLOTS, block_size=SERVE_BLOCK,
+                           device="cuda", metrics=metrics),
+            d, n_replicas=2, prefill_replicas=prefill, metrics=metrics)
+        journals = [r.supervisor.journal for r in fleet.replicas]
+        check(all(j.sync for j in journals),
+              "the fleet drill's journals must fsync")
+        kc = fleet.replicas[0].supervisor.engine.pool.kc
+        pool_bytes = 2 * kc.numel() * kc.element_size()
+        del kc
+        for j in journals:
+            j.append = timed(j.append)
+        if chaos:
+            faults.install(faults.FaultPlan.parse(chaos))
+        try:
+            run = _serve(fleet)
+        finally:
+            faults.uninstall()
+            fleet.close()
+            # the wrappers close over the record list only; unhook them
+            for j in journals:
+                del j.append
+    rows = run["rows"]
+    lost = [i for i, t in enumerate(rows) if t["lost"]]
+    handoff_s = sum(dt for _, dt, ev in appends
+                    if ev["ev"] == "handoff"
+                    or (ev["ev"] == "snap" and ev.get("why") == "handoff"))
+    out = dict(completed=run["report"]["completed"], summary=run["summary"],
+               launches=run["launches"], decode=run["decode"], rows=rows,
+               tick_ms_p50=run["tick_ms_p50"], pool_bytes=pool_bytes,
+               losses=fleet.replica_losses, migrations=fleet.migrations,
+               handoffs=fleet.handoffs, lost_ticks=lost,
+               handoff_ms_per_request=(handoff_s * 1e3
+                                       / max(fleet.handoffs, 1)))
+    if lost:
+        li = lost[0]
+        t_kill = rows[li]["t0"]
+        migrated = {ev["rid"] for t, _, ev in appends
+                    if t > t_kill and ev["ev"] == "snap"
+                    and ev.get("why") == "failure"}
+        nxt = [t for t, _, ev in appends if t > t_kill
+               and ev["ev"] == "tok" and ev["rid"] in migrated]
+        # rows[i] is fleet tick i + 1
+        out.update(loss_tick=li + 1, mem_before=rows[li - 1]["mem"],
+                   mem_after=rows[li]["mem"], migrated=sorted(migrated),
+                   migration_ms=((nxt[0] - t_kill) * 1e3 if nxt
+                                 else None))
+    handles = run["handles"]
+    greedy = [i for i, h in enumerate(plain_handles)
+              if h.temperature == 0.0]
+    out.update(greedy=len(greedy), greedy_equal=sum(
+        handles[i].tokens == plain_handles[i].tokens for i in greedy))
+    return out
+
+
+def _traced_serve(stages, cfg, outdir: str) -> tuple[dict, dict, object]:
+    """Phase 3's trace through a warmed fused engine twice: untraced, then
+    with a ``ServeTrace(outdir)`` and a ``FlightRecorder`` attached after
+    the warm-up (so only the trace's 24 requests are recorded). Returns
+    both runs and the recorder."""
+    from simple_distributed_machine_learning_tpu_torch.serve import (
+        FlightRecorder,
+        ServeTrace,
+    )
+    plain = _serve(_warm_engine(stages, cfg, "fused"))
+    engine = _warm_engine(stages, cfg, "fused")
+    trace = ServeTrace(outdir=outdir)
+    engine.trace, engine.flight = trace, FlightRecorder()
+    try:
+        traced = _serve(engine)
+    finally:
+        trace.close()
+    traced["flight_rows"] = engine.flight.ticks_recorded
+    return plain, traced, trace
+
+
+def _span_balance(events: list[dict]) -> tuple[int, int]:
+    """(orphan ends, unclosed begins) over a Chrome trace's async spans."""
+    open_count: dict = {}
+    orphans = 0
+    for e in events:
+        key = (e.get("cat"), e.get("id"), e["name"])
+        if e["ph"] == "b":
+            open_count[key] = open_count.get(key, 0) + 1
+        elif e["ph"] == "e":
+            if open_count.get(key, 0) < 1:
+                orphans += 1
+            else:
+                open_count[key] -= 1
+    return orphans, sum(v for v in open_count.values() if v)
+
+
+def phase_fleet(stages, cfg, serve: dict, plain_handles: list,
+                record: dict) -> int:
+    """Phase 9 (module docstring): the fleet scenarios at the virtual
+    clock, traced and attributed (a), the full-width replica-loss drill
+    (b), the disaggregated fleet at full width (c), tracing at full width
+    (d) and the CLI's fleet, trace and disaggregated runs (e). Returns
+    K4's launches over (a)-(d)."""
+    import subprocess
+    import tempfile
+
+    from simple_distributed_machine_learning_tpu_torch.telemetry.attribution import (  # noqa: E501
+        DRIFT_TOL_MS,
+        attribute,
+    )
+    rec: dict = {}
+    record["fleet"] = rec
+    launches = _fleet_scenarios(record)
+    n_layers = cfg.n_layers
+    ps = serve["summary"]
+    n = SERVE_SIM["n_requests"]
+
+    # (b) the replica-loss drill
+    b = _fleet_drill(stages, cfg, plain_handles, chaos=FLEET_DRILL_CHAOS)
+    bs_ = b["summary"]
+    rec["drill"] = {k: v for k, v in b.items() if k not in ("summary",
+                                                            "rows")}
+    rec["drill"]["summary"] = bs_
+    print(f"chip_smoke: fleet drill (b) {FLEET_DRILL_CHAOS!r}, 2 replicas, "
+          f"phase 3's trace: {b['completed']}/{n} served, {b['losses']} "
+          f"loss at tick {b.get('loss_tick')}, {b['migrations']} "
+          f"migrated {b.get('migrated')}; migration cost "
+          f"{b.get('migration_ms')} ms (from the start of the killing "
+          f"tick to the next journaled token of a migrated request); "
+          f"{bs_['tokens_per_sec']} tok/s against "
+          f"phase 3's {ps['tokens_per_sec']}; fleet tick p50 "
+          f"{b['tick_ms_p50']:.3f} ms against phase 3's tick "
+          f"{serve['tick_ms_p50']:.3f}; ttft p50/p95 {bs_['ttft_ms_p50']}/"
+          f"{bs_['ttft_ms_p95']} ms; memory allocated {b.get('mem_before')} "
+          f"before the loss, {b.get('mem_after')} after (pool "
+          f"{b['pool_bytes']}); K4 launches {b['launches']} = {n_layers} x "
+          f"{b['decode']} decode calls over the replicas; greedy streams "
+          f"equal to phase 3's {b['greedy_equal']}/{b['greedy']}")
+    check(b["completed"] == n and b["losses"] == 1 and b["migrations"] >= 1,
+          f"fleet drill: {b['completed']} served, {b['losses']} losses, "
+          f"{b['migrations']} migrations")
+    check(b["greedy"] >= 2 and b["greedy_equal"] == b["greedy"],
+          "fleet drill: greedy streams differ from phase 3's")
+    off = _off_ticks(b["rows"], n_layers)
+    check(b["decode"] > 0 and not off,
+          f"fleet drill: K4 launches other than {n_layers} per decode call "
+          f"in fleet ticks {off[:8]}")
+    check(b["mem_after"] <= b["mem_before"],
+          f"fleet drill: {b['mem_after'] - b['mem_before']} more bytes "
+          f"allocated after the loss: the lost replica's pool is alive")
+    check(b["migration_ms"] is not None,
+          "fleet drill: no migrated request emitted after the loss")
+
+    # (c) disaggregated, 1 prefill + 1 decode
+    c = _fleet_drill(stages, cfg, plain_handles, prefill=1)
+    cs = c["summary"]
+    rec["disagg"] = {k: v for k, v in c.items() if k not in ("summary",
+                                                             "rows")}
+    rec["disagg"]["summary"] = cs
+    print(f"chip_smoke: disaggregated (c) 1 prefill + 1 decode, phase 3's "
+          f"trace: {c['completed']}/{n} served, {c['handoffs']} handoffs, "
+          f"{c['handoff_ms_per_request']:.4f} ms of journal host time "
+          f"per handoff (fsync'd snap on the destination, fsync'd "
+          f"tombstone on the source); ttft "
+          f"p50/p95 {cs['ttft_ms_p50']}/{cs['ttft_ms_p95']} ms against "
+          f"phase 3's {ps['ttft_ms_p50']}/{ps['ttft_ms_p95']}; "
+          f"{cs['tokens_per_sec']} tok/s against {ps['tokens_per_sec']}; "
+          f"fleet tick p50 {c['tick_ms_p50']:.3f} ms; K4 launches "
+          f"{c['launches']} = {n_layers} x {c['decode']} decode calls; "
+          f"greedy streams equal to phase 3's "
+          f"{c['greedy_equal']}/{c['greedy']}")
+    check(c["completed"] == n and c["handoffs"] == n,
+          f"disaggregated: {c['completed']} served, {c['handoffs']} "
+          f"handoffs, want {n} each")
+    check(c["greedy_equal"] == c["greedy"],
+          "disaggregated: greedy streams differ from phase 3's")
+    off = _off_ticks(c["rows"], n_layers)
+    check(c["decode"] > 0 and not off,
+          f"disaggregated: K4 launches other than {n_layers} per decode "
+          f"call in fleet ticks {off[:8]}")
+
+    # (d) tracing at full width, on the host clock
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-trace-") as d:
+        plain, traced, trace = _traced_serve(stages, cfg, d)
+        att = attribute(trace.rows)
+        with open(os.path.join(d, trace.trace_file)) as f:
+            orphans, unclosed = _span_balance(json.load(f)["traceEvents"])
+        rep = subprocess.run(
+            [sys.executable, "-m", f"{PORT}.telemetry.report", "--dir", d],
+            capture_output=True, text=True, timeout=120, cwd=HERE)
+    greedy = [i for i, h in enumerate(plain_handles)
+              if h.temperature == 0.0]
+    same = sum(traced["handles"][i].tokens == plain_handles[i].tokens
+               for i in greedy)
+    rec["traced"] = dict(
+        events=trace.n_events, attributed=att["requests"],
+        max_abs_drift_ms=att["max_abs_drift_ms"], by_class=att["by_class"],
+        top_slow=att["top_slow"], orphan_ends=orphans, unclosed=unclosed,
+        flight_rows=traced["flight_rows"],
+        tick_ms_p50=traced["tick_ms_p50"],
+        untraced_tick_ms_p50=plain["tick_ms_p50"],
+        tick_ms=traced["tick_ms"], untraced_tick_ms=plain["tick_ms"],
+        report_rc=rep.returncode, greedy=len(greedy), greedy_equal=same,
+        launches=traced["launches"] + plain["launches"])
+    print(f"chip_smoke: traced (d) phase 3's trace: {trace.n_events} "
+          f"events, {att['requests']} attributed, max drift "
+          f"{att['max_abs_drift_ms']} ms on the host clock, slowest "
+          + (f"rid {att['top_slow'][0]['rid']} "
+             f"{att['top_slow'][0]['ttft_ms']} ms = "
+             f"{att['top_slow'][0]['components_ms']}" if att["top_slow"]
+             else "-")
+          + f"; spans orphan/unclosed {orphans}/{unclosed}; "
+          f"{traced['flight_rows']} flight rows; decode tick p50 "
+          f"{traced['tick_ms_p50']:.4f} ms traced against "
+          f"{plain['tick_ms_p50']:.4f} untraced (mean "
+          f"{traced['tick_ms']:.4f} / {plain['tick_ms']:.4f}); report CLI "
+          f"rc {rep.returncode}; greedy streams equal to phase 3's "
+          f"{same}/{len(greedy)}")
+    check(att["requests"] == n and att["max_abs_drift_ms"] <= DRIFT_TOL_MS,
+          f"traced: {att['requests']} attributed, drift "
+          f"{att['max_abs_drift_ms']} ms")
+    check(orphans == 0 and unclosed == 0,
+          f"traced: {orphans} orphan ends, {unclosed} unclosed spans")
+    check(rep.returncode == 0 and "timeline" in rep.stdout,
+          f"the report CLI exited {rep.returncode}: {rep.stderr[-400:]}")
+    check(same == len(greedy) and traced["flight_rows"] > 0,
+          "traced: greedy streams differ from phase 3's")
+    for run in (plain, traced):
+        off = _off_ticks(run["rows"], n_layers)
+        check(run["decode"] > 0 and not off,
+              f"traced: K4 launches other than {n_layers} per decode "
+              f"call in ticks {off[:8]}")
+
+    # (e) the CLI
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-") as d:
+        lines = _cli(["--model", "gpt", "--serve-sim", "8",
+                      "--serve-replicas", "2", "--serve-trace",
+                      "--telemetry-dir", d])
+        files = sorted(os.listdir(d))
+    dis = _cli(["--model", "gpt", "--serve-sim", "8", "--serve-replicas",
+                "2", "--serve-prefill-replicas", "1"])
+    scen = _cli(["--scenario", "disagg-prefill-heavy"])
+    print(f"chip_smoke: CLI --serve-sim 8 --serve-replicas 2 --serve-trace: "
+          f"{lines[1:]}, files {files}; --serve-prefill-replicas 1: "
+          f"{dis[2:]}; --scenario disagg-prefill-heavy: {scen}")
+    check(any(ln.startswith("| serve: 8/8 requests completed")
+              for ln in lines) and "request_timeline.jsonl" in files
+          and "serve_trace.json" in files
+          and any(ln.startswith("| serve: trace ") for ln in lines),
+          f"the CLI's traced fleet run printed {lines}, wrote {files}")
+    check(any(ln.startswith("| serve: disaggregated — 8 prefill->decode")
+              for ln in dis),
+          f"the CLI's disaggregated run printed {dis}")
+    check(scen[-1] == "| scenario: SLO ATTAINED"
+          and any("ttft p95 74.719 vms" in ln for ln in scen),
+          f"the CLI's disagg-prefill-heavy scenario printed {scen}")
+    rec["cli"] = lines + dis + scen
+    return (launches + b["launches"] + c["launches"]
+            + rec["traced"]["launches"])
 
 
 # -- phases 5-6: training ------------------------------------------------------
@@ -2235,6 +2727,8 @@ def main() -> int:
         phase_profile(stages, cfg, record)
         fault_launches = phase_serve_faults(stages, cfg, serve,
                                             plain_handles, record)
+        fleet_launches = phase_fleet(stages, cfg, serve, plain_handles,
+                                     record)
         del stages
         train = phase_train("gpt_bf16", TRAIN_ROWS["gpt_bf16"], record)
         phase_train("gpt", TRAIN_ROWS["gpt"], record)
@@ -2251,9 +2745,10 @@ def main() -> int:
         "source": f"{PORT}/ops/csrc/paged_attention.cu",
         "replaces": "simple_distributed_machine_learning_tpu/ops/"
                     "paged_attention.py:67",
-        # phase 3's decode ticks, phase 3b's speculative verify steps and
-        # phase 8's scenarios and drills
-        "launches": serve["launches"] + spec["launches"] + fault_launches,
+        # phase 3's decode ticks, phase 3b's speculative verify steps,
+        # phase 8's scenarios and drills and phase 9's fleet runs
+        "launches": (serve["launches"] + spec["launches"] + fault_launches
+                     + fleet_launches),
         "max_abs_err": max(v["max_abs_err"] for v in variants),
         "ms": main_v["ms"],
         "plain_ms": main_v["plain_ms"],

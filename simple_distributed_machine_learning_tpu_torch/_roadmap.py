@@ -10,8 +10,7 @@ def not_ported(what: str, item: str) -> NotImplementedError:
         f"(ROADMAP.md, Queue A: {item})")
 
 
-SERVE_TRACING = "item 4b, request tracing and the SLO reports"
-SERVE_FLEET = "item 4c, the fleet and training resilience"
+TRAIN_RESILIENCE = "item 4d, training resilience"
 SERVE_EXTENSIONS = "item 5, serving extensions"
 PARALLEL_AXES = "item 6, remaining parallel axes"
 ANALYSIS = "item 7, analysis"

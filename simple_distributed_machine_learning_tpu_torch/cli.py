@@ -17,16 +17,19 @@ tokens per slot per tick and the target verifies them in one pass. With
 behind the serve supervisor: a journaled, crash-restartable engine with
 deadline shedding (``--serve-max-restarts`` bounds its rebuilds), and
 ``--telemetry-dir`` keeps the journal, the serve record and the
-post-mortem bundles. SIGTERM/SIGINT during ``--serve-sim`` stop admission
-and drain what is in flight. ``--scenario NAME`` runs one of the six
-one-engine SLO scenarios on the virtual clock (``--scenario list`` names
-them).
+post-mortem bundles. ``--serve-replicas N`` serves through a fleet of N
+supervised replicas (``--serve-route``, ``--serve-autoscale MIN,MAX``,
+``--serve-prefill-replicas`` for disaggregated prefill/decode), and
+``--serve-trace`` records every request's timeline next to the telemetry.
+SIGTERM/SIGINT during ``--serve-sim`` stop admission and drain what is in
+flight. ``--scenario NAME`` runs one of the eleven SLO scenarios on the
+virtual clock (``--scenario list`` names them).
 
 One flag is the port's own: ``--device`` (default CUDA; the run raises
 without it unless ``--device cpu`` asks for the CPU). Every other flag of
 the JAX parser is accepted; a flag whose path is not ported exits, when
-set, with one line naming its ROADMAP item (the fleet, tracing, host-tier
-and adapter flags, the fleet scenarios, training chaos, the sentinel,
+set, with one line naming its ROADMAP item (the host-tier and adapter
+flags and scenarios, training chaos, the sentinel,
 training telemetry and profiling, the linter, and every parallel axis:
 ``--stages`` above 1, ``--dp/--tp/--sp/--ep/--experts``, ``--world_size``
 above 1). ``--microbatches`` is accepted and does not split the batch, as
@@ -162,20 +165,53 @@ def build_parser() -> argparse.ArgumentParser:
                         "deadline)")
     g.add_argument('--serve-max-restarts', type=int, default=3,
                    help="with --serve-chaos: engine-rebuild budget")
+    g.add_argument('--serve-replicas', type=int, default=0, metavar='N',
+                   help="with --serve-sim: serve through a fleet of N "
+                        "supervised engine replicas behind a health-aware "
+                        "router (serve/fleet.py) — prefix-cache-affinity "
+                        "routing, per-replica journals "
+                        "(journal-r<i>.jsonl), and journal-backed "
+                        "cross-replica migration: killing a whole replica "
+                        "(--serve-chaos 'replica-kill@fleet.tick=5') "
+                        "re-admits its in-flight requests onto the "
+                        "survivors from its journal alone. 0 = one engine")
+    g.add_argument('--serve-route',
+                   choices=("affinity", "least-loaded", "round-robin"),
+                   default="affinity",
+                   help="with --serve-replicas: routing policy — "
+                        "affinity routes to the replica whose paged pool "
+                        "already holds the prompt's registered prefix "
+                        "blocks (least-loaded fallback); least-loaded "
+                        "orders by queue depth then occupancy; "
+                        "round-robin is the affinity-blind baseline")
+    g.add_argument('--serve-autoscale', type=str, default=None,
+                   metavar='MIN,MAX',
+                   help="with --serve-replicas: the fleet autoscaler "
+                        "between MIN and MAX replicas — scale-out on "
+                        "sustained queue backlog, drain-then-retire on "
+                        "idle (serve/fleet.py::AutoscalePolicy)")
+    g.add_argument('--serve-prefill-replicas', type=int, default=0,
+                   metavar='N',
+                   help="with --serve-replicas: disaggregate the fleet — "
+                        "the first N replicas form the prefill pool (new "
+                        "requests board there only) and the rest the "
+                        "decode pool; every request hands off at "
+                        "end-of-prefill by the journal snap/adopt move. "
+                        "Exclusive with --serve-autoscale")
     for flag, typ, default in (
             ('--serve-tp', int, 1),
-            ('--serve-replicas', int, 0), ('--serve-autoscale', str, None),
-            ('--serve-prefill-replicas', int, 0),
             ('--serve-host-blocks', int, 0),
             ('--serve-prefetch-ticks', int, 1),
             ('--serve-adapters', int, 0), ('--serve-adapter-rank', int, 4)):
         g.add_argument(flag, type=typ, default=default,
-                       help="serving (ROADMAP items 4-5)")
-    g.add_argument('--serve-route',
-                   choices=("affinity", "least-loaded", "round-robin"),
-                   default="affinity", help="serving (ROADMAP item 4)")
+                       help="serving (ROADMAP items 5-6)")
     g.add_argument('--serve-trace', action='store_true',
-                   help="serving (ROADMAP item 4)")
+                   help="with --serve-sim/--scenario and --telemetry-dir: "
+                        "request-scoped tracing (serve/tracing.py) — a "
+                        "per-rid span timeline written as "
+                        "serve_trace*.json (chrome://tracing / Perfetto) "
+                        "plus a request_timeline*.jsonl the report CLI "
+                        "reads (python -m ...telemetry.report)")
     g.add_argument('--text-corpus', default=None, metavar="PATH",
                    help="for --model=gpt: train on the bytes of this local "
                         "file (vocab 256) instead of the synthetic stream")
@@ -208,12 +244,12 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument('--sentinel-snapshot-every', type=int, default=4,
                    metavar='K', help="self-healing training (ROADMAP item 6)")
     g.add_argument('--chaos', type=str, default=None, metavar='SPEC',
-                   help="training fault-injection drill (ROADMAP item 4c)")
+                   help="training fault-injection drill (ROADMAP item 4d)")
     g.add_argument('--chaos-stages', type=str, default=None,
                    metavar='S1,S2', help="training fault-injection drill "
                                          "(ROADMAP item 6)")
     g.add_argument('--chaos-max-restarts', type=int, default=3,
-                   help="training fault-injection drill (ROADMAP item 4c)")
+                   help="training fault-injection drill (ROADMAP item 4d)")
     g.add_argument('--scenario', type=str, default=None, metavar='NAME',
                    help="run one SLO-gated serving scenario on the "
                         "virtual clock; exits nonzero unless every class "
@@ -234,13 +270,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 # flags whose paths are not ported: set to anything but the default, each
-# exits naming its ROADMAP item. The serve flags not named here run:
-# the plain --serve-sim path and the supervisor's --serve-chaos,
-# --serve-deadline-ms and --serve-max-restarts
-_UNPORTED = ({"serve_trace": _roadmap.SERVE_TRACING}
-             | {k: _roadmap.SERVE_FLEET for k in (
-                 "serve_replicas", "serve_autoscale", "serve_route",
-                 "serve_prefill_replicas", "chaos", "chaos_max_restarts")}
+# exits naming its ROADMAP item. The serve flags not named here run: the
+# plain --serve-sim path, the supervisor's, the fleet's and tracing
+_UNPORTED = ({k: _roadmap.TRAIN_RESILIENCE for k in (
+                 "chaos", "chaos_max_restarts")}
              | {k: _roadmap.SERVE_EXTENSIONS for k in (
                  "serve_host_blocks", "serve_prefetch_ticks",
                  "serve_adapters", "serve_adapter_rank")}
@@ -544,6 +577,48 @@ def _check_serve_args(args) -> None:
     if args.serve_max_restarts < 0:
         raise SystemExit(f"--serve-max-restarts must be >= 0, got "
                          f"{args.serve_max_restarts}")
+    if args.serve_replicas < 0:
+        raise SystemExit(f"--serve-replicas must be >= 0 (0 = single "
+                         f"engine), got {args.serve_replicas}")
+    if args.serve_route != "affinity" and not args.serve_replicas:
+        raise SystemExit("--serve-route needs --serve-replicas (a single "
+                         "engine has nothing to route between)")
+
+
+def _fleet_autoscale(args):
+    """The parsed ``--serve-autoscale`` policy (None without one), after
+    the fleet flags' validation, in the JAX CLI's words."""
+    autoscale = None
+    if args.serve_autoscale:
+        if not args.serve_replicas:
+            raise SystemExit("--serve-autoscale needs --serve-replicas")
+        from simple_distributed_machine_learning_tpu_torch.serve import (
+            AutoscalePolicy,
+        )
+        try:
+            lo, hi = (int(v) for v in args.serve_autoscale.split(","))
+            autoscale = AutoscalePolicy(min_replicas=lo, max_replicas=hi)
+        except ValueError as e:
+            raise SystemExit(f"bad --serve-autoscale (expected MIN,MAX "
+                             f"integers): {e}") from None
+        if not lo <= args.serve_replicas <= hi:
+            raise SystemExit(
+                f"--serve-replicas {args.serve_replicas} outside the "
+                f"--serve-autoscale bounds [{lo}, {hi}]")
+    if args.serve_prefill_replicas:
+        if not args.serve_replicas:
+            raise SystemExit("--serve-prefill-replicas needs "
+                             "--serve-replicas (pools split a fleet)")
+        if not 0 < args.serve_prefill_replicas < args.serve_replicas:
+            raise SystemExit(
+                f"--serve-prefill-replicas must leave at least one decode "
+                f"replica (0 < N < {args.serve_replicas}), got "
+                f"{args.serve_prefill_replicas}")
+        if args.serve_autoscale:
+            raise SystemExit("--serve-prefill-replicas and "
+                             "--serve-autoscale are mutually exclusive "
+                             "(the autoscaler assumes one symmetric pool)")
+    return autoscale
 
 
 def _serve_plan(args):
@@ -557,7 +632,8 @@ def _serve_plan(args):
         plan = faults.FaultPlan.parse(args.serve_chaos)
     except ValueError as e:
         raise SystemExit(f"bad --serve-chaos spec: {e}") from None
-    if any(s.site == "fleet.tick" for s in plan.specs):
+    if not args.serve_replicas and any(
+            s.site == "fleet.tick" for s in plan.specs):
         # only a fleet probes fleet.tick: the fault would never fire
         raise SystemExit(
             "--serve-chaos at site fleet.tick needs --serve-replicas "
@@ -573,9 +649,10 @@ def _run_serve(args, device) -> None:
     trains. The engine attends through the paged-attention kernel
     (``attn_kernel="fused"``; on the CPU, its plain version), where the
     JAX CLI keeps its engine's default gather-then-dense path: greedy
-    streams are equal either way. With --serve-chaos or
-    --serve-deadline-ms the engine runs behind the serve supervisor.
-    Exits 1 unless every submitted request completed or was structurally
+    streams are equal either way. With --serve-replicas the trace runs
+    through a fleet of supervised replicas; otherwise, with --serve-chaos
+    or --serve-deadline-ms, behind one serve supervisor. --serve-trace
+    records the request timelines. Exits 1 unless every submitted request completed or was structurally
     shed."""
     import dataclasses
     import os
@@ -594,15 +671,20 @@ def _run_serve(args, device) -> None:
     )
     from simple_distributed_machine_learning_tpu_torch.serve import (
         InferenceEngine,
+        ServeFleet,
         ServeMetrics,
         ServeSupervisor,
+        ServeTrace,
         SimConfig,
         engine_factory,
         simulate,
     )
     _check_serve_args(args)
+    autoscale = _fleet_autoscale(args)
     serve_plan = _serve_plan(args)
-    supervised = bool(args.serve_chaos or args.serve_deadline_ms)
+    fleet_mode = args.serve_replicas > 0
+    supervised = (not fleet_mode
+                  and bool(args.serve_chaos or args.serve_deadline_ms))
     cfg = GPTConfig(vocab=256 if args.text_corpus else 128)
     longest = args.serve_shared_prefix + max(GPT_SERVE_PROMPTS)
     if longest + 1 > cfg.seq_len:
@@ -639,6 +721,12 @@ def _run_serve(args, device) -> None:
         print("| serve: fresh-initialized params"
               + (f" (no checkpoint at {ckpt})" if ckpt else ""))
     metrics = ServeMetrics(outdir=args.telemetry_dir)
+    trace = None
+    if args.serve_trace:
+        if not args.telemetry_dir:
+            raise SystemExit("--serve-trace needs --telemetry-dir (the "
+                             "trace artifacts land next to metrics.jsonl)")
+        trace = ServeTrace(outdir=args.telemetry_dir)
     engine_kw = dict(
         params=params, n_slots=args.serve_slots,
         block_size=args.serve_block_size,
@@ -646,7 +734,33 @@ def _run_serve(args, device) -> None:
         attn_kernel="fused", metrics=metrics, draft_stages=draft_stages,
         draft_cfg=draft_cfg, spec_k=args.serve_spec_k, device=device)
     tmpdir = None
-    if supervised:
+    if fleet_mode:
+        if args.telemetry_dir:
+            journal_dir = args.telemetry_dir
+        else:
+            tmpdir = tempfile.TemporaryDirectory(prefix="sdml-fleet-")
+            journal_dir = tmpdir.name
+        engine = ServeFleet(
+            engine_factory(stages, cfg, **engine_kw), journal_dir,
+            n_replicas=args.serve_replicas,
+            prefill_replicas=args.serve_prefill_replicas,
+            route=args.serve_route,
+            metrics=metrics, autoscale=autoscale,
+            max_restarts=args.serve_max_restarts,
+            default_deadline_s=(args.serve_deadline_ms / 1e3
+                                if args.serve_deadline_ms else None),
+            trace=trace, postmortem_dir=args.telemetry_dir or None)
+        print(f"| serve: fleet of {args.serve_replicas} replica(s), "
+              f"route {args.serve_route} (journals "
+              f"{journal_dir}/journal-r*.jsonl"
+              + (f", disaggregated {args.serve_prefill_replicas} prefill "
+                 f"+ {args.serve_replicas - args.serve_prefill_replicas} "
+                 f"decode" if args.serve_prefill_replicas else "")
+              + (f", autoscale [{autoscale.min_replicas}, "
+                 f"{autoscale.max_replicas}]" if autoscale else "")
+              + (f", chaos {args.serve_chaos!r}" if args.serve_chaos
+                 else "") + ")")
+    elif supervised:
         if args.telemetry_dir:
             journal_path = os.path.join(args.telemetry_dir,
                                         "journal.jsonl")
@@ -660,14 +774,14 @@ def _run_serve(args, device) -> None:
             metrics=metrics, max_restarts=args.serve_max_restarts,
             default_deadline_s=(args.serve_deadline_ms / 1e3
                                 if args.serve_deadline_ms else None),
-            postmortem_dir=args.telemetry_dir or None)
+            trace=trace, postmortem_dir=args.telemetry_dir or None)
         print(f"| serve: supervised (journal {journal_path}"
               + (f", chaos {args.serve_chaos!r}" if args.serve_chaos
                  else "")
               + (f", deadline {args.serve_deadline_ms:g} ms"
                  if args.serve_deadline_ms else "") + ")")
     else:
-        engine = InferenceEngine(stages, cfg, **engine_kw)
+        engine = InferenceEngine(stages, cfg, trace=trace, **engine_kw)
     max_new = min(args.serve_max_new, cfg.seq_len - longest)
     if max_new < args.serve_max_new:
         print(f"| serve: --serve-max-new {args.serve_max_new} clamped to "
@@ -700,8 +814,10 @@ def _run_serve(args, device) -> None:
             faults.uninstall()
         for sig, h in old_handlers.items():
             signal.signal(sig, h)
-        if supervised:
-            engine.close()             # journal flushed + closed
+        if supervised or fleet_mode:
+            engine.close()             # journal(s) flushed + closed
+        if trace is not None:
+            trace.close()              # chrome trace + timeline flushed
     s = metrics.summary()
     print(f"| serve: {report['completed']}/{report['n_requests']} requests "
           f"completed, {s['tokens_generated']} tokens, "
@@ -709,6 +825,23 @@ def _run_serve(args, device) -> None:
           f"ttft p50/p95 {s['ttft_ms_p50']}/{s['ttft_ms_p95']} ms, "
           f"tpot p50/p95 {s['tpot_ms_p50']}/{s['tpot_ms_p95']} ms, "
           f"occupancy {s['slot_occupancy_mean']}")
+    if fleet_mode:
+        print(f"| serve: fleet {engine.n_alive} alive "
+              f"({engine.n_in_rotation} in rotation), "
+              f"{engine.replica_losses} replica loss(es), "
+              f"{engine.migrations} migration(s), "
+              f"{s.get('route_affinity_hits', 0)} affinity hit(s), "
+              f"{s.get('fleet_scale_outs', 0)} scale-out(s), "
+              f"{s.get('fleet_retired', 0)} retired, "
+              f"{s.get('restarts', 0)} in-place restart(s), "
+              f"journals {s.get('journal_bytes', 0)} bytes")
+        if args.serve_prefill_replicas:
+            print(f"| serve: disaggregated — {engine.handoffs} "
+                  f"prefill->decode handoff(s), pools "
+                  + ", ".join(
+                      f"{p}[{b['replicas']} replica(s), queue "
+                      f"{b['queue_depth']}, {b['slots_active']} active]"
+                      for p, b in sorted((s.get("pools") or {}).items())))
     if supervised:
         print(f"| serve: supervisor {engine.state}, "
               f"{s.get('restarts', 0)} restart(s), "
@@ -719,6 +852,9 @@ def _run_serve(args, device) -> None:
             print(f"| serve: {len(engine.postmortems)} post-mortem "
                   f"bundle(s): "
                   f"{[os.path.basename(p) for p in engine.postmortems]}")
+    if trace is not None:
+        print(f"| serve: trace {trace.n_events} events -> "
+              f"{trace.trace_file} + {trace.timeline_file}")
     if report["stopped"]:
         print(f"| serve: graceful shutdown on signal {stop['sig']} — "
               f"admission stopped, {report['submitted']} submitted "
@@ -755,8 +891,9 @@ def _run_serve(args, device) -> None:
 def _run_scenario(args, device) -> None:
     """--scenario NAME: one SLO-gated serving scenario
     (``resilience/scenarios.py``) on a fresh GPT build, attending through
-    the paged-attention kernel; exits nonzero unless every gated class
-    attains its targets and every request is accounted for."""
+    the paged-attention kernel (traced with --serve-trace); exits nonzero
+    unless every gated class attains its targets and every request is
+    accounted for."""
     from simple_distributed_machine_learning_tpu_torch.models.gpt import (
         GPTConfig,
         make_gpt_stages,
@@ -784,7 +921,7 @@ def _run_scenario(args, device) -> None:
     stages = make_gpt_stages(args.seed, cfg, 1, device)[0]
     report = run_scenario(args.scenario, stages, cfg,
                           outdir=args.telemetry_dir, device=device,
-                          attn_kernel="fused")
+                          trace=bool(args.serve_trace), attn_kernel="fused")
     print(f"| scenario {report['scenario']} ({report['scheduler']}"
           + (", supervised" if report.get("supervised") else "") + "): "
           f"{report['completed']}/{report['n_requests']} completed, "
@@ -794,6 +931,17 @@ def _run_scenario(args, device) -> None:
              if report.get("supervised") else "")
           + f"faults fired: "
           f"{report.get('faults', {}).get('total_fired', 0)}")
+    fl = report.get("fleet")
+    if fl:
+        print(f"| scenario: fleet {fl['replicas']} replica(s) "
+              f"(route {fl['route']}): {fl['replica_losses']} loss(es), "
+              f"{fl['migrations']} migration(s), "
+              f"{fl['affinity_hits']} affinity hit(s), "
+              f"{fl['scale_outs']} scale-out(s), {fl['retired']} retired")
+        for ev in fl["replica_log"]:
+            print(f"| scenario:   fleet {ev['event']} replica "
+                  f"{ev['replica']} @tick {ev['tick']} "
+                  f"(t={ev['t']:g}, {ev['alive']} alive)")
     for cls, att in sorted(report["slo"].items()):
         parts = []
         if "ttft_attainment" in att:
@@ -817,9 +965,24 @@ def _run_scenario(args, device) -> None:
         if not sa["transitions"]:
             print("| scenario:   alerts: no burn-rate transitions "
                   "(error budget never breached)")
+    att_blk = report.get("attribution")
+    if att_blk:
+        print(f"| scenario: attribution {att_blk['requests']} request(s) "
+              f"folded, {att_blk['recovered']} recovered, max drift "
+              f"{att_blk['max_abs_drift_ms']} ms")
+        for a in att_blk["top_slow"]:
+            comps = " ".join(f"{c}={v}"
+                             for c, v in a["components_ms"].items())
+            print(f"| scenario:   slow rid {a['rid']} ({a['cls']}) ttft "
+                  f"{a['ttft_ms']} vms: {comps}"
+                  + (" [recovered]" if a.get("recovered") else ""))
     if report.get("postmortem_bundles"):
         print(f"| scenario: {report['postmortem_bundles']} post-mortem "
               f"bundle(s) under {args.telemetry_dir}")
+    if report.get("trace_events"):
+        print(f"| scenario: trace {report['trace_events']} events"
+              + (f" under {args.telemetry_dir}" if args.telemetry_dir
+                 else " (in-memory; add --telemetry-dir to keep them)"))
     print(f"| scenario: SLO {'ATTAINED' if report['slo_ok'] else 'MISSED'}")
     if not report["slo_ok"]:
         raise SystemExit(1)

@@ -4,10 +4,10 @@ scenario suite.
 - :mod:`.faults` — seeded, reproducible fault schedules injected at named
   sites (the serving engine's ``serve.tick`` and ``serve.admit``);
 - :mod:`.scenarios` — the SLO-gated serving scenarios on a virtual clock
-  (the six one-engine entries).
+  (the six one-engine entries and the five fleet entries).
 
-The training half (the checkpoint store, the elastic supervisor, the
-sentinel) waits for ROADMAP.md, Queue A, item 4c. Attribute access is
+The training half (the checkpoint store, the elastic supervisor) waits
+for ROADMAP.md, Queue A, item 4d, the sentinel for item 6. Attribute access is
 lazy: importing the package pulls in neither torch nor the serving
 engine until a symbol that needs them is touched.
 """

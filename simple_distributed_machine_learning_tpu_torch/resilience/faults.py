@@ -8,15 +8,19 @@ installed that is one global ``is None`` check.
 
 The kinds, the sites and the grammar are the JAX package's, so one
 ``--serve-chaos`` string means one schedule in both packages. The port
-instruments the serving engine's two sites:
+instruments the serving sites:
 
 - ``serve.tick``  (``serve/engine.py::step``, ctx: ``step`` = tick index)
 - ``serve.admit`` (``serve/engine.py::submit``, ctx: ``step`` = rid — a
   crash while a request is being accepted, journaled but never admitted)
+- ``fleet.tick`` (``serve/fleet.py::step``, ctx: ``step`` = fleet tick,
+  ``rank`` = replica index) and ``fleet.handoff`` (the adopt->seal
+  window of the disaggregated handoff): ``replica-kill`` only, read with
+  :func:`check` and interpreted by the fleet
 
-The other sites (training, checkpoints, the fleet, the watchdog, the
-bench probe) are accepted by the grammar and instrumented by the slices
-that port those layers (ROADMAP.md, Queue A, items 4c and 6).
+The other sites (training, checkpoints, the watchdog, the bench probe)
+are accepted by the grammar and instrumented by the slices that port
+those layers (ROADMAP.md, Queue A, items 4d and 6).
 
 Standard effects (:meth:`FaultPlan.fire`): ``slow-tick`` and
 ``frozen-peer`` sleep ``dur`` seconds through ``plan.sleep`` (a virtual

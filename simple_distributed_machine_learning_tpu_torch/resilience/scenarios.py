@@ -1,12 +1,12 @@
 """The serving scenario suite: SLO-gated, deterministic load + fault runs.
 
-Port of ``resilience/scenarios.py`` for the six one-engine scenarios. A
-*scenario* bundles one traffic shape (``serve/simulator.py``: arrival
+Port of ``resilience/scenarios.py``: the six one-engine scenarios and the
+five fleet scenarios. A *scenario* bundles one traffic shape (``serve/simulator.py``: arrival
 pattern + multi-tenant class mix with per-class TTFT/TPOT SLOs), one
-engine configuration (slots, blocks, chunking, scheduler policy) and
-optionally one fault schedule (``resilience/faults.py``).
-:func:`run_scenario` drives it through the engine (or the serve
-supervisor) and asserts SLO attainment from the telemetry registry: the
+engine configuration (slots, blocks, chunking, scheduler policy, fleet
+shape) and optionally one fault schedule (``resilience/faults.py``).
+:func:`run_scenario` drives it through the engine, the serve supervisor
+or a :class:`~..serve.fleet.ServeFleet` and asserts SLO attainment from the telemetry registry: the
 run passes only when every gated class attains its SLOs and every request
 is accounted for.
 
@@ -37,12 +37,28 @@ virtual milliseconds.
                      over-budget work so the interactive class keeps its
                      SLO (gate: every request completed or structurally
                      shed)
+``fleet-replica-loss`` steady traffic over 3 replicas with a whole replica
+                     killed mid-decode: its in-flight requests migrate
+                     onto the survivors from its journal alone (gate: all
+                     complete AND >= 1 migration happened)
+``hot-prefix-skew``  every request shares one 8-token system prefix: the
+                     affinity router keeps the prefix's blocks hot on one
+                     replica (round-robin, the baseline, re-prefills it)
+``fleet-autoscale-diurnal`` a compressed day/night cycle over an
+                     autoscaled fleet (min 1, max 3): backlog scales out,
+                     the idle trough drains-then-retires
+                     (``ServeFleet.replica_log`` is the pinned trajectory)
+``disagg-prefill-heavy`` bursty long prompts over 2 prefill + 2 decode
+                     replicas: every request hands off at end-of-prefill
+                     (gate: all complete AND every request handed off)
+``handoff-replica-loss`` 1 prefill + 2 decode with a decode replica killed
+                     while handoffs are in flight (gate: all complete AND
+                     >= 1 handoff AND >= 1 migration)
 =================== =====================================================
 
-The JAX package's fleet scenarios (ROADMAP.md, Queue A, item 4c) and its
-host-tier and adapter scenarios (item 5) raise naming their items, as do
-``run_scenario``'s ``route``, ``prefill_replicas``, ``host_cache_blocks``
-(the same items) and ``trace`` (item 4b).
+The JAX package's host-tier and adapter scenarios (``offload-churn``,
+``hot-adapter-churn``) raise naming ROADMAP.md, Queue A, item 5, as does
+``run_scenario``'s ``host_cache_blocks``.
 """
 
 from __future__ import annotations
@@ -52,6 +68,10 @@ import os
 
 from simple_distributed_machine_learning_tpu_torch import _roadmap
 from simple_distributed_machine_learning_tpu_torch.resilience import faults
+from simple_distributed_machine_learning_tpu_torch.serve.fleet import (
+    AutoscalePolicy,
+    ServeFleet,
+)
 from simple_distributed_machine_learning_tpu_torch.serve.metrics import (
     ServeMetrics,
 )
@@ -97,7 +117,13 @@ class Scenario:
     through the :class:`ServeSupervisor` (journal, crash recovery,
     deadlines, ``overload`` admission control); ``allow_shed`` counts a
     structurally shed request as accounted for; ``min_restarts`` is the
-    chaos gate (a crash scenario whose fault never fired must fail)."""
+    chaos gate (a crash scenario whose fault never fired must fail).
+
+    ``replicas > 0`` runs the traffic through a ``ServeFleet`` of that
+    many supervised replicas behind ``route``, with ``autoscale`` (an
+    :class:`~..serve.fleet.AutoscalePolicy`) and ``prefill_replicas``
+    (disaggregation) as options; ``min_migrations`` and ``min_handoffs``
+    are the fleet's vacuous-pass gates."""
 
     name: str
     description: str
@@ -116,6 +142,12 @@ class Scenario:
     overload: OverloadPolicy | None = None
     allow_shed: bool = False
     min_restarts: int = 0
+    replicas: int = 0
+    route: str = "affinity"
+    autoscale: AutoscalePolicy | None = None
+    min_migrations: int = 0
+    prefill_replicas: int = 0
+    min_handoffs: int = 0
 
     def __post_init__(self):
         if self.scheduler not in ("fcfs", "priority"):
@@ -129,10 +161,31 @@ class Scenario:
                 "min_restarts needs supervised=True (only the supervisor "
                 "restarts an engine)")
         if (self.overload is not None or self.allow_shed) \
-                and not self.supervised:
+                and not (self.supervised or self.replicas):
             raise ValueError(
-                "overload/allow_shed need supervised=True (admission "
-                "control and shedding live in the supervisor)")
+                "overload/allow_shed need supervised=True or a fleet "
+                "(admission control and shedding live in the supervisor)")
+        if self.replicas:
+            if self.supervised:
+                raise ValueError(
+                    "replicas > 0 already runs every replica through its "
+                    "own ServeSupervisor — drop supervised=True")
+            from simple_distributed_machine_learning_tpu_torch.serve.router import (  # noqa: E501
+                POLICIES,
+            )
+            if self.route not in POLICIES:
+                raise ValueError(f"route must be one of {POLICIES}, got "
+                                 f"{self.route!r}")
+        elif (self.min_migrations or self.autoscale is not None
+              or self.route != "affinity" or self.prefill_replicas
+              or self.min_handoffs):
+            raise ValueError(
+                "route/autoscale/min_migrations/prefill_replicas/"
+                "min_handoffs are fleet knobs — set replicas > 0")
+        if self.min_handoffs and not self.prefill_replicas:
+            raise ValueError(
+                "min_handoffs needs prefill_replicas > 0 (only a "
+                "disaggregated fleet hands off)")
 
 
 # SLO targets are VIRTUAL milliseconds: an engine tick costs a few vms, so
@@ -224,31 +277,105 @@ SCENARIOS: dict[str, Scenario] = {s.name: s for s in (
                                 degrade_queue_depth=6,
                                 recover_queue_depth=2,
                                 degraded_priority_floor=0)),
+    Scenario(
+        name="fleet-replica-loss",
+        description="steady interactive traffic over a 3-replica fleet "
+                    "with a whole replica killed mid-decode: its in-flight "
+                    "requests migrate onto the survivors from its journal "
+                    "alone (gate: all complete AND >= 1 migration actually "
+                    "happened; per-stream bit-exactness is pinned in "
+                    "tests/test_fleet.py)",
+        sim=SimConfig(n_requests=16, rate=12.0, seed=0,
+                      classes=(dataclasses.replace(_INTERACTIVE,
+                                                   weight=1.0),)),
+        n_slots=2, prefill_chunk=4, scheduler="fcfs",
+        replicas=3, chaos="replica-kill@fleet.tick=5",
+        min_migrations=1),
+    Scenario(
+        name="hot-prefix-skew",
+        description="every request shares one 8-token system prefix: the "
+                    "prefix-cache-aware router keeps the prefix's blocks "
+                    "hot on one replica instead of re-prefilling them on "
+                    "all three — tests pin affinity's prefix-hit counters "
+                    "strictly above round-robin's on this exact workload",
+        sim=SimConfig(n_requests=18, rate=16.0, seed=0,
+                      shared_prefix_len=8,
+                      classes=(dataclasses.replace(_INTERACTIVE,
+                                                   weight=1.0),)),
+        n_slots=2, block_size=8, prefill_chunk=4, scheduler="fcfs",
+        replicas=3, route="affinity"),
+    Scenario(
+        name="fleet-autoscale-diurnal",
+        description="a compressed day/night arrival cycle over an "
+                    "autoscaled fleet (min 1, max 3): sustained backlog "
+                    "scales out, the idle trough drains-then-retires; the "
+                    "exact virtual-clock replica-count trajectory "
+                    "(ServeFleet.replica_log) is pinned in tests",
+        # one virtual-clock run walks the whole autoscaler: the first peak
+        # scales 1 -> 3, the trough retires back to 1, the second peak
+        # scales out again
+        sim=SimConfig(n_requests=50, rate=60.0, seed=0, arrival="diurnal",
+                      diurnal_amplitude=0.95, period_s=0.6,
+                      classes=(dataclasses.replace(
+                          _INTERACTIVE, weight=1.0, ttft_slo_ms=None,
+                          tpot_slo_ms=None),)),
+        n_slots=2, prefill_chunk=4, scheduler="fcfs",
+        replicas=1,
+        autoscale=AutoscalePolicy(min_replicas=1, max_replicas=3,
+                                  scale_out_queue_depth=4,
+                                  scale_out_ticks=2,
+                                  retire_idle_s=0.08)),
+    Scenario(
+        name="disagg-prefill-heavy",
+        description="bursty long-prompt arrivals whose decodes linger, "
+                    "over a 4-replica fleet split 2 prefill + 2 decode: "
+                    "new work boards the prefill pool only, every request "
+                    "hands off at end-of-prefill by the journal snap/"
+                    "adopt move, and lingering decodes clog the DECODE "
+                    "pool's slots instead of blocking fresh prefills "
+                    "(gate: all complete AND every request actually "
+                    "handed off; tests pin disaggregated TTFT p95 "
+                    "strictly below the symmetric 4-replica fleet's on "
+                    "this exact workload)",
+        sim=SimConfig(n_requests=16, rate=14.0, seed=0, arrival="bursty",
+                      burst_factor=5.0, burst_duty=0.25, period_s=1.0,
+                      classes=(dataclasses.replace(
+                          _INTERACTIVE, weight=1.0, prompt_lens=(12, 16),
+                          max_new_tokens=24, ttft_slo_ms=400.0,
+                          tpot_slo_ms=None),)),
+        n_slots=2, prefill_chunk=4, scheduler="fcfs",
+        replicas=4, prefill_replicas=2, min_handoffs=16),
+    Scenario(
+        name="handoff-replica-loss",
+        description="disaggregated fleet (1 prefill + 2 decode) with a "
+                    "DECODE replica killed while handoffs are in flight: "
+                    "handed-off requests re-adopt onto the surviving "
+                    "decode replica from the dead one's journal alone, "
+                    "and the handoff journal event keeps the prefill "
+                    "source from double-serving them (gate: all complete "
+                    "AND >= 1 handoff AND >= 1 migration; per-stream "
+                    "bit-exactness through the race is pinned in "
+                    "tests/test_disagg.py)",
+        sim=SimConfig(n_requests=16, rate=12.0, seed=0,
+                      classes=(dataclasses.replace(_INTERACTIVE,
+                                                   weight=1.0),)),
+        n_slots=2, prefill_chunk=4, scheduler="fcfs",
+        replicas=3, prefill_replicas=1,
+        chaos="replica-kill@fleet.tick=6,rank=1",
+        min_handoffs=1, min_migrations=1),
 )}
 
-#: the JAX package's other scenarios and the items that port them
+#: the JAX package's other scenarios and the item that ports them
 UNPORTED_SCENARIOS = {
-    "fleet-replica-loss": _roadmap.SERVE_FLEET,
-    "hot-prefix-skew": _roadmap.SERVE_FLEET,
-    "fleet-autoscale-diurnal": _roadmap.SERVE_FLEET,
-    "disagg-prefill-heavy": _roadmap.SERVE_FLEET,
-    "handoff-replica-loss": _roadmap.SERVE_FLEET,
     "offload-churn": _roadmap.SERVE_EXTENSIONS,
     "hot-adapter-churn": _roadmap.SERVE_EXTENSIONS,
 }
 
 
-def _reject_unported(scenario, trace, route, prefill_replicas,
-                     host_cache_blocks) -> None:
+def _reject_unported(scenario, host_cache_blocks) -> None:
     if isinstance(scenario, str) and scenario in UNPORTED_SCENARIOS:
         raise _roadmap.not_ported(f"scenario {scenario!r}",
                                   UNPORTED_SCENARIOS[scenario])
-    if trace:
-        raise _roadmap.not_ported("run_scenario(trace=): request tracing",
-                                  _roadmap.SERVE_TRACING)
-    if route is not None or prefill_replicas:
-        raise _roadmap.not_ported("run_scenario(route=/prefill_replicas=): "
-                                  "the fleet", _roadmap.SERVE_FLEET)
     if host_cache_blocks:
         raise _roadmap.not_ported("run_scenario(host_cache_blocks=): the "
                                   "host offload tier",
@@ -268,23 +395,33 @@ def run_scenario(scenario: Scenario | str, stages, cfg, *,
     ``stages``/``cfg``: a ``make_gpt_stages`` build on ``device`` (None =
     ``"cuda"``; raises without CUDA unless ``"cpu"``). ``scheduler``
     overrides the scenario's policy; ``supervised=False`` on a
-    deadline-carrying scenario is the no-deadline baseline. Extra
-    ``engine_kw`` (``attn_kernel``, ``params``, ...) reach every engine
-    the run builds. With ``outdir`` the serve record and a ``kind:
+    deadline-carrying scenario is the no-deadline baseline; ``route`` and
+    ``prefill_replicas`` override a fleet scenario's routing policy and
+    disaggregation (``prefill_replicas=0`` is the symmetric baseline).
+    Extra ``engine_kw`` (``attn_kernel``, ``params``, ...) reach every
+    engine the run builds. With ``outdir`` the serve record and a ``kind:
     "scenario"`` record land in ``metrics.jsonl`` + ``metrics.prom``, one
     ``kind: "slo_alert"`` record per alert transition after it, the
-    supervised run's journal as ``journal-<name>.jsonl`` and a post-mortem
-    bundle per restart / drain timeout / shed burst.
+    journals as ``journal-<name>[-r<idx>].jsonl`` and a post-mortem bundle
+    per restart / drain timeout / shed burst.
+
+    ``trace``: ``True`` builds a ``serve/tracing.py::ServeTrace`` (written
+    to ``outdir`` as ``serve_trace-<name>.json`` + its timeline when an
+    outdir is set), or pass a ready recorder. The report then carries
+    ``trace_events`` and the ``attribution`` block; the recorder reads no
+    clock, so every virtual-clock number is the same with tracing on or
+    off.
 
     ``report["slo_ok"]`` is True only when every gated class attains every
     target at ``min_attainment`` or better AND every request is accounted
     for — completed, or (``allow_shed``) structurally shed — AND a
-    supervised run restarted at least ``min_restarts`` times."""
+    supervised run restarted at least ``min_restarts`` times AND a fleet
+    run migrated and handed off at least ``min_migrations`` /
+    ``min_handoffs`` times."""
     import tempfile
     import time
 
-    _reject_unported(scenario, trace, route, prefill_replicas,
-                     host_cache_blocks)
+    _reject_unported(scenario, host_cache_blocks)
     if isinstance(scenario, str):
         if scenario not in SCENARIOS:
             raise ValueError(
@@ -296,6 +433,10 @@ def run_scenario(scenario: Scenario | str, stages, cfg, *,
     policy = scheduler or scenario.scheduler
     sched_cls = PriorityScheduler if policy == "priority" else FCFSScheduler
     sup_flag = scenario.supervised if supervised is None else supervised
+    fleet_flag = scenario.replicas > 0
+    route_policy = route or scenario.route
+    n_prefill = (scenario.prefill_replicas if prefill_replicas is None
+                 else prefill_replicas)
 
     plan = None
     if scenario.chaos:
@@ -303,26 +444,56 @@ def run_scenario(scenario: Scenario | str, stages, cfg, *,
                                                      sleep=sleep))
     target = None
     tmpdir = None
+    own_trace = trace is True      # built here -> closed here
     try:
         from simple_distributed_machine_learning_tpu_torch.serve.engine import (  # noqa: E501
             InferenceEngine,
         )
         metrics = ServeMetrics(outdir=outdir, clock=clock)
-        # the streaming SLO engine, wherever a supervisor owns the tick
-        # (observation and evaluation read no clock)
+        # the streaming SLO engine, wherever a supervisor or a fleet owns
+        # the tick (observation and evaluation read no clock)
         slo_engine = None
-        if sup_flag:
+        if sup_flag or fleet_flag:
             from simple_distributed_machine_learning_tpu_torch.telemetry.slo import (  # noqa: E501
                 SLOEngine,
             )
             slo_engine = SLOEngine.from_classes(
                 scenario.sim.classes, registry=metrics.registry)
+        if trace is True:
+            from simple_distributed_machine_learning_tpu_torch.serve.tracing import (  # noqa: E501
+                ServeTrace,
+            )
+            trace = ServeTrace(outdir=outdir,
+                               suffix=f"-{scenario.name}" if outdir else "")
         kw = dict(n_slots=scenario.n_slots, block_size=scenario.block_size,
                   n_blocks=scenario.n_blocks, max_len=scenario.max_len,
                   prefill_chunk=scenario.prefill_chunk,
                   scheduler=sched_cls, metrics=metrics, clock=clock,
                   device=device, **engine_kw)
-        if sup_flag:
+        if trace and not (sup_flag or fleet_flag):
+            kw["trace"] = trace
+        if fleet_flag:
+            if outdir:
+                jdir = outdir
+            else:
+                tmpdir = tempfile.TemporaryDirectory(prefix="sdml-fleet-")
+                jdir = tmpdir.name
+            target = ServeFleet(
+                engine_factory(stages, cfg, **kw), jdir,
+                n_replicas=scenario.replicas,
+                prefill_replicas=n_prefill, route=route_policy,
+                metrics=metrics, clock=clock,
+                autoscale=scenario.autoscale,
+                max_restarts=scenario.max_restarts,
+                degrade_after=scenario.degrade_after,
+                overload=scenario.overload,
+                trace=trace or None,
+                # virtual-clock runs measure scheduling structure, not
+                # durability: no fsync per record
+                journal_sync=not virtual,
+                journal_prefix=f"journal-{scenario.name}-r",
+                postmortem_dir=outdir, slo=slo_engine)
+        elif sup_flag:
             from simple_distributed_machine_learning_tpu_torch.serve.journal import (  # noqa: E501
                 RequestJournal,
             )
@@ -336,13 +507,11 @@ def run_scenario(scenario: Scenario | str, stages, cfg, *,
                 jpath = os.path.join(tmpdir.name, "journal.jsonl")
             target = ServeSupervisor(
                 engine_factory(stages, cfg, **kw),
-                # virtual-clock runs measure scheduling structure, not
-                # durability: no fsync per record
                 RequestJournal(jpath, sync=not virtual),
                 metrics=metrics, clock=clock,
                 max_restarts=scenario.max_restarts,
                 degrade_after=scenario.degrade_after,
-                overload=scenario.overload,
+                overload=scenario.overload, trace=trace or None,
                 postmortem_dir=outdir, slo=slo_engine)
         else:
             target = InferenceEngine(stages, cfg, **kw)
@@ -350,8 +519,12 @@ def run_scenario(scenario: Scenario | str, stages, cfg, *,
     finally:
         if plan is not None:
             faults.uninstall()
-        if sup_flag and target is not None:
+        if (sup_flag or fleet_flag) and target is not None:
             target.close()
+        if trace and trace is not True:
+            # a recorder built here closes its timeline handle; a
+            # caller's only flushes (its lifecycle is the caller's)
+            trace.close() if own_trace else trace.flush()
         if tmpdir is not None:
             tmpdir.cleanup()
 
@@ -365,6 +538,35 @@ def run_scenario(scenario: Scenario | str, stages, cfg, *,
         report["supervisor_state"] = target.state
         report["postmortem_bundles"] = len(target.postmortems)
         ok &= target.restarts >= scenario.min_restarts
+    if fleet_flag:
+        report["fleet"] = {
+            "replicas": scenario.replicas,
+            "route": route_policy,
+            "alive": target.n_alive,
+            "in_rotation": target.n_in_rotation,
+            "replica_losses": target.replica_losses,
+            "migrations": target.migrations,
+            "affinity_hits": int(metrics.route_affinity_hits.value),
+            "scale_outs": int(metrics.fleet_scale_outs.value),
+            "retired": int(metrics.fleet_retired.value),
+            "replica_log": list(target.replica_log),
+        }
+        if n_prefill:
+            report["fleet"]["prefill_replicas"] = n_prefill
+            report["fleet"]["handoffs"] = target.handoffs
+            ok &= target.handoffs >= scenario.min_handoffs
+        report["restarts"] = sum(
+            r.supervisor.restarts for r in target.replicas)
+        ok &= target.migrations >= scenario.min_migrations
+    if trace:
+        report["trace_events"] = trace.n_events
+        # fold every traced request's timeline into the additive TTFT
+        # decomposition (attribute() raises on drift)
+        from simple_distributed_machine_learning_tpu_torch.telemetry.attribution import (  # noqa: E501
+            attribute,
+        )
+        report["attribution"] = attribute(trace.rows,
+                                          registry=metrics.registry)
     for tc in scenario.sim.classes:
         if tc.ttft_slo_ms is None and tc.tpot_slo_ms is None:
             continue
@@ -399,11 +601,15 @@ def run_scenario(scenario: Scenario | str, stages, cfg, *,
             "completed": report["completed"], "shed": report["shed"],
             "n_requests": report["n_requests"], "slo": slo, "slo_ok": ok,
             **({"restarts": report["restarts"]} if sup_flag else {}),
+            **({"fleet": {k: v for k, v in report["fleet"].items()
+                          if k != "replica_log"}} if fleet_flag else {}),
             **({"slo_alerts": {
                 "transitions": len(slo_engine.alerts.journal),
                 "firing": slo_engine.active_alerts(),
                 "states": slo_engine.alerts.states()}}
                if slo_engine is not None else {}),
+            **({"attribution": report["attribution"]}
+               if "attribution" in report else {}),
             **({"faults_fired": plan.stats()["total_fired"]}
                if plan is not None else {}),
         })

@@ -14,7 +14,14 @@
   request journal and its crash recovery;
 - :mod:`.supervisor` — :class:`ServeSupervisor`: engine rebuild and
   journal recovery on faults, deadlines, :class:`OverloadPolicy`
-  shedding, :func:`engine_factory`;
+  shedding, cross-replica adoption, :func:`engine_factory`;
+- :mod:`.router` / :mod:`.fleet` — :class:`FleetRouter` and
+  :class:`ServeFleet`: N supervised replicas with affinity routing,
+  journal-backed migration, disaggregated prefill/decode and
+  :class:`AutoscalePolicy` autoscaling;
+- :mod:`.tracing` / :mod:`.flight` — :class:`ServeTrace` (per-request
+  span timelines) and :class:`FlightRecorder` (per-tick snapshots for
+  post-mortem bundles);
 - :mod:`.simulator` — seeded open-loop traffic (:func:`simulate`);
 - :mod:`.metrics` — :class:`ServeMetrics`: TTFT/TPOT, occupancy, pool,
   restart and shed instruments on the metric registry.
@@ -27,6 +34,13 @@ from simple_distributed_machine_learning_tpu_torch.serve.engine import (  # noqa
     DrainTimeout,
     InferenceEngine,
 )
+from simple_distributed_machine_learning_tpu_torch.serve.fleet import (  # noqa: F401
+    AutoscalePolicy,
+    ServeFleet,
+)
+from simple_distributed_machine_learning_tpu_torch.serve.flight import (  # noqa: F401
+    FlightRecorder,
+)
 from simple_distributed_machine_learning_tpu_torch.serve.journal import (  # noqa: F401
     RequestJournal,
 )
@@ -35,6 +49,9 @@ from simple_distributed_machine_learning_tpu_torch.serve.metrics import (  # noq
 )
 from simple_distributed_machine_learning_tpu_torch.serve.request import (  # noqa: F401
     Request,
+)
+from simple_distributed_machine_learning_tpu_torch.serve.router import (  # noqa: F401
+    FleetRouter,
 )
 from simple_distributed_machine_learning_tpu_torch.serve.scheduler import (  # noqa: F401
     FCFSScheduler,
@@ -54,4 +71,7 @@ from simple_distributed_machine_learning_tpu_torch.serve.supervisor import (  # 
     RestartBudgetExceeded,
     ServeSupervisor,
     engine_factory,
+)
+from simple_distributed_machine_learning_tpu_torch.serve.tracing import (  # noqa: F401
+    ServeTrace,
 )

@@ -35,10 +35,17 @@ Correctness anchor: a request's tokens equal its solo
 co-residents, paged blocks, shared prefixes, chunk boundaries and, for
 greedy requests, speculation cannot change anyone's output.
 
+``trace=`` (a ``serve/tracing.py::ServeTrace``) records every request's
+lifecycle at the JAX engine's sites, stamped with timestamps the engine
+already read (events without a read of their own take :attr:`_now`, the
+most recent one); ``flight=`` (a ``serve/flight.py::FlightRecorder``)
+snaps the engine once per busy tick. Neither reads a clock, so tracing on
+or off leaves every virtual-clock number unchanged.
+
 The JAX engine's other knobs keep their place in the signature and raise
 ``NotImplementedError`` naming the ROADMAP item that ports them:
 speculation over the dense layout, tensor parallelism, adapters, the host
-tier, the lint preflight, tracing and the flight recorder.
+tier and the lint preflight.
 
 Clock reads sit exactly where the JAX engine's do (submit without an
 arrival stamp, cancel, the dense admission's TTFT endpoint or reseat,
@@ -160,8 +167,7 @@ def _check_layout(kv_layout, attn_kernel, prefill_chunk, n_blocks,
 
 
 def _reject_unported(kv_layout, speculative, host_cache_blocks,
-                     prefetch_ticks, lint, mesh, cfg, trace, flight,
-                     adapters) -> None:
+                     prefetch_ticks, lint, mesh, cfg, adapters) -> None:
     if kv_layout == "dense" and speculative:
         raise _roadmap.not_ported(
             "speculative decoding over kv_layout='dense' "
@@ -181,9 +187,6 @@ def _reject_unported(kv_layout, speculative, host_cache_blocks,
     if lint:
         raise _roadmap.not_ported("the serve-program lint preflight",
                                   _roadmap.ANALYSIS)
-    if trace is not None or flight is not None:
-        raise _roadmap.not_ported("request tracing and the flight recorder",
-                                  _roadmap.SERVE_TRACING)
 
 
 class InferenceEngine:
@@ -238,7 +241,7 @@ class InferenceEngine:
         _check_speculative(draft_stages, draft_cfg, spec_k)
         _reject_unported(kv_layout, draft_stages is not None,
                          host_cache_blocks, prefetch_ticks, lint, mesh, cfg,
-                         trace, flight, adapters)
+                         adapters)
         _check_ported(cfg, "InferenceEngine")
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -302,6 +305,10 @@ class InferenceEngine:
         self.scheduler.attach(self)
         self.metrics = metrics
         self._clock = clock
+        # request tracing and the tick flight recorder: None by default,
+        # one `is None` test per site on the hot path
+        self.trace = trace
+        self.flight = flight
         # the most recent clock reading (stamps events that read no clock)
         self._now = 0.0
         self._next_rid = 0
@@ -386,6 +393,8 @@ class InferenceEngine:
         self.scheduler.enqueue(r)
         if self.metrics is not None:
             self.metrics.on_submit()
+        if self.trace is not None:
+            self.trace.on_submit(r, r.submit_time)
         return r
 
     def _check_adapter(self, adapter) -> None:
@@ -422,6 +431,8 @@ class InferenceEngine:
                 block_stats=(self.pool.stats()
                              if self.kv_layout == "paged" else None),
                 tp=1, spec_k=self.spec_k)
+        if self.flight is not None:
+            self.flight.snap(self, self._tick_count, emitted)
         return emitted
 
     def preempt(self, rid: int) -> None:
@@ -444,6 +455,8 @@ class InferenceEngine:
         self.scheduler.queue.appendleft(r)
         if self.metrics is not None:
             self.metrics.on_preempt(r.cls)
+        if self.trace is not None:
+            self.trace.on_preempt(r, self._now)
 
     def cancel(self, rid: int, reason: str = "cancelled") -> Request:
         """Remove a live request now: a queued one leaves the queue, an
@@ -475,6 +488,8 @@ class InferenceEngine:
         r.finish_reason = reason
         r.done_time = self._now = self._clock()
         self._last_emit.pop(rid, None)
+        if self.trace is not None:
+            self.trace.on_shed(r, r.done_time, reason)
         return r
 
     def restore(self, request: Request) -> Request:
@@ -505,6 +520,8 @@ class InferenceEngine:
         self.requests[request.rid] = request
         self._next_rid = max(self._next_rid, request.rid + 1)
         self.scheduler.enqueue(request)
+        if self.trace is not None:
+            self.trace.on_readmit(request, self._now)
         return request
 
     def drain(self, max_ticks: int | None = None) -> list[Request]:
@@ -544,6 +561,9 @@ class InferenceEngine:
                 self.pool.seat(r.slot, t0, r.tokens[-1])
                 now = self._now = self._clock()
                 self._last_emit[r.rid] = now
+                if self.trace is not None:
+                    self.trace.on_admit(r, now, r.slot)
+                    self.trace.on_resume(r, now)
                 continue
             tok = int(tok)                       # host sync: TTFT endpoint
             r.key_data = kd.cpu().numpy().astype(np.uint32)
@@ -554,6 +574,11 @@ class InferenceEngine:
             emitted += 1
             if self.metrics is not None:
                 self.metrics.on_first_token(r.ttft_s, cls=r.cls)
+            if self.trace is not None:
+                # the whole-prompt prefill: boarding and the TTFT endpoint
+                # share this one clock read
+                self.trace.on_admit(r, now, r.slot)
+                self.trace.on_first_token(r, now)
             reason = r.finished_by(tok)
             if reason is not None:
                 self._finish(r, reason, now)
@@ -581,6 +606,10 @@ class InferenceEngine:
         ``r.prefill_pos``); no model work here."""
         for r in self.scheduler.admit():
             self._prefilling.append(r.rid)
+            if self.trace is not None:
+                # boarding reads no clock: stamped with the most recent
+                # read (at most a tick stale)
+                self.trace.on_admit(r, self._now, r.slot)
 
     def _prefill_tick(self) -> int:
         """At most ONE prefill chunk per tick, of the oldest prefilling
@@ -607,6 +636,8 @@ class InferenceEngine:
         now = self._now = self._clock()
         if self.metrics is not None:
             self.metrics.on_prefill_chunk((now - t_start) * 1e3)
+        if self.trace is not None:
+            self.trace.on_prefill_chunk(r, t_start, now, p0, c)
         if p0 + c < plen:
             # mid-prompt chunk: sampled token and key are discarded — the
             # key stream advances once, at the final chunk
@@ -628,6 +659,8 @@ class InferenceEngine:
             # newest token
             self.pool.seat(r.slot, plen, r.tokens[-1])
             self._last_emit[r.rid] = now
+            if self.trace is not None:
+                self.trace.on_resume(r, now)
             return 0
         r.key_data = kd.cpu().numpy().astype(np.uint32)
         r.first_token_time = now
@@ -635,6 +668,8 @@ class InferenceEngine:
         r.emit(tok)
         if self.metrics is not None:
             self.metrics.on_first_token(r.ttft_s, cls=r.cls)
+        if self.trace is not None:
+            self.trace.on_first_token(r, now)
         reason = r.finished_by(tok)
         if reason is not None:
             self._finish(r, reason, now)
@@ -758,8 +793,14 @@ class InferenceEngine:
                     self.metrics.on_token(dt / n_emit, cls=r.cls)
             self._last_emit[r.rid] = now
             emitted += n_emit
-            proposed += max(int(valid[s]) - 1, 0)
-            accepted += max(n_emit - 1, 0)
+            slot_proposed = max(int(valid[s]) - 1, 0)
+            slot_accepted = max(n_emit - 1, 0)
+            proposed += slot_proposed
+            accepted += slot_accepted
+            if self.trace is not None:
+                self.trace.on_tick_tokens(r, now, n_emit,
+                                          proposed=slot_proposed,
+                                          accepted=slot_accepted)
             if finish is not None:
                 self._finish(r, finish, now)
             else:
@@ -799,6 +840,8 @@ class InferenceEngine:
             if self.metrics is not None:
                 self.metrics.on_token(now - self._last_emit[r.rid],
                                       cls=r.cls)
+            if self.trace is not None:
+                self.trace.on_tick_tokens(r, now, 1)
             self._last_emit[r.rid] = now
             reason = r.finished_by(tok)
             if reason is not None:
@@ -810,6 +853,8 @@ class InferenceEngine:
     def _finish(self, r: Request, reason: str, now: float) -> None:
         r.done_time = now
         self._last_emit.pop(r.rid, None)
+        if self.trace is not None:
+            self.trace.on_finish(r, now, reason)
         if r.state == ACTIVE:
             # unbinds the sequence (decref table blocks, return the unused
             # reservation) before the slot frees

@@ -1,49 +1,126 @@
 """Serving telemetry on the metric registry (port of ``serve/metrics.py``).
 
-The instruments of the serve summary line, with the JAX package's names:
+The serving-standard latency split, as registry instruments:
 
-- ``serve_ttft_ms`` / ``serve_tpot_ms`` (histograms) — time to first
-  token (queue wait + prefill) and time per output token after it;
+- ``serve_ttft_ms`` (histogram) — time to first token: queue wait + prefill,
+  per request. The latency a user perceives before anything streams.
+- ``serve_tpot_ms`` (histogram) — time per output token after the first:
+  the decode-tick cadence, one observation per generated token.
 - ``serve_queue_depth`` / ``serve_slots_active`` / ``serve_slots_total``
-  (gauges) and ``serve_slot_occupancy`` (histogram of the decode batch's
-  active/total per tick);
-- ``serve_requests_submitted_total`` / ``serve_requests_completed_total``
-  / ``serve_tokens_generated_total`` (counters), ``serve_tokens_per_sec``
-  (gauge: tokens over first submit -> last token);
-- paged pool: ``serve_blocks_total`` / ``_in_use`` / ``_free`` /
-  ``_cached``, ``serve_kv_bytes_resident`` (gauges),
-  ``serve_prefix_hit_blocks_total`` / ``serve_cow_copies_total`` /
-  ``serve_block_evictions_total`` (counters, fed the pool's per-tick
-  deltas), ``serve_prefill_chunk_ms`` (histogram);
-- per traffic class: ``serve_class_ttft_ms`` / ``serve_class_tpot_ms``
-  (histograms), ``serve_class_completed_total`` /
-  ``serve_class_preemptions_total`` and ``serve_preemptions_total``;
-- the deployment shape: ``serve_tp`` / ``serve_spec_k`` (gauges: the
-  tensor-parallel width and the speculative verify width, 0 = plain
-  decode);
-- speculative decoding: ``serve_spec_proposed_tokens_total`` /
-  ``serve_spec_accepted_tokens_total`` /
-  ``serve_spec_rejected_tokens_total`` (counters) and
-  ``serve_spec_accept_rate`` (histogram, one observation per speculative
-  tick): how much of the draft's work the target agreed with;
-- the serve supervisor's (``serve/supervisor.py``):
-  ``serve_restarts_total`` and ``serve_recovered_requests_total``
-  (counters: engine rebuilds, and in-flight requests re-admitted from the
-  journal across them), ``serve_shed_total{reason=deadline|backpressure|
-  class}`` and ``serve_class_shed_total{class=...}`` (structured
-  rejections), ``serve_degraded`` (gauge, 0/1: the fallback layout after
-  repeated crashes, or the overload best-effort lockout) and
-  ``serve_journal_bytes`` (gauge: the request journal's durable size).
-  With a bound :class:`~..telemetry.slo.SLOEngine` (``bind_slo``) every
-  TTFT/TPOT/shed observation also streams into its windowed series.
+  (gauges) and ``serve_slot_occupancy`` (histogram of active/total per
+  tick) — how full the continuous batch runs; occupancy is what batched
+  decoding converts into aggregate throughput.
+- ``serve_requests_submitted_total`` / ``serve_requests_completed_total`` /
+  ``serve_tokens_generated_total`` (counters) and ``serve_tokens_per_sec``
+  (gauge) — lifetime request/token counters and aggregate throughput over
+  the wall-clock window from first submit to last token.
 
-The fleet, host-tier, adapter, ``serve_attn_kernel_fused`` and KV-drift
+Paged-pool instruments (populated only by ``kv_layout="paged"`` engines —
+the engine hands the pool's stats to :meth:`ServeMetrics.on_tick`):
+
+- ``serve_blocks_in_use`` / ``serve_blocks_free`` / ``serve_blocks_cached``
+  / ``serve_blocks_total`` (gauges) — block-pool occupancy: live working
+  set, allocatable headroom, reclaimable prefix cache;
+- ``serve_kv_bytes_resident`` (gauge) — bytes of K/V live requests
+  actually pin (the number the paged layout shrinks vs dense rows);
+- ``serve_prefix_hit_blocks_total`` / ``serve_cow_copies_total`` /
+  ``serve_block_evictions_total`` (counters) — prefix-share hits at
+  admission, copy-on-write block copies, LRU cache evictions;
+- ``serve_prefill_chunk_ms`` (histogram) — per-chunk prefill latency: the
+  quantity chunked prefill bounds so decode ticks stay steady.
+
+Deployment-shape and speculative instruments:
+
+- ``serve_tp`` / ``serve_spec_k`` (gauges) — the deployment shape: tensor-
+  parallel width and speculative verify width (0 = plain decode);
+- ``serve_spec_proposed_tokens_total`` / ``serve_spec_accepted_tokens_total``
+  / ``serve_spec_rejected_tokens_total`` (counters) and
+  ``serve_spec_accept_rate`` (histogram, one observation per speculative
+  tick) — how much of the draft's work the target agreed with; accept
+  rate is what converts ``spec_k`` into real tokens/tick.
+
+Traffic-class instruments (populated when requests carry ``cls`` — the
+scenario suite's per-class SLO accounting, ``resilience/scenarios.py``):
+
+- ``serve_class_ttft_ms{class=...}`` / ``serve_class_tpot_ms{class=...}``
+  (histograms) — the per-class latency split SLO attainment is computed
+  from (:meth:`ServeMetrics.attainment` via the registry histograms'
+  ``fraction_below``);
+- ``serve_class_completed_total{class=...}`` and
+  ``serve_class_preemptions_total{class=...}`` (counters), plus the global
+  ``serve_preemptions_total`` — how often priority scheduling evicted
+  best-effort traffic to protect an interactive class.
+
+Crash-restart + overload-control instruments (fed by the serve supervisor,
+``serve/supervisor.py``):
+
+- ``serve_restarts_total`` (counter) — engine rebuilds after a recoverable
+  failure;
+- ``serve_recovered_requests_total`` (counter) — in-flight requests
+  re-admitted from the journal across those restarts;
+- ``serve_shed_total{reason=deadline|backpressure|class}`` (counter) and
+  ``serve_class_shed_total{class=...}`` — structured rejections: expired
+  deadlines, queue-depth backpressure, per-class token-bucket/degraded
+  lockout;
+- ``serve_degraded`` (gauge, 0/1) — whether the supervisor is in a
+  degraded mode (fallback engine layout after repeated crashes, or the
+  overload best-effort lockout);
+- ``serve_journal_bytes`` (gauge) — the request journal's durable size
+  (under a fleet: summed over every alive replica's journal).
+
+Fleet instruments (fed by the multi-replica fleet, ``serve/fleet.py``):
+
+- ``serve_fleet_replicas`` (gauge) — alive replicas currently IN ROTATION
+  (healthy per the supervisor state machine and past the re-entry
+  hysteresis): the capacity the router is actually spreading load over;
+- ``serve_fleet_replica_losses_total`` (counter) — whole-replica deaths
+  the fleet absorbed (injected ``replica-kill`` faults and replicas whose
+  supervisor exhausted its restart budget);
+- ``serve_fleet_migrations_total`` (counter) — in-flight requests
+  re-admitted onto a SURVIVING replica from a dead replica's journal
+  alone (the cross-replica migration path — each one's token stream stays
+  bit-exact vs the uninterrupted run);
+- ``serve_route_affinity_hits_total`` (counter) — routing decisions that
+  landed on a replica already holding the request's prompt prefix in its
+  paged pool's registry (the prefix-cache-aware half of the router; the
+  hot-prefix-skew scenario pins this strictly above round-robin);
+- ``serve_fleet_scale_outs_total`` / ``serve_fleet_retired_total``
+  (counters) — autoscaler actions: replicas added on sustained backlog,
+  replicas drained-then-retired on sustained idleness;
+- ``serve_route_alert_demotions_total`` (counter) — routing decisions
+  where the best prefix-affinity candidate was skipped because its
+  per-replica SLO burn alert was firing (the alert→router feedback loop;
+  the burn-rate / alert instruments themselves are documented alongside
+  the SLO engine, ``telemetry/slo.py``, and the TTFT attribution
+  histogram alongside ``telemetry/attribution.py``).
+
+Disaggregated-pool instruments (fed by the disaggregated fleet,
+``serve/fleet.py``):
+
+- ``serve_fleet_handoffs_total`` (counter) — planned prefill→decode
+  migrations: requests moved at end-of-prefill by the same journal
+  snap/adopt move failure migration uses, each handed-off token stream
+  bit-exact vs the symmetric single-pool run;
+- ``serve_pool_replicas{pool=prefill|decode}`` (gauge) — alive replicas
+  per role pool: the independently-sized halves of a disaggregated
+  fleet;
+- ``serve_pool_queue_depth{pool=...}`` / ``serve_pool_slots_active{pool=...}``
+  (gauges) — per-pool backlog and occupancy: the imbalance signal the
+  disaggregated scenarios pin (prefill-heavy vs decode-heavy mixes).
+
+With a bound :class:`~..telemetry.slo.SLOEngine` (``bind_slo``) every
+TTFT/TPOT/shed observation also streams into its windowed series, tagged
+with the fleet replica the fleet sets around each replica's step or
+submit (``_slo_replica``).
+
+The host-tier, adapter, ``serve_attn_kernel_fused`` and KV-drift
 instruments arrive with the slices that port those layers; until the
 analysis slice the summary has no ``kv_drift_bytes`` key, as the JAX CLI
 prints that line only when present.
 
 ``emit()`` writes one ``kind: "serve"`` record to ``metrics.jsonl`` and
-rewrites ``metrics.prom``.
+rewrites ``metrics.prom``, whose ``# HELP`` lines the metric catalog
+(``telemetry/catalog.py``) parses from the bullets above.
 """
 
 from __future__ import annotations
@@ -115,9 +192,29 @@ class ServeMetrics:
         self.journal_bytes_gauge = r.gauge("serve_journal_bytes")
         self._shed_reasons: dict[str, object] = {}
         self._resilience_seen = False
+        # fleet instruments (serve/fleet.py; the summary's fleet block
+        # appears once the fleet feeds any of them)
+        self.fleet_replicas = r.gauge("serve_fleet_replicas")
+        self.fleet_losses = r.counter("serve_fleet_replica_losses_total")
+        self.fleet_migrations = r.counter("serve_fleet_migrations_total")
+        self.route_affinity_hits = r.counter(
+            "serve_route_affinity_hits_total")
+        self.fleet_scale_outs = r.counter("serve_fleet_scale_outs_total")
+        self.fleet_retired = r.counter("serve_fleet_retired_total")
+        self.fleet_handoffs = r.counter("serve_fleet_handoffs_total")
+        self.route_alert_demotions = r.counter(
+            "serve_route_alert_demotions_total")
+        self._fleet_seen = False
+        # disaggregated per-pool gauges, labelled by role
+        self._pool_gauges: dict[tuple, object] = {}
+        self._pool_names: set[str] = set()
+        self._pools_seen = False
         # optional streaming SLO engine (telemetry/slo.py), fed every
-        # TTFT/TPOT/shed observation once bound
+        # TTFT/TPOT/shed observation once bound, under the replica index
+        # the fleet sets around each replica's step/submit (None outside
+        # a fleet)
         self.slo = None
+        self._slo_replica: int | None = None
         self._classes: set[str] = set()
         if outdir:
             os.makedirs(outdir, exist_ok=True)
@@ -147,7 +244,8 @@ class ServeMetrics:
         if cls is not None:
             self._class_hist("serve_class_ttft_ms", cls).observe(ttft_s * 1e3)
             if self.slo is not None:
-                self.slo.observe_ttft(cls, ttft_s * 1e3)
+                self.slo.observe_ttft(cls, ttft_s * 1e3,
+                                      replica=self._slo_replica)
         self._on_any_token()
 
     def on_token(self, tpot_s: float, cls: str | None = None) -> None:
@@ -155,7 +253,8 @@ class ServeMetrics:
         if cls is not None:
             self._class_hist("serve_class_tpot_ms", cls).observe(tpot_s * 1e3)
             if self.slo is not None:
-                self.slo.observe_tpot(cls, tpot_s * 1e3)
+                self.slo.observe_tpot(cls, tpot_s * 1e3,
+                                      replica=self._slo_replica)
         self._on_any_token()
 
     def on_preempt(self, cls: str | None = None) -> None:
@@ -187,7 +286,7 @@ class ServeMetrics:
         if cls is not None:
             self._class_counter("serve_class_shed_total", cls).inc()
             if self.slo is not None:
-                self.slo.observe_shed(cls)
+                self.slo.observe_shed(cls, replica=self._slo_replica)
 
     def set_degraded(self, degraded) -> None:
         self._resilience_seen = True
@@ -196,6 +295,67 @@ class ServeMetrics:
     def set_journal_bytes(self, n: int) -> None:
         self._resilience_seen = True
         self.journal_bytes_gauge.set(int(n))
+
+    # -- fleet hooks (serve/fleet.py) ---------------------------------------
+
+    def set_fleet_replicas(self, n: int) -> None:
+        """Alive in-rotation replicas after this fleet tick."""
+        self._fleet_seen = True
+        self.fleet_replicas.set(int(n))
+
+    def on_replica_loss(self) -> None:
+        self._fleet_seen = True
+        self.fleet_losses.inc()
+
+    def on_fleet_migrated(self, n: int) -> None:
+        """``n`` in-flight requests migrated off a dead replica."""
+        self._fleet_seen = True
+        if n:
+            self.fleet_migrations.inc(n)
+
+    def on_affinity_hit(self) -> None:
+        self._fleet_seen = True
+        self.route_affinity_hits.inc()
+
+    def on_alert_demotion(self) -> None:
+        """One routing decision skipped the best affinity replica because
+        its per-replica burn alert was firing."""
+        self._fleet_seen = True
+        self.route_alert_demotions.inc()
+
+    def on_scale_out(self) -> None:
+        self._fleet_seen = True
+        self.fleet_scale_outs.inc()
+
+    def on_retire(self) -> None:
+        self._fleet_seen = True
+        self.fleet_retired.inc()
+
+    def on_handoff(self, n: int = 1) -> None:
+        """``n`` planned prefill→decode handoffs."""
+        self._fleet_seen = True
+        if n:
+            self.fleet_handoffs.inc(n)
+
+    def _pool_gauge(self, name: str, pool: str):
+        key = (name, pool)
+        g = self._pool_gauges.get(key)
+        if g is None:
+            g = self._pool_gauges[key] = self.registry.gauge(
+                name, labels={"pool": pool})
+        return g
+
+    def set_pool_stats(self, pool: str, *, replicas: int,
+                       queue_depth: int, slots_active: int) -> None:
+        """One role pool's end-of-tick shape (disaggregated fleets only):
+        alive replicas, summed queue depth, summed active slots."""
+        self._pools_seen = True
+        self._pool_names.add(pool)
+        self._pool_gauge("serve_pool_replicas", pool).set(int(replicas))
+        self._pool_gauge("serve_pool_queue_depth",
+                         pool).set(int(queue_depth))
+        self._pool_gauge("serve_pool_slots_active",
+                         pool).set(int(slots_active))
 
     def _on_any_token(self) -> None:
         self.tokens.inc()
@@ -343,6 +503,28 @@ class ServeMetrics:
                 "degraded": int(self.degraded_gauge.value),
                 "journal_bytes": int(self.journal_bytes_gauge.value),
             })
+        if self._fleet_seen:
+            out.update({
+                "fleet_replicas": int(self.fleet_replicas.value),
+                "fleet_replica_losses": int(self.fleet_losses.value),
+                "fleet_migrations": int(self.fleet_migrations.value),
+                "route_affinity_hits": int(self.route_affinity_hits.value),
+                "fleet_scale_outs": int(self.fleet_scale_outs.value),
+                "fleet_retired": int(self.fleet_retired.value),
+                "fleet_handoffs": int(self.fleet_handoffs.value),
+                "route_alert_demotions": int(
+                    self.route_alert_demotions.value),
+            })
+        if self._pools_seen:
+            out["pools"] = {
+                pool: {
+                    "replicas": int(self._pool_gauge(
+                        "serve_pool_replicas", pool).value),
+                    "queue_depth": int(self._pool_gauge(
+                        "serve_pool_queue_depth", pool).value),
+                    "slots_active": int(self._pool_gauge(
+                        "serve_pool_slots_active", pool).value),
+                } for pool in sorted(self._pool_names)}
         if self._classes:
             out["per_class"] = {cls: self.class_summary(cls)
                                 for cls in sorted(self._classes)}

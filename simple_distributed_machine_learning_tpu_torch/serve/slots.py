@@ -178,6 +178,10 @@ class KVCachePool(_SlotPoolBase):
         """The full allocation, regardless of occupancy."""
         return self._bytes_total
 
+    def shared_prefix_len(self, prompt) -> int:
+        """The fleet router's affinity signal: dense rows share nothing."""
+        return 0
+
     def can_admit(self, request) -> bool:
         """One free slot IS the whole budget."""
         return self.n_free > 0
@@ -453,6 +457,12 @@ class PagedKVPool(_SlotPoolBase):
                 self._free_blocks.append(block)
 
     # -- prefix registry ---------------------------------------------------
+
+    def shared_prefix_len(self, prompt) -> int:
+        """The fleet router's affinity signal: the longest registered
+        prefix of ``prompt`` (in positions) this pool holds. A pure probe
+        (no referencing, no memo), so the router may ask every replica."""
+        return self._probe_prefix(np.asarray(prompt, np.int32))[0]
 
     def _probe_cached(self, request) -> tuple[int, list[tuple[int, int]]]:
         """Probe memoised on the request, keyed by the registry epoch and

@@ -1,7 +1,6 @@
 """The serve supervisor: crash-restartable serving with overload control.
 
-Port of ``serve/supervisor.py``, the one-engine half.
-:class:`ServeSupervisor` wraps an :class:`~.engine.InferenceEngine` behind
+Port of ``serve/supervisor.py``. :class:`ServeSupervisor` wraps an :class:`~.engine.InferenceEngine` behind
 the engine's own surface (``submit``/``step``/``drain``/``busy``/
 ``requests``), adding three things a single engine lacks:
 
@@ -32,11 +31,24 @@ arrival (else the arrival), and a load-degraded mode with hysteresis that
 refuses best-effort traffic while the backlog is high. Every shed lands in
 ``serve_shed_total{reason=deadline|backpressure|class}``.
 
+**Observability.** ``trace=`` (a ``serve/tracing.py::ServeTrace``)
+outlives engines: it is re-attached to every rebuilt engine, so a
+request's spans join across restarts under its rid. ``flight=`` (a
+``serve/flight.py::FlightRecorder``, created implicitly when
+``postmortem_dir`` is set) snaps once per tick at the monotonic
+:attr:`tick`, and every post-mortem bundle carries its rows.
+
+**The fleet's half** (``serve/fleet.py``): :meth:`adopt` takes in a
+request migrated from another replica (journaling its snapshot first),
+:meth:`release` hands a live request out without journaling, and
+:meth:`seal_handoff` journals the source's tombstone once the
+destination's snapshot landed — the copy-then-tombstone order of the
+disaggregated handoff.
+
 Clock reads: ``submit`` without an arrival stamp reads once, the deadline
-check once per tick while any open request carries a deadline; recovery
-reads none (the virtual-clock pins depend on it). The fleet's half —
-``adopt``, ``release``, ``seal_handoff`` — ports with ROADMAP.md, Queue A,
-item 4c; the tick flight recorder and tracing with item 4b.
+check once per tick while any open request carries a deadline; recovery,
+tracing and the fleet's half read none (the virtual-clock pins depend on
+it).
 """
 
 from __future__ import annotations
@@ -180,7 +192,8 @@ class ServeSupervisor:
     """Crash-restartable, deadline- and overload-aware serving; see the
     module docstring. ``journal`` is a path or a :class:`RequestJournal`;
     ``slo`` an optional ``telemetry.slo.SLOEngine``, evaluated once per
-    supervised tick at :attr:`tick` (never from a clock)."""
+    supervised tick at :attr:`tick` (never from a clock) unless a fleet
+    owns the evaluation."""
 
     def __init__(self, factory, journal, *, metrics=None,
                  clock=time.monotonic, max_restarts: int = 3,
@@ -199,9 +212,6 @@ class ServeSupervisor:
                              f"{degrade_after}")
         if shed_burst < 1:
             raise ValueError(f"shed_burst must be >= 1, got {shed_burst}")
-        if trace is not None or flight is not None:
-            raise _roadmap.not_ported("request tracing and the flight "
-                                      "recorder", _roadmap.SERVE_TRACING)
         self.factory = factory
         self.journal = (RequestJournal(journal) if isinstance(journal, str)
                         else journal)
@@ -212,15 +222,28 @@ class ServeSupervisor:
         self.overload = overload if overload is not None else OverloadPolicy()
         self.default_ttft_deadline_s = default_ttft_deadline_s
         self.default_deadline_s = default_deadline_s
+        self.trace = trace
         self.postmortem_dir = postmortem_dir
         self.postmortem_tail = int(postmortem_tail)
         self.postmortem_tag = postmortem_tag
         self.shed_burst = int(shed_burst)
+        if flight is None and postmortem_dir is not None:
+            from simple_distributed_machine_learning_tpu_torch.serve.flight import (  # noqa: E501
+                FlightRecorder,
+            )
+            flight = FlightRecorder()
+        self.flight = flight
         self.slo = slo
+        # under a fleet the FLEET evaluates the one SLO engine at its own
+        # tick and clears this on every replica
+        self._drive_slo = True
         if slo is not None and metrics is not None:
             metrics.bind_slo(slo)
         self.postmortems: list[str] = []     # bundle paths, write order
         self._sheds_since_step = 0
+        #: the disaggregated fleet's pool role ("prefill" | "decode"),
+        #: stamped onto every flight row; None outside such a fleet
+        self.pool_role: str | None = None
         #: monotonic tick counter: survives engine rebuilds; every journal
         #: record carries it
         self.tick = 0
@@ -233,12 +256,21 @@ class ServeSupervisor:
         self._user_cb: dict[int, object] = {}  # rid -> caller's on_token
         self._buckets: dict[str, tuple[float, float]] = {}
         self.engine = factory(False)
+        self._attach_engine(prev_now=0.0)
         # cold start: a previous process's journal recovers here — its
         # finished streams become readable handles, its in-flight requests
         # re-admit (no restart consumed: the budget guards THIS process)
         snapshots = self.journal.recovered_state()
         if snapshots:
             self._reseat(snapshots, note_recovered=True)
+
+    def _attach_engine(self, prev_now: float) -> None:
+        """Wire the (re)built engine into the shared observability state:
+        the trace recorder outlives engines, and the dead engine's last
+        clock reading seeds the new one (no read)."""
+        if self.trace is not None:
+            self.engine.trace = self.trace
+        self.engine._now = max(self.engine._now, prev_now)
 
     # -- the engine surface -------------------------------------------------
 
@@ -315,8 +347,8 @@ class ServeSupervisor:
     def step(self) -> int:
         """One supervised tick: deadline shedding, the engine tick
         (recoverable failures recover in place), completion acks, the SLO
-        evaluation at the monotonic :attr:`tick`, and a post-mortem bundle
-        when this tick shed a burst."""
+        evaluation and one flight snap at the monotonic :attr:`tick`, and
+        a post-mortem bundle when this tick shed a burst."""
         self.tick += 1
         self._shed_expired()
         try:
@@ -329,8 +361,20 @@ class ServeSupervisor:
         #                                even if no arrival probes it
         if self.metrics is not None:
             self.metrics.set_journal_bytes(self.journal.bytes)
-        if self.slo is not None:
+        if self.slo is not None and self._drive_slo:
+            # before the snap: the row at tick T carries the alert set as
+            # of the evaluation at T
             self.slo.evaluate(self.tick)
+        if self.flight is not None:
+            self.flight.snap(self.engine, self.tick, emitted,
+                             state=self.state, restarts=self.restarts,
+                             degraded=self.degraded,
+                             load_degraded=self.load_degraded,
+                             **({} if self.pool_role is None
+                                else {"pool_role": self.pool_role}),
+                             **({} if self.slo is None
+                                else {"active_alerts":
+                                      self.slo.active_alerts()}))
         if self._sheds_since_step >= self.shed_burst:
             self._dump_postmortem(
                 "shed_burst", f"{self._sheds_since_step} sheds in one tick")
@@ -356,25 +400,107 @@ class ServeSupervisor:
 
     def close(self) -> None:
         self.journal.close()
+        if self.trace is not None:
+            self.trace.flush()
 
     def register_adapter(self, name: str, weights: dict) -> None:
         raise _roadmap.not_ported("LoRA adapters", _roadmap.SERVE_EXTENSIONS)
 
-    # -- the fleet's half (ROADMAP.md, Queue A, item 4c) ---------------------
+    # -- the fleet's half (serve/fleet.py) ---------------------------------
 
     def adopt(self, request: Request, on_token=None,
               reason: str = "failure") -> Request:
-        raise _roadmap.not_ported("ServeSupervisor.adopt (cross-replica "
-                                  "migration)", _roadmap.SERVE_FLEET)
+        """Adopt a request migrated from ANOTHER replica: failure migration
+        (``reason="failure"``, the source's host died) or the
+        disaggregated fleet's planned handoff (``reason="handoff"``, the
+        source ran :meth:`release`). The full snapshot is journaled here
+        FIRST (one ``snap`` record with the cause under ``why``), so this
+        replica's journal alone recovers the adoptee through any later
+        crash; an in-flight snapshot then re-admits through
+        ``engine.restore`` (the crash-recovery path, so the continued
+        decode stays bit-exact), a DONE/SHED one is kept as a readable
+        handle. ``on_token`` is the caller's streaming callback."""
+        if request.rid in self.requests:
+            raise ValueError(
+                f"request {request.rid} already lives in this replica — "
+                f"adopt() is for migrated rids, which are fleet-unique")
+        if request.state not in (QUEUED, DONE, SHED):
+            raise ValueError(
+                f"request {request.rid} is {request.state!r} — migration "
+                f"adopts journal snapshots (queued/done/shed), never a "
+                f"live engine's state")
+        request.snap_reason = reason
+        self.journal.log_snapshot(request, tick=self.tick, reason=reason)
+        self.requests[request.rid] = request
+        if request.state == QUEUED:
+            request.on_token = self._on_token
+            self._user_cb[request.rid] = on_token
+            self.engine.restore(request)
+            self._open.add(request.rid)
+        else:
+            # finished exactly at the loss boundary: keep the rid space
+            # clear of it (restore() never ran to bump it)
+            self.engine._next_rid = max(self.engine._next_rid,
+                                        request.rid + 1)
+        return request
 
     def release(self, rid: int, dst=None, seal: bool = True) -> Request:
-        raise _roadmap.not_ported("ServeSupervisor.release (the "
-                                  "prefill->decode handoff)",
-                                  _roadmap.SERVE_FLEET)
+        """Hand a LIVE request out of this replica (the source half of the
+        prefill->decode handoff). An ACTIVE request's slot and blocks free
+        now (the preemption release path without its accounting), so the
+        handle keeps its tokens and key stream and the destination's
+        re-admission continues bit-exact; a QUEUED one leaves the queue.
+        Returns the handle (state QUEUED) for the destination to adopt.
+
+        ``seal=True`` journals the terminal ``handoff`` record here;
+        ``seal=False`` defers it to :meth:`seal_handoff`, which the fleet
+        calls only after the destination's ``adopt`` snap landed — the
+        copy-then-tombstone order, under which the rid is recoverable
+        from at least one journal at every crash point."""
+        r = self.requests.get(rid)
+        if r is None:
+            raise ValueError(f"request {rid} does not live in this replica")
+        if r.state not in (QUEUED, ACTIVE):
+            raise ValueError(
+                f"request {rid} is {r.state!r} — only live "
+                f"(queued/active) requests hand off")
+        eng = self.engine
+        if r.state == ACTIVE:
+            if rid in eng._prefilling:
+                eng._prefilling.remove(rid)
+            eng.pool.unbind_seq(r.slot)
+            eng.pool.release(r.slot)
+            r.slot = None
+            r.prefill_pos = None
+            r.state = QUEUED
+        else:
+            # identity scan: Request's dataclass __eq__ compares arrays
+            for i, q in enumerate(eng.scheduler.queue):
+                if q is r:
+                    del eng.scheduler.queue[i]
+                    break
+            else:               # pragma: no cover - state-machine guard
+                raise RuntimeError(
+                    f"queued request {rid} missing from the scheduler "
+                    f"queue — lifecycle bookkeeping corrupted")
+        del eng.requests[rid]
+        eng._last_emit.pop(rid, None)
+        del self.requests[rid]
+        self._user_cb.pop(rid, None)
+        self._open.discard(rid)
+        r.on_token = None        # the destination's adopt() rewires it
+        if seal:
+            self.journal.log_handoff(rid=rid, dst=dst, tick=self.tick)
+        return r
 
     def seal_handoff(self, rid: int, dst=None) -> None:
-        raise _roadmap.not_ported("ServeSupervisor.seal_handoff",
-                                  _roadmap.SERVE_FLEET)
+        """Journal the ``handoff`` tombstone for a rid already released
+        with ``seal=False`` — after the destination's snap landed."""
+        if rid in self.requests:
+            raise ValueError(
+                f"request {rid} still lives in this replica — seal only "
+                f"what release() already detached")
+        self.journal.log_handoff(rid=rid, dst=dst, tick=self.tick)
 
     # -- post-mortem bundles ------------------------------------------------
 
@@ -393,7 +519,7 @@ class ServeSupervisor:
             f"-{len(self.postmortems):03d}-{trigger}.json")
         write_bundle(
             path, trigger=trigger, cause=cause, tick=self.tick,
-            requests=self.requests,
+            flight=self.flight, requests=self.requests,
             registry=(self.metrics.registry
                       if self.metrics is not None else None),
             journal_tail=self.journal.tail(self.postmortem_tail),
@@ -529,6 +655,11 @@ class ServeSupervisor:
         if self.metrics is not None:
             self.metrics.on_submit()
             self.metrics.on_shed(reason, cls=cls)
+        if self.trace is not None:
+            # the engine never saw this request: open and close its span
+            # here so the timeline still accounts for the rejection
+            self.trace.on_submit(r, now)
+            self.trace.on_shed(r, now, reason)
         return r
 
     # -- crash recovery -----------------------------------------------------
@@ -563,6 +694,9 @@ class ServeSupervisor:
         in-flight request from the journal alone. Reads no clock."""
         self.state = RECOVERING
         self.restarts += 1
+        # the dead engine's last clock reading stamps every crash-boundary
+        # trace event and seeds the rebuilt engine
+        prev_now = self.engine._now
         if self.restarts > self.max_restarts:
             self.state = FAILED
             self._dump_postmortem("restart_budget",
@@ -578,14 +712,21 @@ class ServeSupervisor:
             self.metrics.on_restart()
         self.journal.log_restart(self.restarts, self.degraded,
                                  type(exc).__name__, tick=self.tick)
+        if self.trace is not None:
+            self.trace.on_crash(
+                prev_now,
+                [rid for rid in self._open
+                 if self.requests[rid].state in (QUEUED, ACTIVE)],
+                type(exc).__name__)
         self._dump_postmortem("restart", f"{type(exc).__name__}: {exc}")
         # journal-ONLY reconstruction: nothing of the dead engine's memory
         # is trusted; its pool frees once the failing tick's traceback goes
         snapshots = self.journal.recovered_state()
-        prev_now = self.engine._now
         self.engine = self.factory(self.degraded)
-        # the dead engine's last clock reading seeds the new one (no read)
-        self.engine._now = max(self.engine._now, prev_now)
+        self._attach_engine(prev_now=prev_now)
+        if self.trace is not None:
+            self.trace.on_restart(prev_now, self.restarts, self.degraded,
+                                  type(exc).__name__)
         self._reseat(snapshots, note_recovered=True)
         self.state = RUNNING
         self._note_degraded()    # RUNNING -> DEGRADED when a mode is on

@@ -13,8 +13,9 @@ the JSONL records ``append_jsonl`` writes:
 - a name re-registered as another kind or with another label-key set
   raises instead of silently forking the series.
 
-The metric-catalog HELP lines of the JAX exposition wait for the port of
-``telemetry/catalog.py``; the ``# TYPE`` lines and values are the same.
+Each name's first series in the exposition is preceded by a ``# HELP``
+line when the metric catalog (``telemetry/catalog.py``, parsed from the
+port's module docstrings) documents the name, then its ``# TYPE`` line.
 """
 
 from __future__ import annotations
@@ -173,13 +174,21 @@ class MetricsRegistry:
                 for inst in self._series.values()}
 
     def prometheus_text(self) -> str:
-        """Prometheus text exposition (histograms as summary quantiles),
-        label values escaped per the exposition format."""
+        """Prometheus text exposition (histograms as summary quantiles):
+        ``# HELP`` where the catalog knows the name, then ``# TYPE``; label
+        values escaped per the exposition format."""
+        from simple_distributed_machine_learning_tpu_torch.telemetry.catalog import (  # noqa: E501
+            metric_help,
+        )
+        help_catalog = metric_help()
         lines = []
         seen_type: set[str] = set()
         for inst in sorted(self._series.values(), key=_series_key):
             if inst.name not in seen_type:
                 seen_type.add(inst.name)
+                doc = help_catalog.get(inst.name)
+                if doc:
+                    lines.append(f"# HELP {inst.name} {_escape_help(doc)}")
                 kind = "summary" if isinstance(inst, Histogram) else inst.kind
                 lines.append(f"# TYPE {inst.name} {kind}")
             if isinstance(inst, Histogram):
@@ -209,6 +218,12 @@ def _series_key(inst) -> str:
 def _escape_label_value(v) -> str:
     return (str(v).replace("\\", r"\\").replace('"', r'\"')
             .replace("\n", r"\n"))
+
+
+def _escape_help(text: str) -> str:
+    """HELP-line escaping (backslash only; quotes are legal in help text),
+    collapsed to one line."""
+    return " ".join(str(text).split()).replace("\\", r"\\")
 
 
 def _labels(labels: dict, **extra) -> str:

@@ -3,8 +3,8 @@
 Port of ``telemetry/slo.py`` (no JAX; the port keeps its own copy).
 End-of-run attainment (``ServeMetrics.attainment``) answers "did we make
 the SLO"; this engine answers "are we burning error budget RIGHT NOW" —
-the signal a fleet feeds back into routing and autoscaling (ROADMAP.md,
-Queue A, item 4c) instead of reading post-hoc. Three layers:
+the signal the fleet (``serve/fleet.py``) feeds back into routing and
+autoscaling instead of reading post-hoc. Three layers:
 
 - **Windowed quantile tracking** — :class:`WindowHistogram`: fixed-bucket
   latency histograms over a sliding window of the last N *ticks*. The

@@ -30,6 +30,17 @@ BASE = ["--rank", "0", "--world_size", "1", "--device", "cpu",
         "--data-root", "/nonexistent"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread while this module runs: its models are
+    tiny, and under a multi-process test run more threads only contend
+    for the same cores. Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _reference_lines(out):
     lines = [l for l in out.split("\n") if l]
     assert all(TRAIN_RE.match(l) or TEST_RE.match(l) or EPOCH_RE.match(l)
@@ -147,17 +158,17 @@ def test_cli_metrics_json(tmp_path):
     (["--sentinel"], "item 6"),
     (["--telemetry-dir", "/tmp/t"], "item 6"),
     (["--profile", "/tmp/p"], "item 6"),
-    (["--scenario", "fleet-replica-loss"], "item 4"),
-    (["--chaos", "host-kill@train.step=6"], "item 4"),
-    (["--serve-route", "round-robin"], "item 4"),
-    (["--serve-trace"], "item 4"),
-    (["--serve-replicas", "2"], "item 4"),
+    (["--scenario", "offload-churn"], "item 5"),
+    (["--scenario", "hot-adapter-churn"], "item 5"),
+    (["--chaos", "host-kill@train.step=6"], "item 4d"),
+    (["--chaos-max-restarts", "5"], "item 4d"),
+    (["--serve-prefetch-ticks", "2"], "item 5"),
     (["--serve-host-blocks", "4"], "item 5"),
     (["--serve-adapters", "2"], "item 5"),
     (["--lint"], "item 7"),
     (["--lint-only"], "item 7"),
     (["--serve-tp", "2"], "item 6"),
-    (["--serve-autoscale", "1,3"], "item 4"),
+    (["--serve-adapter-rank", "2"], "item 5"),
     (["--serve-adapters", "2", "--serve-sim", "4"], "item 5"),
 ])
 def test_unported_flags_exit_naming_their_item(flag, item):
@@ -191,7 +202,10 @@ def test_unported_flags_exit_naming_their_item(flag, item):
       "replica-kill@fleet.tick=5"], "needs --serve-replicas"),
     (["--scenario", "nope"], "^unknown --scenario 'nope'; available: "
                              "burst-interactive, burst-slow-tick, "
-                             "crash-serve, multi-tenant, overload-shed, "
+                             "crash-serve, disagg-prefill-heavy, "
+                             "fleet-autoscale-diurnal, fleet-replica-loss, "
+                             "handoff-replica-loss, hot-prefix-skew, "
+                             "multi-tenant, overload-shed, "
                              r"steady \(or 'list'\)$"),
 ])
 def test_bad_values_exit_with_one_line(argv, match):
@@ -306,7 +320,10 @@ def test_cli_scenario_prints_the_jax_lines(capsys, monkeypatch):
     lines = capsys.readouterr().out.splitlines()
     assert [ln.split(":")[0] for ln in lines] == [
         "| steady", "| burst-interactive", "| multi-tenant",
-        "| burst-slow-tick", "| crash-serve", "| overload-shed"]
+        "| burst-slow-tick", "| crash-serve", "| overload-shed",
+        "| fleet-replica-loss", "| hot-prefix-skew",
+        "| fleet-autoscale-diurnal", "| disagg-prefill-heavy",
+        "| handoff-replica-loss"]
     jcli.main(["--rank", "0", "--scenario", "list"])
     assert set(lines) <= set(capsys.readouterr().out.splitlines())
 
@@ -344,3 +361,108 @@ def test_should_stop_drains_in_process(capsys, monkeypatch):
     # every submitted request completed (none shed: the deadline is far)
     assert out[2].startswith(f"| serve: {m[1]}/8 requests completed")
     assert signal.getsignal(signal.SIGTERM) is signal.SIG_DFL
+
+
+# -- the fleet and tracing flags --------------------------------------------
+
+
+def _jax_cli(monkeypatch):
+    from simple_distributed_machine_learning_tpu import cli as jcli
+    from simple_distributed_machine_learning_tpu.serve.engine import (
+        InferenceEngine as JaxEngine,
+    )
+    monkeypatch.setattr(JaxEngine, "kv_drift", lambda self: (0, 0))
+    return jcli
+
+
+@pytest.mark.parametrize("extra,files", [
+    (["--serve-replicas", "2", "--serve-trace"],
+     ["journal-r0.jsonl", "journal-r1.jsonl", "metrics.jsonl",
+      "metrics.prom", "request_timeline.jsonl", "serve_trace.json"]),
+    (["--serve-replicas", "3", "--serve-prefill-replicas", "1"],
+     ["journal-r0.jsonl", "journal-r1.jsonl", "journal-r2.jsonl",
+      "metrics.jsonl", "metrics.prom"]),
+], ids=["replicas-trace", "disaggregated"])
+def test_cli_fleet_prints_the_jax_lines(capsys, monkeypatch, tmp_path,
+                                        extra, files):
+    """``--serve-sim 8`` through a fleet prints the JAX CLI's lines (its
+    kv-drift line is the analyzer's, item 7.3) and leaves the journals,
+    the records and, traced, the trace and timeline files."""
+    jcli = _jax_cli(monkeypatch)
+    argv = ["--model", "gpt", "--serve-sim", "8"] + extra
+    main(BASE + argv + ["--telemetry-dir", str(tmp_path / "t")])
+    ours = capsys.readouterr().out.splitlines()
+    jcli.main(["--rank", "0", "--stages", "1", "--telemetry-dir",
+               str(tmp_path / "j")] + argv)
+    ref = [ln for ln in capsys.readouterr().out.splitlines()
+           if "kv drift" not in ln]
+
+    def mask(lines):
+        return _skeleton([ln.replace(str(tmp_path / "t"), "D")
+                          .replace(str(tmp_path / "j"), "D")
+                          for ln in lines])
+
+    assert mask(ours) == mask(ref)
+    assert any(re.match(r"^\| serve: 8/8 requests completed", ln)
+               for ln in ours)
+    assert sorted(p.name for p in (tmp_path / "t").iterdir()) == files
+    rec = json.loads((tmp_path / "t" / "metrics.jsonl").read_text())
+    assert rec["completed"] == 8 and "fleet_replicas" in rec
+    if "--serve-trace" in extra:
+        from simple_distributed_machine_learning_tpu_torch.telemetry import (
+            report,
+        )
+        assert report.main(["--dir", str(tmp_path / "t")]) == 0
+        out = capsys.readouterr().out
+        assert "timeline request_timeline.jsonl:" in out
+        assert "8 request(s)" in out
+    else:
+        assert rec["fleet_handoffs"] == 8
+
+
+def test_cli_fleet_scenario_prints_the_jax_lines(capsys, monkeypatch):
+    """``--scenario hot-prefix-skew`` (with ``--serve-trace``: the
+    attribution lines too) prints exactly the JAX CLI's lines."""
+    jcli = _jax_cli(monkeypatch)
+    for extra in ([], ["--serve-trace"]):
+        main(BASE + ["--scenario", "hot-prefix-skew"] + extra)
+        ours = capsys.readouterr().out
+        jcli.main(["--rank", "0", "--scenario", "hot-prefix-skew"] + extra)
+        assert ours == capsys.readouterr().out
+        assert "17 affinity hit(s)" in ours
+        assert ("slow rid 3 (interactive) ttft 42.62 vms" in ours) == bool(
+            extra)
+        assert ours.splitlines()[-1] == "| scenario: SLO ATTAINED"
+
+
+@pytest.mark.parametrize("extra", [
+    ["--serve-replicas", "-1"],
+    ["--serve-route", "round-robin"],
+    ["--serve-autoscale", "1,3"],
+    ["--serve-replicas", "2", "--serve-autoscale", "x"],
+    ["--serve-replicas", "5", "--serve-autoscale", "1,3"],
+    ["--serve-prefill-replicas", "1"],
+    ["--serve-replicas", "2", "--serve-prefill-replicas", "2"],
+    ["--serve-replicas", "3", "--serve-autoscale", "2,4",
+     "--serve-prefill-replicas", "1"],
+    ["--serve-chaos", "replica-kill@fleet.tick=5"],
+])
+def test_fleet_flag_errors_are_the_jax_clis(monkeypatch, extra):
+    jcli = _jax_cli(monkeypatch)
+    argv = ["--model", "gpt", "--serve-sim", "2"] + extra
+    with pytest.raises(SystemExit) as ours:
+        main(BASE + argv)
+    with pytest.raises(SystemExit) as ref:
+        jcli.main(["--rank", "0", "--stages", "1"] + argv)
+    assert str(ours.value) == str(ref.value)
+    assert "\n" not in str(ours.value) and str(ours.value)
+
+
+def test_serve_trace_needs_a_telemetry_dir(monkeypatch):
+    jcli = _jax_cli(monkeypatch)
+    argv = ["--model", "gpt", "--serve-sim", "2", "--serve-trace"]
+    with pytest.raises(SystemExit, match="needs --telemetry-dir") as ours:
+        main(BASE + argv)
+    with pytest.raises(SystemExit) as ref:
+        jcli.main(["--rank", "0", "--stages", "1"] + argv)
+    assert str(ours.value) == str(ref.value)

@@ -184,11 +184,9 @@ def test_engine_defaults_to_cuda_and_raises_without_it(weights):
     dict(mesh=object()),
     dict(adapters=object()),
     dict(host_cache_blocks=4),
+    dict(prefetch_ticks=2),
     dict(lint=True),
-    dict(trace=object()),
-    dict(flight=object()),
-], ids=["speculative", "tp", "adapters", "host-tier", "lint", "trace",
-        "flight"])
+], ids=["speculative", "tp", "adapters", "host-tier", "prefetch", "lint"])
 def test_unported_engine_knobs_raise_with_roadmap_item(weights, kw):
     _, _, _, tcfg, tst, tparams = weights
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -225,6 +223,10 @@ def test_port_and_chip_smoke_import_no_jax():
     assert len(files) > 15
     assert {"faults.py", "scenarios.py"} <= {
         p.name for p in files if p.parent.name == "resilience"}
+    assert {"fleet.py", "router.py", "tracing.py", "flight.py"} <= {
+        p.name for p in files if p.parent.name == "serve"}
+    assert {"tracing.py", "attribution.py", "catalog.py", "report.py"} <= {
+        p.name for p in files if p.parent.name == "telemetry"}
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

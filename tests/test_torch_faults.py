@@ -134,10 +134,12 @@ def test_install_from_env(monkeypatch):
 
 
 def test_drill_coverage_finds_the_ports_serve_sites():
-    """The port instruments exactly the engine's two sites, and its tests
-    drill both and every kind the supervisor acts on; a site or kind with
-    no drill, and an undrilled pinned pair, are reported."""
-    assert faults.instrumented_sites() == ("serve.tick", "serve.admit")
+    """The port instruments exactly the engine's two sites and the fleet's
+    two, and its tests drill all four and every kind the supervisor and
+    the fleet act on; a site or kind with no drill, and an undrilled
+    pinned pair, are reported."""
+    assert faults.instrumented_sites() == ("serve.tick", "serve.admit",
+                                           "fleet.tick", "fleet.handoff")
     assert faults.drill_coverage() == []
     # (the undrilled pair is spelled in two pieces: written whole, this
     # file's own text would drill it)

@@ -215,14 +215,18 @@ def test_sampled_top1_equals_greedy_and_seeds_reproduce():
     dict(n_experts=4),
     dict(attn_impl="ring", n_seq=2),
     dict(n_tensor_parallel=2),
-    # serving builds: the dense slot-row target is ported (the degraded
-    # fallback); speculation over it, tracing and the TP/adapter slot
-    # programs still name their items
+    # serving builds: the dense slot-row target, tracing and the flight
+    # recorder are ported; speculation over dense rows and the TP/adapter
+    # slot programs still name their items, as training chaos names 4d
     dict(engine=dict(kv_layout="dense"), item=None),
     dict(engine=dict(kv_layout="dense", spec_k=2, draft=True),
          item="item 5, serving extensions"),
-    dict(engine=dict(trace=object()),
-         item="item 4b, request tracing and the SLO reports"),
+    dict(engine=dict(trace=True), item=None),
+    dict(engine=dict(flight=True), item=None),
+    dict(cli=["--chaos", "engine-crash@train.step=2"],
+         item="item 4d, training resilience"),
+    dict(cli=["--chaos-max-restarts", "5"],
+         item="item 4d, training resilience"),
     dict(slot_decode=dict(mesh=object()),
          item="item 6, remaining parallel axes"),
     dict(slot_decode=dict(adapters=True), item="item 5, serving extensions"),
@@ -240,11 +244,25 @@ def test_unported_configs_raise_with_roadmap_item(kw):
     from simple_distributed_machine_learning_tpu_torch.serve import (
         InferenceEngine,
     )
+    if "cli" in kw:
+        from simple_distributed_machine_learning_tpu_torch.cli import main
+        with pytest.raises(SystemExit,
+                           match=rf"ROADMAP\.md, Queue A: {kw['item']}"):
+            main(["--rank", "0", "--device", "cpu"] + kw["cli"])
+        return
+    from simple_distributed_machine_learning_tpu_torch.serve import (
+        FlightRecorder,
+        ServeTrace,
+    )
     _, _, _, tcfg, tst, tparams = _weights()
     if "engine" in kw:
         ekw = dict(kw["engine"])
         if ekw.pop("draft", False):
             ekw.update(draft_stages=tst, draft_cfg=tcfg)
+        if ekw.get("trace"):
+            ekw["trace"] = ServeTrace()
+        if ekw.get("flight"):
+            ekw["flight"] = FlightRecorder()
 
         def build():
             return InferenceEngine(tst, tcfg, params=tparams, device="cpu",
@@ -260,7 +278,13 @@ def test_unported_configs_raise_with_roadmap_item(kw):
         solo = tgpt.make_cached_decoder(tst, tcfg, 5, 4, device="cpu")(
             tparams, (np.arange(5) % 64)[None].astype(np.int32),
             key_data(3))
-        assert eng.kv_layout == "dense" and h.tokens == solo[0, 5:].tolist()
+        assert h.tokens == solo[0, 5:].tolist()
+        assert eng.kv_layout == ekw.get("kv_layout", "paged")
+        if eng.trace is not None:
+            assert [r["ev"] for r in eng.trace.rows][::len(
+                eng.trace.rows) - 1] == ["submit", "done"]
+        if eng.flight is not None:
+            assert eng.flight.ticks_recorded == eng._tick_count > 0
         return
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP\.md, Queue A: {kw['item']}"):

@@ -1,4 +1,6 @@
-"""The six one-engine SLO scenarios: the port against the JAX package.
+"""The SLO scenarios: the port against the JAX package — the six
+one-engine scenarios and the five fleet scenarios (with hot-prefix-skew
+under round-robin and disagg-prefill-heavy's symmetric fleet as variants).
 
 Both packages run each scenario on the virtual clock with one set of
 weights (``tests/test_scenarios.py``'s model, 2 stages from
@@ -83,6 +85,43 @@ PINS = {
 }
 OVERLOAD_ALERTS = [(37, "inactive", "pending"), (38, "pending", "firing"),
                    (49, "firing", "resolved"), (50, "resolved", "inactive")]
+
+# the fleet pins: (name, run_scenario overrides) -> (completed, interactive
+# TTFT p95 vms or None, fleet block fields, prefix-hit blocks or None)
+FLEET_PINS = {
+    ("fleet-replica-loss", ()): (16, 22.16, dict(
+        replicas=3, alive=2, replica_losses=1, migrations=1,
+        replica_log=[("loss", 0, 5, 2)]), None),
+    ("hot-prefix-skew", ()): (18, 42.62, dict(
+        replicas=3, affinity_hits=17, replica_log=[]), 17),
+    ("hot-prefix-skew", (("route", "round-robin"),)): (18, None, dict(
+        replicas=3, affinity_hits=0, route="round-robin"), 5),
+    ("fleet-autoscale-diurnal", ()): (50, None, dict(
+        replicas=1, scale_outs=4, retired=2, replica_log=[
+            ("scale-out", 1, 30, 2), ("scale-out", 2, 36, 3),
+            ("retire", 2, 61, 2), ("retire", 1, 61, 1),
+            ("scale-out", 3, 76, 2), ("scale-out", 4, 78, 3)]), None),
+    ("disagg-prefill-heavy", ()): (16, 74.719, dict(
+        replicas=4, prefill_replicas=2, handoffs=16), None),
+    ("disagg-prefill-heavy", (("prefill_replicas", 0),)): (16, 206.719,
+                                                           dict(replicas=4),
+                                                           None),
+    ("handoff-replica-loss", ()): (16, 25.16, dict(
+        replicas=3, prefill_replicas=1, handoffs=16, replica_losses=1,
+        migrations=1, replica_log=[("loss", 1, 6, 2)]), None),
+}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread while this module runs: its models are
+    tiny, and under a multi-process test run more threads only contend
+    for the same cores. Restored afterwards."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -329,21 +368,21 @@ def test_clock_reads_per_tick_equal_the_jax_engine(model, layout):
 
 
 def test_unported_scenarios_and_knobs_name_their_items(model):
+    """The host-tier and adapter scenarios and ``host_cache_blocks`` name
+    item 5; the fleet scenarios and ``trace``/``route``/
+    ``prefill_replicas`` run."""
     _, _, tcfg, tst = model
-    for name, item in (("fleet-replica-loss", "item 4c"),
-                       ("hot-adapter-churn", "item 5"),
-                       ("offload-churn", "item 5")):
-        with pytest.raises(NotImplementedError, match=item):
+    for name in ("hot-adapter-churn", "offload-churn"):
+        with pytest.raises(NotImplementedError, match="item 5"):
             tscen.run_scenario(name, tst, tcfg, device="cpu")
-    for kw, item in ((dict(trace=True), "item 4b"),
-                     (dict(route="round-robin"), "item 4c"),
-                     (dict(prefill_replicas=1), "item 4c"),
-                     (dict(host_cache_blocks=4), "item 5")):
-        with pytest.raises(NotImplementedError, match=item):
-            tscen.run_scenario("steady", tst, tcfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tscen.run_scenario("steady", tst, tcfg, device="cpu",
+                           host_cache_blocks=4)
+    rep = tscen.run_scenario("steady", tst, tcfg, device="cpu", trace=True)
+    assert rep["slo_ok"] and rep["attribution"]["requests"] == 16
     with pytest.raises(ValueError, match="unknown scenario"):
         tscen.run_scenario("nope", tst, tcfg, device="cpu")
-    assert set(tscen.SCENARIOS) == set(PINS)
+    assert set(tscen.SCENARIOS) == set(PINS) | {n for n, _ in FLEET_PINS}
     assert set(tscen.SCENARIOS) | set(tscen.UNPORTED_SCENARIOS) == set(
         jscen.SCENARIOS)
     with pytest.raises(ValueError, match="min_restarts"):
@@ -368,3 +407,99 @@ def test_virtual_clock_semantics():
     assert clock() == 4.0
     with pytest.raises(ValueError):
         tscen.VirtualClock(per_call_s=0.0)
+
+
+# -- the fleet scenarios --------------------------------------------------------
+
+
+@pytest.mark.parametrize("name,over", list(FLEET_PINS),
+                         ids=[n + ("" if not o else f"[{o[0][0]}={o[0][1]}]")
+                              for n, o in FLEET_PINS])
+def test_fleet_scenario_equals_the_jax_run(monkeypatch, model, name, over):
+    """Every number of the fleet pins holds exactly in both packages: the
+    count, the interactive TTFT p95, the fleet block with its replica log,
+    ``slo_ok``; every greedy stream is equal."""
+    kw = dict(over)
+    jr, tr, jreqs, treqs = _run_both(monkeypatch, model, name, **kw)
+    completed, p95, fleet, hits = FLEET_PINS[(name, over)]
+    for rep in (jr, tr):
+        assert rep["completed"] == completed and rep["shed"] == 0
+        if p95 is not None:
+            assert rep["slo"]["interactive"]["ttft_ms_p95"] == p95
+        for key, want in fleet.items():
+            got = rep["fleet"][key]
+            if key == "replica_log":
+                got = [(e["event"], e["replica"], e["tick"], e["alive"])
+                       for e in got]
+            assert got == want, (key, got)
+        if hits is not None:
+            assert rep["prefix_hit_blocks"] == hits
+    assert tr["fleet"] == jr["fleet"]
+    assert tr["slo_ok"] == jr["slo_ok"]
+    assert tr["slo_ok"] is True
+    assert tr["slo"] == jr["slo"]
+    assert tr.get("slo_alerts") == jr.get("slo_alerts")
+    assert tr.get("faults") == jr.get("faults")
+    assert _check_streams(jreqs, treqs) >= 4
+    assert faults.active() is None
+
+
+def _fleet_clock_reads(pkg, model, n_replicas, chaos=None):
+    """Clock reads per call (each submit, each tick) of one request mix
+    through a fleet (``n_replicas`` > 0) or a lone supervisor (0)."""
+    jcfg, jst, tcfg, tst = model
+    clock = CountingClock()
+    if pkg == "jax":
+        from simple_distributed_machine_learning_tpu.serve import (
+            ServeFleet as fleet_cls,
+        )
+        fmod, sup_cls, fac = jfaults, JaxServeSupervisor, jax_engine_factory
+        stages, cfg, extra = jst, jcfg, {}
+    else:
+        from simple_distributed_machine_learning_tpu_torch.serve import (
+            ServeFleet as fleet_cls,
+        )
+        fmod, sup_cls, fac = faults, ServeSupervisor, engine_factory
+        stages, cfg, extra = tst, tcfg, {"device": "cpu"}
+    if chaos:
+        fmod.install(fmod.FaultPlan.parse(chaos, sleep=clock.sleep))
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        factory = fac(stages, cfg, n_slots=2, block_size=4, prefill_chunk=3,
+                      clock=clock, **extra)
+        if n_replicas:
+            target = fleet_cls(factory, d, n_replicas=n_replicas,
+                               clock=clock, journal_sync=False)
+        else:
+            target = sup_cls(factory, os.path.join(d, "j.jsonl"),
+                             clock=clock)
+        rng = np.random.default_rng(7)
+        reads = []
+        for i in range(6):
+            target.submit(rng.integers(0, 32, 3 + i).astype(np.int32),
+                          max_new_tokens=5, seed=i)
+            reads.append(("submit", clock.reads))
+            clock.reads = 0
+            target.step()
+            reads.append(("tick", clock.reads))
+            clock.reads = 0
+        while target.busy:
+            target.step()
+            reads.append(("tick", clock.reads))
+            clock.reads = 0
+        target.close()
+    fmod.uninstall()
+    return reads, sorted((r.rid, list(r.tokens))
+                         for r in target.requests.values())
+
+
+def test_a_fleet_tick_adds_no_clock_read(model):
+    """A one-replica fleet reads the clock exactly as often, call for
+    call, as the lone supervisor it wraps; a three-replica fleet through a
+    replica loss reads it exactly as the JAX package's fleet does."""
+    alone = _fleet_clock_reads("port", model, 0)
+    assert _fleet_clock_reads("port", model, 1) == alone
+    assert sum(n for _, n in alone[0]) > 30
+    chaos = "replica-kill@fleet.tick=3"
+    assert (_fleet_clock_reads("port", model, 3, chaos)
+            == _fleet_clock_reads("jax", model, 3, chaos))

@@ -507,20 +507,28 @@ def test_overload_policy_and_constructor_validation(tmp_path):
 
 def test_fleet_tracing_and_adapter_surfaces_name_their_items(model,
                                                              tmp_path):
+    """The fleet's half (adopt/release/seal_handoff) and tracing are
+    ported: they check their arguments; the adapters still name item 5."""
     sup = _supervisor(model, tmp_path)
-    for call in (lambda: sup.adopt(None), lambda: sup.release(0),
-                 lambda: sup.seal_handoff(0)):
-        with pytest.raises(NotImplementedError, match="item 4c"):
-            call()
+    with pytest.raises(ValueError, match="does not live"):
+        sup.release(0)
+    with pytest.raises(ValueError, match="migration adopts journal"):
+        sup.adopt(dataclasses.replace(
+            sup.engine.submit(_prompt(4, 1), max_new_tokens=2), rid=7,
+            state=ACTIVE))
+    sup.engine.requests.clear()
+    sup.engine.scheduler.queue.clear()
+    sup.seal_handoff(0)                        # a released rid: journaled
+    assert sup.journal.tail(1)[-1]["ev"] == "handoff"
     with pytest.raises(NotImplementedError, match="item 5"):
         sup.submit(_prompt(4, 1), max_new_tokens=2, adapter="tenant")
     with pytest.raises(NotImplementedError, match="item 5"):
         sup.register_adapter("tenant", {})
     assert sup.requests == {}                  # nothing was journaled
     sup.close()
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        ServeSupervisor(lambda d: None, str(tmp_path / "t.jsonl"),
-                        trace=object())
+    traced = _supervisor(model, tmp_path, "t.jsonl",
+                         postmortem_dir=str(tmp_path))
+    assert traced.flight is not None           # implicit with bundles
     with pytest.raises(NotImplementedError, match="item 5"):
         engine_factory(model[0], CFG, adapter_rank=4)
 
