@@ -146,7 +146,37 @@ or without the port beside it. Phases, each fatal on failure:
    streams equal to phase 3's, the report CLI exiting 0, and the decode
    tick p50 traced against untraced; (e) the CLI's ``--serve-replicas 2
    --serve-trace --telemetry-dir D``, ``--serve-replicas 2
-   --serve-prefill-replicas 1`` and ``--scenario disagg-prefill-heavy``.
+   --serve-prefill-replicas 1`` and ``--scenario disagg-prefill-heavy``;
+10. training that survives faults: (a) phase 7's ``mlp2`` row (batch 60,
+   SGD) under the sentinel: ``nan-grad`` detected, rolled back and
+   quarantined, its per-step losses and final parameters equal, bit for
+   bit, to a clean run that pre-loaded the quarantine journal;
+   ``corrupt-batch`` and ``loss-spike`` each caught once; a clean run
+   trips nothing; the sentinel's cost per step (sentinel on against off,
+   beside phase 7's step) and one rollback's ms; (b) the ``gpt_bf16``
+   row (``attn_impl="flash"``) under ``supervise(make_elastic_trainer(...
+   ), (1,))`` with a ``CheckpointStore`` and ``ELASTIC_KILL`` mid-epoch —
+   exactly 1 restart, resumed at the first epoch's step, K1-K3 launched
+   ``n_layers`` times per train step (K1 also per eval batch) in both
+   attempts, the epoch losses and final parameters after the restore
+   equal to an uninterrupted run's (bit for bit when two clean runs are;
+   else within their spread), the memory allocated after the restart
+   within an eighth of one trainer's state of the figure before the kill,
+   and one more trainer kept alive reading above that limit; it prints
+   the restart cost (the kill to the end of the first step after the
+   restore), the store's save ms and bytes per generation, and, for the
+   same run with ``sentinel=True`` and no fault (nothing tripped, losses
+   equal to the clean run's), the sentinel's cost per step beside phase
+   5's step; (c) the store on the card: ``ckpt-write-crash@ckpt.write``
+   restarts in place and completes; a truncated newest generation is
+   skipped with its warning and the previous one restores; (d) the CLI:
+   ``--model mlp --sentinel --chaos nan-grad@train.grad=5`` (0 restarts,
+   1 anomaly absorbed), ``--model gpt --attn flash --chaos
+   host-kill@train.step=6`` (1 restart; its f32 K1-K3 launches are
+   checked here and kept out of the ``kernels`` line's bf16 rows),
+   ``--chaos host-kill@train.step=999`` (exits naming "never fired"),
+   and ``preempt@train.sigterm=6`` then a rerun, ending on the
+   parameters of an uninterrupted run bit for bit.
 
 Before the last line it prints the kernels as one JSON object (times in
 ms, measured in this run; ``bound_ms`` computed from this run's inputs);
@@ -332,6 +362,24 @@ ATTRIBUTION_PINS = {
                              {"queue": 6.16, "prefill": 19.0}),
 }
 FLEET_DRILL_CHAOS = "replica-kill@fleet.tick=40"
+# phase 10: the mlp2 sentinel drill (2 epochs of SENTINEL_STEPS steps, a
+# snapshot every 4 steps; each numeric fault at its step, after the
+# detector's 8-step warm-up, and the two that scale the batch up early in
+# epoch 1: a model that has learnt the synthetic digits classifies a
+# scaled batch with more confidence, so its loss falls instead — at loss
+# 0.25 a batch times 1e30 gives loss 0 and gradient 0 — and a poisoned
+# update caught only after the next snapshot exhausts the ring), the
+# steps of each sentinel-cost
+# window, and the gpt_bf16 elastic drill (ELASTIC_EPOCHS epochs of
+# ELASTIC_STEPS steps, an eval set of ELASTIC_TEST sequences, killed
+# mid-epoch 2)
+SENTINEL_STEPS = 30
+SENTINEL_FAULTS = {"nan-grad@train.grad=37": ("nan",),
+                   "corrupt-batch@data.batch=12": ("nan", "inf"),
+                   "loss-spike@train.step=10": ("spike",)}
+SENTINEL_TIMED_STEPS = 100
+ELASTIC_EPOCHS, ELASTIC_STEPS, ELASTIC_TEST = 3, 4, 32
+ELASTIC_KILL = "host-kill@train.step=6"
 # where phase 7 runs: the card ("cpu" only to rehearse the phase without
 # one, where its device checks cannot pass)
 MAIN_DEVICE = "cuda"
@@ -2400,9 +2448,10 @@ def _row_data(flat: bool):
     return train, test
 
 
-def _trainer(row: str, device, epochs: int, ckpt_dir: str | None):
+def _trainer(row: str, device, epochs: int, ckpt_dir: str | None, **kw):
     """A reference-configured ``Trainer`` (batch 60, SGD lr 0.1 momentum
-    0.5) on one of ``_main_rows``; its console goes nowhere."""
+    0.5) on one of ``_main_rows``, ``kw`` more ``TrainConfig`` fields; its
+    console goes nowhere."""
     from simple_distributed_machine_learning_tpu_torch.parallel import (
         Pipeline,
     )
@@ -2414,7 +2463,7 @@ def _trainer(row: str, device, epochs: int, ckpt_dir: str | None):
     stages, wire_dim, out_dim = build(device)
     train, test = _row_data(flat)
     cfg = TrainConfig(epochs=epochs, checkpoint_dir=ckpt_dir,
-                      print_throughput=False)
+                      print_throughput=False, **kw)
     return Trainer(Pipeline(stages, None, wire_dim, out_dim, device=device),
                    train, test, cfg)
 
@@ -2693,6 +2742,634 @@ def phase_main_path(record: dict) -> None:
     rec["rows"] = rows
 
 
+# -- phase 10: training that survives faults -----------------------------------
+
+def _mem() -> int:
+    import torch
+    if MAIN_DEVICE != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _under(spec: str | None, fn, *args):
+    """``fn(*args)`` quietly with the fault plan ``spec`` installed (None:
+    no plan), uninstalled afterwards."""
+    from simple_distributed_machine_learning_tpu_torch.resilience import (
+        faults,
+    )
+    if spec:
+        faults.install(faults.FaultPlan.parse(spec))
+    try:
+        return _quiet(fn, *args)[0]
+    finally:
+        faults.uninstall()
+
+
+def _same_params(a, b) -> bool:
+    import torch
+    return all(torch.equal(x, y) for x, y in zip(a[0].parameters(),
+                                                 b[0].parameters()))
+
+
+def _epoch_ms(trainer, epoch: int) -> float:
+    t0 = time.perf_counter()
+    _quiet(trainer.train_epoch, epoch)          # ends in a synchronise
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _sentinel_mlp2(rec: dict, tmp: str, mlp2_step_ms: float) -> None:
+    """Phase 10 (a): the sentinel's pins, cost and rollback on ``mlp2``."""
+    import shutil
+
+    import torch
+    def trainer(epochs, steps, ckpt=None, sentinel=True):
+        return _trainer("mlp2", MAIN_DEVICE, epochs, ckpt, sentinel=sentinel,
+                        max_steps_per_epoch=steps)
+
+    out: dict = {}
+    rec["mlp2_sentinel"] = out
+    for spec, kinds in SENTINEL_FAULTS.items():
+        d = os.path.join(tmp, spec.split("@")[0])
+        tr = trainer(2, SENTINEL_STEPS, ckpt=d)
+        _under(spec, tr.fit)
+        s = tr.sentinel
+        q = s.journal.records[0] if len(s.journal.records) == 1 else None
+        out[spec] = dict(stats=s.stats(), record=q)
+        print(f"chip_smoke: sentinel mlp2 {spec}: {s.by_kind}, "
+              f"{s.n_rollbacks} rollback(s), quarantined {q}")
+        # a loss-spike's own loss may stay under the threshold (the
+        # scaled batch is classified with more confidence); the update it
+        # drove then spikes the next step's loss, which is caught
+        at = int(spec.split("=")[1])
+        late = 1 if spec.startswith("loss-spike") else 0
+        check(s.n_anomalies == 1 and s.n_rollbacks == 1 and q is not None
+              and q["kind"] in kinds and at <= q["step"] <= at + late,
+              f"sentinel mlp2 {spec}: expected one {kinds} anomaly rolled "
+              f"back at step {at}" + (f" or {at + 1}" if late else "")
+              + f", got {s.stats()} {s.journal.records}")
+        if not spec.startswith("nan-grad"):
+            continue
+        clean = os.path.join(tmp, "clean-journal")
+        os.makedirs(clean)
+        shutil.copy(os.path.join(d, "quarantine.jsonl"), clean)
+        ref = trainer(2, SENTINEL_STEPS, ckpt=clean)
+        _under(None, ref.fit)
+        exact = (s.observed == ref.sentinel.observed
+                 and _same_params(tr.params, ref.params))
+        out["nan_grad_bit_exact"] = exact
+        print(f"chip_smoke: sentinel mlp2: {len(s.observed)} observed "
+              f"losses and the final parameters after the rollback vs a "
+              f"clean run that pre-loaded the journal: "
+              f"{'bit-exact' if exact else 'DIFFER'}")
+        check(ref.sentinel.n_anomalies == 0 and exact,
+              "sentinel mlp2: the rolled-back run differs from the clean "
+              "run with the same quarantine journal")
+    # the cost: train_epoch windows with the sentinel off and on, in
+    # turns, after one warm-up epoch each; a clean run trips nothing
+    on = trainer(3, SENTINEL_TIMED_STEPS)
+    off = trainer(3, SENTINEL_TIMED_STEPS, sentinel=False)
+    _epoch_ms(on, 1)
+    _epoch_ms(off, 1)
+    t_off = _epoch_ms(off, 2)
+    t_on = _epoch_ms(on, 2)
+    t_on += _epoch_ms(on, 3)
+    t_off += _epoch_ms(off, 3)
+    n = 2 * SENTINEL_TIMED_STEPS
+    cost = (t_on - t_off) / n
+    check(on.sentinel.n_anomalies == 0 and len(on.sentinel.observed)
+          == 3 * SENTINEL_TIMED_STEPS,
+          f"sentinel mlp2: a clean run tripped {on.sentinel.stats()}")
+    snap = on.sentinel.ring.newest_at_or_before(on._step_count)
+    rollback = []
+    for _ in range(20):
+        _sync()
+        t0 = time.perf_counter()
+        on._restore_snapshot(snap)
+        _sync()
+        rollback.append((time.perf_counter() - t0) * 1e3)
+    out.update(step_ms_off=t_off / n, step_ms_on=t_on / n,
+               cost_ms_per_step=cost, phase7_step_ms=mlp2_step_ms,
+               rollback_ms=statistics.median(rollback),
+               snapshot_bytes=snap.nbytes, clean_anomalies=0)
+    print(f"chip_smoke: sentinel mlp2 cost: {t_on / n:.4f} ms per step on "
+          f"against {t_off / n:.4f} off ({cost:+.4f} ms; phase 7's mlp2 "
+          f"step {mlp2_step_ms:.4f} ms); one rollback "
+          f"{out['rollback_ms']:.4f} ms (median of 20, {snap.nbytes} "
+          f"bytes); a clean run of {3 * SENTINEL_TIMED_STEPS} steps "
+          f"tripped nothing")
+    del on, off, tr, ref
+    if MAIN_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _elastic_setup():
+    """The gpt_bf16 row for phase 10 (b): its config with
+    ``attn_impl="flash"``, random float token ids (seed 3) for
+    ``ELASTIC_STEPS`` batches and ``ELASTIC_TEST`` eval sequences, the
+    pipeline builder and the ``TrainConfig``."""
+    import numpy as np
+    import torch
+
+    from simple_distributed_machine_learning_tpu_torch.data.mnist import (
+        Dataset,
+    )
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        GPTConfig,
+        make_gpt_stages,
+    )
+    from simple_distributed_machine_learning_tpu_torch.parallel import (
+        Pipeline,
+    )
+    from simple_distributed_machine_learning_tpu_torch.train import (
+        TrainConfig,
+    )
+    row = TRAIN_ROWS["gpt_bf16"]
+    cfg = GPTConfig(**row["cfg"], attn_impl="flash")
+    rng = np.random.default_rng(3)
+    n_train = ELASTIC_STEPS * row["batch"]
+    shape = (n_train + ELASTIC_TEST, cfg.seq_len)
+    x = rng.integers(0, cfg.vocab, shape)
+    y = rng.integers(0, cfg.vocab, shape)
+    train = Dataset(x[:n_train].astype(np.float32), y[:n_train])
+    test = Dataset(x[n_train:].astype(np.float32), y[n_train:])
+
+    def build_pipe(n):
+        stages, wire_dim, out_dim = make_gpt_stages(0, cfg, n, MAIN_DEVICE)
+        return Pipeline(stages, None, wire_dim, out_dim,
+                        compute_dtype=getattr(torch, row["dtype"]),
+                        device=MAIN_DEVICE)
+
+    config = TrainConfig(epochs=ELASTIC_EPOCHS, batch_size=row["batch"],
+                         max_steps_per_epoch=ELASTIC_STEPS,
+                         print_throughput=False)
+    return cfg, train, test, build_pipe, config
+
+
+def _watch(trainer, log: list, attempt: int, steps: bool = False):
+    """Record a trainer's unrounded epoch losses and train ms (its
+    ``train_epoch``), its launches of K1-K3 over ``fit`` and where
+    ``fit`` ended, and with ``steps`` the host clock and the allocated
+    memory after each synchronised train step. The wrappers hold the
+    trainer weakly: a cycle through them would keep a dead attempt's
+    tensors alive until the collector ran."""
+    import weakref
+    cls, me, step_fn = type(trainer), weakref.ref(trainer), trainer._train_step
+
+    def train_epoch(epoch):
+        t0 = time.perf_counter()
+        loss = cls.train_epoch(me(), epoch)
+        log.append(dict(attempt=attempt, epoch=epoch, loss=loss,
+                        ms=(time.perf_counter() - t0) * 1e3))
+        return loss
+
+    def fit():
+        c0 = _flash_counts()
+        try:
+            cls.fit(me())
+            log.append(dict(attempt=attempt, end="done"))
+        except Exception as e:
+            log.append(dict(attempt=attempt, end=type(e).__name__,
+                            t=time.perf_counter()))
+            raise
+        finally:
+            log.append(dict(attempt=attempt, launches=tuple(
+                b - a for a, b in zip(c0, _flash_counts()))))
+
+    def step(*args):
+        out = step_fn(*args)
+        log.append(dict(attempt=attempt, mem=_mem(),
+                        t=time.perf_counter()))
+        return out
+
+    trainer.train_epoch, trainer.fit = train_epoch, fit
+    if steps:
+        trainer._train_step = step
+    return trainer
+
+
+def _step_device_ops(pipe, x, y, plain_gather: bool, n: int = 3) -> float:
+    """Device ops (kernels and copies, as ``torch.profiler`` records them)
+    per ``make_train_step`` step of ``pipe`` on ``x``/``y``; with
+    ``plain_gather`` the model's token conversion and gather are the
+    unrepaired ``x.long()`` and ``table[ids]``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from simple_distributed_machine_learning_tpu_torch.models import (
+        gpt as gpt_mod,
+    )
+    from simple_distributed_machine_learning_tpu_torch.train import (
+        adamw,
+        make_train_step,
+    )
+    saved = gpt_mod.embedding_lookup, gpt_mod.token_ids
+    if plain_gather:
+        gpt_mod.embedding_lookup = lambda table, ids: table[ids.long()]
+        gpt_mod.token_ids = lambda ids: ids.long()
+    try:
+        params = pipe.init_params()
+        opt = adamw(1e-3)
+        state = opt.init(params)
+        step = make_train_step(pipe, opt)
+        step(params, state, x, y, 0)
+        _sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(n):
+                step(params, state, x, y, i)
+            _sync()
+    finally:
+        gpt_mod.embedding_lookup, gpt_mod.token_ids = saved
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / n
+
+
+def _elastic_gpt(rec: dict, tmp: str, gpt_step_ms: float) -> tuple:
+    """Phase 10 (b): the gpt_bf16 elastic drill; returns its K1-K3
+    launches."""
+    import torch
+
+    from simple_distributed_machine_learning_tpu_torch.resilience import (
+        CheckpointStore,
+        make_elastic_trainer,
+        supervise,
+    )
+    from simple_distributed_machine_learning_tpu_torch.train import (
+        Trainer,
+        adamw,
+    )
+    import math
+
+    import numpy as np
+    cfg, train, test, build_pipe, config = _elastic_setup()
+    n_eval = -(-ELASTIC_TEST // TRAIN_ROWS["gpt_bf16"]["batch"])
+    out: dict = {}
+    rec["gpt_bf16_elastic"] = out
+
+    # the numeric faults' batches on the card: NaN ids gather row 0, ids
+    # times 1e30 gather rows of NaN (no out-of-range index reaches the
+    # device), and the card keeps working after them
+    pipe = build_pipe(1)
+    params = pipe.init_params()
+    b = TRAIN_ROWS["gpt_bf16"]["batch"]
+    x, y = train.x[:b], torch.from_numpy(train.y[:b])
+    with torch.no_grad():
+        faulted = {name: float(pipe.loss(params, torch.from_numpy(
+            x * np.float32(k)), y)) for name, k in
+            (("clean", 1), ("nan-grad", float("nan")),
+             ("corrupt-batch", 1e30), ("loss-spike", 100))}
+    out["faulted_batch_losses"] = faulted
+    print(f"chip_smoke: gpt_bf16 losses of the numeric faults' batches on "
+          f"the card: {faulted}")
+    check(math.isfinite(faulted["clean"])
+          and math.isfinite(faulted["nan-grad"])
+          and math.isnan(faulted["corrupt-batch"])
+          and math.isnan(faulted["loss-spike"]),
+          f"gpt_bf16: the numeric faults' batches gave {faulted}; expected "
+          f"finite (clean, NaN ids -> id 0) and NaN (ids past the vocab)")
+    # the repaired gather's extra launches per train step: the profiler's
+    # device ops of one step, with it and with the plain table[ids.long()]
+    xd, yd = torch.from_numpy(x).to(MAIN_DEVICE), y.to(MAIN_DEVICE)
+    ops = {name: _step_device_ops(pipe, xd, yd, name == "plain")
+           for name in ("repaired", "plain")}
+    out["device_ops_per_step"] = ops
+    print(f"chip_smoke: gpt_bf16 device ops per train step: "
+          f"{ops['repaired']:.1f} with the repaired gather, "
+          f"{ops['plain']:.1f} with table[ids.long()] "
+          f"({ops['repaired'] - ops['plain']:+.1f})")
+    check(ops["plain"] > 0, "torch.profiler recorded no device ops in a "
+                            "gpt_bf16 train step")
+    del pipe, params
+
+    def losses(log, attempt=None):
+        return [(e["epoch"], e["loss"]) for e in log if "loss" in e
+                and (attempt is None or e["attempt"] == attempt)]
+
+    # two uninterrupted runs: is the card's training deterministic?
+    clean = []
+    for _ in range(2):
+        log: list = []
+        tr = _watch(Trainer(build_pipe(1), train, test, config,
+                            opt=adamw(1e-3)), log, 0)
+        _quiet(tr.fit)
+        clean.append((log, [p.detach().clone()
+                            for p in tr.params[0].parameters()]))
+        del tr
+    det = (losses(clean[0][0]) == losses(clean[1][0])
+           and all(torch.equal(a, b) for a, b in zip(clean[0][1],
+                                                     clean[1][1])))
+    spread = max(abs(a - b) / abs(b) for (_, a), (_, b) in
+                 zip(losses(clean[0][0]), losses(clean[1][0])))
+    out.update(clean_losses=losses(clean[0][0]), clean_bit_equal=det,
+               clean_loss_spread=spread)
+    print(f"chip_smoke: gpt_bf16 elastic: two uninterrupted runs "
+          f"({ELASTIC_EPOCHS} epochs of {ELASTIC_STEPS} steps) "
+          f"{'bit-equal' if det else f'differ by {spread:.3e} relative'}")
+
+    # the drill: a host-kill mid-epoch 2 under the supervisor
+    store = CheckpointStore(os.path.join(tmp, "gpt_store"), keep=4)
+    saves: list = []
+    save_fn = store.save
+
+    def timed_save(*a, **kw):
+        _sync()
+        t0 = time.perf_counter()
+        path = save_fn(*a, **kw)
+        saves.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                          bytes=os.path.getsize(path)))
+        return path
+
+    store.save = timed_save
+    log = []
+    last: list = []
+
+    def build(n):
+        tr = make_elastic_trainer(build_pipe, n, store, train, test, config,
+                                  opt_factory=lambda pipe: adamw(1e-3))
+        attempt = len([e for e in log if "end" in e]) + 1
+        last[:] = [tr]
+        return _watch(tr, log, attempt, steps=True)
+
+    _reset_flash_counts()
+    report = _under(ELASTIC_KILL, supervise, build, (1,))
+    launches = _flash_counts()
+    final = last.pop()
+    a1, a2 = report["attempts"]
+    mem1 = [e["mem"] for e in log if "mem" in e and e["attempt"] == 1]
+    mem2 = [e["mem"] for e in log if "mem" in e and e["attempt"] == 2]
+    t_kill = next(e["t"] for e in log if e.get("end") == "HostLost")
+    t_first = next(e["t"] for e in log if "mem" in e and e["attempt"] == 2)
+    state_bytes = 3 * 4 * sum(p.numel()
+                              for p in final.params[0].parameters())
+    # a dead attempt kept alive holds at least its f32 parameters and
+    # AdamW's m and v, state_bytes; a freed one leaves the two readings
+    # within a few allocator blocks of each other
+    mem_limit = state_bytes // 8
+    per = {e["attempt"]: e["launches"] for e in log if "launches" in e}
+    kill_step = int(ELASTIC_KILL.split("=")[1])
+    steps1, steps2 = kill_step, (ELASTIC_EPOCHS - 1) * ELASTIC_STEPS
+    want = {1: (cfg.n_layers * (steps1 + n_eval), cfg.n_layers * steps1,
+                cfg.n_layers * steps1),
+            2: (cfg.n_layers * (steps2 + (ELASTIC_EPOCHS - 1) * n_eval),
+                cfg.n_layers * steps2, cfg.n_layers * steps2)}
+    after = losses(log, 2)
+    ref = [(e, v) for e, v in losses(clean[0][0]) if e >= 2]
+    gap = max(abs(a - b) / abs(b) for (_, a), (_, b) in zip(after, ref))
+    same_params = all(torch.equal(a, b) for a, b in
+                      zip(final.params[0].parameters(), clean[0][1]))
+    out.update(restarts=report["restarts"],
+               transitions=report["transitions"],
+               resumed_step=a2["resumed_step"],
+               start_epoch=a2["start_epoch"], losses_after=after,
+               gap_vs_clean=gap, params_equal_clean=same_params,
+               launches_per_attempt=per, launches_expected=want,
+               mem_before_kill=mem1[-1], mem_after_restart=mem2[0],
+               trainer_state_bytes=state_bytes, mem_limit=mem_limit,
+               restart_ms=(t_first - t_kill) * 1e3, saves=saves)
+    print(f"chip_smoke: gpt_bf16 elastic {ELASTIC_KILL}: "
+          f"{report['restarts']} restart(s), {a1['fault']} then resumed at "
+          f"step {a2['resumed_step']} epoch {a2['start_epoch']}; restart "
+          f"cost {out['restart_ms']:.1f} ms (the kill to the end of the "
+          f"first step after the restore, 50 ms of backoff included); "
+          f"K1/K2/K3 per attempt {per} (expected {want}); memory "
+          f"allocated {mem1[-1]} bytes before the kill, {mem2[0]} after "
+          f"the restart (one trainer's state: {state_bytes}); losses after "
+          f"the restore {after} vs uninterrupted {ref}: max rel gap "
+          f"{gap:.3e}, final parameters "
+          f"{'bit-equal' if same_params else 'differ'}; store: "
+          + ", ".join(f"{v['ms']:.1f} ms / {v['bytes']} bytes"
+                      for v in saves) + " per generation")
+    check(report["completed"] and report["restarts"] == 1
+          and a1["fault"] == "HostLost" and a2["resumed_step"]
+          == ELASTIC_STEPS and a2["start_epoch"] == 2,
+          f"gpt_bf16 elastic: expected 1 restart resuming at step "
+          f"{ELASTIC_STEPS} epoch 2, got {report}")
+    check(per == want, f"gpt_bf16 elastic: flash launches per attempt "
+                       f"{per} != {want}")
+    check(abs(mem2[0] - mem1[-1]) <= mem_limit,
+          f"gpt_bf16 elastic: {mem2[0]} bytes allocated after the restart "
+          f"against {mem1[-1]} before the kill (limit {mem_limit}): the "
+          f"dead attempt was not freed")
+    if det:
+        check(after == ref and same_params,
+              f"gpt_bf16 elastic: the restored run's losses {after} or "
+              f"parameters differ from the uninterrupted run's {ref}, "
+              f"which repeats bit for bit")
+    else:
+        check(gap <= spread, f"gpt_bf16 elastic: the restored run's "
+                             f"losses differ by {gap} relative, beyond "
+                             f"the {spread} of two clean runs")
+    del final, report
+    # the gate's control: one more trainer, restored from the same store
+    # and kept alive, as a leaked attempt would be
+    base = _mem()
+    held, _ = _quiet(lambda: make_elastic_trainer(
+        build_pipe, 1, store, train, test, config,
+        opt_factory=lambda pipe: adamw(1e-3)))
+    out["held_trainer_bytes"] = held_bytes = _mem() - base
+    del held
+    print(f"chip_smoke: gpt_bf16 elastic: one more trainer kept alive "
+          f"reads {held_bytes} bytes (the restart gate's limit: "
+          f"{mem_limit})")
+    check(held_bytes > mem_limit,
+          f"gpt_bf16 elastic: a trainer kept alive reads {held_bytes} "
+          f"bytes, within the restart gate's limit {mem_limit}: the gate "
+          f"cannot see a leaked attempt")
+
+    # the same run with the sentinel on and no fault
+    import dataclasses
+    slog: list = []
+    sstore = CheckpointStore(os.path.join(tmp, "gpt_sentinel"), keep=4)
+    sconfig = dataclasses.replace(config, sentinel=True)
+    kept: list = []
+
+    def sbuild(n):
+        tr = make_elastic_trainer(build_pipe, n, sstore, train, test,
+                                  sconfig,
+                                  opt_factory=lambda pipe: adamw(1e-3))
+        kept.append(tr)
+        return _watch(tr, slog, 1)
+
+    _reset_flash_counts()
+    sreport = _under(None, supervise, sbuild, (1,))
+    launches = tuple(a + b for a, b in zip(launches, _flash_counts()))
+    stats = sreport["attempts"][0]["sentinel"]
+
+    def per_step(lg):
+        return statistics.mean(e["ms"] for e in lg if "ms" in e
+                               and e["epoch"] >= 2) / ELASTIC_STEPS
+
+    on, off = per_step(slog), per_step(clean[0][0])
+    same = losses(slog) == losses(clean[0][0])
+    out["sentinel"] = dict(stats=stats, step_ms_on=on, step_ms_off=off,
+                           cost_ms_per_step=on - off,
+                           phase5_step_ms=gpt_step_ms,
+                           losses_equal_clean=same)
+    print(f"chip_smoke: gpt_bf16 with the sentinel, no fault: "
+          f"{stats['anomalies']} anomalies, {sreport['restarts']} restarts, "
+          f"losses {'equal to' if same else 'DIFFER from'} the clean run's; "
+          f"{on:.3f} ms per step against {off:.3f} without "
+          f"({on - off:+.3f} ms; phase 5's step {gpt_step_ms:.3f} ms); ring "
+          f"{stats['snapshot_ring_bytes']} bytes")
+    check(stats["anomalies"] == 0 and sreport["restarts"] == 0
+          and sreport["completed"],
+          f"gpt_bf16 with the sentinel tripped on a clean run: {stats}")
+    check(same or not det, "gpt_bf16: the sentinel changed the trajectory "
+                           "of a run that repeats bit for bit")
+    del kept, clean
+    return launches
+
+
+def _store_on_card(rec: dict, tmp: str) -> None:
+    """Phase 10 (c): a checkpoint-write crash restarts in place; a
+    truncated newest generation is skipped and the previous restores."""
+    import contextlib
+    import io
+
+    from simple_distributed_machine_learning_tpu_torch.parallel import (
+        Pipeline,
+    )
+    from simple_distributed_machine_learning_tpu_torch.resilience import (
+        CheckpointStore,
+        make_elastic_trainer,
+        supervise,
+    )
+    from simple_distributed_machine_learning_tpu_torch.train import (
+        TrainConfig,
+    )
+    data = _row_data(True)
+    store = CheckpointStore(os.path.join(tmp, "mlp_store"), keep=4)
+
+    def build_pipe(n):
+        stages, wire_dim, out_dim = _main_rows()["mlp2"][0](MAIN_DEVICE)
+        return Pipeline(stages, None, wire_dim, out_dim, device=MAIN_DEVICE)
+
+    config = TrainConfig(epochs=2, max_steps_per_epoch=10,
+                         print_throughput=False)
+
+    def build(n):
+        return make_elastic_trainer(build_pipe, n, store, data[0], data[1],
+                                    config)
+
+    report = _under("ckpt-write-crash@ckpt.write", supervise, build, (1,))
+    steps = [e["step"] for e in store.entries()]
+    print(f"chip_smoke: store on the card: ckpt-write-crash@ckpt.write -> "
+          f"{report['restarts']} restart(s), attempts "
+          f"{[(a['outcome'], a.get('fault')) for a in report['attempts']]}"
+          f", generations at steps {steps}")
+    check(report["completed"] and report["restarts"] == 1
+          and report["attempts"][0]["fault"] == "CheckpointWriteCrash"
+          and steps == [10, 20],
+          f"store: the write crash did not restart in place: {report}")
+    newest = store.latest_valid()["path"]
+    with open(newest, "r+b") as f:
+        f.truncate(os.path.getsize(newest) // 2)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        tr, _ = _quiet(build, 1)
+    print(f"chip_smoke: store on the card: newest generation truncated -> "
+          f"restored step {tr._step_count}, epoch {tr.start_epoch}; "
+          f"{err.getvalue().strip()!r}")
+    check(tr._step_count == 10 and tr.start_epoch == 2
+          and "skipping corrupt" in err.getvalue(),
+          "store: a truncated newest generation was not skipped")
+    rec["store"] = dict(restarts=report["restarts"], generations=steps,
+                        truncated_restored_step=tr._step_count,
+                        warning=err.getvalue())
+
+
+def _cli_drills(rec: dict, tmp: str) -> None:
+    """Phase 10 (d): the CLI's chaos and sentinel drills. The GPT drill's
+    K1-K3 launches (the f32 kernels) are checked and recorded here and
+    stay out of the ``kernels`` line's bf16 rows."""
+    from simple_distributed_machine_learning_tpu_torch.resilience import (
+        faults,
+    )
+    from simple_distributed_machine_learning_tpu_torch.train import (
+        checkpoint,
+    )
+    out: dict = {}
+    rec["cli"] = out
+    mlp = ["--model", "mlp", "--epochs", "2", "--max-steps-per-epoch", "10",
+           "--data-root", os.path.join(tmp, "no-mnist")]
+    lines = _cli(mlp + ["--sentinel", "--chaos", "nan-grad@train.grad=5",
+                        "--checkpoint-dir", os.path.join(tmp, "c1")])
+    out["sentinel_chaos"] = [ln for ln in lines if ln.startswith("| ")]
+    check("| chaos: completed after 0 restart(s); attempts: 1st/completed; "
+          "faults fired: 1" in lines
+          and "| chaos: sentinel absorbed 1 anomaly (1 rollback(s), 1 "
+              "quarantined batch(es))" in lines,
+          f"CLI --sentinel --chaos: {out['sentinel_chaos']}")
+    _reset_flash_counts()
+    glines = _cli(["--model", "gpt", "--attn", "flash", "--epochs", "2",
+                   "--max-steps-per-epoch", "4", "--chaos",
+                   "host-kill@train.step=6", "--checkpoint-dir",
+                   os.path.join(tmp, "c2")])
+    counts = _flash_counts()
+    evals = -(-1000 // 60)
+    want = (2 * (10 + 2 * evals), 2 * 10, 2 * 10)
+    out["gpt_chaos"] = [ln for ln in glines if ln.startswith("| ")]
+    out["gpt_chaos_launches"] = counts
+    check("| chaos: completed after 1 restart(s); attempts: 1st/fault"
+          "(HostLost) -> 1st/completed; faults fired: 1" in glines
+          and counts == want,
+          f"CLI gpt --chaos host-kill: {out['gpt_chaos']}, K1-K3 {counts} "
+          f"(expected {want})")
+    try:
+        _cli(mlp + ["--chaos", "host-kill@train.step=999",
+                    "--checkpoint-dir", os.path.join(tmp, "c3")])
+        vacuous = None
+    except SystemExit as e:
+        vacuous = e.code
+    out["never_fired"] = vacuous
+    check(isinstance(vacuous, str) and "never fired" in vacuous,
+          f"CLI --chaos host-kill@train.step=999 exited with {vacuous!r}")
+    cut, straight = os.path.join(tmp, "c4"), os.path.join(tmp, "c5")
+    plines = _under("preempt@train.sigterm=6", _cli,
+                    mlp + ["--checkpoint-dir", cut])
+    rlines = _cli(mlp + ["--checkpoint-dir", cut])
+    _cli(mlp + ["--checkpoint-dir", straight])
+    a = checkpoint.restore_checkpoint(os.path.join(cut, "state.npz"))
+    b = checkpoint.restore_checkpoint(os.path.join(straight, "state.npz"))
+    exact = (a["step"] == b["step"] == 20
+             and (a["params"] == b["params"]).all()
+             and all((x == y).all() for x, y in zip(a["opt_state"],
+                                                    b["opt_state"])))
+    out["preempt"] = dict(stopped=[ln for ln in plines
+                                   if ln.startswith("| ")],
+                          resumed=rlines[0], bit_exact=bool(exact))
+    check(any(ln.startswith("| preempt: graceful stop on preempt notice at "
+                            "step 6") for ln in plines)
+          and rlines[0].endswith("at epoch 1 (step 6) (batch 6)") and exact,
+          f"CLI preempt + rerun: {out['preempt']}")
+    print(f"chip_smoke: CLI: {out['sentinel_chaos'][-2:]}; gpt "
+          f"{out['gpt_chaos'][-1]!r}, K1/K2/K3 {counts}; host-kill@999 -> "
+          f"{vacuous!r}; preempt@train.sigterm=6 then a rerun "
+          f"({rlines[0]!r}): final state "
+          f"{'bit-exact' if exact else 'DIFFERS'} vs an uninterrupted run")
+
+
+def phase_resilience(record: dict) -> tuple:
+    """Phase 10 (module docstring): training that survives faults. Returns
+    the K1-K3 launches of (b)'s gpt_bf16 runs; (d)'s CLI run launches the
+    f32 kernels, which it checks and records on its own."""
+    import tempfile
+    rec: dict = {}
+    record["resilience"] = rec
+    mlp2_ms = record["main_path"]["rows"]["mlp2"]["step_ms"]
+    gpt_ms = record["train"]["gpt_bf16"]["step_ms"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        _sentinel_mlp2(rec, tmp, mlp2_ms)
+        launches = _elastic_gpt(rec, tmp, gpt_ms)
+        _store_on_card(rec, tmp)
+        _cli_drills(rec, tmp)
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"chip_smoke: phase 10 took {rec['seconds']:.1f} s")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2734,6 +3411,7 @@ def main() -> int:
         phase_train("gpt", TRAIN_ROWS["gpt"], record)
         phase_train_profile(TRAIN_ROWS["gpt_bf16"], record)
         phase_main_path(record)
+        resilience_launches = phase_resilience(record)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2757,7 +3435,7 @@ def main() -> int:
         "library_ms": None,
     }]}
     # the flash kernels' times at the gpt_bf16 row's shape; launches from
-    # that row's flash training run
+    # that row's flash training run and phase 10 (b)'s runs of that row
     for i, (name, line) in enumerate((("flash_forward", 127),
                                       ("flash_dq", 300),
                                       ("flash_dkv", 338))):
@@ -2770,7 +3448,7 @@ def main() -> int:
             "source": f"{PORT}/ops/csrc/flash_attention.cu",
             "replaces": "simple_distributed_machine_learning_tpu/ops/"
                         f"flash_attention.py:{line}",
-            "launches": train["launches"][i],
+            "launches": train["launches"][i] + resilience_launches[i],
             "max_abs_err": max(v["max_abs_err"] for v in flash_variants
                                if v["name"] == name),
             "ms": timed["ms"],

@@ -10,7 +10,6 @@ def not_ported(what: str, item: str) -> NotImplementedError:
         f"(ROADMAP.md, Queue A: {item})")
 
 
-TRAIN_RESILIENCE = "item 4d, training resilience"
 SERVE_EXTENSIONS = "item 5, serving extensions"
 PARALLEL_AXES = "item 6, remaining parallel axes"
 ANALYSIS = "item 7, analysis"

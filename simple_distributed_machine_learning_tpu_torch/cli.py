@@ -23,16 +23,21 @@ supervised replicas (``--serve-route``, ``--serve-autoscale MIN,MAX``,
 ``--serve-trace`` records every request's timeline next to the telemetry.
 SIGTERM/SIGINT during ``--serve-sim`` stop admission and drain what is in
 flight. ``--scenario NAME`` runs one of the eleven SLO scenarios on the
-virtual clock (``--scenario list`` names them).
+virtual clock (``--scenario list`` names them). ``--sentinel`` checks
+every step's loss and gradient norm on the host and absorbs a numeric
+fault by rollback and quarantine; ``--chaos SPEC --checkpoint-dir D``
+trains ``--model mlp`` or ``gpt`` under a fault schedule through the
+elastic supervisor, which restores the latest valid checkpoint of D's
+store after each recoverable failure (``--chaos-max-restarts`` bounds
+it).
 
 One flag is the port's own: ``--device`` (default CUDA; the run raises
 without it unless ``--device cpu`` asks for the CPU). Every other flag of
 the JAX parser is accepted; a flag whose path is not ported exits, when
 set, with one line naming its ROADMAP item (the host-tier and adapter
-flags and scenarios, training chaos, the sentinel,
-training telemetry and profiling, the linter, and every parallel axis:
-``--stages`` above 1, ``--dp/--tp/--sp/--ep/--experts``, ``--world_size``
-above 1). ``--microbatches`` is accepted and does not split the batch, as
+flags and scenarios, training telemetry and profiling, the linter, and
+every parallel axis: ``--stages`` above 1, ``--chaos-stages``,
+``--dp/--tp/--sp/--ep/--experts``, ``--world_size`` above 1). ``--microbatches`` is accepted and does not split the batch, as
 on the JAX package's one-device mesh.
 """
 
@@ -238,18 +243,36 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument('--max-steps-per-epoch', type=int, default=None,
                    metavar='N', help="cap every training epoch at N batches")
     g.add_argument('--sentinel', action='store_true',
-                   help="self-healing training (ROADMAP item 6)")
+                   help="self-healing training (resilience/sentinel.py): "
+                        "check every step's loss/grad-norm for NaN/Inf and "
+                        "EWMA loss spikes, keep a bounded ring of host "
+                        "snapshots, and on an anomaly roll back to the "
+                        "newest pre-anomaly snapshot, quarantine the "
+                        "offending batch (quarantine.jsonl under "
+                        "--checkpoint-dir) and replay. Arms the numeric "
+                        "fault sites nan-grad@train.grad, "
+                        "corrupt-batch@data.batch, loss-spike@train.step "
+                        "for --chaos drills")
     g.add_argument('--sentinel-window', type=int, default=16, metavar='W',
-                   help="self-healing training (ROADMAP item 6)")
+                   help="with --sentinel: EWMA horizon for the loss-spike "
+                        "detector AND the escalation window")
     g.add_argument('--sentinel-snapshot-every', type=int, default=4,
-                   metavar='K', help="self-healing training (ROADMAP item 6)")
+                   metavar='K',
+                   help="with --sentinel: steps between snapshot-ring "
+                        "entries")
     g.add_argument('--chaos', type=str, default=None, metavar='SPEC',
-                   help="training fault-injection drill (ROADMAP item 4d)")
+                   help="train under a deterministic fault schedule with "
+                        "the elastic checkpoint-restart supervisor, e.g. "
+                        "'host-kill@train.step=6' (kinds host-kill, "
+                        "slow-tick, ckpt-write-crash, wedged-device; the "
+                        "numeric kinds with --sentinel). Requires "
+                        "--checkpoint-dir; --model mlp or gpt")
     g.add_argument('--chaos-stages', type=str, default=None,
-                   metavar='S1,S2', help="training fault-injection drill "
-                                         "(ROADMAP item 6)")
+                   metavar='S1,S2', help="with --chaos: a stage-count "
+                                         "ladder (ROADMAP item 6)")
     g.add_argument('--chaos-max-restarts', type=int, default=3,
-                   help="training fault-injection drill (ROADMAP item 4d)")
+                   help="with --chaos: recoverable-failure restart budget "
+                        "before the run FAILS loudly")
     g.add_argument('--scenario', type=str, default=None, metavar='NAME',
                    help="run one SLO-gated serving scenario on the "
                         "virtual clock; exits nonzero unless every class "
@@ -272,16 +295,13 @@ def build_parser() -> argparse.ArgumentParser:
 # flags whose paths are not ported: set to anything but the default, each
 # exits naming its ROADMAP item. The serve flags not named here run: the
 # plain --serve-sim path, the supervisor's, the fleet's and tracing
-_UNPORTED = ({k: _roadmap.TRAIN_RESILIENCE for k in (
-                 "chaos", "chaos_max_restarts")}
-             | {k: _roadmap.SERVE_EXTENSIONS for k in (
+_UNPORTED = ({k: _roadmap.SERVE_EXTENSIONS for k in (
                  "serve_host_blocks", "serve_prefetch_ticks",
                  "serve_adapters", "serve_adapter_rank")}
              | {"lint": _roadmap.ANALYSIS, "lint_only": _roadmap.ANALYSIS}
              | {k: _roadmap.PARALLEL_AXES for k in (
                  "world_size", "dp", "tp", "sp", "ep", "experts", "overlap",
-                 "remat", "sentinel", "sentinel_window",
-                 "sentinel_snapshot_every", "telemetry_dir",
+                 "remat", "telemetry_dir",
                  "telemetry_every", "profile", "peer_timeout",
                  "heartbeat_port", "serve_tp", "chaos_stages")})
 
@@ -329,9 +349,18 @@ def _dispatch(args) -> None:
     if args.max_steps_per_epoch is not None and args.max_steps_per_epoch < 1:
         raise SystemExit(f"--max-steps-per-epoch must be >= 1, got "
                          f"{args.max_steps_per_epoch}")
+    if args.sentinel_window < 2:
+        raise SystemExit(f"--sentinel-window must be >= 2, got "
+                         f"{args.sentinel_window}")
+    if args.sentinel_snapshot_every < 1:
+        raise SystemExit(f"--sentinel-snapshot-every must be >= 1, got "
+                         f"{args.sentinel_snapshot_every}")
     device = resolve_device(args.device)
     if args.scenario is not None:
         _run_scenario(args, device)
+        return
+    if args.chaos is not None:
+        _run_chaos(args, device)
         return
     if args.serve_sim > 0:
         if args.model != "gpt":
@@ -367,7 +396,7 @@ def _dispatch(args) -> None:
                         device))
 
 
-def _trainer(args, stages, wire_dim, out_dim, train_ds, test_ds, device):
+def _pipeline(args, stages, wire_dim, out_dim, device):
     import torch
 
     from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
@@ -376,15 +405,19 @@ def _trainer(args, stages, wire_dim, out_dim, train_ds, test_ds, device):
     from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (  # noqa: E501
         Pipeline,
     )
-    from simple_distributed_machine_learning_tpu_torch.train.trainer import (
-        Trainer,
-    )
-    pipe = Pipeline(stages, make_mesh(n_stages=1, n_data=args.dp), wire_dim,
+    return Pipeline(stages, make_mesh(n_stages=1, n_data=args.dp), wire_dim,
                     out_dim, n_microbatches=args.microbatches,
                     compute_dtype=torch.bfloat16 if args.bf16 else None,
                     schedule=args.schedule, overlap=args.overlap,
                     device=device)
-    return Trainer(pipe, train_ds, test_ds, _train_config(args),
+
+
+def _trainer(args, stages, wire_dim, out_dim, train_ds, test_ds, device):
+    from simple_distributed_machine_learning_tpu_torch.train.trainer import (
+        Trainer,
+    )
+    return Trainer(_pipeline(args, stages, wire_dim, out_dim, device),
+                   train_ds, test_ds, _train_config(args),
                    opt=_make_opt(args, _total_steps(args, train_ds)))
 
 
@@ -403,7 +436,10 @@ def _train_config(args):
         resume=not args.no_resume, zero1=args.zero1,
         async_checkpoint=args.async_checkpoint,
         shuffle=args.shuffle,
-        metrics_json=args.metrics_json)
+        metrics_json=args.metrics_json,
+        sentinel=args.sentinel,
+        sentinel_window=args.sentinel_window,
+        sentinel_snapshot_every=args.sentinel_snapshot_every)
 
 
 def _make_opt(args, total_steps: int):
@@ -463,6 +499,14 @@ def _fit(args, trainer) -> None:
     finally:
         for s, h in old_handlers.items():
             signal.signal(s, h)
+    stats = trainer.sentinel_stats()
+    if stats is not None:
+        trainer._print(
+            f"| sentinel: absorbed {stats['anomalies']} anomal"
+            f"{'y' if stats['anomalies'] == 1 else 'ies'} "
+            f"({stats['rollbacks']} rollback(s), "
+            f"{stats['quarantined_batches']} quarantined batch(es), "
+            f"ring {stats['snapshot_ring_bytes']} bytes)")
     if trainer.preempted:
         trainer._print(
             "| train: graceful shutdown complete — "
@@ -472,9 +516,11 @@ def _fit(args, trainer) -> None:
                "interrupted progress was NOT persisted"))
 
 
-def _run_gpt(args, device) -> None:
-    """--model gpt: the tiny GPT on a synthetic Markov token stream (or
-    the bytes of --text-corpus), same trainer and console surface."""
+def _gpt_setup(args):
+    """The GPT run's config (vocab 128, or 256 with --text-corpus; the
+    --attn and --flash-blocks choices) and its train and test sets: a
+    synthetic Markov stream (one chain, disjoint train/test sequences) or
+    the bytes of --text-corpus, as float token ids."""
     import numpy as np
 
     from simple_distributed_machine_learning_tpu_torch.data.mnist import (
@@ -486,7 +532,6 @@ def _run_gpt(args, device) -> None:
     )
     from simple_distributed_machine_learning_tpu_torch.models.gpt import (
         GPTConfig,
-        make_gpt_stages,
     )
     fb = {}
     if args.flash_blocks:
@@ -501,20 +546,26 @@ def _run_gpt(args, device) -> None:
         fb = {"flash_block_q": bq, "flash_block_k": bk}
     cfg = GPTConfig(vocab=256 if args.text_corpus else 128,
                     attn_impl=args.attn, **fb)
-    stages, wire_dim, out_shape = make_gpt_stages(args.seed, cfg, 1, device)
 
     def as_ds(x, y):
         return Dataset(x.astype(np.float32), y)
 
     if args.text_corpus:
         tr, te = byte_corpus(args.text_corpus, cfg.seq_len)
-        train_ds, test_ds = as_ds(*tr), as_ds(*te)
-    else:
-        # one Markov chain, disjoint train/test sequences
-        all_data = synthetic_tokens(7000, cfg.seq_len, cfg.vocab,
-                                    seed=args.seed)
-        train_ds = as_ds(all_data.x[:6000], all_data.y[:6000])
-        test_ds = as_ds(all_data.x[6000:], all_data.y[6000:])
+        return cfg, as_ds(*tr), as_ds(*te)
+    all_data = synthetic_tokens(7000, cfg.seq_len, cfg.vocab, seed=args.seed)
+    return (cfg, as_ds(all_data.x[:6000], all_data.y[:6000]),
+            as_ds(all_data.x[6000:], all_data.y[6000:]))
+
+
+def _run_gpt(args, device) -> None:
+    """--model gpt: the tiny GPT on a synthetic Markov token stream (or
+    the bytes of --text-corpus), same trainer and console surface."""
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        make_gpt_stages,
+    )
+    cfg, train_ds, test_ds = _gpt_setup(args)
+    stages, wire_dim, out_shape = make_gpt_stages(args.seed, cfg, 1, device)
     trainer = _trainer(args, stages, wire_dim, out_shape, train_ds, test_ds,
                        device)
     _fit(args, trainer)
@@ -640,6 +691,127 @@ def _serve_plan(args):
             "(a single engine never probes the fleet site, so the "
             "fault would never fire)")
     return plan
+
+
+def _run_chaos(args, device) -> None:
+    """--chaos SPEC: training under a deterministic fault schedule with the
+    elastic checkpoint-restart supervisor (resilience/supervisor.py).
+
+    The supervisor rebuilds the trainer from scratch after every
+    recoverable failure — nothing in-memory survives an attempt — restoring
+    the latest checksum-valid checkpoint from the store in
+    --checkpoint-dir. Exits 0 only when training ran to completion within
+    the restart budget and the schedule fired.
+    """
+    import dataclasses
+
+    from simple_distributed_machine_learning_tpu_torch.resilience import (
+        CheckpointStore,
+        RestartPolicy,
+        faults,
+        make_elastic_trainer,
+        supervise,
+    )
+
+    if args.model not in ("mlp", "gpt"):
+        raise SystemExit(
+            "--chaos supports --model mlp or gpt (the contiguous-split "
+            "families repack_checkpoint can rewrite across stage counts; "
+            "lenet's conv|fc split is a structural rename)")
+    if args.serve_sim > 0:
+        raise SystemExit(
+            "--chaos drills the pipeline-parallel training path: drop "
+            "--experts/--sp/--tp/--ep/--serve-sim")
+    if not args.checkpoint_dir:
+        raise SystemExit("--chaos needs --checkpoint-dir (the supervisor "
+                         "restores from its checkpoint store)")
+    if args.chaos_max_restarts < 0:
+        raise SystemExit(f"--chaos-max-restarts must be >= 0, got "
+                         f"{args.chaos_max_restarts}")
+    try:
+        plan = faults.FaultPlan.parse(args.chaos)
+    except ValueError as e:
+        raise SystemExit(f"bad --chaos spec: {e}") from None
+    numeric = sorted({s.kind for s in plan.specs
+                      if s.kind in faults.SENTINEL_KINDS})
+    if numeric and not args.sentinel:
+        # without the sentinel a numeric fault's standard effect is a
+        # raised NumericFault the supervisor treats as a real bug
+        raise SystemExit(
+            f"--chaos plan contains sentinel-interpreted kinds "
+            f"({', '.join(numeric)}): add --sentinel so the trainer "
+            f"absorbs them")
+
+    if args.model == "gpt":
+        from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+            make_gpt_stages,
+        )
+        cfg, train_ds, test_ds = _gpt_setup(args)
+
+        def build_pipe(n):
+            return _pipeline(args, *make_gpt_stages(args.seed, cfg, n,
+                                                    device), device)
+    else:
+        from simple_distributed_machine_learning_tpu_torch.data.mnist import (
+            Dataset,
+            load_mnist,
+        )
+        from simple_distributed_machine_learning_tpu_torch.models.mlp import (
+            make_mlp_stages,
+        )
+        dims = [int(d) for d in args.mlp_dims.split(",")]
+        tr, te = load_mnist(args.data_root)
+        train_ds = Dataset(tr.x.reshape(len(tr.x), -1), tr.y)
+        test_ds = Dataset(te.x.reshape(len(te.x), -1), te.y)
+
+        def build_pipe(n):
+            return _pipeline(args, *make_mlp_stages(args.seed, dims, n,
+                                                    device), device)
+
+    store = CheckpointStore(args.checkpoint_dir, keep=5)
+    # the store owns persistence: the Trainer's own state.npz path stays off
+    config = dataclasses.replace(_train_config(args), checkpoint_dir=None)
+    total = _total_steps(args, train_ds)
+
+    def build_trainer(n):
+        return make_elastic_trainer(
+            build_pipe, n, store, train_ds, test_ds, config,
+            opt_factory=lambda pipe: _make_opt(args, total))
+
+    faults.install(plan)
+    try:
+        # one card, one stage: the ladder is (1,); --chaos-stages is
+        # refused above, naming ROADMAP item 6
+        report = supervise(
+            build_trainer, [1],
+            policy=RestartPolicy(max_restarts=args.chaos_max_restarts))
+    finally:
+        faults.uninstall()
+    print(f"| chaos: completed after {report['restarts']} restart(s); "
+          f"attempts: "
+          + " -> ".join(f"{a['n_stages']}st/{a['outcome']}"
+                        f"{'(' + a['fault'] + ')' if 'fault' in a else ''}"
+                        for a in report["attempts"])
+          + f"; faults fired: {plan.stats()['total_fired']}")
+    if args.sentinel:
+        tot = {"anomalies": 0, "rollbacks": 0}
+        quarantined = 0
+        for a in report["attempts"]:
+            s = a.get("sentinel") or {}
+            tot["anomalies"] += s.get("anomalies", 0)
+            tot["rollbacks"] += s.get("rollbacks", 0)
+            # the journal is cumulative across attempts (loaded from disk):
+            # the last attempt's count is the total
+            quarantined = s.get("quarantined_batches", quarantined)
+        print(f"| chaos: sentinel absorbed {tot['anomalies']} anomal"
+              f"{'y' if tot['anomalies'] == 1 else 'ies'} "
+              f"({tot['rollbacks']} rollback(s), {quarantined} "
+              f"quarantined batch(es))")
+    if plan.stats()["total_fired"] == 0:
+        # a chaos drill whose schedule never fired proves nothing
+        raise SystemExit(
+            "--chaos plan never fired (scheduled step beyond the run?) — "
+            "the drill is vacuous; fix the schedule")
 
 
 def _run_serve(args, device) -> None:

@@ -80,6 +80,7 @@ from simple_distributed_machine_learning_tpu_torch.ops.layers import (
     layer_norm_init,
     linear,
     linear_init,
+    token_ids,
 )
 from simple_distributed_machine_learning_tpu_torch.ops.losses import (
     log_softmax,
@@ -337,7 +338,7 @@ def _stage_apply(params, x, key=None, deterministic=True, *, cfg):
     that the blocks' dropout draws from, in block order; with
     ``deterministic`` (or ``dropout_rate == 0``) it draws nothing."""
     if "embed" in params:
-        ids = x.long()                              # float ids are exact
+        ids = token_ids(x)                          # XLA's convert
         h = (embedding_lookup(params["embed"]["tok"], ids)
              + params["embed"]["pos"][:ids.shape[1]])
     else:

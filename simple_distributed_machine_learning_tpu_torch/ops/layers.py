@@ -120,7 +120,27 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int,
 
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return table[ids.long()]
+    """``table[ids]`` with ``jnp.take(table, ids, axis=0)``'s semantics: ids
+    in ``[-V, 0)`` wrap to ``V + id``, ids outside ``[-V, V)`` give a row of
+    NaN and no gradient into the table. The gather reads an index wrapped
+    into range (no out-of-range index reaches the device), and a mask
+    puts the NaN rows in, so ids in ``[0, V)`` give the rows and gradients
+    of a plain ``table[ids]``."""
+    vocab = table.shape[0]
+    ids = ids.long()
+    rows = table[torch.remainder(ids, vocab)]
+    valid = (ids >= -vocab) & (ids < vocab)
+    return torch.where(valid.unsqueeze(-1), rows, torch.nan)
+
+
+def token_ids(x: torch.Tensor) -> torch.Tensor:
+    """Token ids off the wire as int64, the way XLA's f32 -> s32 convert
+    makes them from a float wire: NaN -> 0, saturated to the int32 range,
+    truncated toward zero. Integer ids pass through."""
+    if not x.is_floating_point():
+        return x.long()
+    return torch.nan_to_num(x.double(), nan=0.0).clamp(
+        -2.0 ** 31, 2.0 ** 31 - 1).long()
 
 
 def dropout(gen: torch.Generator | None, x: torch.Tensor, rate: float = 0.5,

@@ -7,8 +7,18 @@ Instrumented code calls :func:`maybe_fire` at named sites; with no plan
 installed that is one global ``is None`` check.
 
 The kinds, the sites and the grammar are the JAX package's, so one
-``--serve-chaos`` string means one schedule in both packages. The port
-instruments the serving sites:
+``--serve-chaos`` or ``--chaos`` string means one schedule in both
+packages. The port instruments the training sites:
+
+- ``train.step`` (``train/trainer.py``, before each step, ctx: ``step``):
+  host-kill, slow-tick, wedged-device; loss-spike with the sentinel
+- ``train.grad`` / ``data.batch`` (the same point): nan-grad /
+  corrupt-batch, applied to the raw batch by the sentinel
+- ``train.sigterm`` (before the snapshot): ``preempt``, a graceful stop
+- ``ckpt.write`` (``train/checkpoint.py``, after the bytes, before the
+  rename, ctx: ``path``, ``tmp``): ckpt-write-crash
+
+and the serving sites:
 
 - ``serve.tick``  (``serve/engine.py::step``, ctx: ``step`` = tick index)
 - ``serve.admit`` (``serve/engine.py::submit``, ctx: ``step`` = rid — a
@@ -18,16 +28,17 @@ instruments the serving sites:
   window of the disaggregated handoff): ``replica-kill`` only, read with
   :func:`check` and interpreted by the fleet
 
-The other sites (training, checkpoints, the watchdog, the bench probe)
-are accepted by the grammar and instrumented by the slices that port
-those layers (ROADMAP.md, Queue A, items 4d and 6).
+The other sites (the watchdog, the bench probe) are accepted by the
+grammar and instrumented by the slices that port those layers (ROADMAP.md,
+Queue A, item 6).
 
 Standard effects (:meth:`FaultPlan.fire`): ``slow-tick`` and
 ``frozen-peer`` sleep ``dur`` seconds through ``plan.sleep`` (a virtual
 clock's ``sleep`` in the scenario suite), ``engine-crash`` raises
 :class:`EngineCrash`, ``wedged-device`` :class:`DeviceWedged`,
-``host-kill`` :class:`HostLost`; the serve supervisor recovers from all
-three. Grammar: entries separated by ``;``, each
+``host-kill`` :class:`HostLost`, ``ckpt-write-crash`` (after halving the
+temp file) :class:`CheckpointWriteCrash`; the serve supervisor recovers
+from the first three, the elastic supervisor from the last three. Grammar: entries separated by ``;``, each
 ``kind@site[=step][,key=val...]`` with keys ``dur`` (seconds), ``after``
 (skip the first N matching calls), ``times`` (fire at most N times; 0 =
 unlimited; default 1), ``rank`` and ``step``::

@@ -65,6 +65,9 @@ from simple_distributed_machine_learning_tpu_torch.resilience.faults import (
     EngineCrash,
     HostLost,
 )
+from simple_distributed_machine_learning_tpu_torch.resilience.supervisor import (  # noqa: E501,F401 - the one class, re-exported
+    RestartBudgetExceeded,
+)
 from simple_distributed_machine_learning_tpu_torch.serve.journal import (
     RequestJournal,
 )
@@ -86,10 +89,6 @@ FAILED = "failed"
 #: engine failures the supervisor restarts through; anything else is a
 #: bug in the serving code and propagates un-retried
 RECOVERABLE = (EngineCrash, DeviceWedged, HostLost)
-
-
-class RestartBudgetExceeded(RuntimeError):
-    """More recoverable failures than ``max_restarts`` allows."""
 
 
 @dataclasses.dataclass(frozen=True)

@@ -52,6 +52,9 @@ from simple_distributed_machine_learning_tpu_torch.parallel.staging import (
     stage_meta,
     unpack_stage_params,
 )
+from simple_distributed_machine_learning_tpu_torch.resilience.faults import (
+    maybe_fire,
+)
 
 
 class CheckpointCorruptError(ValueError):
@@ -167,6 +170,10 @@ def _write_npz(path: str, arrays: dict, meta: dict) -> None:
     os.close(fd)
     try:
         np.savez(tmp, **arrays)
+        # fault site: ckpt-write-crash truncates the temp and raises here,
+        # after the bytes and before the rename, so the committed
+        # checkpoint survives the crash
+        maybe_fire("ckpt.write", path=path, tmp=tmp)
         os.replace(tmp, path)        # atomic: the old checkpoint stays whole
     except BaseException:
         try:
@@ -290,6 +297,16 @@ def repack_stage_trees(trees: list, n_stages_new: int) -> list:
         "lists, or all dicts with a 'blocks' list); this topology cannot be "
         "re-packed — rebuild and retrain, or restore at the original stage "
         "count")
+
+
+def split_layout(layout, n_stages: int) -> list[StageMeta]:
+    """The packed layout of the same model split into ``n_stages``
+    contiguous stages (``layout``: a ``Pipeline`` or a list of
+    ``StageMeta``): the stage metas a multi-stage run of it writes, which
+    the one-card port cannot build as a ``Pipeline``."""
+    metas = _metas(layout)
+    trees = [unpack_stage_params(torch.zeros(m.total), m) for m in metas]
+    return [stage_meta(t) for t in repack_stage_trees(trees, n_stages)]
 
 
 def repack_packed_buffer(arr: np.ndarray, src, dst) -> np.ndarray:

@@ -30,15 +30,22 @@ def make_train_step(pipe: Pipeline, opt: Optimizer,
     """Returns ``step(params, opt_state, x, targets, key=None,
     weights=None) -> (params, opt_state, loss)``; ``params`` and the state
     are updated in place and returned. ``with_grad_norm`` adds a fourth
-    output: the global L2 norm of the gradients the update consumed."""
+    output: the global L2 norm of the gradients the update consumes, an
+    f32 device scalar taken before the update runs (the one extra value
+    the numeric-anomaly sentinel, ``resilience/sentinel.py``, watches
+    beside the loss)."""
 
     def step(params, opt_state, x, targets, key=None, weights=None):
         loss, grads = pipe.loss_and_grads(params, x, targets, key,
                                           deterministic=False,
                                           weights=weights)
+        # one multi-tensor launch for the per-tensor norms (grads are f32:
+        # the master parameters' dtype)
+        gnorm = (torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(grads)).float()) if with_grad_norm
+            else None)
         params, opt_state = opt.update(grads, opt_state, params)
         if with_grad_norm:
-            gnorm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
             return params, opt_state, loss, gnorm
         return params, opt_state, loss
 

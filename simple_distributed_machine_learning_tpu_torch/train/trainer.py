@@ -18,11 +18,20 @@ The throughput meter restarts after the first step has finished on the
 device and is read after the device has drained, so samples/sec is the
 card's rate, not the host's enqueue rate.
 
-Not ported (each raises ``NotImplementedError`` at construction, naming
-its ROADMAP item): the sentinel (``sentinel=True``) and a telemetry
-session (``telemetry=``), both Queue A item 6. ``shard_inputs`` acts only
-across processes, and the port runs one; the fault-injection sites are
-left out with the rest of Queue A item 4.
+Fault sites (``resilience/faults.py``), where the JAX Trainer has them:
+``train.sigterm`` (checked before each step: a graceful preemption),
+``train.step`` (a host-kill raises ``HostLost`` between steps),
+``train.grad`` and ``data.batch`` (the sentinel's numeric kinds, applied
+to the raw numpy batch before it is copied to the device; without the
+sentinel they raise ``NumericFault``); ``ckpt.write`` sits in
+``train/checkpoint.py``. With ``sentinel=True`` every step's loss and
+gradient norm are checked on the host (``resilience/sentinel.py``): an
+anomaly rolls the state back to a host snapshot, quarantines the batch and
+replays, bit for bit what a run that never saw the batch computes.
+
+Not ported (raises ``NotImplementedError`` at construction, naming its
+ROADMAP item): a telemetry session (``telemetry=``), Queue A item 6.
+``shard_inputs`` acts only across processes, and the port runs one.
 """
 
 from __future__ import annotations
@@ -43,6 +52,13 @@ from simple_distributed_machine_learning_tpu_torch.data.mnist import (
 from simple_distributed_machine_learning_tpu_torch.ops.random import fold_in
 from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (
     Pipeline,
+    param_leaves,
+)
+from simple_distributed_machine_learning_tpu_torch.resilience import faults
+from simple_distributed_machine_learning_tpu_torch.resilience.sentinel import (
+    Sentinel,
+    SentinelConfig,
+    restore_state,
 )
 from simple_distributed_machine_learning_tpu_torch.telemetry.registry import (
     append_jsonl,
@@ -99,7 +115,10 @@ class TrainConfig:
     metrics_json: str | None = None
     # train at most this many batches per epoch (None = all)
     max_steps_per_epoch: int | None = None
-    # self-healing training: not ported (ROADMAP Queue A item 6)
+    # self-healing training (resilience/sentinel.py): every step's loss
+    # and grad norm checked on the host, a ring of host snapshots, and on
+    # an anomaly a rollback, the batch quarantined (<checkpoint_dir>/
+    # quarantine.jsonl) and a replay
     sentinel: bool = False
     sentinel_window: int = 16
     sentinel_snapshot_every: int = 4
@@ -116,9 +135,6 @@ class Trainer:
                  config: TrainConfig | None = None,
                  opt: Optimizer | None = None, telemetry=None) -> None:
         self.config = config or TrainConfig()
-        if self.config.sentinel:
-            raise _roadmap.not_ported("the training sentinel (sentinel=True)",
-                                      _roadmap.PARALLEL_AXES)
         if telemetry is not None:
             raise _roadmap.not_ported("a training telemetry session "
                                       "(Trainer(telemetry=...))",
@@ -131,7 +147,8 @@ class Trainer:
         self.opt_state = self.opt.init(self.params)
         if self.config.zero1:
             self.opt_state = shard_opt_state_zero1(self.opt_state)
-        self._train_step = make_train_step(pipe, self.opt)
+        self._train_step = make_train_step(
+            pipe, self.opt, with_grad_norm=self.config.sentinel)
         self._eval_step = make_eval_step(pipe)
         self._step_count = 0
         self._last_samples_per_sec = 0.0
@@ -146,6 +163,17 @@ class Trainer:
         self._resume_batch_idx = 0
         self.preempted = False
         self.preempt_persisted = False
+        self._sentinel = None
+        if self.config.sentinel:
+            jdir = self._sentinel_dir()
+            self._sentinel = Sentinel(
+                SentinelConfig(
+                    window=self.config.sentinel_window,
+                    snapshot_every=self.config.sentinel_snapshot_every,
+                    ring_size=self.config.sentinel_ring,
+                    spike_factor=self.config.sentinel_spike_factor),
+                journal_path=(os.path.join(jdir, "quarantine.jsonl")
+                              if jdir else None))
         if self.config.checkpoint_dir and self.config.resume:
             self._maybe_resume()
 
@@ -166,6 +194,8 @@ class Trainer:
         # a graceful-preemption checkpoint carries the mid-epoch cursor:
         # the saved epoch is the last COMPLETED one
         self._resume_batch_idx = int(st["extra"].get("next_batch", 0))
+        if self._sentinel is not None and "sentinel" in st["extra"]:
+            self._sentinel.restore_detector(st["extra"]["sentinel"])
         self._print(f"| resumed from {path} at epoch {self.start_epoch} "
                     f"(step {self._step_count})"
                     + (f" (batch {self._resume_batch_idx})"
@@ -173,9 +203,14 @@ class Trainer:
 
     def _save_extra(self, epoch: int, cursor: int | None) -> dict:
         """A completed epoch records itself; a mid-epoch preemption save
-        records the last completed epoch and the ``next_batch`` cursor."""
-        return ({"epoch": epoch} if cursor is None
-                else {"epoch": epoch - 1, "next_batch": int(cursor)})
+        records the last completed epoch and the ``next_batch`` cursor.
+        With the sentinel on, its EWMA detector state rides along, so a
+        resumed run's spike threshold is the uninterrupted run's."""
+        extra = ({"epoch": epoch} if cursor is None
+                 else {"epoch": epoch - 1, "next_batch": int(cursor)})
+        if self._sentinel is not None:
+            extra["sentinel"] = self._sentinel.detector_state()
+        return extra
 
     def _save(self, epoch: int, cursor: int | None = None,
               sync: bool = False) -> None:
@@ -207,6 +242,64 @@ class Trainer:
             sys.stderr.flush()
             raise
 
+    def _persists(self) -> bool:
+        """Whether a save reaches disk; ``ElasticTrainer`` (which saves
+        through its store) overrides it."""
+        return bool(self.config.checkpoint_dir)
+
+    # -- self-healing training (resilience/sentinel.py) --------------------
+
+    def _sentinel_dir(self) -> str | None:
+        """Directory of the quarantine journal (``quarantine.jsonl``);
+        None = in memory. ``ElasticTrainer`` overrides it with its store's
+        directory."""
+        return self.config.checkpoint_dir
+
+    @property
+    def sentinel(self):
+        return self._sentinel
+
+    def sentinel_stats(self) -> dict | None:
+        """The sentinel's cumulative counters (None when it is off): the
+        epoch record and the supervisor's attempt report embed them."""
+        return None if self._sentinel is None else self._sentinel.stats()
+
+    def _restore_snapshot(self, snap) -> None:
+        """Micro-rollback: copy a ring snapshot INTO the live parameter and
+        optimizer tensors (the optimizer keeps referencing them), with the
+        snapshot's step counters and step count."""
+        with torch.no_grad():
+            for t, v in zip(param_leaves(self.params), snap.params):
+                t.copy_(v)
+        self.opt_state = restore_state(self.opt_state, snap.opt_leaves)
+        self._step_count = snap.step
+
+    def _apply_numeric_faults(self, x, step: int):
+        """The sentinel's numeric fault kinds on the RAW numpy batch,
+        before it is copied to the device: nan-grad scales it by NaN,
+        corrupt-batch by 1e30, loss-spike by 100 (the JAX Trainer's
+        effects). Without the sentinel the sites fire their standard
+        effect, a raised ``NumericFault``, so a drill never passes against
+        an undefended trainer."""
+        if faults.active() is None:
+            return x
+        if self._sentinel is None:
+            faults.maybe_fire("train.grad", step=step)
+            faults.maybe_fire("data.batch", step=step)
+            return x
+        fired = (faults.check("train.grad", step=step)
+                 + faults.check("data.batch", step=step)
+                 + faults.check("train.step", step=step,
+                                only=("loss-spike",)))
+        for spec in fired:
+            if spec.kind == "nan-grad":
+                x = np.asarray(x) * np.float32("nan")
+            elif spec.kind == "corrupt-batch":
+                x = np.asarray(x) * np.float32(1e30)
+            elif spec.kind == "loss-spike":
+                x = np.asarray(x) * np.float32(100.0)
+        return x
+
     def request_stop(self, signum: int | None = None) -> None:
         """Graceful preemption (the CLI's SIGTERM/SIGINT handler calls
         this): the in-flight step finishes, then ``fit`` writes a
@@ -226,7 +319,8 @@ class Trainer:
     def _epoch_stream(self, shuffle_seed: int | None, start_idx: int):
         """The epoch's ``(batch_idx, Batch)`` stream from ``start_idx``:
         batch order is fixed per (epoch, seed), so skipping forward gives
-        the batches the first pass saw."""
+        the batches the first pass saw (a mid-epoch resume and a rollback
+        both re-enter here)."""
         for i, b in enumerate(prefetch_batches(
                 self.train_ds, self.config.batch_size,
                 shuffle_seed=shuffle_seed)):
@@ -235,6 +329,7 @@ class Trainer:
 
     def train_epoch(self, epoch: int) -> float:
         cfg = self.config
+        sent = self._sentinel
         meter = Throughput()
         n_total = len(self.train_ds.x)
         n_batches = max(1, (n_total + cfg.batch_size - 1) // cfg.batch_size)
@@ -243,36 +338,93 @@ class Trainer:
         start_idx = (self._resume_batch_idx if epoch == self.start_epoch
                      else 0)
         self._resume_batch_idx = 0
-        first = True
-        for batch_idx, b in self._epoch_stream(shuffle_seed, start_idx):
-            if (cfg.max_steps_per_epoch is not None
-                    and batch_idx >= cfg.max_steps_per_epoch):
-                break
-            if self._stop_requested:
-                self._preempt_cursor = batch_idx
-                break
-            # ragged final batch: zero-padded, masked out of the loss mean
-            w = None
-            if b.n_valid < len(b.x):
-                w = torch.from_numpy(
-                    (np.arange(len(b.x)) < b.n_valid).astype(np.float32))
-            self.params, self.opt_state, loss = self._train_step(
-                self.params, self.opt_state, torch.from_numpy(b.x),
-                torch.from_numpy(b.y), fold_in(cfg.seed, self._step_count),
-                w)
-            self._step_count += 1
-            meter.update(b.n_valid)
-            if first:
-                # the first step carries one-time costs (kernel builds,
-                # allocator growth): keep it out of the throughput window
-                self._sync()
-                meter.reset()
-                first = False
-            if batch_idx % cfg.log_interval == 0:
-                self._print(
-                    'Train Epoch: {} [{}/{} ({:.0f}%)]\tLoss: {:.6f}'.format(
-                        epoch, batch_idx * len(b.x), n_total,
-                        100.0 * batch_idx / n_batches, float(loss)))
+        if sent is not None:
+            sent.begin_epoch(epoch)      # fresh ring + forced entry snapshot
+        stream = self._epoch_stream(shuffle_seed, start_idx)
+        first = True                     # first EXECUTED batch of the epoch
+        try:
+            # explicit next(): a rollback REPLACES the stream mid-loop
+            while True:
+                nxt = next(stream, None)
+                if nxt is None:
+                    break
+                batch_idx, b = nxt
+                if (cfg.max_steps_per_epoch is not None
+                        and batch_idx >= cfg.max_steps_per_epoch):
+                    break
+                if sent is not None and sent.quarantined(epoch, batch_idx):
+                    continue             # deterministic corrupt-batch skip
+                step = self._step_count
+                # graceful preemption (the injected preempt@train.sigterm,
+                # or SIGTERM through request_stop), checked BEFORE the
+                # step, so the in-flight one always finishes
+                if faults.check("train.sigterm", step=step):
+                    self._stop_requested = True
+                if self._stop_requested:
+                    self._preempt_cursor = batch_idx
+                    break
+                if sent is not None:
+                    # pre-step snapshot: this very step's state is a valid
+                    # rollback target even when the step is poisoned
+                    sent.maybe_snapshot(step, epoch, batch_idx, self.params,
+                                        self.opt_state)
+                # a host-kill raises HostLost here, between steps;
+                # loss-spike is the sentinel's (_apply_numeric_faults)
+                faults.maybe_fire("train.step", step=step,
+                           exclude=(("loss-spike",) if sent is not None
+                                    else ()))
+                # ragged final batch: zero-padded, masked out of the loss
+                w = None
+                if b.n_valid < len(b.x):
+                    w = torch.from_numpy(
+                        (np.arange(len(b.x)) < b.n_valid).astype(np.float32))
+                x = torch.from_numpy(
+                    np.ascontiguousarray(self._apply_numeric_faults(b.x,
+                                                                    step)))
+                out = self._train_step(
+                    self.params, self.opt_state, x, torch.from_numpy(b.y),
+                    fold_in(cfg.seed, step), w)
+                self.params, self.opt_state, loss = out[:3]
+                self._step_count += 1
+                if sent is not None:
+                    # ONE host sync for both scalars: the sentinel's cost
+                    loss_f, gnorm_f = torch.stack(
+                        (loss.float(), out[3])).tolist()
+                    anomaly = sent.observe(step, epoch, batch_idx, loss_f,
+                                           gnorm_f)
+                    if anomaly is not None:
+                        # restore the newest pre-anomaly snapshot, rewind
+                        # the batch stream to its cursor and replay; the
+                        # quarantined batch is skipped on the way through.
+                        # SentinelExhausted (the supervisor recovers from
+                        # it) when anomalies repeat too fast
+                        snap = sent.rollback(anomaly)
+                        self._restore_snapshot(snap)
+                        self._print(
+                            f"| sentinel: {anomaly.kind} at step "
+                            f"{anomaly.step} (epoch {epoch} batch "
+                            f"{anomaly.batch_idx}) — rolled back to step "
+                            f"{snap.step}, batch quarantined, replaying")
+                        stream.close()
+                        stream = self._epoch_stream(shuffle_seed,
+                                                    snap.batch_idx)
+                        continue
+                meter.update(b.n_valid)
+                if first:
+                    # the first step carries one-time costs (kernel
+                    # builds, allocator growth): keep it out of the
+                    # throughput window
+                    self._sync()
+                    meter.reset()
+                    first = False
+                if batch_idx % cfg.log_interval == 0:
+                    self._print(
+                        'Train Epoch: {} [{}/{} ({:.0f}%)]\tLoss: '
+                        '{:.6f}'.format(
+                            epoch, batch_idx * len(b.x), n_total,
+                            100.0 * batch_idx / n_batches, float(loss)))
+        finally:
+            stream.close()
         self._sync()                         # drain before reading the meter
         self._last_samples_per_sec = meter.samples_per_sec
         if cfg.print_throughput:
@@ -314,7 +466,7 @@ class Trainer:
                 return
             eval_loss, correct = self.evaluate()
             n_eval = int(self.test_ds.y.size)
-            self._log_metrics({
+            record = {
                 "epoch": epoch,
                 "step": self._step_count,
                 "train_loss": round(train_loss, 6),
@@ -323,7 +475,13 @@ class Trainer:
                 "accuracy": round(correct / n_eval, 6) if n_eval else None,
                 "correct": correct,
                 "n_eval": n_eval,
-            })
+            }
+            if self._sentinel is not None:
+                # the self-healing block rides every epoch record, so a
+                # drill re-asserts rollbacks from the metrics file
+                record.update(self.sentinel_stats())
+                record["anomaly_events"] = self._sentinel.drain_events()
+            self._log_metrics(record)
             self._save(epoch)
         if self._pending_save is not None:
             self._wait_pending()
@@ -335,15 +493,19 @@ class Trainer:
         if self._pending_save is not None:
             self._wait_pending()
         self._save(epoch, cursor=self._preempt_cursor, sync=True)
-        self._log_metrics({"epoch": epoch, "step": self._step_count,
-                           "preempted": True, "correct": None})
+        record: dict = {"epoch": epoch, "step": self._step_count,
+                        "preempted": True, "correct": None}
+        if self._sentinel is not None:
+            record.update(self.sentinel_stats())
+            record["anomaly_events"] = self._sentinel.drain_events()
+        self._log_metrics(record)
         self.preempted = True
         sig = (f"signal {self._stop_signal}"
                if self._stop_signal is not None else "preempt notice")
         where = (f"batch {self._preempt_cursor} of epoch {epoch}"
                  if self._preempt_cursor is not None
                  else f"end of epoch {epoch}")
-        self.preempt_persisted = bool(self.config.checkpoint_dir)
+        self.preempt_persisted = self._persists()
         self._print(
             f"| preempt: graceful stop on {sig} at step "
             f"{self._step_count} ({where}) — "

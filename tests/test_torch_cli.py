@@ -6,6 +6,7 @@ not ported."""
 import json
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -155,13 +156,13 @@ def test_cli_metrics_json(tmp_path):
     (["--experts", "4"], "item 6"),
     (["--overlap", "ring"], "item 6"),
     (["--remat"], "item 6"),
-    (["--sentinel"], "item 6"),
+    (["--chaos-stages", "2,1"], "item 6"),
     (["--telemetry-dir", "/tmp/t"], "item 6"),
     (["--profile", "/tmp/p"], "item 6"),
     (["--scenario", "offload-churn"], "item 5"),
     (["--scenario", "hot-adapter-churn"], "item 5"),
-    (["--chaos", "host-kill@train.step=6"], "item 4d"),
-    (["--chaos-max-restarts", "5"], "item 4d"),
+    (["--telemetry-every", "2"], "item 6"),
+    (["--peer-timeout", "30"], "item 6"),
     (["--serve-prefetch-ticks", "2"], "item 5"),
     (["--serve-host-blocks", "4"], "item 5"),
     (["--serve-adapters", "2"], "item 5"),
@@ -466,3 +467,130 @@ def test_serve_trace_needs_a_telemetry_dir(monkeypatch):
     with pytest.raises(SystemExit) as ref:
         jcli.main(["--rank", "0", "--stages", "1"] + argv)
     assert str(ours.value) == str(ref.value)
+
+
+# ---------------------------------------------------------------------------
+# training resilience: --sentinel and --chaos
+
+
+def _jax_train_cli(argv):
+    from simple_distributed_machine_learning_tpu.cli import main as jmain
+    jmain(["--rank", "0", "--world_size", "1", "--stages", "1",
+           "--data-root", "/nonexistent"] + argv)
+
+
+def _exit_text(run, argv):
+    with pytest.raises(SystemExit) as e:
+        run(argv)
+    return str(e.value)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--model", "mlp", "--sentinel", "--sentinel-window", "1"],
+    ["--model", "mlp", "--sentinel", "--sentinel-snapshot-every", "0"],
+    ["--model", "mlp", "--chaos", "nan-grad@train.grad=5",
+     "--checkpoint-dir", "CK"],
+    ["--model", "mlp", "--chaos", "host-kill@train.step=6"],
+    ["--model", "lenet", "--chaos", "host-kill@train.step=6",
+     "--checkpoint-dir", "CK"],
+    ["--model", "mlp", "--chaos", "host-kill@train.steps=6",
+     "--checkpoint-dir", "CK"],
+    ["--model", "mlp", "--chaos", "host-kill@train.step=6",
+     "--checkpoint-dir", "CK", "--chaos-max-restarts", "-1"],
+    ["--model", "gpt", "--serve-sim", "4", "--chaos",
+     "host-kill@train.step=6", "--checkpoint-dir", "CK"],
+])
+def test_chaos_and_sentinel_errors_are_the_jax_clis(tmp_path, argv):
+    """Every refusal of the training-resilience flags exits with the JAX
+    CLI's text, word for word."""
+    argv = [str(tmp_path / "ck") if a == "CK" else a for a in argv]
+    ours = _exit_text(lambda a: main(BASE + a), argv)
+    theirs = _exit_text(_jax_train_cli, argv)
+    assert ours == theirs and "\n" not in ours
+
+
+def _chaos_lines(out):
+    return [ln for ln in out.split("\n")
+            if ln.startswith(("| chaos:", "| sentinel:", "| elastic:"))]
+
+
+def test_cli_sentinel_chaos_drill_prints_the_jax_lines(tmp_path, capsys):
+    """``--sentinel --chaos nan-grad@train.grad=5``: absorbed in memory
+    (0 supervisor restarts), the quarantine journal in the store's
+    directory, and the same summary lines as the JAX CLI's."""
+    argv = ["--model", "mlp", "--mlp-dims", "784,16,10", "--epochs", "2",
+            "--max-steps-per-epoch", "4", "--sentinel", "--chaos",
+            "nan-grad@train.grad=5"]
+    main(BASE + argv + ["--checkpoint-dir", str(tmp_path / "port")])
+    ours = _chaos_lines(capsys.readouterr().out)
+    _jax_train_cli(argv + ["--checkpoint-dir", str(tmp_path / "jax")])
+    theirs = _chaos_lines(capsys.readouterr().out)
+    assert ours == theirs == [
+        "| sentinel: nan at step 5 (epoch 2 batch 1) — rolled back to step "
+        "4, batch quarantined, replaying",
+        "| chaos: completed after 0 restart(s); attempts: 1st/completed; "
+        "faults fired: 1",
+        "| chaos: sentinel absorbed 1 anomaly (1 rollback(s), 1 quarantined "
+        "batch(es))"]
+    q = [json.loads(line) for line in
+         open(tmp_path / "port" / "quarantine.jsonl")]
+    assert q == [json.loads(line) for line in
+                 open(tmp_path / "jax" / "quarantine.jsonl")]
+    assert [r["step"] for r in q] == [5]
+
+
+def test_cli_chaos_never_fired_plan_is_vacuous(tmp_path):
+    with pytest.raises(SystemExit, match="never fired"):
+        main(BASE + ["--model", "mlp", "--mlp-dims", "784,16,10",
+                     "--epochs", "1", "--max-steps-per-epoch", "2",
+                     "--checkpoint-dir", str(tmp_path / "store"),
+                     "--chaos", "host-kill@train.step=999"])
+
+
+def test_cli_gpt_flash_host_kill_restarts_once(tmp_path, capsys):
+    """``--model gpt --attn flash --chaos host-kill@train.step=6``: the
+    elastic supervisor restores the epoch-1 generation and completes
+    after one restart; the flash kernels' wrappers run their plain
+    versions on the CPU."""
+    main(BASE + ["--model", "gpt", "--attn", "flash", "--epochs", "2",
+                 "--max-steps-per-epoch", "4", "--batch-size", "30",
+                 "--checkpoint-dir", str(tmp_path / "g"), "--chaos",
+                 "host-kill@train.step=6"])
+    assert _chaos_lines(capsys.readouterr().out) == [
+        "| elastic: restored ckpt-00000004.npz (step 4, written at 1 "
+        "stage); resuming at epoch 2",
+        "| chaos: completed after 1 restart(s); attempts: 1st/fault"
+        "(HostLost) -> 1st/completed; faults fired: 1"]
+
+
+def test_cli_preempt_then_rerun_resumes_bit_exact(tmp_path, capsys):
+    """An injected ``preempt@train.sigterm=6`` stops the CLI's run
+    gracefully mid-epoch 2; the rerun resumes at the cursor and ends on
+    the parameters of an uninterrupted run, bit for bit."""
+    from simple_distributed_machine_learning_tpu_torch.resilience import (
+        faults,
+    )
+    from simple_distributed_machine_learning_tpu_torch.train import (
+        checkpoint,
+    )
+    argv = BASE + ["--model", "mlp", "--mlp-dims", "784,16,10", "--epochs",
+                   "2", "--max-steps-per-epoch", "4", "--sentinel"]
+    main(argv + ["--checkpoint-dir", str(tmp_path / "straight")])
+    faults.install(faults.FaultPlan.parse("preempt@train.sigterm=6"))
+    try:
+        main(argv + ["--checkpoint-dir", str(tmp_path / "cut")])
+    finally:
+        faults.uninstall()
+    out = capsys.readouterr().out
+    assert ("| preempt: graceful stop on preempt notice at step 6 (batch 2 "
+            "of epoch 2)") in out
+    assert "| train: graceful shutdown complete" in out
+    main(argv + ["--checkpoint-dir", str(tmp_path / "cut")])
+    assert (f"| resumed from {tmp_path / 'cut'}/state.npz at epoch 2 "
+            f"(step 6) (batch 2)") in capsys.readouterr().out
+    a = checkpoint.restore_checkpoint(str(tmp_path / "straight/state.npz"))
+    b = checkpoint.restore_checkpoint(str(tmp_path / "cut/state.npz"))
+    assert a["step"] == b["step"] == 8
+    np.testing.assert_array_equal(a["params"], b["params"])
+    for x, y in zip(a["opt_state"], b["opt_state"]):
+        np.testing.assert_array_equal(x, y)

@@ -134,19 +134,23 @@ def test_install_from_env(monkeypatch):
 
 
 def test_drill_coverage_finds_the_ports_serve_sites():
-    """The port instruments exactly the engine's two sites and the fleet's
-    two, and its tests drill all four and every kind the supervisor and
-    the fleet act on; a site or kind with no drill, and an undrilled
-    pinned pair, are reported."""
-    assert faults.instrumented_sites() == ("serve.tick", "serve.admit",
-                                           "fleet.tick", "fleet.handoff")
+    """The port instruments the Trainer's four sites, the checkpoint
+    writer's, the engine's two and the fleet's two, and its tests drill
+    all nine, every kind the supervisors and the fleet act on and every
+    pinned pair (the sentinel's numeric kinds and preempt on their
+    sites); a site or kind with no drill, and an undrilled pinned pair,
+    are reported."""
+    assert faults.instrumented_sites() == (
+        "train.step", "train.grad", "data.batch", "train.sigterm",
+        "ckpt.write", "serve.tick", "serve.admit", "fleet.tick",
+        "fleet.handoff")
     assert faults.drill_coverage() == []
     # (the undrilled pair is spelled in two pieces: written whole, this
     # file's own text would drill it)
-    gaps = faults.drill_coverage(kinds=("engine-crash", "ckpt-write-crash"),
+    gaps = faults.drill_coverage(kinds=("engine-crash", "never-drilled"),
                                  sites=("serve.tick", "bench.probe"),
-                                 pairs={"loss-spike": "train.step"})
-    assert any("'ckpt-write-crash' is registered" in g for g in gaps)
+                                 pairs={"replica-kill": "train.step"})
+    assert any("'never-drilled' is registered" in g for g in gaps)
     assert any("'bench.probe' is instrumented" in g for g in gaps)
-    assert any("loss-spike" + "@train.step" in g for g in gaps)
+    assert any("replica-kill" + "@train.step" in g for g in gaps)
     assert len(gaps) == 3

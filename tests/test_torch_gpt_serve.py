@@ -217,16 +217,16 @@ def test_sampled_top1_equals_greedy_and_seeds_reproduce():
     dict(n_tensor_parallel=2),
     # serving builds: the dense slot-row target, tracing and the flight
     # recorder are ported; speculation over dense rows and the TP/adapter
-    # slot programs still name their items, as training chaos names 4d
+    # slot programs still name their items, as --chaos-stages and the
+    # linter name theirs
     dict(engine=dict(kv_layout="dense"), item=None),
     dict(engine=dict(kv_layout="dense", spec_k=2, draft=True),
          item="item 5, serving extensions"),
     dict(engine=dict(trace=True), item=None),
     dict(engine=dict(flight=True), item=None),
-    dict(cli=["--chaos", "engine-crash@train.step=2"],
-         item="item 4d, training resilience"),
-    dict(cli=["--chaos-max-restarts", "5"],
-         item="item 4d, training resilience"),
+    dict(cli=["--chaos-stages", "2,1"],
+         item="item 6, remaining parallel axes"),
+    dict(cli=["--lint"], item="item 7, analysis"),
     dict(slot_decode=dict(mesh=object()),
          item="item 6, remaining parallel axes"),
     dict(slot_decode=dict(adapters=True), item="item 5, serving extensions"),

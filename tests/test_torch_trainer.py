@@ -244,7 +244,6 @@ def test_mlp_learns_the_synthetic_digits():
 
 
 @pytest.mark.parametrize("knob,match", [
-    (dict(config=TrainConfig(sentinel=True)), "sentinel"),
     (dict(telemetry=object()), "telemetry session")])
 def test_unported_knobs_raise_naming_item_6(knob, match):
     train, test = _mlp_data(n_train=60, n_test=10)

@@ -109,3 +109,27 @@ def test_resume_is_bit_exact_on_the_card(cuda_device, tmp_path, model):
     for a, b in zip(resumed.opt_state, straight.opt_state):
         assert torch.equal(a, b)
     assert np.isfinite(straight.evaluate()[0])
+
+
+@pytest.mark.cuda
+def test_gather_of_bad_token_ids_on_the_card_equals_the_cpu(cuda_device):
+    """NaN, overflowed and out-of-range float token ids reach no CUDA
+    gather out of range (no device-side assert): the card's lookup and
+    table gradient equal the CPU's, and the card keeps working."""
+    from simple_distributed_machine_learning_tpu_torch.ops import layers
+    wire = torch.tensor([1.0, float("nan"), 3e30, -1e30, 6.0, -1.0, -7.0,
+                         2.7, 5.0])
+    table = torch.randn(6, 4, generator=torch.Generator().manual_seed(0))
+    ct = torch.randn(9, 4, generator=torch.Generator().manual_seed(1))
+    outs = []
+    for dev in ("cpu", cuda_device):
+        t = table.to(dev).requires_grad_(True)
+        out = layers.embedding_lookup(t, layers.token_ids(wire.to(dev)))
+        out.backward(ct.to(dev))
+        outs.append((out.detach().cpu(), t.grad.cpu()))
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(outs[0][0]), torch.isnan(outs[1][0]))
+    assert torch.equal(torch.nan_to_num(outs[0][0]),
+                       torch.nan_to_num(outs[1][0]))
+    assert torch.equal(outs[0][1], outs[1][1])
+    assert (torch.ones(2, device=cuda_device) * 2).sum().item() == 4.0
