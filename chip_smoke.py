@@ -178,6 +178,31 @@ or without the port beside it. Phases, each fatal on failure:
    and ``preempt@train.sigterm=6`` then a rerun, ending on the
    parameters of an uninterrupted run bit for bit.
 
+11. the host offload tier and LoRA adapters: (a) offload-churn's shape
+   at SERVE_CFG's width (``HOST_CHURN``: a 2-block shared prefix before
+   the hot prompts, prefix-less scans, 8 slots, a 16-block pool, a
+   24-block host tier, one fleet replica, the virtual clock), with f32
+   and int8 storage, each beside the same run without the tier: at least
+   one demotion, promotion and prefetch hit, every demoted copy and every
+   promoted block byte-equal to the rows they came from, every stream
+   equal to the run without the tier, K4 launched ``n_layers`` times per
+   decode call; it prints the demote (device -> host) and upload (host
+   -> device) ms per block and the tick p50 beside the run without the
+   tier and phase 3's; (b) three rank-``ADAPTER_RANK`` tenants and the
+   base model on one engine (phase 3b's 24 greedy requests, tenants
+   round-robin): base streams equal to an engine without adapters, every
+   tenant stream off the base model's and held against an engine on the
+   merged weights (teacher-forced log-probs within
+   ``ADAPTER_LOGIT_TOL``; tokens equal, or the first disagreeing step's
+   top-2 gap under the tolerance, printed and recorded), a hot-swap three
+   ticks in taking effect at the next admission only, and the
+   speculative verify with adapters (``spec_k`` 4) equal to plain adapter
+   decode; it prints the adapter tick's host ms beside the plain tick's;
+   (c) the offload-churn and hot-adapter-churn pins (both routing
+   policies) on ``SCENARIO_CFG`` through K4, greedy streams equal to a
+   dense rerun; (d) the CLI's ``--serve-sim 8 --serve-replicas 1
+   --serve-host-blocks 8`` and ``--serve-sim 8 --serve-adapters 2``.
+
 Before the last line it prints the kernels as one JSON object (times in
 ms, measured in this run; ``bound_ms`` computed from this run's inputs);
 the last line is ``{"ok": true, "device": {...}}``. Details also go to
@@ -380,6 +405,34 @@ SENTINEL_FAULTS = {"nan-grad@train.grad=37": ("nan",),
 SENTINEL_TIMED_STEPS = 100
 ELASTIC_EPOCHS, ELASTIC_STEPS, ELASTIC_TEST = 3, 4, 32
 ELASTIC_KILL = "host-kill@train.step=6"
+# phase 11: (a) the offload-churn scenario's shape at SERVE_CFG's width —
+# a 2-block shared prefix (32 tokens) before 16-token hot prompts, and
+# 64-token scans without it, 24 requests of 24 new tokens on 8 slots of
+# blocks of 16, a pool of 16 blocks and a host tier of 24 on the virtual
+# clock (so the counts are the same on any weights and device); (b) three
+# LoRA tenants of rank 8 beside the base model on phase 3b's workload, A
+# drawn by init_lora_adapter and B at ADAPTER_B_STD, held against the
+# merged-weights engine: teacher-forced log-probs within
+# ADAPTER_LOGIT_TOL, greedy tokens equal unless the top-2 gap at the first
+# disagreeing step lies under that tolerance; (c) the two scenarios' pins
+# at SCENARIO_CFG
+HOST_CHURN = dict(n_requests=24, rate=4.0, prefix=2 * 16, hot_len=16,
+                  scan_len=64, max_new=24, n_slots=8, n_blocks=16,
+                  max_len=128, host_cache_blocks=24)
+ADAPTER_RANK, ADAPTER_B_STD, ADAPTER_LOGIT_TOL = 8, 0.25, 1e-4
+ADAPTER_TENANTS = (None, "t0", "t1", "t2")
+HOST_ADAPTER_PINS = {
+    ("offload-churn", ()): dict(completed=24, prefix_hit_blocks=16,
+                                host_tier={
+                                    "host_cache_blocks": 12, "demotes": 66,
+                                    "promotes": 5, "prefetch_hits": 3,
+                                    "prefetch_misses": 0,
+                                    "host_evictions": 53,
+                                    "transfer_bytes": 145408}),
+    ("hot-adapter-churn", ()): dict(completed=18, swaps=3, hits=15),
+    ("hot-adapter-churn", (("route", "round-robin"),)): dict(
+        completed=18, swaps=7, hits=0),
+}
 # where phase 7 runs: the card ("cpu" only to rehearse the phase without
 # one, where its device checks cannot pass)
 MAIN_DEVICE = "cuda"
@@ -1449,7 +1502,7 @@ def _scenario_run(name: str, stages, cfg, kernel: str, outdir: str,
 
     scenarios.simulate = simulate
     try:
-        r = scenarios.run_scenario(name, stages, cfg, device="cuda",
+        r = scenarios.run_scenario(name, stages, cfg, device=MAIN_DEVICE,
                                    attn_kernel=kernel, outdir=outdir, **kw)
     finally:
         scenarios.simulate = inner
@@ -3370,6 +3423,504 @@ def phase_resilience(record: dict) -> tuple:
     return launches
 
 
+# -- phase 11: the host offload tier and LoRA adapters --------------------------
+
+def _cache_leaves(cache) -> list:
+    """The stored tensors of a cache (a ``QuantKV``'s data and scales)."""
+    return list(cache) if isinstance(cache, tuple) else [cache]
+
+
+class _TierProbe:
+    """While active, times every demotion (device -> host) and upload
+    (host -> device) of every pool's host tier, per block, on the host
+    clock between two synchronisations, and holds each copy bit-exact: a
+    demoted block's host copy against the device rows it was taken from,
+    a promoted block's device rows against the host copy. The first
+    checks the blocking copy into pinned memory, the second the
+    non-blocking one back; together, the round trip."""
+
+    def __enter__(self):
+        from simple_distributed_machine_learning_tpu_torch.serve.slots import (  # noqa: E501
+            PagedKVPool,
+        )
+        self.d2h_ms, self.h2d_ms = [], []
+        self.checked, self.bad = 0, 0
+        self._cls = PagedKVPool
+        self._demote = demote = PagedKVPool._demote
+        self._advance = advance = PagedKVPool.advance_transfers
+        probe = self
+
+        def timed_demote(pool, block):
+            before = [x[:, block].clone()
+                      for c in (pool.kc, pool.vc) for x in _cache_leaves(c)]
+            hid = pool._next_host_id
+            _sync()
+            t0 = time.perf_counter()
+            demote(pool, block)
+            _sync()
+            probe.d2h_ms.append((time.perf_counter() - t0) * 1e3)
+            entry = pool._host.get(hid)
+            if entry is not None:
+                probe._same(before, [x for c in (entry["kc"], entry["vc"])
+                                     for x in _cache_leaves(c)])
+
+        def timed_advance(pool):
+            due = [(key, block, hk, hv) for t in pool._inflight
+                   if t["ticks_left"] <= 1
+                   for (key, _f, hk, hv), block in zip(t["entries"],
+                                                       t["blocks"])]
+            n0 = pool.host_promotes_total
+            _sync()
+            t0 = time.perf_counter()
+            advance(pool)
+            _sync()
+            n = pool.host_promotes_total - n0
+            if n:
+                probe.h2d_ms.append((time.perf_counter() - t0) * 1e3 / n)
+            for key, block, hk, hv in due:
+                if pool._prefix.get(key, (None,))[0] == block:
+                    probe._same([x for c in (hk, hv)
+                                 for x in _cache_leaves(c)],
+                                [x[:, block] for c in (pool.kc, pool.vc)
+                                 for x in _cache_leaves(c)])
+
+        PagedKVPool._demote = timed_demote
+        PagedKVPool.advance_transfers = timed_advance
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._cls._demote = self._demote
+        self._cls.advance_transfers = self._advance
+
+    def _same(self, a: list, b: list) -> None:
+        import torch
+        self.checked += 1
+
+        def raw(x):
+            return x.detach().cpu().contiguous().view(torch.uint8)
+
+        if not all(x.dtype == y.dtype and torch.equal(raw(x), raw(y))
+                   for x, y in zip(a, b)):
+            self.bad += 1
+
+
+def _churn_scenario():
+    """``HOST_CHURN``: offload-churn's scenario at SERVE_CFG's width."""
+    import dataclasses
+
+    from simple_distributed_machine_learning_tpu_torch.resilience.scenarios import (  # noqa: E501
+        SCENARIOS,
+    )
+    from simple_distributed_machine_learning_tpu_torch.serve import (
+        SimConfig,
+        TrafficClass,
+    )
+    hc = HOST_CHURN
+    sim = SimConfig(
+        n_requests=hc["n_requests"], rate=hc["rate"], seed=0,
+        shared_prefix_len=hc["prefix"], sampled_fraction=0.0,
+        max_new_tokens=hc["max_new"],
+        classes=(TrafficClass("hot", weight=1.0,
+                              prompt_lens=(hc["hot_len"],)),
+                 TrafficClass("scan", weight=1.0,
+                              prompt_lens=(hc["scan_len"],),
+                              shared_prefix=False)))
+    return dataclasses.replace(
+        SCENARIOS["offload-churn"], name="offload-churn-full-width",
+        sim=sim, n_slots=hc["n_slots"], block_size=SERVE_BLOCK,
+        n_blocks=hc["n_blocks"], max_len=hc["max_len"],
+        prefill_chunk=SERVE_BLOCK, host_cache_blocks=hc["host_cache_blocks"])
+
+
+def _host_tier_full_width(stages, cfg, serve: dict, rec: dict) -> int:
+    """(a) ``_churn_scenario`` at SERVE_CFG through K4, with f32 and int8
+    storage, each with the host tier and without it (the HBM-only run).
+    Returns K4's launches."""
+    import tempfile
+    scen = _churn_scenario()
+    launches = 0
+    for cd in (None, "int8"):
+        runs = {}
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-tier-") as d:
+            with _TierProbe() as probe:
+                runs["tier"] = _scenario_run(scen, stages, cfg, "fused",
+                                             os.path.join(d, "tier"),
+                                             cache_dtype=cd)
+            runs["hbm"] = _scenario_run(scen, stages, cfg, "fused",
+                                        os.path.join(d, "hbm"),
+                                        cache_dtype=cd, host_cache_blocks=0)
+        r, handles, rows = runs["tier"]
+        _, hhandles, hrows = runs["hbm"]
+        ht = r["host_tier"]
+        k4 = sum(t["launches"] for t in rows + hrows)
+        decode = sum(t["decode"] for t in rows + hrows)
+        bad_ticks = _off_ticks(rows, cfg.n_layers) + _off_ticks(
+            hrows, cfg.n_layers)
+        same = [rid for rid in handles if rid in hhandles
+                and list(handles[rid].tokens) == list(hhandles[rid].tokens)]
+        launches += k4
+        tick = statistics.median(t["ms"] for t in rows)
+        htick = statistics.median(t["ms"] for t in hrows)
+        label = cd or "float32"
+        rec[label] = dict(
+            completed=r["completed"], host_tier=ht,
+            prefix_hit_blocks=r.get("prefix_hit_blocks"),
+            hbm_prefix_hit_blocks=runs["hbm"][0].get("prefix_hit_blocks"),
+            slo_ok=r["slo_ok"], copies_checked=probe.checked,
+            copies_bad=probe.bad, d2h_ms=probe.d2h_ms, h2d_ms=probe.h2d_ms,
+            d2h_ms_per_block=(statistics.median(probe.d2h_ms)
+                              if probe.d2h_ms else None),
+            h2d_ms_per_block=(statistics.median(probe.h2d_ms)
+                              if probe.h2d_ms else None),
+            tick_ms_p50=tick, hbm_tick_ms_p50=htick, launches=k4,
+            decode_calls=decode, streams_equal=len(same),
+            requests=len(handles))
+        print(f"chip_smoke: host tier {label} at full width: "
+              f"{r['completed']} completed, {ht}, prefix hits "
+              f"{r.get('prefix_hit_blocks')} (HBM-only "
+              f"{rec[label]['hbm_prefix_hit_blocks']}); {probe.checked} "
+              f"copies byte-checked, {probe.bad} differ; D2H "
+              f"{rec[label]['d2h_ms_per_block']} ms per block (median of "
+              f"{len(probe.d2h_ms)}), H2D {rec[label]['h2d_ms_per_block']} "
+              f"ms per block (median of {len(probe.h2d_ms)}); tick p50 "
+              f"{tick:.3f} ms (HBM-only {htick:.3f}, phase 3 "
+              f"{serve['tick_ms_p50']:.3f}); streams equal to the HBM-only "
+              f"run's {len(same)}/{len(handles)}; K4 launches {k4} = "
+              f"{cfg.n_layers} x {decode} decode calls "
+              f"({len(bad_ticks)} ticks off)")
+        check(r["completed"] == HOST_CHURN["n_requests"] and r["slo_ok"]
+              and ht["demotes"] >= 1 and ht["prefetch_hits"] >= 1
+              and ht["promotes"] >= 1,
+              f"host tier {label}: {r['completed']} completed, {ht}")
+        check(probe.bad == 0
+              and probe.checked == ht["demotes"] + ht["promotes"],
+              f"host tier {label}: {probe.bad} of {probe.checked} copies "
+              f"differ ({ht['demotes']} demotes + {ht['promotes']} "
+              f"promotes)")
+        check(len(same) == len(handles) == HOST_CHURN["n_requests"],
+              f"host tier {label}: {len(same)}/{len(handles)} streams "
+              f"equal to the HBM-only run's")
+        check(decode > 0 and not bad_ticks,
+              f"host tier {label}: K4 launches {k4} over {decode} decode "
+              f"calls; ticks {bad_ticks[:8]} off")
+    return launches
+
+
+def _adapter_weights(cfg, seed: int) -> dict:
+    """One tenant: ``init_lora_adapter``'s A from ``seed``, B drawn at
+    ``ADAPTER_B_STD`` so the delta moves the tenant's stream."""
+    import torch
+    from simple_distributed_machine_learning_tpu_torch.models import lora
+    g = torch.Generator().manual_seed(seed)
+    w = lora.init_lora_adapter(g, cfg, ADAPTER_RANK, device=MAIN_DEVICE)
+    for k in ("bq", "bv"):
+        w[k] = (ADAPTER_B_STD * torch.randn(w[k].shape, generator=g)).to(
+            MAIN_DEVICE)
+    return w
+
+
+def _adapter_drain(stages, cfg, reqs, tenants=None, swap=None,
+                   **engine_kw) -> dict:
+    """``reqs`` (submit kwargs, ``adapter`` included) through a fused
+    engine on SERVE_SLOTS slots, every prompt length warmed first; with
+    ``tenants`` ({name: weights}) an AdapterStore of ``ADAPTER_RANK``.
+    ``swap`` = (tick, name, weights) re-registers a tenant after that many
+    ticks and submits ``reqs[-1]`` after it. The streams, tick rows and
+    summary."""
+    import numpy as np
+    from simple_distributed_machine_learning_tpu_torch.serve import (
+        AdapterStore,
+        InferenceEngine,
+        ServeMetrics,
+    )
+    if tenants is not None:
+        engine_kw["adapters"] = AdapterStore(cfg, ADAPTER_RANK, SERVE_SLOTS,
+                                             device=MAIN_DEVICE)
+    engine = InferenceEngine(stages, cfg, n_slots=SERVE_SLOTS,
+                             block_size=SERVE_BLOCK, attn_kernel="fused",
+                             device=MAIN_DEVICE, **engine_kw)
+    for name, w in (tenants or {}).items():
+        engine.register_adapter(name, w)
+    for t0 in SPEC_WORKLOAD["prompt_lens"]:
+        engine.submit(np.zeros(t0, np.int32), max_new_tokens=2)
+    engine.drain()
+    engine.metrics = ServeMetrics()
+    rows = _record_ticks(engine)
+    late = reqs[-1:] if swap else []
+    handles = [engine.submit(**r) for r in reqs[:len(reqs) - len(late)]]
+    ticks = 0
+    try:
+        while engine.busy:
+            if swap and ticks == swap[0]:
+                engine.register_adapter(swap[1], swap[2])
+                handles += [engine.submit(**r) for r in late]
+            engine.step()
+            ticks += 1
+    finally:
+        del engine.step
+    return dict(streams=[list(h.tokens) for h in handles], rows=rows,
+                summary=engine.metrics.summary(),
+                launches=sum(t["launches"] for t in rows),
+                decode=sum(t["decode"] for t in rows))
+
+
+def _teacher_forced(params, cfg, seq, w=None):
+    """Log-probs [T, V] of ``seq`` through the model with dense causal
+    attention, ``w``'s adapter (unbatched factors per layer) added to q
+    and v when given."""
+    import torch
+    from simple_distributed_machine_learning_tpu_torch.models import gpt
+    from simple_distributed_machine_learning_tpu_torch.ops.attention import (
+        causal_attention_core,
+    )
+    from simple_distributed_machine_learning_tpu_torch.ops.layers import (
+        embedding_lookup,
+    )
+    embed, blocks, head = gpt._merged_stage_trees(params)
+    ids = torch.as_tensor(seq, device=embed["tok"].device)[None].long()
+    with torch.no_grad():
+        h = embedding_lookup(embed["tok"], ids) + embed["pos"][:ids.shape[1]]
+        for li, bp in enumerate(blocks):
+            ab = (None if w is None
+                  else tuple(w[k][li] for k in ("aq", "bq", "av", "bv")))
+            q, k, v = gpt._dense_qkv(bp, h, cfg.n_heads, ab)
+            h = gpt._dense_attn_tail(bp, h, causal_attention_core(q, k, v))
+        return gpt._head_logprobs(head, h)[0]
+
+
+def _against_merged(params, merged, cfg, req, got, want, w) -> dict:
+    """A tenant stream ``got`` (the adapter engine's) against ``want``
+    (the merged-weights engine's) by the phase's rule: the teacher-forced
+    log-probs along ``got`` through the adapter and through the merged
+    weights within ``ADAPTER_LOGIT_TOL``; the tokens equal, or the first
+    disagreeing step's top-2 gap (merged weights) under the tolerance."""
+    import numpy as np
+    t0 = len(req["prompt"])
+    seq = np.concatenate([req["prompt"], np.asarray(got[:-1], np.int32)])
+    lp_a = _teacher_forced(params, cfg, seq, w)[t0 - 1:]
+    lp_m = _teacher_forced(merged, cfg, seq)[t0 - 1:]
+    err = float((lp_a - lp_m).abs().max())
+    first = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None)
+    gap = None
+    if first is not None:
+        top2 = lp_m[first].topk(2).values
+        gap = float(top2[0] - top2[1])
+    return dict(max_abs_err=err, first_mismatch=first, top2_gap=gap,
+                ok=(err <= ADAPTER_LOGIT_TOL
+                    and (first is None or gap < ADAPTER_LOGIT_TOL)))
+
+
+def _adapters_full_width(stages, cfg, rec: dict) -> int:
+    """(b) Three tenants and the base model on one engine at SERVE_CFG
+    (phase 3b's 24 greedy requests, tenants round-robin, so every tick
+    mixes bank rows). Returns K4's launches."""
+    import dataclasses
+
+    from simple_distributed_machine_learning_tpu_torch.models import lora
+    reqs = _spec_workload(cfg.vocab)
+    for i, r in enumerate(reqs):
+        r["adapter"] = ADAPTER_TENANTS[i % len(ADAPTER_TENANTS)]
+        r["seed"] = i
+    tenants = {name: _adapter_weights(cfg, 100 + k)
+               for k, name in enumerate(ADAPTER_TENANTS[1:])}
+    params = [s.params for s in stages]
+    mixed = _adapter_drain(stages, cfg, reqs, tenants)
+    base_reqs = [dict(r, adapter=None) for r in reqs]
+    plain = _adapter_drain(stages, cfg, base_reqs)
+    base_ids = [i for i, r in enumerate(reqs) if r["adapter"] is None]
+    base_same = [i for i in base_ids
+                 if mixed["streams"][i] == plain["streams"][i]]
+    moved = [i for i, r in enumerate(reqs) if r["adapter"] is not None
+             and mixed["streams"][i] != plain["streams"][i]]
+    launches = mixed["launches"] + plain["launches"]
+    checks, merged_params = {}, {}
+    for name, w in tenants.items():
+        merged_params[name] = merge = lora.merge_adapter(params, w)
+        ids = [i for i, r in enumerate(reqs) if r["adapter"] == name]
+        mst = [dataclasses.replace(s, params=p) for s, p in zip(stages,
+                                                                merge)]
+        solo = _adapter_drain(mst, cfg, [dict(reqs[i], adapter=None)
+                                         for i in ids])
+        launches += solo["launches"]
+        for i, want in zip(ids, solo["streams"]):
+            checks[i] = _against_merged(params, merge, cfg, reqs[i],
+                                        mixed["streams"][i], want, w)
+    allowed = {i: c for i, c in checks.items()
+               if c["first_mismatch"] is not None and c["ok"]}
+    # the hot-swap: t0's weights change three ticks into the drain; the
+    # request submitted after it decodes the new weights, t0's requests
+    # already in flight keep the old row
+    new_w = _adapter_weights(cfg, 999)
+    t0_ids = [i for i, r in enumerate(reqs) if r["adapter"] == "t0"][:3]
+    swap_reqs = [reqs[i] for i in t0_ids] + [dict(reqs[1], seed=777)]
+    swapped = _adapter_drain(stages, cfg, swap_reqs, tenants,
+                             swap=(3, "t0", new_w))
+    launches += swapped["launches"]
+    new_merge = lora.merge_adapter(params, new_w)
+    new_solo = _adapter_drain(
+        [dataclasses.replace(s, params=p) for s, p in zip(stages,
+                                                          new_merge)],
+        cfg, [dict(swap_reqs[-1], adapter=None)])
+    launches += new_solo["launches"]
+    old_ok = swapped["streams"][:3] == [mixed["streams"][i] for i in t0_ids]
+    new_check = _against_merged(params, new_merge, cfg, swap_reqs[-1],
+                                swapped["streams"][-1],
+                                new_solo["streams"][0], new_w)
+    # the speculative verify with adapters: draft == target at SPEC_K
+    spec = _adapter_drain(stages, cfg, reqs, tenants, draft_stages=stages,
+                          draft_cfg=cfg, spec_k=SPEC_K)
+    launches += spec["launches"]
+    spec_same = [i for i in range(len(reqs))
+                 if spec["streams"][i] == mixed["streams"][i]]
+    tick = statistics.median(t["ms"] for t in mixed["rows"])
+    ptick = statistics.median(t["ms"] for t in plain["rows"])
+    bad = (_off_ticks(mixed["rows"], cfg.n_layers)
+           + _off_ticks(plain["rows"], cfg.n_layers))
+    spec_bad = _off_ticks(spec["rows"], cfg.n_layers)
+    rec.update(
+        rank=ADAPTER_RANK, tenants=list(tenants), requests=len(reqs),
+        base_equal=len(base_same), base=len(base_ids),
+        tenant_streams_moved=len(moved),
+        merged_checks={str(i): c for i, c in checks.items()},
+        merged_max_abs_err=max(c["max_abs_err"] for c in checks.values()),
+        allowed_mismatches={str(i): c for i, c in allowed.items()},
+        hot_swap=dict(old_equal=old_ok, new=new_check),
+        spec_equal=len(spec_same), spec_launches=spec["launches"],
+        spec_decode=spec["decode"], tick_ms_p50=tick, plain_tick_ms_p50=ptick,
+        adapter_swaps=mixed["summary"].get("adapter_swaps"),
+        resident_bytes=mixed["summary"].get("adapter_resident_bytes"),
+        launches=launches)
+    print(f"chip_smoke: adapters at full width: rank {ADAPTER_RANK}, "
+          f"tenants {list(tenants)} + base over {len(reqs)} requests; base "
+          f"streams equal to the adapter-free engine's "
+          f"{len(base_same)}/{len(base_ids)}; tenant streams off the base "
+          f"{len(moved)}/{len(reqs) - len(base_ids)}; against the merged "
+          f"engines: teacher-forced log-probs max abs err "
+          f"{rec['merged_max_abs_err']:.3e} (tol {ADAPTER_LOGIT_TOL}), "
+          f"{sum(c['first_mismatch'] is None for c in checks.values())}/"
+          f"{len(checks)} token-equal, allowed near-ties "
+          f"{[(i, c['first_mismatch'], c['top2_gap']) for i, c in allowed.items()]}"  # noqa: E501
+          f"; hot-swap: in-flight on the old row {old_ok}, the next "
+          f"admission {new_check}; spec_k {SPEC_K} verify equal to plain "
+          f"adapter decode {len(spec_same)}/{len(reqs)}; tick p50 "
+          f"{tick:.3f} ms with adapters, {ptick:.3f} ms without; "
+          f"{rec['adapter_swaps']} bank uploads, "
+          f"{rec['resident_bytes']} bank bytes")
+    check(len(base_ids) > 0 and len(base_same) == len(base_ids),
+          f"adapters: {len(base_same)}/{len(base_ids)} base streams equal "
+          f"to the adapter-free engine's")
+    check(len(moved) > 0, "adapters: no tenant stream left the base "
+                          "model's (a vacuous comparison)")
+    check(all(c["ok"] for c in checks.values()),
+          f"adapters: tenant streams against the merged engines: "
+          f"{[c for c in checks.values() if not c['ok']]}")
+    check(old_ok and new_check["ok"],
+          f"adapters: hot-swap old rows equal {old_ok}, new {new_check}")
+    check(len(spec_same) == len(reqs),
+          f"adapters: {len(spec_same)}/{len(reqs)} speculative streams "
+          f"equal to plain adapter decode")
+    check(mixed["decode"] > 0 and not bad,
+          f"adapters: K4 launches other than {cfg.n_layers} per decode "
+          f"call in ticks {bad[:8]}")
+    check(spec["decode"] > 0 and not spec_bad,
+          f"adapters: K4 launches other than {cfg.n_layers} per "
+          f"speculative tick in ticks {spec_bad[:8]}")
+    return launches
+
+
+def _host_adapter_scenarios(rec: dict) -> int:
+    """(c) offload-churn and hot-adapter-churn (both routing policies) on
+    SCENARIO_CFG through K4 at the virtual clock: the pins, K4 launched
+    ``n_layers`` times per decode call in every tick, greedy streams equal
+    to a rerun through the dense path. Returns K4's launches."""
+    import tempfile
+
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        GPTConfig,
+        make_gpt_stages,
+    )
+    cfg = GPTConfig(**SCENARIO_CFG)
+    stages = make_gpt_stages(0, cfg, 2, MAIN_DEVICE)[0]
+    launches = 0
+    for (name, over), pin in HOST_ADAPTER_PINS.items():
+        kw = dict(over)
+        label = name + "".join(f" {k}={v}" for k, v in over)
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-ha-") as d:
+            runs = {k: _scenario_run(name, stages, cfg, k,
+                                     os.path.join(d, k), **kw)
+                    for k in ("fused", "dense")}
+        r, handles, rows = runs["fused"]
+        _, dhandles, drows = runs["dense"]
+        k4 = sum(t["launches"] for t in rows)
+        decode = sum(t["decode"] for t in rows)
+        bad_ticks = _off_ticks(rows, cfg.n_layers)
+        greedy = [rid for rid, h in handles.items() if h.temperature == 0.0]
+        same = [rid for rid in greedy if rid in dhandles
+                and list(handles[rid].tokens) == list(dhandles[rid].tokens)]
+        launches += k4
+        got = dict(completed=r["completed"])
+        if "host_tier" in pin:
+            got.update(host_tier=r["host_tier"],
+                       prefix_hit_blocks=r.get("prefix_hit_blocks"))
+        else:
+            got.update(swaps=r["adapters"]["swaps"],
+                       hits=r["adapters"]["adapter_affinity_hits"])
+        rec[label] = dict(got, slo_ok=r["slo_ok"], launches=k4,
+                          decode_calls=decode, greedy=len(greedy),
+                          greedy_equal_dense=len(same),
+                          dense_launches=sum(t["launches"] for t in drows))
+        print(f"chip_smoke: scenario {label}: {got}, slo_ok {r['slo_ok']}; "
+              f"K4 launches {k4} = {cfg.n_layers} x {decode} decode calls "
+              f"({len(bad_ticks)} ticks off); greedy streams equal to the "
+              f"dense run's {len(same)}/{len(greedy)}")
+        check(got == pin and r["slo_ok"],
+              f"scenario {label}: {got} (slo_ok {r['slo_ok']}) != {pin}")
+        check(decode > 0 and not bad_ticks,
+              f"scenario {label}: K4 launches {k4} over {decode} decode "
+              f"calls; ticks {bad_ticks[:8]} off")
+        check(rec[label]["dense_launches"] == 0 and len(greedy) >= 4
+              and len(same) == len(greedy),
+              f"scenario {label}: {len(same)}/{len(greedy)} greedy streams "
+              f"equal to the dense run's")
+    return launches
+
+
+def phase_host_tier_adapters(stages, cfg, serve: dict,
+                             record: dict) -> int:
+    """Phase 11 (module docstring): the host offload tier and LoRA
+    adapters on the card. Returns K4's launches over (a)-(c)."""
+    rec: dict = {}
+    record["host_tier_adapters"] = rec
+    t0 = time.perf_counter()
+    launches = _host_tier_full_width(stages, cfg, serve,
+                                     rec.setdefault("host_tier", {}))
+    launches += _adapters_full_width(stages, cfg,
+                                     rec.setdefault("adapters", {}))
+    launches += _host_adapter_scenarios(rec.setdefault("scenarios", {}))
+    # (d) the CLI
+    tier = _cli(["--model", "gpt", "--serve-sim", "8", "--serve-replicas",
+                 "1", "--serve-host-blocks", "8"])
+    adp = _cli(["--model", "gpt", "--serve-sim", "8", "--serve-adapters",
+                "2"])
+    print(f"chip_smoke: CLI --serve-sim 8 --serve-replicas 1 "
+          f"--serve-host-blocks 8: {[ln for ln in tier if 'host' in ln]}; "
+          f"--serve-adapters 2: {[ln for ln in adp if 'adapter' in ln]}")
+    check(any(ln.startswith("| serve: 8/8 requests completed")
+              for ln in tier)
+          and any(ln.startswith("| serve: host tier ") for ln in tier),
+          f"the CLI's host-tier run printed {tier}")
+    check(any(ln.startswith("| serve: 8/8 requests completed")
+              for ln in adp)
+          and any(ln.startswith("| serve: adapters — ") for ln in adp),
+          f"the CLI's adapter run printed {adp}")
+    rec["cli"] = tier + adp
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"chip_smoke: phase 11 took {rec['seconds']:.1f} s")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3406,6 +3957,7 @@ def main() -> int:
                                             plain_handles, record)
         fleet_launches = phase_fleet(stages, cfg, serve, plain_handles,
                                      record)
+        tier_launches = phase_host_tier_adapters(stages, cfg, serve, record)
         del stages
         train = phase_train("gpt_bf16", TRAIN_ROWS["gpt_bf16"], record)
         phase_train("gpt", TRAIN_ROWS["gpt"], record)
@@ -3424,9 +3976,10 @@ def main() -> int:
         "replaces": "simple_distributed_machine_learning_tpu/ops/"
                     "paged_attention.py:67",
         # phase 3's decode ticks, phase 3b's speculative verify steps,
-        # phase 8's scenarios and drills and phase 9's fleet runs
+        # phase 8's scenarios and drills, phase 9's fleet runs and phase
+        # 11's host-tier and adapter runs
         "launches": (serve["launches"] + spec["launches"] + fault_launches
-                     + fleet_launches),
+                     + fleet_launches + tier_launches),
         "max_abs_err": max(v["max_abs_err"] for v in variants),
         "ms": main_v["ms"],
         "plain_ms": main_v["plain_ms"],

@@ -21,8 +21,12 @@ post-mortem bundles. ``--serve-replicas N`` serves through a fleet of N
 supervised replicas (``--serve-route``, ``--serve-autoscale MIN,MAX``,
 ``--serve-prefill-replicas`` for disaggregated prefill/decode), and
 ``--serve-trace`` records every request's timeline next to the telemetry.
+``--serve-host-blocks N`` (with ``--serve-prefetch-ticks T``) puts a host
+offload tier of N blocks behind every paged pool, and ``--serve-adapters
+N`` (rank ``--serve-adapter-rank``) serves N LoRA tenants over the shared
+base weights.
 SIGTERM/SIGINT during ``--serve-sim`` stop admission and drain what is in
-flight. ``--scenario NAME`` runs one of the eleven SLO scenarios on the
+flight. ``--scenario NAME`` runs one of the thirteen SLO scenarios on the
 virtual clock (``--scenario list`` names them). ``--sentinel`` checks
 every step's loss and gradient norm on the host and absorbs a numeric
 fault by rollback and quarantine; ``--chaos SPEC --checkpoint-dir D``
@@ -34,9 +38,7 @@ it).
 One flag is the port's own: ``--device`` (default CUDA; the run raises
 without it unless ``--device cpu`` asks for the CPU). Every other flag of
 the JAX parser is accepted; a flag whose path is not ported exits, when
-set, with one line naming its ROADMAP item (the host-tier and adapter
-flags and scenarios, training telemetry and profiling, the linter, and
-every parallel axis: ``--stages`` above 1, ``--chaos-stages``,
+set, with one line naming its ROADMAP item (training telemetry and profiling, the linter, and every parallel axis: ``--stages`` above 1, ``--chaos-stages``,
 ``--dp/--tp/--sp/--ep/--experts``, ``--world_size`` above 1). ``--microbatches`` is accepted and does not split the batch, as
 on the JAX package's one-device mesh.
 """
@@ -203,13 +205,36 @@ def build_parser() -> argparse.ArgumentParser:
                         "decode pool; every request hands off at "
                         "end-of-prefill by the journal snap/adopt move. "
                         "Exclusive with --serve-autoscale")
-    for flag, typ, default in (
-            ('--serve-tp', int, 1),
-            ('--serve-host-blocks', int, 0),
-            ('--serve-prefetch-ticks', int, 1),
-            ('--serve-adapters', int, 0), ('--serve-adapter-rank', int, 4)):
-        g.add_argument(flag, type=typ, default=default,
-                       help="serving (ROADMAP items 5-6)")
+    g.add_argument('--serve-tp', type=int, default=1,
+                   help="tensor-parallel serving (ROADMAP item 6)")
+    g.add_argument('--serve-host-blocks', type=int, default=0, metavar='N',
+                   help="with --serve-sim: host-RAM offload tier of N "
+                        "blocks per replica behind the paged KV pool — "
+                        "LRU-evicted prefix blocks demote to host instead "
+                        "of dying, and a router affinity hit on a "
+                        "host-resident prefix starts the prefetch upload "
+                        "at routing time (serve/slots.py)")
+    g.add_argument('--serve-prefetch-ticks', type=int, default=1,
+                   metavar='T',
+                   help="with --serve-host-blocks: engine ticks one "
+                        "host->device prefetch upload takes (boarding "
+                        "blocks until the upload lands)")
+    g.add_argument('--serve-adapters', type=int, default=0, metavar='N',
+                   help="with --serve-sim: multi-tenant LoRA serving "
+                        "(serve/adapters.py) — register N per-tenant "
+                        "low-rank adapters (tenant-0..tenant-N-1) over "
+                        "the shared base weights and split arrivals "
+                        "evenly across them; each decode tick gathers "
+                        "per-slot adapter rows from one device-resident "
+                        "bank. With --serve-replicas the router prefers a "
+                        "replica where the request's adapter is already "
+                        "resident (adapter-affinity)")
+    g.add_argument('--serve-adapter-rank', type=int, default=4,
+                   metavar='R',
+                   help="with --serve-adapters: the low-rank dimension r "
+                        "of every adapter's A/B factors (bank memory "
+                        "scales linearly with r; models/lora.py "
+                        "bank_bytes)")
     g.add_argument('--serve-trace', action='store_true',
                    help="with --serve-sim/--scenario and --telemetry-dir: "
                         "request-scoped tracing (serve/tracing.py) — a "
@@ -293,12 +318,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 # flags whose paths are not ported: set to anything but the default, each
-# exits naming its ROADMAP item. The serve flags not named here run: the
-# plain --serve-sim path, the supervisor's, the fleet's and tracing
-_UNPORTED = ({k: _roadmap.SERVE_EXTENSIONS for k in (
-                 "serve_host_blocks", "serve_prefetch_ticks",
-                 "serve_adapters", "serve_adapter_rank")}
-             | {"lint": _roadmap.ANALYSIS, "lint_only": _roadmap.ANALYSIS}
+# exits naming its ROADMAP item. The serve flags not named here run
+_UNPORTED = ({"lint": _roadmap.ANALYSIS, "lint_only": _roadmap.ANALYSIS}
              | {k: _roadmap.PARALLEL_AXES for k in (
                  "world_size", "dp", "tp", "sp", "ep", "experts", "overlap",
                  "remat", "telemetry_dir",
@@ -634,6 +655,18 @@ def _check_serve_args(args) -> None:
     if args.serve_route != "affinity" and not args.serve_replicas:
         raise SystemExit("--serve-route needs --serve-replicas (a single "
                          "engine has nothing to route between)")
+    if args.serve_host_blocks < 0:
+        raise SystemExit(f"--serve-host-blocks must be >= 0 (0 = no host "
+                         f"tier), got {args.serve_host_blocks}")
+    if args.serve_adapters < 0:
+        raise SystemExit(f"--serve-adapters must be >= 0 (0 = base model "
+                         f"only), got {args.serve_adapters}")
+    if args.serve_adapters and args.serve_adapter_rank < 1:
+        raise SystemExit(f"--serve-adapter-rank must be >= 1, got "
+                         f"{args.serve_adapter_rank}")
+    if args.serve_prefetch_ticks < 1:
+        raise SystemExit(f"--serve-prefetch-ticks must be >= 1, got "
+                         f"{args.serve_prefetch_ticks}")
 
 
 def _fleet_autoscale(args):
@@ -824,12 +857,15 @@ def _run_serve(args, device) -> None:
     streams are equal either way. With --serve-replicas the trace runs
     through a fleet of supervised replicas; otherwise, with --serve-chaos
     or --serve-deadline-ms, behind one serve supervisor. --serve-trace
-    records the request timelines. Exits 1 unless every submitted request completed or was structurally
-    shed."""
+    records the request timelines; --serve-host-blocks adds the host
+    offload tier and --serve-adapters N serves N LoRA tenants. Exits 1
+    unless every submitted request completed or was structurally shed."""
     import dataclasses
     import os
     import signal
     import tempfile
+
+    import torch
 
     from simple_distributed_machine_learning_tpu_torch.models.gpt import (
         GPTConfig,
@@ -841,13 +877,16 @@ def _run_serve(args, device) -> None:
     from simple_distributed_machine_learning_tpu_torch.resilience import (
         faults,
     )
+    from simple_distributed_machine_learning_tpu_torch.models import lora
     from simple_distributed_machine_learning_tpu_torch.serve import (
+        AdapterStore,
         InferenceEngine,
         ServeFleet,
         ServeMetrics,
         ServeSupervisor,
         ServeTrace,
         SimConfig,
+        TrafficClass,
         engine_factory,
         simulate,
     )
@@ -903,8 +942,19 @@ def _run_serve(args, device) -> None:
         params=params, n_slots=args.serve_slots,
         block_size=args.serve_block_size,
         prefill_chunk=args.serve_prefill_chunk or None,
+        host_cache_blocks=args.serve_host_blocks,
+        prefetch_ticks=args.serve_prefetch_ticks,
         attn_kernel="fused", metrics=metrics, draft_stages=draft_stages,
         draft_cfg=draft_cfg, spec_k=args.serve_spec_k, device=device)
+    if args.serve_adapters:
+        if fleet_mode or supervised:
+            # the engine factory builds (and rebuilds, after a crash) each
+            # engine's AdapterStore over one shared host dict
+            engine_kw["adapter_rank"] = args.serve_adapter_rank
+        else:
+            engine_kw["adapters"] = AdapterStore(
+                cfg, args.serve_adapter_rank, args.serve_slots,
+                device=device)
     tmpdir = None
     if fleet_mode:
         if args.telemetry_dir:
@@ -954,6 +1004,16 @@ def _run_serve(args, device) -> None:
                  if args.serve_deadline_ms else "") + ")")
     else:
         engine = InferenceEngine(stages, cfg, trace=trace, **engine_kw)
+    if args.serve_adapters:
+        # seeded per-tenant weights, registered on the serving target
+        # (engine, supervisor or fleet: one call shape); bank rows upload
+        # at each replica's admission ticks
+        for k in range(args.serve_adapters):
+            engine.register_adapter(f"tenant-{k}", lora.init_lora_adapter(
+                torch.Generator().manual_seed(fold_in(args.seed, 7000 + k)),
+                cfg, args.serve_adapter_rank, device=device))
+        print(f"| serve: {args.serve_adapters} LoRA tenant(s) rank "
+              f"{args.serve_adapter_rank} over shared base weights")
     max_new = min(args.serve_max_new, cfg.seq_len - longest)
     if max_new < args.serve_max_new:
         print(f"| serve: --serve-max-new {args.serve_max_new} clamped to "
@@ -962,7 +1022,13 @@ def _run_serve(args, device) -> None:
     sim = SimConfig(n_requests=args.serve_sim, rate=args.serve_rate,
                     seed=args.seed, prompt_lens=GPT_SERVE_PROMPTS,
                     max_new_tokens=max_new,
-                    shared_prefix_len=args.serve_shared_prefix)
+                    shared_prefix_len=args.serve_shared_prefix,
+                    # arrivals split evenly across the tenants, each
+                    # request decoding under its own adapter
+                    classes=tuple(
+                        TrafficClass(name=f"tenant-{k}",
+                                     adapter=f"tenant-{k}")
+                        for k in range(args.serve_adapters)))
     # graceful shutdown: SIGTERM/SIGINT stop admission, drain in-flight
     # requests, flush metrics and journal, exit 0
     stop = {"sig": None}
@@ -1014,6 +1080,14 @@ def _run_serve(args, device) -> None:
                       f"{p}[{b['replicas']} replica(s), queue "
                       f"{b['queue_depth']}, {b['slots_active']} active]"
                       for p, b in sorted((s.get("pools") or {}).items())))
+        if args.serve_host_blocks:
+            print(f"| serve: host tier {s.get('host_blocks', 0)} block(s) "
+                  f"resident ({s.get('host_bytes_resident', 0)} bytes), "
+                  f"{s.get('host_demotes', 0)} demote(s), "
+                  f"{s.get('host_promotes', 0)} promote(s), prefetch "
+                  f"{s.get('host_prefetch_hits', 0)} hit(s)/"
+                  f"{s.get('host_prefetch_misses', 0)} miss(es), "
+                  f"{s.get('host_transfer_bytes', 0)} bytes transferred")
     if supervised:
         print(f"| serve: supervisor {engine.state}, "
               f"{s.get('restarts', 0)} restart(s), "
@@ -1024,6 +1098,13 @@ def _run_serve(args, device) -> None:
             print(f"| serve: {len(engine.postmortems)} post-mortem "
                   f"bundle(s): "
                   f"{[os.path.basename(p) for p in engine.postmortems]}")
+    if args.serve_adapters:
+        print(f"| serve: adapters — "
+              f"{s.get('adapter_resident_bytes', 0)} bank bytes "
+              f"resident, {s.get('adapter_swaps', 0)} bank upload(s), "
+              f"{s.get('route_adapter_affinity_hits', 0)} "
+              f"adapter-affinity hit(s), per-tenant completed "
+              f"{s.get('per_adapter_completed', {})}")
     if trace is not None:
         print(f"| serve: trace {trace.n_events} events -> "
               f"{trace.trace_file} + {trace.timeline_file}")
@@ -1072,17 +1153,12 @@ def _run_scenario(args, device) -> None:
     )
     from simple_distributed_machine_learning_tpu_torch.resilience.scenarios import (  # noqa: E501
         SCENARIOS,
-        UNPORTED_SCENARIOS,
         run_scenario,
     )
     if args.scenario == "list":
         for sc in SCENARIOS.values():
             print(f"| {sc.name}: {sc.description}")
         return
-    if args.scenario in UNPORTED_SCENARIOS:
-        raise SystemExit(str(_roadmap.not_ported(
-            f"--scenario {args.scenario}",
-            UNPORTED_SCENARIOS[args.scenario])))
     if args.scenario not in SCENARIOS:
         raise SystemExit(
             f"unknown --scenario {args.scenario!r}; available: "

@@ -51,6 +51,14 @@ def params_from_numpy(params_list, device=None) -> list[nn.Module]:
     return [_stage_module(p).to(dev) for p in params_list]
 
 
+def adapter_from_numpy(adapter: dict, device=None) -> dict:
+    """One LoRA adapter's numpy factors (``{"aq", "bq", "av", "bv"}``, the
+    JAX ``models/lora.py`` tree after ``np.asarray``) -> f32 tensors on
+    ``device`` (None = ``"cuda"``), ready for ``register_adapter``."""
+    dev = resolve_device(device)
+    return {k: _to_torch(v).to(dev) for k, v in adapter.items()}
+
+
 def params_to_numpy(params_list) -> list:
     """The inverse: the port's per-stage modules -> numpy trees with the
     JAX stage trees' structure (what ``params_from_numpy`` takes)."""

@@ -1,5 +1,6 @@
 """Models (port of ``models/``): the GPT (its training forward and its
-serving decode programs), the MLP and LeNet."""
+serving decode programs), its LoRA adapters (``lora``), the MLP and
+LeNet."""
 
 from simple_distributed_machine_learning_tpu_torch.models.gpt import (  # noqa: F401
     GPT,

@@ -36,6 +36,12 @@ JAX package's ``jit`` builders without ``jit``: PyTorch runs eagerly.
   runs the CUDA kernel with ``spec_k`` queries per slot) and
   :func:`make_paged_spec_tick`, the two composed.
 
+Every decode-path builder takes ``adapters=True`` for multi-tenant LoRA
+serving: the program then takes a trailing ``(bank, aids)`` — the stacked
+adapter bank (``models/lora.py``) and each slot's row in it — and adds
+each slot's low-rank delta to its q and v (:func:`_dense_qkv`); row 0 is
+all zeros, so a base request's stream is the adapter-free one.
+
 The pool tensors are updated IN PLACE (the JAX programs donate them); the
 programs return them anyway, so the engine's call shape is the JAX one.
 
@@ -62,6 +68,10 @@ from simple_distributed_machine_learning_tpu_torch._device import (
     resolve_device,
 )
 from simple_distributed_machine_learning_tpu_torch._tree import Tree
+from simple_distributed_machine_learning_tpu_torch.models.lora import (
+    BANK_KEYS,
+    lora_delta,
+)
 from simple_distributed_machine_learning_tpu_torch.ops import random as _rng
 from simple_distributed_machine_learning_tpu_torch.ops.attention import (
     _merge_heads,
@@ -372,12 +382,56 @@ def _block_train(bp, h, cfg: GPTConfig, gen, deterministic: bool):
 
 # -- shared block math -------------------------------------------------------
 
-def _dense_qkv(bp, h, n_heads):
-    """ln1 + QKV projections of one dense block, split to [B, H, T, dh]."""
+def _dense_qkv(bp, h, n_heads, ab=None):
+    """ln1 + QKV projections of one dense block, split to [B, H, T, dh].
+
+    ``ab``: this layer's LoRA factors ``(aq, bq, av, bv)`` for the
+    serving programs' merge-free per-request delta, ``q += (hn @ aq) @
+    bq`` and the same for v (k unadapted), unbatched ``[d, r]`` in a
+    one-request prefill or ``[S, d, r]`` in the batched ticks
+    (``lora.lora_delta``). The base row's zero factors add an exact 0."""
     hn = layer_norm(bp["ln1"], h)
-    return (_split_heads(hn @ bp["attn"]["wq"], n_heads),
+    q = hn @ bp["attn"]["wq"]
+    v = hn @ bp["attn"]["wv"]
+    if ab is not None:
+        aq, bq, av, bv = ab
+        q = q + lora_delta(hn, aq, bq)
+        v = v + lora_delta(hn, av, bv)
+    return (_split_heads(q, n_heads),
             _split_heads(hn @ bp["attn"]["wk"], n_heads),
-            _split_heads(hn @ bp["attn"]["wv"], n_heads))
+            _split_heads(v, n_heads))
+
+
+def _adapter_layers(bank, aid):
+    """Per-request adapter slices for the serving programs: gather row(s)
+    ``aid`` (an int for a one-request prefill, a ``[S]`` index tensor for
+    the batched ticks) of the stacked bank ``{"aq": [N, L, d, r], "bq":
+    [N, L, r, d], ...}`` once per call and return ``at(li) -> (aq, bq,
+    av, bv)`` for :func:`_dense_qkv`. The gather is data: one program
+    serves any adapter mix, and a bank-row write needs no rebuild."""
+    sel = {k: bank[k][aid] for k in BANK_KEYS}
+
+    def at(li):
+        return tuple(sel[k][..., li, :, :] for k in BANK_KEYS)
+
+    return at
+
+
+def _bank_lookup(adapters: bool, bank, aids, dev, caller: str):
+    """The per-layer lookup of a builder's trailing ``(bank, aids)``
+    arguments, or None for a build without adapters. ``aids`` (an int or
+    a host array) becomes one index tensor per call."""
+    if not adapters:
+        if bank is not None or aids is not None:
+            raise ValueError(f"{caller} was built without adapters: drop "
+                             f"the (bank, aids) arguments")
+        return None
+    if bank is None or aids is None:
+        raise ValueError(f"{caller} was built with adapters=True: pass the "
+                         f"adapter bank and the row indices")
+    if not isinstance(aids, int):
+        aids = _on(aids, dev, torch.int64)
+    return _adapter_layers(bank, aids)
 
 
 def _dense_attn_tail(bp, h, a, drop=None):
@@ -697,24 +751,25 @@ def make_slot_prefill(stages, cfg: GPTConfig, max_len: int,
     decoder's math, writes each layer's K/V into pool row ``slot`` at
     positions ``[0, T0)`` and samples the first token. ``kc``/``vc`` are
     ``[L, n_slots, H, max_len, dh]`` f32 or bf16 tensors, updated in
-    place. The speculative engine prefills its draft pool with it."""
+    place. The speculative engine prefills its draft pool with it.
+    ``adapters=True`` appends ``(bank, aid)``: the adapter bank
+    (``models/lora.py``) and the request's row in it."""
     _validate_slot_build(stages, cfg, max_len, "make_slot_prefill",
                          cache_dtype)
     if mesh is not None:
         raise _roadmap.not_ported("make_slot_prefill: tensor-parallel "
                                   "serving (mesh)", _roadmap.PARALLEL_AXES)
-    if adapters:
-        raise _roadmap.not_ported("make_slot_prefill: LoRA adapters",
-                                  _roadmap.SERVE_EXTENSIONS)
     dev = resolve_device(device)
 
     @torch.no_grad()
     def prefill(params, kc, vc, prompt, slot, key_data, temperature, top_k,
-                top_p):
+                top_p, bank=None, aid=None):
         embed, blocks, head = _merged_stage_trees(params)
+        at = _bank_lookup(adapters, bank, None if aid is None else int(aid),
+                          dev, "make_slot_prefill")
         kc, vc, row = _slot_prefill_fwd(blocks, embed, head, kc, vc,
                                         _on(prompt, dev, torch.int64),
-                                        int(slot), cfg.n_heads)
+                                        int(slot), cfg.n_heads, at=at)
         tok, kd = _sample_dyn(row[None],
                               _on(key_data, dev, torch.int64)[None],
                               *_sampling_tensors(1, temperature, top_k,
@@ -724,25 +779,28 @@ def make_slot_prefill(stages, cfg: GPTConfig, max_len: int,
     return prefill
 
 
-def _slot_prefill_fwd(blocks, embed, head, kc, vc, prompt, slot, H):
+def _slot_prefill_fwd(blocks, embed, head, kc, vc, prompt, slot, H,
+                      at=None):
     """One request's whole-prompt prefill into pool row ``slot``; returns
-    ``(kc, vc, row)``, the last position's log-probs [V]."""
+    ``(kc, vc, row)``, the last position's log-probs [V]. ``at``: the
+    per-layer adapter lookup (:func:`_adapter_layers`), or None."""
     t0 = prompt.shape[1]
     h = embedding_lookup(embed["tok"], prompt) + embed["pos"][:t0]
     for li, bp in enumerate(blocks):
-        q, k, v = _dense_qkv(bp, h, H)                     # [1, H, T0, dh]
+        q, k, v = _dense_qkv(bp, h, H,                     # [1, H, T0, dh]
+                             None if at is None else at(li))
         kc[li, slot, :, :t0] = k[0].to(kc.dtype)
         vc[li, slot, :, :t0] = v[0].to(vc.dtype)
         h = _dense_attn_tail(bp, h, causal_attention_core(q, k, v))
     return kc, vc, _head_logprobs(head, h[:, -1])[0]
 
 
-def _dense_block_step_slots(bp, h, li, kc, vc, pos, n_heads):
+def _dense_block_step_slots(bp, h, li, kc, vc, pos, n_heads, ab=None):
     """One block on one token per slot (``h`` [S, 1, d]) against pool
     layer ``li``: each slot writes its K/V at its own position ``pos``
     [S] in place and attends ``[0, pos]``, with the solo decoder's
     per-slot math, so a slot's output depends on its own row only."""
-    q, knew, vnew = _dense_qkv(bp, h, n_heads)            # [S, H, 1, dh]
+    q, knew, vnew = _dense_qkv(bp, h, n_heads, ab)        # [S, H, 1, dh]
     dh = q.shape[-1]
     rows = torch.arange(h.shape[0], device=h.device)
     kl, vl = kc[li], vc[li]                               # [S, H, ml, dh]
@@ -757,14 +815,16 @@ def _dense_block_step_slots(bp, h, li, kc, vc, pos, n_heads):
     return _dense_attn_tail(bp, h, a)
 
 
-def _slot_decode_fwd(blocks, embed, head, kc, vc, toks, pos, H):
+def _slot_decode_fwd(blocks, embed, head, kc, vc, toks, pos, H, at=None):
     """The batched one-token-per-slot step's forward over a dense pool:
     ``toks``/``pos`` [S] int64 -> ``(kc, vc, rows)``, log-probs [S, V].
-    The speculative draft's propose loop runs it ``spec_k`` times."""
+    The speculative draft's propose loop runs it ``spec_k`` times. ``at``:
+    the per-layer adapter lookup over ``[S]`` rows, or None."""
     h = (embedding_lookup(embed["tok"], toks[:, None])
          + embed["pos"][pos][:, None])                      # [S, 1, d]
     for li, bp in enumerate(blocks):
-        h = _dense_block_step_slots(bp, h, li, kc, vc, pos, H)
+        h = _dense_block_step_slots(bp, h, li, kc, vc, pos, H,
+                                    None if at is None else at(li))
     return kc, vc, _head_logprobs(head, h[:, 0])
 
 
@@ -780,23 +840,23 @@ def make_slot_decode_step(stages, cfg: GPTConfig, max_len: int,
     masked cache row and samples with its own params and key stream.
     Inactive slots compute garbage the engine discards; their stale
     writes are invisible by construction (``serve/slots.py``). The
-    degraded rebuild of the serve supervisor decodes with it."""
+    degraded rebuild of the serve supervisor decodes with it, adapters
+    included: ``adapters=True`` appends ``(bank, aids [S])``."""
     _validate_slot_build(stages, cfg, max_len, "make_slot_decode_step",
                          cache_dtype)
     if mesh is not None:
         raise _roadmap.not_ported("make_slot_decode_step: tensor-parallel "
                                   "serving (mesh)", _roadmap.PARALLEL_AXES)
-    if adapters:
-        raise _roadmap.not_ported("make_slot_decode_step: LoRA adapters",
-                                  _roadmap.SERVE_EXTENSIONS)
     dev = resolve_device(device)
 
     @torch.no_grad()
-    def step(params, kc, vc, toks, pos, key_data, temps, top_ks, top_ps):
+    def step(params, kc, vc, toks, pos, key_data, temps, top_ks, top_ps,
+             bank=None, aids=None):
         embed, blocks, head = _merged_stage_trees(params)
+        at = _bank_lookup(adapters, bank, aids, dev, "make_slot_decode_step")
         kc, vc, rows = _slot_decode_fwd(
             blocks, embed, head, kc, vc, _on(toks, dev, torch.int64),
-            _on(pos, dev, torch.int64), cfg.n_heads)
+            _on(pos, dev, torch.int64), cfg.n_heads, at=at)
         toks2, kd2 = _sample_dyn(rows, _on(key_data, dev, torch.int64),
                                  *_sampling_tensors(rows.shape[0], temps,
                                                     top_ks, top_ps, dev))
@@ -809,14 +869,11 @@ def make_slot_decode_step(stages, cfg: GPTConfig, max_len: int,
 
 def _validate_paged_build(stages, cfg: GPTConfig, max_len: int,
                           block_size: int, caller: str, cache_dtype=None,
-                          mesh=None, adapters: bool = False) -> None:
+                          mesh=None) -> None:
     _check_ported(cfg, caller)
     if mesh is not None:
         raise _roadmap.not_ported(f"{caller}: tensor-parallel serving (mesh)",
                                   _roadmap.PARALLEL_AXES)
-    if adapters:
-        raise _roadmap.not_ported(f"{caller}: LoRA adapters",
-                                  _roadmap.SERVE_EXTENSIONS)
     _check_cache_quantization(cache_dtype, caller, paged=True)
     if not 2 <= max_len <= cfg.seq_len:
         raise ValueError(
@@ -897,19 +954,22 @@ def make_paged_prefill_chunk(stages, cfg: GPTConfig, max_len: int,
     block row masked to ``<= position`` — earlier chunks, shared prefix
     blocks and the chunk's own rows alike. The last position's row is
     sampled; the engine discards token and key for non-final chunks.
-    ``kc``/``vc`` are updated in place."""
+    ``kc``/``vc`` are updated in place. ``adapters=True`` appends
+    ``(bank, aid)``, the request's adapter row."""
     _validate_paged_build(stages, cfg, max_len, block_size,
-                          "make_paged_prefill_chunk", cache_dtype, mesh,
-                          adapters)
+                          "make_paged_prefill_chunk", cache_dtype, mesh)
     dev = resolve_device(device)
 
     @torch.no_grad()
     def chunk(params, kc, vc, tokens, p0, table, key_data, temperature,
-              top_k, top_p):
+              top_k, top_p, bank=None, aid=None):
         embed, blocks, head = _merged_stage_trees(params)
+        at = _bank_lookup(adapters, bank, None if aid is None else int(aid),
+                          dev, "make_paged_prefill_chunk")
         kc, vc, row = _paged_chunk_fwd(
             blocks, embed, head, kc, vc, _on(tokens, dev, torch.int64),
-            int(p0), _on(table, dev, torch.int64), cfg.n_heads, block_size)
+            int(p0), _on(table, dev, torch.int64), cfg.n_heads, block_size,
+            at=at)
         tok, kd = _sample_dyn(row[None],
                               _on(key_data, dev, torch.int64)[None],
                               *_sampling_tensors(1, temperature, top_k,
@@ -919,10 +979,12 @@ def make_paged_prefill_chunk(stages, cfg: GPTConfig, max_len: int,
     return chunk
 
 
-def _paged_chunk_fwd(blocks, embed, head, kc, vc, tokens, p0, table, H, bs):
+def _paged_chunk_fwd(blocks, embed, head, kc, vc, tokens, p0, table, H, bs,
+                     at=None):
     """One prompt chunk's scatter + block-gather attention: ``tokens``
-    [1, c] at positions ``[p0, p0+c)``, ``table`` [NB] int64. Returns
-    ``(kc, vc, row)`` — the last position's log-probs [V]."""
+    [1, c] at positions ``[p0, p0+c)``, ``table`` [NB] int64, ``at`` the
+    per-layer adapter lookup or None. Returns ``(kc, vc, row)`` — the last
+    position's log-probs [V]."""
     dev = tokens.device
     c = tokens.shape[1]
     dh = embed["tok"].shape[1] // H
@@ -934,7 +996,8 @@ def _paged_chunk_fwd(blocks, embed, head, kc, vc, tokens, p0, table, H, bs):
     live = (torch.arange(span, device=dev)[None, :]
             <= idx[:, None])[None, None]
     for li, bp in enumerate(blocks):
-        q, k, v = _dense_qkv(bp, h, H)                     # [1, H, c, dh]
+        q, k, v = _dense_qkv(bp, h, H,                     # [1, H, c, dh]
+                             None if at is None else at(li))
         _paged_scatter(kc, li, phys, off, k[0].transpose(0, 1))
         _paged_scatter(vc, li, phys, off, v[0].transpose(0, 1))
         krow = _paged_gather(kc, li, table).float()        # [H, span, dh]
@@ -965,21 +1028,24 @@ def make_paged_decode_step(stages, cfg: GPTConfig, max_len: int,
     ``kernel="fused"`` attends through the CUDA paged-attention kernel
     (one read of the resident K/V per layer); ``"dense"`` gathers each
     slot's table span and runs masked softmax einsums (gather, then a
-    second read). Quantised pools dequantise inside either path."""
+    second read). Quantised pools dequantise inside either path.
+    ``adapters=True`` appends ``(bank, aids [S])``: each slot's q and v
+    take its adapter row's delta before either attention path."""
     _validate_paged_build(stages, cfg, max_len, block_size,
-                          "make_paged_decode_step", cache_dtype, mesh,
-                          adapters)
+                          "make_paged_decode_step", cache_dtype, mesh)
     _check_attn_kernel(kernel, "make_paged_decode_step")
     dev = resolve_device(device)
 
     @torch.no_grad()
     def step(params, kc, vc, toks, pos, tables, key_data, temps, top_ks,
-             top_ps):
+             top_ps, bank=None, aids=None):
         embed, blocks, head = _merged_stage_trees(params)
+        at = _bank_lookup(adapters, bank, aids, dev,
+                          "make_paged_decode_step")
         kc, vc, rows = _paged_decode_fwd(
             blocks, embed, head, kc, vc, _on(toks, dev, torch.int64),
             _on(pos, dev, torch.int64), _on(tables, dev, torch.int64),
-            cfg.n_heads, block_size, kernel)
+            cfg.n_heads, block_size, kernel, at=at)
         toks2, kd2 = _sample_dyn(rows, _on(key_data, dev, torch.int64),
                                  *_sampling_tensors(rows.shape[0], temps,
                                                     top_ks, top_ps, dev))
@@ -989,7 +1055,7 @@ def make_paged_decode_step(stages, cfg: GPTConfig, max_len: int,
 
 
 def _paged_decode_fwd(blocks, embed, head, kc, vc, toks, pos, tables, H, bs,
-                      kernel="dense"):
+                      kernel="dense", at=None):
     """The batched one-token-per-slot step's forward: ``toks``/``pos``
     [S] and ``tables`` [S, NB] int64. Scatter (and quantise) happens
     before either attention path reads, so the new token's row is visible
@@ -1001,7 +1067,8 @@ def _paged_decode_fwd(blocks, embed, head, kc, vc, toks, pos, tables, H, bs,
     tables_k = tables.to(torch.int32)
     qpos_k = pos.to(torch.int32)[:, None].contiguous()
     for li, bp in enumerate(blocks):
-        q, knew, vnew = _dense_qkv(bp, h, H)               # [S, H, 1, dh]
+        q, knew, vnew = _dense_qkv(bp, h, H,               # [S, H, 1, dh]
+                                   None if at is None else at(li))
         _paged_scatter(kc, li, phys, off, knew[:, :, 0, :])
         _paged_scatter(vc, li, phys, off, vnew[:, :, 0, :])
         a = _paged_attend(kc, vc, li, q, tables_k, qpos_k, bs, toks.device,
@@ -1204,7 +1271,7 @@ def _paged_verify_routing(pos, valid_n, tables, K, bs, ml):
 
 
 def _paged_verify_fwd(blocks, embed, head, kc, vc, xs, qpos, wphys, woff,
-                      tables, H, bs, kernel="dense"):
+                      tables, H, bs, kernel="dense", at=None):
     """The K-tokens-per-slot verify forward over the paged pool: each
     position's K/V lands at ``(wphys, woff)`` before attention reads it;
     attention runs over the slot's table span with the ``[S, K]`` ``qpos``
@@ -1216,7 +1283,8 @@ def _paged_verify_fwd(blocks, embed, head, kc, vc, xs, qpos, wphys, woff,
     tables_k = tables.to(torch.int32)
     qpos_k = qpos.to(torch.int32).contiguous()
     for li, bp in enumerate(blocks):
-        q, knew, vnew = _dense_qkv(bp, h, H)               # [S, H, K, dh]
+        q, knew, vnew = _dense_qkv(bp, h, H,               # [S, H, K, dh]
+                                   None if at is None else at(li))
         _paged_scatter(kc, li, wphys, woff, knew.transpose(1, 2))
         _paged_scatter(vc, li, wphys, woff, vnew.transpose(1, 2))
         a = _paged_attend(kc, vc, li, q, tables_k, qpos_k, bs, xs.device,
@@ -1241,10 +1309,11 @@ def make_paged_verify_step(stages, cfg: GPTConfig, max_len: int,
     bounds emission and which positions write real K/V; the rest go to
     the trash block. The engine must have made positions
     ``pos .. pos+valid_n-1`` writable first. ``kernel="fused"`` attends
-    through K4 with ``spec_k`` queries per slot, one launch per layer."""
+    through K4 with ``spec_k`` queries per slot, one launch per layer.
+    ``adapters=True`` appends ``(bank, aids [S])``: the verify rows are
+    the adapted model's, so they decide every emission."""
     _validate_paged_build(stages, cfg, max_len, block_size,
-                          "make_paged_verify_step", cache_dtype, mesh,
-                          adapters)
+                          "make_paged_verify_step", cache_dtype, mesh)
     _check_spec_k(spec_k, "make_paged_verify_step")
     _check_attn_kernel(kernel, "make_paged_verify_step")
     dev = resolve_device(device)
@@ -1252,8 +1321,11 @@ def make_paged_verify_step(stages, cfg: GPTConfig, max_len: int,
 
     @torch.no_grad()
     def verify(params, kc, vc, toks, pos, drafts, draft_rows, valid_n,
-               tables, key_data, temps, top_ks, top_ps):
+               tables, key_data, temps, top_ks, top_ps, bank=None,
+               aids=None):
         embed, blocks, head = _merged_stage_trees(params)
+        at = _bank_lookup(adapters, bank, aids, dev,
+                          "make_paged_verify_step")
         toks = _on(toks, dev, torch.int64)
         pos = _on(pos, dev, torch.int64)
         drafts = _on(drafts, dev, torch.int64)
@@ -1264,7 +1336,8 @@ def make_paged_verify_step(stages, cfg: GPTConfig, max_len: int,
                                                   block_size, ml)
         kc, vc, rows = _paged_verify_fwd(blocks, embed, head, kc, vc, xs,
                                          qpos, wphys, woff, tables,
-                                         cfg.n_heads, block_size, kernel)
+                                         cfg.n_heads, block_size, kernel,
+                                         at=at)
         any_hot = (None if isinstance(temps, torch.Tensor)
                    else bool(np.any(np.asarray(temps) > 0)))
         knobs = _sampling_tensors(toks.shape[0], temps, top_ks, top_ps, dev)
@@ -1296,7 +1369,10 @@ def make_paged_spec_tick(stages, cfg: GPTConfig, draft_stages,
     draft's dense pool composed with :func:`make_paged_verify_step` over
     the target's paged pool (``kernel="fused"``: K4 at K = spec_k). The
     proposals stay on the device between the two. A quantised target
-    cache gives the draft an f32 pool: dense slot rows hold no scales."""
+    cache gives the draft an f32 pool: dense slot rows hold no scales.
+    ``adapters=True`` appends ``(bank, aids [S])``, which ride the verify
+    side only: the draft proposes as the base model (a wrong proposal
+    costs acceptance rate, never correctness)."""
     _check_spec_tick_build(cfg, draft_cfg, "make_paged_spec_tick")
     draft_cd = None if _is_quantized_dtype(cache_dtype) else cache_dtype
     propose = make_slot_propose(draft_stages, draft_cfg, max_len, spec_k,
@@ -1307,13 +1383,13 @@ def make_paged_spec_tick(stages, cfg: GPTConfig, draft_stages,
     dev = resolve_device(device)
 
     def tick(dparams, dkc, dvc, params, kc, vc, toks, pos, valid_n, tables,
-             dkd, kd, temps, top_ks, top_ps):
+             dkd, kd, temps, top_ks, top_ps, bank=None, aids=None):
         toks, pos = _on(toks, dev, torch.int64), _on(pos, dev, torch.int64)
         dkc, dvc, drafts, qrows, dkd2 = propose(
             dparams, dkc, dvc, toks, pos, dkd, temps, top_ks, top_ps)
         kc, vc, otoks, nacc, kd2 = verify(
             params, kc, vc, toks, pos, drafts, qrows, valid_n, tables, kd,
-            temps, top_ks, top_ps)
+            temps, top_ks, top_ps, bank, aids)
         return dkc, dvc, kc, vc, otoks, nacc, kd2, dkd2
 
     return tick

@@ -1,7 +1,7 @@
 """The serving scenario suite: SLO-gated, deterministic load + fault runs.
 
 Port of ``resilience/scenarios.py``: the six one-engine scenarios and the
-five fleet scenarios. A *scenario* bundles one traffic shape (``serve/simulator.py``: arrival
+seven fleet scenarios. A *scenario* bundles one traffic shape (``serve/simulator.py``: arrival
 pattern + multi-tenant class mix with per-class TTFT/TPOT SLOs), one
 engine configuration (slots, blocks, chunking, scheduler policy, fleet
 shape) and optionally one fault schedule (``resilience/faults.py``).
@@ -51,14 +51,25 @@ virtual milliseconds.
 ``disagg-prefill-heavy`` bursty long prompts over 2 prefill + 2 decode
                      replicas: every request hands off at end-of-prefill
                      (gate: all complete AND every request handed off)
+``offload-churn``    hot-prefix traffic between prefix-less scans on one
+                     replica with a 12-block pool and the host offload
+                     tier on: the scans evict the idle system prompt, the
+                     eviction demotes it to host RAM, and the next hot
+                     arrival's routing-time prefetch uploads it back
+                     (gate: all complete AND >= 1 demotion AND >= 1
+                     prefetch hit)
+``hot-adapter-churn`` two LoRA tenants over 3 replicas with one tenant's
+                     weights hot-swapped at tick 6: adapter-affinity
+                     routing keeps each tenant where its bank row is
+                     resident (gate: all complete AND >= 3 bank uploads)
 ``handoff-replica-loss`` 1 prefill + 2 decode with a decode replica killed
                      while handoffs are in flight (gate: all complete AND
                      >= 1 handoff AND >= 1 migration)
 =================== =====================================================
 
-The JAX package's host-tier and adapter scenarios (``offload-churn``,
-``hot-adapter-churn``) raise naming ROADMAP.md, Queue A, item 5, as does
-``run_scenario``'s ``host_cache_blocks``.
+Adapter weights are seeded per tenant index with the port's own
+generator; ``init_lora_adapter`` zeroes B, so a scenario's tenants decode
+the base model's tokens and its pins equal the JAX package's.
 """
 
 from __future__ import annotations
@@ -66,7 +77,8 @@ from __future__ import annotations
 import dataclasses
 import os
 
-from simple_distributed_machine_learning_tpu_torch import _roadmap
+import torch
+
 from simple_distributed_machine_learning_tpu_torch.resilience import faults
 from simple_distributed_machine_learning_tpu_torch.serve.fleet import (
     AutoscalePolicy,
@@ -123,7 +135,16 @@ class Scenario:
     many supervised replicas behind ``route``, with ``autoscale`` (an
     :class:`~..serve.fleet.AutoscalePolicy`) and ``prefill_replicas``
     (disaggregation) as options; ``min_migrations`` and ``min_handoffs``
-    are the fleet's vacuous-pass gates."""
+    are the fleet's vacuous-pass gates.
+
+    ``host_cache_blocks``/``prefetch_ticks`` turn on the paged pools' host
+    offload tier in every engine the run builds, with ``min_host_demotes``
+    and ``min_host_prefetch_hits`` its vacuous-pass gates.
+    ``adapter_rank > 0`` builds every engine with an ``AdapterStore`` of
+    that rank and registers ``adapters`` (seeded weights per name) on the
+    target before traffic; ``adapter_swap_tick`` re-registers
+    ``adapters[0]`` with new seeded weights at that target tick (the
+    hot-swap under load), and ``min_adapter_swaps`` is the gate."""
 
     name: str
     description: str
@@ -148,6 +169,14 @@ class Scenario:
     min_migrations: int = 0
     prefill_replicas: int = 0
     min_handoffs: int = 0
+    host_cache_blocks: int = 0
+    prefetch_ticks: int = 1
+    min_host_demotes: int = 0
+    min_host_prefetch_hits: int = 0
+    adapter_rank: int = 0
+    adapters: tuple = ()
+    adapter_swap_tick: int = 0
+    min_adapter_swaps: int = 0
 
     def __post_init__(self):
         if self.scheduler not in ("fcfs", "priority"):
@@ -186,6 +215,26 @@ class Scenario:
             raise ValueError(
                 "min_handoffs needs prefill_replicas > 0 (only a "
                 "disaggregated fleet hands off)")
+        if ((self.min_host_demotes or self.min_host_prefetch_hits)
+                and not self.host_cache_blocks):
+            raise ValueError(
+                "min_host_demotes/min_host_prefetch_hits need "
+                "host_cache_blocks > 0 (only the host offload tier "
+                "demotes and prefetches)")
+        if self.adapter_rank:
+            if not (self.supervised or self.replicas):
+                raise ValueError(
+                    "adapter_rank needs supervised=True or a fleet (the "
+                    "engine factory builds the AdapterStore)")
+            if not self.adapters:
+                raise ValueError(
+                    "adapter_rank > 0 needs at least one tenant name in "
+                    "`adapters`")
+        elif (self.adapters or self.adapter_swap_tick
+              or self.min_adapter_swaps):
+            raise ValueError(
+                "adapters/adapter_swap_tick/min_adapter_swaps need "
+                "adapter_rank > 0")
 
 
 # SLO targets are VIRTUAL milliseconds: an engine tick costs a few vms, so
@@ -346,6 +395,66 @@ SCENARIOS: dict[str, Scenario] = {s.name: s for s in (
         n_slots=2, prefill_chunk=4, scheduler="fcfs",
         replicas=4, prefill_replicas=2, min_handoffs=16),
     Scenario(
+        name="offload-churn",
+        description="hot-prefix traffic interleaved with prefix-less "
+                    "background scans under block-pool pressure, host "
+                    "offload tier on: every scan burst evicts the idle "
+                    "system prompt out of the 12-block pool, the LRU "
+                    "eviction demotes it to host RAM instead of "
+                    "discarding it, and the next hot arrival's "
+                    "routing-time prefetch uploads it back ahead of "
+                    "admission (gates: all complete AND demotions AND "
+                    "prefetch hits actually happened; tests pin device "
+                    "prefix-hit blocks strictly above the HBM-only "
+                    "fleet's on this exact workload)",
+        sim=SimConfig(n_requests=24, rate=4.0, seed=0,
+                      shared_prefix_len=8, sampled_fraction=0.0,
+                      classes=(
+                          # hot tenant: every prompt opens with the shared
+                          # system prompt (2 blocks at block_size=4)
+                          dataclasses.replace(
+                              _INTERACTIVE, weight=1.0, prompt_lens=(4,),
+                              max_new_tokens=4, ttft_slo_ms=None,
+                              tpot_slo_ms=None),
+                          # background scans: no shared prefix, long
+                          # prompts — they evict the idle prefix out of
+                          # the 12-block pool between hot arrivals
+                          TrafficClass(name="scan", weight=1.0,
+                                       prompt_lens=(16,),
+                                       max_new_tokens=8,
+                                       shared_prefix=False))),
+        n_slots=2, block_size=4, n_blocks=12, max_len=48, prefill_chunk=4,
+        scheduler="fcfs",
+        replicas=1, host_cache_blocks=12, prefetch_ticks=1,
+        min_host_demotes=1, min_host_prefetch_hits=1),
+    Scenario(
+        name="hot-adapter-churn",
+        description="two LoRA tenants' traffic over a 3-replica fleet "
+                    "with one tenant's weights hot-swapped mid-run under "
+                    "load: adapter-affinity routing keeps each tenant on "
+                    "a replica already holding its bank row (round-robin "
+                    "stays adapter-blind and re-uploads per landing), the "
+                    "swap lands at a tick boundary without a retrace, and "
+                    "the swapped tenant's later requests decode the NEW "
+                    "weights (gates: all complete AND >= 3 bank uploads "
+                    "actually happened; tests pin affinity's "
+                    "adapter-affinity hit counter strictly above "
+                    "round-robin's on this exact workload)",
+        sim=SimConfig(n_requests=18, rate=16.0, seed=0,
+                      classes=(
+                          dataclasses.replace(
+                              _INTERACTIVE, name="tenant-a", weight=0.5,
+                              ttft_slo_ms=None, tpot_slo_ms=None,
+                              adapter="tenant-a"),
+                          dataclasses.replace(
+                              _INTERACTIVE, name="tenant-b", weight=0.5,
+                              ttft_slo_ms=None, tpot_slo_ms=None,
+                              adapter="tenant-b"))),
+        n_slots=2, prefill_chunk=4, scheduler="fcfs",
+        replicas=3, route="affinity",
+        adapter_rank=2, adapters=("tenant-a", "tenant-b"),
+        adapter_swap_tick=6, min_adapter_swaps=3),
+    Scenario(
         name="handoff-replica-loss",
         description="disaggregated fleet (1 prefill + 2 decode) with a "
                     "DECODE replica killed while handoffs are in flight: "
@@ -365,21 +474,35 @@ SCENARIOS: dict[str, Scenario] = {s.name: s for s in (
         min_handoffs=1, min_migrations=1),
 )}
 
-#: the JAX package's other scenarios and the item that ports them
-UNPORTED_SCENARIOS = {
-    "offload-churn": _roadmap.SERVE_EXTENSIONS,
-    "hot-adapter-churn": _roadmap.SERVE_EXTENSIONS,
-}
+def _register_tenants(target, scenario: Scenario, cfg, device) -> None:
+    """Register ``scenario.adapters`` on ``target`` (an engine, supervisor
+    or fleet: one call shape), each tenant's weights a pure function of
+    its index, and arm the hot-swap: at target tick
+    ``adapter_swap_tick``, ``adapters[0]`` is re-registered with new
+    seeded weights. Counting ticks reads no clock, so the virtual timeline
+    is the same with the swap armed or not."""
+    from simple_distributed_machine_learning_tpu_torch.models import lora
 
+    def weights(seed: int) -> dict:
+        return lora.init_lora_adapter(torch.Generator().manual_seed(seed),
+                                      cfg, scenario.adapter_rank,
+                                      device=device)
 
-def _reject_unported(scenario, host_cache_blocks) -> None:
-    if isinstance(scenario, str) and scenario in UNPORTED_SCENARIOS:
-        raise _roadmap.not_ported(f"scenario {scenario!r}",
-                                  UNPORTED_SCENARIOS[scenario])
-    if host_cache_blocks:
-        raise _roadmap.not_ported("run_scenario(host_cache_blocks=): the "
-                                  "host offload tier",
-                                  _roadmap.SERVE_EXTENSIONS)
+    for k, name in enumerate(scenario.adapters):
+        target.register_adapter(name, weights(1000 + k))
+    if not scenario.adapter_swap_tick:
+        return
+    new_w = weights(424242)
+    inner_step = target.step
+    n = [0]
+
+    def step():
+        n[0] += 1
+        if n[0] == scenario.adapter_swap_tick:
+            target.register_adapter(scenario.adapters[0], new_w)
+        return inner_step()
+
+    target.step = step
 
 
 def run_scenario(scenario: Scenario | str, stages, cfg, *,
@@ -397,7 +520,9 @@ def run_scenario(scenario: Scenario | str, stages, cfg, *,
     overrides the scenario's policy; ``supervised=False`` on a
     deadline-carrying scenario is the no-deadline baseline; ``route`` and
     ``prefill_replicas`` override a fleet scenario's routing policy and
-    disaggregation (``prefill_replicas=0`` is the symmetric baseline).
+    disaggregation (``prefill_replicas=0`` is the symmetric baseline), and
+    ``host_cache_blocks`` its host tier (``0`` is the HBM-only baseline;
+    the report then has no ``host_tier`` block).
     Extra ``engine_kw`` (``attn_kernel``, ``params``, ...) reach every
     engine the run builds. With ``outdir`` the serve record and a ``kind:
     "scenario"`` record land in ``metrics.jsonl`` + ``metrics.prom``, one
@@ -417,11 +542,12 @@ def run_scenario(scenario: Scenario | str, stages, cfg, *,
     for — completed, or (``allow_shed``) structurally shed — AND a
     supervised run restarted at least ``min_restarts`` times AND a fleet
     run migrated and handed off at least ``min_migrations`` /
-    ``min_handoffs`` times."""
+    ``min_handoffs`` times AND a host tier demoted and prefetched at least
+    ``min_host_demotes`` / ``min_host_prefetch_hits`` times AND an adapter
+    run uploaded at least ``min_adapter_swaps`` bank rows."""
     import tempfile
     import time
 
-    _reject_unported(scenario, host_cache_blocks)
     if isinstance(scenario, str):
         if scenario not in SCENARIOS:
             raise ValueError(
@@ -437,6 +563,8 @@ def run_scenario(scenario: Scenario | str, stages, cfg, *,
     route_policy = route or scenario.route
     n_prefill = (scenario.prefill_replicas if prefill_replicas is None
                  else prefill_replicas)
+    n_host = (scenario.host_cache_blocks if host_cache_blocks is None
+              else host_cache_blocks)
 
     plan = None
     if scenario.chaos:
@@ -470,6 +598,11 @@ def run_scenario(scenario: Scenario | str, stages, cfg, *,
                   prefill_chunk=scenario.prefill_chunk,
                   scheduler=sched_cls, metrics=metrics, clock=clock,
                   device=device, **engine_kw)
+        if n_host:
+            kw["host_cache_blocks"] = n_host
+            kw["prefetch_ticks"] = scenario.prefetch_ticks
+        if scenario.adapter_rank:
+            kw["adapter_rank"] = scenario.adapter_rank
         if trace and not (sup_flag or fleet_flag):
             kw["trace"] = trace
         if fleet_flag:
@@ -515,6 +648,8 @@ def run_scenario(scenario: Scenario | str, stages, cfg, *,
                 postmortem_dir=outdir, slo=slo_engine)
         else:
             target = InferenceEngine(stages, cfg, **kw)
+        if scenario.adapter_rank:
+            _register_tenants(target, scenario, cfg, device)
         report = simulate(target, scenario.sim, sleep=sleep)
     finally:
         if plan is not None:
@@ -558,6 +693,31 @@ def run_scenario(scenario: Scenario | str, stages, cfg, *,
         report["restarts"] = sum(
             r.supervisor.restarts for r in target.replicas)
         ok &= target.migrations >= scenario.min_migrations
+    if n_host:
+        # host-tier outcomes summed over every pool the run built (the
+        # replicas share one ServeMetrics, whose counters sum the deltas)
+        hc = metrics._host_counters
+        report["host_tier"] = {
+            "host_cache_blocks": n_host,
+            "demotes": int(hc["host_demotes_total"].value),
+            "promotes": int(hc["host_promotes_total"].value),
+            "prefetch_hits": int(hc["host_prefetch_hits_total"].value),
+            "prefetch_misses": int(hc["host_prefetch_misses_total"].value),
+            "host_evictions": int(hc["host_evictions_total"].value),
+            "transfer_bytes": int(hc["host_transfer_bytes_total"].value),
+        }
+        ok &= report["host_tier"]["demotes"] >= scenario.min_host_demotes
+        ok &= (report["host_tier"]["prefetch_hits"]
+               >= scenario.min_host_prefetch_hits)
+    if scenario.adapter_rank:
+        report["adapters"] = {
+            "rank": scenario.adapter_rank,
+            "tenants": list(scenario.adapters),
+            "resident_bytes": int(metrics.adapter_resident_bytes.value),
+            "swaps": int(metrics.adapter_swaps.value),
+            "adapter_affinity_hits": int(metrics.route_adapter_hits.value),
+        }
+        ok &= report["adapters"]["swaps"] >= scenario.min_adapter_swaps
     if trace:
         report["trace_events"] = trace.n_events
         # fold every traced request's timeline into the additive TTFT
@@ -603,6 +763,9 @@ def run_scenario(scenario: Scenario | str, stages, cfg, *,
             **({"restarts": report["restarts"]} if sup_flag else {}),
             **({"fleet": {k: v for k, v in report["fleet"].items()
                           if k != "replica_log"}} if fleet_flag else {}),
+            **({"host_tier": report["host_tier"]} if n_host else {}),
+            **({"adapters": report["adapters"]}
+               if scenario.adapter_rank else {}),
             **({"slo_alerts": {
                 "transitions": len(slo_engine.alerts.journal),
                 "firing": slo_engine.active_alerts(),

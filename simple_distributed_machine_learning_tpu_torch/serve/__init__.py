@@ -1,7 +1,8 @@
 """Continuous-batching serving on one GPU (port of ``serve/``).
 
 - :mod:`.slots` — :class:`PagedKVPool`: block-table paged K/V pool with
-  refcounted blocks, prefix sharing, copy-on-write and reservations, and
+  refcounted blocks, prefix sharing, copy-on-write, reservations and the
+  host offload tier, and
   :class:`KVCachePool`, the dense slot-row layout;
 - :mod:`.request` — :class:`Request`: prompt, per-request sampling, key
   stream, lifecycle timestamps;
@@ -23,13 +24,19 @@
   span timelines) and :class:`FlightRecorder` (per-tick snapshots for
   post-mortem bundles);
 - :mod:`.simulator` — seeded open-loop traffic (:func:`simulate`);
+- :mod:`.adapters` — :class:`AdapterStore`: the refcounted device bank
+  of LoRA adapters multi-tenant serving gathers from;
 - :mod:`.metrics` — :class:`ServeMetrics`: TTFT/TPOT, occupancy, pool,
-  restart and shed instruments on the metric registry.
+  host-tier, adapter, restart and shed instruments on the metric
+  registry.
 
 Correctness anchor: with the same seed every request's tokens equal its
 solo ``models.make_cached_decoder`` decode.
 """
 
+from simple_distributed_machine_learning_tpu_torch.serve.adapters import (  # noqa: F401
+    AdapterStore,
+)
 from simple_distributed_machine_learning_tpu_torch.serve.engine import (  # noqa: F401
     DrainTimeout,
     InferenceEngine,

@@ -35,6 +35,18 @@ Correctness anchor: a request's tokens equal its solo
 co-residents, paged blocks, shared prefixes, chunk boundaries and, for
 greedy requests, speculation cannot change anyone's output.
 
+With ``host_cache_blocks > 0`` the paged pool keeps a host offload tier
+(``serve/slots.py``): evicted prefix blocks demote to host RAM, an
+upload a router started lands at the top of a tick, before admission,
+and a request whose prefix is still in flight waits for it (the
+``gate`` trace row). With ``adapters=`` (a ``serve/adapters.py::
+AdapterStore``) every program takes the adapter bank and a per-slot row
+index: ``submit(adapter=)`` decodes a request under a registered LoRA
+adapter, the admission gate pins its bank row, and prefix keys are
+namespaced per adapter version so tenants never share K/V. A request
+without an adapter rides the all-zero row 0 and keeps the stream of an
+engine without adapters.
+
 ``trace=`` (a ``serve/tracing.py::ServeTrace``) records every request's
 lifecycle at the JAX engine's sites, stamped with timestamps the engine
 already read (events without a read of their own take :attr:`_now`, the
@@ -44,8 +56,8 @@ or off leaves every virtual-clock number unchanged.
 
 The JAX engine's other knobs keep their place in the signature and raise
 ``NotImplementedError`` naming the ROADMAP item that ports them:
-speculation over the dense layout, tensor parallelism, adapters, the host
-tier and the lint preflight.
+speculation over the dense layout, tensor parallelism and the lint
+preflight.
 
 Clock reads sit exactly where the JAX engine's do (submit without an
 arrival stamp, cancel, the dense admission's TTFT endpoint or reseat,
@@ -166,8 +178,7 @@ def _check_layout(kv_layout, attn_kernel, prefill_chunk, n_blocks,
             "no blocks to demote — use kv_layout='paged'")
 
 
-def _reject_unported(kv_layout, speculative, host_cache_blocks,
-                     prefetch_ticks, lint, mesh, cfg, adapters) -> None:
+def _reject_unported(kv_layout, speculative, lint, mesh, cfg) -> None:
     if kv_layout == "dense" and speculative:
         raise _roadmap.not_ported(
             "speculative decoding over kv_layout='dense' "
@@ -177,13 +188,6 @@ def _reject_unported(kv_layout, speculative, host_cache_blocks,
         raise _roadmap.not_ported("tensor-parallel serving (mesh/"
                                   "n_tensor_parallel > 1)",
                                   _roadmap.PARALLEL_AXES)
-    if adapters is not None:
-        raise _roadmap.not_ported("LoRA adapters",
-                                  _roadmap.SERVE_EXTENSIONS)
-    if host_cache_blocks or prefetch_ticks != 1:
-        raise _roadmap.not_ported("the host offload tier "
-                                  "(host_cache_blocks/prefetch_ticks)",
-                                  _roadmap.SERVE_EXTENSIONS)
     if lint:
         raise _roadmap.not_ported("the serve-program lint preflight",
                                   _roadmap.ANALYSIS)
@@ -214,14 +218,18 @@ class InferenceEngine:
     speculative (module docstring); the draft keeps a dense slot pool of
     its own (f32 when ``cache_dtype`` is quantised).
 
+    ``host_cache_blocks > 0`` (paged only) turns on the pool's host
+    offload tier, whose uploads land after ``prefetch_ticks`` ticks.
+    ``adapters``: an ``AdapterStore`` built for this engine's ``n_slots``
+    on its device (module docstring).
+
     ``scheduler``: an instance over this engine's pool, or a class /
     factory called with the pool (``PriorityScheduler``; the serve
     supervisor's rebuilds pass the class).
 
     ``device`` (None = ``"cuda"``; raises without CUDA unless ``"cpu"``)
     holds the pools; the params, the draft's too, must already live
-    there. ``host_cache_blocks`` and ``prefetch_ticks`` (the host tier's
-    knobs) keep their JAX defaults only.
+    there.
     """
 
     def __init__(self, stages, cfg, *, params=None, n_slots: int = 4,
@@ -239,11 +247,21 @@ class InferenceEngine:
         _check_layout(kv_layout, attn_kernel, prefill_chunk, n_blocks,
                       host_cache_blocks)
         _check_speculative(draft_stages, draft_cfg, spec_k)
-        _reject_unported(kv_layout, draft_stages is not None,
-                         host_cache_blocks, prefetch_ticks, lint, mesh, cfg,
-                         adapters)
+        _reject_unported(kv_layout, draft_stages is not None, lint, mesh,
+                         cfg)
         _check_ported(cfg, "InferenceEngine")
         self.device = resolve_device(device)
+        if adapters is not None and adapters.n_rows != n_slots + 1:
+            raise ValueError(
+                f"AdapterStore has {adapters.n_rows} bank rows but this "
+                f"engine needs n_slots + 1 = {n_slots + 1} (base row + one "
+                f"per slot — the never-refuse sizing)")
+        if adapters is not None and adapters.device.type != self.device.type:
+            raise ValueError(
+                f"the AdapterStore's bank lives on {adapters.device}, the "
+                f"engine on {self.device}")
+        self._adapters = adapters
+        adp = adapters is not None
         self.cfg = cfg
         self.kv_layout = kv_layout
         self.attn_kernel = attn_kernel
@@ -258,22 +276,27 @@ class InferenceEngine:
             self.pool = PagedKVPool(n_layers, n_slots, cfg.n_heads,
                                     self.max_len, head_dim, cache_dtype,
                                     block_size=block_size,
-                                    n_blocks=n_blocks, device=self.device)
+                                    n_blocks=n_blocks,
+                                    host_cache_blocks=host_cache_blocks,
+                                    prefetch_ticks=prefetch_ticks,
+                                    device=self.device)
             self._chunk_prefill = make_paged_prefill_chunk(
                 stages, cfg, self.max_len, block_size, cache_dtype,
-                device=self.device)
+                adapters=adp, device=self.device)
             self._decode = make_paged_decode_step(
                 stages, cfg, self.max_len, block_size, cache_dtype,
-                kernel=attn_kernel, device=self.device)
+                kernel=attn_kernel, adapters=adp, device=self.device)
             self._copy_block = make_paged_block_copy()
         else:
             self.pool = KVCachePool(n_layers, n_slots, cfg.n_heads,
                                     self.max_len, head_dim, cache_dtype,
                                     device=self.device)
             self._prefill = make_slot_prefill(stages, cfg, self.max_len,
-                                              cache_dtype, device=self.device)
+                                              cache_dtype, adapters=adp,
+                                              device=self.device)
             self._decode = make_slot_decode_step(
-                stages, cfg, self.max_len, cache_dtype, device=self.device)
+                stages, cfg, self.max_len, cache_dtype, adapters=adp,
+                device=self.device)
         self.spec_k = int(spec_k)
         self.speculative = draft_stages is not None
         self.draft_cfg = draft_cfg
@@ -294,7 +317,7 @@ class InferenceEngine:
             self._spec_fused = make_paged_spec_tick(
                 stages, cfg, draft_stages, draft_cfg, self.max_len,
                 block_size, spec_k, cache_dtype, kernel=attn_kernel,
-                device=self.device)
+                adapters=adp, device=self.device)
             self._init_draft_pool(n_slots)
         if scheduler is None:
             scheduler = FCFSScheduler(self.pool)
@@ -319,6 +342,9 @@ class InferenceEngine:
         self._prefilling: collections.deque[int] = collections.deque()
         # per-request last-emit timestamps for TPOT accounting
         self._last_emit: dict[int, float] = {}
+        # rids whose current prefetch-gate episode already traced a
+        # ``gate`` row (cleared on boarding)
+        self._gated: set[int] = set()
 
     def _check_on_device(self, params) -> None:
         embed = _merged_stage_trees(params)[0]
@@ -380,7 +406,13 @@ class InferenceEngine:
                     temperature=temperature, top_k=top_k, top_p=top_p,
                     eos_id=eos_id, seed=seed, on_token=on_token,
                     cls=cls, priority=priority,
-                    ttft_deadline_s=ttft_deadline_s, deadline_s=deadline_s)
+                    ttft_deadline_s=ttft_deadline_s, deadline_s=deadline_s,
+                    adapter=adapter)
+        if self._adapters is not None:
+            # the version-qualified prefix namespace (refreshed at the
+            # admission gate: the probe and the decode must agree on the
+            # adapter version, or a hot-swap could reuse stale K/V)
+            r._prefix_ns = self._adapters.namespace_of(adapter)
         # the request's own key stream: the key a solo make_cached_decoder
         # call would be handed, so the streams align
         r.key_data = key_data(seed)
@@ -397,10 +429,69 @@ class InferenceEngine:
             self.trace.on_submit(r, r.submit_time)
         return r
 
-    def _check_adapter(self, adapter) -> None:
-        if adapter is not None:
-            raise _roadmap.not_ported("LoRA adapters",
-                                      _roadmap.SERVE_EXTENSIONS)
+    # -- adapter plumbing --------------------------------------------------
+
+    def register_adapter(self, name: str, weights: dict) -> None:
+        """Add or hot-swap a named LoRA adapter (host side; its bank row
+        uploads at the next admission that needs it). The same call as
+        ``ServeSupervisor.register_adapter`` and
+        ``ServeFleet.register_adapter``."""
+        if self._adapters is None:
+            raise ValueError("this engine was built without an "
+                             "AdapterStore — pass adapters= at "
+                             "construction")
+        self._adapters.register(name, weights)
+
+    def _check_adapter(self, adapter: str | None) -> None:
+        if adapter is None:
+            return
+        if self._adapters is None:
+            raise ValueError(
+                f"request names adapter {adapter!r} but this engine was "
+                f"built without an AdapterStore — pass adapters= at "
+                f"construction")
+        if not self._adapters.is_registered(adapter):
+            raise KeyError(
+                f"adapter {adapter!r} is not registered "
+                f"(known: {list(self._adapters.names())})")
+
+    def _adapter_board(self, r: Request) -> bool:
+        """The scheduler's admission gate: pin the request's bank row
+        (uploading it at this tick boundary if needed) and take its ref.
+        Never refuses: the bank has one more row than the pool has
+        slots, and admission already holds a free slot."""
+        if r.adapter is None or self._adapters is None:
+            r._adapter_row = 0
+            return True
+        # a hot-swap between submit and boarding changes the version this
+        # admission pins: refresh the namespace (and drop the stale probe
+        # memo) before bind_seq probes the registry
+        ns = self._adapters.namespace_of(r.adapter)
+        if r._prefix_ns != ns:
+            r._prefix_ns = ns
+            r._prefix_probe = None
+        r._adapter_row = self._adapters.retain(r.adapter)
+        return True
+
+    def _adapter_release(self, r: Request) -> None:
+        if r._adapter_row and self._adapters is not None:
+            self._adapters.release(r._adapter_row)
+        r._adapter_row = 0
+
+    def _adapter_inputs(self, active: list[int]) -> np.ndarray:
+        """Per-slot bank rows for a batched tick (inactive slots gather
+        the zero base row, whose delta is exactly 0)."""
+        aids = np.zeros(self.pool.n_slots, np.int64)
+        for s in active:
+            aids[s] = self.requests[self.pool.occupant(s)]._adapter_row
+        return aids
+
+    def _bank_args(self, aids) -> tuple:
+        """The trailing ``(bank, aids)`` program arguments, empty without
+        a store."""
+        if self._adapters is None:
+            return ()
+        return (self._adapters.bank, aids)
 
     def step(self) -> int:
         """One tick; returns the number of tokens emitted. A true no-op
@@ -418,6 +509,19 @@ class InferenceEngine:
             decode_active = self.pool.n_active
             emitted += self._decode_tick_dense()
         else:
+            # host-tier upload progress first: blocks completing this tick
+            # register before admission probes the registry, so a request
+            # blocked on its own prefetch boards this very tick
+            self.pool.advance_transfers()
+            if self.trace is not None and self.pool._inflight:
+                # one ``gate`` row per episode for a queued request held
+                # back by its own in-flight upload (attribution's
+                # queue-vs-prefetch split), stamped with the latest read
+                for r in self.scheduler.queue:
+                    if (r.rid not in self._gated
+                            and self.pool.prefetch_blocked(r)):
+                        self._gated.add(r.rid)
+                        self.trace.on_gate(r, self._now)
             self._admit_paged()
             emitted = self._prefill_tick()
             decoding = self._decoding_slots()
@@ -430,7 +534,9 @@ class InferenceEngine:
                 self.pool.n_slots, decode_active=decode_active,
                 block_stats=(self.pool.stats()
                              if self.kv_layout == "paged" else None),
-                tp=1, spec_k=self.spec_k)
+                tp=1, spec_k=self.spec_k,
+                adapter_stats=(self._adapters.stats()
+                               if self._adapters is not None else None))
         if self.flight is not None:
             self.flight.snap(self, self._tick_count, emitted)
         return emitted
@@ -448,6 +554,7 @@ class InferenceEngine:
             self._prefilling.remove(rid)
         self.pool.unbind_seq(r.slot)
         self.pool.release(r.slot)
+        self._adapter_release(r)   # re-acquired (maybe a new row) on boarding
         r.slot = None
         r.prefill_pos = None
         r.state = QUEUED
@@ -472,6 +579,7 @@ class InferenceEngine:
                 self._prefilling.remove(rid)
             self.pool.unbind_seq(r.slot)
             self.pool.release(r.slot)
+            self._adapter_release(r)
             r.slot = None
             r.prefill_pos = None
         else:
@@ -511,6 +619,10 @@ class InferenceEngine:
         request.state = QUEUED
         request.slot = None
         request.prefill_pos = None
+        request._adapter_row = 0   # pinned at boarding on THIS engine
+        request._prefix_ns = (None if self._adapters is None
+                              else self._adapters.namespace_of(
+                                  request.adapter))
         request._prefix_probe = None   # probed against THIS pool's registry
         if request.key_data is None:
             # never emitted a token: the stream starts where submit's would
@@ -551,7 +663,8 @@ class InferenceEngine:
                 self.params, self.pool.kc, self.pool.vc, seq[None, :],
                 r.slot, r.key_data, r.temperature,
                 r.top_k if r.top_k is not None else _NO_TOP_K,
-                r.top_p if r.top_p is not None else _NO_TOP_P)
+                r.top_p if r.top_p is not None else _NO_TOP_P,
+                *self._bank_args(r._adapter_row))
             self.pool.kc, self.pool.vc = kc, vc
             if r.tokens:
                 # resuming: the prefill only rebuilt K/V; its sample and
@@ -594,7 +707,8 @@ class InferenceEngine:
         kc, vc, toks, kd2 = self._decode(
             self.params, self.pool.kc, self.pool.vc,
             self.pool.last_token.copy(), self.pool.positions.copy(),
-            kd, temps, top_ks, top_ps)
+            kd, temps, top_ks, top_ps,
+            *self._bank_args(self._adapter_inputs(active)))
         self.pool.kc, self.pool.vc = kc, vc
         return self._emit_decoded(active, toks, kd2)
 
@@ -606,6 +720,7 @@ class InferenceEngine:
         ``r.prefill_pos``); no model work here."""
         for r in self.scheduler.admit():
             self._prefilling.append(r.rid)
+            self._gated.discard(r.rid)
             if self.trace is not None:
                 # boarding reads no clock: stamped with the most recent
                 # read (at most a tick stale)
@@ -630,7 +745,8 @@ class InferenceEngine:
             seq[None, p0:p0 + c], p0, self.pool.device_table(r.slot),
             r.key_data, r.temperature,
             r.top_k if r.top_k is not None else _NO_TOP_K,
-            r.top_p if r.top_p is not None else _NO_TOP_P)
+            r.top_p if r.top_p is not None else _NO_TOP_P,
+            *self._bank_args(r._adapter_row))
         self.pool.kc, self.pool.vc = kc, vc
         tok = int(tok)                 # host sync: honest chunk timing
         now = self._now = self._clock()
@@ -702,7 +818,8 @@ class InferenceEngine:
             toks[s] = self.pool.last_token[s]
         kc, vc, toks2, kd2 = self._decode(
             self.params, self.pool.kc, self.pool.vc,
-            toks, pos, tables, kd, temps, top_ks, top_ps)
+            toks, pos, tables, kd, temps, top_ks, top_ps,
+            *self._bank_args(self._adapter_inputs(active)))
         self.pool.kc, self.pool.vc = kc, vc
         return self._emit_decoded(active, toks2, kd2)
 
@@ -758,7 +875,10 @@ class InferenceEngine:
          dkd2) = self._spec_fused(
             self._draft_params, self._dkc, self._dvc, self.params,
             self.pool.kc, self.pool.vc, toks, pos, valid, tables, dkd, kd,
-            temps, top_ks, top_ps)
+            temps, top_ks, top_ps,
+            # adapters ride the verify side only: the draft proposes as the
+            # base model, and the adapted verify rows decide every emission
+            *self._bank_args(self._adapter_inputs(active)))
         return self._emit_spec(active, otoks, nacc, kd2, dkd2, valid)
 
     def _emit_spec(self, active: list[int], otoks, nacc, kd2, dkd2,
@@ -859,5 +979,6 @@ class InferenceEngine:
             # unbinds the sequence (decref table blocks, return the unused
             # reservation) before the slot frees
             self.scheduler.retire(r, reason)
+        self._adapter_release(r)
         if self.metrics is not None:
-            self.metrics.on_complete(cls=r.cls)
+            self.metrics.on_complete(cls=r.cls, adapter=r.adapter)

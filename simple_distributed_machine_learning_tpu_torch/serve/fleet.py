@@ -47,8 +47,16 @@ down to ``min_replicas``. Both land in :attr:`ServeFleet.replica_log`.
 The fleet duck-types the engine surface the simulator and the scenario
 runner drive and reads the clock NEVER: its timestamps come from arrival
 times and the replicas' own engine reads, so the virtual-clock scenario
-numbers are exact. The host offload tier and LoRA adapters on the fleet
-are ROADMAP.md, Queue A, item 5.
+numbers are exact.
+
+**The host offload tier and adapters.** The router knows a request's
+prompt before admission, so a host-resident prefix on the replica it
+picks (on the decode pool when disaggregated) starts its upload at
+routing time (``pool.prefetch``), overlapping queueing and prefill.
+:meth:`ServeFleet.register_adapter` registers a tenant on every alive
+replica (the factory's shared host dict carries it to later spawns and
+rebuilds), and the router prefers a replica where a request's adapter
+is already resident.
 """
 
 from __future__ import annotations
@@ -58,7 +66,6 @@ import glob
 import os
 import time
 
-from simple_distributed_machine_learning_tpu_torch import _roadmap
 from simple_distributed_machine_learning_tpu_torch.resilience import faults
 from simple_distributed_machine_learning_tpu_torch.serve.journal import (
     RequestJournal,
@@ -331,10 +338,10 @@ class ServeFleet:
                adapter: str | None = None) -> Request:
         """Route one submission to an in-rotation replica and submit it
         through that replica's supervisor: journaled, admission-controlled
-        and deadline-bound exactly as one supervised engine would."""
-        if adapter is not None:
-            raise _roadmap.not_ported("LoRA adapters on the fleet",
-                                      _roadmap.SERVE_EXTENSIONS)
+        and deadline-bound exactly as one supervised engine would.
+        ``adapter`` names the request's tenant (:meth:`register_adapter`):
+        prefix probes scope to its namespace and the router prefers a
+        replica where it is already resident."""
         if arrival_time is not None:
             self._now = max(self._now, arrival_time)
             self._retire_idle()   # idle troughs advance via arrivals
@@ -345,12 +352,22 @@ class ServeFleet:
         else:
             candidates = self._rotation() or self._alive()
         rep, hit = self.router.route(prompt, candidates,
-                                     demoted=frozenset(self._alert_demoted))
+                                     demoted=frozenset(self._alert_demoted),
+                                     adapter=adapter)
         if self.metrics is not None:
             if hit:
                 self.metrics.on_affinity_hit()
+            if self.router.last_adapter_hit:
+                self.metrics.on_adapter_affinity_hit()
             if self.router.last_suppressed:
                 self.metrics.on_alert_demotion()
+        # a host-tier copy of the prefix that beats what the target pool
+        # holds on the device starts uploading now, overlapping the queue
+        # wait and the prefill
+        self._prefetch_host(
+            prompt,
+            self._role_alive("decode") if self.disaggregated else [rep],
+            adapter=adapter)
         rid = self._next_rid
         rep.supervisor.engine._next_rid = rid
         self._user_cb[rid] = on_token
@@ -364,7 +381,7 @@ class ServeFleet:
                 top_k=top_k, top_p=top_p, eos_id=eos_id, seed=seed,
                 on_token=on_token, arrival_time=arrival_time, cls=cls,
                 priority=priority, ttft_deadline_s=ttft_deadline_s,
-                deadline_s=deadline_s)
+                deadline_s=deadline_s, adapter=adapter)
         except RestartBudgetExceeded as e:
             # an admission crash with the restart budget spent: a replica
             # LOSS. The submission was journaled before the engine saw
@@ -382,14 +399,32 @@ class ServeFleet:
         return h
 
     def register_adapter(self, name: str, weights: dict) -> None:
-        raise _roadmap.not_ported(
-            "ServeFleet.register_adapter (LoRA adapters)",
-            _roadmap.SERVE_EXTENSIONS + " (5.3)")
+        """Register (or hot-swap) a named LoRA adapter on every alive
+        replica, so a tenant is servable wherever routing or a loss
+        migration lands it. This is also what bumps each replica's store
+        version, so a hot-swap invalidates resident rows and cached
+        prefixes fleet-wide."""
+        for rep in self._alive():
+            rep.supervisor.register_adapter(name, weights)
 
-    def _prefetch_host(self, prompt, candidates: list) -> None:
-        raise _roadmap.not_ported(
-            "ServeFleet._prefetch_host (the host offload tier)",
-            _roadmap.SERVE_EXTENSIONS + " (5.2)")
+    def _prefetch_host(self, prompt, candidates: list,
+                       adapter: str | None = None) -> None:
+        """Start the host->device upload of the longest host-resident
+        prefix among ``candidates``, only where the host copy strictly
+        beats what that replica already holds on the device. Probes and
+        upload scope to the request's adapter namespace; pools without a
+        host tier answer 0, so an HBM-only fleet does nothing here."""
+        best, best_len, best_ns = None, 0, b""
+        for r in candidates:
+            pool = r.supervisor.pool
+            ns, _ = FleetRouter._adapter_state(r, adapter)
+            if ns is None:
+                continue
+            n = pool.host_prefix_len(prompt, ns)
+            if n > pool.shared_prefix_len(prompt, ns) and n > best_len:
+                best, best_len, best_ns = r, n, ns
+        if best is not None:
+            best.supervisor.pool.prefetch(prompt, best_ns)
 
     def step(self) -> int:
         """One fleet tick: interpret scheduled replica-kill faults, step
@@ -465,13 +500,17 @@ class ServeFleet:
                 cand = [r for r in decode if r is not src] or decode
                 h = sup.requests[rid]
                 dst, hit = self.router.route(
-                    h.prompt, cand, demoted=frozenset(self._alert_demoted))
+                    h.prompt, cand, demoted=frozenset(self._alert_demoted),
+                    adapter=h.adapter)
                 if dst is src:
                     # every decode replica is dead and the source is the
                     # only survivor: nothing to move to
                     continue
-                if self.metrics is not None and hit:
-                    self.metrics.on_affinity_hit()
+                if self.metrics is not None:
+                    if hit:
+                        self.metrics.on_affinity_hit()
+                    if self.router.last_adapter_hit:
+                        self.metrics.on_adapter_affinity_hit()
                 if self.trace is not None:
                     self.trace.on_migrate(h, self._now, src.idx, dst.idx)
                 h = sup.release(rid, dst=dst.idx, seal=False)
@@ -627,9 +666,13 @@ class ServeFleet:
             else:
                 cand = [r for r in targets if r.in_rotation] or targets
             dst, hit = self.router.route(
-                h.prompt, cand, demoted=frozenset(self._alert_demoted))
-            if self.metrics is not None and hit:
-                self.metrics.on_affinity_hit()
+                h.prompt, cand, demoted=frozenset(self._alert_demoted),
+                adapter=h.adapter)
+            if self.metrics is not None:
+                if hit:
+                    self.metrics.on_affinity_hit()
+                if self.router.last_adapter_hit:
+                    self.metrics.on_adapter_affinity_hit()
             if self.trace is not None:
                 self.trace.on_migrate(h, prev_now, rep.idx, dst.idx)
             dst.supervisor.adopt(h, on_token=self._user_cb.get(h.rid))

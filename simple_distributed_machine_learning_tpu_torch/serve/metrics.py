@@ -108,15 +108,55 @@ Disaggregated-pool instruments (fed by the disaggregated fleet,
   (gauges) — per-pool backlog and occupancy: the imbalance signal the
   disaggregated scenarios pin (prefill-heavy vs decode-heavy mixes).
 
+Host-offload-tier instruments (fed by the paged pool's host tier,
+``serve/slots.py``, through ``PagedKVPool.stats()`` every tick):
+
+- ``serve_host_blocks`` / ``serve_host_bytes_resident`` (gauges) —
+  host-RAM offload tier occupancy: blocks demoted from device memory
+  that live on in host memory, and the bytes they pin there (host blocks
+  x the ``kv_block_bytes`` formula);
+- ``serve_host_inflight_blocks`` (gauge) — blocks mid host→device
+  prefetch upload: claimed on the device, keys not yet registered;
+- ``serve_host_demotes_total`` / ``serve_host_promotes_total`` /
+  ``serve_host_evictions_total`` (counters) — tier traffic: device
+  evictions demoted to host instead of dying, completed uploads that
+  re-registered their prefix keys on the device, and host-side LRU drops
+  at ``host_cache_blocks`` capacity;
+- ``serve_host_prefetch_hits_total`` / ``serve_host_prefetch_misses_total``
+  (counters) — routing-time prefetch outcomes: a hit started (or joined)
+  the upload of a host-resident prefix, a miss found nothing the device
+  registry did not already cover or no free blocks to upload into;
+- ``serve_host_transfer_bytes_total`` (counter) — bytes moved across the
+  device↔host boundary in either direction (demotes down, promotes up),
+  one ``kv_block_bytes`` per block moved.
+
+Multi-tenant adapter instruments (fed by the engine's per-tick
+``AdapterStore.stats()``, the router, and completion):
+
+- ``serve_adapter_resident_bytes`` (gauge) — device memory the adapter
+  bank pins: the whole static ``[n_rows, L, d, r]`` stacked-A/B
+  allocation (``models/lora.py::bank_bytes``);
+- ``serve_adapter_swaps_total`` (counter) — adapter bank-row uploads:
+  tick-boundary device writes that seated a tenant's weights (a hot-swap
+  or a first admission);
+- ``serve_route_adapter_affinity_hits_total`` (counter) — routing
+  decisions made by adapter residency: the request landed on a replica
+  already holding its adapter's current version on the device, skipping
+  a bank-row upload (the hot-adapter-churn scenario pins this above
+  round-robin);
+- ``serve_class_adapter`` (counter, labeled ``class=<adapter name>``) —
+  completed requests per TENANT: the per-adapter traffic split the
+  telemetry report's tenant block renders.
+
 With a bound :class:`~..telemetry.slo.SLOEngine` (``bind_slo``) every
 TTFT/TPOT/shed observation also streams into its windowed series, tagged
 with the fleet replica the fleet sets around each replica's step or
 submit (``_slo_replica``).
 
-The host-tier, adapter, ``serve_attn_kernel_fused`` and KV-drift
-instruments arrive with the slices that port those layers; until the
-analysis slice the summary has no ``kv_drift_bytes`` key, as the JAX CLI
-prints that line only when present.
+The ``serve_attn_kernel_fused`` and KV-drift instruments arrive with the
+slice that ports the analyzer; until then the summary has no
+``kv_drift_bytes`` key, as the JAX CLI prints that line only when
+present.
 
 ``emit()`` writes one ``kind: "serve"`` record to ``metrics.jsonl`` and
 rewrites ``metrics.prom``, whose ``# HELP`` lines the metric catalog
@@ -141,6 +181,19 @@ _POOL_COUNTERS = {
     "prefix_hit_blocks_total": "serve_prefix_hit_blocks_total",
     "cow_copies_total": "serve_cow_copies_total",
     "evictions_total": "serve_block_evictions_total",
+}
+
+
+# host-offload-tier counter keys -> instrument names (same lifetime-total
+# to per-tick-delta conversion; in ``stats()`` only when the pool runs a
+# host tier)
+_HOST_COUNTERS = {
+    "host_demotes_total": "serve_host_demotes_total",
+    "host_promotes_total": "serve_host_promotes_total",
+    "host_evictions_total": "serve_host_evictions_total",
+    "host_prefetch_hits_total": "serve_host_prefetch_hits_total",
+    "host_prefetch_misses_total": "serve_host_prefetch_misses_total",
+    "host_transfer_bytes_total": "serve_host_transfer_bytes_total",
 }
 
 
@@ -215,6 +268,26 @@ class ServeMetrics:
         # a fleet)
         self.slo = None
         self._slo_replica: int | None = None
+        # the host offload tier: gauges set and counters delta-fed from
+        # block_stats, as the pool counters are
+        self.host_blocks = r.gauge("serve_host_blocks")
+        self.host_bytes_resident = r.gauge("serve_host_bytes_resident")
+        self.host_inflight = r.gauge("serve_host_inflight_blocks")
+        self._host_counters = {k: r.counter(v)
+                               for k, v in _HOST_COUNTERS.items()}
+        self._host_counter_seen = dict.fromkeys(_HOST_COUNTERS, 0)
+        self._host_seen = False
+        # multi-tenant adapters: swap accounting is lifetime->delta PER
+        # STORE (a fleet's replicas each own a store and share this
+        # object; one scalar would ratchet to the max instead of summing)
+        self.adapter_resident_bytes = r.gauge(
+            "serve_adapter_resident_bytes")
+        self.adapter_swaps = r.counter("serve_adapter_swaps_total")
+        self.route_adapter_hits = r.counter(
+            "serve_route_adapter_affinity_hits_total")
+        self._adapter_swaps_seen: dict[int, int] = {}
+        self._adapter_seen = False
+        self._adapter_names: set[str] = set()
         self._classes: set[str] = set()
         if outdir:
             os.makedirs(outdir, exist_ok=True)
@@ -317,6 +390,13 @@ class ServeMetrics:
         self._fleet_seen = True
         self.route_affinity_hits.inc()
 
+    def on_adapter_affinity_hit(self) -> None:
+        """The router's decision was made by adapter residency: the
+        destination already holds the request's adapter on the device."""
+        self._fleet_seen = True
+        self._adapter_seen = True
+        self.route_adapter_hits.inc()
+
     def on_alert_demotion(self) -> None:
         """One routing decision skipped the best affinity replica because
         its per-replica burn alert was firing."""
@@ -364,10 +444,18 @@ class ServeMetrics:
         if span and span > 0:
             self.tokens_per_sec.set(self.tokens.value / span)
 
-    def on_complete(self, cls: str | None = None) -> None:
+    def on_complete(self, cls: str | None = None,
+                    adapter: str | None = None) -> None:
         self.completed.inc()
         if cls is not None:
             self._class_counter("serve_class_completed_total", cls).inc()
+        if adapter is not None:
+            # the per-tenant split, labelled by adapter name (tenants are
+            # not traffic classes)
+            self._adapter_seen = True
+            self._adapter_names.add(adapter)
+            self.registry.counter("serve_class_adapter",
+                                  labels={"class": adapter}).inc()
 
     def on_prefill_chunk(self, chunk_ms: float) -> None:
         """One prefill chunk's wall latency."""
@@ -390,12 +478,13 @@ class ServeMetrics:
     def on_tick(self, queue_depth: int, active: int, total: int,
                 decode_active: int | None = None,
                 block_stats: dict | None = None,
-                tp: int | None = None, spec_k: int | None = None) -> None:
+                tp: int | None = None, spec_k: int | None = None,
+                adapter_stats: dict | None = None) -> None:
         """End-of-tick gauges. ``decode_active`` is the occupancy the
         tick's batched decode ran at (sampled before same-tick
         retirement); ticks without a decode skip the occupancy sample.
         ``block_stats`` is ``PagedKVPool.stats()``; ``tp``/``spec_k`` the
-        deployment shape."""
+        deployment shape; ``adapter_stats`` ``AdapterStore.stats()``."""
         self.queue_depth.set(queue_depth)
         self.slots_active.set(active)
         self.slots_total.set(total)
@@ -403,6 +492,15 @@ class ServeMetrics:
             self._shape_seen = True
             self.tp_gauge.set(tp)
             self.spec_k_gauge.set(spec_k or 0)
+        if adapter_stats is not None:
+            self._adapter_seen = True
+            self.adapter_resident_bytes.set(adapter_stats["resident_bytes"])
+            sid = adapter_stats.get("store", 0)
+            delta = (adapter_stats["swaps_total"]
+                     - self._adapter_swaps_seen.get(sid, 0))
+            if delta > 0:
+                self.adapter_swaps.inc(delta)
+                self._adapter_swaps_seen[sid] = adapter_stats["swaps_total"]
         occ = active if decode_active is None else decode_active
         if occ and total:
             self.occupancy.observe(occ / total)
@@ -418,6 +516,17 @@ class ServeMetrics:
                 if delta > 0:
                     counter.inc(delta)
                     self._pool_counter_seen[key] = block_stats[key]
+            if "host_blocks" in block_stats:
+                self._host_seen = True
+                self.host_blocks.set(block_stats["host_blocks"])
+                self.host_bytes_resident.set(
+                    block_stats["host_bytes_resident"])
+                self.host_inflight.set(block_stats["host_inflight_blocks"])
+                for key, counter in self._host_counters.items():
+                    delta = block_stats[key] - self._host_counter_seen[key]
+                    if delta > 0:
+                        counter.inc(delta)
+                        self._host_counter_seen[key] = block_stats[key]
 
     # -- aggregation -------------------------------------------------------
 
@@ -525,6 +634,35 @@ class ServeMetrics:
                     "slots_active": int(self._pool_gauge(
                         "serve_pool_slots_active", pool).value),
                 } for pool in sorted(self._pool_names)}
+        if self._host_seen:
+            hc = self._host_counters
+            out.update({
+                "host_blocks": int(self.host_blocks.value),
+                "host_bytes_resident": int(self.host_bytes_resident.value),
+                "host_inflight_blocks": int(self.host_inflight.value),
+                "host_demotes": int(hc["host_demotes_total"].value),
+                "host_promotes": int(hc["host_promotes_total"].value),
+                "host_evictions": int(hc["host_evictions_total"].value),
+                "host_prefetch_hits": int(
+                    hc["host_prefetch_hits_total"].value),
+                "host_prefetch_misses": int(
+                    hc["host_prefetch_misses_total"].value),
+                "host_transfer_bytes": int(
+                    hc["host_transfer_bytes_total"].value),
+            })
+        if self._adapter_seen:
+            out.update({
+                "adapter_resident_bytes": int(
+                    self.adapter_resident_bytes.value),
+                "adapter_swaps": int(self.adapter_swaps.value),
+                "route_adapter_affinity_hits": int(
+                    self.route_adapter_hits.value),
+            })
+            if self._adapter_names:
+                out["per_adapter_completed"] = {
+                    a: int(self.registry.counter(
+                        "serve_class_adapter", labels={"class": a}).value)
+                    for a in sorted(self._adapter_names)}
         if self._classes:
             out["per_class"] = {cls: self.class_summary(cls)
                                 for cls in sorted(self._classes)}

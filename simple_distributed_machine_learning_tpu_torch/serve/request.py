@@ -46,8 +46,7 @@ class Request:
     ttft_deadline_s: float | None = None
     deadline_s: float | None = None
     # the LoRA adapter the request decodes under (journal key ``adp``);
-    # None = the base model, the only one the port serves until
-    # ROADMAP.md, Queue A, item 5.3
+    # None = the base model
     adapter: str | None = None
 
     # -- lifecycle (engine-owned) -----------------------------------------
@@ -75,6 +74,12 @@ class Request:
     # boarding order (set at admission): the priority scheduler's
     # newest-first victim pick
     _board_seq: int = -1
+    # the adapter bank row this request holds while it owns a slot (0 =
+    # the base row), pinned at boarding by the engine's admission gate
+    _adapter_row: int = 0
+    # the version-qualified prefix-cache namespace of its adapter
+    # (``AdapterStore.namespace_of``); None without an adapter store
+    _prefix_ns: bytes | None = None
 
     @property
     def resume_seq(self) -> np.ndarray:

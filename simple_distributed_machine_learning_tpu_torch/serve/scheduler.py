@@ -82,6 +82,14 @@ class FCFSScheduler:
             if not self.pool.can_admit(r) and not self._make_room(r):
                 self.queue.appendleft(r)
                 break
+            # the adapter gate runs after the pool accepts (a free slot
+            # makes a free bank row certain) and before the slot binds:
+            # it pins (uploading if needed) the request's bank row at this
+            # tick boundary and sets its prefix namespace
+            gate = getattr(self._engine, "_adapter_board", None)
+            if gate is not None and not gate(r):
+                self.queue.appendleft(r)
+                break
             r.slot = self.pool.acquire(r.rid)
             r.prefill_pos = self.pool.bind_seq(r)
             r.state = ACTIVE
@@ -131,6 +139,11 @@ class PriorityScheduler(FCFSScheduler):
 
     def _make_room(self, request: Request) -> bool:
         if self._engine is None:
+            return False
+        if self.pool.prefetch_blocked(request):
+            # an in-flight host->device upload covers this request's
+            # prefix: it boards when the upload lands, and preempting
+            # would destroy work for nothing
             return False
         victims = self._victims_below(request.priority)
         if not victims:

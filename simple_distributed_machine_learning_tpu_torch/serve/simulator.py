@@ -27,8 +27,11 @@ class TrafficClass:
     """One tenant/priority class of a multi-class workload: ``weight`` is
     its share of arrivals, ``priority`` feeds the scheduler, the SLO
     targets grade a run, ``max_new_tokens``/``prompt_lens`` override the
-    config-wide mix, the deadlines ride on each submission, and
-    ``shared_prefix=False`` opts out of the shared system prompt."""
+    config-wide mix, the deadlines ride on each submission,
+    ``shared_prefix=False`` opts out of the shared system prompt, and
+    ``adapter`` names the LoRA adapter every request of the class decodes
+    under (registered on the target before traffic starts; None = the
+    base model)."""
 
     name: str
     weight: float = 1.0
@@ -40,6 +43,7 @@ class TrafficClass:
     ttft_deadline_ms: float | None = None
     deadline_ms: float | None = None
     shared_prefix: bool = True
+    adapter: str | None = None
 
     def __post_init__(self):
         if not self.name:
@@ -186,6 +190,8 @@ def build_workload(sim: SimConfig, vocab: int) -> tuple[np.ndarray, list]:
                 spec["ttft_deadline_s"] = cls.ttft_deadline_ms / 1e3
             if cls.deadline_ms is not None:
                 spec["deadline_s"] = cls.deadline_ms / 1e3
+            if cls.adapter is not None:
+                spec["adapter"] = cls.adapter
         specs.append(spec)
     return arrivals, specs
 

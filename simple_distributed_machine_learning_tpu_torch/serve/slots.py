@@ -1,7 +1,6 @@
 """KV-cache pools: the serving engine's one device-resident state.
 
-Port of ``serve/slots.py``, two layouts with one slot discipline (the
-host offload tier waits for ROADMAP.md, Queue A, item 5.2):
+Port of ``serve/slots.py``, two layouts with one slot discipline:
 
 - :class:`PagedKVPool` — a global pool of fixed-size K/V *blocks*
   ``[L, n_blocks+1, H, block_size, dh]`` on the device (physical block 0
@@ -24,6 +23,35 @@ host offload tier waits for ROADMAP.md, Queue A, item 5.2):
 Invariants raise instead of corrupting a neighbour: no double occupancy,
 no double allocation or free, no write into a block another sequence
 still references.
+
+Prefix keys carry the request's adapter NAMESPACE (``_ns_of``): K/V
+computed under one LoRA adapter is wrong for every other, so tenants
+never share blocks; base requests keep the empty namespace.
+
+Host offload tier (paged, ``host_cache_blocks > 0``): LRU eviction of a
+cached prefix block demotes its rows to host RAM instead of discarding
+them, growing the effective prefix cache past device memory. The router
+probes the host registry too (:meth:`PagedKVPool.host_prefix_len`), and
+an affinity hit on a host-resident prefix starts an upload
+(:meth:`PagedKVPool.prefetch`) that lands after ``prefetch_ticks`` engine
+ticks (:meth:`PagedKVPool.advance_transfers`). Safety model, as the JAX
+package's: the uploaded keys are registered — visible to admission's
+prefix probe — only at completion; ``can_admit`` blocks a request whose
+prefix an in-flight upload covers, so no request boards against
+half-uploaded blocks; uploads draw only from free or reclaimable blocks,
+never below the outstanding reservations; and a key registered on the
+device while its upload flew wins (first writer), the upload's block
+going back to the free list.
+
+On the card a demoted block is copied, across every layer (``kc[:,
+block]``, strided: the layer axis leads), into a pinned host tensor by a
+blocking copy — the demotion runs inside a tick's allocation, before
+that tick's writes reach the victim block, and the blocking copy waits
+for every earlier write to it. An upload is a ``non_blocking`` copy from
+the pinned tensor back into ``kc[:, block]``, in stream order before the
+next program's reads. Host copies are torch CPU tensors (numpy has no
+fp8 types); a quantised pool's narrow data and its f32 scale planes
+travel together, and the round trip is bit-exact.
 """
 
 from __future__ import annotations
@@ -37,6 +65,24 @@ import torch
 from simple_distributed_machine_learning_tpu_torch._device import (
     resolve_device,
 )
+
+
+def _ns_of(request) -> bytes:
+    """The request's prefix-cache NAMESPACE: the engine's version-qualified
+    one (``_prefix_ns``, set from ``AdapterStore.namespace_of``; a
+    hot-swap changes it, orphaning the old version's keys), else the bare
+    adapter name's (a pool driven without the engine's adapter plumbing),
+    else the base model's empty one."""
+    ns = getattr(request, "_prefix_ns", None)
+    if ns is not None:
+        return ns
+    adapter = getattr(request, "adapter", None)
+    if adapter is None:
+        return b""
+    from simple_distributed_machine_learning_tpu_torch.serve.adapters import (
+        adapter_namespace,
+    )
+    return adapter_namespace(adapter)
 
 
 def kv_block_bytes(n_layers: int, n_heads: int, block_size: int,
@@ -138,6 +184,25 @@ class _SlotPoolBase:
     def unbind_seq(self, slot: int) -> None:
         """Release the slot's sequence state (dense: nothing)."""
 
+    # -- routing affinity (FleetRouter's signals) ------------------------
+
+    def shared_prefix_len(self, prompt, ns: bytes = b"") -> int:
+        """Prompt positions this pool could serve from registered prefix
+        blocks in namespace ``ns`` (the router's affinity signal). The
+        dense layout shares nothing: 0."""
+        return 0
+
+    def host_prefix_len(self, prompt, ns: bytes = b"") -> int:
+        """Prompt positions resident in this pool's host offload tier (the
+        router's second affinity signal). Pools without one: 0."""
+        return 0
+
+    def prefetch_blocked(self, request) -> bool:
+        """True while an in-flight host->device upload covers a prefix of
+        ``request``'s bind sequence: the one ``can_admit`` failure that
+        preemption can never fix. Pools without a host tier: never."""
+        return False
+
     def admit_shortfall(self, request) -> int:
         """Budget units ``request`` is short of admission beyond a free
         slot (dense: the row is the whole budget — 0)."""
@@ -178,10 +243,6 @@ class KVCachePool(_SlotPoolBase):
         """The full allocation, regardless of occupancy."""
         return self._bytes_total
 
-    def shared_prefix_len(self, prompt) -> int:
-        """The fleet router's affinity signal: dense rows share nothing."""
-        return 0
-
     def can_admit(self, request) -> bool:
         """One free slot IS the whole budget."""
         return self.n_free > 0
@@ -207,6 +268,9 @@ class PagedKVPool(_SlotPoolBase):
 
     ``kc``/``vc`` are torch tensors on ``device`` (None = ``"cuda"``), or
     ``models.gpt.QuantKV`` pairs for quantised dtypes.
+    ``host_cache_blocks > 0`` turns on the host offload tier of that many
+    blocks, whose uploads land ``prefetch_ticks`` ticks after they start
+    (module docstring).
     """
 
     TRASH = 0   # physical block 0: the garbage sink for non-decoding slots
@@ -214,8 +278,15 @@ class PagedKVPool(_SlotPoolBase):
     def __init__(self, n_layers: int, n_slots: int, n_heads: int,
                  max_len: int, head_dim: int, cache_dtype=None,
                  block_size: int = 16, n_blocks: int | None = None,
+                 host_cache_blocks: int = 0, prefetch_ticks: int = 1,
                  device=None) -> None:
         super().__init__(n_slots, max_len)
+        if host_cache_blocks < 0:
+            raise ValueError(
+                f"host_cache_blocks must be >= 0, got {host_cache_blocks}")
+        if prefetch_ticks < 1:
+            raise ValueError(
+                f"prefetch_ticks must be >= 1, got {prefetch_ticks}")
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         from simple_distributed_machine_learning_tpu_torch.models.gpt import (
@@ -270,10 +341,37 @@ class PagedKVPool(_SlotPoolBase):
         self._reserved = 0
         self.tables: list[list[int]] = [[] for _ in range(n_slots)]
         self._resv = np.zeros(n_slots, np.int64)
+        # per-slot prefix namespace, set at bind: register_prefix publishes
+        # under the scope the slot's probe matched in
+        self._slot_ns: list[bytes] = [b""] * n_slots
         # lifetime counters (ServeMetrics reads the deltas)
         self.prefix_hit_blocks_total = 0
         self.cow_copies_total = 0
         self.evictions_total = 0
+        # -- host offload tier (module docstring) -------------------------
+        self.host_cache_blocks = host_cache_blocks
+        self.prefetch_ticks = prefetch_ticks
+        # host_id -> {"keys": {key: fill}, "kc": ..., "vc": ...}, kc/vc one
+        # block's rows as CPU tensors (pinned on the card), LRU order
+        self._host: collections.OrderedDict[int, dict] = (
+            collections.OrderedDict())
+        self._host_prefix: dict[bytes, tuple[int, int]] = {}
+        self._next_host_id = 0
+        # in-flight uploads: {"entries": [(key, fill, host kc, host vc)],
+        # "blocks": [phys], "ticks_left": int}
+        self._inflight: list[dict] = []
+        # uploads issued on the card and not yet known complete: (event,
+        # their pinned sources). Holding the sources here until the event
+        # has passed keeps them alive for the copy even after the host
+        # LRU dropped their entry (the caching host allocator also holds
+        # a freed pinned block back until its recorded use completes)
+        self._landing: list[tuple] = []
+        self.host_demotes_total = 0
+        self.host_promotes_total = 0
+        self.host_evictions_total = 0
+        self.host_prefetch_hits_total = 0
+        self.host_prefetch_misses_total = 0
+        self.host_transfer_bytes_total = 0
 
     # -- capacity ----------------------------------------------------------
 
@@ -307,8 +405,12 @@ class PagedKVPool(_SlotPoolBase):
 
     def can_admit(self, request) -> bool:
         """A free slot AND enough blocks for the request's worst-case
-        budget after prefix sharing."""
-        return bool(self._free) and self.admit_shortfall(request) == 0
+        budget after prefix sharing, AND no in-flight upload covering its
+        prefix (:meth:`prefetch_blocked`: it waits the tick or two for
+        the registered blocks instead of recomputing, or sharing
+        half-uploaded rows)."""
+        return (bool(self._free) and self.admit_shortfall(request) == 0
+                and not self.prefetch_blocked(request))
 
     def admit_shortfall(self, request) -> int:
         """Blocks ``request`` is short of admission (0 = fits). Shared
@@ -348,7 +450,9 @@ class PagedKVPool(_SlotPoolBase):
                 f"bind_seq on slot {slot} with a live block table or "
                 f"reservation — the previous sequence was never unbound")
         prompt = np.asarray(request.resume_seq)
-        shared_len, chain = self._probe_prefix(prompt)
+        ns = _ns_of(request)
+        self._slot_ns[slot] = ns
+        shared_len, chain = self._probe_prefix(prompt, ns)
         for block, _fill in chain:
             self._ref_block(block)
             self.tables[slot].append(block)
@@ -375,6 +479,7 @@ class PagedKVPool(_SlotPoolBase):
                 del self._block_writer[block]
             self._unref_block(block)
         self.tables[slot] = []
+        self._slot_ns[slot] = b""
         self._reserved -= int(self._resv[slot])
         self._resv[slot] = 0
 
@@ -420,12 +525,7 @@ class PagedKVPool(_SlotPoolBase):
         if self._free_blocks:
             block = self._free_blocks.pop()
         elif self._lru:
-            block, _ = self._lru.popitem(last=False)   # evict LRU cached
-            for key in list(self._cached.get(block, ())):
-                del self._prefix[key]
-            self._cached.pop(block, None)
-            self._registry_epoch += 1
-            self.evictions_total += 1
+            block = self._evict_lru()
         else:                       # pragma: no cover - guard
             raise RuntimeError(
                 "block pool exhausted despite reservation accounting — "
@@ -437,6 +537,20 @@ class PagedKVPool(_SlotPoolBase):
         self._block_writer[block] = slot
         self._resv[slot] -= 1
         self._reserved -= 1
+        return block
+
+    def _evict_lru(self) -> int:
+        """Reclaim the oldest cached block: with a host tier its rows and
+        keys demote to host RAM BEFORE the keys drop, so the prefix
+        survives there; then its device keys go."""
+        block, _ = self._lru.popitem(last=False)
+        if self.host_cache_blocks:
+            self._demote(block)
+        for key in list(self._cached.get(block, ())):
+            del self._prefix[key]
+        self._cached.pop(block, None)
+        self._registry_epoch += 1
+        self.evictions_total += 1
         return block
 
     def _ref_block(self, block: int) -> None:
@@ -458,11 +572,12 @@ class PagedKVPool(_SlotPoolBase):
 
     # -- prefix registry ---------------------------------------------------
 
-    def shared_prefix_len(self, prompt) -> int:
+    def shared_prefix_len(self, prompt, ns: bytes = b"") -> int:
         """The fleet router's affinity signal: the longest registered
-        prefix of ``prompt`` (in positions) this pool holds. A pure probe
-        (no referencing, no memo), so the router may ask every replica."""
-        return self._probe_prefix(np.asarray(prompt, np.int32))[0]
+        prefix of ``prompt`` (in positions) this pool holds in namespace
+        ``ns``. A pure probe (no referencing, no memo), so the router may
+        ask every replica."""
+        return self._probe_prefix(np.asarray(prompt, np.int32), ns)[0]
 
     def _probe_cached(self, request) -> tuple[int, list[tuple[int, int]]]:
         """Probe memoised on the request, keyed by the registry epoch and
@@ -473,27 +588,30 @@ class PagedKVPool(_SlotPoolBase):
         memo = getattr(request, "_prefix_probe", None)
         if memo is not None and memo[0] == key:
             return memo[1], memo[2]
-        shared_len, chain = self._probe_prefix(seq)
+        shared_len, chain = self._probe_prefix(seq, _ns_of(request))
         request._prefix_probe = (key, shared_len, chain)
         return shared_len, chain
 
-    def _probe_prefix(self, prompt: np.ndarray
-                      ) -> tuple[int, list[tuple[int, int]]]:
-        """Longest registered chain prefixing ``prompt`` (capped at
-        ``prompt_len - 1``: at least one position is always recomputed).
-        Returns ``(shared_len, [(block, fill), ...])`` without mutating."""
+    def _walk(self, registry: dict, prompt, ns: bytes
+              ) -> tuple[int, list[tuple[bytes, int, int]]]:
+        """Longest chain of ``registry`` keys prefixing ``prompt`` within
+        namespace ``ns``, block by block (the longest key first in each;
+        capped at ``prompt_len - 1``: at least one position is always
+        recomputed). Returns ``(shared_len, [(key, fill, registry[key][0]),
+        ...])`` without mutating."""
         prompt = np.asarray(prompt, np.int32)
         cap = int(prompt.shape[0]) - 1
         bs = self.block_size
-        chain: list[tuple[int, int]] = []
+        chain: list[tuple[bytes, int, int]] = []
         shared = 0
         j = 0
         while True:
             hit = None
             for length in range(min(cap, (j + 1) * bs), j * bs, -1):
-                entry = self._prefix.get(prompt[:length].tobytes())
+                key = ns + prompt[:length].tobytes()
+                entry = registry.get(key)
                 if entry is not None:
-                    hit = (entry[0], length - j * bs)
+                    hit = (key, length - j * bs, entry[0])
                     break
             if hit is None:
                 break
@@ -504,16 +622,25 @@ class PagedKVPool(_SlotPoolBase):
             j += 1
         return shared, chain
 
+    def _probe_prefix(self, prompt: np.ndarray, ns: bytes = b""
+                      ) -> tuple[int, list[tuple[int, int]]]:
+        """The device registry's chain for ``prompt`` in namespace ``ns``:
+        ``(shared_len, [(block, fill), ...])``."""
+        shared, chain = self._walk(self._prefix, prompt, ns)
+        return shared, [(block, fill) for _key, fill, block in chain]
+
     def register_prefix(self, slot: int, prompt: np.ndarray) -> None:
         """Publish ``slot``'s prefilled prompt blocks: one key per full
-        block boundary plus the partial tail. First writer wins."""
+        block boundary plus the partial tail, under the slot's bind-time
+        namespace. First writer wins."""
         prompt = np.asarray(prompt, np.int32)
+        ns = self._slot_ns[slot]
         bs = self.block_size
         table = self.tables[slot]
         plen = int(prompt.shape[0])
         for j in range(self.blocks_for(plen)):
             fill = min(plen - j * bs, bs)
-            key = prompt[:j * bs + fill].tobytes()
+            key = ns + prompt[:j * bs + fill].tobytes()
             if key in self._prefix:
                 continue
             block = table[j]
@@ -533,6 +660,191 @@ class PagedKVPool(_SlotPoolBase):
                     del self._lru[block]
                     self._free_blocks.append(block)
 
+    # -- host offload tier -------------------------------------------------
+
+    def _block_to_host(self, cache, block: int):
+        """One physical block's rows, every layer, as CPU tensors (a
+        :class:`QuantKV`'s narrow data and f32 scales together). On the
+        card: a blocking copy of the strided ``[:, block]`` view into
+        pinned memory, which waits for every earlier write to the block."""
+        from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+            QuantKV,
+        )
+        if isinstance(cache, QuantKV):
+            return QuantKV(self._block_to_host(cache.data, block),
+                           self._block_to_host(cache.scale, block))
+        rows = cache[:, block]
+        host = torch.empty(rows.shape, dtype=rows.dtype,
+                           pin_memory=rows.is_cuda)
+        host.copy_(rows)
+        return host
+
+    def _block_from_host(self, cache, block: int, host) -> None:
+        """Write a host copy back into physical ``block`` in place (the
+        pair together for a :class:`QuantKV`); ``non_blocking`` from
+        pinned memory on the card, in stream order before the next
+        program's reads."""
+        from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+            QuantKV,
+        )
+        if isinstance(cache, QuantKV):
+            self._block_from_host(cache.data, block, host.data)
+            self._block_from_host(cache.scale, block, host.scale)
+            return
+        cache[:, block].copy_(host, non_blocking=host.is_pinned())
+
+    def _demote(self, block: int) -> None:
+        """Copy an evicted cached block's rows and its prefix keys into the
+        host tier before the device registry forgets them. A key already
+        host-resident is re-pointed at the fresh copy (the key IS the
+        token prefix, which fully determines the rows); overflow drops the
+        LRU host entry (``host_evictions_total``)."""
+        keys = {k: self._prefix[k][1] for k in self._cached.get(block, ())}
+        if not keys:                # pragma: no cover - LRU blocks are cached
+            return
+        hid = self._next_host_id
+        self._next_host_id += 1
+        for key in keys:
+            old = self._host_prefix.get(key)
+            if old is not None:
+                self._drop_host_key(key, old[0])
+        self._host[hid] = {"keys": keys,
+                           "kc": self._block_to_host(self.kc, block),
+                           "vc": self._block_to_host(self.vc, block)}
+        for key, fill in keys.items():
+            self._host_prefix[key] = (hid, fill)
+        self.host_demotes_total += 1
+        self.host_transfer_bytes_total += self.bytes_per_block
+        while len(self._host) > self.host_cache_blocks:
+            ev_id, ev = self._host.popitem(last=False)
+            for key in ev["keys"]:
+                if self._host_prefix.get(key, (None, 0))[0] == ev_id:
+                    del self._host_prefix[key]
+            self.host_evictions_total += 1
+
+    def _drop_host_key(self, key: bytes, hid: int) -> None:
+        entry = self._host.get(hid)
+        if entry is None:           # pragma: no cover - guard
+            return
+        entry["keys"].pop(key, None)
+        if not entry["keys"]:
+            del self._host[hid]
+
+    def host_prefix_len(self, prompt, ns: bytes = b"") -> int:
+        """The host-tier affinity signal: the longest host-resident prefix
+        of ``prompt`` (in positions) in namespace ``ns``. A pure probe."""
+        return self._probe_host(np.asarray(prompt, np.int32), ns)[0]
+
+    def _probe_host(self, prompt: np.ndarray, ns: bytes = b""
+                    ) -> tuple[int, list[tuple[bytes, int, int]]]:
+        """The HOST registry's chain (its keys are demoted device keys,
+        namespace included): ``(shared_len, [(key, fill, host_id),
+        ...])``."""
+        return self._walk(self._host_prefix, prompt, ns)
+
+    def prefetch(self, prompt, ns: bytes = b"") -> bool:
+        """Routing-time upload: start moving ``prompt``'s host-resident
+        prefix blocks back to the device so they are registered before the
+        request boards. True on a HIT (an upload started, or the same keys
+        are already in flight); False (a MISS) when the host tier adds
+        nothing past the device registry or availability cannot fund the
+        upload without touching reservations. Free blocks fund first,
+        then reclaimable LRU blocks by the allocator's evict path, with
+        demotion. The keys stay invisible until :meth:`advance_transfers`
+        completes them."""
+        if not self.host_cache_blocks:
+            return False
+        prompt = np.asarray(prompt, np.int32)
+        host_len, chain = self._probe_host(prompt, ns)
+        dev_len = self._probe_prefix(prompt, ns)[0]
+        chain = [(k, f, hid) for (k, f, hid) in chain
+                 if k not in self._prefix]
+        if host_len <= dev_len or not chain:
+            self.host_prefetch_misses_total += 1
+            return False
+        inflight_keys = {k for t in self._inflight
+                         for (k, _f, _hk, _hv) in t["entries"]}
+        fresh = [(k, f, hid) for (k, f, hid) in chain
+                 if k not in inflight_keys]
+        if not fresh:
+            return True             # already on its way; counted at start
+        n = len(fresh)
+        if n > self.blocks_available:
+            self.host_prefetch_misses_total += 1
+            return False
+        # capture the host tensors BEFORE claiming device blocks: claiming
+        # may evict-and-demote LRU victims, and the demotion's host-LRU
+        # overflow could drop the very entries this upload reads from
+        entries = []
+        for key, fill, hid in fresh:
+            e = self._host[hid]
+            self._host.move_to_end(hid)        # a prefetch touch is a use
+            entries.append((key, fill, e["kc"], e["vc"]))
+        blocks = []
+        for _ in range(n):
+            blocks.append(self._free_blocks.pop() if self._free_blocks
+                          else self._evict_lru())
+        self._inflight.append({"entries": entries, "blocks": blocks,
+                               "ticks_left": self.prefetch_ticks})
+        self.host_prefetch_hits_total += 1
+        return True
+
+    def prefetch_blocked(self, request) -> bool:
+        if not self._inflight:
+            return False
+        seq_b = _ns_of(request) + np.asarray(
+            request.resume_seq, np.int32).tobytes()
+        for t in self._inflight:
+            for key, _f, _hk, _hv in t["entries"]:
+                if len(key) < len(seq_b) and seq_b.startswith(key):
+                    return True
+        return False
+
+    def advance_transfers(self) -> None:
+        """One engine tick of upload progress: count every in-flight
+        upload down and COMPLETE those reaching zero — the rows land, the
+        keys register (epoch bump), the blocks join the reclaimable LRU as
+        cached ref-0 blocks, as if a local request had registered them.
+        The paged engine calls this at the top of every step, before
+        admission, so a request blocked on its upload boards the tick the
+        blocks become real. A key registered on the device while the
+        upload flew wins, and the upload's block goes back to the free
+        list."""
+        self._landing = [(ev, src) for ev, src in self._landing
+                         if not ev.query()]
+        if not self._inflight:
+            return
+        done = [t for t in self._inflight if t["ticks_left"] <= 1]
+        for t in self._inflight:
+            t["ticks_left"] -= 1
+        self._inflight = [t for t in self._inflight if t["ticks_left"] > 0]
+        for t in done:
+            blocks = list(t["blocks"])
+            sources = []
+            for key, fill, hk, hv in t["entries"]:
+                block = blocks.pop(0)
+                if key in self._prefix:
+                    self._free_blocks.append(block)
+                    continue
+                self._block_from_host(self.kc, block, hk)
+                self._block_from_host(self.vc, block, hv)
+                sources.append((hk, hv))
+                self._prefix[key] = (block, fill)
+                self._cached.setdefault(block, set()).add(key)
+                self._lru[block] = None        # cached ref-0, reclaimable
+                self._registry_epoch += 1
+                self.host_promotes_total += 1
+                self.host_transfer_bytes_total += self.bytes_per_block
+            if sources and self.device.type == "cuda":
+                ev = torch.cuda.Event()
+                ev.record()
+                self._landing.append((ev, sources))
+
+    def host_bytes_resident(self) -> int:
+        """Bytes the host tier pins in host RAM: host blocks x
+        ``bytes_per_block`` (the :func:`kv_block_bytes` formula)."""
+        return len(self._host) * self.bytes_per_block
+
     # -- tick inputs -------------------------------------------------------
 
     def device_table(self, slot: int) -> np.ndarray:
@@ -544,7 +856,7 @@ class PagedKVPool(_SlotPoolBase):
         return t
 
     def stats(self) -> dict:
-        return {
+        s = {
             "blocks_total": self.n_blocks,
             "blocks_in_use": self.blocks_in_use,
             "blocks_cached": self.blocks_cached,
@@ -554,3 +866,18 @@ class PagedKVPool(_SlotPoolBase):
             "cow_copies_total": self.cow_copies_total,
             "evictions_total": self.evictions_total,
         }
+        if self.host_cache_blocks:
+            s.update({
+                "host_blocks": len(self._host),
+                "host_bytes_resident": self.host_bytes_resident(),
+                "host_inflight_blocks": sum(
+                    len(t["blocks"]) for t in self._inflight),
+                "host_demotes_total": self.host_demotes_total,
+                "host_promotes_total": self.host_promotes_total,
+                "host_evictions_total": self.host_evictions_total,
+                "host_prefetch_hits_total": self.host_prefetch_hits_total,
+                "host_prefetch_misses_total":
+                    self.host_prefetch_misses_total,
+                "host_transfer_bytes_total": self.host_transfer_bytes_total,
+            })
+        return s

@@ -59,7 +59,6 @@ import time
 
 import numpy as np
 
-from simple_distributed_machine_learning_tpu_torch import _roadmap
 from simple_distributed_machine_learning_tpu_torch.resilience.faults import (
     DeviceWedged,
     EngineCrash,
@@ -154,23 +153,39 @@ def engine_factory(stages, cfg, *, metrics=None, clock=time.monotonic,
     quantised cache widened to f32. Greedy streams are equal on every
     layout. ``scheduler`` must be a class/factory (each rebuilt engine
     builds its own over its own pool); ``metrics``/``clock``/``device``
-    are shared by every rebuild."""
+    are shared by every rebuild.
+
+    ``adapter_rank > 0`` turns on multi-tenant LoRA serving: every build,
+    degraded ones included (the fallback drops layout features, never
+    tenants), gets a fresh ``AdapterStore`` over one shared
+    ``adapter_host`` dict, so registered adapters survive crash rebuilds
+    while device residency resets with the engine."""
     from simple_distributed_machine_learning_tpu_torch.models.gpt import (
         _is_quantized_dtype,
     )
     from simple_distributed_machine_learning_tpu_torch.serve.engine import (
         InferenceEngine,
     )
-    if adapter_rank > 0 or adapter_host is not None:
-        raise _roadmap.not_ported("engine_factory(adapter_rank=): LoRA "
-                                  "adapters", _roadmap.SERVE_EXTENSIONS)
+    from simple_distributed_machine_learning_tpu_torch.serve.adapters import (
+        AdapterStore,
+    )
+    if adapter_rank > 0 and adapter_host is None:
+        adapter_host = {}        # one dict across every rebuild
+
+    def _adapter_kw() -> dict:
+        if adapter_rank <= 0:
+            return {}
+        return {"adapters": AdapterStore(cfg, adapter_rank,
+                                         kw.get("n_slots", 4),
+                                         host=adapter_host, device=device)}
 
     def factory(degraded: bool) -> InferenceEngine:
         if not degraded:
             return InferenceEngine(
                 stages, cfg, metrics=metrics, clock=clock,
                 scheduler=scheduler, mesh=mesh, draft_stages=draft_stages,
-                draft_cfg=draft_cfg, spec_k=spec_k, device=device, **kw)
+                draft_cfg=draft_cfg, spec_k=spec_k, device=device,
+                **_adapter_kw(), **kw)
         dcfg = cfg
         if getattr(cfg, "n_tensor_parallel", 1) > 1:
             dcfg = dataclasses.replace(cfg, n_tensor_parallel=1)
@@ -182,7 +197,8 @@ def engine_factory(stages, cfg, *, metrics=None, clock=time.monotonic,
             dkw["cache_dtype"] = None
         return InferenceEngine(stages, dcfg, kv_layout="dense",
                                metrics=metrics, clock=clock,
-                               scheduler=scheduler, device=device, **dkw)
+                               scheduler=scheduler, device=device,
+                               **_adapter_kw(), **dkw)
 
     return factory
 
@@ -319,20 +335,20 @@ class ServeSupervisor:
             return self._shed_at_admission(
                 rid, prompt, max_new_tokens, temperature, top_k, top_p,
                 eos_id, seed, cls, priority, ttft_deadline_s, deadline_s,
-                reason, now)
+                reason, now, adapter=adapter)
         self._user_cb[rid] = on_token
         self.journal.log_submit(
             rid=rid, prompt=prompt, max_new=max_new_tokens,
             temp=temperature, top_k=top_k, top_p=top_p, eos=eos_id,
             seed=seed, cls=cls, prio=priority, ttft_dl=ttft_deadline_s,
-            dl=deadline_s, t=now, tick=self.tick)
+            dl=deadline_s, t=now, tick=self.tick, adapter=adapter)
         try:
             r = self.engine.submit(
                 prompt, max_new_tokens, temperature=temperature,
                 top_k=top_k, top_p=top_p, eos_id=eos_id, seed=seed,
                 on_token=self._on_token, arrival_time=now, cls=cls,
                 priority=priority, ttft_deadline_s=ttft_deadline_s,
-                deadline_s=deadline_s)
+                deadline_s=deadline_s, adapter=adapter)
         except RECOVERABLE as e:
             # the serve.admit crash: the journal already carries this
             # submission, so recovery rebuilds and re-admits it
@@ -403,7 +419,16 @@ class ServeSupervisor:
             self.trace.flush()
 
     def register_adapter(self, name: str, weights: dict) -> None:
-        raise _roadmap.not_ported("LoRA adapters", _roadmap.SERVE_EXTENSIONS)
+        """Add or hot-swap a named LoRA adapter (host side; the next
+        admission of the name uploads it at a tick boundary). It lands in
+        the factory's shared host dict, so it survives crash rebuilds: a
+        recovered request re-admits onto the same tenant."""
+        store = getattr(self.engine, "_adapters", None)
+        if store is None:
+            raise ValueError(
+                "this supervisor's engine was built without an "
+                "AdapterStore — pass adapter_rank= to engine_factory")
+        store.register(name, weights)
 
     # -- the fleet's half (serve/fleet.py) ---------------------------------
 
@@ -630,7 +655,8 @@ class ServeSupervisor:
 
     def _shed_at_admission(self, rid, prompt, max_new, temperature, top_k,
                            top_p, eos_id, seed, cls, priority, ttft_dl, dl,
-                           reason: str, now: float) -> Request:
+                           reason: str, now: float,
+                           adapter: str | None = None) -> Request:
         """A structured rejection: the handle exists (``SHED``) but the
         engine never saw it. The rid is consumed, and both records land so
         a cold recovery accounts for it."""
@@ -639,7 +665,7 @@ class ServeSupervisor:
         r = Request(rid=rid, prompt=prompt, max_new_tokens=max_new,
                     temperature=temperature, top_k=top_k, top_p=top_p,
                     eos_id=eos_id, seed=seed, cls=cls, priority=priority,
-                    ttft_deadline_s=ttft_dl, deadline_s=dl)
+                    ttft_deadline_s=ttft_dl, deadline_s=dl, adapter=adapter)
         r.submit_time = now
         r.done_time = now
         r.state = SHED
@@ -647,7 +673,8 @@ class ServeSupervisor:
         self.journal.log_submit(
             rid=rid, prompt=prompt, max_new=max_new, temp=temperature,
             top_k=top_k, top_p=top_p, eos=eos_id, seed=seed, cls=cls,
-            prio=priority, ttft_dl=ttft_dl, dl=dl, t=now, tick=self.tick)
+            prio=priority, ttft_dl=ttft_dl, dl=dl, t=now, tick=self.tick,
+            adapter=adapter)
         self.journal.log_shed(rid=rid, reason=reason, t=now, tick=self.tick)
         self.requests[rid] = r
         self._sheds_since_step += 1

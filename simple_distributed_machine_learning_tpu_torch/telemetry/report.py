@@ -27,9 +27,10 @@ This module is deliberately stdlib-only (``json``/``os``/``glob``/
 whole job; no device, registry or engine state is touched. (Running it
 via ``python -m`` still executes the package ``__init__``, which imports
 torch — import :func:`collect`/:func:`render` directly for a torch-free
-consumer.) Blocks of features the port has not ported yet (the host tier,
-adapters, the training sentinel, KV drift) render from their records when
-a directory holds them and are otherwise absent. Exit codes: 0 on success, 2 when the directory is missing or
+consumer.) Blocks of optional features (the host tier, adapters, the
+training sentinel, and KV drift, which the port records only once the
+analyzer is ported) render from their records when a directory holds
+them and are otherwise absent. Exit codes: 0 on success, 2 when the directory is missing or
 holds nothing reportable.
 """
 

@@ -159,18 +159,11 @@ def test_cli_metrics_json(tmp_path):
     (["--chaos-stages", "2,1"], "item 6"),
     (["--telemetry-dir", "/tmp/t"], "item 6"),
     (["--profile", "/tmp/p"], "item 6"),
-    (["--scenario", "offload-churn"], "item 5"),
-    (["--scenario", "hot-adapter-churn"], "item 5"),
     (["--telemetry-every", "2"], "item 6"),
     (["--peer-timeout", "30"], "item 6"),
-    (["--serve-prefetch-ticks", "2"], "item 5"),
-    (["--serve-host-blocks", "4"], "item 5"),
-    (["--serve-adapters", "2"], "item 5"),
     (["--lint"], "item 7"),
     (["--lint-only"], "item 7"),
     (["--serve-tp", "2"], "item 6"),
-    (["--serve-adapter-rank", "2"], "item 5"),
-    (["--serve-adapters", "2", "--serve-sim", "4"], "item 5"),
 ])
 def test_unported_flags_exit_naming_their_item(flag, item):
     with pytest.raises(SystemExit) as e:
@@ -205,9 +198,19 @@ def test_unported_flags_exit_naming_their_item(flag, item):
                              "burst-interactive, burst-slow-tick, "
                              "crash-serve, disagg-prefill-heavy, "
                              "fleet-autoscale-diurnal, fleet-replica-loss, "
-                             "handoff-replica-loss, hot-prefix-skew, "
-                             "multi-tenant, overload-shed, "
-                             r"steady \(or 'list'\)$"),
+                             "handoff-replica-loss, hot-adapter-churn, "
+                             "hot-prefix-skew, multi-tenant, offload-churn, "
+                             r"overload-shed, steady \(or 'list'\)$"),
+    # the host tier's and the adapters' checks, in the JAX CLI's words
+    (["--model", "gpt", "--serve-sim", "4", "--serve-host-blocks", "-1"],
+     r"^--serve-host-blocks must be >= 0 \(0 = no host tier\), got -1$"),
+    (["--model", "gpt", "--serve-sim", "4", "--serve-prefetch-ticks", "0"],
+     "^--serve-prefetch-ticks must be >= 1, got 0$"),
+    (["--model", "gpt", "--serve-sim", "4", "--serve-adapters", "-1"],
+     r"^--serve-adapters must be >= 0 \(0 = base model only\), got -1$"),
+    (["--model", "gpt", "--serve-sim", "4", "--serve-adapters", "2",
+      "--serve-adapter-rank", "0"],
+     "^--serve-adapter-rank must be >= 1, got 0$"),
 ])
 def test_bad_values_exit_with_one_line(argv, match):
     with pytest.raises(SystemExit, match=match):
@@ -324,7 +327,7 @@ def test_cli_scenario_prints_the_jax_lines(capsys, monkeypatch):
         "| burst-slow-tick", "| crash-serve", "| overload-shed",
         "| fleet-replica-loss", "| hot-prefix-skew",
         "| fleet-autoscale-diurnal", "| disagg-prefill-heavy",
-        "| handoff-replica-loss"]
+        "| offload-churn", "| hot-adapter-churn", "| handoff-replica-loss"]
     jcli.main(["--rank", "0", "--scenario", "list"])
     assert set(lines) <= set(capsys.readouterr().out.splitlines())
 
@@ -419,6 +422,58 @@ def test_cli_fleet_prints_the_jax_lines(capsys, monkeypatch, tmp_path,
         assert "8 request(s)" in out
     else:
         assert rec["fleet_handoffs"] == 8
+
+
+@pytest.mark.parametrize("extra,want", [
+    (["--serve-replicas", "1", "--serve-host-blocks", "8",
+      "--serve-prefetch-ticks", "2"], r"^\| serve: host tier \d+ block"),
+    (["--serve-adapters", "2"], r"^\| serve: adapters — \d+ bank bytes"),
+    (["--serve-adapters", "2", "--serve-adapter-rank", "2",
+      "--serve-replicas", "2"], r"^\| serve: adapters — \d+ bank bytes"),
+], ids=["host-tier", "adapters", "adapters-fleet"])
+def test_cli_host_tier_and_adapters_print_the_jax_lines(capsys, monkeypatch,
+                                                        extra, want):
+    """``--serve-sim 8`` with the host tier (through a fleet: the JAX CLI
+    prints its line there) or with LoRA tenants prints the JAX CLI's
+    lines, every request completed, the tenants' completions summing to
+    the trace."""
+    jcli = _jax_cli(monkeypatch)
+    argv = ["--model", "gpt", "--serve-sim", "8"] + extra
+    main(BASE + argv)
+    ours = capsys.readouterr().out.splitlines()
+    jcli.main(["--rank", "0", "--stages", "1"] + argv)
+    ref = [ln for ln in capsys.readouterr().out.splitlines()
+           if "kv drift" not in ln]
+
+    def mask(lines):        # each run's own temporary journal directory
+        return _skeleton([re.sub(r"\(journals \S+/", "(journals T/", ln)
+                          for ln in lines])
+
+    assert mask(ours) == mask(ref)
+    assert any(re.match(r"^\| serve: 8/8 requests completed", ln)
+               for ln in ours)
+    line = next(ln for ln in ours if re.match(want, ln))
+    if "--serve-adapters" in extra:
+        assert "| serve: 2 LoRA tenant(s) rank" in "\n".join(ours)
+        done = re.search(r"per-tenant completed (\{.*\})", line)[1]
+        assert sum(eval(done).values()) == 8
+
+
+@pytest.mark.parametrize("name,want", [
+    ("offload-churn", "24/24 completed"),
+    ("hot-adapter-churn", "18/18 completed"),
+])
+def test_cli_host_tier_and_adapter_scenarios_print_the_jax_lines(
+        capsys, monkeypatch, name, want):
+    """The two scenarios through the CLI print exactly the JAX CLI's
+    lines (the virtual clock makes every number equal)."""
+    jcli = _jax_cli(monkeypatch)
+    main(BASE + ["--scenario", name])
+    ours = capsys.readouterr().out
+    jcli.main(["--rank", "0", "--scenario", name])
+    assert ours == capsys.readouterr().out
+    assert want in ours
+    assert ours.splitlines()[-1] == "| scenario: SLO ATTAINED"
 
 
 def test_cli_fleet_scenario_prints_the_jax_lines(capsys, monkeypatch):

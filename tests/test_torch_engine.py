@@ -32,6 +32,7 @@ from simple_distributed_machine_learning_tpu_torch.interop import (
 from simple_distributed_machine_learning_tpu_torch.models import gpt as tgpt
 from simple_distributed_machine_learning_tpu_torch.ops.random import key_data
 from simple_distributed_machine_learning_tpu_torch.serve import (
+    AdapterStore,
     DrainTimeout,
     InferenceEngine,
     ServeMetrics,
@@ -175,22 +176,36 @@ def test_engine_defaults_to_cuda_and_raises_without_it(weights):
         InferenceEngine(tst, tcfg)
 
 
-@pytest.mark.parametrize("kw", [
+@pytest.mark.parametrize("kw,item", [
     # speculative decoding runs on the paged target pool; over the dense
     # slot layout (ported: the serve supervisor's fallback) it waits for
     # the dense verify programs (item 5)
-    dict(kv_layout="dense", draft_stages=object(), draft_cfg=object(),
-         spec_k=2),
-    dict(mesh=object()),
-    dict(adapters=object()),
-    dict(host_cache_blocks=4),
-    dict(prefetch_ticks=2),
-    dict(lint=True),
+    (dict(kv_layout="dense", draft_stages=object(), draft_cfg=object(),
+          spec_k=2), "item 5"),
+    (dict(mesh=object()), "item 6"),
+    # the adapters and the host tier are ported: they build and serve
+    (dict(adapters=True), None),
+    (dict(host_cache_blocks=4), None),
+    (dict(host_cache_blocks=4, prefetch_ticks=2), None),
+    (dict(lint=True), "item 7"),
 ], ids=["speculative", "tp", "adapters", "host-tier", "prefetch", "lint"])
-def test_unported_engine_knobs_raise_with_roadmap_item(weights, kw):
+def test_unported_engine_knobs_raise_with_roadmap_item(weights, kw, item):
     _, _, _, tcfg, tst, tparams = weights
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        InferenceEngine(tst, tcfg, params=tparams, device="cpu", **kw)
+    if item is not None:
+        with pytest.raises(NotImplementedError,
+                           match=rf"ROADMAP\.md, Queue A: {item}"):
+            InferenceEngine(tst, tcfg, params=tparams, device="cpu", **kw)
+        return
+    if kw.get("adapters"):
+        kw = dict(adapters=AdapterStore(tcfg, 2, 4, device="cpu"))
+    eng = InferenceEngine(tst, tcfg, params=tparams, device="cpu", **kw)
+    h = eng.submit(np.arange(5) % 64, max_new_tokens=4, seed=3)
+    eng.drain()
+    solo = tgpt.make_cached_decoder(tst, tcfg, 5, 4, device="cpu")(
+        tparams, (np.arange(5) % 64)[None].astype(np.int32), key_data(3))
+    assert h.tokens == solo[0, 5:].tolist()
+    assert eng.pool.host_cache_blocks == kw.get("host_cache_blocks", 0)
+    assert eng.pool.prefetch_ticks == kw.get("prefetch_ticks", 1)
 
 
 @pytest.mark.parametrize("cfg_kw", [dict(n_experts=4),
@@ -203,8 +218,15 @@ def test_unported_model_configs_raise_in_the_engine(weights, cfg_kw):
 
 
 def test_submit_with_adapter_raises(weights):
+    """Without an AdapterStore a named adapter is refused with the JAX
+    engine's message; with one, an unregistered name is a KeyError."""
     eng = _port_engine(weights)
-    with pytest.raises(NotImplementedError, match="adapters"):
+    with pytest.raises(ValueError, match="built without an AdapterStore"):
+        eng.submit(np.arange(4), max_new_tokens=2, adapter="tenant")
+    assert eng.requests == {}
+    eng = _port_engine(weights, n_slots=2,
+                       adapters=AdapterStore(weights[3], 2, 2, device="cpu"))
+    with pytest.raises(KeyError, match="not registered"):
         eng.submit(np.arange(4), max_new_tokens=2, adapter="tenant")
 
 

@@ -352,8 +352,11 @@ def test_router_demotion_and_policies():
         def __init__(self, n, active=0):
             self.n, self.n_active, self.n_slots = n, active, 2
 
-        def shared_prefix_len(self, prompt):
+        def shared_prefix_len(self, prompt, ns=b""):
             return self.n
+
+        def host_prefix_len(self, prompt, ns=b""):
+            return 0
 
     class Rep:
         def __init__(self, idx, n, qd=0, active=0):
@@ -616,12 +619,71 @@ def test_scenario_fleet_field_validation():
 
 
 def test_adapters_and_host_tier_on_the_fleet_name_item_5(model, tmp_path):
+    """Item 5's two fleet surfaces are ported (the name stays from when
+    they raised naming it): on a fleet built without adapters a named
+    adapter fails before anything is journaled, registration names the
+    missing ``adapter_rank``, and the routing-time prefetch is a no-op on
+    pools without a host tier."""
     fleet = _fleet(model, tmp_path, "ext", n_replicas=2)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="without an AdapterStore"):
         fleet.submit(_prompt(4, 1), max_new_tokens=2, adapter="tenant")
-    with pytest.raises(NotImplementedError, match=r"item 5.*\(5\.3\)"):
+    with pytest.raises(ValueError, match="adapter_rank"):
         fleet.register_adapter("tenant", {})
-    with pytest.raises(NotImplementedError, match=r"item 5.*\(5\.2\)"):
-        fleet._prefetch_host(_prompt(4, 1), fleet.replicas)
+    assert fleet._prefetch_host(_prompt(4, 1), fleet.replicas) is None
     assert fleet.requests == {} and fleet._next_rid == 0
     fleet.close()
+
+
+def test_router_host_tier_and_adapter_signals():
+    """The router unit with the two signals the tier and the adapters add:
+    a host-resident prefix is an affinity hit; a prefix probe is scoped
+    to the request's adapter namespace (a replica without a store cannot
+    serve the tenant's cache); with no prefix anywhere a replica holding
+    the adapter wins over the least-loaded one and is counted; the
+    baseline policies stay adapter-blind."""
+
+    class Store:
+        def __init__(self, resident):
+            self.resident = resident
+
+        def namespace_of(self, name):
+            return name.encode() + b"@"
+
+        def is_resident(self, name):
+            return name in self.resident
+
+    class Pool:
+        def __init__(self, dev=None, host=None):
+            self.dev, self.host = dev or {}, host or {}
+            self.n_active, self.n_slots = 0, 2
+
+        def shared_prefix_len(self, prompt, ns=b""):
+            return self.dev.get(ns, 0)
+
+        def host_prefix_len(self, prompt, ns=b""):
+            return self.host.get(ns, 0)
+
+    class Rep:
+        def __init__(self, idx, pool, store=None, qd=0):
+            self.idx = idx
+            eng = type("E", (), {"_adapters": store})()
+            self.supervisor = type("S", (), {
+                "pool": pool, "engine": eng,
+                "scheduler": type("Q", (), {"queue_depth": qd})()})()
+
+    a = Rep(0, Pool(dev={b"": 4}), Store(()), qd=1)
+    b = Rep(1, Pool(host={b"": 8}), Store({"t"}), qd=2)
+    c = Rep(2, Pool(dev={b"t@": 2}), Store(()))
+    r = FleetRouter("affinity")
+    assert r.route([1, 2], [a, b, c]) == (b, True)      # host prefix wins
+    assert not r.last_adapter_hit
+    assert r.route([1, 2], [a, b, c], adapter="t") == (c, True)
+    assert not r.last_adapter_hit                      # c lacks the row
+    assert r.route([1, 2], [a, b], adapter="t") == (b, False)
+    assert r.last_adapter_hit                          # resident, no prefix
+    bare = Rep(3, Pool(dev={b"": 9}))                  # no adapter store
+    assert r.route([1, 2], [bare, a], adapter="u") == (bare, False)
+    assert not r.last_adapter_hit
+    rr = FleetRouter("round-robin")
+    assert rr.route([1], [a, b], adapter="t") == (a, False)
+    assert not rr.last_adapter_hit

@@ -216,9 +216,9 @@ def test_sampled_top1_equals_greedy_and_seeds_reproduce():
     dict(attn_impl="ring", n_seq=2),
     dict(n_tensor_parallel=2),
     # serving builds: the dense slot-row target, tracing and the flight
-    # recorder are ported; speculation over dense rows and the TP/adapter
-    # slot programs still name their items, as --chaos-stages and the
-    # linter name theirs
+    # recorder are ported; speculation over dense rows and the TP slot
+    # programs still name their items, as --chaos-stages and the linter
+    # name theirs
     dict(engine=dict(kv_layout="dense"), item=None),
     dict(engine=dict(kv_layout="dense", spec_k=2, draft=True),
          item="item 5, serving extensions"),
@@ -229,7 +229,9 @@ def test_sampled_top1_equals_greedy_and_seeds_reproduce():
     dict(cli=["--lint"], item="item 7, analysis"),
     dict(slot_decode=dict(mesh=object()),
          item="item 6, remaining parallel axes"),
-    dict(slot_decode=dict(adapters=True), item="item 5, serving extensions"),
+    # the adapters build on every serving program, the dense slot rows
+    # (the degraded fallback) included
+    dict(engine=dict(kv_layout="dense", adapters=True), item=None),
 ])
 def test_unported_configs_raise_with_roadmap_item(kw):
     """MoE, sequence and tensor parallelism are all item 6's axes; the
@@ -251,6 +253,7 @@ def test_unported_configs_raise_with_roadmap_item(kw):
             main(["--rank", "0", "--device", "cpu"] + kw["cli"])
         return
     from simple_distributed_machine_learning_tpu_torch.serve import (
+        AdapterStore,
         FlightRecorder,
         ServeTrace,
     )
@@ -263,6 +266,8 @@ def test_unported_configs_raise_with_roadmap_item(kw):
             ekw["trace"] = ServeTrace()
         if ekw.get("flight"):
             ekw["flight"] = FlightRecorder()
+        if ekw.get("adapters"):
+            ekw["adapters"] = AdapterStore(tcfg, 2, 4, device="cpu")
 
         def build():
             return InferenceEngine(tst, tcfg, params=tparams, device="cpu",

@@ -1,6 +1,7 @@
 """The SLO scenarios: the port against the JAX package — the six
-one-engine scenarios and the five fleet scenarios (with hot-prefix-skew
-under round-robin and disagg-prefill-heavy's symmetric fleet as variants).
+one-engine scenarios and the seven fleet scenarios, offload-churn and
+hot-adapter-churn included (with hot-prefix-skew under round-robin and
+disagg-prefill-heavy's symmetric fleet as variants).
 
 Both packages run each scenario on the virtual clock with one set of
 weights (``tests/test_scenarios.py``'s model, 2 stages from
@@ -109,6 +110,12 @@ FLEET_PINS = {
     ("handoff-replica-loss", ()): (16, 25.16, dict(
         replicas=3, prefill_replicas=1, handoffs=16, replica_losses=1,
         migrations=1, replica_log=[("loss", 1, 6, 2)]), None),
+    # the host tier and the adapters (their own blocks are held equal to
+    # the JAX run's in the test; the pins are in tests/test_torch_host_
+    # tier.py and tests/test_torch_adapters.py)
+    ("offload-churn", ()): (24, None, dict(replicas=1, replica_log=[]), 16),
+    ("hot-adapter-churn", ()): (18, None, dict(replicas=3, replica_log=[]),
+                                None),
 }
 
 
@@ -368,23 +375,27 @@ def test_clock_reads_per_tick_equal_the_jax_engine(model, layout):
 
 
 def test_unported_scenarios_and_knobs_name_their_items(model):
-    """The host-tier and adapter scenarios and ``host_cache_blocks`` name
-    item 5; the fleet scenarios and ``trace``/``route``/
-    ``prefill_replicas`` run."""
+    """Every JAX scenario is ported (the name stays from when the
+    host-tier and adapter ones raised naming item 5): the catalog equals
+    the JAX package's, ``host_cache_blocks`` runs (a steady run with the
+    tier reports its block and the same counts), and so do ``trace``/
+    ``route``/``prefill_replicas``."""
     _, _, tcfg, tst = model
-    for name in ("hot-adapter-churn", "offload-churn"):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            tscen.run_scenario(name, tst, tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tscen.run_scenario("steady", tst, tcfg, device="cpu",
-                           host_cache_blocks=4)
+    rep = tscen.run_scenario("steady", tst, tcfg, device="cpu",
+                             host_cache_blocks=4)
+    assert rep["slo_ok"] and rep["completed"] == 16
+    assert rep["host_tier"]["host_cache_blocks"] == 4
     rep = tscen.run_scenario("steady", tst, tcfg, device="cpu", trace=True)
     assert rep["slo_ok"] and rep["attribution"]["requests"] == 16
     with pytest.raises(ValueError, match="unknown scenario"):
         tscen.run_scenario("nope", tst, tcfg, device="cpu")
     assert set(tscen.SCENARIOS) == set(PINS) | {n for n, _ in FLEET_PINS}
-    assert set(tscen.SCENARIOS) | set(tscen.UNPORTED_SCENARIOS) == set(
-        jscen.SCENARIOS)
+    assert list(tscen.SCENARIOS) == list(jscen.SCENARIOS)
+    for kw, match in ((dict(min_host_demotes=1), "host_cache_blocks > 0"),
+                      (dict(adapters=("t",)), "adapter_rank > 0"),
+                      (dict(adapter_rank=2), "supervised=True or a fleet")):
+        with pytest.raises(ValueError, match=match):
+            dataclasses.replace(tscen.SCENARIOS["steady"], **kw)
     with pytest.raises(ValueError, match="min_restarts"):
         tscen.Scenario(name="x", description="",
                        sim=tscen.SCENARIOS["steady"].sim, min_restarts=1)
@@ -440,6 +451,8 @@ def test_fleet_scenario_equals_the_jax_run(monkeypatch, model, name, over):
     assert tr["slo"] == jr["slo"]
     assert tr.get("slo_alerts") == jr.get("slo_alerts")
     assert tr.get("faults") == jr.get("faults")
+    assert tr.get("host_tier") == jr.get("host_tier")
+    assert tr.get("adapters") == jr.get("adapters")
     assert _check_streams(jreqs, treqs) >= 4
     assert faults.active() is None
 

@@ -507,8 +507,11 @@ def test_overload_policy_and_constructor_validation(tmp_path):
 
 def test_fleet_tracing_and_adapter_surfaces_name_their_items(model,
                                                              tmp_path):
-    """The fleet's half (adopt/release/seal_handoff) and tracing are
-    ported: they check their arguments; the adapters still name item 5."""
+    """The fleet's half (adopt/release/seal_handoff), tracing and the
+    adapters are ported: they check their arguments. A supervisor built
+    without ``adapter_rank`` refuses a named adapter before journaling;
+    ``engine_factory(adapter_rank=)`` gives every build, the degraded
+    one included, a store over one shared host dict."""
     sup = _supervisor(model, tmp_path)
     with pytest.raises(ValueError, match="does not live"):
         sup.release(0)
@@ -520,17 +523,22 @@ def test_fleet_tracing_and_adapter_surfaces_name_their_items(model,
     sup.engine.scheduler.queue.clear()
     sup.seal_handoff(0)                        # a released rid: journaled
     assert sup.journal.tail(1)[-1]["ev"] == "handoff"
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="without an AdapterStore"):
         sup.submit(_prompt(4, 1), max_new_tokens=2, adapter="tenant")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="adapter_rank"):
         sup.register_adapter("tenant", {})
     assert sup.requests == {}                  # nothing was journaled
     sup.close()
     traced = _supervisor(model, tmp_path, "t.jsonl",
                          postmortem_dir=str(tmp_path))
     assert traced.flight is not None           # implicit with bundles
-    with pytest.raises(NotImplementedError, match="item 5"):
-        engine_factory(model[0], CFG, adapter_rank=4)
+    factory = engine_factory(model[0], CFG, adapter_rank=4, n_slots=2,
+                             device="cpu")
+    paged, dense = factory(False), factory(True)
+    assert (paged.kv_layout, dense.kv_layout) == ("paged", "dense")
+    assert paged._adapters is not dense._adapters
+    assert paged._adapters._host is dense._adapters._host
+    assert (paged._adapters.rank, paged._adapters.n_rows) == (4, 3)
 
 
 # -- priority scheduling with preemption ------------------------------------
