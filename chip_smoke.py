@@ -201,7 +201,30 @@ or without the port beside it. Phases, each fatal on failure:
    (c) the offload-churn and hot-adapter-churn pins (both routing
    policies) on ``SCENARIO_CFG`` through K4, greedy streams equal to a
    dense rerun; (d) the CLI's ``--serve-sim 8 --serve-replicas 1
-   --serve-host-blocks 8`` and ``--serve-sim 8 --serve-adapters 2``.
+   --serve-host-blocks 8`` and ``--serve-sim 8 --serve-adapters 2``;
+12. the serve-protocol checker, beam search and dense speculation: (a)
+   the port's ``python -m ...analysis --serve-protocol`` in this process
+   proves the clean model to depth 8 at ``PROTOCOL_PIN`` (982 states,
+   2216 transitions) and each seeded-defect config yields its invariant;
+   both committed drills (``tests/data/protocol_drills/*.chaos``) replay
+   phase 3's trace on a ``ServeFleet`` of 1 prefill + 2 decode replicas
+   through K4 — 24/24 served exactly once (each request's streamed
+   tokens are its handle's), every greedy stream equal to phase 3's, at
+   least one replica loss, K4 ``n_layers`` per decode call; it prints the
+   losses, handoffs and fleet tick p50; (b) ``make_beam_decoder`` at
+   SERVE_CFG (``BEAM``: 8 prompts of 16 tokens, 24 new, beam 4), without
+   and with an EOS id: beam 1 equal to the cached greedy decoder, every
+   score within ``BEAM_TOL`` of its row's teacher-forced log-prob and at
+   least the greedy score (within ``BEAM_TOL``), tokens equal to the
+   CPU's unless the two answers score within ``BEAM_TOL`` on the card
+   (the first differing step and the gap printed); host ms per decode at
+   beam 1 and 4; (c) ``kv_layout="dense"`` speculation at ``spec_k`` 4
+   on phase 3b's cell: draft == target on 3b (a)'s workload (accept rate
+   exactly 1.0, streams equal to 3b (a)'s paged speculative and plain
+   ones) and the CLI's half-depth draft on phase 3's trace (24/24,
+   greedy streams equal to 3b (b)'s and phase 3's), K4 launched 0 times;
+   it prints tokens per tick and the host ms per tick beside the paged
+   speculative tick's.
 
 Before the last line it prints the kernels as one JSON object (times in
 ms, measured in this run; ``bound_ms`` computed from this run's inputs);
@@ -433,6 +456,14 @@ HOST_ADAPTER_PINS = {
     ("hot-adapter-churn", (("route", "round-robin"),)): dict(
         completed=18, swaps=7, hits=0),
 }
+# phase 12: (a) the serve-protocol checker's pinned depth-8 proof of the
+# clean model (states, transitions) and its two committed drills, replayed
+# on 1 prefill + 2 decode replicas; (b) beam search at SERVE_CFG, scores
+# held to the teacher-forced log-probs within BEAM_TOL (relative)
+PROTOCOL_PIN = (982, 2216)
+PROTOCOL_DRILLS = ("handoff_kill.chaos", "dropped_handoff_double_serve.chaos")
+BEAM = dict(n_prompts=8, t0=16, n_new=24, beam_size=4, seed=12)
+BEAM_TOL = 1e-4
 # where phase 7 runs: the card ("cpu" only to rehearse the phase without
 # one, where its device checks cannot pass)
 MAIN_DEVICE = "cuda"
@@ -1236,8 +1267,10 @@ def _spec_workload(vocab: int) -> list[dict]:
             for i in range(SPEC_WORKLOAD["n_requests"])]
 
 
-def _drain_counted(stages, cfg, reqs, **engine_kw) -> dict:
-    """``reqs``, all submitted up front, through a fresh fused engine on
+def _drain_counted(stages, cfg, reqs, kernel: str = "fused",
+                   **engine_kw) -> dict:
+    """``reqs``, all submitted up front, through a fresh engine (the
+    ``kernel`` attention; ``engine_kw`` may pick the dense layout) on
     ``SPEC_SLOTS`` slots after a warm-up request per prompt length; the
     streams, engine ticks, K4 launches, decode or speculative calls, the
     summary and the host-clock seconds of the drain."""
@@ -1250,7 +1283,7 @@ def _drain_counted(stages, cfg, reqs, **engine_kw) -> dict:
         ServeMetrics,
     )
     engine = InferenceEngine(stages, cfg, n_slots=SPEC_SLOTS,
-                             block_size=SERVE_BLOCK, attn_kernel="fused",
+                             block_size=SERVE_BLOCK, attn_kernel=kernel,
                              **engine_kw)
     for t0 in SPEC_WORKLOAD["prompt_lens"]:
         engine.submit(np.zeros(t0, np.int32), max_new_tokens=2)
@@ -1319,7 +1352,8 @@ def phase_spec_serve(stages, cfg, serve: dict, plain_handles: list,
         host_tokens_per_s_spec=spec["tokens"] / spec["wall_s"],
         host_tokens_per_s_plain=plain["tokens"] / plain["wall_s"],
         host_tick_ms_spec=spec["wall_s"] * 1e3 / spec["ticks"],
-        host_tick_ms_plain=plain["wall_s"] * 1e3 / plain["ticks"])
+        host_tick_ms_plain=plain["wall_s"] * 1e3 / plain["ticks"],
+        streams=spec["streams"], plain_streams=plain["streams"])
     a = rec["accept_all"]
     print(f"chip_smoke: spec (a) accept-all spec_k {SPEC_K}, {SPEC_SLOTS} "
           f"slots, {len(reqs)} greedy requests: accept rate "
@@ -1356,7 +1390,8 @@ def phase_spec_serve(stages, cfg, serve: dict, plain_handles: list,
     rec["cli_draft"] = dict(
         completed=rep["completed"], summary=bs_, launches=launches,
         spec_ticks=calls, tick_ms=tick_ms, plain_tick_ms=serve["tick_ms"],
-        greedy=len(greedy), greedy_equal_plain=same)
+        greedy=len(greedy), greedy_equal_plain=same,
+        streams=[list(h.tokens) for h in handles])
     print(f"chip_smoke: spec (b) draft of {dcfg.n_layers} layers, spec_k "
           f"{SPEC_K}, phase 3's trace: {rep['completed']}/"
           f"{rep['n_requests']}, accept rate {bs_.get('spec_accept_rate')} "
@@ -3921,6 +3956,415 @@ def phase_host_tier_adapters(stages, cfg, serve: dict,
     return launches
 
 
+# -- phase 12: the protocol checker, beam search, dense speculation ----------
+
+def _protocol_proof(rec: dict) -> None:
+    """(a) The port's ``--serve-protocol`` in this process: depth 8 proves
+    the clean model at ``PROTOCOL_PIN``; each seeded defect yields its
+    invariant."""
+    from simple_distributed_machine_learning_tpu_torch.analysis import (
+        protocol,
+    )
+    from simple_distributed_machine_learning_tpu_torch.analysis.__main__ import (  # noqa: E501
+        main as analysis_main,
+    )
+    t0 = time.perf_counter()
+    rc, text = _quiet(analysis_main, ["--serve-protocol"])
+    ms = (time.perf_counter() - t0) * 1e3
+    verdict = next((ln for ln in text.splitlines()
+                    if ln.startswith("verdict: ")), "")
+    print(f"chip_smoke: protocol --serve-protocol rc {rc} in {ms:.1f} ms: "
+          f"{verdict}")
+    check(rc == 0 and verdict.startswith("verdict: proved to depth 8")
+          and f"({PROTOCOL_PIN[0]} states, {PROTOCOL_PIN[1]} transitions"
+          in verdict, f"--serve-protocol: rc {rc}, {text!r}")
+    flagged = {}
+    for cfg, inv in ((protocol.DROPPED_TOMBSTONE, "double-serve"),
+                     (protocol.LEGACY_ORDER, "lost-request"),
+                     (protocol.SKIPPED_REFUND, "refcount"),
+                     (protocol.UNGATED_BOARDING, "boarding-gate")):
+        rules = sorted(f.rule for f in protocol.check_protocol(cfg).findings)
+        flagged[inv] = rules
+        check(f"protocol.{inv}" in rules,
+              f"the {inv} defect config flagged {rules}")
+    print(f"chip_smoke: protocol defect configs flagged {flagged}")
+    rec.update(rc=rc, ms=ms, verdict=verdict, defects=flagged)
+
+
+def _protocol_drill(stages, cfg, plain_handles: list, drill: str) -> dict:
+    """(a) One committed drill (``tests/data/protocol_drills/``) over phase
+    3's trace on a ``ServeFleet`` of 1 prefill + 2 decode replicas of
+    ``engine_factory(..., attn_kernel="fused")``: every request's streamed
+    tokens (its ``on_token`` callbacks) must be its handle's — served
+    exactly once — and every greedy stream phase 3's."""
+    import tempfile
+
+    from simple_distributed_machine_learning_tpu_torch.analysis.protocol import (  # noqa: E501
+        load_drill,
+    )
+    from simple_distributed_machine_learning_tpu_torch.resilience import (
+        faults,
+    )
+    from simple_distributed_machine_learning_tpu_torch.serve import (
+        ServeFleet,
+        ServeMetrics,
+        engine_factory,
+    )
+    from simple_distributed_machine_learning_tpu_torch.serve.request import (
+        DONE,
+    )
+    plan = load_drill(os.path.join(HERE, "tests", "data", "protocol_drills",
+                                   drill))
+    check(plan is not None, f"{drill} holds no schedule")
+    metrics = ServeMetrics()
+    streamed: dict[int, list] = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-protocol-") as d:
+        fleet = ServeFleet(
+            engine_factory(stages, cfg, attn_kernel="fused",
+                           n_slots=SERVE_SLOTS, block_size=SERVE_BLOCK,
+                           device="cuda", metrics=metrics),
+            d, n_replicas=3, prefill_replicas=1, metrics=metrics)
+        submit = fleet.submit
+
+        def streaming(*a, **kw):
+            box: list = []
+            kw["on_token"] = lambda req, tok: box.append(int(tok))
+            h = submit(*a, **kw)
+            streamed[h.rid] = box
+            return h
+
+        fleet.submit = streaming
+        faults.install(faults.FaultPlan.parse(plan))
+        try:
+            run = _serve(fleet)
+        finally:
+            faults.uninstall()
+            fleet.close()
+            del fleet.submit
+    handles = run["handles"]
+    once = sum(h.state == DONE and streamed[h.rid] == list(h.tokens)
+               for h in handles)
+    greedy = [i for i, h in enumerate(plain_handles)
+              if h.temperature == 0.0]
+    same = sum(handles[i].tokens == plain_handles[i].tokens for i in greedy)
+    return dict(plan=plan, completed=run["report"]["completed"],
+                exactly_once=once, losses=fleet.replica_losses,
+                handoffs=fleet.handoffs, migrations=fleet.migrations,
+                tick_ms_p50=run["tick_ms_p50"], launches=run["launches"],
+                decode=run["decode"], greedy=len(greedy),
+                greedy_equal=same)
+
+
+def _profiled(fn) -> dict:
+    """``fn()`` once under ``torch.profiler``: its host ms (ending in a
+    synchronisation), the device's busy share and the kernel launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us, launches = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy_us += float(getattr(e, "self_device_time_total", None)
+                             or getattr(e, "self_cuda_time_total", 0))
+            launches += e.count
+    check(busy_us > 0, "torch.profiler recorded no device time")
+    return dict(profiled_ms=wall_us / 1e3, device_busy_share=busy_us
+                / wall_us, launches=launches)
+
+
+def _spec_steady(stages, cfg, layout: str, n_ticks: int = 10) -> dict:
+    """A steady speculative window (draft == target, ``SPEC_K``) at full
+    occupancy (``SPEC_SLOTS`` slots, 32-token prompts, no admissions):
+    ``n_ticks`` ticks on the host clock, then ``n_ticks`` under the
+    profiler (launches and device busy share per tick), over ``layout``
+    (``"paged"`` through K4, ``"dense"`` through plain attention)."""
+    import numpy as np
+
+    from simple_distributed_machine_learning_tpu_torch.serve import (
+        InferenceEngine,
+    )
+    engine = InferenceEngine(
+        stages, cfg, n_slots=SPEC_SLOTS, block_size=SERVE_BLOCK,
+        kv_layout=layout, attn_kernel="fused" if layout == "paged"
+        else "dense", draft_stages=stages, draft_cfg=cfg, spec_k=SPEC_K)
+    rng = np.random.default_rng(1)
+    for _ in range(SPEC_SLOTS):
+        engine.submit(rng.integers(0, cfg.vocab, 32).astype(np.int32),
+                      max_new_tokens=SPEC_K * (2 * n_ticks + 3 + SPEC_SLOTS)
+                      + 8)
+    while engine._prefilling or len(engine._decoding_slots()) < SPEC_SLOTS:
+        engine.step()
+    for _ in range(3):
+        engine.step()
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(n_ticks):
+        engine.step()
+    _sync()
+    tick_ms = (time.perf_counter() - t0) * 1e3 / n_ticks
+    prof = _profiled(lambda: [engine.step() for _ in range(n_ticks)])
+    check(len(engine._decoding_slots()) == SPEC_SLOTS,
+          f"the {layout} speculative window did not run at full occupancy")
+    return dict(tick_ms=tick_ms,
+                profiled_tick_ms=prof["profiled_ms"] / n_ticks,
+                device_busy_share=prof["device_busy_share"],
+                launches_per_tick=prof["launches"] / n_ticks)
+
+
+def _beam_score(params, cfg, row, eos_id) -> float:
+    """The teacher-forced log-prob of a beam row's generated tokens on the
+    card, through its first ``eos_id`` (the eos padding scores 0)."""
+    import torch
+    t0 = BEAM["t0"]
+    lp = _teacher_forced(params, cfg, row)
+    gen = row[t0:].tolist()
+    end = (t0 + gen.index(eos_id) + 1 if eos_id is not None
+           and eos_id in gen else len(row))
+    pos = torch.arange(t0 - 1, end - 1, device=lp.device)
+    nxt = torch.as_tensor(row[t0:end], device=lp.device).long()
+    return float(lp[pos, nxt].sum())
+
+
+def _beam_full_width(stages, cfg, rec: dict) -> None:
+    """(b) ``make_beam_decoder`` at SERVE_CFG (``BEAM``), without and with
+    an EOS id (one the no-EOS beam run emits mid-stream): ``beam_size=1``
+    equals the card's cached greedy decoder; every score equals its row's
+    teacher-forced log-prob within ``BEAM_TOL``; every beam score is at
+    least the greedy one (within ``BEAM_TOL``); the card's tokens equal
+    the CPU's, or the two answers score within ``BEAM_TOL`` of each other
+    on the card (a near-tie in the beam's ranking; the first differing
+    step and the score gap printed)."""
+    import copy
+
+    import numpy as np
+    from simple_distributed_machine_learning_tpu_torch.models import (
+        make_beam_decoder,
+    )
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        make_cached_decoder,
+    )
+    params = [st.params for st in stages]
+    cpu_params = [copy.deepcopy(p).to("cpu") for p in params]
+    t0, n_new, K = BEAM["t0"], BEAM["n_new"], BEAM["beam_size"]
+    prompts = np.random.default_rng(BEAM["seed"]).integers(
+        0, cfg.vocab, (BEAM["n_prompts"], t0)).astype(np.int32)
+
+    def decode(k, eos_id, device, ps):
+        return make_beam_decoder(stages, cfg, t0, n_new, k, eos_id=eos_id,
+                                 device=device)(ps, prompts)
+
+    def host_ms(k):
+        ms = []
+        for _ in range(3):
+            _sync()
+            a = time.perf_counter()
+            decode(k, None, "cuda", params)
+            _sync()
+            ms.append((time.perf_counter() - a) * 1e3)
+        return statistics.median(ms)
+
+    greedy = make_cached_decoder(stages, cfg, t0, n_new)(params, prompts)
+    g_toks, g_scores = decode(1, None, "cuda", params)
+    check(bool((g_toks == greedy).all()),
+          "beam_size=1 differs from the cached greedy decoder")
+    base_toks, _ = decode(K, None, "cuda", params)
+    runs = {}
+    for eos_id in (None, int(base_toks[0, t0 + n_new // 2])):
+        toks, scores = decode(K, eos_id, "cuda", params)
+        ctoks, cscores = decode(K, eos_id, "cpu", cpu_params)
+        toks, scores = toks.cpu().numpy(), scores.cpu().numpy()
+        ctoks, cscores = ctoks.numpy(), cscores.numpy()
+        tf = [_beam_score(params, cfg, row, eos_id) for row in toks]
+        score_err = max(abs(float(s) - t) / abs(t)
+                        for s, t in zip(scores, tf))
+        check(score_err <= BEAM_TOL,
+              f"beam scores {scores} against teacher-forced {tf}")
+        if eos_id is None:
+            worst = min(float(s) - float(g) + BEAM_TOL * abs(float(g))
+                        for s, g in zip(scores, g_scores.cpu().numpy()))
+            check(worst >= 0.0, f"a beam score under the greedy one: "
+                                f"{scores} against {g_scores}")
+        ties = []
+        for b in range(len(prompts)):
+            if (toks[b] == ctoks[b]).all():
+                continue
+            first = int(np.nonzero(toks[b] != ctoks[b])[0][0]) - t0
+            gap = abs(tf[b] - _beam_score(params, cfg, ctoks[b], eos_id))
+            ties.append(dict(row=b, first_step=first, score_gap=gap))
+            check(gap <= BEAM_TOL * abs(tf[b]),
+                  f"beam row {b}: card and CPU tokens differ at step "
+                  f"{first}, scores {gap} apart")
+        runs["eos" if eos_id is not None else "no_eos"] = dict(
+            eos_id=eos_id, scores=scores.tolist(), score_rel_err=score_err,
+            cpu_max_rel_gap=float(np.max(np.abs(scores - cscores)
+                                         / np.abs(cscores))),
+            rows_equal_cpu=len(prompts) - len(ties), near_ties=ties,
+            eos_rows=int(sum(eos_id in r[t0:] for r in toks.tolist()))
+            if eos_id is not None else 0)
+    ms1, msk = host_ms(1), host_ms(K)
+    prof1 = _profiled(lambda: decode(1, None, "cuda", params))
+    profk = _profiled(lambda: decode(K, None, "cuda", params))
+    rec.update(runs, host_ms_beam1=ms1, host_ms_beam=msk, beam_size=K,
+               profile_beam1=prof1, profile_beam=profk,
+               greedy_scores=g_scores.cpu().tolist())
+    for name, r in runs.items():
+        print(f"chip_smoke: beam (b) {name} (eos {r['eos_id']}, "
+              f"{r['eos_rows']} rows end in it): {BEAM['n_prompts']} "
+              f"prompts x {t0} tokens, {n_new} new, beam {K}: scores "
+              f"within {r['score_rel_err']:.2e} of the teacher-forced "
+              f"log-probs, {r['cpu_max_rel_gap']:.2e} of the CPU's; rows "
+              f"equal to the CPU's {r['rows_equal_cpu']}/{len(prompts)}, "
+              f"near-ties {r['near_ties']}")
+    print(f"chip_smoke: beam (b) host ms per decode: beam 1 {ms1:.3f}, "
+          f"beam {K} {msk:.3f}; beam 1 == cached greedy decoder; profiled: "
+          f"{prof1['launches']} / {profk['launches']} launches, device "
+          f"busy {prof1['device_busy_share']:.4f} / "
+          f"{profk['device_busy_share']:.4f}")
+
+
+def _dense_spec(stages, cfg, serve: dict, plain_handles: list,
+                spec: dict, rec: dict) -> None:
+    """(c) Speculation over ``kv_layout="dense"`` at phase 3b's cell: (i)
+    draft == target at ``SPEC_K`` on phase 3b (a)'s workload — accept
+    rate exactly 1.0, streams equal to 3b (a)'s paged speculative and
+    plain ones; (ii) the CLI's half-depth draft on phase 3's trace —
+    24/24 served, greedy streams equal to 3b (b)'s and phase 3's. K4
+    launches 0 in both (the dense rows use plain attention)."""
+    import dataclasses
+
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        make_gpt_stages,
+    )
+    from simple_distributed_machine_learning_tpu_torch.ops.random import (
+        fold_in,
+    )
+    reqs = _spec_workload(cfg.vocab)
+    n_tok = SPEC_WORKLOAD["n_requests"] * SPEC_WORKLOAD["max_new"]
+    a = spec["accept_all"]
+    run = _drain_counted(stages, cfg, reqs, kernel="dense",
+                         kv_layout="dense", draft_stages=stages,
+                         draft_cfg=cfg, spec_k=SPEC_K)
+    rate = run["summary"].get("spec_accept_rate")
+    rec["accept_all"] = dict(
+        ticks=run["ticks"], spec_ticks=run["calls"], accept_rate=rate,
+        tokens_per_tick=n_tok / run["ticks"],
+        host_tick_ms=run["wall_s"] * 1e3 / run["ticks"],
+        launches=run["launches"],
+        equal_paged=sum(x == y for x, y in zip(run["streams"],
+                                                a["streams"])),
+        equal_plain=sum(x == y for x, y in zip(run["streams"],
+                                                a["plain_streams"])))
+    r = rec["accept_all"]
+    print(f"chip_smoke: dense spec (c) accept-all spec_k {SPEC_K}, "
+          f"{SPEC_SLOTS} slots: accept rate {rate}, {run['ticks']} ticks, "
+          f"{r['tokens_per_tick']:.3f} tokens/tick (paged "
+          f"{a['tokens_per_tick_spec']:.3f}), host tick "
+          f"{r['host_tick_ms']:.3f} ms (paged {a['host_tick_ms_spec']:.3f}"
+          f"); K4 launches {run['launches']}; streams equal to paged spec "
+          f"{r['equal_paged']}/{len(reqs)}, to plain {r['equal_plain']}/"
+          f"{len(reqs)}")
+    check(rate == 1.0, f"dense accept-all rate {rate}")
+    check(r["equal_paged"] == len(reqs) == r["equal_plain"],
+          "dense speculative streams differ from the paged or plain ones")
+    check(run["calls"] > 0 and run["launches"] == 0,
+          f"dense spec: {run['calls']} spec ticks, K4 launches "
+          f"{run['launches']} (must be 0)")
+    steady = {lay: _spec_steady(stages, cfg, lay)
+              for lay in ("dense", "paged")}
+    rec["steady"] = steady
+    dn, pg = steady["dense"], steady["paged"]
+    print(f"chip_smoke: dense spec (c) steady tick at {SPEC_SLOTS}/"
+          f"{SPEC_SLOTS} slots, draft == target: {dn['tick_ms']:.3f} ms "
+          f"host (paged {pg['tick_ms']:.3f}); profiled "
+          f"{dn['profiled_tick_ms']:.3f} / {pg['profiled_tick_ms']:.3f} ms,"
+          f" {dn['launches_per_tick']:.1f} / {pg['launches_per_tick']:.1f} "
+          f"launches per tick, device busy {dn['device_busy_share']:.4f} / "
+          f"{pg['device_busy_share']:.4f}")
+
+    dcfg = dataclasses.replace(cfg, n_layers=max(1, cfg.n_layers // 2))
+    dstages = make_gpt_stages(fold_in(0, 1), dcfg, 1)[0]
+    trace = _serve(_warm_engine(stages, cfg, "dense", kv_layout="dense",
+                                draft_stages=dstages, draft_cfg=dcfg,
+                                spec_k=SPEC_K))
+    b = spec["cli_draft"]
+    handles, s = trace["handles"], trace["summary"]
+    greedy = [i for i, h in enumerate(plain_handles)
+              if h.temperature == 0.0]
+    rec["cli_draft"] = dict(
+        completed=trace["report"]["completed"], summary=s,
+        launches=trace["launches"], spec_ticks=trace["decode"],
+        tick_ms=trace["tick_ms"], tick_ms_p50=trace["tick_ms_p50"],
+        greedy=len(greedy),
+        equal_plain=sum(handles[i].tokens == plain_handles[i].tokens
+                        for i in greedy),
+        equal_paged=sum(handles[i].tokens == b["streams"][i]
+                        for i in greedy))
+    c = rec["cli_draft"]
+    print(f"chip_smoke: dense spec (c) draft of {dcfg.n_layers} layers, "
+          f"spec_k {SPEC_K}, phase 3's trace: {c['completed']}/"
+          f"{SERVE_SIM['n_requests']}, accept rate "
+          f"{s.get('spec_accept_rate')} (paged "
+          f"{b['summary'].get('spec_accept_rate')}), {s['tokens_per_sec']} "
+          f"tok/s (paged {b['summary']['tokens_per_sec']}), host tick "
+          f"{c['tick_ms']:.3f} ms (paged {b['tick_ms']:.3f}, plain "
+          f"{serve['tick_ms']:.3f}); K4 launches {c['launches']}; greedy "
+          f"streams equal to phase 3's {c['equal_plain']}/{len(greedy)}, to "
+          f"paged spec {c['equal_paged']}/{len(greedy)}")
+    check(c["completed"] == SERVE_SIM["n_requests"],
+          f"dense spec (ii) served {c['completed']}")
+    check(c["equal_plain"] == len(greedy) == c["equal_paged"],
+          "dense spec (ii): greedy streams differ from phase 3's or 3b's")
+    check(c["spec_ticks"] > 0 and c["launches"] == 0,
+          f"dense spec (ii): K4 launches {c['launches']} (must be 0)")
+
+
+def phase_protocol_beam_dense(stages, cfg, serve: dict, plain_handles: list,
+                              spec: dict, record: dict) -> int:
+    """Phase 12 (module docstring): the serve-protocol checker and its
+    drills on the fleet, beam search, and speculation over dense rows.
+    Returns K4's launches over (a)'s fleet drills."""
+    rec: dict = {}
+    record["protocol_beam_dense"] = rec
+    t0 = time.perf_counter()
+    _protocol_proof(rec.setdefault("protocol", {}))
+    launches = 0
+    for drill in PROTOCOL_DRILLS:
+        d = _protocol_drill(stages, cfg, plain_handles, drill)
+        rec.setdefault("drills", {})[drill] = d
+        launches += d["launches"]
+        print(f"chip_smoke: protocol drill (a) {drill} ({d['plan']}) on 1 "
+              f"prefill + 2 decode, phase 3's trace: {d['completed']}/"
+              f"{SERVE_SIM['n_requests']} served, exactly once "
+              f"{d['exactly_once']}, {d['losses']} loss(es), "
+              f"{d['handoffs']} handoff(s), {d['migrations']} "
+              f"migration(s); fleet tick p50 {d['tick_ms_p50']:.3f} ms "
+              f"(phase 3's {serve['tick_ms_p50']:.3f}); K4 launches "
+              f"{d['launches']} = {cfg.n_layers} x {d['decode']}; greedy "
+              f"streams equal to phase 3's {d['greedy_equal']}/"
+              f"{d['greedy']}")
+        check(d["completed"] == d["exactly_once"]
+              == SERVE_SIM["n_requests"],
+              f"drill {drill}: {d['completed']} completed, "
+              f"{d['exactly_once']} exactly once")
+        check(d["greedy_equal"] == d["greedy"] >= 2,
+              f"drill {drill}: greedy streams differ from phase 3's")
+        check(d["losses"] >= 1 and d["launches"] == cfg.n_layers
+              * d["decode"], f"drill {drill}: {d['losses']} losses, K4 "
+              f"{d['launches']} != {cfg.n_layers} x {d['decode']}")
+    _beam_full_width(stages, cfg, rec.setdefault("beam", {}))
+    _dense_spec(stages, cfg, serve, plain_handles, spec,
+                rec.setdefault("dense_spec", {}))
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"chip_smoke: phase 12 took {rec['seconds']:.1f} s")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3958,6 +4402,8 @@ def main() -> int:
         fleet_launches = phase_fleet(stages, cfg, serve, plain_handles,
                                      record)
         tier_launches = phase_host_tier_adapters(stages, cfg, serve, record)
+        protocol_launches = phase_protocol_beam_dense(
+            stages, cfg, serve, plain_handles, spec, record)
         del stages
         train = phase_train("gpt_bf16", TRAIN_ROWS["gpt_bf16"], record)
         phase_train("gpt", TRAIN_ROWS["gpt"], record)
@@ -3976,10 +4422,10 @@ def main() -> int:
         "replaces": "simple_distributed_machine_learning_tpu/ops/"
                     "paged_attention.py:67",
         # phase 3's decode ticks, phase 3b's speculative verify steps,
-        # phase 8's scenarios and drills, phase 9's fleet runs and phase
-        # 11's host-tier and adapter runs
+        # phase 8's scenarios and drills, phase 9's fleet runs, phase 11's
+        # host-tier and adapter runs and phase 12's protocol drills
         "launches": (serve["launches"] + spec["launches"] + fault_launches
-                     + fleet_launches + tier_launches),
+                     + fleet_launches + tier_launches + protocol_launches),
         "max_abs_err": max(v["max_abs_err"] for v in variants),
         "ms": main_v["ms"],
         "plain_ms": main_v["plain_ms"],

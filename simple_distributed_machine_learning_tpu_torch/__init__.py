@@ -8,8 +8,8 @@ of ``X`` is ``X`` under this root:
                the hand-written Hopper kernels (``ops/csrc``)
 ``models``     the GPT as ``nn.Module`` parameter trees, its training
                forward (dense or flash attention) and the serving decode
-               programs (cached decoder, paged prefill/decode); the MLP
-               and LeNet
+               programs (cached decoder, paged prefill/decode, beam
+               search); the MLP and LeNet
 ``parallel``   the stage split rule, the packed stage buffer and wire
                codec, the one-card mesh, ``Stage`` and ``Pipeline``
 ``train``      optimizers, schedules, the train and eval steps,
@@ -17,6 +17,7 @@ of ``X`` is ``X`` under this root:
 ``data``       MNIST (IDX files or the synthetic set) and token streams
 ``serve``      continuous-batching serving over the paged KV pool
 ``telemetry``  the metric registry the serving metrics write through
+``analysis``   the serve-protocol model checker (stdlib)
 ``utils``      the throughput meter
 ``cli``        the reference's training CLI
 

@@ -1,7 +1,10 @@
 """Models (port of ``models/``): the GPT (its training forward and its
-serving decode programs), its LoRA adapters (``lora``), the MLP and
-LeNet."""
+serving decode programs), its beam-search decoder (``beam``), its LoRA
+adapters (``lora``), the MLP and LeNet."""
 
+from simple_distributed_machine_learning_tpu_torch.models.beam import (  # noqa: F401
+    make_beam_decoder,
+)
 from simple_distributed_machine_learning_tpu_torch.models.gpt import (  # noqa: F401
     GPT,
     GPTConfig,

@@ -1099,7 +1099,8 @@ def make_paged_block_copy():
 #
 # A small draft model proposes tokens with cheap sequential steps over its
 # dense slot pool; the target scores all of them in one batched K-token
-# verify step over its paged pool and emits the longest prefix it agrees
+# verify step over its own pool (paged blocks or dense slot rows) and
+# emits the longest prefix it agrees
 # with, plus its own token at the first disagreement: 1..K tokens per slot
 # per tick, from one draft loop and one target pass.
 #
@@ -1116,9 +1117,10 @@ def make_paged_block_copy():
 #
 # Verify writes all K positions before it knows how many survive.
 # Positions inside the slot's remaining budget (j < valid_n) land in its
-# own blocks, where the next tick overwrites them before they can be
-# attended; positions past it go to the trash block 0, so a rejected tail
-# never lands past the reservation or in a neighbour's blocks.
+# own blocks (or row), where the next tick overwrites them before they can
+# be attended; positions past it go to the trash block 0 (paged) or the
+# never-live row max_len - 1 (dense), so a rejected tail never lands past
+# the reservation or in a neighbour's blocks.
 #
 # Sampled requests use residual rejection: accept draft token d with
 # probability min(1, p(d)/q(d)) on the filtered target/draft
@@ -1258,6 +1260,95 @@ def make_slot_propose(stages, cfg: GPTConfig, max_len: int, spec_k: int,
     return propose
 
 
+def _verify_positions(pos, valid_n, K, ml):
+    """The dense verify's position plan: queries at ``pos + j`` (clamped
+    in-table) and their K/V writes, routed to the never-live trash row
+    ``ml - 1`` once past the slot's budget (``j >= valid_n``)."""
+    j = torch.arange(K, device=pos.device)[None, :]
+    qpos = torch.clamp(pos[:, None] + j, max=ml - 1)            # [S, K]
+    wpos = torch.where(j < valid_n[:, None], qpos, ml - 1)
+    return qpos, wpos
+
+
+def _slot_verify_fwd(blocks, embed, head, kc, vc, xs, qpos, wpos, H,
+                     at=None):
+    """The K-tokens-per-slot verify forward over the dense slot pool:
+    ``xs`` [S, K] input tokens at query positions ``qpos`` [S, K], each
+    position's K/V written at ``wpos`` [S, K] (``qpos`` in budget, the
+    trash row past it) before attention reads the row. The per-position
+    math is the decode tick's (:func:`_dense_block_step_slots`): the same
+    projections and the same masked-row softmax. Returns ``(kc, vc,
+    rows)``, log-probs [S, K, V]."""
+    S = xs.shape[0]
+    h = embedding_lookup(embed["tok"], xs) + embed["pos"][qpos]  # [S, K, d]
+    ml = kc.shape[-2]
+    live = (torch.arange(ml, device=xs.device)[None, None, None, :]
+            <= qpos[:, None, :, None])                           # [S,1,K,ml]
+    rows = torch.arange(S, device=xs.device)[:, None]
+    for li, bp in enumerate(blocks):
+        q, knew, vnew = _dense_qkv(bp, h, H,                    # [S, H, K, dh]
+                                   None if at is None else at(li))
+        dh = q.shape[-1]
+        kl, vl = kc[li], vc[li]                                  # [S, H, ml, dh]
+        kl[rows, :, wpos] = knew.transpose(1, 2).to(kl.dtype)
+        vl[rows, :, wpos] = vnew.transpose(1, 2).to(vl.dtype)
+        scores = torch.einsum("bhqd,bhkd->bhqk", q, kl.float()) / math.sqrt(dh)
+        scores = torch.where(live, scores, -math.inf)
+        a = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(scores, dim=-1),
+                         vl.float())
+        h = _dense_attn_tail(bp, h, a)
+    return kc, vc, _head_logprobs(head, h)
+
+
+def make_slot_verify_step(stages, cfg: GPTConfig, max_len: int, spec_k: int,
+                          cache_dtype=None, mesh=None, adapters: bool = False,
+                          device=None):
+    """The target's verify tick over the dense slot pool: ``verify(params,
+    kc, vc, toks [S], pos [S], drafts [S, K], draft_rows [S, K, V],
+    valid_n [S], key_data [S, 2], temps [S], top_ks [S], top_ps [S]) ->
+    (kc, vc, toks [S, K], n_acc [S], key_data [S, 2])``.
+
+    ONE batched forward scores all ``spec_k`` positions of every slot
+    (inputs ``[t0, d0, .., d_{K-2}]`` at ``pos .. pos+K-1``) and runs
+    :func:`_spec_accept_rows`. ``valid_n`` is each slot's ``min(spec_k,
+    remaining budget)`` (0 for non-decoding slots): it bounds emission
+    and which positions write real K/V; the rest go to the never-live
+    trash row ``max_len - 1``. ``kc``/``vc`` are updated in place. Plain
+    attention: K4 is the paged pool's kernel. ``adapters=True`` appends
+    ``(bank, aids [S])``."""
+    _validate_slot_build(stages, cfg, max_len, "make_slot_verify_step",
+                         cache_dtype)
+    _check_spec_k(spec_k, "make_slot_verify_step")
+    if mesh is not None:
+        raise _roadmap.not_ported("make_slot_verify_step: tensor-parallel "
+                                  "serving (mesh)", _roadmap.PARALLEL_AXES)
+    dev = resolve_device(device)
+    K, ml = spec_k, max_len
+
+    @torch.no_grad()
+    def verify(params, kc, vc, toks, pos, drafts, draft_rows, valid_n,
+               key_data, temps, top_ks, top_ps, bank=None, aids=None):
+        embed, blocks, head = _merged_stage_trees(params)
+        at = _bank_lookup(adapters, bank, aids, dev, "make_slot_verify_step")
+        toks = _on(toks, dev, torch.int64)
+        drafts = _on(drafts, dev, torch.int64)
+        valid_n = _on(valid_n, dev, torch.int64)
+        xs = torch.cat([toks[:, None], drafts[:, :-1]], dim=1)
+        qpos, wpos = _verify_positions(_on(pos, dev, torch.int64), valid_n,
+                                       K, ml)
+        kc, vc, rows = _slot_verify_fwd(blocks, embed, head, kc, vc, xs,
+                                        qpos, wpos, cfg.n_heads, at=at)
+        any_hot = (None if isinstance(temps, torch.Tensor)
+                   else bool(np.any(np.asarray(temps) > 0)))
+        knobs = _sampling_tensors(toks.shape[0], temps, top_ks, top_ps, dev)
+        toks2, n_acc, kd2 = _spec_accept_rows(
+            rows, drafts, _on(draft_rows, dev, torch.float32), valid_n,
+            _on(key_data, dev, torch.int64), *knobs, any_hot=any_hot)
+        return kc, vc, toks2, n_acc, kd2
+
+    return verify
+
+
 def _paged_verify_routing(pos, valid_n, tables, K, bs, ml):
     """Query positions ``pos + j`` (clamped in-table) and each position's
     write target: its physical block and offset, the trash block 0 once
@@ -1355,6 +1446,40 @@ def _check_spec_tick_build(cfg: GPTConfig, draft_cfg: GPTConfig,
         raise ValueError(
             f"{caller}: draft vocab {draft_cfg.vocab} != target vocab "
             f"{cfg.vocab}")
+
+
+def make_slot_spec_tick(stages, cfg: GPTConfig, draft_stages,
+                        draft_cfg: GPTConfig, max_len: int, spec_k: int,
+                        cache_dtype=None, adapters: bool = False,
+                        device=None):
+    """One speculative tick over dense slot pools: ``tick(dparams, dkc,
+    dvc, params, kc, vc, toks [S], pos [S], valid_n [S], dkd [S, 2],
+    kd [S, 2], temps, top_ks, top_ps) -> (dkc, dvc, kc, vc, toks [S, K],
+    n_acc [S], key_data, draft_key_data)`` — :func:`make_slot_propose`
+    over the draft's pool composed with :func:`make_slot_verify_step`
+    over the target's, the proposals staying on the device between the
+    two, so the greedy bit-exactness contract carries over unchanged.
+    ``adapters=True`` appends ``(bank, aids [S])``, which ride the verify
+    side only: the draft proposes as the base model."""
+    _check_spec_tick_build(cfg, draft_cfg, "make_slot_spec_tick")
+    propose = make_slot_propose(draft_stages, draft_cfg, max_len, spec_k,
+                                cache_dtype, device=device)
+    verify = make_slot_verify_step(stages, cfg, max_len, spec_k,
+                                   cache_dtype, adapters=adapters,
+                                   device=device)
+    dev = resolve_device(device)
+
+    def tick(dparams, dkc, dvc, params, kc, vc, toks, pos, valid_n, dkd, kd,
+             temps, top_ks, top_ps, bank=None, aids=None):
+        toks, pos = _on(toks, dev, torch.int64), _on(pos, dev, torch.int64)
+        dkc, dvc, drafts, qrows, dkd2 = propose(
+            dparams, dkc, dvc, toks, pos, dkd, temps, top_ks, top_ps)
+        kc, vc, otoks, nacc, kd2 = verify(
+            params, kc, vc, toks, pos, drafts, qrows, valid_n, kd, temps,
+            top_ks, top_ps, bank, aids)
+        return dkc, dvc, kc, vc, otoks, nacc, kd2, dkd2
+
+    return tick
 
 
 def make_paged_spec_tick(stages, cfg: GPTConfig, draft_stages,

@@ -384,11 +384,13 @@ def drill_coverage(root: str | None = None, kinds=None, sites=None,
     """The chaos-coverage lint: every site the port instruments
     (:func:`instrumented_sites`) and every kind of :data:`SERVE_KINDS`
     must be FIRED by at least one drill in the port's tests
-    (``tests/test_torch_*.py`` under ``root``, the repo root by default),
-    and every pinned kind<->site pair whose site is instrumented must be
-    drilled as that pair. Drills are ``kind@site`` schedule strings and
-    keyword ``FaultSpec(...)`` constructions. Returns human-readable gaps
-    (empty = covered)."""
+    (``tests/test_torch_*.py`` under ``root``, the repo root by default)
+    or in the model checker's exported counterexample schedules
+    (``tests/data/protocol_drills/*.chaos``, ``analysis/protocol.py``'s
+    ``render_drill`` artifacts), and every pinned kind<->site pair whose
+    site is instrumented must be drilled as that pair. Drills are
+    ``kind@site`` schedule strings and keyword ``FaultSpec(...)``
+    constructions. Returns human-readable gaps (empty = covered)."""
     kinds = tuple(kinds if kinds is not None else SERVE_KINDS)
     sites = tuple(sites if sites is not None else instrumented_sites())
     if pairs is not None:
@@ -401,10 +403,15 @@ def drill_coverage(root: str | None = None, kinds=None, sites=None,
     if root is None:
         root = os.path.dirname(_PKG)
     texts = []
-    d = os.path.join(root, "tests")
-    if os.path.isdir(d):
+    for sub, prefix, suffix in (("tests", "test_torch_", ".py"),
+                                (os.path.join("tests", "data",
+                                              "protocol_drills"), "",
+                                 ".chaos")):
+        d = os.path.join(root, sub)
+        if not os.path.isdir(d):
+            continue
         for fname in sorted(os.listdir(d)):
-            if fname.startswith("test_torch_") and fname.endswith(".py"):
+            if fname.startswith(prefix) and fname.endswith(suffix):
                 with open(os.path.join(d, fname), encoding="utf-8") as fh:
                     texts.append(fh.read())
     blob = "\n".join(texts)

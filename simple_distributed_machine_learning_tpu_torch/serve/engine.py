@@ -23,8 +23,9 @@ engine has them: ``serve.admit`` at the top of ``submit`` and
 With a draft model (``draft_stages``/``draft_cfg``/``spec_k``) the decode
 step is speculative: the draft proposes ``spec_k`` tokens per slot over
 its own dense slot pool, the target verifies them in one batched pass
-over its paged pool (``attn_kernel="fused"``: the CUDA kernel K4 with
-``spec_k`` queries per slot) and each slot emits 1..``spec_k`` tokens.
+over its pool — paged (``attn_kernel="fused"``: the CUDA kernel K4 with
+``spec_k`` queries per slot) or dense slot rows (plain attention) — and
+each slot emits 1..``spec_k`` tokens.
 
 Device state is the pool's K/V tensors, updated in place by the decode
 programs; positions, last tokens, block tables, key data and the request
@@ -55,9 +56,8 @@ snaps the engine once per busy tick. Neither reads a clock, so tracing on
 or off leaves every virtual-clock number unchanged.
 
 The JAX engine's other knobs keep their place in the signature and raise
-``NotImplementedError`` naming the ROADMAP item that ports them:
-speculation over the dense layout, tensor parallelism and the lint
-preflight.
+``NotImplementedError`` naming the ROADMAP item that ports them: tensor
+parallelism and the lint preflight.
 
 Clock reads sit exactly where the JAX engine's do (submit without an
 arrival stamp, cancel, the dense admission's TTFT endpoint or reseat,
@@ -91,6 +91,7 @@ from simple_distributed_machine_learning_tpu_torch.models.gpt import (
     make_paged_spec_tick,
     make_slot_decode_step,
     make_slot_prefill,
+    make_slot_spec_tick,
 )
 from simple_distributed_machine_learning_tpu_torch.ops.random import key_data
 from simple_distributed_machine_learning_tpu_torch.resilience.faults import (
@@ -178,12 +179,7 @@ def _check_layout(kv_layout, attn_kernel, prefill_chunk, n_blocks,
             "no blocks to demote — use kv_layout='paged'")
 
 
-def _reject_unported(kv_layout, speculative, lint, mesh, cfg) -> None:
-    if kv_layout == "dense" and speculative:
-        raise _roadmap.not_ported(
-            "speculative decoding over kv_layout='dense' "
-            "(make_slot_verify_step, make_slot_spec_tick)",
-            _roadmap.SERVE_EXTENSIONS)
+def _reject_unported(lint, mesh, cfg) -> None:
     if mesh is not None or cfg.n_tensor_parallel > 1:
         raise _roadmap.not_ported("tensor-parallel serving (mesh/"
                                   "n_tensor_parallel > 1)",
@@ -214,9 +210,9 @@ class InferenceEngine:
     paged-attention kernel, ``ops/paged_attention.py``).
 
     ``draft_stages``/``draft_cfg`` (a smaller ``make_gpt_stages`` build
-    of the same vocab) with ``spec_k >= 2`` make the paged decode step
-    speculative (module docstring); the draft keeps a dense slot pool of
-    its own (f32 when ``cache_dtype`` is quantised).
+    of the same vocab) with ``spec_k >= 2`` make the decode step
+    speculative on either layout (module docstring); the draft keeps a
+    dense slot pool of its own (f32 when ``cache_dtype`` is quantised).
 
     ``host_cache_blocks > 0`` (paged only) turns on the pool's host
     offload tier, whose uploads land after ``prefetch_ticks`` ticks.
@@ -247,8 +243,7 @@ class InferenceEngine:
         _check_layout(kv_layout, attn_kernel, prefill_chunk, n_blocks,
                       host_cache_blocks)
         _check_speculative(draft_stages, draft_cfg, spec_k)
-        _reject_unported(kv_layout, draft_stages is not None, lint, mesh,
-                         cfg)
+        _reject_unported(lint, mesh, cfg)
         _check_ported(cfg, "InferenceEngine")
         self.device = resolve_device(device)
         if adapters is not None and adapters.n_rows != n_slots + 1:
@@ -314,10 +309,15 @@ class InferenceEngine:
             self._draft_prefill = make_slot_prefill(
                 draft_stages, draft_cfg, self.max_len,
                 self._draft_cache_dtype, device=self.device)
-            self._spec_fused = make_paged_spec_tick(
-                stages, cfg, draft_stages, draft_cfg, self.max_len,
-                block_size, spec_k, cache_dtype, kernel=attn_kernel,
-                adapters=adp, device=self.device)
+            self._spec_fused = (
+                make_paged_spec_tick(
+                    stages, cfg, draft_stages, draft_cfg, self.max_len,
+                    block_size, spec_k, cache_dtype, kernel=attn_kernel,
+                    adapters=adp, device=self.device)
+                if kv_layout == "paged" else
+                make_slot_spec_tick(
+                    stages, cfg, draft_stages, draft_cfg, self.max_len,
+                    spec_k, cache_dtype, adapters=adp, device=self.device))
             self._init_draft_pool(n_slots)
         if scheduler is None:
             scheduler = FCFSScheduler(self.pool)
@@ -507,7 +507,8 @@ class InferenceEngine:
             # the occupancy the batched decode runs at, sampled before
             # same-tick retirement
             decode_active = self.pool.n_active
-            emitted += self._decode_tick_dense()
+            emitted += (self._spec_tick(self.pool.active_slots())
+                        if self.speculative else self._decode_tick_dense())
         else:
             # host-tier upload progress first: blocks completing this tick
             # register before admission probes the registry, so a request
@@ -653,8 +654,9 @@ class InferenceEngine:
 
     def _admit_dense(self) -> int:
         """Board waiting requests, each with a whole-sequence prefill into
-        its slot row; the prefill samples the first token (TTFT endpoint)
-        unless the request is resuming."""
+        its slot row (and the draft's, when speculative); the prefill
+        samples the first token (TTFT endpoint) unless the request is
+        resuming."""
         emitted = 0
         for r in self.scheduler.admit():
             seq = r.resume_seq       # == r.prompt unless resuming
@@ -666,6 +668,8 @@ class InferenceEngine:
                 r.top_p if r.top_p is not None else _NO_TOP_P,
                 *self._bank_args(r._adapter_row))
             self.pool.kc, self.pool.vc = kc, vc
+            if self.speculative:
+                self._draft_prefill_slot(r, seq)
             if r.tokens:
                 # resuming: the prefill only rebuilt K/V; its sample and
                 # key advance are discarded and decode restarts from the
@@ -848,7 +852,8 @@ class InferenceEngine:
         """One speculative tick over the decoding slots: the draft's
         ``spec_k`` propose steps, then the batched target verify, emitting
         1..``spec_k`` tokens per slot. The proposals stay on the device;
-        the host syncs once, at the end."""
+        the host syncs once, at the end. The dense layout passes no block
+        tables."""
         if not active:
             return 0
         S, K = self.pool.n_slots, self.spec_k
@@ -857,8 +862,6 @@ class InferenceEngine:
         pos = np.zeros(S, np.int32)
         valid = np.zeros(S, np.int32)
         dkd = np.zeros((S, 2), np.uint32)
-        tables = np.full((S, self.pool.blocks_per_seq), PagedKVPool.TRASH,
-                         np.int32)
         for s in active:
             r = self.requests[self.pool.occupant(s)]
             toks[s] = self.pool.last_token[s]
@@ -866,15 +869,21 @@ class InferenceEngine:
             # never speculate past the remaining token budget, so every
             # real K/V write stays inside the slot's reservation
             # (non-decoding slots keep valid 0: all their writes go to
-            # the trash block)
+            # the trash block or row)
             valid[s] = min(K, r.max_new_tokens - len(r.tokens))
             dkd[s] = r.draft_key_data
-            self._ensure_writable_range(s, int(pos[s]), int(valid[s]))
-            tables[s] = self.pool.device_table(s)
+        tables = ()
+        if self.kv_layout == "paged":
+            tables = np.full((S, self.pool.blocks_per_seq),
+                             PagedKVPool.TRASH, np.int32)
+            for s in active:
+                self._ensure_writable_range(s, int(pos[s]), int(valid[s]))
+                tables[s] = self.pool.device_table(s)
+            tables = (tables,)
         (self._dkc, self._dvc, self.pool.kc, self.pool.vc, otoks, nacc, kd2,
          dkd2) = self._spec_fused(
             self._draft_params, self._dkc, self._dvc, self.params,
-            self.pool.kc, self.pool.vc, toks, pos, valid, tables, dkd, kd,
+            self.pool.kc, self.pool.vc, toks, pos, valid, *tables, dkd, kd,
             temps, top_ks, top_ps,
             # adapters ride the verify side only: the draft proposes as the
             # base model, and the adapted verify rows decide every emission

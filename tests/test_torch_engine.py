@@ -177,11 +177,9 @@ def test_engine_defaults_to_cuda_and_raises_without_it(weights):
 
 
 @pytest.mark.parametrize("kw,item", [
-    # speculative decoding runs on the paged target pool; over the dense
-    # slot layout (ported: the serve supervisor's fallback) it waits for
-    # the dense verify programs (item 5)
-    (dict(kv_layout="dense", draft_stages=object(), draft_cfg=object(),
-          spec_k=2), "item 5"),
+    # speculative decoding over the dense slot layout (the dense verify
+    # programs) is ported: it builds and serves
+    (dict(kv_layout="dense", draft=True, spec_k=2), None),
     (dict(mesh=object()), "item 6"),
     # the adapters and the host tier are ported: they build and serve
     (dict(adapters=True), None),
@@ -198,12 +196,17 @@ def test_unported_engine_knobs_raise_with_roadmap_item(weights, kw, item):
         return
     if kw.get("adapters"):
         kw = dict(adapters=AdapterStore(tcfg, 2, 4, device="cpu"))
+    if kw.pop("draft", False):
+        kw.update(draft_stages=tst, draft_cfg=tcfg)
     eng = InferenceEngine(tst, tcfg, params=tparams, device="cpu", **kw)
     h = eng.submit(np.arange(5) % 64, max_new_tokens=4, seed=3)
     eng.drain()
     solo = tgpt.make_cached_decoder(tst, tcfg, 5, 4, device="cpu")(
         tparams, (np.arange(5) % 64)[None].astype(np.int32), key_data(3))
     assert h.tokens == solo[0, 5:].tolist()
+    if eng.kv_layout == "dense":
+        assert eng.speculative and eng.spec_k == 2
+        return
     assert eng.pool.host_cache_blocks == kw.get("host_cache_blocks", 0)
     assert eng.pool.prefetch_ticks == kw.get("prefetch_ticks", 1)
 

@@ -215,13 +215,11 @@ def test_sampled_top1_equals_greedy_and_seeds_reproduce():
     dict(n_experts=4),
     dict(attn_impl="ring", n_seq=2),
     dict(n_tensor_parallel=2),
-    # serving builds: the dense slot-row target, tracing and the flight
-    # recorder are ported; speculation over dense rows and the TP slot
-    # programs still name their items, as --chaos-stages and the linter
-    # name theirs
+    # serving builds: the dense slot-row target, speculation over it,
+    # tracing and the flight recorder are ported; the TP slot programs
+    # still name their item, as --chaos-stages and the linter name theirs
     dict(engine=dict(kv_layout="dense"), item=None),
-    dict(engine=dict(kv_layout="dense", spec_k=2, draft=True),
-         item="item 5, serving extensions"),
+    dict(engine=dict(kv_layout="dense", spec_k=2, draft=True), item=None),
     dict(engine=dict(trace=True), item=None),
     dict(engine=dict(flight=True), item=None),
     dict(cli=["--chaos-stages", "2,1"],
