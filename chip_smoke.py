@@ -224,7 +224,30 @@ or without the port beside it. Phases, each fatal on failure:
    ones) and the CLI's half-depth draft on phase 3's trace (24/24,
    greedy streams equal to 3b (b)'s and phase 3's), K4 launched 0 times;
    it prints tokens per tick and the host ms per tick beside the paged
-   speculative tick's.
+   speculative tick's;
+13. training telemetry, the profiler and the native loader: (a) the
+   LeNet CLI for ``TELEMETRY_EPOCHS`` epochs with ``--telemetry-dir`` at
+   ``--telemetry-every`` 1 and 4 — one record per epoch with the JAX
+   Trainer's key set (``JAX_EPOCH_KEYS``) plus ``device_memory``, every
+   step but the compile window counted steady, ``compile_time_s > 0``, the
+   allocator's peak at least its bytes in use (> 0), live tensor bytes at
+   least LeNet's parameter bytes, ``feed``/``step``/``eval``/``epoch_end``
+   in ``trace.json`` and ``# HELP step_time_ms`` in ``metrics.prom``; it
+   prints the record's step p50/p95 at both values beside phase 7's
+   host-clock lenet step; (b) phase 7's ``--model gpt --attn flash``
+   CLI run in bf16 with ``--telemetry-dir``, ``--profile`` and
+   ``--generate 16`` — K1-K3 launched ``n_layers`` times per step (K1
+   also per eval batch), the profiler's Chrome trace naming each kernel
+   as often as its wrapper launched it, and one ``kind: "decode"``
+   record with tokens/s > 0; (c) phase 7's synthetic MNIST written as
+   uint8 IDX files (tiled to 60000/10000, so the reference's 1/10 cut
+   reads exactly it) and the LeNet CLI from them with ``--shuffle`` —
+   the native library built, its codec parsing the 4 files and its
+   prefetcher assembling one batch per step, the console in the
+   reference's formats; then ``NATIVE_STEPS`` LeNet steps on the card
+   from the native prefetcher and from Python ``batches`` (same
+   shuffle), with bit-identical losses, and each feed's host ms per
+   batch.
 
 Before the last line it prints the kernels as one JSON object (times in
 ms, measured in this run; ``bound_ms`` computed from this run's inputs);
@@ -466,6 +489,17 @@ BEAM = dict(n_prompts=8, t0=16, n_new=24, beam_size=4, seed=12)
 BEAM_TOL = 1e-4
 # where phase 7 runs: the card ("cpu" only to rehearse the phase without
 # one, where its device checks cannot pass)
+# phase 13: the telemetry runs' epochs and --telemetry-every values (100
+# batches per epoch, a multiple of each, so every window closes at an
+# epoch's end), the in-process native-vs-Python feed steps, and the JAX
+# Trainer's epoch-record keys on a one-stage mesh (no ICI probe)
+TELEMETRY_EPOCHS, TELEMETRY_EVERY, NATIVE_STEPS = 2, (1, 4), 20
+JAX_EPOCH_KEYS = frozenset((
+    "accuracy", "bubble_fraction", "compile_time_s", "correct", "epoch",
+    "eval_loss", "examples_per_sec", "kind", "live_array_bytes", "n_eval",
+    "n_microbatches", "n_stages", "samples_per_sec", "schedule", "schema",
+    "step", "step_time_ms_max", "step_time_ms_p50", "step_time_ms_p95",
+    "steps", "time", "tokens_per_sec", "train_loss"))
 MAIN_DEVICE = "cuda"
 
 
@@ -4365,6 +4399,229 @@ def phase_protocol_beam_dense(stages, cfg, serve: dict, plain_handles: list,
     return launches
 
 
+# -- phase 13: training telemetry, the profiler and the native loader ---------
+
+def _idx_file(path: str, arr) -> None:
+    """``arr`` (uint8) as an IDX file (big-endian dims, magic 0x08)."""
+    import struct
+    with open(path, "wb") as f:
+        f.write(struct.pack(">I", 0x0800 | arr.ndim)
+                + struct.pack(">" + "I" * arr.ndim, *arr.shape)
+                + arr.tobytes())
+
+
+def _jsonl(path: str) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(ln) for ln in f]
+
+
+def _telemetry_lenet(tmp: str, every: int, rec: dict) -> None:
+    """(a): the LeNet CLI for ``TELEMETRY_EPOCHS`` epochs with
+    ``--telemetry-dir`` at ``--telemetry-every every``; its records, trace
+    and exposition gated."""
+    d = os.path.join(tmp, f"tele_every{every}")
+    lines = _cli(["--model", "lenet", "--data-root",
+                  os.path.join(tmp, "no-mnist"), "--epochs",
+                  str(TELEMETRY_EPOCHS), "--telemetry-dir", d,
+                  "--telemetry-every", str(every)])
+    bad = [ln for ln in lines if not (TRAIN_RE.match(ln) or TEST_RE.match(ln)
+                                      or EPOCH_RE.match(ln))]
+    check(not bad, f"telemetry lenet CLI: lines off the reference formats: "
+                   f"{bad}")
+    recs = _jsonl(os.path.join(d, "metrics.jsonl"))
+    per_epoch = 6000 // 60
+    want_steps = [e * per_epoch - 1 for e in range(1, TELEMETRY_EPOCHS + 1)]
+    check([r["epoch"] for r in recs] == list(range(1, TELEMETRY_EPOCHS + 1)),
+          f"every={every}: expected one record per epoch, got {recs}")
+    lenet_bytes = 21_840 * 4
+    for r in recs:
+        check(set(r) == JAX_EPOCH_KEYS | {"device_memory"},
+              f"every={every}: record keys {sorted(r)} are not the JAX "
+              f"record's plus device_memory: {sorted(set(r) ^ JAX_EPOCH_KEYS)}")
+        mem = r["device_memory"].get("0", {})
+        check(mem.get("peak_bytes_in_use", 0) >= mem.get("bytes_in_use", 0)
+              > 0, f"every={every}: device_memory {r['device_memory']}")
+        check(r["live_array_bytes"] >= lenet_bytes,
+              f"every={every}: live_array_bytes {r['live_array_bytes']} < "
+              f"LeNet's {lenet_bytes} parameter bytes")
+        check(r["compile_time_s"] > 0 and 0 < r["step_time_ms_p50"]
+              <= r["step_time_ms_p95"] <= r["step_time_ms_max"],
+              f"every={every}: timings {r}")
+    check([r["steps"] for r in recs] == want_steps,
+          f"every={every}: steady steps {[r['steps'] for r in recs]} != "
+          f"{want_steps} (every step but the compile window)")
+    with open(os.path.join(d, "trace.json")) as f:
+        names = {e["name"] for e in json.load(f)["traceEvents"]}
+    check({"feed", "step", "eval", "epoch_end"} <= names,
+          f"every={every}: trace.json names {sorted(names)}")
+    with open(os.path.join(d, "metrics.prom")) as f:
+        check("# HELP step_time_ms " in f.read(),
+              f"every={every}: metrics.prom has no # HELP step_time_ms")
+    rec[f"every_{every}"] = dict(
+        records=recs, console=[ln for ln in lines if EPOCH_RE.match(ln)])
+
+
+def _kernel_events(trace_dir: str) -> dict[str, int]:
+    """Kernel launches by name in the one ``*.pt.trace.json`` that
+    ``--profile`` wrote into ``trace_dir``."""
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    check(len(files) == 1, f"--profile wrote {files} into {trace_dir}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    counts: dict[str, int] = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            counts[e["name"]] = counts.get(e["name"], 0) + 1
+    return counts
+
+
+def _telemetry_gpt(tmp: str, rec: dict) -> tuple[int, int, int]:
+    """(b): ``gpt --attn flash --bf16`` through the CLI with the telemetry,
+    ``--profile`` and ``--generate``; the K1-K3 launches."""
+    d, prof = os.path.join(tmp, "tele_gpt"), os.path.join(tmp, "prof_gpt")
+    _reset_flash_counts()
+    lines = _cli(["--model", "gpt", "--attn", "flash", "--bf16", "--dryrun",
+                  str(MAIN_GPT_STEPS), "--generate", "16", "--telemetry-dir",
+                  d, "--profile", prof])
+    counts = _flash_counts()
+    n_layers, evals = 2, -(-1000 // 60)
+    want = (n_layers * (MAIN_GPT_STEPS + evals), n_layers * MAIN_GPT_STEPS,
+            n_layers * MAIN_GPT_STEPS)
+    check(counts == want, f"telemetry gpt CLI: flash launches {counts} != "
+                          f"{want}")
+    kernels = _kernel_events(prof)
+    traced = tuple(sum(n for k, n in kernels.items() if kern in k)
+                   for kern in ("flash_fwd_kernel", "flash_dq_kernel",
+                                "flash_dkv_kernel"))
+    check(traced == counts, f"the --profile trace names K1-K3 {traced} "
+                            f"times, the wrappers launched {counts}: "
+                            f"{sorted(k for k in kernels if 'flash' in k)}")
+    recs = _jsonl(os.path.join(d, "metrics.jsonl"))
+    check([r["kind"] for r in recs] == ["epoch", "decode"],
+          f"telemetry gpt CLI: records {[r['kind'] for r in recs]}")
+    check(recs[1]["n_new"] == 16 and recs[1]["tokens_per_sec"] > 0,
+          f"telemetry gpt CLI: decode record {recs[1]}")
+    check(set(recs[0]) == JAX_EPOCH_KEYS | {"device_memory"}
+          and recs[0]["tokens_per_sec"] > 0,
+          f"telemetry gpt CLI: epoch record {recs[0]}")
+    check(any(ln.startswith("| sample tokens") for ln in lines),
+          "telemetry gpt CLI: --generate printed no sample")
+    rec["gpt"] = dict(launches=counts, traced=traced, epoch=recs[0],
+                      decode=recs[1], kernels_traced=sorted(
+                          k for k in kernels if "flash" in k))
+    return counts
+
+
+def _native_feed(tmp: str, rec: dict) -> None:
+    """(c): phase 7's synthetic MNIST as IDX files, tiled to the full
+    60000/10000 so the reference's 1/10 cut reads exactly it; the LeNet
+    CLI from them with --shuffle; then LeNet's steps from either feed."""
+    import itertools
+
+    import numpy as np
+
+    from simple_distributed_machine_learning_tpu_torch.data import (
+        mnist,
+        native_loader,
+    )
+    check(native_loader.available(),
+          f"the native loader did not build: {native_loader.build_error()}")
+    root = os.path.join(tmp, "mnist")
+    os.makedirs(root)
+    train, test = _row_data(False)
+    for split, ds in (("train", train), ("t10k", test)):
+        px = np.rint(ds.x[..., 0] * 255).astype(np.uint8)
+        _idx_file(os.path.join(root, f"{split}-images-idx3-ubyte"),
+                  np.tile(px, (10, 1, 1)))
+        _idx_file(os.path.join(root, f"{split}-labels-idx1-ubyte"),
+                  np.tile(ds.y.astype(np.uint8), 10))
+    files0 = native_loader.idx_read_native.files
+    batches0 = native_loader.NativePrefetcher.batches
+    t0 = time.perf_counter()
+    lines = _cli(["--model", "lenet", "--data-root", root, "--shuffle",
+                  "--epochs", "1"])
+    cli_s = time.perf_counter() - t0
+    files = native_loader.idx_read_native.files - files0
+    made = native_loader.NativePrefetcher.batches - batches0
+    bad = [ln for ln in lines if not (TRAIN_RE.match(ln) or TEST_RE.match(ln)
+                                      or EPOCH_RE.match(ln))]
+    steps = 6000 // 60
+    check(not bad and sum(bool(TRAIN_RE.match(ln)) for ln in lines) == 10,
+          f"native lenet CLI: console {lines}")
+    check(files == 4, f"the native codec parsed {files} files, not 4")
+    check(made == steps, f"the native prefetcher assembled {made} batches "
+                         f"for {steps} steps")
+    # the same 20 shuffled batches from either feed, through LeNet on the
+    # card: the losses must be bit-identical
+    ds, _ = mnist.load_mnist(root)
+    seed = 0 * 100003 + 1                         # the Trainer's epoch 1
+    feeds, host_ms = {}, {}
+    for name, make in (("native", mnist.prefetch_batches),
+                       ("python", mnist.batches)):
+        t0 = time.perf_counter()
+        feeds[name] = list(itertools.islice(
+            make(ds, 60, shuffle_seed=seed), NATIVE_STEPS))
+        host_ms[name] = (time.perf_counter() - t0) * 1e3 / NATIVE_STEPS
+    losses = {name: _lenet_steps(MAIN_DEVICE, feed)
+              for name, feed in feeds.items()}
+    same = losses["native"] == losses["python"]
+    rec["native"] = dict(cli_s=cli_s, console=lines, files=files,
+                         batches=made, losses=losses, host_ms=host_ms,
+                         bit_identical=same)
+    print(f"chip_smoke: native loader: the LeNet CLI from IDX files "
+          f"(--shuffle, 1 epoch) in {cli_s:.1f} s, {files} files parsed by "
+          f"the codec, {made} batches assembled for {steps} steps; "
+          f"{NATIVE_STEPS} LeNet steps on the card, native feed vs Python "
+          f"feed: losses bit-identical {same} ({losses['native'][0]} -> "
+          f"{losses['native'][-1]}); host ms per batch: native "
+          f"{host_ms['native']:.4f}, Python {host_ms['python']:.4f}")
+    check(same, f"the native feed's losses {losses['native']} differ from "
+                f"the Python feed's {losses['python']}")
+
+
+def phase_telemetry_native(record: dict) -> tuple[int, int, int]:
+    """Phase 13 (module docstring): the training telemetry session, the
+    profiler and the native loader on the reference's main path. Returns
+    (b)'s K1-K3 launches."""
+    import tempfile
+    rec: dict = {}
+    record["telemetry_native"] = rec
+    t0 = time.perf_counter()
+    lenet_ms = record["main_path"]["rows"]["lenet"]["step_ms"]
+    with tempfile.TemporaryDirectory() as tmp:
+        for every in TELEMETRY_EVERY:
+            _telemetry_lenet(tmp, every, rec)
+        print(f"chip_smoke: telemetry (a): lenet CLI, {TELEMETRY_EPOCHS} "
+              f"epochs, step ms p50/p95/max from the telemetry record: "
+              + "; ".join(
+                  f"every {e}: " + ", ".join(
+                      f"epoch {r['epoch']} {r['step_time_ms_p50']}/"
+                      f"{r['step_time_ms_p95']}/{r['step_time_ms_max']} "
+                      f"({r['steps']} steps, compile "
+                      f"{r['compile_time_s']} s)"
+                      for r in rec[f"every_{e}"]["records"])
+                  for e in TELEMETRY_EVERY)
+              + f"; phase 7's lenet step (host clock, no fences) "
+                f"{lenet_ms:.4f} ms")
+        last = rec[f"every_{TELEMETRY_EVERY[0]}"]["records"][-1]
+        print(f"chip_smoke: telemetry (a): device memory "
+              f"{last['device_memory']}, live tensor bytes "
+              f"{last['live_array_bytes']}")
+        counts = _telemetry_gpt(tmp, rec)
+        g = rec["gpt"]
+        print(f"chip_smoke: telemetry (b): gpt --attn flash --bf16 "
+              f"--dryrun {MAIN_GPT_STEPS} --profile: K1/K2/K3 launches "
+              f"{counts}, the same in the profiler trace "
+              f"{g['kernels_traced']}; decode record: "
+              f"{g['decode']['tokens_per_sec']} tokens/s, p50 "
+              f"{g['decode']['step_time_ms_p50']} ms")
+        print(f"chip_smoke: telemetry (b): epoch record {json.dumps(g['epoch'])}")
+        _native_feed(tmp, rec)
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"chip_smoke: phase 13 took {rec['seconds']:.1f} s")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -4410,6 +4667,7 @@ def main() -> int:
         phase_train_profile(TRAIN_ROWS["gpt_bf16"], record)
         phase_main_path(record)
         resilience_launches = phase_resilience(record)
+        telemetry_launches = phase_telemetry_native(record)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4434,7 +4692,8 @@ def main() -> int:
         "library_ms": None,
     }]}
     # the flash kernels' times at the gpt_bf16 row's shape; launches from
-    # that row's flash training run and phase 10 (b)'s runs of that row
+    # that row's flash training run, phase 10 (b)'s runs of that row and
+    # phase 13 (b)'s bf16 CLI run
     for i, (name, line) in enumerate((("flash_forward", 127),
                                       ("flash_dq", 300),
                                       ("flash_dkv", 338))):
@@ -4447,7 +4706,8 @@ def main() -> int:
             "source": f"{PORT}/ops/csrc/flash_attention.cu",
             "replaces": "simple_distributed_machine_learning_tpu/ops/"
                         f"flash_attention.py:{line}",
-            "launches": train["launches"][i] + resilience_launches[i],
+            "launches": (train["launches"][i] + resilience_launches[i]
+                         + telemetry_launches[i]),
             "max_abs_err": max(v["max_abs_err"] for v in flash_variants
                                if v["name"] == name),
             "ms": timed["ms"],

@@ -33,12 +33,19 @@ fault by rollback and quarantine; ``--chaos SPEC --checkpoint-dir D``
 trains ``--model mlp`` or ``gpt`` under a fault schedule through the
 elastic supervisor, which restores the latest valid checkpoint of D's
 store after each recoverable failure (``--chaos-max-restarts`` bounds
-it).
+it). When training, ``--telemetry-dir D`` writes the telemetry session's
+per-epoch records (``D/metrics.jsonl``: step-time p50/p95, the compile
+split, throughput, live and device memory), ``D/trace.json`` (feed, step
+and eval spans) and ``D/metrics.prom``, fencing the card every
+``--telemetry-every N`` steps; with ``--generate`` it adds one ``kind:
+"decode"`` record. ``--profile DIR`` captures the whole fit under
+``torch.profiler`` into a Chrome trace in DIR.
 
 One flag is the port's own: ``--device`` (default CUDA; the run raises
 without it unless ``--device cpu`` asks for the CPU). Every other flag of
 the JAX parser is accepted; a flag whose path is not ported exits, when
-set, with one line naming its ROADMAP item (training telemetry and profiling, the linter, and every parallel axis: ``--stages`` above 1, ``--chaos-stages``,
+set, with one line naming its ROADMAP item (the linter, and every
+parallel axis: ``--stages`` above 1, ``--chaos-stages``,
 ``--dp/--tp/--sp/--ep/--experts``, ``--world_size`` above 1). ``--microbatches`` is accepted and does not split the batch, as
 on the JAX package's one-device mesh.
 """
@@ -258,13 +265,22 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument('--metrics-json', type=str, default=None, metavar='PATH',
                    help="append one JSON line of metrics per epoch")
     g.add_argument('--profile', type=str, default=None, metavar='DIR',
-                   help="profiler trace (ROADMAP item 6)")
+                   help="capture a torch.profiler Chrome trace of the whole "
+                        "training run into DIR (host ops and CUDA kernels)")
     g.add_argument('--telemetry-dir', type=str, default=None, metavar='DIR',
-                   help="with --serve-sim/--scenario: the serve record, "
-                        "journal and post-mortem bundles (training "
-                        "telemetry: ROADMAP item 6)")
+                   help="structured run telemetry (telemetry/): when "
+                        "training, per-epoch metrics.jsonl (step-latency "
+                        "p50/p95, examples/sec and tokens/sec, live and "
+                        "device memory, pipeline bubble fraction), "
+                        "trace.json (Chrome-trace host spans for "
+                        "feed/step/eval) and metrics.prom; with "
+                        "--serve-sim/--scenario the serve record, journal "
+                        "and post-mortem bundles; written into DIR")
     g.add_argument('--telemetry-every', type=int, default=1, metavar='N',
-                   help="run telemetry (ROADMAP item 6)")
+                   help="with --telemetry-dir: fence the device and sample "
+                        "step latency every Nth step; 1 = exact per-step "
+                        "latency, larger N keeps the host running ahead "
+                        "and attributes each fenced window to its N steps")
     g.add_argument('--max-steps-per-epoch', type=int, default=None,
                    metavar='N', help="cap every training epoch at N batches")
     g.add_argument('--sentinel', action='store_true',
@@ -322,17 +338,13 @@ def build_parser() -> argparse.ArgumentParser:
 _UNPORTED = ({"lint": _roadmap.ANALYSIS, "lint_only": _roadmap.ANALYSIS}
              | {k: _roadmap.PARALLEL_AXES for k in (
                  "world_size", "dp", "tp", "sp", "ep", "experts", "overlap",
-                 "remat", "telemetry_dir",
-                 "telemetry_every", "profile", "peer_timeout",
-                 "heartbeat_port", "serve_tp", "chaos_stages")})
+                 "remat", "peer_timeout", "heartbeat_port", "serve_tp",
+                 "chaos_stages")})
 
 
 def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
-    serving = args.serve_sim > 0 or args.scenario is not None
     for dest, value in vars(args).items():
         item = _UNPORTED.get(dest)
-        if dest == "telemetry_dir" and serving:
-            item = None      # the serve record, journal and bundles
         if item is not None and value != parser.get_default(dest):
             flag = "--" + (dest if dest == "world_size"
                            else dest.replace("_", "-"))
@@ -439,7 +451,20 @@ def _trainer(args, stages, wire_dim, out_dim, train_ds, test_ds, device):
     )
     return Trainer(_pipeline(args, stages, wire_dim, out_dim, device),
                    train_ds, test_ds, _train_config(args),
-                   opt=_make_opt(args, _total_steps(args, train_ds)))
+                   opt=_make_opt(args, _total_steps(args, train_ds)),
+                   telemetry=_telemetry(args))
+
+
+def _telemetry(args):
+    if not args.telemetry_dir:
+        return None
+    if args.telemetry_every < 1:
+        raise SystemExit(f"--telemetry-every must be >= 1, got "
+                         f"{args.telemetry_every}")
+    from simple_distributed_machine_learning_tpu_torch.telemetry import (
+        Telemetry,
+    )
+    return Telemetry(args.telemetry_dir, every=args.telemetry_every)
 
 
 def _train_config(args):
@@ -501,6 +526,8 @@ def _fit(args, trainer) -> None:
             trainer._print("| --eval-only: no checkpoint found, evaluating "
                            "fresh-initialized params")
         trainer.evaluate()
+        if trainer.telemetry is not None:
+            trainer.telemetry.close()    # eval spans -> trace.json
         return
     # graceful preemption: SIGTERM/SIGINT finish the in-flight step, write
     # a synchronous checkpoint with the mid-epoch data cursor, and exit 0
@@ -516,7 +543,14 @@ def _fit(args, trainer) -> None:
     except ValueError:
         old_handlers = {}              # not the main thread: no handlers
     try:
-        trainer.fit()
+        if args.profile:
+            from simple_distributed_machine_learning_tpu_torch.utils.profiler import (  # noqa: E501
+                trace,
+            )
+            with trace(args.profile):
+                trainer.fit()
+        else:
+            trainer.fit()
     finally:
         for s, h in old_handlers.items():
             signal.signal(s, h)
@@ -603,16 +637,13 @@ def _print_sample(args, trainer, cfg, test_ds) -> None:
     from simple_distributed_machine_learning_tpu_torch.models.gpt import (
         make_cached_decoder,
     )
-    from simple_distributed_machine_learning_tpu_torch.ops.random import (
-        key_data,
-    )
     n_new = min(args.generate, cfg.seq_len - 1)
     t0 = max(1, min(cfg.seq_len - n_new, 16))
     prompt = np.asarray(test_ds.x[:1, :t0], np.int32)
     dec = make_cached_decoder(trainer.pipe.stages, cfg, t0, n_new,
                               cache_dtype=torch.bfloat16 if args.bf16
                               else None, device=trainer.pipe.device)
-    toks = dec(trainer.params, prompt, key_data(args.seed))[0].cpu().numpy()
+    toks = _decode_timed(args, trainer, dec, prompt, n_new)[0]
     if args.text_corpus:
         text = bytes(int(t) for t in toks).decode("latin-1")
         trainer._print(f"| sample ({t0}-byte prompt + {n_new} generated):\n"
@@ -620,6 +651,49 @@ def _print_sample(args, trainer, cfg, test_ds) -> None:
     else:
         trainer._print(f"| sample tokens (prompt {t0} + {n_new} generated): "
                        f"{toks.tolist()}")
+
+
+def _decode_timed(args, trainer, dec, prompt, n_new):
+    """Run the --generate decode; with --telemetry-dir attached, route its
+    timing through a telemetry StepTimer (``decode_time_ms``) so decode
+    latency and tokens/sec land in metrics.jsonl (and the Prometheus
+    exposition) instead of being print-only. The first call is the
+    compile window (StepTimer splits it out); a second decode with a
+    different key measures the steady latency — distinct inputs, so a
+    cached result cannot fake the number. Returns the first decode's
+    tokens on the host."""
+    import os
+    import time
+
+    from simple_distributed_machine_learning_tpu_torch.ops.random import (
+        fold_in,
+        key_data,
+    )
+
+    tele = trainer.telemetry
+    if tele is None:
+        return dec(trainer.params, prompt, key_data(args.seed)).cpu().numpy()
+    from simple_distributed_machine_learning_tpu_torch.telemetry.registry import (  # noqa: E501
+        append_jsonl,
+    )
+    from simple_distributed_machine_learning_tpu_torch.telemetry.timer import (  # noqa: E501
+        StepTimer,
+    )
+    timer = StepTimer(registry=tele.registry, name="decode_time_ms")
+    b, n_tok = prompt.shape[0], prompt.shape[0] * n_new
+    t0 = time.perf_counter()
+    toks = dec(trainer.params, prompt, key_data(args.seed)).cpu().numpy()
+    timer.record_window(time.perf_counter() - t0, steps=1)   # compile window
+    t0 = time.perf_counter()
+    dec(trainer.params, prompt,
+        key_data(fold_in(args.seed, 1))).cpu().numpy()       # a fence
+    timer.record_window(time.perf_counter() - t0, steps=1, tokens=n_tok)
+    if tele._is_main():
+        rec = {"kind": "decode", "batch": int(b), "n_new": int(n_new),
+               **timer.summary()}
+        append_jsonl(os.path.join(tele.outdir, "metrics.jsonl"), rec)
+        tele.flush()                     # decode series -> metrics.prom
+    return toks
 
 
 # prompt-length buckets of the simulated serving workload

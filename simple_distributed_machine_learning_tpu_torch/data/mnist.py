@@ -8,12 +8,12 @@ etc., optionally .gz) and otherwise generates a deterministic synthetic
 10-class digit-like set of the same shapes from a numpy seed — the same
 arrays, bit for bit, as the JAX package's ``synthetic_mnist``.
 
-Layout is NHWC ``[N, 28, 28, 1]`` float32 in [0, 1]. The JAX package's
-native C++ IDX reader and batch prefetcher (``data/native_loader.py``) are
-not ported yet (ROADMAP Queue A item 6): IDX files go through the numpy
-parser, as the JAX package's own fallback does (its native reader scales
-by ``x * (1/255)`` in f32, within one ulp of numpy's ``x / 255``), and
-:func:`prefetch_batches` yields :func:`batches`'s batches from Python.
+Layout is NHWC ``[N, 28, 28, 1]`` float32 in [0, 1]. Raw IDX files go
+through the native C++ codec (``data/native_loader.py``, which scales by
+``x * (1/255)`` in f32, within one ulp of numpy's ``x / 255``) and
+:func:`prefetch_batches` assembles batches on the native prefetcher's
+thread, as in the JAX package; without a toolchain both fall back to
+numpy (``native_loader.build_error()`` says why).
 """
 
 from __future__ import annotations
@@ -53,7 +53,17 @@ def _find(root: str, stem: str) -> str | None:
 
 
 def load_idx_mnist(root: str) -> tuple[Dataset, Dataset] | None:
-    """Load real MNIST from IDX files under ``root``; None if absent."""
+    """Load real MNIST from IDX files under ``root``; None if absent.
+
+    Non-gzip files go through the native C++ IDX codec
+    (``native/data_loader.cpp``) when the toolchain is available — it returns
+    images already normalized to [0, 1] float32 — with the pure-NumPy parser
+    as fallback (and for .gz files, which the native codec does not decode).
+    """
+    from simple_distributed_machine_learning_tpu_torch.data import (
+        native_loader,
+    )
+
     paths = {k: _find(root, s) for k, s in {
         "train_x": "train-images-idx3-ubyte",
         "train_y": "train-labels-idx1-ubyte",
@@ -63,10 +73,16 @@ def load_idx_mnist(root: str) -> tuple[Dataset, Dataset] | None:
     if any(v is None for v in paths.values()):
         return None
 
+    native_ok = native_loader.available()
+
     def imgs(p):
+        if native_ok and not p.endswith(".gz"):
+            return native_loader.idx_read_native(p)[..., None]
         return (_read_idx(p).astype(np.float32) / 255.0)[..., None]
 
     def labels(p):
+        if native_ok and not p.endswith(".gz"):
+            return native_loader.idx_read_native(p).astype(np.int32)
         return _read_idx(p).astype(np.int32)
 
     train = Dataset(imgs(paths["train_x"]), labels(paths["train_y"]))
@@ -170,7 +186,31 @@ def batches(ds: Dataset, batch_size: int, pad_last: bool = True,
 
 def prefetch_batches(ds: Dataset, batch_size: int,
                      shuffle_seed: int | None = None) -> Iterator[Batch]:
-    """:func:`batches` with ``pad_last`` — the batches the JAX package's
-    native prefetcher assembles on its own thread, here from Python."""
-    yield from batches(ds, batch_size, pad_last=True,
-                       shuffle_seed=shuffle_seed)
+    """Like :func:`batches` (pad_last semantics) but batch assembly runs on
+    the native C++ prefetcher thread (``native/data_loader.cpp``) when the
+    toolchain is available, overlapping gather/pad with the device step.
+    Falls back to the pure-Python iterator otherwise.
+
+    ``shuffle_seed``: seeded epoch shuffle. The permutation is handed to the
+    native prefetcher as its gather order (it assembles batches by index on
+    its own thread), so no shuffled copy of the dataset is ever
+    materialized; the Python fallback (:func:`batches`) gathers per batch
+    with the identical permutation RNG.
+    """
+    from simple_distributed_machine_learning_tpu_torch.data import (
+        native_loader,
+    )
+
+    if not native_loader.available():
+        yield from batches(ds, batch_size, pad_last=True,
+                           shuffle_seed=shuffle_seed)
+        return
+    order = (np.random.RandomState(
+                 shuffle_seed % 2**32).permutation(len(ds.x))
+             if shuffle_seed is not None else None)
+    pf = native_loader.NativePrefetcher(ds.x, ds.y, batch_size, order=order)
+    try:
+        for bx, by, n_valid in pf:
+            yield Batch(bx, by.astype(ds.y.dtype, copy=False), n_valid)
+    finally:
+        pf.close()

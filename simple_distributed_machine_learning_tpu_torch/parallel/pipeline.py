@@ -142,6 +142,11 @@ class Pipeline:
                              f"{n_microbatches}")
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
+        # the schedule model's inputs (telemetry/bubble.py): one stage, so
+        # the bubble is 0 under either schedule
+        self.schedule = schedule
+        self.n_stages = 1
+        self.n_microbatches = int(n_microbatches)
         # the master copy stays on the host, as the JAX package keeps its
         # initial buffer: init_params() survives any number of in-place
         # steps on the copies it hands out

@@ -103,7 +103,7 @@ class ElasticTrainer(Trainer):
     """
 
     def __init__(self, pipe, train_ds, test_ds, config, store: CheckpointStore,
-                 opt=None) -> None:
+                 opt=None, telemetry=None) -> None:
         if config.checkpoint_dir:
             raise ValueError(
                 "ElasticTrainer persists through its CheckpointStore; "
@@ -112,7 +112,8 @@ class ElasticTrainer(Trainer):
         # before super().__init__: the base constructor resolves the
         # sentinel's quarantine-journal directory via _sentinel_dir()
         self.store = store
-        super().__init__(pipe, train_ds, test_ds, config, opt=opt)
+        super().__init__(pipe, train_ds, test_ds, config, opt=opt,
+                         telemetry=telemetry)
         self.history: list[dict] = []
 
     def _sentinel_dir(self) -> str | None:
@@ -137,7 +138,7 @@ class ElasticTrainer(Trainer):
 
 def make_elastic_trainer(build_pipe, n_stages: int, store: CheckpointStore,
                          train_ds, test_ds, config,
-                         opt_factory=None) -> ElasticTrainer:
+                         opt_factory=None, telemetry=None) -> ElasticTrainer:
     """Build one attempt's trainer at ``n_stages``, resumed from the store.
 
     ``build_pipe(n_stages) -> Pipeline`` is the topology factory. When the
@@ -153,11 +154,15 @@ def make_elastic_trainer(build_pipe, n_stages: int, store: CheckpointStore,
     ``opt_factory(pipe) -> Optimizer`` builds the optimizer against the
     attempt's OWN pipeline (pipe-dependent optimizers — e.g. replication-
     weighted gradient clipping — must see the topology they run on); None
-    is the Trainer's default optimizer.
+    is the Trainer's default optimizer. ``telemetry`` (a
+    ``telemetry/session.py`` ``Telemetry``) is the attempt's session; one
+    session passed to every attempt keeps appending its records across a
+    restart.
     """
     pipe = build_pipe(n_stages)
     opt = None if opt_factory is None else opt_factory(pipe)
-    trainer = ElasticTrainer(pipe, train_ds, test_ds, config, store, opt=opt)
+    trainer = ElasticTrainer(pipe, train_ds, test_ds, config, store, opt=opt,
+                             telemetry=telemetry)
     st = store.restore_latest(pipe=pipe, opt_treedef_like=trainer.opt_state)
     if st is None:
         return trainer

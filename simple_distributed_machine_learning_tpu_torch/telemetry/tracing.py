@@ -24,7 +24,8 @@ class Tracer:
     Two event families:
 
     - :meth:`span` — a synchronous host interval on the calling thread's
-      track (``ph: "X"``), stamped from this process's wall clock;
+      track (``ph: "X"``), stamped from this process's wall clock, and
+      :meth:`instant`, a zero-duration marker on the same track;
     - :meth:`async_begin` / :meth:`async_end` / :meth:`async_instant` —
       Chrome *async* events (``ph: "b"``/``"e"``/``"n"``) keyed by an
       explicit ``(cat, id)`` pair, so overlapping timelines (concurrent
@@ -66,6 +67,15 @@ class Tracer:
                     ev["args"] = {k: _jsonable(v) for k, v in attrs.items()}
                 with self._lock:
                     self._events.append(ev)
+
+    def instant(self, name: str, **attrs) -> None:
+        """A zero-duration marker (``ph: "i"``) — epoch boundaries etc."""
+        ev = {"name": name, "ph": "i", "s": "t", "ts": self._now_us(),
+              "pid": self._pid, "tid": threading.get_ident()}
+        if attrs:
+            ev["args"] = {k: _jsonable(v) for k, v in attrs.items()}
+        with self._lock:
+            self._events.append(ev)
 
     # -- async (overlapping) spans ----------------------------------------
 

@@ -13,10 +13,19 @@ generator, so a resumed or replayed step draws the masks the
 uninterrupted run drew (JAX: ``fold_in(key, step)``); eval is
 deterministic.
 
-Timing: one pageable host -> device copy per batch, as the JAX feed does.
-The throughput meter restarts after the first step has finished on the
-device and is read after the device has drained, so samples/sec is the
-card's rate, not the host's enqueue rate.
+Timing: one pageable host -> device copy per batch (``_feed``), as the
+JAX feed does. The throughput meter restarts after the first step has
+finished on the device and is read after the device has drained, so
+samples/sec is the card's rate, not the host's enqueue rate.
+
+Telemetry (``telemetry=Telemetry(dir)``, ``telemetry/session.py``): a
+``feed`` span around each batch's copy to the device, a ``step`` span
+around each step, ``eval`` spans in :meth:`Trainer.evaluate`, the fenced
+step-timing windows (each epoch's first step forced; the run's first is
+the compile window), and one epoch record per epoch (and on a graceful
+preemption) with the training record's fields riding along; the registry
+carries the training series and the sentinel's. None = the reference's
+console and ``metrics_json`` only.
 
 Fault sites (``resilience/faults.py``), where the JAX Trainer has them:
 ``train.sigterm`` (checked before each step: a graceful preemption),
@@ -29,13 +38,12 @@ gradient norm are checked on the host (``resilience/sentinel.py``): an
 anomaly rolls the state back to a host snapshot, quarantines the batch and
 replays, bit for bit what a run that never saw the batch computes.
 
-Not ported (raises ``NotImplementedError`` at construction, naming its
-ROADMAP item): a telemetry session (``telemetry=``), Queue A item 6.
 ``shard_inputs`` acts only across processes, and the port runs one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import sys
@@ -43,7 +51,6 @@ import sys
 import numpy as np
 import torch
 
-from simple_distributed_machine_learning_tpu_torch import _roadmap
 from simple_distributed_machine_learning_tpu_torch.data.mnist import (
     Dataset,
     batches,
@@ -135,13 +142,17 @@ class Trainer:
                  config: TrainConfig | None = None,
                  opt: Optimizer | None = None, telemetry=None) -> None:
         self.config = config or TrainConfig()
-        if telemetry is not None:
-            raise _roadmap.not_ported("a training telemetry session "
-                                      "(Trainer(telemetry=...))",
-                                      _roadmap.PARALLEL_AXES)
         self.pipe = pipe
         self.train_ds = train_ds
         self.test_ds = test_ds
+        # the observability hook (telemetry/session.py); None = the
+        # reference's console and metrics_json only
+        self.telemetry = telemetry
+        # LM datasets have [N, T] targets: telemetry reports tokens/sec
+        # beside examples/sec (0 = classifier, no token throughput)
+        self._tokens_per_sample = (int(np.prod(train_ds.y.shape[1:]))
+                                   if np.ndim(train_ds.y) > 1 else 0)
+        self._registry = telemetry.registry if telemetry is not None else None
         self.opt = opt or sgd(self.config.learning_rate, self.config.momentum)
         self.params = pipe.init_params()
         self.opt_state = self.opt.init(self.params)
@@ -172,6 +183,7 @@ class Trainer:
                     snapshot_every=self.config.sentinel_snapshot_every,
                     ring_size=self.config.sentinel_ring,
                     spike_factor=self.config.sentinel_spike_factor),
+                registry=self._registry,
                 journal_path=(os.path.join(jdir, "quarantine.jsonl")
                               if jdir else None))
         if self.config.checkpoint_dir and self.config.resume:
@@ -316,6 +328,18 @@ class Trainer:
         if self.pipe.device.type == "cuda":
             torch.cuda.synchronize(self.pipe.device)
 
+    def _span(self, name: str):
+        return (self.telemetry.span(name) if self.telemetry is not None
+                else contextlib.nullcontext())
+
+    def _feed(self, x, y, w):
+        """The batch's one host -> device copy, onto ``pipe.device`` (the
+        step then finds it there)."""
+        dev = self.pipe.device
+        return (torch.from_numpy(np.ascontiguousarray(x)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(y)).to(dev),
+                None if w is None else torch.from_numpy(w).to(dev))
+
     def _epoch_stream(self, shuffle_seed: int | None, start_idx: int):
         """The epoch's ``(batch_idx, Batch)`` stream from ``start_idx``:
         batch order is fixed per (epoch, seed), so skipping forward gives
@@ -329,6 +353,7 @@ class Trainer:
 
     def train_epoch(self, epoch: int) -> float:
         cfg = self.config
+        tele = self.telemetry
         sent = self._sentinel
         meter = Throughput()
         n_total = len(self.train_ds.x)
@@ -338,6 +363,8 @@ class Trainer:
         start_idx = (self._resume_batch_idx if epoch == self.start_epoch
                      else 0)
         self._resume_batch_idx = 0
+        if tele is not None:
+            tele.mark()                  # window start = loop entry, not init
         if sent is not None:
             sent.begin_epoch(epoch)      # fresh ring + forced entry snapshot
         stream = self._epoch_stream(shuffle_seed, start_idx)
@@ -376,14 +403,13 @@ class Trainer:
                 # ragged final batch: zero-padded, masked out of the loss
                 w = None
                 if b.n_valid < len(b.x):
-                    w = torch.from_numpy(
-                        (np.arange(len(b.x)) < b.n_valid).astype(np.float32))
-                x = torch.from_numpy(
-                    np.ascontiguousarray(self._apply_numeric_faults(b.x,
-                                                                    step)))
-                out = self._train_step(
-                    self.params, self.opt_state, x, torch.from_numpy(b.y),
-                    fold_in(cfg.seed, step), w)
+                    w = (np.arange(len(b.x)) < b.n_valid).astype(np.float32)
+                bx = self._apply_numeric_faults(b.x, step)
+                with self._span("feed"):
+                    x, y, w = self._feed(bx, b.y, w)
+                with self._span("step"):
+                    out = self._train_step(self.params, self.opt_state, x, y,
+                                           fold_in(cfg.seed, step), w)
                 self.params, self.opt_state, loss = out[:3]
                 self._step_count += 1
                 if sent is not None:
@@ -408,8 +434,17 @@ class Trainer:
                         stream.close()
                         stream = self._epoch_stream(shuffle_seed,
                                                     snap.batch_idx)
+                        if tele is not None:
+                            tele.mark()  # the poisoned window is not a step
                         continue
                 meter.update(b.n_valid)
+                if tele is not None:
+                    # each epoch's first batch is fenced; the run's first
+                    # window is the compile window the StepTimer splits out
+                    tele.on_step(
+                        loss, examples=b.n_valid,
+                        tokens=b.n_valid * self._tokens_per_sample,
+                        force_fence=first)
                 if first:
                     # the first step carries one-time costs (kernel
                     # builds, allocator growth): keep it out of the
@@ -439,10 +474,11 @@ class Trainer:
         n = int(self.test_ds.y.size)
         for b in batches(self.test_ds, self.config.batch_size,
                          pad_last=True):
-            sl, c = self._eval_step(self.params, torch.from_numpy(b.x),
-                                    torch.from_numpy(b.y), None, b.n_valid)
-            total_loss += float(sl)
-            correct += int(c)
+            with self._span("eval"):
+                x, y, _ = self._feed(b.x, b.y, None)
+                sl, c = self._eval_step(self.params, x, y, None, b.n_valid)
+                total_loss += float(sl)      # the host read closes the span
+                correct += int(c)            # at the batch's true end
         avg = total_loss / n
         self._print(
             '\nTest set: Average loss: {:.4f}, Accuracy: {}/{} ({:.0f}%)\n'
@@ -450,13 +486,28 @@ class Trainer:
         return avg, correct
 
     def _log_metrics(self, record: dict) -> None:
+        """The per-epoch record to ``metrics_json`` (schema 2), mirrored
+        into the telemetry registry when a session is attached (monotonic
+        counters for step/correct counts, gauges for the rest), so the
+        same numbers ride the Prometheus exposition."""
+        reg = self._registry
+        if reg is not None:
+            steps = reg.counter("train_steps_total")
+            steps.inc(record["step"] - steps.value)
+            if record["correct"] is not None:
+                reg.counter("eval_correct_total").inc(record["correct"])
+            for key in ("train_loss", "eval_loss", "accuracy",
+                        "samples_per_sec"):
+                if record.get(key) is not None:
+                    reg.gauge(key).set(record[key])
         if self.config.metrics_json:
             append_jsonl(self.config.metrics_json, record, schema=2)
 
     def fit(self) -> None:
         """The reference's epoch driver, plus a checkpoint per epoch when
-        ``checkpoint_dir`` is set and a metrics record per epoch when
-        ``metrics_json`` is. After :meth:`request_stop` the in-flight step
+        ``checkpoint_dir`` is set, a metrics record per epoch when
+        ``metrics_json`` is, and a telemetry record per epoch when a
+        session is attached. After :meth:`request_stop` the in-flight step
         finishes, a synchronous checkpoint with the data cursor is
         written, and ``fit`` returns with ``self.preempted`` set."""
         for epoch in range(self.start_epoch, self.config.epochs + 1):
@@ -482,9 +533,16 @@ class Trainer:
                 record.update(self.sentinel_stats())
                 record["anomaly_events"] = self._sentinel.drain_events()
             self._log_metrics(record)
+            if self.telemetry is not None:
+                # the full telemetry record: step-latency quantiles,
+                # throughput, memory, the bubble estimate, with the
+                # training record's fields riding along
+                self.telemetry.on_epoch(epoch, pipe=self.pipe, extra=record)
             self._save(epoch)
         if self._pending_save is not None:
             self._wait_pending()
+        if self.telemetry is not None:
+            self.telemetry.close()
 
     def _finish_preempt(self, epoch: int) -> None:
         """Synchronous checkpoint (with the data cursor when the stop hit
@@ -499,6 +557,10 @@ class Trainer:
             record.update(self.sentinel_stats())
             record["anomaly_events"] = self._sentinel.drain_events()
         self._log_metrics(record)
+        if self.telemetry is not None:
+            self.telemetry.on_epoch(epoch, pipe=self.pipe, extra=record)
+        if self._registry is not None:
+            self._registry.gauge("train_preempt_graceful").set(1)
         self.preempted = True
         sig = (f"signal {self._stop_signal}"
                if self._stop_signal is not None else "preempt notice")
@@ -513,3 +575,5 @@ class Trainer:
                if self.preempt_persisted
                else "no checkpoint_dir configured, state NOT persisted "
                "(quarantine journal flushed)"))
+        if self.telemetry is not None:
+            self.telemetry.close()

@@ -157,9 +157,6 @@ def test_cli_metrics_json(tmp_path):
     (["--overlap", "ring"], "item 6"),
     (["--remat"], "item 6"),
     (["--chaos-stages", "2,1"], "item 6"),
-    (["--telemetry-dir", "/tmp/t"], "item 6"),
-    (["--profile", "/tmp/p"], "item 6"),
-    (["--telemetry-every", "2"], "item 6"),
     (["--peer-timeout", "30"], "item 6"),
     (["--lint"], "item 7"),
     (["--lint-only"], "item 7"),
@@ -211,6 +208,9 @@ def test_unported_flags_exit_naming_their_item(flag, item):
     (["--model", "gpt", "--serve-sim", "4", "--serve-adapters", "2",
       "--serve-adapter-rank", "0"],
      "^--serve-adapter-rank must be >= 1, got 0$"),
+    (["--model", "mlp", "--mlp-dims", "784,32,10", "--telemetry-dir",
+      "never-made", "--telemetry-every", "0"],
+     "^--telemetry-every must be >= 1, got 0$"),
 ])
 def test_bad_values_exit_with_one_line(argv, match):
     with pytest.raises(SystemExit, match=match):
@@ -649,3 +649,94 @@ def test_cli_preempt_then_rerun_resumes_bit_exact(tmp_path, capsys):
     np.testing.assert_array_equal(a["params"], b["params"])
     for x, y in zip(a["opt_state"], b["opt_state"]):
         np.testing.assert_array_equal(x, y)
+
+
+# -- training telemetry and the profiler ---------------------------------------
+
+
+def _jax_telemetry_cli(monkeypatch):
+    """The JAX CLI with the two in-process patches its Trainer needs to run
+    a telemetry session on this tree (``tests/test_torch_telemetry.py``)."""
+    from simple_distributed_machine_learning_tpu import analysis
+    from simple_distributed_machine_learning_tpu import cli as jcli
+    from simple_distributed_machine_learning_tpu import telemetry as jtm
+    monkeypatch.setattr(analysis, "abstractify", lambda a: a, raising=False)
+    monkeypatch.setattr(jtm.Telemetry, "set_step_probe",
+                        lambda self, *a, **k: None)
+    return jcli
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(ln) for ln in f]
+
+
+def test_cli_dryrun_telemetry_matches_the_jax_cli(tmp_path, monkeypatch,
+                                                  capsys):
+    """--dryrun 2 --telemetry-dir on one stage: one epoch record (2
+    batches, the first the compile window) with the JAX CLI's key set and
+    step accounting, and the trace and exposition beside it."""
+    jcli = _jax_telemetry_cli(monkeypatch)
+    argv = ["--rank", "0", "--world_size", "1", "--model", "mlp",
+            "--mlp-dims", "784,32,10", "--stages", "1", "--epochs", "5",
+            "--dryrun", "2", "--data-root", "/nonexistent"]
+    jcli.main(argv + ["--telemetry-dir", str(tmp_path / "jax")])
+    main(argv + ["--device", "cpu", "--telemetry-dir",
+                 str(tmp_path / "port")])
+    capsys.readouterr()
+    [ours] = _jsonl(tmp_path / "port" / "metrics.jsonl")
+    [theirs] = _jsonl(tmp_path / "jax" / "metrics.jsonl")
+    assert set(ours) == set(theirs)
+    for key in ("schema", "epoch", "step", "steps", "n_stages",
+                "n_microbatches", "schedule", "bubble_fraction", "n_eval"):
+        assert ours[key] == theirs[key], key
+    assert ours["steps"] == 1 and ours["step_time_ms_p50"] > 0
+    assert ours["examples_per_sec"] > 0 and ours["live_array_bytes"] > 0
+    with open(tmp_path / "port" / "trace.json") as f:
+        names = {e["name"] for e in json.load(f)["traceEvents"]}
+    assert {"feed", "step", "eval", "epoch_end"} <= names
+    assert (tmp_path / "port" / "metrics.prom").exists()
+
+
+def test_cli_profile_writes_a_chrome_trace(tmp_path, capsys):
+    main(BASE + ["--model", "mlp", "--mlp-dims", "784,32,10", "--dryrun",
+                 "2", "--profile", str(tmp_path / "prof"),
+                 "--telemetry-dir", str(tmp_path / "tele")])
+    assert TEST_RE.match([ln for ln in capsys.readouterr().out.split("\n")
+                          if ln.startswith("Test set")][0])
+    [name] = [f.name for f in (tmp_path / "prof").iterdir()]
+    assert name.endswith(".pt.trace.json")
+    with open(tmp_path / "prof" / name) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    # the session's spans land on the capture under their own names
+    assert {"feed", "step", "eval"} <= names and "aten::mm" in names
+
+
+def test_cli_generate_telemetry_decode_record_matches_the_jax_cli(
+        tmp_path, monkeypatch, capsys):
+    jcli = _jax_telemetry_cli(monkeypatch)
+    corpus = tmp_path / "corpus.txt"
+    corpus.write_bytes(b"xyzxyzxyz " * 400)
+    argv = ["--rank", "0", "--world_size", "1", "--model", "gpt",
+            "--text-corpus", str(corpus), "--stages", "1", "--epochs", "1",
+            "--dryrun", "2", "--batch-size", "12", "--generate", "16"]
+    jcli.main(argv + ["--telemetry-dir", str(tmp_path / "jax")])
+    capsys.readouterr()
+    main(argv + ["--device", "cpu", "--telemetry-dir",
+                 str(tmp_path / "port")])
+    assert "| sample (16-byte prompt + 16 generated):" \
+        in capsys.readouterr().out
+    recs = _jsonl(tmp_path / "port" / "metrics.jsonl")
+    jrecs = _jsonl(tmp_path / "jax" / "metrics.jsonl")
+    assert [r["kind"] for r in recs] == [r["kind"] for r in jrecs] \
+        == ["epoch", "decode"]
+    ours, theirs = recs[1], jrecs[1]
+    assert set(ours) == set(theirs)
+    assert (ours["batch"], ours["n_new"], ours["steps"]) \
+        == (theirs["batch"], theirs["n_new"], theirs["steps"]) == (1, 16, 1)
+    assert ours["compile_time_s"] > 0 and ours["step_time_ms_p50"] > 0
+    assert ours["tokens_per_sec"] > 0
+    assert set(recs[0]) == set(jrecs[0])
+    assert recs[0]["tokens_per_sec"] > 0           # an LM: tokens/sec too
+    with open(tmp_path / "port" / "metrics.prom") as f:
+        assert "decode_time_ms" in f.read()

@@ -76,11 +76,16 @@ def _write_idx(path, arr, gz):
 
 @pytest.mark.parametrize("gz", [False, True])
 def test_idx_files_read_equally(tmp_path, gz, monkeypatch):
-    """Both packages' numpy IDX parsers give the same arrays. Where the JAX
-    package's native C++ codec is built (raw files only; the port has no
-    native codec yet), it scales pixels by ``x * (1/255)`` in f32 where
-    numpy divides by 255, so its pixels sit within one f32 ulp of these."""
+    """Both packages read IDX files equally, route for route: the port's
+    native C++ codec (raw files; .gz goes through numpy in both) gives the
+    JAX package's native arrays bit for bit, and the port's numpy route
+    (native forced off) the JAX numpy route's. The codec scales pixels by
+    ``x * (1/255)`` in f32 where numpy divides by 255, so its pixels sit
+    within one f32 ulp of the numpy route's."""
     from simple_distributed_machine_learning_tpu.data import native_loader
+    from simple_distributed_machine_learning_tpu_torch.data import (
+        native_loader as tnative,
+    )
     rng = np.random.default_rng(2)
     suffix = ".gz" if gz else ""
     sizes = {"train": 40, "t10k": 20}
@@ -92,15 +97,22 @@ def test_idx_files_read_equally(tmp_path, gz, monkeypatch):
     path = str(tmp_path / f"train-images-idx3-ubyte{suffix}")
     np.testing.assert_array_equal(tmnist._read_idx(path),
                                   jmnist._read_idx(path))
+    assert tnative.available(), tnative.build_error()
+    parsed = tnative.idx_read_native.files
     ours = tmnist.load_idx_mnist(str(tmp_path))
     native = jmnist.load_idx_mnist(str(tmp_path))
+    # four files through the port's codec, none for .gz
+    assert tnative.idx_read_native.files - parsed == (0 if gz else 4)
     with monkeypatch.context() as m:
         m.setattr(native_loader, "available", lambda: False)
+        m.setattr(tnative, "available", lambda: False)
         ref = jmnist.load_idx_mnist(str(tmp_path))
-    for a, b, c in zip(ours, ref, native):
-        _same_dataset(a, b)
-        np.testing.assert_array_max_ulp(a.x, c.x, maxulp=1)
-        np.testing.assert_array_equal(a.y, c.y)
+        ours_np = tmnist.load_idx_mnist(str(tmp_path))
+    for a, b, c, d in zip(ours, ref, native, ours_np):
+        _same_dataset(a, c)                 # native route == native route
+        _same_dataset(d, b)                 # numpy route == numpy route
+        np.testing.assert_array_max_ulp(a.x, b.x, maxulp=1)
+        np.testing.assert_array_equal(a.y, b.y)
     assert ours[0].x.shape == (40, 28, 28, 1) and ours[0].x.max() <= 1.0
     # load_mnist keeps the first tenth of each split, as the reference does
     tr, te = tmnist.load_mnist(str(tmp_path))

@@ -243,15 +243,6 @@ def test_mlp_learns_the_synthetic_digits():
     assert correct / 100 > 0.5 and avg < 2.0        # chance is 10%
 
 
-@pytest.mark.parametrize("knob,match", [
-    (dict(telemetry=object()), "telemetry session")])
-def test_unported_knobs_raise_naming_item_6(knob, match):
-    train, test = _mlp_data(n_train=60, n_test=10)
-    with pytest.raises(NotImplementedError,
-                       match=f"{match}.*item 6, remaining parallel axes"):
-        Trainer(_port_mlp_pipe(), train, test, **knob)
-
-
 def test_one_card_mesh_bootstrap_and_zero1():
     from simple_distributed_machine_learning_tpu_torch.parallel import (
         bootstrap_distributed,
