@@ -247,7 +247,28 @@ or without the port beside it. Phases, each fatal on failure:
    reference's formats; then ``NATIVE_STEPS`` LeNet steps on the card
    from the native prefetcher and from Python ``batches`` (same
    shuffle), with bit-identical losses, and each feed's host ms per
-   batch.
+   batch;
+14. the kernel linter, F1 and the KV byte model: (a) the grid fixture's
+   kernel F1 (``ops/csrc/grid_scratch.cu``) through the analysis CLI's
+   ``--fixture`` for the clean, f32, f16 and racing grids, each launching
+   F1 once on the card and linting the spec it recorded
+   (``kernel-race.parallel-overwrite`` ERROR on the racing one,
+   ``kernel-dtype-drift`` WARNING on f16, nothing on f32); then the clean
+   f32 and f16 kernels bit-equal to the plain version, the racing one's
+   rows 1-3 NaN and every element of its row 0 one cell's ``2·x``, and
+   F1 timed as phase 2 times K4 beside its plain version, its byte bound
+   and ``torch.mul(x, 2)``, its profiler cross-check in a process of its
+   own (all 40 launches seen); (b) ``programs.kernel_report`` on phase 3's
+   deployment, f32 and int8, with ``spec_k`` 4 (draft == target): one
+   decode and one verify tick's recorded K4 launches lint clean under
+   the registry's contracts, and their derived ``kernel.kv_stream`` bytes
+   equal the byte model's ``decode.kv_gather`` (33,554,432 at f32) and
+   ``verify.kv_gather``; (c) phase 3's trace through a metered engine —
+   ``serve_kv_drift_bytes`` 0 on every tick and ``kv_bytes_predicted``
+   equal to the pool's ``kv_bytes_resident`` — and again with a
+   ``PREFIX_LEN``-token shared prefix, the drift <= 0 on every tick and
+   below 0 on some; (d) ``python -m ...analysis --serve-kernel`` exiting
+   0, and 1 under ``SDML_LINT_INJECT``, and ``--fixtures`` exiting 0.
 
 Before the last line it prints the kernels as one JSON object (times in
 ms, measured in this run; ``bound_ms`` computed from this run's inputs);
@@ -487,8 +508,8 @@ PROTOCOL_PIN = (982, 2216)
 PROTOCOL_DRILLS = ("handoff_kill.chaos", "dropped_handoff_double_serve.chaos")
 BEAM = dict(n_prompts=8, t0=16, n_new=24, beam_size=4, seed=12)
 BEAM_TOL = 1e-4
-# where phase 7 runs: the card ("cpu" only to rehearse the phase without
-# one, where its device checks cannot pass)
+# where phases 7 and 14 (b)-(d) run: the card ("cpu" only to rehearse
+# them without one, where their device checks cannot pass)
 # phase 13: the telemetry runs' epochs and --telemetry-every values (100
 # batches per epoch, a multiple of each, so every window closes at an
 # epoch's end), the in-process native-vs-Python feed steps, and the JAX
@@ -501,6 +522,15 @@ JAX_EPOCH_KEYS = frozenset((
     "step", "step_time_ms_max", "step_time_ms_p50", "step_time_ms_p95",
     "steps", "time", "tokens_per_sec", "train_loss"))
 MAIN_DEVICE = "cuda"
+# phase 14: the grid fixtures F1 runs through (name, exit code, the rules
+# the linter must report), the shared prefix of (c)'s second trace
+GRID_FIXTURES = (
+    ("kernel_clean_grid", 0, []),
+    ("kernel_f32_accumulator", 0, []),
+    ("kernel_f16_accumulator", 1,
+     ["kernel-dtype-drift.low-precision-scratch"]),
+    ("kernel_grid_race", 1, ["kernel-race.parallel-overwrite"]))
+PREFIX_LEN = 32
 
 
 class SmokeFailure(RuntimeError):
@@ -562,10 +592,10 @@ def time_ms(fn, flush, n: int = 40, reps: int = 5) -> float:
                              for _ in range(reps))
 
 
-def profiled_kernel_ms(fn, flush, name: str, n: int = 40) -> float:
-    """Cross-check of :func:`time_ms`: the mean self device time of the
-    kernels whose name holds ``name`` over ``n`` (flush, ``fn``) calls,
-    as ``torch.profiler`` records them."""
+def profiler_tally(fn, flush, name: str, n: int = 40) -> tuple[float, int]:
+    """(self device us, launches) of the kernels whose name holds
+    ``name`` over ``n`` (flush, ``fn``) calls, as ``torch.profiler``
+    records them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -579,6 +609,14 @@ def profiled_kernel_ms(fn, flush, name: str, n: int = 40) -> float:
             total += float(getattr(e, "self_device_time_total", None)
                            or getattr(e, "self_cuda_time_total", 0))
             count += e.count
+    return total, count
+
+
+def profiled_kernel_ms(fn, flush, name: str, n: int = 40) -> float:
+    """Cross-check of :func:`time_ms`: the mean self device time of the
+    kernels whose name holds ``name`` over ``n`` (flush, ``fn``) calls,
+    as ``torch.profiler`` records them; every launch must be seen."""
+    total, count = profiler_tally(fn, flush, name, n)
     check(count == n, f"the profiler saw {count} launches of {name}, "
                       f"expected {n}")
     return total / count / 1e3
@@ -670,14 +708,18 @@ def phase_build(record: dict) -> None:
     print(f"chip_smoke: python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    from simple_distributed_machine_learning_tpu_torch.analysis.fixtures import (  # noqa: E501
+        build_kernel as build_grid,
+    )
     from simple_distributed_machine_learning_tpu_torch.ops.flash_attention import (  # noqa: E501
         build_kernel as build_flash,
     )
     # one nvcc per source, all started together
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        futures = [pool.submit(build_kernel), pool.submit(build_flash)]
+    with ThreadPoolExecutor(3) as pool:
+        futures = [pool.submit(build_kernel), pool.submit(build_flash),
+                   pool.submit(build_grid)]
         builds = [f.result() for f in futures]
     record["build_s"] = round(time.perf_counter() - t0, 3)
     ptxas: dict[str, dict] = {}
@@ -705,6 +747,7 @@ def phase_build(record: dict) -> None:
     print(f"chip_smoke: kernels built in {record['build_s']} s")
     hmma = sass_hmma_counts(builds[1].path)
     k4_hmma = sass_hmma_counts(builds[0].path)
+    k4_hmma.update(sass_hmma_counts(builds[2].path))      # and F1
     for name, n in sorted({**hmma, **k4_hmma}.items()):
         print(f"chip_smoke:   SASS HMMA {n:5d}  {name}")
     mma = {n: c for n, c in hmma.items() if "_bf16_mma" in n}
@@ -713,7 +756,8 @@ def phase_build(record: dict) -> None:
           f"the bf16 K1-K3 kernels are not all on the tensor cores: {mma}")
     simt = {n: c for n, c in {**hmma, **k4_hmma}.items()
             if "_bf16_mma" not in n and c}
-    check(not simt, f"the f32 flash kernels or K4 use tensor cores: {simt}")
+    check(not simt, f"the f32 flash kernels, K4 or F1 use tensor cores: "
+                    f"{simt}")
     record["sass_hmma"] = {**hmma, **k4_hmma}
 
 
@@ -4622,6 +4666,306 @@ def phase_telemetry_native(record: dict) -> tuple[int, int, int]:
     return counts
 
 
+# -- phase 14: the kernel linter, F1 and the KV byte model ------------------
+
+def _grid_on_card(rec: dict) -> dict:
+    """(a) F1 through ``--fixture`` (the launches counted), then against
+    its plain version, the linter's verdicts, and its times. Returns F1's
+    row of the kernels line."""
+    import torch
+    from simple_distributed_machine_learning_tpu_torch.analysis import (
+        kernels,
+    )
+    from simple_distributed_machine_learning_tpu_torch.analysis.__main__ import (  # noqa: E501
+        main as analysis_main,
+    )
+    from simple_distributed_machine_learning_tpu_torch.analysis.fixtures import (  # noqa: E501
+        grid_input,
+        grid_scratch,
+        grid_scratch_reference,
+        grid_scratch_spec,
+        launch,
+    )
+    grid_scratch.launches = 0
+    for name, want_rc, want_rules in GRID_FIXTURES:
+        rc, text = _quiet(analysis_main, ["--fixture", name])
+        rules = sorted(set(re.findall(r"\] (kernel-[a-z.-]+):", text)))
+        print(f"chip_smoke: lint (a) --fixture {name}: rc {rc}, {rules}")
+        check(rc == want_rc and rules == want_rules,
+              f"--fixture {name}: rc {rc}, {text!r}")
+    launches = grid_scratch.launches
+    check(launches == len(GRID_FIXTURES),
+          f"F1 launched {launches} times by the {len(GRID_FIXTURES)} "
+          f"grid fixtures")
+    x = grid_input("cuda")
+    errs = []
+    for scratch in (torch.float32, torch.float16):
+        got = grid_scratch(x, racing=False, scratch_dtype=scratch)
+        want = grid_scratch_reference(x, racing=False,
+                                      scratch_dtype=scratch)
+        torch.cuda.synchronize()
+        errs.append(float((got - want).abs().max()))
+        check(torch.equal(got, want), f"F1 ({scratch}) differs from its "
+                                      f"plain version: {errs[-1]}")
+    race = grid_scratch(x, racing=True)
+    torch.cuda.synchronize()
+    winners = (race[0][None] == 2 * x)              # [cells, cols]
+    check(bool(torch.isnan(race[1:]).all()) and bool(winners.any(0).all()),
+          "the racing F1 wrote outside row 0, or a row-0 element is no "
+          "cell's 2x")
+    cells = sorted({int(winners[:, c].nonzero()[0, 0])
+                    for c in range(x.shape[1])})
+    print(f"chip_smoke: lint (a) F1 on the card: clean f32/f16 bit-equal "
+          f"to the plain version; racing: rows 1-3 NaN, row 0 written by "
+          f"cell(s) {cells} (one cell won the whole row: "
+          f"{len(cells) == 1})")
+    verdicts = {}
+    for label, spec in (
+            ("race", grid_scratch_spec(*x.shape, racing=True)),
+            ("f16", grid_scratch_spec(*x.shape, racing=False,
+                                      scratch_dtype=torch.float16)),
+            ("f32", grid_scratch_spec(*x.shape, racing=False))):
+        verdicts[label] = [f"{f.rule} {f.severity}"
+                           for f in kernels.lint(spec)]
+    check(verdicts == {
+        "race": ["kernel-race.parallel-overwrite ERROR"],
+        "f16": ["kernel-dtype-drift.low-precision-scratch WARNING"],
+        "f32": []}, f"the linter on F1's specs: {verdicts}")
+    flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32,
+                        device="cuda")
+    out = torch.full_like(x, float("nan"))
+    out_row = torch.arange(x.shape[0], dtype=torch.int32, device="cuda")
+    n0 = grid_scratch.launches
+
+    def kernel():
+        launch(x, out, out_row, torch.float32)
+
+    ms = time_ms(kernel, flush)
+    plain_ms = time_ms(lambda: grid_scratch_reference(x, racing=False),
+                       flush)
+    library_ms = time_ms(lambda: torch.mul(x, 2), flush)
+    seen_here = profiler_tally(kernel, flush, "grid_scratch_kernel")[1]
+    grid_scratch.launches = n0           # timing launches are not the path
+    profiler_ms = _f1_profiler_ms_fresh()
+    R, C = x.shape
+    nbytes = 2 * R * C * 4 + R * 4       # x and out_row read, out written
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, R * C / F32_FLOPS
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    print(f"chip_smoke: lint (a) F1 {ms:.6f} ms per launch, plain "
+          f"{plain_ms:.6f} ms, torch.mul "
+          f"{library_ms:.6f} ms, bound {bound_ms:.9f} ms ({nbytes} bytes); "
+          f"{launches} launches from the fixtures; profiler cross-check "
+          f"{profiler_ms:.6f} ms (a process of its own, 40 of 40 seen; in "
+          f"this process, after phase 13 (b)'s --profile session, the "
+          f"profiler saw {seen_here} of 40)")
+    rec["grid"] = dict(launches=launches, verdicts=verdicts,
+                       race_cells=cells, ms=ms,
+                       plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound_ms, profiler_ms=profiler_ms,
+                       profiler_seen_in_process=seen_here)
+    return {
+        "name": "grid_scratch",
+        "route": "cuda",
+        "source": f"{PORT}/ops/csrc/grid_scratch.cu",
+        "replaces": "simple_distributed_machine_learning_tpu/analysis/"
+                    "fixtures.py:428",
+        "launches": launches,
+        "max_abs_err": max(errs),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms,
+    }
+
+
+def f1_profiler_ms() -> float:
+    """F1's ``torch.profiler`` cross-check of phase 14 (a)'s CUDA-event
+    time: the mean device time of the launches named
+    ``grid_scratch_kernel`` over 40 (flush, F1) calls, all 40 seen."""
+    import torch
+
+    from simple_distributed_machine_learning_tpu_torch.analysis.fixtures import (  # noqa: E501
+        grid_input,
+        launch,
+    )
+    x = grid_input("cuda")
+    out = torch.full_like(x, float("nan"))
+    out_row = torch.arange(x.shape[0], dtype=torch.int32, device="cuda")
+    flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32,
+                        device="cuda")
+
+    def kernel():
+        launch(x, out, out_row, torch.float32)
+
+    for _ in range(3):
+        kernel()
+    return profiled_kernel_ms(kernel, flush, "grid_scratch_kernel")
+
+
+def _f1_profiler_ms_fresh() -> float:
+    """:func:`f1_profiler_ms` in a process of its own. In this process
+    phase 13 (b)'s ``--profile`` run has held a scheduled
+    ``torch.profiler`` session, and later sessions here lose CUDA
+    records (phase 14 (a) prints how many of 40 F1 launches one sees);
+    a fresh process sees all 40."""
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import chip_smoke; print(chip_smoke.f1_profiler_ms())"],
+        cwd=HERE, capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0,
+          f"F1's profiler cross-check: rc {proc.returncode}\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    return float(proc.stdout.strip().splitlines()[-1])
+
+
+def _k4_specs_full_width(stages, cfg, rec: dict) -> None:
+    """(b) One decode and one verify tick of phase 3's deployment, f32 and
+    int8, through ``programs.kernel_report``: lint clean, derived K/V
+    bytes equal to the byte model's."""
+    from simple_distributed_machine_learning_tpu_torch.analysis import (
+        programs,
+    )
+    rec["k4"] = {}
+    for cache in (None, "int8"):
+        sspec = programs.ServeSpec(
+            cfg, n_slots=SERVE_SLOTS, kv_layout="paged",
+            block_size=SERVE_BLOCK, prompt_lens=SERVE_SIM["prompt_lens"],
+            cache_dtype=cache, spec_k=SPEC_K, draft_cfg=cfg,
+            attn_kernel="fused")
+        report = programs.kernel_report(stages, sspec, draft_stages=stages,
+                                        device=MAIN_DEVICE)
+        rows = {(h.program, h.op): h.bytes_per_tick for h in report.hbm}
+        pairs = {prog: (rows.get((prog, "kernel.kv_stream")),
+                        rows[(prog, op)])
+                 for prog, op in (("paged_decode", "decode.kv_gather"),
+                                  ("paged_verify", "verify.kv_gather"))}
+        name = cache or "float32"
+        print(f"chip_smoke: lint (b) {name}: findings "
+              f"{[f.rule for f in report.findings]}; derived vs model K/V "
+              f"bytes per tick {pairs}")
+        check(report.ok(fail_on="warning")
+              and all(d == m for d, m in pairs.values()),
+              f"K4's recorded launches ({name}): {report.format()}")
+        if cache is None:
+            check(pairs["paged_decode"][1] == SERVE_SLOTS * cfg.n_layers
+                  * cfg.seq_len * 2 * cfg.d_model * 4 == 33_554_432,
+                  f"decode.kv_gather {pairs['paged_decode'][1]}")
+        rec["k4"][name] = pairs
+
+
+def _drift_trace(stages, cfg, sim: dict) -> list[tuple]:
+    """Phase 3's trace (``sim`` overriding ``SERVE_SIM``) through a metered
+    fused engine: per busy tick (drift, predicted, resident bytes, host ms
+    of one more ``kv_drift()`` call at the tick's end)."""
+    from simple_distributed_machine_learning_tpu_torch.serve import (
+        SimConfig,
+        simulate,
+    )
+    engine = _warm_engine(stages, cfg, "fused", device=MAIN_DEVICE)
+    rows: list[tuple] = []
+    step = engine.step
+
+    def recorded():
+        busy = engine.busy
+        out = step()
+        m = engine.metrics
+        if busy:
+            t0 = time.perf_counter()
+            engine.kv_drift()
+            rows.append((int(m.kv_drift_bytes.value),
+                         int(m.kv_bytes_predicted.value),
+                         int(m.kv_bytes_resident.value),
+                         (time.perf_counter() - t0) * 1e3))
+        return out
+
+    engine.step = recorded
+    rep = simulate(engine, SimConfig(**{**SERVE_SIM, **sim}))
+    check(rep["completed"] == SERVE_SIM["n_requests"],
+          f"drift trace {sim}: {rep['completed']} completed")
+    return rows
+
+
+def _kv_drift_on_card(stages, cfg, rec: dict) -> None:
+    """(c) The KV-drift gauge on every tick of phase 3's trace, without
+    and with a shared prefix."""
+    plain = _drift_trace(stages, cfg, {})
+    check(plain and all(d == 0 and p == r for d, p, r, _ in plain),
+          f"KV drift on phase 3's trace: "
+          f"{[t for t in plain if t[0] or t[1] != t[2]][:5]}")
+    shared = _drift_trace(stages, cfg, {"shared_prefix_len": PREFIX_LEN})
+    neg = sum(t[0] < 0 for t in shared)
+    check(all(t[0] <= 0 for t in shared) and neg > 0,
+          f"KV drift with a shared prefix: max {max(shared)[0]}, {neg} "
+          f"ticks below 0")
+    drift_ms = statistics.median(t[3] for t in plain + shared)
+    print(f"chip_smoke: lint (c) KV drift 0 on all {len(plain)} ticks of "
+          f"phase 3's trace (predicted == resident, peak "
+          f"{max(t[1] for t in plain)} bytes); with a {PREFIX_LEN}-token "
+          f"shared prefix <= 0 on all {len(shared)} ticks, below 0 on "
+          f"{neg} (min {min(t[0] for t in shared)} bytes); kv_drift() "
+          f"{drift_ms:.4f} ms of host time per tick (median)")
+    rec["drift"] = dict(ticks=len(plain), shared_ticks=len(shared),
+                        shared_negative=neg,
+                        shared_min=min(t[0] for t in shared),
+                        kv_drift_ms_p50=drift_ms)
+
+
+def _analysis_cli(rec: dict) -> None:
+    """(d) The analysis CLI as a user runs it, in processes of its own."""
+    runs = {}
+    for label, argv, env, want in (
+            ("serve-kernel", ["--serve-kernel"], {}, 0),
+            ("serve-kernel drill", ["--serve-kernel"],
+             {"SDML_LINT_INJECT": "drill"}, 1),
+            ("fixtures", ["--fixtures"], {}, 0)):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"{PORT}.analysis", *argv, "--device",
+             MAIN_DEVICE], cwd=HERE,
+            env={**os.environ, **env}, capture_output=True, text=True,
+            timeout=600)
+        s = time.perf_counter() - t0
+        last = (proc.stdout.strip().splitlines() or [""])[-1]
+        print(f"chip_smoke: lint (d) analysis {' '.join(argv)} "
+              f"{'(SDML_LINT_INJECT) ' if env else ''}rc "
+              f"{proc.returncode} in {s:.1f} s: {last}")
+        check(proc.returncode == want,
+              f"analysis {label}: rc {proc.returncode}\n{proc.stdout[-3000:]}"
+              f"\n{proc.stderr[-3000:]}")
+        runs[label] = dict(rc=proc.returncode, s=s, last=last)
+    rec["cli"] = runs
+
+
+def phase_lint_drift(record: dict) -> tuple[dict, int]:
+    """Phase 14 (module docstring). Returns F1's row of the kernels line
+    and K4's launches in (b) and (c)."""
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        GPTConfig,
+        make_gpt_stages,
+    )
+    from simple_distributed_machine_learning_tpu_torch.ops.paged_attention import (  # noqa: E501
+        paged_attention,
+    )
+    rec: dict = {}
+    record["lint_drift"] = rec
+    t0 = time.perf_counter()
+    f1 = _grid_on_card(rec)
+    cfg = GPTConfig(**SERVE_CFG)
+    stages = make_gpt_stages(0, cfg, 1, device=MAIN_DEVICE)[0]  # phase 3's
+    paged_attention.launches = 0
+    _k4_specs_full_width(stages, cfg, rec)
+    _kv_drift_on_card(stages, cfg, rec)
+    k4 = paged_attention.launches
+    print(f"chip_smoke: lint (b)-(c) paged_attention launches {k4}")
+    check(k4 > 0, "phase 14 (b)-(c) launched no K4")
+    del stages
+    _analysis_cli(rec)
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"chip_smoke: phase 14 took {rec['seconds']:.1f} s")
+    return f1, k4
+
+
 def main() -> int:
     try:
         import torch
@@ -4668,6 +5012,7 @@ def main() -> int:
         phase_main_path(record)
         resilience_launches = phase_resilience(record)
         telemetry_launches = phase_telemetry_native(record)
+        f1_row, lint_launches = phase_lint_drift(record)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4681,9 +5026,11 @@ def main() -> int:
                     "paged_attention.py:67",
         # phase 3's decode ticks, phase 3b's speculative verify steps,
         # phase 8's scenarios and drills, phase 9's fleet runs, phase 11's
-        # host-tier and adapter runs and phase 12's protocol drills
+        # host-tier and adapter runs, phase 12's protocol drills and phase
+        # 14's recorded ticks and drift traces
         "launches": (serve["launches"] + spec["launches"] + fault_launches
-                     + fleet_launches + tier_launches + protocol_launches),
+                     + fleet_launches + tier_launches + protocol_launches
+                     + lint_launches),
         "max_abs_err": max(v["max_abs_err"] for v in variants),
         "ms": main_v["ms"],
         "plain_ms": main_v["plain_ms"],
@@ -4716,6 +5063,7 @@ def main() -> int:
             "bound_by": timed["bound_by"],
             "library_ms": timed["library_ms"],
         })
+    kernels["kernels"].append(f1_row)
     record["kernels"] = kernels["kernels"]
     record["seconds"] = round(time.perf_counter() - t_start, 3)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

@@ -1,5 +1,6 @@
 """Analysis (port of ``analysis/``): the bounded model checker of the
-serve fleet protocol and the journal-grammar lint.
+serve fleet protocol, the journal-grammar lint, the kernel linter and the
+serving byte model.
 
 - :mod:`.statespace` — the generic bounded explicit-state explorer (BFS,
   state-hash dedup, shortest counterexamples, depth-honest verdicts);
@@ -9,24 +10,37 @@ serve fleet protocol and the journal-grammar lint.
   ``resilience/faults.py`` chaos drill;
 - :mod:`.hostlint` — ``lint_journal_grammar``: every journal event kind
   a ``serve/`` writer emits has a dispatching reader;
-- :mod:`.report` — ``Severity``, ``Finding``, ``Report``.
+- :mod:`.bounds` — the interval lattice and ``spec(...)`` contracts;
+- :mod:`.kernels` — ``LaunchSpec``, the port's declaration of what a
+  kernel launch reads and writes, and the ``kernel-*`` checks over it
+  (index-map bounds, grid write races, 16-byte access waste, low-precision
+  scratch), the HBM rows derived from it, and ``record_launches``;
+- :mod:`.programs` — the HBM-bytes-per-tick model and the ``predict_*``
+  functions behind the KV-drift gauges, and the kernel half of the
+  serve-program registry (``kernel_registry_reports``);
+- :mod:`.fixtures` — seeded-defect launch specs and protocol models, and
+  the grid fixture's kernel F1 (``grid_scratch``, CUDA);
+- :mod:`.report` — ``Severity``, ``Finding``, ``HBMCost``, ``Report``.
 
-All of it is stdlib: nothing here imports torch. CLI::
+The protocol checker is stdlib; the kernel modules import torch. CLI::
 
     python -m simple_distributed_machine_learning_tpu_torch.analysis \\
         --serve-protocol [--depth N] [--fail-on error|warning]
+    python -m simple_distributed_machine_learning_tpu_torch.analysis \\
+        --serve-kernel | --fixtures | --fixture NAME | --list
 
-The program linter over traced programs (``--dryrun``, ``--serve``,
-``--serve-kernel``, the fixtures) is ROADMAP.md, Queue A, item 7.4, and
-the rest of hostlint item 7.2: their flags refuse, naming the item.
+The program linter over traced programs (``--dryrun``, ``--serve``, the
+jaxpr fixtures, ``lint=True``) is ROADMAP.md, Queue A, item 7.4, and the
+rest of hostlint item 7.2: their flags refuse, naming the item.
 """
 
 from __future__ import annotations
 
 from simple_distributed_machine_learning_tpu_torch.analysis.report import (
     Finding,
+    HBMCost,
     Report,
     Severity,
 )
 
-__all__ = ["Finding", "Report", "Severity"]
+__all__ = ["Finding", "HBMCost", "Report", "Severity"]

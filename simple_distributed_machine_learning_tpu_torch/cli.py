@@ -1179,6 +1179,9 @@ def _run_serve(args, device) -> None:
               f"{s.get('route_adapter_affinity_hits', 0)} "
               f"adapter-affinity hit(s), per-tenant completed "
               f"{s.get('per_adapter_completed', {})}")
+    if "kv_drift_bytes" in s:
+        print(f"| serve: kv drift {s['kv_drift_bytes']} bytes vs the "
+              f"analyzer model (predicted {s['kv_bytes_predicted']})")
     if trace is not None:
         print(f"| serve: trace {trace.n_events} events -> "
               f"{trace.trace_file} + {trace.timeline_file}")

@@ -22,6 +22,11 @@ tests compare it with the JAX kernel, and ``chip_smoke.py`` compares it
 with the CUDA kernel on the card. A CUDA tensor never falls back to it:
 the wrapper launches the kernel or raises.
 
+:func:`launch_spec` declares what one launch reads and writes, for the
+kernel linter (``analysis/kernels.py``); inside
+``kernels.record_launches()`` the wrapper appends it to the log on both
+paths (through ``kernels.note``).
+
 Masks: the kernel masks with the finite ``NEG_INF`` and floors the
 softmax denominator at ``1e-30`` like the TPU kernel; the plain version
 masks with ``-inf`` like the dense serving path. Position 0 is always
@@ -38,6 +43,9 @@ import torch
 
 from simple_distributed_machine_learning_tpu_torch._device import (
     resolve_device,
+)
+from simple_distributed_machine_learning_tpu_torch.analysis import (
+    kernels as _kernels,
 )
 
 NEG_INF = -1e30
@@ -123,6 +131,57 @@ def paged_attention_reference(q, kc, vc, tables, qpos, *, block_size: int,
                         vrow)
 
 
+def launch_spec(q, kc, vc, tables, qpos, *, block_size: int, kscale=None,
+                vscale=None):
+    """The :class:`~..analysis.kernels.LaunchSpec` of one launch on these
+    arguments (only their shapes and dtypes are read). Grid (S, H,
+    ``query_groups(K)``), all parallel; inside each block a loop over the
+    slot's logical blocks ``kb`` in ``[0, NB-1]`` (arbitrary: the kernel
+    stops at the group's newest position, so this is the most it reads).
+    K/V blocks ``(1, 1, bs, dh)`` (and the scale planes' ``(1, 1, bs)``
+    of a quantised pool) at ``(tables[s, kb], h, 0, 0)``; queries and
+    output ``(1, 1, min(K, 8), dh)`` at ``(s, h, g, 0)``. The online
+    softmax state is f32. The tables carry no contract: the caller
+    declares one (``LaunchSpec.with_contracts``)."""
+    from simple_distributed_machine_learning_tpu_torch.analysis.bounds import (  # noqa: E501
+        spec,
+    )
+    S, H, K, dh = q.shape
+    NB = tables.shape[1]
+    bs = int(block_size)
+    qg = min(K, QUERIES_PER_GROUP)
+
+    def at_query(s, h, g, kb, tbl, qp):
+        return (s, h, g, 0)
+
+    def at_block(s, h, g, kb, tbl, qp):
+        return (tbl[s, kb], h, 0, 0)
+
+    def at_scale(s, h, g, kb, tbl, qp):
+        return (tbl[s, kb], h, 0)
+
+    ops = [_kernels.Operand("q", tuple(q.shape), (1, 1, qg, dh), q.dtype,
+                            at_query),
+           _kernels.Operand("k", tuple(kc.shape), (1, 1, bs, dh), kc.dtype,
+                            at_block),
+           _kernels.Operand("v", tuple(vc.shape), (1, 1, bs, dh), vc.dtype,
+                            at_block)]
+    if kscale is not None:
+        ops += [_kernels.Operand(name, tuple(t.shape), (1, 1, bs), t.dtype,
+                                 at_scale)
+                for name, t in (("kscale", kscale), ("vscale", vscale))]
+    ops.append(_kernels.Operand("out", (S, H, K, dh), (1, 1, qg, dh),
+                                torch.float32, at_query, output=True))
+    return _kernels.LaunchSpec(
+        kernel="paged_attention",
+        where=f"{__name__}.paged_attention "
+              f"(ops/csrc/paged_attention.cu)",
+        grid=(S, H, query_groups(K)), loop=(NB,), operands=tuple(ops),
+        tables=(("tables", spec((S, NB), tables.dtype)),
+                ("qpos", spec((S, K), qpos.dtype))),
+        scratch=(torch.float32,))
+
+
 def _check_on(dev: torch.device, tensors) -> None:
     for t in tensors:
         if t.device.type != dev.type or (dev.index is not None
@@ -187,6 +246,8 @@ def paged_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
                   or tuple(vscale.shape) != tuple(kc.shape[:-1])):
         raise ValueError(f"kscale/vscale must be {tuple(kc.shape[:-1])}")
     _check_on(dev, [q, kc, vc, tables, qpos, *scales])
+    _kernels.note(lambda: launch_spec(q, kc, vc, tables, qpos, block_size=bs,
+                                      kscale=kscale, vscale=vscale))
     if dev.type == "cpu":
         return paged_attention_reference(q, kc, vc, tables, qpos,
                                          block_size=bs, kscale=kscale,

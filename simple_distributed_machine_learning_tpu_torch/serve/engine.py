@@ -266,6 +266,9 @@ class InferenceEngine:
         self._check_on_device(self.params)
         self.max_len = int(max_len if max_len is not None else cfg.seq_len)
         n_layers = sum(len(p["blocks"]) for p in self.params)
+        self._n_layers = n_layers
+        # lazy (ServeSpec, predict_fn) of the per-tick KV-drift check
+        self._predict = None
         head_dim = cfg.d_model // cfg.n_heads
         if kv_layout == "paged":
             self.pool = PagedKVPool(n_layers, n_slots, cfg.n_heads,
@@ -530,17 +533,48 @@ class InferenceEngine:
             emitted += (self._spec_tick(decoding) if self.speculative
                         else self._decode_tick_paged(decoding))
         if self.metrics is not None:
+            live, predicted = self.kv_drift()
             self.metrics.on_tick(
                 self.scheduler.queue_depth, self.pool.n_active,
                 self.pool.n_slots, decode_active=decode_active,
                 block_stats=(self.pool.stats()
                              if self.kv_layout == "paged" else None),
                 tp=1, spec_k=self.spec_k,
+                kv_predicted=predicted, kv_drift=live - predicted,
+                attn_kernel=self.attn_kernel,
                 adapter_stats=(self._adapters.stats()
                                if self._adapters is not None else None))
         if self.flight is not None:
             self.flight.snap(self, self._tick_count, emitted)
         return emitted
+
+    def kv_drift(self) -> tuple[int, int]:
+        """``(live, predicted)`` resident K/V bytes: the pool's
+        ``serve_kv_bytes_resident`` gauge next to the byte model's
+        ``predict_kv_bytes_resident`` over the live sequences'
+        written-row counts (``analysis/programs.py``), the static model
+        checked every tick. ``live - predicted`` is the drift gauge:
+        exactly 0 without prefix sharing, <= 0 with it (sharing only
+        shrinks the truth), > 0 only if the pool leaks blocks the model
+        says no live sequence can be pinning. Reads no clock."""
+        if self._predict is None:
+            from simple_distributed_machine_learning_tpu_torch.analysis.programs import (  # noqa: E501
+                engine_spec,
+                predict_kv_bytes_resident,
+            )
+            # the one engine->spec mapping the registry uses too
+            self._predict = (engine_spec(self), predict_kv_bytes_resident)
+        sspec, predict = self._predict
+        rows = []
+        if self.kv_layout == "paged":
+            for s in self.pool.active_slots():
+                r = self.requests[self.pool.occupant(s)]
+                n = (r.prefill_pos if r.prefill_pos is not None
+                     else int(self.pool.positions[s]))
+                if n > 0:
+                    rows.append(n)
+        return (self.pool.bytes_resident(),
+                predict(sspec, rows, n_layers=self._n_layers))
 
     def preempt(self, rid: int) -> None:
         """Evict an ACTIVE request from its slot: slot and blocks free now,

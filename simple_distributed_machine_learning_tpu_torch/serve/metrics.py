@@ -33,6 +33,11 @@ Deployment-shape and speculative instruments:
 
 - ``serve_tp`` / ``serve_spec_k`` (gauges) — the deployment shape: tensor-
   parallel width and speculative verify width (0 = plain decode);
+- ``serve_attn_kernel_fused`` (gauge, 0/1) — which attention path the
+  paged decode/verify ticks run: 0 = gather-then-dense (the parity
+  anchor), 1 = the fused paged-attention kernel (one pass over resident
+  K/V per tick; ``ops/paged_attention.py``) — dashboards correlate
+  per-tick latency shifts with the kernel path in play;
 - ``serve_spec_proposed_tokens_total`` / ``serve_spec_accepted_tokens_total``
   / ``serve_spec_rejected_tokens_total`` (counters) and
   ``serve_spec_accept_rate`` (histogram, one observation per speculative
@@ -153,10 +158,16 @@ TTFT/TPOT/shed observation also streams into its windowed series, tagged
 with the fleet replica the fleet sets around each replica's step or
 submit (``_slo_replica``).
 
-The ``serve_attn_kernel_fused`` and KV-drift instruments arrive with the
-slice that ports the analyzer; until then the summary has no
-``kv_drift_bytes`` key, as the JAX CLI prints that line only when
-present.
+Model-drift instruments (the byte model checked as a runtime invariant,
+fed every tick from ``engine.kv_drift``):
+
+- ``serve_kv_bytes_predicted`` (gauge) — the byte model's
+  ``predict_kv_bytes_resident`` over the live sequences' written-row
+  counts: what the static model says the pool must be pinning;
+- ``serve_kv_drift_bytes`` (gauge) — live resident bytes minus the
+  prediction: exactly 0 without prefix sharing, ≤ 0 with it (sharing only
+  shrinks the truth), > 0 only on a block-accounting leak — the invariant
+  the clean-run tests pin at zero.
 
 ``emit()`` writes one ``kind: "serve"`` record to ``metrics.jsonl`` and
 rewrites ``metrics.prom``, whose ``# HELP`` lines the metric catalog
@@ -223,6 +234,10 @@ class ServeMetrics:
         self.blocks_free = r.gauge("serve_blocks_free")
         self.blocks_cached = r.gauge("serve_blocks_cached")
         self.kv_bytes_resident = r.gauge("serve_kv_bytes_resident")
+        # model-drift gauges (both layouts; fed per tick by the engine)
+        self.kv_bytes_predicted = r.gauge("serve_kv_bytes_predicted")
+        self.kv_drift_bytes = r.gauge("serve_kv_drift_bytes")
+        self._drift_seen = False
         self.prefill_chunk_ms = r.histogram("serve_prefill_chunk_ms")
         self._pool_counters = {k: r.counter(v)
                                for k, v in _POOL_COUNTERS.items()}
@@ -231,6 +246,7 @@ class ServeMetrics:
         self.preemptions = r.counter("serve_preemptions_total")
         self.tp_gauge = r.gauge("serve_tp")
         self.spec_k_gauge = r.gauge("serve_spec_k")
+        self.attn_kernel_gauge = r.gauge("serve_attn_kernel_fused")
         self._shape_seen = False
         self.spec_proposed = r.counter("serve_spec_proposed_tokens_total")
         self.spec_accepted = r.counter("serve_spec_accepted_tokens_total")
@@ -479,19 +495,30 @@ class ServeMetrics:
                 decode_active: int | None = None,
                 block_stats: dict | None = None,
                 tp: int | None = None, spec_k: int | None = None,
+                kv_predicted: int | None = None,
+                kv_drift: int | None = None,
+                attn_kernel: str | None = None,
                 adapter_stats: dict | None = None) -> None:
         """End-of-tick gauges. ``decode_active`` is the occupancy the
         tick's batched decode ran at (sampled before same-tick
         retirement); ticks without a decode skip the occupancy sample.
         ``block_stats`` is ``PagedKVPool.stats()``; ``tp``/``spec_k`` the
-        deployment shape; ``adapter_stats`` ``AdapterStore.stats()``."""
+        deployment shape; ``kv_predicted``/``kv_drift`` the engine's
+        per-tick model check (``engine.kv_drift``); ``attn_kernel`` its
+        attention path; ``adapter_stats`` ``AdapterStore.stats()``."""
         self.queue_depth.set(queue_depth)
         self.slots_active.set(active)
         self.slots_total.set(total)
+        if kv_predicted is not None:
+            self._drift_seen = True
+            self.kv_bytes_predicted.set(kv_predicted)
+            self.kv_drift_bytes.set(kv_drift or 0)
         if tp is not None:
             self._shape_seen = True
             self.tp_gauge.set(tp)
             self.spec_k_gauge.set(spec_k or 0)
+        if attn_kernel is not None:
+            self.attn_kernel_gauge.set(int(attn_kernel == "fused"))
         if adapter_stats is not None:
             self._adapter_seen = True
             self.adapter_resident_bytes.set(adapter_stats["resident_bytes"])
@@ -663,6 +690,9 @@ class ServeMetrics:
                     a: int(self.registry.counter(
                         "serve_class_adapter", labels={"class": a}).value)
                     for a in sorted(self._adapter_names)}
+        if self._drift_seen:
+            out["kv_bytes_predicted"] = int(self.kv_bytes_predicted.value)
+            out["kv_drift_bytes"] = int(self.kv_drift_bytes.value)
         if self._classes:
             out["per_class"] = {cls: self.class_summary(cls)
                                 for cls in sorted(self._classes)}

@@ -1,6 +1,6 @@
 """Multi-tenant LoRA serving in the PyTorch port (``tests/test_adapters.py``
-ported, except the analyzer's ``predict_adapter_bytes`` pin, which waits
-for ROADMAP.md, Queue A, item 7.3).
+ported; its ``predict_adapter_bytes`` pin is in
+``tests/test_torch_kv_drift.py``).
 
 Both packages get one set of weights (``tests/test_adapters.py``'s model,
 2 stages from ``jax.random.key(0)``, carried over by

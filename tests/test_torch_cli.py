@@ -237,10 +237,12 @@ def test_cli_serve_sim_prints_the_jax_summary_lines(capsys, spec_k):
     out = capsys.readouterr().out.splitlines()
     assert out[0] == "| serve: fresh-initialized params"
     assert SERVE_LINE.match(out[1]), out[1]
-    assert out[2].startswith("| serve: paged pool 0/16 blocks in use")
+    assert out[2] == ("| serve: kv drift 0 bytes vs the analyzer model "
+                      "(predicted 0)")
+    assert out[3].startswith("| serve: paged pool 0/16 blocks in use")
     spec = [ln for ln in out if ln.startswith("| serve: tp")]
     if not spec_k:
-        assert spec == [] and len(out) == 3
+        assert spec == [] and len(out) == 4
         return
     m = SPEC_LINE.match(spec[0])
     assert m, spec
@@ -276,9 +278,8 @@ def _skeleton(lines):
 def test_cli_serve_chaos_prints_the_jax_lines(capsys, monkeypatch, tmp_path):
     """``--model gpt --serve-sim 8 --serve-chaos engine-crash@serve.tick=6``
     serves every request through one restart and prints the JAX CLI's
-    lines (the JAX run's kv-drift line is the analyzer's, ROADMAP item
-    7.3); ``--telemetry-dir`` gets the journal, the serve record and the
-    restart's post-mortem bundle."""
+    lines, its kv-drift line included; ``--telemetry-dir`` gets the
+    journal, the serve record and the restart's post-mortem bundle."""
     from simple_distributed_machine_learning_tpu import cli as jcli
     from simple_distributed_machine_learning_tpu.serve.engine import (
         InferenceEngine as JaxEngine,
@@ -290,8 +291,7 @@ def test_cli_serve_chaos_prints_the_jax_lines(capsys, monkeypatch, tmp_path):
     ours = capsys.readouterr().out.splitlines()
     jcli.main(["--rank", "0", "--stages", "1", "--telemetry-dir",
                str(tmp_path / "j")] + argv)
-    ref = [ln for ln in capsys.readouterr().out.splitlines()
-           if "kv drift" not in ln]
+    ref = capsys.readouterr().out.splitlines()
     assert _skeleton(ours) == _skeleton(ref)
     assert re.match(r"^\| serve: 8/8 requests completed", ours[2])
     assert ours[3].startswith("| serve: supervisor running, 1 restart(s), ")
@@ -389,17 +389,16 @@ def _jax_cli(monkeypatch):
 ], ids=["replicas-trace", "disaggregated"])
 def test_cli_fleet_prints_the_jax_lines(capsys, monkeypatch, tmp_path,
                                         extra, files):
-    """``--serve-sim 8`` through a fleet prints the JAX CLI's lines (its
-    kv-drift line is the analyzer's, item 7.3) and leaves the journals,
-    the records and, traced, the trace and timeline files."""
+    """``--serve-sim 8`` through a fleet prints the JAX CLI's lines, its
+    kv-drift line included, and leaves the journals, the records and,
+    traced, the trace and timeline files."""
     jcli = _jax_cli(monkeypatch)
     argv = ["--model", "gpt", "--serve-sim", "8"] + extra
     main(BASE + argv + ["--telemetry-dir", str(tmp_path / "t")])
     ours = capsys.readouterr().out.splitlines()
     jcli.main(["--rank", "0", "--stages", "1", "--telemetry-dir",
                str(tmp_path / "j")] + argv)
-    ref = [ln for ln in capsys.readouterr().out.splitlines()
-           if "kv drift" not in ln]
+    ref = capsys.readouterr().out.splitlines()
 
     def mask(lines):
         return _skeleton([ln.replace(str(tmp_path / "t"), "D")
@@ -442,8 +441,7 @@ def test_cli_host_tier_and_adapters_print_the_jax_lines(capsys, monkeypatch,
     main(BASE + argv)
     ours = capsys.readouterr().out.splitlines()
     jcli.main(["--rank", "0", "--stages", "1"] + argv)
-    ref = [ln for ln in capsys.readouterr().out.splitlines()
-           if "kv drift" not in ln]
+    ref = capsys.readouterr().out.splitlines()
 
     def mask(lines):        # each run's own temporary journal directory
         return _skeleton([re.sub(r"\(journals \S+/", "(journals T/", ln)

@@ -278,7 +278,8 @@ def test_simulate_serves_every_request_and_reports(weights, tmp_path):
                 "cow_copies", "prefill_chunk_ms_p50",
                 "prefill_chunk_ms_p95"):
         assert key in s, key
-    assert "kv_drift_bytes" not in s
+    # the per-tick KV-drift check: sharing only shrinks the truth
+    assert "kv_bytes_predicted" in s and s["kv_drift_bytes"] <= 0
     assert s["tokens_generated"] == 24 and s["prefix_hit_blocks"] > 0
     rec = metrics.emit()
     assert rec["kind"] == "serve"

@@ -17,8 +17,7 @@ host-tier cases, ported against the JAX package).
   stream still equals the solo decode; flight rows carry the pool role
   and the host stats.
 - The offload-churn pin, equal to the JAX run's (``kv_drift`` patched on
-  the JAX engine: its analyzer does not import on this tree; the port has
-  no ``kv_drift_bytes`` key until ROADMAP.md, Queue A, item 7.3), with
+  the JAX engine: its analyzer does not import on this tree), with
   the HBM-only contrast: 16 prefix-hit blocks against 10, and greedy
   streams unchanged by the tier.
 """

@@ -292,7 +292,7 @@ def test_journals_and_records_match_line_for_line(model, tmp_path, name):
             if rec["kind"] == "serve":
                 rec.pop("journal_bytes")       # sums the sampled tokens
                 for k in ("kv_bytes_predicted", "kv_drift_bytes"):
-                    rec.pop(k, None)           # the analyzer's (item 7.3)
+                    rec.pop(k, None)           # JAX's kv_drift is patched
             out.append(rec)
         return out
 
