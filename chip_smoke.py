@@ -268,7 +268,27 @@ or without the port beside it. Phases, each fatal on failure:
    equal to the pool's ``kv_bytes_resident`` — and again with a
    ``PREFIX_LEN``-token shared prefix, the drift <= 0 on every tick and
    below 0 on some; (d) ``python -m ...analysis --serve-kernel`` exiting
-   0, and 1 under ``SDML_LINT_INJECT``, and ``--fixtures`` exiting 0.
+   0, and 1 under ``SDML_LINT_INJECT``, and ``--fixtures`` exiting 0;
+15. the reference's own topology, every stage on the one card (the script
+   prints the placement): (a) ``bench.py::_configs``'s ``lenet`` (conv |
+   fc) at ``--stages 2``, ``mlp4`` at 4 and the tiny ``gpt`` (``--attn
+   flash``, batch 32) at 2 with ``--microbatches 4``, through the CLI at
+   batch 60 on phase 7's synthetic MNIST, each under GPipe and 1F1B: the
+   placement line, the train and eval losses after ``STAGE_CLI_STEPS``
+   steps equal to the one-stage run's within ``STAGE_CLI_RTOL``, LeNet's
+   ``Test set:`` line, and the tiny gpt's exact K1-K3 launches; (b) the
+   ``gpt_bf16`` row at 2 stages and M = 4 under GPipe, 1F1B and GPipe with
+   remat: loss and gradients within ``STAGE_BF16_RTOL`` of one stage's,
+   exactly ``STAGE_LAUNCHES`` K1/K2/K3 launches per step, GPipe's peak
+   activation bytes growing more than ``STAGE_GPIPE_GROWTH``x from M = 4
+   to 16 at microbatch 4 and 1F1B's less than ``STAGE_ONEFB_GROWTH``x;
+   the host-clock step, launches per step and device busy (a profiled
+   window in a process of its own) beside phase 5's one-stage step; (c)
+   ``make_pp_decoder`` at phase 3's width over 2 stages, prompt 32, 24
+   new, greedy: tokens equal to the one-card ``make_cached_decoder``'s, a
+   bf16 cache's beside them, ms per decode; (d) the CLI's ``--model mlp
+   --stages 2 --chaos host-kill@train.step=6 --chaos-stages 2,1`` with a
+   store: the JAX CLI test's two pinned lines, exit 0, the restart cost.
 
 Before the last line it prints the kernels as one JSON object (times in
 ms, measured in this run; ``bound_ms`` computed from this run's inputs);
@@ -531,6 +551,40 @@ GRID_FIXTURES = (
      ["kernel-dtype-drift.low-precision-scratch"]),
     ("kernel_grid_race", 1, ["kernel-race.parallel-overwrite"]))
 PREFIX_LEN = 32
+# phase 15: (a) bench.py::_configs's lenet, mlp4 and tiny gpt rows through
+# the CLI — (argv, stages, microbatches) — each run's train and eval loss
+# after STAGE_CLI_STEPS steps held to the one-stage run's (f32); (b) the
+# gpt_bf16 row at 2 stages, M = 4: the schedules, their K1/K2/K3 launches
+# per step (K1: GPipe once per layer and microbatch, remat twice — the
+# checkpoint's recompute — and 1F1B 1.5 times: the first stage's blocks
+# recompute in the backward tick, the last stage keeps its one graph for
+# its own backward a tick later instead of running twice), bf16 gaps
+# against one stage, the host-clock and profiled windows, and the peak
+# activation bytes at microbatch STAGE_MICRO for M = 4 and 16 (GPipe keeps
+# every microbatch's residuals, 1F1B at most 2S - 1 inputs); (c)
+# pp_decode at SERVE_CFG; (d) the JAX CLI test's stage-ladder drill and its
+# two pinned lines (tests/test_cli.py)
+STAGE_CLI_STEPS, STAGE_CLI_RTOL = 20, 1e-4
+STAGE_CLI_ROWS = {
+    "lenet": (["--model", "lenet"], 2, 1),
+    "mlp4": (["--model", "mlp", "--mlp-dims",
+              ",".join(str(d) for d in MLP4)], 4, 1),
+    "gpt": (["--model", "gpt", "--attn", "flash", "--batch-size", "32"], 2,
+            4),
+}
+STAGE_SCHEDULES = {"gpipe": {}, "1f1b": dict(schedule="1f1b"),
+                   "gpipe_remat": dict(remat=True)}
+STAGE_LAUNCHES = {"gpipe": (16, 16, 16), "1f1b": (24, 16, 16),
+                  "gpipe_remat": (32, 16, 16)}
+STAGE_BF16_RTOL, STAGE_MICRO = 2e-2, 4
+STAGE_GPIPE_GROWTH, STAGE_ONEFB_GROWTH = 2.0, 1.3
+STAGE_TIMED_STEPS, STAGE_PROFILED_STEPS = 10, 5
+PP_DECODE = dict(t0=32, n_new=24, reps=3)
+STAGE_DRILL_PINS = (
+    "restored ckpt-00000004.npz (step 4, written at 2 stages, repacked "
+    "onto 1); resuming at epoch 2",
+    "chaos: completed after 1 restart(s); attempts: 2st/fault(HostLost) "
+    "-> 1st/completed")
 
 
 class SmokeFailure(RuntimeError):
@@ -4966,6 +5020,397 @@ def phase_lint_drift(record: dict) -> tuple[dict, int]:
     return f1, k4
 
 
+# -- phase 15: the reference's own topology, stages on one card ---------------
+
+
+def _stage_cli(argv: list[str], tmp: str, name: str) -> dict:
+    """One CLI training run (``--dryrun STAGE_CLI_STEPS``) with
+    ``--metrics-json``: its console lines and its epoch record."""
+    import json as _json
+    path = os.path.join(tmp, f"{name}.jsonl")
+    lines = _cli(argv + ["--dryrun", str(STAGE_CLI_STEPS),
+                         "--metrics-json", path])
+    with open(path) as f:
+        [rec] = [_json.loads(ln) for ln in f]
+    return dict(lines=lines, train_loss=rec["train_loss"],
+                eval_loss=rec["eval_loss"], correct=rec["correct"])
+
+
+def _stages_cli(rec: dict) -> tuple[int, int, int]:
+    """(a) ``bench.py::_configs``'s lenet (conv | fc), mlp4 and tiny gpt
+    rows through the CLI at ``--stages`` 2, 4 and 2 (the gpt row with
+    ``--microbatches 4``), each under GPipe and 1F1B, every stage on the
+    one card: the placement line, the train and test losses after
+    ``STAGE_CLI_STEPS`` steps equal to the one-stage run's within
+    ``STAGE_CLI_RTOL``, LeNet's ``Test set:`` line, and the tiny gpt's
+    exact K1-K3 launches (its f32 kernels; kept out of the ``kernels``
+    line, whose flash rows are the bf16 ones). Returns those launches."""
+    import math
+    import tempfile
+    out = {}
+    counts = [0, 0, 0]
+    n_eval = -(-1000 // 32)              # the tiny gpt's eval batches
+    with tempfile.TemporaryDirectory() as tmp:
+        for row, (argv, S, M) in STAGE_CLI_ROWS.items():
+            one = _stage_cli(argv + ["--stages", "1"], tmp, f"{row}-1")
+            for sched in ("gpipe", "1f1b"):
+                _reset_flash_counts()
+                run = _stage_cli(argv + ["--stages", str(S),
+                                         "--microbatches", str(M),
+                                         "--schedule", sched], tmp,
+                                 f"{row}-{S}-{sched}")
+                got = _flash_counts()
+                want_place = (f"| pipeline: {S} stages on "
+                              + ", ".join([_stage_card()] * S))
+                check(want_place in run["lines"],
+                      f"{row} {sched}: no placement line {want_place!r}")
+                gaps = [abs(run[k] - one[k]) / abs(one[k])
+                        for k in ("train_loss", "eval_loss")]
+                check(all(math.isfinite(v) for v in gaps)
+                      and max(gaps) <= STAGE_CLI_RTOL,
+                      f"{row} at {S} stages ({sched}): losses "
+                      f"{run['train_loss']}/{run['eval_loss']} vs one "
+                      f"stage {one['train_loss']}/{one['eval_loss']}")
+                if row == "lenet":
+                    check(any(TEST_RE.match(ln) for ln in run["lines"]),
+                          "lenet at 2 stages printed no Test set: line")
+                if row == "gpt":
+                    # per step: K2 = K3 = n_layers x M; K1 as many, and
+                    # under 1F1B the first stage's layer again (its
+                    # backward tick's recompute); eval: n_layers x M per
+                    # batch
+                    k1 = (2 * M + (M if sched == "1f1b" else 0))
+                    want = (k1 * STAGE_CLI_STEPS + 2 * M * n_eval,
+                            2 * M * STAGE_CLI_STEPS, 2 * M * STAGE_CLI_STEPS)
+                    check(got == want, f"gpt {sched}: K1-K3 launches {got} "
+                                       f"!= {want}")
+                    counts = [a + b for a, b in zip(counts, got)]
+                out[f"{row}-{sched}"] = dict(
+                    stages=S, microbatches=M, train_loss=run["train_loss"],
+                    eval_loss=run["eval_loss"],
+                    one_stage=[one["train_loss"], one["eval_loss"]],
+                    max_rel_gap=max(gaps), flash_launches=got)
+                print(f"chip_smoke: stages (a) {row} at {S} stages, M {M}, "
+                      f"{sched}: train/eval loss {run['train_loss']:.6f}/"
+                      f"{run['eval_loss']:.6f}, one stage "
+                      f"{one['train_loss']:.6f}/{one['eval_loss']:.6f}, "
+                      f"max rel gap {max(gaps):.2e}"
+                      + (f", K1-K3 {got}" if row == "gpt" else ""))
+    rec["cli"] = out
+    return tuple(counts)
+
+
+def _stage_pipe(S: int, M: int, **kw):
+    """The gpt_bf16 row (flash, bf16) at ``S`` stages on the one card, its
+    AdamW and the row's weights from seed 0."""
+    import torch
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        GPTConfig,
+        make_gpt_stages,
+    )
+    from simple_distributed_machine_learning_tpu_torch.parallel import (
+        Pipeline,
+        make_mesh,
+    )
+    from simple_distributed_machine_learning_tpu_torch.train import adamw
+    row = TRAIN_ROWS["gpt_bf16"]
+    cfg = GPTConfig(**row["cfg"], attn_impl="flash")
+    stages, wd, od = make_gpt_stages(0, cfg, S, device=MAIN_DEVICE)
+    mesh = (make_mesh(S, devices=[_stage_card()] * S) if S > 1 else None)
+    pipe = Pipeline(stages, mesh, wd, od, n_microbatches=M,
+                    compute_dtype=torch.bfloat16,
+                    device=None if mesh else MAIN_DEVICE, **kw)
+    return cfg, pipe, adamw(1e-3)
+
+
+def _stage_card() -> str:
+    """The one card every stage runs on (the CPU in a rehearsal)."""
+    return "cuda:0" if MAIN_DEVICE == "cuda" else MAIN_DEVICE
+
+
+def _stage_batch(cfg, batch: int, seed: int):
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randint(0, cfg.vocab, (batch, cfg.seq_len), generator=gen)
+    t = torch.randint(0, cfg.vocab, (batch, cfg.seq_len), generator=gen)
+    return x.float().to(MAIN_DEVICE), t.to(MAIN_DEVICE)
+
+
+def _peak_activation_bytes(S: int, M: int, **kw) -> int:
+    """One AdamW train step at microbatch ``STAGE_MICRO``: the allocator's
+    peak during the step less what was allocated before it (parameters,
+    optimizer state and the batch)."""
+    import torch
+
+    from simple_distributed_machine_learning_tpu_torch.train import (
+        make_train_step,
+    )
+    cfg, pipe, opt = _stage_pipe(S, M, **kw)
+    params = pipe.init_params()
+    state = opt.init(params)
+    step = make_train_step(pipe, opt)
+    x, t = _stage_batch(cfg, STAGE_MICRO * M, 5)
+    params, state, _ = step(params, state, x, t, 0)      # warm, allocate
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params, state, loss = step(params, state, x, t, 1)
+    torch.cuda.synchronize()
+    check(torch.isfinite(loss).item(), f"non-finite loss at S={S} M={M}")
+    return torch.cuda.max_memory_allocated() - base
+
+
+def stage_profile() -> dict:
+    """(b)'s device busy share: ``STAGE_PROFILED_STEPS`` gpt_bf16 steps at
+    2 stages and M = 4 under each schedule, under ``torch.profiler`` —
+    run in a process of its own (after phase 13 (b)'s scheduled session,
+    later sessions in the same process lose CUDA records)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from simple_distributed_machine_learning_tpu_torch.train import (
+        make_train_step,
+    )
+    out = {}
+    for name, kw in STAGE_SCHEDULES.items():
+        cfg, pipe, opt = _stage_pipe(2, 4, **kw)
+        params = pipe.init_params()
+        state = opt.init(params)
+        step = make_train_step(pipe, opt)
+        x, t = _stage_batch(cfg, TRAIN_ROWS["gpt_bf16"]["batch"], 1)
+        for i in range(2):
+            params, state, _ = step(params, state, x, t, i)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(STAGE_PROFILED_STEPS):
+                params, state, _ = step(params, state, x, t, i)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy, launches = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                busy += float(getattr(e, "self_device_time_total", None)
+                              or getattr(e, "self_cuda_time_total", 0))
+                launches += e.count
+        n = STAGE_PROFILED_STEPS
+        out[name] = dict(profiled_step_ms=wall_us / 1e3 / n,
+                         device_busy_share=busy / wall_us,
+                         device_ms_per_step=busy / 1e3 / n,
+                         kernel_launches_per_step=launches / n)
+        del params, state, pipe
+        torch.cuda.empty_cache()
+    return out
+
+
+def _stage_profile_fresh() -> dict:
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import json, chip_smoke; "
+         "print(json.dumps(chip_smoke.stage_profile()))"],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0,
+          f"phase 15 (b)'s profiled window: rc {proc.returncode}\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _stages_full_width(rec: dict, record: dict) -> tuple[int, int, int]:
+    """(b) The gpt_bf16 row at 2 stages and M = 4 under GPipe, 1F1B and
+    GPipe with remat: loss and gradients against one stage (bf16,
+    ``STAGE_BF16_RTOL`` on the loss and on the gradients' norm-relative
+    gap); exact K1-K3 launches per step (counts set to 0 just before the
+    timed steps, read just after: the main path's count); the host-clock
+    step; the peak activation bytes at M = 4 and 16 (microbatch 4):
+    GPipe grows more than ``STAGE_GPIPE_GROWTH``x, 1F1B less than
+    ``STAGE_ONEFB_GROWTH``x. Returns the K1-K3 launches of the timed
+    steps."""
+    import torch
+
+    from simple_distributed_machine_learning_tpu_torch.train import (
+        make_train_step,
+    )
+    row = TRAIN_ROWS["gpt_bf16"]
+    cfg, one, _ = _stage_pipe(1, 1)
+    x, t = _stage_batch(cfg, row["batch"], 1)
+    l1, g1 = one.loss_and_grads(one.init_params(), x, t, deterministic=True)
+    g1 = torch.cat([g.reshape(-1) for g in g1])
+    del one
+    counts = [0, 0, 0]
+    out: dict = {}
+    for name, kw in STAGE_SCHEDULES.items():
+        _, pipe, opt = _stage_pipe(2, 4, **kw)
+        if name == "gpipe":
+            print(f"chip_smoke: stages (b) placement: 2 stages on "
+                  + ", ".join(str(d) for d in pipe.devices) + " (one card)")
+        params = pipe.init_params()
+        ls, gs = pipe.loss_and_grads(params, x, t, deterministic=True)
+        gs = torch.cat([g.reshape(-1) for g in gs])
+        loss_gap = abs(float(ls) - float(l1)) / abs(float(l1))
+        grad_gap = float((gs - g1).norm() / g1.norm())
+        check(loss_gap <= STAGE_BF16_RTOL and grad_gap <= STAGE_BF16_RTOL,
+              f"{name}: loss gap {loss_gap}, gradient gap {grad_gap} "
+              f"against one stage (limit {STAGE_BF16_RTOL})")
+        del gs
+        state = opt.init(params)
+        step = make_train_step(pipe, opt)
+        for i in range(2):
+            params, state, _ = step(params, state, x, t, i)
+        torch.cuda.synchronize()
+        _reset_flash_counts()
+        t0 = time.perf_counter()
+        for i in range(STAGE_TIMED_STEPS):
+            params, state, loss = step(params, state, x, t, i)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / STAGE_TIMED_STEPS
+        got = _flash_counts()
+        per = tuple(c / STAGE_TIMED_STEPS for c in got)
+        want = STAGE_LAUNCHES[name]
+        check(per == want, f"{name}: K1-K3 launches per step {per} != "
+                           f"{want}")
+        counts = [a + b for a, b in zip(counts, got)]
+        out[name] = dict(loss_gap=loss_gap, grad_gap=grad_gap,
+                         step_ms=step_ms, launches_per_step=per,
+                         final_loss=float(loss))
+        del params, state, pipe
+        torch.cuda.empty_cache()
+    for name, kw in (("gpipe", {}), ("1f1b", dict(schedule="1f1b")),
+                     ("gpipe_remat", dict(remat=True))):
+        peaks = [_peak_activation_bytes(2, M, **kw) for M in (4, 16)]
+        growth = peaks[1] / peaks[0]
+        out[name].update(peak_activation_bytes=peaks, growth=growth)
+        torch.cuda.empty_cache()
+    check(out["gpipe"]["growth"] > STAGE_GPIPE_GROWTH,
+          f"GPipe's activation bytes grew {out['gpipe']['growth']:.3f}x "
+          f"from M = 4 to 16 (must exceed {STAGE_GPIPE_GROWTH})")
+    check(out["1f1b"]["growth"] < STAGE_ONEFB_GROWTH,
+          f"1F1B's activation bytes grew {out['1f1b']['growth']:.3f}x "
+          f"from M = 4 to 16 (must stay under {STAGE_ONEFB_GROWTH})")
+    prof = _stage_profile_fresh()
+    one_ms = record["train"]["gpt_bf16"]["step_ms"]
+    one_busy = record.get("train_profile", {}).get("device_busy_share")
+    for name, r in out.items():
+        r.update({f"profiled_{k}": v for k, v in prof[name].items()})
+        print(f"chip_smoke: stages (b) gpt_bf16 S=2 M=4 {name}: step "
+              f"{r['step_ms']:.3f} ms (host clock; one stage, phase 5: "
+              f"{one_ms:.3f}), K1/K2/K3 per step {r['launches_per_step']}, "
+              f"device busy {prof[name]['device_busy_share']:.4f} (one "
+              f"stage, phase 6: {one_busy}), "
+              f"{prof[name]['kernel_launches_per_step']:.1f} kernels/step, "
+              f"loss/grad gap vs one stage {r['loss_gap']:.2e}/"
+              f"{r['grad_gap']:.2e}, peak activations M=4/16 "
+              f"{r['peak_activation_bytes'][0]}/"
+              f"{r['peak_activation_bytes'][1]} B ({r['growth']:.3f}x)")
+    rec["full_width"] = out
+    return tuple(counts)
+
+
+def _stages_pp_decode(rec: dict) -> None:
+    """(c) ``make_pp_decoder`` at phase 3's GPT width over 2 stages on the
+    card: greedy tokens equal to the one-card ``make_cached_decoder``'s;
+    a bf16 cache's beside them; host ms per decode."""
+    import torch
+
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        GPTConfig,
+        make_cached_decoder,
+        make_gpt_stages,
+    )
+    from simple_distributed_machine_learning_tpu_torch.models.pp_decode import (  # noqa: E501
+        make_pp_decoder,
+    )
+    from simple_distributed_machine_learning_tpu_torch.parallel import (
+        Pipeline,
+        make_mesh,
+    )
+    cfg = GPTConfig(**SERVE_CFG)
+    stages, wd, od = make_gpt_stages(0, cfg, 2, device=MAIN_DEVICE)
+    pipe = Pipeline(stages, make_mesh(2, devices=[_stage_card()] * 2), wd,
+                    od)
+    params = pipe.init_params()
+    gen = torch.Generator().manual_seed(4)
+    prompt = torch.randint(0, cfg.vocab, (1, PP_DECODE["t0"]),
+                           generator=gen)
+    t0, n = PP_DECODE["t0"], PP_DECODE["n_new"]
+    decoders = {"pp": make_pp_decoder(pipe, cfg, t0, n),
+                "pp_bf16": make_pp_decoder(pipe, cfg, t0, n,
+                                           cache_dtype=torch.bfloat16),
+                "cached": make_cached_decoder(stages, cfg, t0, n,
+                                              device=MAIN_DEVICE)}
+    toks, ms = {}, {}
+    for name, dec in decoders.items():
+        dec(params, prompt)                       # warm
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        for _ in range(PP_DECODE["reps"]):
+            out = dec(params, prompt)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t_start) * 1e3 / PP_DECODE["reps"]
+        toks[name] = out.cpu()
+    check(torch.equal(toks["pp"], toks["cached"]),
+          f"pp_decode's tokens differ from the cached decoder's: "
+          f"{toks['pp'].tolist()} vs {toks['cached'].tolist()}")
+    same = int((toks["pp_bf16"] == toks["pp"]).sum()) - t0
+    rec["pp_decode"] = dict(ms=ms, tokens=toks["pp"].tolist(),
+                            bf16_tokens=toks["pp_bf16"].tolist(),
+                            bf16_equal_new_tokens=same)
+    print(f"chip_smoke: stages (c) pp_decode 2 stages, prompt {t0} + {n} "
+          f"greedy: tokens equal to the cached decoder's; "
+          f"{ms['pp']:.3f} ms per decode (cached, one stage: "
+          f"{ms['cached']:.3f}); a bf16 cache {ms['pp_bf16']:.3f} ms, "
+          f"{same}/{n} new tokens equal to f32's")
+
+
+def _stages_drill(rec: dict) -> None:
+    """(d) The JAX CLI test's elastic drill at 2 stages on the card:
+    a host-kill at step 6, restored from the store and repacked onto 1
+    stage; JAX's two pinned lines, exit 0; the restart cost as the
+    drill's host time less a clean run's of the same steps."""
+    import tempfile
+    base = ["--model", "mlp", "--mlp-dims", "784,32,10", "--stages", "2",
+            "--epochs", "3", "--max-steps-per-epoch", "4"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _cli(base + ["--checkpoint-dir", os.path.join(tmp, "clean")])
+        clean_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lines = _cli(base + ["--checkpoint-dir", os.path.join(tmp, "store"),
+                             "--chaos", ELASTIC_KILL, "--chaos-stages",
+                             "2,1"])
+        drill_s = time.perf_counter() - t0
+    for pin in STAGE_DRILL_PINS:
+        check(any(pin in ln for ln in lines),
+              f"the stage-ladder drill did not print {pin!r}: {lines}")
+    rec["drill"] = dict(clean_s=clean_s, drill_s=drill_s,
+                        restart_cost_ms=(drill_s - clean_s) * 1e3)
+    print(f"chip_smoke: stages (d) --chaos {ELASTIC_KILL} --chaos-stages "
+          f"2,1: both JAX lines, rc 0; restart cost "
+          f"{(drill_s - clean_s) * 1e3:.1f} ms (drill {drill_s:.3f} s, "
+          f"clean run {clean_s:.3f} s, host clock)")
+
+
+def phase_stages(record: dict) -> tuple[int, int, int]:
+    """Phase 15: the pipeline over several stages, every stage on the one
+    card. Returns (b)'s K1-K3 launches (the main path's, bf16)."""
+    rec: dict = {}
+    record["stages"] = rec
+    secs = {}
+    t0 = time.perf_counter()
+    rec["cli_flash_launches"] = _stages_cli(rec)
+    secs["a"] = time.perf_counter() - t0
+    launches = _stages_full_width(rec, record)
+    secs["b"] = time.perf_counter() - t0 - sum(secs.values())
+    _stages_pp_decode(rec)
+    secs["c"] = time.perf_counter() - t0 - sum(secs.values())
+    _stages_drill(rec)
+    secs["d"] = time.perf_counter() - t0 - sum(secs.values())
+    rec["seconds"] = dict(secs, total=time.perf_counter() - t0)
+    print(f"chip_smoke: phase 15 took {rec['seconds']['total']:.1f} s ("
+          + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items()) + ")")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -5013,6 +5458,7 @@ def main() -> int:
         resilience_launches = phase_resilience(record)
         telemetry_launches = phase_telemetry_native(record)
         f1_row, lint_launches = phase_lint_drift(record)
+        stage_launches = phase_stages(record)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5039,8 +5485,9 @@ def main() -> int:
         "library_ms": None,
     }]}
     # the flash kernels' times at the gpt_bf16 row's shape; launches from
-    # that row's flash training run, phase 10 (b)'s runs of that row and
-    # phase 13 (b)'s bf16 CLI run
+    # that row's flash training run, phase 10 (b)'s runs of that row,
+    # phase 13 (b)'s bf16 CLI run and phase 15 (b)'s runs of that row at 2
+    # stages
     for i, (name, line) in enumerate((("flash_forward", 127),
                                       ("flash_dq", 300),
                                       ("flash_dkv", 338))):
@@ -5054,7 +5501,7 @@ def main() -> int:
             "replaces": "simple_distributed_machine_learning_tpu/ops/"
                         f"flash_attention.py:{line}",
             "launches": (train["launches"][i] + resilience_launches[i]
-                         + telemetry_launches[i]),
+                         + telemetry_launches[i] + stage_launches[i]),
             "max_abs_err": max(v["max_abs_err"] for v in flash_variants
                                if v["name"] == name),
             "ms": timed["ms"],

@@ -41,13 +41,24 @@ and eval spans) and ``D/metrics.prom``, fencing the card every
 "decode"`` record. ``--profile DIR`` captures the whole fit under
 ``torch.profiler`` into a Chrome trace in DIR.
 
+``--stages S`` (default: 2 with two or more cards, else 1, as the JAX CLI)
+trains over a pipeline of S stages, stage s on card ``s mod n`` of the n
+visible cards (every stage on the CPU with ``--device cpu``), and prints
+the placement (``| pipeline: 2 stages on cuda:0, cuda:0``);
+``--microbatches M`` splits each batch into M microbatches over them,
+``--schedule 1f1b`` interleaves forwards and backwards, ``--remat``
+recomputes each stage in the backward, ``--generate`` decodes stage by
+stage (``models/pp_decode.py``) and ``--chaos ... --chaos-stages 2,1``
+steps the elastic supervisor down a stage-count ladder. On one stage
+``--microbatches`` and ``--remat`` change nothing, as on the JAX
+package's one-device mesh.
+
 One flag is the port's own: ``--device`` (default CUDA; the run raises
 without it unless ``--device cpu`` asks for the CPU). Every other flag of
 the JAX parser is accepted; a flag whose path is not ported exits, when
-set, with one line naming its ROADMAP item (the linter, and every
-parallel axis: ``--stages`` above 1, ``--chaos-stages``,
-``--dp/--tp/--sp/--ep/--experts``, ``--world_size`` above 1). ``--microbatches`` is accepted and does not split the batch, as
-on the JAX package's one-device mesh.
+set, with one line naming its ROADMAP item (the linter, and the parallel
+axes of items 6c-6e: ``--dp/--tp/--sp/--ep/--experts``, ``--overlap
+ring``, ``--world_size`` above 1, the watchdog's flags, ``--serve-tp``).
 """
 
 from __future__ import annotations
@@ -79,10 +90,11 @@ def build_parser() -> argparse.ArgumentParser:
                    default="lenet",
                    help="model family (lenet = the reference's workload)")
     g.add_argument('--stages', type=int, default=None,
-                   help="pipeline stages (1 on one card; more: ROADMAP "
-                        "item 6)")
+                   help="pipeline stages (default: 2 with two or more "
+                        "cards, else 1); stage s runs on card s mod n")
     g.add_argument('--microbatches', type=int, default=1,
-                   help="accepted; one card does not split the batch")
+                   help="GPipe/1F1B microbatches per batch (over two or "
+                        "more stages)")
     g.add_argument('--schedule', choices=("gpipe", "1f1b"), default="gpipe",
                    help="pipeline schedule (the same on one stage)")
     g.add_argument('--dp', type=int, default=1,
@@ -261,7 +273,8 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument('--bf16', action='store_true',
                    help="bfloat16 compute (float32 master params and loss)")
     g.add_argument('--remat', action='store_true',
-                   help="activation recomputation (ROADMAP item 6)")
+                   help="recompute each stage in the backward "
+                        "(torch.utils.checkpoint; over two or more stages)")
     g.add_argument('--metrics-json', type=str, default=None, metavar='PATH',
                    help="append one JSON line of metrics per epoch")
     g.add_argument('--profile', type=str, default=None, metavar='DIR',
@@ -309,8 +322,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "numeric kinds with --sentinel). Requires "
                         "--checkpoint-dir; --model mlp or gpt")
     g.add_argument('--chaos-stages', type=str, default=None,
-                   metavar='S1,S2', help="with --chaos: a stage-count "
-                                         "ladder (ROADMAP item 6)")
+                   metavar='S1,S2', help="with --chaos: the stage-count "
+                                         "ladder, largest first; each lost "
+                                         "host steps one rung down")
     g.add_argument('--chaos-max-restarts', type=int, default=3,
                    help="with --chaos: recoverable-failure restart budget "
                         "before the run FAILS loudly")
@@ -338,8 +352,7 @@ def build_parser() -> argparse.ArgumentParser:
 _UNPORTED = ({"lint": _roadmap.ANALYSIS, "lint_only": _roadmap.ANALYSIS}
              | {k: _roadmap.PARALLEL_AXES for k in (
                  "world_size", "dp", "tp", "sp", "ep", "experts", "overlap",
-                 "remat", "peer_timeout", "heartbeat_port", "serve_tp",
-                 "chaos_stages")})
+                 "peer_timeout", "heartbeat_port", "serve_tp")})
 
 
 def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
@@ -350,10 +363,6 @@ def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
                            else dest.replace("_", "-"))
             raise SystemExit(str(_roadmap.not_ported(
                 f"{flag} {value}", item)))
-    if args.stages is not None and args.stages != 1:
-        raise SystemExit(str(_roadmap.not_ported(
-            f"--stages {args.stages} (a pipeline over several cards)",
-            _roadmap.PARALLEL_AXES)))
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -371,6 +380,8 @@ def main(argv: list[str] | None = None) -> None:
 
 
 def _dispatch(args) -> None:
+    import torch
+
     from simple_distributed_machine_learning_tpu_torch._device import (
         resolve_device,
     )
@@ -389,20 +400,23 @@ def _dispatch(args) -> None:
         raise SystemExit(f"--sentinel-snapshot-every must be >= 1, got "
                          f"{args.sentinel_snapshot_every}")
     device = resolve_device(args.device)
+    n_cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    n_stages = (args.stages if args.stages is not None
+                else (2 if n_cards >= 2 else 1))
     if args.scenario is not None:
-        _run_scenario(args, device)
+        _run_scenario(args, n_stages, device)
         return
     if args.chaos is not None:
-        _run_chaos(args, device)
+        _run_chaos(args, n_stages, device)
         return
     if args.serve_sim > 0:
         if args.model != "gpt":
             raise SystemExit("--serve-sim is only supported with "
                              "--model=gpt")
-        _run_serve(args, device)
+        _run_serve(args, n_stages, device)
         return
     if args.model == "gpt":
-        _run_gpt(args, device)
+        _run_gpt(args, n_stages, device)
         return
     from simple_distributed_machine_learning_tpu_torch.data.mnist import (
         Dataset,
@@ -412,14 +426,15 @@ def _dispatch(args) -> None:
         from simple_distributed_machine_learning_tpu_torch.models.lenet import (  # noqa: E501
             make_lenet_stages,
         )
-        stages, wire_dim, out_dim = make_lenet_stages(args.seed, 1, device)
+        stages, wire_dim, out_dim = make_lenet_stages(args.seed, n_stages,
+                                                      device)
     else:
         from simple_distributed_machine_learning_tpu_torch.models.mlp import (
             make_mlp_stages,
         )
         dims = [int(d) for d in args.mlp_dims.split(",")]
-        stages, wire_dim, out_dim = make_mlp_stages(args.seed, dims, 1,
-                                                    device)
+        stages, wire_dim, out_dim = make_mlp_stages(args.seed, dims,
+                                                    n_stages, device)
     train_ds, test_ds = load_mnist(args.data_root)
     if args.model == "mlp":
         train_ds = Dataset(train_ds.x.reshape(len(train_ds.x), -1),
@@ -429,7 +444,22 @@ def _dispatch(args) -> None:
                         device))
 
 
+def _placement(device, n_stages: int) -> list:
+    """Stage s's device: card ``s mod n`` of the n visible cards on CUDA
+    (stages share a card when there are fewer cards than stages); every
+    stage on the CPU with ``--device cpu``."""
+    from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
+        visible_devices,
+    )
+    if device.type != "cuda":
+        return [device] * n_stages
+    cards = visible_devices()
+    return [cards[s % len(cards)] for s in range(n_stages)]
+
+
 def _pipeline(args, stages, wire_dim, out_dim, device):
+    """The run's ``Pipeline``: one stage on ``device``, or ``len(stages)``
+    stages over :func:`_placement`'s devices, whose placement it prints."""
     import torch
 
     from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
@@ -438,11 +468,18 @@ def _pipeline(args, stages, wire_dim, out_dim, device):
     from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (  # noqa: E501
         Pipeline,
     )
-    return Pipeline(stages, make_mesh(n_stages=1, n_data=args.dp), wire_dim,
-                    out_dim, n_microbatches=args.microbatches,
+    n = len(stages)
+    mesh = make_mesh(n_stages=n, n_data=args.dp,
+                     devices=_placement(device, n) if n > 1 else None)
+    if mesh is not None:
+        print(f"| pipeline: {n} stages on "
+              + ", ".join(str(d) for d in mesh.devices))
+    return Pipeline(stages, mesh, wire_dim, out_dim,
+                    n_microbatches=args.microbatches,
                     compute_dtype=torch.bfloat16 if args.bf16 else None,
-                    schedule=args.schedule, overlap=args.overlap,
-                    device=device)
+                    remat=args.remat, schedule=args.schedule,
+                    overlap=args.overlap,
+                    device=device if mesh is None else None)
 
 
 def _trainer(args, stages, wire_dim, out_dim, train_ds, test_ds, device):
@@ -613,14 +650,15 @@ def _gpt_setup(args):
             as_ds(all_data.x[6000:], all_data.y[6000:]))
 
 
-def _run_gpt(args, device) -> None:
+def _run_gpt(args, n_stages: int, device) -> None:
     """--model gpt: the tiny GPT on a synthetic Markov token stream (or
     the bytes of --text-corpus), same trainer and console surface."""
     from simple_distributed_machine_learning_tpu_torch.models.gpt import (
         make_gpt_stages,
     )
     cfg, train_ds, test_ds = _gpt_setup(args)
-    stages, wire_dim, out_shape = make_gpt_stages(args.seed, cfg, 1, device)
+    stages, wire_dim, out_shape = make_gpt_stages(args.seed, cfg, n_stages,
+                                                  device)
     trainer = _trainer(args, stages, wire_dim, out_shape, train_ds, test_ds,
                        device)
     _fit(args, trainer)
@@ -630,19 +668,29 @@ def _run_gpt(args, device) -> None:
 
 def _print_sample(args, trainer, cfg, test_ds) -> None:
     """--generate N: decode N tokens from the trained model with the
-    KV-cache decoder, straight from the live stage modules."""
+    KV-cache decoder, straight from the live stage modules; over two or
+    more stages stage by stage (``models/pp_decode.py``), one prompt (B =
+    the data axis's width, 1)."""
     import numpy as np
     import torch
 
     from simple_distributed_machine_learning_tpu_torch.models.gpt import (
         make_cached_decoder,
     )
+    from simple_distributed_machine_learning_tpu_torch.models.pp_decode import (  # noqa: E501
+        make_pp_decoder,
+    )
     n_new = min(args.generate, cfg.seq_len - 1)
     t0 = max(1, min(cfg.seq_len - n_new, 16))
     prompt = np.asarray(test_ds.x[:1, :t0], np.int32)
-    dec = make_cached_decoder(trainer.pipe.stages, cfg, t0, n_new,
-                              cache_dtype=torch.bfloat16 if args.bf16
-                              else None, device=trainer.pipe.device)
+    pipe = trainer.pipe
+    cache_dtype = torch.bfloat16 if args.bf16 else None
+    if pipe.n_stages >= 2:
+        dec = make_pp_decoder(pipe, cfg, t0, n_new, cache_dtype=cache_dtype)
+    else:
+        dec = make_cached_decoder(pipe.stages, cfg, t0, n_new,
+                                  cache_dtype=cache_dtype,
+                                  device=pipe.device)
     toks = _decode_timed(args, trainer, dec, prompt, n_new)[0]
     if args.text_corpus:
         text = bytes(int(t) for t in toks).decode("latin-1")
@@ -800,15 +848,16 @@ def _serve_plan(args):
     return plan
 
 
-def _run_chaos(args, device) -> None:
+def _run_chaos(args, n_stages: int, device) -> None:
     """--chaos SPEC: training under a deterministic fault schedule with the
     elastic checkpoint-restart supervisor (resilience/supervisor.py).
 
     The supervisor rebuilds the trainer from scratch after every
     recoverable failure — nothing in-memory survives an attempt — restoring
     the latest checksum-valid checkpoint from the store in
-    --checkpoint-dir. Exits 0 only when training ran to completion within
-    the restart budget and the schedule fired.
+    --checkpoint-dir, repacked onto the surviving stage count of the
+    --chaos-stages ladder. Exits 0 only when training ran to completion
+    within the restart budget and the schedule fired.
     """
     import dataclasses
 
@@ -848,6 +897,18 @@ def _run_chaos(args, device) -> None:
             f"--chaos plan contains sentinel-interpreted kinds "
             f"({', '.join(numeric)}): add --sentinel so the trainer "
             f"absorbs them")
+    if args.chaos_stages:
+        try:
+            topologies = [int(s) for s in args.chaos_stages.split(",")]
+        except ValueError:
+            raise SystemExit(f"--chaos-stages expects a comma list of "
+                             f"stage counts, got {args.chaos_stages!r}"
+                             ) from None
+        if any(t < 1 for t in topologies):
+            raise SystemExit(f"--chaos-stages entries must be >= 1, got "
+                             f"{topologies}")
+    else:
+        topologies = [n_stages]
 
     if args.model == "gpt":
         from simple_distributed_machine_learning_tpu_torch.models.gpt import (
@@ -887,10 +948,8 @@ def _run_chaos(args, device) -> None:
 
     faults.install(plan)
     try:
-        # one card, one stage: the ladder is (1,); --chaos-stages is
-        # refused above, naming ROADMAP item 6
         report = supervise(
-            build_trainer, [1],
+            build_trainer, topologies,
             policy=RestartPolicy(max_restarts=args.chaos_max_restarts))
     finally:
         faults.uninstall()
@@ -921,7 +980,7 @@ def _run_chaos(args, device) -> None:
             "the drill is vacuous; fix the schedule")
 
 
-def _run_serve(args, device) -> None:
+def _run_serve(args, n_stages: int, device) -> None:
     """--serve-sim N: continuous-batching inference over a simulated
     open-loop Poisson trace. Params come from --checkpoint-dir when a
     checkpoint exists, otherwise fresh weights from --seed; nothing
@@ -978,7 +1037,10 @@ def _run_serve(args, device) -> None:
             f"room to generate: prefix + longest simulated prompt "
             f"({max(GPT_SERVE_PROMPTS)}) + 1 token must fit seq_len "
             f"{cfg.seq_len}")
-    stages, wire_dim, out_shape = make_gpt_stages(args.seed, cfg, 1, device)
+    # the model at --stages (a checkpoint written at that count restores
+    # onto it); the engine serves its merged stages on one card
+    stages, wire_dim, out_shape = make_gpt_stages(args.seed, cfg, n_stages,
+                                                  device)
     draft_stages = draft_cfg = None
     if args.serve_spec_k:
         # the draft: the same config at half the layers, fresh weights
@@ -992,13 +1054,19 @@ def _run_serve(args, device) -> None:
     ckpt = (os.path.join(args.checkpoint_dir, "state.npz")
             if args.checkpoint_dir else None)
     if ckpt and os.path.exists(ckpt):
+        from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (  # noqa: E501
+            make_mesh,
+        )
         from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (  # noqa: E501
             Pipeline,
         )
         from simple_distributed_machine_learning_tpu_torch.train.checkpoint import (  # noqa: E501
             restore_checkpoint,
         )
-        pipe = Pipeline(stages, None, wire_dim, out_shape, device=device)
+        mesh = (make_mesh(n_stages, devices=[device] * n_stages)
+                if n_stages > 1 else None)
+        pipe = Pipeline(stages, mesh, wire_dim, out_shape,
+                        device=None if mesh else device)
         st = restore_checkpoint(ckpt, pipe=pipe)
         params = st["params"]
         print(f"| serve: restored params from {ckpt} (step {st['step']})")
@@ -1218,7 +1286,7 @@ def _run_serve(args, device) -> None:
         raise SystemExit(1)
 
 
-def _run_scenario(args, device) -> None:
+def _run_scenario(args, n_stages: int, device) -> None:
     """--scenario NAME: one SLO-gated serving scenario
     (``resilience/scenarios.py``) on a fresh GPT build, attending through
     the paged-attention kernel (traced with --serve-trace); exits nonzero
@@ -1243,7 +1311,7 @@ def _run_scenario(args, device) -> None:
     if args.serve_sim > 0:
         raise SystemExit("--scenario runs alone (drop --serve-sim/--chaos)")
     cfg = GPTConfig()
-    stages = make_gpt_stages(args.seed, cfg, 1, device)[0]
+    stages = make_gpt_stages(args.seed, cfg, n_stages, device)[0]
     report = run_scenario(args.scenario, stages, cfg,
                           outdir=args.telemetry_dir, device=device,
                           trace=bool(args.serve_trace), attn_kernel="fused")

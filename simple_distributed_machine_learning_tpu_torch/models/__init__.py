@@ -1,6 +1,7 @@
 """Models (port of ``models/``): the GPT (its training forward and its
-serving decode programs), its beam-search decoder (``beam``), its LoRA
-adapters (``lora``), the MLP and LeNet."""
+serving decode programs), its beam-search decoder (``beam``), its
+stage-sharded decoder (``pp_decode``), its LoRA adapters (``lora``), the
+MLP and LeNet."""
 
 from simple_distributed_machine_learning_tpu_torch.models.beam import (  # noqa: F401
     make_beam_decoder,
@@ -19,4 +20,7 @@ from simple_distributed_machine_learning_tpu_torch.models.lenet import (  # noqa
 )
 from simple_distributed_machine_learning_tpu_torch.models.mlp import (  # noqa: F401
     make_mlp_stages,
+)
+from simple_distributed_machine_learning_tpu_torch.models.pp_decode import (  # noqa: F401
+    make_pp_decoder,
 )

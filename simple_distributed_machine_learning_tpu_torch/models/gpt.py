@@ -686,42 +686,67 @@ def make_cached_decoder(stages, cfg: GPTConfig, prompt_len: int, n_new: int,
     _check_cache_quantization(cache_dtype, "make_cached_decoder", paged=False)
     total = _validate_decode_build(stages, cfg, prompt_len, n_new,
                                    "make_cached_decoder")
-    H = cfg.n_heads
-    dh = cfg.d_model // H
-    cd = _cache_dtype(cache_dtype)
+    sampling = (temperature, top_k, top_p)
 
     @torch.no_grad()
     def decode(params, prompt, key_data=None):
         embed, blocks, head = _merged_stage_trees(params)
-        prompt = _on(prompt, dev, torch.int64)
-        b = prompt.shape[0]
-        kc = torch.zeros((len(blocks), b, H, total, dh), dtype=cd, device=dev)
-        vc = torch.zeros_like(kc)
-        kd = _on(_rng.key_data(0) if key_data is None else key_data, dev,
-                 torch.int64).reshape(1, 2).expand(b, 2)
-        knobs = _sampling_tensors(b, temperature, top_k, top_p, dev)
-        ctr0 = torch.arange(b, device=dev) * cfg.vocab
-
-        def pick(row, kd):
-            tok, kd2 = _sample_dyn(row, kd, *knobs, ctr0=ctr0)
-            return tok, kd2[:1].expand(b, 2)
-
-        h = embedding_lookup(embed["tok"], prompt) + embed["pos"][:prompt_len]
-        for li, bp in enumerate(blocks):
-            h = _dense_block_prefill(bp, h, li, kc, vc, prompt_len, H)
-        tok, kd = pick(_head_logprobs(head, h[:, -1]), kd)
-        out = [tok]
-        # each step consumes the token at position i and samples i + 1
-        for i in range(prompt_len, total - 1):
-            h = (embedding_lookup(embed["tok"], tok[:, None])
-                 + embed["pos"][i:i + 1])
-            for li, bp in enumerate(blocks):
-                h = _dense_block_step(bp, h, li, kc, vc, i, total, H)
-            tok, kd = pick(_head_logprobs(head, h[:, 0]), kd)
-            out.append(tok)
-        return torch.cat([prompt.to(torch.int32), torch.stack(out, 1)], 1)
+        return _relay_decode(embed, [blocks], head, [dev], prompt, key_data,
+                             cfg, prompt_len, total, cache_dtype, sampling)
 
     return decode
+
+
+def _relay_decode(embed, stage_blocks, head, devs, prompt, key_data,
+                  cfg: GPTConfig, prompt_len: int, total: int, cache_dtype,
+                  sampling) -> torch.Tensor:
+    """The cached decode over blocks split into stages: stage s's blocks
+    (``stage_blocks[s]``) run on ``devs[s]`` against a K/V cache of their
+    own depth there, the hidden state hops stage to stage, the head samples
+    on the last device and the token goes back to the first. One stage on
+    one device is :func:`make_cached_decoder`; several are
+    ``models/pp_decode.py``. Returns the tokens on the last device."""
+    H = cfg.n_heads
+    dh = cfg.d_model // H
+    cd = _cache_dtype(cache_dtype)
+    out_dev = devs[-1]
+    prompt = _on(prompt, devs[0], torch.int64)
+    b = prompt.shape[0]
+    caches = []
+    for blocks, d in zip(stage_blocks, devs):
+        kc = torch.zeros((len(blocks), b, H, total, dh), dtype=cd, device=d)
+        caches.append((kc, torch.zeros_like(kc)))
+    kd = _on(_rng.key_data(0) if key_data is None else key_data, out_dev,
+             torch.int64).reshape(1, 2).expand(b, 2)
+    knobs = _sampling_tensors(b, *sampling, out_dev)
+    ctr0 = torch.arange(b, device=out_dev) * cfg.vocab
+
+    def pick(row, kd):
+        tok, kd2 = _sample_dyn(row, kd, *knobs, ctr0=ctr0)
+        return tok, kd2[:1].expand(b, 2)
+
+    def relay(h, block):
+        for blocks, d, (kc, vc) in zip(stage_blocks, devs, caches):
+            h = h.to(d)
+            for li, bp in enumerate(blocks):
+                h = block(bp, h, li, kc, vc)
+        return h
+
+    h = embedding_lookup(embed["tok"], prompt) + embed["pos"][:prompt_len]
+    h = relay(h, lambda bp, h, li, kc, vc: _dense_block_prefill(
+        bp, h, li, kc, vc, prompt_len, H))
+    tok, kd = pick(_head_logprobs(head, h[:, -1]), kd)
+    out = [tok]
+    # each step consumes the token at position i and samples i + 1
+    for i in range(prompt_len, total - 1):
+        h = (embedding_lookup(embed["tok"], tok.to(devs[0])[:, None])
+             + embed["pos"][i:i + 1])
+        h = relay(h, lambda bp, h, li, kc, vc, i=i: _dense_block_step(
+            bp, h, li, kc, vc, i, total, H))
+        tok, kd = pick(_head_logprobs(head, h[:, 0]), kd)
+        out.append(tok)
+    return torch.cat([prompt.to(device=out_dev, dtype=torch.int32),
+                      torch.stack(out, 1)], 1)
 
 
 # -- dense slot-row programs (the degraded target's and the draft's pool) ----

@@ -1,10 +1,14 @@
 """Parallelism (port of ``parallel/``): the stage split rule, the packed
-stage buffer and wire codec, the one-card mesh, ``Stage`` and the one-card
-``Pipeline``."""
+stage buffer and wire codec, the stage mesh, ``Stage``, the ``Pipeline``
+(one fused stage, or GPipe over several) and the 1F1B schedule."""
 
 from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (  # noqa: F401
+    Mesh,
     bootstrap_distributed,
     make_mesh,
+)
+from simple_distributed_machine_learning_tpu_torch.parallel.onefb import (  # noqa: F401
+    onefb_loss_and_grads,
 )
 from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (  # noqa: F401
     Pipeline,

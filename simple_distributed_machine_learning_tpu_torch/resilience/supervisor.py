@@ -23,9 +23,9 @@ State machine::
 - RESTORING: the next attempt's trainer restores the latest *valid*
   checkpoint from the store (corrupt generations are skipped by checksum)
   and — when it was written at another stage count — repacks the packed
-  param/optimizer buffers onto the attempt's before resuming. The port's
-  ``Pipeline`` runs one stage, so its ladder is ``(1,)``; a store that a
-  multi-stage JAX run wrote restores onto it. The restore happens inside
+  param/optimizer buffers onto the attempt's before resuming: the ladder
+  (``--chaos-stages 2,1``) steps down across stage counts, and a store that
+  either package wrote at any stage count restores. The restore happens inside
   ``build_trainer`` via :func:`make_elastic_trainer`; nothing in-memory
   survives an attempt, exactly as if the process had died: the dead
   attempt's tensors on the card become unreachable once the next one is
@@ -147,9 +147,8 @@ def make_elastic_trainer(build_pipe, n_stages: int, store: CheckpointStore,
     layout (:meth:`CheckpointStore.restore_latest`). The source's packing
     metadata is the attempt's own model split contiguously into that many
     stages (``train/checkpoint.py::split_layout``: the MLP and GPT
-    families split that way in both packages), since the port builds no
-    multi-stage ``Pipeline``. Loss then continues from the restored
-    step.
+    families split that way in both packages), so no second ``Pipeline``
+    is built for it. Loss then continues from the restored step.
 
     ``opt_factory(pipe) -> Optimizer`` builds the optimizer against the
     attempt's OWN pipeline (pipe-dependent optimizers — e.g. replication-

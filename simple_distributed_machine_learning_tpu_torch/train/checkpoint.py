@@ -5,8 +5,8 @@ in the other.
 One ``.npz`` holds the whole training state, written atomically (a temp
 file, then ``os.replace``) with a human-readable ``.meta.json`` sidecar:
 
-- ``params``: the packed ``[S, M, E, P]`` f32 buffer — ``[1, 1, 1, P]`` on
-  one card — each stage's leaves in ``jax.tree.flatten`` order
+- ``params``: the packed ``[S, M, E, P]`` f32 buffer — ``[S, 1, 1, P]``
+  over S stages — each stage's leaves in ``jax.tree.flatten`` order
   (``parallel/staging.py``);
 - ``opt_<i>``: the optimizer state's leaves in ``jax.tree.flatten`` order
   of the JAX package's state;
@@ -26,8 +26,8 @@ src_pipe=...)``) for the MLP and GPT families, whose stages are a
 contiguous split — the "trained on a pod, continue on one card" case. The
 source is described by its stage metas alone (a list of
 :class:`~..parallel.staging.StageMeta`, e.g. from the port's own
-``make_mlp_stages(..., n_stages=2)`` trees), so no multi-stage
-``Pipeline`` is needed.
+``make_mlp_stages(..., n_stages=2)`` trees), so no second ``Pipeline``
+is needed. A restore places each stage's tensors on its stage's device.
 """
 
 from __future__ import annotations
@@ -302,8 +302,8 @@ def repack_stage_trees(trees: list, n_stages_new: int) -> list:
 def split_layout(layout, n_stages: int) -> list[StageMeta]:
     """The packed layout of the same model split into ``n_stages``
     contiguous stages (``layout``: a ``Pipeline`` or a list of
-    ``StageMeta``): the stage metas a multi-stage run of it writes, which
-    the one-card port cannot build as a ``Pipeline``."""
+    ``StageMeta``): the stage metas a run of it at ``n_stages`` writes,
+    without building that run's ``Pipeline``."""
     metas = _metas(layout)
     trees = [unpack_stage_params(torch.zeros(m.total), m) for m in metas]
     return [stage_meta(t) for t in repack_stage_trees(trees, n_stages)]

@@ -10,10 +10,12 @@ and returns them, so a step's call shape is the JAX one:
 ``params, state = opt.update(grads, state, params)``.
 
 ``params`` is anything :func:`~..parallel.pipeline.param_leaves` flattens
-(the pipeline's list of stage modules); ``grads`` is aligned with those
-leaves. ZeRO-1 (:func:`shard_opt_state_zero1`) is the identity on the
-one-card mesh, as the JAX package's is on a one-wide data axis; sharding
-the state over a real data axis waits for ROADMAP Queue A item 6. The JAX
+(the pipeline's list of stage modules, each on its stage's device);
+``grads`` is aligned with those leaves, each on its parameter's device,
+and every state tensor lies beside its parameter, so each update runs on
+that tensor's own device. ZeRO-1 (:func:`shard_opt_state_zero1`) is the
+identity on a one-wide data axis, as the JAX package's is; sharding the
+state over a real data axis waits for ROADMAP Queue A item 6. The JAX
 package's ``from_optax`` wraps a JAX library and has no port.
 
 State layout (``train/checkpoint.py`` maps it to the JAX package's): a
@@ -106,26 +108,28 @@ def adamw(learning_rate, b1: float = 0.9, b2: float = 0.999,
 def clip_by_global_norm(opt: Optimizer, max_norm: float) -> Optimizer:
     """Wrap ``opt`` with torch ``clip_grad_norm_`` semantics: scale every
     gradient by ``min(1, max_norm / (norm + 1e-6))``, ``norm`` the global
-    L2 norm over all of them, before the inner update. (The JAX package's
-    ``norm_weights``, the replication correction of its packed multi-device
-    buffer, waits for the multi-device slice: on one card every parameter
-    is stored once.)"""
+    L2 norm over all of them (summed on the first gradient's device, the
+    scale sent back to each), before the inner update. (The JAX package's
+    ``norm_weights``, the replication correction of its packed buffer over
+    the model and expert axes, waits for those axes: over stages every
+    parameter is stored once.)"""
     @torch.no_grad()
     def update(grads, state, params):
-        norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+        dev = grads[0].device
+        norm = torch.sqrt(sum((g.float() ** 2).sum().to(dev) for g in grads))
         scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
-        return opt.update([(g * scale).to(g.dtype) for g in grads], state,
-                          params)
+        return opt.update([(g * scale.to(g.device)).to(g.dtype)
+                           for g in grads], state, params)
 
     return Optimizer(opt.init, update)
 
 
 def shard_opt_state_zero1(state: Any, mesh=None, param_spec=None) -> Any:
     """ZeRO-1: shard the optimizer state over the data axis. On the
-    one-card mesh (``mesh=None``) there is one data shard, so the state is
-    returned as it is — what the JAX package does on a one-wide data axis.
-    A real data axis is not ported yet."""
-    if mesh is None:
+    one-card mesh (``mesh=None``) or a stage mesh there is one data shard,
+    so the state is returned as it is — what the JAX package does on a
+    one-wide data axis. A real data axis is not ported yet."""
+    if mesh is None or getattr(mesh, "shape", {}).get("data") == 1:
         return state
     raise _roadmap.not_ported(f"ZeRO-1 over the mesh {mesh!r}",
                               _roadmap.PARALLEL_AXES)

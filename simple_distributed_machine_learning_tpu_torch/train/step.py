@@ -7,9 +7,10 @@ in-place update. Nothing in a step waits for the device: losses come back
 as device tensors, and the caller decides when to read them.
 
 ``key`` is the dropout randomness: an int seed, a ``torch.Generator`` on
-the pipeline's device, or None (torch's default generator). The port's
-draws differ from ``jax.random``'s by design; a model without dropout
-consumes none.
+the pipeline's device, or None (torch's default generator); over several
+stages the pipeline seeds each microbatch's stream from it
+(``parallel/pipeline.py``). The port's draws differ from ``jax.random``'s
+by design; a model without dropout consumes none.
 """
 
 from __future__ import annotations
@@ -33,17 +34,17 @@ def make_train_step(pipe: Pipeline, opt: Optimizer,
     output: the global L2 norm of the gradients the update consumes, an
     f32 device scalar taken before the update runs (the one extra value
     the numeric-anomaly sentinel, ``resilience/sentinel.py``, watches
-    beside the loss)."""
+    beside the loss), on the loss's device."""
 
     def step(params, opt_state, x, targets, key=None, weights=None):
         loss, grads = pipe.loss_and_grads(params, x, targets, key,
                                           deterministic=False,
                                           weights=weights)
         # one multi-tensor launch for the per-tensor norms (grads are f32:
-        # the master parameters' dtype)
+        # the master parameters' dtype), gathered on the loss's device
         gnorm = (torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads)).float()) if with_grad_norm
-            else None)
+            [n.to(pipe.out_device) for n in torch._foreach_norm(grads)]
+        ).float()) if with_grad_norm else None)
         params, opt_state = opt.update(grads, opt_state, params)
         if with_grad_norm:
             return params, opt_state, loss, gnorm
@@ -63,10 +64,13 @@ def make_scanned_train_step(pipe: Pipeline, opt: Optimizer,
     window runs ``pool_steps`` steps, reading batch ``t % P`` at step
     ``t``. (An eager loop has no scan, so the JAX ``unroll`` has no
     counterpart.) One dropout generator serves the whole window, each
-    step drawing after the last."""
+    step drawing after the last (over several stages it lies on the host
+    and seeds each step's microbatch streams, so drawing needs no device
+    sync)."""
 
     def step(params, opt_state, xs, targets, key=None):
-        gen = _generator(key, pipe.device)
+        gen = _generator(key, pipe.device if pipe.n_stages == 1
+                         else torch.device("cpu"))
         xs = pipe._on(xs)
         targets = pipe._on(targets, torch.long)
         n_pool = xs.shape[0]
@@ -91,7 +95,7 @@ def make_eval_step(pipe: Pipeline):
 
     def step(params, x, targets, key=None, n_valid=None):
         n = x.shape[0]
-        mask = (torch.arange(n, device=pipe.device)
+        mask = (torch.arange(n, device=pipe.out_device)
                 < (n if n_valid is None else int(n_valid))).float()
         sum_loss, _, correct = pipe.eval_metrics(params, x, targets, key,
                                                  weights=mask)

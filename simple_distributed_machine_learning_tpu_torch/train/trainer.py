@@ -325,20 +325,22 @@ class Trainer:
         print(msg)
 
     def _sync(self) -> None:
-        if self.pipe.device.type == "cuda":
-            torch.cuda.synchronize(self.pipe.device)
+        for dev in dict.fromkeys(self.pipe.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def _span(self, name: str):
         return (self.telemetry.span(name) if self.telemetry is not None
                 else contextlib.nullcontext())
 
     def _feed(self, x, y, w):
-        """The batch's one host -> device copy, onto ``pipe.device`` (the
-        step then finds it there)."""
-        dev = self.pipe.device
+        """The batch's one host -> device copy: inputs onto the first
+        stage's device, targets and weights onto the last's (the step then
+        finds each where it is read)."""
+        dev, out = self.pipe.device, self.pipe.out_device
         return (torch.from_numpy(np.ascontiguousarray(x)).to(dev),
-                torch.from_numpy(np.ascontiguousarray(y)).to(dev),
-                None if w is None else torch.from_numpy(w).to(dev))
+                torch.from_numpy(np.ascontiguousarray(y)).to(out),
+                None if w is None else torch.from_numpy(w).to(out))
 
     def _epoch_stream(self, shuffle_seed: int | None, start_idx: int):
         """The epoch's ``(batch_idx, Batch)`` stream from ``start_idx``:

@@ -147,7 +147,7 @@ def test_cli_metrics_json(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--stages", "2"], "item 6"),
+    (["--dp", "2", "--stages", "2"], "item 6"),
     (["--world_size", "2"], "item 6"),
     (["--dp", "2"], "item 6"),
     (["--tp", "2"], "item 6"),
@@ -155,8 +155,6 @@ def test_cli_metrics_json(tmp_path):
     (["--ep", "2"], "item 6"),
     (["--experts", "4"], "item 6"),
     (["--overlap", "ring"], "item 6"),
-    (["--remat"], "item 6"),
-    (["--chaos-stages", "2,1"], "item 6"),
     (["--peer-timeout", "30"], "item 6"),
     (["--lint"], "item 7"),
     (["--lint-only"], "item 7"),
@@ -552,6 +550,10 @@ def _exit_text(run, argv):
      "--checkpoint-dir", "CK", "--chaos-max-restarts", "-1"],
     ["--model", "gpt", "--serve-sim", "4", "--chaos",
      "host-kill@train.step=6", "--checkpoint-dir", "CK"],
+    ["--model", "mlp", "--chaos", "host-kill@train.step=6",
+     "--checkpoint-dir", "CK", "--chaos-stages", "2,x"],
+    ["--model", "mlp", "--chaos", "host-kill@train.step=6",
+     "--checkpoint-dir", "CK", "--chaos-stages", "2,0"],
 ])
 def test_chaos_and_sentinel_errors_are_the_jax_clis(tmp_path, argv):
     """Every refusal of the training-resilience flags exits with the JAX
@@ -738,3 +740,155 @@ def test_cli_generate_telemetry_decode_record_matches_the_jax_cli(
     assert recs[0]["tokens_per_sec"] > 0           # an LM: tokens/sec too
     with open(tmp_path / "port" / "metrics.prom") as f:
         assert "decode_time_ms" in f.read()
+
+
+# -- several pipeline stages ----------------------------------------------------
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    """A small byte corpus for the GPT runs (a small test split)."""
+    path = tmp_path_factory.mktemp("corpus") / "corpus.txt"
+    path.write_bytes(b"the quick brown fox jumps over the lazy dog. " * 60)
+    return str(path)
+
+
+def _model_argv(model, corpus):
+    return {"mlp": ["--model", "mlp", "--mlp-dims", "784,32,32,10"],
+            "lenet": ["--model", "lenet"],
+            "gpt": ["--model", "gpt", "--attn", "flash", "--text-corpus",
+                    corpus, "--batch-size", "8"]}[model]
+
+
+def _run_lines(capsys, argv):
+    """The port's CLI on ``argv``: its placement line (or None) and the
+    reference's console lines."""
+    main(BASE + argv)
+    lines = [ln for ln in capsys.readouterr().out.split("\n") if ln]
+    placement = [ln for ln in lines if ln.startswith("| pipeline:")]
+    rest = [ln for ln in lines if not ln.startswith("| pipeline:")
+            and not EPOCH_RE.match(ln)]
+    return (placement or [None])[0], rest
+
+
+@pytest.mark.parametrize("model", ["mlp", "lenet", "gpt"])
+def test_cli_two_stages_equal_one_stage(capsys, corpus, model):
+    """``--stages 2`` (every stage on the CPU; LeNet conv | fc) prints the
+    placement, then the one-stage run's console lines: the same weights,
+    and one microbatch draws the fused model's dropout masks."""
+    argv = _model_argv(model, corpus) + ["--dryrun", "3"]
+    where, two = _run_lines(capsys, argv + ["--stages", "2"])
+    assert where == "| pipeline: 2 stages on cpu, cpu"
+    one_where, one = _run_lines(capsys, argv + ["--stages", "1"])
+    assert one_where is None
+    assert two == one and any(TEST_RE.match(ln) for ln in two)
+
+
+def test_cli_gpt_two_stages_losses_near_the_jax_clis(capsys, corpus):
+    """The JAX CLI's ``--model gpt --stages 2``: each package draws its own
+    weights from the seed, so the printed losses agree only as the same
+    untrained model's: the first step's (at init, near ln(256) = 5.545)
+    within 2% relative; two steps later both test losses lie below it."""
+    from simple_distributed_machine_learning_tpu.cli import main as jmain
+    argv = ["--model", "gpt", "--text-corpus", corpus, "--batch-size", "8",
+            "--stages", "2", "--dryrun", "2"]
+    _, ours = _run_lines(capsys, argv)
+    jmain(["--rank", "0", "--world_size", "1", "--data-root",
+           "/nonexistent"] + argv)
+    theirs = [ln for ln in capsys.readouterr().out.split("\n")
+              if TRAIN_RE.match(ln) or TEST_RE.match(ln)]
+    ours = [ln for ln in ours if TRAIN_RE.match(ln) or TEST_RE.match(ln)]
+    assert len(ours) == len(theirs) == 2
+
+    def losses(lines):
+        return (float(TRAIN_RE.match(lines[0]).group(5)),
+                float(TEST_RE.match(lines[1]).group(1)))
+    (first, test), (jfirst, jtest) = losses(ours), losses(theirs)
+    np.testing.assert_allclose(first, jfirst, rtol=2e-2)
+    assert test < first and jtest < jfirst
+
+
+@pytest.mark.parametrize("model", ["mlp", "gpt"])
+def test_cli_microbatches_1f1b_equal_gpipe(capsys, corpus, model):
+    """``--microbatches 4 --schedule 1f1b`` gives GPipe's console lines
+    (the test loss to its 4 printed decimals)."""
+    argv = _model_argv(model, corpus) + ["--stages", "2", "--microbatches", "4",
+                                "--dryrun", "3"]
+    _, gpipe = _run_lines(capsys, argv)
+    _, onefb = _run_lines(capsys, argv + ["--schedule", "1f1b"])
+    assert onefb == gpipe
+
+
+def test_cli_remat_equals_no_remat(capsys, corpus):
+    argv = _model_argv("gpt", corpus) + ["--stages", "2", "--microbatches", "2",
+                                "--dryrun", "3"]
+    assert _run_lines(capsys, argv + ["--remat"]) == _run_lines(capsys,
+                                                                argv)
+
+
+def test_cli_generate_at_two_stages_decodes_stage_by_stage(capsys, corpus):
+    """``--generate`` at S = 2 goes through ``make_pp_decoder``: the
+    one-stage run's sample, token for token."""
+    argv = _model_argv("gpt", corpus) + ["--dryrun", "2", "--generate", "6"]
+    samples = []
+    for s in ("2", "1"):
+        main(BASE + argv + ["--stages", s])
+        samples.append([ln for ln in capsys.readouterr().out.split("\n")
+                        if ln.startswith("| sample")])
+    assert samples[0] == samples[1] and len(samples[0]) == 1
+
+
+def test_cli_eval_only_from_a_two_stage_checkpoint(tmp_path, capsys):
+    argv = _model_argv("mlp", None) + ["--stages", "2", "--epochs", "1",
+                                "--max-steps-per-epoch", "3",
+                                "--checkpoint-dir", str(tmp_path)]
+    _, trained = _run_lines(capsys, argv)
+    _, evaluated = _run_lines(capsys, argv + ["--eval-only"])
+    assert evaluated[0] == (f"| resumed from {tmp_path}/state.npz at epoch "
+                            f"2 (step 3)")
+    assert evaluated[1:] == [ln for ln in trained if TEST_RE.match(ln)]
+
+
+def test_cli_chaos_stages_ladder_prints_the_jax_lines(tmp_path, capsys):
+    """``tests/test_cli.py::test_cli_chaos_elastic_restart_end_to_end``'s
+    drill: a host-kill mid-epoch 2 on 2 stages, restored and repacked onto
+    1, with the JAX CLI's two pinned lines."""
+    main(BASE + ["--model", "mlp", "--mlp-dims", "784,32,10", "--stages",
+                 "2", "--epochs", "3", "--max-steps-per-epoch", "4",
+                 "--checkpoint-dir", str(tmp_path / "store"), "--chaos",
+                 "host-kill@train.step=6", "--chaos-stages", "2,1"])
+    out = capsys.readouterr().out
+    assert ("restored ckpt-00000004.npz (step 4, written at 2 stages, "
+            "repacked onto 1); resuming at epoch 2") in out
+    assert ("chaos: completed after 1 restart(s); attempts: "
+            "2st/fault(HostLost) -> 1st/completed") in out
+    assert "MANIFEST.jsonl" in {p.name for p in (tmp_path / "store").iterdir()}
+
+
+def test_placement_wraps_the_stages_over_the_cards(monkeypatch):
+    """Stage s on card s mod n; every stage on the CPU with --device cpu;
+    the default stage count is 1 without two cards."""
+    from simple_distributed_machine_learning_tpu_torch import cli
+    from simple_distributed_machine_learning_tpu_torch.parallel import mesh
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    monkeypatch.setattr(mesh, "visible_devices", lambda: cards)
+    assert cli._placement(torch.device("cuda"), 3) == [cards[0], cards[1],
+                                                        cards[0]]
+    assert cli._placement(torch.device("cpu"), 2) == [torch.device("cpu")] * 2
+    assert build_parser().parse_args(["--rank", "0"]).stages is None
+
+
+def test_cli_sentinel_drill_at_two_stages(tmp_path, capsys):
+    """The sentinel's snapshot ring over two stages' tensors: the
+    ``nan-grad@train.grad=5`` drill rolls back and prints the one-stage
+    run's (and the JAX CLI's) lines."""
+    main(BASE + ["--model", "mlp", "--mlp-dims", "784,16,10", "--stages",
+                 "2", "--epochs", "2", "--max-steps-per-epoch", "4",
+                 "--sentinel", "--chaos", "nan-grad@train.grad=5",
+                 "--checkpoint-dir", str(tmp_path)])
+    assert _chaos_lines(capsys.readouterr().out) == [
+        "| sentinel: nan at step 5 (epoch 2 batch 1) — rolled back to step "
+        "4, batch quarantined, replaying",
+        "| chaos: completed after 0 restart(s); attempts: 2st/completed; "
+        "faults fired: 1",
+        "| chaos: sentinel absorbed 1 anomaly (1 rollback(s), 1 quarantined "
+        "batch(es))"]

@@ -217,12 +217,12 @@ def test_sampled_top1_equals_greedy_and_seeds_reproduce():
     dict(n_tensor_parallel=2),
     # serving builds: the dense slot-row target, speculation over it,
     # tracing and the flight recorder are ported; the TP slot programs
-    # still name their item, as --chaos-stages and the linter name theirs
+    # still name their item, as --dp and the linter name theirs
     dict(engine=dict(kv_layout="dense"), item=None),
     dict(engine=dict(kv_layout="dense", spec_k=2, draft=True), item=None),
     dict(engine=dict(trace=True), item=None),
     dict(engine=dict(flight=True), item=None),
-    dict(cli=["--chaos-stages", "2,1"],
+    dict(cli=["--dp", "2"],
          item="item 6, remaining parallel axes"),
     dict(cli=["--lint"], item="item 7, analysis"),
     dict(slot_decode=dict(mesh=object()),

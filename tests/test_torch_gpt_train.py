@@ -353,13 +353,22 @@ def test_init_params_survives_training():
 
 
 def test_multi_stage_pipeline_raises_with_roadmap_item():
+    """Several stages run over a stage mesh; a stage count that does not
+    match the mesh raises, and a data axis (n_data > 1) still names its
+    ROADMAP item."""
+    from simple_distributed_machine_learning_tpu_torch.parallel import (
+        make_mesh as tmake_mesh,
+    )
     cfg = tgpt.GPTConfig(**SMALL)
     stages, wd, od = tgpt.make_gpt_stages(0, cfg, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="2 stages but mesh stage axis is 1"):
         Pipeline(stages, None, wd, od, device="cpu")
+    with pytest.raises(ValueError, match="1 stages but mesh stage axis is 2"):
+        Pipeline(stages[:1], tmake_mesh(2, devices=["cpu"] * 2), wd, od)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Pipeline(stages[:1], make_mesh(n_stages=2, n_data=1), wd, od,
-                 device="cpu")
+        tmake_mesh(n_stages=2, n_data=2, devices=["cpu"] * 4)
+    assert Pipeline(stages, tmake_mesh(2, devices=["cpu"] * 2), wd,
+                    od).n_stages == 2
 
 
 def test_pipeline_defaults_to_cuda_and_raises_without_it():

@@ -245,12 +245,20 @@ def test_param_leaves_follow_the_jax_order_for_mlp_and_lenet():
 
 @pytest.mark.parametrize("builder", ["lenet", "mlp"])
 def test_two_stage_pipeline_raises_naming_item_6(builder):
+    """Two stages need a stage mesh of two; on one with a data axis they
+    name item 6 (the data axis is item 6c)."""
+    from simple_distributed_machine_learning_tpu_torch.parallel import (
+        make_mesh,
+    )
     stages = (tlenet.make_lenet_stages(0, 2, device="cpu") if builder ==
               "lenet" else tmlp.make_mlp_stages(0, [8, 6, 4], 2,
                                                 device="cpu"))[0]
+    with pytest.raises(ValueError, match="2 stages but mesh stage axis"):
+        Pipeline(stages, None, device="cpu")
     with pytest.raises(NotImplementedError,
                        match="item 6, remaining parallel axes"):
-        Pipeline(stages, None, device="cpu")
+        Pipeline(stages, make_mesh(2, n_data=2, devices=["cpu"] * 4))
+    assert Pipeline(stages, make_mesh(2, devices=["cpu"] * 2)).n_stages == 2
 
 
 @pytest.mark.parametrize("overlap", ["none", "ring", "all"])

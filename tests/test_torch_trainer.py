@@ -252,9 +252,14 @@ def test_one_card_mesh_bootstrap_and_zero1():
         shard_opt_state_zero1,
     )
     assert make_mesh() is None and make_mesh(n_stages=1, n_data=1) is None
-    for axis in ("n_stages", "n_data", "n_model", "n_seq", "n_expert"):
+    for axis in ("n_data", "n_model", "n_seq", "n_expert"):
         with pytest.raises(NotImplementedError, match="item 6"):
             make_mesh(**{axis: 2})
+    # the stage axis is ported: over listed devices, or the visible cards
+    assert make_mesh(n_stages=2, devices=["cpu", "cpu"]).n_stages == 2
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="needs 2 devices, have 0"):
+            make_mesh(n_stages=2)
     with pytest.raises(ValueError, match=">= 1"):
         make_mesh(n_data=0)
     assert bootstrap_distributed(0, 1, "localhost", "29500") is None
@@ -264,6 +269,8 @@ def test_one_card_mesh_bootstrap_and_zero1():
     assert shard_opt_state_zero1(state) is state
     with pytest.raises(NotImplementedError, match="ZeRO-1 over the mesh"):
         shard_opt_state_zero1(state, mesh="data=2")
+    assert shard_opt_state_zero1(
+        state, mesh=make_mesh(n_stages=2, devices=["cpu"] * 2)) is state
 
 
 def test_step_seeds_are_a_pure_function_of_seed_and_step():
