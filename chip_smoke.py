@@ -587,6 +587,21 @@ STAGE_DRILL_PINS = (
     "-> 1st/completed")
 
 
+# phase 16: the CLI as real processes on the one card — (a) LeNet on the
+# reference's launch line and (c) the mlp data x pipeline mesh, each cut to
+# PROC_STEPS steps per epoch; (b) the gpt_bf16 row at 2 stages, M = 4, one
+# stage per process, its losses held equal to the one-process run's (the
+# same kernels on the same inputs, the dropout state on the wire; only the
+# hops' host round trip differs), PROC_GENERATE tokens decoded from a
+# PROC_DECODE_T0-token prompt, PROC_PINGS round trips of one microbatch's
+# activation; (d) a killed and a stopped peer under --peer-timeout
+# PROC_PEER_TIMEOUT, rank 0 out within PROC_PEER_LIMIT_S; every launch
+# within PROC_TIMEOUT_S
+PROC_STEPS = 20
+PROC_GENERATE, PROC_DECODE_T0, PROC_PINGS = 8, 16, 20
+PROC_PEER_TIMEOUT, PROC_PEER_LIMIT_S, PROC_TIMEOUT_S = 8, 60, 240
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -5411,6 +5426,408 @@ def phase_stages(record: dict) -> tuple[int, int, int]:
     return launches
 
 
+# -- phase 16: the reference's launch line, real processes on the one card ---
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_cmd(rank: int, world: int, port: int, hb_port: int,
+              argv: list[str]) -> list[str]:
+    return [sys.executable, "-m", f"{PORT}.cli", "--rank", str(rank),
+            "--world_size", str(world), "--master_addr", "localhost",
+            "--master_port", str(port), "--heartbeat-port", str(hb_port),
+            "--device", MAIN_DEVICE] + argv
+
+
+def _child_env(extra: dict | None = None) -> dict:
+    return dict(os.environ, PYTHONUNBUFFERED="1", **(extra or {}))
+
+
+def _kill_all(procs) -> None:
+    """Stop every process a launch started (a stopped one is continued
+    first, so the kill lands)."""
+    import signal
+    for p in procs:
+        if p.poll() is None:
+            try:
+                p.send_signal(signal.SIGCONT)
+            except ProcessLookupError:
+                pass
+            p.kill()
+        p.wait()
+
+
+def _launch_ranks(world: int, argv: list[str], env: dict | None = None,
+                  timeout: float = PROC_TIMEOUT_S) -> list[tuple]:
+    """``world`` processes of the port's CLI on the reference's launch
+    line; ``[(rc, stdout, stderr)]`` by rank."""
+    port, hb_port = _free_port(), _free_port()
+    procs = [subprocess.Popen(_rank_cmd(r, world, port, hb_port, argv),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=_child_env(env), cwd=HERE)
+             for r in range(world)]
+    out = []
+    try:
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            so, se = p.communicate(timeout=max(1.0,
+                                               deadline - time.monotonic()))
+            out.append((p.returncode, so, se))
+    finally:
+        _kill_all(procs)
+    for r, (rc, _, se) in enumerate(out):
+        check(rc == 0, f"rank {r} of {' '.join(argv)} exited {rc}: "
+                       f"{se[-2000:]}")
+    return out
+
+
+def _console(lines) -> list[str]:
+    """The reference's console lines (the train and test lines)."""
+    return [ln for ln in lines if TRAIN_RE.match(ln) or TEST_RE.match(ln)]
+
+
+def _procs_launch_line(rec: dict, tmp: str) -> None:
+    """(a) The reference's launch line: LeNet (conv | fc) over two
+    processes, rank 0 printing the console, rank 1 none of it; rank 0's
+    losses equal the one-process two-stage run's to the printed digits."""
+    argv = ["--epochs", "1", "--max-steps-per-epoch", str(PROC_STEPS),
+            "--data-root", os.path.join(tmp, "nodata")]
+    (_, out0, _), (_, out1, _) = _launch_ranks(2, argv)
+    lines0 = [ln for ln in out0.split("\n") if ln]
+    one = _console(_cli(argv + ["--stages", "2"]))
+    two = _console(lines0)
+    check(any(ln.startswith("Train Epoch: 1") for ln in two)
+          and any(TEST_RE.match(ln) for ln in two),
+          f"rank 0 printed no reference console: {lines0}")
+    check("Train Epoch" not in out1 and "Test set" not in out1,
+          f"rank 1 printed the console: {out1!r}")
+    if two != one:
+        gaps = [abs(float(a.split()[-1].rstrip(",")) -
+                    float(b.split()[-1].rstrip(",")))
+                for a, b in zip(two, one) if TRAIN_RE.match(a)]
+        check(False, f"rank 0's console differs from one process's (largest "
+                     f"loss gap {max(gaps, default=None)}): {two} vs {one}")
+    want = ("| distributed: 2 processes, gloo over the host, rank 0 on "
+            + _stage_card())
+    check(want in lines0, f"no {want!r} line: {lines0}")
+    rec["launch_line"] = dict(lines=two)
+    print(f"chip_smoke: processes (a) --rank 0/1 --world_size 2, lenet "
+          f"conv | fc, {PROC_STEPS} steps: rank 0's {len(two)} console "
+          f"lines equal the one-process --stages 2 run's; rank 1 silent")
+
+
+def process_worker(rank: int, world: int, port: int, out_path: str) -> None:
+    """(b)'s process (``python3 chip_smoke.py --process-worker RANK WORLD
+    PORT OUT``): the gpt_bf16 row at 2 stages, M = 4, on the one card —
+    one stage per process at ``world`` 2, both stages at ``world`` 1 (the
+    one-process reference, timed the same way) — GPipe then 1F1B, warm-up
+    and timed steps (the flash counts set to 0 just before the timed ones
+    and read just after), the decode after GPipe, and at ``world`` 2 a
+    ping-pong of one microbatch's activation over the wire."""
+    import torch
+    sys.path.insert(0, HERE)
+    from simple_distributed_machine_learning_tpu_torch.models.pp_decode import (  # noqa: E501
+        make_pp_decoder,
+    )
+    from simple_distributed_machine_learning_tpu_torch.parallel import (
+        bootstrap_distributed,
+    )
+    from simple_distributed_machine_learning_tpu_torch.parallel import (
+        mesh as mesh_lib,
+    )
+    from simple_distributed_machine_learning_tpu_torch.train import (
+        make_train_step,
+    )
+    bootstrap_distributed(rank, world, "localhost", port, timeout_s=120)
+    rec: dict = {}
+    for sched in ("gpipe", "1f1b"):
+        cfg, pipe, opt = _stage_pipe(2, 4, schedule=sched)
+        x, t = _stage_batch(cfg, TRAIN_ROWS["gpt_bf16"]["batch"], 1)
+        params = pipe.init_params()
+        state = opt.init(params)
+        step = make_train_step(pipe, opt)
+        losses = []
+        for i in range(2):
+            params, state, loss = step(params, state, x, t, i)
+            losses.append(loss)
+        _sync()
+        _reset_flash_counts()
+        sends, nbytes = mesh_lib.WIRE["sends"], mesh_lib.WIRE["bytes"]
+        t0 = time.perf_counter()
+        for i in range(STAGE_TIMED_STEPS):
+            params, state, loss = step(params, state, x, t, 2 + i)
+            losses.append(loss)
+        _sync()
+        step_ms = (time.perf_counter() - t0) * 1e3 / STAGE_TIMED_STEPS
+        rec[sched] = dict(step_ms=step_ms, launches=_flash_counts(),
+                          sends=mesh_lib.WIRE["sends"] - sends,
+                          bytes=mesh_lib.WIRE["bytes"] - nbytes,
+                          losses=[float(v) for v in losses])
+        if sched == "gpipe":
+            dec = make_pp_decoder(pipe, cfg, PROC_DECODE_T0, PROC_GENERATE)
+            toks = dec(params, x[:1, :PROC_DECODE_T0].long())
+            rec["tokens"] = None if toks is None else toks.cpu().tolist()
+        del params, state, pipe
+    if world == 1:
+        with open(out_path, "w") as f:
+            json.dump(rec, f)
+        return
+    # one microbatch's activation [4, 256, 512] bf16, host-staged, back and
+    # forth: half a round trip is one hop
+    act = torch.randn((TRAIN_ROWS["gpt_bf16"]["batch"] // 4,
+                       TRAIN_ROWS["gpt_bf16"]["cfg"]["seq_len"],
+                       TRAIN_ROWS["gpt_bf16"]["cfg"]["d_model"]),
+                      device=MAIN_DEVICE).bfloat16()
+    rtts = []
+    for _ in range(PROC_PINGS + 1):
+        _sync()
+        t0 = time.perf_counter()
+        if rank == 0:
+            mesh_lib.send(act, 1, 21)[0].wait()
+            back = mesh_lib.recv(act.shape, act.dtype, 1, MAIN_DEVICE,
+                                 22)
+        else:
+            back = mesh_lib.recv(act.shape, act.dtype, 0, MAIN_DEVICE,
+                                 21)
+            mesh_lib.send(back, 0, 22)[0].wait()
+        _sync()
+        rtts.append(time.perf_counter() - t0)
+    rec["hop_ms"] = statistics.median(rtts[1:]) * 1e3 / 2
+    rec["hop_bytes"] = act.numel() * act.element_size()
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+    torch.distributed.destroy_process_group()
+
+
+def _bf16_workers(world: int, tmp: str) -> list[dict]:
+    """``world`` fresh ``--process-worker`` processes; their records by
+    rank."""
+    port = _free_port()
+    outs = [os.path.join(tmp, f"bf16-w{world}-rank{r}.json")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--process-worker",
+         str(r), str(world), str(port), outs[r]], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=_child_env(), cwd=HERE)
+        for r in range(world)]
+    try:
+        for r, p in enumerate(procs):
+            _, err = p.communicate(timeout=PROC_TIMEOUT_S)
+            check(p.returncode == 0, f"(b) world {world} rank {r} exited "
+                                     f"{p.returncode}: {err[-2000:]}")
+    finally:
+        _kill_all(procs)
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def _procs_flash(rec: dict, record: dict, tmp: str) -> tuple[int, int, int]:
+    """(b) gpt_bf16 (flash, bf16) at S = 2, M = 4, one stage per process:
+    losses equal to the one-process run's (a fresh process of its own,
+    timed the same way just before), the decoded tokens equal to it, each
+    rank's K1/K2/K3 its stage's share of ``STAGE_LAUNCHES``; the
+    host-clock step beside one process's, bytes and ms per hop. Returns
+    the timed steps' K1-K3, summed over the ranks."""
+    ref = _bf16_workers(1, tmp)[0]
+    ranks = _bf16_workers(2, tmp)
+    counts = [0, 0, 0]
+    layers = TRAIN_ROWS["gpt_bf16"]["cfg"]["n_layers"] // 2
+    phase15 = record.get("stages", {}).get("full_width", {})
+    for sched in ("gpipe", "1f1b"):
+        check(tuple(v / STAGE_TIMED_STEPS for v in ref[sched]["launches"])
+              == STAGE_LAUNCHES[sched],
+              f"(b) {sched} one process: K1-K3 per step "
+              f"{[v / STAGE_TIMED_STEPS for v in ref[sched]['launches']]} "
+              f"!= {STAGE_LAUNCHES[sched]}")
+        want_losses = ref[sched]["losses"]
+        for r, got in enumerate(ranks):
+            gaps = [abs(a - b) for a, b in zip(got[sched]["losses"],
+                                               want_losses)]
+            check(got[sched]["losses"] == want_losses,
+                  f"(b) {sched} rank {r}: losses {got[sched]['losses']} vs "
+                  f"one process {want_losses} (largest gap "
+                  f"{max(gaps, default=None)})")
+            k1 = layers * 4 * (2 if sched == "1f1b" and r == 0 else 1)
+            want = tuple(STAGE_TIMED_STEPS * k for k in (k1, layers * 4,
+                                                         layers * 4))
+            check(tuple(got[sched]["launches"]) == want,
+                  f"(b) {sched} rank {r}: K1-K3 {got[sched]['launches']} "
+                  f"!= {want}")
+        tot = [sum(g[sched]["launches"][i] for g in ranks) for i in range(3)]
+        check(tuple(v / STAGE_TIMED_STEPS for v in tot)
+              == STAGE_LAUNCHES[sched],
+              f"(b) {sched}: K1-K3 per step over both ranks "
+              f"{[v / STAGE_TIMED_STEPS for v in tot]} != "
+              f"{STAGE_LAUNCHES[sched]}")
+        counts = [a + b for a, b in zip(counts, tot)]
+        sends = sum(g[sched]["sends"] for g in ranks)
+        nbytes = sum(g[sched]["bytes"] for g in ranks)
+        step_ms = max(g[sched]["step_ms"] for g in ranks)
+        # a hop: one microbatch's activation forward (with its dropout
+        # generator state) or its cotangent back, between the two stages
+        hops = STAGE_TIMED_STEPS * 2 * 4
+        rec[sched] = dict(step_ms=step_ms,
+                          one_process_step_ms=ref[sched]["step_ms"],
+                          phase15_step_ms=phase15.get(sched, {}).get(
+                              "step_ms"),
+                          launches=tot, sends_per_step=sends
+                          / STAGE_TIMED_STEPS,
+                          hops_per_step=hops / STAGE_TIMED_STEPS,
+                          bytes_per_hop=nbytes / hops)
+        print(f"chip_smoke: processes (b) gpt_bf16 S=2 M=4 {sched} over 2 "
+              f"processes: step {step_ms:.3f} ms (host clock) against one "
+              f"process's {ref[sched]['step_ms']:.3f} ms (a fresh process "
+              f"just before; phase 15's in this process: "
+              f"{rec[sched]['phase15_step_ms']}), "
+              f"{rec[sched]['hops_per_step']:.0f} hops/step of "
+              f"{rec[sched]['bytes_per_hop']:.0f} B ("
+              f"{rec[sched]['sends_per_step']:.0f} sends), K1/K2/K3 per step "
+              f"{[v / STAGE_TIMED_STEPS for v in tot]}, losses equal to one "
+              f"process's")
+    check(ranks[0]["tokens"] == ref["tokens"],
+          f"(b) the decoded tokens {ranks[0]['tokens']} differ from one "
+          f"process's {ref['tokens']}")
+    rec["tokens"] = ref["tokens"]
+    rec["hop_ms"] = statistics.median(g["hop_ms"] for g in ranks)
+    rec["hop_bytes"] = ranks[0]["hop_bytes"]
+    print(f"chip_smoke: processes (b) --generate {PROC_GENERATE}: tokens "
+          f"equal to one process's; one host-staged hop of "
+          f"{rec['hop_bytes']} B (one microbatch's activation): "
+          f"{rec['hop_ms']:.3f} ms (median of {PROC_PINGS} round trips / 2)")
+    return tuple(counts)
+
+
+def _procs_data_pipeline(rec: dict, tmp: str) -> None:
+    """(c) ``--model mlp --stages 2 --dp 2 --zero1`` over four processes:
+    each names its rows, ``state.npz`` bit-equal to the one-process run of
+    the same mesh; a second launch resumes and trains epoch 2 only, again
+    bit-equal."""
+    import numpy as np
+    base = ["--model", "mlp", "--stages", "2", "--dp", "2", "--zero1",
+            "--max-steps-per-epoch", str(PROC_STEPS), "--data-root",
+            os.path.join(tmp, "nodata")]
+    four, one = os.path.join(tmp, "ck4"), os.path.join(tmp, "ck1")
+    legs = []
+    for epochs in (1, 2):
+        argv = base + ["--epochs", str(epochs)]
+        t0 = time.perf_counter()
+        runs = _launch_ranks(4, argv + ["--checkpoint-dir", four],
+                             env={"SDML_DEBUG_SHARDING": "1"})
+        legs.append(time.perf_counter() - t0)
+        _cli(argv + ["--checkpoint-dir", one])
+        out0 = runs[0][1]
+        if epochs == 1:
+            for r, want in ((0, "[0,30) of 60"), (1, "[0,30) of 60"),
+                            (2, "[30,60) of 60"), (3, "[30,60) of 60")):
+                check(f"| host {r}: input rows {want}" in runs[r][2],
+                      f"(c) rank {r} did not name rows {want}: "
+                      f"{runs[r][2][-1500:]}")
+        else:
+            check("resumed from" in out0 and "Train Epoch: 2" in out0
+                  and "Train Epoch: 1" not in out0,
+                  f"(c) the second launch did not resume: {out0}")
+        for r in range(1, 4):
+            check("Train Epoch" not in runs[r][1], f"(c) rank {r} printed")
+        za = np.load(os.path.join(four, "state.npz"))
+        zb = np.load(os.path.join(one, "state.npz"))
+        for k in ("params", "opt_0", "opt_1", "opt_2"):
+            if k in zb.files:
+                check(np.array_equal(za[k], zb[k]),
+                      f"(c) epoch {epochs}: {k} differs from the one-process "
+                      f"run's (largest gap "
+                      f"{float(np.abs(za[k] - zb[k]).max())})")
+    rec["data_pipeline"] = dict(launch_s=legs)
+    print(f"chip_smoke: processes (c) mlp --stages 2 --dp 2 --zero1 over 4 "
+          f"processes: rows [0,30)/[30,60) of 60 per replica, state.npz "
+          f"bit-equal to one process's after epoch 1 and after the resumed "
+          f"epoch 2 (launches {legs[0]:.1f} s, {legs[1]:.1f} s)")
+
+
+def _procs_peer_loss(rec: dict, tmp: str) -> None:
+    """(d) ``--peer-timeout 8``: SIGKILL, then SIGSTOP, rank 1 once rank 0
+    trains; rank 0 exits non-zero within ``PROC_PEER_LIMIT_S`` with the
+    watchdog's or gloo's diagnostic. Records the detection latency."""
+    import signal
+    argv = ["--model", "mlp", "--epochs", "500", "--peer-timeout",
+            str(PROC_PEER_TIMEOUT), "--data-root", os.path.join(tmp, "nodata")]
+    out: dict = {}
+    for sig in (signal.SIGKILL, signal.SIGSTOP):
+        port, hb_port = _free_port(), _free_port()
+        log = os.path.join(tmp, f"peer-{sig.name}.log")
+        with open(log, "w") as f0:
+            # each rank in a session of its own: when a group holding a
+            # stopped process is orphaned, the kernel hangs it up, and that
+            # must not reach this script's group
+            procs = [subprocess.Popen(_rank_cmd(0, 2, port, hb_port, argv),
+                                      stdout=f0, stderr=subprocess.STDOUT,
+                                      env=_child_env(), cwd=HERE,
+                                      start_new_session=True),
+                     subprocess.Popen(_rank_cmd(1, 2, port, hb_port, argv),
+                                      stdout=subprocess.DEVNULL,
+                                      stderr=subprocess.DEVNULL,
+                                      env=_child_env(), cwd=HERE,
+                                      start_new_session=True)]
+            try:
+                deadline = time.monotonic() + PROC_TIMEOUT_S
+                while "Train Epoch" not in open(log).read():
+                    check(procs[0].poll() is None,
+                          f"(d) rank 0 exited early: {open(log).read()}")
+                    check(time.monotonic() < deadline,
+                          "(d) rank 0 never started training")
+                    time.sleep(0.2)
+                t0 = time.monotonic()
+                procs[1].send_signal(sig)
+                try:
+                    rc = procs[0].wait(timeout=PROC_PEER_LIMIT_S)
+                except subprocess.TimeoutExpired:
+                    rc = None
+                took = time.monotonic() - t0
+            finally:
+                _kill_all(procs)
+        text = open(log).read()
+        check(rc not in (0, None), f"(d) {sig.name}: rank 0 did not exit "
+                                   f"non-zero within {PROC_PEER_LIMIT_S} s")
+        check(any(m in text for m in ("aborting run",
+                                      "Connection reset by peer",
+                                      "Connection closed by peer")),
+              f"(d) {sig.name}: no peer-loss diagnostic: {text[-1500:]}")
+        out[sig.name] = dict(rc=rc, detect_s=took)
+        print(f"chip_smoke: processes (d) {sig.name} rank 1: rank 0 exited "
+              f"{rc} after {took:.2f} s (--peer-timeout "
+              f"{PROC_PEER_TIMEOUT})")
+    rec["peer_loss"] = out
+
+
+def phase_processes(record: dict) -> tuple[int, int, int]:
+    """Phase 16: the port's CLI as real processes on the one card. Returns
+    (b)'s K1-K3 launches, summed over its ranks."""
+    import tempfile
+    rec: dict = {}
+    record["processes"] = rec
+    secs = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        _procs_launch_line(rec, tmp)
+        secs["a"] = time.perf_counter() - t0
+        launches = _procs_flash(rec, record, tmp)
+        secs["b"] = time.perf_counter() - t0 - sum(secs.values())
+        _procs_data_pipeline(rec, tmp)
+        secs["c"] = time.perf_counter() - t0 - sum(secs.values())
+        _procs_peer_loss(rec, tmp)
+        secs["d"] = time.perf_counter() - t0 - sum(secs.values())
+    rec["seconds"] = dict(secs, total=time.perf_counter() - t0)
+    print(f"chip_smoke: phase 16 took {rec['seconds']['total']:.1f} s ("
+          + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items()) + ")")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -5459,6 +5876,7 @@ def main() -> int:
         telemetry_launches = phase_telemetry_native(record)
         f1_row, lint_launches = phase_lint_drift(record)
         stage_launches = phase_stages(record)
+        process_launches = phase_processes(record)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5486,8 +5904,8 @@ def main() -> int:
     }]}
     # the flash kernels' times at the gpt_bf16 row's shape; launches from
     # that row's flash training run, phase 10 (b)'s runs of that row,
-    # phase 13 (b)'s bf16 CLI run and phase 15 (b)'s runs of that row at 2
-    # stages
+    # phase 13 (b)'s bf16 CLI run, phase 15 (b)'s runs of that row at 2
+    # stages and phase 16 (b)'s over 2 processes (summed over the ranks)
     for i, (name, line) in enumerate((("flash_forward", 127),
                                       ("flash_dq", 300),
                                       ("flash_dkv", 338))):
@@ -5501,7 +5919,8 @@ def main() -> int:
             "replaces": "simple_distributed_machine_learning_tpu/ops/"
                         f"flash_attention.py:{line}",
             "launches": (train["launches"][i] + resilience_launches[i]
-                         + telemetry_launches[i] + stage_launches[i]),
+                         + telemetry_launches[i] + stage_launches[i]
+                         + process_launches[i]),
             "max_abs_err": max(v["max_abs_err"] for v in flash_variants
                                if v["name"] == name),
             "ms": timed["ms"],
@@ -5525,4 +5944,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--process-worker"]:
+        process_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                       sys.argv[5])
+        sys.exit(0)
     sys.exit(main())

@@ -10,7 +10,8 @@ def not_ported(what: str, item: str) -> NotImplementedError:
         f"(ROADMAP.md, Queue A: {item})")
 
 
-PARALLEL_AXES = "item 6, remaining parallel axes (6c-6e)"
+PARALLEL_AXES = "item 6, remaining parallel axes (6d-6e)"
+MULTI_PROCESS = "item 6c, the paths that still run in one process"
 ANALYSIS = "item 7, analysis"
 HOSTLINT = "item 7.2, hostlint"
 PROGRAM_LINTER = "item 7.4, the program linter"

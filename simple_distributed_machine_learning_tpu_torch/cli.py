@@ -53,12 +53,27 @@ steps the elastic supervisor down a stage-count ladder. On one stage
 ``--microbatches`` and ``--remat`` change nothing, as on the JAX
 package's one-device mesh.
 
+The reference's launch line runs W processes (``--rank R --world_size W
+--master_addr A --master_port P``, one command per process): they meet in
+a gloo process group (``parallel/mesh.py::bootstrap_distributed``) and
+train one ``--dp D`` x ``--stages S`` mesh (default S: 2 with W > 1),
+each process owning ``D * S / W`` contiguous coordinates, coordinate i on
+card ``i mod n`` (every process on ``cuda:0`` with one card); hops and
+reductions cross processes over the host. Process 0 alone prints the
+console (and ``| distributed: ...``); each batch is cut to the process's
+rows (``SDML_DEBUG_SHARDING=1`` names them on stderr); ``--zero1`` shards
+the optimizer state over the data axis; checkpoints are collective. With
+``--peer-timeout T`` > 0 a watchdog subprocess per process
+(``utils/failure.py``, on ``--heartbeat-port``, default master_port + 1)
+turns a killed or frozen peer into a non-zero exit within about T
+seconds. ``--serve-sim`` and ``--scenario`` still run in one process only.
+
 One flag is the port's own: ``--device`` (default CUDA; the run raises
 without it unless ``--device cpu`` asks for the CPU). Every other flag of
 the JAX parser is accepted; a flag whose path is not ported exits, when
 set, with one line naming its ROADMAP item (the linter, and the parallel
-axes of items 6c-6e: ``--dp/--tp/--sp/--ep/--experts``, ``--overlap
-ring``, ``--world_size`` above 1, the watchdog's flags, ``--serve-tp``).
+axes of items 6d-6e: ``--tp/--sp/--ep/--experts``, ``--overlap ring``,
+``--serve-tp``).
 """
 
 from __future__ import annotations
@@ -76,7 +91,7 @@ def build_parser() -> argparse.ArgumentParser:
     # -- reference-compatible flags --
     p.add_argument('--rank', type=int, metavar='R', help="Number of rank")
     p.add_argument('--world_size', type=int, default=1, metavar='N',
-                   help="Number of workers (processes); one is ported")
+                   help="Number of workers (processes)")
     p.add_argument('--interface', type=str, default="eth0", metavar='I',
                    help="Accepted for reference compatibility; unused")
     p.add_argument('--master_addr', type=str, default="localhost",
@@ -91,14 +106,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="model family (lenet = the reference's workload)")
     g.add_argument('--stages', type=int, default=None,
                    help="pipeline stages (default: 2 with two or more "
-                        "cards, else 1); stage s runs on card s mod n")
+                        "cards or processes, else 1); mesh coordinate i "
+                        "runs on card i mod n")
     g.add_argument('--microbatches', type=int, default=1,
                    help="GPipe/1F1B microbatches per batch (over two or "
                         "more stages)")
     g.add_argument('--schedule', choices=("gpipe", "1f1b"), default="gpipe",
                    help="pipeline schedule (the same on one stage)")
     g.add_argument('--dp', type=int, default=1,
-                   help="data-parallel width (> 1: ROADMAP item 6)")
+                   help="data-parallel mesh width (batch must divide by "
+                        "dp * microbatches)")
     g.add_argument('--tp', type=int, default=1,
                    help="tensor-parallel width (> 1: ROADMAP item 6)")
     g.add_argument('--overlap', choices=("none", "ring"), default="none",
@@ -125,7 +142,8 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument('--clip-norm', type=float, default=0.0,
                    help="clip gradients to this global L2 norm (0 = off)")
     g.add_argument('--zero1', action='store_true',
-                   help="ZeRO-1 (the identity on one card)")
+                   help="ZeRO-1: shard optimizer state over the data axis "
+                        "(the identity at --dp 1)")
     g.add_argument('--data-root', type=str, default="data",
                    help="directory with MNIST IDX files (synthetic fallback "
                         "if absent)")
@@ -341,9 +359,13 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument('--lint-only', action='store_true',
                    help="static-analysis preflight (ROADMAP item 7)")
     g.add_argument('--peer-timeout', type=float, default=60.0,
-                   help="multi-process watchdog (ROADMAP item 6)")
+                   help="multi-process dead-peer watchdog: abort with a "
+                        "nonzero exit if a peer crashes or stops "
+                        "heartbeating for this many seconds (0 disables; "
+                        "the reference hangs forever on a dead peer)")
     g.add_argument('--heartbeat-port', type=int, default=None,
-                   help="multi-process watchdog (ROADMAP item 6)")
+                   help="TCP port for the dead-peer watchdog "
+                        "(default: master_port + 1)")
     return p
 
 
@@ -351,16 +373,14 @@ def build_parser() -> argparse.ArgumentParser:
 # exits naming its ROADMAP item. The serve flags not named here run
 _UNPORTED = ({"lint": _roadmap.ANALYSIS, "lint_only": _roadmap.ANALYSIS}
              | {k: _roadmap.PARALLEL_AXES for k in (
-                 "world_size", "dp", "tp", "sp", "ep", "experts", "overlap",
-                 "peer_timeout", "heartbeat_port", "serve_tp")})
+                 "tp", "sp", "ep", "experts", "overlap", "serve_tp")})
 
 
 def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
     for dest, value in vars(args).items():
         item = _UNPORTED.get(dest)
         if item is not None and value != parser.get_default(dest):
-            flag = "--" + (dest if dest == "world_size"
-                           else dest.replace("_", "-"))
+            flag = "--" + dest.replace("_", "-")
             raise SystemExit(str(_roadmap.not_ported(
                 f"{flag} {value}", item)))
 
@@ -371,12 +391,50 @@ def main(argv: list[str] | None = None) -> None:
     if args.rank is None and args.world_size != 1:
         raise SystemExit("Must provide rank argument.")
     _refuse_unported(parser, args)
+    if args.world_size > 1:
+        _refuse_one_process_paths(args)
     from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
         bootstrap_distributed,
     )
     bootstrap_distributed(args.rank or 0, args.world_size, args.master_addr,
                           args.master_port)
-    _dispatch(args)
+    watchdog = None
+    if args.world_size > 1 and args.peer_timeout > 0:
+        from simple_distributed_machine_learning_tpu_torch.utils.failure import (  # noqa: E501
+            spawn_watchdog,
+        )
+        hb_port = (args.heartbeat_port if args.heartbeat_port is not None
+                   else int(args.master_port) + 1)
+        # a SUBPROCESS, not a thread: a thread freezes when the main thread
+        # blocks in a native collective holding the GIL (utils/failure.py)
+        watchdog = spawn_watchdog(args.rank or 0, args.world_size,
+                                  args.master_addr, hb_port,
+                                  timeout=args.peer_timeout)
+    try:
+        _dispatch(args)
+    except BaseException:
+        # crash path: kill the monitor without the goodbye, so the peers
+        # read this process as failed, and disarm its kill of this process
+        if watchdog is not None:
+            watchdog.abort()
+        raise
+    if watchdog is not None:
+        watchdog.stop()                  # the goodbye: a clean exit
+
+
+def _refuse_one_process_paths(args) -> None:
+    """The paths this package still runs in one process only."""
+    if args.chaos is not None:
+        raise SystemExit(
+            "--chaos supervises in-process (single-process elastic "
+            "restart); multi-process peer loss is the watchdog's domain "
+            "(--peer-timeout)")
+    for flag, on in (("--serve-sim", args.serve_sim > 0),
+                     ("--scenario", args.scenario is not None)):
+        if on:
+            raise SystemExit(str(_roadmap.not_ported(
+                f"{flag} with --world_size {args.world_size}",
+                _roadmap.MULTI_PROCESS)))
 
 
 def _dispatch(args) -> None:
@@ -402,7 +460,7 @@ def _dispatch(args) -> None:
     device = resolve_device(args.device)
     n_cards = torch.cuda.device_count() if device.type == "cuda" else 1
     n_stages = (args.stages if args.stages is not None
-                else (2 if n_cards >= 2 else 1))
+                else (2 if n_cards >= 2 or args.world_size > 1 else 1))
     if args.scenario is not None:
         _run_scenario(args, n_stages, device)
         return
@@ -444,22 +502,23 @@ def _dispatch(args) -> None:
                         device))
 
 
-def _placement(device, n_stages: int) -> list:
-    """Stage s's device: card ``s mod n`` of the n visible cards on CUDA
-    (stages share a card when there are fewer cards than stages); every
-    stage on the CPU with ``--device cpu``."""
+def _placement(device, n_coords: int) -> list:
+    """Mesh coordinate i's device: card ``i mod n`` of the n visible cards
+    on CUDA (coordinates share a card when there are fewer cards); every
+    coordinate on the CPU with ``--device cpu``."""
     from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
         visible_devices,
     )
     if device.type != "cuda":
-        return [device] * n_stages
+        return [device] * n_coords
     cards = visible_devices()
-    return [cards[s % len(cards)] for s in range(n_stages)]
+    return [cards[i % len(cards)] for i in range(n_coords)]
 
 
 def _pipeline(args, stages, wire_dim, out_dim, device):
-    """The run's ``Pipeline``: one stage on ``device``, or ``len(stages)``
-    stages over :func:`_placement`'s devices, whose placement it prints."""
+    """The run's ``Pipeline``: one stage on ``device``, or a ``--dp`` x
+    ``len(stages)`` mesh over :func:`_placement`'s devices, whose
+    placement process 0 prints (and, across processes, the wire)."""
     import torch
 
     from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
@@ -469,11 +528,18 @@ def _pipeline(args, stages, wire_dim, out_dim, device):
         Pipeline,
     )
     n = len(stages)
+    wide = n > 1 or args.dp > 1 or args.world_size > 1
     mesh = make_mesh(n_stages=n, n_data=args.dp,
-                     devices=_placement(device, n) if n > 1 else None)
-    if mesh is not None:
-        print(f"| pipeline: {n} stages on "
-              + ", ".join(str(d) for d in mesh.devices))
+                     devices=_placement(device, n * args.dp) if wide
+                     else None)
+    if mesh is not None and mesh.rank == 0:
+        if mesh.distributed:
+            print(f"| distributed: {mesh.world_size} processes, gloo over "
+                  f"the host, rank 0 on {mesh.device(0, 0)}")
+        print(f"| pipeline: {n} stages"
+              + (f" x {mesh.n_data} data replicas" if mesh.n_data > 1
+                 else "")
+              + " on " + ", ".join(str(d) for d in mesh.coord_devices))
     return Pipeline(stages, mesh, wire_dim, out_dim,
                     n_microbatches=args.microbatches,
                     compute_dtype=torch.bfloat16 if args.bf16 else None,
@@ -669,8 +735,9 @@ def _run_gpt(args, n_stages: int, device) -> None:
 def _print_sample(args, trainer, cfg, test_ds) -> None:
     """--generate N: decode N tokens from the trained model with the
     KV-cache decoder, straight from the live stage modules; over two or
-    more stages stage by stage (``models/pp_decode.py``), one prompt (B =
-    the data axis's width, 1)."""
+    more stages stage by stage (``models/pp_decode.py``; across processes
+    over replica 0's ring), one prompt. A one-stage run of several
+    processes skips, with the JAX CLI's line."""
     import numpy as np
     import torch
 
@@ -685,13 +752,20 @@ def _print_sample(args, trainer, cfg, test_ds) -> None:
     prompt = np.asarray(test_ds.x[:1, :t0], np.int32)
     pipe = trainer.pipe
     cache_dtype = torch.bfloat16 if args.bf16 else None
+    if pipe.n_stages == 1 and args.world_size > 1:
+        trainer._print("| --generate: skipped (single-stage multi-process "
+                       "run; decode from a checkpoint instead)")
+        return
     if pipe.n_stages >= 2:
         dec = make_pp_decoder(pipe, cfg, t0, n_new, cache_dtype=cache_dtype)
     else:
         dec = make_cached_decoder(pipe.stages, cfg, t0, n_new,
                                   cache_dtype=cache_dtype,
                                   device=pipe.device)
-    toks = _decode_timed(args, trainer, dec, prompt, n_new)[0]
+    toks = _decode_timed(args, trainer, dec, prompt, n_new)
+    if toks is None:
+        return                           # not on replica 0's first stage
+    toks = toks[0]
     if args.text_corpus:
         text = bytes(int(t) for t in toks).decode("latin-1")
         trainer._print(f"| sample ({t0}-byte prompt + {n_new} generated):\n"
@@ -718,9 +792,13 @@ def _decode_timed(args, trainer, dec, prompt, n_new):
         key_data,
     )
 
+    def run(seed):
+        out = dec(trainer.params, prompt, key_data(seed))
+        return None if out is None else out.cpu().numpy()
+
     tele = trainer.telemetry
     if tele is None:
-        return dec(trainer.params, prompt, key_data(args.seed)).cpu().numpy()
+        return run(args.seed)
     from simple_distributed_machine_learning_tpu_torch.telemetry.registry import (  # noqa: E501
         append_jsonl,
     )
@@ -730,11 +808,10 @@ def _decode_timed(args, trainer, dec, prompt, n_new):
     timer = StepTimer(registry=tele.registry, name="decode_time_ms")
     b, n_tok = prompt.shape[0], prompt.shape[0] * n_new
     t0 = time.perf_counter()
-    toks = dec(trainer.params, prompt, key_data(args.seed)).cpu().numpy()
+    toks = run(args.seed)
     timer.record_window(time.perf_counter() - t0, steps=1)   # compile window
     t0 = time.perf_counter()
-    dec(trainer.params, prompt,
-        key_data(fold_in(args.seed, 1))).cpu().numpy()       # a fence
+    run(fold_in(args.seed, 1))                               # a fence
     timer.record_window(time.perf_counter() - t0, steps=1, tokens=n_tok)
     if tele._is_main():
         rec = {"kind": "decode", "batch": int(b), "n_new": int(n_new),

@@ -699,54 +699,77 @@ def make_cached_decoder(stages, cfg: GPTConfig, prompt_len: int, n_new: int,
 
 def _relay_decode(embed, stage_blocks, head, devs, prompt, key_data,
                   cfg: GPTConfig, prompt_len: int, total: int, cache_dtype,
-                  sampling) -> torch.Tensor:
+                  sampling, wire=None) -> torch.Tensor | None:
     """The cached decode over blocks split into stages: stage s's blocks
     (``stage_blocks[s]``) run on ``devs[s]`` against a K/V cache of their
     own depth there, the hidden state hops stage to stage, the head samples
     on the last device and the token goes back to the first. One stage on
     one device is :func:`make_cached_decoder`; several are
-    ``models/pp_decode.py``. Returns the tokens on the last device."""
+    ``models/pp_decode.py``, which across processes passes this process's
+    stages only and a ``wire``: the hidden state comes in over it where
+    this process holds no ``embed`` and goes out where it holds no
+    ``head``, and each token goes back over it (``wire.token``). Returns
+    the tokens on the last device (the first where it holds no head), None
+    on a process that holds neither end."""
     H = cfg.n_heads
     dh = cfg.d_model // H
     cd = _cache_dtype(cache_dtype)
-    out_dev = devs[-1]
     prompt = _on(prompt, devs[0], torch.int64)
     b = prompt.shape[0]
     caches = []
     for blocks, d in zip(stage_blocks, devs):
         kc = torch.zeros((len(blocks), b, H, total, dh), dtype=cd, device=d)
         caches.append((kc, torch.zeros_like(kc)))
-    kd = _on(_rng.key_data(0) if key_data is None else key_data, out_dev,
-             torch.int64).reshape(1, 2).expand(b, 2)
-    knobs = _sampling_tensors(b, *sampling, out_dev)
-    ctr0 = torch.arange(b, device=out_dev) * cfg.vocab
+    if head is not None:
+        out_dev = devs[-1]
+        kd = _on(_rng.key_data(0) if key_data is None else key_data,
+                 out_dev, torch.int64).reshape(1, 2).expand(b, 2)
+        knobs = _sampling_tensors(b, *sampling, out_dev)
+        ctr0 = torch.arange(b, device=out_dev) * cfg.vocab
 
-    def pick(row, kd):
-        tok, kd2 = _sample_dyn(row, kd, *knobs, ctr0=ctr0)
-        return tok, kd2[:1].expand(b, 2)
-
-    def relay(h, block):
+    def relay(h, t, block):
+        if embed is None:
+            h = wire.recv_hidden((b, t, cfg.d_model), devs[0])
         for blocks, d, (kc, vc) in zip(stage_blocks, devs, caches):
             h = h.to(d)
             for li, bp in enumerate(blocks):
                 h = block(bp, h, li, kc, vc)
+        if head is None:
+            wire.send_hidden(h)
         return h
 
-    h = embedding_lookup(embed["tok"], prompt) + embed["pos"][:prompt_len]
-    h = relay(h, lambda bp, h, li, kc, vc: _dense_block_prefill(
+    def pick(h, row):
+        nonlocal kd
+        tok = None
+        if head is not None:
+            tok, kd2 = _sample_dyn(_head_logprobs(head, row(h)), kd, *knobs,
+                                   ctr0=ctr0)
+            kd = kd2[:1].expand(b, 2)
+        return tok if wire is None else wire.token(tok, b, devs[0])
+
+    h = None
+    if embed is not None:
+        h = embedding_lookup(embed["tok"], prompt) + embed["pos"][:prompt_len]
+    h = relay(h, prompt_len, lambda bp, h, li, kc, vc: _dense_block_prefill(
         bp, h, li, kc, vc, prompt_len, H))
-    tok, kd = pick(_head_logprobs(head, h[:, -1]), kd)
+    tok = pick(h, lambda h: h[:, -1])
     out = [tok]
     # each step consumes the token at position i and samples i + 1
     for i in range(prompt_len, total - 1):
-        h = (embedding_lookup(embed["tok"], tok.to(devs[0])[:, None])
-             + embed["pos"][i:i + 1])
-        h = relay(h, lambda bp, h, li, kc, vc, i=i: _dense_block_step(
+        if embed is not None:
+            h = (embedding_lookup(embed["tok"], tok.to(devs[0])[:, None])
+                 + embed["pos"][i:i + 1])
+        h = relay(h, 1, lambda bp, h, li, kc, vc, i=i: _dense_block_step(
             bp, h, li, kc, vc, i, total, H))
-        tok, kd = pick(_head_logprobs(head, h[:, 0]), kd)
+        tok = pick(h, lambda h: h[:, 0])
         out.append(tok)
-    return torch.cat([prompt.to(device=out_dev, dtype=torch.int32),
-                      torch.stack(out, 1)], 1)
+    if wire is not None:
+        wire.close()
+    if tok is None:
+        return None
+    dev = tok.device
+    return torch.cat([prompt.to(device=dev, dtype=torch.int32),
+                      torch.stack([t.to(dev) for t in out], 1)], 1)
 
 
 # -- dense slot-row programs (the degraded target's and the draft's pool) ----

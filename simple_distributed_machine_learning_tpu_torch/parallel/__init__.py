@@ -1,6 +1,7 @@
 """Parallelism (port of ``parallel/``): the stage split rule, the packed
-stage buffer and wire codec, the stage mesh, ``Stage``, the ``Pipeline``
-(one fused stage, or GPipe over several) and the 1F1B schedule."""
+stage buffer and wire codec, the data x stage mesh and the multi-process
+bootstrap, ``Stage``, the ``Pipeline`` (one fused stage, or GPipe over a
+mesh, in one process or several) and the 1F1B schedule."""
 
 from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
@@ -13,6 +14,7 @@ from simple_distributed_machine_learning_tpu_torch.parallel.onefb import (  # no
 from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (  # noqa: F401
     Pipeline,
     Stage,
+    StageParams,
     fused_reference,
     param_leaves,
 )

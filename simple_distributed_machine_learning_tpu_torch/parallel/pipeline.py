@@ -1,40 +1,55 @@
 """The ``Stage`` container and the ``Pipeline`` engine (port of
 ``parallel/pipeline.py`` and, for 1F1B, ``parallel/onefb.py``).
 
-One stage and no mesh is the JAX package's trivial-mesh path
+One stage, one replica and no mesh is the JAX package's trivial-mesh path
 (``_trivial_mesh``): the stage IS the fused model, and loss, gradients and
 eval metrics run through ``_fused_logits`` / ``_fused_loss`` with no
-microbatching. Several stages run over a stage mesh
-(``parallel/mesh.py::make_mesh``), one process driving them all, as one
-JAX controller drives its stage axis:
+microbatching. Anything wider runs over a mesh (``parallel/mesh.py::
+make_mesh``) of ``n_data`` replicas of ``n_stages`` stages, each process
+driving the coordinates it owns, as each JAX process drives its devices:
 
-- stage ``s``'s parameters live on ``mesh.devices[s]``; the hop is
-  ``out.to(mesh.devices[s + 1])`` (a no-op when two stages share a card),
-  carrying the stage's output as it is, where the JAX wire is f32 padded
-  to ``wire_dim`` (the f32 round trip of a bf16 value is exact, so both
-  compute the same numbers);
-- the batch splits into ``n_microbatches`` microbatches; GPipe runs every
-  microbatch through every stage and differentiates the sum with autograd,
-  so all microbatches' residuals live until the backward (``remat``
-  recomputes each stage inside ``torch.utils.checkpoint`` instead);
+- replica ``d``'s stage ``s`` runs on ``mesh.device(d, s)``; this process
+  keeps one copy of each stage it owns (on ``mesh.devices[s]``), which a
+  replica on another device reads through a differentiable copy;
+- the batch a process passes is the rows of its own replicas
+  (``data/sharding.py::host_rows``), ``B / n_data`` per replica, each
+  split into ``n_microbatches`` microbatches; replica ``d``'s microbatch
+  ``m`` is the batch's microbatch ``d * M + m``;
+- a hop between two coordinates of one process is ``Tensor.to`` (a no-op
+  when they share a card), carrying the stage's output as it is, where
+  the JAX wire is f32 padded to ``wire_dim`` (the f32 round trip of a
+  bf16 value is exact, so both compute the same numbers); a hop between
+  processes is a host-staged gloo send of the output and, with dropout,
+  of the generator state the next stage starts from;
+- GPipe runs every microbatch through the process's stages, then one
+  backward per replica: autograd does not cross a process, so a stage
+  that sends its output keeps it and later calls ``torch.autograd.grad``
+  with the cotangent the next process sends back, and a stage that
+  received its input sends that input's gradient to the previous process
+  (``remat`` recomputes each stage inside ``torch.utils.checkpoint``);
   ``schedule="1f1b"`` interleaves forwards and backwards
   (``parallel/onefb.py``), its memory bounded by the stage count;
-- the loss is the whole batch's weighted mean: each microbatch's
-  ``sum(w·nll)`` over the batch's ``sum(w)``, known before the schedule
-  starts;
+- the loss is the global weighted mean, ``sum(w·nll)`` over ``sum(w)``
+  (JAX ``pipeline.py:628-648``): the denominator is summed over the last
+  stage's data group before the schedule starts, and the loss reaches
+  every process; gradients are summed over the process's own replicas,
+  then over the stage's data group, so every replica holds the global
+  gradient;
 - dropout: each microbatch draws one stream, seeded from the key (the key
-  itself for microbatch 0, ``ops.random.fold_in(key, m)`` after it), stage
-  after stage: a stage's generator starts at the state the previous stage
-  left, handed over with the hop. So one microbatch draws the fused path's
-  masks, GPipe and 1F1B draw the same ones, and a recompute replays them
-  from the saved state.
+  itself for the batch's microbatch 0, ``ops.random.fold_in(key, g)`` for
+  microbatch ``g`` after it), stage after stage: a stage's generator
+  starts at the state the previous stage left, handed over with the hop.
+  So one microbatch draws the fused path's masks, GPipe and 1F1B draw the
+  same ones, one process or several, and a recompute replays them from
+  the saved state.
 
 Parameters stay in the stage's ``nn.Module`` container (``models/gpt.py::
 GPT``, or the MLP's and LeNet's ``_tree.ParamTree`` lists and dicts): a
-training step passes the list of per-stage modules where the JAX package
-passes its packed ``[S, M, E, P]`` buffer, and the optimizers update the
-modules' tensors in place on their devices. The packed layout (``metas``)
-is still what a checkpoint writes (``train/checkpoint.py``).
+training step passes the :class:`StageParams` list of per-stage modules
+where the JAX package passes its packed ``[S, M, E, P]`` buffer, and the
+optimizers update the modules' tensors in place on their devices. The
+packed layout (``metas``) is still what a checkpoint writes
+(``train/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -53,6 +68,9 @@ from simple_distributed_machine_learning_tpu_torch._device import (
 )
 from simple_distributed_machine_learning_tpu_torch.ops.losses import nll_loss
 from simple_distributed_machine_learning_tpu_torch.ops.random import fold_in
+from simple_distributed_machine_learning_tpu_torch.parallel import (
+    mesh as mesh_lib,
+)
 from simple_distributed_machine_learning_tpu_torch.parallel.staging import (
     stage_meta,
 )
@@ -86,28 +104,47 @@ class Stage:
     in_shape: tuple[int, ...]
 
 
+class StageParams(list):
+    """The per-stage parameter modules a step updates, one entry per stage:
+    None for a stage this process does not own. ``mesh`` is the mesh they
+    live on (None: the one-card mesh), which the optimizer's global norm,
+    ZeRO-1 and the checkpoint gather read."""
+
+    def __init__(self, modules, mesh=None) -> None:
+        super().__init__(modules)
+        self.mesh = mesh
+
+
 def param_leaves(params) -> list[torch.Tensor]:
-    """The trainable tensors of ``params`` — a list of stage modules, one
-    module, or a sequence of tensors — in a fixed order: the order of
-    gradients and optimizer-state entries."""
+    """The trainable tensors of ``params`` — a list of stage modules (None
+    for a stage another process owns), one module, or a sequence of
+    tensors — in a fixed order: the order of gradients and
+    optimizer-state entries."""
     if isinstance(params, nn.Module):
         return list(params.parameters())
     leaves: list[torch.Tensor] = []
     for p in params:
-        leaves.extend([p] if isinstance(p, torch.Tensor) else param_leaves(p))
+        if p is not None:
+            leaves.extend([p] if isinstance(p, torch.Tensor)
+                          else param_leaves(p))
     return leaves
 
 
-def _cast_tree(module, dtype: torch.dtype):
+def _cast_tree(module, dtype: torch.dtype | None, device=None):
     """A stage module as a tree of dicts and lists of its tensors cast to
-    ``dtype`` — differentiable casts, so gradients reach the f32 master
-    tensors (the JAX package's ``tree.map(astype)`` around the apply)."""
+    ``dtype`` and moved to ``device`` — differentiable casts, so gradients
+    reach the f32 master tensors (the JAX package's ``tree.map(astype)``
+    around the apply)."""
     if isinstance(module, torch.Tensor):
-        return module.to(dtype)
-    if isinstance(module, nn.ModuleList):
-        return [_cast_tree(m, dtype) for m in module]
-    out = {k: v.to(dtype) for k, v in module._parameters.items()}
-    out.update({k: _cast_tree(m, dtype) for k, m in module._modules.items()})
+        return module.to(device=device, dtype=dtype)
+    if isinstance(module, (nn.ModuleList, list)):
+        return [_cast_tree(m, dtype, device) for m in module]
+    if isinstance(module, dict):
+        return {k: _cast_tree(v, dtype, device) for k, v in module.items()}
+    out = {k: v.to(device=device, dtype=dtype)
+           for k, v in module._parameters.items()}
+    out.update({k: _cast_tree(m, dtype, device)
+                for k, m in module._modules.items()})
     return out
 
 
@@ -123,13 +160,14 @@ class Pipeline:
     """The pipeline engine.
 
     Keeps the JAX signature as far as it means something here: ``mesh`` is
-    None (one stage on ``device``, None = ``"cuda"``) or a stage mesh
-    (``parallel/mesh.py::make_mesh``), whose devices the stages are placed
-    on; ``wire_dim`` and ``out_dim`` are accepted as the stage builders
-    return them (the hop needs no wire); ``n_microbatches`` splits the
-    batch over several stages and, as on the JAX package's trivial mesh,
-    not on one; ``remat`` recomputes each stage in the backward over
-    several stages (GPipe) and, as there, nothing on one; ``schedule`` is
+    None (one stage on ``device``, None = ``"cuda"``) or a data x stage
+    mesh (``parallel/mesh.py::make_mesh``), whose devices the coordinates
+    are placed on; ``wire_dim`` and ``out_dim`` are accepted as the stage
+    builders return them (the hop needs no wire); ``n_microbatches`` splits
+    each replica's rows over a mesh and, as on the JAX package's trivial
+    mesh, not on one coordinate; ``remat`` recomputes each stage in the
+    backward over a mesh (GPipe) and, as there, nothing on one coordinate;
+    ``schedule`` is
     ``"gpipe"`` or ``"1f1b"``, the same on one stage; ``overlap`` is
     ``"none"`` (the JAX default), and ``"ring"``, the chunked ring that
     replaces the collectives of a sharded mesh, waits for ROADMAP item 6.
@@ -142,9 +180,10 @@ class Pipeline:
     ``tests/test_torch_gpt_train.py`` pins the difference.
 
     Attributes for telemetry and callers: ``n_stages``, ``n_microbatches``,
-    ``schedule``, ``devices`` (one per stage), ``device`` (the first
-    stage's, where a batch's inputs go) and ``out_device`` (the last
-    stage's, where its targets and the loss live).
+    ``schedule``, ``devices`` (one per stage: where this process keeps
+    it), ``device`` (the first stage's, where a batch's inputs go) and
+    ``out_device`` (the last stage's, where its targets and the loss
+    live).
     """
 
     def __init__(self, stages: Sequence[Stage], mesh=None,
@@ -175,6 +214,10 @@ class Pipeline:
             raise ValueError(f"n_microbatches must be >= 1, got "
                              f"{n_microbatches}")
         self.mesh = mesh
+        # a mesh wider than one coordinate of one process runs replica by
+        # replica, stage by stage; the trivial one runs the fused stage
+        self._staged = mesh is not None and (
+            len(devices) > 1 or mesh.n_data > 1 or mesh.distributed)
         self.devices = devices
         self.device = devices[0]
         self.out_device = devices[-1]
@@ -191,11 +234,16 @@ class Pipeline:
         # the packed [S, 1, 1, P] layout of a checkpoint's params
         self.metas = [stage_meta(p) for p in self._params0]
 
-    def init_params(self) -> list[nn.Module]:
+    def init_params(self) -> StageParams:
         """A fresh copy of the initial per-stage parameter modules, each on
-        its stage's device — what a train step updates in place."""
-        return [copy.deepcopy(p).to(d)
-                for p, d in zip(self._params0, self.devices)]
+        its stage's device (None for a stage another process owns) — what
+        a train step updates in place."""
+        own = (range(self.n_stages) if self.mesh is None
+               else self.mesh.stages)
+        return StageParams([copy.deepcopy(p).to(d) if s in own else None
+                            for s, (p, d) in enumerate(
+                                zip(self._params0, self.devices))],
+                           self.mesh)
 
     # ---- forward/loss -------------------------------------------------------
 
@@ -229,62 +277,107 @@ class Pipeline:
             None if weights is None else self._on(weights))
         return num / torch.clamp_min(den, 1e-12), logp
 
-    # ---- several stages -------------------------------------------------------
+    # ---- a mesh: replicas of several stages, over one process or several ------
 
-    def _microbatches(self, x, targets, weights):
-        """The batch split into ``[M, b, ...]`` microbatches: inputs on the
-        first stage's device, targets and weights (ones by default) on the
-        last's; and the whole batch's weight sum broadcast over tokens,
-        the loss's denominator."""
-        M = self.n_microbatches
-        x = self._on(x)
-        B = x.shape[0]
-        if B % M:
+    def _replica_batches(self, x, targets, weights):
+        """This process's rows split per replica: ``{d: (xm, tm, wm)}``,
+        each ``[M, b, ...]`` — inputs on replica ``d``'s first owned
+        stage's device, targets and weights (ones by default) on its last
+        stage's (None where this process does not own the stage) — and the
+        microbatch size ``b``."""
+        mesh, M = self.mesh, self.n_microbatches
+        reps = mesh.replicas
+        x = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+        n = x.shape[0]
+        if n % (len(reps) * M):
             raise ValueError(
-                f"batch {B} not divisible by microbatches*data = {M}")
-        xm = x.reshape((M, B // M) + tuple(self.stages[0].in_shape))
-        tgt = self._on(targets, torch.long, self.out_device)
-        w = (torch.ones((B,), dtype=torch.float32, device=self.out_device)
-             if weights is None
-             else self._on(weights, torch.float32, self.out_device))
-        den = w.sum() * (tgt[0].numel() if tgt.dim() > 1 else 1)
-        return (xm, tgt.reshape((M, B // M) + tuple(tgt.shape[1:])),
-                w.reshape(M, B // M), den)
+                f"batch {n * mesh.n_data // len(reps)} not divisible by "
+                f"microbatches*data = {M * mesh.n_data}")
+        per, b = n // len(reps), n // (len(reps) * M)
+        tgt = torch.as_tensor(targets)
+        w = (torch.ones((n,), dtype=torch.float32) if weights is None
+             else torch.as_tensor(weights))
+        out = {}
+        for k, d in enumerate(reps):
+            rows = slice(k * per, (k + 1) * per)
+            first = mesh.stage_range(d)[0]
+            xm = (x[rows].to(mesh.device(d, 0)).reshape(
+                (M, b) + tuple(self.stages[0].in_shape))
+                if first == 0 else None)
+            tm = wm = None
+            if mesh.owns(d, self.n_stages - 1):
+                last = mesh.device(d, self.n_stages - 1)
+                tm = tgt[rows].to(device=last, dtype=torch.long).reshape(
+                    (M, b) + tuple(tgt.shape[1:]))
+                wm = w[rows].to(device=last, dtype=torch.float32).reshape(
+                    M, b)
+            out[d] = (xm, tm, wm)
+        return out, b
+
+    def _last_sum(self, values: list[torch.Tensor]) -> torch.Tensor | None:
+        """The sum over the batch's replicas of one last-stage quantity,
+        given this process's own replicas' values (in replica order):
+        summed here, then over the last stage's data group. None on a
+        process that owns no last stage."""
+        if not values:
+            return None
+        total = values[0]
+        for v in values[1:]:
+            total = total + v
+        group = self.mesh.data_group(self.n_stages - 1)
+        return total if group is None else mesh_lib.all_reduce(total, group)
+
+    def _to_every_rank(self, values: torch.Tensor | None,
+                       size: int) -> torch.Tensor:
+        """A last-stage result (``size`` f64 values, exact for f32 sums and
+        counts) on every process: broadcast from replica 0's last
+        stage."""
+        mesh = self.mesh
+        if not mesh.distributed:
+            return values
+        if values is None:
+            values = torch.zeros(size, dtype=torch.float64,
+                                 device=self.device)
+        return mesh_lib.broadcast(values, mesh.owner(0, self.n_stages - 1))
 
     def _stream_seed(self, key, deterministic: bool) -> int | None:
         """The dropout streams' seed for one call (None when deterministic):
         an int key is it; a generator (None: torch's default CPU one) draws
-        it, on its own device."""
+        it, on its own device — on replica 0's first process, which sends
+        it to the others."""
         if deterministic:
             return None
         if key is None or isinstance(key, torch.Generator):
             dev = "cpu" if key is None else key.device
-            return int(torch.randint(0, 2 ** 62, (1,), generator=key,
-                                     device=dev).item())
+            seed = torch.randint(0, 2 ** 62, (1,), generator=key, device=dev)
+            if self.mesh is not None and self.mesh.distributed:
+                seed = mesh_lib.broadcast(seed.cpu(), 0)
+            return int(seed.item())
         return int(key)
 
-    def _stream_start(self, seed: int | None, m: int):
-        """Microbatch ``m``'s dropout stream as a generator state on the
-        first stage's device (None when deterministic)."""
+    def _stream_start(self, seed: int | None, g: int, device):
+        """The batch's microbatch ``g``'s dropout stream as a generator
+        state on ``device`` (None when deterministic)."""
         if seed is None:
             return None
-        g = torch.Generator(device=self.device)
-        g.manual_seed(seed if m == 0 else fold_in(seed, m))
-        return g.get_state()
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed if g == 0 else fold_in(seed, g))
+        return gen.get_state()
 
     def _stage_call(self, s: int, p, h: torch.Tensor, rng, deterministic,
                     remat: bool = False):
-        """Stage ``s`` on ``h`` with its dropout generator at state ``rng``
-        (None: no dropout): ``(y, rng_after)``, the state the next stage
-        starts from. Under ``remat`` the apply runs inside
-        ``torch.utils.checkpoint``; its recompute restarts the generator
-        at ``rng``, so the masks repeat."""
+        """Stage ``s`` on ``h`` (on its coordinate's device) with its
+        dropout generator at state ``rng`` (None: no dropout): ``(y,
+        rng_after)``, the state the next stage starts from. Under
+        ``remat`` the apply runs inside ``torch.utils.checkpoint``; its
+        recompute restarts the generator at ``rng``, so the masks
+        repeat."""
         after: list = []
 
         def run(hh):
             gen = None
             if rng is not None:
-                gen = torch.Generator(device=self.devices[s])
+                gen = torch.Generator(device=hh.device)
                 gen.set_state(rng)
             y = self._run_stage(s, p, hh, gen, deterministic)
             if gen is not None and not after:
@@ -294,39 +387,197 @@ class Pipeline:
         y = (_checkpoint(run, h, use_reentrant=False) if remat else run(h))
         return y, (after[0] if after else None)
 
+    def _replica_params(self, params, d: int, s: int):
+        """Stage ``s``'s parameters where replica ``d`` runs it: this
+        process's copy, or a differentiable copy on another device."""
+        dev = self.mesh.device(d, s)
+        return (params[s] if dev == self.devices[s]
+                else _cast_tree(params[s], None, dev))
+
+    # the wire between processes: a stage's output (and the dropout state
+    # the next stage starts from) forward, its gradient back; tags keep the
+    # three streams apart, pair order keeps microbatches in order
+    _TAG_ACT, _TAG_RNG, _TAG_COT = 1, 2, 3
+
+    def _wire_dtype(self) -> torch.dtype:
+        return self.compute_dtype or torch.float32
+
+    def _send_act(self, d: int, s: int, y, rng, pending: list) -> None:
+        """Stage ``s``'s output of replica ``d`` to the process of stage
+        ``s + 1``."""
+        dst = self.mesh.owner(d, s + 1)
+        if y.dtype != self._wire_dtype():
+            raise TypeError(f"stage {s} returned {y.dtype}, the wire carries "
+                            f"{self._wire_dtype()}")
+        pending.append(mesh_lib.send(y, dst, self._TAG_ACT))
+        if rng is not None:
+            pending.append(mesh_lib.send(rng, dst, self._TAG_RNG))
+
+    def _recv_act(self, d: int, s: int, b: int, stream: bool):
+        """Replica ``d``'s input of stage ``s`` (from the process of stage
+        ``s - 1``) and its dropout state (None without dropout)."""
+        src, dev = self.mesh.owner(d, s - 1), self.mesh.device(d, s)
+        h = mesh_lib.recv((b,) + tuple(self.stages[s].in_shape),
+                          self._wire_dtype(), src, dev, self._TAG_ACT)
+        rng = None
+        if stream:
+            size = torch.Generator(device=dev).get_state().numel()
+            rng = mesh_lib.recv((size,), torch.uint8, src, "cpu",
+                                self._TAG_RNG)
+        return h, rng
+
+    def _send_cot(self, d: int, s: int, g, pending: list) -> None:
+        """The gradient of stage ``s``'s input back to stage ``s - 1``'s
+        process."""
+        pending.append(mesh_lib.send(g, self.mesh.owner(d, s - 1),
+                                     self._TAG_COT))
+
+    def _recv_cot(self, d: int, s: int, like: torch.Tensor) -> torch.Tensor:
+        """The gradient of stage ``s``'s output, from stage ``s + 1``'s
+        process."""
+        return mesh_lib.recv(like.shape, like.dtype, self.mesh.owner(d, s + 1),
+                             like.device, self._TAG_COT)
+
+    def _reduce_grads(self, params, per_replica: list[list]) -> list:
+        """Per-stage gradients (each replica's list aligned with
+        ``param_leaves([params[s]])``) summed over this process's replicas,
+        then over each stage's data group: the global gradient, in
+        :func:`param_leaves` order."""
+        out = []
+        for s, p in enumerate(params):
+            if p is None:
+                continue
+            rows = [r[s] for r in per_replica if r[s] is not None]
+            grads = rows[0]
+            for r in rows[1:]:
+                grads = [a + b for a, b in zip(grads, r)]
+            group = self.mesh.data_group(s)
+            if group is not None and grads:
+                flat = mesh_lib.all_reduce(
+                    torch.cat([g.reshape(-1) for g in grads]), group)
+                grads = [f.view_as(g) for f, g in zip(
+                    flat.split([g.numel() for g in grads]), grads)]
+            out.extend(grads)
+        return out
+
+    def _den(self, reps: dict) -> torch.Tensor | None:
+        """The batch's weight sum broadcast over tokens: the loss's
+        denominator, on each process that owns a last stage."""
+        vals = []
+        for d, (_, tm, wm) in reps.items():
+            if tm is not None:
+                tok = tm[0, 0].numel() if tm.dim() > 2 else 1
+                vals.append(wm.sum() * tok)
+        return self._last_sum(vals)
+
     def _staged_pass(self, params, x, targets, key, deterministic, weights,
                      mode: str):
-        """GPipe over the stages, microbatch after microbatch. ``mode``:
-        ``"loss"`` (the scalar loss), ``"logits"`` (the loss and the
-        ``[B, ...]`` f32 log-probs) or ``"metrics"`` (``sum(w·nll)``,
-        ``sum(w)`` and the exact correct count, folded per microbatch);
-        only ``"logits"`` keeps the log-probs past their microbatch."""
-        xm, tm, wm, den = self._microbatches(x, targets, weights)
+        """GPipe over this process's coordinates, replica after replica,
+        microbatch after microbatch. ``mode``: ``"loss"`` (the scalar
+        loss), ``"grads"`` (the loss and the global gradients),
+        ``"logits"`` (the loss and the f32 log-probs of this process's
+        last-stage replicas, None without one) or ``"metrics"``
+        (``sum(w·nll)``, ``sum(w)`` and the exact correct count, folded per
+        microbatch); only ``"logits"`` keeps the log-probs past their
+        microbatch. Every result but the log-probs reaches every
+        process."""
+        mesh, S, M = self.mesh, self.n_stages, self.n_microbatches
+        reps, b = self._replica_batches(x, targets, weights)
         seed = self._stream_seed(key, deterministic)
+        den = self._den(reps)
         remat = self.remat and torch.is_grad_enabled()
-        num = torch.zeros((), dtype=torch.float32, device=self.out_device)
-        correct = torch.zeros((), dtype=torch.int64, device=self.out_device)
-        logps = []
-        for m in range(self.n_microbatches):
-            h, rng = xm[m], self._stream_start(seed, m)
-            for s in range(self.n_stages):
-                h, rng = self._stage_call(s, params[s],
-                                          h.to(self.devices[s]), rng,
-                                          deterministic, remat)
-            logp = h.float()
-            n, _, wb = _weighted_nll_sums(logp, tm[m], wm[m])
-            num = num + n
-            if mode == "metrics":
-                correct = correct + ((logp.argmax(-1) == tm[m])
-                                     & (wb > 0)).sum()
-            elif mode == "logits":
-                logps.append(logp)
+        nums, dens, hits, logps, grads = [], [], [], [], []
+        pending: list = []
+        for d, (xm, tm, wm) in reps.items():
+            stages = mesh.stage_range(d)
+            last = stages[-1] == S - 1
+            p = {s: self._replica_params(params, d, s) for s in stages}
+            num = torch.zeros((), dtype=torch.float32,
+                              device=mesh.device(d, S - 1))
+            correct = torch.zeros((), dtype=torch.int64, device=num.device)
+            ins, outs = [], []
+            for m in range(M):
+                if stages[0] == 0:
+                    h, rng = xm[m], self._stream_start(seed, d * M + m,
+                                                       mesh.device(d, 0))
+                else:
+                    h, rng = self._recv_act(d, stages[0], b, seed is not None)
+                    h.requires_grad_(mode == "grads")
+                    ins.append(h)
+                for s in stages:
+                    h, rng = self._stage_call(s, p[s], h.to(mesh.device(d, s)),
+                                              rng, deterministic, remat)
+                if not last:
+                    self._send_act(d, stages[-1], h, rng, pending)
+                    outs.append(h)
+                    continue
+                logp = h.float()
+                n, _, wb = _weighted_nll_sums(logp, tm[m], wm[m])
+                num = num + n
+                if mode == "metrics":
+                    correct = correct + ((logp.argmax(-1) == tm[m])
+                                         & (wb > 0)).sum()
+                elif mode == "logits":
+                    logps.append(logp)
+            if last:
+                nums.append(num)
+                if mode == "metrics":
+                    dens.append(wm.sum() * (tm[0, 0].numel()
+                                            if tm.dim() > 2 else 1))
+                    hits.append(correct)
+            if mode == "grads":
+                grads.append(self._backward(params, d, stages, num, den,
+                                            ins, outs, pending))
+        mesh_lib.wait_all(pending)
         if mode == "metrics":
-            return num, den, correct
-        loss = num / torch.clamp_min(den, 1e-12)
+            num, den_m, hit = (self._last_sum(nums), self._last_sum(dens),
+                               self._last_sum(hits))
+            vals = (None if num is None else torch.stack(
+                [num.double(), den_m.double(), hit.double()]))
+            vals = self._to_every_rank(vals, 3)
+            return vals[0].float(), vals[1].float(), vals[2].long()
+        loss = self._loss(nums, den)
+        if mode == "grads":
+            return loss, self._reduce_grads(params, grads)
         if mode == "logits":
-            return loss, torch.cat(logps)
+            return loss, torch.cat(logps) if logps else None
         return loss
+
+    def _loss(self, nums: list, den) -> torch.Tensor:
+        """The global loss on every process, from this process's
+        last-stage replicas' numerators."""
+        num = self._last_sum(nums)
+        loss = None if num is None else (num / torch.clamp_min(den, 1e-12))
+        if not self.mesh.distributed:
+            return loss
+        vals = None if loss is None else loss.detach().double().reshape(1)
+        return self._to_every_rank(vals, 1)[0].float()
+
+    def _backward(self, params, d, stages, num, den, ins, outs, pending):
+        """Replica ``d``'s gradients of its stages (``[s] -> list``, None
+        for a stage it does not run), from the loss on the last stage or
+        the cotangents the next process sends back; the gradients of
+        received inputs go back to the previous process."""
+        S = self.n_stages
+        if stages[-1] == S - 1:
+            objs, cots = [num / torch.clamp_min(den, 1e-12)], [None]
+        else:
+            objs = outs
+            cots = [self._recv_cot(d, stages[-1], y) for y in outs]
+        leaves = [param_leaves([params[s]]) for s in stages]
+        wrt = [t for ls in leaves for t in ls] + ins
+        got = list(torch.autograd.grad(objs, wrt, cots, allow_unused=True))
+        for i, h in enumerate(ins):
+            g = got[len(got) - len(ins) + i]
+            self._send_cot(d, stages[0], g if g is not None
+                           else torch.zeros_like(h), pending)
+        out: list = [None] * S
+        k = 0
+        for s, ls in zip(stages, leaves):
+            out[s] = [g if g is not None else torch.zeros_like(t)
+                      for g, t in zip(got[k:k + len(ls)], ls)]
+            k += len(ls)
+        return out
 
     # ---- the contract ---------------------------------------------------------
 
@@ -334,8 +585,10 @@ class Pipeline:
                         deterministic: bool = False, weights=None):
         """Weighted-mean NLL loss + per-example log-probs for a batch:
         ``loss = sum(w·nll) / sum(w)`` with ``weights`` ``[B]`` (a 0/1
-        validity mask for a padded ragged batch) broadcast over tokens."""
-        if self.n_stages > 1:
+        validity mask for a padded ragged batch) broadcast over tokens.
+        Over a mesh the log-probs are this process's last-stage replicas'
+        rows (None on a process without a last stage)."""
+        if self._staged:
             return self._staged_pass(params, x, targets, key, deterministic,
                                      weights, "logits")
         return self._fused_loss(params, x, targets, key, deterministic,
@@ -343,9 +596,9 @@ class Pipeline:
 
     def loss(self, params, x, targets, key=None, deterministic: bool = False,
              weights=None) -> torch.Tensor:
-        """Scalar loss only — the training path (over several stages no
-        log-probs outlive their microbatch)."""
-        if self.n_stages > 1:
+        """Scalar loss only — the training path (over a mesh no log-probs
+        outlive their microbatch)."""
+        if self._staged:
             return self._staged_pass(params, x, targets, key, deterministic,
                                      weights, "loss")
         return self._fused_loss(params, x, targets, key, deterministic,
@@ -354,16 +607,21 @@ class Pipeline:
     def loss_and_grads(self, params, x, targets, key=None,
                        deterministic: bool = False, weights=None
                        ) -> tuple[torch.Tensor, list[torch.Tensor]]:
-        """Scalar loss + gradients, one per :func:`param_leaves` entry.
-        ``schedule="1f1b"`` over several stages runs
-        ``parallel/onefb.py``: the same loss and gradients, activation
-        memory bounded by the stage count instead of the microbatches."""
+        """Scalar loss + the global gradients, one per :func:`param_leaves`
+        entry of ``params`` (this process's stages). ``schedule="1f1b"``
+        over two or more stages runs ``parallel/onefb.py``: the same loss
+        and gradients, activation memory bounded by the stage count
+        instead of the microbatches."""
         if self.schedule == "1f1b" and self.n_stages > 1:
             from simple_distributed_machine_learning_tpu_torch.parallel.onefb import (  # noqa: E501
                 onefb_loss_and_grads,
             )
             return onefb_loss_and_grads(self, params, x, targets, key,
                                         deterministic, weights)
+        if self._staged:
+            loss, grads = self._staged_pass(params, x, targets, key,
+                                            deterministic, weights, "grads")
+            return loss.detach(), grads
         leaves = param_leaves(params)
         loss = self.loss(params, x, targets, key, deterministic, weights)
         return loss.detach(), list(torch.autograd.grad(loss, leaves))
@@ -372,9 +630,9 @@ class Pipeline:
     def eval_metrics(self, params, x, targets, key=None, weights=None):
         """``(sum_nll, sum_weight, correct)``: weighted sums over the batch
         with ``weights`` broadcast over tokens, and the exact integer count
-        of ``argmax == target`` among nonzero-weight entries. Always
-        deterministic (dropout off)."""
-        if self.n_stages > 1:
+        of ``argmax == target`` among nonzero-weight entries, on every
+        process. Always deterministic (dropout off)."""
+        if self._staged:
             return self._staged_pass(params, x, targets, key, True, weights,
                                      "metrics")
         logp = self._fused_logits(params, x, key, True)

@@ -81,9 +81,20 @@ from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (
 )
 
 
+def _is_zero1(state) -> bool:
+    from simple_distributed_machine_learning_tpu_torch.train.optimizer import (  # noqa: E501
+        Zero1State,
+    )
+    return isinstance(state, Zero1State)
+
+
 def state_leaves(state) -> list:
     """An optimizer state's leaves in order: its tensors (a list holds one
-    per parameter) and its int step counters; tuples are structure."""
+    per parameter) and its int step counters; tuples are structure, and a
+    ZeRO-1 state (``train/optimizer.py::Zero1State``) holds its shards'
+    state in ``inner``."""
+    if _is_zero1(state):
+        return state_leaves(state.inner)
     if isinstance(state, (tuple, list)):
         return [leaf for s in state for leaf in state_leaves(s)]
     return [state]
@@ -98,6 +109,9 @@ def restore_state(live, leaves) -> Any:
     it = iter(leaves)
 
     def put(s):
+        if _is_zero1(s):
+            s.inner = put(s.inner)
+            return s
         if isinstance(s, tuple):
             return tuple(put(x) for x in s)
         if isinstance(s, list):
@@ -229,10 +243,15 @@ class QuarantineJournal:
     With ``path=None`` the journal is in-memory only (tests, dryruns);
     with a path it loads existing records on construction (a restarted or
     clean reference run skips identically) and flushes every append.
+    ``write_ok=False`` (every process but the first of a multi-process
+    run) loads and skips the same records but never appends to the shared
+    file.
     """
 
-    def __init__(self, path: str | None = None) -> None:
+    def __init__(self, path: str | None = None,
+                 write_ok: bool = True) -> None:
         self.path = path
+        self.write_ok = write_ok
         self.records: list[dict] = []
         self._skips: set[tuple[int, int]] = set()
         if path and os.path.exists(path):
@@ -256,7 +275,7 @@ class QuarantineJournal:
 
     def add(self, rec: dict) -> None:
         self._note(rec)
-        if self.path:
+        if self.path and self.write_ok:
             os.makedirs(os.path.dirname(os.path.abspath(self.path)),
                         exist_ok=True)
             with open(self.path, "a") as f:
@@ -282,11 +301,13 @@ class Sentinel:
     """
 
     def __init__(self, config: SentinelConfig | None = None, registry=None,
-                 journal_path: str | None = None) -> None:
+                 journal_path: str | None = None,
+                 journal_write_ok: bool = True) -> None:
         self.config = config or SentinelConfig()
         self.registry = registry
         self.ring = SnapshotRing(self.config.ring_size)
-        self.journal = QuarantineJournal(journal_path)
+        self.journal = QuarantineJournal(journal_path,
+                                         write_ok=journal_write_ok)
         # step -> last HEALTHY loss: the bit-exactness record the recovery
         # pin compares (tests/test_sentinel.py). Bounded: only the recent
         # tail is ever revisited by a rollback, so old entries age out —

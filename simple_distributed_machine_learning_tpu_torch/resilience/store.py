@@ -23,8 +23,9 @@ package restores in the other)::
 
 Manifest entries record ``extra`` verbatim — the elastic supervisor stores
 ``n_stages`` there, which is how a restore onto a *different* topology knows
-which source layout to repack from. The port runs one process, so every
-``save`` writes.
+which source layout to repack from. Across processes ``save`` is a
+collective (the checkpoint gather) and only process 0 writes the file and
+the manifest entry (JAX ``store.py:75-85``).
 """
 
 from __future__ import annotations
@@ -65,16 +66,22 @@ class CheckpointStore:
         return os.path.join(self.dir, MANIFEST)
 
     def save(self, params, opt_state, step: int, extra: dict | None = None
-             ) -> str:
+             ) -> str | None:
         """One retained checkpoint generation: atomic ``.npz`` write (via
         ``save_checkpoint``), checksum, manifest append, history GC.
         ``params`` is what ``save_checkpoint`` takes (the stage modules).
-        Returns the path."""
+        Returns the path (process 0) or None (the other processes)."""
+        from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (  # noqa: E501
+            process_index,
+        )
         from simple_distributed_machine_learning_tpu_torch.train.checkpoint import (  # noqa: E501
             save_checkpoint,
         )
         path = os.path.join(self.dir, f"ckpt-{step:08d}.npz")
+        # collective on every process; only process 0 writes the file
         save_checkpoint(path, params, opt_state, step, extra=extra)
+        if process_index() != 0:
+            return None
         entry = {
             "file": os.path.basename(path),
             "step": int(step),

@@ -14,8 +14,10 @@ from simple_distributed_machine_learning_tpu_torch.train.checkpoint import (  # 
 )
 from simple_distributed_machine_learning_tpu_torch.train.optimizer import (  # noqa: F401
     Optimizer,
+    Zero1State,
     adamw,
     clip_by_global_norm,
+    global_grad_norm,
     sgd,
     shard_opt_state_zero1,
 )

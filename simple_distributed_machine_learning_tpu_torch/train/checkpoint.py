@@ -28,10 +28,20 @@ source is described by its stage metas alone (a list of
 :class:`~..parallel.staging.StageMeta`, e.g. from the port's own
 ``make_mlp_stages(..., n_stages=2)`` trees), so no second ``Pipeline``
 is needed. A restore places each stage's tensors on its stage's device.
+
+Across processes a save is a collective every process calls (JAX
+``checkpoint.py:103-120, 143-160``): each process hands its share — the
+rows of the stages whose replica-0 coordinate it owns, and its ZeRO-1
+slices (``train/optimizer.py::Zero1State``) — to process 0 (``gather_object``
+on the caller's thread, so it never races a step's collectives), and only
+process 0 writes. A restore reads the file on every process and puts back
+the rows and slices that process holds, so the file stays the one-process
+layout and crosses between the packages and between process counts.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import tempfile
@@ -55,6 +65,9 @@ from simple_distributed_machine_learning_tpu_torch.parallel.staging import (
 from simple_distributed_machine_learning_tpu_torch.resilience.faults import (
     maybe_fire,
 )
+from simple_distributed_machine_learning_tpu_torch.train.optimizer import (
+    Zero1State,
+)
 
 
 class CheckpointCorruptError(ValueError):
@@ -77,22 +90,14 @@ def _jax_order(params) -> list[list[int]]:
     """Per stage module, the indices into ``param_leaves(params)`` (the
     optimizer's order) of its leaves in ``jax.tree.flatten`` order."""
     pos = {id(t): i for i, t in enumerate(param_leaves(params))}
-    return [[pos[id(t)] for t in tree_leaves(stage)] for stage in params]
-
-
-def _pack(per_tensor: Sequence[torch.Tensor], order, width: int
-          ) -> np.ndarray:
-    """Per-tensor values (in ``param_leaves`` order) -> the packed
-    ``[S, 1, 1, width]`` f32 buffer."""
-    rows = [flatten_row([per_tensor[i] for i in idx], width)
-            for idx in order]
-    return torch.stack(rows).reshape(len(rows), 1, 1, width).numpy()
+    return [[] if stage is None else [pos[id(t)] for t in tree_leaves(stage)]
+            for stage in params]
 
 
 def _unpack(arr: np.ndarray, like: Sequence[torch.Tensor], order
             ) -> list[torch.Tensor]:
-    """The inverse of :func:`_pack`: new tensors shaped, typed and placed
-    like ``like`` (in ``param_leaves`` order)."""
+    """A packed ``[S, 1, 1, width]`` buffer -> new tensors shaped, typed
+    and placed like ``like`` (in ``param_leaves`` order)."""
     out: list[Any] = [None] * len(like)
     for s, idx in enumerate(order):
         row, off = torch.from_numpy(np.asarray(arr[s, 0, 0])), 0
@@ -104,11 +109,16 @@ def _unpack(arr: np.ndarray, like: Sequence[torch.Tensor], order
     return out
 
 
-def _opt_leaves(state, pack) -> list[np.ndarray]:
+def _opt_leaves(state, pack, pack_shards=None) -> list:
     """The port's optimizer state -> the JAX state's leaves, in
-    ``jax.tree.flatten`` order."""
+    ``jax.tree.flatten`` order: ``pack(list)`` of each per-tensor list (a
+    ZeRO-1 state's slice lists through ``pack_shards``), an int32 array
+    of each step counter."""
+    if isinstance(state, Zero1State):
+        return _opt_leaves(state.inner, pack_shards, pack_shards)
     if isinstance(state, tuple):
-        return [leaf for s in state for leaf in _opt_leaves(s, pack)]
+        return [leaf for s in state
+                for leaf in _opt_leaves(s, pack, pack_shards)]
     if isinstance(state, list):
         return [pack(state)]
     if isinstance(state, (int, np.integer)):
@@ -118,7 +128,17 @@ def _opt_leaves(state, pack) -> list[np.ndarray]:
 
 def _opt_state(like, leaves, unpack):
     """The inverse of :func:`_opt_leaves` over the structure of ``like``
-    (e.g. ``opt.init(params)``), consuming ``leaves`` in order."""
+    (e.g. ``opt.init(params)``), consuming ``leaves`` in order; a ZeRO-1
+    ``like`` comes back as a ZeRO-1 state with this process's slices."""
+    if isinstance(like, Zero1State):
+        def slices(arr, shards):
+            return [torch.from_numpy(np.array(arr[s, 0, 0, lo:hi])).to(
+                device=t.device, dtype=t.dtype)
+                for (s, (lo, hi)), t in zip(like.ranges.items(), shards)]
+
+        z = copy.copy(like)
+        z.inner = _opt_state(like.inner, leaves, slices)
+        return z
     if isinstance(like, tuple):
         return tuple(_opt_state(s, leaves, unpack) for s in like)
     leaf = leaves.pop(0)
@@ -131,6 +151,8 @@ def _opt_state(like, leaves, unpack):
 
 
 def _n_opt_leaves(like) -> int:
+    if isinstance(like, Zero1State):
+        return _n_opt_leaves(like.inner)
     if isinstance(like, tuple):
         return sum(_n_opt_leaves(s) for s in like)
     return 1
@@ -139,21 +161,60 @@ def _n_opt_leaves(like) -> int:
 # -- writing -------------------------------------------------------------------
 
 def _gather_state(params, opt_state: Any, step: int,
-                  extra: dict | None) -> tuple[dict, dict]:
+                  extra: dict | None) -> tuple[dict | None, dict]:
     """Device -> host copy of the full training state in the file's
-    layout."""
+    layout: ``(arrays, meta)`` on process 0, ``(None, meta)`` on the
+    others. A collective across processes (every process calls it)."""
+    mesh = getattr(params, "mesh", None)
+    distributed = mesh is not None and mesh.distributed
     order = _jax_order(params)
-    width = _shape([stage_meta(p) for p in params])[-1]
+    leaves = param_leaves(params)
+    pieces: list = []          # (buffer, stage, first element, values)
+    totals = {s: sum(leaves[i].numel() for i in idx)
+              for s, idx in enumerate(order) if params[s] is not None}
+    n_bufs = 0
 
-    def pack(per_tensor):
-        return _pack(per_tensor, order, width)
+    def pack(per_tensor) -> int:
+        """A replicated buffer: each stage's row from the process of its
+        replica 0. Returns the buffer's index."""
+        nonlocal n_bufs
+        n_bufs += 1
+        for s, idx in enumerate(order):
+            if params[s] is not None and (not distributed
+                                          or mesh.owns(0, s)):
+                pieces.append((n_bufs - 1, s, 0, flatten_row(
+                    [per_tensor[i] for i in idx], totals[s]).numpy()))
+        return n_bufs - 1
 
-    arrays = {"params": pack(param_leaves(params))}
-    opt = _opt_leaves(opt_state, pack)
-    for i, leaf in enumerate(opt):
-        arrays[f"opt_{i}"] = leaf
+    def pack_shards(shards) -> int:
+        """A ZeRO-1 buffer: every process's slices."""
+        nonlocal n_bufs
+        n_bufs += 1
+        for (s, (lo, _)), t in zip(opt_state.ranges.items(), shards):
+            pieces.append((n_bufs - 1, s, lo,
+                           t.detach().float().cpu().numpy()))
+        return n_bufs - 1
+
+    packed_params = pack(leaves)
+    opt = _opt_leaves(opt_state, pack, pack_shards)
     meta = {"step": int(step), "n_opt_leaves": len(opt),
             "extra": extra or {}}
+    if distributed:
+        every = [None] * mesh.world_size if mesh.rank == 0 else None
+        torch.distributed.gather_object((pieces, totals), every, dst=0)
+        if mesh.rank != 0:
+            return None, meta
+        pieces = [p for ps, _ in every for p in ps]
+        totals = {s: t for _, ts in every for s, t in ts.items()}
+    width = max(totals.values(), default=0)
+    out = [np.zeros((len(params), 1, 1, width), np.float32)
+           for _ in range(n_bufs)]
+    for k, s, lo, vals in pieces:
+        out[k][s, 0, 0, lo:lo + len(vals)] = vals
+    # a buffer comes back as its index, a step counter as an int32 array
+    arrays = {"params": out[packed_params]}
+    for i, leaf in enumerate(opt):
+        arrays[f"opt_{i}"] = out[leaf] if isinstance(leaf, int) else leaf
     return arrays, meta
 
 
@@ -190,8 +251,11 @@ def save_checkpoint(path: str, params, opt_state: Any, step: int,
     """Write training state to ``path`` (one .npz, atomically replaced).
     ``params`` is the list of stage modules a train step updates; the
     metadata travels inside the .npz, the ``.meta.json`` sidecar is a
-    copy for people and is not read on restore."""
-    _write_npz(path, *_gather_state(params, opt_state, step, extra))
+    copy for people and is not read on restore. Across processes every
+    process calls it; only process 0 writes."""
+    arrays, meta = _gather_state(params, opt_state, step, extra)
+    if arrays is not None:
+        _write_npz(path, arrays, meta)
 
 
 class AsyncSave:
@@ -220,9 +284,13 @@ def save_checkpoint_async(path: str, params, opt_state: Any, step: int,
     """Like :func:`save_checkpoint`, but the FILE WRITE runs on a
     background thread: the device -> host copy happens before this
     returns, so training may update the parameters in place at once. Call
-    ``.wait()`` on the handle before depending on the file."""
+    ``.wait()`` on the handle before depending on the file. Across
+    processes the gather stays on the caller's thread (a collective must
+    not race a step's) and only process 0 starts a writer."""
     arrays, meta = _gather_state(params, opt_state, step, extra)
     handle = AsyncSave()
+    if arrays is None:
+        return handle
 
     def write():
         try:

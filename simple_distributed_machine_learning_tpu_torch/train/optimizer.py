@@ -14,9 +14,11 @@ and returns them, so a step's call shape is the JAX one:
 ``grads`` is aligned with those leaves, each on its parameter's device,
 and every state tensor lies beside its parameter, so each update runs on
 that tensor's own device. ZeRO-1 (:func:`shard_opt_state_zero1`) is the
-identity on a one-wide data axis, as the JAX package's is; sharding the
-state over a real data axis waits for ROADMAP Queue A item 6. The JAX
-package's ``from_optax`` wraps a JAX library and has no port.
+identity on a one-wide data axis, as the JAX package's is; over a real
+data axis each data replica keeps and updates one slice of every stage's
+packed vector, and the parameters are gathered over the stage's data
+group after the update (:class:`Zero1State`). The JAX package's
+``from_optax`` wraps a JAX library and has no port.
 
 State layout (``train/checkpoint.py`` maps it to the JAX package's): a
 list holds one tensor per :func:`param_leaves` entry (momentum, Adam
@@ -25,11 +27,15 @@ moments); a tuple is structure; an int is a step counter.
 
 from __future__ import annotations
 
+import sys
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch import nn
 
-from simple_distributed_machine_learning_tpu_torch import _roadmap
+from simple_distributed_machine_learning_tpu_torch.parallel import (
+    mesh as mesh_lib,
+)
 from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (
     param_leaves,
 )
@@ -72,7 +78,7 @@ def sgd(learning_rate, momentum: float = 0.0) -> Optimizer:
                 p.sub_(lr * b)
         return params, ((count + 1, buf) if scheduled else buf)
 
-    return Optimizer(init, update)
+    return Optimizer(init, _zero1_aware(update))
 
 
 def adamw(learning_rate, b1: float = 0.9, b2: float = 0.999,
@@ -102,21 +108,46 @@ def adamw(learning_rate, b1: float = 0.9, b2: float = 0.999,
             p.sub_(lr * (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps))
         return params, (step, m, v)
 
-    return Optimizer(init, update)
+    return Optimizer(init, _zero1_aware(update))
+
+
+def global_grad_norm(grads, params) -> torch.Tensor:
+    """The global L2 norm of ``grads`` (aligned with ``param_leaves(params)``)
+    on the first gradient's device: each stage's per-tensor norms in one
+    multi-tensor launch, their squares summed in stage order. Across
+    processes (a ``StageParams`` on a distributed mesh) every stage counts
+    once — its sum comes from the process of its replica 0, whatever the
+    data width — and the sums are added over the world."""
+    mesh = getattr(params, "mesh", None)
+    distributed = mesh is not None and mesh.distributed
+    dev = grads[0].device
+    counts = ([len(grads)] if isinstance(params, nn.Module)
+              else [0 if p is None else len(param_leaves([p]))
+                    for p in params])
+    parts, k = [], 0
+    for s, c in enumerate(counts):
+        gs, k = grads[k:k + c], k + c
+        if gs and (not distributed or mesh.owns(0, s)):
+            norms = torch._foreach_norm(gs, 2, dtype=torch.float32)
+            parts.append(torch.stack(norms).square().sum().to(dev))
+    sq = sum(parts) if parts else torch.zeros((), device=dev)
+    if distributed:
+        sq = mesh_lib.all_reduce(sq)
+    return torch.sqrt(sq)
 
 
 def clip_by_global_norm(opt: Optimizer, max_norm: float) -> Optimizer:
     """Wrap ``opt`` with torch ``clip_grad_norm_`` semantics: scale every
     gradient by ``min(1, max_norm / (norm + 1e-6))``, ``norm`` the global
-    L2 norm over all of them (summed on the first gradient's device, the
-    scale sent back to each), before the inner update. (The JAX package's
+    L2 norm over all of them (:func:`global_grad_norm`: each stage once,
+    over the stage ring across processes; the scale sent back to each
+    gradient's device), before the inner update. (The JAX package's
     ``norm_weights``, the replication correction of its packed buffer over
-    the model and expert axes, waits for those axes: over stages every
-    parameter is stored once.)"""
+    the model and expert axes, waits for those axes: over stages and data
+    replicas every parameter is counted once.)"""
     @torch.no_grad()
     def update(grads, state, params):
-        dev = grads[0].device
-        norm = torch.sqrt(sum((g.float() ** 2).sum().to(dev) for g in grads))
+        norm = global_grad_norm(grads, params)
         scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
         return opt.update([(g * scale.to(g.device)).to(g.dtype)
                            for g in grads], state, params)
@@ -124,12 +155,128 @@ def clip_by_global_norm(opt: Optimizer, max_norm: float) -> Optimizer:
     return Optimizer(opt.init, update)
 
 
-def shard_opt_state_zero1(state: Any, mesh=None, param_spec=None) -> Any:
+class Zero1State:
+    """An optimizer state sharded over the data axis (ZeRO-1; JAX
+    ``optimizer.py:161-199``). Stage ``s``'s packed vector (its leaves in
+    ``jax.tree.flatten`` order, ``train/checkpoint.py``'s row) splits into
+    ``n_data`` chunks of ``P / n_data`` elements, ``P`` the packed width;
+    data replica ``d`` keeps the state of chunk ``d``. This process keeps
+    the chunks of the replicas it owns a stage of: ``ranges[s] = (lo,
+    hi)``, contiguous. ``inner`` is the inner optimizer's state over those
+    slices (one flat tensor per owned stage where the unsharded state has
+    one per parameter); an update runs the inner rule on the slices of the
+    parameters and gradients, then gathers the parameters over each
+    stage's data group (a broadcast per chunk from its owner), so every
+    replica holds the updated parameters — elementwise the same numbers as
+    the replicated update."""
+
+    def __init__(self, inner, ranges: dict, order: list, chunk: int,
+                 totals: dict, mesh) -> None:
+        self.inner = inner
+        self.ranges = ranges
+        self.order = order
+        self.chunk = chunk
+        self.totals = totals
+        self.mesh = mesh
+
+    def shard(self, per_tensor) -> list[torch.Tensor]:
+        """Per-parameter tensors (``param_leaves`` order) -> this process's
+        flat slices, one per owned stage."""
+        out = []
+        for s, (lo, hi) in self.ranges.items():
+            flat = torch.cat([per_tensor[i].reshape(-1)
+                              for i in self.order[s]])
+            out.append(flat[lo:hi].clone())
+        return out
+
+    def gather(self, shards: list, params) -> None:
+        """Write the updated slices back into ``params`` with every other
+        replica's: each chunk comes from the process that owns it."""
+        leaves = param_leaves(params)
+        for (s, (lo, hi)), mine in zip(self.ranges.items(), shards):
+            idx = self.order[s]
+            full = torch.cat([leaves[i].detach().reshape(-1) for i in idx])
+            group = self.mesh.data_group(s)
+            for d in range(self.mesh.n_data):
+                a = min(d * self.chunk, self.totals[s])
+                b = min((d + 1) * self.chunk, self.totals[s])
+                if a == b:
+                    continue
+                if lo <= a and b <= hi:
+                    full[a:b] = mine[a - lo:b - lo]
+                if group is not None:
+                    full[a:b] = mesh_lib.broadcast(
+                        full[a:b], self.mesh.owner(d, s), group)
+            off = 0
+            for i in idx:
+                n = leaves[i].numel()
+                leaves[i].copy_(full[off:off + n].view_as(leaves[i]))
+                off += n
+
+
+def _zero1_aware(update):
+    """An optimizer's update that also takes a :class:`Zero1State`: the
+    rule runs on this process's slices, then the parameters are
+    gathered."""
+    @torch.no_grad()
+    def wrapped(grads, state, params):
+        if not isinstance(state, Zero1State):
+            return update(grads, state, params)
+        shards = state.shard(param_leaves(params))
+        _, state.inner = update(state.shard(grads), state.inner, shards)
+        state.gather(shards, params)
+        return params, state
+
+    return wrapped
+
+
+def shard_opt_state_zero1(state: Any, mesh=None, param_spec=None,
+                          params=None) -> Any:
     """ZeRO-1: shard the optimizer state over the data axis. On the
-    one-card mesh (``mesh=None``) or a stage mesh there is one data shard,
-    so the state is returned as it is — what the JAX package does on a
-    one-wide data axis. A real data axis is not ported yet."""
-    if mesh is None or getattr(mesh, "shape", {}).get("data") == 1:
+    one-card mesh (``mesh=None``) or a one-wide data axis there is one data
+    shard, so the state is returned as it is — what the JAX package does.
+    Over ``n_data > 1`` replicas it returns a :class:`Zero1State`:
+    ``param_spec`` is the packed layout (a ``Pipeline`` or its ``metas``;
+    the JAX argument is the packed buffer's sharding) and ``params`` the
+    ``StageParams`` the state belongs to. A packed width not divisible by
+    the data axis keeps the state replicated, with the JAX package's
+    stderr line per state buffer."""
+    if mesh is None or mesh.n_data == 1:
         return state
-    raise _roadmap.not_ported(f"ZeRO-1 over the mesh {mesh!r}",
-                              _roadmap.PARALLEL_AXES)
+    from simple_distributed_machine_learning_tpu_torch.train.checkpoint import (  # noqa: E501
+        _jax_order,
+        _metas,
+    )
+    D = mesh.n_data
+    width = max(m.total for m in _metas(param_spec))
+
+    def n_buffers(st) -> int:
+        if isinstance(st, tuple):
+            return sum(n_buffers(x) for x in st)
+        return isinstance(st, list)
+
+    if width % D:
+        for _ in range(n_buffers(state)):
+            sys.stderr.write(
+                f"zero1: packed param axis {width} not divisible by data "
+                f"axis {D} — this state leaf stays REPLICATED (no memory "
+                f"saving)\n")
+        return state
+    order = _jax_order(params)
+    leaves = param_leaves(params)
+    chunk = width // D
+    ranges, totals = {}, {}
+    for s in mesh.stages:
+        totals[s] = sum(leaves[i].numel() for i in order[s])
+        ds = [d for d in range(D) if mesh.owns(d, s)]
+        ranges[s] = (min(ds[0] * chunk, totals[s]),
+                     min((ds[-1] + 1) * chunk, totals[s]))
+    z = Zero1State(None, ranges, order, chunk, totals, mesh)
+
+    def shard(st):
+        if isinstance(st, tuple):
+            return tuple(shard(x) for x in st)
+        return z.shard(st) if isinstance(st, list) else st
+
+    z.inner = shard(state)
+    return z

@@ -21,8 +21,12 @@ from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (
     Pipeline,
     _generator,
 )
+from simple_distributed_machine_learning_tpu_torch.data.sharding import (
+    host_rows,
+)
 from simple_distributed_machine_learning_tpu_torch.train.optimizer import (
     Optimizer,
+    global_grad_norm,
 )
 
 
@@ -34,17 +38,17 @@ def make_train_step(pipe: Pipeline, opt: Optimizer,
     output: the global L2 norm of the gradients the update consumes, an
     f32 device scalar taken before the update runs (the one extra value
     the numeric-anomaly sentinel, ``resilience/sentinel.py``, watches
-    beside the loss), on the loss's device."""
+    beside the loss), on the loss's device. Across processes the
+    gradients are the global ones (``Pipeline.loss_and_grads`` sums them
+    over each stage's data group) and the norm counts each stage once
+    (``train/optimizer.py::global_grad_norm``)."""
 
     def step(params, opt_state, x, targets, key=None, weights=None):
         loss, grads = pipe.loss_and_grads(params, x, targets, key,
                                           deterministic=False,
                                           weights=weights)
-        # one multi-tensor launch for the per-tensor norms (grads are f32:
-        # the master parameters' dtype), gathered on the loss's device
-        gnorm = (torch.linalg.vector_norm(torch.stack(
-            [n.to(pipe.out_device) for n in torch._foreach_norm(grads)]
-        ).float()) if with_grad_norm else None)
+        if with_grad_norm:
+            gnorm = global_grad_norm(grads, params).to(loss.device)
         params, opt_state = opt.update(grads, opt_state, params)
         if with_grad_norm:
             return params, opt_state, loss, gnorm
@@ -89,14 +93,19 @@ def make_scanned_train_step(pipe: Pipeline, opt: Optimizer,
 
 def make_eval_step(pipe: Pipeline):
     """Returns ``eval_step(params, x, targets, key=None, n_valid=None) ->
-    (sum_nll, n_correct)``: dropout off; rows at or past ``n_valid`` (the
-    zero-padded tail of a ragged last batch) weigh nothing. ``n_correct``
-    is an exact integer count."""
+    (sum_nll, n_correct)``: dropout off; rows at or past ``n_valid`` of the
+    global batch (the zero-padded tail of a ragged last batch) weigh
+    nothing. ``x`` is this process's rows (``data/sharding.py::
+    host_rows``; the whole batch on one process); both sums are the whole
+    batch's, on every process. ``n_correct`` is an exact integer
+    count."""
 
     def step(params, x, targets, key=None, n_valid=None):
-        n = x.shape[0]
-        mask = (torch.arange(n, device=pipe.out_device)
-                < (n if n_valid is None else int(n_valid))).float()
+        n, mesh = x.shape[0], pipe.mesh
+        lo = (0 if mesh is None
+              else host_rows(mesh, n * mesh.n_data // len(mesh.replicas))[0])
+        mask = (torch.arange(lo, lo + n, device=pipe.out_device)
+                < (lo + n if n_valid is None else int(n_valid))).float()
         sum_loss, _, correct = pipe.eval_metrics(params, x, targets, key,
                                                  weights=mask)
         return sum_loss, correct

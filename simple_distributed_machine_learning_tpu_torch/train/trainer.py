@@ -38,7 +38,13 @@ gradient norm are checked on the host (``resilience/sentinel.py``): an
 anomaly rolls the state back to a host snapshot, quarantines the batch and
 replays, bit for bit what a run that never saw the batch computes.
 
-``shard_inputs`` acts only across processes, and the port runs one.
+Across processes (``parallel/mesh.py``): ``is_main`` is process 0, the
+only one that prints the console and appends ``metrics_json``; each batch
+is cut to this process's rows (``data/sharding.py::host_rows``) before
+its copy to the device — under ``SDML_DEBUG_SHARDING`` each process names
+them once on stderr; checkpoints are collective saves, and a resume
+checks that every process sees the checkpoint; the quarantine journal is
+appended by process 0 alone.
 """
 
 from __future__ import annotations
@@ -55,6 +61,9 @@ from simple_distributed_machine_learning_tpu_torch.data.mnist import (
     Dataset,
     batches,
     prefetch_batches,
+)
+from simple_distributed_machine_learning_tpu_torch.data.sharding import (
+    host_rows,
 )
 from simple_distributed_machine_learning_tpu_torch.ops.random import fold_in
 from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (
@@ -112,11 +121,13 @@ class TrainConfig:
     resume: bool = True
     # the checkpoint FILE WRITE overlaps the next epoch
     async_checkpoint: bool = False
-    # ZeRO-1: the identity on one card (one data shard)
+    # ZeRO-1: the optimizer state sharded over the data axis (the identity
+    # on a one-wide one)
     zero1: bool = False
     # seeded per-epoch shuffle (the reference trains in fixed order)
     shuffle: bool = False
-    # per-host input slices: acts only across processes
+    # per-host input slices; the port always feeds each process its own
+    # rows (its Pipeline takes them), so this field is the JAX one's only
     shard_inputs: bool = True
     # one schema-2 JSON line per epoch appended here
     metrics_json: str | None = None
@@ -153,11 +164,16 @@ class Trainer:
         self._tokens_per_sample = (int(np.prod(train_ds.y.shape[1:]))
                                    if np.ndim(train_ds.y) > 1 else 0)
         self._registry = telemetry.registry if telemetry is not None else None
+        mesh = pipe.mesh
+        # the reference's master-only console, across processes
+        self.is_main = mesh is None or mesh.rank == 0
+        self._rows_announced = False
         self.opt = opt or sgd(self.config.learning_rate, self.config.momentum)
         self.params = pipe.init_params()
         self.opt_state = self.opt.init(self.params)
         if self.config.zero1:
-            self.opt_state = shard_opt_state_zero1(self.opt_state)
+            self.opt_state = shard_opt_state_zero1(
+                self.opt_state, mesh, pipe, params=self.params)
         self._train_step = make_train_step(
             pipe, self.opt, with_grad_norm=self.config.sentinel)
         self._eval_step = make_eval_step(pipe)
@@ -185,7 +201,10 @@ class Trainer:
                     spike_factor=self.config.sentinel_spike_factor),
                 registry=self._registry,
                 journal_path=(os.path.join(jdir, "quarantine.jsonl")
-                              if jdir else None))
+                              if jdir else None),
+                # process 0 writes the shared journal; every process still
+                # loads it and skips identically
+                journal_write_ok=self.is_main)
         if self.config.checkpoint_dir and self.config.resume:
             self._maybe_resume()
 
@@ -196,7 +215,20 @@ class Trainer:
 
     def _maybe_resume(self) -> None:
         path = self._ckpt_path()
-        if not os.path.exists(path):
+        found = os.path.exists(path)
+        mesh = self.pipe.mesh
+        if mesh is not None and mesh.distributed:
+            # every process must agree on whether to resume, or they would
+            # issue different numbers of collectives and hang (a
+            # checkpoint_dir that is not a shared filesystem)
+            founds = [None] * mesh.world_size
+            torch.distributed.all_gather_object(founds, found)
+            if min(founds) != max(founds):
+                raise RuntimeError(
+                    f"checkpoint {path} visible on only some processes — "
+                    "checkpoint_dir must be a shared filesystem for "
+                    "multi-process resume")
+        if not found:
             return
         st = restore_checkpoint(path, pipe=self.pipe,
                                 opt_treedef_like=self.opt_state)
@@ -322,7 +354,8 @@ class Trainer:
     # -- the loops ---------------------------------------------------------
 
     def _print(self, msg: str) -> None:
-        print(msg)
+        if self.is_main:
+            print(msg)
 
     def _sync(self) -> None:
         for dev in dict.fromkeys(self.pipe.devices):
@@ -334,9 +367,24 @@ class Trainer:
                 else contextlib.nullcontext())
 
     def _feed(self, x, y, w):
-        """The batch's one host -> device copy: inputs onto the first
-        stage's device, targets and weights onto the last's (the step then
-        finds each where it is read)."""
+        """The batch's one host -> device copy of this process's rows
+        (``host_rows``, cut on the host first, so each process moves
+        ``B / D`` rows per replica it holds, not the global batch): inputs
+        onto the first stage's device, targets and weights onto the last's
+        (the step then finds each where it is read)."""
+        B = len(x)
+        lo, hi = host_rows(self.pipe.mesh, B)
+        if (lo, hi) != (0, B):
+            x, y = x[lo:hi], y[lo:hi]
+            w = None if w is None else w[lo:hi]
+        if not self._rows_announced:
+            self._rows_announced = True
+            if os.environ.get("SDML_DEBUG_SHARDING"):
+                # stderr on every process: the reference-format stdout
+                # stays process 0's
+                rank = 0 if self.pipe.mesh is None else self.pipe.mesh.rank
+                print(f"| host {rank}: input rows [{lo},{hi}) of {B}",
+                      file=sys.stderr, flush=True)
         dev, out = self.pipe.device, self.pipe.out_device
         return (torch.from_numpy(np.ascontiguousarray(x)).to(dev),
                 torch.from_numpy(np.ascontiguousarray(y)).to(out),
@@ -502,7 +550,7 @@ class Trainer:
                         "samples_per_sec"):
                 if record.get(key) is not None:
                     reg.gauge(key).set(record[key])
-        if self.config.metrics_json:
+        if self.config.metrics_json and self.is_main:
             append_jsonl(self.config.metrics_json, record, schema=2)
 
     def fit(self) -> None:

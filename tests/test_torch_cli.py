@@ -147,15 +147,15 @@ def test_cli_metrics_json(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--dp", "2", "--stages", "2"], "item 6"),
-    (["--world_size", "2"], "item 6"),
-    (["--dp", "2"], "item 6"),
+    (["--tp", "2", "--world_size", "2"], "item 6"),
+    (["--serve-sim", "4", "--model", "gpt", "--world_size", "2"], "item 6c"),
+    (["--scenario", "list", "--world_size", "2"], "item 6c"),
     (["--tp", "2"], "item 6"),
     (["--sp", "2"], "item 6"),
     (["--ep", "2"], "item 6"),
     (["--experts", "4"], "item 6"),
     (["--overlap", "ring"], "item 6"),
-    (["--peer-timeout", "30"], "item 6"),
+    (["--ep", "2", "--dp", "2", "--stages", "2"], "item 6"),
     (["--lint"], "item 7"),
     (["--lint-only"], "item 7"),
     (["--serve-tp", "2"], "item 6"),
@@ -247,6 +247,32 @@ def test_cli_serve_sim_prints_the_jax_summary_lines(capsys, spec_k):
     rate, accepted, proposed = float(m[1]), int(m[2]), int(m[3])
     assert 0 < proposed and 0 <= accepted <= proposed
     assert rate == round(accepted / proposed, 4)
+
+
+@pytest.mark.parametrize("argv,placement", [
+    (["--dp", "2", "--stages", "2", "--microbatches", "2"],
+     "| pipeline: 2 stages x 2 data replicas on cpu, cpu, cpu, cpu"),
+    (["--dp", "2"], "| pipeline: 1 stages x 2 data replicas on cpu, cpu"),
+    (["--peer-timeout", "30", "--heartbeat-port", "1"], None),
+])
+def test_data_axis_and_watchdog_flags_now_run(capsys, argv, placement):
+    """``--dp`` runs a data axis in one process (each replica's rows, the
+    gradients summed over replicas), printing the mesh; the watchdog's
+    flags are accepted, and start no watchdog for one process."""
+    where, lines = _run_lines(capsys, ["--model", "mlp", "--mlp-dims",
+                                       "784,32,10", "--dryrun", "4"] + argv)
+    assert where == placement
+    assert any(TRAIN_RE.match(ln) for ln in lines)
+    assert any(TEST_RE.match(ln) for ln in lines)
+
+
+def test_chaos_across_processes_is_the_jax_clis_refusal():
+    """``--world_size 2`` runs the reference's launch line
+    (``tests/test_torch_multiprocess.py``); ``--chaos`` keeps the JAX
+    CLI's refusal across processes, before any rendezvous."""
+    with pytest.raises(SystemExit, match="--chaos supervises in-process"):
+        main(BASE[:2] + ["--world_size", "2", "--device", "cpu",
+                         "--chaos", "host-kill@train.step=1"])
 
 
 def test_rank_required_for_multiprocess():

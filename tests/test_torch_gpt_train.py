@@ -354,8 +354,9 @@ def test_init_params_survives_training():
 
 def test_multi_stage_pipeline_raises_with_roadmap_item():
     """Several stages run over a stage mesh; a stage count that does not
-    match the mesh raises, and a data axis (n_data > 1) still names its
-    ROADMAP item."""
+    match the mesh raises, a data axis beside the stages runs (the GPT's
+    loss over two replicas is the one-replica loss at two microbatches),
+    and a sequence axis still names its ROADMAP item."""
     from simple_distributed_machine_learning_tpu_torch.parallel import (
         make_mesh as tmake_mesh,
     )
@@ -366,7 +367,18 @@ def test_multi_stage_pipeline_raises_with_roadmap_item():
     with pytest.raises(ValueError, match="1 stages but mesh stage axis is 2"):
         Pipeline(stages[:1], tmake_mesh(2, devices=["cpu"] * 2), wd, od)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmake_mesh(n_stages=2, n_data=2, devices=["cpu"] * 4)
+        tmake_mesh(n_stages=2, n_seq=2, devices=["cpu"] * 4)
+    two = Pipeline(stages, tmake_mesh(2, n_data=2, devices=["cpu"] * 4),
+                   wd, od)
+    one = Pipeline(stages, tmake_mesh(2, devices=["cpu"] * 2), wd, od,
+                   n_microbatches=2)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.integers(0, cfg.vocab, (4, cfg.seq_len))
+                         .astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, cfg.vocab, (4, cfg.seq_len)))
+    with torch.no_grad():
+        assert float(two.loss(two.init_params(), x, t, 5)) == float(
+            one.loss(one.init_params(), x, t, 5))
     assert Pipeline(stages, tmake_mesh(2, devices=["cpu"] * 2), wd,
                     od).n_stages == 2
 

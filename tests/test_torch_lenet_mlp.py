@@ -245,8 +245,9 @@ def test_param_leaves_follow_the_jax_order_for_mlp_and_lenet():
 
 @pytest.mark.parametrize("builder", ["lenet", "mlp"])
 def test_two_stage_pipeline_raises_naming_item_6(builder):
-    """Two stages need a stage mesh of two; on one with a data axis they
-    name item 6 (the data axis is item 6c)."""
+    """Two stages need a stage mesh of two; a data axis beside them runs
+    (each replica its half of the batch: the loss is the one-replica
+    run's); a model axis names item 6 (6d)."""
     from simple_distributed_machine_learning_tpu_torch.parallel import (
         make_mesh,
     )
@@ -257,7 +258,17 @@ def test_two_stage_pipeline_raises_naming_item_6(builder):
         Pipeline(stages, None, device="cpu")
     with pytest.raises(NotImplementedError,
                        match="item 6, remaining parallel axes"):
-        Pipeline(stages, make_mesh(2, n_data=2, devices=["cpu"] * 4))
+        make_mesh(2, n_model=2, devices=["cpu"] * 4)
+    two = Pipeline(stages, make_mesh(2, n_data=2, devices=["cpu"] * 4))
+    one = Pipeline(stages, make_mesh(2, devices=["cpu"] * 2),
+                   n_microbatches=2)
+    shape = (4, 28, 28, 1) if builder == "lenet" else (4, 8)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        shape).astype(np.float32))
+    t = torch.tensor([0, 1, 2, 3])
+    with torch.no_grad():
+        assert float(two.loss(two.init_params(), x, t, 3)) == float(
+            one.loss(one.init_params(), x, t, 3))
     assert Pipeline(stages, make_mesh(2, devices=["cpu"] * 2)).n_stages == 2
 
 

@@ -36,6 +36,9 @@ from simple_distributed_machine_learning_tpu_torch.parallel import (
     make_mesh,
     onefb_loss_and_grads,
 )
+from simple_distributed_machine_learning_tpu_torch.parallel.staging import (
+    flatten_row,
+)
 from simple_distributed_machine_learning_tpu_torch.train import (
     checkpoint as tck,
 )
@@ -97,7 +100,15 @@ def _port_grads(pipe, x, t, w=None, key=None, deterministic=True):
         params, torch.from_numpy(x), torch.from_numpy(t), key,
         deterministic, None if w is None else torch.from_numpy(w))
     width = max(m.total for m in pipe.metas)
-    return float(loss), tck._pack(grads, tck._jax_order(params), width)
+    return float(loss), _packed(grads, params, width)
+
+
+def _packed(grads, params, width):
+    """Per-tensor gradients -> the JAX pipeline's packed ``[S, 1, 1,
+    width]`` f32 gradient buffer (each stage's leaves in its order)."""
+    rows = [flatten_row([grads[i] for i in idx], width)
+            for idx in tck._jax_order(params)]
+    return torch.stack(rows).reshape(len(rows), 1, 1, width).numpy()
 
 
 @pytest.mark.parametrize("model,S,M,weighted", [

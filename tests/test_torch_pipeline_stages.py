@@ -48,6 +48,9 @@ from simple_distributed_machine_learning_tpu_torch.parallel import (
     make_mesh,
     param_leaves,
 )
+from simple_distributed_machine_learning_tpu_torch.parallel.staging import (
+    flatten_row,
+)
 from simple_distributed_machine_learning_tpu_torch.train import (
     checkpoint as tck,
 )
@@ -143,7 +146,15 @@ def _port_grads(tpipe, x, t, w=None, key=None, deterministic=True):
         params, torch.from_numpy(x), torch.from_numpy(t), key,
         deterministic, None if w is None else torch.from_numpy(w))
     width = max(m.total for m in tpipe.metas)
-    return float(loss), tck._pack(grads, tck._jax_order(params), width)
+    return float(loss), _packed(grads, params, width)
+
+
+def _packed(grads, params, width):
+    """Per-tensor gradients -> the JAX pipeline's packed ``[S, 1, 1,
+    width]`` f32 gradient buffer (each stage's leaves in its order)."""
+    rows = [flatten_row([grads[i] for i in idx], width)
+            for idx in tck._jax_order(params)]
+    return torch.stack(rows).reshape(len(rows), 1, 1, width).numpy()
 
 
 def _jax_grads(model, S, M, x, t, w=None):
@@ -363,7 +374,13 @@ def test_validation_errors():
         Pipeline(tst, None, wd, od, device="cpu")
     with pytest.raises(NotImplementedError,
                        match="item 6, remaining parallel axes"):
-        make_mesh(2, n_data=2, devices=["cpu"] * 4)
+        make_mesh(2, n_expert=2, devices=["cpu"] * 4)
+    with pytest.raises(ValueError, match="needs 4 devices, have 2"):
+        make_mesh(2, n_data=2, devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="not divisible by "
+                                         "microbatches\\*data = 6"):
+        Pipeline(tst, make_mesh(2, n_data=2, devices=["cpu"] * 4), wd, od,
+                 n_microbatches=3).loss(None, x, t)
     with pytest.raises(ValueError, match="needs 3 devices, have 2"):
         make_mesh(3, devices=["cpu"] * 2)
     with pytest.raises(ValueError, match="1F1B needs >= 2"):

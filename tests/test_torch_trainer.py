@@ -243,34 +243,53 @@ def test_mlp_learns_the_synthetic_digits():
     assert correct / 100 > 0.5 and avg < 2.0        # chance is 10%
 
 
-def test_one_card_mesh_bootstrap_and_zero1():
+def test_one_card_mesh_bootstrap_and_zero1(capsys):
     from simple_distributed_machine_learning_tpu_torch.parallel import (
         bootstrap_distributed,
         make_mesh,
     )
     from simple_distributed_machine_learning_tpu_torch.train import (
+        Zero1State,
+        sgd,
         shard_opt_state_zero1,
     )
     assert make_mesh() is None and make_mesh(n_stages=1, n_data=1) is None
-    for axis in ("n_data", "n_model", "n_seq", "n_expert"):
+    for axis in ("n_model", "n_seq", "n_expert"):
         with pytest.raises(NotImplementedError, match="item 6"):
             make_mesh(**{axis: 2})
-    # the stage axis is ported: over listed devices, or the visible cards
+    # the stage and data axes are ported: over listed devices, or the
+    # visible cards
     assert make_mesh(n_stages=2, devices=["cpu", "cpu"]).n_stages == 2
+    assert make_mesh(n_data=2, devices=["cpu", "cpu"]).shape["data"] == 2
     if not torch.cuda.is_available():
         with pytest.raises(ValueError, match="needs 2 devices, have 0"):
             make_mesh(n_stages=2)
+        with pytest.raises(ValueError, match="needs 2 devices, have 0"):
+            make_mesh(n_data=2)
     with pytest.raises(ValueError, match=">= 1"):
         make_mesh(n_data=0)
     assert bootstrap_distributed(0, 1, "localhost", "29500") is None
-    with pytest.raises(NotImplementedError, match="2-process run"):
-        bootstrap_distributed(1, 2, "localhost", "29500")
     state = [torch.zeros(3)]
     assert shard_opt_state_zero1(state) is state
-    with pytest.raises(NotImplementedError, match="ZeRO-1 over the mesh"):
-        shard_opt_state_zero1(state, mesh="data=2")
     assert shard_opt_state_zero1(
         state, mesh=make_mesh(n_stages=2, devices=["cpu"] * 2)) is state
+    # over a real data axis the state is sharded; one process holding both
+    # replicas keeps both chunks of every stage's packed vector
+    pipe = Pipeline(tmlp.make_mlp_stages(0, [8, 6, 4], 1, device="cpu")[0],
+                    make_mesh(n_data=2, devices=["cpu"] * 2))
+    params = pipe.init_params()
+    z = shard_opt_state_zero1(sgd(0.1, 0.5).init(params), pipe.mesh, pipe,
+                              params=params)
+    assert isinstance(z, Zero1State) and z.ranges == {0: (0, 82)}
+    # a packed width the data axis does not divide stays replicated, with
+    # the JAX package's line
+    pipe = Pipeline(tmlp.make_mlp_stages(0, [8, 6, 3], 1, device="cpu")[0],
+                    make_mesh(n_data=2, devices=["cpu"] * 2))
+    params = pipe.init_params()
+    st = sgd(0.1, 0.5).init(params)
+    assert shard_opt_state_zero1(st, pipe.mesh, pipe, params=params) is st
+    assert ("zero1: packed param axis 75 not divisible by data axis 2"
+            in capsys.readouterr().err)
 
 
 def test_step_seeds_are_a_pure_function_of_seed_and_step():
