@@ -289,6 +289,26 @@ or without the port beside it. Phases, each fatal on failure:
    bf16 cache's beside them, ms per decode; (d) the CLI's ``--model mlp
    --stages 2 --chaos host-kill@train.step=6 --chaos-stages 2,1`` with a
    store: the JAX CLI test's two pinned lines, exit 0, the restart cost.
+16. the reference's launch line: the port's CLI as real processes on the
+   one card (``PROC_*`` below): LeNet over two processes, the gpt_bf16 row
+   one stage per process, the mlp data x pipeline mesh over four, and a
+   killed and a stopped peer;
+17. tensor parallelism, the model axis on the one card: (a) the gpt_bf16
+   row with dense attention (a tensor-parallel block shards attention by
+   head and runs the dense core on its heads, as the JAX package does) at
+   ``n_tensor_parallel`` 1, 2 and 4, ``TP_STEPS`` AdamW steps each from
+   the same weights and batch: losses within ``TP_BF16_RTOL`` of tp = 1's,
+   no flash launch, and per tp the host-clock step p50, the peak memory,
+   and (a profiled window in a process of its own) kernel launches per
+   step and the device's busy share; the f32 ``gpt`` row at tp = 2 within
+   ``TP_F32_RTOL`` of tp = 1; (b) the CLI at ``--tp 2``: ``--model mlp``
+   at 2 stages, ``--model gpt`` at 2 stages under 1F1B with ``--clip-norm
+   1.0``, and ``--model gpt --stages 1`` over two processes (the model
+   axis split between them, its sums over gloo), each run's train and eval
+   losses within ``STAGE_CLI_RTOL`` of its tp = 1 run's and the placement
+   line; (c) ``python -m ...analysis --hostlint`` exiting 0 on the tree,
+   and the torch-free ``analysis/hostlint.py`` exiting 0 in a subprocess
+   with torch and jax blocked.
 
 Before the last line it prints the kernels as one JSON object (times in
 ms, measured in this run; ``bound_ms`` computed from this run's inputs);
@@ -600,6 +620,21 @@ STAGE_DRILL_PINS = (
 PROC_STEPS = 20
 PROC_GENERATE, PROC_DECODE_T0, PROC_PINGS = 8, 16, 20
 PROC_PEER_TIMEOUT, PROC_PEER_LIMIT_S, PROC_TIMEOUT_S = 8, 60, 240
+
+
+# phase 17: tensor parallelism on the one card — (a) the gpt_bf16 row
+# (attention dense: tensor parallelism shards it by head) at each TP_WIDTHS
+# width, TP_STEPS AdamW steps from the same weights, losses held to tp =
+# 1's within TP_BF16_RTOL (bf16 partial products are rounded before the
+# model sum, one matmul rounds once); TP_PROFILED_STEPS profiled in a
+# process of its own; the f32 gpt row at tp = 2 within TP_F32_RTOL; (b) the
+# CLI at --tp 2, STAGE_CLI_STEPS steps in one process and TP_CLI_STEPS over
+# two, held to tp = 1 within STAGE_CLI_RTOL; TP_MLP_DIMS is mlp4's widths
+# as two column -> row pairs
+TP_WIDTHS, TP_STEPS, TP_PROFILED_STEPS = (1, 2, 4), 10, 5
+TP_BF16_RTOL, TP_F32_RTOL = 1e-2, 1e-5
+TP_CLI_STEPS = 10
+TP_MLP_DIMS = [784, 512, 512, 512, 10]
 
 
 class SmokeFailure(RuntimeError):
@@ -2559,9 +2594,12 @@ def phase_train_profile(row: dict, record: dict, n_steps: int = 5) -> None:
     """Where a full-width flash training step's time goes: ``n_steps``
     ``make_train_step`` calls under ``torch.profiler`` after a warm-up —
     the device's busy share, kernel launches per step and device time by
-    kernel (Chrome trace in ``chiprun_out/``)."""
+    kernel (Chrome trace in ``chiprun_out/``). The session opens on one
+    more step that its schedule records nothing of (``warmup=1``): the
+    kernels launched while the session starts up can go unrecorded, and
+    the launch count below is exact."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from simple_distributed_machine_learning_tpu_torch.train import (
         make_train_step,
@@ -2574,17 +2612,26 @@ def phase_train_profile(row: dict, record: dict, n_steps: int = 5) -> None:
         params, state, _ = step(params, state, xs[i % TRAIN_POOL],
                                 ts[i % TRAIN_POOL])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=n_steps,
+                                   repeat=1)) as prof:
+        params, state, _ = step(params, state, xs[0], ts[0])
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         for i in range(n_steps):
             params, state, _ = step(params, state, xs[i % TRAIN_POOL],
                                     ts[i % TRAIN_POOL])
+            if i < n_steps - 1:
+                prof.step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = []
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # the schedule's ProfilerStep ranges show on the device's timeline
+        # too: annotations, not kernels
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.key.startswith("ProfilerStep")):
             continue
         t = (getattr(e, "self_device_time_total", None)
              or getattr(e, "self_cuda_time_total", 0))
@@ -5038,13 +5085,13 @@ def phase_lint_drift(record: dict) -> tuple[dict, int]:
 # -- phase 15: the reference's own topology, stages on one card ---------------
 
 
-def _stage_cli(argv: list[str], tmp: str, name: str) -> dict:
-    """One CLI training run (``--dryrun STAGE_CLI_STEPS``) with
-    ``--metrics-json``: its console lines and its epoch record."""
+def _stage_cli(argv: list[str], tmp: str, name: str,
+               steps: int = STAGE_CLI_STEPS) -> dict:
+    """One CLI training run (``--dryrun steps``) with ``--metrics-json``:
+    its console lines and its epoch record."""
     import json as _json
     path = os.path.join(tmp, f"{name}.jsonl")
-    lines = _cli(argv + ["--dryrun", str(STAGE_CLI_STEPS),
-                         "--metrics-json", path])
+    lines = _cli(argv + ["--dryrun", str(steps), "--metrics-json", path])
     with open(path) as f:
         [rec] = [_json.loads(ln) for ln in f]
     return dict(lines=lines, train_loss=rec["train_loss"],
@@ -5828,6 +5875,285 @@ def phase_processes(record: dict) -> tuple[int, int, int]:
     return launches
 
 
+def _tp_pipe(row: dict, tp: int):
+    """A bench row with dense attention at ``n_tensor_parallel = tp`` on
+    the one card (weights from seed 0: every width slices the same dense
+    init), its pipeline and its optimizer."""
+    import torch
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        GPTConfig,
+        make_gpt_stages,
+    )
+    from simple_distributed_machine_learning_tpu_torch.parallel import (
+        Pipeline,
+        make_mesh,
+    )
+    from simple_distributed_machine_learning_tpu_torch.train import (
+        adamw,
+        sgd,
+    )
+    cfg = GPTConfig(**row["cfg"], n_tensor_parallel=tp)
+    stages, wd, od = make_gpt_stages(0, cfg, 1, device=MAIN_DEVICE)
+    mesh = (make_mesh(1, n_model=tp, devices=[_stage_card()] * tp)
+            if tp > 1 else None)
+    pipe = Pipeline(stages, mesh, wd, od, n_microbatches=row["n_micro"],
+                    compute_dtype=row["dtype"] and getattr(torch,
+                                                           row["dtype"]),
+                    device=None if mesh else MAIN_DEVICE)
+    opt = (adamw(1e-3) if row["opt"] == "adamw"
+           else sgd(0.1, momentum=0.5))
+    return cfg, pipe, opt
+
+
+def _tp_steps(row: dict, tp: int, steps: int) -> dict:
+    """``steps`` train steps of ``row`` at ``tp`` from fresh weights on one
+    batch: the losses, each step's host-clock ms (synchronised), the peak
+    memory of the run and its flash launches (none: attention is dense)."""
+    import torch
+
+    from simple_distributed_machine_learning_tpu_torch.train import (
+        make_train_step,
+    )
+    cfg, pipe, opt = _tp_pipe(row, tp)
+    x, t = _stage_batch(cfg, row["batch"], 7)
+    params = pipe.init_params()
+    state = opt.init(params)
+    step = make_train_step(pipe, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_flash_counts()
+    losses, ms = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, x, t, i)
+        losses.append(float(loss))             # synchronises the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out = dict(losses=losses, step_ms=ms,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               flash=_flash_counts())
+    del params, state, pipe
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_profile() -> dict:
+    """(a)'s profiled window: ``TP_PROFILED_STEPS`` gpt_bf16 steps at each
+    width under ``torch.profiler``, after 2 warm-up steps — kernel
+    launches per step and the device's busy share (run in a process of its
+    own, as phase 15's window)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from simple_distributed_machine_learning_tpu_torch.train import (
+        make_train_step,
+    )
+    row = TRAIN_ROWS["gpt_bf16"]
+    out = {}
+    for tp in TP_WIDTHS:
+        cfg, pipe, opt = _tp_pipe(row, tp)
+        x, t = _stage_batch(cfg, row["batch"], 7)
+        params = pipe.init_params()
+        state = opt.init(params)
+        step = make_train_step(pipe, opt)
+        for i in range(2):
+            params, state, _ = step(params, state, x, t, i)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(TP_PROFILED_STEPS):
+                params, state, _ = step(params, state, x, t, i)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy, launches = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                busy += float(getattr(e, "self_device_time_total", None)
+                              or getattr(e, "self_cuda_time_total", 0))
+                launches += e.count
+        n = TP_PROFILED_STEPS
+        out[str(tp)] = dict(profiled_step_ms=wall_us / 1e3 / n,
+                            device_busy_share=busy / wall_us,
+                            device_ms_per_step=busy / 1e3 / n,
+                            kernel_launches_per_step=launches / n)
+        del params, state, pipe
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_profile_fresh() -> dict:
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import json, chip_smoke; "
+         "print(json.dumps(chip_smoke.tp_profile()))"],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0,
+          f"phase 17 (a)'s profiled window: rc {proc.returncode}\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _rel_gaps(a: list, b: list) -> list[float]:
+    return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
+
+def _tp_full_width(rec: dict) -> None:
+    """(a) The gpt_bf16 row at each width against tp = 1, the f32 gpt row
+    at tp = 2, and where the time goes."""
+    import math
+    row = TRAIN_ROWS["gpt_bf16"]
+    runs = {tp: _tp_steps(row, tp, TP_STEPS) for tp in TP_WIDTHS}
+    prof = _tp_profile_fresh()
+    base = runs[1]["losses"]
+    out = {}
+    for tp, r in runs.items():
+        gaps = _rel_gaps(r["losses"], base)
+        check(all(math.isfinite(v) for v in r["losses"])
+              and r["losses"][-1] < r["losses"][0],
+              f"gpt_bf16 at tp {tp}: losses do not fall: {r['losses']}")
+        check(max(gaps) <= TP_BF16_RTOL,
+              f"gpt_bf16 at tp {tp}: losses {r['losses']} vs tp 1 {base} "
+              f"(max rel gap {max(gaps):.2e} > {TP_BF16_RTOL})")
+        check(r["flash"] == (0, 0, 0),
+              f"gpt_bf16 at tp {tp} launched flash kernels {r['flash']}")
+        p50 = statistics.median(r["step_ms"])
+        out[str(tp)] = dict(losses=r["losses"], max_rel_gap=max(gaps),
+                            step_ms=r["step_ms"], step_ms_p50=p50,
+                            peak_bytes=r["peak_bytes"], **prof[str(tp)])
+        print(f"chip_smoke: tp (a) gpt_bf16 dense at tp {tp}: step p50 "
+              f"{p50:.3f} ms, {prof[str(tp)]['kernel_launches_per_step']:.1f}"
+              f" launches/step, device busy "
+              f"{prof[str(tp)]['device_busy_share']:.4f}, peak "
+              f"{r['peak_bytes'] / 2 ** 20:.1f} MiB; losses "
+              f"{r['losses'][0]:.6f} -> {r['losses'][-1]:.6f}, max rel gap "
+              f"to tp 1 {max(gaps):.2e}")
+    row = TRAIN_ROWS["gpt"]
+    one, two = (_tp_steps(row, tp, TP_STEPS) for tp in (1, 2))
+    gaps = _rel_gaps(two["losses"], one["losses"])
+    check(max(gaps) <= TP_F32_RTOL,
+          f"f32 gpt at tp 2: losses {two['losses']} vs tp 1 {one['losses']} "
+          f"(max rel gap {max(gaps):.2e} > {TP_F32_RTOL})")
+    out["gpt_f32_tp2"] = dict(losses=two["losses"], max_rel_gap=max(gaps))
+    print(f"chip_smoke: tp (a) f32 gpt row at tp 2: {TP_STEPS} SGD steps, "
+          f"max rel gap to tp 1 {max(gaps):.2e}")
+    rec["full_width"] = out
+
+
+def _tp_cli(rec: dict, tmp: str) -> None:
+    """(b) The CLI at --tp 2 against tp = 1: in one process (mlp, and gpt
+    under 1F1B with clipping, at 2 stages), and gpt over two processes."""
+    dims = ",".join(str(d) for d in TP_MLP_DIMS)
+    data = ["--data-root", os.path.join(tmp, "nodata")]
+    runs = {"mlp": ["--model", "mlp", "--mlp-dims", dims, "--stages", "2"],
+            "gpt_1f1b": ["--model", "gpt", "--stages", "2", "--schedule",
+                         "1f1b", "--clip-norm", "1.0"]}
+    out = {}
+    card = _stage_card()
+    for name, argv in runs.items():
+        one = _stage_cli(argv + data, tmp, f"{name}-tp1")
+        two = _stage_cli(argv + data + ["--tp", "2"], tmp, f"{name}-tp2")
+        place = "| pipeline: 2 stages x 2 model shards on " + ", ".join(
+            [card] * 4)
+        check(place in two["lines"], f"{name} --tp 2: no {place!r} line")
+        gaps = _rel_gaps([two["train_loss"], two["eval_loss"]],
+                         [one["train_loss"], one["eval_loss"]])
+        check(max(gaps) <= STAGE_CLI_RTOL,
+              f"{name} --tp 2: losses {two['train_loss']}/"
+              f"{two['eval_loss']} vs tp 1 {one['train_loss']}/"
+              f"{one['eval_loss']}")
+        out[name] = dict(tp2=[two["train_loss"], two["eval_loss"]],
+                         tp1=[one["train_loss"], one["eval_loss"]],
+                         max_rel_gap=max(gaps))
+        print(f"chip_smoke: tp (b) CLI {name} --tp 2, {STAGE_CLI_STEPS} "
+              f"steps: train/eval {two['train_loss']:.6f}/"
+              f"{two['eval_loss']:.6f}, tp 1 {one['train_loss']:.6f}/"
+              f"{one['eval_loss']:.6f}, max rel gap {max(gaps):.2e}")
+    argv = ["--model", "gpt", "--stages", "1", "--clip-norm", "1.0"] + data
+    one = _stage_cli(argv, tmp, "gpt-procs-tp1", TP_CLI_STEPS)
+    path = os.path.join(tmp, "gpt-procs-tp2.jsonl")
+    t0 = time.perf_counter()
+    (_, out0, _), (_, out1, _) = _launch_ranks(
+        2, argv + ["--tp", "2", "--dryrun", str(TP_CLI_STEPS),
+                   "--metrics-json", path])
+    secs = time.perf_counter() - t0
+    with open(path) as f:
+        [m] = [json.loads(ln) for ln in f]
+    gaps = _rel_gaps([m["train_loss"], m["eval_loss"]],
+                     [one["train_loss"], one["eval_loss"]])
+    check(max(gaps) <= STAGE_CLI_RTOL,
+          f"gpt --tp 2 over 2 processes: losses {m['train_loss']}/"
+          f"{m['eval_loss']} vs one process tp 1 {one['train_loss']}/"
+          f"{one['eval_loss']}")
+    check("| pipeline: 1 stages x 2 model shards on "
+          + ", ".join([card] * 2) in out0,
+          f"rank 0 printed no placement line: {out0[-2000:]}")
+    check("Train Epoch" not in out1, f"rank 1 printed the console: {out1!r}")
+    out["gpt_2_processes"] = dict(tp2=[m["train_loss"], m["eval_loss"]],
+                                  tp1=[one["train_loss"], one["eval_loss"]],
+                                  max_rel_gap=max(gaps), seconds=secs)
+    print(f"chip_smoke: tp (b) CLI gpt --tp 2 over 2 processes (the model "
+          f"axis over gloo), {TP_CLI_STEPS} steps: train/eval "
+          f"{m['train_loss']:.6f}/{m['eval_loss']:.6f}, one process tp 1 "
+          f"{one['train_loss']:.6f}/{one['eval_loss']:.6f}, max rel gap "
+          f"{max(gaps):.2e}, {secs:.1f} s")
+    rec["cli"] = out
+
+
+_BLOCK_TORCH_JAX = (
+    "import sys, runpy\n"
+    "class B:\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name in ('jax', 'torch') or name.startswith(\n"
+    "                ('jax.', 'jaxlib', 'torch.')):\n"
+    "            raise ImportError('blocked: ' + name)\n"
+    "sys.meta_path.insert(0, B())\n"
+    "sys.argv = [sys.argv[1]]\n"
+    "runpy.run_path(sys.argv[0], run_name='__main__')\n")
+
+
+def _tp_hostlint(rec: dict) -> None:
+    """(c) ``--hostlint`` through the package, and the torch-free script
+    in a subprocess with torch and jax blocked."""
+    from simple_distributed_machine_learning_tpu_torch.analysis.__main__ import (  # noqa: E501
+        main as analysis_main,
+    )
+    rc, text = _quiet(analysis_main, ["--hostlint"])
+    check(rc == 0 and "analysis --hostlint: clean" in text,
+          f"--hostlint rc {rc}: {text[-2000:]}")
+    script = os.path.join(HERE, PORT, "analysis", "hostlint.py")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _BLOCK_TORCH_JAX, script],
+                          cwd=HERE, capture_output=True, text=True,
+                          timeout=120)
+    ms = (time.perf_counter() - t0) * 1e3
+    check(proc.returncode == 0 and "clean" in proc.stdout,
+          f"torch-free hostlint rc {proc.returncode}: {proc.stdout[-1000:]}"
+          f"{proc.stderr[-2000:]}")
+    rec["hostlint"] = dict(package_rc=rc, script_rc=proc.returncode,
+                           script_ms=ms)
+    print(f"chip_smoke: tp (c) --hostlint clean; the torch-free script "
+          f"exits 0 with torch and jax blocked ({ms:.0f} ms)")
+
+
+def phase_tensor_parallel(record: dict) -> None:
+    """Phase 17: tensor parallelism on the one card."""
+    import tempfile
+    rec: dict = {}
+    record["tensor_parallel"] = rec
+    secs = {}
+    t0 = time.perf_counter()
+    _tp_full_width(rec)
+    secs["a"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        _tp_cli(rec, tmp)
+    secs["b"] = time.perf_counter() - t0 - sum(secs.values())
+    _tp_hostlint(rec)
+    secs["c"] = time.perf_counter() - t0 - sum(secs.values())
+    rec["seconds"] = dict(secs, total=time.perf_counter() - t0)
+    print(f"chip_smoke: phase 17 took {rec['seconds']['total']:.1f} s ("
+          + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items()) + ")")
+
+
 def main() -> int:
     try:
         import torch
@@ -5877,6 +6203,7 @@ def main() -> int:
         f1_row, lint_launches = phase_lint_drift(record)
         stage_launches = phase_stages(record)
         process_launches = phase_processes(record)
+        phase_tensor_parallel(record)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -11,15 +11,17 @@ of ``X`` is ``X`` under this root:
                programs (cached decoder, paged prefill/decode, beam
                search); the MLP and LeNet
 ``parallel``   the stage split rule, the packed stage buffer and wire
-               codec, the data x stage mesh over one process or several
-               (gloo), ``Stage`` and ``Pipeline``
+               codec, the data x stage x model mesh over one process or
+               several (gloo), ``Stage``, ``Pipeline`` and tensor
+               parallelism
 ``train``      optimizers, schedules, the train and eval steps,
                checkpoints in the JAX package's format, the ``Trainer``
 ``data``       MNIST (IDX files or the synthetic set), token streams and
                each process's input rows
 ``serve``      continuous-batching serving over the paged KV pool
 ``telemetry``  the metric registry the serving metrics write through
-``analysis``   the serve-protocol model checker (stdlib)
+``analysis``   the serve-protocol model checker and hostlint (stdlib),
+               the kernel linter and the serving byte model
 ``utils``      the throughput meter, the profiler hooks and the
                dead-peer watchdog
 ``cli``        the reference's training CLI

@@ -1,5 +1,5 @@
 """Analysis (port of ``analysis/``): the bounded model checker of the
-serve fleet protocol, the journal-grammar lint, the kernel linter and the
+serve fleet protocol, the host-side AST lint, the kernel linter and the
 serving byte model.
 
 - :mod:`.statespace` — the generic bounded explicit-state explorer (BFS,
@@ -8,8 +8,14 @@ serving byte model.
   transition system, its five invariants, the clean config and four
   seeded-defect configs, and the export of a counterexample as a
   ``resilience/faults.py`` chaos drill;
-- :mod:`.hostlint` — ``lint_journal_grammar``: every journal event kind
-  a ``serve/`` writer emits has a dispatching reader;
+- :mod:`.hostlint` — the host-side AST lint (``lint_repo``): the
+  decode-builder table, private forwards called past their builders,
+  kernel build memos touched from a distance, compiled programs or CUDA
+  graphs made in ``serve/``, wall-clock reads in ``serve/`` and the SLO
+  pipeline, undocumented metrics, unread journal events; torch-free as a
+  script;
+- :mod:`.preflight` — ``validate_tp_overlap``, the tensor-parallel spec
+  check;
 - :mod:`.bounds` — the interval lattice and ``spec(...)`` contracts;
 - :mod:`.kernels` — ``LaunchSpec``, the port's declaration of what a
   kernel launch reads and writes, and the ``kernel-*`` checks over it
@@ -22,16 +28,20 @@ serving byte model.
   the grid fixture's kernel F1 (``grid_scratch``, CUDA);
 - :mod:`.report` — ``Severity``, ``Finding``, ``HBMCost``, ``Report``.
 
-The protocol checker is stdlib; the kernel modules import torch. CLI::
+The protocol checker and hostlint are stdlib; the kernel modules import
+torch. CLI::
 
     python -m simple_distributed_machine_learning_tpu_torch.analysis \\
         --serve-protocol [--depth N] [--fail-on error|warning]
     python -m simple_distributed_machine_learning_tpu_torch.analysis \\
+        --hostlint
+    python simple_distributed_machine_learning_tpu_torch/analysis/hostlint.py
+    python -m simple_distributed_machine_learning_tpu_torch.analysis \\
         --serve-kernel | --fixtures | --fixture NAME | --list
 
 The program linter over traced programs (``--dryrun``, ``--serve``, the
-jaxpr fixtures, ``lint=True``) is ROADMAP.md, Queue A, item 7.4, and the
-rest of hostlint item 7.2: their flags refuse, naming the item.
+jaxpr fixtures, ``lint=True``) is ROADMAP.md, Queue A, item 7.4: its
+flags refuse, naming the item.
 """
 
 from __future__ import annotations

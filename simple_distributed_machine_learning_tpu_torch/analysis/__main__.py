@@ -26,8 +26,10 @@ violated, as the JAX package's CLI. ``SDML_LINT_INJECT=<tag>`` seeds one
 ERROR finding (the gate drill). ``--serve-kernel`` and the fixtures run
 kernels on ``--device`` (default CUDA; raises without it unless
 ``--device cpu``), the port's one flag of its own. ``--serve`` and
-``--dryrun`` (the jaxpr linter) and ``--hostlint`` exit naming the
-ROADMAP.md item that ports them.
+``--dryrun`` (the jaxpr linter) exit naming the ROADMAP.md item that
+ports them. ``--hostlint`` (pure ``ast``) imports the package and so
+torch; ``python simple_distributed_machine_learning_tpu_torch/analysis/
+hostlint.py`` runs the same lint without it.
 """
 
 from __future__ import annotations
@@ -39,12 +41,12 @@ import sys
 from simple_distributed_machine_learning_tpu_torch import _roadmap
 
 # the JAX CLI's modes this package does not run yet: dest -> ROADMAP item
-_UNPORTED = {"hostlint": _roadmap.HOSTLINT,
-             "serve": _roadmap.PROGRAM_LINTER,
+_UNPORTED = {"serve": _roadmap.PROGRAM_LINTER,
              "dryrun": _roadmap.PROGRAM_LINTER}
 
 #: the rule families the port's passes emit
-RULE_FAMILIES = ("journal-grammar", "protocol", "kernel-oob",
+RULE_FAMILIES = ("hostlint", "journal-grammar", "metric-catalog",
+                 "protocol", "kernel-oob",
                  "kernel-unproven", "kernel-race", "kernel-tile",
                  "kernel-dtype-drift", "kernel-hbm")
 
@@ -68,7 +70,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "findings at ANY severity — and their derived K/V "
                         "bytes must equal the byte model's")
     p.add_argument("--hostlint", action="store_true",
-                   help="not ported (ROADMAP.md, Queue A, item 7.2)")
+                   help="host-side AST lint (no torch needed): the "
+                        "decode-builder table, private forwards called "
+                        "past their builders, kernel build memos touched "
+                        "from a distance, compiled programs or CUDA graphs "
+                        "made in serve/, wall-clock/RNG calls in serve/ "
+                        "and the SLO pipeline, undocumented metrics, "
+                        "unread journal events")
     p.add_argument("--serve-protocol", action="store_true",
                    help="bounded model checking of the serve fleet "
                         "protocol: exhaustively explore every "
@@ -121,14 +129,27 @@ def main(argv=None) -> int:
             print(f"  {fx.name:<24} [{kind:>6}] {fx.description}")
         return 0
 
-    if not (args.serve_kernel or args.fixtures or args.serve_protocol
-            or args.fixture is not None):
-        p.error("nothing to do: pass --serve-kernel, --serve-protocol, "
-                "--fixture NAME, --fixtures or --list")
+    if not (args.hostlint or args.serve_kernel or args.fixtures
+            or args.serve_protocol or args.fixture is not None):
+        p.error("nothing to do: pass --hostlint, --serve-kernel, "
+                "--serve-protocol, --fixture NAME, --fixtures or --list")
 
     # modes compose: every requested mode runs and the exit code ANDs them
     ok = True
     protocol_violated = False
+
+    if args.hostlint:
+        from simple_distributed_machine_learning_tpu_torch.analysis.hostlint import (  # noqa: E501
+            _injected_findings,
+            lint_repo,
+        )
+        report = lint_repo()
+        # the SDML_LINT_INJECT gate drill
+        report.findings.extend(_injected_findings())
+        print(report.format(costs=False))
+        host_ok = report.ok(args.fail_on or "error")
+        print(f"analysis --hostlint: {'clean' if host_ok else 'FLAGGED'}")
+        ok &= host_ok
 
     if args.serve_kernel:
         from simple_distributed_machine_learning_tpu_torch.analysis.kernels import (  # noqa: E501

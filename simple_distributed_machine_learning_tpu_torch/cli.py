@@ -68,11 +68,18 @@ the optimizer state over the data axis; checkpoints are collective. With
 turns a killed or frozen peer into a non-zero exit within about T
 seconds. ``--serve-sim`` and ``--scenario`` still run in one process only.
 
+``--tp M`` (``--model mlp`` or ``gpt``) adds a model axis: each stage is
+sharded M ways (Megatron: the MLP's column -> row pairs, the GPT's heads
+and MLP width), the M model coordinates of a replica's stage share its
+card, and with W processes each process owns ``D * S * M / W``
+coordinates (W dividing ``D * S``, or a multiple of it that splits the
+model axis: the sums then cross processes over the host).
+
 One flag is the port's own: ``--device`` (default CUDA; the run raises
 without it unless ``--device cpu`` asks for the CPU). Every other flag of
 the JAX parser is accepted; a flag whose path is not ported exits, when
 set, with one line naming its ROADMAP item (the linter, and the parallel
-axes of items 6d-6e: ``--tp/--sp/--ep/--experts``, ``--overlap ring``,
+axes of items 6d.2-6e: ``--sp``, ``--ep/--experts``, ``--overlap ring``,
 ``--serve-tp``).
 """
 
@@ -117,9 +124,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="data-parallel mesh width (batch must divide by "
                         "dp * microbatches)")
     g.add_argument('--tp', type=int, default=1,
-                   help="tensor-parallel width (> 1: ROADMAP item 6)")
+                   help="tensor-parallel width: Megatron-shard every stage "
+                        "over a model axis of this size (--model=mlp or "
+                        "gpt)")
     g.add_argument('--overlap', choices=("none", "ring"), default="none",
-                   help="collective schedule (ring: ROADMAP item 6)")
+                   help="collective schedule (ring: ROADMAP item 6d.4)")
     g.add_argument('--epochs', type=int, default=10)
     g.add_argument('--batch-size', type=int, default=60)
     g.add_argument('--lr', type=float, default=0.1)
@@ -164,11 +173,11 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument('--eval-only', action='store_true',
                    help="evaluate the restored (or fresh) params and exit")
     g.add_argument('--experts', type=int, default=0,
-                   help="MoE experts for --model=gpt (ROADMAP item 6)")
+                   help="MoE experts for --model=gpt (ROADMAP item 6d.3)")
     g.add_argument('--sp', type=int, default=1,
-                   help="sequence-parallel width (ROADMAP item 6)")
+                   help="sequence-parallel width (ROADMAP item 6d.2)")
     g.add_argument('--ep', type=int, default=1,
-                   help="expert-parallel width (ROADMAP item 6)")
+                   help="expert-parallel width (ROADMAP item 6d.3)")
     g.add_argument('--generate', type=int, default=0, metavar="N",
                    help="for --model=gpt: after training, decode N tokens "
                         "with the KV-cache decoder and print them")
@@ -243,7 +252,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "end-of-prefill by the journal snap/adopt move. "
                         "Exclusive with --serve-autoscale")
     g.add_argument('--serve-tp', type=int, default=1,
-                   help="tensor-parallel serving (ROADMAP item 6)")
+                   help="tensor-parallel serving (ROADMAP item 6e)")
     g.add_argument('--serve-host-blocks', type=int, default=0, metavar='N',
                    help="with --serve-sim: host-RAM offload tier of N "
                         "blocks per replica behind the paged KV pool — "
@@ -371,9 +380,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 # flags whose paths are not ported: set to anything but the default, each
 # exits naming its ROADMAP item. The serve flags not named here run
-_UNPORTED = ({"lint": _roadmap.ANALYSIS, "lint_only": _roadmap.ANALYSIS}
-             | {k: _roadmap.PARALLEL_AXES for k in (
-                 "tp", "sp", "ep", "experts", "overlap", "serve_tp")})
+_UNPORTED = {"lint": _roadmap.ANALYSIS, "lint_only": _roadmap.ANALYSIS,
+             "sp": _roadmap.SEQ_PARALLEL, "ep": _roadmap.EXPERTS,
+             "experts": _roadmap.EXPERTS, "overlap": _roadmap.OVERLAP,
+             "serve_tp": _roadmap.TP_SERVING}
 
 
 def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
@@ -446,6 +456,10 @@ def _dispatch(args) -> None:
     if args.dryrun < 0:
         raise SystemExit(f"--dryrun needs a non-negative step count, got "
                          f"{args.dryrun}")
+    if args.tp < 1:
+        raise SystemExit(f"--tp must be >= 1, got {args.tp}")
+    if args.tp > 1 and args.model not in ("mlp", "gpt"):
+        raise SystemExit("--tp is only supported with --model=mlp or gpt")
     if args.generate > 0 and args.model != "gpt":
         raise SystemExit("--generate is only supported with --model=gpt")
     if args.max_steps_per_epoch is not None and args.max_steps_per_epoch < 1:
@@ -471,6 +485,11 @@ def _dispatch(args) -> None:
         if args.model != "gpt":
             raise SystemExit("--serve-sim is only supported with "
                              "--model=gpt")
+        if args.tp > 1:
+            raise SystemExit(
+                "--serve-sim serves a dense single-device build (the "
+                "make_cached_decoder restrictions): drop "
+                "--experts/--sp/--tp/--ep")
         _run_serve(args, n_stages, device)
         return
     if args.model == "gpt":
@@ -486,6 +505,14 @@ def _dispatch(args) -> None:
         )
         stages, wire_dim, out_dim = make_lenet_stages(args.seed, n_stages,
                                                       device)
+    elif args.tp > 1:
+        from simple_distributed_machine_learning_tpu_torch.parallel.tensor import (  # noqa: E501
+            make_mlp_tp_stages,
+        )
+        dims = [int(d) for d in args.mlp_dims.split(",")]
+        stages, wire_dim, out_dim = make_mlp_tp_stages(
+            args.seed, dims, n_stages, args.tp, overlap=args.overlap,
+            device=device)
     else:
         from simple_distributed_machine_learning_tpu_torch.models.mlp import (
             make_mlp_stages,
@@ -502,17 +529,19 @@ def _dispatch(args) -> None:
                         device))
 
 
-def _placement(device, n_coords: int) -> list:
-    """Mesh coordinate i's device: card ``i mod n`` of the n visible cards
-    on CUDA (coordinates share a card when there are fewer cards); every
-    coordinate on the CPU with ``--device cpu``."""
+def _placement(device, n_coords: int, n_model: int = 1) -> list:
+    """Mesh coordinate i's device: the ``n_model`` model coordinates of a
+    replica's stage on one card, stage-and-replica group ``g = i //
+    n_model`` on card ``g mod n`` of the n visible cards on CUDA (groups
+    share a card when there are fewer cards); every coordinate on the CPU
+    with ``--device cpu``."""
     from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
         visible_devices,
     )
     if device.type != "cuda":
         return [device] * n_coords
     cards = visible_devices()
-    return [cards[i % len(cards)] for i in range(n_coords)]
+    return [cards[(i // n_model) % len(cards)] for i in range(n_coords)]
 
 
 def _pipeline(args, stages, wire_dim, out_dim, device):
@@ -528,16 +557,18 @@ def _pipeline(args, stages, wire_dim, out_dim, device):
         Pipeline,
     )
     n = len(stages)
-    wide = n > 1 or args.dp > 1 or args.world_size > 1
-    mesh = make_mesh(n_stages=n, n_data=args.dp,
-                     devices=_placement(device, n * args.dp) if wide
-                     else None)
+    wide = n > 1 or args.dp > 1 or args.tp > 1 or args.world_size > 1
+    mesh = make_mesh(n_stages=n, n_data=args.dp, n_model=args.tp,
+                     devices=_placement(device, n * args.dp * args.tp,
+                                        args.tp) if wide else None)
     if mesh is not None and mesh.rank == 0:
         if mesh.distributed:
             print(f"| distributed: {mesh.world_size} processes, gloo over "
                   f"the host, rank 0 on {mesh.device(0, 0)}")
         print(f"| pipeline: {n} stages"
               + (f" x {mesh.n_data} data replicas" if mesh.n_data > 1
+                 else "")
+              + (f" x {mesh.n_model} model shards" if mesh.n_model > 1
                  else "")
               + " on " + ", ".join(str(d) for d in mesh.coord_devices))
     return Pipeline(stages, mesh, wire_dim, out_dim,
@@ -703,7 +734,8 @@ def _gpt_setup(args):
                 f"{args.flash_blocks!r}") from None
         fb = {"flash_block_q": bq, "flash_block_k": bk}
     cfg = GPTConfig(vocab=256 if args.text_corpus else 128,
-                    attn_impl=args.attn, **fb)
+                    attn_impl=args.attn, n_tensor_parallel=args.tp,
+                    overlap=args.overlap, **fb)
 
     def as_ds(x, y):
         return Dataset(x.astype(np.float32), y)
@@ -752,6 +784,10 @@ def _print_sample(args, trainer, cfg, test_ds) -> None:
     prompt = np.asarray(test_ds.x[:1, :t0], np.int32)
     pipe = trainer.pipe
     cache_dtype = torch.bfloat16 if args.bf16 else None
+    if cfg.n_tensor_parallel > 1:
+        trainer._print("| --generate: skipped (MoE/seq-/tensor-parallel "
+                       "builds decode via models.make_decoder)")
+        return
     if pipe.n_stages == 1 and args.world_size > 1:
         trainer._print("| --generate: skipped (single-stage multi-process "
                        "run; decode from a checkpoint instead)")
@@ -951,7 +987,7 @@ def _run_chaos(args, n_stages: int, device) -> None:
             "--chaos supports --model mlp or gpt (the contiguous-split "
             "families repack_checkpoint can rewrite across stage counts; "
             "lenet's conv|fc split is a structural rename)")
-    if args.serve_sim > 0:
+    if args.tp > 1 or args.serve_sim > 0:
         raise SystemExit(
             "--chaos drills the pipeline-parallel training path: drop "
             "--experts/--sp/--tp/--ep/--serve-sim")

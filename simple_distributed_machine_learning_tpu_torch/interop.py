@@ -51,6 +51,14 @@ def params_from_numpy(params_list, device=None) -> list[nn.Module]:
     return [_stage_module(p).to(dev) for p in params_list]
 
 
+def shards_from_numpy(shard_trees, device=None) -> tuple[nn.Module, ...]:
+    """One tensor-parallel stage's per-shard numpy trees (the JAX
+    ``Stage.shards`` after ``np.asarray``, or the rows ``[s, m]`` of its
+    packed ``[S, M, E, P]`` buffer unpacked) -> the port's shard modules on
+    ``device``: a ``Stage``'s ``shards``, the first its ``params``."""
+    return tuple(params_from_numpy(shard_trees, device))
+
+
 def adapter_from_numpy(adapter: dict, device=None) -> dict:
     """One LoRA adapter's numpy factors (``{"aq", "bq", "av", "bv"}``, the
     JAX ``models/lora.py`` tree after ``np.asarray``) -> f32 tensors on

@@ -205,22 +205,24 @@ class GPTConfig:
                 "claim the token axis)")
 
 
-def _check_ported(cfg: GPTConfig, caller: str) -> None:
+def _check_ported(cfg: GPTConfig, caller: str,
+                  training: bool = False) -> None:
     """Raise for the config values whose code paths this port has not
     reached yet, naming the ROADMAP item that ports each. Every
     ``attn_impl`` is ported at ``n_seq == 1``: serving attends with the
     dense einsums whatever the config (as the JAX engine does), and
-    training runs dense or flash blocks."""
+    training runs dense or flash blocks, and tensor-parallel ones
+    (``training``); tensor-parallel serving is item 6e."""
     if cfg.n_experts > 0 or cfg.n_expert_parallel > 1:
         raise _roadmap.not_ported(f"{caller}: MoE blocks (n_experts > 0)",
-                                  _roadmap.PARALLEL_AXES)
+                                  _roadmap.EXPERTS)
     if cfg.n_seq > 1:
         raise _roadmap.not_ported(
             f"{caller}: sequence parallelism ({cfg.attn_impl}, n_seq="
-            f"{cfg.n_seq})", _roadmap.PARALLEL_AXES)
-    if cfg.n_tensor_parallel > 1:
+            f"{cfg.n_seq})", _roadmap.SEQ_PARALLEL)
+    if cfg.n_tensor_parallel > 1 and not training:
         raise _roadmap.not_ported(f"{caller}: n_tensor_parallel > 1",
-                                  _roadmap.PARALLEL_AXES)
+                                  _roadmap.TP_SERVING)
 
 
 # -- the model as parameter containers -------------------------------------
@@ -306,12 +308,21 @@ def make_gpt_stages(seed=0, cfg: GPTConfig = GPTConfig(), n_stages: int = 2,
     the CPU (one seed, one model, whatever the device) and moved.
     Returns ``(stages, wire_dim, (seq_len, vocab))`` like the JAX builder;
     each stage's ``params`` is a :class:`GPT` module holding its
-    contiguous share of the blocks."""
+    contiguous share of the blocks.
+
+    With ``cfg.n_tensor_parallel > 1`` the stages are tensor-parallel
+    (Megatron, ``Stage.shards``): every block's QKV/O projections shard by
+    head and the MLP hidden width column -> row, each shard sliced from
+    the same dense init (:func:`_slice_tp_stage`), so the run is the dense
+    run to float tolerance. Build the ``Pipeline`` on a ``make_mesh(...,
+    n_model=cfg.n_tensor_parallel)`` mesh. The decode programs need a
+    dense build of the same weights (tensor-parallel serving is ROADMAP
+    item 6e)."""
     from simple_distributed_machine_learning_tpu_torch.parallel.staging import (
         contiguous_split,
     )
     dev = resolve_device(device)
-    _check_ported(cfg, "make_gpt_stages")
+    _check_ported(cfg, "make_gpt_stages", training=True)
     if cfg.n_layers < n_stages and not (n_stages == 1 and cfg.n_layers == 0):
         raise ValueError(
             f"{cfg.n_layers} layers cannot fill {n_stages} stages")
@@ -325,13 +336,26 @@ def make_gpt_stages(seed=0, cfg: GPTConfig = GPTConfig(), n_stages: int = 2,
     blocks = [_block_init(gen, cfg) for _ in range(cfg.n_layers)]
     split = (contiguous_split(blocks, n_stages) if blocks
              else [[] for _ in range(n_stages)])
-    apply = functools.partial(_stage_apply, cfg=cfg)
+    mp = cfg.n_tensor_parallel
+    apply = functools.partial(_stage_apply if mp == 1 else _stage_apply_tp,
+                              cfg=cfg)
     stages = []
     for s in range(n_stages):
         first, last = s == 0, s == n_stages - 1
+        in_shape = (cfg.seq_len,) if first else (cfg.seq_len, cfg.d_model)
+        if mp > 1:
+            tree = {"blocks": split[s]}
+            if first:
+                tree["embed"] = embed
+            if last:
+                tree["head"] = head
+            shards = tuple(GPT(**_slice_tp_stage(tree, m, mp)).to(dev)
+                           for m in range(mp))
+            stages.append(Stage(apply=apply, params=shards[0],
+                                in_shape=in_shape, shards=shards))
+            continue
         module = GPT(split[s], embed if first else None,
                      head if last else None).to(dev)
-        in_shape = (cfg.seq_len,) if first else (cfg.seq_len, cfg.d_model)
         stages.append(Stage(apply=apply, params=module, in_shape=in_shape))
     return stages, cfg.seq_len * cfg.d_model, (cfg.seq_len, cfg.vocab)
 
@@ -358,6 +382,131 @@ def _stage_apply(params, x, key=None, deterministic=True, *, cfg):
     if "head" in params:
         h = _head_logprobs(params["head"], h)
     return h
+
+
+def _slice_tp_block(bp: dict, m: int, mp: int) -> dict:
+    """Model shard ``m``'s slice of one dense block's params (Megatron):
+    QKV columns / O rows by head, MLP hidden width column -> row; norms
+    and the MLP output bias replicated. Every leaf is a copy of its own,
+    so the optimizer updates each shard's replicas in place apart."""
+    d = bp["attn"]["wq"].shape[0]
+    dc = d // mp                      # head-aligned qkv column chunk
+    hc = bp["mlp_in"]["w"].shape[1] // mp
+    return _clone_tree({
+        "ln1": bp["ln1"],
+        "attn": {"wq": bp["attn"]["wq"][:, m * dc:(m + 1) * dc],
+                 "wk": bp["attn"]["wk"][:, m * dc:(m + 1) * dc],
+                 "wv": bp["attn"]["wv"][:, m * dc:(m + 1) * dc],
+                 "wo": bp["attn"]["wo"][m * dc:(m + 1) * dc, :]},
+        "ln2": bp["ln2"],
+        "mlp_in": {"w": bp["mlp_in"]["w"][:, m * hc:(m + 1) * hc],
+                   "b": bp["mlp_in"]["b"][m * hc:(m + 1) * hc]},
+        "mlp_out": {"w": bp["mlp_out"]["w"][m * hc:(m + 1) * hc, :],
+                    "b": bp["mlp_out"]["b"]},
+    })
+
+
+def _slice_tp_stage(params: dict, m: int, mp: int) -> dict:
+    """Model shard ``m``'s stage tree: blocks sliced, ``embed``/``head``
+    replicated (stored per shard, like the MLP pair's output bias)."""
+    out = {"blocks": [_slice_tp_block(bp, m, mp) for bp in params["blocks"]]}
+    for k in ("embed", "head"):
+        if params.get(k) is not None:
+            out[k] = _clone_tree(params[k])
+    return out
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
+def _grad_sync_non_tp(shards, path=()) -> list:
+    """This process's shard trees with every replicated leaf tied across
+    them (``parallel/tensor.py::tie``: one value forward, the full
+    gradient to each copy) and the sharded leaves as they are: per shard,
+    a tree of plain dicts and lists."""
+    from simple_distributed_machine_learning_tpu_torch._tree import (
+        _children,
+    )
+    from simple_distributed_machine_learning_tpu_torch.parallel.tensor import (  # noqa: E501
+        is_sharded_leaf,
+        tie,
+    )
+    kids = _children(shards[0])
+    if kids is None:
+        if is_sharded_leaf(path):
+            return list(shards)
+        return [tie(shards)] * len(shards)
+    cols = {k: _grad_sync_non_tp([sh[k] for sh in shards], path + (k,))
+            for k, _ in kids}
+    if isinstance(shards[0], (list, nn.ModuleList)):
+        return [[cols[k][i] for k, _ in kids] for i in range(len(shards))]
+    return [{k: cols[k][i] for k in cols} for i in range(len(shards))]
+
+
+def _stage_apply_tp(params, x, key=None, deterministic=True, *, cfg):
+    """The tensor-parallel ``Stage.apply``: ``params`` is this process's
+    :class:`~..parallel.tensor.Shards` of the stage (or one shard's tree);
+    the stage's replicated leaves are tied across them, every block runs
+    :func:`_block_apply_tp`, and the result is the replicated activation
+    every model coordinate holds."""
+    from simple_distributed_machine_learning_tpu_torch.parallel.tensor import (  # noqa: E501
+        as_shards,
+    )
+    shards = as_shards(params)
+    trees = _grad_sync_non_tp(list(shards))
+    p0 = trees[0]
+    if "embed" in p0:
+        ids = token_ids(x)
+        h = (embedding_lookup(p0["embed"]["tok"], ids)
+             + p0["embed"]["pos"][:ids.shape[1]])
+    else:
+        h = x
+    for i in range(len(p0["blocks"])):
+        h = _block_apply_tp([t["blocks"][i] for t in trees], h, cfg, key,
+                            deterministic, shards.group)
+    if "head" in p0:
+        h = _head_logprobs(p0["head"], h)
+    return h
+
+
+def _block_apply_tp(shard_blocks, h, cfg: GPTConfig, gen,
+                    deterministic: bool, group=None):
+    """One transformer block, tensor-parallel over the model axis
+    (``overlap='none'``): ``shard_blocks`` are this process's shards of
+    the block (:func:`_slice_tp_block`, replicated leaves tied); ``h`` is
+    replicated and the return is too. QKV project onto each shard's
+    ``H/mp`` heads, dense causal attention runs on them, the output
+    projection is row-parallel and summed over the model coordinates; the
+    MLP is column -> row, summed the same way, its bias added after.
+    Dropout draws on the replicated activations only, in the dense
+    block's order, so every coordinate draws the same masks."""
+    from simple_distributed_machine_learning_tpu_torch.parallel.tensor import (  # noqa: E501
+        grad_sync,
+        model_sum,
+    )
+
+    def drop(t):
+        return dropout(gen, t, cfg.dropout_rate, deterministic)
+
+    rb = shard_blocks[0]
+    h_loc = cfg.n_heads // cfg.n_tensor_parallel
+    hn = grad_sync(layer_norm(rb["ln1"], h), group, cfg.overlap)
+    parts = []
+    for bp in shard_blocks:
+        q = _split_heads(hn @ bp["attn"]["wq"], h_loc)
+        k = _split_heads(hn @ bp["attn"]["wk"], h_loc)
+        v = _split_heads(hn @ bp["attn"]["wv"], h_loc)
+        parts.append(_merge_heads(causal_attention_core(q, k, v))
+                     @ bp["attn"]["wo"])
+    h = h + drop(model_sum(parts, group))
+    hn2 = grad_sync(layer_norm(rb["ln2"], h), group, cfg.overlap)
+    parts = [F.gelu(hn2 @ bp["mlp_in"]["w"] + bp["mlp_in"]["b"],
+                    approximate="tanh") @ bp["mlp_out"]["w"]
+             for bp in shard_blocks]
+    return h + drop(model_sum(parts, group) + rb["mlp_out"]["b"])
 
 
 def _block_train(bp, h, cfg: GPTConfig, gen, deterministic: bool):
@@ -806,7 +955,7 @@ def make_slot_prefill(stages, cfg: GPTConfig, max_len: int,
                          cache_dtype)
     if mesh is not None:
         raise _roadmap.not_ported("make_slot_prefill: tensor-parallel "
-                                  "serving (mesh)", _roadmap.PARALLEL_AXES)
+                                  "serving (mesh)", _roadmap.TP_SERVING)
     dev = resolve_device(device)
 
     @torch.no_grad()
@@ -894,7 +1043,7 @@ def make_slot_decode_step(stages, cfg: GPTConfig, max_len: int,
                          cache_dtype)
     if mesh is not None:
         raise _roadmap.not_ported("make_slot_decode_step: tensor-parallel "
-                                  "serving (mesh)", _roadmap.PARALLEL_AXES)
+                                  "serving (mesh)", _roadmap.TP_SERVING)
     dev = resolve_device(device)
 
     @torch.no_grad()
@@ -921,7 +1070,7 @@ def _validate_paged_build(stages, cfg: GPTConfig, max_len: int,
     _check_ported(cfg, caller)
     if mesh is not None:
         raise _roadmap.not_ported(f"{caller}: tensor-parallel serving (mesh)",
-                                  _roadmap.PARALLEL_AXES)
+                                  _roadmap.TP_SERVING)
     _check_cache_quantization(cache_dtype, caller, paged=True)
     if not 2 <= max_len <= cfg.seq_len:
         raise ValueError(
@@ -1141,6 +1290,21 @@ def make_paged_block_copy():
         return kc, vc
 
     return copy
+
+
+def make_adapter_bank_update():
+    """The tick-boundary adapter upload: ``update(bank, idx, adapter) ->
+    bank`` rewrites ONE row of the stacked adapter bank in place (the JAX
+    program donates the bank). The decode builders read the bank as data,
+    so a row rewrite needs no rebuild of any program."""
+
+    @torch.no_grad()
+    def update(bank, idx, adapter):
+        for k in BANK_KEYS:
+            bank[k][int(idx)].copy_(adapter[k])
+        return bank
+
+    return update
 
 
 # -- speculative decoding --------------------------------------------------------
@@ -1369,7 +1533,7 @@ def make_slot_verify_step(stages, cfg: GPTConfig, max_len: int, spec_k: int,
     _check_spec_k(spec_k, "make_slot_verify_step")
     if mesh is not None:
         raise _roadmap.not_ported("make_slot_verify_step: tensor-parallel "
-                                  "serving (mesh)", _roadmap.PARALLEL_AXES)
+                                  "serving (mesh)", _roadmap.TP_SERVING)
     dev = resolve_device(device)
     K, ml = spec_k, max_len
 
@@ -1566,3 +1730,22 @@ def make_paged_spec_tick(stages, cfg: GPTConfig, draft_stages,
         return dkc, dvc, kc, vc, otoks, nacc, kd2, dkd2
 
     return tick
+
+
+# The serving programs, by the JAX package's names (its
+# ``models/gpt.py::DECODE_BUILDERS``); ``analysis/hostlint.py`` checks the
+# table against the JAX list and against this module's definitions.
+DECODE_BUILDERS = {
+    "make_cached_decoder": make_cached_decoder,
+    "make_slot_prefill": make_slot_prefill,
+    "make_slot_decode_step": make_slot_decode_step,
+    "make_paged_prefill_chunk": make_paged_prefill_chunk,
+    "make_paged_decode_step": make_paged_decode_step,
+    "make_paged_block_copy": make_paged_block_copy,
+    "make_adapter_bank_update": make_adapter_bank_update,
+    "make_slot_propose": make_slot_propose,
+    "make_slot_verify_step": make_slot_verify_step,
+    "make_paged_verify_step": make_paged_verify_step,
+    "make_slot_spec_tick": make_slot_spec_tick,
+    "make_paged_spec_tick": make_paged_spec_tick,
+}

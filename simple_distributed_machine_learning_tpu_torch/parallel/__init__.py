@@ -1,7 +1,8 @@
 """Parallelism (port of ``parallel/``): the stage split rule, the packed
-stage buffer and wire codec, the data x stage mesh and the multi-process
-bootstrap, ``Stage``, the ``Pipeline`` (one fused stage, or GPipe over a
-mesh, in one process or several) and the 1F1B schedule."""
+stage buffer and wire codec, the data x stage x model mesh and the
+multi-process bootstrap, ``Stage``, the ``Pipeline`` (one fused stage, or
+GPipe over a mesh, in one process or several), the 1F1B schedule and
+tensor parallelism (``tensor``: Megatron pairs and the model sums)."""
 
 from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
@@ -17,6 +18,7 @@ from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (  #
     StageParams,
     fused_reference,
     param_leaves,
+    param_units,
 )
 from simple_distributed_machine_learning_tpu_torch.parallel.staging import (  # noqa: F401
     StageMeta,
@@ -25,4 +27,10 @@ from simple_distributed_machine_learning_tpu_torch.parallel.staging import (  # 
     unpack_stage_params,
     wire_decode,
     wire_encode,
+)
+from simple_distributed_machine_learning_tpu_torch.parallel.tensor import (  # noqa: F401
+    Shards,
+    make_mlp_tp_stages,
+    tp_pair_apply,
+    tp_pair_init,
 )

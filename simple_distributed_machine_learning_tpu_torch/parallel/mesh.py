@@ -1,31 +1,38 @@
 """Device mesh and process bootstrap (port of ``parallel/mesh.py``).
 
-The port's mesh has two axes, data and stage: ``n_data x n_stages``
-coordinates numbered data-major, as the JAX ``make_mesh`` lays its device
-grid out, so coordinate ``(d, s)`` has index ``d * n_stages + s``. Each
-coordinate has a ``torch.device`` (``coord_devices``) where replica ``d``
-runs stage ``s``; a device may stand for several coordinates —
+The port's mesh has three axes, data, stage and model, in the JAX axis
+order: ``n_data x n_stages x n_model`` coordinates numbered data-major,
+as the JAX ``make_mesh`` lays its device grid out, so coordinate ``(d, s,
+m)`` has index ``(d * n_stages + s) * n_model + m``. Each coordinate has a
+``torch.device`` (``coord_devices``) where replica ``d`` runs model shard
+``m`` of stage ``s``; a device may stand for several coordinates —
 ``devices=["cpu"] * 4`` in the CPU tests, ``[cuda:0] * 4`` on one card —
 the counterpart of the JAX package's forced host device count.
 
 A run has ``world_size`` processes (``torch.distributed``, gloo); each owns
-a contiguous block of ``n_data * n_stages / world_size`` coordinates, so
-process ``r`` owns indices ``[r * per, (r + 1) * per)``. One process owns
-them all: the one-process pipeline over several stages, with a data axis.
-Ownership being contiguous in data-major order, each replica's owned
-stages are one contiguous run, and a stage hop crosses at most from
-process ``r`` to ``r + 1``.
+a contiguous block of ``n_data * n_stages * n_model / world_size``
+coordinates, so process ``r`` owns indices ``[r * per, (r + 1) * per)``.
+One process owns them all: the one-process pipeline over several stages,
+with a data axis and a model axis. The block either holds whole model
+groups (the world size divides ``n_data * n_stages``) or lies inside one
+``(d, s)`` (``n_data * n_stages`` divides the world size): so each
+replica's owned stages are one contiguous run, a stage hop crosses at most
+from one process to the next, and a process exchanges with the processes
+of its own model coordinates (``m0``, its first owned one). The model
+coordinates of one ``(d, s)`` that a process owns share a device: the
+model axis runs in one process on one card, its sums local.
 
 The process groups a run needs are built with the mesh (every process
 calls ``make_mesh`` with the same arguments, as every JAX process builds
-the same mesh): one data group per stage (the processes owning that
-stage's coordinates: gradient reduction and ZeRO-1's gather) and, for the
-loss and the metrics, the world.
+the same mesh): one data group per stage and model coordinate (the
+processes owning ``(., s, m)``: gradient reduction and ZeRO-1's gather),
+one model group per ``(d, s)`` split over processes (the tensor-parallel
+sums) and, for the loss and the metrics, the world.
 
-``make_mesh()`` with one stage, one replica, one process and no device list
-stays ``None``, the trivial one-card mesh that ``Pipeline`` takes down its
-fused path. Tensor, sequence and expert parallelism wait for ROADMAP Queue
-A item 6d.
+``make_mesh()`` with one coordinate, one process and no device list stays
+``None``, the trivial one-card mesh that ``Pipeline`` takes down its fused
+path. Sequence and expert parallelism wait for ROADMAP Queue A items 6d.2
+and 6d.3.
 
 The wire between processes is gloo over the host (``send``/``recv``
 below): a tensor on the card is copied to the host, sent, and copied back
@@ -57,42 +64,69 @@ EXPERT_AXIS = "expert"
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """``n_data x n_stages`` coordinates, ``coord_devices[d * n_stages +
-    s]`` the device of replica ``d``'s stage ``s``; this process
-    (``rank`` of ``world_size``) owns a contiguous block of them.
-    ``groups`` maps a tuple of ranks to its process group (built by
-    :func:`make_mesh` when ``world_size > 1``)."""
+    """``n_data x n_stages x n_model`` coordinates, ``coord_devices[(d *
+    n_stages + s) * n_model + m]`` the device of replica ``d``'s shard
+    ``m`` of stage ``s``; this process (``rank`` of ``world_size``) owns a
+    contiguous block of them. ``groups`` maps a tuple of ranks to its
+    process group (built by :func:`make_mesh` when ``world_size > 1``)."""
     coord_devices: tuple[torch.device, ...]
     n_data: int = 1
     rank: int = 0
     world_size: int = 1
     groups: dict = dataclasses.field(default_factory=dict, compare=False,
                                      repr=False)
+    n_model: int = 1
 
     @property
     def n_stages(self) -> int:
-        return len(self.coord_devices) // self.n_data
+        return len(self.coord_devices) // (self.n_data * self.n_model)
 
     @property
     def shape(self) -> dict[str, int]:
         """Axis sizes by name, as a JAX mesh's ``shape``."""
         return {DATA_AXIS: self.n_data, STAGE_AXIS: self.n_stages,
-                MODEL_AXIS: 1, SEQ_AXIS: 1, EXPERT_AXIS: 1}
+                MODEL_AXIS: self.n_model, SEQ_AXIS: 1, EXPERT_AXIS: 1}
 
     @property
     def distributed(self) -> bool:
         return self.world_size > 1
 
-    def owner(self, d: int, s: int) -> int:
-        """The rank that owns coordinate ``(d, s)``."""
+    def _index(self, d: int, s: int, m: int) -> int:
+        return (d * self.n_stages + s) * self.n_model + m
+
+    def _owner(self, d: int, s: int, m: int) -> int:
         per = len(self.coord_devices) // self.world_size
-        return (d * self.n_stages + s) // per
+        return self._index(d, s, m) // per
 
-    def owns(self, d: int, s: int) -> bool:
-        return self.owner(d, s) == self.rank
+    @property
+    def m0(self) -> int:
+        """This process's first owned model coordinate: 0 when it owns
+        whole model groups, else where its block starts."""
+        per = len(self.coord_devices) // self.world_size
+        return (self.rank * per) % self.n_model if per < self.n_model else 0
 
-    def device(self, d: int, s: int) -> torch.device:
-        return self.coord_devices[d * self.n_stages + s]
+    def owner(self, d: int, s: int, m: int | None = None) -> int:
+        """The rank that owns coordinate ``(d, s, m)``; ``m`` None: this
+        process's own model coordinate ``m0`` — the peer it exchanges
+        with at ``(d, s)``."""
+        return self._owner(d, s, self.m0 if m is None else m)
+
+    def owns(self, d: int, s: int, m: int | None = None) -> bool:
+        """Whether this process owns ``(d, s, m)``; ``m`` None: any model
+        coordinate of ``(d, s)``."""
+        if m is not None:
+            return self._owner(d, s, m) == self.rank
+        return self._owner(d, s, self.m0) == self.rank
+
+    def device(self, d: int, s: int, m: int | None = None) -> torch.device:
+        return self.coord_devices[self._index(d, s,
+                                              self.m0 if m is None else m)]
+
+    def model_range(self, d: int, s: int) -> range:
+        """The model coordinates of ``(d, s)`` this process owns
+        (contiguous)."""
+        owned = [m for m in range(self.n_model) if self.owns(d, s, m)]
+        return range(owned[0], owned[-1] + 1) if owned else range(0)
 
     @property
     def replicas(self) -> list[int]:
@@ -112,6 +146,14 @@ class Mesh:
                 if any(self.owns(d, s) for d in range(self.n_data))]
 
     @property
+    def shards(self) -> range:
+        """The model shards this process holds of each stage it holds
+        (the same for every stage)."""
+        d = self.replicas[0] if self.replicas else 0
+        s = self.stage_range(d)[0] if self.stage_range(d) else 0
+        return self.model_range(d, s)
+
+    @property
     def devices(self) -> list[torch.device]:
         """Per stage, where this process keeps its parameters: the device
         of its first owned coordinate of the stage (replica 0's for a
@@ -124,9 +166,16 @@ class Mesh:
 
     def data_group(self, s: int):
         """The process group of the processes owning stage ``s``'s
-        coordinates; None when this process is the only one."""
+        coordinates at this process's model coordinate; None when this
+        process is the only one."""
         return self.groups.get(
             tuple(sorted({self.owner(d, s) for d in range(self.n_data)})))
+
+    def model_group(self, d: int, s: int):
+        """The process group of the processes sharing ``(d, s)``'s model
+        axis; None when one process owns it whole."""
+        return self.groups.get(tuple(sorted(
+            {self._owner(d, s, m) for m in range(self.n_model)})))
 
 
 def visible_devices() -> list[torch.device]:
@@ -150,12 +199,13 @@ def process_count() -> int:
 def make_mesh(n_stages: int = 1, n_data: int | None = None,
               n_model: int = 1, n_seq: int = 1, n_expert: int = 1,
               devices: Sequence | None = None) -> Mesh | None:
-    """A ``n_data x n_stages`` mesh over ``devices`` (None = the visible
-    cards), coordinate ``i`` on ``devices[i]``; a list may name one device
-    more than once. ``n_data=None`` means 1. Across processes
+    """A ``n_data x n_stages x n_model`` mesh over ``devices`` (None = the
+    visible cards), coordinate ``i`` on ``devices[i]``; a list may name one
+    device more than once. ``n_data=None`` means 1. Across processes
     (``bootstrap_distributed`` first) every process passes the same
     arguments and owns its block of coordinates; the world size must
-    divide ``n_data * n_stages``. One coordinate, one process and no
+    divide ``n_data * n_stages * n_model`` and either divide ``n_data *
+    n_stages`` or be a multiple of it. One coordinate, one process and no
     device list give ``None``, the trivial mesh."""
     n_data = 1 if n_data is None else n_data
     sizes = {STAGE_AXIS: n_stages, DATA_AXIS: n_data, MODEL_AXIS: n_model,
@@ -163,36 +213,51 @@ def make_mesh(n_stages: int = 1, n_data: int | None = None,
     bad = {k: v for k, v in sizes.items() if int(v) < 1}
     if bad:
         raise ValueError(f"mesh axes must be >= 1, got {bad}")
-    wide = {k: v for k, v in sizes.items()
-            if k not in (STAGE_AXIS, DATA_AXIS) and int(v) > 1}
-    if wide:
-        raise _roadmap.not_ported(f"a mesh with axes {wide}",
-                                  _roadmap.PARALLEL_AXES)
+    if int(n_seq) > 1:
+        raise _roadmap.not_ported(f"a mesh with axes {{'seq': {n_seq}}}",
+                                  _roadmap.SEQ_PARALLEL)
+    if int(n_expert) > 1:
+        raise _roadmap.not_ported(
+            f"a mesh with axes {{'expert': {n_expert}}}", _roadmap.EXPERTS)
     world, rank = process_count(), process_index()
-    need = n_data * n_stages
+    groups = n_data * n_stages
+    need = groups * n_model
     if devices is None and need == 1 and world == 1:
         return None
-    if need % world:
+    if need % world or (groups % world and world % groups):
         raise ValueError(
-            f"{world} processes cannot split a {n_data}x{n_stages} "
-            f"(data x stage) mesh: the process count must divide "
-            f"{need}")
+            f"{world} processes cannot split a {n_data}x{n_stages}x"
+            f"{n_model} (data x stage x model) mesh: the process count "
+            f"must divide {need} and either divide {groups} or be a "
+            f"multiple of it")
     devs = (visible_devices() if devices is None
             else [resolve_device(d) for d in devices])
     if need > len(devs):
-        raise ValueError(f"mesh {n_data}x{n_stages}x1x1x1 needs {need} "
-                         f"devices, have {len(devs)}")
+        raise ValueError(f"mesh {n_data}x{n_stages}x{n_model}x1x1 needs "
+                         f"{need} devices, have {len(devs)}")
     devs = devs[:need]
     if len({d.type for d in devs}) > 1:
         raise ValueError(f"a mesh's devices must be of one type (the "
                          f"dropout stream crosses stages), got {devs}")
-    mesh = Mesh(tuple(devs), n_data, rank, world)
+    mesh = Mesh(tuple(devs), n_data, rank, world, n_model=n_model)
+    for d in range(n_data):
+        for s in range(n_stages):
+            mine = {mesh.device(d, s, m) for m in mesh.model_range(d, s)}
+            if len(mine) > 1:
+                raise ValueError(
+                    f"the model coordinates of replica {d}'s stage {s} "
+                    f"that one process owns must share a device (their "
+                    f"sums are local), got {sorted(map(str, mine))}")
     if world > 1:
         # every process builds every group, in one order (new_group is a
         # collective over the world)
         dist = torch.distributed
-        for s in range(n_stages):
-            ranks = tuple(sorted({mesh.owner(d, s) for d in range(n_data)}))
+        sets = [tuple(sorted({mesh._owner(d, s, m) for d in range(n_data)}))
+                for s in range(n_stages) for m in range(n_model)]
+        sets += [tuple(sorted({mesh._owner(d, s, m)
+                               for m in range(n_model)}))
+                 for d in range(n_data) for s in range(n_stages)]
+        for ranks in sets:
             if len(ranks) > 1 and ranks not in mesh.groups:
                 mesh.groups[ranks] = dist.new_group(list(ranks))
     return mesh

@@ -5,8 +5,9 @@ One stage, one replica and no mesh is the JAX package's trivial-mesh path
 (``_trivial_mesh``): the stage IS the fused model, and loss, gradients and
 eval metrics run through ``_fused_logits`` / ``_fused_loss`` with no
 microbatching. Anything wider runs over a mesh (``parallel/mesh.py::
-make_mesh``) of ``n_data`` replicas of ``n_stages`` stages, each process
-driving the coordinates it owns, as each JAX process drives its devices:
+make_mesh``) of ``n_data`` replicas of ``n_stages`` stages of ``n_model``
+shards, each process driving the coordinates it owns, as each JAX process
+drives its devices:
 
 - replica ``d``'s stage ``s`` runs on ``mesh.device(d, s)``; this process
   keeps one copy of each stage it owns (on ``mesh.devices[s]``), which a
@@ -35,6 +36,12 @@ driving the coordinates it owns, as each JAX process drives its devices:
   every process; gradients are summed over the process's own replicas,
   then over the stage's data group, so every replica holds the global
   gradient;
+- tensor parallelism: a stage with ``shards`` runs, per replica, the
+  process's own shards of it together (``parallel/tensor.py::Shards``):
+  each sharded product per shard, the row-parallel products summed over
+  the model coordinates, so every coordinate returns the same activation;
+  a stage without ``shards`` on a model mesh runs once per process,
+  replicated, as the JAX package runs it redundantly;
 - dropout: each microbatch draws one stream, seeded from the key (the key
   itself for the batch's microbatch 0, ``ops.random.fold_in(key, g)`` for
   microbatch ``g`` after it), stage after stage: a stage's generator
@@ -74,6 +81,9 @@ from simple_distributed_machine_learning_tpu_torch.parallel import (
 from simple_distributed_machine_learning_tpu_torch.parallel.staging import (
     stage_meta,
 )
+from simple_distributed_machine_learning_tpu_torch.parallel.tensor import (
+    Shards,
+)
 
 #: the collective schedules of the JAX package's ``parallel/overlap.py``
 OVERLAP_CHOICES = ("none", "ring")
@@ -95,13 +105,21 @@ class Stage:
     for the first stage); the last stage returns log-probabilities.
     ``params`` is the stage's ``nn.Module`` parameter container, which
     indexes like the JAX stage tree (``_tree.Tree``); ``key`` is a
-    ``torch.Generator`` for dropout. The JAX
-    package's ``shards``/``expert_shards`` (tensor and expert parallelism)
-    wait for the slices that port those axes.
+    ``torch.Generator`` for dropout.
+
+    ``shards``: optional per-model-shard params for tensor parallelism — a
+    tuple of ``n_model`` containers with identical leaf shapes. ``apply``
+    then receives this process's shards as ``parallel/tensor.py::Shards``
+    and must return the same (replicated) activation on every model
+    coordinate, closing each sharded group with its sum. Without
+    ``shards`` on a mesh with ``n_model > 1`` the stage is replicated.
+    The JAX ``expert_shards`` (expert parallelism) waits for ROADMAP item
+    6d.3.
     """
     apply: Callable[..., Any]
     params: Any
     in_shape: tuple[int, ...]
+    shards: tuple | None = None
 
 
 class StageParams(list):
@@ -130,6 +148,20 @@ def param_leaves(params) -> list[torch.Tensor]:
     return leaves
 
 
+def param_units(params) -> list[tuple[int, int | None, Any]]:
+    """``(s, m, module)`` for each parameter module of a list of stages,
+    in :func:`param_leaves` order: each held shard of a sharded stage
+    (``m`` its model coordinate), the module of any other stage (``m``
+    None)."""
+    out = []
+    for s, p in enumerate(params):
+        if isinstance(p, Shards):
+            out.extend((s, m, x) for m, x in enumerate(p) if x is not None)
+        elif p is not None:
+            out.append((s, None, p))
+    return out
+
+
 def _cast_tree(module, dtype: torch.dtype | None, device=None):
     """A stage module as a tree of dicts and lists of its tensors cast to
     ``dtype`` and moved to ``device`` — differentiable casts, so gradients
@@ -137,6 +169,9 @@ def _cast_tree(module, dtype: torch.dtype | None, device=None):
     around the apply)."""
     if isinstance(module, torch.Tensor):
         return module.to(device=device, dtype=dtype)
+    if isinstance(module, Shards):
+        return Shards([_cast_tree(m, dtype, device) for m in module],
+                      module.group)
     if isinstance(module, (nn.ModuleList, list)):
         return [_cast_tree(m, dtype, device) for m in module]
     if isinstance(module, dict):
@@ -170,7 +205,8 @@ class Pipeline:
     ``schedule`` is
     ``"gpipe"`` or ``"1f1b"``, the same on one stage; ``overlap`` is
     ``"none"`` (the JAX default), and ``"ring"``, the chunked ring that
-    replaces the collectives of a sharded mesh, waits for ROADMAP item 6.
+    replaces the collectives of a sharded mesh, waits for ROADMAP item
+    6d.4.
     ``compute_dtype`` casts the parameters and float activations to that
     dtype around each stage apply; master parameters and the loss stay
     f32. Token ids (the input of a stage that holds the ``embed`` table)
@@ -197,7 +233,7 @@ class Pipeline:
         self.overlap = check_overlap(overlap)
         if overlap == "ring":
             raise _roadmap.not_ported("Pipeline(overlap='ring')",
-                                      _roadmap.PARALLEL_AXES)
+                                      _roadmap.OVERLAP)
         self.stages = list(stages)
         if mesh is None:
             devices = [resolve_device(device)]
@@ -214,10 +250,17 @@ class Pipeline:
             raise ValueError(f"n_microbatches must be >= 1, got "
                              f"{n_microbatches}")
         self.mesh = mesh
+        self.n_model = 1 if mesh is None else mesh.n_model
+        for stage in self.stages:
+            if stage.shards is not None and len(stage.shards) != self.n_model:
+                raise ValueError(
+                    f"stage has {len(stage.shards)} model shards, mesh model "
+                    f"axis is {self.n_model}")
         # a mesh wider than one coordinate of one process runs replica by
         # replica, stage by stage; the trivial one runs the fused stage
         self._staged = mesh is not None and (
-            len(devices) > 1 or mesh.n_data > 1 or mesh.distributed)
+            len(devices) > 1 or mesh.n_data > 1 or mesh.n_model > 1
+            or mesh.distributed)
         self.devices = devices
         self.device = devices[0]
         self.out_device = devices[-1]
@@ -230,20 +273,41 @@ class Pipeline:
         # the master copy stays on the host, as the JAX package keeps its
         # initial buffer: init_params() survives any number of in-place
         # steps on the copies it hands out
-        self._params0 = [copy.deepcopy(s.params).cpu() for s in self.stages]
-        # the packed [S, 1, 1, P] layout of a checkpoint's params
-        self.metas = [stage_meta(p) for p in self._params0]
+        self._params0 = [copy.deepcopy(s.params).cpu() if s.shards is None
+                         else [copy.deepcopy(p).cpu() for p in s.shards]
+                         for s in self.stages]
+        # the packed [S, n_model, 1, P] layout of a checkpoint's params;
+        # shard 0's layout stands for a sharded stage
+        self.metas = []
+        for s, p in enumerate(self._params0):
+            metas = [stage_meta(x) for x in (p if isinstance(p, list)
+                                             else [p])]
+            if any(m.shapes != metas[0].shapes for m in metas):
+                raise ValueError(
+                    f"stage {s}: model/expert shards have differing leaf "
+                    f"shapes — sharded params must split evenly")
+            self.metas.append(metas[0])
 
     def init_params(self) -> StageParams:
         """A fresh copy of the initial per-stage parameter modules, each on
         its stage's device (None for a stage another process owns) — what
-        a train step updates in place."""
+        a train step updates in place. A sharded stage's entry is
+        :class:`~.tensor.Shards` of its ``n_model`` shard modules (None
+        for a shard another process owns)."""
         own = (range(self.n_stages) if self.mesh is None
                else self.mesh.stages)
-        return StageParams([copy.deepcopy(p).to(d) if s in own else None
-                            for s, (p, d) in enumerate(
-                                zip(self._params0, self.devices))],
-                           self.mesh)
+        out = []
+        for s, (p, d) in enumerate(zip(self._params0, self.devices)):
+            if s not in own:
+                out.append(None)
+            elif isinstance(p, list):
+                mine = (range(self.n_model) if self.mesh is None
+                        else self.mesh.shards)
+                out.append(Shards([copy.deepcopy(x).to(d) if m in mine
+                                   else None for m, x in enumerate(p)]))
+            else:
+                out.append(copy.deepcopy(p).to(d))
+        return StageParams(out, self.mesh)
 
     # ---- forward/loss -------------------------------------------------------
 
@@ -259,7 +323,8 @@ class Pipeline:
         h = h.reshape((h.shape[0],) + tuple(stage.in_shape))
         if self.compute_dtype is not None:
             p = _cast_tree(p, self.compute_dtype)
-            if h.is_floating_point() and "embed" not in p:
+            if h.is_floating_point() and "embed" not in (
+                    p[0] if isinstance(p, Shards) else p):
                 h = h.to(self.compute_dtype)
         return stage.apply(p, h, gen, deterministic)
 
@@ -338,7 +403,8 @@ class Pipeline:
         if values is None:
             values = torch.zeros(size, dtype=torch.float64,
                                  device=self.device)
-        return mesh_lib.broadcast(values, mesh.owner(0, self.n_stages - 1))
+        return mesh_lib.broadcast(values,
+                                  mesh.owner(0, self.n_stages - 1, 0))
 
     def _stream_seed(self, key, deterministic: bool) -> int | None:
         """The dropout streams' seed for one call (None when deterministic):
@@ -389,10 +455,14 @@ class Pipeline:
 
     def _replica_params(self, params, d: int, s: int):
         """Stage ``s``'s parameters where replica ``d`` runs it: this
-        process's copy, or a differentiable copy on another device."""
+        process's copy, or a differentiable copy on another device; for a
+        sharded stage the process's shards, with the model group."""
         dev = self.mesh.device(d, s)
-        return (params[s] if dev == self.devices[s]
-                else _cast_tree(params[s], None, dev))
+        p = params[s]
+        if isinstance(p, Shards):
+            p = Shards([p[m] for m in self.mesh.model_range(d, s)],
+                       self.mesh.model_group(d, s))
+        return p if dev == self.devices[s] else _cast_tree(p, None, dev)
 
     # the wire between processes: a stage's output (and the dropout state
     # the next stage starts from) forward, its gradient back; tags keep the

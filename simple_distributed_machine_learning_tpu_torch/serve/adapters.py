@@ -42,6 +42,9 @@ from simple_distributed_machine_learning_tpu_torch._device import (
     resolve_device,
 )
 from simple_distributed_machine_learning_tpu_torch.models import lora
+from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+    make_adapter_bank_update,
+)
 
 
 def validate_adapter_name(name: str) -> None:
@@ -89,6 +92,7 @@ class AdapterStore:
             lora.check_adapter_shapes(weights, cfg, rank)
         self.bank = lora.stack_adapters(
             [lora.zero_adapter(cfg, rank, self.device)] * self.n_rows)
+        self._upload = make_adapter_bank_update()
         self._ver: dict[str, int] = {}          # name -> host version
         self._rows: list = [None] * self.n_rows  # row -> (name, ver) | None
         self._refs = [0] * self.n_rows           # row -> in-flight requests
@@ -144,11 +148,9 @@ class AdapterStore:
         if row is not None:
             return row
         row = self._alloc()
-        weights = self._host[name]
-        for k in lora.BANK_KEYS:
-            # in place, in stream order: a tick launched before this copy
-            # reads the row's old contents, every later one the new
-            self.bank[k][row].copy_(weights[k])
+        # in place, in stream order: a tick launched before this copy
+        # reads the row's old contents, every later one the new
+        self._upload(self.bank, row, self._host[name])
         self._rows[row] = (name, self._ver.get(name, 0))
         self._latest[name] = row
         self._swaps += 1

@@ -183,7 +183,7 @@ def _reject_unported(lint, mesh, cfg) -> None:
     if mesh is not None or cfg.n_tensor_parallel > 1:
         raise _roadmap.not_ported("tensor-parallel serving (mesh/"
                                   "n_tensor_parallel > 1)",
-                                  _roadmap.PARALLEL_AXES)
+                                  _roadmap.TP_SERVING)
     if lint:
         raise _roadmap.not_ported("the serve-program lint preflight",
                                   _roadmap.ANALYSIS)

@@ -5,9 +5,11 @@ in the other.
 One ``.npz`` holds the whole training state, written atomically (a temp
 file, then ``os.replace``) with a human-readable ``.meta.json`` sidecar:
 
-- ``params``: the packed ``[S, M, E, P]`` f32 buffer — ``[S, 1, 1, P]``
-  over S stages — each stage's leaves in ``jax.tree.flatten`` order
-  (``parallel/staging.py``);
+- ``params``: the packed ``[S, M, E, P]`` f32 buffer — ``[S, M, 1, P]``
+  over S stages and M model shards — each stage's leaves in
+  ``jax.tree.flatten`` order (``parallel/staging.py``): row ``[s, m]`` is
+  shard ``m``'s tree of a sharded stage, and a copy of the stage's tree
+  in every ``m`` of an unsharded one, as the JAX buffer stores it;
 - ``opt_<i>``: the optimizer state's leaves in ``jax.tree.flatten`` order
   of the JAX package's state;
 - ``_meta_json``: ``step``, ``n_opt_leaves`` and ``extra``.
@@ -26,8 +28,9 @@ src_pipe=...)``) for the MLP and GPT families, whose stages are a
 contiguous split — the "trained on a pod, continue on one card" case. The
 source is described by its stage metas alone (a list of
 :class:`~..parallel.staging.StageMeta`, e.g. from the port's own
-``make_mlp_stages(..., n_stages=2)`` trees), so no second ``Pipeline``
-is needed. A restore places each stage's tensors on its stage's device.
+``make_mlp_stages(..., n_stages=2)`` trees, with a one-wide model axis)
+or by a ``Pipeline``, so no second ``Pipeline`` is needed; the model axes
+must match. A restore places each stage's tensors on its stage's device.
 
 Across processes a save is a collective every process calls (JAX
 ``checkpoint.py:103-120, 143-160``): each process hands its share — the
@@ -54,6 +57,7 @@ import torch
 from simple_distributed_machine_learning_tpu_torch._tree import tree_leaves
 from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (
     param_leaves,
+    param_units,
 )
 from simple_distributed_machine_learning_tpu_torch.parallel.staging import (
     StageMeta,
@@ -82,25 +86,51 @@ def _metas(layout) -> list[StageMeta]:
     return list(layout.metas if hasattr(layout, "metas") else layout)
 
 
-def _shape(metas: Sequence[StageMeta]) -> tuple[int, int, int, int]:
-    return (len(metas), 1, 1, max((m.total for m in metas), default=0))
+def _n_model(layout) -> int:
+    """The model axis of a layout: a ``Pipeline``'s, 1 for bare metas."""
+    return int(getattr(layout, "n_model", 1))
+
+
+def _shape(metas: Sequence[StageMeta], n_model: int = 1
+           ) -> tuple[int, int, int, int]:
+    return (len(metas), n_model, 1, max((m.total for m in metas), default=0))
 
 
 def _jax_order(params) -> list[list[int]]:
-    """Per stage module, the indices into ``param_leaves(params)`` (the
-    optimizer's order) of its leaves in ``jax.tree.flatten`` order."""
+    """Per stage, the indices into ``param_leaves(params)`` (the
+    optimizer's order) of its leaves in ``jax.tree.flatten`` order (a
+    sharded stage's held shards one after another)."""
+    out: list[list[int]] = [[] for _ in params]
+    for _, s, _, idx in _units(params):
+        out[s].extend(idx)
+    return out
+
+
+def _units(params) -> list[tuple]:
+    """``(key, s, m, idx)`` per held module (``parallel/pipeline.py::
+    param_units``): ``key`` is ``s`` for an unsharded stage (``m`` None)
+    and ``(s, m)`` for shard ``m``; ``idx`` the indices into
+    ``param_leaves(params)`` of its leaves in ``jax.tree.flatten``
+    order."""
     pos = {id(t): i for i, t in enumerate(param_leaves(params))}
-    return [[] if stage is None else [pos[id(t)] for t in tree_leaves(stage)]
-            for stage in params]
+    return [(s if m is None else (s, m), s, m,
+             [pos[id(t)] for t in tree_leaves(module)])
+            for s, m, module in param_units(params)]
+
+
+def unit_coords(key) -> tuple[int, int | None]:
+    """A ZeRO-1 range's key as ``(stage, model shard or None)``."""
+    return (key, None) if isinstance(key, int) else key
 
 
 def _unpack(arr: np.ndarray, like: Sequence[torch.Tensor], order
             ) -> list[torch.Tensor]:
-    """A packed ``[S, 1, 1, width]`` buffer -> new tensors shaped, typed
-    and placed like ``like`` (in ``param_leaves`` order)."""
+    """A packed ``[S, M, 1, width]`` buffer -> new tensors shaped, typed
+    and placed like ``like`` (in ``param_leaves`` order): a shard from its
+    row ``[s, m]``, an unsharded stage from ``[s, 0]``."""
     out: list[Any] = [None] * len(like)
-    for s, idx in enumerate(order):
-        row, off = torch.from_numpy(np.asarray(arr[s, 0, 0])), 0
+    for _, s, m, idx in order:
+        row, off = torch.from_numpy(np.asarray(arr[s, m or 0, 0])), 0
         for i in idx:
             n = like[i].numel()
             out[i] = row[off:off + n].reshape(like[i].shape).to(
@@ -132,9 +162,13 @@ def _opt_state(like, leaves, unpack):
     ``like`` comes back as a ZeRO-1 state with this process's slices."""
     if isinstance(like, Zero1State):
         def slices(arr, shards):
-            return [torch.from_numpy(np.array(arr[s, 0, 0, lo:hi])).to(
-                device=t.device, dtype=t.dtype)
-                for (s, (lo, hi)), t in zip(like.ranges.items(), shards)]
+            out = []
+            for (key, (lo, hi)), t in zip(like.ranges.items(), shards):
+                s, m = unit_coords(key)
+                out.append(torch.from_numpy(np.array(
+                    arr[s, m or 0, 0, lo:hi])).to(device=t.device,
+                                                  dtype=t.dtype))
+            return out
 
         z = copy.copy(like)
         z.inner = _opt_state(like.inner, leaves, slices)
@@ -167,31 +201,39 @@ def _gather_state(params, opt_state: Any, step: int,
     others. A collective across processes (every process calls it)."""
     mesh = getattr(params, "mesh", None)
     distributed = mesh is not None and mesh.distributed
-    order = _jax_order(params)
+    order = _units(params)
+    n_model = 1 if mesh is None else mesh.n_model
     leaves = param_leaves(params)
-    pieces: list = []          # (buffer, stage, first element, values)
-    totals = {s: sum(leaves[i].numel() for i in idx)
-              for s, idx in enumerate(order) if params[s] is not None}
+    pieces: list = []          # (buffer, stage, model rows, first, values)
+    totals = {key: sum(leaves[i].numel() for i in idx)
+              for key, _, _, idx in order}
+
+    def rows(m):
+        """The model rows a module fills: its shard's, or every row of an
+        unsharded stage (the JAX buffer stores it replicated)."""
+        return range(n_model) if m is None else (m,)
+
     n_bufs = 0
 
     def pack(per_tensor) -> int:
-        """A replicated buffer: each stage's row from the process of its
-        replica 0. Returns the buffer's index."""
+        """A replicated buffer: each module's row from the process of its
+        replica 0 (model coordinate 0 for an unsharded stage). Returns the
+        buffer's index."""
         nonlocal n_bufs
         n_bufs += 1
-        for s, idx in enumerate(order):
-            if params[s] is not None and (not distributed
-                                          or mesh.owns(0, s)):
-                pieces.append((n_bufs - 1, s, 0, flatten_row(
-                    [per_tensor[i] for i in idx], totals[s]).numpy()))
+        for key, s, m, idx in order:
+            if not distributed or mesh.owns(0, s, m or 0):
+                pieces.append((n_bufs - 1, s, rows(m), 0, flatten_row(
+                    [per_tensor[i] for i in idx], totals[key]).numpy()))
         return n_bufs - 1
 
     def pack_shards(shards) -> int:
         """A ZeRO-1 buffer: every process's slices."""
         nonlocal n_bufs
         n_bufs += 1
-        for (s, (lo, _)), t in zip(opt_state.ranges.items(), shards):
-            pieces.append((n_bufs - 1, s, lo,
+        for (key, (lo, _)), t in zip(opt_state.ranges.items(), shards):
+            s, m = unit_coords(key)
+            pieces.append((n_bufs - 1, s, rows(m), lo,
                            t.detach().float().cpu().numpy()))
         return n_bufs - 1
 
@@ -207,10 +249,11 @@ def _gather_state(params, opt_state: Any, step: int,
         pieces = [p for ps, _ in every for p in ps]
         totals = {s: t for _, ts in every for s, t in ts.items()}
     width = max(totals.values(), default=0)
-    out = [np.zeros((len(params), 1, 1, width), np.float32)
+    out = [np.zeros((len(params), n_model, 1, width), np.float32)
            for _ in range(n_bufs)]
-    for k, s, lo, vals in pieces:
-        out[k][s, 0, 0, lo:lo + len(vals)] = vals
+    for k, s, ms, lo, vals in pieces:
+        for m in ms:
+            out[k][s, m, 0, lo:lo + len(vals)] = vals
     # a buffer comes back as its index, a step counter as an int32 array
     arrays = {"params": out[packed_params]}
     for i, leaf in enumerate(opt):
@@ -377,30 +420,41 @@ def split_layout(layout, n_stages: int) -> list[StageMeta]:
     return [stage_meta(t) for t in repack_stage_trees(trees, n_stages)]
 
 
+def _check_model_axes(src, dst) -> None:
+    if _n_model(src) != _n_model(dst):
+        raise ValueError(
+            f"model/expert axes must match to repack: source "
+            f"{_n_model(src)}x1, target {_n_model(dst)}x1")
+
+
 def repack_packed_buffer(arr: np.ndarray, src, dst) -> np.ndarray:
-    """Re-split a packed ``[S_src, 1, 1, P_src]`` buffer (params, momentum,
-    Adam moments) into ``dst``'s ``[S_dst, 1, 1, P_dst]`` layout. ``src``
-    and ``dst`` are each a ``Pipeline`` or a list of ``StageMeta``; same
-    model, another contiguous stage split."""
+    """Re-split a packed ``[S_src, M, 1, P_src]`` buffer (params, momentum,
+    Adam moments) into ``dst``'s ``[S_dst, M, 1, P_dst]`` layout, each
+    model row on its own. ``src`` and ``dst`` are each a ``Pipeline`` or a
+    list of ``StageMeta`` (a one-wide model axis); same model, another
+    contiguous stage split, the same model axis."""
+    _check_model_axes(src, dst)
     src_m, dst_m = _metas(src), _metas(dst)
     arr = np.asarray(arr)
-    if tuple(arr.shape) != _shape(src_m):
+    if tuple(arr.shape) != _shape(src_m, _n_model(src)):
         raise ValueError(
             f"buffer {tuple(arr.shape)} does not match the source packed "
-            f"layout {_shape(src_m)}")
-    trees = [unpack_stage_params(torch.from_numpy(arr[s, 0, 0].copy()), m)
-             for s, m in enumerate(src_m)]
-    out_shape = _shape(dst_m)
+            f"layout {_shape(src_m, _n_model(src))}")
+    out_shape = _shape(dst_m, _n_model(dst))
     out = np.zeros(out_shape, np.float32)
-    for s, t in enumerate(repack_stage_trees(trees, len(dst_m))):
-        leaves = tree_leaves(t)
-        shapes = tuple(tuple(leaf.shape) for leaf in leaves)
-        if shapes != dst_m[s].shapes:
-            raise ValueError(
-                f"re-split stage {s} leaf shapes {shapes} do not match the "
-                f"target's {dst_m[s].shapes} — source and target must build "
-                f"the same model")
-        out[s, 0, 0] = flatten_row(leaves, out_shape[-1]).numpy()
+    for mi in range(out_shape[1]):
+        trees = [unpack_stage_params(
+            torch.from_numpy(arr[s, mi, 0].copy()), m)
+            for s, m in enumerate(src_m)]
+        for s, t in enumerate(repack_stage_trees(trees, len(dst_m))):
+            leaves = tree_leaves(t)
+            shapes = tuple(tuple(leaf.shape) for leaf in leaves)
+            if shapes != dst_m[s].shapes:
+                raise ValueError(
+                    f"re-split stage {s} leaf shapes {shapes} do not match "
+                    f"the target's {dst_m[s].shapes} — source and target "
+                    f"must build the same model")
+            out[s, mi, 0] = flatten_row(leaves, out_shape[-1]).numpy()
     return out
 
 
@@ -409,8 +463,9 @@ def repack_checkpoint(path_in: str, path_out: str, src, dst) -> None:
     ``dst``'s (params and every buffer-shaped optimizer leaf; scalar
     leaves pass through). ``src``/``dst``: a ``Pipeline`` or a list of
     ``StageMeta``."""
+    _check_model_axes(src, dst)
     arrays, meta = _load_npz(path_in)
-    src_shape = _shape(_metas(src))
+    src_shape = _shape(_metas(src), _n_model(src))
     for k in list(arrays):
         if k == "params" or (k.startswith("opt_")
                              and tuple(arrays[k].shape) == src_shape):
@@ -443,9 +498,9 @@ def restore_checkpoint(path: str, pipe=None, opt_treedef_like: Any = None,
             raise ValueError("restoring the optimizer state needs the "
                              "pipeline (pipe=) for its parameter layout")
         return out
-    want = _shape(pipe.metas)
+    want = _shape(pipe.metas, pipe.n_model)
     if tuple(packed.shape) != want and src_pipe is not None:
-        src_shape = _shape(_metas(src_pipe))
+        src_shape = _shape(_metas(src_pipe), _n_model(src_pipe))
         packed = repack_packed_buffer(packed, src_pipe, pipe)
         opt = [repack_packed_buffer(leaf, src_pipe, pipe)
                if tuple(leaf.shape) == src_shape else leaf for leaf in opt]
@@ -456,7 +511,7 @@ def restore_checkpoint(path: str, pipe=None, opt_treedef_like: Any = None,
             f"(different model/topology config? pass src_pipe= to re-pack "
             f"a contiguous-split model across stage counts)")
     params = pipe.init_params()
-    order = _jax_order(params)
+    order = _units(params)
     leaves = param_leaves(params)
     with torch.no_grad():
         for t, v in zip(leaves, _unpack(packed, leaves, order)):

@@ -38,6 +38,10 @@ from simple_distributed_machine_learning_tpu_torch.parallel import (
 )
 from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (
     param_leaves,
+    param_units,
+)
+from simple_distributed_machine_learning_tpu_torch.parallel.tensor import (
+    is_sharded_leaf,
 )
 
 
@@ -113,21 +117,35 @@ def adamw(learning_rate, b1: float = 0.9, b2: float = 0.999,
 
 def global_grad_norm(grads, params) -> torch.Tensor:
     """The global L2 norm of ``grads`` (aligned with ``param_leaves(params)``)
-    on the first gradient's device: each stage's per-tensor norms in one
-    multi-tensor launch, their squares summed in stage order. Across
-    processes (a ``StageParams`` on a distributed mesh) every stage counts
-    once — its sum comes from the process of its replica 0, whatever the
-    data width — and the sums are added over the world."""
+    on the first gradient's device: each module's per-tensor norms in one
+    multi-tensor launch, their squares summed in module order. Every
+    parameter of the model counts once, whatever the data and model
+    widths: an unsharded stage once (the JAX ``replication_weights()``'
+    ``1 / n_model``), a sharded stage's split leaves from every shard and
+    its replicated leaves (norms, ``mlp_out.b``, embed, head) from shard 0
+    only. The JAX package counts those replicated leaves once per shard
+    (its weight is 1 for a whole sharded row); the port departs there, so
+    that ``--tp M --clip-norm`` clips as the dense model does (ROADMAP.md,
+    Queue C). Across processes (a ``StageParams`` on a distributed mesh)
+    each module's sum comes from the process of its replica 0 (model
+    coordinate 0 for an unsharded stage) and the sums are added over the
+    world."""
     mesh = getattr(params, "mesh", None)
     distributed = mesh is not None and mesh.distributed
     dev = grads[0].device
-    counts = ([len(grads)] if isinstance(params, nn.Module)
-              else [0 if p is None else len(param_leaves([p]))
-                    for p in params])
+    units = ([(0, None, params)] if isinstance(params, nn.Module)
+             else param_units(params))
     parts, k = [], 0
-    for s, c in enumerate(counts):
+    for s, m, module in units:
+        c = len(param_leaves([module]))
         gs, k = grads[k:k + c], k + c
-        if gs and (not distributed or mesh.owns(0, s)):
+        if m:
+            # a replicated leaf of shard m > 0 is shard 0's over again
+            names = [n for n, _ in module.named_parameters()]
+            gs = [g for g, n in zip(gs, names)
+                  if is_sharded_leaf(n.split("."))]
+        if gs and (not distributed
+                   or mesh.owns(0, s, 0 if m is None else m)):
             norms = torch._foreach_norm(gs, 2, dtype=torch.float32)
             parts.append(torch.stack(norms).square().sum().to(dev))
     sq = sum(parts) if parts else torch.zeros((), device=dev)
@@ -139,12 +157,13 @@ def global_grad_norm(grads, params) -> torch.Tensor:
 def clip_by_global_norm(opt: Optimizer, max_norm: float) -> Optimizer:
     """Wrap ``opt`` with torch ``clip_grad_norm_`` semantics: scale every
     gradient by ``min(1, max_norm / (norm + 1e-6))``, ``norm`` the global
-    L2 norm over all of them (:func:`global_grad_norm`: each stage once,
-    over the stage ring across processes; the scale sent back to each
-    gradient's device), before the inner update. (The JAX package's
-    ``norm_weights``, the replication correction of its packed buffer over
-    the model and expert axes, waits for those axes: over stages and data
-    replicas every parameter is counted once.)"""
+    L2 norm over all of them (:func:`global_grad_norm`, summed over the
+    processes; the scale sent back to each
+    gradient's device), before the inner update. The norm counts every
+    parameter once, as ``clip_by_global_norm(..., Pipeline.
+    replication_weights())`` of the JAX package intends, except for the
+    replicated leaves of a sharded stage, which the JAX norm counts once
+    per shard (:func:`global_grad_norm`)."""
     @torch.no_grad()
     def update(grads, state, params):
         norm = global_grad_norm(grads, params)
@@ -157,18 +176,20 @@ def clip_by_global_norm(opt: Optimizer, max_norm: float) -> Optimizer:
 
 class Zero1State:
     """An optimizer state sharded over the data axis (ZeRO-1; JAX
-    ``optimizer.py:161-199``). Stage ``s``'s packed vector (its leaves in
-    ``jax.tree.flatten`` order, ``train/checkpoint.py``'s row) splits into
-    ``n_data`` chunks of ``P / n_data`` elements, ``P`` the packed width;
-    data replica ``d`` keeps the state of chunk ``d``. This process keeps
-    the chunks of the replicas it owns a stage of: ``ranges[s] = (lo,
-    hi)``, contiguous. ``inner`` is the inner optimizer's state over those
-    slices (one flat tensor per owned stage where the unsharded state has
-    one per parameter); an update runs the inner rule on the slices of the
-    parameters and gradients, then gathers the parameters over each
-    stage's data group (a broadcast per chunk from its owner), so every
-    replica holds the updated parameters — elementwise the same numbers as
-    the replicated update."""
+    ``optimizer.py:161-199``). Each held module's packed vector (stage
+    ``s``'s leaves, or shard ``m``'s, in ``jax.tree.flatten`` order:
+    ``train/checkpoint.py``'s row ``[s, m]``) splits into ``n_data``
+    chunks of ``P / n_data`` elements, ``P`` the packed width; data
+    replica ``d`` keeps the state of chunk ``d``. This process keeps the
+    chunks of the replicas it owns the stage of: ``ranges[s] = (lo, hi)``
+    (``ranges[(s, m)]`` for shard ``m`` of a sharded stage), contiguous. ``inner`` is the
+    inner optimizer's state over those slices (one flat tensor per held
+    module where the unsharded state has one per parameter); an update
+    runs the inner rule on the slices of the parameters and gradients,
+    then gathers the parameters over each stage's data group (a broadcast
+    per chunk from its owner), so every replica holds the updated
+    parameters — elementwise the same numbers as the replicated
+    update."""
 
     def __init__(self, inner, ranges: dict, order: list, chunk: int,
                  totals: dict, mesh) -> None:
@@ -183,9 +204,9 @@ class Zero1State:
         """Per-parameter tensors (``param_leaves`` order) -> this process's
         flat slices, one per owned stage."""
         out = []
-        for s, (lo, hi) in self.ranges.items():
+        for unit, (lo, hi) in self.ranges.items():
             flat = torch.cat([per_tensor[i].reshape(-1)
-                              for i in self.order[s]])
+                              for i in self.order[unit]])
             out.append(flat[lo:hi].clone())
         return out
 
@@ -193,13 +214,14 @@ class Zero1State:
         """Write the updated slices back into ``params`` with every other
         replica's: each chunk comes from the process that owns it."""
         leaves = param_leaves(params)
-        for (s, (lo, hi)), mine in zip(self.ranges.items(), shards):
-            idx = self.order[s]
+        for (unit, (lo, hi)), mine in zip(self.ranges.items(), shards):
+            s = unit if isinstance(unit, int) else unit[0]
+            idx = self.order[unit]
             full = torch.cat([leaves[i].detach().reshape(-1) for i in idx])
             group = self.mesh.data_group(s)
             for d in range(self.mesh.n_data):
-                a = min(d * self.chunk, self.totals[s])
-                b = min((d + 1) * self.chunk, self.totals[s])
+                a = min(d * self.chunk, self.totals[unit])
+                b = min((d + 1) * self.chunk, self.totals[unit])
                 if a == b:
                     continue
                 if lo <= a and b <= hi:
@@ -244,8 +266,8 @@ def shard_opt_state_zero1(state: Any, mesh=None, param_spec=None,
     if mesh is None or mesh.n_data == 1:
         return state
     from simple_distributed_machine_learning_tpu_torch.train.checkpoint import (  # noqa: E501
-        _jax_order,
         _metas,
+        _units,
     )
     D = mesh.n_data
     width = max(m.total for m in _metas(param_spec))
@@ -262,15 +284,15 @@ def shard_opt_state_zero1(state: Any, mesh=None, param_spec=None,
                 f"axis {D} — this state leaf stays REPLICATED (no memory "
                 f"saving)\n")
         return state
-    order = _jax_order(params)
     leaves = param_leaves(params)
     chunk = width // D
-    ranges, totals = {}, {}
-    for s in mesh.stages:
-        totals[s] = sum(leaves[i].numel() for i in order[s])
+    ranges, totals, order = {}, {}, {}
+    for unit, s, _, idx in _units(params):
+        order[unit] = idx
+        totals[unit] = sum(leaves[i].numel() for i in idx)
         ds = [d for d in range(D) if mesh.owns(d, s)]
-        ranges[s] = (min(ds[0] * chunk, totals[s]),
-                     min((ds[-1] + 1) * chunk, totals[s]))
+        ranges[unit] = (min(ds[0] * chunk, totals[unit]),
+                        min((ds[-1] + 1) * chunk, totals[unit]))
     z = Zero1State(None, ranges, order, chunk, totals, mesh)
 
     def shard(st):

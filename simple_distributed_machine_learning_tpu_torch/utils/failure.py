@@ -444,7 +444,10 @@ def _monitor_main(argv=None) -> None:
         except (ProcessLookupError, OSError):
             return False
 
+    aborting = threading.Event()
+
     def kill_parent(what: str) -> None:
+        aborting.set()
         sys.stderr.write(_abort_message(args.rank, what))
         sys.stderr.flush()
         if _signal_parent(signal.SIGTERM):
@@ -498,6 +501,12 @@ def _monitor_main(argv=None) -> None:
     clean = False
     stopped_since = None
     while True:
+        if aborting.is_set():
+            # the trainer may exit gracefully on this monitor's SIGTERM and
+            # send its quit byte: that exit is the abort's, not a clean
+            # stop, and kill_parent ends this process with EXIT_PEER_LOST
+            time.sleep(args.interval)
+            continue
         r, _, _ = select.select([sys.stdin], [], [], args.interval)
         if r:
             data = os.read(sys.stdin.fileno(), 64)

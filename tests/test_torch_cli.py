@@ -147,10 +147,10 @@ def test_cli_metrics_json(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--tp", "2", "--world_size", "2"], "item 6"),
+    (["--sp", "2", "--world_size", "2"], "item 6"),
     (["--serve-sim", "4", "--model", "gpt", "--world_size", "2"], "item 6c"),
     (["--scenario", "list", "--world_size", "2"], "item 6c"),
-    (["--tp", "2"], "item 6"),
+    (["--overlap", "ring", "--tp", "2"], "item 6"),
     (["--sp", "2"], "item 6"),
     (["--ep", "2"], "item 6"),
     (["--experts", "4"], "item 6"),

@@ -214,7 +214,8 @@ def test_sampled_top1_equals_greedy_and_seeds_reproduce():
     dict(attn_impl="ulysses", n_seq=2),
     dict(n_experts=4),
     dict(attn_impl="ring", n_seq=2),
-    dict(n_tensor_parallel=2),
+    dict(tp_serving=dict(n_tensor_parallel=2),
+         item="item 6, remaining parallel axes: 6e"),
     # serving builds: the dense slot-row target, speculation over it,
     # tracing and the flight recorder are ported; the TP slot programs
     # still name their item, as --tp and the linter name theirs
@@ -222,7 +223,7 @@ def test_sampled_top1_equals_greedy_and_seeds_reproduce():
     dict(engine=dict(kv_layout="dense", spec_k=2, draft=True), item=None),
     dict(engine=dict(trace=True), item=None),
     dict(engine=dict(flight=True), item=None),
-    dict(cli=["--tp", "2"],
+    dict(cli=["--tp", "2", "--overlap", "ring"],
          item="item 6, remaining parallel axes"),
     dict(cli=["--lint"], item="item 7, analysis"),
     dict(slot_decode=dict(mesh=object()),
@@ -232,8 +233,9 @@ def test_sampled_top1_equals_greedy_and_seeds_reproduce():
     dict(engine=dict(kv_layout="dense", adapters=True), item=None),
 ])
 def test_unported_configs_raise_with_roadmap_item(kw):
-    """MoE, sequence and tensor parallelism are all item 6's axes; the
-    serving knobs name theirs, and what is ported builds."""
+    """MoE and sequence parallelism are item 6's axes; tensor-parallel
+    stages train, and serving them names item 6e; the serving knobs name
+    theirs, and what is ported builds."""
     if "item" not in kw:
         with pytest.raises(NotImplementedError,
                            match=r"ROADMAP\.md, Queue A: item 6, remaining "
@@ -244,6 +246,14 @@ def test_unported_configs_raise_with_roadmap_item(kw):
     from simple_distributed_machine_learning_tpu_torch.serve import (
         InferenceEngine,
     )
+    if "tp_serving" in kw:
+        cfg = tgpt.GPTConfig(**{**SMALL, **kw["tp_serving"]})
+        stages = tgpt.make_gpt_stages(0, cfg, 1, device="cpu")[0]
+        assert stages[0].shards is not None
+        with pytest.raises(NotImplementedError,
+                           match=rf"ROADMAP\.md, Queue A: {kw['item']}"):
+            tgpt.make_cached_decoder(stages, cfg, 4, 2, device="cpu")
+        return
     if "cli" in kw:
         from simple_distributed_machine_learning_tpu_torch.cli import main
         with pytest.raises(SystemExit,

@@ -247,7 +247,7 @@ def test_param_leaves_follow_the_jax_order_for_mlp_and_lenet():
 def test_two_stage_pipeline_raises_naming_item_6(builder):
     """Two stages need a stage mesh of two; a data axis beside them runs
     (each replica its half of the batch: the loss is the one-replica
-    run's); a model axis names item 6 (6d)."""
+    run's); a sequence axis names item 6 (6d.2)."""
     from simple_distributed_machine_learning_tpu_torch.parallel import (
         make_mesh,
     )
@@ -258,7 +258,7 @@ def test_two_stage_pipeline_raises_naming_item_6(builder):
         Pipeline(stages, None, device="cpu")
     with pytest.raises(NotImplementedError,
                        match="item 6, remaining parallel axes"):
-        make_mesh(2, n_model=2, devices=["cpu"] * 4)
+        make_mesh(2, n_seq=2, devices=["cpu"] * 4)
     two = Pipeline(stages, make_mesh(2, n_data=2, devices=["cpu"] * 4))
     one = Pipeline(stages, make_mesh(2, devices=["cpu"] * 2),
                    n_microbatches=2)

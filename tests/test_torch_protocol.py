@@ -279,7 +279,7 @@ def test_cli_output_and_exit_code_match_jax(argv, env, monkeypatch):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--hostlint"], "item 7.2, hostlint"),
+    (["--serve", "--hostlint"], "item 7.4"),
     (["--serve"], "item 7.4"),
     (["--dryrun", "8"], "item 7.4"),
 ])

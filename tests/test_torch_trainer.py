@@ -254,9 +254,11 @@ def test_one_card_mesh_bootstrap_and_zero1(capsys):
         shard_opt_state_zero1,
     )
     assert make_mesh() is None and make_mesh(n_stages=1, n_data=1) is None
-    for axis in ("n_model", "n_seq", "n_expert"):
+    for axis in ("n_seq", "n_expert"):
         with pytest.raises(NotImplementedError, match="item 6"):
             make_mesh(**{axis: 2})
+    # the model axis is ported (item 6d.1)
+    assert make_mesh(n_model=2, devices=["cpu"] * 2).shape["model"] == 2
     # the stage and data axes are ported: over listed devices, or the
     # visible cards
     assert make_mesh(n_stages=2, devices=["cpu", "cpu"]).n_stages == 2
