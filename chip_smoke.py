@@ -309,6 +309,23 @@ or without the port beside it. Phases, each fatal on failure:
    line; (c) ``python -m ...analysis --hostlint`` exiting 0 on the tree,
    and the torch-free ``analysis/hostlint.py`` exiting 0 in a subprocess
    with torch and jax blocked.
+18. sequence and expert parallelism on the one card: (a) the gpt_bf16 row
+   (dense attention) at ``n_seq`` 2 and 4 with ring attention and with
+   Ulysses, ``SPEP_STEPS`` AdamW steps from the weights and batch of the
+   dense ``n_seq`` = 1 run: losses within ``SPEP_BF16_RTOL`` of its, no
+   flash launch; (b) the row as a mixture of experts (``EP_MOE``: 8
+   experts, top 2, capacity factor 2.0, ``attn_impl="flash"``) at
+   ``n_expert_parallel`` 1, 2 and 4: losses and aux within
+   ``SPEP_BF16_RTOL`` of ep 1's, K1, K2 and K3 each exactly ``n_layers``
+   launches per step (counted into the ``kernels`` line); for every run
+   the host-clock step p50, the peak memory and (a profiled window in a
+   process of its own) launches per step and the device's busy share;
+   (c) the CLI: ``--model gpt --sp 2`` with ``--attn ring`` and
+   ``ulysses`` at 2 stages under GPipe and 1F1B, ``--experts 4 --ep 2
+   --attn flash`` at 2 stages, and ``--sp 2`` and ``--experts 4 --ep 2``
+   at 1 stage over two processes (the axis split between them), each
+   run's train and eval losses within ``STAGE_CLI_RTOL`` of its ``--sp
+   1`` / ``--ep 1`` twin.
 
 Before the last line it prints the kernels as one JSON object (times in
 ms, measured in this run; ``bound_ms`` computed from this run's inputs);
@@ -635,6 +652,22 @@ TP_WIDTHS, TP_STEPS, TP_PROFILED_STEPS = (1, 2, 4), 10, 5
 TP_BF16_RTOL, TP_F32_RTOL = 1e-2, 1e-5
 TP_CLI_STEPS = 10
 TP_MLP_DIMS = [784, 512, 512, 512, 10]
+# phase 18: sequence and expert parallelism on the one card — (a) the
+# gpt_bf16 row at each SP_RUNS (attention, n_seq), (b) as a mixture of
+# experts (EP_MOE) at each EP_WIDTHS width, SPEP_STEPS AdamW steps each
+# from the same weights, losses held to the n_seq = 1 / ep = 1 run's
+# within SPEP_BF16_RTOL (bf16: a chunk's or a coordinate's products round
+# in another order, and a near tie in the router can flip a token's
+# expert); SPEP_PROFILED_STEPS profiled in a process of its own; (c) the
+# CLI, SPEP_CLI_STEPS steps in one process and over two
+SP_RUNS = (("dense", 1), ("ring", 2), ("ring", 4), ("ulysses", 2),
+           ("ulysses", 4))
+EP_WIDTHS = (1, 2, 4)
+EP_MOE = dict(n_experts=8, moe_top_k=2, moe_capacity_factor=2.0,
+              attn_impl="flash")
+SPEP_STEPS, SPEP_PROFILED_STEPS = 6, 3
+SPEP_BF16_RTOL = 1e-2
+SPEP_CLI_STEPS = 10
 
 
 class SmokeFailure(RuntimeError):
@@ -6154,6 +6187,286 @@ def phase_tensor_parallel(record: dict) -> None:
           + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items()) + ")")
 
 
+def _spep_cfg(run: tuple):
+    """The gpt_bf16 row's config for one phase 18 run: ``("sp", attn,
+    n_seq)`` or ``("ep", width)``."""
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        GPTConfig,
+    )
+    row = TRAIN_ROWS["gpt_bf16"]["cfg"]
+    if run[0] == "sp":
+        return GPTConfig(**row, attn_impl=run[1], n_seq=run[2])
+    return GPTConfig(**row, **EP_MOE, n_expert_parallel=run[1])
+
+
+def _spep_pipe(run: tuple):
+    """One phase 18 run's pipeline on the one card (weights from seed 0:
+    every n_seq draws the same model, every expert width slices the same
+    dense init) and its AdamW."""
+    import torch
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        make_gpt_stages,
+    )
+    from simple_distributed_machine_learning_tpu_torch.parallel import (
+        Pipeline,
+        make_mesh,
+    )
+    from simple_distributed_machine_learning_tpu_torch.train import adamw
+    cfg = _spep_cfg(run)
+    stages, wd, od = make_gpt_stages(0, cfg, 1, device=MAIN_DEVICE)
+    q, e = cfg.n_seq, cfg.n_expert_parallel
+    mesh = (make_mesh(1, n_seq=q, n_expert=e, devices=[_stage_card()] * q * e)
+            if q * e > 1 else None)
+    pipe = Pipeline(stages, mesh, wd, od, compute_dtype=torch.bfloat16,
+                    device=None if mesh else MAIN_DEVICE)
+    return cfg, pipe, adamw(1e-3)
+
+
+def _spep_steps(run: tuple, steps: int) -> dict:
+    """``steps`` train steps of one run from fresh weights on one batch:
+    the losses, each step's host-clock ms (synchronised), the peak memory,
+    the flash launches and, after the steps, the aux term (the
+    deterministic loss less its NLL)."""
+    import torch
+
+    from simple_distributed_machine_learning_tpu_torch.train import (
+        make_train_step,
+    )
+    cfg, pipe, opt = _spep_pipe(run)
+    x, t = _stage_batch(cfg, TRAIN_ROWS["gpt_bf16"]["batch"], 7)
+    params = pipe.init_params()
+    state = opt.init(params)
+    step = make_train_step(pipe, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_flash_counts()
+    losses, ms = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, x, t, i)
+        losses.append(float(loss))             # synchronises the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+    flash = _flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        det = float(pipe.loss(params, x, t, deterministic=True))
+        num, den, _ = pipe.eval_metrics(params, x, t)
+    out = dict(losses=losses, step_ms=ms, peak_bytes=peak, flash=flash,
+               aux=det - float(num) / float(den))
+    del params, state, pipe
+    torch.cuda.empty_cache()
+    return out
+
+
+def _spep_runs() -> list[tuple]:
+    return ([("sp",) + r for r in SP_RUNS]
+            + [("ep", w) for w in EP_WIDTHS])
+
+
+def spep_profile() -> dict:
+    """(a) and (b)'s profiled window: ``SPEP_PROFILED_STEPS`` steps of each
+    run under ``torch.profiler`` after 2 warm-up steps — kernel launches
+    per step and the device's busy share (run in a process of its own)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from simple_distributed_machine_learning_tpu_torch.train import (
+        make_train_step,
+    )
+    out = {}
+    for run in _spep_runs():
+        cfg, pipe, opt = _spep_pipe(run)
+        x, t = _stage_batch(cfg, TRAIN_ROWS["gpt_bf16"]["batch"], 7)
+        params = pipe.init_params()
+        state = opt.init(params)
+        step = make_train_step(pipe, opt)
+        for i in range(2):
+            params, state, _ = step(params, state, x, t, i)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(SPEP_PROFILED_STEPS):
+                params, state, _ = step(params, state, x, t, i)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy, launches = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                busy += float(getattr(e, "self_device_time_total", None)
+                              or getattr(e, "self_cuda_time_total", 0))
+                launches += e.count
+        n = SPEP_PROFILED_STEPS
+        out[repr(run)] = dict(profiled_step_ms=wall_us / 1e3 / n,
+                              device_busy_share=busy / wall_us,
+                              device_ms_per_step=busy / 1e3 / n,
+                              kernel_launches_per_step=launches / n)
+        del params, state, pipe
+        torch.cuda.empty_cache()
+    return out
+
+
+def _spep_profile_fresh() -> dict:
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import json, chip_smoke; "
+         "print(json.dumps(chip_smoke.spep_profile()))"],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0,
+          f"phase 18's profiled window: rc {proc.returncode}\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _spep_full_width(rec: dict) -> tuple[int, int, int]:
+    """(a) SP at each (attention, n_seq) against the dense run, (b) the
+    MoE at each expert width against ep 1, and where the time goes.
+    Returns (b)'s K1/K2/K3 launches, summed over its runs."""
+    import math
+    runs = {run: _spep_steps(run, SPEP_STEPS) for run in _spep_runs()}
+    prof = _spep_profile_fresh()
+    n_layers = TRAIN_ROWS["gpt_bf16"]["cfg"]["n_layers"]
+    base = {"sp": runs[("sp", "dense", 1)], "ep": runs[("ep", 1)]}
+    out, launches = {}, [0, 0, 0]
+    for run, r in runs.items():
+        name = (f"{run[1]} n_seq {run[2]}" if run[0] == "sp"
+                else f"moe ep {run[1]}")
+        ref = base[run[0]]
+        gaps = _rel_gaps(r["losses"], ref["losses"])
+        check(all(math.isfinite(v) for v in r["losses"])
+              and r["losses"][-1] < r["losses"][0],
+              f"gpt_bf16 {name}: losses do not fall: {r['losses']}")
+        check(max(gaps) <= SPEP_BF16_RTOL,
+              f"gpt_bf16 {name}: losses {r['losses']} vs {ref['losses']} "
+              f"(max rel gap {max(gaps):.2e} > {SPEP_BF16_RTOL})")
+        aux_gap = (abs(r["aux"] - ref["aux"]) / abs(ref["aux"])
+                   if run[0] == "ep" else 0.0)
+        if run[0] == "sp":
+            check(r["flash"] == (0, 0, 0),
+                  f"gpt_bf16 {name} launched flash kernels {r['flash']}")
+        else:
+            check(r["aux"] > 0 and aux_gap <= SPEP_BF16_RTOL,
+                  f"gpt_bf16 {name}: aux {r['aux']} vs ep 1's "
+                  f"{ref['aux']} (rel gap {aux_gap:.2e})")
+            want = (n_layers * SPEP_STEPS,) * 3
+            check(r["flash"] == want,
+                  f"gpt_bf16 {name}: K1/K2/K3 launched {r['flash']}, "
+                  f"want {want} ({n_layers} a step)")
+            launches = [a + b for a, b in zip(launches, r["flash"])]
+        p = prof[repr(run)]
+        p50 = statistics.median(r["step_ms"])
+        out[name] = dict(losses=r["losses"], max_rel_gap=max(gaps),
+                         aux=r["aux"], aux_rel_gap=aux_gap,
+                         step_ms=r["step_ms"], step_ms_p50=p50,
+                         peak_bytes=r["peak_bytes"], flash=r["flash"], **p)
+        print(f"chip_smoke: sp/ep ({'a' if run[0] == 'sp' else 'b'}) "
+              f"gpt_bf16 {name}: step p50 {p50:.3f} ms, "
+              f"{p['kernel_launches_per_step']:.1f} launches/step, device "
+              f"busy {p['device_busy_share']:.4f}, peak "
+              f"{r['peak_bytes'] / 2 ** 20:.1f} MiB; losses "
+              f"{r['losses'][0]:.6f} -> {r['losses'][-1]:.6f}, max rel gap "
+              f"{max(gaps):.2e}" + ("" if run[0] == "sp" else
+                                    f", aux {r['aux']:.6f} (gap "
+                                    f"{aux_gap:.2e}), K1/K2/K3 "
+                                    f"{r['flash']}"))
+    rec["full_width"] = out
+    return tuple(launches)
+
+
+def _spep_cli(rec: dict, tmp: str) -> None:
+    """(c) The CLI at --sp 2 and --experts 4 --ep 2 against their one-wide
+    twins: at 2 stages in one process, at 1 stage over two."""
+    data = ["--data-root", os.path.join(tmp, "nodata")]
+    gpt = ["--model", "gpt", "--stages", "2", "--microbatches", "2"] + data
+    runs = {}
+    for sched in ("gpipe", "1f1b"):
+        twin = gpt + ["--schedule", sched, "--attn", "ring"]
+        runs[f"sp1-{sched}"] = (twin, None)
+        for attn in ("ring", "ulysses"):
+            runs[f"{attn}-{sched}"] = (
+                gpt + ["--schedule", sched, "--attn", attn, "--sp", "2"],
+                f"sp1-{sched}")
+    moe = gpt + ["--experts", "4", "--attn", "flash"]
+    runs["ep1"] = (moe, None)
+    runs["ep2"] = (moe + ["--ep", "2"], "ep1")
+    card = _stage_card()
+    got, out = {}, {}
+    for name, (argv, twin) in runs.items():
+        got[name] = _stage_cli(argv, tmp, name, SPEP_CLI_STEPS)
+        if twin is None:
+            continue
+        axis = "seq" if "--sp" in argv else "expert"
+        place = f"| pipeline: 2 stages x 2 {axis} shards on " + ", ".join(
+            [card] * 4)
+        check(place in got[name]["lines"], f"{name}: no {place!r} line")
+        a, b = got[name], got[twin]
+        gaps = _rel_gaps([a["train_loss"], a["eval_loss"]],
+                         [b["train_loss"], b["eval_loss"]])
+        check(max(gaps) <= STAGE_CLI_RTOL,
+              f"CLI {name}: losses {a['train_loss']}/{a['eval_loss']} vs "
+              f"{twin} {b['train_loss']}/{b['eval_loss']}")
+        out[name] = dict(wide=[a["train_loss"], a["eval_loss"]],
+                         twin=[b["train_loss"], b["eval_loss"]],
+                         max_rel_gap=max(gaps))
+        print(f"chip_smoke: sp/ep (c) CLI {name}, {SPEP_CLI_STEPS} steps: "
+              f"train/eval {a['train_loss']:.6f}/{a['eval_loss']:.6f}, "
+              f"{twin} {b['train_loss']:.6f}/{b['eval_loss']:.6f}, max rel "
+              f"gap {max(gaps):.2e}")
+    one_stage = ["--model", "gpt", "--stages", "1"] + data
+    for name, wide, twin, axis in (
+            ("sp2-procs", ["--attn", "ring", "--sp", "2"], ["--attn", "ring"],
+             "seq"),
+            ("ep2-procs", ["--experts", "4", "--ep", "2"], ["--experts", "4"],
+             "expert")):
+        one = _stage_cli(one_stage + twin, tmp, name + "-twin",
+                         SPEP_CLI_STEPS)
+        path = os.path.join(tmp, f"{name}.jsonl")
+        t0 = time.perf_counter()
+        (_, out0, _), (_, out1, _) = _launch_ranks(
+            2, one_stage + wide + ["--dryrun", str(SPEP_CLI_STEPS),
+                                   "--metrics-json", path])
+        secs = time.perf_counter() - t0
+        with open(path) as f:
+            [m] = [json.loads(ln) for ln in f]
+        gaps = _rel_gaps([m["train_loss"], m["eval_loss"]],
+                         [one["train_loss"], one["eval_loss"]])
+        check(max(gaps) <= STAGE_CLI_RTOL,
+              f"{name}: losses {m['train_loss']}/{m['eval_loss']} vs one "
+              f"process {one['train_loss']}/{one['eval_loss']}")
+        check(f"| pipeline: 1 stages x 2 {axis} shards on "
+              + ", ".join([card] * 2) in out0,
+              f"{name}: rank 0 printed no placement line: {out0[-2000:]}")
+        check("Train Epoch" not in out1,
+              f"{name}: rank 1 printed the console: {out1!r}")
+        out[name] = dict(wide=[m["train_loss"], m["eval_loss"]],
+                         twin=[one["train_loss"], one["eval_loss"]],
+                         max_rel_gap=max(gaps), seconds=secs)
+        print(f"chip_smoke: sp/ep (c) CLI {name} ({axis} axis over gloo), "
+              f"{SPEP_CLI_STEPS} steps: train/eval {m['train_loss']:.6f}/"
+              f"{m['eval_loss']:.6f}, one process one-wide "
+              f"{one['train_loss']:.6f}/{one['eval_loss']:.6f}, max rel gap "
+              f"{max(gaps):.2e}, {secs:.1f} s")
+    rec["cli"] = out
+
+
+def phase_seq_expert(record: dict) -> tuple[int, int, int]:
+    """Phase 18: sequence and expert parallelism on the one card. Returns
+    (b)'s K1/K2/K3 launches."""
+    import tempfile
+    rec: dict = {}
+    record["seq_expert_parallel"] = rec
+    t0 = time.perf_counter()
+    launches = _spep_full_width(rec)
+    secs = {"ab": time.perf_counter() - t0}
+    with tempfile.TemporaryDirectory() as tmp:
+        _spep_cli(rec, tmp)
+    secs["c"] = time.perf_counter() - t0 - secs["ab"]
+    rec["seconds"] = dict(secs, total=time.perf_counter() - t0)
+    print(f"chip_smoke: phase 18 took {rec['seconds']['total']:.1f} s ("
+          + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items()) + ")")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -6204,6 +6517,7 @@ def main() -> int:
         stage_launches = phase_stages(record)
         process_launches = phase_processes(record)
         phase_tensor_parallel(record)
+        spep_launches = phase_seq_expert(record)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6232,7 +6546,8 @@ def main() -> int:
     # the flash kernels' times at the gpt_bf16 row's shape; launches from
     # that row's flash training run, phase 10 (b)'s runs of that row,
     # phase 13 (b)'s bf16 CLI run, phase 15 (b)'s runs of that row at 2
-    # stages and phase 16 (b)'s over 2 processes (summed over the ranks)
+    # stages, phase 16 (b)'s over 2 processes (summed over the ranks) and
+    # phase 18 (b)'s mixture-of-experts runs of that row
     for i, (name, line) in enumerate((("flash_forward", 127),
                                       ("flash_dq", 300),
                                       ("flash_dkv", 338))):
@@ -6247,7 +6562,7 @@ def main() -> int:
                         f"flash_attention.py:{line}",
             "launches": (train["launches"][i] + resilience_launches[i]
                          + telemetry_launches[i] + stage_launches[i]
-                         + process_launches[i]),
+                         + process_launches[i] + spep_launches[i]),
             "max_abs_err": max(v["max_abs_err"] for v in flash_variants
                                if v["name"] == name),
             "ms": timed["ms"],

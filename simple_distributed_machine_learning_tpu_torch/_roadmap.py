@@ -11,8 +11,6 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 
 
 PARALLEL_AXES = "item 6, remaining parallel axes"
-SEQ_PARALLEL = PARALLEL_AXES + ": 6d.2, sequence parallelism"
-EXPERTS = PARALLEL_AXES + ": 6d.3, experts"
 OVERLAP = PARALLEL_AXES + ": 6d.4, the overlapped collectives"
 TP_SERVING = PARALLEL_AXES + ": 6e, tensor-parallel serving"
 MULTI_PROCESS = "item 6c, the paths that still run in one process"

@@ -75,12 +75,19 @@ card, and with W processes each process owns ``D * S * M / W``
 coordinates (W dividing ``D * S``, or a multiple of it that splits the
 model axis: the sums then cross processes over the host).
 
+``--sp Q`` (``--model gpt`` with ``--attn ring`` or ``ulysses``) shards
+the token axis in Q chunks, attention mixing them by ring or all-to-all;
+``--experts E`` gives every GPT block a mixture of E experts (top
+``min(2, E)``), and ``--ep D`` shards them D ways, tokens dispatched by
+all-to-all. Like the model axis, the seq and expert coordinates of a
+replica's stage share its card, and across processes their collectives
+go over gloo.
+
 One flag is the port's own: ``--device`` (default CUDA; the run raises
 without it unless ``--device cpu`` asks for the CPU). Every other flag of
 the JAX parser is accepted; a flag whose path is not ported exits, when
-set, with one line naming its ROADMAP item (the linter, and the parallel
-axes of items 6d.2-6e: ``--sp``, ``--ep/--experts``, ``--overlap ring``,
-``--serve-tp``).
+set, with one line naming its ROADMAP item (the linter, ``--overlap
+ring`` of item 6d.4 and ``--serve-tp`` of item 6e).
 """
 
 from __future__ import annotations
@@ -173,11 +180,16 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument('--eval-only', action='store_true',
                    help="evaluate the restored (or fresh) params and exit")
     g.add_argument('--experts', type=int, default=0,
-                   help="MoE experts for --model=gpt (ROADMAP item 6d.3)")
+                   help="for --model=gpt: replace each block's MLP with a "
+                        "top-2-routed mixture of this many experts (0 = dense)")
     g.add_argument('--sp', type=int, default=1,
-                   help="sequence-parallel width (ROADMAP item 6d.2)")
+                   help="sequence-parallel width for --model=gpt: shards the "
+                        "token axis over a 'seq' mesh axis (requires "
+                        "--attn ring or ulysses)")
     g.add_argument('--ep', type=int, default=1,
-                   help="expert-parallel width (ROADMAP item 6d.3)")
+                   help="expert-parallel width for --model=gpt with "
+                        "--experts: shards expert weights over an 'expert' "
+                        "mesh axis with all-to-all dispatch")
     g.add_argument('--generate', type=int, default=0, metavar="N",
                    help="for --model=gpt: after training, decode N tokens "
                         "with the KV-cache decoder and print them")
@@ -381,9 +393,7 @@ def build_parser() -> argparse.ArgumentParser:
 # flags whose paths are not ported: set to anything but the default, each
 # exits naming its ROADMAP item. The serve flags not named here run
 _UNPORTED = {"lint": _roadmap.ANALYSIS, "lint_only": _roadmap.ANALYSIS,
-             "sp": _roadmap.SEQ_PARALLEL, "ep": _roadmap.EXPERTS,
-             "experts": _roadmap.EXPERTS, "overlap": _roadmap.OVERLAP,
-             "serve_tp": _roadmap.TP_SERVING}
+             "overlap": _roadmap.OVERLAP, "serve_tp": _roadmap.TP_SERVING}
 
 
 def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
@@ -460,6 +470,10 @@ def _dispatch(args) -> None:
         raise SystemExit(f"--tp must be >= 1, got {args.tp}")
     if args.tp > 1 and args.model not in ("mlp", "gpt"):
         raise SystemExit("--tp is only supported with --model=mlp or gpt")
+    if args.sp > 1 and args.model != "gpt":
+        raise SystemExit("--sp is only supported with --model=gpt")
+    if args.ep > 1 and (args.model != "gpt" or args.experts < 1):
+        raise SystemExit("--ep needs --model=gpt with --experts > 0")
     if args.generate > 0 and args.model != "gpt":
         raise SystemExit("--generate is only supported with --model=gpt")
     if args.max_steps_per_epoch is not None and args.max_steps_per_epoch < 1:
@@ -485,7 +499,7 @@ def _dispatch(args) -> None:
         if args.model != "gpt":
             raise SystemExit("--serve-sim is only supported with "
                              "--model=gpt")
-        if args.tp > 1:
+        if args.experts > 0 or args.sp > 1 or args.tp > 1 or args.ep > 1:
             raise SystemExit(
                 "--serve-sim serves a dense single-device build (the "
                 "make_cached_decoder restrictions): drop "
@@ -529,19 +543,19 @@ def _dispatch(args) -> None:
                         device))
 
 
-def _placement(device, n_coords: int, n_model: int = 1) -> list:
-    """Mesh coordinate i's device: the ``n_model`` model coordinates of a
-    replica's stage on one card, stage-and-replica group ``g = i //
-    n_model`` on card ``g mod n`` of the n visible cards on CUDA (groups
-    share a card when there are fewer cards); every coordinate on the CPU
-    with ``--device cpu``."""
+def _placement(device, n_coords: int, inner: int = 1) -> list:
+    """Mesh coordinate i's device: the ``inner`` (model x seq x expert)
+    coordinates of a replica's stage on one card, stage-and-replica group
+    ``g = i // inner`` on card ``g mod n`` of the n visible cards on CUDA
+    (groups share a card when there are fewer cards); every coordinate on
+    the CPU with ``--device cpu``."""
     from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
         visible_devices,
     )
     if device.type != "cuda":
         return [device] * n_coords
     cards = visible_devices()
-    return [cards[(i // n_model) % len(cards)] for i in range(n_coords)]
+    return [cards[(i // inner) % len(cards)] for i in range(n_coords)]
 
 
 def _pipeline(args, stages, wire_dim, out_dim, device):
@@ -557,10 +571,12 @@ def _pipeline(args, stages, wire_dim, out_dim, device):
         Pipeline,
     )
     n = len(stages)
-    wide = n > 1 or args.dp > 1 or args.tp > 1 or args.world_size > 1
+    inner = args.tp * args.sp * args.ep
+    wide = n > 1 or args.dp > 1 or inner > 1 or args.world_size > 1
     mesh = make_mesh(n_stages=n, n_data=args.dp, n_model=args.tp,
-                     devices=_placement(device, n * args.dp * args.tp,
-                                        args.tp) if wide else None)
+                     n_seq=args.sp, n_expert=args.ep,
+                     devices=_placement(device, n * args.dp * inner,
+                                        inner) if wide else None)
     if mesh is not None and mesh.rank == 0:
         if mesh.distributed:
             print(f"| distributed: {mesh.world_size} processes, gloo over "
@@ -569,6 +585,9 @@ def _pipeline(args, stages, wire_dim, out_dim, device):
               + (f" x {mesh.n_data} data replicas" if mesh.n_data > 1
                  else "")
               + (f" x {mesh.n_model} model shards" if mesh.n_model > 1
+                 else "")
+              + (f" x {mesh.n_seq} seq shards" if mesh.n_seq > 1 else "")
+              + (f" x {mesh.n_expert} expert shards" if mesh.n_expert > 1
                  else "")
               + " on " + ", ".join(str(d) for d in mesh.coord_devices))
     return Pipeline(stages, mesh, wire_dim, out_dim,
@@ -734,8 +753,11 @@ def _gpt_setup(args):
                 f"{args.flash_blocks!r}") from None
         fb = {"flash_block_q": bq, "flash_block_k": bk}
     cfg = GPTConfig(vocab=256 if args.text_corpus else 128,
-                    attn_impl=args.attn, n_tensor_parallel=args.tp,
-                    overlap=args.overlap, **fb)
+                    n_experts=args.experts,
+                    moe_top_k=min(2, max(1, args.experts)),
+                    attn_impl=args.attn, n_seq=args.sp,
+                    n_expert_parallel=args.ep,
+                    n_tensor_parallel=args.tp, overlap=args.overlap, **fb)
 
     def as_ds(x, y):
         return Dataset(x.astype(np.float32), y)
@@ -784,7 +806,7 @@ def _print_sample(args, trainer, cfg, test_ds) -> None:
     prompt = np.asarray(test_ds.x[:1, :t0], np.int32)
     pipe = trainer.pipe
     cache_dtype = torch.bfloat16 if args.bf16 else None
-    if cfg.n_tensor_parallel > 1:
+    if cfg.n_experts > 0 or cfg.n_seq > 1 or cfg.n_tensor_parallel > 1:
         trainer._print("| --generate: skipped (MoE/seq-/tensor-parallel "
                        "builds decode via models.make_decoder)")
         return
@@ -987,7 +1009,8 @@ def _run_chaos(args, n_stages: int, device) -> None:
             "--chaos supports --model mlp or gpt (the contiguous-split "
             "families repack_checkpoint can rewrite across stage counts; "
             "lenet's conv|fc split is a structural rename)")
-    if args.tp > 1 or args.serve_sim > 0:
+    if args.experts > 0 or args.sp > 1 or args.tp > 1 or args.ep > 1 \
+            or args.serve_sim > 0:
         raise SystemExit(
             "--chaos drills the pipeline-parallel training path: drop "
             "--experts/--sp/--tp/--ep/--serve-sim")

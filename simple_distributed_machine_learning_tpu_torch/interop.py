@@ -45,17 +45,19 @@ def params_from_numpy(params_list, device=None) -> list[nn.Module]:
     ``device`` (None = ``"cuda"``), ready to pass as a stage's params, an
     engine's or a decoder's. A GPT stage (a dict with ``"blocks"``)
     becomes a :class:`GPT` keeping exactly the subtrees the JAX stage had
-    (``embed`` first, ``head`` last); any other tree (the MLP's layer
+    (``embed`` first, ``head`` last; a MoE block's ``moe``, the router and
+    the ``[E, ...]``-stacked experts); any other tree (the MLP's layer
     list, LeNet's dicts) its ``_tree`` container."""
     dev = resolve_device(device)
     return [_stage_module(p).to(dev) for p in params_list]
 
 
 def shards_from_numpy(shard_trees, device=None) -> tuple[nn.Module, ...]:
-    """One tensor-parallel stage's per-shard numpy trees (the JAX
-    ``Stage.shards`` after ``np.asarray``, or the rows ``[s, m]`` of its
-    packed ``[S, M, E, P]`` buffer unpacked) -> the port's shard modules on
-    ``device``: a ``Stage``'s ``shards``, the first its ``params``."""
+    """One sharded stage's per-shard numpy trees (the JAX ``Stage.shards``
+    or ``Stage.expert_shards`` after ``np.asarray``, or the rows ``[s, m,
+    :]`` / ``[s, :, e]`` of its packed ``[S, M, E, P]`` buffer unpacked) ->
+    the port's shard modules on ``device``: a ``Stage``'s ``shards`` or
+    ``expert_shards``, the first its ``params``."""
     return tuple(params_from_numpy(shard_trees, device))
 
 

@@ -12,10 +12,15 @@ packages with no transposes (``interop.params_from_numpy``). Containers
 index like the JAX dicts (``bp["attn"]["wq"]``), so the math below reads
 as the reference's does.
 
-Training runs each stage's ``Stage.apply`` (:func:`_stage_apply`): dense-MLP
-blocks whose attention is the dense core or, with ``attn_impl="flash"``,
-the CUDA flash kernels K1-K3 (``ops/flash_attention.py``), with dropout
-drawn from an explicit ``torch.Generator``.
+Training runs each stage's ``Stage.apply`` (:func:`_stage_apply`): blocks
+whose attention is the dense core or, with ``attn_impl="flash"``, the CUDA
+flash kernels K1-K3 (``ops/flash_attention.py``), and whose MLP is dense
+or, with ``n_experts > 0``, a mixture of experts (``parallel/expert.py``;
+the stage then returns ``(y, aux)``), with dropout drawn from an explicit
+``torch.Generator``. Three mesh axes shard a stage: ``n_tensor_parallel``
+(Megatron blocks over ``Stage.shards``), ``n_seq`` (the token axis in
+chunks, attention by ring or Ulysses) and ``n_expert_parallel`` (the
+experts over ``Stage.expert_shards``, tokens dispatched by all-to-all).
 
 The serving programs are plain closures over the shape scalars — the
 JAX package's ``jit`` builders without ``jit``: PyTorch runs eagerly.
@@ -67,7 +72,7 @@ from simple_distributed_machine_learning_tpu_torch import _roadmap
 from simple_distributed_machine_learning_tpu_torch._device import (
     resolve_device,
 )
-from simple_distributed_machine_learning_tpu_torch._tree import Tree
+from simple_distributed_machine_learning_tpu_torch._tree import Tree, to_module
 from simple_distributed_machine_learning_tpu_torch.models.lora import (
     BANK_KEYS,
     lora_delta,
@@ -78,6 +83,7 @@ from simple_distributed_machine_learning_tpu_torch.ops.attention import (
     _split_heads,
     causal_attention_core,
     mha_init,
+    ring_attention,
 )
 from simple_distributed_machine_learning_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -100,8 +106,16 @@ from simple_distributed_machine_learning_tpu_torch.ops.paged_attention import (
     paged_attention,
     paged_attention_reference,
 )
+from simple_distributed_machine_learning_tpu_torch.parallel.expert import (
+    is_expert_leaf,
+    moe_init,
+)
 from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (
     Stage,
+)
+from simple_distributed_machine_learning_tpu_torch.parallel.sequence import (
+    SeqShards,
+    ulysses_attention,
 )
 
 # sampling-param sentinels: 0 disables top-k, anything > 1 disables top-p
@@ -113,11 +127,12 @@ _NO_TOP_P = 2.0
 class GPTConfig:
     """The JAX package's ``GPTConfig``, field for field and check for
     check, so one config describes one model in both packages and a config
-    one rejects the other rejects too. The port builds dense-MLP blocks
-    with ``attn_impl="dense"`` or ``"flash"`` (``ring``/``ulysses`` at
-    ``n_seq == 1`` are the dense math, as in the JAX package); sequence
-    parallelism, MoE and the sharded axes raise ``NotImplementedError``
-    where ``make_gpt_stages`` or a serving program meets them."""
+    one rejects the other rejects too. Training builds every config
+    (``ring``/``ulysses`` at ``n_seq == 1`` are the dense math, as in the
+    JAX package); the serving programs take single-device dense-MLP
+    builds, refusing MoE and ``n_seq > 1`` with the JAX package's
+    ``ValueError`` texts, and tensor-parallel serving waits for ROADMAP
+    item 6e."""
     vocab: int = 128
     seq_len: int = 64
     d_model: int = 128
@@ -205,22 +220,26 @@ class GPTConfig:
                 "claim the token axis)")
 
 
-def _check_ported(cfg: GPTConfig, caller: str,
-                  training: bool = False) -> None:
-    """Raise for the config values whose code paths this port has not
-    reached yet, naming the ROADMAP item that ports each. Every
-    ``attn_impl`` is ported at ``n_seq == 1``: serving attends with the
-    dense einsums whatever the config (as the JAX engine does), and
-    training runs dense or flash blocks, and tensor-parallel ones
-    (``training``); tensor-parallel serving is item 6e."""
-    if cfg.n_experts > 0 or cfg.n_expert_parallel > 1:
-        raise _roadmap.not_ported(f"{caller}: MoE blocks (n_experts > 0)",
-                                  _roadmap.EXPERTS)
+def _check_ported(cfg: GPTConfig, caller: str, training: bool = False,
+                  decode: bool = False) -> None:
+    """Raise for a config a program cannot run. Training runs every config.
+    The serving programs are single-device dense-MLP builds, refusing MoE
+    (MoE capacity is a full-sequence quantity) and ``n_seq > 1`` with the
+    JAX package's texts (``decode``: the solo decoders' wording);
+    tensor-parallel serving is ROADMAP item 6e."""
+    if training:
+        return
+    if cfg.n_experts > 0:
+        raise ValueError(
+            f"{caller} supports dense-MLP blocks only — MoE capacity is a "
+            f"full-sequence quantity, so per-token cached routing would "
+            f"change overflow behavior; use make_decoder" if decode else
+            f"{caller} supports dense-MLP blocks only — MoE capacity is a "
+            f"full-sequence quantity (make_cached_decoder's restriction)")
     if cfg.n_seq > 1:
-        raise _roadmap.not_ported(
-            f"{caller}: sequence parallelism ({cfg.attn_impl}, n_seq="
-            f"{cfg.n_seq})", _roadmap.SEQ_PARALLEL)
-    if cfg.n_tensor_parallel > 1 and not training:
+        raise ValueError(
+            f"{caller} is single-device; rebuild the stages with n_seq=1")
+    if cfg.n_tensor_parallel > 1:
         raise _roadmap.not_ported(f"{caller}: n_tensor_parallel > 1",
                                   _roadmap.TP_SERVING)
 
@@ -267,15 +286,20 @@ class Head(Tree):
 
 
 class Block(Tree):
-    """One pre-LN transformer block: causal MHA + GELU MLP."""
+    """One pre-LN transformer block: causal MHA + GELU MLP, or + a
+    mixture of experts (``moe``: the router and the ``[E, ...]``-stacked
+    experts, ``parallel/expert.py::moe_init``'s tree)."""
 
     def __init__(self, tree: dict) -> None:
         super().__init__()
         self.ln1 = LayerNorm(**tree["ln1"])
         self.attn = Attention(**tree["attn"])
         self.ln2 = LayerNorm(**tree["ln2"])
-        self.mlp_in = Linear(**tree["mlp_in"])
-        self.mlp_out = Linear(**tree["mlp_out"])
+        if "moe" in tree:
+            self.moe = to_module(tree["moe"])
+        else:
+            self.mlp_in = Linear(**tree["mlp_in"])
+            self.mlp_out = Linear(**tree["mlp_out"])
 
 
 class GPT(Tree):
@@ -295,9 +319,14 @@ class GPT(Tree):
 
 def _block_init(gen: torch.Generator, cfg: GPTConfig) -> dict:
     d, dff = cfg.d_model, cfg.mlp_ratio * cfg.d_model
-    return {"ln1": layer_norm_init(d), "attn": mha_init(gen, d, cfg.n_heads),
-            "ln2": layer_norm_init(d), "mlp_in": linear_init(gen, d, dff),
-            "mlp_out": linear_init(gen, dff, d)}
+    tree = {"ln1": layer_norm_init(d), "attn": mha_init(gen, d, cfg.n_heads),
+            "ln2": layer_norm_init(d)}
+    if cfg.n_experts > 0:
+        tree["moe"] = moe_init(gen, d, dff, cfg.n_experts)
+    else:
+        tree["mlp_in"] = linear_init(gen, d, dff)
+        tree["mlp_out"] = linear_init(gen, dff, d)
+    return tree
 
 
 def make_gpt_stages(seed=0, cfg: GPTConfig = GPTConfig(), n_stages: int = 2,
@@ -315,9 +344,24 @@ def make_gpt_stages(seed=0, cfg: GPTConfig = GPTConfig(), n_stages: int = 2,
     head and the MLP hidden width column -> row, each shard sliced from
     the same dense init (:func:`_slice_tp_stage`), so the run is the dense
     run to float tolerance. Build the ``Pipeline`` on a ``make_mesh(...,
-    n_model=cfg.n_tensor_parallel)`` mesh. The decode programs need a
-    dense build of the same weights (tensor-parallel serving is ROADMAP
-    item 6e)."""
+    n_model=cfg.n_tensor_parallel)`` mesh.
+
+    With ``cfg.n_seq > 1`` the stages are sequence-parallel: ``in_shape``
+    and ``wire_dim`` are per chunk (``seq_len / n_seq`` tokens), the
+    embedding stage offsets each chunk's positions by its global start,
+    and attention runs as ``cfg.attn_impl`` (ring or Ulysses) across the
+    chunks; build on a ``make_mesh(..., n_seq=cfg.n_seq)`` mesh. The
+    returned out_dim stays global.
+
+    With ``cfg.n_expert_parallel > 1`` every MoE block's experts shard
+    ``E / D`` per expert coordinate (``Stage.expert_shards``, sliced from
+    the same dense init, everything else replicated); each coordinate
+    routes its ``b / D`` sequences of a microbatch and an all-gather makes
+    the MLP output whole again, so the run is the dense-MoE run. Build on a
+    ``make_mesh(..., n_expert=cfg.n_expert_parallel)`` mesh.
+
+    The decode programs need a dense single-device build of the same
+    weights."""
     from simple_distributed_machine_learning_tpu_torch.parallel.staging import (
         contiguous_split,
     )
@@ -336,52 +380,86 @@ def make_gpt_stages(seed=0, cfg: GPTConfig = GPTConfig(), n_stages: int = 2,
     blocks = [_block_init(gen, cfg) for _ in range(cfg.n_layers)]
     split = (contiguous_split(blocks, n_stages) if blocks
              else [[] for _ in range(n_stages)])
-    mp = cfg.n_tensor_parallel
-    apply = functools.partial(_stage_apply if mp == 1 else _stage_apply_tp,
-                              cfg=cfg)
+    mp, ep = cfg.n_tensor_parallel, cfg.n_expert_parallel
+    apply = functools.partial(
+        _stage_apply_tp if mp > 1 else _stage_apply_ep if ep > 1
+        else _stage_apply, cfg=cfg)
+    t_loc = cfg.seq_len // cfg.n_seq            # tokens per seq chunk
     stages = []
     for s in range(n_stages):
         first, last = s == 0, s == n_stages - 1
-        in_shape = (cfg.seq_len,) if first else (cfg.seq_len, cfg.d_model)
+        in_shape = (t_loc,) if first else (t_loc, cfg.d_model)
+        tree = {"blocks": split[s]}
+        if first:
+            tree["embed"] = embed
+        if last:
+            tree["head"] = head
         if mp > 1:
-            tree = {"blocks": split[s]}
-            if first:
-                tree["embed"] = embed
-            if last:
-                tree["head"] = head
             shards = tuple(GPT(**_slice_tp_stage(tree, m, mp)).to(dev)
                            for m in range(mp))
             stages.append(Stage(apply=apply, params=shards[0],
                                 in_shape=in_shape, shards=shards))
-            continue
-        module = GPT(split[s], embed if first else None,
-                     head if last else None).to(dev)
-        stages.append(Stage(apply=apply, params=module, in_shape=in_shape))
-    return stages, cfg.seq_len * cfg.d_model, (cfg.seq_len, cfg.vocab)
+        elif ep > 1:
+            shards = tuple(GPT(**_slice_expert_shard(tree, e, cfg)).to(dev)
+                           for e in range(ep))
+            stages.append(Stage(apply=apply, params=shards[0],
+                                in_shape=in_shape, expert_shards=shards))
+        else:
+            stages.append(Stage(apply=apply, params=GPT(**tree).to(dev),
+                                in_shape=in_shape))
+    return stages, t_loc * cfg.d_model, (cfg.seq_len, cfg.vocab)
 
 
-def _stage_apply(params, x, key=None, deterministic=True, *, cfg):
+def _stage_apply(params, x, key=None, deterministic=True, *, cfg, ep=None):
     """``Stage.apply(params, x, key, deterministic)``, the JAX signature:
     token ids ``[B, T]`` (integer, or float as the JAX wire carries them)
     on the first stage, hidden ``[B, T, d]`` after it -> hidden, or
-    log-probs ``[B, T, V]`` on the last stage.
+    log-probs ``[B, T, V]`` on the last stage; with MoE blocks ``(y,
+    aux)``, aux the blocks' load-balancing terms times
+    ``cfg.moe_aux_weight``.
 
     ``params`` is the stage's :class:`GPT` module or a tree of tensors that
     indexes the same way (the pipeline's ``compute_dtype`` casts). ``key``
     is a ``torch.Generator`` on x's device (None = torch's default there)
     that the blocks' dropout draws from, in block order; with
-    ``deterministic`` (or ``dropout_rate == 0``) it draws nothing."""
-    if "embed" in params:
-        ids = token_ids(x)                          # XLA's convert
-        h = (embedding_lookup(params["embed"]["tok"], ids)
-             + params["embed"]["pos"][:ids.shape[1]])
+    ``deterministic`` (or ``dropout_rate == 0``) it draws nothing. On a
+    seq mesh ``x`` is this process's chunks (``parallel/sequence.py::
+    SeqShards``), ``key`` one generator per chunk, and the output chunks
+    come back the same way. ``ep`` (from :func:`_stage_apply_ep`): the
+    expert-parallel stage's per-coordinate trees and the expert axis's
+    view, for its MoE blocks."""
+    seq = isinstance(x, SeqShards)
+    xs = list(x) if seq else [x]
+    if seq:
+        t_loc = cfg.seq_len // cfg.n_seq
+        offs = [q * t_loc for q in x.view.owned]
+        gens = list(key) if key is not None else [None] * len(xs)
     else:
-        h = x
-    for bp in params["blocks"]:
-        h = _block_train(bp, h, cfg, key, deterministic)
+        offs, gens = [0], [key]
+    if "embed" in params:
+        hs = []
+        for c, off in zip(xs, offs):
+            ids = token_ids(c)                  # XLA's convert
+            hs.append(embedding_lookup(params["embed"]["tok"], ids)
+                      + params["embed"]["pos"][off:off + ids.shape[1]])
+    else:
+        hs = xs
+    aux = None
+    for i, bp in enumerate(params["blocks"]):
+        layer = None if ep is None else ([t["blocks"][i] for t in ep[0]],
+                                         ep[1])
+        hs, a = _block_train(bp, hs, cfg, gens, deterministic,
+                             x.view if seq else None, layer)
+        if a is not None:
+            aux = a if aux is None else aux + a
     if "head" in params:
-        h = _head_logprobs(params["head"], h)
-    return h
+        hs = [_head_logprobs(params["head"], h) for h in hs]
+    out = SeqShards(hs, x.view) if seq else hs[0]
+    if cfg.n_experts == 0:
+        return out
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=hs[0].device)
+    return out, cfg.moe_aux_weight * aux
 
 
 def _slice_tp_block(bp: dict, m: int, mp: int) -> dict:
@@ -422,11 +500,12 @@ def _clone_tree(tree):
     return tree.detach().clone()
 
 
-def _grad_sync_non_tp(shards, path=()) -> list:
+def _grad_sync_non_tp(shards, path=(), sharded=None) -> list:
     """This process's shard trees with every replicated leaf tied across
     them (``parallel/tensor.py::tie``: one value forward, the full
-    gradient to each copy) and the sharded leaves as they are: per shard,
-    a tree of plain dicts and lists."""
+    gradient to each copy) and the sharded leaves (``sharded(path)``,
+    default ``tensor.is_sharded_leaf``) as they are: per shard, a tree of
+    plain dicts and lists."""
     from simple_distributed_machine_learning_tpu_torch._tree import (
         _children,
     )
@@ -434,16 +513,59 @@ def _grad_sync_non_tp(shards, path=()) -> list:
         is_sharded_leaf,
         tie,
     )
+    sharded = is_sharded_leaf if sharded is None else sharded
     kids = _children(shards[0])
     if kids is None:
-        if is_sharded_leaf(path):
+        if sharded(path):
             return list(shards)
         return [tie(shards)] * len(shards)
-    cols = {k: _grad_sync_non_tp([sh[k] for sh in shards], path + (k,))
+    cols = {k: _grad_sync_non_tp([sh[k] for sh in shards], path + (k,),
+                                 sharded)
             for k, _ in kids}
     if isinstance(shards[0], (list, nn.ModuleList)):
         return [[cols[k][i] for k, _ in kids] for i in range(len(shards))]
     return [{k: cols[k][i] for k in cols} for i in range(len(shards))]
+
+
+def _slice_expert_shard(tree: dict, e: int, cfg: GPTConfig) -> dict:
+    """Expert coordinate ``e``'s stage tree: each block's ``experts``
+    leaves sliced ``[e*E/D, (e+1)*E/D)`` on their leading axis, everything
+    else copied whole (every leaf a copy of its own, so the optimizer
+    updates each shard's replicas in place apart)."""
+    per = cfg.n_experts // cfg.n_expert_parallel
+
+    def cut(t, path=()):
+        if isinstance(t, dict):
+            return {k: cut(v, path + (k,)) for k, v in t.items()}
+        if isinstance(t, list):
+            return [cut(v, path + (i,)) for i, v in enumerate(t)]
+        t = t[e * per:(e + 1) * per] if is_expert_leaf(path) else t
+        return t.detach().clone()
+
+    return cut(tree)
+
+
+def _stage_apply_ep(params, x, key=None, deterministic=True, *, cfg):
+    """The expert-parallel ``Stage.apply``: ``params`` is this process's
+    expert shards of the stage (``parallel/tensor.py::Shards`` on the
+    expert axis, with its view; one shard's tree is a one-wide axis). The
+    replicated leaves are tied across them and run once; each MoE block
+    routes each coordinate's sequences through :func:`~..parallel.expert.
+    moe_apply_ep`. Returns ``(y, aux)``, ``y`` the same on every expert
+    coordinate."""
+    from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
+        EXPERT_AXIS,
+        AxisView,
+    )
+    from simple_distributed_machine_learning_tpu_torch.parallel.tensor import (  # noqa: E501
+        as_shards,
+    )
+    shards = as_shards(params)
+    view = getattr(shards, "view", None) or AxisView.local(
+        EXPERT_AXIS, cfg.n_expert_parallel)
+    trees = _grad_sync_non_tp(list(shards), sharded=is_expert_leaf)
+    return _stage_apply(trees[0], x, key, deterministic, cfg=cfg,
+                        ep=(trees, view))
 
 
 def _stage_apply_tp(params, x, key=None, deterministic=True, *, cfg):
@@ -509,24 +631,97 @@ def _block_apply_tp(shard_blocks, h, cfg: GPTConfig, gen,
     return h + drop(model_sum(parts, group) + rb["mlp_out"]["b"])
 
 
-def _block_train(bp, h, cfg: GPTConfig, gen, deterministic: bool):
-    """One dense-MLP block of the training forward (the JAX package's
-    ``_block_apply``): ln1, causal attention by ``cfg.attn_impl`` — the
-    flash kernels (``ops/flash_attention.py``, K1 forward and K2 + K3 in
-    the backward) or the dense core — then dropout, residual, ln2, tanh
-    GELU MLP, dropout, residual. ``ring``/``ulysses`` at ``n_seq == 1``
-    are the dense math, as in the JAX package."""
-    q, k, v = _dense_qkv(bp, h, cfg.n_heads)
-    if cfg.attn_impl == "flash":
-        a = flash_attention(q, k, v, cfg.flash_block_q, cfg.flash_block_k,
-                            device=h.device)
+def _block_train(bp, hs: list, cfg: GPTConfig, gens: list,
+                 deterministic: bool, seq_view=None, ep=None):
+    """One block of the training forward (the JAX package's
+    ``_block_apply``) on ``hs``, the whole sequence as one tensor or this
+    process's seq chunks (``seq_view`` their axis), each chunk's dropout
+    drawn from its own generator: ln1, causal attention by
+    ``cfg.attn_impl`` — the flash kernels (``ops/flash_attention.py``, K1
+    forward and K2 + K3 in the backward), the dense core, or across the
+    chunks ring or Ulysses — then dropout, residual, ln2, the tanh GELU
+    MLP or the mixture of experts (``ep``: the expert-parallel shards and
+    view), dropout, residual. ``ring``/``ulysses`` on one chunk are the
+    dense math, as in the JAX package. Returns ``(hs, aux)``, aux None
+    for a dense MLP."""
+    def drop(x, g):
+        return dropout(g, x, cfg.dropout_rate, deterministic)
+
+    if seq_view is None:
+        q, k, v = _dense_qkv(bp, hs[0], cfg.n_heads)
+        if cfg.attn_impl == "flash":
+            a = flash_attention(q, k, v, cfg.flash_block_q,
+                                cfg.flash_block_k, device=hs[0].device)
+        else:
+            a = causal_attention_core(q, k, v)
+        attn = [_merge_heads(a) @ bp["attn"]["wo"]]
     else:
-        a = causal_attention_core(q, k, v)
+        hn = SeqShards([layer_norm(bp["ln1"], h) for h in hs], seq_view)
+        if cfg.attn_impl == "ring":
+            attn = ring_attention(bp["attn"], hn, cfg.n_heads)
+        else:
+            attn = ulysses_attention(bp["attn"], hn, cfg.n_heads)
+    hs = [h + drop(a, g) for h, a, g in zip(hs, attn, gens)]
+    hn2 = [layer_norm(bp["ln2"], h) for h in hs]
+    aux = None
+    if "moe" in bp:
+        ms, aux = _moe_train(bp, hn2, cfg, ep)
+    else:
+        ms = [linear(bp["mlp_out"], F.gelu(linear(bp["mlp_in"], x),
+                                           approximate="tanh"))
+              for x in hn2]
+    return [h + drop(m, g) for h, m, g in zip(hs, ms, gens)], aux
 
-    def drop(x):
-        return dropout(gen, x, cfg.dropout_rate, deterministic)
 
-    return _dense_attn_tail(bp, h, a, drop)
+def _moe_train(bp, hn2: list, cfg: GPTConfig, ep=None):
+    """The MoE MLP of one block on each chunk ``[b, T, d]``: each sequence
+    routes on its own (the JAX ``vmap``), capacity
+    ``default_capacity(T, E, k, cfg.moe_capacity_factor)``. With ``ep``
+    (``(trees, view)``: this process's expert coordinates' block trees,
+    replicated leaves tied, and the expert axis) coordinate ``e`` routes
+    sequences ``[e*b/D, (e+1)*b/D)`` through ``moe_apply_ep`` and the
+    all-gather makes the output whole again. Returns ``(ms, aux)``, aux
+    the mean load-balancing term summed over the chunks."""
+    from simple_distributed_machine_learning_tpu_torch.parallel.expert import (  # noqa: E501
+        default_capacity,
+        moe_apply,
+        moe_apply_ep,
+    )
+    from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
+        all_gather,
+    )
+    from simple_distributed_machine_learning_tpu_torch.parallel.tensor import (  # noqa: E501
+        Shards,
+        grad_sync,
+    )
+    k = cfg.moe_top_k
+    cap = default_capacity(hn2[0].shape[1], cfg.n_experts, k,
+                           cfg.moe_capacity_factor)
+    ms, aux = [], 0
+    for x in hn2:
+        if ep is None:
+            m, aux_v = moe_apply(bp["moe"], x, k=k, capacity=cap)
+        else:
+            trees, view = ep
+            D, b = view.size, x.shape[0]
+            if b % D:
+                raise ValueError(
+                    f"microbatch of {b} sequences not divisible by "
+                    f"n_expert_parallel={D}")
+            nb = b // D
+            # each process routes only its own sequences: the cotangents
+            # of the MoE input and of the router sum over the axis
+            xg = grad_sync(x, view.group)
+            router = grad_sync(trees[0]["moe"]["router"], view.group)
+            moe = Shards([{"router": router, "experts": t["moe"]["experts"]}
+                          for t in trees], view.group, view.name, view)
+            ys, aux_v = moe_apply_ep(
+                moe, [xg[e * nb:(e + 1) * nb] for e in view.owned], k=k,
+                capacity=cap, overlap=cfg.overlap)
+            m = all_gather(ys, view, 0)
+        ms.append(m)
+        aux = aux + aux_v.float().mean()
+    return ms, aux
 
 
 # -- shared block math -------------------------------------------------------
@@ -778,7 +973,7 @@ def _sampling_tensors(n: int, temperature, top_k, top_p, dev):
 # -- solo cached decode --------------------------------------------------------
 
 def _validate_decode_build(stages, cfg, prompt_len, n_new, caller):
-    _check_ported(cfg, caller)
+    _check_ported(cfg, caller, decode=True)
     if prompt_len < 1:
         raise ValueError(f"{caller} needs a non-empty prompt (t0 >= 1)")
     if n_new < 1:
@@ -831,6 +1026,10 @@ def make_cached_decoder(stages, cfg: GPTConfig, prompt_len: int, n_new: int,
     for a request with the same key, so a served stream equals its solo
     decode. Dense f32/bf16 caches only (quantised caches are paged)."""
     dev = resolve_device(device)
+    if cfg.n_seq > 1:
+        raise ValueError(
+            "cached decode is single-device; rebuild the stages with n_seq=1 "
+            "(same weights) as make_decoder requires too")
     _check_sampling_args(temperature, top_k, top_p, cfg.vocab)
     _check_cache_quantization(cache_dtype, "make_cached_decoder", paged=False)
     total = _validate_decode_build(stages, cfg, prompt_len, n_new,

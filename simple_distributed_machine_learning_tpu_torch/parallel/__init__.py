@@ -1,8 +1,11 @@
 """Parallelism (port of ``parallel/``): the stage split rule, the packed
-stage buffer and wire codec, the data x stage x model mesh and the
-multi-process bootstrap, ``Stage``, the ``Pipeline`` (one fused stage, or
-GPipe over a mesh, in one process or several), the 1F1B schedule and
-tensor parallelism (``tensor``: Megatron pairs and the model sums)."""
+stage buffer and wire codec, the data x stage x model x seq x expert mesh
+with its axis collectives and the multi-process bootstrap, ``Stage``, the
+``Pipeline`` (one fused stage, or GPipe over a mesh, in one process or
+several), the 1F1B schedule, tensor parallelism (``tensor``: Megatron
+pairs and the model sums), sequence parallelism (``sequence``: seq chunks
+and Ulysses; ring attention is ``ops/attention.py``'s) and experts
+(``expert``: the MoE FFN and its all-to-all dispatch)."""
 
 from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
@@ -19,6 +22,10 @@ from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (  #
     fused_reference,
     param_leaves,
     param_units,
+)
+from simple_distributed_machine_learning_tpu_torch.parallel.sequence import (  # noqa: F401
+    SeqShards,
+    ulysses_attention,
 )
 from simple_distributed_machine_learning_tpu_torch.parallel.staging import (  # noqa: F401
     StageMeta,

@@ -1,43 +1,52 @@
 """Device mesh and process bootstrap (port of ``parallel/mesh.py``).
 
-The port's mesh has three axes, data, stage and model, in the JAX axis
-order: ``n_data x n_stages x n_model`` coordinates numbered data-major,
-as the JAX ``make_mesh`` lays its device grid out, so coordinate ``(d, s,
-m)`` has index ``(d * n_stages + s) * n_model + m``. Each coordinate has a
-``torch.device`` (``coord_devices``) where replica ``d`` runs model shard
-``m`` of stage ``s``; a device may stand for several coordinates —
+The port's mesh has the JAX package's five axes in its order, data,
+stage, model, seq and expert: ``n_data x n_stages x n_model x n_seq x
+n_expert`` coordinates numbered data-major, as the JAX ``make_mesh`` lays
+its device grid out, so coordinate ``(d, s, m, q, e)`` has index
+``(((d * n_stages + s) * n_model + m) * n_seq + q) * n_expert + e``. Each
+coordinate has a ``torch.device`` (``coord_devices``) where replica ``d``
+runs model shard ``m``, sequence chunk ``q`` and expert shard ``e`` of
+stage ``s``; a device may stand for several coordinates —
 ``devices=["cpu"] * 4`` in the CPU tests, ``[cuda:0] * 4`` on one card —
 the counterpart of the JAX package's forced host device count.
 
 A run has ``world_size`` processes (``torch.distributed``, gloo); each owns
-a contiguous block of ``n_data * n_stages * n_model / world_size``
-coordinates, so process ``r`` owns indices ``[r * per, (r + 1) * per)``.
-One process owns them all: the one-process pipeline over several stages,
-with a data axis and a model axis. The block either holds whole model
-groups (the world size divides ``n_data * n_stages``) or lies inside one
-``(d, s)`` (``n_data * n_stages`` divides the world size): so each
-replica's owned stages are one contiguous run, a stage hop crosses at most
-from one process to the next, and a process exchanges with the processes
-of its own model coordinates (``m0``, its first owned one). The model
-coordinates of one ``(d, s)`` that a process owns share a device: the
-model axis runs in one process on one card, its sums local.
+a contiguous block of ``len(coord_devices) / world_size`` coordinates, so
+process ``r`` owns indices ``[r * per, (r + 1) * per)``. One process owns
+them all: the one-process pipeline over several stages, with any of the
+other axes. The block either holds whole ``(d, s)`` groups (the world size
+divides ``n_data * n_stages``) or lies inside one ``(d, s)`` as a box of
+its model x seq x expert coordinates: so each replica's owned stages are
+one contiguous run, a stage hop crosses at most from one process to the
+next, and a process exchanges with the processes of its own first model,
+seq and expert coordinates (``m0``, ``q0``, ``e0``). The coordinates of one
+``(d, s)`` that a process owns share a device: the model, seq and expert
+axes run in one process on one card, their collectives local.
 
 The process groups a run needs are built with the mesh (every process
 calls ``make_mesh`` with the same arguments, as every JAX process builds
-the same mesh): one data group per stage and model coordinate (the
-processes owning ``(., s, m)``: gradient reduction and ZeRO-1's gather),
-one model group per ``(d, s)`` split over processes (the tensor-parallel
-sums) and, for the loss and the metrics, the world.
+the same mesh): a data group per stage and model, seq and expert
+coordinate (ZeRO-1's gather), a gradient group per stage over the data and
+seq axes (the parameters are replicated over both: gradient and loss
+sums), one group per ``(d, s)`` and axis over the model, seq and expert
+coordinates split over processes (their collectives) and, for the loss
+and the metrics, the world. :meth:`Mesh.view` describes one axis as a
+process sees it at ``(d, s)`` (:class:`AxisView`), which the collectives
+below take.
 
 ``make_mesh()`` with one coordinate, one process and no device list stays
 ``None``, the trivial one-card mesh that ``Pipeline`` takes down its fused
-path. Sequence and expert parallelism wait for ROADMAP Queue A items 6d.2
-and 6d.3.
+path.
 
 The wire between processes is gloo over the host (``send``/``recv``
 below): a tensor on the card is copied to the host, sent, and copied back
 onto the receiving coordinate's device — the reference's own RPC wire,
-which shipped CPU tensors. Two processes on one card cannot use NCCL.
+which shipped CPU tensors. Two processes on one card cannot use NCCL. The
+axis collectives (:func:`ring_shift`, :func:`all_to_all`,
+:func:`all_gather`) are a shuffle of tensors between the coordinates of
+one process and gloo point-to-point or ``all_to_all_single`` across
+processes, each differentiable.
 """
 
 from __future__ import annotations
@@ -46,11 +55,10 @@ import dataclasses
 import math
 import os
 from datetime import timedelta
-from typing import Sequence
+from typing import Any, Sequence
 
 import torch
 
-from simple_distributed_machine_learning_tpu_torch import _roadmap
 from simple_distributed_machine_learning_tpu_torch._device import (
     resolve_device,
 )
@@ -60,15 +68,36 @@ STAGE_AXIS = "stage"
 MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
 EXPERT_AXIS = "expert"
+#: the keyword of each inner axis's coordinate in ``owner``/``owns``
+_KW = {MODEL_AXIS: "m", SEQ_AXIS: "q", EXPERT_AXIS: "e"}
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisView:
+    """One mesh axis as one process sees it at one ``(d, s)``: its
+    ``size``, the coordinates this process ``owned`` (contiguous), the
+    rank that owns each coordinate (``ranks``, at this process's other
+    coordinates) and the process group over those ranks (None when this
+    process owns every coordinate: the collectives are then local)."""
+    name: str
+    size: int
+    owned: range
+    ranks: tuple[int, ...] = ()
+    group: Any = None
+
+    @staticmethod
+    def local(name: str, size: int) -> "AxisView":
+        """An axis whose every coordinate lives in this process."""
+        return AxisView(name, size, range(size), (0,) * size, None)
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """``n_data x n_stages x n_model`` coordinates, ``coord_devices[(d *
-    n_stages + s) * n_model + m]`` the device of replica ``d``'s shard
-    ``m`` of stage ``s``; this process (``rank`` of ``world_size``) owns a
-    contiguous block of them. ``groups`` maps a tuple of ranks to its
-    process group (built by :func:`make_mesh` when ``world_size > 1``)."""
+    """``n_data x n_stages x n_model x n_seq x n_expert`` coordinates,
+    ``coord_devices[i]`` the device of coordinate index ``i`` (module
+    docstring); this process (``rank`` of ``world_size``) owns a contiguous
+    block of them. ``groups`` maps a tuple of ranks to its process group
+    (built by :func:`make_mesh` when ``world_size > 1``)."""
     coord_devices: tuple[torch.device, ...]
     n_data: int = 1
     rank: int = 0
@@ -76,57 +105,104 @@ class Mesh:
     groups: dict = dataclasses.field(default_factory=dict, compare=False,
                                      repr=False)
     n_model: int = 1
+    n_seq: int = 1
+    n_expert: int = 1
+
+    @property
+    def _block(self) -> int:
+        """Coordinates of one ``(d, s)``."""
+        return self.n_model * self.n_seq * self.n_expert
 
     @property
     def n_stages(self) -> int:
-        return len(self.coord_devices) // (self.n_data * self.n_model)
+        return len(self.coord_devices) // (self.n_data * self._block)
 
     @property
     def shape(self) -> dict[str, int]:
         """Axis sizes by name, as a JAX mesh's ``shape``."""
         return {DATA_AXIS: self.n_data, STAGE_AXIS: self.n_stages,
-                MODEL_AXIS: self.n_model, SEQ_AXIS: 1, EXPERT_AXIS: 1}
+                MODEL_AXIS: self.n_model, SEQ_AXIS: self.n_seq,
+                EXPERT_AXIS: self.n_expert}
 
     @property
     def distributed(self) -> bool:
         return self.world_size > 1
 
-    def _index(self, d: int, s: int, m: int) -> int:
-        return (d * self.n_stages + s) * self.n_model + m
+    @property
+    def _per(self) -> int:
+        return len(self.coord_devices) // self.world_size
 
-    def _owner(self, d: int, s: int, m: int) -> int:
-        per = len(self.coord_devices) // self.world_size
-        return self._index(d, s, m) // per
+    def _index(self, d: int, s: int, m: int = 0, q: int = 0,
+               e: int = 0) -> int:
+        return (((d * self.n_stages + s) * self.n_model + m) * self.n_seq
+                + q) * self.n_expert + e
+
+    def _owner(self, d: int, s: int, m: int = 0, q: int = 0,
+               e: int = 0) -> int:
+        return self._index(d, s, m, q, e) // self._per
+
+    @property
+    def _first(self) -> tuple[int, int, int]:
+        """This process's first owned ``(m, q, e)``: zeros when it owns
+        whole ``(d, s)`` groups, else where its block starts."""
+        if self._per >= self._block:
+            return 0, 0, 0
+        off = (self.rank * self._per) % self._block
+        qe = self.n_seq * self.n_expert
+        return off // qe, (off // self.n_expert) % self.n_seq, \
+            off % self.n_expert
 
     @property
     def m0(self) -> int:
-        """This process's first owned model coordinate: 0 when it owns
-        whole model groups, else where its block starts."""
-        per = len(self.coord_devices) // self.world_size
-        return (self.rank * per) % self.n_model if per < self.n_model else 0
+        """This process's first owned model coordinate."""
+        return self._first[0]
 
-    def owner(self, d: int, s: int, m: int | None = None) -> int:
-        """The rank that owns coordinate ``(d, s, m)``; ``m`` None: this
-        process's own model coordinate ``m0`` — the peer it exchanges
-        with at ``(d, s)``."""
-        return self._owner(d, s, self.m0 if m is None else m)
+    @property
+    def e0(self) -> int:
+        """This process's first owned expert coordinate."""
+        return self._first[2]
 
-    def owns(self, d: int, s: int, m: int | None = None) -> bool:
-        """Whether this process owns ``(d, s, m)``; ``m`` None: any model
-        coordinate of ``(d, s)``."""
-        if m is not None:
-            return self._owner(d, s, m) == self.rank
-        return self._owner(d, s, self.m0) == self.rank
+    def _coord(self, m, q, e) -> tuple[int, int, int]:
+        m0, q0, e0 = self._first
+        return (m0 if m is None else m, q0 if q is None else q,
+                e0 if e is None else e)
 
-    def device(self, d: int, s: int, m: int | None = None) -> torch.device:
-        return self.coord_devices[self._index(d, s,
-                                              self.m0 if m is None else m)]
+    def owner(self, d: int, s: int, m: int | None = None,
+              q: int | None = None, e: int | None = None) -> int:
+        """The rank that owns coordinate ``(d, s, m, q, e)``; an inner
+        coordinate None is this process's own first one — ``owner(d, s)``
+        is the peer this process exchanges with at ``(d, s)``."""
+        return self._owner(d, s, *self._coord(m, q, e))
 
-    def model_range(self, d: int, s: int) -> range:
-        """The model coordinates of ``(d, s)`` this process owns
-        (contiguous)."""
-        owned = [m for m in range(self.n_model) if self.owns(d, s, m)]
+    def owns(self, d: int, s: int, m: int | None = None,
+             q: int | None = None, e: int | None = None) -> bool:
+        """Whether this process owns ``(d, s, m, q, e)`` (None: its own
+        first inner coordinate)."""
+        return self.owner(d, s, m, q, e) == self.rank
+
+    def device(self, d: int, s: int, m: int | None = None,
+               q: int | None = None, e: int | None = None) -> torch.device:
+        return self.coord_devices[self._index(d, s, *self._coord(m, q, e))]
+
+    def _axis_range(self, d: int, s: int, axis: str) -> range:
+        """The coordinates along ``axis`` of ``(d, s)`` this process owns,
+        at its first coordinates of the other inner axes (contiguous)."""
+        size = self.shape[axis]
+        owned = [i for i in range(size)
+                 if self.owns(d, s, **{_KW[axis]: i})]
         return range(owned[0], owned[-1] + 1) if owned else range(0)
+
+    def seq_range(self, d: int, s: int) -> range:
+        """The seq coordinates of ``(d, s)`` this process owns."""
+        return self._axis_range(d, s, SEQ_AXIS)
+
+    def view(self, d: int, s: int, axis: str) -> AxisView:
+        """``axis`` (model, seq or expert) at ``(d, s)`` as this process
+        sees it."""
+        size = self.shape[axis]
+        ranks = tuple(self.owner(d, s, **{_KW[axis]: i}) for i in range(size))
+        return AxisView(axis, size, self._axis_range(d, s, axis), ranks,
+                        self.groups.get(tuple(sorted(set(ranks)))))
 
     @property
     def replicas(self) -> list[int]:
@@ -145,13 +221,28 @@ class Mesh:
         return [s for s in range(self.n_stages)
                 if any(self.owns(d, s) for d in range(self.n_data))]
 
+    def _held(self, axis: str) -> range:
+        d = self.replicas[0] if self.replicas else 0
+        s = self.stage_range(d)[0] if self.stage_range(d) else 0
+        return self._axis_range(d, s, axis)
+
     @property
     def shards(self) -> range:
         """The model shards this process holds of each stage it holds
         (the same for every stage)."""
-        d = self.replicas[0] if self.replicas else 0
-        s = self.stage_range(d)[0] if self.stage_range(d) else 0
-        return self.model_range(d, s)
+        return self._held(MODEL_AXIS)
+
+    @property
+    def expert_shards(self) -> range:
+        """The expert shards this process holds of each stage it holds."""
+        return self._held(EXPERT_AXIS)
+
+    @property
+    def primary(self) -> bool:
+        """Whether this process's coordinates are model and expert
+        coordinate 0: the one of their replicas whose values count once
+        in a sum over processes."""
+        return self.m0 == 0 and self.e0 == 0
 
     @property
     def devices(self) -> list[torch.device]:
@@ -166,16 +257,19 @@ class Mesh:
 
     def data_group(self, s: int):
         """The process group of the processes owning stage ``s``'s
-        coordinates at this process's model coordinate; None when this
-        process is the only one."""
+        coordinates at this process's inner coordinates (ZeRO-1's data
+        shards); None when this process is the only one."""
         return self.groups.get(
             tuple(sorted({self.owner(d, s) for d in range(self.n_data)})))
 
-    def model_group(self, d: int, s: int):
-        """The process group of the processes sharing ``(d, s)``'s model
-        axis; None when one process owns it whole."""
+    def grad_group(self, s: int):
+        """The process group over stage ``s``'s data and seq coordinates
+        at this process's model and expert coordinates: the parameters
+        are replicated over both, so gradients and the loss sum over it;
+        None when this process is the only one."""
         return self.groups.get(tuple(sorted(
-            {self._owner(d, s, m) for m in range(self.n_model)})))
+            {self.owner(d, s, q=q) for d in range(self.n_data)
+             for q in range(self.n_seq)})))
 
 
 def visible_devices() -> list[torch.device]:
@@ -199,64 +293,89 @@ def process_count() -> int:
 def make_mesh(n_stages: int = 1, n_data: int | None = None,
               n_model: int = 1, n_seq: int = 1, n_expert: int = 1,
               devices: Sequence | None = None) -> Mesh | None:
-    """A ``n_data x n_stages x n_model`` mesh over ``devices`` (None = the
-    visible cards), coordinate ``i`` on ``devices[i]``; a list may name one
-    device more than once. ``n_data=None`` means 1. Across processes
-    (``bootstrap_distributed`` first) every process passes the same
-    arguments and owns its block of coordinates; the world size must
-    divide ``n_data * n_stages * n_model`` and either divide ``n_data *
-    n_stages`` or be a multiple of it. One coordinate, one process and no
-    device list give ``None``, the trivial mesh."""
+    """A ``n_data x n_stages x n_model x n_seq x n_expert`` mesh over
+    ``devices`` (None = the visible cards), coordinate ``i`` on
+    ``devices[i]``; a list may name one device more than once.
+    ``n_data=None`` means 1. Across processes (``bootstrap_distributed``
+    first) every process passes the same arguments and owns its block of
+    coordinates; the world size must divide the coordinate count and
+    either divide ``n_data * n_stages`` or be a multiple of it, and a
+    block inside one ``(d, s)`` must be a box of its model x seq x expert
+    coordinates. One coordinate, one process and no device list give
+    ``None``, the trivial mesh."""
     n_data = 1 if n_data is None else n_data
     sizes = {STAGE_AXIS: n_stages, DATA_AXIS: n_data, MODEL_AXIS: n_model,
              SEQ_AXIS: n_seq, EXPERT_AXIS: n_expert}
     bad = {k: v for k, v in sizes.items() if int(v) < 1}
     if bad:
         raise ValueError(f"mesh axes must be >= 1, got {bad}")
-    if int(n_seq) > 1:
-        raise _roadmap.not_ported(f"a mesh with axes {{'seq': {n_seq}}}",
-                                  _roadmap.SEQ_PARALLEL)
-    if int(n_expert) > 1:
-        raise _roadmap.not_ported(
-            f"a mesh with axes {{'expert': {n_expert}}}", _roadmap.EXPERTS)
     world, rank = process_count(), process_index()
     groups = n_data * n_stages
-    need = groups * n_model
+    block = n_model * n_seq * n_expert
+    need = groups * block
+    dims = f"{n_data}x{n_stages}x{n_model}x{n_seq}x{n_expert}"
     if devices is None and need == 1 and world == 1:
         return None
     if need % world or (groups % world and world % groups):
         raise ValueError(
-            f"{world} processes cannot split a {n_data}x{n_stages}x"
-            f"{n_model} (data x stage x model) mesh: the process count "
-            f"must divide {need} and either divide {groups} or be a "
-            f"multiple of it")
+            f"{world} processes cannot split a {dims} (data x stage x "
+            f"model x seq x expert) mesh: the process count must divide "
+            f"{need} and either divide {groups} or be a multiple of it")
+    per, qe = need // world, n_seq * n_expert
+    if per < block and not (per % qe == 0 if per >= qe else
+                            (qe % per == 0 and (per % n_expert == 0
+                                                or n_expert % per == 0))):
+        raise ValueError(
+            f"{world} processes cannot split a {dims} mesh: {per} "
+            f"coordinates per process do not form a box of one (data, "
+            f"stage)'s {n_model}x{n_seq}x{n_expert} model x seq x expert "
+            f"coordinates")
     devs = (visible_devices() if devices is None
             else [resolve_device(d) for d in devices])
     if need > len(devs):
-        raise ValueError(f"mesh {n_data}x{n_stages}x{n_model}x1x1 needs "
-                         f"{need} devices, have {len(devs)}")
+        raise ValueError(f"mesh {dims} needs {need} devices, have "
+                         f"{len(devs)}")
     devs = devs[:need]
     if len({d.type for d in devs}) > 1:
         raise ValueError(f"a mesh's devices must be of one type (the "
                          f"dropout stream crosses stages), got {devs}")
-    mesh = Mesh(tuple(devs), n_data, rank, world, n_model=n_model)
+    mesh = Mesh(tuple(devs), n_data, rank, world, n_model=n_model,
+                n_seq=n_seq, n_expert=n_expert)
     for d in range(n_data):
         for s in range(n_stages):
-            mine = {mesh.device(d, s, m) for m in mesh.model_range(d, s)}
+            mine = {mesh.device(d, s, m, q, e)
+                    for m in mesh._axis_range(d, s, MODEL_AXIS)
+                    for q in mesh.seq_range(d, s)
+                    for e in mesh._axis_range(d, s, EXPERT_AXIS)}
             if len(mine) > 1:
                 raise ValueError(
-                    f"the model coordinates of replica {d}'s stage {s} "
-                    f"that one process owns must share a device (their "
-                    f"sums are local), got {sorted(map(str, mine))}")
+                    f"the model, seq and expert coordinates of replica "
+                    f"{d}'s stage {s} that one process owns must share a "
+                    f"device (their collectives are local), got "
+                    f"{sorted(map(str, mine))}")
     if world > 1:
         # every process builds every group, in one order (new_group is a
-        # collective over the world)
+        # collective over the world): per stage the data groups and the
+        # data x seq gradient groups, per (d, s) one group per inner axis
         dist = torch.distributed
-        sets = [tuple(sorted({mesh._owner(d, s, m) for d in range(n_data)}))
-                for s in range(n_stages) for m in range(n_model)]
-        sets += [tuple(sorted({mesh._owner(d, s, m)
-                               for m in range(n_model)}))
-                 for d in range(n_data) for s in range(n_stages)]
+        inner = [(m, q, e) for m in range(n_model) for q in range(n_seq)
+                 for e in range(n_expert)]
+        sets = [tuple(sorted({mesh._owner(d, s, *c) for d in range(n_data)}))
+                for s in range(n_stages) for c in inner]
+        sets += [tuple(sorted({mesh._owner(d, s, m, q, e)
+                               for d in range(n_data)
+                               for q in range(n_seq)}))
+                 for s in range(n_stages) for m in range(n_model)
+                 for e in range(n_expert)]
+        for d in range(n_data):
+            for s in range(n_stages):
+                for m, q, e in inner:
+                    sets += [tuple(sorted({mesh._owner(d, s, i, q, e)
+                                           for i in range(n_model)})),
+                             tuple(sorted({mesh._owner(d, s, m, i, e)
+                                           for i in range(n_seq)})),
+                             tuple(sorted({mesh._owner(d, s, m, q, i)
+                                           for i in range(n_expert)}))]
         for ranks in sets:
             if len(ranks) > 1 and ranks not in mesh.groups:
                 mesh.groups[ranks] = dist.new_group(list(ranks))
@@ -326,3 +445,156 @@ def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
     host = t.detach().to("cpu").clone()
     torch.distributed.broadcast(host, src, group=group)
     return host.to(t.device)
+
+
+# -- the axis collectives --------------------------------------------------------
+
+# tags of the axis collectives' point-to-point messages, apart from the
+# pipeline's stage hops (parallel/pipeline.py uses 1-3)
+_TAG_RING, _TAG_RING_BACK = 11, 12
+
+
+def _hop(x: torch.Tensor, dst: int, src: int, tag: int) -> torch.Tensor:
+    """Send ``x`` to ``dst`` and receive a tensor like it from ``src``:
+    the send is posted first, so a ring of these cannot deadlock."""
+    pending = [send(x, dst, tag)]
+    got = recv(x.shape, x.dtype, src, x.device, tag)
+    wait_all(pending)
+    return got
+
+
+class _RingHop(torch.autograd.Function):
+    """``x`` to the next process on the ring, the previous one's back;
+    the backward sends the received tensor's cotangent back to where it
+    came from and receives ``x``'s from the next."""
+
+    @staticmethod
+    def forward(ctx, x, prev, nxt):
+        ctx.prev, ctx.nxt = prev, nxt
+        return _hop(x, nxt, prev, _TAG_RING)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _hop(g.contiguous(), ctx.prev, ctx.nxt, _TAG_RING_BACK), \
+            None, None
+
+
+def ring_shift(xs: list, view: AxisView) -> list:
+    """One hop around the axis's ring (coordinate ``i`` sends to ``i +
+    1``, the JAX ``ppermute`` of ring attention): given the owned
+    coordinates' tensors in order, each owned coordinate's new tensor is
+    the one of the coordinate before it. Within the process a shift of
+    the list; the first owned coordinate's arrives from the previous
+    process over the wire. Differentiable."""
+    if view.group is None:
+        return [xs[-1]] + list(xs[:-1])
+    prev = view.ranks[(view.owned[0] - 1) % view.size]
+    nxt = view.ranks[(view.owned[-1] + 1) % view.size]
+    return [_RingHop.apply(xs[-1], prev, nxt)] + list(xs[:-1])
+
+
+def _pieces(x: torch.Tensor, n: int, dim: int) -> tuple:
+    if x.shape[dim] % n:
+        raise ValueError(f"all_to_all: dim {dim} of {tuple(x.shape)} does "
+                         f"not split {n} ways")
+    return torch.split(x, x.shape[dim] // n, dim)
+
+
+def _a2a_wire(xs, view: AxisView, split_dim: int, concat_dim: int) -> list:
+    """The tiled all-to-all across processes: each process sends each
+    peer the pieces of its owned coordinates' tensors that the peer's
+    coordinates take, in one ``all_to_all_single`` through the host."""
+    n, owned = view.size, list(view.owned)
+    peers = sorted(set(view.ranks))
+    blocks = [[c for c in range(n) if view.ranks[c] == r] for r in peers]
+    pieces = [_pieces(x, n, split_dim) for x in xs]
+    shape = pieces[0][0].shape
+    dev, dtype = xs[0].device, xs[0].dtype
+    out = torch.cat([pieces[i][j].reshape(-1) for blk in blocks
+                     for i in range(len(xs)) for j in blk]).to("cpu")
+    got = torch.empty_like(out)
+    torch.distributed.all_to_all_single(got, out, group=view.group)
+    got = got.to(dev, dtype).split(math.prod(shape))
+    # from each peer: its coordinates' pieces for each of ours, in order
+    recv = {}
+    k = 0
+    for blk in blocks:
+        for i in blk:
+            for j in owned:
+                recv[i, j] = got[k].view(shape)
+                k += 1
+    return [torch.cat([recv[i, j] for i in range(n)], concat_dim)
+            for j in owned]
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, view, split_dim, concat_dim, *xs):
+        ctx.args = (view, split_dim, concat_dim)
+        return tuple(_a2a_wire(xs, view, split_dim, concat_dim))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        view, split_dim, concat_dim = ctx.args
+        return (None, None, None) + tuple(
+            _a2a_wire([g.contiguous() for g in gs], view, concat_dim,
+                      split_dim))
+
+
+def all_to_all(xs: list, view: AxisView, split_dim: int,
+               concat_dim: int) -> list:
+    """The JAX ``lax.all_to_all(..., tiled=True)`` over the axis: given
+    the owned coordinates' tensors (one shape), coordinate ``j``'s result
+    is piece ``j`` of every coordinate's tensor split ``size`` ways on
+    ``split_dim``, concatenated in coordinate order on ``concat_dim``. A
+    reshuffle within the process; across processes ``all_to_all_single``
+    over gloo, its backward the reverse exchange."""
+    n = view.size
+    if view.group is None:
+        pieces = [_pieces(x, n, split_dim) for x in xs]
+        return [torch.cat([p[j] for p in pieces], concat_dim)
+                for j in range(n)]
+    return list(_AllToAll.apply(view, split_dim, concat_dim, *xs))
+
+
+class _AllGather(torch.autograd.Function):
+    """Every coordinate's tensor concatenated on ``dim``; the backward
+    hands each owned coordinate its own slice of the cotangent (every
+    coordinate holds the full cotangent of the replicated result)."""
+
+    @staticmethod
+    def forward(ctx, view, dim, *xs):
+        ctx.view, ctx.dim = view, dim
+        local = torch.cat(xs, dim)
+        host = local.detach().to("cpu").contiguous()
+        peers = len(set(view.ranks))
+        got = [torch.empty_like(host) for _ in range(peers)]
+        torch.distributed.all_gather(got, host, group=view.group)
+        return torch.cat(got, dim).to(local.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        view = ctx.view
+        parts = torch.split(g, g.shape[ctx.dim] // view.size, ctx.dim)
+        return (None, None) + tuple(parts[j] for j in view.owned)
+
+
+def all_gather(xs: list, view: AxisView, dim: int) -> torch.Tensor:
+    """The JAX ``lax.all_gather(..., tiled=True)`` over the axis: every
+    coordinate's tensor concatenated in coordinate order on ``dim``, the
+    same on every coordinate — a ``cat`` within the process, gloo across
+    processes."""
+    if view.group is None:
+        return torch.cat(list(xs), dim)
+    return _AllGather.apply(view, dim, *xs)
+
+
+def axis_mean(parts: list, view: AxisView) -> torch.Tensor:
+    """The mean over every coordinate of the axis of one value per owned
+    coordinate (the JAX ``lax.pmean``): summed here, over the axis's
+    processes (identity backward, as ``tensor.model_sum``), divided by
+    the axis size."""
+    from simple_distributed_machine_learning_tpu_torch.parallel.tensor import (  # noqa: E501
+        model_sum,
+    )
+    return model_sum(list(parts), view.group) / view.size

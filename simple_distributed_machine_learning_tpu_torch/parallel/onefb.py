@@ -50,6 +50,9 @@ from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (
     _weighted_nll_sums,
     param_leaves,
 )
+from simple_distributed_machine_learning_tpu_torch.parallel.sequence import (
+    SeqShards,
+)
 
 
 def onefb_loss_and_grads(pipe, params, x, targets, key=None,
@@ -64,23 +67,31 @@ def onefb_loss_and_grads(pipe, params, x, targets, key=None,
     reps, b = pipe._replica_batches(x, targets, weights)
     seed = pipe._stream_seed(key, deterministic)
     den = pipe._den(reps)
-    nums, grads, pending = [], [], []
+    nums, grads, auxes, pending = [], [], [], []
     pipe.onefb_inflight_peak = 0
     for d, batch in reps.items():
-        num, g = _replica_ticks(pipe, params, d, batch, b, seed,
-                                deterministic, den, pending)
+        num, g, aux = _replica_ticks(pipe, params, d, batch, b, seed,
+                                     deterministic, den, pending)
         if num is not None:
             nums.append(num)
+        if aux is not None:
+            auxes.append(aux)
         grads.append(g)
     mesh_lib.wait_all(pending)
-    return pipe._loss(nums, den), pipe._reduce_grads(params, grads)
+    return pipe._loss(nums, den, auxes), pipe._reduce_grads(params, grads)
+
+
+def _tensors(h) -> list:
+    return list(h) if isinstance(h, SeqShards) else [h]
 
 
 def _replica_ticks(pipe, params, d, batch, b, seed, deterministic, den,
                    pending):
     """The ticks of replica ``d`` over this process's stages: ``(num,
-    grads)`` — the replica's ``sum(w·nll)`` (None without its last stage)
-    and its gradients per stage (None for a stage it does not run)."""
+    grads, aux)`` — the replica's ``sum(w·nll)`` (None without its last
+    stage), its gradients per stage (None for a stage it does not run)
+    and its stages' weighted aux terms (None when no stage returns
+    one)."""
     S, M, mesh = pipe.n_stages, pipe.n_microbatches, pipe.mesh
     xm, tm, wm = batch
     stages = mesh.stage_range(d)
@@ -90,10 +101,16 @@ def _replica_ticks(pipe, params, d, batch, b, seed, deterministic, den,
     leaves = {s: param_leaves([params[s]]) for s in stages}
     grads = {s: [None] * len(leaves[s]) for s in stages}
     saved: dict = {s: {} for s in stages}        # m -> (input, rng state)
-    last_graph: dict = {}                        # m -> the last stage's num
+    last_graph: dict = {}                        # m -> the last stage's obj
     fwd_in: dict = {}                            # s -> (input, rng) arriving
-    bwd_in: dict = {}                            # s -> cotangent arriving
+    bwd_in: dict = {}                            # s -> cotangents arriving
     num = torch.zeros((), dtype=torch.float32, device=mesh.device(d, S - 1))
+    aux_sum = None
+    scale = pipe._aux_scale
+
+    def weighted(aux):
+        return None if aux is None else aux.float() * scale
+
     for t in range(M + 2 * S - 1):
         fwd_out: dict = {}
         bwd_out: dict = {}
@@ -102,54 +119,80 @@ def _replica_ticks(pipe, params, d, batch, b, seed, deterministic, den,
             m_b = t - 2 * (S - 1) + s - 1
             if 0 <= m_b < M:
                 if last:
-                    n, h = last_graph.pop(m_b)
-                    outs, cots = [n / den], [None]
+                    obj, h = last_graph.pop(m_b)
+                    outs, cots = [obj], [None]
                 else:
                     h, rng = saved[s].pop(m_b)
-                    h = h.requires_grad_(s > 0 and h.is_floating_point())
-                    y, _ = pipe._stage_call(s, p[s], h, rng, deterministic)
-                    outs = [y]
-                    cots = [bwd_in.pop(s) if s < z
-                            else pipe._recv_cot(d, s, y)]
-                wrt = leaves[s] + ([h] if h.requires_grad else [])
+                    for c in _tensors(h):
+                        c.requires_grad_(s > 0 and c.is_floating_point())
+                    y, _, aux = pipe._stage_call(s, p[s], h, rng,
+                                                 deterministic)
+                    outs = _tensors(y)
+                    qs = (list(y.view.owned) if isinstance(y, SeqShards)
+                          else [None])
+                    cots = (bwd_in.pop(s) if s < z else
+                            [pipe._recv_cot(d, s, c, q)
+                             for c, q in zip(outs, qs)])
+                    if aux is not None:
+                        outs.append(weighted(aux))
+                        cots.append(None)
+                ins = [c for c in _tensors(h) if c.requires_grad]
+                wrt = leaves[s] + ins
                 got = torch.autograd.grad(outs, wrt, cots, allow_unused=True)
                 for i, g in enumerate(got[:len(leaves[s])]):
                     if g is not None:
                         grads[s][i] = g if grads[s][i] is None \
                             else grads[s][i] + g
                 if s > 0:
-                    gh = got[-1] if got[-1] is not None else \
-                        torch.zeros_like(h)
+                    ghs = [g if g is not None else torch.zeros_like(c)
+                           for g, c in zip(got[len(leaves[s]):],
+                                           _tensors(h))]
                     if s > a:
-                        bwd_out[s - 1] = gh.to(mesh.device(d, s - 1))
+                        bwd_out[s - 1] = [g.to(mesh.device(d, s - 1))
+                                          for g in ghs]
                     else:
-                        pipe._send_cot(d, s, gh, pending)
+                        for g, (_, q) in zip(ghs, pipe._inputs(h)):
+                            pipe._send_cot(d, s, g, pending, q)
             m_f = t - s
             if 0 <= m_f < M:
                 if s == 0:
-                    h, rng = xm[m_f], pipe._stream_start(
-                        seed, d * M + m_f, mesh.device(d, 0))
+                    h = pipe._seq_input(d, xm[m_f])
+                    rng = pipe._stream_start(seed, d * M + m_f,
+                                             mesh.device(d, 0),
+                                             pipe._chunks_of(d))
                 elif s > a:
                     h, rng = fwd_in.pop(s)
                 else:
                     h, rng = pipe._recv_act(d, s, b, seed is not None)
                 if last:
                     # the graph this stage's backward reads next tick
-                    h = h.requires_grad_(h.is_floating_point())
-                    y, _ = pipe._stage_call(s, p[s], h, rng, deterministic)
-                    n, _, _ = _weighted_nll_sums(y.float(), tm[m_f],
-                                                 wm[m_f])
+                    for c in _tensors(h):
+                        c.requires_grad_(c.is_floating_point())
+                    y, _, aux = pipe._stage_call(s, p[s], h, rng,
+                                                 deterministic)
+                    n = 0
+                    for c, tt in zip(_tensors(y),
+                                     pipe._token_slices(tm[m_f], y)):
+                        n = n + _weighted_nll_sums(c.float(), tt,
+                                                   wm[m_f])[0]
                     num = num + n.detach()
-                    last_graph[m_f] = (n, h)
+                    obj = n / den
+                    if aux is not None:
+                        obj = obj + weighted(aux).to(obj.device)
+                        aux_sum = _add(aux_sum, weighted(aux).detach())
+                    last_graph[m_f] = (obj, h)
                     continue
                 saved[s][m_f] = (h, rng)
                 pipe.onefb_inflight_peak = max(pipe.onefb_inflight_peak,
                                                len(saved[s]))
                 with torch.no_grad():
-                    y, rng = pipe._stage_call(s, p[s], h, rng,
-                                              deterministic)
+                    y, rng, aux = pipe._stage_call(s, p[s], h, rng,
+                                                   deterministic)
+                if aux is not None:
+                    aux_sum = _add(aux_sum, weighted(aux).to(num.device))
                 if s < z:
-                    fwd_out[s + 1] = (y.to(mesh.device(d, s + 1)), rng)
+                    fwd_out[s + 1] = (pipe._to(y, mesh.device(d, s + 1)),
+                                      rng)
                 else:
                     pipe._send_act(d, s, y, rng, pending)
         fwd_in, bwd_in = fwd_out, bwd_out
@@ -157,4 +200,8 @@ def _replica_ticks(pipe, params, d, batch, b, seed, deterministic, den,
     for s in stages:
         out[s] = [g if g is not None else torch.zeros_like(t)
                   for g, t in zip(grads[s], leaves[s])]
-    return (num if z == S - 1 else None), out
+    return (num if z == S - 1 else None), out, aux_sum
+
+
+def _add(total, x):
+    return x if total is None else total + x.to(total.device)

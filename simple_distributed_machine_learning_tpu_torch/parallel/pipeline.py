@@ -6,8 +6,8 @@ One stage, one replica and no mesh is the JAX package's trivial-mesh path
 eval metrics run through ``_fused_logits`` / ``_fused_loss`` with no
 microbatching. Anything wider runs over a mesh (``parallel/mesh.py::
 make_mesh``) of ``n_data`` replicas of ``n_stages`` stages of ``n_model``
-shards, each process driving the coordinates it owns, as each JAX process
-drives its devices:
+x ``n_seq`` x ``n_expert`` coordinates, each process driving the
+coordinates it owns, as each JAX process drives its devices:
 
 - replica ``d``'s stage ``s`` runs on ``mesh.device(d, s)``; this process
   keeps one copy of each stage it owns (on ``mesh.devices[s]``), which a
@@ -42,13 +42,28 @@ drives its devices:
   the model coordinates, so every coordinate returns the same activation;
   a stage without ``shards`` on a model mesh runs once per process,
   replicated, as the JAX package runs it redundantly;
+- sequence parallelism: on a seq mesh the token axis is cut in
+  ``n_seq`` chunks; a stage takes this process's chunks together
+  (``parallel/sequence.py::SeqShards``), each chunk hops to its own
+  coordinate's process, and the loss, its counts and the gradients sum
+  over the seq coordinates as over the data axis (the gradient group);
+- expert parallelism: a stage with ``expert_shards`` runs, per replica,
+  the process's expert shards together (``Shards`` on the expert axis),
+  its replicated compute once and its experts' all-to-alls across the
+  coordinates; the objective is replicated over them, as over the model
+  axis;
+- auxiliary losses (``Stage.apply`` returning ``(y, aux)``): summed over
+  stages, averaged over microbatches, replicas and seq chunks, unweighted
+  by the sample weights, added to the objective of the stage that made
+  them and to the reported loss;
 - dropout: each microbatch draws one stream, seeded from the key (the key
   itself for the batch's microbatch 0, ``ops.random.fold_in(key, g)`` for
   microbatch ``g`` after it), stage after stage: a stage's generator
   starts at the state the previous stage left, handed over with the hop.
   So one microbatch draws the fused path's masks, GPipe and 1F1B draw the
   same ones, one process or several, and a recompute replays them from
-  the saved state.
+  the saved state. On a seq mesh each chunk draws a stream of its own,
+  folded from the microbatch's with its seq index.
 
 Parameters stay in the stage's ``nn.Module`` container (``models/gpt.py::
 GPT``, or the MLP's and LeNet's ``_tree.ParamTree`` lists and dicts): a
@@ -78,6 +93,10 @@ from simple_distributed_machine_learning_tpu_torch.ops.random import fold_in
 from simple_distributed_machine_learning_tpu_torch.parallel import (
     mesh as mesh_lib,
 )
+from simple_distributed_machine_learning_tpu_torch.parallel.sequence import (
+    SeqShards,
+    seq_shards,
+)
 from simple_distributed_machine_learning_tpu_torch.parallel.staging import (
     stage_meta,
 )
@@ -105,7 +124,16 @@ class Stage:
     for the first stage); the last stage returns log-probabilities.
     ``params`` is the stage's ``nn.Module`` parameter container, which
     indexes like the JAX stage tree (``_tree.Tree``); ``key`` is a
-    ``torch.Generator`` for dropout.
+    ``torch.Generator`` for dropout. ``apply`` may return ``(y, aux)``:
+    ``aux`` is a scalar auxiliary loss (the MoE load-balancing term,
+    already scaled by its weight) that the engine adds to the objective,
+    summed over stages and averaged over microbatches and the data and
+    seq coordinates.
+
+    On a mesh with a seq axis the token axis (axis 0 of ``in_shape``, a
+    per-chunk size) is sharded: ``x`` is this process's chunks as
+    ``parallel/sequence.py::SeqShards``, ``key`` one generator per chunk,
+    and ``y`` the chunks' outputs in the same form.
 
     ``shards``: optional per-model-shard params for tensor parallelism — a
     tuple of ``n_model`` containers with identical leaf shapes. ``apply``
@@ -113,13 +141,26 @@ class Stage:
     and must return the same (replicated) activation on every model
     coordinate, closing each sharded group with its sum. Without
     ``shards`` on a mesh with ``n_model > 1`` the stage is replicated.
-    The JAX ``expert_shards`` (expert parallelism) waits for ROADMAP item
-    6d.3.
+
+    ``expert_shards``: likewise per expert coordinate for expert
+    parallelism (``n_expert`` containers, typically the expert weights
+    split ``E / n_expert`` ways and the rest replicated); ``apply`` gets
+    this process's expert shards as ``Shards`` on the expert axis (with
+    the axis's ``view``), runs its own collectives over that axis and
+    returns the same activation on every expert coordinate. Mutually
+    exclusive with ``shards``.
     """
     apply: Callable[..., Any]
     params: Any
     in_shape: tuple[int, ...]
     shards: tuple | None = None
+    expert_shards: tuple | None = None
+
+    @property
+    def shard_trees(self) -> tuple | None:
+        """The stage's per-coordinate trees on its sharded axis."""
+        return self.shards if self.shards is not None \
+            else self.expert_shards
 
 
 class StageParams(list):
@@ -171,7 +212,7 @@ def _cast_tree(module, dtype: torch.dtype | None, device=None):
         return module.to(device=device, dtype=dtype)
     if isinstance(module, Shards):
         return Shards([_cast_tree(m, dtype, device) for m in module],
-                      module.group)
+                      module.group, module.axis, module.view)
     if isinstance(module, (nn.ModuleList, list)):
         return [_cast_tree(m, dtype, device) for m in module]
     if isinstance(module, dict):
@@ -195,18 +236,19 @@ class Pipeline:
     """The pipeline engine.
 
     Keeps the JAX signature as far as it means something here: ``mesh`` is
-    None (one stage on ``device``, None = ``"cuda"``) or a data x stage
-    mesh (``parallel/mesh.py::make_mesh``), whose devices the coordinates
-    are placed on; ``wire_dim`` and ``out_dim`` are accepted as the stage
-    builders return them (the hop needs no wire); ``n_microbatches`` splits
-    each replica's rows over a mesh and, as on the JAX package's trivial
-    mesh, not on one coordinate; ``remat`` recomputes each stage in the
-    backward over a mesh (GPipe) and, as there, nothing on one coordinate;
-    ``schedule`` is
-    ``"gpipe"`` or ``"1f1b"``, the same on one stage; ``overlap`` is
-    ``"none"`` (the JAX default), and ``"ring"``, the chunked ring that
-    replaces the collectives of a sharded mesh, waits for ROADMAP item
-    6d.4.
+    None (one stage on ``device``, None = ``"cuda"``) or a mesh
+    (``parallel/mesh.py::make_mesh``), whose devices the coordinates are
+    placed on; ``wire_dim`` is accepted as the stage builders return it
+    (the hop needs no wire) and ``out_dim`` is the per-sample output shape
+    (``(T, V)`` for a language model; on a seq mesh it must be per token,
+    and the engine checks its token axis divides); ``n_microbatches``
+    splits each replica's rows over a mesh and, as on the JAX package's
+    trivial mesh, not on one coordinate; ``remat`` recomputes each stage in
+    the backward over a mesh (GPipe) and, as there, nothing on one
+    coordinate; ``schedule`` is ``"gpipe"`` or ``"1f1b"``, the same on one
+    stage; ``overlap`` is ``"none"`` (the JAX default), and ``"ring"``,
+    the chunked ring that replaces the collectives of a sharded mesh,
+    waits for ROADMAP item 6d.4.
     ``compute_dtype`` casts the parameters and float activations to that
     dtype around each stage apply; master parameters and the loss stay
     f32. Token ids (the input of a stage that holds the ``embed`` table)
@@ -250,17 +292,41 @@ class Pipeline:
             raise ValueError(f"n_microbatches must be >= 1, got "
                              f"{n_microbatches}")
         self.mesh = mesh
-        self.n_model = 1 if mesh is None else mesh.n_model
+        axes = {} if mesh is None else mesh.shape
+        self.n_model = axes.get(mesh_lib.MODEL_AXIS, 1)
+        self.n_seq = axes.get(mesh_lib.SEQ_AXIS, 1)
+        self.n_expert = axes.get(mesh_lib.EXPERT_AXIS, 1)
         for stage in self.stages:
+            if stage.shards is not None and stage.expert_shards is not None:
+                raise ValueError(
+                    "a stage cannot be both tensor- (shards) and expert- "
+                    "(expert_shards) sharded")
             if stage.shards is not None and len(stage.shards) != self.n_model:
                 raise ValueError(
                     f"stage has {len(stage.shards)} model shards, mesh model "
                     f"axis is {self.n_model}")
+            if (stage.expert_shards is not None
+                    and len(stage.expert_shards) != self.n_expert):
+                raise ValueError(
+                    f"stage has {len(stage.expert_shards)} expert shards, "
+                    f"mesh expert axis is {self.n_expert}")
+        self.out_shape = (None if out_dim is None
+                          else (int(out_dim),) if isinstance(out_dim, int)
+                          else tuple(int(d) for d in out_dim))
+        if self.n_seq > 1:
+            if self.out_shape is None or len(self.out_shape) < 2:
+                raise ValueError(
+                    "sequence parallelism (mesh seq axis > 1) requires a "
+                    "per-token output shape like (T, V); got "
+                    f"out_dim={out_dim!r}")
+            if self.out_shape[0] % self.n_seq:
+                raise ValueError(
+                    f"token axis {self.out_shape[0]} not divisible by "
+                    f"seq axis size {self.n_seq}")
         # a mesh wider than one coordinate of one process runs replica by
         # replica, stage by stage; the trivial one runs the fused stage
         self._staged = mesh is not None and (
-            len(devices) > 1 or mesh.n_data > 1 or mesh.n_model > 1
-            or mesh.distributed)
+            len(mesh.coord_devices) > 1 or mesh.distributed)
         self.devices = devices
         self.device = devices[0]
         self.out_device = devices[-1]
@@ -273,11 +339,12 @@ class Pipeline:
         # the master copy stays on the host, as the JAX package keeps its
         # initial buffer: init_params() survives any number of in-place
         # steps on the copies it hands out
-        self._params0 = [copy.deepcopy(s.params).cpu() if s.shards is None
-                         else [copy.deepcopy(p).cpu() for p in s.shards]
+        self._params0 = [copy.deepcopy(s.params).cpu()
+                         if s.shard_trees is None
+                         else [copy.deepcopy(p).cpu() for p in s.shard_trees]
                          for s in self.stages]
-        # the packed [S, n_model, 1, P] layout of a checkpoint's params;
-        # shard 0's layout stands for a sharded stage
+        # the packed [S, n_model, n_expert, P] layout of a checkpoint's
+        # params; shard 0's layout stands for a sharded stage
         self.metas = []
         for s, p in enumerate(self._params0):
             metas = [stage_meta(x) for x in (p if isinstance(p, list)
@@ -288,11 +355,17 @@ class Pipeline:
                     f"shapes — sharded params must split evenly")
             self.metas.append(metas[0])
 
+    def _axis_of(self, s: int) -> str:
+        """The mesh axis stage ``s``'s shards lie on."""
+        return (mesh_lib.EXPERT_AXIS
+                if self.stages[s].expert_shards is not None
+                else mesh_lib.MODEL_AXIS)
+
     def init_params(self) -> StageParams:
         """A fresh copy of the initial per-stage parameter modules, each on
         its stage's device (None for a stage another process owns) — what
         a train step updates in place. A sharded stage's entry is
-        :class:`~.tensor.Shards` of its ``n_model`` shard modules (None
+        :class:`~.tensor.Shards` of its shard modules on its axis (None
         for a shard another process owns)."""
         own = (range(self.n_stages) if self.mesh is None
                else self.mesh.stages)
@@ -301,10 +374,14 @@ class Pipeline:
             if s not in own:
                 out.append(None)
             elif isinstance(p, list):
-                mine = (range(self.n_model) if self.mesh is None
+                axis = self._axis_of(s)
+                mine = (range(len(p)) if self.mesh is None
+                        else self.mesh.expert_shards
+                        if axis == mesh_lib.EXPERT_AXIS
                         else self.mesh.shards)
                 out.append(Shards([copy.deepcopy(x).to(d) if m in mine
-                                   else None for m, x in enumerate(p)]))
+                                   else None for m, x in enumerate(p)],
+                                  axis=axis))
             else:
                 out.append(copy.deepcopy(p).to(d))
         return StageParams(out, self.mesh)
@@ -316,31 +393,45 @@ class Pipeline:
         return t.to(device=self.device if device is None else device,
                     dtype=dtype)
 
-    def _run_stage(self, s: int, p, h: torch.Tensor, gen, deterministic):
-        """Stage ``s``'s apply on activations ``h`` (``[b, ...]``) with its
-        params ``p``, cast to ``compute_dtype`` around it."""
+    def _run_stage(self, s: int, p, h, gen, deterministic):
+        """Stage ``s``'s apply on activations ``h`` (``[b, ...]``, or a
+        :class:`~.sequence.SeqShards` of chunks) with its params ``p``,
+        cast to ``compute_dtype`` around it: ``(y, aux)``, aux None when
+        the stage returns none."""
         stage = self.stages[s]
-        h = h.reshape((h.shape[0],) + tuple(stage.in_shape))
-        if self.compute_dtype is not None:
+
+        def shaped(c):
+            c = c.reshape((c.shape[0],) + tuple(stage.in_shape))
+            if cast and c.is_floating_point():
+                c = c.to(self.compute_dtype)
+            return c
+
+        cast = self.compute_dtype is not None
+        if cast:
             p = _cast_tree(p, self.compute_dtype)
-            if h.is_floating_point() and "embed" not in (
-                    p[0] if isinstance(p, Shards) else p):
-                h = h.to(self.compute_dtype)
-        return stage.apply(p, h, gen, deterministic)
+            cast = "embed" not in (p[0] if isinstance(p, Shards) else p)
+        h = h.map(shaped) if isinstance(h, SeqShards) else shaped(h)
+        out = stage.apply(p, h, gen, deterministic)
+        return out if isinstance(out, tuple) else (out, None)
+
+    def _fused_out(self, params, x, key, deterministic):
+        """``(log-probs, aux)`` of the fused stage, f32; aux None when the
+        stage returns none (the JAX ``_fused_logits``)."""
+        y, aux = self._run_stage(0, params[0], self._on(x),
+                                 _generator(key, self.device), deterministic)
+        return y.float(), (None if aux is None else aux.float())
 
     def _fused_logits(self, params, x, key, deterministic) -> torch.Tensor:
-        """f32 log-probs from the fused stage. (The port has no MoE blocks,
-        so no stage returns the JAX contract's ``(y, aux)`` pair.)"""
-        return self._run_stage(0, params[0], self._on(x),
-                               _generator(key, self.device),
-                               deterministic).float()
+        """f32 log-probs from the fused stage."""
+        return self._fused_out(params, x, key, deterministic)[0]
 
     def _fused_loss(self, params, x, targets, key, deterministic, weights):
-        logp = self._fused_logits(params, x, key, deterministic)
+        logp, aux = self._fused_out(params, x, key, deterministic)
         num, den, _ = _weighted_nll_sums(
             logp, self._on(targets, torch.long),
             None if weights is None else self._on(weights))
-        return num / torch.clamp_min(den, 1e-12), logp
+        loss = num / torch.clamp_min(den, 1e-12)
+        return (loss if aux is None else loss + aux), logp
 
     # ---- a mesh: replicas of several stages, over one process or several ------
 
@@ -348,8 +439,9 @@ class Pipeline:
         """This process's rows split per replica: ``{d: (xm, tm, wm)}``,
         each ``[M, b, ...]`` — inputs on replica ``d``'s first owned
         stage's device, targets and weights (ones by default) on its last
-        stage's (None where this process does not own the stage) — and the
-        microbatch size ``b``."""
+        stage's (None where this process does not own the stage), the
+        whole token axis (a seq chunk's slice is taken where it is used) —
+        and the microbatch size ``b``."""
         mesh, M = self.mesh, self.n_microbatches
         reps = mesh.replicas
         x = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
@@ -362,13 +454,14 @@ class Pipeline:
         tgt = torch.as_tensor(targets)
         w = (torch.ones((n,), dtype=torch.float32) if weights is None
              else torch.as_tensor(weights))
+        in0 = tuple(self.stages[0].in_shape)
+        in0 = (in0[0] * self.n_seq,) + in0[1:]
         out = {}
         for k, d in enumerate(reps):
             rows = slice(k * per, (k + 1) * per)
             first = mesh.stage_range(d)[0]
-            xm = (x[rows].to(mesh.device(d, 0)).reshape(
-                (M, b) + tuple(self.stages[0].in_shape))
-                if first == 0 else None)
+            xm = (x[rows].to(mesh.device(d, 0)).reshape((M, b) + in0)
+                  if first == 0 else None)
             tm = wm = None
             if mesh.owns(d, self.n_stages - 1):
                 last = mesh.device(d, self.n_stages - 1)
@@ -379,17 +472,21 @@ class Pipeline:
             out[d] = (xm, tm, wm)
         return out, b
 
-    def _last_sum(self, values: list[torch.Tensor]) -> torch.Tensor | None:
-        """The sum over the batch's replicas of one last-stage quantity,
-        given this process's own replicas' values (in replica order):
-        summed here, then over the last stage's data group. None on a
-        process that owns no last stage."""
+    def _last_sum(self, values: list[torch.Tensor], seq: bool = True
+                  ) -> torch.Tensor | None:
+        """The sum over the batch's replicas (and, with ``seq``, its seq
+        chunks) of one last-stage quantity, given this process's own
+        values: summed here, then over the last stage's gradient group
+        (``seq``) or data group. None on a process that owns no last
+        stage."""
         if not values:
             return None
         total = values[0]
         for v in values[1:]:
             total = total + v
-        group = self.mesh.data_group(self.n_stages - 1)
+        S = self.n_stages - 1
+        group = (self.mesh.grad_group(S) if seq
+                 else self.mesh.data_group(S))
         return total if group is None else mesh_lib.all_reduce(total, group)
 
     def _to_every_rank(self, values: torch.Tensor | None,
@@ -403,8 +500,10 @@ class Pipeline:
         if values is None:
             values = torch.zeros(size, dtype=torch.float64,
                                  device=self.device)
-        return mesh_lib.broadcast(values,
-                                  mesh.owner(0, self.n_stages - 1, 0))
+        return mesh_lib.broadcast(values, self._loss_rank())
+
+    def _loss_rank(self) -> int:
+        return self.mesh.owner(0, self.n_stages - 1, 0, 0, 0)
 
     def _stream_seed(self, key, deterministic: bool) -> int | None:
         """The dropout streams' seed for one call (None when deterministic):
@@ -421,98 +520,160 @@ class Pipeline:
             return int(seed.item())
         return int(key)
 
-    def _stream_start(self, seed: int | None, g: int, device):
+    def _stream_start(self, seed: int | None, g: int, device,
+                      chunks=None):
         """The batch's microbatch ``g``'s dropout stream as a generator
-        state on ``device`` (None when deterministic)."""
+        state on ``device`` (None when deterministic); with ``chunks``
+        (the seq coordinates of a seq-sharded stage) one state per chunk,
+        each its own stream folded from the microbatch's."""
         if seed is None:
             return None
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed if g == 0 else fold_in(seed, g))
-        return gen.get_state()
+        base = seed if g == 0 else fold_in(seed, g)
+        if chunks is None:
+            return _gen_state(base, device)
+        return [_gen_state(fold_in(base, q), device) for q in chunks]
 
-    def _stage_call(self, s: int, p, h: torch.Tensor, rng, deterministic,
+    def _stage_call(self, s: int, p, h, rng, deterministic,
                     remat: bool = False):
         """Stage ``s`` on ``h`` (on its coordinate's device) with its
-        dropout generator at state ``rng`` (None: no dropout): ``(y,
-        rng_after)``, the state the next stage starts from. Under
-        ``remat`` the apply runs inside ``torch.utils.checkpoint``; its
-        recompute restarts the generator at ``rng``, so the masks
+        dropout generator at state ``rng`` (None: no dropout; a list: one
+        per seq chunk): ``(y, rng_after, aux)``, ``rng_after`` the state
+        the next stage starts from, aux None when the stage returns none.
+        Under ``remat`` the apply runs inside ``torch.utils.checkpoint``;
+        its recompute restarts the generators at ``rng``, so the masks
         repeat."""
         after: list = []
 
         def run(hh):
             gen = None
             if rng is not None:
-                gen = torch.Generator(device=hh.device)
-                gen.set_state(rng)
+                dev = (hh[0] if isinstance(hh, SeqShards) else hh).device
+                gen = ([_gen_at(r, dev) for r in rng]
+                       if isinstance(rng, list) else _gen_at(rng, dev))
             y = self._run_stage(s, p, hh, gen, deterministic)
             if gen is not None and not after:
-                after.append(gen.get_state())
+                after.append([g.get_state() for g in gen]
+                             if isinstance(gen, list) else gen.get_state())
             return y
 
-        y = (_checkpoint(run, h, use_reentrant=False) if remat else run(h))
-        return y, (after[0] if after else None)
+        y, aux = (_checkpoint(run, h, use_reentrant=False) if remat
+                  else run(h))
+        return y, (after[0] if after else None), aux
 
     def _replica_params(self, params, d: int, s: int):
         """Stage ``s``'s parameters where replica ``d`` runs it: this
         process's copy, or a differentiable copy on another device; for a
-        sharded stage the process's shards, with the model group."""
+        sharded stage the process's shards on their axis, with the axis's
+        group and view."""
         dev = self.mesh.device(d, s)
         p = params[s]
         if isinstance(p, Shards):
-            p = Shards([p[m] for m in self.mesh.model_range(d, s)],
-                       self.mesh.model_group(d, s))
+            view = self.mesh.view(d, s, p.axis)
+            p = Shards([p[i] for i in view.owned], view.group, p.axis, view)
         return p if dev == self.devices[s] else _cast_tree(p, None, dev)
+
+    def _seq_input(self, d: int, xm_m: torch.Tensor):
+        """Replica ``d``'s stage-0 input of one microbatch: the whole
+        tensor, or on a seq mesh this process's chunks of it."""
+        if self.n_seq == 1:
+            return xm_m
+        view = self.mesh.view(d, 0, mesh_lib.SEQ_AXIS)
+        return seq_shards(xm_m, self.n_seq, view)
+
+    def _chunks_of(self, d: int):
+        """Replica ``d``'s seq coordinates this process holds (None without
+        a seq axis)."""
+        if self.n_seq == 1:
+            return None
+        return list(self.mesh.seq_range(d, 0))
+
+    def _to(self, h, dev):
+        return h.map(lambda c: c.to(dev)) if isinstance(h, SeqShards) \
+            else h.to(dev)
+
+    def _token_slices(self, t: torch.Tensor, h) -> list:
+        """``t`` (``[b, T, ...]`` targets) per output chunk of ``h``."""
+        if not isinstance(h, SeqShards):
+            return [t]
+        tl = t.shape[1] // self.n_seq
+        return [t[:, q * tl:(q + 1) * tl] for q in h.view.owned]
 
     # the wire between processes: a stage's output (and the dropout state
     # the next stage starts from) forward, its gradient back; tags keep the
-    # three streams apart, pair order keeps microbatches in order
+    # three streams apart, pair order keeps microbatches in order (and a
+    # seq-sharded stage's chunks, each to the process of its coordinate)
     _TAG_ACT, _TAG_RNG, _TAG_COT = 1, 2, 3
 
     def _wire_dtype(self) -> torch.dtype:
         return self.compute_dtype or torch.float32
 
-    def _send_act(self, d: int, s: int, y, rng, pending: list) -> None:
+    def _send_act(self, d: int, s: int, y, rng, pending: list) -> list:
         """Stage ``s``'s output of replica ``d`` to the process of stage
-        ``s + 1``."""
-        dst = self.mesh.owner(d, s + 1)
-        if y.dtype != self._wire_dtype():
-            raise TypeError(f"stage {s} returned {y.dtype}, the wire carries "
-                            f"{self._wire_dtype()}")
-        pending.append(mesh_lib.send(y, dst, self._TAG_ACT))
-        if rng is not None:
-            pending.append(mesh_lib.send(rng, dst, self._TAG_RNG))
+        ``s + 1`` (each seq chunk to its coordinate's); returns the sent
+        tensors with their seq coordinates."""
+        sent = []
+        qs = y.view.owned if isinstance(y, SeqShards) else [None]
+        ys = list(y) if isinstance(y, SeqShards) else [y]
+        rngs = rng if isinstance(rng, list) else [rng]
+        for q, c, r in zip(qs, ys, rngs):
+            dst = self.mesh.owner(d, s + 1, q=q)
+            if c.dtype != self._wire_dtype():
+                raise TypeError(f"stage {s} returned {c.dtype}, the wire "
+                                f"carries {self._wire_dtype()}")
+            pending.append(mesh_lib.send(c, dst, self._TAG_ACT))
+            if r is not None:
+                pending.append(mesh_lib.send(r, dst, self._TAG_RNG))
+            sent.append((c, q))
+        return sent
 
     def _recv_act(self, d: int, s: int, b: int, stream: bool):
         """Replica ``d``'s input of stage ``s`` (from the process of stage
-        ``s - 1``) and its dropout state (None without dropout)."""
-        src, dev = self.mesh.owner(d, s - 1), self.mesh.device(d, s)
-        h = mesh_lib.recv((b,) + tuple(self.stages[s].in_shape),
-                          self._wire_dtype(), src, dev, self._TAG_ACT)
-        rng = None
-        if stream:
-            size = torch.Generator(device=dev).get_state().numel()
-            rng = mesh_lib.recv((size,), torch.uint8, src, "cpu",
-                                self._TAG_RNG)
-        return h, rng
+        ``s - 1``; on a seq mesh this process's chunks, each from its
+        coordinate's) and its dropout state (None without dropout)."""
+        dev = self.mesh.device(d, s)
+        qs = (list(self.mesh.seq_range(d, s)) if self.n_seq > 1
+              else [None])
+        hs, rngs = [], []
+        for q in qs:
+            src = self.mesh.owner(d, s - 1, q=q)
+            hs.append(mesh_lib.recv((b,) + tuple(self.stages[s].in_shape),
+                                    self._wire_dtype(), src, dev,
+                                    self._TAG_ACT))
+            if stream:
+                size = torch.Generator(device=dev).get_state().numel()
+                rngs.append(mesh_lib.recv((size,), torch.uint8, src, "cpu",
+                                          self._TAG_RNG))
+        if self.n_seq == 1:
+            return hs[0], (rngs[0] if stream else None)
+        view = self.mesh.view(d, s, mesh_lib.SEQ_AXIS)
+        return SeqShards(hs, view), (rngs if stream else None)
 
-    def _send_cot(self, d: int, s: int, g, pending: list) -> None:
-        """The gradient of stage ``s``'s input back to stage ``s - 1``'s
-        process."""
-        pending.append(mesh_lib.send(g, self.mesh.owner(d, s - 1),
+    def _inputs(self, h) -> list:
+        """A received input's tensors with their seq coordinates."""
+        if isinstance(h, SeqShards):
+            return list(zip(h, h.view.owned))
+        return [(h, None)]
+
+    def _send_cot(self, d: int, s: int, g, pending: list, q=None) -> None:
+        """The gradient of stage ``s``'s input (seq chunk ``q``) back to
+        stage ``s - 1``'s process."""
+        pending.append(mesh_lib.send(g, self.mesh.owner(d, s - 1, q=q),
                                      self._TAG_COT))
 
-    def _recv_cot(self, d: int, s: int, like: torch.Tensor) -> torch.Tensor:
-        """The gradient of stage ``s``'s output, from stage ``s + 1``'s
-        process."""
-        return mesh_lib.recv(like.shape, like.dtype, self.mesh.owner(d, s + 1),
-                             like.device, self._TAG_COT)
+    def _recv_cot(self, d: int, s: int, like: torch.Tensor,
+                  q=None) -> torch.Tensor:
+        """The gradient of stage ``s``'s output (seq chunk ``q``), from
+        stage ``s + 1``'s process."""
+        return mesh_lib.recv(like.shape, like.dtype,
+                             self.mesh.owner(d, s + 1, q=q), like.device,
+                             self._TAG_COT)
 
     def _reduce_grads(self, params, per_replica: list[list]) -> list:
         """Per-stage gradients (each replica's list aligned with
         ``param_leaves([params[s]])``) summed over this process's replicas,
-        then over each stage's data group: the global gradient, in
-        :func:`param_leaves` order."""
+        then over each stage's gradient group (its data and seq
+        coordinates): the global gradient, in :func:`param_leaves`
+        order."""
         out = []
         for s, p in enumerate(params):
             if p is None:
@@ -521,7 +682,7 @@ class Pipeline:
             grads = rows[0]
             for r in rows[1:]:
                 grads = [a + b for a, b in zip(grads, r)]
-            group = self.mesh.data_group(s)
+            group = self.mesh.grad_group(s)
             if group is not None and grads:
                 flat = mesh_lib.all_reduce(
                     torch.cat([g.reshape(-1) for g in grads]), group)
@@ -538,7 +699,14 @@ class Pipeline:
             if tm is not None:
                 tok = tm[0, 0].numel() if tm.dim() > 2 else 1
                 vals.append(wm.sum() * tok)
-        return self._last_sum(vals)
+        return self._last_sum(vals, seq=False)
+
+    @property
+    def _aux_scale(self) -> float:
+        """The objective's weight of one stage's aux of one microbatch on
+        one replica and seq chunk: the mean over microbatches, the data
+        and the seq coordinates."""
+        return 1.0 / (self.n_microbatches * self.mesh.n_data * self.n_seq)
 
     def _staged_pass(self, params, x, targets, key, deterministic, weights,
                      mode: str):
@@ -546,17 +714,17 @@ class Pipeline:
         microbatch after microbatch. ``mode``: ``"loss"`` (the scalar
         loss), ``"grads"`` (the loss and the global gradients),
         ``"logits"`` (the loss and the f32 log-probs of this process's
-        last-stage replicas, None without one) or ``"metrics"``
-        (``sum(w·nll)``, ``sum(w)`` and the exact correct count, folded per
-        microbatch); only ``"logits"`` keeps the log-probs past their
-        microbatch. Every result but the log-probs reaches every
-        process."""
+        last-stage replicas — their seq chunks concatenated on the token
+        axis — None without one) or ``"metrics"`` (``sum(w·nll)``,
+        ``sum(w)`` and the exact correct count, folded per microbatch);
+        only ``"logits"`` keeps the log-probs past their microbatch. Every
+        result but the log-probs reaches every process."""
         mesh, S, M = self.mesh, self.n_stages, self.n_microbatches
         reps, b = self._replica_batches(x, targets, weights)
         seed = self._stream_seed(key, deterministic)
         den = self._den(reps)
         remat = self.remat and torch.is_grad_enabled()
-        nums, dens, hits, logps, grads = [], [], [], [], []
+        nums, dens, hits, logps, grads, auxes = [], [], [], [], [], []
         pending: list = []
         for d, (xm, tm, wm) in reps.items():
             stages = mesh.stage_range(d)
@@ -565,82 +733,119 @@ class Pipeline:
             num = torch.zeros((), dtype=torch.float32,
                               device=mesh.device(d, S - 1))
             correct = torch.zeros((), dtype=torch.int64, device=num.device)
+            aux = None
             ins, outs = [], []
             for m in range(M):
                 if stages[0] == 0:
-                    h, rng = xm[m], self._stream_start(seed, d * M + m,
-                                                       mesh.device(d, 0))
+                    h = self._seq_input(d, xm[m])
+                    rng = self._stream_start(seed, d * M + m,
+                                             mesh.device(d, 0),
+                                             self._chunks_of(d))
                 else:
-                    h, rng = self._recv_act(d, stages[0], b, seed is not None)
-                    h.requires_grad_(mode == "grads")
-                    ins.append(h)
+                    h, rng = self._recv_act(d, stages[0], b,
+                                            seed is not None)
+                    for c, q in self._inputs(h):
+                        c.requires_grad_(mode == "grads")
+                        ins.append((c, q))
                 for s in stages:
-                    h, rng = self._stage_call(s, p[s], h.to(mesh.device(d, s)),
-                                              rng, deterministic, remat)
+                    h, rng, a = self._stage_call(
+                        s, p[s], self._to(h, mesh.device(d, s)), rng,
+                        deterministic, remat)
+                    if a is not None:
+                        a = a.float().to(num.device) * self._aux_scale
+                        aux = a if aux is None else aux + a
                 if not last:
-                    self._send_act(d, stages[-1], h, rng, pending)
-                    outs.append(h)
+                    outs.extend(self._send_act(d, stages[-1], h, rng,
+                                               pending))
                     continue
-                logp = h.float()
-                n, _, wb = _weighted_nll_sums(logp, tm[m], wm[m])
-                num = num + n
-                if mode == "metrics":
-                    correct = correct + ((logp.argmax(-1) == tm[m])
-                                         & (wb > 0)).sum()
-                elif mode == "logits":
-                    logps.append(logp)
+                chunks = list(h) if isinstance(h, SeqShards) else [h]
+                lps = []
+                for c, t in zip(chunks, self._token_slices(tm[m], h)):
+                    logp = c.float()
+                    n, _, wb = _weighted_nll_sums(logp, t, wm[m])
+                    num = num + n
+                    if mode == "metrics":
+                        correct = correct + ((logp.argmax(-1) == t)
+                                             & (wb > 0)).sum()
+                    lps.append(logp)
+                if mode == "logits":
+                    logps.append(torch.cat(lps, 1) if len(lps) > 1
+                                 else lps[0])
             if last:
                 nums.append(num)
                 if mode == "metrics":
                     dens.append(wm.sum() * (tm[0, 0].numel()
                                             if tm.dim() > 2 else 1))
                     hits.append(correct)
+            if aux is not None:
+                auxes.append(aux)
             if mode == "grads":
                 grads.append(self._backward(params, d, stages, num, den,
-                                            ins, outs, pending))
+                                            ins, outs, pending, aux))
         mesh_lib.wait_all(pending)
         if mode == "metrics":
-            num, den_m, hit = (self._last_sum(nums), self._last_sum(dens),
+            num, den_m, hit = (self._last_sum(nums),
+                               self._last_sum(dens, seq=False),
                                self._last_sum(hits))
             vals = (None if num is None else torch.stack(
                 [num.double(), den_m.double(), hit.double()]))
             vals = self._to_every_rank(vals, 3)
             return vals[0].float(), vals[1].float(), vals[2].long()
-        loss = self._loss(nums, den)
+        loss = self._loss(nums, den, auxes)
         if mode == "grads":
             return loss, self._reduce_grads(params, grads)
         if mode == "logits":
             return loss, torch.cat(logps) if logps else None
         return loss
 
-    def _loss(self, nums: list, den) -> torch.Tensor:
+    def _loss(self, nums: list, den, auxes: list | None = None
+              ) -> torch.Tensor:
         """The global loss on every process, from this process's
-        last-stage replicas' numerators."""
+        last-stage replicas' numerators and its aux terms (already
+        weighted by :attr:`_aux_scale`, summed over the processes whose
+        model and expert coordinates are 0: the others hold copies)."""
         num = self._last_sum(nums)
         loss = None if num is None else (num / torch.clamp_min(den, 1e-12))
+        aux = None
+        for a in auxes or []:
+            a = a.detach()
+            aux = a if aux is None else aux + a
         if not self.mesh.distributed:
-            return loss
-        vals = None if loss is None else loss.detach().double().reshape(1)
-        return self._to_every_rank(vals, 1)[0].float()
+            return loss if aux is None else loss + aux.to(loss.device)
+        vals = torch.zeros(2, dtype=torch.float64)
+        if self.mesh.rank == self._loss_rank():
+            vals[0] = loss.detach().double().cpu()
+        if aux is not None and self.mesh.primary:
+            vals[1] = aux.double().cpu()
+        vals = mesh_lib.all_reduce(vals)
+        if not bool(vals[1]):
+            return vals[0].float().to(self.device)
+        return (vals[0].float() + vals[1].float()).to(self.device)
 
-    def _backward(self, params, d, stages, num, den, ins, outs, pending):
+    def _backward(self, params, d, stages, num, den, ins, outs, pending,
+                  aux=None):
         """Replica ``d``'s gradients of its stages (``[s] -> list``, None
         for a stage it does not run), from the loss on the last stage or
-        the cotangents the next process sends back; the gradients of
-        received inputs go back to the previous process."""
+        the cotangents the next process sends back, with the aux terms of
+        its stages; the gradients of received inputs go back to the
+        previous process."""
         S = self.n_stages
         if stages[-1] == S - 1:
-            objs, cots = [num / torch.clamp_min(den, 1e-12)], [None]
+            obj = num / torch.clamp_min(den, 1e-12)
+            objs, cots = [obj if aux is None else obj + aux], [None]
         else:
-            objs = outs
-            cots = [self._recv_cot(d, stages[-1], y) for y in outs]
+            objs = [y for y, _ in outs]
+            cots = [self._recv_cot(d, stages[-1], y, q) for y, q in outs]
+            if aux is not None:
+                objs.append(aux)
+                cots.append(None)
         leaves = [param_leaves([params[s]]) for s in stages]
-        wrt = [t for ls in leaves for t in ls] + ins
+        wrt = [t for ls in leaves for t in ls] + [h for h, _ in ins]
         got = list(torch.autograd.grad(objs, wrt, cots, allow_unused=True))
-        for i, h in enumerate(ins):
+        for i, (h, q) in enumerate(ins):
             g = got[len(got) - len(ins) + i]
             self._send_cot(d, stages[0], g if g is not None
-                           else torch.zeros_like(h), pending)
+                           else torch.zeros_like(h), pending, q)
         out: list = [None] * S
         k = 0
         for s, ls in zip(stages, leaves):
@@ -653,11 +858,14 @@ class Pipeline:
 
     def loss_and_logits(self, params, x, targets, key=None,
                         deterministic: bool = False, weights=None):
-        """Weighted-mean NLL loss + per-example log-probs for a batch:
-        ``loss = sum(w·nll) / sum(w)`` with ``weights`` ``[B]`` (a 0/1
-        validity mask for a padded ragged batch) broadcast over tokens.
-        Over a mesh the log-probs are this process's last-stage replicas'
-        rows (None on a process without a last stage)."""
+        """Weighted-mean NLL loss (plus any stage's aux term) + per-example
+        log-probs for a batch: ``loss = sum(w·nll) / sum(w) + aux`` with
+        ``weights`` ``[B]`` (a 0/1 validity mask for a padded ragged
+        batch) broadcast over tokens; the weights scale the NLL term only,
+        as in the JAX package (the MoE load-balancing term counts every
+        routed token). Over a mesh the log-probs are this process's
+        last-stage replicas' rows (None on a process without a last
+        stage)."""
         if self._staged:
             return self._staged_pass(params, x, targets, key, deterministic,
                                      weights, "logits")
@@ -713,6 +921,18 @@ class Pipeline:
         return num, den, hit.sum()
 
 
+def _gen_state(seed: int, device) -> torch.Tensor:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen.get_state()
+
+
+def _gen_at(state, device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.set_state(state)
+    return gen
+
+
 def _weighted_nll_sums(logp, targets, weights):
     """``(sum(w·nll), sum(w), wb)`` with per-sample ``weights`` (or ones)
     broadcast over token axes — shared by the loss and eval paths."""
@@ -732,5 +952,7 @@ def fused_reference(stages: Sequence[Stage]) -> Callable:
         for stage, params in zip(stages, stage_params):
             h = h.reshape((h.shape[0],) + tuple(stage.in_shape))
             h = stage.apply(params, h, key, deterministic)
+            if isinstance(h, tuple):        # (y, aux): ground truth drops aux
+                h = h[0]
         return h
     return apply

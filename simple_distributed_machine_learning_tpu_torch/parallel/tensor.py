@@ -51,14 +51,20 @@ from simple_distributed_machine_learning_tpu_torch.parallel import (
 
 
 class Shards(list):
-    """This process's model shards of one stage — parameter trees in
-    model order — and ``group``, the process group of the stage's model
-    coordinates across processes (None: all of them in this process). As a
-    ``StageParams`` entry a shard another process owns is None."""
+    """This process's shards of one stage — parameter trees in the order
+    of their ``axis`` (``"model"`` for tensor parallelism, ``"expert"``
+    for expert parallelism) — and ``group``, the process group of the
+    stage's coordinates on that axis across processes (None: all of them
+    in this process); ``view`` (``mesh.AxisView``, where the pipeline
+    passes it) describes the axis whole. As a ``StageParams`` entry a
+    shard another process owns is None."""
 
-    def __init__(self, trees, group=None) -> None:
+    def __init__(self, trees, group=None, axis: str = "model",
+                 view=None) -> None:
         super().__init__(trees)
         self.group = group
+        self.axis = axis
+        self.view = view
 
 
 class _GradSync(torch.autograd.Function):

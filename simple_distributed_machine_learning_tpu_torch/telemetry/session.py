@@ -148,10 +148,10 @@ class Telemetry:
     def set_step_probe(self, fn, *abstract_args, mesh=None,
                        **abstract_kwargs) -> None:
         """The static ICI-bytes gauge reads the analyzer's collective cost
-        table, which waits for the port's sharded axes."""
+        table over a traced step, which waits for the program linter."""
         raise _roadmap.not_ported("the static ICI-bytes gauge "
                                   "(Telemetry.set_step_probe)",
-                                  _roadmap.PARALLEL_AXES)
+                                  _roadmap.PROGRAM_LINTER)
 
     # -- emission ----------------------------------------------------------
 

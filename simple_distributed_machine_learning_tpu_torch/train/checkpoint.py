@@ -5,11 +5,13 @@ in the other.
 One ``.npz`` holds the whole training state, written atomically (a temp
 file, then ``os.replace``) with a human-readable ``.meta.json`` sidecar:
 
-- ``params``: the packed ``[S, M, E, P]`` f32 buffer — ``[S, M, 1, P]``
-  over S stages and M model shards — each stage's leaves in
-  ``jax.tree.flatten`` order (``parallel/staging.py``): row ``[s, m]`` is
-  shard ``m``'s tree of a sharded stage, and a copy of the stage's tree
-  in every ``m`` of an unsharded one, as the JAX buffer stores it;
+- ``params``: the packed ``[S, M, E, P]`` f32 buffer over S stages, M
+  model shards and E expert shards, each stage's leaves in
+  ``jax.tree.flatten`` order (``parallel/staging.py``): row ``[s, m, e]``
+  is model shard ``m``'s tree of a tensor-parallel stage (in every
+  ``e``), expert shard ``e``'s of an expert-parallel one (in every
+  ``m``), and a copy of the stage's tree in every row of an unsharded
+  one, as the JAX buffer stores it;
 - ``opt_<i>``: the optimizer state's leaves in ``jax.tree.flatten`` order
   of the JAX package's state;
 - ``_meta_json``: ``step``, ``n_opt_leaves`` and ``extra``.
@@ -91,9 +93,35 @@ def _n_model(layout) -> int:
     return int(getattr(layout, "n_model", 1))
 
 
-def _shape(metas: Sequence[StageMeta], n_model: int = 1
+def _n_expert(layout) -> int:
+    """The expert axis of a layout: a ``Pipeline``'s, 1 for bare metas."""
+    return int(getattr(layout, "n_expert", 1))
+
+
+def _shape(metas: Sequence[StageMeta], n_model: int = 1, n_expert: int = 1
            ) -> tuple[int, int, int, int]:
-    return (len(metas), n_model, 1, max((m.total for m in metas), default=0))
+    return (len(metas), n_model, n_expert,
+            max((m.total for m in metas), default=0))
+
+
+def _layout_shape(layout) -> tuple[int, int, int, int]:
+    return _shape(_metas(layout), _n_model(layout), _n_expert(layout))
+
+
+def _axes(params) -> dict:
+    """Per sharded stage of a ``StageParams``, the mesh axis its shards
+    lie on (``"model"`` or ``"expert"``)."""
+    return {s: p.axis for s, p in enumerate(params)
+            if getattr(p, "axis", None) is not None
+            and isinstance(p, list)}
+
+
+def _read_row(axis: str | None, m: int | None) -> tuple[int, int]:
+    """The ``(model, expert)`` row a module reads back: its shard's on
+    its axis, row ``[0, 0]`` for an unsharded stage."""
+    if m is None:
+        return 0, 0
+    return (0, m) if axis == "expert" else (m, 0)
 
 
 def _jax_order(params) -> list[list[int]]:
@@ -119,18 +147,21 @@ def _units(params) -> list[tuple]:
 
 
 def unit_coords(key) -> tuple[int, int | None]:
-    """A ZeRO-1 range's key as ``(stage, model shard or None)``."""
+    """A ZeRO-1 range's key as ``(stage, shard on the stage's axis or
+    None)``."""
     return (key, None) if isinstance(key, int) else key
 
 
-def _unpack(arr: np.ndarray, like: Sequence[torch.Tensor], order
-            ) -> list[torch.Tensor]:
-    """A packed ``[S, M, 1, width]`` buffer -> new tensors shaped, typed
+def _unpack(arr: np.ndarray, like: Sequence[torch.Tensor], order,
+            axes: dict) -> list[torch.Tensor]:
+    """A packed ``[S, M, E, width]`` buffer -> new tensors shaped, typed
     and placed like ``like`` (in ``param_leaves`` order): a shard from its
-    row ``[s, m]``, an unsharded stage from ``[s, 0]``."""
+    row on its axis (``axes``, :func:`_axes`), an unsharded stage from
+    ``[s, 0, 0]``."""
     out: list[Any] = [None] * len(like)
     for _, s, m, idx in order:
-        row, off = torch.from_numpy(np.asarray(arr[s, m or 0, 0])), 0
+        mi, ei = _read_row(axes.get(s), m)
+        row, off = torch.from_numpy(np.asarray(arr[s, mi, ei])), 0
         for i in idx:
             n = like[i].numel()
             out[i] = row[off:off + n].reshape(like[i].shape).to(
@@ -165,9 +196,10 @@ def _opt_state(like, leaves, unpack):
             out = []
             for (key, (lo, hi)), t in zip(like.ranges.items(), shards):
                 s, m = unit_coords(key)
+                mi, ei = _read_row(like.axes.get(s), m)
                 out.append(torch.from_numpy(np.array(
-                    arr[s, m or 0, 0, lo:hi])).to(device=t.device,
-                                                  dtype=t.dtype))
+                    arr[s, mi, ei, lo:hi])).to(device=t.device,
+                                               dtype=t.dtype))
             return out
 
         z = copy.copy(like)
@@ -203,15 +235,33 @@ def _gather_state(params, opt_state: Any, step: int,
     distributed = mesh is not None and mesh.distributed
     order = _units(params)
     n_model = 1 if mesh is None else mesh.n_model
+    n_expert = 1 if mesh is None else mesh.n_expert
+    axes = _axes(params)
     leaves = param_leaves(params)
-    pieces: list = []          # (buffer, stage, model rows, first, values)
+    pieces: list = []          # (buffer, stage, rows, first, values)
     totals = {key: sum(leaves[i].numel() for i in idx)
               for key, _, _, idx in order}
 
-    def rows(m):
-        """The model rows a module fills: its shard's, or every row of an
-        unsharded stage (the JAX buffer stores it replicated)."""
-        return range(n_model) if m is None else (m,)
+    def rows(s, m):
+        """The ``(model, expert)`` rows a module fills: its shard's on its
+        axis (every row of the other), or every row of an unsharded stage
+        (the JAX buffer stores it replicated)."""
+        ms, es = range(n_model), range(n_expert)
+        if m is not None:
+            if axes.get(s) == "expert":
+                es = (m,)
+            else:
+                ms = (m,)
+        return [(mi, ei) for mi in ms for ei in es]
+
+    def first(s, m) -> bool:
+        """Whether this process packs the module: the owner of its
+        replica 0, seq chunk 0 and shard (coordinate 0 when
+        unsharded)."""
+        if not distributed:
+            return True
+        mi, ei = _read_row(axes.get(s), m)
+        return mesh.owns(0, s, mi, 0, ei)
 
     n_bufs = 0
 
@@ -222,8 +272,8 @@ def _gather_state(params, opt_state: Any, step: int,
         nonlocal n_bufs
         n_bufs += 1
         for key, s, m, idx in order:
-            if not distributed or mesh.owns(0, s, m or 0):
-                pieces.append((n_bufs - 1, s, rows(m), 0, flatten_row(
+            if first(s, m):
+                pieces.append((n_bufs - 1, s, rows(s, m), 0, flatten_row(
                     [per_tensor[i] for i in idx], totals[key]).numpy()))
         return n_bufs - 1
 
@@ -233,7 +283,7 @@ def _gather_state(params, opt_state: Any, step: int,
         n_bufs += 1
         for (key, (lo, _)), t in zip(opt_state.ranges.items(), shards):
             s, m = unit_coords(key)
-            pieces.append((n_bufs - 1, s, rows(m), lo,
+            pieces.append((n_bufs - 1, s, rows(s, m), lo,
                            t.detach().float().cpu().numpy()))
         return n_bufs - 1
 
@@ -249,11 +299,11 @@ def _gather_state(params, opt_state: Any, step: int,
         pieces = [p for ps, _ in every for p in ps]
         totals = {s: t for _, ts in every for s, t in ts.items()}
     width = max(totals.values(), default=0)
-    out = [np.zeros((len(params), n_model, 1, width), np.float32)
+    out = [np.zeros((len(params), n_model, n_expert, width), np.float32)
            for _ in range(n_bufs)]
-    for k, s, ms, lo, vals in pieces:
-        for m in ms:
-            out[k][s, m, 0, lo:lo + len(vals)] = vals
+    for k, s, rs, lo, vals in pieces:
+        for mi, ei in rs:
+            out[k][s, mi, ei, lo:lo + len(vals)] = vals
     # a buffer comes back as its index, a step counter as an int32 array
     arrays = {"params": out[packed_params]}
     for i, leaf in enumerate(opt):
@@ -421,30 +471,31 @@ def split_layout(layout, n_stages: int) -> list[StageMeta]:
 
 
 def _check_model_axes(src, dst) -> None:
-    if _n_model(src) != _n_model(dst):
+    if (_n_model(src), _n_expert(src)) != (_n_model(dst), _n_expert(dst)):
         raise ValueError(
             f"model/expert axes must match to repack: source "
-            f"{_n_model(src)}x1, target {_n_model(dst)}x1")
+            f"{_n_model(src)}x{_n_expert(src)}, target "
+            f"{_n_model(dst)}x{_n_expert(dst)}")
 
 
 def repack_packed_buffer(arr: np.ndarray, src, dst) -> np.ndarray:
-    """Re-split a packed ``[S_src, M, 1, P_src]`` buffer (params, momentum,
-    Adam moments) into ``dst``'s ``[S_dst, M, 1, P_dst]`` layout, each
-    model row on its own. ``src`` and ``dst`` are each a ``Pipeline`` or a
+    """Re-split a packed ``[S_src, M, E, P_src]`` buffer (params, momentum,
+    Adam moments) into ``dst``'s ``[S_dst, M, E, P_dst]`` layout, each
+    model and expert row on its own. ``src`` and ``dst`` are each a ``Pipeline`` or a
     list of ``StageMeta`` (a one-wide model axis); same model, another
     contiguous stage split, the same model axis."""
     _check_model_axes(src, dst)
     src_m, dst_m = _metas(src), _metas(dst)
     arr = np.asarray(arr)
-    if tuple(arr.shape) != _shape(src_m, _n_model(src)):
+    if tuple(arr.shape) != _layout_shape(src):
         raise ValueError(
             f"buffer {tuple(arr.shape)} does not match the source packed "
-            f"layout {_shape(src_m, _n_model(src))}")
-    out_shape = _shape(dst_m, _n_model(dst))
+            f"layout {_layout_shape(src)}")
+    out_shape = _layout_shape(dst)
     out = np.zeros(out_shape, np.float32)
-    for mi in range(out_shape[1]):
+    for mi, ei in np.ndindex(*out_shape[1:3]):
         trees = [unpack_stage_params(
-            torch.from_numpy(arr[s, mi, 0].copy()), m)
+            torch.from_numpy(arr[s, mi, ei].copy()), m)
             for s, m in enumerate(src_m)]
         for s, t in enumerate(repack_stage_trees(trees, len(dst_m))):
             leaves = tree_leaves(t)
@@ -454,7 +505,7 @@ def repack_packed_buffer(arr: np.ndarray, src, dst) -> np.ndarray:
                     f"re-split stage {s} leaf shapes {shapes} do not match "
                     f"the target's {dst_m[s].shapes} — source and target "
                     f"must build the same model")
-            out[s, mi, 0] = flatten_row(leaves, out_shape[-1]).numpy()
+            out[s, mi, ei] = flatten_row(leaves, out_shape[-1]).numpy()
     return out
 
 
@@ -465,7 +516,7 @@ def repack_checkpoint(path_in: str, path_out: str, src, dst) -> None:
     ``StageMeta``."""
     _check_model_axes(src, dst)
     arrays, meta = _load_npz(path_in)
-    src_shape = _shape(_metas(src), _n_model(src))
+    src_shape = _layout_shape(src)
     for k in list(arrays):
         if k == "params" or (k.startswith("opt_")
                              and tuple(arrays[k].shape) == src_shape):
@@ -498,9 +549,9 @@ def restore_checkpoint(path: str, pipe=None, opt_treedef_like: Any = None,
             raise ValueError("restoring the optimizer state needs the "
                              "pipeline (pipe=) for its parameter layout")
         return out
-    want = _shape(pipe.metas, pipe.n_model)
+    want = _layout_shape(pipe)
     if tuple(packed.shape) != want and src_pipe is not None:
-        src_shape = _shape(_metas(src_pipe), _n_model(src_pipe))
+        src_shape = _layout_shape(src_pipe)
         packed = repack_packed_buffer(packed, src_pipe, pipe)
         opt = [repack_packed_buffer(leaf, src_pipe, pipe)
                if tuple(leaf.shape) == src_shape else leaf for leaf in opt]
@@ -512,9 +563,10 @@ def restore_checkpoint(path: str, pipe=None, opt_treedef_like: Any = None,
             f"a contiguous-split model across stage counts)")
     params = pipe.init_params()
     order = _units(params)
+    axes = _axes(params)
     leaves = param_leaves(params)
     with torch.no_grad():
-        for t, v in zip(leaves, _unpack(packed, leaves, order)):
+        for t, v in zip(leaves, _unpack(packed, leaves, order, axes)):
             t.copy_(v)
     out["params"] = params
     if opt_treedef_like is not None:
@@ -530,7 +582,7 @@ def restore_checkpoint(path: str, pipe=None, opt_treedef_like: Any = None,
                     f"checkpoint {path}: optimizer buffer "
                     f"{tuple(np.shape(arr))} does not match the packed "
                     f"layout {want}")
-            return _unpack(arr, like, order)
+            return _unpack(arr, like, order, axes)
 
         out["opt_state"] = _opt_state(opt_treedef_like, list(opt), unpack)
     return out

@@ -36,11 +36,15 @@ from torch import nn
 from simple_distributed_machine_learning_tpu_torch.parallel import (
     mesh as mesh_lib,
 )
+from simple_distributed_machine_learning_tpu_torch.parallel.expert import (
+    is_expert_leaf,
+)
 from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (
     param_leaves,
     param_units,
 )
 from simple_distributed_machine_learning_tpu_torch.parallel.tensor import (
+    Shards,
     is_sharded_leaf,
 )
 
@@ -119,17 +123,18 @@ def global_grad_norm(grads, params) -> torch.Tensor:
     """The global L2 norm of ``grads`` (aligned with ``param_leaves(params)``)
     on the first gradient's device: each module's per-tensor norms in one
     multi-tensor launch, their squares summed in module order. Every
-    parameter of the model counts once, whatever the data and model
-    widths: an unsharded stage once (the JAX ``replication_weights()``'
-    ``1 / n_model``), a sharded stage's split leaves from every shard and
-    its replicated leaves (norms, ``mlp_out.b``, embed, head) from shard 0
-    only. The JAX package counts those replicated leaves once per shard
-    (its weight is 1 for a whole sharded row); the port departs there, so
-    that ``--tp M --clip-norm`` clips as the dense model does (ROADMAP.md,
-    Queue C). Across processes (a ``StageParams`` on a distributed mesh)
-    each module's sum comes from the process of its replica 0 (model
-    coordinate 0 for an unsharded stage) and the sums are added over the
-    world."""
+    parameter of the model counts once, whatever the data, model, seq and
+    expert widths: an unsharded stage once (the JAX
+    ``replication_weights()``' ``1 / replication``), a sharded stage's
+    split leaves from every shard and its replicated leaves (norms,
+    ``mlp_out.b``, the router, attention, embed, head) from shard 0 only.
+    The JAX package counts those replicated leaves once per shard (its
+    weight is 1 for a whole sharded row); the port departs there, so that
+    ``--tp M --clip-norm`` and ``--ep D --clip-norm`` clip as the dense
+    model does (ROADMAP.md, Queue C). Across processes (a ``StageParams``
+    on a distributed mesh) each module's sum comes from the process of its
+    replica 0 and seq chunk 0 (model and expert coordinate 0 for an
+    unsharded stage) and the sums are added over the world."""
     mesh = getattr(params, "mesh", None)
     distributed = mesh is not None and mesh.distributed
     dev = grads[0].device
@@ -139,13 +144,16 @@ def global_grad_norm(grads, params) -> torch.Tensor:
     for s, m, module in units:
         c = len(param_leaves([module]))
         gs, k = grads[k:k + c], k + c
+        expert = m is not None and params[s].axis == mesh_lib.EXPERT_AXIS
         if m:
             # a replicated leaf of shard m > 0 is shard 0's over again
-            names = [n for n, _ in module.named_parameters()]
-            gs = [g for g, n in zip(gs, names)
-                  if is_sharded_leaf(n.split("."))]
-        if gs and (not distributed
-                   or mesh.owns(0, s, 0 if m is None else m)):
+            names = [n.split(".") for n, _ in module.named_parameters()]
+            split = is_expert_leaf if expert else is_sharded_leaf
+            gs = [g for g, n in zip(gs, names) if split(n)]
+        coord = dict(m=0, q=0, e=0)
+        if m is not None:
+            coord["e" if expert else "m"] = m
+        if gs and (not distributed or mesh.owns(0, s, **coord)):
             norms = torch._foreach_norm(gs, 2, dtype=torch.float32)
             parts.append(torch.stack(norms).square().sum().to(dev))
     sq = sum(parts) if parts else torch.zeros((), device=dev)
@@ -178,7 +186,8 @@ class Zero1State:
     """An optimizer state sharded over the data axis (ZeRO-1; JAX
     ``optimizer.py:161-199``). Each held module's packed vector (stage
     ``s``'s leaves, or shard ``m``'s, in ``jax.tree.flatten`` order:
-    ``train/checkpoint.py``'s row ``[s, m]``) splits into ``n_data``
+    ``train/checkpoint.py``'s row ``[s, m]`` or ``[s, :, m]`` of an
+    expert-parallel stage) splits into ``n_data``
     chunks of ``P / n_data`` elements, ``P`` the packed width; data
     replica ``d`` keeps the state of chunk ``d``. This process keeps the
     chunks of the replicas it owns the stage of: ``ranges[s] = (lo, hi)``
@@ -192,13 +201,15 @@ class Zero1State:
     update."""
 
     def __init__(self, inner, ranges: dict, order: list, chunk: int,
-                 totals: dict, mesh) -> None:
+                 totals: dict, mesh, axes: dict | None = None) -> None:
         self.inner = inner
         self.ranges = ranges
         self.order = order
         self.chunk = chunk
         self.totals = totals
         self.mesh = mesh
+        # the mesh axis of each sharded stage's shards (a checkpoint's row)
+        self.axes = axes or {}
 
     def shard(self, per_tensor) -> list[torch.Tensor]:
         """Per-parameter tensors (``param_leaves`` order) -> this process's
@@ -293,7 +304,9 @@ def shard_opt_state_zero1(state: Any, mesh=None, param_spec=None,
         ds = [d for d in range(D) if mesh.owns(d, s)]
         ranges[unit] = (min(ds[0] * chunk, totals[unit]),
                         min((ds[-1] + 1) * chunk, totals[unit]))
-    z = Zero1State(None, ranges, order, chunk, totals, mesh)
+    z = Zero1State(None, ranges, order, chunk, totals, mesh,
+                   {s: p.axis for s, p in enumerate(params)
+                    if isinstance(p, Shards)})
 
     def shard(st):
         if isinstance(st, tuple):

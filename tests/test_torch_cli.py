@@ -147,25 +147,97 @@ def test_cli_metrics_json(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--sp", "2", "--world_size", "2"], "item 6"),
+    (["--overlap", "ring", "--sp", "2", "--world_size", "2"], "item 6"),
     (["--serve-sim", "4", "--model", "gpt", "--world_size", "2"], "item 6c"),
     (["--scenario", "list", "--world_size", "2"], "item 6c"),
     (["--overlap", "ring", "--tp", "2"], "item 6"),
-    (["--sp", "2"], "item 6"),
-    (["--ep", "2"], "item 6"),
-    (["--experts", "4"], "item 6"),
+    (["--overlap", "ring", "--sp", "2"], "item 6"),
+    (["--overlap", "ring", "--ep", "2"], "item 6"),
+    (["--overlap", "ring", "--experts", "4"], "item 6"),
     (["--overlap", "ring"], "item 6"),
-    (["--ep", "2", "--dp", "2", "--stages", "2"], "item 6"),
+    (["--overlap", "ring", "--ep", "2", "--dp", "2", "--stages", "2"],
+     "item 6"),
     (["--lint"], "item 7"),
     (["--lint-only"], "item 7"),
     (["--serve-tp", "2"], "item 6"),
 ])
 def test_unported_flags_exit_naming_their_item(flag, item):
+    """What is left unported names its item: the overlapped collectives
+    (6d.4) whatever the axes beside them, the one-process serving paths
+    (6c), the linter (7.4), tensor-parallel serving (6e)."""
     with pytest.raises(SystemExit) as e:
         main(BASE + flag)
     msg = str(e.value)
     assert f"ROADMAP.md, Queue A: {item}" in msg and flag[0] in msg
     assert "\n" not in msg
+
+
+@pytest.mark.parametrize("argv", [
+    ["--sp", "2"],
+    ["--ep", "2"],
+    ["--model", "gpt", "--ep", "2"],
+    ["--ep", "2", "--dp", "2", "--stages", "2"],
+    ["--model", "lenet", "--sp", "2", "--experts", "4"],
+    ["--model", "gpt", "--experts", "4", "--serve-sim", "4"],
+    ["--model", "gpt", "--sp", "2", "--attn", "ring", "--serve-sim", "4"],
+    ["--model", "gpt", "--experts", "4", "--ep", "2", "--chaos",
+     "host-kill@train.step=6", "--checkpoint-dir", "CK"],
+    ["--model", "mlp", "--sp", "2", "--chaos", "host-kill@train.step=6",
+     "--checkpoint-dir", "CK"],
+])
+def test_sp_and_ep_refusals_are_the_jax_clis(tmp_path, argv):
+    """``--sp``, ``--experts`` and ``--ep`` train; what they are refused
+    with is the JAX CLI's text, word for word."""
+    argv = [str(tmp_path / "ck") if a == "CK" else a for a in argv]
+    ours = _exit_text(lambda a: main(BASE + a), argv)
+    theirs = _exit_text(_jax_train_cli, argv)
+    assert ours == theirs and "\n" not in ours
+
+
+@pytest.mark.parametrize("argv", [["--sp", "2"], ["--sp", "2", "--attn",
+                                                  "flash"]])
+def test_sp_with_a_dense_attention_is_the_jax_config_error(argv):
+    """``--sp`` without ring or Ulysses: ``GPTConfig``'s ValueError, as the
+    JAX CLI raises it."""
+    argv = ["--model", "gpt"] + argv
+    with pytest.raises(ValueError) as ours:
+        main(BASE + argv)
+    with pytest.raises(ValueError) as theirs:
+        _jax_train_cli(argv)
+    assert str(ours.value) == str(theirs.value)
+
+
+def _metrics(tmp_path, argv, name):
+    path = tmp_path / f"{name}.jsonl"
+    main(BASE + ["--model", "gpt", "--dryrun", "2", "--batch-size", "8",
+                 "--metrics-json", str(path)] + argv)
+    [m] = [json.loads(ln) for ln in path.read_text().splitlines()]
+    return [m["train_loss"], m["eval_loss"]]
+
+
+@pytest.mark.parametrize("argv,twin", [
+    (["--sp", "2", "--attn", "ring", "--stages", "2"], ["--stages", "2"]),
+    (["--sp", "2", "--attn", "ulysses", "--stages", "2", "--schedule",
+      "1f1b", "--microbatches", "2"],
+     ["--stages", "2", "--microbatches", "2"]),
+    (["--experts", "4", "--ep", "2", "--attn", "flash", "--stages", "2"],
+     ["--experts", "4", "--attn", "flash", "--stages", "2"]),
+])
+def test_sp_and_ep_train_as_their_one_wide_twins(tmp_path, capsys, argv,
+                                                 twin):
+    """``--sp 2`` (ring under GPipe, Ulysses under 1F1B) and ``--experts 4
+    --ep 2`` (flash attention: the CPU path of the kernels' wrappers) at 2
+    stages: train and eval losses equal to the ``--sp 1`` / ``--ep 1``
+    run's; the placement line names the axis; ``--generate`` skips with
+    the JAX CLI's line."""
+    got = _metrics(tmp_path, argv + ["--generate", "4"], "wide")
+    out = capsys.readouterr().out
+    want = _metrics(tmp_path, twin, "twin")
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    axis = "seq" if "--sp" in argv else "expert"
+    assert f"| pipeline: 2 stages x 2 {axis} shards on cpu" in out
+    assert ("| --generate: skipped (MoE/seq-/tensor-parallel builds decode "
+            "via models.make_decoder)") in out
 
 
 @pytest.mark.parametrize("argv,match", [

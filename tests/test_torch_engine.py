@@ -211,13 +211,26 @@ def test_unported_engine_knobs_raise_with_roadmap_item(weights, kw, item):
     assert eng.pool.prefetch_ticks == kw.get("prefetch_ticks", 1)
 
 
-@pytest.mark.parametrize("cfg_kw", [dict(n_experts=4),
-                                    dict(attn_impl="ring", n_seq=2)])
-def test_unported_model_configs_raise_in_the_engine(weights, cfg_kw):
+@pytest.mark.parametrize("cfg_kw,text", [
+    (dict(n_experts=4), "{} supports dense-MLP blocks only — MoE capacity "
+                        "is a full-sequence quantity (make_cached_decoder's "
+                        "restriction)"),
+    (dict(attn_impl="ring", n_seq=2),
+     "{} is single-device; rebuild the stages with n_seq=1")])
+def test_unported_model_configs_raise_in_the_engine(weights, cfg_kw, text):
+    """MoE and sequence-parallel configs train but do not serve: the
+    engine refuses them with the JAX serving builders' ValueError, as the
+    JAX engine does building its programs."""
+    from simple_distributed_machine_learning_tpu.models import gpt as jgpt
     _, _, _, _, tst, tparams = weights
     cfg = tgpt.GPTConfig(**{**SMALL, **cfg_kw})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError) as ours:
         InferenceEngine(tst, cfg, params=tparams, device="cpu")
+    assert str(ours.value) == text.format("InferenceEngine")
+    with pytest.raises(ValueError) as theirs:
+        jgpt._validate_slot_build(None, jgpt.GPTConfig(**{**SMALL, **cfg_kw}),
+                                  8, "InferenceEngine")
+    assert str(theirs.value) == str(ours.value)
 
 
 def test_submit_with_adapter_raises(weights):

@@ -233,15 +233,27 @@ def test_sampled_top1_equals_greedy_and_seeds_reproduce():
     dict(engine=dict(kv_layout="dense", adapters=True), item=None),
 ])
 def test_unported_configs_raise_with_roadmap_item(kw):
-    """MoE and sequence parallelism are item 6's axes; tensor-parallel
-    stages train, and serving them names item 6e; the serving knobs name
-    theirs, and what is ported builds."""
+    """MoE and sequence-parallel stages train (items 6d.2, 6d.3), and the
+    serving programs refuse them with the JAX package's own texts;
+    tensor-parallel stages train, and serving them names item 6e; the
+    serving knobs name theirs, and what is ported builds."""
     if "item" not in kw:
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md, Queue A: item 6, remaining "
-                                 r"parallel axes"):
-            tgpt.make_gpt_stages(0, tgpt.GPTConfig(**{**SMALL, **kw}), 1,
-                                 device="cpu")
+        cfg = tgpt.GPTConfig(**{**SMALL, **kw})
+        stages = tgpt.make_gpt_stages(0, cfg, 1, device="cpu")[0]
+        jcfg = jgpt.GPTConfig(**{**SMALL, **kw})
+        jst = jgpt.make_gpt_stages(jax.random.key(0), jcfg, 1)[0]
+        for build, jbuild in (
+                (lambda: tgpt.make_cached_decoder(stages, cfg, 4, 2,
+                                                  device="cpu"),
+                 lambda: jgpt.make_cached_decoder(jst, jcfg, 4, 2)),
+                (lambda: tgpt.make_paged_decode_step(stages, cfg, 16, 4,
+                                                     device="cpu"),
+                 lambda: jgpt.make_paged_decode_step(jst, jcfg, 16, 4))):
+            with pytest.raises(ValueError) as ours:
+                build()
+            with pytest.raises(ValueError) as theirs:
+                jbuild()
+            assert str(ours.value) == str(theirs.value)
         return
     from simple_distributed_machine_learning_tpu_torch.serve import (
         InferenceEngine,

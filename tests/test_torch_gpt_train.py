@@ -356,7 +356,9 @@ def test_multi_stage_pipeline_raises_with_roadmap_item():
     """Several stages run over a stage mesh; a stage count that does not
     match the mesh raises, a data axis beside the stages runs (the GPT's
     loss over two replicas is the one-replica loss at two microbatches),
-    and a sequence axis still names its ROADMAP item."""
+    and a sequence axis builds (ROADMAP item 6d.2 is ported): a dense
+    build's per-token output on it must split over its chunks, with the
+    JAX ``Pipeline``'s text."""
     from simple_distributed_machine_learning_tpu_torch.parallel import (
         make_mesh as tmake_mesh,
     )
@@ -366,8 +368,11 @@ def test_multi_stage_pipeline_raises_with_roadmap_item():
         Pipeline(stages, None, wd, od, device="cpu")
     with pytest.raises(ValueError, match="1 stages but mesh stage axis is 2"):
         Pipeline(stages[:1], tmake_mesh(2, devices=["cpu"] * 2), wd, od)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmake_mesh(n_stages=2, n_seq=2, devices=["cpu"] * 4)
+    seq = tmake_mesh(n_stages=2, n_seq=2, devices=["cpu"] * 4)
+    assert seq.shape["seq"] == 2
+    with pytest.raises(ValueError, match="token axis 7 not divisible by "
+                                         "seq axis size 2"):
+        Pipeline(stages, seq, wd, (7, cfg.vocab))
     two = Pipeline(stages, tmake_mesh(2, n_data=2, devices=["cpu"] * 4),
                    wd, od)
     one = Pipeline(stages, tmake_mesh(2, devices=["cpu"] * 2), wd, od,

@@ -247,18 +247,29 @@ def test_param_leaves_follow_the_jax_order_for_mlp_and_lenet():
 def test_two_stage_pipeline_raises_naming_item_6(builder):
     """Two stages need a stage mesh of two; a data axis beside them runs
     (each replica its half of the batch: the loss is the one-replica
-    run's); a sequence axis names item 6 (6d.2)."""
+    run's); a sequence axis builds (item 6d.2), and a classifier on it is
+    refused with the JAX ``Pipeline``'s text."""
     from simple_distributed_machine_learning_tpu_torch.parallel import (
         make_mesh,
     )
-    stages = (tlenet.make_lenet_stages(0, 2, device="cpu") if builder ==
-              "lenet" else tmlp.make_mlp_stages(0, [8, 6, 4], 2,
-                                                device="cpu"))[0]
+    stages, wd, od = (tlenet.make_lenet_stages(0, 2, device="cpu")
+                      if builder == "lenet" else
+                      tmlp.make_mlp_stages(0, [8, 6, 4], 2, device="cpu"))
     with pytest.raises(ValueError, match="2 stages but mesh stage axis"):
         Pipeline(stages, None, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="item 6, remaining parallel axes"):
-        make_mesh(2, n_seq=2, devices=["cpu"] * 4)
+    jst, jwd, jod = (jlenet.make_lenet_stages(jax.random.key(0), 2)
+                     if builder == "lenet" else jmlp.make_mlp_stages(
+                         jax.random.key(0), [8, 6, 4], 2))
+    with pytest.raises(ValueError, match="requires a per-token output "
+                                         "shape") as ours:
+        Pipeline(stages, make_mesh(2, n_seq=2, devices=["cpu"] * 4), wd, od)
+    from simple_distributed_machine_learning_tpu.parallel.mesh import (
+        make_mesh as jmake_mesh,
+    )
+    with pytest.raises(ValueError) as theirs:
+        JaxPipeline(jst, jmake_mesh(n_stages=2, n_data=1, n_seq=2), jwd,
+                    jod)
+    assert str(ours.value) == str(theirs.value)
     two = Pipeline(stages, make_mesh(2, n_data=2, devices=["cpu"] * 4))
     one = Pipeline(stages, make_mesh(2, devices=["cpu"] * 2),
                    n_microbatches=2)

@@ -372,9 +372,24 @@ def test_validation_errors():
     with pytest.raises(ValueError, match="2 stages but mesh stage axis "
                                          "is 1"):
         Pipeline(tst, None, wd, od, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="item 6, remaining parallel axes"):
-        make_mesh(2, n_expert=2, devices=["cpu"] * 4)
+    # an expert axis builds (item 6d.3); a stage's expert shards must
+    # match it, and a stage cannot shard both axes (the JAX texts)
+    emesh = make_mesh(2, n_expert=2, devices=["cpu"] * 4)
+    jst = jb(2)[0]
+    for kw, jkw in (
+            (dict(expert_shards=(tst[0].params,)),
+             dict(expert_shards=(jst[0].params,))),
+            (dict(shards=(tst[0].params,) * 1,
+                  expert_shards=(tst[0].params,) * 2),
+             dict(shards=(jst[0].params,) * 1,
+                  expert_shards=(jst[0].params,) * 2))):
+        with pytest.raises(ValueError) as ours:
+            Pipeline([dataclasses.replace(tst[0], **kw), tst[1]], emesh, wd,
+                     od)
+        with pytest.raises(ValueError) as theirs:
+            JPipeline([dataclasses.replace(jst[0], **jkw), jst[1]],
+                      jmake_mesh(n_stages=2, n_data=1, n_expert=2), wd, od)
+        assert str(ours.value) == str(theirs.value)
     with pytest.raises(ValueError, match="needs 4 devices, have 2"):
         make_mesh(2, n_data=2, devices=["cpu"] * 2)
     with pytest.raises(ValueError, match="not divisible by "

@@ -254,10 +254,13 @@ def test_one_card_mesh_bootstrap_and_zero1(capsys):
         shard_opt_state_zero1,
     )
     assert make_mesh() is None and make_mesh(n_stages=1, n_data=1) is None
-    for axis in ("n_seq", "n_expert"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            make_mesh(**{axis: 2})
-    # the model axis is ported (item 6d.1)
+    # the model, seq and expert axes are ported (items 6d.1-6d.3): over
+    # listed devices; without a card to default to there is none
+    for axis, name in (("n_seq", "seq"), ("n_expert", "expert")):
+        assert make_mesh(**{axis: 2}, devices=["cpu"] * 2).shape[name] == 2
+        if not torch.cuda.is_available():
+            with pytest.raises(ValueError, match="needs 2 devices, have 0"):
+                make_mesh(**{axis: 2})
     assert make_mesh(n_model=2, devices=["cpu"] * 2).shape["model"] == 2
     # the stage and data axes are ported: over listed devices, or the
     # visible cards
