@@ -326,6 +326,35 @@ or without the port beside it. Phases, each fatal on failure:
    at 1 stage over two processes (the axis split between them), each
    run's train and eval losses within ``STAGE_CLI_RTOL`` of its ``--sp
    1`` / ``--ep 1`` twin.
+19. the overlapped collectives and tensor-parallel serving on the one
+   card: (a) the gpt_bf16 row (dense attention) at tp 2 and 4 with
+   ``overlap="ring"`` (the ring-closed attention and the scattered MLP
+   pair of ``parallel/overlap.py``), ``TP_STEPS`` AdamW steps from phase
+   17's weights and batch: losses within ``TP_BF16_RTOL`` of phase 17's
+   ``"none"`` run at that width, no flash launch, step p50, peak memory,
+   and (a profiled window in a process of its own) launches per step and
+   the device's busy share; phase 18 (b)'s MoE row at ep 2 with the ring
+   dispatch within ``SPEP_BF16_RTOL`` of its all-to-all run, K1-K3
+   ``n_layers`` a step (counted into the ``kernels`` line); (b) phase 3's
+   trace through ``InferenceEngine(attn_kernel="fused", mesh=...)`` at
+   ``TP_SERVE_RUNS`` (tp 2 and 4 with ``"none"``, tp 2 with ``"ring"``):
+   24/24, K4 launched exactly ``tp x n_layers`` times per decode call (one
+   launch per shard pool and layer, counted into the ``kernels`` line),
+   the per-shard resident K/V bytes equal to the byte model on every tick,
+   every greedy stream equal to phase 3's, TTFT/TPOT, tokens/s and the
+   tick p50 beside phase 3's; the int8 pool at tp 2 against an int8 tp 1
+   engine's streams; a tp 2 speculative target (the CLI's draft, spec_k
+   4: a single-device propose, then the verify over the shards) equal to
+   phase 3's streams; (c) K4 on one shard's 4 and 2 heads (f32 and int8,
+   K = 1) against its plain version, timed as phase 2 times it beside its
+   bound; (d) the CLI at ``--serve-sim 8 --serve-tp 2`` (the placement
+   line, 8/8, ``| serve: tp 2``) and ``--model gpt --tp 2 --overlap
+   ring`` (within ``STAGE_CLI_RTOL`` of phase 17 (b)'s tp 1 run).
+
+To make room for phase 19, PR 18 cut earlier phases' depth: phase 15
+(b) times 5 steps and profiles 3 (was 10 and 5), phase 16 runs 10 steps
+(was 20), phase 17 runs and its CLI runs 6 steps (was 10) and profiles 3
+(was 5), phase 18's CLI runs 6 steps (was 10) and it profiles 2 (was 3).
 
 Before the last line it prints the kernels as one JSON object (times in
 ms, measured in this run; ``bound_ms`` computed from this run's inputs);
@@ -615,7 +644,7 @@ STAGE_LAUNCHES = {"gpipe": (16, 16, 16), "1f1b": (24, 16, 16),
                   "gpipe_remat": (32, 16, 16)}
 STAGE_BF16_RTOL, STAGE_MICRO = 2e-2, 4
 STAGE_GPIPE_GROWTH, STAGE_ONEFB_GROWTH = 2.0, 1.3
-STAGE_TIMED_STEPS, STAGE_PROFILED_STEPS = 10, 5
+STAGE_TIMED_STEPS, STAGE_PROFILED_STEPS = 5, 3
 PP_DECODE = dict(t0=32, n_new=24, reps=3)
 STAGE_DRILL_PINS = (
     "restored ckpt-00000004.npz (step 4, written at 2 stages, repacked "
@@ -634,7 +663,7 @@ STAGE_DRILL_PINS = (
 # activation; (d) a killed and a stopped peer under --peer-timeout
 # PROC_PEER_TIMEOUT, rank 0 out within PROC_PEER_LIMIT_S; every launch
 # within PROC_TIMEOUT_S
-PROC_STEPS = 20
+PROC_STEPS = 10
 PROC_GENERATE, PROC_DECODE_T0, PROC_PINGS = 8, 16, 20
 PROC_PEER_TIMEOUT, PROC_PEER_LIMIT_S, PROC_TIMEOUT_S = 8, 60, 240
 
@@ -648,9 +677,9 @@ PROC_PEER_TIMEOUT, PROC_PEER_LIMIT_S, PROC_TIMEOUT_S = 8, 60, 240
 # CLI at --tp 2, STAGE_CLI_STEPS steps in one process and TP_CLI_STEPS over
 # two, held to tp = 1 within STAGE_CLI_RTOL; TP_MLP_DIMS is mlp4's widths
 # as two column -> row pairs
-TP_WIDTHS, TP_STEPS, TP_PROFILED_STEPS = (1, 2, 4), 10, 5
+TP_WIDTHS, TP_STEPS, TP_PROFILED_STEPS = (1, 2, 4), 6, 3
 TP_BF16_RTOL, TP_F32_RTOL = 1e-2, 1e-5
-TP_CLI_STEPS = 10
+TP_CLI_STEPS = 6
 TP_MLP_DIMS = [784, 512, 512, 512, 10]
 # phase 18: sequence and expert parallelism on the one card — (a) the
 # gpt_bf16 row at each SP_RUNS (attention, n_seq), (b) as a mixture of
@@ -665,9 +694,21 @@ SP_RUNS = (("dense", 1), ("ring", 2), ("ring", 4), ("ulysses", 2),
 EP_WIDTHS = (1, 2, 4)
 EP_MOE = dict(n_experts=8, moe_top_k=2, moe_capacity_factor=2.0,
               attn_impl="flash")
-SPEP_STEPS, SPEP_PROFILED_STEPS = 6, 3
+SPEP_STEPS, SPEP_PROFILED_STEPS = 6, 2
 SPEP_BF16_RTOL = 1e-2
-SPEP_CLI_STEPS = 10
+SPEP_CLI_STEPS = 6
+# phase 19: the overlapped collectives and tensor-parallel serving on the
+# one card — (a) the gpt_bf16 row at each OVERLAP_WIDTHS width with
+# overlap="ring", TP_STEPS AdamW steps from phase 17's weights and batch,
+# losses held to phase 17's "none" run at that width within TP_BF16_RTOL
+# (the ring adds the model sum's chunks in another order); phase 18 (b)'s
+# MoE row at ep 2 with the ring dispatch against its all-to-all run within
+# SPEP_BF16_RTOL; (b) phase 3's trace on the tensor-parallel engine at each
+# TP_SERVE_RUNS (tp, overlap), the int8 pool at tp 2 against tp 1's, and a
+# tp 2 speculative target; (c) K4 at one shard's TP_SERVE_HEADS heads
+OVERLAP_WIDTHS = (2, 4)
+TP_SERVE_RUNS = ((2, "none"), (4, "none"), (2, "ring"))
+TP_SERVE_HEADS = (4, 2)
 
 
 class SmokeFailure(RuntimeError):
@@ -903,7 +944,7 @@ def phase_build(record: dict) -> None:
 def _pool_case(name: str, K: int, gen, dev, dh: int = 64,
                bs: int = SERVE_BLOCK, layout: str = "layer",
                pos0: bool = False, slots: int = SERVE_SLOTS,
-               spec_plan: bool = False):
+               spec_plan: bool = False, heads: int = 8):
     """The serving pool's shapes: [L=4, 129 blocks, 8 heads, 16, 64], one
     layer's view handed to the kernel as the engine does; 8 slots with
     ragged tables (trash 0 past each slot's position), one slot routed
@@ -916,12 +957,13 @@ def _pool_case(name: str, K: int, gen, dev, dh: int = 64,
     position 0 with a real table entry; ``slots``: another slot count;
     ``spec_plan``: slot 1 at 256 - K/2, so its later queries are clamped
     to 255 and repeat, and slot 2 four positions before a block boundary,
-    so its queries straddle it."""
+    so its queries straddle it; ``heads``: one tensor-parallel shard's
+    head count (phase 19)."""
     import torch
     from simple_distributed_machine_learning_tpu_torch.models.gpt import (
         _quantize_rows,
     )
-    L, H, S = 4, 8, slots
+    L, H, S = 4, heads, slots
     NB = 256 // bs
     nblk = S * NB + 1
     wide = dh + 1 if layout == "misaligned" else dh
@@ -1291,7 +1333,9 @@ def _count_decode_calls(engine) -> list[int]:
     """Count the engine's decode (or speculative) program calls from now
     on: one per tick that decodes; the count is the list's one entry."""
     calls = [0]
-    attr = "_spec_fused" if engine.speculative else "_decode"
+    attr = ("_decode" if not engine.speculative
+            else "_spec_fused" if engine._spec_fused is not None
+            else "_verify")          # a TP target's verify dispatch
     inner = getattr(engine, attr)
 
     def counted(*a):
@@ -5908,10 +5952,11 @@ def phase_processes(record: dict) -> tuple[int, int, int]:
     return launches
 
 
-def _tp_pipe(row: dict, tp: int):
+def _tp_pipe(row: dict, tp: int, overlap: str = "none"):
     """A bench row with dense attention at ``n_tensor_parallel = tp`` on
     the one card (weights from seed 0: every width slices the same dense
-    init), its pipeline and its optimizer."""
+    init) and the collective schedule ``overlap``, its pipeline and its
+    optimizer."""
     import torch
     from simple_distributed_machine_learning_tpu_torch.models.gpt import (
         GPTConfig,
@@ -5925,29 +5970,31 @@ def _tp_pipe(row: dict, tp: int):
         adamw,
         sgd,
     )
-    cfg = GPTConfig(**row["cfg"], n_tensor_parallel=tp)
+    cfg = GPTConfig(**row["cfg"], n_tensor_parallel=tp, overlap=overlap)
     stages, wd, od = make_gpt_stages(0, cfg, 1, device=MAIN_DEVICE)
     mesh = (make_mesh(1, n_model=tp, devices=[_stage_card()] * tp)
             if tp > 1 else None)
     pipe = Pipeline(stages, mesh, wd, od, n_microbatches=row["n_micro"],
                     compute_dtype=row["dtype"] and getattr(torch,
                                                            row["dtype"]),
-                    device=None if mesh else MAIN_DEVICE)
+                    overlap=overlap, device=None if mesh else MAIN_DEVICE)
     opt = (adamw(1e-3) if row["opt"] == "adamw"
            else sgd(0.1, momentum=0.5))
     return cfg, pipe, opt
 
 
-def _tp_steps(row: dict, tp: int, steps: int) -> dict:
-    """``steps`` train steps of ``row`` at ``tp`` from fresh weights on one
-    batch: the losses, each step's host-clock ms (synchronised), the peak
-    memory of the run and its flash launches (none: attention is dense)."""
+def _tp_steps(row: dict, tp: int, steps: int,
+              overlap: str = "none") -> dict:
+    """``steps`` train steps of ``row`` at ``tp`` (schedule ``overlap``)
+    from fresh weights on one batch: the losses, each step's host-clock ms
+    (synchronised), the peak memory of the run and its flash launches
+    (none: attention is dense)."""
     import torch
 
     from simple_distributed_machine_learning_tpu_torch.train import (
         make_train_step,
     )
-    cfg, pipe, opt = _tp_pipe(row, tp)
+    cfg, pipe, opt = _tp_pipe(row, tp, overlap)
     x, t = _stage_batch(cfg, row["batch"], 7)
     params = pipe.init_params()
     state = opt.init(params)
@@ -5969,9 +6016,10 @@ def _tp_steps(row: dict, tp: int, steps: int) -> dict:
     return out
 
 
-def tp_profile() -> dict:
-    """(a)'s profiled window: ``TP_PROFILED_STEPS`` gpt_bf16 steps at each
-    width under ``torch.profiler``, after 2 warm-up steps — kernel
+def tp_profile(overlap: str = "none") -> dict:
+    """Phase 17 (a)'s profiled window (phase 19 (a)'s with ``overlap``
+    "ring", at ``OVERLAP_WIDTHS``): ``TP_PROFILED_STEPS`` gpt_bf16 steps at
+    each width under ``torch.profiler``, after 2 warm-up steps — kernel
     launches per step and the device's busy share (run in a process of its
     own, as phase 15's window)."""
     import torch
@@ -5982,8 +6030,8 @@ def tp_profile() -> dict:
     )
     row = TRAIN_ROWS["gpt_bf16"]
     out = {}
-    for tp in TP_WIDTHS:
-        cfg, pipe, opt = _tp_pipe(row, tp)
+    for tp in TP_WIDTHS if overlap == "none" else OVERLAP_WIDTHS:
+        cfg, pipe, opt = _tp_pipe(row, tp, overlap)
         x, t = _stage_batch(cfg, row["batch"], 7)
         params = pipe.init_params()
         state = opt.init(params)
@@ -6014,14 +6062,14 @@ def tp_profile() -> dict:
     return out
 
 
-def _tp_profile_fresh() -> dict:
+def _tp_profile_fresh(overlap: str = "none") -> dict:
     proc = subprocess.run(
         [sys.executable, "-c",
          "import json, chip_smoke; "
-         "print(json.dumps(chip_smoke.tp_profile()))"],
+         f"print(json.dumps(chip_smoke.tp_profile({overlap!r})))"],
         cwd=HERE, capture_output=True, text=True, timeout=600)
     check(proc.returncode == 0,
-          f"phase 17 (a)'s profiled window: rc {proc.returncode}\n"
+          f"the tp profiled window ({overlap}): rc {proc.returncode}\n"
           f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
@@ -6189,14 +6237,16 @@ def phase_tensor_parallel(record: dict) -> None:
 
 def _spep_cfg(run: tuple):
     """The gpt_bf16 row's config for one phase 18 run: ``("sp", attn,
-    n_seq)`` or ``("ep", width)``."""
+    n_seq)`` or ``("ep", width)``; phase 19's ``("ep", width, "ring")``
+    dispatches by the ring."""
     from simple_distributed_machine_learning_tpu_torch.models.gpt import (
         GPTConfig,
     )
     row = TRAIN_ROWS["gpt_bf16"]["cfg"]
     if run[0] == "sp":
         return GPTConfig(**row, attn_impl=run[1], n_seq=run[2])
-    return GPTConfig(**row, **EP_MOE, n_expert_parallel=run[1])
+    return GPTConfig(**row, **EP_MOE, n_expert_parallel=run[1],
+                     overlap=run[2] if len(run) > 2 else "none")
 
 
 def _spep_pipe(run: tuple):
@@ -6218,6 +6268,7 @@ def _spep_pipe(run: tuple):
     mesh = (make_mesh(1, n_seq=q, n_expert=e, devices=[_stage_card()] * q * e)
             if q * e > 1 else None)
     pipe = Pipeline(stages, mesh, wd, od, compute_dtype=torch.bfloat16,
+                    overlap=cfg.overlap,
                     device=None if mesh else MAIN_DEVICE)
     return cfg, pipe, adamw(1e-3)
 
@@ -6467,6 +6518,297 @@ def phase_seq_expert(record: dict) -> tuple[int, int, int]:
     return launches
 
 
+def _overlap_training(rec: dict, record: dict) -> tuple[int, int, int]:
+    """(a) The gpt_bf16 row at each ``OVERLAP_WIDTHS`` width with
+    ``overlap="ring"`` against phase 17's ``"none"`` run, and phase 18
+    (b)'s MoE row at ep 2 with the ring dispatch against its all-to-all
+    run. Returns the MoE run's K1/K2/K3 launches."""
+    import math
+    row = TRAIN_ROWS["gpt_bf16"]
+    none = record["tensor_parallel"]["full_width"]
+    prof = _tp_profile_fresh("ring")
+    out = {}
+    for tp in OVERLAP_WIDTHS:
+        r = _tp_steps(row, tp, TP_STEPS, overlap="ring")
+        base = none[str(tp)]["losses"]
+        gaps = _rel_gaps(r["losses"], base)
+        check(all(math.isfinite(v) for v in r["losses"])
+              and r["losses"][-1] < r["losses"][0],
+              f"gpt_bf16 ring at tp {tp}: losses do not fall: "
+              f"{r['losses']}")
+        check(max(gaps) <= TP_BF16_RTOL,
+              f"gpt_bf16 ring at tp {tp}: losses {r['losses']} vs none "
+              f"{base} (max rel gap {max(gaps):.2e} > {TP_BF16_RTOL})")
+        check(r["flash"] == (0, 0, 0),
+              f"gpt_bf16 ring at tp {tp} launched flash kernels "
+              f"{r['flash']}")
+        p, p50 = prof[str(tp)], statistics.median(r["step_ms"])
+        out[f"ring tp {tp}"] = dict(
+            losses=r["losses"], max_rel_gap=max(gaps), step_ms=r["step_ms"],
+            step_ms_p50=p50, none_step_ms_p50=none[str(tp)]["step_ms_p50"],
+            peak_bytes=r["peak_bytes"], **p)
+        print(f"chip_smoke: overlap (a) gpt_bf16 ring at tp {tp}: step p50 "
+              f"{p50:.3f} ms (none {none[str(tp)]['step_ms_p50']:.3f}), "
+              f"{p['kernel_launches_per_step']:.1f} launches/step (none "
+              f"{none[str(tp)]['kernel_launches_per_step']:.1f}), device "
+              f"busy {p['device_busy_share']:.4f}, peak "
+              f"{r['peak_bytes'] / 2 ** 20:.1f} MiB; max rel gap to none "
+              f"{max(gaps):.2e}")
+    moe = _spep_steps(("ep", 2, "ring"), SPEP_STEPS)
+    base = record["seq_expert_parallel"]["full_width"]["moe ep 2"]
+    gaps = _rel_gaps(moe["losses"], base["losses"])
+    n_layers = row["cfg"]["n_layers"]
+    want = (n_layers * SPEP_STEPS,) * 3
+    check(max(gaps) <= SPEP_BF16_RTOL,
+          f"MoE ep 2 ring: losses {moe['losses']} vs all-to-all "
+          f"{base['losses']} (max rel gap {max(gaps):.2e})")
+    check(moe["flash"] == want,
+          f"MoE ep 2 ring: K1/K2/K3 launched {moe['flash']}, want {want}")
+    p50 = statistics.median(moe["step_ms"])
+    out["moe ep 2 ring"] = dict(losses=moe["losses"], max_rel_gap=max(gaps),
+                                step_ms=moe["step_ms"], step_ms_p50=p50,
+                                none_step_ms_p50=base["step_ms_p50"],
+                                peak_bytes=moe["peak_bytes"],
+                                flash=moe["flash"])
+    print(f"chip_smoke: overlap (a) MoE ep 2 ring dispatch: step p50 "
+          f"{p50:.3f} ms (all-to-all {base['step_ms_p50']:.3f}), peak "
+          f"{moe['peak_bytes'] / 2 ** 20:.1f} MiB, K1/K2/K3 {moe['flash']}; "
+          f"max rel gap to all-to-all {max(gaps):.2e}")
+    rec["training"] = out
+    return moe["flash"]
+
+
+def _tp_engine_run(stages, cfg, tp: int, overlap: str = "none",
+                   **engine_kw) -> tuple[dict, list]:
+    """Phase 3's trace through a warmed fused engine at ``tp`` (every
+    coordinate on the one card), with each tick's ``kv_drift`` pair
+    recorded."""
+    import dataclasses
+
+    from simple_distributed_machine_learning_tpu_torch.parallel import (
+        make_mesh,
+    )
+    c = dataclasses.replace(cfg, n_tensor_parallel=tp,
+                            overlap=overlap if tp > 1 else "none")
+    mesh = (make_mesh(1, n_model=tp, devices=[_stage_card()] * tp)
+            if tp > 1 else None)
+    engine = _warm_engine(stages, c, "fused", mesh=mesh, **engine_kw)
+    drift = []
+    inner = engine.kv_drift
+
+    def recorded():
+        out = inner()
+        drift.append(out)
+        return out
+
+    engine.kv_drift = recorded
+    return _serve(engine), drift
+
+
+def _tp_serving(stages, cfg, serve: dict, plain_handles: list,
+                rec: dict) -> int:
+    """(b) Phase 3's trace on the tensor-parallel engine. Returns K4's
+    launches."""
+    import dataclasses
+
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        make_gpt_stages,
+    )
+    from simple_distributed_machine_learning_tpu_torch.ops.random import (
+        fold_in,
+    )
+    from simple_distributed_machine_learning_tpu_torch.serve.slots import (
+        kv_block_bytes,
+    )
+    ps = serve["summary"]
+    L, H = cfg.n_layers, cfg.n_heads
+    dh = cfg.d_model // H
+    greedy = [i for i, h in enumerate(plain_handles)
+              if h.temperature == 0.0]
+    out, launches = {}, 0
+
+    def held(name, run, drift, tp, want, spec=False):
+        rep, s, handles = run["report"], run["summary"], run["handles"]
+        same = sum(handles[i].tokens == want[i].tokens for i in greedy)
+        per_call = tp * L
+        off = _off_ticks(run["rows"], per_call)
+        live = [a for a, _ in drift]
+        exact = all(a == b for a, b in drift)
+        out[name] = dict(
+            completed=rep["completed"], summary=s, launches=run["launches"],
+            decode_calls=run["decode"], launches_per_call=per_call,
+            ticks_off=off, tick_ms=run["tick_ms"],
+            tick_ms_p50=run["tick_ms_p50"], greedy=len(greedy),
+            greedy_equal=same, kv_bytes_max=max(live),
+            kv_drift_exact=exact)
+        print(f"chip_smoke: tp serve (b) {name}: {rep['completed']}/"
+              f"{rep['n_requests']}, {s['tokens_per_sec']} tok/s (phase 3 "
+              f"{ps['tokens_per_sec']}), ttft p50/p95 {s['ttft_ms_p50']}/"
+              f"{s['ttft_ms_p95']} ms ({ps['ttft_ms_p50']}/"
+              f"{ps['ttft_ms_p95']}), tpot p50/p95 {s['tpot_ms_p50']}/"
+              f"{s['tpot_ms_p95']} ms ({ps['tpot_ms_p50']}/"
+              f"{ps['tpot_ms_p95']}), tick p50 {run['tick_ms_p50']:.3f} ms "
+              f"({serve['tick_ms_p50']:.3f}); K4 launches {run['launches']} "
+              f"= {tp} shards x {L} layers x {run['decode']} decode calls; "
+              f"per-shard KV bytes max {max(live)}, equal to the byte model "
+              f"every tick: {exact}"
+              + (" (not held: speculation reserves ahead)" if spec else "")
+              + f"; greedy streams equal {same}/"
+              f"{len(greedy)}")
+        check(rep["completed"] == SERVE_SIM["n_requests"],
+              f"tp serve {name}: {rep['completed']}/{rep['n_requests']}")
+        check(run["decode"] > 0 and not off
+              and run["launches"] == per_call * run["decode"],
+              f"tp serve {name}: K4 launches {run['launches']} != {tp} x "
+              f"{L} x {run['decode']} calls (ticks off: {off})")
+        # a speculative tick allocates its spec_k positions before it
+        # knows how many survive: its resident bytes run ahead of the
+        # written rows the byte model counts, so only the plain runs are
+        # held to it
+        check((exact or spec) and max(live) > 0,
+              f"tp serve {name}: per-shard KV bytes differ from the byte "
+              f"model: {[d for d in drift if d[0] != d[1]][:4]}")
+        check(len(greedy) >= 2 and same == len(greedy),
+              f"tp serve {name}: greedy streams differ")
+        return run["launches"]
+
+    for tp, overlap in TP_SERVE_RUNS:
+        run, drift = _tp_engine_run(stages, cfg, tp, overlap)
+        launches += held(f"tp {tp} {overlap}", run, drift, tp,
+                         plain_handles)
+    # the per-shard pool: 1/tp of a block's bytes, by construction
+    for tp in (2, 4):
+        check(tp * kv_block_bytes(L, H // tp, SERVE_BLOCK, dh)
+              == kv_block_bytes(L, H, SERVE_BLOCK, dh),
+              f"a tp {tp} shard's block is not 1/{tp} of the whole")
+    # the int8 pool at tp 2 against an int8 tp 1 engine
+    one8, _ = _tp_engine_run(stages, cfg, 1, cache_dtype="int8")
+    launches += one8["launches"]
+    run, drift = _tp_engine_run(stages, cfg, 2, cache_dtype="int8")
+    launches += held("tp 2 none int8", run, drift, 2, one8["handles"])
+    # a tp 2 speculative target with the CLI's draft at spec_k 4
+    dcfg = dataclasses.replace(cfg, n_layers=max(1, cfg.n_layers // 2))
+    dstages = make_gpt_stages(fold_in(0, 1), dcfg, 1)[0]
+    run, drift = _tp_engine_run(stages, cfg, 2, draft_stages=dstages,
+                                draft_cfg=dcfg, spec_k=SPEC_K)
+    launches += held("tp 2 spec_k 4", run, drift, 2, plain_handles,
+                     spec=True)
+    out["tp 2 spec_k 4"]["accept_rate"] = run["summary"].get(
+        "spec_accept_rate")
+    rec["serving"] = out
+    return launches
+
+
+def _tp_k4_heads(rec: dict) -> list[dict]:
+    """(c) K4 on one shard's heads (``TP_SERVE_HEADS``), f32 and int8 at
+    K = 1, against its plain version, timed as phase 2 times it."""
+    import torch
+    from simple_distributed_machine_learning_tpu_torch.ops.paged_attention import (  # noqa: E501
+        paged_attention,
+        paged_attention_reference,
+    )
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(19)
+    flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32,
+                        device=dev)
+    out = []
+    for heads in TP_SERVE_HEADS:
+        for name in ("float32", "int8"):
+            c = _pool_case(name, 1, gen, dev, heads=heads)
+            args = (c["q"], c["kc"], c["vc"], c["tables"], c["qpos"])
+            kw = dict(block_size=c["bs"], kscale=c["kscale"],
+                      vscale=c["vscale"])
+            v, ok, wide_ok = _against_plain(name, c)
+            v["heads"] = heads
+            v["bound_ms"], v["bound_by"] = _bound(c)
+            v["ms"] = time_ms(lambda: paged_attention(*args, **kw), flush)
+            v["plain_ms"] = time_ms(
+                lambda: paged_attention_reference(*args, **kw), flush)
+            out.append(v)
+            print(f"chip_smoke: tp serve (c) paged_attention {name:>7} at "
+                  f"{heads} heads ({SERVE_SLOTS} slots, K=1): vs plain max "
+                  f"abs {v['max_abs_err']:.3e} {'ok' if ok else 'FAIL'}; "
+                  f"kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, "
+                  f"bound {v['bound_ms']:.4f} ms ({v['bound_by']}): "
+                  f"{v['ms'] / v['bound_ms']:.1f}x the bound")
+            check(ok and wide_ok, f"paged_attention at {heads} heads "
+                                  f"{name} disagrees: {v}")
+    rec["k4_heads"] = out
+    return out
+
+
+def _tp_serve_cli(rec: dict, record: dict, tmp: str) -> int:
+    """(d) The CLI at ``--serve-sim 8 --serve-tp 2`` and at ``--tp 2
+    --overlap ring`` (one process, one stage; held to phase 17 (b)'s tp 1
+    run). Returns the serving run's K4 launches."""
+    from simple_distributed_machine_learning_tpu_torch.ops.paged_attention import (  # noqa: E501
+        paged_attention,
+    )
+    card = _stage_card()
+    l0 = paged_attention.launches
+    lines = _cli(["--model", "gpt", "--serve-sim", "8", "--serve-tp", "2"])
+    launches = paged_attention.launches - l0
+    done = [ln for ln in lines
+            if ln.startswith("| serve: 8/8 requests completed")]
+    check(f"| serving: tp 2 on {card}, {card}" in lines and done
+          and "| serve: tp 2" in lines and launches > 0,
+          f"--serve-sim 8 --serve-tp 2 printed {lines} ({launches} K4 "
+          f"launches)")
+    print(f"chip_smoke: tp serve (d) CLI --serve-sim 8 --serve-tp 2: "
+          f"{done[0]}; {launches} K4 launches")
+    data = ["--data-root", os.path.join(tmp, "nodata")]
+    argv = ["--model", "gpt", "--stages", "1", "--clip-norm", "1.0"] + data
+    ring = _stage_cli(argv + ["--tp", "2", "--overlap", "ring"], tmp,
+                      "gpt-ring-tp2", TP_CLI_STEPS)
+    one = record["tensor_parallel"]["cli"]["gpt_2_processes"]["tp1"]
+    gaps = _rel_gaps([ring["train_loss"], ring["eval_loss"]], one)
+    place = "| pipeline: 1 stages x 2 model shards on " + ", ".join(
+        [card] * 2)
+    check(place in ring["lines"] and max(gaps) <= STAGE_CLI_RTOL,
+          f"--tp 2 --overlap ring: losses {ring['train_loss']}/"
+          f"{ring['eval_loss']} vs tp 1 {one} (placement line "
+          f"{place in ring['lines']})")
+    print(f"chip_smoke: tp serve (d) CLI gpt --tp 2 --overlap ring, "
+          f"{TP_CLI_STEPS} steps: train/eval {ring['train_loss']:.6f}/"
+          f"{ring['eval_loss']:.6f}, tp 1 {one[0]:.6f}/{one[1]:.6f}, max "
+          f"rel gap {max(gaps):.2e}")
+    rec["cli"] = dict(serve_lines=lines, serve_launches=launches,
+                      ring=[ring["train_loss"], ring["eval_loss"]], tp1=one,
+                      max_rel_gap=max(gaps))
+    return launches
+
+
+def phase_overlap_tp_serve(record: dict, serve: dict,
+                           plain_handles: list) -> tuple:
+    """Phase 19: the overlapped collectives and tensor-parallel serving on
+    the one card. Returns K4's launches and (a)'s K1/K2/K3."""
+    import tempfile
+
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        GPTConfig,
+        make_gpt_stages,
+    )
+    rec: dict = {}
+    record["overlap_tp_serve"] = rec
+    t0 = time.perf_counter()
+    flash = _overlap_training(rec, record)
+    secs = {"a": time.perf_counter() - t0}
+    cfg = GPTConfig(**SERVE_CFG)
+    stages = make_gpt_stages(0, cfg, 1)[0]
+    launches = _tp_serving(stages, cfg, serve, plain_handles, rec)
+    del stages
+    secs["b"] = time.perf_counter() - t0 - sum(secs.values())
+    _tp_k4_heads(rec)
+    secs["c"] = time.perf_counter() - t0 - sum(secs.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        launches += _tp_serve_cli(rec, record, tmp)
+    secs["d"] = time.perf_counter() - t0 - sum(secs.values())
+    rec["seconds"] = dict(secs, total=time.perf_counter() - t0)
+    print(f"chip_smoke: phase 19 took {rec['seconds']['total']:.1f} s ("
+          + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items()) + ")")
+    return launches, flash
+
+
 def main() -> int:
     try:
         import torch
@@ -6518,6 +6860,8 @@ def main() -> int:
         process_launches = phase_processes(record)
         phase_tensor_parallel(record)
         spep_launches = phase_seq_expert(record)
+        tp_serve_launches, overlap_flash = phase_overlap_tp_serve(
+            record, serve, plain_handles)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6531,11 +6875,12 @@ def main() -> int:
                     "paged_attention.py:67",
         # phase 3's decode ticks, phase 3b's speculative verify steps,
         # phase 8's scenarios and drills, phase 9's fleet runs, phase 11's
-        # host-tier and adapter runs, phase 12's protocol drills and phase
-        # 14's recorded ticks and drift traces
+        # host-tier and adapter runs, phase 12's protocol drills, phase
+        # 14's recorded ticks and drift traces and phase 19's
+        # tensor-parallel serving (tp x n_layers per decode call)
         "launches": (serve["launches"] + spec["launches"] + fault_launches
                      + fleet_launches + tier_launches + protocol_launches
-                     + lint_launches),
+                     + lint_launches + tp_serve_launches),
         "max_abs_err": max(v["max_abs_err"] for v in variants),
         "ms": main_v["ms"],
         "plain_ms": main_v["plain_ms"],
@@ -6546,8 +6891,9 @@ def main() -> int:
     # the flash kernels' times at the gpt_bf16 row's shape; launches from
     # that row's flash training run, phase 10 (b)'s runs of that row,
     # phase 13 (b)'s bf16 CLI run, phase 15 (b)'s runs of that row at 2
-    # stages, phase 16 (b)'s over 2 processes (summed over the ranks) and
-    # phase 18 (b)'s mixture-of-experts runs of that row
+    # stages, phase 16 (b)'s over 2 processes (summed over the ranks),
+    # phase 18 (b)'s mixture-of-experts runs of that row and phase 19
+    # (a)'s with the ring dispatch
     for i, (name, line) in enumerate((("flash_forward", 127),
                                       ("flash_dq", 300),
                                       ("flash_dkv", 338))):
@@ -6562,7 +6908,8 @@ def main() -> int:
                         f"flash_attention.py:{line}",
             "launches": (train["launches"][i] + resilience_launches[i]
                          + telemetry_launches[i] + stage_launches[i]
-                         + process_launches[i] + spep_launches[i]),
+                         + process_launches[i] + spep_launches[i]
+                         + overlap_flash[i]),
             "max_abs_err": max(v["max_abs_err"] for v in flash_variants
                                if v["name"] == name),
             "ms": timed["ms"],

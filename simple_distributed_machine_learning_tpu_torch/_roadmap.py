@@ -10,9 +10,6 @@ def not_ported(what: str, item: str) -> NotImplementedError:
         f"(ROADMAP.md, Queue A: {item})")
 
 
-PARALLEL_AXES = "item 6, remaining parallel axes"
-OVERLAP = PARALLEL_AXES + ": 6d.4, the overlapped collectives"
-TP_SERVING = PARALLEL_AXES + ": 6e, tensor-parallel serving"
 MULTI_PROCESS = "item 6c, the paths that still run in one process"
 ANALYSIS = "item 7, analysis"
 PROGRAM_LINTER = "item 7.4, the program linter"

@@ -16,9 +16,9 @@ with no memo and no ``jit``:
 - ``hostlint.builder-bypass`` — a call, outside ``models/gpt.py``, to one
   of its private ``_*_fwd`` forward programs: the public ``make_*``
   builder around it validates the shapes, the attention kernel and the
-  unported tensor-parallel serving path (ROADMAP item 6e), and the caller
-  skips all of it. The port's package and ``chip_smoke.py`` are checked;
-  the ``tests/test_torch_*.py`` parity tests call the private forwards on
+  tensor-parallel serving mesh, and the caller skips all of it. The
+  port's package and ``chip_smoke.py`` are checked; the
+  ``tests/test_torch_*.py`` parity tests call the private forwards on
   purpose, against the JAX package's own;
 - ``hostlint.cache-poke`` — a reference, outside the module that defines
   it, to a kernel wrapper's ``_library`` (the memo that builds and binds a
@@ -394,8 +394,8 @@ def _lint_call_sites(path: str, allow_jit: bool, repo: str = _REPO,
                     rule="hostlint.builder-bypass", severity=Severity.ERROR,
                     message=(f"direct call to the private forward program "
                              f"'{name}' skips its builder's checks (shapes, "
-                             f"attention kernel, the unported "
-                             f"tensor-parallel serving path)"),
+                             f"attention kernel, the tensor-parallel "
+                             f"serving mesh)"),
                     where=_where(path, node, repo),
                     hint=f"build the program through the public "
                          f"{public} builder in models/gpt.py"))

@@ -362,8 +362,8 @@ def engine_spec(engine) -> ServeSpec:
         block_size=pool.block_size if paged else 16,
         n_blocks=pool.n_blocks if paged else None,
         prefill_chunk=engine.prefill_chunk,
-        # QuantKV's dtype is its narrow storage dtype
-        cache_dtype=pool.kc.dtype,
+        # the storage dtype (a quantised pool's narrow one)
+        cache_dtype=pool.cache_dtype,
         spec_k=engine.spec_k if engine.speculative else 0,
         draft_cfg=engine.draft_cfg,
         attn_kernel=engine.attn_kernel,
@@ -524,12 +524,22 @@ def tick_launches(engine) -> dict[str, list]:
 def _fused_engine(stages, sspec: ServeSpec, spec_k: int, draft_stages,
                   device):
     """A fused paged engine of ``sspec`` (speculative at ``spec_k`` >= 2)
-    with one request of the smallest prompt bucket submitted."""
+    with one request of the smallest prompt bucket submitted; a TP spec
+    serves over a one-device model mesh of its width."""
     import numpy as np
 
+    from simple_distributed_machine_learning_tpu_torch._device import (
+        resolve_device,
+    )
+    from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
+        make_mesh,
+    )
     from simple_distributed_machine_learning_tpu_torch.serve import (
         InferenceEngine,
     )
+    mesh = (make_mesh(1, n_model=sspec.tp,
+                      devices=[resolve_device(device)] * sspec.tp)
+            if sspec.tp > 1 else None)
     engine = InferenceEngine(
         stages, sspec.cfg, n_slots=sspec.n_slots, max_len=sspec.max_len,
         cache_dtype=sspec.cache_dtype, kv_layout="paged",
@@ -537,7 +547,7 @@ def _fused_engine(stages, sspec: ServeSpec, spec_k: int, draft_stages,
         prefill_chunk=sspec.prefill_chunk, attn_kernel="fused",
         draft_stages=draft_stages if spec_k else None,
         draft_cfg=sspec.draft_cfg if spec_k else None, spec_k=spec_k,
-        device=device)
+        mesh=mesh, device=device)
     plen = min(sspec.prompt_lens or (4,))
     engine.submit(np.arange(plen, dtype=np.int32) % sspec.cfg.vocab,
                   max_new_tokens=spec_k + 2)

@@ -86,8 +86,14 @@ go over gloo.
 One flag is the port's own: ``--device`` (default CUDA; the run raises
 without it unless ``--device cpu`` asks for the CPU). Every other flag of
 the JAX parser is accepted; a flag whose path is not ported exits, when
-set, with one line naming its ROADMAP item (the linter, ``--overlap
-ring`` of item 6d.4 and ``--serve-tp`` of item 6e).
+set, with one line naming its ROADMAP item (the linter's ``--lint`` and
+``--lint-only``, item 7.4).
+
+``--overlap ring`` runs the tensor-parallel sums and the expert dispatch
+as the ring schedules of ``parallel/overlap.py``. ``--serve-tp T`` serves
+the ``--serve-sim`` trace tensor-parallel over T model coordinates (T
+divides the head count), coordinate m on card m mod n of the n visible
+cards (``| serving: tp T on ...``), where the JAX CLI needs T devices.
 """
 
 from __future__ import annotations
@@ -135,7 +141,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "over a model axis of this size (--model=mlp or "
                         "gpt)")
     g.add_argument('--overlap', choices=("none", "ring"), default="none",
-                   help="collective schedule (ring: ROADMAP item 6d.4)")
+                   help="collective schedule for the tensor-parallel sums "
+                        "and the expert-parallel dispatch: none = one sum "
+                        "or all-to-all; ring = the chunked ring schedules "
+                        "of parallel/overlap.py, the same losses to float "
+                        "tolerance")
     g.add_argument('--epochs', type=int, default=10)
     g.add_argument('--batch-size', type=int, default=60)
     g.add_argument('--lr', type=float, default=0.1)
@@ -264,7 +274,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "end-of-prefill by the journal snap/adopt move. "
                         "Exclusive with --serve-autoscale")
     g.add_argument('--serve-tp', type=int, default=1,
-                   help="tensor-parallel serving (ROADMAP item 6e)")
+                   help="tensor-parallel serving width: the K/V pool and "
+                        "the blocks shard over this many model coordinates "
+                        "(must divide n_heads; coordinate m on card m mod "
+                        "n)")
     g.add_argument('--serve-host-blocks', type=int, default=0, metavar='N',
                    help="with --serve-sim: host-RAM offload tier of N "
                         "blocks per replica behind the paged KV pool — "
@@ -392,8 +405,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 # flags whose paths are not ported: set to anything but the default, each
 # exits naming its ROADMAP item. The serve flags not named here run
-_UNPORTED = {"lint": _roadmap.ANALYSIS, "lint_only": _roadmap.ANALYSIS,
-             "overlap": _roadmap.OVERLAP, "serve_tp": _roadmap.TP_SERVING}
+_UNPORTED = {"lint": _roadmap.ANALYSIS, "lint_only": _roadmap.ANALYSIS}
 
 
 def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
@@ -897,6 +909,8 @@ def _check_serve_args(args) -> None:
     if args.serve_shared_prefix < 0:
         raise SystemExit(f"--serve-shared-prefix must be >= 0, got "
                          f"{args.serve_shared_prefix}")
+    if args.serve_tp < 1:
+        raise SystemExit(f"--serve-tp must be >= 1, got {args.serve_tp}")
     if args.serve_spec_k == 1 or args.serve_spec_k < 0:
         raise SystemExit(f"--serve-spec-k must be 0 (plain decode) or "
                          f">= 2, got {args.serve_spec_k}")
@@ -1166,6 +1180,9 @@ def _run_serve(args, n_stages: int, device) -> None:
     supervised = (not fleet_mode
                   and bool(args.serve_chaos or args.serve_deadline_ms))
     cfg = GPTConfig(vocab=256 if args.text_corpus else 128)
+    if cfg.n_heads % args.serve_tp:
+        raise SystemExit(f"--serve-tp {args.serve_tp} must divide the "
+                         f"model's head count ({cfg.n_heads})")
     longest = args.serve_shared_prefix + max(GPT_SERVE_PROMPTS)
     if longest + 1 > cfg.seq_len:
         raise SystemExit(
@@ -1177,6 +1194,20 @@ def _run_serve(args, n_stages: int, device) -> None:
     # onto it); the engine serves its merged stages on one card
     stages, wire_dim, out_shape = make_gpt_stages(args.seed, cfg, n_stages,
                                                   device)
+    # the serving deployment: the stages stay the dense build (the engine
+    # slices per shard itself), the serve cfg carries the TP width, and
+    # the mesh places model coordinate m on card m mod n (the JAX CLI
+    # needs --serve-tp devices)
+    serve_cfg, mesh = cfg, None
+    if args.serve_tp > 1:
+        from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (  # noqa: E501
+            make_mesh,
+        )
+        serve_cfg = dataclasses.replace(cfg, n_tensor_parallel=args.serve_tp)
+        mesh = make_mesh(1, n_model=args.serve_tp,
+                         devices=_placement(device, args.serve_tp))
+        print(f"| serving: tp {args.serve_tp} on "
+              + ", ".join(str(d) for d in mesh.coord_devices))
     draft_stages = draft_cfg = None
     if args.serve_spec_k:
         # the draft: the same config at half the layers, fresh weights
@@ -1222,8 +1253,9 @@ def _run_serve(args, n_stages: int, device) -> None:
         prefill_chunk=args.serve_prefill_chunk or None,
         host_cache_blocks=args.serve_host_blocks,
         prefetch_ticks=args.serve_prefetch_ticks,
-        attn_kernel="fused", metrics=metrics, draft_stages=draft_stages,
-        draft_cfg=draft_cfg, spec_k=args.serve_spec_k, device=device)
+        attn_kernel="fused", metrics=metrics, mesh=mesh,
+        draft_stages=draft_stages, draft_cfg=draft_cfg,
+        spec_k=args.serve_spec_k, device=device)
     if args.serve_adapters:
         if fleet_mode or supervised:
             # the engine factory builds (and rebuilds, after a crash) each
@@ -1231,7 +1263,7 @@ def _run_serve(args, n_stages: int, device) -> None:
             engine_kw["adapter_rank"] = args.serve_adapter_rank
         else:
             engine_kw["adapters"] = AdapterStore(
-                cfg, args.serve_adapter_rank, args.serve_slots,
+                serve_cfg, args.serve_adapter_rank, args.serve_slots,
                 device=device)
     tmpdir = None
     if fleet_mode:
@@ -1241,7 +1273,7 @@ def _run_serve(args, n_stages: int, device) -> None:
             tmpdir = tempfile.TemporaryDirectory(prefix="sdml-fleet-")
             journal_dir = tmpdir.name
         engine = ServeFleet(
-            engine_factory(stages, cfg, **engine_kw), journal_dir,
+            engine_factory(stages, serve_cfg, **engine_kw), journal_dir,
             n_replicas=args.serve_replicas,
             prefill_replicas=args.serve_prefill_replicas,
             route=args.serve_route,
@@ -1270,7 +1302,7 @@ def _run_serve(args, n_stages: int, device) -> None:
             tmpdir = tempfile.TemporaryDirectory(prefix="sdml-serve-")
             journal_path = os.path.join(tmpdir.name, "journal.jsonl")
         engine = ServeSupervisor(
-            engine_factory(stages, cfg, **engine_kw), journal_path,
+            engine_factory(stages, serve_cfg, **engine_kw), journal_path,
             metrics=metrics, max_restarts=args.serve_max_restarts,
             default_deadline_s=(args.serve_deadline_ms / 1e3
                                 if args.serve_deadline_ms else None),
@@ -1281,7 +1313,8 @@ def _run_serve(args, n_stages: int, device) -> None:
               + (f", deadline {args.serve_deadline_ms:g} ms"
                  if args.serve_deadline_ms else "") + ")")
     else:
-        engine = InferenceEngine(stages, cfg, trace=trace, **engine_kw)
+        engine = InferenceEngine(stages, serve_cfg, trace=trace,
+                                 **engine_kw)
     if args.serve_adapters:
         # seeded per-tenant weights, registered on the serving target
         # (engine, supervisor or fleet: one call shape); bank rows upload
@@ -1289,7 +1322,7 @@ def _run_serve(args, n_stages: int, device) -> None:
         for k in range(args.serve_adapters):
             engine.register_adapter(f"tenant-{k}", lora.init_lora_adapter(
                 torch.Generator().manual_seed(fold_in(args.seed, 7000 + k)),
-                cfg, args.serve_adapter_rank, device=device))
+                serve_cfg, args.serve_adapter_rank, device=device))
         print(f"| serve: {args.serve_adapters} LoRA tenant(s) rank "
               f"{args.serve_adapter_rank} over shared base weights")
     max_new = min(args.serve_max_new, cfg.seq_len - longest)
@@ -1401,11 +1434,13 @@ def _run_serve(args, n_stages: int, device) -> None:
               f"{s['cow_copies']} CoW copies, "
               f"prefill chunk p50/p95 {s['prefill_chunk_ms_p50']}/"
               f"{s['prefill_chunk_ms_p95']} ms")
-    if args.serve_spec_k:
-        print(f"| serve: tp {args.serve_tp}, spec_k {s.get('spec_k', 0)} "
-              f"accept_rate {s.get('spec_accept_rate')} "
-              f"({s.get('spec_accepted_tokens', 0)}/"
-              f"{s.get('spec_proposed_tokens', 0)} draft tokens)")
+    if args.serve_tp > 1 or args.serve_spec_k:
+        spec = (f", spec_k {s.get('spec_k', 0)} accept_rate "
+                f"{s.get('spec_accept_rate')} "
+                f"({s.get('spec_accepted_tokens', 0)}/"
+                f"{s.get('spec_proposed_tokens', 0)} draft tokens)"
+                if args.serve_spec_k else "")
+        print(f"| serve: tp {args.serve_tp}{spec}")
     if args.telemetry_dir:
         metrics.emit(extra={"rate": sim.rate, "n_slots": args.serve_slots,
                             "block_size": args.serve_block_size,

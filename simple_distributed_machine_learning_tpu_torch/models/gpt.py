@@ -131,8 +131,8 @@ class GPTConfig:
     (``ring``/``ulysses`` at ``n_seq == 1`` are the dense math, as in the
     JAX package); the serving programs take single-device dense-MLP
     builds, refusing MoE and ``n_seq > 1`` with the JAX package's
-    ``ValueError`` texts, and tensor-parallel serving waits for ROADMAP
-    item 6e."""
+    ``ValueError`` texts; ``n_tensor_parallel > 1`` serves head-sharded
+    over a model mesh."""
     vocab: int = 128
     seq_len: int = 64
     d_model: int = 128
@@ -223,10 +223,10 @@ class GPTConfig:
 def _check_ported(cfg: GPTConfig, caller: str, training: bool = False,
                   decode: bool = False) -> None:
     """Raise for a config a program cannot run. Training runs every config.
-    The serving programs are single-device dense-MLP builds, refusing MoE
-    (MoE capacity is a full-sequence quantity) and ``n_seq > 1`` with the
-    JAX package's texts (``decode``: the solo decoders' wording);
-    tensor-parallel serving is ROADMAP item 6e."""
+    The serving programs take dense-MLP builds, refusing MoE (MoE capacity
+    is a full-sequence quantity) and ``n_seq > 1`` with the JAX package's
+    texts (``decode``: the solo decoders' wording); ``n_tensor_parallel >
+    1`` serves over a model mesh (:func:`_validate_tp_serve`)."""
     if training:
         return
     if cfg.n_experts > 0:
@@ -239,9 +239,16 @@ def _check_ported(cfg: GPTConfig, caller: str, training: bool = False,
     if cfg.n_seq > 1:
         raise ValueError(
             f"{caller} is single-device; rebuild the stages with n_seq=1")
-    if cfg.n_tensor_parallel > 1:
-        raise _roadmap.not_ported(f"{caller}: n_tensor_parallel > 1",
-                                  _roadmap.TP_SERVING)
+
+
+def _check_unsharded(stages, caller: str) -> None:
+    """The serving programs slice a dense build themselves (the JAX
+    ``_validate_slot_build`` rule)."""
+    if any(getattr(s, "shards", None) is not None
+           or getattr(s, "expert_shards", None) is not None for s in stages):
+        raise ValueError(
+            f"{caller} needs unsharded stage params — gather tensor/expert "
+            f"shards into a dense build first")
 
 
 # -- the model as parameter containers -------------------------------------
@@ -462,11 +469,12 @@ def _stage_apply(params, x, key=None, deterministic=True, *, cfg, ep=None):
     return out, cfg.moe_aux_weight * aux
 
 
-def _slice_tp_block(bp: dict, m: int, mp: int) -> dict:
+def _slice_tp_block(bp: dict, m: int, mp: int, device=None) -> dict:
     """Model shard ``m``'s slice of one dense block's params (Megatron):
     QKV columns / O rows by head, MLP hidden width column -> row; norms
-    and the MLP output bias replicated. Every leaf is a copy of its own,
-    so the optimizer updates each shard's replicas in place apart."""
+    and the MLP output bias replicated. Every leaf is a copy of its own
+    (on ``device``; None: where it lies), so the optimizer updates each
+    shard's replicas in place apart."""
     d = bp["attn"]["wq"].shape[0]
     dc = d // mp                      # head-aligned qkv column chunk
     hc = bp["mlp_in"]["w"].shape[1] // mp
@@ -481,7 +489,7 @@ def _slice_tp_block(bp: dict, m: int, mp: int) -> dict:
                    "b": bp["mlp_in"]["b"][m * hc:(m + 1) * hc]},
         "mlp_out": {"w": bp["mlp_out"]["w"][m * hc:(m + 1) * hc, :],
                     "b": bp["mlp_out"]["b"]},
-    })
+    }, device)
 
 
 def _slice_tp_stage(params: dict, m: int, mp: int) -> dict:
@@ -494,10 +502,16 @@ def _slice_tp_stage(params: dict, m: int, mp: int) -> dict:
     return out
 
 
-def _clone_tree(tree):
-    if isinstance(tree, dict):
-        return {k: _clone_tree(v) for k, v in tree.items()}
-    return tree.detach().clone()
+def _clone_tree(tree, device=None):
+    """A copy of its own of every leaf of ``tree`` (dicts, or the GPT's
+    containers) on ``device`` (None: where it lies), as plain dicts."""
+    from simple_distributed_machine_learning_tpu_torch._tree import (
+        _children,
+    )
+    kids = _children(tree)
+    if kids is None:
+        return tree.detach().to(device=device, copy=True)
+    return {k: _clone_tree(v, device) for k, v in kids}
 
 
 def _grad_sync_non_tp(shards, path=(), sharded=None) -> list:
@@ -588,24 +602,42 @@ def _stage_apply_tp(params, x, key=None, deterministic=True, *, cfg):
         h = x
     for i in range(len(p0["blocks"])):
         h = _block_apply_tp([t["blocks"][i] for t in trees], h, cfg, key,
-                            deterministic, shards.group)
+                            deterministic, shards.group, shards.view)
     if "head" in p0:
         h = _head_logprobs(p0["head"], h)
     return h
 
 
 def _block_apply_tp(shard_blocks, h, cfg: GPTConfig, gen,
-                    deterministic: bool, group=None):
-    """One transformer block, tensor-parallel over the model axis
-    (``overlap='none'``): ``shard_blocks`` are this process's shards of
-    the block (:func:`_slice_tp_block`, replicated leaves tied); ``h`` is
+                    deterministic: bool, group=None, view=None):
+    """One transformer block, tensor-parallel over the model axis:
+    ``shard_blocks`` are this process's shards of the block
+    (:func:`_slice_tp_block`, replicated leaves tied), ``view`` the model
+    axis (``mesh.AxisView``; None: every coordinate here); ``h`` is
     replicated and the return is too. QKV project onto each shard's
-    ``H/mp`` heads, dense causal attention runs on them, the output
-    projection is row-parallel and summed over the model coordinates; the
-    MLP is column -> row, summed the same way, its bias added after.
-    Dropout draws on the replicated activations only, in the dense
-    block's order, so every coordinate draws the same masks."""
+    ``H/mp`` heads, dense causal attention runs on them, and the output
+    projection is row-parallel, closed by the sum over the model
+    coordinates (``cfg.overlap='none'``) or the ring of
+    ``parallel/overlap.py::ring_psum``.
+
+    The MLP with ``'none'`` is column -> row, summed the same way, its
+    bias added after. With ``'ring'`` it is the scattered pair (JAX
+    ``gpt.py:_block_apply_tp``): each coordinate takes its ``1/mp`` row
+    slice of the tokens, ``allgather_matmul`` re-gathers them under the
+    column matmul, ``matmul_reducescatter`` ring-accumulates the row
+    matmul's partial products, and ``ring_all_gather`` restores the
+    replicated rows before the bias; ``B*T`` not divisible by ``mp``
+    falls back to the ring-closed pair. Dropout draws on the replicated
+    activations only, in the dense block's order, so every coordinate
+    draws the same masks."""
+    from simple_distributed_machine_learning_tpu_torch.parallel.overlap import (  # noqa: E501
+        allgather_matmul,
+        matmul_reducescatter,
+        ring_all_gather,
+        ring_psum,
+    )
     from simple_distributed_machine_learning_tpu_torch.parallel.tensor import (  # noqa: E501
+        _model_view,
         grad_sync,
         model_sum,
     )
@@ -613,9 +645,16 @@ def _block_apply_tp(shard_blocks, h, cfg: GPTConfig, gen,
     def drop(t):
         return dropout(gen, t, cfg.dropout_rate, deterministic)
 
+    mp = cfg.n_tensor_parallel
+    ring = cfg.overlap == "ring"
+    view = view or _model_view(shard_blocks, group)
+
+    def close(parts):
+        return ring_psum(parts, view)[0] if ring else model_sum(parts, group)
+
     rb = shard_blocks[0]
-    h_loc = cfg.n_heads // cfg.n_tensor_parallel
-    hn = grad_sync(layer_norm(rb["ln1"], h), group, cfg.overlap)
+    h_loc = cfg.n_heads // mp
+    hn = grad_sync(layer_norm(rb["ln1"], h), group, cfg.overlap, view)
     parts = []
     for bp in shard_blocks:
         q = _split_heads(hn @ bp["attn"]["wq"], h_loc)
@@ -623,12 +662,25 @@ def _block_apply_tp(shard_blocks, h, cfg: GPTConfig, gen,
         v = _split_heads(hn @ bp["attn"]["wv"], h_loc)
         parts.append(_merge_heads(causal_attention_core(q, k, v))
                      @ bp["attn"]["wo"])
-    h = h + drop(model_sum(parts, group))
-    hn2 = grad_sync(layer_norm(rb["ln2"], h), group, cfg.overlap)
-    parts = [F.gelu(hn2 @ bp["mlp_in"]["w"] + bp["mlp_in"]["b"],
-                    approximate="tanh") @ bp["mlp_out"]["w"]
-             for bp in shard_blocks]
-    return h + drop(model_sum(parts, group) + rb["mlp_out"]["b"])
+    h = h + drop(close(parts))
+    hn2 = grad_sync(layer_norm(rb["ln2"], h), group, cfg.overlap, view)
+    b, t, d = hn2.shape
+    if ring and (b * t) % mp == 0:
+        rows = hn2.reshape(b * t, d)
+        n_loc = (b * t) // mp
+        mids = allgather_matmul(
+            [rows[i * n_loc:(i + 1) * n_loc] for i in view.owned],
+            [bp["mlp_in"]["w"] for bp in shard_blocks], view)
+        mids = [F.gelu(y + bp["mlp_in"]["b"], approximate="tanh")
+                for y, bp in zip(mids, shard_blocks)]
+        ys = matmul_reducescatter(
+            mids, [bp["mlp_out"]["w"] for bp in shard_blocks], view)
+        m = ring_all_gather(ys, view)[0].reshape(b, t, d)
+    else:
+        m = close([F.gelu(hn2 @ bp["mlp_in"]["w"] + bp["mlp_in"]["b"],
+                          approximate="tanh") @ bp["mlp_out"]["w"]
+                   for bp in shard_blocks])
+    return h + drop(m + rb["mlp_out"]["b"])
 
 
 def _block_train(bp, hs: list, cfg: GPTConfig, gens: list,
@@ -761,10 +813,12 @@ def _adapter_layers(bank, aid):
     return at
 
 
-def _bank_lookup(adapters: bool, bank, aids, dev, caller: str):
+def _bank_lookup(adapters: bool, bank, aids, dev, caller: str,
+                 devices=None):
     """The per-layer lookup of a builder's trailing ``(bank, aids)``
     arguments, or None for a build without adapters. ``aids`` (an int or
-    a host array) becomes one index tensor per call."""
+    a host array) becomes one index tensor per call. ``devices``: a TP
+    program's shard devices (:func:`_tp_adapter_layers`)."""
     if not adapters:
         if bank is not None or aids is not None:
             raise ValueError(f"{caller} was built without adapters: drop "
@@ -775,6 +829,8 @@ def _bank_lookup(adapters: bool, bank, aids, dev, caller: str):
                          f"adapter bank and the row indices")
     if not isinstance(aids, int):
         aids = _on(aids, dev, torch.int64)
+    if devices is not None:
+        return _tp_adapter_layers(bank, aids, len(devices), devices)
     return _adapter_layers(bank, aids)
 
 
@@ -792,6 +848,185 @@ def _dense_attn_tail(bp, h, a, drop=None):
 def _head_logprobs(head, h_last):
     """[..., d] final hidden -> [..., V] log-probs (ln_f + untied head)."""
     return log_softmax(linear(head["out"], layer_norm(head["ln_f"], h_last)))
+
+
+def _to(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    return t if t.device == dev else t.to(dev)
+
+
+def _device_copies(*ts):
+    """``at(dev)`` -> ``ts`` on ``dev``, each device's copies made once
+    per call of a serving program (the shards of a TP program may sit on
+    several cards)."""
+    memo = {}
+
+    def at(dev):
+        if dev not in memo:
+            memo[dev] = tuple(_to(t, dev) for t in ts)
+        return memo[dev]
+
+    return at
+
+
+def _serve_block(bp, h, li, kc, vc, H, ab, attend, tail=None):
+    """One block of a serving program. ``attend(kc, vc, li, q, k, v) ->
+    a`` lands the layer's new K/V rows in a pool and attends them.
+    Single-device (``tail`` None): ``bp`` is the block, ``kc``/``vc`` the
+    pool, ``ab`` the layer's adapter factors, and the dense tail closes
+    it. Tensor-parallel: ``bp`` is the layer's shard trees, ``kc``/``vc``
+    and ``ab`` one per shard, ``H`` the local head count; each shard
+    projects onto its heads and attends its own pool on its own device,
+    and ``tail`` (:func:`_tp_attn_tail`) closes the block."""
+    if tail is None:
+        q, k, v = _dense_qkv(bp, h, H, ab)
+        return _dense_attn_tail(bp, h, attend(kc, vc, li, q, k, v))
+    parts = []
+    for m, bpm in enumerate(bp):
+        q, k, v = _dense_qkv(bpm, _to(h, bpm["attn"]["wq"].device), H,
+                             None if ab is None else ab[m])
+        parts.append(attend(kc[m], vc[m], li, q, k, v))
+    return tail(bp, h, parts)
+
+
+# -- tensor-parallel serving -----------------------------------------------------
+#
+# A TP serving program runs the dense build's blocks sliced Megatron-style
+# per model coordinate (pack_tp_serve_params: training's _slice_tp_block
+# slices, so a TP engine serves the model the dense build trains and
+# solo-decodes). Each coordinate projects QKV onto its H/tp heads, writes
+# and attends its own head-sharded K/V pool — one tensor per coordinate,
+# on its device; the fused paged programs launch K4 once per coordinate
+# and layer on its H/tp heads — and the attention output projection and
+# the MLP pair close with one sum over the coordinates, plain or the ring
+# of parallel/overlap.py. One process holds every coordinate (the JAX
+# shard_map's devices): the residual stream, the embedding and the head
+# are one replicated copy on the first coordinate's device, so the
+# sampling rows are computed once and every coordinate samples the same
+# bits — the JAX programs' re-replication of the rows (_close_rows, a
+# pmean over the model axis) has nothing to do here.
+
+def pack_tp_serve_params(params_list, tp: int, devices=None):
+    """Slice dense per-stage trees into the TP serving layout: ``([per
+    layer, the tp shard trees], {"embed": ..., "head": ...})`` — shard
+    ``m``'s tree is exactly :func:`_slice_tp_block`'s, a copy of its own
+    on ``devices[m]`` (None: where the weights lie); embed and head stay
+    the dense build's, replicated."""
+    embed, blocks, head = _merged_stage_trees(params_list)
+    devices = list(devices) if devices is not None else [None] * tp
+    stacked = [[_slice_tp_block(bp, m, tp, devices[m]) for m in range(tp)]
+               for bp in blocks]
+    return stacked, {"embed": embed, "head": head}
+
+
+def _tp_local_trees(params):
+    """The TP serving params as the programs read them: the per-layer
+    shard trees and the replicated embed and head."""
+    stacked, rep = params
+    return stacked, rep["embed"], rep["head"]
+
+
+def _tp_attn_tail(bps, h, parts, overlap="none"):
+    """TP twin of :func:`_dense_attn_tail`: ``bps`` the layer's shard
+    trees, ``parts`` each shard's attention over its ``H/tp`` heads. The
+    output projection is row-parallel (``wo`` rows are head-aligned),
+    closed by one sum over the coordinates (``overlap='none'``) or the
+    ring of ``overlap.ring_psum``; the MLP is the training path's column
+    -> row pair (``tensor.tp_pair_apply``, tanh GELU)."""
+    from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
+        MODEL_AXIS,
+        AxisView,
+    )
+    from simple_distributed_machine_learning_tpu_torch.parallel.overlap import (  # noqa: E501
+        ring_psum,
+    )
+    from simple_distributed_machine_learning_tpu_torch.parallel.tensor import (  # noqa: E501
+        model_sum,
+        tp_pair_apply,
+    )
+    zs = [_merge_heads(a) @ bp["attn"]["wo"] for bp, a in zip(bps, parts)]
+    red = (ring_psum(zs, AxisView.local(MODEL_AXIS, len(zs)))[0]
+           if overlap == "ring" else model_sum(zs))
+    h = h + _to(red, h.device)
+    hn2 = layer_norm(bps[0]["ln2"], h)
+    return h + tp_pair_apply(
+        [{"w1": bp["mlp_in"], "w2": bp["mlp_out"]} for bp in bps], hn2,
+        activation=_gelu, overlap=overlap)
+
+
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")
+
+
+def _tp_adapter_layers(bank, aid, tp, devices):
+    """TP twin of :func:`_adapter_layers`: the bank is replicated; each
+    shard takes its own output columns of the B factors (``bq``/``bv``
+    columns are head-aligned like ``wq``/``wv``'s Megatron column shards,
+    and a column slice commutes with the matmul), on its device.
+    ``at(li)`` is the list of the shards' factors."""
+    at_full = _adapter_layers(bank, aid)
+
+    def at(li):
+        aq, bq, av, bv = at_full(li)
+        dc = bq.shape[-1] // tp
+        return [tuple(_to(t, dev) for t in (
+            aq, bq[..., m * dc:(m + 1) * dc], av,
+            bv[..., m * dc:(m + 1) * dc])) for m, dev in enumerate(devices)]
+
+    return at
+
+
+def _validate_tp_serve(cfg: GPTConfig, mesh, caller: str):
+    """Serving TP validation: ``n_tensor_parallel > 1`` needs a mesh whose
+    ``model`` axis is exactly that size, in this one process; tp == 1
+    normalises the mesh to None."""
+    from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
+        MODEL_AXIS,
+    )
+    tp = cfg.n_tensor_parallel
+    if tp == 1:
+        return None
+    if mesh is None or mesh.shape.get(MODEL_AXIS, 1) != tp:
+        got = None if mesh is None else dict(mesh.shape)
+        raise ValueError(
+            f"{caller}: cfg.n_tensor_parallel={tp} needs a mesh with a "
+            f"'{MODEL_AXIS}' axis of that size, got {got}")
+    if mesh.distributed:
+        raise _roadmap.not_ported(f"{caller}: serving across processes",
+                                  _roadmap.MULTI_PROCESS)
+    return mesh
+
+
+def tp_serve_devices(mesh, tp: int) -> list[torch.device]:
+    """The device of each model coordinate of a serving mesh (replica 0,
+    stage 0)."""
+    return [mesh.device(0, 0, m) for m in range(tp)]
+
+
+def _serve_plan(cfg: GPTConfig, mesh, dev: torch.device, caller: str):
+    """A serving builder's split: ``(tp, local heads, tail, shard
+    devices)``, the tail and devices None at tp 1. The first coordinate's
+    device is the program's own (``dev``), where the replicated stream
+    and the sampling run."""
+    mesh = _validate_tp_serve(cfg, mesh, caller)
+    if mesh is None:
+        return 1, cfg.n_heads, None, None
+    tp = cfg.n_tensor_parallel
+    devices = tp_serve_devices(mesh, tp)
+    if (devices[0].type, devices[0].index or 0) != (dev.type,
+                                                    dev.index or 0):
+        raise ValueError(f"{caller}: device={dev} differs from the mesh's "
+                         f"first model coordinate's {devices[0]}")
+    return (tp, cfg.n_heads // tp,
+            functools.partial(_tp_attn_tail, overlap=cfg.overlap), devices)
+
+
+def _serve_trees(params, tp: int):
+    """``(embed, blocks, head)`` of a program's params: the dense stage
+    trees at tp 1, the packed TP layout above it."""
+    if tp == 1:
+        return _merged_stage_trees(params)
+    blocks, embed, head = _tp_local_trees(params)
+    return embed, blocks, head
 
 
 def _merged_stage_trees(params_list):
@@ -1129,6 +1364,7 @@ def _validate_slot_build(stages, cfg: GPTConfig, max_len: int, caller: str,
     within the position table, and a cfg that matches the stages."""
     _check_ported(cfg, caller)
     _check_cache_quantization(cache_dtype, caller, paged=False)
+    _check_unsharded(stages, caller)
     if not 2 <= max_len <= cfg.seq_len:
         raise ValueError(
             f"slot max_len={max_len} outside [2, seq_len={cfg.seq_len}] "
@@ -1149,23 +1385,27 @@ def make_slot_prefill(stages, cfg: GPTConfig, max_len: int,
     ``[L, n_slots, H, max_len, dh]`` f32 or bf16 tensors, updated in
     place. The speculative engine prefills its draft pool with it.
     ``adapters=True`` appends ``(bank, aid)``: the adapter bank
-    (``models/lora.py``) and the request's row in it."""
+    (``models/lora.py``) and the request's row in it.
+
+    With ``cfg.n_tensor_parallel = tp > 1`` pass the serving ``mesh``
+    (its ``model`` axis ``tp``): ``params`` is
+    :func:`pack_tp_serve_params`'s layout and ``kc``/``vc`` the lists of
+    the coordinates' ``[L, n_slots, H/tp, max_len, dh]`` pools (tensor-
+    parallel serving section above)."""
     _validate_slot_build(stages, cfg, max_len, "make_slot_prefill",
                          cache_dtype)
-    if mesh is not None:
-        raise _roadmap.not_ported("make_slot_prefill: tensor-parallel "
-                                  "serving (mesh)", _roadmap.TP_SERVING)
     dev = resolve_device(device)
+    tp, H, tail, devices = _serve_plan(cfg, mesh, dev, "make_slot_prefill")
 
     @torch.no_grad()
     def prefill(params, kc, vc, prompt, slot, key_data, temperature, top_k,
                 top_p, bank=None, aid=None):
-        embed, blocks, head = _merged_stage_trees(params)
+        embed, blocks, head = _serve_trees(params, tp)
         at = _bank_lookup(adapters, bank, None if aid is None else int(aid),
-                          dev, "make_slot_prefill")
+                          dev, "make_slot_prefill", devices)
         kc, vc, row = _slot_prefill_fwd(blocks, embed, head, kc, vc,
                                         _on(prompt, dev, torch.int64),
-                                        int(slot), cfg.n_heads, at=at)
+                                        int(slot), H, at=at, tail=tail)
         tok, kd = _sample_dyn(row[None],
                               _on(key_data, dev, torch.int64)[None],
                               *_sampling_tensors(1, temperature, top_k,
@@ -1176,51 +1416,57 @@ def make_slot_prefill(stages, cfg: GPTConfig, max_len: int,
 
 
 def _slot_prefill_fwd(blocks, embed, head, kc, vc, prompt, slot, H,
-                      at=None):
+                      at=None, tail=None):
     """One request's whole-prompt prefill into pool row ``slot``; returns
     ``(kc, vc, row)``, the last position's log-probs [V]. ``at``: the
-    per-layer adapter lookup (:func:`_adapter_layers`), or None."""
+    per-layer adapter lookup (:func:`_adapter_layers`), or None; ``tail``
+    and the per-shard ``blocks``/pools of a TP program
+    (:func:`_serve_block`)."""
     t0 = prompt.shape[1]
     h = embedding_lookup(embed["tok"], prompt) + embed["pos"][:t0]
-    for li, bp in enumerate(blocks):
-        q, k, v = _dense_qkv(bp, h, H,                     # [1, H, T0, dh]
-                             None if at is None else at(li))
+
+    def attend(kc, vc, li, q, k, v):                       # [1, H, T0, dh]
         kc[li, slot, :, :t0] = k[0].to(kc.dtype)
         vc[li, slot, :, :t0] = v[0].to(vc.dtype)
-        h = _dense_attn_tail(bp, h, causal_attention_core(q, k, v))
+        return causal_attention_core(q, k, v)
+
+    for li, bp in enumerate(blocks):
+        h = _serve_block(bp, h, li, kc, vc, H,
+                         None if at is None else at(li), attend, tail)
     return kc, vc, _head_logprobs(head, h[:, -1])[0]
 
 
-def _dense_block_step_slots(bp, h, li, kc, vc, pos, n_heads, ab=None):
-    """One block on one token per slot (``h`` [S, 1, d]) against pool
-    layer ``li``: each slot writes its K/V at its own position ``pos``
-    [S] in place and attends ``[0, pos]``, with the solo decoder's
-    per-slot math, so a slot's output depends on its own row only."""
-    q, knew, vnew = _dense_qkv(bp, h, n_heads, ab)        # [S, H, 1, dh]
-    dh = q.shape[-1]
-    rows = torch.arange(h.shape[0], device=h.device)
-    kl, vl = kc[li], vc[li]                               # [S, H, ml, dh]
-    kl[rows, :, pos] = knew[:, :, 0].to(kl.dtype)
-    vl[rows, :, pos] = vnew[:, :, 0].to(vl.dtype)
-    scores = torch.einsum("bhqd,bhkd->bhqk", q, kl.float()) / math.sqrt(dh)
-    live = (torch.arange(kl.shape[-2], device=h.device)[None, None, None, :]
-            <= pos[:, None, None, None])
-    scores = torch.where(live, scores, -math.inf)
-    a = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(scores, dim=-1),
-                     vl.float())
-    return _dense_attn_tail(bp, h, a)
-
-
-def _slot_decode_fwd(blocks, embed, head, kc, vc, toks, pos, H, at=None):
+def _slot_decode_fwd(blocks, embed, head, kc, vc, toks, pos, H, at=None,
+                     tail=None):
     """The batched one-token-per-slot step's forward over a dense pool:
     ``toks``/``pos`` [S] int64 -> ``(kc, vc, rows)``, log-probs [S, V].
-    The speculative draft's propose loop runs it ``spec_k`` times. ``at``:
-    the per-layer adapter lookup over ``[S]`` rows, or None."""
+    Each slot writes its K/V at its own position ``pos`` in place and
+    attends ``[0, pos]`` with the solo decoder's per-slot math, so a
+    slot's output depends on its own row only. The speculative draft's
+    propose loop runs it ``spec_k`` times. ``at``: the per-layer adapter
+    lookup over ``[S]`` rows, or None; ``tail``: a TP program's."""
     h = (embedding_lookup(embed["tok"], toks[:, None])
          + embed["pos"][pos][:, None])                      # [S, 1, d]
+    on = _device_copies(pos, torch.arange(toks.shape[0], device=pos.device))
+
+    def attend(kc, vc, li, q, knew, vnew):                 # [S, H, 1, dh]
+        p, rows = on(q.device)
+        kl, vl = kc[li], vc[li]                            # [S, H, ml, dh]
+        kl[rows, :, p] = knew[:, :, 0].to(kl.dtype)
+        vl[rows, :, p] = vnew[:, :, 0].to(vl.dtype)
+        # the scale from the projected head dim, never d_model / H: the
+        # local head count of a TP shard is not the model's
+        scores = (torch.einsum("bhqd,bhkd->bhqk", q, kl.float())
+                  / math.sqrt(q.shape[-1]))
+        live = (torch.arange(kl.shape[-2], device=q.device)
+                [None, None, None, :] <= p[:, None, None, None])
+        scores = torch.where(live, scores, -math.inf)
+        return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(scores, dim=-1),
+                            vl.float())
+
     for li, bp in enumerate(blocks):
-        h = _dense_block_step_slots(bp, h, li, kc, vc, pos, H,
-                                    None if at is None else at(li))
+        h = _serve_block(bp, h, li, kc, vc, H,
+                         None if at is None else at(li), attend, tail)
     return kc, vc, _head_logprobs(head, h[:, 0])
 
 
@@ -1237,22 +1483,23 @@ def make_slot_decode_step(stages, cfg: GPTConfig, max_len: int,
     Inactive slots compute garbage the engine discards; their stale
     writes are invisible by construction (``serve/slots.py``). The
     degraded rebuild of the serve supervisor decodes with it, adapters
-    included: ``adapters=True`` appends ``(bank, aids [S])``."""
+    included: ``adapters=True`` appends ``(bank, aids [S])``. A TP build
+    (``mesh``) takes :func:`make_slot_prefill`'s TP layout."""
     _validate_slot_build(stages, cfg, max_len, "make_slot_decode_step",
                          cache_dtype)
-    if mesh is not None:
-        raise _roadmap.not_ported("make_slot_decode_step: tensor-parallel "
-                                  "serving (mesh)", _roadmap.TP_SERVING)
     dev = resolve_device(device)
+    tp, H, tail, devices = _serve_plan(cfg, mesh, dev,
+                                       "make_slot_decode_step")
 
     @torch.no_grad()
     def step(params, kc, vc, toks, pos, key_data, temps, top_ks, top_ps,
              bank=None, aids=None):
-        embed, blocks, head = _merged_stage_trees(params)
-        at = _bank_lookup(adapters, bank, aids, dev, "make_slot_decode_step")
+        embed, blocks, head = _serve_trees(params, tp)
+        at = _bank_lookup(adapters, bank, aids, dev, "make_slot_decode_step",
+                          devices)
         kc, vc, rows = _slot_decode_fwd(
             blocks, embed, head, kc, vc, _on(toks, dev, torch.int64),
-            _on(pos, dev, torch.int64), cfg.n_heads, at=at)
+            _on(pos, dev, torch.int64), H, at=at, tail=tail)
         toks2, kd2 = _sample_dyn(rows, _on(key_data, dev, torch.int64),
                                  *_sampling_tensors(rows.shape[0], temps,
                                                     top_ks, top_ps, dev))
@@ -1264,12 +1511,10 @@ def make_slot_decode_step(stages, cfg: GPTConfig, max_len: int,
 # -- paged serving programs ----------------------------------------------------
 
 def _validate_paged_build(stages, cfg: GPTConfig, max_len: int,
-                          block_size: int, caller: str, cache_dtype=None,
-                          mesh=None) -> None:
+                          block_size: int, caller: str,
+                          cache_dtype=None) -> None:
     _check_ported(cfg, caller)
-    if mesh is not None:
-        raise _roadmap.not_ported(f"{caller}: tensor-parallel serving (mesh)",
-                                  _roadmap.TP_SERVING)
+    _check_unsharded(stages, caller)
     _check_cache_quantization(cache_dtype, caller, paged=True)
     if not 2 <= max_len <= cfg.seq_len:
         raise ValueError(
@@ -1351,21 +1596,25 @@ def make_paged_prefill_chunk(stages, cfg: GPTConfig, max_len: int,
     blocks and the chunk's own rows alike. The last position's row is
     sampled; the engine discards token and key for non-final chunks.
     ``kc``/``vc`` are updated in place. ``adapters=True`` appends
-    ``(bank, aid)``, the request's adapter row."""
+    ``(bank, aid)``, the request's adapter row. A TP build (``mesh``)
+    takes :func:`make_slot_prefill`'s TP layout, the pools the lists of
+    the coordinates' ``[L, n_blocks+1, H/tp, bs, dh]`` pools."""
     _validate_paged_build(stages, cfg, max_len, block_size,
-                          "make_paged_prefill_chunk", cache_dtype, mesh)
+                          "make_paged_prefill_chunk", cache_dtype)
     dev = resolve_device(device)
+    tp, H, tail, devices = _serve_plan(cfg, mesh, dev,
+                                       "make_paged_prefill_chunk")
 
     @torch.no_grad()
     def chunk(params, kc, vc, tokens, p0, table, key_data, temperature,
               top_k, top_p, bank=None, aid=None):
-        embed, blocks, head = _merged_stage_trees(params)
+        embed, blocks, head = _serve_trees(params, tp)
         at = _bank_lookup(adapters, bank, None if aid is None else int(aid),
-                          dev, "make_paged_prefill_chunk")
+                          dev, "make_paged_prefill_chunk", devices)
         kc, vc, row = _paged_chunk_fwd(
             blocks, embed, head, kc, vc, _on(tokens, dev, torch.int64),
-            int(p0), _on(table, dev, torch.int64), cfg.n_heads, block_size,
-            at=at)
+            int(p0), _on(table, dev, torch.int64), H, block_size, at=at,
+            tail=tail)
         tok, kd = _sample_dyn(row[None],
                               _on(key_data, dev, torch.int64)[None],
                               *_sampling_tensors(1, temperature, top_k,
@@ -1376,33 +1625,35 @@ def make_paged_prefill_chunk(stages, cfg: GPTConfig, max_len: int,
 
 
 def _paged_chunk_fwd(blocks, embed, head, kc, vc, tokens, p0, table, H, bs,
-                     at=None):
+                     at=None, tail=None):
     """One prompt chunk's scatter + block-gather attention: ``tokens``
     [1, c] at positions ``[p0, p0+c)``, ``table`` [NB] int64, ``at`` the
-    per-layer adapter lookup or None. Returns ``(kc, vc, row)`` — the last
-    position's log-probs [V]."""
+    per-layer adapter lookup or None, ``tail`` a TP program's. Returns
+    ``(kc, vc, row)`` — the last position's log-probs [V]."""
     dev = tokens.device
     c = tokens.shape[1]
-    dh = embed["tok"].shape[1] // H
     h = embedding_lookup(embed["tok"], tokens) + embed["pos"][p0:p0 + c]
     idx = p0 + torch.arange(c, device=dev)
-    phys = table[idx // bs]
-    off = idx % bs
     span = table.shape[0] * bs
-    live = (torch.arange(span, device=dev)[None, :]
-            <= idx[:, None])[None, None]
-    for li, bp in enumerate(blocks):
-        q, k, v = _dense_qkv(bp, h, H,                     # [1, H, c, dh]
-                             None if at is None else at(li))
+    on = _device_copies(table[idx // bs], idx % bs, table,
+                        (torch.arange(span, device=dev)[None, :]
+                         <= idx[:, None])[None, None])
+
+    def attend(kc, vc, li, q, k, v):                       # [1, H, c, dh]
+        phys, off, tbl, live = on(q.device)
         _paged_scatter(kc, li, phys, off, k[0].transpose(0, 1))
         _paged_scatter(vc, li, phys, off, v[0].transpose(0, 1))
-        krow = _paged_gather(kc, li, table).float()        # [H, span, dh]
-        vrow = _paged_gather(vc, li, table).float()
-        scores = torch.einsum("bhqd,hkd->bhqk", q, krow) / math.sqrt(dh)
+        krow = _paged_gather(kc, li, tbl).float()          # [H, span, dh]
+        vrow = _paged_gather(vc, li, tbl).float()
+        scores = (torch.einsum("bhqd,hkd->bhqk", q, krow)
+                  / math.sqrt(q.shape[-1]))
         scores = torch.where(live, scores, -math.inf)
-        a = torch.einsum("bhqk,hkd->bhqd", torch.softmax(scores, dim=-1),
-                         vrow)
-        h = _dense_attn_tail(bp, h, a)
+        return torch.einsum("bhqk,hkd->bhqd", torch.softmax(scores, dim=-1),
+                            vrow)
+
+    for li, bp in enumerate(blocks):
+        h = _serve_block(bp, h, li, kc, vc, H,
+                         None if at is None else at(li), attend, tail)
     return kc, vc, _head_logprobs(head, h[:, -1])[0]
 
 
@@ -1426,22 +1677,27 @@ def make_paged_decode_step(stages, cfg: GPTConfig, max_len: int,
     slot's table span and runs masked softmax einsums (gather, then a
     second read). Quantised pools dequantise inside either path.
     ``adapters=True`` appends ``(bank, aids [S])``: each slot's q and v
-    take its adapter row's delta before either attention path."""
+    take its adapter row's delta before either attention path. A TP build
+    (``mesh``) takes :func:`make_paged_prefill_chunk`'s TP layout; its
+    fused tick launches the kernel once per coordinate and layer, on the
+    coordinate's pool and ``H/tp`` heads."""
     _validate_paged_build(stages, cfg, max_len, block_size,
-                          "make_paged_decode_step", cache_dtype, mesh)
+                          "make_paged_decode_step", cache_dtype)
     _check_attn_kernel(kernel, "make_paged_decode_step")
     dev = resolve_device(device)
+    tp, H, tail, devices = _serve_plan(cfg, mesh, dev,
+                                       "make_paged_decode_step")
 
     @torch.no_grad()
     def step(params, kc, vc, toks, pos, tables, key_data, temps, top_ks,
              top_ps, bank=None, aids=None):
-        embed, blocks, head = _merged_stage_trees(params)
+        embed, blocks, head = _serve_trees(params, tp)
         at = _bank_lookup(adapters, bank, aids, dev,
-                          "make_paged_decode_step")
+                          "make_paged_decode_step", devices)
         kc, vc, rows = _paged_decode_fwd(
             blocks, embed, head, kc, vc, _on(toks, dev, torch.int64),
             _on(pos, dev, torch.int64), _on(tables, dev, torch.int64),
-            cfg.n_heads, block_size, kernel, at=at)
+            H, block_size, kernel, at=at, tail=tail)
         toks2, kd2 = _sample_dyn(rows, _on(key_data, dev, torch.int64),
                                  *_sampling_tensors(rows.shape[0], temps,
                                                     top_ks, top_ps, dev))
@@ -1451,41 +1707,47 @@ def make_paged_decode_step(stages, cfg: GPTConfig, max_len: int,
 
 
 def _paged_decode_fwd(blocks, embed, head, kc, vc, toks, pos, tables, H, bs,
-                      kernel="dense", at=None):
+                      kernel="dense", at=None, tail=None):
     """The batched one-token-per-slot step's forward: ``toks``/``pos``
     [S] and ``tables`` [S, NB] int64. Scatter (and quantise) happens
     before either attention path reads, so the new token's row is visible
-    at its own position. Returns ``(kc, vc, rows)`` — log-probs [S, V]."""
+    at its own position. ``tail``: a TP program's. Returns ``(kc, vc,
+    rows)`` — log-probs [S, V]."""
     h = (embedding_lookup(embed["tok"], toks[:, None])
          + embed["pos"][pos][:, None])                      # [S, 1, d]
-    phys = tables.gather(1, (pos // bs)[:, None])[:, 0]
-    off = pos % bs
-    tables_k = tables.to(torch.int32)
-    qpos_k = pos.to(torch.int32)[:, None].contiguous()
-    for li, bp in enumerate(blocks):
-        q, knew, vnew = _dense_qkv(bp, h, H,               # [S, H, 1, dh]
-                                   None if at is None else at(li))
+    on = _device_copies(tables.gather(1, (pos // bs)[:, None])[:, 0],
+                        pos % bs, tables.to(torch.int32),
+                        pos.to(torch.int32)[:, None].contiguous())
+
+    def attend(kc, vc, li, q, knew, vnew):                 # [S, H, 1, dh]
+        phys, off, tables_k, qpos_k = on(q.device)
         _paged_scatter(kc, li, phys, off, knew[:, :, 0, :])
         _paged_scatter(vc, li, phys, off, vnew[:, :, 0, :])
-        a = _paged_attend(kc, vc, li, q, tables_k, qpos_k, bs, toks.device,
-                          kernel)
-        h = _dense_attn_tail(bp, h, a)
+        return _paged_attend(kc, vc, li, q, tables_k, qpos_k, bs, q.device,
+                             kernel)
+
+    for li, bp in enumerate(blocks):
+        h = _serve_block(bp, h, li, kc, vc, H,
+                         None if at is None else at(li), attend, tail)
     return kc, vc, _head_logprobs(head, h[:, 0])
 
 
 def make_paged_block_copy():
     """The copy-on-write op: ``copy(kc, vc, dst, src) -> (kc, vc)``
-    duplicates physical block ``src`` into ``dst`` across every layer, in
-    place. A :class:`QuantKV` buffer copies its scale plane with its
+    duplicates physical block ``src`` into ``dst`` across every layer (and
+    every shard of a TP pool), in place. A :class:`QuantKV` buffer copies its scale plane with its
     data — a copy that moved rows without their scales would silently
     rescale the destination block."""
 
     @torch.no_grad()
     def copy(kc, vc, dst, src):
         dst, src = int(dst), int(src)
-        for buf in (kc, vc):
-            for leaf in (buf if isinstance(buf, QuantKV) else (buf,)):
-                leaf[:, dst] = leaf[:, src]
+        for pool in (kc, vc):
+            # a TP pool is one buffer per model coordinate: every shard
+            # copies, since the block tables are shared
+            for buf in (pool if isinstance(pool, list) else (pool,)):
+                for leaf in (buf if isinstance(buf, QuantKV) else (buf,)):
+                    leaf[:, dst] = leaf[:, src]
         return kc, vc
 
     return copy
@@ -1643,10 +1905,17 @@ def make_slot_propose(stages, cfg: GPTConfig, max_len: int, spec_k: int,
     ``max_len - 1`` past the budget, with the decode tick's per-slot math,
     so the draft's K/V rows stay valid for every accepted continuation.
     ``key_data`` is the requests' draft key stream; greedy proposals
-    consume none of it. The log-prob rows feed the sampled acceptance."""
+    consume none of it. The log-prob rows feed the sampled acceptance.
+    The draft runs single-device even under a TP target: it is small by
+    design."""
     _validate_slot_build(stages, cfg, max_len, "make_slot_propose",
                          cache_dtype)
     _check_spec_k(spec_k, "make_slot_propose")
+    if cfg.n_tensor_parallel > 1:
+        raise ValueError(
+            "make_slot_propose runs the draft model single-device "
+            "(replicated under a TP target): build the draft with "
+            "n_tensor_parallel=1")
     dev = resolve_device(device)
     H, ml = cfg.n_heads, max_len
 
@@ -1682,32 +1951,36 @@ def _verify_positions(pos, valid_n, K, ml):
 
 
 def _slot_verify_fwd(blocks, embed, head, kc, vc, xs, qpos, wpos, H,
-                     at=None):
+                     at=None, tail=None):
     """The K-tokens-per-slot verify forward over the dense slot pool:
     ``xs`` [S, K] input tokens at query positions ``qpos`` [S, K], each
     position's K/V written at ``wpos`` [S, K] (``qpos`` in budget, the
     trash row past it) before attention reads the row. The per-position
-    math is the decode tick's (:func:`_dense_block_step_slots`): the same
-    projections and the same masked-row softmax. Returns ``(kc, vc,
-    rows)``, log-probs [S, K, V]."""
+    math is the decode tick's (:func:`_slot_decode_fwd`): the same
+    projections and the same masked-row softmax. ``tail``: a TP
+    program's. Returns ``(kc, vc, rows)``, log-probs [S, K, V]."""
     S = xs.shape[0]
     h = embedding_lookup(embed["tok"], xs) + embed["pos"][qpos]  # [S, K, d]
-    ml = kc.shape[-2]
-    live = (torch.arange(ml, device=xs.device)[None, None, None, :]
-            <= qpos[:, None, :, None])                           # [S,1,K,ml]
-    rows = torch.arange(S, device=xs.device)[:, None]
-    for li, bp in enumerate(blocks):
-        q, knew, vnew = _dense_qkv(bp, h, H,                    # [S, H, K, dh]
-                                   None if at is None else at(li))
-        dh = q.shape[-1]
-        kl, vl = kc[li], vc[li]                                  # [S, H, ml, dh]
-        kl[rows, :, wpos] = knew.transpose(1, 2).to(kl.dtype)
-        vl[rows, :, wpos] = vnew.transpose(1, 2).to(vl.dtype)
-        scores = torch.einsum("bhqd,bhkd->bhqk", q, kl.float()) / math.sqrt(dh)
+    ml = (kc[0] if isinstance(kc, list) else kc).shape[-2]
+    on = _device_copies(
+        torch.arange(S, device=xs.device)[:, None], wpos,
+        (torch.arange(ml, device=xs.device)[None, None, None, :]
+         <= qpos[:, None, :, None]))                               # [S,1,K,ml]
+
+    def attend(kc, vc, li, q, knew, vnew):                 # [S, H, K, dh]
+        rows, wp, live = on(q.device)
+        kl, vl = kc[li], vc[li]                            # [S, H, ml, dh]
+        kl[rows, :, wp] = knew.transpose(1, 2).to(kl.dtype)
+        vl[rows, :, wp] = vnew.transpose(1, 2).to(vl.dtype)
+        scores = (torch.einsum("bhqd,bhkd->bhqk", q, kl.float())
+                  / math.sqrt(q.shape[-1]))
         scores = torch.where(live, scores, -math.inf)
-        a = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(scores, dim=-1),
-                         vl.float())
-        h = _dense_attn_tail(bp, h, a)
+        return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(scores, dim=-1),
+                            vl.float())
+
+    for li, bp in enumerate(blocks):
+        h = _serve_block(bp, h, li, kc, vc, H,
+                         None if at is None else at(li), attend, tail)
     return kc, vc, _head_logprobs(head, h)
 
 
@@ -1726,21 +1999,22 @@ def make_slot_verify_step(stages, cfg: GPTConfig, max_len: int, spec_k: int,
     and which positions write real K/V; the rest go to the never-live
     trash row ``max_len - 1``. ``kc``/``vc`` are updated in place. Plain
     attention: K4 is the paged pool's kernel. ``adapters=True`` appends
-    ``(bank, aids [S])``."""
+    ``(bank, aids [S])``. A TP build (``mesh``) takes
+    :func:`make_slot_prefill`'s TP layout."""
     _validate_slot_build(stages, cfg, max_len, "make_slot_verify_step",
                          cache_dtype)
     _check_spec_k(spec_k, "make_slot_verify_step")
-    if mesh is not None:
-        raise _roadmap.not_ported("make_slot_verify_step: tensor-parallel "
-                                  "serving (mesh)", _roadmap.TP_SERVING)
     dev = resolve_device(device)
+    tp, H, tail, devices = _serve_plan(cfg, mesh, dev,
+                                       "make_slot_verify_step")
     K, ml = spec_k, max_len
 
     @torch.no_grad()
     def verify(params, kc, vc, toks, pos, drafts, draft_rows, valid_n,
                key_data, temps, top_ks, top_ps, bank=None, aids=None):
-        embed, blocks, head = _merged_stage_trees(params)
-        at = _bank_lookup(adapters, bank, aids, dev, "make_slot_verify_step")
+        embed, blocks, head = _serve_trees(params, tp)
+        at = _bank_lookup(adapters, bank, aids, dev, "make_slot_verify_step",
+                          devices)
         toks = _on(toks, dev, torch.int64)
         drafts = _on(drafts, dev, torch.int64)
         valid_n = _on(valid_n, dev, torch.int64)
@@ -1748,16 +2022,24 @@ def make_slot_verify_step(stages, cfg: GPTConfig, max_len: int, spec_k: int,
         qpos, wpos = _verify_positions(_on(pos, dev, torch.int64), valid_n,
                                        K, ml)
         kc, vc, rows = _slot_verify_fwd(blocks, embed, head, kc, vc, xs,
-                                        qpos, wpos, cfg.n_heads, at=at)
-        any_hot = (None if isinstance(temps, torch.Tensor)
-                   else bool(np.any(np.asarray(temps) > 0)))
-        knobs = _sampling_tensors(toks.shape[0], temps, top_ks, top_ps, dev)
-        toks2, n_acc, kd2 = _spec_accept_rows(
-            rows, drafts, _on(draft_rows, dev, torch.float32), valid_n,
-            _on(key_data, dev, torch.int64), *knobs, any_hot=any_hot)
-        return kc, vc, toks2, n_acc, kd2
+                                        qpos, wpos, H, at=at, tail=tail)
+        return (kc, vc) + _verify_accept(rows, toks, drafts, draft_rows,
+                                         valid_n, key_data, temps, top_ks,
+                                         top_ps, dev)
 
     return verify
+
+
+def _verify_accept(rows, toks, drafts, draft_rows, valid_n, key_data, temps,
+                   top_ks, top_ps, dev):
+    """The verify steps' acceptance over their rows: ``(toks [S, K],
+    n_acc [S], key_data [S, 2])``."""
+    any_hot = (None if isinstance(temps, torch.Tensor)
+               else bool(np.any(np.asarray(temps) > 0)))
+    knobs = _sampling_tensors(toks.shape[0], temps, top_ks, top_ps, dev)
+    return _spec_accept_rows(
+        rows, drafts, _on(draft_rows, dev, torch.float32), valid_n,
+        _on(key_data, dev, torch.int64), *knobs, any_hot=any_hot)
 
 
 def _paged_verify_routing(pos, valid_n, tables, K, bs, ml):
@@ -1773,25 +2055,29 @@ def _paged_verify_routing(pos, valid_n, tables, K, bs, ml):
 
 
 def _paged_verify_fwd(blocks, embed, head, kc, vc, xs, qpos, wphys, woff,
-                      tables, H, bs, kernel="dense", at=None):
+                      tables, H, bs, kernel="dense", at=None, tail=None):
     """The K-tokens-per-slot verify forward over the paged pool: each
     position's K/V lands at ``(wphys, woff)`` before attention reads it;
     attention runs over the slot's table span with the ``[S, K]`` ``qpos``
     plan as the per-query mask — the CUDA kernel K4 at K = spec_k
-    (``kernel="fused"``) or its plain version (``"dense"``). ``xs``,
-    ``qpos``, ``wphys``, ``woff`` [S, K] and ``tables`` [S, NB] int64.
-    Returns ``(kc, vc, rows)``, log-probs [S, K, V]."""
+    (``kernel="fused"``; once per coordinate and layer in a TP program)
+    or its plain version (``"dense"``). ``xs``, ``qpos``, ``wphys``,
+    ``woff`` [S, K] and ``tables`` [S, NB] int64. Returns ``(kc, vc,
+    rows)``, log-probs [S, K, V]."""
     h = embedding_lookup(embed["tok"], xs) + embed["pos"][qpos]   # [S, K, d]
-    tables_k = tables.to(torch.int32)
-    qpos_k = qpos.to(torch.int32).contiguous()
+    on = _device_copies(wphys, woff, tables.to(torch.int32),
+                        qpos.to(torch.int32).contiguous())
+
+    def attend(kc, vc, li, q, knew, vnew):                 # [S, H, K, dh]
+        wp, wo, tables_k, qpos_k = on(q.device)
+        _paged_scatter(kc, li, wp, wo, knew.transpose(1, 2))
+        _paged_scatter(vc, li, wp, wo, vnew.transpose(1, 2))
+        return _paged_attend(kc, vc, li, q, tables_k, qpos_k, bs, q.device,
+                             kernel)
+
     for li, bp in enumerate(blocks):
-        q, knew, vnew = _dense_qkv(bp, h, H,               # [S, H, K, dh]
-                                   None if at is None else at(li))
-        _paged_scatter(kc, li, wphys, woff, knew.transpose(1, 2))
-        _paged_scatter(vc, li, wphys, woff, vnew.transpose(1, 2))
-        a = _paged_attend(kc, vc, li, q, tables_k, qpos_k, bs, xs.device,
-                          kernel)
-        h = _dense_attn_tail(bp, h, a)
+        h = _serve_block(bp, h, li, kc, vc, H,
+                         None if at is None else at(li), attend, tail)
     return kc, vc, _head_logprobs(head, h)
 
 
@@ -1811,23 +2097,27 @@ def make_paged_verify_step(stages, cfg: GPTConfig, max_len: int,
     bounds emission and which positions write real K/V; the rest go to
     the trash block. The engine must have made positions
     ``pos .. pos+valid_n-1`` writable first. ``kernel="fused"`` attends
-    through K4 with ``spec_k`` queries per slot, one launch per layer.
-    ``adapters=True`` appends ``(bank, aids [S])``: the verify rows are
-    the adapted model's, so they decide every emission."""
+    through K4 with ``spec_k`` queries per slot, one launch per layer
+    (per coordinate and layer in a TP build, ``mesh``: the layout of
+    :func:`make_paged_prefill_chunk`). ``adapters=True`` appends
+    ``(bank, aids [S])``: the verify rows are the adapted model's, so
+    they decide every emission."""
     _validate_paged_build(stages, cfg, max_len, block_size,
-                          "make_paged_verify_step", cache_dtype, mesh)
+                          "make_paged_verify_step", cache_dtype)
     _check_spec_k(spec_k, "make_paged_verify_step")
     _check_attn_kernel(kernel, "make_paged_verify_step")
     dev = resolve_device(device)
+    tp, H, tail, devices = _serve_plan(cfg, mesh, dev,
+                                       "make_paged_verify_step")
     K, ml = spec_k, max_len
 
     @torch.no_grad()
     def verify(params, kc, vc, toks, pos, drafts, draft_rows, valid_n,
                tables, key_data, temps, top_ks, top_ps, bank=None,
                aids=None):
-        embed, blocks, head = _merged_stage_trees(params)
+        embed, blocks, head = _serve_trees(params, tp)
         at = _bank_lookup(adapters, bank, aids, dev,
-                          "make_paged_verify_step")
+                          "make_paged_verify_step", devices)
         toks = _on(toks, dev, torch.int64)
         pos = _on(pos, dev, torch.int64)
         drafts = _on(drafts, dev, torch.int64)
@@ -1837,16 +2127,12 @@ def make_paged_verify_step(stages, cfg: GPTConfig, max_len: int,
         qpos, wphys, woff = _paged_verify_routing(pos, valid_n, tables, K,
                                                   block_size, ml)
         kc, vc, rows = _paged_verify_fwd(blocks, embed, head, kc, vc, xs,
-                                         qpos, wphys, woff, tables,
-                                         cfg.n_heads, block_size, kernel,
-                                         at=at)
-        any_hot = (None if isinstance(temps, torch.Tensor)
-                   else bool(np.any(np.asarray(temps) > 0)))
-        knobs = _sampling_tensors(toks.shape[0], temps, top_ks, top_ps, dev)
-        toks2, n_acc, kd2 = _spec_accept_rows(
-            rows, drafts, _on(draft_rows, dev, torch.float32), valid_n,
-            _on(key_data, dev, torch.int64), *knobs, any_hot=any_hot)
-        return kc, vc, toks2, n_acc, kd2
+                                         qpos, wphys, woff, tables, H,
+                                         block_size, kernel, at=at,
+                                         tail=tail)
+        return (kc, vc) + _verify_accept(rows, toks, drafts, draft_rows,
+                                         valid_n, key_data, temps, top_ks,
+                                         top_ps, dev)
 
     return verify
 

@@ -3,7 +3,8 @@ stage buffer and wire codec, the data x stage x model x seq x expert mesh
 with its axis collectives and the multi-process bootstrap, ``Stage``, the
 ``Pipeline`` (one fused stage, or GPipe over a mesh, in one process or
 several), the 1F1B schedule, tensor parallelism (``tensor``: Megatron
-pairs and the model sums), sequence parallelism (``sequence``: seq chunks
+pairs and the model sums), the overlapped collectives (``overlap``: the
+ring schedules of the model axis's sums and gathers), sequence parallelism (``sequence``: seq chunks
 and Ulysses; ring attention is ``ops/attention.py``'s) and experts
 (``expert``: the MoE FFN and its all-to-all dispatch)."""
 
@@ -14,6 +15,13 @@ from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (  # noq
 )
 from simple_distributed_machine_learning_tpu_torch.parallel.onefb import (  # noqa: F401
     onefb_loss_and_grads,
+)
+from simple_distributed_machine_learning_tpu_torch.parallel.overlap import (  # noqa: F401
+    allgather_matmul,
+    matmul_reducescatter,
+    ring_all_gather,
+    ring_psum,
+    ring_reduce_scatter,
 )
 from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (  # noqa: F401
     Pipeline,

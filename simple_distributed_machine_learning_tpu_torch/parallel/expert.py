@@ -46,6 +46,7 @@ from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
     AxisView,
     all_to_all,
     axis_mean,
+    permute,
 )
 
 
@@ -157,15 +158,16 @@ def moe_apply_ep(params, xs, k: int = 2, capacity: int | None = None,
 
     ``overlap='none'`` is the canonical two all-to-alls: dispatch
     everything, run one batched FFN per coordinate, ship everything
-    back. ``overlap='ring'`` is ROADMAP item 6d.4."""
-    from simple_distributed_machine_learning_tpu_torch import _roadmap
-    from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (  # noqa: E501
+    back. ``overlap='ring'`` is the offset-hop dispatch: each coordinate
+    runs its own chunk first, then for ``s = 1 .. D-1`` sends the chunk
+    owned by coordinate ``i + s`` forward (``mesh.permute`` by ``s``),
+    runs the FFN on the chunk that arrives from ``i - s`` and returns the
+    result on the mirrored permute — the same math per capacity slot, the
+    FFN batched ``[E/D, C, d]`` per chunk instead of ``[E/D, D*C, d]``."""
+    from simple_distributed_machine_learning_tpu_torch.parallel.overlap import (  # noqa: E501
         check_overlap,
     )
-    if check_overlap(overlap) == "ring":
-        raise _roadmap.not_ported(
-            "moe_apply_ep(overlap='ring'), the ring dispatch",
-            _roadmap.OVERLAP)
+    ring = check_overlap(overlap) == "ring"
     view = getattr(params, "view", None) or AxisView.local(axis,
                                                            len(params))
     if view.name != axis or not (len(params) == len(xs)
@@ -181,13 +183,44 @@ def moe_apply_ep(params, xs, k: int = 2, capacity: int | None = None,
     aux = axis_mean([a for _, _, a in routed], view)
     expert_in = [torch.einsum("...tec,...td->...ecd", dsp, x)
                  for (dsp, _, _), x in zip(routed, xs)]   # [..., E, C, d]
-    # each expert's buffer to its owner: split E D ways, concatenate the
-    # sources' contributions on the capacity axis -> [..., E/D, D*C, d]
-    owned_in = all_to_all(expert_in, view, split_dim=-3, concat_dim=-2)
-    owned_out = [_expert_ffn(p["experts"], b)
-                 for p, b in zip(params, owned_in)]
-    # the inverse exchange: each source its slice back -> [..., E, C, d]
-    expert_out = all_to_all(owned_out, view, split_dim=-2, concat_dim=-3)
+    if ring and view.size > 1:
+        expert_out = _ring_dispatch(params, expert_in, view)
+    else:
+        # each expert's buffer to its owner: split E D ways, concatenate
+        # the sources' contributions on the capacity axis -> [..., E/D,
+        # D*C, d]
+        owned_in = all_to_all(expert_in, view, split_dim=-3, concat_dim=-2)
+        owned_out = [_expert_ffn(p["experts"], b)
+                     for p, b in zip(params, owned_in)]
+        # the inverse exchange: each source its slice back -> [..., E, C,
+        # d]
+        expert_out = all_to_all(owned_out, view, split_dim=-2,
+                                concat_dim=-3)
     ys = [torch.einsum("...tec,...ecd->...td", comb, out)
           for (_, comb, _), out in zip(routed, expert_out)]
     return ys, aux
+
+
+def _ring_dispatch(params, expert_in, view) -> list:
+    """``moe_apply_ep``'s ring schedule: each owned coordinate's ``[...,
+    E, C, d]`` buffers -> its ``[..., E, C, d]`` expert outputs, by
+    ``D - 1`` offset hops out and their mirrored hops back."""
+    D, owned = view.size, list(view.owned)
+    e_loc = expert_in[0].shape[-3] // D
+
+    def chunk(t, c):
+        return t.narrow(-3, c * e_loc, e_loc)
+
+    # own chunk first: no hop to hide it under
+    pieces = [{c: _expert_ffn(p["experts"], chunk(b, c))}
+              for p, b, c in zip(params, expert_in, owned)]
+    for s in range(1, D):
+        # offset s: send the chunk owner i + s takes, run the FFN on the
+        # one arriving from i - s, return it on the mirrored permute
+        recv = permute([chunk(b, (c + s) % D)
+                        for b, c in zip(expert_in, owned)], view, s)
+        back = permute([_expert_ffn(p["experts"], r)
+                        for p, r in zip(params, recv)], view, -s)
+        for k, c in enumerate(owned):
+            pieces[k][(c + s) % D] = back[k]
+    return [torch.cat([pc[e] for e in range(D)], -3) for pc in pieces]

@@ -43,8 +43,8 @@ The wire between processes is gloo over the host (``send``/``recv``
 below): a tensor on the card is copied to the host, sent, and copied back
 onto the receiving coordinate's device — the reference's own RPC wire,
 which shipped CPU tensors. Two processes on one card cannot use NCCL. The
-axis collectives (:func:`ring_shift`, :func:`all_to_all`,
-:func:`all_gather`) are a shuffle of tensors between the coordinates of
+axis collectives (:func:`permute` and its one-hop :func:`ring_shift`,
+:func:`all_to_all`, :func:`all_gather`) are a shuffle of tensors between the coordinates of
 one process and gloo point-to-point or ``all_to_all_single`` across
 processes, each differentiable.
 """
@@ -449,48 +449,72 @@ def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
 
 # -- the axis collectives --------------------------------------------------------
 
-# tags of the axis collectives' point-to-point messages, apart from the
-# pipeline's stage hops (parallel/pipeline.py uses 1-3)
-_TAG_RING, _TAG_RING_BACK = 11, 12
+# tags of the axis collectives' point-to-point messages: a base plus the
+# receiving coordinate, apart from the pipeline's stage hops
+# (parallel/pipeline.py uses 1-3)
+_TAG_FWD, _TAG_BWD = 1000, 2000
 
 
-def _hop(x: torch.Tensor, dst: int, src: int, tag: int) -> torch.Tensor:
-    """Send ``x`` to ``dst`` and receive a tensor like it from ``src``:
-    the send is posted first, so a ring of these cannot deadlock."""
-    pending = [send(x, dst, tag)]
-    got = recv(x.shape, x.dtype, src, x.device, tag)
+def _to(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    return t if t.device == dev else t.to(dev)
+
+
+def _permute_raw(xs, view: AxisView, offset: int, tag: int) -> list:
+    """Coordinate ``c``'s new tensor is coordinate ``c - offset``'s (all of
+    one shape), each landing on the device of the tensor it replaces;
+    the sends are posted before the receives, so no ring deadlocks."""
+    n, owned = view.size, list(view.owned)
+    devs = [x.device for x in xs]
+    if view.group is None:
+        return [_to(xs[(c - offset) % n], devs[c]) for c in range(n)]
+    me = view.ranks[owned[0]]
+    pending = []
+    for k, c in enumerate(owned):
+        dst = (c + offset) % n
+        if view.ranks[dst] != me:
+            pending.append(send(xs[k], view.ranks[dst], tag + dst))
+    out = []
+    for k, c in enumerate(owned):
+        src = (c - offset) % n
+        if view.ranks[src] == me:
+            out.append(_to(xs[owned.index(src)], devs[k]))
+        else:
+            out.append(recv(xs[k].shape, xs[k].dtype, view.ranks[src],
+                            devs[k], tag + c))
     wait_all(pending)
-    return got
+    return out
 
 
-class _RingHop(torch.autograd.Function):
-    """``x`` to the next process on the ring, the previous one's back;
-    the backward sends the received tensor's cotangent back to where it
-    came from and receives ``x``'s from the next."""
+class _Permute(torch.autograd.Function):
+    """The permute across processes; its backward is the inverse one."""
 
     @staticmethod
-    def forward(ctx, x, prev, nxt):
-        ctx.prev, ctx.nxt = prev, nxt
-        return _hop(x, nxt, prev, _TAG_RING)
+    def forward(ctx, view, offset, *xs):
+        ctx.view, ctx.offset = view, offset
+        return tuple(_permute_raw(xs, view, offset, _TAG_FWD))
 
     @staticmethod
-    def backward(ctx, g):
-        return _hop(g.contiguous(), ctx.prev, ctx.nxt, _TAG_RING_BACK), \
-            None, None
+    def backward(ctx, *gs):
+        return (None, None) + tuple(_permute_raw(
+            [g.contiguous() for g in gs], ctx.view, -ctx.offset, _TAG_BWD))
+
+
+def permute(xs: list, view: AxisView, offset: int = 1) -> list:
+    """The JAX ``ppermute`` with pairs ``(j, j + offset)``: given the owned
+    coordinates' tensors (one shape), each owned coordinate's new tensor
+    is the one of coordinate ``c - offset``. Differentiable: within the
+    process a rotation of the list, across processes gloo point-to-point
+    (the backward the inverse permute)."""
+    if view.group is None:
+        return _permute_raw(list(xs), view, offset, _TAG_FWD)
+    return list(_Permute.apply(view, offset, *xs))
 
 
 def ring_shift(xs: list, view: AxisView) -> list:
     """One hop around the axis's ring (coordinate ``i`` sends to ``i +
-    1``, the JAX ``ppermute`` of ring attention): given the owned
-    coordinates' tensors in order, each owned coordinate's new tensor is
-    the one of the coordinate before it. Within the process a shift of
-    the list; the first owned coordinate's arrives from the previous
-    process over the wire. Differentiable."""
-    if view.group is None:
-        return [xs[-1]] + list(xs[:-1])
-    prev = view.ranks[(view.owned[0] - 1) % view.size]
-    nxt = view.ranks[(view.owned[-1] + 1) % view.size]
-    return [_RingHop.apply(xs[-1], prev, nxt)] + list(xs[:-1])
+    1``, the JAX ``ppermute`` of ring attention): each owned coordinate's
+    new tensor is the one of the coordinate before it."""
+    return permute(xs, view, 1)
 
 
 def _pieces(x: torch.Tensor, n: int, dim: int) -> tuple:

@@ -84,7 +84,6 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint as _checkpoint
 
-from simple_distributed_machine_learning_tpu_torch import _roadmap
 from simple_distributed_machine_learning_tpu_torch._device import (
     resolve_device,
 )
@@ -100,19 +99,13 @@ from simple_distributed_machine_learning_tpu_torch.parallel.sequence import (
 from simple_distributed_machine_learning_tpu_torch.parallel.staging import (
     stage_meta,
 )
+from simple_distributed_machine_learning_tpu_torch.parallel.overlap import (  # noqa: F401,E501 - re-exported
+    OVERLAP_CHOICES,
+    check_overlap,
+)
 from simple_distributed_machine_learning_tpu_torch.parallel.tensor import (
     Shards,
 )
-
-#: the collective schedules of the JAX package's ``parallel/overlap.py``
-OVERLAP_CHOICES = ("none", "ring")
-
-
-def check_overlap(overlap: str) -> str:
-    if overlap not in OVERLAP_CHOICES:
-        raise ValueError(
-            f"overlap must be one of {OVERLAP_CHOICES}, got {overlap!r}")
-    return overlap
 
 
 @dataclasses.dataclass(frozen=True)
@@ -246,9 +239,15 @@ class Pipeline:
     trivial mesh, not on one coordinate; ``remat`` recomputes each stage in
     the backward over a mesh (GPipe) and, as there, nothing on one
     coordinate; ``schedule`` is ``"gpipe"`` or ``"1f1b"``, the same on one
-    stage; ``overlap`` is ``"none"`` (the JAX default), and ``"ring"``,
-    the chunked ring that replaces the collectives of a sharded mesh,
-    waits for ROADMAP item 6d.4.
+    stage; ``overlap`` (``"none"``, the JAX default, or ``"ring"``) is the
+    JAX knob of the engine's own collectives: the backward sums of a
+    stage stored replicated over the model or expert axis. Under the
+    port's Megatron accounting every process computes such a stage's full
+    gradient itself, so the engine has no such sum to chunk and ``"ring"``
+    trains the same bits as ``"none"``; a stage's internal collectives
+    (TP pairs, TP GPT blocks, the EP dispatch) take their schedule from
+    the model build (``GPTConfig.overlap``, ``make_mlp_tp_stages(...,
+    overlap=)``), and 1F1B ignores the knob, as the JAX 1F1B does.
     ``compute_dtype`` casts the parameters and float activations to that
     dtype around each stage apply; master parameters and the loss stay
     f32. Token ids (the input of a stage that holds the ``embed`` table)
@@ -273,9 +272,6 @@ class Pipeline:
         if schedule not in ("gpipe", "1f1b"):
             raise ValueError(f"unknown schedule {schedule!r}")
         self.overlap = check_overlap(overlap)
-        if overlap == "ring":
-            raise _roadmap.not_ported("Pipeline(overlap='ring')",
-                                      _roadmap.OVERLAP)
         self.stages = list(stages)
         if mesh is None:
             devices = [resolve_device(device)]

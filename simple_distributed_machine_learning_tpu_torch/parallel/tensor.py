@@ -33,6 +33,11 @@ cotangent (the JAX transpose splits it ``1/mp`` per replica), so
   buffer, and :func:`tie` hands each local copy the full gradient, so
   the copies train in lockstep, bit for bit.
 
+With ``overlap='ring'`` the sums over the model coordinates run as the
+ring schedules of ``parallel/overlap.py``: :func:`tp_pair_apply` closes
+with ``ring_psum`` (identity backward, as :func:`model_sum`'s) and
+:func:`grad_sync`'s backward across processes is the mirrored ring.
+
 The gradients are the dense model's, as in the JAX package.
 """
 
@@ -47,6 +52,12 @@ from simple_distributed_machine_learning_tpu_torch.ops.layers import (
 )
 from simple_distributed_machine_learning_tpu_torch.parallel import (
     mesh as mesh_lib,
+)
+from simple_distributed_machine_learning_tpu_torch.parallel.overlap import (
+    _TAG_BWD,
+    _ring_psum_impl,
+    check_overlap,
+    ring_psum,
 )
 
 
@@ -80,6 +91,22 @@ class _GradSync(torch.autograd.Function):
         return mesh_lib.all_reduce(ct, ctx.group), None
 
 
+class _GradSyncRing(torch.autograd.Function):
+    """Identity forward; the backward sums the processes' cotangents in
+    ring order (each enters on its first owned coordinate)."""
+
+    @staticmethod
+    def forward(ctx, x, view):
+        ctx.view = view
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        ct = ct.contiguous()
+        parts = [ct] + [torch.zeros_like(ct)] * (len(ctx.view.owned) - 1)
+        return _ring_psum_impl(parts, ctx.view, -1, _TAG_BWD), None
+
+
 class _ModelSum(torch.autograd.Function):
     """The sum over ``group`` forward; identity backward (every
     coordinate already holds the full cotangent of the replicated sum)."""
@@ -107,15 +134,25 @@ class _Tie(torch.autograd.Function):
         return (ct,) * ctx.n_copies
 
 
-def grad_sync(x: torch.Tensor, group=None, overlap: str = "none"
-              ) -> torch.Tensor:
+def grad_sync(x: torch.Tensor, group=None, overlap: str = "none",
+              view=None) -> torch.Tensor:
     """Identity forward; the backward sums ``x``'s gradient over the model
     coordinates. In one process (``group`` None) the shards that read
     ``x`` already add their gradients into it, so this is the identity;
-    across processes it is the ``all_reduce`` over ``group``.
-    ``overlap='ring'`` (the chunked ring) is ROADMAP item 6d.4."""
-    _check_overlap(overlap)
-    return x if group is None else _GradSync.apply(x, group)
+    across processes it is the ``all_reduce`` over ``group`` or, with
+    ``overlap='ring'``, the chunked ring of ``overlap.ring_psum`` over
+    ``view`` (the axis's ``mesh.AxisView``) in the mirrored direction:
+    each process enters its own gradient, and every process ends with the
+    same bits."""
+    check_overlap(overlap)
+    if group is None:
+        return x
+    if overlap == "ring":
+        if view is None:
+            raise ValueError("grad_sync(overlap='ring') across processes "
+                             "needs the axis view (its ring order)")
+        return _GradSyncRing.apply(x, view)
+    return _GradSync.apply(x, group)
 
 
 def model_sum(parts, group=None) -> torch.Tensor:
@@ -132,16 +169,6 @@ def tie(copies) -> torch.Tensor:
     the first, with every copy receiving the full gradient."""
     copies = list(copies)
     return copies[0] if len(copies) == 1 else _Tie.apply(*copies)
-
-
-def _check_overlap(overlap: str) -> None:
-    from simple_distributed_machine_learning_tpu_torch import _roadmap
-    from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (  # noqa: E501
-        check_overlap,
-    )
-    if check_overlap(overlap) == "ring":
-        raise _roadmap.not_ported("the ring collectives (overlap='ring')",
-                                  _roadmap.OVERLAP)
 
 
 def is_sharded_leaf(path) -> bool:
@@ -190,15 +217,29 @@ def tp_pair_init(seed, d_in: int, d_hidden: int, d_out: int,
 def tp_pair_apply(params, x: torch.Tensor, activation=relu, group=None,
                   overlap: str = "none") -> torch.Tensor:
     """Column -> activation -> row parallel pair over this process's
-    shards (``params``: :class:`Shards`, whose ``group`` is used, a list
-    of shard trees, or one shard): one sum over the model coordinates per
-    call, the replicated output bias added after it."""
+    shards (``params``: :class:`Shards`, whose ``group`` and ``view`` are
+    used, a list of shard trees, or one shard): one sum over the model
+    coordinates per call — the plain sum (``overlap='none'``) or the ring
+    of ``overlap.ring_psum`` — the replicated output bias added after
+    it."""
     shards = as_shards(params)
     group = shards.group if group is None else group
-    xs = grad_sync(x, group, overlap)
+    view = _model_view(shards, group)
+    xs = grad_sync(x, group, overlap, view)
     parts = [activation(xs @ p["w1"]["w"] + p["w1"]["b"]) @ p["w2"]["w"]
              for p in shards]
-    return model_sum(parts, group) + tie(p["w2"]["b"] for p in shards)
+    z = (ring_psum(parts, view)[0] if overlap == "ring"
+         else model_sum(parts, group))
+    return z + tie(p["w2"]["b"] for p in shards)
+
+
+def _model_view(shards, group):
+    """The model axis as ``shards`` see it: their ``view``, or (all of its
+    coordinates in this process) a local axis as wide as the shards."""
+    view = getattr(shards, "view", None)
+    if view is None and group is None:
+        view = mesh_lib.AxisView.local(mesh_lib.MODEL_AXIS, len(shards))
+    return view
 
 
 def make_mlp_tp_stages(seed, dims, n_stages: int, n_model: int,
@@ -221,7 +262,7 @@ def make_mlp_tp_stages(seed, dims, n_stages: int, n_model: int,
     from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (  # noqa: E501
         Stage,
     )
-    _check_overlap(overlap)
+    check_overlap(overlap)
     dev = resolve_device(device)
     dims = [int(d) for d in dims]
     if len(dims) != 2 * n_stages + 1:

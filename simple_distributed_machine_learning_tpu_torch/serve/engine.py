@@ -55,9 +55,16 @@ most recent one); ``flight=`` (a ``serve/flight.py::FlightRecorder``)
 snaps the engine once per busy tick. Neither reads a clock, so tracing on
 or off leaves every virtual-clock number unchanged.
 
-The JAX engine's other knobs keep their place in the signature and raise
-``NotImplementedError`` naming the ROADMAP item that ports them: tensor
-parallelism and the lint preflight.
+Tensor parallelism (``cfg.n_tensor_parallel = tp > 1`` with a serving
+``mesh``): the engine slices the dense weights into the Megatron serving
+layout once (``models/gpt.py::pack_tp_serve_params``) and holds one
+head-sharded pool per model coordinate (``serve/slots.py``); every tick
+runs head-sharded QKV/O and the column -> row MLP over the coordinates
+(K4 once per coordinate and layer on the fused paged path), and the
+speculative engine verifies over the shards after a single-device draft,
+two dispatches where one target fuses them. The JAX engine's lint
+preflight keeps its place in the signature and raises
+``NotImplementedError`` naming its ROADMAP item.
 
 Clock reads sit exactly where the JAX engine's do (submit without an
 arrival stamp, cancel, the dense admission's TTFT endpoint or reseat,
@@ -89,9 +96,14 @@ from simple_distributed_machine_learning_tpu_torch.models.gpt import (
     make_paged_decode_step,
     make_paged_prefill_chunk,
     make_paged_spec_tick,
+    make_paged_verify_step,
     make_slot_decode_step,
     make_slot_prefill,
+    make_slot_propose,
     make_slot_spec_tick,
+    make_slot_verify_step,
+    pack_tp_serve_params,
+    tp_serve_devices,
 )
 from simple_distributed_machine_learning_tpu_torch.ops.random import key_data
 from simple_distributed_machine_learning_tpu_torch.resilience.faults import (
@@ -179,11 +191,7 @@ def _check_layout(kv_layout, attn_kernel, prefill_chunk, n_blocks,
             "no blocks to demote — use kv_layout='paged'")
 
 
-def _reject_unported(lint, mesh, cfg) -> None:
-    if mesh is not None or cfg.n_tensor_parallel > 1:
-        raise _roadmap.not_ported("tensor-parallel serving (mesh/"
-                                  "n_tensor_parallel > 1)",
-                                  _roadmap.TP_SERVING)
+def _reject_unported(lint) -> None:
     if lint:
         raise _roadmap.not_ported("the serve-program lint preflight",
                                   _roadmap.ANALYSIS)
@@ -226,6 +234,14 @@ class InferenceEngine:
     ``device`` (None = ``"cuda"``; raises without CUDA unless ``"cpu"``)
     holds the pools; the params, the draft's too, must already live
     there.
+
+    Tensor parallelism: build ``cfg`` with ``n_tensor_parallel = tp > 1``
+    (the stages stay the dense build) and pass a ``mesh``
+    (``parallel.make_mesh(1, n_model=tp, devices=...)``) whose ``model``
+    axis is exactly ``tp``, its first coordinate on ``device``: each
+    coordinate's weight shards and ``[.., H/tp, ..]`` pool live on its
+    device, and the pool's ``serve_kv_bytes_resident`` gauge reports per
+    shard bytes.
     """
 
     def __init__(self, stages, cfg, *, params=None, n_slots: int = 4,
@@ -243,7 +259,7 @@ class InferenceEngine:
         _check_layout(kv_layout, attn_kernel, prefill_chunk, n_blocks,
                       host_cache_blocks)
         _check_speculative(draft_stages, draft_cfg, spec_k)
-        _reject_unported(lint, mesh, cfg)
+        _reject_unported(lint)
         _check_ported(cfg, "InferenceEngine")
         self.device = resolve_device(device)
         if adapters is not None and adapters.n_rows != n_slots + 1:
@@ -270,34 +286,53 @@ class InferenceEngine:
         # lazy (ServeSpec, predict_fn) of the per-tick KV-drift check
         self._predict = None
         head_dim = cfg.d_model // cfg.n_heads
+        self.tp = int(cfg.n_tensor_parallel)
+        self.mesh = mesh if self.tp > 1 else None
+        self.spec_k = int(spec_k)
+        self.speculative = draft_stages is not None
+        self.draft_cfg = draft_cfg
+        if kv_layout == "paged":
+            self._chunk_prefill = make_paged_prefill_chunk(
+                stages, cfg, self.max_len, block_size, cache_dtype,
+                mesh=mesh, adapters=adp, device=self.device)
+            self._decode = make_paged_decode_step(
+                stages, cfg, self.max_len, block_size, cache_dtype,
+                mesh=mesh, kernel=attn_kernel, adapters=adp,
+                device=self.device)
+            self._copy_block = make_paged_block_copy()
+            if self.speculative and self.tp > 1:
+                self._verify = make_paged_verify_step(
+                    stages, cfg, self.max_len, block_size, spec_k,
+                    cache_dtype, mesh=mesh, kernel=attn_kernel,
+                    adapters=adp, device=self.device)
+        else:
+            self._prefill = make_slot_prefill(
+                stages, cfg, self.max_len, cache_dtype, mesh=mesh,
+                adapters=adp, device=self.device)
+            self._decode = make_slot_decode_step(
+                stages, cfg, self.max_len, cache_dtype, mesh=mesh,
+                adapters=adp, device=self.device)
+            if self.speculative and self.tp > 1:
+                self._verify = make_slot_verify_step(
+                    stages, cfg, self.max_len, spec_k, cache_dtype,
+                    mesh=mesh, adapters=adp, device=self.device)
+        # the builders validated the mesh: each model coordinate's pool
+        # and weight shards go on its device
+        devices = (tp_serve_devices(self.mesh, self.tp) if self.tp > 1
+                   else None)
         if kv_layout == "paged":
             self.pool = PagedKVPool(n_layers, n_slots, cfg.n_heads,
                                     self.max_len, head_dim, cache_dtype,
                                     block_size=block_size,
-                                    n_blocks=n_blocks,
+                                    n_blocks=n_blocks, tp=self.tp,
                                     host_cache_blocks=host_cache_blocks,
                                     prefetch_ticks=prefetch_ticks,
-                                    device=self.device)
-            self._chunk_prefill = make_paged_prefill_chunk(
-                stages, cfg, self.max_len, block_size, cache_dtype,
-                adapters=adp, device=self.device)
-            self._decode = make_paged_decode_step(
-                stages, cfg, self.max_len, block_size, cache_dtype,
-                kernel=attn_kernel, adapters=adp, device=self.device)
-            self._copy_block = make_paged_block_copy()
+                                    device=self.device, devices=devices)
         else:
             self.pool = KVCachePool(n_layers, n_slots, cfg.n_heads,
                                     self.max_len, head_dim, cache_dtype,
-                                    device=self.device)
-            self._prefill = make_slot_prefill(stages, cfg, self.max_len,
-                                              cache_dtype, adapters=adp,
-                                              device=self.device)
-            self._decode = make_slot_decode_step(
-                stages, cfg, self.max_len, cache_dtype, adapters=adp,
-                device=self.device)
-        self.spec_k = int(spec_k)
-        self.speculative = draft_stages is not None
-        self.draft_cfg = draft_cfg
+                                    tp=self.tp, device=self.device,
+                                    devices=devices)
         if self.speculative:
             if draft_cfg.vocab != cfg.vocab:
                 raise ValueError(
@@ -312,16 +347,29 @@ class InferenceEngine:
             self._draft_prefill = make_slot_prefill(
                 draft_stages, draft_cfg, self.max_len,
                 self._draft_cache_dtype, device=self.device)
-            self._spec_fused = (
-                make_paged_spec_tick(
-                    stages, cfg, draft_stages, draft_cfg, self.max_len,
-                    block_size, spec_k, cache_dtype, kernel=attn_kernel,
-                    adapters=adp, device=self.device)
-                if kv_layout == "paged" else
-                make_slot_spec_tick(
-                    stages, cfg, draft_stages, draft_cfg, self.max_len,
-                    spec_k, cache_dtype, adapters=adp, device=self.device))
+            if self.tp == 1:
+                # one target: the fused tick, the proposals never leave
+                # the device between the draft's steps and the verify
+                self._spec_fused = (
+                    make_paged_spec_tick(
+                        stages, cfg, draft_stages, draft_cfg, self.max_len,
+                        block_size, spec_k, cache_dtype, kernel=attn_kernel,
+                        adapters=adp, device=self.device)
+                    if kv_layout == "paged" else
+                    make_slot_spec_tick(
+                        stages, cfg, draft_stages, draft_cfg, self.max_len,
+                        spec_k, cache_dtype, adapters=adp,
+                        device=self.device))
+            else:
+                # a TP target verifies over its shards while the draft
+                # stays single-device: two dispatches, the JAX engine's
+                self._spec_fused = None
+                self._propose = make_slot_propose(
+                    draft_stages, draft_cfg, self.max_len, spec_k,
+                    self._draft_cache_dtype, device=self.device)
             self._init_draft_pool(n_slots)
+        if self.tp > 1:
+            self._place_tp(devices)
         if scheduler is None:
             scheduler = FCFSScheduler(self.pool)
         elif not isinstance(scheduler, FCFSScheduler) and callable(scheduler):
@@ -356,6 +404,14 @@ class InferenceEngine:
                 f"the params must live on the engine's device "
                 f"{self.device}, got "
                 f"{None if embed is None else embed['tok'].device}")
+
+    def _place_tp(self, devices) -> None:
+        """The TP serving placement (the JAX ``_place_tp``): the dense
+        stage weights sliced once into the Megatron serving layout
+        (``pack_tp_serve_params``), each model coordinate's block shards
+        on its device, embed and head replicated on the first; the pool
+        is already one head-sharded buffer per coordinate."""
+        self.params = pack_tp_serve_params(self.params, self.tp, devices)
 
     def _init_draft_pool(self, n_slots: int) -> None:
         """The draft model's K/V buffers: always the dense slot layout (one
@@ -539,7 +595,7 @@ class InferenceEngine:
                 self.pool.n_slots, decode_active=decode_active,
                 block_stats=(self.pool.stats()
                              if self.kv_layout == "paged" else None),
-                tp=1, spec_k=self.spec_k,
+                tp=self.tp, spec_k=self.spec_k,
                 kv_predicted=predicted, kv_drift=live - predicted,
                 attn_kernel=self.attn_kernel,
                 adapter_stats=(self._adapters.stats()
@@ -914,14 +970,25 @@ class InferenceEngine:
                 self._ensure_writable_range(s, int(pos[s]), int(valid[s]))
                 tables[s] = self.pool.device_table(s)
             tables = (tables,)
-        (self._dkc, self._dvc, self.pool.kc, self.pool.vc, otoks, nacc, kd2,
-         dkd2) = self._spec_fused(
-            self._draft_params, self._dkc, self._dvc, self.params,
-            self.pool.kc, self.pool.vc, toks, pos, valid, *tables, dkd, kd,
-            temps, top_ks, top_ps,
-            # adapters ride the verify side only: the draft proposes as the
-            # base model, and the adapted verify rows decide every emission
-            *self._bank_args(self._adapter_inputs(active)))
+        # adapters ride the verify side only: the draft proposes as the
+        # base model, and the adapted verify rows decide every emission
+        bank_args = self._bank_args(self._adapter_inputs(active))
+        if self._spec_fused is not None:
+            (self._dkc, self._dvc, self.pool.kc, self.pool.vc, otoks, nacc,
+             kd2, dkd2) = self._spec_fused(
+                self._draft_params, self._dkc, self._dvc, self.params,
+                self.pool.kc, self.pool.vc, toks, pos, valid, *tables, dkd,
+                kd, temps, top_ks, top_ps, *bank_args)
+        else:
+            # a TP target: the draft's propose, then the verify over the
+            # shards; the proposals flow between them on the device
+            self._dkc, self._dvc, drafts, qrows, dkd2 = self._propose(
+                self._draft_params, self._dkc, self._dvc, toks, pos, dkd,
+                temps, top_ks, top_ps)
+            self.pool.kc, self.pool.vc, otoks, nacc, kd2 = self._verify(
+                self.params, self.pool.kc, self.pool.vc, toks, pos, drafts,
+                qrows, valid, *tables, kd, temps, top_ks, top_ps,
+                *bank_args)
         return self._emit_spec(active, otoks, nacc, kd2, dkd2, valid)
 
     def _emit_spec(self, active: list[int], otoks, nacc, kd2, dkd2,

@@ -20,6 +20,12 @@ Port of ``serve/slots.py``, two layouts with one slot discipline:
   index ``p`` becomes visible only at the tick that first reaches ``p``,
   and that tick overwrites it before attending.
 
+With ``tp > 1`` (tensor-parallel serving) either layout holds one pool
+per model coordinate, each over its ``H/tp`` heads on its device — the
+JAX package's head-sharded placement — and every byte figure is per
+shard. The block tables, the block copies and the eviction are shared:
+a block means the same rows in every shard's pool.
+
 Invariants raise instead of corrupting a neighbour: no double occupancy,
 no double allocation or free, no write into a block another sequence
 still references.
@@ -214,30 +220,59 @@ class _SlotPoolBase:
         return 0
 
 
+def _check_tp(n_heads: int, tp: int) -> int:
+    """Pool-side TP validation: the K/V head axis is what tensor-parallel
+    serving splits, so ``tp`` must divide ``n_heads``. Byte accounting
+    (``bytes_per_block``, ``serve_kv_bytes_resident``) is per shard: what
+    one coordinate's pool pins, the number TP exists to shrink."""
+    if tp < 1 or n_heads % tp:
+        raise ValueError(
+            f"tp={tp} must be >= 1 and divide the K/V head axis "
+            f"(n_heads={n_heads})")
+    return tp
+
+
+def _shard_devices(device, tp: int, devices) -> list[torch.device]:
+    """The device of each model coordinate's pool: ``devices`` (one per
+    coordinate), else ``device`` for all."""
+    if devices is None:
+        return [resolve_device(device)] * tp
+    devices = [resolve_device(d) for d in devices]
+    if len(devices) != tp:
+        raise ValueError(f"{len(devices)} shard devices for tp={tp}")
+    return devices
+
+
 class KVCachePool(_SlotPoolBase):
     """Dense fixed-capacity slot pool; see module docstring. ``kc``/``vc``
     are f32 or bf16 tensors on ``device`` (None = ``"cuda"``); quantised
-    dtypes are paged-only (dense rows hold no scales)."""
+    dtypes are paged-only (dense rows hold no scales). With ``tp > 1``
+    they are lists, one ``[L, n_slots, H/tp, max_len, dh]`` pool per model
+    coordinate on its device (``devices``: one per coordinate, default
+    ``device``)."""
 
     def __init__(self, n_layers: int, n_slots: int, n_heads: int,
                  max_len: int, head_dim: int, cache_dtype=None,
-                 device=None) -> None:
+                 tp: int = 1, device=None, devices=None) -> None:
         super().__init__(n_slots, max_len)
         from simple_distributed_machine_learning_tpu_torch.models.gpt import (
             _cache_dtype,
             _check_cache_quantization,
         )
         _check_cache_quantization(cache_dtype, "KVCachePool", paged=False)
-        self.device = resolve_device(device)
-        shape = (n_layers, n_slots, n_heads, max_len, head_dim)
+        self.tp = _check_tp(n_heads, tp)
+        devs = _shard_devices(device, self.tp, devices)
+        self.device = devs[0]
+        shape = (n_layers, n_slots, n_heads // self.tp, max_len, head_dim)
         cd = _cache_dtype(cache_dtype)
         self.cache_dtype = cd
-        self.kc = torch.zeros(shape, dtype=cd, device=self.device)
-        self.vc = torch.zeros(shape, dtype=cd, device=self.device)
-        # every row is pinned up front: occupancy never changes what a
-        # dense pool holds resident
-        self._bytes_total = kv_block_bytes(n_layers, n_heads, max_len,
-                                           head_dim, cd) * n_slots
+        kc = [torch.zeros(shape, dtype=cd, device=d) for d in devs]
+        vc = [torch.zeros(shape, dtype=cd, device=d) for d in devs]
+        self.kc, self.vc = (kc, vc) if self.tp > 1 else (kc[0], vc[0])
+        # per shard, like the paged pool's bytes_per_block; every row is
+        # pinned up front: occupancy never changes what a dense pool holds
+        self._bytes_total = kv_block_bytes(n_layers, n_heads // self.tp,
+                                           max_len, head_dim, cd) * n_slots
 
     def bytes_resident(self) -> int:
         """The full allocation, regardless of occupancy."""
@@ -267,7 +302,10 @@ class PagedKVPool(_SlotPoolBase):
     finds the pool empty.
 
     ``kc``/``vc`` are torch tensors on ``device`` (None = ``"cuda"``), or
-    ``models.gpt.QuantKV`` pairs for quantised dtypes.
+    ``models.gpt.QuantKV`` pairs for quantised dtypes; with ``tp > 1``
+    lists of them, one ``[L, n_blocks+1, H/tp, bs, dh]`` pool (and its
+    scale planes) per model coordinate on its device (``devices``), all
+    addressed by the one set of block tables.
     ``host_cache_blocks > 0`` turns on the host offload tier of that many
     blocks, whose uploads land ``prefetch_ticks`` ticks after they start
     (module docstring).
@@ -278,12 +316,20 @@ class PagedKVPool(_SlotPoolBase):
     def __init__(self, n_layers: int, n_slots: int, n_heads: int,
                  max_len: int, head_dim: int, cache_dtype=None,
                  block_size: int = 16, n_blocks: int | None = None,
-                 host_cache_blocks: int = 0, prefetch_ticks: int = 1,
-                 device=None) -> None:
+                 tp: int = 1, host_cache_blocks: int = 0,
+                 prefetch_ticks: int = 1, device=None,
+                 devices=None) -> None:
         super().__init__(n_slots, max_len)
+        self.tp = _check_tp(n_heads, tp)
         if host_cache_blocks < 0:
             raise ValueError(
                 f"host_cache_blocks must be >= 0, got {host_cache_blocks}")
+        if host_cache_blocks and self.tp > 1:
+            raise ValueError(
+                "host_cache_blocks with tp > 1 is not supported: demotion "
+                "copies device rows to host per pool, and a sharded pool "
+                "would demote per-shard fragments the prefetch upload "
+                "cannot re-place")
         if prefetch_ticks < 1:
             raise ValueError(
                 f"prefetch_ticks must be >= 1, got {prefetch_ticks}")
@@ -295,7 +341,8 @@ class PagedKVPool(_SlotPoolBase):
             _check_cache_quantization,
             _is_quantized_dtype,
         )
-        self.device = resolve_device(device)
+        devs = _shard_devices(device, self.tp, devices)
+        self.device = devs[0]
         self.block_size = block_size
         self.blocks_per_seq = math.ceil(max_len / block_size)
         if n_blocks is None:
@@ -310,21 +357,23 @@ class PagedKVPool(_SlotPoolBase):
         cd = _cache_dtype(cache_dtype)
         self.cache_dtype = cd
         self.quantized = _is_quantized_dtype(cache_dtype)
-        shape = (n_layers, n_blocks + 1, n_heads, block_size, head_dim)
+        shape = (n_layers, n_blocks + 1, n_heads // self.tp, block_size,
+                 head_dim)
 
-        def zeros(shape, dtype):
-            return torch.zeros(shape, dtype=dtype, device=self.device)
+        def buffer(dev):
+            if self.quantized:
+                return QuantKV(torch.zeros(shape, dtype=cd, device=dev),
+                               torch.zeros(shape[:-1], dtype=torch.float32,
+                                           device=dev))
+            return torch.zeros(shape, dtype=cd, device=dev)
 
-        if self.quantized:
-            self.kc = QuantKV(zeros(shape, cd), zeros(shape[:-1],
-                                                      torch.float32))
-            self.vc = QuantKV(zeros(shape, cd), zeros(shape[:-1],
-                                                      torch.float32))
-        else:
-            self.kc = zeros(shape, cd)
-            self.vc = zeros(shape, cd)
-        self.bytes_per_block = kv_block_bytes(n_layers, n_heads, block_size,
-                                              head_dim, cache_dtype)
+        kc, vc = [buffer(d) for d in devs], [buffer(d) for d in devs]
+        self.kc, self.vc = (kc, vc) if self.tp > 1 else (kc[0], vc[0])
+        # per shard: what one coordinate's pool pins, and what the byte
+        # model's predict_kv_bytes_resident must agree with
+        self.bytes_per_block = kv_block_bytes(n_layers, n_heads // self.tp,
+                                              block_size, head_dim,
+                                              cache_dtype)
         # block bookkeeping (host-side, authoritative)
         self.ref = np.zeros(n_blocks + 1, np.int64)
         self._free_blocks: list[int] = list(range(1, n_blocks + 1))[::-1]

@@ -148,10 +148,12 @@ def engine_factory(stages, cfg, *, metrics=None, clock=time.monotonic,
     """The standard ``factory(degraded) -> InferenceEngine`` closure.
 
     Non-degraded builds get the deployment exactly as passed (paged
-    knobs, ``attn_kernel``, the speculative draft); ``degraded=True``
-    applies the fallback rule — ``spec_k`` -> 0, dense slot rows, and a
-    quantised cache widened to f32. Greedy streams are equal on every
-    layout. ``scheduler`` must be a class/factory (each rebuilt engine
+    knobs, ``attn_kernel``, the TP ``mesh``, the speculative draft);
+    ``degraded=True`` applies the fallback rule — ``spec_k`` -> 0, ``tp``
+    -> 1 (the cfg's ``n_tensor_parallel``, no mesh), dense slot rows, and
+    a quantised cache widened to f32 — the layout
+    ``analysis.programs.degraded_spec`` mirrors. Greedy streams are equal
+    on every layout. ``scheduler`` must be a class/factory (each rebuilt engine
     builds its own over its own pool); ``metrics``/``clock``/``device``
     are shared by every rebuild.
 

@@ -23,7 +23,7 @@ profiling. Module map:
 Entry points: ``Trainer(..., telemetry=Telemetry(dir))`` and ``cli.py
 --telemetry-dir DIR [--telemetry-every N]``. The static ICI-bytes gauge
 (``telemetry/ici.py``, ``expected_ici_bytes``) is not ported (ROADMAP
-Queue A item 6).
+Queue A item 7.4, with the analyzer it reads).
 """
 
 from simple_distributed_machine_learning_tpu_torch.telemetry.bubble import (

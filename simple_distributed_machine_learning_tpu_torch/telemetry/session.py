@@ -21,7 +21,7 @@ only process 0 writes files — same rule as the reference-format console.
 
 Not ported: the static ICI-bytes gauge (``set_step_probe``,
 ``telemetry/ici.py``), which reads the analyzer's cost table (ROADMAP
-Queue A item 6); without a probe the epoch record has no ``ici_*`` keys,
+Queue A item 7.4); without a probe the epoch record has no ``ici_*`` keys,
 as the JAX record has none without one.
 """
 

@@ -220,12 +220,15 @@ def test_dense_moe_trains():
 
 
 def test_ep_ring_overlap_names_its_item():
+    """The ring dispatch runs (``tests/test_torch_overlap.py`` holds it
+    against JAX's): at ep 2 its outputs are the all-to-alls'; an unknown
+    schedule is the JAX ``check_overlap`` error."""
     w = _weights(0)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, Queue A: item 6, remaining "
-                             "parallel axes: 6d.4"):
-        texp.moe_apply_ep([_t(_shard(w, i, 2)) for i in range(2)],
-                          [torch.zeros(4, D_MODEL)] * 2, overlap="ring")
+    x = [torch.tensor(_tokens(5 + i, T_LOCAL)) for i in range(2)]
+    ys = {o: texp.moe_apply_ep([_t(_shard(w, i, 2)) for i in range(2)], x,
+                               overlap=o)[0] for o in ("ring", "none")}
+    for a, b in zip(ys["ring"], ys["none"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **VAL)
     with pytest.raises(ValueError, match="overlap must be one of"):
         texp.moe_apply_ep([_t(w)], [torch.zeros(4, D_MODEL)],
                           overlap="tree")

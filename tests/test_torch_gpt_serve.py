@@ -8,6 +8,8 @@ rtol = atol = 1e-5 (f32 end to end: the two frameworks sum in different
 orders, nothing else differs); greedy token streams must be equal.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -214,8 +216,9 @@ def test_sampled_top1_equals_greedy_and_seeds_reproduce():
     dict(attn_impl="ulysses", n_seq=2),
     dict(n_experts=4),
     dict(attn_impl="ring", n_seq=2),
-    dict(tp_serving=dict(n_tensor_parallel=2),
-         item="item 6, remaining parallel axes: 6e"),
+    # tensor-parallel serving is ported: the programs slice a dense
+    # build, and refuse a TP-sharded training build with the JAX text
+    dict(tp_serving=dict(n_tensor_parallel=2), item="jax"),
     # serving builds: the dense slot-row target, speculation over it,
     # tracing and the flight recorder are ported; the TP slot programs
     # still name their item, as --tp and the linter name theirs
@@ -223,11 +226,11 @@ def test_sampled_top1_equals_greedy_and_seeds_reproduce():
     dict(engine=dict(kv_layout="dense", spec_k=2, draft=True), item=None),
     dict(engine=dict(trace=True), item=None),
     dict(engine=dict(flight=True), item=None),
-    dict(cli=["--tp", "2", "--overlap", "ring"],
-         item="item 6, remaining parallel axes"),
+    dict(cli=["--model", "gpt", "--tp", "2", "--overlap", "ring",
+              "--dryrun", "1", "--data-root", "/nonexistent"], item=None),
     dict(cli=["--lint"], item="item 7, analysis"),
-    dict(slot_decode=dict(mesh=object()),
-         item="item 6, remaining parallel axes"),
+    # a TP slot program without a serving mesh: the JAX builder's text
+    dict(slot_decode=dict(n_tensor_parallel=2), item="jax"),
     # the adapters build on every serving program, the dense slot rows
     # (the degraded fallback) included
     dict(engine=dict(kv_layout="dense", adapters=True), item=None),
@@ -235,8 +238,9 @@ def test_sampled_top1_equals_greedy_and_seeds_reproduce():
 def test_unported_configs_raise_with_roadmap_item(kw):
     """MoE and sequence-parallel stages train (items 6d.2, 6d.3), and the
     serving programs refuse them with the JAX package's own texts;
-    tensor-parallel stages train, and serving them names item 6e; the
-    serving knobs name theirs, and what is ported builds."""
+    tensor-parallel stages train and serve (from the dense build, over a
+    mesh: ``tests/test_torch_tp_serve.py``), refused with the JAX texts
+    otherwise; the linter names its item, and what is ported builds."""
     if "item" not in kw:
         cfg = tgpt.GPTConfig(**{**SMALL, **kw})
         stages = tgpt.make_gpt_stages(0, cfg, 1, device="cpu")[0]
@@ -262,12 +266,30 @@ def test_unported_configs_raise_with_roadmap_item(kw):
         cfg = tgpt.GPTConfig(**{**SMALL, **kw["tp_serving"]})
         stages = tgpt.make_gpt_stages(0, cfg, 1, device="cpu")[0]
         assert stages[0].shards is not None
-        with pytest.raises(NotImplementedError,
-                           match=rf"ROADMAP\.md, Queue A: {kw['item']}"):
-            tgpt.make_cached_decoder(stages, cfg, 4, 2, device="cpu")
+        jcfg = jgpt.GPTConfig(**{**SMALL, **kw["tp_serving"]})
+        jst = jgpt.make_gpt_stages(jax.random.key(0), jcfg, 1)[0]
+        with pytest.raises(ValueError) as ours:
+            tgpt.make_paged_decode_step(stages, cfg, 16, 4, device="cpu")
+        with pytest.raises(ValueError) as theirs:
+            jgpt.make_paged_decode_step(jst, jcfg, 16, 4)
+        assert str(ours.value) == str(theirs.value)
+        return
+    if "slot_decode" in kw:
+        jcfg, jst, _, tcfg, tst, _ = _weights()
+        with pytest.raises(ValueError) as ours:
+            tgpt.make_slot_decode_step(
+                tst, dataclasses.replace(tcfg, **kw["slot_decode"]), 16,
+                device="cpu")
+        with pytest.raises(ValueError) as theirs:
+            jgpt.make_slot_decode_step(
+                jst, dataclasses.replace(jcfg, **kw["slot_decode"]), 16)
+        assert str(ours.value) == str(theirs.value)
         return
     if "cli" in kw:
         from simple_distributed_machine_learning_tpu_torch.cli import main
+        if kw["item"] is None:
+            main(["--rank", "0", "--device", "cpu"] + kw["cli"])
+            return
         with pytest.raises(SystemExit,
                            match=rf"ROADMAP\.md, Queue A: {kw['item']}"):
             main(["--rank", "0", "--device", "cpu"] + kw["cli"])

@@ -304,21 +304,39 @@ def test_dense_verify_with_adapters_equals_plain_adapter_decode(models):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "item 6"),
+    (dict(tp=2), None),
     (dict(lint=True), "item 7"),
 ], ids=["tp", "lint"])
 def test_tp_and_lint_still_refused(models, kw, item):
-    """Dense speculation builds and serves (the tests above); a TP target
-    and the lint preflight still name their items, and so does the dense
-    verify's TP twin."""
+    """Dense speculation builds and serves (the tests above), over a tp 2
+    target too (the dense verify's TP twin after the single-device draft:
+    the solo streams); the lint preflight still names its item; a TP
+    verify without a mesh is refused with the JAX builder's text."""
     m = models
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP\.md, Queue A: {item}"):
-        _engine(m, 3, **kw)
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md, Queue A: item 6"):
-        tgpt.make_slot_verify_step(m["tst"], m["tcfg"], 16, 3,
-                                   mesh=object(), device="cpu")
+    t2 = dataclasses.replace(m["tcfg"], n_tensor_parallel=2)
+    with pytest.raises(ValueError) as ours:
+        tgpt.make_slot_verify_step(m["tst"], t2, 16, 3, device="cpu")
+    with pytest.raises(ValueError) as theirs:
+        jgpt.make_slot_verify_step(
+            m["jst"], dataclasses.replace(m["jcfg"], n_tensor_parallel=2),
+            16, 3)
+    assert str(ours.value) == str(theirs.value)
+    if item is not None:
+        with pytest.raises(NotImplementedError,
+                           match=rf"ROADMAP\.md, Queue A: {item}"):
+            _engine(m, 3, **kw)
+        return
+    from simple_distributed_machine_learning_tpu_torch.parallel import (
+        make_mesh,
+    )
+    eng = InferenceEngine(m["tst"], t2, kv_layout="dense", n_slots=2,
+                          draft_stages=m["tdst"], draft_cfg=m["tdcfg"],
+                          spec_k=3, device="cpu",
+                          mesh=make_mesh(1, n_model=2, devices=["cpu"] * 2))
+    prompt = np.arange(5, dtype=np.int32) % 32
+    h = eng.submit(prompt, max_new_tokens=7, seed=4)
+    eng.drain()
+    assert h.tokens == _solo(m, prompt, 7, 4)
 
 
 def test_builders_validate_and_default_to_cuda(models):

@@ -160,9 +160,9 @@ def test_grad_sync_model_sum_and_tie_in_one_process():
     (ttensor.tie(copies) * torch.arange(3.0)).sum().backward()
     for t in copies:
         assert torch.equal(t.grad, torch.arange(3.0))
-    with pytest.raises(NotImplementedError, match="item 6, remaining "
-                                                  "parallel axes: 6d.4"):
-        ttensor.grad_sync(x, None, "ring")
+    # the ring's summing backward runs across processes; here too the
+    # shards add their gradients themselves
+    assert ttensor.grad_sync(x, None, "ring") is x
 
 
 # ---- the MLP pipeline of pairs ----------------------------------------------
