@@ -228,7 +228,8 @@ or without the port beside it. Phases, each fatal on failure:
 13. training telemetry, the profiler and the native loader: (a) the
    LeNet CLI for ``TELEMETRY_EPOCHS`` epochs with ``--telemetry-dir`` at
    ``--telemetry-every`` 1 and 4 — one record per epoch with the JAX
-   Trainer's key set (``JAX_EPOCH_KEYS``) plus ``device_memory``, every
+   Trainer's key set (``JAX_EPOCH_KEYS``) plus ``device_memory`` and the
+   step probe's ``ICI_KEYS`` (0 bytes: one stage has no collective), every
    step but the compile window counted steady, ``compile_time_s > 0``, the
    allocator's peak at least its bytes in use (> 0), live tensor bytes at
    least LeNet's parameter bytes, ``feed``/``step``/``eval``/``epoch_end``
@@ -268,7 +269,8 @@ or without the port beside it. Phases, each fatal on failure:
    equal to the pool's ``kv_bytes_resident`` — and again with a
    ``PREFIX_LEN``-token shared prefix, the drift <= 0 on every tick and
    below 0 on some; (d) ``python -m ...analysis --serve-kernel`` exiting
-   0, and 1 under ``SDML_LINT_INJECT``, and ``--fixtures`` exiting 0;
+   0, and 1 under ``SDML_LINT_INJECT`` (``--fixtures``, which now holds
+   the program linter's fixtures too, runs in phase 20 (d));
 15. the reference's own topology, every stage on the one card (the script
    prints the placement): (a) ``bench.py::_configs``'s ``lenet`` (conv |
    fc) at ``--stages 2``, ``mlp4`` at 4 and the tiny ``gpt`` (``--attn
@@ -291,8 +293,10 @@ or without the port beside it. Phases, each fatal on failure:
    store: the JAX CLI test's two pinned lines, exit 0, the restart cost.
 16. the reference's launch line: the port's CLI as real processes on the
    one card (``PROC_*`` below): LeNet over two processes, the gpt_bf16 row
-   one stage per process, the mlp data x pipeline mesh over four, and a
-   killed and a stopped peer;
+   one stage per process (each process, and the one-process reference,
+   also registers its step with a telemetry session's probe: phase 20
+   (e)), the mlp data x pipeline mesh over four, and a killed and a
+   stopped peer;
 17. tensor parallelism, the model axis on the one card: (a) the gpt_bf16
    row with dense attention (a tensor-parallel block shards attention by
    head and runs the dense core on its heads, as the JAX package does) at
@@ -350,6 +354,25 @@ or without the port beside it. Phases, each fatal on failure:
    bound; (d) the CLI at ``--serve-sim 8 --serve-tp 2`` (the placement
    line, 8/8, ``| serve: tp 2``) and ``--model gpt --tp 2 --overlap
    ring`` (within ``STAGE_CLI_RTOL`` of phase 17 (b)'s tp 1 run).
+20. the program linter on the card (``analysis/``: programs traced on fake
+   tensors, nothing launched): (a) the gpt_bf16 row's train step traced
+   and linted at full width — clean, its host ms, K1-K3 as one graph node
+   each per layer, the launch counts unchanged across the trace and the
+   allocator's peak across it at its start (nothing allocated) — then the CLI's ``--lint-only`` on ``--model
+   gpt --attn flash --bf16`` and ``--model lenet`` (``| --lint: preflight
+   clean``, no step) and a ``--lint --dryrun LINT_TRAIN_STEPS`` run that
+   trains with K1-K3 launched; (b) phase 3's trace through
+   ``InferenceEngine(lint=True, attn_kernel="fused")`` at tp 1 and on a tp
+   2 mesh: the lint clean with its host ms and no K4 launch, the K4 nodes'
+   derived K/V bytes ``tp`` x the byte model's row, 24/24, every greedy
+   stream equal to phase 3's, K4 exactly ``tp x n_layers`` per decode
+   call; (c) the CLI's ``--serve-sim 8 --lint`` (the protocol line, 8/8)
+   and ``SDML_LINT_INJECT=drill`` making the serving and the training
+   ``--lint-only`` exit 2; (d) ``python -m ...analysis --dryrun 8 --serve
+   --fixtures`` and ``--dryrun 4`` exiting 0, every fixture meeting its
+   contract; (e) phase 16 (b)'s processes' ``ici_bytes_per_step`` equal
+   to the wire's bytes per step (``WIRE``) plus the loss's 16 B sum over
+   the world, the one-process run's 8 in-card hops.
 
 To make room for phase 19, PR 18 cut earlier phases' depth: phase 15
 (b) times 5 steps and profiles 3 (was 10 and 5), phase 16 runs 10 steps
@@ -364,6 +387,7 @@ the last line is ``{"ok": true, "device": {...}}``. Details also go to
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -599,7 +623,8 @@ BEAM_TOL = 1e-4
 # phase 13: the telemetry runs' epochs and --telemetry-every values (100
 # batches per epoch, a multiple of each, so every window closes at an
 # epoch's end), the in-process native-vs-Python feed steps, and the JAX
-# Trainer's epoch-record keys on a one-stage mesh (no ICI probe)
+# Trainer's epoch-record keys on a one-stage mesh without its ICI probe
+# (which does not run on this tree), the probe's two keys beside them
 TELEMETRY_EPOCHS, TELEMETRY_EVERY, NATIVE_STEPS = 2, (1, 4), 20
 JAX_EPOCH_KEYS = frozenset((
     "accuracy", "bubble_fraction", "compile_time_s", "correct", "epoch",
@@ -607,6 +632,7 @@ JAX_EPOCH_KEYS = frozenset((
     "n_microbatches", "n_stages", "samples_per_sec", "schedule", "schema",
     "step", "step_time_ms_max", "step_time_ms_p50", "step_time_ms_p95",
     "steps", "time", "tokens_per_sec", "train_loss"))
+ICI_KEYS = frozenset(("ici_bytes_per_step", "ici_top_collectives"))
 MAIN_DEVICE = "cuda"
 # phase 14: the grid fixtures F1 runs through (name, exit code, the rules
 # the linter must report), the shared prefix of (c)'s second trace
@@ -664,6 +690,13 @@ STAGE_DRILL_PINS = (
 # PROC_PEER_TIMEOUT, rank 0 out within PROC_PEER_LIMIT_S; every launch
 # within PROC_TIMEOUT_S
 PROC_STEPS = 10
+# phase 20: the program linter on the card — (a) the gpt_bf16 row's step
+# traced and linted at full width, the CLI's --lint-only on the flash bf16
+# GPT and LeNet, and a --lint run of LINT_TRAIN_STEPS steps; (b) phase 3's
+# trace through InferenceEngine(lint=True) at tp 1 and 2; (c) the CLI's
+# serve gate and its SDML_LINT_INJECT drills; (d) the analysis CLI's
+# --dryrun 8 --serve --fixtures and --dryrun 4; (e) phase 16 (b)'s gauge
+LINT_TRAIN_STEPS = 3
 PROC_GENERATE, PROC_DECODE_T0, PROC_PINGS = 8, 16, 20
 PROC_PEER_TIMEOUT, PROC_PEER_LIMIT_S, PROC_TIMEOUT_S = 8, 60, 240
 
@@ -4672,9 +4705,11 @@ def _telemetry_lenet(tmp: str, every: int, rec: dict) -> None:
           f"every={every}: expected one record per epoch, got {recs}")
     lenet_bytes = 21_840 * 4
     for r in recs:
-        check(set(r) == JAX_EPOCH_KEYS | {"device_memory"},
+        check(set(r) == JAX_EPOCH_KEYS | ICI_KEYS | {"device_memory"}
+              and r["ici_bytes_per_step"] == 0,
               f"every={every}: record keys {sorted(r)} are not the JAX "
-              f"record's plus device_memory: {sorted(set(r) ^ JAX_EPOCH_KEYS)}")
+              f"record's plus device_memory and the ICI gauge's: "
+              f"{sorted(set(r) ^ JAX_EPOCH_KEYS)}")
         mem = r["device_memory"].get("0", {})
         check(mem.get("peak_bytes_in_use", 0) >= mem.get("bytes_in_use", 0)
               > 0, f"every={every}: device_memory {r['device_memory']}")
@@ -4738,7 +4773,7 @@ def _telemetry_gpt(tmp: str, rec: dict) -> tuple[int, int, int]:
           f"telemetry gpt CLI: records {[r['kind'] for r in recs]}")
     check(recs[1]["n_new"] == 16 and recs[1]["tokens_per_sec"] > 0,
           f"telemetry gpt CLI: decode record {recs[1]}")
-    check(set(recs[0]) == JAX_EPOCH_KEYS | {"device_memory"}
+    check(set(recs[0]) == JAX_EPOCH_KEYS | ICI_KEYS | {"device_memory"}
           and recs[0]["tokens_per_sec"] > 0,
           f"telemetry gpt CLI: epoch record {recs[0]}")
     check(any(ln.startswith("| sample tokens") for ln in lines),
@@ -5110,8 +5145,7 @@ def _analysis_cli(rec: dict) -> None:
     for label, argv, env, want in (
             ("serve-kernel", ["--serve-kernel"], {}, 0),
             ("serve-kernel drill", ["--serve-kernel"],
-             {"SDML_LINT_INJECT": "drill"}, 1),
-            ("fixtures", ["--fixtures"], {}, 0)):
+             {"SDML_LINT_INJECT": "drill"}, 1)):
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", f"{PORT}.analysis", *argv, "--device",
@@ -5692,6 +5726,10 @@ def process_worker(rank: int, world: int, port: int, out_path: str) -> None:
                           bytes=mesh_lib.WIRE["bytes"] - nbytes,
                           losses=[float(v) for v in losses])
         if sched == "gpipe":
+            rec["ici"] = _ici_probe(step, pipe, params, state, x, t,
+                                    os.path.join(os.path.dirname(out_path),
+                                                 f"tele-w{world}"))
+        if sched == "gpipe":
             dec = make_pp_decoder(pipe, cfg, PROC_DECODE_T0, PROC_GENERATE)
             toks = dec(params, x[:1, :PROC_DECODE_T0].long())
             rec["tokens"] = None if toks is None else toks.cpu().tolist()
@@ -5725,6 +5763,36 @@ def process_worker(rank: int, world: int, port: int, out_path: str) -> None:
     with open(out_path, "w") as f:
         json.dump(rec, f)
     torch.distributed.destroy_process_group()
+
+
+def _ici_probe(step, pipe, params, state, x, t, outdir: str) -> dict:
+    """Phase 20 (e) inside a phase 16 (b) worker: this rank's train step
+    registered with a telemetry session's step probe (the trainer's
+    call; fake tensors, nothing launched), then one epoch record —
+    ``ici_bytes_per_step`` and the trace's host ms, with K1-K3's counts
+    unchanged across it — and the step's whole cost table (the record
+    keeps the top 5 rows), by ``ici.expected_ici_bytes``."""
+    from simple_distributed_machine_learning_tpu_torch.analysis import (
+        abstractify,
+    )
+    from simple_distributed_machine_learning_tpu_torch.telemetry import (
+        Telemetry,
+        ici,
+    )
+    args = (abstractify(params), abstractify(state), abstractify(x),
+            abstractify(t), 0)
+    tele = Telemetry(outdir)
+    tele.set_step_probe(step, *args, mesh=pipe.mesh)
+    counts = _flash_counts()
+    t0 = time.perf_counter()
+    rec = tele.on_epoch(1, pipe=pipe)
+    ms = (time.perf_counter() - t0) * 1e3
+    full = ici.expected_ici_bytes(step, *args, mesh=pipe.mesh, top=10_000)
+    check(_flash_counts() == counts, "the ICI probe's trace launched a "
+                                     "flash kernel")
+    return dict(ici_bytes_per_step=rec.get("ici_bytes_per_step"),
+                table_bytes_per_step=full["ici_bytes_per_step"],
+                top=full["collectives"], trace_ms=ms)
 
 
 def _bf16_workers(world: int, tmp: str) -> list[dict]:
@@ -5761,6 +5829,11 @@ def _procs_flash(rec: dict, record: dict, tmp: str) -> tuple[int, int, int]:
     the timed steps' K1-K3, summed over the ranks."""
     ref = _bf16_workers(1, tmp)[0]
     ranks = _bf16_workers(2, tmp)
+    # phase 20 (e) reads each process's gauge beside its wire bytes
+    rec["ici"] = [dict(g["ici"], wire_bytes_per_step=g["gpipe"]["bytes"]
+                       / STAGE_TIMED_STEPS,
+                       wire_sends_per_step=g["gpipe"]["sends"]
+                       / STAGE_TIMED_STEPS) for g in [ref] + ranks]
     counts = [0, 0, 0]
     layers = TRAIN_ROWS["gpt_bf16"]["cfg"]["n_layers"] // 2
     phase15 = record.get("stages", {}).get("full_width", {})
@@ -6809,6 +6882,342 @@ def phase_overlap_tp_serve(record: dict, serve: dict,
     return launches, flash
 
 
+# -- phase 20: the program linter on the card ----------------------------------
+
+def _lint_training(rec: dict) -> tuple[int, int, int]:
+    """(a) The training lint: ``lint``-style analysis of the gpt_bf16 row's
+    exact step at full width (flash, bf16, AdamW) — host ms, K1-K3 counts
+    and the allocator's peak at its start across the trace, the
+    kernel nodes traced — then the CLI's ``--lint-only`` on the flash bf16
+    GPT and LeNet (clean, exit 0), and a ``--lint`` run that trains with
+    K1-K3 launched. Returns that run's K1-K3."""
+    import torch
+
+    from simple_distributed_machine_learning_tpu_torch.analysis import (
+        abstractify,
+        analyze,
+        spec,
+        trace,
+    )
+    from simple_distributed_machine_learning_tpu_torch.train import (
+        make_train_step,
+    )
+    row = TRAIN_ROWS["gpt_bf16"]
+    cfg, pipe, opt = _stage_pipe(1, 1)
+    params = pipe.init_params()
+    state = opt.init(params)
+    B, T, V = row["batch"], cfg.seq_len, cfg.vocab
+    args = (abstractify(params), abstractify(state),
+            spec((B, T), torch.int64, 0, V - 1),
+            spec((B, T), torch.int64, 0, V - 1), 0)
+    step = make_train_step(pipe, opt)
+    # earlier phases' garbage first: a collection inside the trace would
+    # free their memory; the allocator's peak across the trace is what
+    # an allocation by it would raise
+    gc.collect()
+    _sync()
+    torch.cuda.reset_peak_memory_stats()
+    counts, mem = _flash_counts(), torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    report = analyze(step, *args, name="train_step")
+    lint_ms = (time.perf_counter() - t0) * 1e3
+    _sync()
+    peak, after = torch.cuda.max_memory_allocated(), \
+        torch.cuda.memory_allocated()
+    check(_flash_counts() == counts and peak == mem and after <= mem,
+          f"(a) the trace launched or allocated: K1-K3 {counts} -> "
+          f"{_flash_counts()}, memory {mem} -> peak {peak}, after {after}")
+    check(report.ok(), f"(a) gpt_bf16 train step:\n{report.format()}")
+    prog = trace.trace_program(step, *[abstractify(a) for a in args])
+    nodes = [trace.op_name(n) for n in prog.graph.nodes]
+    kn = tuple(nodes.count(f"sdml.{k}") for k in
+               ("flash_forward", "flash_dq", "flash_dkv"))
+    L = cfg.n_layers
+    check(kn == (L, L, L), f"(a) K1-K3 nodes {kn} != {L} each")
+    rec["train_lint"] = dict(lint_ms=lint_ms, nodes=len(nodes),
+                             kernel_nodes=kn, findings=len(report.findings))
+    print(f"chip_smoke: linter (a) gpt_bf16 train step traced and linted in "
+          f"{lint_ms:.1f} ms (host clock), {len(nodes)} graph nodes, K1/K2/"
+          f"K3 nodes {kn}, {len(report.findings)} findings; K1-K3 launches "
+          f"unchanged, the allocator's peak across the trace its start "
+          f"({mem} B)")
+    del params, state, pipe, prog
+    cli = {}
+    for name, argv in (("gpt flash bf16", ["--model", "gpt", "--attn",
+                                           "flash", "--bf16"]),
+                       ("lenet", ["--model", "lenet"])):
+        counts = _flash_counts()
+        t0 = time.perf_counter()
+        lines = _cli(argv + ["--lint-only", "--data-root", "/nonexistent"])
+        s = time.perf_counter() - t0
+        check("| --lint: preflight clean" in lines
+              and not any(ln.startswith("Train Epoch") for ln in lines),
+              f"(a) {name} --lint-only: {lines[-6:]}")
+        check(_flash_counts() == counts, f"(a) {name} --lint-only launched")
+        cli[name] = s
+        print(f"chip_smoke: linter (a) CLI {name} --lint-only: preflight "
+              f"clean in {s:.1f} s (host clock, build included)")
+    _reset_flash_counts()
+    lines = _cli(["--model", "gpt", "--attn", "flash", "--bf16", "--lint",
+                  "--dryrun", str(LINT_TRAIN_STEPS), "--data-root",
+                  "/nonexistent"])
+    got = _flash_counts()
+    check("| --lint: preflight clean" in lines
+          and any(ln.startswith("Test set") for ln in lines),
+          f"(a) --lint run: {lines[-6:]}")
+    # the CLI's GPT has 2 layers: K2/K3 once a layer per trained step
+    check(got[1] == got[2] == 2 * LINT_TRAIN_STEPS and got[0] > got[1],
+          f"(a) --lint run: K1-K3 {got}")
+    rec["train_cli"] = dict(lint_only_s=cli, lint_run_launches=got)
+    print(f"chip_smoke: linter (a) --lint --dryrun {LINT_TRAIN_STEPS}: "
+          f"preflight clean, then trained: K1/K2/K3 {got}")
+    return got
+
+
+def _lint_engine_run(stages, cfg, tp: int) -> tuple[dict, dict]:
+    """An ``InferenceEngine(lint=True, attn_kernel="fused")`` at ``tp``
+    (its coordinates on the one card): the construction (its lint
+    included) and the lint alone on the built engine, timed, with K4's
+    count unchanged across it; then phase 3's trace through it."""
+    import dataclasses
+
+    import numpy as np
+
+    from simple_distributed_machine_learning_tpu_torch.analysis.programs import (  # noqa: E501
+        lint_engine,
+    )
+    from simple_distributed_machine_learning_tpu_torch.ops.paged_attention import (  # noqa: E501
+        paged_attention,
+    )
+    from simple_distributed_machine_learning_tpu_torch.parallel import (
+        make_mesh,
+    )
+    from simple_distributed_machine_learning_tpu_torch.serve import (
+        InferenceEngine,
+        ServeMetrics,
+    )
+    c = dataclasses.replace(cfg, n_tensor_parallel=tp)
+    mesh = (make_mesh(1, n_model=tp, devices=[_stage_card()] * tp)
+            if tp > 1 else None)
+    k4 = paged_attention.launches
+    t0 = time.perf_counter()
+    engine = InferenceEngine(stages, c, n_slots=SERVE_SLOTS,
+                             block_size=SERVE_BLOCK, attn_kernel="fused",
+                             mesh=mesh, lint=True)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report = lint_engine(engine)
+    lint_ms = (time.perf_counter() - t0) * 1e3
+    check(paged_attention.launches == k4,
+          f"(b) tp {tp}: the lint launched K4")
+    # a live engine declares no prompt buckets and this one no prefill
+    # chunk: the retrace policy's WARNING stands, ERRORs gate
+    check(report.ok() and {f.rule for f in report.findings}
+          <= {"retrace-explosion.unbounded-trace-key"},
+          f"(b) tp {tp} engine lint:\n{report.format()}")
+    rows = {(h.program, h.op): h.bytes_per_tick for h in report.hbm}
+    want = rows[("paged_decode", "decode.kv_gather")]
+    check(rows.get(("paged_decode", "kernel.kv_stream")) == tp * want,
+          f"(b) tp {tp}: K4 nodes' bytes {rows.get(('paged_decode', 'kernel.kv_stream'))} "  # noqa: E501
+          f"!= {tp} x the model's {want}")
+    for t in SERVE_SIM["prompt_lens"]:
+        engine.submit(np.zeros(t, np.int32), max_new_tokens=2)
+    engine.drain()
+    engine.metrics = ServeMetrics()
+    run = _serve(engine)
+    return run, dict(build_s=build_s, lint_ms=lint_ms,
+                     programs=len({h.program for h in report.hbm}),
+                     kv_stream=rows[("paged_decode", "kernel.kv_stream")],
+                     model_kv_gather=want)
+
+
+def _lint_serving(stages, cfg, serve: dict, plain_handles: list,
+                  rec: dict) -> int:
+    """(b) Phase 3's trace through ``InferenceEngine(lint=True,
+    attn_kernel="fused")`` at tp 1 and 2: the lint clean, its ms, K4's
+    derived bytes equal to the model's; 24/24, the greedy streams equal
+    to phase 3's, K4 exactly ``tp x n_layers`` per decode call. Returns
+    K4's launches."""
+    L = cfg.n_layers
+    greedy = [i for i, h in enumerate(plain_handles)
+              if h.temperature == 0.0]
+    out, launches = {}, 0
+    for tp in (1, 2):
+        run, lint = _lint_engine_run(stages, cfg, tp)
+        handles = run["handles"]
+        same = sum(handles[i].tokens == plain_handles[i].tokens
+                   for i in greedy)
+        off = _off_ticks(run["rows"], tp * L)
+        check(run["report"]["completed"] == SERVE_SIM["n_requests"],
+              f"(b) tp {tp}: {run['report']['completed']} completed")
+        check(run["decode"] > 0 and not off
+              and run["launches"] == tp * L * run["decode"],
+              f"(b) tp {tp}: K4 {run['launches']} != {tp} x {L} x "
+              f"{run['decode']} (ticks off: {off})")
+        check(len(greedy) >= 2 and same == len(greedy),
+              f"(b) tp {tp}: greedy streams {same}/{len(greedy)}")
+        launches += run["launches"]
+        out[f"tp {tp}"] = dict(lint, launches=run["launches"],
+                               decode_calls=run["decode"], greedy=same,
+                               tick_ms_p50=run["tick_ms_p50"])
+        print(f"chip_smoke: linter (b) InferenceEngine(lint=True) tp {tp}: "
+              f"lint {lint['lint_ms']:.1f} ms (host clock; construction "
+              f"with it {lint['build_s']:.1f} s), K4 nodes' K/V bytes "
+              f"{lint['kv_stream']} = {tp} x the model's "
+              f"{lint['model_kv_gather']}; served {run['report']['completed']}"
+              f"/{SERVE_SIM['n_requests']}, K4 {run['launches']} = {tp} x {L}"
+              f" x {run['decode']} decode calls, greedy streams equal "
+              f"{same}/{len(greedy)}, tick p50 {run['tick_ms_p50']:.3f} ms "
+              f"(phase 3 {serve['tick_ms_p50']:.3f})")
+    rec["serving"] = out
+    return launches
+
+
+def _lint_cli_gates(rec: dict) -> int:
+    """(c) The CLI gates: ``--serve-sim 8 --lint`` passes (its protocol
+    line), ``SDML_LINT_INJECT=drill`` makes ``--lint-only`` exit 2 on the
+    serving and the training gate. Returns K4's launches."""
+    from simple_distributed_machine_learning_tpu_torch.ops.paged_attention import (  # noqa: E501
+        paged_attention,
+    )
+    paged_attention.launches = 0
+    t0 = time.perf_counter()
+    lines = _cli(["--model", "gpt", "--serve-sim", "8", "--lint"])
+    s = time.perf_counter() - t0
+    k4 = paged_attention.launches
+    proto = [ln for ln in lines if ln.startswith("| serve --lint protocol")]
+    check(proto and "| serve --lint: preflight clean" in lines
+          and any("8/8 requests completed" in ln for ln in lines) and k4,
+          f"(c) --serve-sim 8 --lint: {lines[-8:]}")
+    drills = {}
+    for name, argv in (("serve", ["--model", "gpt", "--serve-sim", "8"]),
+                       ("train", ["--model", "lenet", "--data-root",
+                                  "/nonexistent"])):
+        os.environ["SDML_LINT_INJECT"] = "drill"
+        try:
+            _cli(argv + ["--lint-only"])
+            code = 0
+        except SystemExit as e:
+            code = e.code
+        finally:
+            del os.environ["SDML_LINT_INJECT"]
+        check(code == 2, f"(c) {name} drill exited {code}, not 2")
+        drills[name] = code
+    rec["cli_gates"] = dict(serve_lint_s=s, protocol=proto[0], k4=k4,
+                            drills=drills)
+    print(f"chip_smoke: linter (c) --serve-sim 8 --lint: 8/8 in {s:.1f} s, "
+          f"{proto[0]}; SDML_LINT_INJECT --lint-only exits "
+          f"{drills['serve']} (serve) and {drills['train']} (train)")
+    return k4
+
+
+def _lint_analysis_cli(rec: dict) -> None:
+    """(d) The analysis CLI, each in a process of its own: ``--dryrun 8
+    --serve --fixtures`` (the modes compose: one process) and ``--dryrun
+    4``, exit 0; every fixture meets its contract."""
+    runs = {}
+    for label, argv, want in (
+            ("dryrun 8 + serve + fixtures",
+             ["--dryrun", "8", "--serve", "--fixtures"],
+             ["analysis --dryrun 8: 4 steps clean",
+              "analysis --serve: 9 layouts clean", "fixture self-test: OK"]),
+            ("dryrun 4", ["--dryrun", "4"],
+             ["analysis --dryrun 4: 3 steps clean"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"{PORT}.analysis", *argv, "--device",
+             MAIN_DEVICE], cwd=HERE, env=dict(os.environ),
+            capture_output=True, text=True, timeout=900)
+        s = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        bad = [ln for ln in lines if "CONTRACT VIOLATED" in ln]
+        check(proc.returncode == 0 and all(w in lines for w in want)
+              and not bad,
+              f"(d) analysis {label}: rc {proc.returncode} {bad}\n"
+              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        runs[label] = dict(rc=proc.returncode, s=s)
+        print(f"chip_smoke: linter (d) analysis {' '.join(argv)}: rc 0 in "
+              f"{s:.1f} s — " + "; ".join(want))
+    rec["analysis_cli"] = runs
+
+
+def _lint_ici(record: dict, rec: dict) -> None:
+    """(e) The collective-bytes gauge of phase 16 (b)'s processes: each
+    rank's ``ici_bytes_per_step`` (its traced step's sends and sums)
+    against the wire's bytes per step on the real steps (``WIRE``): equal
+    but for the loss's two f64 summed over the world, 16 B, named."""
+    ici = record.get("processes", {}).get("ici")
+    check(ici is not None and len(ici) == 3, "(e) phase 16 (b) recorded no "
+                                             "gauge")
+    one, ranks = ici[0], ici[1:]
+    out = []
+    for r, g in enumerate(ranks):
+        diff = g["ici_bytes_per_step"] - g["wire_bytes_per_step"]
+        rows = [c for c in g["top"] if c["prim"] == "psum"
+                and c["bytes_per_step"]]
+        check(diff == 16 and [c["bytes_per_step"] for c in rows] == [16]
+              and g["table_bytes_per_step"] == g["ici_bytes_per_step"],
+              f"(e) rank {r}: gauge {g['ici_bytes_per_step']} - wire "
+              f"{g['wire_bytes_per_step']} = {diff}, psum rows {rows}")
+        out.append(dict(rank=r, ici=g["ici_bytes_per_step"],
+                        wire=g["wire_bytes_per_step"],
+                        sends=g["wire_sends_per_step"],
+                        trace_ms=g["trace_ms"]))
+        print(f"chip_smoke: linter (e) rank {r}: ici_bytes_per_step "
+              f"{g['ici_bytes_per_step']} = WIRE {g['wire_bytes_per_step']:.0f}"
+              f" B/step ({g['wire_sends_per_step']:.0f} sends) + 16 B (the "
+              f"loss psum over the world, which WIRE's sends do not count); "
+              f"probe trace {g['trace_ms']:.0f} ms")
+    # one process holds both stages: its 4 microbatches hop in the card,
+    # activation forward and cotangent back, [4, 256, 512] bf16 each (the
+    # dropout state travels with the activation, unbilled)
+    row = TRAIN_ROWS["gpt_bf16"]
+    act = (row["batch"] // 4 * row["cfg"]["seq_len"] * row["cfg"]["d_model"]
+           * 2)
+    check(one["wire_bytes_per_step"] == 0
+          and one["ici_bytes_per_step"] == 2 * 4 * act,
+          f"(e) one process: gauge {one['ici_bytes_per_step']} != 8 hops "
+          f"of {act} B (wire {one['wire_bytes_per_step']})")
+    print(f"chip_smoke: linter (e) one process, both stages: "
+          f"ici_bytes_per_step {one['ici_bytes_per_step']} = 8 in-card hops "
+          f"of {act} B; the two ranks' wire: "
+          f"{[g['wire_bytes_per_step'] for g in ranks]} B/step")
+    rec["ici"] = dict(ranks=out, one_process=one["ici_bytes_per_step"])
+
+
+def phase_program_lint(record: dict, serve: dict,
+                       plain_handles: list) -> tuple[tuple, int]:
+    """Phase 20: the program linter on the card. Returns (a)'s K1-K3 and
+    (b)-(c)'s K4 launches."""
+    import torch
+
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        GPTConfig,
+        make_gpt_stages,
+    )
+    rec: dict = {}
+    record["program_lint"] = rec
+    secs = {}
+    t0 = time.perf_counter()
+    flash = _lint_training(rec)
+    secs["a"] = time.perf_counter() - t0
+    cfg = GPTConfig(**SERVE_CFG)
+    stages = make_gpt_stages(0, cfg, 1, device=MAIN_DEVICE)[0]  # phase 3's
+    k4 = _lint_serving(stages, cfg, serve, plain_handles, rec)
+    del stages
+    torch.cuda.empty_cache()
+    secs["b"] = time.perf_counter() - t0 - sum(secs.values())
+    k4 += _lint_cli_gates(rec)
+    secs["c"] = time.perf_counter() - t0 - sum(secs.values())
+    _lint_analysis_cli(rec)
+    secs["d"] = time.perf_counter() - t0 - sum(secs.values())
+    _lint_ici(record, rec)
+    rec["seconds"] = dict(secs, total=time.perf_counter() - t0)
+    print(f"chip_smoke: phase 20 took {rec['seconds']['total']:.1f} s ("
+          + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items()) + ")")
+    return flash, k4
+
+
 def main() -> int:
     try:
         import torch
@@ -6862,6 +7271,8 @@ def main() -> int:
         spep_launches = phase_seq_expert(record)
         tp_serve_launches, overlap_flash = phase_overlap_tp_serve(
             record, serve, plain_handles)
+        lint_flash, lint_k4 = phase_program_lint(record, serve,
+                                                 plain_handles)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6876,11 +7287,12 @@ def main() -> int:
         # phase 3's decode ticks, phase 3b's speculative verify steps,
         # phase 8's scenarios and drills, phase 9's fleet runs, phase 11's
         # host-tier and adapter runs, phase 12's protocol drills, phase
-        # 14's recorded ticks and drift traces and phase 19's
-        # tensor-parallel serving (tp x n_layers per decode call)
+        # 14's recorded ticks and drift traces, phase 19's
+        # tensor-parallel serving (tp x n_layers per decode call) and
+        # phase 20's linted engines and CLI gate run
         "launches": (serve["launches"] + spec["launches"] + fault_launches
                      + fleet_launches + tier_launches + protocol_launches
-                     + lint_launches + tp_serve_launches),
+                     + lint_launches + tp_serve_launches + lint_k4),
         "max_abs_err": max(v["max_abs_err"] for v in variants),
         "ms": main_v["ms"],
         "plain_ms": main_v["plain_ms"],
@@ -6892,8 +7304,8 @@ def main() -> int:
     # that row's flash training run, phase 10 (b)'s runs of that row,
     # phase 13 (b)'s bf16 CLI run, phase 15 (b)'s runs of that row at 2
     # stages, phase 16 (b)'s over 2 processes (summed over the ranks),
-    # phase 18 (b)'s mixture-of-experts runs of that row and phase 19
-    # (a)'s with the ring dispatch
+    # phase 18 (b)'s mixture-of-experts runs of that row, phase 19 (a)'s
+    # with the ring dispatch and phase 20 (a)'s --lint CLI run
     for i, (name, line) in enumerate((("flash_forward", 127),
                                       ("flash_dq", 300),
                                       ("flash_dkv", 338))):
@@ -6909,7 +7321,7 @@ def main() -> int:
             "launches": (train["launches"][i] + resilience_launches[i]
                          + telemetry_launches[i] + stage_launches[i]
                          + process_launches[i] + spep_launches[i]
-                         + overlap_flash[i]),
+                         + overlap_flash[i] + lint_flash[i]),
             "max_abs_err": max(v["max_abs_err"] for v in flash_variants
                                if v["name"] == name),
             "ms": timed["ms"],

@@ -11,5 +11,3 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 
 
 MULTI_PROCESS = "item 6c, the paths that still run in one process"
-ANALYSIS = "item 7, analysis"
-PROGRAM_LINTER = "item 7.4, the program linter"

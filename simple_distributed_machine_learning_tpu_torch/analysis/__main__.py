@@ -1,7 +1,15 @@
-"""CLI of the port's analysis package: the serve-protocol model checker,
-the kernel linter's registry sweep and the seeded fixtures.
+"""CLI of the port's analysis package: the program linter's preflights
+(``--dryrun N``, ``--serve``), the serve-protocol model checker, the
+kernel linter's registry sweep, hostlint and the seeded fixtures.
 
 Examples::
+
+    # the training steps of an N-coordinate dryrun and the serving
+    # registry, traced and linted (nothing runs on the card)
+    python -m simple_distributed_machine_learning_tpu_torch.analysis \\
+        --dryrun 8
+    python -m simple_distributed_machine_learning_tpu_torch.analysis \\
+        --serve
 
     # prove the fleet protocol's invariants to the pinned depth 8
     python -m simple_distributed_machine_learning_tpu_torch.analysis \\
@@ -23,13 +31,14 @@ Exit code: 0 when every requested mode satisfies ``--fail-on`` (default
 ``warning`` for fixtures, ``error`` otherwise; ``--serve-kernel`` gates on
 any kernel finding), 1 on a lint failure, 2 when a protocol invariant is
 violated, as the JAX package's CLI. ``SDML_LINT_INJECT=<tag>`` seeds one
-ERROR finding (the gate drill). ``--serve-kernel`` and the fixtures run
-kernels on ``--device`` (default CUDA; raises without it unless
-``--device cpu``), the port's one flag of its own. ``--serve`` and
-``--dryrun`` (the jaxpr linter) exit naming the ROADMAP.md item that
-ports them. ``--hostlint`` (pure ``ast``) imports the package and so
-torch; ``python simple_distributed_machine_learning_tpu_torch/analysis/
-hostlint.py`` runs the same lint without it.
+ERROR finding (the gate drill). ``--dryrun``, ``--serve``,
+``--serve-kernel`` and the fixtures build on ``--device`` (default CUDA;
+raises without it unless ``--device cpu``), the port's one flag of its
+own: ``--serve-kernel`` and the grid fixtures launch kernels there, the
+program linter only traces for it. ``--hostlint`` (pure ``ast``) imports
+the package and so torch; ``python
+simple_distributed_machine_learning_tpu_torch/analysis/hostlint.py`` runs
+the same lint without it.
 """
 
 from __future__ import annotations
@@ -38,17 +47,13 @@ import argparse
 import dataclasses
 import sys
 
-from simple_distributed_machine_learning_tpu_torch import _roadmap
-
-# the JAX CLI's modes this package does not run yet: dest -> ROADMAP item
-_UNPORTED = {"serve": _roadmap.PROGRAM_LINTER,
-             "dryrun": _roadmap.PROGRAM_LINTER}
-
 #: the rule families the port's passes emit
-RULE_FAMILIES = ("hostlint", "journal-grammar", "metric-catalog",
-                 "protocol", "kernel-oob",
-                 "kernel-unproven", "kernel-race", "kernel-tile",
-                 "kernel-dtype-drift", "kernel-hbm")
+RULE_FAMILIES = ("ppermute-deadlock", "unreduced-gradient", "mesh-axis",
+                 "dtype-drift", "donation", "scatter-bounds",
+                 "retrace-explosion", "sharded-state", "hostlint",
+                 "journal-grammar", "metric-catalog", "protocol",
+                 "kernel-oob", "kernel-unproven", "kernel-race",
+                 "kernel-tile", "kernel-dtype-drift", "kernel-hbm")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -60,9 +65,13 @@ def build_parser() -> argparse.ArgumentParser:
         description="serve-protocol model checking, the kernel linter "
                     "and its seeded fixtures")
     p.add_argument("--dryrun", type=int, default=None, metavar="N",
-                   help="not ported (ROADMAP.md, Queue A, item 7.4)")
+                   help="trace and lint the train/eval/ZeRO-1/1F1B steps of "
+                        "an N-coordinate dryrun mesh (dp x pp x tp as "
+                        "dryrun_multichip picks it)")
     p.add_argument("--serve", action="store_true",
-                   help="not ported (ROADMAP.md, Queue A, item 7.4)")
+                   help="trace and lint every serving program over the "
+                        "registry's layouts (scatter bounds, donation flow "
+                        "through the tick, retrace policy, HBM bytes/tick)")
     p.add_argument("--serve-kernel", action="store_true",
                    help="kernel-only preflight over the registry sweep: "
                         "every fused layout's recorded paged-attention "
@@ -100,7 +109,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="finding severity that makes the exit code non-zero "
                         "(default: warning for fixtures, error otherwise)")
     p.add_argument("--costs", action="store_true",
-                   help="print a fixture's HBM bytes-per-tick table")
+                   help="print the cost tables (bytes between coordinates "
+                        "per step, HBM bytes per serve tick)")
     p.add_argument("--device", default=None,
                    help="where --serve-kernel and the fixtures run their "
                         "kernels: cuda (the default; raises without CUDA) "
@@ -111,12 +121,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
-    for dest, item in _UNPORTED.items():
-        value = getattr(args, dest)
-        if value != p.get_default(dest):
-            flag = "--" + dest.replace("_", "-")
-            raise SystemExit(str(_roadmap.not_ported(
-                f"analysis {flag}", item)))
 
     if args.list:
         from simple_distributed_machine_learning_tpu_torch.analysis.fixtures import (  # noqa: E501
@@ -130,9 +134,11 @@ def main(argv=None) -> int:
         return 0
 
     if not (args.hostlint or args.serve_kernel or args.fixtures
-            or args.serve_protocol or args.fixture is not None):
-        p.error("nothing to do: pass --hostlint, --serve-kernel, "
-                "--serve-protocol, --fixture NAME, --fixtures or --list")
+            or args.serve_protocol or args.fixture is not None
+            or args.serve or args.dryrun is not None):
+        p.error("nothing to do: pass --dryrun N, --serve, --hostlint, "
+                "--serve-kernel, --serve-protocol, --fixture NAME, "
+                "--fixtures or --list")
 
     # modes compose: every requested mode runs and the exit code ANDs them
     ok = True
@@ -150,6 +156,19 @@ def main(argv=None) -> int:
         host_ok = report.ok(args.fail_on or "error")
         print(f"analysis --hostlint: {'clean' if host_ok else 'FLAGGED'}")
         ok &= host_ok
+
+    if args.serve:
+        from simple_distributed_machine_learning_tpu_torch.analysis.programs import (  # noqa: E501
+            default_registry_reports,
+        )
+        reports = default_registry_reports(args.device)
+        for r in reports:
+            print(r.format(costs=args.costs))
+        fail_on = args.fail_on or "error"
+        serve_ok = all(r.ok(fail_on) for r in reports)
+        print(f"analysis --serve: {len(reports)} layouts "
+              f"{'clean' if serve_ok else 'FLAGGED'}")
+        ok &= serve_ok
 
     if args.serve_kernel:
         from simple_distributed_machine_learning_tpu_torch.analysis.kernels import (  # noqa: E501
@@ -223,6 +242,26 @@ def main(argv=None) -> int:
         report = FIXTURES[args.fixture].build(args.device)
         print(report.format(costs=args.costs))
         ok &= report.ok(args.fail_on or "warning")
+
+    if args.dryrun is not None:
+        from simple_distributed_machine_learning_tpu_torch.analysis.preflight import (  # noqa: E501
+            all_ok,
+            dryrun_reports,
+        )
+        from simple_distributed_machine_learning_tpu_torch.analysis.programs import (  # noqa: E501
+            _injected_findings,
+        )
+        reports = dryrun_reports(args.dryrun, args.device)
+        # the SDML_LINT_INJECT gate drill
+        if reports:
+            reports[0].findings.extend(_injected_findings())
+        for r in reports:
+            print(r.format(costs=args.costs))
+        fail_on = args.fail_on or "error"
+        dry_ok = all_ok(reports, fail_on)
+        print(f"analysis --dryrun {args.dryrun}: "
+              f"{len(reports)} steps {'clean' if dry_ok else 'FLAGGED'}")
+        ok &= dry_ok
 
     return 0 if ok else (2 if protocol_violated else 1)
 

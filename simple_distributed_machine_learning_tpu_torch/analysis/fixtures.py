@@ -17,13 +17,41 @@ port's own kernels with one defect:
   variant maps every cell's output to row 0 (``kernel-race``), the f16
   scratch drifts (``kernel-dtype-drift``).
 
-``tests/test_torch_kernel_lint.py`` holds every fixture to the verdict
-the JAX tests record; the CLI's ``--fixtures`` re-runs the same contract
-(non-zero exit when any fixture misbehaves), plus the chaos drill
-coverage lint and the replay of the checker's exported counterexample on
-a real fleet. The jaxpr fixtures of the JAX module (collectives,
-donation, scatter bounds, retraces, sharded state) come with the rest of
-the program linter (ROADMAP.md, Queue A, item 7.4).
+The program fixtures are tiny distributed steps written the way the
+port writes real ones (per-coordinate tensors of one process, the
+``parallel/`` collectives, in-place updates), each with one defect the
+program linter must flag, and clean twins it must not:
+
+- ``partial_ppermute`` — a four-rank ring whose rank 0 skips its receive
+  (the wraparound hop): rank 3's send is never received
+  (``ppermute-deadlock``, over the traced step of every rank);
+- ``dropped_grad_sync`` / ``clean_grad_sync`` — data-parallel SGD over
+  four coordinates with and without the gradient mean
+  (``unreduced-gradient``);
+- ``wrong_axis_name`` — the tensor-parallel sum pasted into a
+  data-parallel step: a sum over a ``model`` axis the mesh binds one wide
+  (``mesh-axis``);
+- ``bf16_psum_accumulator`` — a bf16 sum over the data axis into a bf16
+  running sum over 32 unrolled steps (``dtype-drift``);
+- ``read_after_donate`` — a "snapshot" that is an alias of a buffer the
+  program then updates in place (``donation``);
+- ``oob_block_table`` — the paged decode step under a block-table
+  contract one past the pool (``scatter-bounds``);
+- ``cow_read_after_donate`` / ``clean_cow_tick`` — a tick whose CoW copy
+  reads pool views taken before the prefill chunk wrote the pool, and the
+  tick with the pool threaded (``donation``);
+- ``unmemoized_retrace`` — a decode builder without the build memo
+  (``retrace-explosion``);
+- ``dropped_gather_before_use`` / ``clean_gather_before_use`` — a ZeRO
+  opt-state shard consumed without (and with) its reduction
+  (``sharded-state``);
+- ``clean_pipeline_step`` — a 2-stage, 2-replica GPipe train step.
+
+``tests/test_torch_kernel_lint.py`` and ``tests/test_torch_program_lint.py``
+hold every fixture to the verdict the JAX tests record; the CLI's
+``--fixtures`` re-runs the same contract (non-zero exit when any fixture
+misbehaves), plus the chaos drill coverage lint and the replay of the
+checker's exported counterexample on a real fleet.
 """
 
 from __future__ import annotations
@@ -289,6 +317,359 @@ def kernel_f32_accumulator(device=None) -> Report:
                                "kernel_f32_accumulator", device)
 
 
+# -- program fixtures: seeded defects in traced steps ----------------------
+
+def _dev(device):
+    return resolve_device(device)
+
+
+def _data_mesh(device, n: int = 4):
+    from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
+        make_mesh,
+    )
+    return make_mesh(1, n_data=n, devices=[_dev(device)] * n)
+
+
+def _analyze(fn, *args, mesh=None, name: str, device=None):
+    from simple_distributed_machine_learning_tpu_torch.analysis import (
+        analyze,
+    )
+    return analyze(fn, *args, mesh=mesh, name=f"fixture:{name}")
+
+
+def _fake(shape, dtype, device):
+    from simple_distributed_machine_learning_tpu_torch.analysis.trace import (
+        fake_mode,
+    )
+    with fake_mode():
+        return torch.empty(tuple(shape), dtype=dtype, device=_dev(device))
+
+
+def partial_ppermute(device=None) -> Report:
+    """A ring over four ranks (each its own process, traced alone): every
+    rank sends to the next, but rank 0 skips its receive — the wraparound
+    hop. Rank 3's send has no receiver."""
+    from simple_distributed_machine_learning_tpu_torch.analysis import (
+        trace,
+    )
+    from simple_distributed_machine_learning_tpu_torch.analysis.rules import (
+        check_ranks,
+    )
+    from simple_distributed_machine_learning_tpu_torch.parallel import (
+        mesh as mesh_lib,
+    )
+    n = 4
+
+    def shift(x, rank):
+        pending = [mesh_lib.send(x, (rank + 1) % n, tag=7)]
+        if rank > 0:
+            # BUG: rank 0 never receives rank 3's chunk
+            x = mesh_lib.recv(x.shape, x.dtype, rank - 1, x.device, tag=7)
+        mesh_lib.wait_all(pending)
+        return x
+
+    x = _fake((8, 16), torch.float32, device)
+    programs = [trace.trace_program(shift, x, r, name=f"shift[rank {r}]")
+                for r in range(n)]
+    return Report(name="fixture:partial_ppermute",
+                  findings=check_ranks(programs, "shift"))
+
+
+def _dp_sgd_report(sync: bool, name: str, device=None) -> Report:
+    """SGD over four data coordinates in one process: each coordinate's
+    replica of ``w`` (shape replicated, ``[16, 4]``) takes a gradient
+    from its own two rows of the batch ``x`` ``[8, 16]`` (seeded with the
+    data axis where they are sliced, as ``Pipeline._replica_batches``
+    seeds a replica's rows); with ``sync`` the gradients are averaged
+    over the axis first."""
+    from simple_distributed_machine_learning_tpu_torch.analysis import (
+        trace,
+    )
+    from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
+        AxisView,
+        axis_mean,
+    )
+    mesh = _data_mesh(device)
+    view = AxisView.local("data", 4)
+
+    def step(ws, x):
+        xs = [x[2 * d:2 * d + 2] for d in range(len(ws))]
+        trace.note_vary(xs, "data")
+        grads = []
+        for w, x in zip(ws, xs):
+            wd = w.detach().requires_grad_(True)
+            with torch.enable_grad():
+                loss = ((x @ wd) ** 2).mean()
+                grads.append(torch.autograd.grad(loss, wd)[0])
+        if sync:
+            grads = [axis_mean(grads, view)] * len(grads)
+        # else BUG: each coordinate applies only ITS rows' gradient to a
+        # replica every coordinate must hold identically
+        with torch.no_grad():
+            for w, g in zip(ws, grads):
+                w.sub_(0.1 * g)
+        return ws
+
+    ws = [_fake((16, 4), torch.float32, device) for _ in range(4)]
+    x = _fake((8, 16), torch.float32, device)
+    return _analyze(step, ws, x, mesh=mesh, name=name)
+
+
+def dropped_grad_sync(device=None) -> Report:
+    return _dp_sgd_report(False, "dropped_grad_sync", device)
+
+
+def clean_grad_sync(device=None) -> Report:
+    return _dp_sgd_report(True, "clean_grad_sync", device)
+
+
+def wrong_axis_name(device=None) -> Report:
+    """A tensor-parallel stage fn pasted into a data-parallel launch: the
+    four data coordinates' values summed with ``model_sum`` — over a
+    ``model`` axis the mesh binds one wide."""
+    from simple_distributed_machine_learning_tpu_torch.parallel.tensor import (
+        model_sum,
+    )
+    mesh = _data_mesh(device)
+
+    def reduce(xs):
+        # BUG: the mesh has no four-wide 'model' axis
+        return model_sum(list(xs))
+
+    xs = [_fake((2, 16), torch.float32, device) for _ in range(4)]
+    return _analyze(reduce, xs, mesh=mesh, name="wrong_axis_name")
+
+
+def bf16_psum_accumulator(device=None) -> Report:
+    """A bf16 sum over the data axis added into a bf16 running sum, one
+    step per row of the 32-step input: the loop unrolls in the trace."""
+    from simple_distributed_machine_learning_tpu_torch.parallel.tensor import (
+        model_sum,
+    )
+    mesh = _data_mesh(device)
+
+    def accumulate(xs):
+        acc = torch.zeros((16,), dtype=torch.bfloat16, device=xs[0].device)
+        for t in range(xs[0].shape[0]):
+            # BUG x2: the cross-coordinate sum runs in bf16, and the
+            # running sum is carried in bf16
+            total = model_sum([x[t] for x in xs], axis="data", size=4)
+            acc = acc + total.sum(0)
+        return acc
+
+    xs = [_fake((32, 2, 16), torch.bfloat16, device) for _ in range(4)]
+    return _analyze(accumulate, xs, mesh=mesh, name="bf16_psum_accumulator")
+
+
+def read_after_donate(device=None) -> Report:
+    """The port's donation is an in-place update: a "snapshot" taken as an
+    alias (``detach``) of the buffer before the update holds the updated
+    bytes when it is read after it."""
+
+    def update_(buf, grads):
+        with torch.no_grad():
+            buf.sub_(0.1 * grads)
+        return buf
+
+    def two_phase(buf, grads):
+        before = buf.detach()        # BUG: an alias, not a copy
+        new_buf = update_(buf, grads)
+        drift = (new_buf - before).sum()
+        return new_buf, drift
+
+    b = _fake((1024,), torch.float32, device)
+    g = _fake((1024,), torch.float32, device)
+    return _analyze(two_phase, b, g, name="read_after_donate")
+
+
+def _tiny_serve(device=None):
+    """One tiny GPT build shared by the serve fixtures."""
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        GPTConfig,
+        make_gpt_stages,
+    )
+    cfg = GPTConfig(vocab=16, seq_len=16, d_model=8, n_heads=2, n_layers=1)
+    return cfg, make_gpt_stages(0, cfg, 1, device=_dev(device))[0]
+
+
+def oob_block_table(device=None) -> Report:
+    """The paged decode step handed a block-table contract that can reach
+    one past the pool: the K/V scatter provably lands outside
+    ``n_blocks + 1`` — another request's blocks."""
+    from simple_distributed_machine_learning_tpu_torch.analysis.bounds import (
+        spec,
+    )
+    from simple_distributed_machine_learning_tpu_torch.analysis.trace import (
+        abstractify,
+    )
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        make_paged_decode_step,
+    )
+    cfg, stages = _tiny_serve(device)
+    S, ml, bs = 2, 12, 4
+    NB, n_blocks = 3, 6
+    step = make_paged_decode_step(stages, cfg, ml, bs, device=_dev(device))
+    params = abstractify([s.params for s in stages])
+    kc = _fake((1, n_blocks + 1, 2, bs, 4), torch.float32, device)
+    vc = _fake((1, n_blocks + 1, 2, bs, 4), torch.float32, device)
+    return _analyze(
+        step, params, kc, vc,
+        spec((S,), torch.int32, 0, cfg.vocab - 1),
+        spec((S,), torch.int32, 0, ml - 1),
+        # BUG: entries may reach n_blocks + 1 — one past the last block
+        spec((S, NB), torch.int32, 0, n_blocks + 1),
+        spec((S, 2), torch.int64), spec((S,), torch.float32),
+        spec((S,), torch.int32, 0, cfg.vocab), spec((S,), torch.float32),
+        name="oob_block_table")
+
+
+def _cow_tick_report(threaded: bool, name: str, device=None) -> Report:
+    """A prefill chunk, then a CoW copy of block 1 into block 2. The
+    threaded tick copies on the pool the chunk returns; the defect copies
+    through views of the pool taken before the chunk wrote it."""
+    from simple_distributed_machine_learning_tpu_torch.analysis.bounds import (
+        spec,
+    )
+    from simple_distributed_machine_learning_tpu_torch.analysis.trace import (
+        abstractify,
+    )
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        make_paged_block_copy,
+        make_paged_prefill_chunk,
+    )
+    cfg, stages = _tiny_serve(device)
+    ml, bs, n_blocks = 12, 4, 6
+    chunk = make_paged_prefill_chunk(stages, cfg, ml, bs,
+                                     device=_dev(device))
+    copy = make_paged_block_copy()
+
+    def tick(params, kc, vc, tokens, p0, table, kd, t, k_, p_):
+        old_k, old_v = kc[:], vc[:]
+        kc2, vc2, tok, _kd2 = chunk(params, kc, vc, tokens, p0, table, kd,
+                                    t, k_, p_)
+        if threaded:
+            kc3, vc3 = copy(kc2, vc2, 2, 1)
+        else:
+            # BUG: the copy reads the pool through views taken before
+            # the chunk overwrote it in place
+            kc3, vc3 = copy(old_k, old_v, 2, 1)
+        return kc3, vc3, tok
+
+    params = abstractify([s.params for s in stages])
+    kc = _fake((1, n_blocks + 1, 2, bs, 4), torch.float32, device)
+    vc = _fake((1, n_blocks + 1, 2, bs, 4), torch.float32, device)
+    return _analyze(
+        tick, params, kc, vc,
+        spec((1, 3), torch.int32, 0, cfg.vocab - 1), ml - 4,
+        spec((3,), torch.int32, 0, n_blocks), spec((2,), torch.int64),
+        spec((), torch.float32), spec((), torch.int32, 0, cfg.vocab),
+        spec((), torch.float32), name=name)
+
+
+def cow_read_after_donate(device=None) -> Report:
+    return _cow_tick_report(False, "cow_read_after_donate", device)
+
+
+def clean_cow_tick(device=None) -> Report:
+    return _cow_tick_report(True, "clean_cow_tick", device)
+
+
+def unmemoized_retrace(device=None) -> Report:
+    """A decode builder that makes its program afresh on every call
+    instead of routing through the build memo — each engine and test
+    would rebuild an identical program."""
+    from simple_distributed_machine_learning_tpu_torch.analysis.programs import (  # noqa: E501
+        check_builder_memo,
+    )
+
+    def bad_make_decode():
+        def decode(tok):
+            return tok + 1
+        return decode
+
+    return Report(name="fixture:unmemoized_retrace",
+                  findings=check_builder_memo("bad_make_decode",
+                                              bad_make_decode))
+
+
+def _zero1_report(reduced: bool, name: str, device=None) -> Report:
+    """ZeRO style over four data coordinates: ``ms[d]`` is coordinate
+    ``d``'s OWN opt-state shard in a replicated-shape buffer (declared
+    ``spec(..., vary=("data",))``); with ``reduced`` the new momentum is
+    averaged over the axis before it updates the replicated params."""
+    from simple_distributed_machine_learning_tpu_torch.analysis.bounds import (
+        spec,
+    )
+    from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
+        AxisView,
+        axis_mean,
+    )
+    mesh = _data_mesh(device)
+    view = AxisView.local("data", 4)
+
+    @torch.no_grad()
+    def step(ws, ms, gs):
+        m2 = [0.9 * m + g for m, g in zip(ms, gs)]
+        if reduced:
+            m2 = [axis_mean(m2, view)] * len(m2)
+        # else BUG: each coordinate updates the replicated params with ITS
+        # shard's momentum — the params silently diverge over the axis
+        for w, m, new in zip(ws, ms, m2):
+            w.sub_(0.1 * new)
+            m.copy_(new)
+        return ws, ms
+
+    ws = [_fake((16, 4), torch.float32, device) for _ in range(4)]
+    gs = [_fake((16, 4), torch.float32, device) for _ in range(4)]
+    ms = [spec((16, 4), torch.float32, vary=("data",), device=_dev(device))
+          for _ in range(4)]
+    return _analyze(step, ws, ms, gs, mesh=mesh, name=name)
+
+
+def dropped_gather_before_use(device=None) -> Report:
+    return _zero1_report(False, "dropped_gather_before_use", device)
+
+
+def clean_gather_before_use(device=None) -> Report:
+    return _zero1_report(True, "clean_gather_before_use", device)
+
+
+def clean_pipeline_step(device=None) -> Report:
+    """A 2-stage, 2-replica GPipe train step of the MLP (dims 16, 16, 10;
+    SGD with momentum; 2 microbatches of 2 rows each): must be clean."""
+    from simple_distributed_machine_learning_tpu_torch.analysis.preflight import (  # noqa: E501
+        abstract_batch,
+    )
+    from simple_distributed_machine_learning_tpu_torch.analysis.trace import (
+        abstractify,
+    )
+    from simple_distributed_machine_learning_tpu_torch.models.mlp import (
+        make_mlp_stages,
+    )
+    from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
+        make_mesh,
+    )
+    from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (  # noqa: E501
+        Pipeline,
+    )
+    from simple_distributed_machine_learning_tpu_torch.train.optimizer import (
+        sgd,
+    )
+    from simple_distributed_machine_learning_tpu_torch.train.step import (
+        make_train_step,
+    )
+    dev = _dev(device)
+    stages, wire, out = make_mlp_stages(0, [16, 16, 10], 2, device=dev)
+    mesh = make_mesh(2, n_data=2, devices=[dev] * 4)
+    pipe = Pipeline(stages, mesh, wire, out, n_microbatches=2)
+    opt = sgd(0.1, momentum=0.5)
+    params = pipe.init_params()
+    state = abstractify(opt.init(params))
+    x, t = abstract_batch(pipe, 8, (16,))
+    return _analyze(make_train_step(pipe, opt), abstractify(params), state,
+                    x, t, 0, mesh=mesh, name="clean_pipeline_step")
+
+
 # -- protocol: seeded defects in the abstract fleet model -----------------
 
 def _protocol(name: str):
@@ -309,6 +690,33 @@ protocol_clean_fleet = _protocol("CLEAN")
 
 
 FIXTURES: dict[str, Fixture] = {f.name: f for f in [
+    Fixture("partial_ppermute", "ppermute-deadlock", True,
+            "ring whose first rank skips its receive (the wraparound hop)",
+            partial_ppermute),
+    Fixture("dropped_grad_sync", "unreduced-gradient", True,
+            "data-parallel update without the gradient mean",
+            dropped_grad_sync),
+    Fixture("wrong_axis_name", "mesh-axis", True,
+            "sum over a model axis the mesh binds one wide",
+            wrong_axis_name),
+    Fixture("bf16_psum_accumulator", "dtype-drift", True,
+            "bf16 cross-coordinate sum into a bf16 running sum",
+            bf16_psum_accumulator),
+    Fixture("read_after_donate", "donation", True,
+            "alias of a buffer read after its in-place update",
+            read_after_donate),
+    Fixture("oob_block_table", "scatter-bounds", True,
+            "paged decode with a block-table contract one past the pool",
+            oob_block_table),
+    Fixture("cow_read_after_donate", "donation", True,
+            "CoW block copy through pool views the prefill chunk overwrote",
+            cow_read_after_donate),
+    Fixture("unmemoized_retrace", "retrace-explosion", True,
+            "decode builder rebuilding its program outside the memo",
+            unmemoized_retrace),
+    Fixture("dropped_gather_before_use", "sharded-state", True,
+            "ZeRO opt-state shard consumed without its reduction",
+            dropped_gather_before_use),
     Fixture("kernel_oob_index_map", "kernel-oob", True,
             "fused paged kernel with a block-table contract past the pool",
             kernel_oob_index_map),
@@ -333,6 +741,18 @@ FIXTURES: dict[str, Fixture] = {f.name: f for f in [
     Fixture("protocol_ungated_boarding", "protocol", True,
             "decode boarding not gated on the prefetch upload landing",
             protocol_ungated_boarding),
+    Fixture("clean_grad_sync", "", False,
+            "the dropped_grad_sync fixture with the mean restored",
+            clean_grad_sync),
+    Fixture("clean_cow_tick", "", False,
+            "the CoW tick with the written pool threaded through",
+            clean_cow_tick),
+    Fixture("clean_gather_before_use", "", False,
+            "the ZeRO update with the reduction restored (must be clean)",
+            clean_gather_before_use),
+    Fixture("clean_pipeline_step", "", False,
+            "a 2-stage dp=2 GPipe train step (must be clean)",
+            clean_pipeline_step),
     Fixture("kernel_clean_paged", "", False,
             "the fused paged kernel under the slots.py table invariant",
             kernel_clean_paged),

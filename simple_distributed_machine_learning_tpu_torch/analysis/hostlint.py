@@ -5,7 +5,7 @@ The program linter sees what runs on the card; this pass sees the Python
 that builds and drives it. The rules keep the JAX rule ids. Two are the
 JAX rules as they are; four police what the JAX rules police, retargeted
 at the port's own serve path, whose decode builders are eager closures
-with no memo and no ``jit``:
+(memoized on their static config, with no ``jit``):
 
 - ``hostlint.unmemoized-builder`` — ``models/gpt.py``'s
   ``DECODE_BUILDERS`` table must name the JAX package's twelve decode

@@ -1,6 +1,24 @@
-"""The serving byte model and the kernel half of the serve-program registry
-(port of ``analysis/programs.py``: ROADMAP.md, Queue A, item 7.3, and the
-kernel linter's part of item 7.4).
+"""The serving-program registry, the serving byte model and the kernel
+half of the registry (port of ``analysis/programs.py``: ROADMAP.md, Queue
+A, items 7.3 and 7.4).
+
+**The program registry.** :func:`build_registry` builds every program one
+serving deployment runs — the ``models/gpt.py`` builders' programs
+(prefill or chunk, decode, CoW copy, the adapter upload, the draft's
+propose, the verify, the fused speculative tick) plus the composite ticks
+that thread the pool through them as ``serve/engine.py`` does, and the
+solo-parity cached decoder — with fake arguments carrying the contracts
+the host side (``serve/slots.py``) keeps (``analysis.spec``: tokens,
+positions, block tables, adapter rows) and the host ints the port's
+programs read (a chunk's start at its contract's worst case).
+:func:`lint_serve` traces and lints each (``analysis.analyze``: the
+scatter-bounds pass, in-place buffer flow, the kernel nodes' launch
+specs), adds the build-memo and retrace-policy checks
+(:func:`check_builder_memo`, a retrace finding per unbounded program
+shape) and reconciles the K/V bytes the traced K4 nodes derive with the
+byte model's rows; :func:`lint_engine` lints a live engine's own programs
+(``InferenceEngine(lint=True)``), :func:`default_registry_reports` the
+CI sweep (``--serve`` in the analysis CLI). Trace-only: nothing launches.
 
 **The HBM-bytes-per-tick model.** :class:`ServeSpec` describes one
 serving deployment statically (layout, block geometry, slots, cache
@@ -26,10 +44,8 @@ drives one engine through a prefill and a decode (or verify) tick under
 ``kernels.record_launches()``, lints the launches it recorded with the
 contracts the registry declares (tables ``[0, n_blocks]``, positions
 ``[0, NB*bs-1]``), derives their HBM rows (``kernels.kernel_hbm_costs``)
-and reconciles them with :func:`hbm_tick_costs` exactly. The jaxpr
-registry (``build_registry``, ``lint_serve``, ``lint_engine`` and the
-decode-program memo check) walks traced XLA programs and stays with the
-rest of item 7.4.
+and reconciles them with :func:`hbm_tick_costs` exactly — the
+``--serve-kernel`` preflight, on launches that really ran.
 
 ``SDML_LINT_INJECT=<tag>`` (environment) appends one seeded ERROR finding
 to every registry report — the drill that proves the gate exits nonzero
@@ -392,9 +408,13 @@ def _reconcile_kernel_hbm(kernel_rows: list[HBMCost],
     """Cross-check the K/V stream bytes derived from the recorded launches
     against the tick model's gather rows: the fused kernel's claim — one
     read of resident K/V per tick — is computed from the launches' own
-    specs, not asserted. The two agree EXACTLY or the gate fails."""
+    specs, not asserted. The two agree EXACTLY or the gate fails. A TP
+    program launches once per model coordinate, each on its shard, where
+    the model bills one shard: the launches stream ``tp`` times its
+    row."""
     if sspec.attn_kernel != "fused":
         return []
+    tp = sspec.tp
     derived: dict[str, int] = {}
     for h in kernel_rows:
         if h.op == "kernel.kv_stream":
@@ -406,6 +426,7 @@ def _reconcile_kernel_hbm(kernel_rows: list[HBMCost],
         want = model.get((prog, op))
         if want is None:
             continue
+        want *= tp
         got = derived.get(prog)
         if got is None:
             out.append(Finding(
@@ -423,8 +444,11 @@ def _reconcile_kernel_hbm(kernel_rows: list[HBMCost],
                 rule="kernel-hbm.mismatch", severity=Severity.ERROR,
                 message=(f"{prog}: the recorded launches stream {got} K/V "
                          f"bytes/tick but the HBM tick model's {op} row "
-                         f"says {want} — the fused single-pass claim no "
-                         f"longer matches the kernel itself"),
+                         f"says {want // tp}"
+                         + (f" per shard ({want} over {tp} shards)"
+                            if tp > 1 else "")
+                         + " — the fused single-pass claim no longer "
+                           "matches the kernel itself"),
                 where=prog,
                 hint="hbm_tick_costs and the kernel's launch spec are one "
                      "contract: fix whichever drifted"))
@@ -613,3 +637,580 @@ def kernel_registry_reports(device=None) -> list[Report]:
         name=f"serve[degraded fallback of paged spec_k={spec_paged.spec_k}"
              f": dense slots={spec_paged.n_slots} tp=1 spec_k=0]"))
     return reports
+
+
+# -- the program registry (the traced serving programs) ---------------------
+
+@dataclasses.dataclass(frozen=True)
+class Program:
+    """One registry entry: a built (memoized) program plus the arguments —
+    fake stand-ins with declared contracts, and the host ints the port's
+    programs read — that one serve tick would feed it."""
+    name: str
+    fn: Any
+    args: tuple
+
+
+def check_builder_memo(name: str, build) -> list[Finding]:
+    """The ``_DECODE_BUILD_CACHE`` contract, machine-checked: calling a
+    decode-path builder twice with identical static config must return
+    the SAME program. A builder that returns fresh objects rebuilds per
+    engine and test — the retrace-explosion failure mode at the build
+    level."""
+    first, second = build(), build()
+    if first is second:
+        return []
+    return [Finding(
+        rule="retrace-explosion.unmemoized-builder", severity=Severity.ERROR,
+        message=(f"builder '{name}' returned a DIFFERENT program for an "
+                 f"identical static config — every engine (and every test) "
+                 f"constructing it pays a fresh build"),
+        where=name,
+        hint="route the build through models.gpt._memo_builder (the "
+             "_DECODE_BUILD_CACHE) keyed on the static config")]
+
+
+def _retrace_finding(name: str, axis: str, sspec: ServeSpec) -> list[Finding]:
+    """Flag a builder whose program shape follows an unbounded runtime
+    value (a per-prompt-length program) unless the deployment bounds
+    it."""
+    if sspec.prompt_lens is not None:
+        return []
+    return [Finding(
+        rule="retrace-explosion.unbounded-trace-key",
+        severity=Severity.WARNING,
+        message=(f"'{name}' runs a differently shaped program per distinct "
+                 f"{axis}, and this deployment declares no bound on it — "
+                 f"under real traffic every new length is a new program "
+                 f"shape (the shape set grows without limit)"),
+        where=name,
+        hint="bucket prompt lengths (ServeSpec.prompt_lens / the "
+             "simulator's buckets) or serve the paged layout with a "
+             "prefill_chunk, which bounds prefill shapes to the chunk "
+             "size")]
+
+
+def _fake(shape, dtype, device):
+    from simple_distributed_machine_learning_tpu_torch.analysis.trace import (
+        fake_mode,
+    )
+    import torch
+    with fake_mode():
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
+
+
+def _pool(shape, cache_dtype, device, tp: int = 1, devices=None):
+    """Fake pool buffers: one ``shape`` buffer (its head axis, dim 2, split
+    ``tp`` ways per coordinate), a :class:`QuantKV` for a quantised
+    dtype."""
+    import torch
+
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        QuantKV,
+        _cache_dtype,
+        _is_quantized_dtype,
+    )
+
+    def one(dev):
+        sh = list(shape)
+        sh[2] //= tp
+        if _is_quantized_dtype(cache_dtype):
+            return QuantKV(_fake(sh, _cache_dtype(cache_dtype), dev),
+                           _fake(sh[:-1], torch.float32, dev))
+        return _fake(sh, _cache_dtype(cache_dtype), dev)
+
+    if tp == 1:
+        return one(device)
+    return [one(d) for d in (devices or [device] * tp)]
+
+
+def build_registry(stages, sspec: ServeSpec, mesh=None, draft_stages=None,
+                   params=None, device=None, anchor: bool = True
+                   ) -> tuple[list[Program], list[Finding]]:
+    """Build every program of ``sspec``'s serve path with its arguments and
+    contracts; returns (programs, policy findings) where the findings are
+    the retrace/memo checks that are not graph rules.
+
+    With ``sspec.tp > 1`` pass the live ``mesh``: the registry builds the
+    TP programs a TP engine runs (head-sharded pools, the packed serving
+    weights — ``params`` when given, else :func:`pack_tp_serve_params` of
+    the stages). With ``sspec.spec_k >= 2`` pass the ``draft_stages``.
+    ``device`` (None = ``"cuda"``) is where the programs are built for.
+    ``anchor`` adds the solo-parity cached decoder (a program the tests
+    hold every served stream to, which no engine tick runs)."""
+    import torch
+
+    from simple_distributed_machine_learning_tpu_torch._device import (
+        resolve_device,
+    )
+    from simple_distributed_machine_learning_tpu_torch.analysis.bounds import (
+        spec,
+    )
+    from simple_distributed_machine_learning_tpu_torch.analysis.trace import (
+        abstractify,
+    )
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        _is_quantized_dtype,
+        make_cached_decoder,
+        make_paged_block_copy,
+        make_paged_decode_step,
+        make_paged_prefill_chunk,
+        make_slot_decode_step,
+        make_slot_prefill,
+        pack_tp_serve_params,
+        tp_serve_devices,
+    )
+
+    dev = resolve_device(device)
+    cfg = sspec.cfg
+    S, ml, bs = sspec.n_slots, sspec.ml, sspec.block_size
+    V, H, L = cfg.vocab, cfg.n_heads, cfg.n_layers
+    dh = cfg.d_model // H
+    NB = sspec.blocks_per_seq
+    n_blocks = sspec.nb
+    tp = sspec.tp
+    devices = tp_serve_devices(mesh, tp) if tp > 1 else None
+    dense_params = [s.params for s in stages]
+    if params is None:
+        params = (pack_tp_serve_params(dense_params, tp, devices) if tp > 1
+                  else dense_params)
+    params = abstractify(params)
+    i32, i64, f32 = torch.int32, torch.int64, torch.float32
+
+    def f32S():
+        return spec((S,), f32)
+
+    kdS = spec((S, 2), i64)
+    kd1 = spec((2,), i64)
+    toks = spec((S,), i32, 0, V - 1)
+    pos = spec((S,), i32, 0, ml - 1)
+    top_ks = spec((S,), i32, 0, V)
+
+    programs: list[Program] = []
+    findings: list[Finding] = []
+
+    # the cached decoder: the solo-parity anchor, linted at one bucket
+    t0 = int(min(sspec.prompt_lens)) if sspec.prompt_lens else min(4, ml - 1)
+    t0 = max(1, min(t0, ml - 1))
+    n_new = ml - t0
+    anchor_cd = None if _is_quantized_dtype(sspec.cache_dtype) \
+        else sspec.cache_dtype
+    if anchor:
+        dcfg_ = cfg_dense(cfg)
+        findings += check_builder_memo(
+            "make_cached_decoder",
+            lambda: make_cached_decoder(stages, dcfg_, t0, n_new,
+                                        cache_dtype=anchor_cd, device=dev))
+        findings += _retrace_finding("make_cached_decoder",
+                                     "(prompt_len, n_new) pair", sspec)
+        programs.append(Program(
+            "cached_decoder",
+            make_cached_decoder(stages, dcfg_, t0, n_new,
+                                cache_dtype=anchor_cd, device=dev),
+            (abstractify(dense_params), spec((1, t0), i32, 0, V - 1),
+             kd1)))
+
+    K = int(sspec.spec_k)
+    speculative = K >= 2 and draft_stages is not None
+    valid_n = spec((S,), i32, 0, K) if speculative else None
+    # the verify programs branch on the host on whether any slot samples:
+    # host temperatures with a sampling slot trace the path that runs both
+    import numpy as np
+    hot = np.ones((S,), np.float32)
+    drafts_a = spec((S, K), i32, 0, V - 1) if speculative else None
+    qrows_a = spec((S, K, V), f32) if speculative else None
+
+    # the adapter bank (traced data) and its row contracts; a host int
+    # picks a one-request program's row
+    bank = aids = None
+    aid1 = 0
+    if sspec.adapters_on:
+        from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+            make_adapter_bank_update,
+        )
+        N, r, d = sspec.n_adapters, sspec.adapter_rank, cfg.d_model
+        shapes = {"aq": (L, d, r), "bq": (L, r, d), "av": (L, d, r),
+                  "bv": (L, r, d)}
+        bank = {k: _fake((N,) + v, f32, dev) for k, v in shapes.items()}
+        row = {k: _fake(v, f32, dev) for k, v in shapes.items()}
+        aid1 = N - 1
+        aids = spec((S,), i32, 0, N - 1)
+        findings += check_builder_memo("make_adapter_bank_update",
+                                       make_adapter_bank_update)
+        programs.append(Program("adapter_bank_update",
+                                make_adapter_bank_update(),
+                                (bank, N - 1, row)))
+
+    def draft_programs():
+        """The draft propose program and its pool (dense slot rows
+        whatever the target layout — the engine's draft discipline)."""
+        from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+            make_slot_propose,
+        )
+        dcfg = sspec.draft_cfg
+        dL = sum(len(p["blocks"]) for p in (s.params for s in draft_stages))
+        draft_cd = anchor_cd
+        dkc = _pool((dL, S, dcfg.n_heads, ml, dcfg.d_model // dcfg.n_heads),
+                    draft_cd, dev)
+        dvc = _pool((dL, S, dcfg.n_heads, ml, dcfg.d_model // dcfg.n_heads),
+                    draft_cd, dev)
+        propose = make_slot_propose(draft_stages, dcfg, ml, K, draft_cd,
+                                    device=dev)
+        memo = check_builder_memo(
+            "make_slot_propose",
+            lambda: make_slot_propose(draft_stages, dcfg, ml, K, draft_cd,
+                                      device=dev))
+        dparams = abstractify([s.params for s in draft_stages])
+        return propose, (dparams, dkc, dvc, toks, pos, kdS, f32S(), top_ks,
+                         f32S()), memo
+
+    adp = sspec.adapters_on
+    kw = dict(mesh=mesh, device=dev)
+    if sspec.kv_layout == "dense":
+        shape = (L, S, H, ml, dh)
+        prefill = make_slot_prefill(stages, cfg, ml, sspec.cache_dtype, **kw)
+        decode = make_slot_decode_step(stages, cfg, ml, sspec.cache_dtype,
+                                       **kw)
+        findings += check_builder_memo(
+            "make_slot_prefill",
+            lambda: make_slot_prefill(stages, cfg, ml, sspec.cache_dtype,
+                                      **kw))
+        findings += check_builder_memo(
+            "make_slot_decode_step",
+            lambda: make_slot_decode_step(stages, cfg, ml,
+                                          sspec.cache_dtype, **kw))
+        findings += _retrace_finding("make_slot_prefill", "prompt length",
+                                     sspec)
+
+        def pools():
+            return (_pool(shape, sspec.cache_dtype, dev, tp, devices),
+                    _pool(shape, sspec.cache_dtype, dev, tp, devices))
+
+        prefill_tail = (spec((1, t0), i32, 0, V - 1), S - 1, kd1,
+                        spec((), f32), spec((), i32, 0, V), spec((), f32))
+        decode_tail = (toks, pos, kdS, f32S(), top_ks, f32S())
+        programs.append(Program("slot_prefill", prefill,
+                                (params, *pools(), *prefill_tail)))
+        programs.append(Program("slot_decode", decode,
+                                (params, *pools(), *decode_tail)))
+        if adp:
+            akw = dict(kw, adapters=True)
+            findings += check_builder_memo(
+                "make_slot_prefill[adapters]",
+                lambda: make_slot_prefill(stages, cfg, ml,
+                                          sspec.cache_dtype, **akw))
+            findings += check_builder_memo(
+                "make_slot_decode_step[adapters]",
+                lambda: make_slot_decode_step(stages, cfg, ml,
+                                              sspec.cache_dtype, **akw))
+            programs.append(Program(
+                "slot_prefill_adapter",
+                make_slot_prefill(stages, cfg, ml, sspec.cache_dtype, **akw),
+                (params, *pools(), *prefill_tail, bank, aid1)))
+            programs.append(Program(
+                "slot_decode_adapter",
+                make_slot_decode_step(stages, cfg, ml, sspec.cache_dtype,
+                                      **akw),
+                (params, *pools(), *decode_tail, bank, aids)))
+
+        # the composite tick: prefill -> decode with the pool buffers
+        # threaded the way engine.step threads them
+        def dense_tick(params, kc, vc, prompt, slot, kd_1, t1, k1, p1,
+                       toks, pos, kds, temps, tks, tps):
+            kc, vc, tok, kd_1 = prefill(params, kc, vc, prompt, slot, kd_1,
+                                        t1, k1, p1)
+            kc, vc, toks2, kds2 = decode(params, kc, vc, toks, pos, kds,
+                                         temps, tks, tps)
+            return kc, vc, tok, toks2, kds2
+
+        programs.append(Program("dense_tick", dense_tick,
+                                (params, *pools(), *prefill_tail,
+                                 *decode_tail)))
+
+        if speculative:
+            from simple_distributed_machine_learning_tpu_torch.models.gpt import (  # noqa: E501
+                make_slot_spec_tick,
+                make_slot_verify_step,
+            )
+            propose, propose_args, memo = draft_programs()
+            findings += memo
+            verify = make_slot_verify_step(stages, cfg, ml, K,
+                                           sspec.cache_dtype, **kw)
+            findings += check_builder_memo(
+                "make_slot_verify_step",
+                lambda: make_slot_verify_step(stages, cfg, ml, K,
+                                              sspec.cache_dtype, **kw))
+            verify_tail = (toks, pos, drafts_a, qrows_a, valid_n, kdS,
+                           hot, top_ks, f32S())
+            programs.append(Program("slot_propose", propose, propose_args))
+            programs.append(Program("slot_verify", verify,
+                                    (params, *pools(), *verify_tail)))
+            if tp == 1:
+                dcfg = sspec.draft_cfg
+                spec_tick = make_slot_spec_tick(
+                    stages, cfg, draft_stages, dcfg, ml, K,
+                    sspec.cache_dtype, device=dev)
+                findings += check_builder_memo(
+                    "make_slot_spec_tick",
+                    lambda: make_slot_spec_tick(stages, cfg, draft_stages,
+                                                dcfg, ml, K,
+                                                sspec.cache_dtype,
+                                                device=dev))
+            else:
+                def spec_tick(dparams, dkc, dvc, params, kc, vc, toks, pos,
+                              valid, dkds, kds, temps, tks, tps):
+                    dkc, dvc, drafts, qrows, dkds2 = propose(
+                        dparams, dkc, dvc, toks, pos, dkds, temps, tks, tps)
+                    kc, vc, toks2, n_acc, kds2 = verify(
+                        params, kc, vc, toks, pos, drafts, qrows, valid,
+                        kds, temps, tks, tps)
+                    return dkc, dvc, kc, vc, toks2, n_acc, kds2, dkds2
+            programs.append(Program(
+                "dense_spec_tick", spec_tick,
+                (*propose_args[:3], params, *pools(), toks, pos, valid_n,
+                 kdS, kdS, hot, top_ks, f32S())))
+        return programs, findings
+
+    # the paged layout
+    shape = (L, n_blocks + 1, H, bs, dh)
+    kernel = sspec.attn_kernel
+    tables = spec((S, NB), i32, 0, n_blocks)
+    table1 = spec((NB,), i32, 0, n_blocks)
+    c = sspec.resolved_chunk
+    pkw = dict(kw, kernel=kernel)
+    chunk = make_paged_prefill_chunk(stages, cfg, ml, bs, sspec.cache_dtype,
+                                     **kw)
+    decode = make_paged_decode_step(stages, cfg, ml, bs, sspec.cache_dtype,
+                                    **pkw)
+    copy = make_paged_block_copy()
+    findings += check_builder_memo(
+        "make_paged_prefill_chunk",
+        lambda: make_paged_prefill_chunk(stages, cfg, ml, bs,
+                                         sspec.cache_dtype, **kw))
+    findings += check_builder_memo(
+        "make_paged_decode_step",
+        lambda: make_paged_decode_step(stages, cfg, ml, bs,
+                                       sspec.cache_dtype, **pkw))
+    findings += check_builder_memo("make_paged_block_copy",
+                                   make_paged_block_copy)
+    if sspec.prefill_chunk is None:
+        findings += _retrace_finding("make_paged_prefill_chunk",
+                                     "chunk (= whole-prompt) length", sspec)
+
+    def pools():
+        return (_pool(shape, sspec.cache_dtype, dev, tp, devices),
+                _pool(shape, sspec.cache_dtype, dev, tp, devices))
+
+    # the host ints a tick reads: the chunk's start at its contract's
+    # worst case, the copy's block ids at the pool's last block
+    chunk_tail = (spec((1, c), i32, 0, V - 1), ml - 1 - c, table1, kd1,
+                  spec((), f32), spec((), i32, 0, V), spec((), f32))
+    decode_tail = (toks, pos, tables, kdS, f32S(), top_ks, f32S())
+    copy_tail = (n_blocks, n_blocks - 1 if n_blocks > 1 else 0)
+    programs.append(Program("paged_prefill_chunk", chunk,
+                            (params, *pools(), *chunk_tail)))
+    programs.append(Program("paged_decode", decode,
+                            (params, *pools(), *decode_tail)))
+    programs.append(Program("paged_block_copy", copy,
+                            (*pools(), *copy_tail)))
+
+    if adp:
+        akw, apkw = dict(kw, adapters=True), dict(pkw, adapters=True)
+        findings += check_builder_memo(
+            "make_paged_prefill_chunk[adapters]",
+            lambda: make_paged_prefill_chunk(stages, cfg, ml, bs,
+                                             sspec.cache_dtype, **akw))
+        findings += check_builder_memo(
+            "make_paged_decode_step[adapters]",
+            lambda: make_paged_decode_step(stages, cfg, ml, bs,
+                                           sspec.cache_dtype, **apkw))
+        programs.append(Program(
+            "paged_prefill_chunk_adapter",
+            make_paged_prefill_chunk(stages, cfg, ml, bs, sspec.cache_dtype,
+                                     **akw),
+            (params, *pools(), *chunk_tail, bank, aid1)))
+        programs.append(Program(
+            "paged_decode_adapter",
+            make_paged_decode_step(stages, cfg, ml, bs, sspec.cache_dtype,
+                                   **apkw),
+            (params, *pools(), *decode_tail, bank, aids)))
+
+    # the composite tick: chunk -> CoW copy -> decode, the pool threaded
+    # as engine.step/_ensure_writable_range thread it
+    def paged_tick(params, kc, vc, tokens, p0, table, kd_1, t1, k1, p1,
+                   dst, src, toks, pos, tables, kds, temps, tks, tps):
+        kc, vc, tok, kd_1 = chunk(params, kc, vc, tokens, p0, table, kd_1,
+                                  t1, k1, p1)
+        kc, vc = copy(kc, vc, dst, src)
+        kc, vc, toks2, kds2 = decode(params, kc, vc, toks, pos, tables,
+                                     kds, temps, tks, tps)
+        return kc, vc, tok, toks2, kds2
+
+    programs.append(Program("paged_tick", paged_tick,
+                            (params, *pools(), *chunk_tail, *copy_tail,
+                             *decode_tail)))
+
+    if speculative:
+        from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+            make_paged_spec_tick,
+            make_paged_verify_step,
+        )
+        propose, propose_args, memo = draft_programs()
+        findings += memo
+        verify = make_paged_verify_step(stages, cfg, ml, bs, K,
+                                        sspec.cache_dtype, **pkw)
+        findings += check_builder_memo(
+            "make_paged_verify_step",
+            lambda: make_paged_verify_step(stages, cfg, ml, bs, K,
+                                           sspec.cache_dtype, **pkw))
+        verify_tail = (toks, pos, drafts_a, qrows_a, valid_n, tables, kdS,
+                       hot, top_ks, f32S())
+        programs.append(Program("paged_propose", propose, propose_args))
+        programs.append(Program("paged_verify", verify,
+                                (params, *pools(), *verify_tail)))
+        if tp == 1:
+            dcfg = sspec.draft_cfg
+            spec_tick = make_paged_spec_tick(
+                stages, cfg, draft_stages, dcfg, ml, bs, K,
+                sspec.cache_dtype, kernel=kernel, device=dev)
+            findings += check_builder_memo(
+                "make_paged_spec_tick",
+                lambda: make_paged_spec_tick(stages, cfg, draft_stages,
+                                             dcfg, ml, bs, K,
+                                             sspec.cache_dtype,
+                                             kernel=kernel, device=dev))
+        else:
+            def spec_tick(dparams, dkc, dvc, params, kc, vc, toks, pos,
+                          valid, tables, dkds, kds, temps, tks, tps):
+                dkc, dvc, drafts, qrows, dkds2 = propose(
+                    dparams, dkc, dvc, toks, pos, dkds, temps, tks, tps)
+                kc, vc, toks2, n_acc, kds2 = verify(
+                    params, kc, vc, toks, pos, drafts, qrows, valid,
+                    tables, kds, temps, tks, tps)
+                return dkc, dvc, kc, vc, toks2, n_acc, kds2, dkds2
+        programs.append(Program(
+            "paged_spec_tick", spec_tick,
+            (*propose_args[:3], params, *pools(), toks, pos, valid_n,
+             tables, kdS, kdS, hot, top_ks, f32S())))
+    return programs, findings
+
+
+def _signature(obj):
+    """A program argument's static description (shapes, dtypes, contracts,
+    host values): two programs alike in it trace alike."""
+    import torch
+
+    from simple_distributed_machine_learning_tpu_torch.analysis.bounds import (
+        ArgSpec,
+    )
+    if isinstance(obj, ArgSpec):
+        return ("spec", obj.shape, str(obj.dtype), obj.lo, obj.hi, obj.vary)
+    if isinstance(obj, torch.Tensor):
+        return ("t", tuple(obj.shape), str(obj.dtype), str(obj.device))
+    if isinstance(obj, torch.nn.Module):
+        return ("m",) + tuple(_signature(t) for t in obj.parameters())
+    if isinstance(obj, (list, tuple)):
+        return (type(obj).__name__,) + tuple(_signature(v) for v in obj)
+    if isinstance(obj, dict):
+        return ("d",) + tuple((k, _signature(v)) for k, v in obj.items())
+    return ("v", repr(obj))
+
+
+def lint_serve(stages, sspec: ServeSpec, name: str | None = None,
+               mesh=None, draft_stages=None, params=None,
+               device=None, cache: dict | None = None,
+               anchor: bool = True) -> Report:
+    """Trace and lint every program of one serving deployment; returns a
+    single merged :class:`Report` carrying the findings of all rule
+    families, the retrace/memo policy checks and the HBM-bytes-per-tick
+    table (the byte model's rows, the kernel nodes' derived rows and
+    their reconciliation). Pass the live ``mesh`` for a TP deployment and
+    the ``draft_stages`` for a speculative one; ``device`` (None =
+    ``"cuda"``) is where the programs run. Nothing is launched.
+    ``cache`` (a dict shared across calls) reuses the lint of a program
+    already traced alike — the registry sweep's one cached decoder."""
+    from simple_distributed_machine_learning_tpu_torch.analysis import (
+        analyze,
+    )
+    if sspec.tp > 1 and mesh is None:
+        raise ValueError(
+            f"lint_serve: sspec.cfg.n_tensor_parallel={sspec.tp} needs the "
+            f"deployment's mesh to rebuild the sharded programs")
+    if sspec.spec_k >= 2 and draft_stages is None:
+        raise ValueError(
+            f"lint_serve: sspec.spec_k={sspec.spec_k} needs the "
+            f"draft_stages build to trace the propose/verify pair")
+    programs, policy = build_registry(stages, sspec, mesh=mesh,
+                                      draft_stages=draft_stages,
+                                      params=params, device=device,
+                                      anchor=anchor)
+    n_layers = sum(len(p["blocks"]) for p in (s.params for s in stages))
+    label = name or serve_label(sspec)
+    report = Report(name=label, findings=list(policy))
+    kernel_rows: list[HBMCost] = []
+    for prog in programs:
+        key = (id(prog.fn), prog.name, id(mesh), _signature(prog.args))
+        sub = None if cache is None else cache.get(key)
+        if sub is None:
+            sub = analyze(prog.fn, *prog.args, mesh=mesh,
+                          name=f"{label}:{prog.name}")
+            if cache is not None:
+                cache[key] = sub
+        for f in sub.findings:
+            report.findings.append(dataclasses.replace(
+                f, where=f"{prog.name}: {f.where}" if f.where
+                else prog.name))
+        report.costs.extend(sub.costs)
+        # the kernel nodes' derived rows (a K4 stream, the rest's io)
+        kernel_rows.extend(dataclasses.replace(h, program=prog.name)
+                           for h in sub.hbm if h.bytes_per_tick)
+    report.hbm.extend(kernel_rows)
+    model_rows = hbm_tick_costs(sspec, n_layers=n_layers)
+    report.hbm.extend(model_rows)
+    report.findings.extend(
+        _reconcile_kernel_hbm(kernel_rows, model_rows, sspec))
+    report.findings.extend(_injected_findings())
+    return report
+
+
+def default_registry_reports(device=None) -> list[Report]:
+    """The CI lint gate's serve-program sweep (``--serve`` in the analysis
+    CLI): the registry's tiny GPT (seed 0, its draft seed 1) on ``device``
+    (None = ``"cuda"``) linted over every :func:`registry_specs`
+    deployment, the degraded fallback named as the JAX sweep names it.
+    Every report must be ERROR-free for the gate to pass."""
+    from simple_distributed_machine_learning_tpu_torch._device import (
+        resolve_device,
+    )
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        make_gpt_stages,
+    )
+    dev = resolve_device(device)
+    cfg, draft_cfg = registry_config()
+    stages = make_gpt_stages(0, cfg, 1, device=dev)[0]
+    draft_stages = make_gpt_stages(1, draft_cfg, 1, device=dev)[0]
+    specs = registry_specs(cfg, draft_cfg)
+    spec_paged = specs[6]
+    cache: dict = {}
+    reports = [lint_serve(stages, s, device=dev, cache=cache,
+                          draft_stages=draft_stages if s.spec_k else None)
+               for s in specs[:-1]]
+    reports.append(lint_serve(
+        stages, specs[-1], device=dev, cache=cache,
+        name=f"serve[degraded fallback of paged spec_k={spec_paged.spec_k}"
+             f": dense slots={spec_paged.n_slots} tp=1 spec_k=0]"))
+    return reports
+
+
+def lint_engine(engine, prompt_lens: tuple | None = None) -> Report:
+    """Preflight a live :class:`~..serve.engine.InferenceEngine`'s EXACT
+    programs — its layout, block geometry, chunk size, cache dtype, mesh,
+    kernel, draft and weights (``InferenceEngine(lint=True)`` calls this
+    at construction). Trace-only: no kernel launches, no buffer is
+    allocated. The programs the engine runs, without the solo-parity
+    anchor no tick runs (a decode loop unrolled over the whole sequence,
+    whose trace costs more than all of them)."""
+    sspec = dataclasses.replace(engine_spec(engine), prompt_lens=prompt_lens)
+    return lint_serve(engine.stages, sspec, mesh=engine.mesh,
+                      draft_stages=engine.draft_stages, params=engine.params,
+                      device=engine.device, anchor=False)

@@ -2,13 +2,13 @@
 
 Port of ``analysis/report.py`` (stdlib; the port keeps its own copy). A
 pass produces :class:`Finding`s — (severity, rule id, provenance,
-message, fix hint) — plus, for the serving passes, the HBM bytes per
-tick of each K/V stream (:class:`HBMCost`: the byte model's rows and the
-rows the kernel linter derives from a launch's own metadata).
-:class:`Report` aggregates both and owns the exit-code policy:
-``ok(fail_on)`` is what the CLI keys off. No pass of the port walks
-collectives, so the JAX package's ``CollectiveCost`` (bytes over ICI) is
-not copied.
+message, fix hint) — plus the program linter's per-collective cost table
+(:class:`CollectiveCost`: bytes between coordinates per step) and, for
+the serving passes, the HBM bytes per tick of each K/V stream
+(:class:`HBMCost`: the byte model's rows and the rows the kernel linter
+derives from a launch's own metadata). :class:`Report` aggregates them
+and owns the exit-code policy: ``ok(fail_on)`` is what the CLI keys
+off.
 
 Rule ids are ``family.check``: ``protocol.double-serve``,
 ``journal-grammar.unread-event``, ``kernel-race.parallel-overwrite``, ...
@@ -51,6 +51,30 @@ class Finding:
 
 
 @dataclasses.dataclass(frozen=True)
+class CollectiveCost:
+    """Bytes-between-coordinates estimate for one noted collective.
+
+    ``bytes_per_call`` is one coordinate's operand payload; ``ici_bytes``
+    applies the standard ring-algorithm traffic factor for the collective
+    kind over a group of ``group_size`` coordinates (psum ``2(n-1)/n``,
+    all_gather ``n-1`` x shard, reduce_scatter / all_to_all ``(n-1)/n``,
+    ppermute and a send ``1``); ``trips`` is how many times the call
+    repeats per step (1: the port's loops unroll into the traced
+    program, one row per call)."""
+    prim: str
+    axes: tuple[str, ...]
+    group_size: int
+    bytes_per_call: int
+    ici_bytes: int            # bytes_per_call x traffic factor, per trip
+    trips: int                # calls per step of this row
+    where: str = ""
+
+    @property
+    def total_bytes(self) -> int:
+        return self.ici_bytes * self.trips
+
+
+@dataclasses.dataclass(frozen=True)
 class HBMCost:
     """Device-memory traffic of one serving-program memory stream.
 
@@ -66,14 +90,24 @@ class HBMCost:
 
 
 class Report:
-    """The result of one analysis run: findings plus the serving HBM
-    bytes-per-tick rows. The protocol checker also sets ``exploration``
-    and ``verdict`` on the report it returns."""
+    """The result of one analysis run: findings, the collective cost
+    table and the serving HBM bytes-per-tick rows. The protocol checker
+    also sets ``exploration`` and ``verdict`` on the report it
+    returns."""
 
-    def __init__(self, name: str = "", findings=None, hbm=None):
+    def __init__(self, name: str = "", findings=None, costs=None, hbm=None):
         self.name = name
         self.findings: list[Finding] = list(findings or [])
+        self.costs: list[CollectiveCost] = list(costs or [])
         self.hbm: list[HBMCost] = list(hbm or [])
+
+    # -- aggregation ------------------------------------------------------
+
+    def extend(self, other: "Report") -> "Report":
+        self.findings.extend(other.findings)
+        self.costs.extend(other.costs)
+        self.hbm.extend(other.hbm)
+        return self
 
     @property
     def errors(self) -> list[Finding]:
@@ -93,15 +127,31 @@ class Report:
                      else Severity.ERROR)
         return all(f.severity < threshold for f in self.findings)
 
-    def format(self, costs: bool = True) -> str:
+    def format(self, costs: bool = True, top: int = 8) -> str:
         """The JAX report's text, byte for byte: the findings, worst
-        first, then (``costs``) the HBM table."""
+        first, then (``costs``) the collective table and the HBM
+        table."""
         head = f"analysis: {self.name}" if self.name else "analysis"
         lines = [head]
         if not self.findings:
             lines.append("  no findings: clean")
         for f in sorted(self.findings, key=lambda f: -f.severity):
             lines.extend("  " + ln for ln in f.format().splitlines())
+        if costs and self.costs:
+            lines.append("  bytes over ICI per step (top collectives):")
+            ranked = sorted(self.costs, key=lambda c: -c.total_bytes)
+            for c in ranked[:top]:
+                axes = ",".join(c.axes) or "-"
+                lines.append(
+                    f"    {c.prim:<16} axis={axes:<8} group={c.group_size} "
+                    f"x{c.trips:<5} {_human_bytes(c.total_bytes):>10}  "
+                    f"{c.where}")
+            if len(ranked) > top:
+                rest = sum(c.total_bytes for c in ranked[top:])
+                lines.append(f"    ... {len(ranked) - top} more collectives, "
+                             f"{_human_bytes(rest)}")
+            total = sum(c.total_bytes for c in self.costs)
+            lines.append(f"    total: {_human_bytes(total)}")
         if costs and self.hbm:
             lines.append("  HBM bytes per serve tick (KV-cache streams):")
             for h in sorted(self.hbm, key=lambda h: -h.bytes_per_tick):

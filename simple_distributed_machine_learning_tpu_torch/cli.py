@@ -85,9 +85,15 @@ go over gloo.
 
 One flag is the port's own: ``--device`` (default CUDA; the run raises
 without it unless ``--device cpu`` asks for the CPU). Every other flag of
-the JAX parser is accepted; a flag whose path is not ported exits, when
-set, with one line naming its ROADMAP item (the linter's ``--lint`` and
-``--lint-only``, item 7.4).
+the JAX parser is accepted.
+
+``--lint`` traces the exact steps the run is about to execute — the
+train and eval steps of a training run, the serving-program registry of
+``--serve-sim`` (with the fleet protocol's bounded model check) — and
+lints them before the card runs one (fake tensors: no FLOP, no kernel
+launch, no device memory); an ERROR finding exits 2. ``--lint-only``
+exits after the preflight. ``SDML_LINT_INJECT=<tag>`` seeds one ERROR
+finding (the gate drill).
 
 ``--overlap ring`` runs the tensor-parallel sums and the expert dispatch
 as the ring schedules of ``parallel/overlap.py``. ``--serve-tp T`` serves
@@ -389,9 +395,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="smoke mode: train only N batches of one epoch, "
                         "then the normal eval")
     g.add_argument('--lint', action='store_true',
-                   help="static-analysis preflight (ROADMAP item 7)")
+                   help="static-analysis preflight (analysis/): trace the "
+                        "exact steps this run is about to execute and lint "
+                        "them before the card runs one — train+eval steps "
+                        "for a training run (permute deadlocks, unreduced "
+                        "gradients, mesh-axis validity, dtype drift, "
+                        "in-place buffer hazards); the whole serving-"
+                        "program registry for --serve-sim (KV scatter "
+                        "bounds, buffer flow through the tick, build memo, "
+                        "HBM bytes/tick); abort on ERROR findings")
     g.add_argument('--lint-only', action='store_true',
-                   help="static-analysis preflight (ROADMAP item 7)")
+                   help="run the --lint preflight and exit without "
+                        "training/serving (exit 0 clean, 2 on ERROR "
+                        "findings)")
     g.add_argument('--peer-timeout', type=float, default=60.0,
                    help="multi-process dead-peer watchdog: abort with a "
                         "nonzero exit if a peer crashes or stops "
@@ -403,26 +419,11 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-# flags whose paths are not ported: set to anything but the default, each
-# exits naming its ROADMAP item. The serve flags not named here run
-_UNPORTED = {"lint": _roadmap.ANALYSIS, "lint_only": _roadmap.ANALYSIS}
-
-
-def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
-    for dest, value in vars(args).items():
-        item = _UNPORTED.get(dest)
-        if item is not None and value != parser.get_default(dest):
-            flag = "--" + dest.replace("_", "-")
-            raise SystemExit(str(_roadmap.not_ported(
-                f"{flag} {value}", item)))
-
-
 def main(argv: list[str] | None = None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.rank is None and args.world_size != 1:
         raise SystemExit("Must provide rank argument.")
-    _refuse_unported(parser, args)
     if args.world_size > 1:
         _refuse_one_process_paths(args)
     from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
@@ -686,6 +687,24 @@ def _total_steps(args, train_ds) -> int:
 
 
 def _fit(args, trainer) -> None:
+    if args.lint or args.lint_only:
+        # the preflight gate: lint the EXACT steps this trainer is about
+        # to execute (same pipeline, optimizer, in-place updates and batch
+        # shapes) — fake tensors: no FLOP, no launch, no device memory
+        from simple_distributed_machine_learning_tpu_torch.analysis.preflight import (  # noqa: E501
+            lint_trainer,
+        )
+        from simple_distributed_machine_learning_tpu_torch.analysis.programs import (  # noqa: E501
+            _injected_findings,
+        )
+        report = lint_trainer(trainer)
+        report.findings.extend(_injected_findings())
+        trainer._print(report.format(costs=True))
+        if not report.ok():
+            raise SystemExit(2)
+        trainer._print("| --lint: preflight clean")
+        if args.lint_only:
+            return
     if args.eval_only:
         if args.checkpoint_dir and trainer.start_epoch == 1:
             trainer._print("| --eval-only: no checkpoint found, evaluating "
@@ -1130,6 +1149,48 @@ def _run_chaos(args, n_stages: int, device) -> None:
             "the drill is vacuous; fix the schedule")
 
 
+def _lint_serve_gate(args, stages, serve_cfg, mesh, draft_stages,
+                     draft_cfg, device) -> None:
+    """The serve-path preflight gate: trace and lint the EXACT programs
+    the ticks will run (block/position contracts through the
+    scatter-bounds pass, in-place buffer flow through the composite tick,
+    the build memo and retrace policy against the simulator's prompt
+    buckets, the HBM bytes per tick with the K4 nodes' rows reconciled),
+    then the fleet protocol's bounded model check — exit 2 on an ERROR.
+    The solo-parity decoder no tick runs is ``--serve``'s to lint."""
+    from simple_distributed_machine_learning_tpu_torch.analysis.programs import (  # noqa: E501
+        ServeSpec,
+        lint_serve,
+    )
+    from simple_distributed_machine_learning_tpu_torch.analysis.protocol import (  # noqa: E501
+        check_protocol,
+    )
+    buckets = tuple(args.serve_shared_prefix + p for p in GPT_SERVE_PROMPTS)
+    report = lint_serve(stages, ServeSpec(
+        serve_cfg, n_slots=args.serve_slots, kv_layout="paged",
+        block_size=args.serve_block_size,
+        prefill_chunk=(args.serve_prefill_chunk or None),
+        prompt_lens=buckets, spec_k=args.serve_spec_k,
+        draft_cfg=draft_cfg, attn_kernel="fused",
+        host_cache_blocks=args.serve_host_blocks,
+        prefetch_ticks=args.serve_prefetch_ticks,
+        # the engine's AdapterStore sizes the bank n_slots + 1 (row 0 =
+        # the zero base row): the linted layouts are the EXACT programs
+        n_adapters=(args.serve_slots + 1 if args.serve_adapters else 0),
+        adapter_rank=(args.serve_adapter_rank if args.serve_adapters
+                      else 0)),
+        mesh=mesh, draft_stages=draft_stages, device=device, anchor=False)
+    print(report.format(costs=True))
+    if not report.ok():
+        raise SystemExit(2)
+    proto = check_protocol()
+    print(f"| serve --lint protocol: {proto.verdict}")
+    if not proto.ok():
+        print(proto.format(costs=False))
+        raise SystemExit(2)
+    print("| serve --lint: preflight clean")
+
+
 def _run_serve(args, n_stages: int, device) -> None:
     """--serve-sim N: continuous-batching inference over a simulated
     open-loop Poisson trace. Params come from --checkpoint-dir when a
@@ -1217,6 +1278,11 @@ def _run_serve(args, n_stages: int, device) -> None:
                                         n_layers=max(1, cfg.n_layers // 2))
         draft_stages = make_gpt_stages(fold_in(args.seed, 1), draft_cfg, 1,
                                        device)[0]
+    if args.lint or args.lint_only:
+        _lint_serve_gate(args, stages, serve_cfg, mesh, draft_stages,
+                         draft_cfg, device)
+        if args.lint_only:
+            return
     params = None
     ckpt = (os.path.join(args.checkpoint_dir, "state.npz")
             if args.checkpoint_dir else None)

@@ -1207,6 +1207,54 @@ def _sampling_tensors(n: int, temperature, top_k, top_p, dev):
 
 # -- solo cached decode --------------------------------------------------------
 
+
+# -- the build memo -------------------------------------------------------------
+
+#: built serving programs by static config (the JAX ``_DECODE_BUILD_CACHE``):
+#: key -> (program, weak references to the stages it was built for)
+_DECODE_BUILD_CACHE: dict = {}
+
+
+def _memo_builder(build):
+    """Memoize a decode builder on its static config, as the JAX package's
+    ``_memo_build`` does: two calls with the same stages (by identity),
+    config, lengths, cache dtype, mesh, kernel and device return the SAME
+    program, so every engine and test built alike shares it. The program
+    reads the weights from its ``params`` argument, never from the stages
+    it was built for; an entry whose stages are gone is rebuilt. An
+    unhashable argument builds afresh."""
+    import functools
+    import inspect
+    import weakref
+
+    sig = inspect.signature(build)
+
+    @functools.wraps(build)
+    def memo(*args, **kwargs):
+        bound = sig.bind(*args, **kwargs)
+        bound.apply_defaults()
+        key, refs = [build.__name__], []
+        for name, value in bound.arguments.items():
+            if name in ("stages", "draft_stages"):
+                key.append((name, tuple(id(s) for s in value)))
+                refs.extend(value)
+                continue
+            try:
+                hash(value)
+            except TypeError:
+                return build(*args, **kwargs)
+            key.append((name, value))
+        key = tuple(key)
+        hit = _DECODE_BUILD_CACHE.get(key)
+        if hit is not None and all(r() is s for r, s in zip(hit[1], refs)):
+            return hit[0]
+        fn = build(*args, **kwargs)
+        _DECODE_BUILD_CACHE[key] = (fn, [weakref.ref(s) for s in refs])
+        return fn
+
+    return memo
+
+
 def _validate_decode_build(stages, cfg, prompt_len, n_new, caller):
     _check_ported(cfg, caller, decode=True)
     if prompt_len < 1:
@@ -1246,6 +1294,7 @@ def _dense_block_step(bp, h, li, kc, vc, i, total, n_heads):
     return _dense_attn_tail(bp, h, a)
 
 
+@_memo_builder
 def make_cached_decoder(stages, cfg: GPTConfig, prompt_len: int, n_new: int,
                         temperature: float = 0.0, top_k: int | None = None,
                         top_p: float | None = None, cache_dtype=None,
@@ -1372,6 +1421,7 @@ def _validate_slot_build(stages, cfg: GPTConfig, max_len: int, caller: str,
     _check_embed_matches(stages, cfg)
 
 
+@_memo_builder
 def make_slot_prefill(stages, cfg: GPTConfig, max_len: int,
                       cache_dtype=None, mesh=None, adapters: bool = False,
                       device=None):
@@ -1470,6 +1520,7 @@ def _slot_decode_fwd(blocks, embed, head, kc, vc, toks, pos, H, at=None,
     return kc, vc, _head_logprobs(head, h[:, 0])
 
 
+@_memo_builder
 def make_slot_decode_step(stages, cfg: GPTConfig, max_len: int,
                           cache_dtype=None, mesh=None, adapters: bool = False,
                           device=None):
@@ -1582,6 +1633,7 @@ def _check_attn_kernel(kernel: str, caller: str) -> str:
     return kernel
 
 
+@_memo_builder
 def make_paged_prefill_chunk(stages, cfg: GPTConfig, max_len: int,
                              block_size: int, cache_dtype=None, mesh=None,
                              adapters: bool = False, device=None):
@@ -1657,6 +1709,7 @@ def _paged_chunk_fwd(blocks, embed, head, kc, vc, tokens, p0, table, H, bs,
     return kc, vc, _head_logprobs(head, h[:, -1])[0]
 
 
+@_memo_builder
 def make_paged_decode_step(stages, cfg: GPTConfig, max_len: int,
                            block_size: int, cache_dtype=None, mesh=None,
                            kernel: str = "dense", adapters: bool = False,
@@ -1732,6 +1785,7 @@ def _paged_decode_fwd(blocks, embed, head, kc, vc, toks, pos, tables, H, bs,
     return kc, vc, _head_logprobs(head, h[:, 0])
 
 
+@_memo_builder
 def make_paged_block_copy():
     """The copy-on-write op: ``copy(kc, vc, dst, src) -> (kc, vc)``
     duplicates physical block ``src`` into ``dst`` across every layer (and
@@ -1753,6 +1807,7 @@ def make_paged_block_copy():
     return copy
 
 
+@_memo_builder
 def make_adapter_bank_update():
     """The tick-boundary adapter upload: ``update(bank, idx, adapter) ->
     bank`` rewrites ONE row of the stacked adapter bank in place (the JAX
@@ -1893,6 +1948,7 @@ def _spec_accept_rows(rows, drafts, draft_rows, valid_n, key_data, temps,
             torch.where(sm[:, None], kd_s, key_data))
 
 
+@_memo_builder
 def make_slot_propose(stages, cfg: GPTConfig, max_len: int, spec_k: int,
                       cache_dtype=None, device=None):
     """The draft proposer: ``propose(params, kc, vc, toks [S], pos [S],
@@ -1984,6 +2040,7 @@ def _slot_verify_fwd(blocks, embed, head, kc, vc, xs, qpos, wpos, H,
     return kc, vc, _head_logprobs(head, h)
 
 
+@_memo_builder
 def make_slot_verify_step(stages, cfg: GPTConfig, max_len: int, spec_k: int,
                           cache_dtype=None, mesh=None, adapters: bool = False,
                           device=None):
@@ -2081,6 +2138,7 @@ def _paged_verify_fwd(blocks, embed, head, kc, vc, xs, qpos, wphys, woff,
     return kc, vc, _head_logprobs(head, h)
 
 
+@_memo_builder
 def make_paged_verify_step(stages, cfg: GPTConfig, max_len: int,
                            block_size: int, spec_k: int, cache_dtype=None,
                            mesh=None, kernel: str = "dense",
@@ -2145,6 +2203,7 @@ def _check_spec_tick_build(cfg: GPTConfig, draft_cfg: GPTConfig,
             f"{cfg.vocab}")
 
 
+@_memo_builder
 def make_slot_spec_tick(stages, cfg: GPTConfig, draft_stages,
                         draft_cfg: GPTConfig, max_len: int, spec_k: int,
                         cache_dtype=None, adapters: bool = False,
@@ -2179,6 +2238,7 @@ def make_slot_spec_tick(stages, cfg: GPTConfig, draft_stages,
     return tick
 
 
+@_memo_builder
 def make_paged_spec_tick(stages, cfg: GPTConfig, draft_stages,
                          draft_cfg: GPTConfig, max_len: int,
                          block_size: int, spec_k: int, cache_dtype=None,

@@ -35,6 +35,13 @@ against the JAX kernels, and ``chip_smoke.py``'s against the CUDA ones. A
 CUDA tensor launches the kernel or raises: nothing falls back. Each wrapper
 counts its launches (``flash_forward.launches``, ``flash_dq.launches``,
 ``flash_dkv.launches``).
+
+Inside a program trace (``analysis/trace.py``) the tensors are fake: each
+wrapper then calls its ``torch.library`` custom op (``sdml::flash_forward``,
+``sdml::flash_dq``, ``sdml::flash_dkv``), whose fake implementation gives
+the outputs' shapes — one graph node per launch, nothing run — and notes
+its :func:`launch_spec` for the kernel linter. On real tensors each op is
+its wrapper.
 """
 
 from __future__ import annotations
@@ -47,6 +54,12 @@ import torch
 
 from simple_distributed_machine_learning_tpu_torch._device import (
     resolve_device,
+)
+from simple_distributed_machine_learning_tpu_torch.analysis import (
+    kernels as _kernels,
+)
+from simple_distributed_machine_learning_tpu_torch.analysis import (
+    trace as _trace,
 )
 from simple_distributed_machine_learning_tpu_torch.ops.attention import (
     _merge_heads,
@@ -215,6 +228,9 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     kernel (counted in ``flash_forward.launches``); the CPU computes
     :func:`flash_forward_reference`."""
     _check_qkv(q, k, v, q.device)
+    if _trace.is_fake(q):
+        _kernels.note(lambda: launch_spec("flash_forward", q))
+        return torch.ops.sdml.flash_forward(q, k, v)
     if q.device.type == "cpu":
         return flash_forward_reference(q, k, v)
     _check_kernel_inputs(q)
@@ -257,6 +273,9 @@ def flash_dq(q, k, v, do, m, linv, delta) -> torch.Tensor:
     ``flash_dq.launches``); the CPU computes the plain version."""
     _check_qkv(q, k, v, q.device)
     _check_rows(q, m, linv, delta)
+    if _trace.is_fake(q):
+        _kernels.note(lambda: launch_spec("flash_dq", q))
+        return torch.ops.sdml.flash_dq(q, k, v, do, m, linv, delta)
     if q.device.type == "cpu":
         return flash_dq_reference(q, k, v, do, m, linv, delta)
     (q, k, v, do), (m, linv, delta) = _bwd_operands(q, k, v, do, m, linv,
@@ -281,6 +300,9 @@ def flash_dkv(q, k, v, do, m, linv, delta):
     version."""
     _check_qkv(q, k, v, q.device)
     _check_rows(q, m, linv, delta)
+    if _trace.is_fake(q):
+        _kernels.note(lambda: launch_spec("flash_dkv", q))
+        return torch.ops.sdml.flash_dkv(q, k, v, do, m, linv, delta)
     if q.device.type == "cpu":
         return flash_dkv_reference(q, k, v, do, m, linv, delta)
     (q, k, v, do), (m, linv, delta) = _bwd_operands(q, k, v, do, m, linv,
@@ -297,6 +319,125 @@ def flash_dkv(q, k, v, do, m, linv, delta):
 
 
 flash_dkv.launches = 0
+
+
+# -- the kernels as graph nodes (program traces) ---------------------------------
+
+@torch.library.custom_op("sdml::flash_forward", mutates_args=())
+def _flash_forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1 as a graph node: on real tensors the wrapper."""
+    return flash_forward(q, k, v)
+
+
+@_flash_forward_op.register_fake
+def _(q, k, v):
+    rows = q.new_empty(tuple(q.shape[:3]), dtype=torch.float32)
+    return torch.empty_like(q), rows, torch.empty_like(rows)
+
+
+@torch.library.custom_op("sdml::flash_dq", mutates_args=())
+def _flash_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 do: torch.Tensor, m: torch.Tensor, linv: torch.Tensor,
+                 delta: torch.Tensor) -> torch.Tensor:
+    """K2 as a graph node: on real tensors the wrapper."""
+    return flash_dq(q, k, v, do, m, linv, delta)
+
+
+@_flash_dq_op.register_fake
+def _(q, k, v, do, m, linv, delta):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("sdml::flash_dkv", mutates_args=())
+def _flash_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, m: torch.Tensor, linv: torch.Tensor,
+                  delta: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3 as a graph node: on real tensors the wrapper."""
+    return flash_dkv(q, k, v, do, m, linv, delta)
+
+
+@_flash_dkv_op.register_fake
+def _(q, k, v, do, m, linv, delta):
+    return torch.empty_like(k), torch.empty_like(v)
+
+
+#: rows and keys per tile of the CUDA kernels (``csrc/flash_attention.cu``
+#: ``kTile``): a grid cell's block of q (K1, K2) or k/v (K3) rows
+TILE = 64
+
+
+def launch_spec(kernel: str, q: torch.Tensor):
+    """The :class:`~..analysis.kernels.LaunchSpec` of one launch of K1
+    (``"flash_forward"``), K2 (``"flash_dq"``) or K3 (``"flash_dkv"``) on
+    q/k/v ``[B, H, T, dh]`` (shapes and dtypes only), over the kernels'
+    contiguous ``[B*H, T, dh]`` rows.
+
+    Grid ``(B*H, ceil(T/64))``, both parallel; inside each block a loop
+    over the other side's 64-row tiles (arbitrary: the causal kernels stop
+    at the diagonal, so this is the most they read). K1 and K2: the cell
+    owns q tile ``i`` (q, do and the row statistics at ``(bh, i)``), the
+    loop reads k/v tile ``kb``; K3: the cell owns k/v tile ``j`` and the
+    loop reads q, do and the statistics of tile ``qb``. The running sums
+    are f32."""
+    from simple_distributed_machine_learning_tpu_torch.analysis.kernels import (  # noqa: E501
+        LaunchSpec,
+        Operand,
+    )
+    B, H, T, dh = q.shape
+    BH, n = B * H, -(-T // TILE)
+    rows = (BH, T, dh)
+    blk = (1, TILE, dh)
+    stat, sblk = (BH, T), (1, TILE)
+
+    def own(bh, i, kb):
+        return (bh, i, 0)
+
+    def other(bh, i, kb):
+        return (bh, kb, 0)
+
+    def own_stat(bh, i, kb):
+        return (bh, i)
+
+    def other_stat(bh, i, kb):
+        return (bh, kb)
+
+    def op(name, shape, block, dtype, at, output=False):
+        return Operand(name, shape, block, dtype, at, output=output)
+
+    f32 = torch.float32
+    if kernel == "flash_forward":
+        ops = (op("q", rows, blk, q.dtype, own),
+               op("k", rows, blk, q.dtype, other),
+               op("v", rows, blk, q.dtype, other),
+               op("o", rows, blk, q.dtype, own, True),
+               op("l", stat, sblk, f32, own_stat, True),
+               op("m", stat, sblk, f32, own_stat, True))
+    elif kernel == "flash_dq":
+        ops = (op("q", rows, blk, q.dtype, own),
+               op("do", rows, blk, q.dtype, own),
+               op("m", stat, sblk, f32, own_stat),
+               op("linv", stat, sblk, f32, own_stat),
+               op("delta", stat, sblk, f32, own_stat),
+               op("k", rows, blk, q.dtype, other),
+               op("v", rows, blk, q.dtype, other),
+               op("dq", rows, blk, q.dtype, own, True))
+    elif kernel == "flash_dkv":
+        ops = (op("k", rows, blk, q.dtype, own),
+               op("v", rows, blk, q.dtype, own),
+               op("q", rows, blk, q.dtype, other),
+               op("do", rows, blk, q.dtype, other),
+               op("m", stat, sblk, f32, other_stat),
+               op("linv", stat, sblk, f32, other_stat),
+               op("delta", stat, sblk, f32, other_stat),
+               op("dk", rows, blk, q.dtype, own, True),
+               op("dv", rows, blk, q.dtype, own, True))
+    else:
+        raise ValueError(f"no flash kernel {kernel!r}")
+    return LaunchSpec(kernel=kernel,
+                      where=f"{__name__}.{kernel} (ops/csrc/flash_attention.cu)",
+                      grid=(BH, n), loop=(n,), operands=ops,
+                      scratch=(torch.float32,))
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -317,7 +458,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, l, m = ctx.saved_tensors
         do = do.contiguous()
-        if q.device.type == "cpu":
+        if q.device.type == "cpu" and not _trace.is_fake(q):
             return flash_backward_reference(q, k, v, o, l, m, do)
         linv, delta = _backward_stats(o, l, do)
         dq = flash_dq(q, k, v, do, m, linv, delta)

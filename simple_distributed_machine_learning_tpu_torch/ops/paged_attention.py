@@ -27,6 +27,13 @@ kernel linter (``analysis/kernels.py``); inside
 ``kernels.record_launches()`` the wrapper appends it to the log on both
 paths (through ``kernels.note``).
 
+Inside a program trace (``analysis/trace.py``) the arguments are fake
+tensors: the wrapper then calls the ``torch.library`` custom op
+``sdml::paged_attention``, whose fake implementation gives the output's
+shape, so the launch is one graph node and nothing runs. On real tensors
+that op is the wrapper itself (the plain version on the CPU, the kernel
+on CUDA); the wrapper calls the kernel directly, past the dispatcher.
+
 Masks: the kernel masks with the finite ``NEG_INF`` and floors the
 softmax denominator at ``1e-30`` like the TPU kernel; the plain version
 masks with ``-inf`` like the dense serving path. Position 0 is always
@@ -46,6 +53,9 @@ from simple_distributed_machine_learning_tpu_torch._device import (
 )
 from simple_distributed_machine_learning_tpu_torch.analysis import (
     kernels as _kernels,
+)
+from simple_distributed_machine_learning_tpu_torch.analysis import (
+    trace as _trace,
 )
 
 NEG_INF = -1e30
@@ -248,6 +258,10 @@ def paged_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     _check_on(dev, [q, kc, vc, tables, qpos, *scales])
     _kernels.note(lambda: launch_spec(q, kc, vc, tables, qpos, block_size=bs,
                                       kscale=kscale, vscale=vscale))
+    if _trace.is_fake(q):
+        # a program trace: the launch is a graph node, nothing runs
+        return torch.ops.sdml.paged_attention(q, kc, vc, tables, qpos, bs,
+                                              kscale, vscale)
     if dev.type == "cpu":
         return paged_attention_reference(q, kc, vc, tables, qpos,
                                          block_size=bs, kscale=kscale,
@@ -256,6 +270,21 @@ def paged_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
 
 
 paged_attention.launches = 0
+
+
+@torch.library.custom_op("sdml::paged_attention", mutates_args=())
+def _paged_attention_op(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                        tables: torch.Tensor, qpos: torch.Tensor,
+                        block_size: int, kscale: torch.Tensor | None,
+                        vscale: torch.Tensor | None) -> torch.Tensor:
+    """K4 as a graph node: on real tensors the wrapper's own path."""
+    return paged_attention(q, kc, vc, tables, qpos, block_size=block_size,
+                           kscale=kscale, vscale=vscale, device=q.device)
+
+
+@_paged_attention_op.register_fake
+def _(q, kc, vc, tables, qpos, block_size, kscale, vscale):
+    return q.new_empty(tuple(q.shape), dtype=torch.float32)
 
 
 def _launch(q, kc, vc, tables, qpos, bs, kscale, vscale) -> torch.Tensor:

@@ -47,6 +47,12 @@ axis collectives (:func:`permute` and its one-hop :func:`ring_shift`,
 :func:`all_to_all`, :func:`all_gather`) are a shuffle of tensors between the coordinates of
 one process and gloo point-to-point or ``all_to_all_single`` across
 processes, each differentiable.
+
+Inside a program trace (``analysis/trace.py``, fake tensors) every one of
+these sites notes its collective for the linter — the primitive, the
+axis, the group's width, the tensors — and the wire moves nothing: a
+``recv`` gives zeros of its shape, an ``all_reduce`` or ``broadcast`` a
+copy of its input.
 """
 
 from __future__ import annotations
@@ -61,6 +67,9 @@ import torch
 
 from simple_distributed_machine_learning_tpu_torch._device import (
     resolve_device,
+)
+from simple_distributed_machine_learning_tpu_torch.analysis import (
+    trace as _trace,
 )
 
 DATA_AXIS = "data"
@@ -199,6 +208,9 @@ class Mesh:
     def view(self, d: int, s: int, axis: str) -> AxisView:
         """``axis`` (model, seq or expert) at ``(d, s)`` as this process
         sees it."""
+        if axis not in _KW:
+            raise ValueError(f"unknown mesh axis {axis!r}: the mesh binds "
+                             f"{sorted(self.shape)}")
         size = self.shape[axis]
         ranks = tuple(self.owner(d, s, **{_KW[axis]: i}) for i in range(size))
         return AxisView(axis, size, self._axis_range(d, s, axis), ranks,
@@ -406,9 +418,37 @@ def bootstrap_distributed(rank: int, world_size: int, master_addr: str,
 WIRE = {"sends": 0, "bytes": 0}
 
 
+class _Traced:
+    """The pending work of a send inside a trace: nothing to wait for."""
+
+    @staticmethod
+    def wait() -> None:
+        return None
+
+
+def _group_ranks(group) -> tuple:
+    """The ranks of ``group`` (None: the world); () without a process
+    group."""
+    if not _dist_ready():
+        return ()
+    if group is None:
+        return tuple(range(torch.distributed.get_world_size()))
+    return tuple(torch.distributed.get_process_group_ranks(group))
+
+
+def _dist_ready() -> bool:
+    return (torch.distributed.is_available()
+            and torch.distributed.is_initialized())
+
+
 def send(t: torch.Tensor, dst: int, tag: int = 0):
     """Send ``t`` to rank ``dst`` over gloo, staged through the host;
-    returns the pending work (its buffer stays alive with it)."""
+    returns the pending work (its buffer stays alive with it). Inside a
+    program trace (``analysis/trace.py``) it only notes the send."""
+    if _trace.active():
+        _trace.note_collective("send", (), 2, [t], [], site="send",
+                               peer=int(dst), tag=int(tag))
+        return _Traced, t
     host = t.detach().to("cpu").reshape(-1).contiguous()
     work = torch.distributed.isend(host, dst, tag=tag)
     WIRE["sends"] += 1
@@ -418,7 +458,13 @@ def send(t: torch.Tensor, dst: int, tag: int = 0):
 
 def recv(shape, dtype, src: int, device, tag: int = 0) -> torch.Tensor:
     """Receive a ``shape``/``dtype`` tensor from rank ``src`` onto
-    ``device`` (the wire is flat: only the element count must match)."""
+    ``device`` (the wire is flat: only the element count must match).
+    Inside a program trace it notes the receive and returns zeros."""
+    if _trace.active():
+        out = torch.zeros(tuple(shape), dtype=dtype, device=device)
+        _trace.note_collective("recv", (), 2, [], [out], site="recv",
+                               peer=int(src), tag=int(tag))
+        return out
     host = torch.empty(math.prod(shape), dtype=dtype)
     torch.distributed.recv(host, src, tag=tag)
     return host.reshape(tuple(shape)).to(device)
@@ -431,9 +477,17 @@ def wait_all(pending: list) -> None:
     pending.clear()
 
 
-def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
+def all_reduce(t: torch.Tensor, group=None, axes=()) -> torch.Tensor:
     """Sum ``t`` over ``group`` (None: the world) through the host;
-    returns the sum on ``t``'s device."""
+    returns the sum on ``t``'s device. ``axes`` names the mesh axes the
+    group spans, for a program trace, where the sum is only noted (its
+    result stands in as a copy of ``t``)."""
+    if _trace.active():
+        out = t.detach().clone()
+        ranks = _group_ranks(group)
+        _trace.note_collective("psum", axes, max(1, len(ranks)), [t],
+                               [out], site="all_reduce", ranks=ranks)
+        return out
     host = t.detach().to("cpu").clone()
     torch.distributed.all_reduce(host, group=group)
     return host.to(t.device)
@@ -441,7 +495,14 @@ def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
 
 def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
     """``t`` of rank ``src`` on every rank of ``group`` (None: the world),
-    on ``t``'s device."""
+    on ``t``'s device. Inside a program trace it only notes."""
+    if _trace.active():
+        out = t.detach().clone()
+        ranks = _group_ranks(group)
+        _trace.note_collective("pbroadcast", (), max(1, len(ranks)), [t],
+                               [out], site="broadcast", peer=int(src),
+                               ranks=ranks)
+        return out
     host = t.detach().to("cpu").clone()
     torch.distributed.broadcast(host, src, group=group)
     return host.to(t.device)
@@ -466,7 +527,10 @@ def _permute_raw(xs, view: AxisView, offset: int, tag: int) -> list:
     n, owned = view.size, list(view.owned)
     devs = [x.device for x in xs]
     if view.group is None:
-        return [_to(xs[(c - offset) % n], devs[c]) for c in range(n)]
+        out = [_to(xs[(c - offset) % n], devs[c]) for c in range(n)]
+        _trace.note_collective("ppermute", view.name, n, list(xs), out,
+                               site="permute", offset=offset)
+        return out
     me = view.ranks[owned[0]]
     pending = []
     for k, c in enumerate(owned):
@@ -532,6 +596,14 @@ def _a2a_wire(xs, view: AxisView, split_dim: int, concat_dim: int) -> list:
     peers = sorted(set(view.ranks))
     blocks = [[c for c in range(n) if view.ranks[c] == r] for r in peers]
     pieces = [_pieces(x, n, split_dim) for x in xs]
+    if _trace.active():
+        # the shapes the exchange gives, from this process's own pieces
+        out = [torch.cat([p[j % len(p)] for j in range(n)], concat_dim)
+               for p in pieces]
+        _trace.note_collective("all_to_all", view.name, n, list(xs), out,
+                               site="all_to_all",
+                               ranks=tuple(view.ranks))
+        return out
     shape = pieces[0][0].shape
     dev, dtype = xs[0].device, xs[0].dtype
     out = torch.cat([pieces[i][j].reshape(-1) for blk in blocks
@@ -576,8 +648,11 @@ def all_to_all(xs: list, view: AxisView, split_dim: int,
     n = view.size
     if view.group is None:
         pieces = [_pieces(x, n, split_dim) for x in xs]
-        return [torch.cat([p[j] for p in pieces], concat_dim)
-                for j in range(n)]
+        out = [torch.cat([p[j] for p in pieces], concat_dim)
+               for j in range(n)]
+        _trace.note_collective("all_to_all", view.name, n, list(xs), out,
+                               site="all_to_all")
+        return out
     return list(_AllToAll.apply(view, split_dim, concat_dim, *xs))
 
 
@@ -590,8 +665,14 @@ class _AllGather(torch.autograd.Function):
     def forward(ctx, view, dim, *xs):
         ctx.view, ctx.dim = view, dim
         local = torch.cat(xs, dim)
-        host = local.detach().to("cpu").contiguous()
         peers = len(set(view.ranks))
+        if _trace.active():
+            out = torch.cat([local] * peers, dim)
+            _trace.note_collective("all_gather", view.name, view.size,
+                                   list(xs), [out], site="all_gather",
+                                   ranks=tuple(view.ranks))
+            return out
+        host = local.detach().to("cpu").contiguous()
         got = [torch.empty_like(host) for _ in range(peers)]
         torch.distributed.all_gather(got, host, group=view.group)
         return torch.cat(got, dim).to(local.device)
@@ -609,7 +690,10 @@ def all_gather(xs: list, view: AxisView, dim: int) -> torch.Tensor:
     same on every coordinate — a ``cat`` within the process, gloo across
     processes."""
     if view.group is None:
-        return torch.cat(list(xs), dim)
+        out = torch.cat(list(xs), dim)
+        _trace.note_collective("all_gather", view.name, view.size,
+                               list(xs), [out], site="all_gather")
+        return out
     return _AllGather.apply(view, dim, *xs)
 
 
@@ -621,4 +705,5 @@ def axis_mean(parts: list, view: AxisView) -> torch.Tensor:
     from simple_distributed_machine_learning_tpu_torch.parallel.tensor import (  # noqa: E501
         model_sum,
     )
-    return model_sum(list(parts), view.group) / view.size
+    return model_sum(list(parts), view.group, axis=view.name,
+                     size=view.size) / view.size

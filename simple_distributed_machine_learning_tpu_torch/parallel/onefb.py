@@ -148,8 +148,9 @@ def _replica_ticks(pipe, params, d, batch, b, seed, deterministic, den,
                            for g, c in zip(got[len(leaves[s]):],
                                            _tensors(h))]
                     if s > a:
-                        bwd_out[s - 1] = [g.to(mesh.device(d, s - 1))
-                                          for g in ghs]
+                        bwd_out[s - 1] = pipe._hop(ghs,
+                                                   mesh.device(d, s - 1),
+                                                   offset=-1)
                     else:
                         for g, (_, q) in zip(ghs, pipe._inputs(h)):
                             pipe._send_cot(d, s, g, pending, q)
@@ -191,7 +192,7 @@ def _replica_ticks(pipe, params, d, batch, b, seed, deterministic, den,
                 if aux is not None:
                     aux_sum = _add(aux_sum, weighted(aux).to(num.device))
                 if s < z:
-                    fwd_out[s + 1] = (pipe._to(y, mesh.device(d, s + 1)),
+                    fwd_out[s + 1] = (pipe._hop(y, mesh.device(d, s + 1)),
                                       rng)
                 else:
                     pipe._send_act(d, s, y, rng, pending)

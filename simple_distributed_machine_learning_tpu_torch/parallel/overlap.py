@@ -53,6 +53,9 @@ from __future__ import annotations
 
 import torch
 
+from simple_distributed_machine_learning_tpu_torch.analysis import (
+    trace as _trace,
+)
 from simple_distributed_machine_learning_tpu_torch.parallel import (
     mesh as mesh_lib,
 )
@@ -129,8 +132,11 @@ def _ring_psum_impl(xs, view, sign: int = 1, tag: int = _TAG_FWD):
         z = _to(xs[0], dev)
         for x in xs[1:]:
             z = z + _to(x, dev)
-        return z if view.group is None else mesh_lib.all_reduce(z,
-                                                                view.group)
+        if view.group is None:
+            _trace.note_collective("psum", view.name, mp, list(xs), [z],
+                                   site="ring_psum")
+            return z
+        return mesh_lib.all_reduce(z, view.group, axes=(view.name,))
     xt = [x.movedim(-1, 0) for x in xs]
     acc = _ring_reduce_scatter_impl(xt, view, sign, tag)
     return _ring_all_gather_impl(acc, view, sign, tag).movedim(0, -1)
@@ -227,6 +233,8 @@ def ring_all_gather(xs: list, view) -> list:
     if view.size == 1:
         return xs
     y = _RingAllGather.apply(view, *xs)
+    _trace.note_collective("all_gather", view.name, view.size, xs, [y],
+                           site="ring_all_gather", summary=True)
     return [y] * len(xs)
 
 
@@ -278,6 +286,8 @@ def ring_psum(xs: list, view) -> list:
     if view.size == 1:
         return xs
     y = _RingPsum.apply(view, *xs)
+    _trace.note_collective("psum", view.name, view.size, xs, [y],
+                           site="ring_psum", summary=True)
     return [y] * len(xs)
 
 

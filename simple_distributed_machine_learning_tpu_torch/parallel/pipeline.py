@@ -87,6 +87,9 @@ from torch.utils.checkpoint import checkpoint as _checkpoint
 from simple_distributed_machine_learning_tpu_torch._device import (
     resolve_device,
 )
+from simple_distributed_machine_learning_tpu_torch.analysis import (
+    trace as _trace,
+)
 from simple_distributed_machine_learning_tpu_torch.ops.losses import nll_loss
 from simple_distributed_machine_learning_tpu_torch.ops.random import fold_in
 from simple_distributed_machine_learning_tpu_torch.parallel import (
@@ -465,6 +468,9 @@ class Pipeline:
                     (M, b) + tuple(tgt.shape[1:]))
                 wm = w[rows].to(device=last, dtype=torch.float32).reshape(
                     M, b)
+            # replica d's own rows: seeded with the data axis for the
+            # program linter's replication analysis
+            _trace.note_vary([xm, tm, wm], mesh_lib.DATA_AXIS)
             out[d] = (xm, tm, wm)
         return out, b
 
@@ -481,9 +487,15 @@ class Pipeline:
         for v in values[1:]:
             total = total + v
         S = self.n_stages - 1
+        axes = ((mesh_lib.DATA_AXIS, mesh_lib.SEQ_AXIS) if seq
+                else (mesh_lib.DATA_AXIS,))
         group = (self.mesh.grad_group(S) if seq
                  else self.mesh.data_group(S))
-        return total if group is None else mesh_lib.all_reduce(total, group)
+        if group is None:
+            _trace.note_collective("psum", axes, len(values), values,
+                                   [total], site="Pipeline._last_sum")
+            return total
+        return mesh_lib.all_reduce(total, group, axes=axes)
 
     def _to_every_rank(self, values: torch.Tensor | None,
                        size: int) -> torch.Tensor:
@@ -513,7 +525,9 @@ class Pipeline:
             seed = torch.randint(0, 2 ** 62, (1,), generator=key, device=dev)
             if self.mesh is not None and self.mesh.distributed:
                 seed = mesh_lib.broadcast(seed.cpu(), 0)
-            return int(seed.item())
+            # a program trace has no value to read: any seed traces the
+            # same program
+            return 0 if _trace.active() else int(seed.item())
         return int(key)
 
     def _stream_start(self, seed: int | None, g: int, device,
@@ -566,6 +580,10 @@ class Pipeline:
         if isinstance(p, Shards):
             view = self.mesh.view(d, s, p.axis)
             p = Shards([p[i] for i in view.owned], view.group, p.axis, view)
+            if _trace.active():
+                # each shard is its coordinate's own: seeded with the axis
+                for shard in p:
+                    _trace.note_vary(list(shard.parameters()), p.axis)
         return p if dev == self.devices[s] else _cast_tree(p, None, dev)
 
     def _seq_input(self, d: int, xm_m: torch.Tensor):
@@ -586,6 +604,28 @@ class Pipeline:
     def _to(self, h, dev):
         return h.map(lambda c: c.to(dev)) if isinstance(h, SeqShards) \
             else h.to(dev)
+
+    def _hop(self, h, dev, offset: int = 1, backward: bool = False):
+        """A stage hop within the process: ``h`` (an activation, a list of
+        cotangents, or seq chunks) onto the next stage's device, noted as
+        a permute over the stage axis for the program linter — with its
+        backward twin when autograd carries the cotangent back
+        (``backward``)."""
+        cots = isinstance(h, list) and not isinstance(h, SeqShards)
+        out = [c.to(dev) for c in h] if cots else self._to(h, dev)
+        if _trace.active():
+            ins = h if cots else _chunks(h)
+            outs = out if cots else _chunks(out)
+            for i, o in zip(ins, outs):
+                _trace.note_collective("ppermute", mesh_lib.STAGE_AXIS,
+                                       self.n_stages, [i], [o],
+                                       site="Pipeline._hop", offset=offset)
+                if backward:
+                    _trace.note_collective(
+                        "ppermute", mesh_lib.STAGE_AXIS, self.n_stages,
+                        [i], [], site="Pipeline._hop (backward)",
+                        offset=-offset)
+        return out
 
     def _token_slices(self, t: torch.Tensor, h) -> list:
         """``t`` (``[b, T, ...]`` targets) per output chunk of ``h``."""
@@ -636,9 +676,12 @@ class Pipeline:
                                     self._wire_dtype(), src, dev,
                                     self._TAG_ACT))
             if stream:
-                size = torch.Generator(device=dev).get_state().numel()
-                rngs.append(mesh_lib.recv((size,), torch.uint8, src, "cpu",
-                                          self._TAG_RNG))
+                local = torch.Generator(device=dev).get_state()
+                state = mesh_lib.recv((local.numel(),), torch.uint8, src,
+                                      "cpu", self._TAG_RNG)
+                # a program trace receives no bytes: the generator takes
+                # a valid state of its own (the draws are not traced)
+                rngs.append(local if _trace.active() else state)
         if self.n_seq == 1:
             return hs[0], (rngs[0] if stream else None)
         view = self.mesh.view(d, s, mesh_lib.SEQ_AXIS)
@@ -678,10 +721,16 @@ class Pipeline:
             grads = rows[0]
             for r in rows[1:]:
                 grads = [a + b for a, b in zip(grads, r)]
+            axes = (mesh_lib.DATA_AXIS, mesh_lib.SEQ_AXIS)
+            for i, g in enumerate(grads):
+                _trace.note_collective("psum", axes, len(rows),
+                                       [r[i] for r in rows], [g],
+                                       site="Pipeline._reduce_grads")
             group = self.mesh.grad_group(s)
             if group is not None and grads:
                 flat = mesh_lib.all_reduce(
-                    torch.cat([g.reshape(-1) for g in grads]), group)
+                    torch.cat([g.reshape(-1) for g in grads]), group,
+                    axes=axes)
                 grads = [f.view_as(g) for f, g in zip(
                     flat.split([g.numel() for g in grads]), grads)]
             out.extend(grads)
@@ -744,9 +793,11 @@ class Pipeline:
                         c.requires_grad_(mode == "grads")
                         ins.append((c, q))
                 for s in stages:
+                    h_s = (self._to(h, mesh.device(d, s)) if s == stages[0]
+                           else self._hop(h, mesh.device(d, s),
+                                          backward=mode == "grads"))
                     h, rng, a = self._stage_call(
-                        s, p[s], self._to(h, mesh.device(d, s)), rng,
-                        deterministic, remat)
+                        s, p[s], h_s, rng, deterministic, remat)
                     if a is not None:
                         a = a.float().to(num.device) * self._aux_scale
                         aux = a if aux is None else aux + a
@@ -814,7 +865,7 @@ class Pipeline:
         if aux is not None and self.mesh.primary:
             vals[1] = aux.double().cpu()
         vals = mesh_lib.all_reduce(vals)
-        if not bool(vals[1]):
+        if not _trace.active() and not bool(vals[1]):
             return vals[0].float().to(self.device)
         return (vals[0].float() + vals[1].float()).to(self.device)
 
@@ -952,3 +1003,8 @@ def fused_reference(stages: Sequence[Stage]) -> Callable:
                 h = h[0]
         return h
     return apply
+
+
+def _chunks(h) -> list:
+    """The tensors of a hop: an activation, or its seq chunks."""
+    return list(h) if isinstance(h, SeqShards) else [h]

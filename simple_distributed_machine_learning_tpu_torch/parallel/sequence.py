@@ -26,6 +26,9 @@ from __future__ import annotations
 
 import torch
 
+from simple_distributed_machine_learning_tpu_torch.analysis import (
+    trace as _trace,
+)
 from simple_distributed_machine_learning_tpu_torch.ops.attention import (
     SEQ_AXIS,
     causal_attention_core,
@@ -62,7 +65,10 @@ def seq_shards(x: torch.Tensor, n_seq: int, view: AxisView | None = None
         raise ValueError(f"token axis {x.shape[1]} not divisible by the "
                          f"seq axis size {n_seq}")
     t = x.shape[1] // n_seq
-    return SeqShards([x[:, i * t:(i + 1) * t] for i in view.owned], view)
+    chunks = [x[:, i * t:(i + 1) * t] for i in view.owned]
+    # each chunk is its seq coordinate's own, for the program linter
+    _trace.note_vary(chunks, SEQ_AXIS)
+    return SeqShards(chunks, view)
 
 
 def ulysses_attention(params, x: SeqShards, n_heads: int,

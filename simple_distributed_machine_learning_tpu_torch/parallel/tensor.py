@@ -45,6 +45,9 @@ from __future__ import annotations
 
 import torch
 
+from simple_distributed_machine_learning_tpu_torch.analysis import (
+    trace as _trace,
+)
 from simple_distributed_machine_learning_tpu_torch.ops.layers import (
     init_generator,
     linear_init,
@@ -88,7 +91,8 @@ class _GradSync(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct):
-        return mesh_lib.all_reduce(ct, ctx.group), None
+        return mesh_lib.all_reduce(ct, ctx.group,
+                                   axes=(mesh_lib.MODEL_AXIS,)), None
 
 
 class _GradSyncRing(torch.autograd.Function):
@@ -112,12 +116,12 @@ class _ModelSum(torch.autograd.Function):
     coordinate already holds the full cotangent of the replicated sum)."""
 
     @staticmethod
-    def forward(ctx, z, group):
-        return mesh_lib.all_reduce(z, group)
+    def forward(ctx, z, group, axis):
+        return mesh_lib.all_reduce(z, group, axes=(axis,))
 
     @staticmethod
     def backward(ctx, ct):
-        return ct, None
+        return ct, None, None
 
 
 class _Tie(torch.autograd.Function):
@@ -155,13 +159,20 @@ def grad_sync(x: torch.Tensor, group=None, overlap: str = "none",
     return _GradSync.apply(x, group)
 
 
-def model_sum(parts, group=None) -> torch.Tensor:
+def model_sum(parts, group=None, axis: str = mesh_lib.MODEL_AXIS,
+              size: int | None = None) -> torch.Tensor:
     """The row-parallel products of this process's shards summed over the
-    model coordinates: locally, then over ``group`` across processes."""
+    model coordinates: locally, then over ``group`` across processes.
+    ``axis``/``size`` name the axis summed over (``size`` its width) for
+    a program trace's note."""
     z = parts[0]
     for p in parts[1:]:
         z = z + p
-    return z if group is None else _ModelSum.apply(z, group)
+    if group is None:
+        _trace.note_collective("psum", axis, size or len(parts), list(parts),
+                               [z], site="model_sum")
+        return z
+    return _ModelSum.apply(z, group, axis)
 
 
 def tie(copies) -> torch.Tensor:

@@ -62,9 +62,14 @@ head-sharded pool per model coordinate (``serve/slots.py``); every tick
 runs head-sharded QKV/O and the column -> row MLP over the coordinates
 (K4 once per coordinate and layer on the fused paged path), and the
 speculative engine verifies over the shards after a single-device draft,
-two dispatches where one target fuses them. The JAX engine's lint
-preflight keeps its place in the signature and raises
-``NotImplementedError`` naming its ROADMAP item.
+two dispatches where one target fuses them.
+
+``lint=True`` preflights the EXACT programs the engine just built
+(``analysis/programs.py::lint_engine``: scatter bounds over the block and
+position contracts, in-place buffer flow through the tick, the build
+memo, the kernel nodes' HBM rows reconciled with the byte model) before
+any request is served — trace-only, no kernel launched — and raises on
+an ERROR finding.
 
 Clock reads sit exactly where the JAX engine's do (submit without an
 arrival stamp, cancel, the dense admission's TTFT endpoint or reseat,
@@ -81,7 +86,6 @@ import time
 import numpy as np
 import torch
 
-from simple_distributed_machine_learning_tpu_torch import _roadmap
 from simple_distributed_machine_learning_tpu_torch._device import (
     resolve_device,
 )
@@ -191,12 +195,6 @@ def _check_layout(kv_layout, attn_kernel, prefill_chunk, n_blocks,
             "no blocks to demote — use kv_layout='paged'")
 
 
-def _reject_unported(lint) -> None:
-    if lint:
-        raise _roadmap.not_ported("the serve-program lint preflight",
-                                  _roadmap.ANALYSIS)
-
-
 class InferenceEngine:
     """Continuous-batching serving of a single-device GPT build.
 
@@ -259,7 +257,6 @@ class InferenceEngine:
         _check_layout(kv_layout, attn_kernel, prefill_chunk, n_blocks,
                       host_cache_blocks)
         _check_speculative(draft_stages, draft_cfg, spec_k)
-        _reject_unported(lint)
         _check_ported(cfg, "InferenceEngine")
         self.device = resolve_device(device)
         if adapters is not None and adapters.n_rows != n_slots + 1:
@@ -273,6 +270,8 @@ class InferenceEngine:
                 f"engine on {self.device}")
         self._adapters = adapters
         adp = adapters is not None
+        # the builds the lint preflight rebuilds its registry from
+        self.stages, self.draft_stages = stages, draft_stages
         self.cfg = cfg
         self.kv_layout = kv_layout
         self.attn_kernel = attn_kernel
@@ -377,6 +376,18 @@ class InferenceEngine:
             scheduler = scheduler(self.pool)
         self.scheduler = scheduler
         self.scheduler.attach(self)
+        if lint:
+            # preflight the EXACT programs this engine just built —
+            # trace-only; construction fails loudly on any ERROR finding
+            # rather than serving corruptible programs
+            from simple_distributed_machine_learning_tpu_torch.analysis.programs import (  # noqa: E501
+                lint_engine,
+            )
+            report = lint_engine(self)
+            if not report.ok():
+                raise RuntimeError(
+                    "InferenceEngine(lint=True): the serve-program "
+                    "preflight found ERROR findings:\n" + report.format())
         self.metrics = metrics
         self._clock = clock
         # request tracing and the tick flight recorder: None by default,

@@ -14,6 +14,8 @@ profiling. Module map:
 - ``session.py`` — :class:`Telemetry`, the training session
   (``metrics.jsonl``, ``trace.json``, ``metrics.prom`` under one
   directory);
+- ``ici.py`` — the static collective-bytes gauge: the step traced by the
+  program linter (``analysis``), its cost table summed per step;
 - ``catalog.py`` — the docstring-sourced metric-help catalog behind the
   exposition's ``# HELP`` lines;
 - ``slo.py`` / ``alerts.py`` — the streaming SLO engine and its
@@ -21,14 +23,15 @@ profiling. Module map:
 - ``report.py`` — the run-report CLI.
 
 Entry points: ``Trainer(..., telemetry=Telemetry(dir))`` and ``cli.py
---telemetry-dir DIR [--telemetry-every N]``. The static ICI-bytes gauge
-(``telemetry/ici.py``, ``expected_ici_bytes``) is not ported (ROADMAP
-Queue A item 7.4, with the analyzer it reads).
+--telemetry-dir DIR [--telemetry-every N]``.
 """
 
 from simple_distributed_machine_learning_tpu_torch.telemetry.bubble import (
     ideal_step_time,
     schedule_bubble_fraction,
+)
+from simple_distributed_machine_learning_tpu_torch.telemetry.ici import (
+    expected_ici_bytes,
 )
 from simple_distributed_machine_learning_tpu_torch.telemetry.memory import (
     device_memory_stats,
@@ -59,6 +62,7 @@ __all__ = [
     "METRICS_FILE", "PROM_FILE", "TRACE_FILE",
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "StepTimer",
     "Telemetry", "Tracer", "append_jsonl", "compiled_cost_stats",
-    "device_memory_stats", "ideal_step_time", "live_array_bytes",
+    "device_memory_stats", "expected_ici_bytes", "ideal_step_time",
+    "live_array_bytes",
     "schedule_bubble_fraction",
 ]

@@ -16,8 +16,8 @@ documented module, so the exposition path never drags ``serve/`` (and with
 it torch) into a light context.
 
 Training-side metrics whose docs live in prose rather than bullets get
-explicit entries in :data:`EXTRA_HELP` (the JAX catalog's, less the ICI
-gauge the port does not emit). Coverage is best-effort by design: a
+explicit entries in :data:`EXTRA_HELP` (the JAX catalog's, and the
+per-collective ICI gauge the JAX catalog leaves undocumented). Coverage is best-effort by design: a
 metric without catalog text simply emits no HELP line (never a wrong
 one).
 """
@@ -50,6 +50,12 @@ EXTRA_HELP: dict[str, str] = {
     "examples_per_sec": "steady-state training throughput in examples/s",
     "tokens_per_sec": "steady-state training throughput in tokens/s",
     "step_time_ms": "per-step wall latency from fenced timing windows",
+    "ici_bytes_per_step": "statically expected collective bytes per step "
+                          "between mesh coordinates (the traced step's "
+                          "cost table)",
+    "ici_collective_bytes_per_step": "statically expected bytes per step "
+                                     "of one collective kind over its "
+                                     "axes (prim, axes labels)",
     # self-healing training (resilience/sentinel.py)
     "train_anomalies_total": "numeric anomalies the training sentinel "
                              "detected, by verdict kind (nan/inf/spike)",

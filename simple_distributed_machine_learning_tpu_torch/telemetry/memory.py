@@ -24,13 +24,17 @@ import torch
 
 def live_array_bytes() -> int:
     """Total bytes of the storages of every live ``torch.Tensor`` in the
-    process, each storage counted once."""
+    process, each storage counted once. The program linter's fake
+    stand-ins (a registered step probe's arguments) hold no memory and
+    are skipped."""
+    from torch._subclasses.fake_tensor import FakeTensor
     seen: set[tuple[str, int]] = set()
     total = 0
     for obj in gc.get_objects():
         # type(), not isinstance(): isinstance reads __class__, which some
         # deprecated module proxies answer with a warning
-        if not issubclass(type(obj), torch.Tensor):
+        if not issubclass(type(obj), torch.Tensor) \
+                or issubclass(type(obj), FakeTensor):
             continue
         try:
             storage = obj.untyped_storage()

@@ -19,10 +19,12 @@ steps. ``every=1`` (the default) is exact per-step latency.
 Multi-process runs: every process records (spans and timers are host-local),
 only process 0 writes files — same rule as the reference-format console.
 
-Not ported: the static ICI-bytes gauge (``set_step_probe``,
-``telemetry/ici.py``), which reads the analyzer's cost table (ROADMAP
-Queue A item 7.4); without a probe the epoch record has no ``ici_*`` keys,
-as the JAX record has none without one.
+The static collective-bytes gauge (``set_step_probe``,
+``telemetry/ici.py``): the trainer registers its exact step on the first
+batch; at the first epoch emission the step is traced once (fake tensors,
+nothing launched) and every epoch record carries ``ici_bytes_per_step``
+and ``ici_top_collectives``. Without a probe the record has no ``ici_*``
+keys, as the JAX record has none without one.
 """
 
 from __future__ import annotations
@@ -32,7 +34,6 @@ import time
 
 import torch
 
-from simple_distributed_machine_learning_tpu_torch import _roadmap
 from simple_distributed_machine_learning_tpu_torch.telemetry import memory
 from simple_distributed_machine_learning_tpu_torch.telemetry.bubble import (
     measured_bubble_fraction,
@@ -72,6 +73,9 @@ class Telemetry:
         self._win_examples = 0.0
         self._win_tokens = 0.0
         self._ideal_step_s = None   # bubble-free reference (set_bubble_reference)
+        self._probe = None          # (fn, args, kwargs, mesh) for the ICI gauge
+        self._ici_done = False
+        self._ici_info = None
         if self._is_main():
             os.makedirs(outdir, exist_ok=True)
 
@@ -147,19 +151,33 @@ class Telemetry:
 
     def set_step_probe(self, fn, *abstract_args, mesh=None,
                        **abstract_kwargs) -> None:
-        """The static ICI-bytes gauge reads the analyzer's collective cost
-        table over a traced step, which waits for the program linter."""
-        raise _roadmap.not_ported("the static ICI-bytes gauge "
-                                  "(Telemetry.set_step_probe)",
-                                  _roadmap.PROGRAM_LINTER)
+        """Register the exact step fn + abstract args for the static
+        collective-bytes gauge (``telemetry/ici.py``). Evaluated lazily
+        once, at the first epoch emission — trace-only, no device
+        buffers, no kernel launches."""
+        if self._probe is None:
+            self._probe = (fn, abstract_args, abstract_kwargs, mesh)
+
+    def _ici_bytes(self):
+        if not self._ici_done:
+            self._ici_done = True
+            if self._probe is not None:
+                from simple_distributed_machine_learning_tpu_torch.telemetry import (  # noqa: E501
+                    ici,
+                )
+                fn, args, kwargs, mesh = self._probe
+                self._ici_info = ici.expected_ici_bytes(
+                    fn, *args, mesh=mesh, name="train_step", **kwargs)
+                ici.record(self.registry, self._ici_info)
+        return self._ici_info
 
     # -- emission ----------------------------------------------------------
 
     def epoch_record(self, epoch: int, pipe=None, extra: dict | None = None
                      ) -> dict:
         """Build the per-epoch record: step-latency quantiles + throughput
-        (StepTimer), memory sample, schedule bubble estimate, and any
-        caller fields (losses, accuracy)."""
+        (StepTimer), memory sample, schedule bubble estimate, static
+        collective bytes, and any caller fields (losses, accuracy)."""
         self.registry.counter("epochs_total").inc()
         rec: dict = {"kind": "epoch", "epoch": int(epoch)}
         rec.update(self.timer.summary())
@@ -181,6 +199,10 @@ class Telemetry:
                 rec["bubble_drift"] = round(measured - frac, 4)
                 self.registry.gauge("bubble_fraction_measured").set(measured)
                 self.registry.gauge("bubble_drift").set(measured - frac)
+        info = self._ici_bytes()
+        if info is not None:
+            rec["ici_bytes_per_step"] = info["ici_bytes_per_step"]
+            rec["ici_top_collectives"] = info["collectives"]
         for name in ("examples_per_sec", "tokens_per_sec"):
             if rec.get(name):
                 self.registry.gauge(name).set(rec[name])

@@ -23,8 +23,10 @@ Telemetry (``telemetry=Telemetry(dir)``, ``telemetry/session.py``): a
 around each step, ``eval`` spans in :meth:`Trainer.evaluate`, the fenced
 step-timing windows (each epoch's first step forced; the run's first is
 the compile window), and one epoch record per epoch (and on a graceful
-preemption) with the training record's fields riding along; the registry
-carries the training series and the sentinel's. None = the reference's
+preemption) with the training record's fields riding along, and the
+static collective bytes of the step (``ici_bytes_per_step``: the run's
+first batch registers the step with ``Telemetry.set_step_probe``); the
+registry carries the training series and the sentinel's. None = the reference's
 console and ``metrics_json`` only.
 
 Fault sites (``resilience/faults.py``), where the JAX Trainer has them:
@@ -457,6 +459,20 @@ class Trainer:
                 bx = self._apply_numeric_faults(b.x, step)
                 with self._span("feed"):
                     x, y, w = self._feed(bx, b.y, w)
+                if tele is not None and first and epoch == self.start_epoch:
+                    # register the exact step + shapes for the static
+                    # collective-bytes gauge (trace-only: fake stand-ins,
+                    # nothing copied or launched). Keyed on the run's first
+                    # batch — not _step_count, which a resume starts
+                    # nonzero
+                    from simple_distributed_machine_learning_tpu_torch.analysis import (  # noqa: E501
+                        abstractify,
+                    )
+                    tele.set_step_probe(
+                        self._train_step, abstractify(self.params),
+                        abstractify(self.opt_state), abstractify(x),
+                        abstractify(y), fold_in(cfg.seed, step),
+                        abstractify(w), mesh=self.pipe.mesh)
                 with self._span("step"):
                     out = self._train_step(self.params, self.opt_state, x, y,
                                            fold_in(cfg.seed, step), w)

@@ -160,15 +160,24 @@ def test_cli_metrics_json(tmp_path):
     (["--overlap", "ring", "--model", "mlp", "--dryrun", "1"], None),
     (["--overlap", "ring", "--ep", "2", "--dp", "2", "--stages", "2"],
      "jax"),
-    (["--lint"], "item 7"),
-    (["--lint-only"], "item 7"),
+    (["--lint", "--dryrun", "1"], "lint"),
+    (["--lint-only"], "lint"),
     (["--serve-tp", "2", "--serve-sim", "4", "--model", "gpt"], None),
 ])
 def test_unported_flags_exit_naming_their_item(flag, item, capsys):
     """What is left unported names its item: the one-process serving
-    paths (6c) and the linter (7.4). ``--overlap ring`` and
-    ``--serve-tp`` run (``None``), or exit with the JAX CLI's text where
-    it refuses the flags beside them (``"jax"``)."""
+    paths (6c). ``--overlap ring`` and ``--serve-tp`` run (``None``), or
+    exit with the JAX CLI's text where it refuses the flags beside them
+    (``"jax"``). The linter (7.4) is ported (``"lint"``): ``--lint``
+    prints the clean preflight and trains, ``--lint-only`` stops after
+    it."""
+    if item == "lint":
+        main(BASE + flag)
+        out = capsys.readouterr().out
+        assert "analysis: train_step + eval_step" in out
+        assert "| --lint: preflight clean" in out
+        assert ("Test set:" in out) == ("--lint" in flag)
+        return
     if item is None:
         main(BASE + flag)
         out = capsys.readouterr().out
@@ -765,9 +774,16 @@ def test_cli_preempt_then_rerun_resumes_bit_exact(tmp_path, capsys):
 # -- training telemetry and the profiler ---------------------------------------
 
 
+#: what the port's epoch record adds to the JAX CLI's here: the static
+#: collective-bytes gauge of its step probe (the JAX probe is patched out)
+ICI_KEYS = {"ici_bytes_per_step", "ici_top_collectives"}
+
+
 def _jax_telemetry_cli(monkeypatch):
     """The JAX CLI with the two in-process patches its Trainer needs to run
-    a telemetry session on this tree (``tests/test_torch_telemetry.py``)."""
+    a telemetry session on this tree (``tests/test_torch_telemetry.py``).
+    The second is its step probe (no ``ici_*`` keys in its records): the
+    port's epoch record carries :data:`ICI_KEYS` beside the JAX keys."""
     from simple_distributed_machine_learning_tpu import analysis
     from simple_distributed_machine_learning_tpu import cli as jcli
     from simple_distributed_machine_learning_tpu import telemetry as jtm
@@ -797,7 +813,9 @@ def test_cli_dryrun_telemetry_matches_the_jax_cli(tmp_path, monkeypatch,
     capsys.readouterr()
     [ours] = _jsonl(tmp_path / "port" / "metrics.jsonl")
     [theirs] = _jsonl(tmp_path / "jax" / "metrics.jsonl")
-    assert set(ours) == set(theirs)
+    assert set(ours) == set(theirs) | ICI_KEYS
+    # one stage: the step has no collective
+    assert ours["ici_bytes_per_step"] == 0
     for key in ("schema", "epoch", "step", "steps", "n_stages",
                 "n_microbatches", "schedule", "bubble_fraction", "n_eval"):
         assert ours[key] == theirs[key], key
@@ -847,7 +865,7 @@ def test_cli_generate_telemetry_decode_record_matches_the_jax_cli(
         == (theirs["batch"], theirs["n_new"], theirs["steps"]) == (1, 16, 1)
     assert ours["compile_time_s"] > 0 and ours["step_time_ms_p50"] > 0
     assert ours["tokens_per_sec"] > 0
-    assert set(recs[0]) == set(jrecs[0])
+    assert set(recs[0]) == set(jrecs[0]) | ICI_KEYS
     assert recs[0]["tokens_per_sec"] > 0           # an LM: tokens/sec too
     with open(tmp_path / "port" / "metrics.prom") as f:
         assert "decode_time_ms" in f.read()

@@ -186,7 +186,9 @@ def test_engine_defaults_to_cuda_and_raises_without_it(weights):
     (dict(adapters=True), None),
     (dict(host_cache_blocks=4), None),
     (dict(host_cache_blocks=4, prefetch_ticks=2), None),
-    (dict(lint=True), "item 7"),
+    # the serve-program lint preflight is ported: it lints the engine's
+    # programs at construction (raising on an ERROR) and the engine serves
+    (dict(lint=True), None),
 ], ids=["speculative", "tp", "adapters", "host-tier", "prefetch", "lint"])
 def test_unported_engine_knobs_raise_with_roadmap_item(weights, kw, item):
     _, _, _, tcfg, tst, tparams = weights

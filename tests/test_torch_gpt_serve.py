@@ -228,7 +228,9 @@ def test_sampled_top1_equals_greedy_and_seeds_reproduce():
     dict(engine=dict(flight=True), item=None),
     dict(cli=["--model", "gpt", "--tp", "2", "--overlap", "ring",
               "--dryrun", "1", "--data-root", "/nonexistent"], item=None),
-    dict(cli=["--lint"], item="item 7, analysis"),
+    # the linter is ported: the CLI's --lint preflight runs, then trains
+    dict(cli=["--lint", "--model", "gpt", "--dryrun", "1", "--data-root",
+              "/nonexistent"], item=None),
     # a TP slot program without a serving mesh: the JAX builder's text
     dict(slot_decode=dict(n_tensor_parallel=2), item="jax"),
     # the adapters build on every serving program, the dense slot rows
@@ -240,7 +242,7 @@ def test_unported_configs_raise_with_roadmap_item(kw):
     serving programs refuse them with the JAX package's own texts;
     tensor-parallel stages train and serve (from the dense build, over a
     mesh: ``tests/test_torch_tp_serve.py``), refused with the JAX texts
-    otherwise; the linter names its item, and what is ported builds."""
+    otherwise; the linter runs, and what is ported builds."""
     if "item" not in kw:
         cfg = tgpt.GPTConfig(**{**SMALL, **kw})
         stages = tgpt.make_gpt_stages(0, cfg, 1, device="cpu")[0]

@@ -279,13 +279,19 @@ def test_cli_output_and_exit_code_match_jax(argv, env, monkeypatch):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--serve", "--hostlint"], "item 7.4"),
-    (["--serve"], "item 7.4"),
-    (["--dryrun", "8"], "item 7.4"),
+    (["--serve", "--hostlint"], "analysis --serve: 9 layouts clean"),
+    (["--dryrun", "2"], "analysis --dryrun 2: 3 steps clean"),
+    (["--dryrun", "8"], "analysis --dryrun 8: 4 steps clean"),
 ])
-def test_unported_cli_modes_name_their_item(flag, item):
-    with pytest.raises(SystemExit, match=rf"ROADMAP\.md, Queue A: {item}"):
-        main(flag)
+def test_unported_cli_modes_name_their_item(flag, item, capsys):
+    """The program linter's modes (item 7.4) are ported: on the CPU each
+    traces and lints its programs clean, exit 0 (the serve registry with
+    hostlint beside it)."""
+    assert main(flag + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert item in out
+    if "--hostlint" in flag:
+        assert "analysis --hostlint: clean" in out
 
 
 # ---- 3. counterexamples -> chaos drills -----------------------------------

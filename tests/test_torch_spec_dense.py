@@ -305,13 +305,16 @@ def test_dense_verify_with_adapters_equals_plain_adapter_decode(models):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(tp=2), None),
-    (dict(lint=True), "item 7"),
+    (dict(lint=True), None),
 ], ids=["tp", "lint"])
 def test_tp_and_lint_still_refused(models, kw, item):
     """Dense speculation builds and serves (the tests above), over a tp 2
     target too (the dense verify's TP twin after the single-device draft:
-    the solo streams); the lint preflight still names its item; a TP
-    verify without a mesh is refused with the JAX builder's text."""
+    the solo streams); the lint preflight is ported: a speculative dense
+    engine built with ``lint=True`` lints its programs (the draft's
+    propose, the verify, the fused tick) clean and serves the solo
+    stream; a TP verify without a mesh is refused with the JAX builder's
+    text."""
     m = models
     t2 = dataclasses.replace(m["tcfg"], n_tensor_parallel=2)
     with pytest.raises(ValueError) as ours:
@@ -321,10 +324,12 @@ def test_tp_and_lint_still_refused(models, kw, item):
             m["jst"], dataclasses.replace(m["jcfg"], n_tensor_parallel=2),
             16, 3)
     assert str(ours.value) == str(theirs.value)
-    if item is not None:
-        with pytest.raises(NotImplementedError,
-                           match=rf"ROADMAP\.md, Queue A: {item}"):
-            _engine(m, 3, **kw)
+    if kw.get("lint"):
+        eng = _engine(m, 3, **kw)
+        prompt = np.arange(5, dtype=np.int32) % 32
+        h = eng.submit(prompt, max_new_tokens=7, seed=4)
+        eng.drain()
+        assert h.tokens == _solo(m, prompt, 7, 4)
         return
     from simple_distributed_machine_learning_tpu_torch.parallel import (
         make_mesh,

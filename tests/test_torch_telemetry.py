@@ -12,8 +12,11 @@ positive and ordered. The JAX Trainer with a session attached dies at its
 first batch on this tree (``train/trainer.py`` imports ``abstractify``
 from ``analysis``, which raises ``ImportError``), so the JAX side runs with
 two in-process patches: ``analysis.abstractify`` as the identity and
-``Telemetry.set_step_probe`` as a no-op (the port has no ICI probe, and
-the JAX record has no ``ici_*`` keys without one). No file changes.
+``Telemetry.set_step_probe`` as a no-op (the JAX record has no ``ici_*``
+keys without one). No file changes. The port's probe runs: its record adds
+the two keys of the static collective-bytes gauge, ``ici_bytes_per_step``
+(0: the one-card mesh has no collective) and ``ici_top_collectives``
+(empty).
 """
 
 import dataclasses
@@ -222,10 +225,17 @@ def _cfg(tmp_path, name, **kw):
                 metrics_json=str(tmp_path / f"{name}_v2.jsonl"), **kw)
 
 
+#: the keys the port's step probe adds to each epoch record (the JAX
+#: side's probe is patched out: module docstring)
+ICI_KEYS = {"ici_bytes_per_step", "ici_top_collectives"}
+
+
 def _same_records(ours, theirs):
     assert len(ours) == len(theirs)
     for a, b in zip(ours, theirs):
-        assert set(a) == set(b), set(a) ^ set(b)
+        assert set(a) == set(b) | ICI_KEYS, set(a) ^ (set(b) | ICI_KEYS)
+        assert a["ici_bytes_per_step"] == 0
+        assert a["ici_top_collectives"] == []
         for key in ("kind", "epoch", "step", "steps", "n_stages",
                     "n_microbatches", "schedule", "bubble_fraction",
                     "correct", "n_eval", "schema"):
