@@ -373,6 +373,39 @@ or without the port beside it. Phases, each fatal on failure:
    contract; (e) phase 16 (b)'s processes' ``ici_bytes_per_step`` equal
    to the wire's bytes per step (``WIRE``) plus the loss's 16 B sum over
    the world, the one-process run's 8 in-card hops.
+21. serving across processes on the one card: (a) two fresh processes
+   (``--serve-worker``) serve phase 3's trace through the fused
+   tensor-parallel engine at tp 2 over one model mesh split between them
+   (one coordinate each, the sums over gloo through the host, every
+   clock read rank 0's, broadcast): 24/24 on each, every greedy stream
+   equal on both ranks and to phases 3 and 19 (b)'s, K4 exactly
+   ``tp / W x n_layers`` (4) per decode call in each process (counted
+   into the ``kernels`` line), ``2 x n_layers`` sums of one ``[n_slots,
+   1, d_model]`` f32 block per decode call on each rank's wire (``WIRE``),
+   the per-shard K/V bytes equal to the byte model on every tick, and the
+   tick p50 beside phase 19 (b)'s one-process tp 2; (b) the CLI over two
+   processes: ``--serve-sim 8`` at tp 1 and at ``--serve-tp 2`` (both
+   ranks exit 0 with equal request and token counts) and ``--scenario
+   steady`` (both ranks print the one-process run's lines, made in this
+   call).
+
+The phases run in two lanes. The first, this process, runs phases 1-4
+alone: the kernels' times and phase 4's breakdown are taken with nothing
+else on the card. It then starts the second lane, ``chip_smoke.py --lane``
+(a process of its own, stopped with its children if this one fails or
+it runs past ``LANE_DEADLINE_S``), which runs phases 16-18 and phase 19's
+(a) and (d) (they read phases 17 and 18's records), while this process
+runs phases 8, 9, 11, 12, 5, 6, 7, 10, 13, 14, 15, 19 (b)-(c), 20
+(a)-(d) and 21. It then waits for the second lane, prints its output,
+adds its records and launch counts to its own, and runs phase 20 (e)
+(it reads phase 16's record). So every host-clock and device time after
+phase 4 was taken beside the other lane's work on the same card and
+CPUs; the kernel line's times come from phase 2. Within a lane, phase
+20 (d)'s two analysis runs start before phase 14 and run beside phases
+14-20 (c); phase 18 (c)'s two two-process launches run together, beside
+its one-process runs; phase 21 (b)'s three two-process launches run
+together, beside its one-process ``--scenario steady``. The script
+prints the seconds each phase took before the kernels line.
 
 To make room for phase 19, PR 18 cut earlier phases' depth: phase 15
 (b) times 5 steps and profiles 3 (was 10 and 5), phase 16 runs 10 steps
@@ -742,6 +775,16 @@ SPEP_CLI_STEPS = 6
 OVERLAP_WIDTHS = (2, 4)
 TP_SERVE_RUNS = ((2, "none"), (4, "none"), (2, "ring"))
 TP_SERVE_HEADS = (4, 2)
+# phase 21: serving across processes on the one card — (a) phase 3's trace
+# through the tensor-parallel engine at SERVE_RANKS_TP over
+# SERVE_RANKS_WORLD processes (one model coordinate each, the sums over
+# gloo through the host, every clock read rank 0's); (b) the CLI's
+# --serve-sim SERVE_RANKS_CLI_N at tp 1 and tp 2 and --scenario steady over
+# two processes
+SERVE_RANKS_WORLD, SERVE_RANKS_TP, SERVE_RANKS_CLI_N = 2, 2, 8
+# the second lane (phases 16-18 and 19 (a), (d)) must end this many
+# seconds after the script starts; it is stopped then
+LANE_DEADLINE_S = 1100
 
 
 class SmokeFailure(RuntimeError):
@@ -5619,15 +5662,22 @@ def _kill_all(procs) -> None:
         p.wait()
 
 
-def _launch_ranks(world: int, argv: list[str], env: dict | None = None,
-                  timeout: float = PROC_TIMEOUT_S) -> list[tuple]:
-    """``world`` processes of the port's CLI on the reference's launch
-    line; ``[(rc, stdout, stderr)]`` by rank."""
+def _start_ranks(world: int, argv: list[str],
+                 env: dict | None = None) -> list:
+    """Start ``world`` processes of the port's CLI on the reference's
+    launch line; ``_wait_ranks`` collects them."""
     port, hb_port = _free_port(), _free_port()
-    procs = [subprocess.Popen(_rank_cmd(r, world, port, hb_port, argv),
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True, env=_child_env(env), cwd=HERE)
-             for r in range(world)]
+    return [subprocess.Popen(_rank_cmd(r, world, port, hb_port, argv),
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True, env=_child_env(env), cwd=HERE)
+            for r in range(world)]
+
+
+def _wait_ranks(procs: list, argv: list[str],
+                timeout: float = PROC_TIMEOUT_S) -> list[tuple]:
+    """``[(rc, stdout, stderr)]`` by rank of ``_start_ranks``'s
+    processes, each of which must exit 0; every one is stopped on the way
+    out."""
     out = []
     try:
         deadline = time.monotonic() + timeout
@@ -5641,6 +5691,13 @@ def _launch_ranks(world: int, argv: list[str], env: dict | None = None,
         check(rc == 0, f"rank {r} of {' '.join(argv)} exited {rc}: "
                        f"{se[-2000:]}")
     return out
+
+
+def _launch_ranks(world: int, argv: list[str], env: dict | None = None,
+                  timeout: float = PROC_TIMEOUT_S) -> list[tuple]:
+    """``world`` processes of the port's CLI on the reference's launch
+    line; ``[(rc, stdout, stderr)]`` by rank."""
+    return _wait_ranks(_start_ranks(world, argv, env), argv, timeout)
 
 
 def _console(lines) -> list[str]:
@@ -5836,7 +5893,6 @@ def _procs_flash(rec: dict, record: dict, tmp: str) -> tuple[int, int, int]:
                        / STAGE_TIMED_STEPS) for g in [ref] + ranks]
     counts = [0, 0, 0]
     layers = TRAIN_ROWS["gpt_bf16"]["cfg"]["n_layers"] // 2
-    phase15 = record.get("stages", {}).get("full_width", {})
     for sched in ("gpipe", "1f1b"):
         check(tuple(v / STAGE_TIMED_STEPS for v in ref[sched]["launches"])
               == STAGE_LAUNCHES[sched],
@@ -5872,8 +5928,6 @@ def _procs_flash(rec: dict, record: dict, tmp: str) -> tuple[int, int, int]:
         hops = STAGE_TIMED_STEPS * 2 * 4
         rec[sched] = dict(step_ms=step_ms,
                           one_process_step_ms=ref[sched]["step_ms"],
-                          phase15_step_ms=phase15.get(sched, {}).get(
-                              "step_ms"),
                           launches=tot, sends_per_step=sends
                           / STAGE_TIMED_STEPS,
                           hops_per_step=hops / STAGE_TIMED_STEPS,
@@ -5881,8 +5935,7 @@ def _procs_flash(rec: dict, record: dict, tmp: str) -> tuple[int, int, int]:
         print(f"chip_smoke: processes (b) gpt_bf16 S=2 M=4 {sched} over 2 "
               f"processes: step {step_ms:.3f} ms (host clock) against one "
               f"process's {ref[sched]['step_ms']:.3f} ms (a fresh process "
-              f"just before; phase 15's in this process: "
-              f"{rec[sched]['phase15_step_ms']}), "
+              f"just before; phase 15 (b)'s is in the first lane), "
               f"{rec[sched]['hops_per_step']:.0f} hops/step of "
               f"{rec[sched]['bytes_per_hop']:.0f} B ("
               f"{rec[sched]['sends_per_step']:.0f} sends), K1/K2/K3 per step "
@@ -6499,8 +6552,66 @@ def _spep_full_width(rec: dict) -> tuple[int, int, int]:
 
 def _spep_cli(rec: dict, tmp: str) -> None:
     """(c) The CLI at --sp 2 and --experts 4 --ep 2 against their one-wide
-    twins: at 2 stages in one process, at 1 stage over two."""
+    twins: at 2 stages in one process, at 1 stage over two (the two
+    launches run together, beside the one-process runs)."""
     data = ["--data-root", os.path.join(tmp, "nodata")]
+    one_stage = ["--model", "gpt", "--stages", "1"] + data
+    procs_runs = (
+        ("sp2-procs", ["--attn", "ring", "--sp", "2"], ["--attn", "ring"],
+         "seq"),
+        ("ep2-procs", ["--experts", "4", "--ep", "2"], ["--experts", "4"],
+         "expert"))
+    launch = {name: one_stage + wide + [
+        "--dryrun", str(SPEP_CLI_STEPS), "--metrics-json",
+        os.path.join(tmp, f"{name}.jsonl")]
+        for name, wide, _, _ in procs_runs}
+    t0 = time.perf_counter()
+    started: dict = {}
+    try:
+        for name, argv in launch.items():
+            started[name] = _start_ranks(2, argv)
+        out = _spep_cli_one_process(tmp, data)
+        ones = {name: _stage_cli(one_stage + twin, tmp, name + "-twin",
+                                 SPEP_CLI_STEPS)
+                for name, _, twin, _ in procs_runs}
+        ranks = {name: _wait_ranks(started[name], argv)
+                 for name, argv in launch.items()}
+    finally:
+        for procs in started.values():
+            _kill_all(procs)
+    secs = time.perf_counter() - t0
+    card = _stage_card()
+    for name, _, _, axis in procs_runs:
+        one = ones[name]
+        (_, out0, _), (_, out1, _) = ranks[name]
+        with open(os.path.join(tmp, f"{name}.jsonl")) as f:
+            [m] = [json.loads(ln) for ln in f]
+        gaps = _rel_gaps([m["train_loss"], m["eval_loss"]],
+                         [one["train_loss"], one["eval_loss"]])
+        check(max(gaps) <= STAGE_CLI_RTOL,
+              f"{name}: losses {m['train_loss']}/{m['eval_loss']} vs one "
+              f"process {one['train_loss']}/{one['eval_loss']}")
+        check(f"| pipeline: 1 stages x 2 {axis} shards on "
+              + ", ".join([card] * 2) in out0,
+              f"{name}: rank 0 printed no placement line: {out0[-2000:]}")
+        check("Train Epoch" not in out1,
+              f"{name}: rank 1 printed the console: {out1!r}")
+        out[name] = dict(wide=[m["train_loss"], m["eval_loss"]],
+                         twin=[one["train_loss"], one["eval_loss"]],
+                         max_rel_gap=max(gaps), seconds=secs)
+        print(f"chip_smoke: sp/ep (c) CLI {name} ({axis} axis over gloo), "
+              f"{SPEP_CLI_STEPS} steps: train/eval {m['train_loss']:.6f}/"
+              f"{m['eval_loss']:.6f}, one process one-wide "
+              f"{one['train_loss']:.6f}/{one['eval_loss']:.6f}, max rel gap "
+              f"{max(gaps):.2e}")
+    print(f"chip_smoke: sp/ep (c) the two launches over two processes and "
+          f"the one-process runs beside them: {secs:.1f} s")
+    rec["cli"] = out
+
+
+def _spep_cli_one_process(tmp: str, data: list[str]) -> dict:
+    """(c)'s runs at 2 stages in one process, each against its one-wide
+    twin."""
     gpt = ["--model", "gpt", "--stages", "2", "--microbatches", "2"] + data
     runs = {}
     for sched in ("gpipe", "1f1b"):
@@ -6536,41 +6647,7 @@ def _spep_cli(rec: dict, tmp: str) -> None:
               f"train/eval {a['train_loss']:.6f}/{a['eval_loss']:.6f}, "
               f"{twin} {b['train_loss']:.6f}/{b['eval_loss']:.6f}, max rel "
               f"gap {max(gaps):.2e}")
-    one_stage = ["--model", "gpt", "--stages", "1"] + data
-    for name, wide, twin, axis in (
-            ("sp2-procs", ["--attn", "ring", "--sp", "2"], ["--attn", "ring"],
-             "seq"),
-            ("ep2-procs", ["--experts", "4", "--ep", "2"], ["--experts", "4"],
-             "expert")):
-        one = _stage_cli(one_stage + twin, tmp, name + "-twin",
-                         SPEP_CLI_STEPS)
-        path = os.path.join(tmp, f"{name}.jsonl")
-        t0 = time.perf_counter()
-        (_, out0, _), (_, out1, _) = _launch_ranks(
-            2, one_stage + wide + ["--dryrun", str(SPEP_CLI_STEPS),
-                                   "--metrics-json", path])
-        secs = time.perf_counter() - t0
-        with open(path) as f:
-            [m] = [json.loads(ln) for ln in f]
-        gaps = _rel_gaps([m["train_loss"], m["eval_loss"]],
-                         [one["train_loss"], one["eval_loss"]])
-        check(max(gaps) <= STAGE_CLI_RTOL,
-              f"{name}: losses {m['train_loss']}/{m['eval_loss']} vs one "
-              f"process {one['train_loss']}/{one['eval_loss']}")
-        check(f"| pipeline: 1 stages x 2 {axis} shards on "
-              + ", ".join([card] * 2) in out0,
-              f"{name}: rank 0 printed no placement line: {out0[-2000:]}")
-        check("Train Epoch" not in out1,
-              f"{name}: rank 1 printed the console: {out1!r}")
-        out[name] = dict(wide=[m["train_loss"], m["eval_loss"]],
-                         twin=[one["train_loss"], one["eval_loss"]],
-                         max_rel_gap=max(gaps), seconds=secs)
-        print(f"chip_smoke: sp/ep (c) CLI {name} ({axis} axis over gloo), "
-              f"{SPEP_CLI_STEPS} steps: train/eval {m['train_loss']:.6f}/"
-              f"{m['eval_loss']:.6f}, one process one-wide "
-              f"{one['train_loss']:.6f}/{one['eval_loss']:.6f}, max rel gap "
-              f"{max(gaps):.2e}, {secs:.1f} s")
-    rec["cli"] = out
+    return out
 
 
 def phase_seq_expert(record: dict) -> tuple[int, int, int]:
@@ -6713,7 +6790,9 @@ def _tp_serving(stages, cfg, serve: dict, plain_handles: list,
             ticks_off=off, tick_ms=run["tick_ms"],
             tick_ms_p50=run["tick_ms_p50"], greedy=len(greedy),
             greedy_equal=same, kv_bytes_max=max(live),
-            kv_drift_exact=exact)
+            kv_drift_exact=exact,
+            # phase 21 holds the two-process streams to these
+            greedy_tokens=[handles[i].tokens for i in greedy])
         print(f"chip_smoke: tp serve (b) {name}: {rep['completed']}/"
               f"{rep['n_requests']}, {s['tokens_per_sec']} tok/s (phase 3 "
               f"{ps['tokens_per_sec']}), ttft p50/p95 {s['ttft_ms_p50']}/"
@@ -6851,35 +6930,48 @@ def _tp_serve_cli(rec: dict, record: dict, tmp: str) -> int:
     return launches
 
 
-def phase_overlap_tp_serve(record: dict, serve: dict,
-                           plain_handles: list) -> tuple:
-    """Phase 19: the overlapped collectives and tensor-parallel serving on
-    the one card. Returns K4's launches and (a)'s K1/K2/K3."""
+def phase_overlap_training(record: dict) -> tuple:
+    """Phase 19 (a) and (d), in the second lane (they read phases 17 and
+    18's records): the overlapped collectives in training and the CLI.
+    Returns (a)'s K1/K2/K3 and (d)'s K4 launches."""
     import tempfile
-
-    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
-        GPTConfig,
-        make_gpt_stages,
-    )
     rec: dict = {}
     record["overlap_tp_serve"] = rec
     t0 = time.perf_counter()
     flash = _overlap_training(rec, record)
     secs = {"a": time.perf_counter() - t0}
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = _tp_serve_cli(rec, record, tmp)
+    secs["d"] = time.perf_counter() - t0 - secs["a"]
+    rec["seconds_ad"] = dict(secs, total=time.perf_counter() - t0)
+    print(f"chip_smoke: phase 19 (a), (d) took "
+          f"{rec['seconds_ad']['total']:.1f} s ("
+          + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items()) + ")")
+    return flash, launches
+
+
+def phase_overlap_tp_serve(record: dict, serve: dict,
+                           plain_handles: list) -> int:
+    """Phase 19 (b) and (c): tensor-parallel serving on the one card.
+    Returns K4's launches."""
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        GPTConfig,
+        make_gpt_stages,
+    )
+    rec = record.setdefault("overlap_tp_serve", {})
+    t0 = time.perf_counter()
     cfg = GPTConfig(**SERVE_CFG)
     stages = make_gpt_stages(0, cfg, 1)[0]
     launches = _tp_serving(stages, cfg, serve, plain_handles, rec)
     del stages
-    secs["b"] = time.perf_counter() - t0 - sum(secs.values())
+    secs = {"b": time.perf_counter() - t0}
     _tp_k4_heads(rec)
-    secs["c"] = time.perf_counter() - t0 - sum(secs.values())
-    with tempfile.TemporaryDirectory() as tmp:
-        launches += _tp_serve_cli(rec, record, tmp)
-    secs["d"] = time.perf_counter() - t0 - sum(secs.values())
-    rec["seconds"] = dict(secs, total=time.perf_counter() - t0)
-    print(f"chip_smoke: phase 19 took {rec['seconds']['total']:.1f} s ("
+    secs["c"] = time.perf_counter() - t0 - secs["b"]
+    rec["seconds_bc"] = dict(secs, total=time.perf_counter() - t0)
+    print(f"chip_smoke: phase 19 (b), (c) took "
+          f"{rec['seconds_bc']['total']:.1f} s ("
           + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items()) + ")")
-    return launches, flash
+    return launches
 
 
 # -- phase 20: the program linter on the card ----------------------------------
@@ -7111,34 +7203,58 @@ def _lint_cli_gates(rec: dict) -> int:
     return k4
 
 
-def _lint_analysis_cli(rec: dict) -> None:
+ANALYSIS_RUNS = (
+    ("dryrun 8 + serve + fixtures", ["--dryrun", "8", "--serve", "--fixtures"],
+     ["analysis --dryrun 8: 4 steps clean",
+      "analysis --serve: 9 layouts clean", "fixture self-test: OK"]),
+    ("dryrun 4", ["--dryrun", "4"], ["analysis --dryrun 4: 3 steps clean"]))
+
+
+def start_analysis_cli() -> list:
+    """Start (d)'s analysis CLI runs, each in a process of its own, so they
+    run beside phases 14-20 (c); ``_lint_analysis_cli`` collects them."""
+    import tempfile
+    out = []
+    for label, argv, want in ANALYSIS_RUNS:
+        # files, not pipes: nothing reads them until (d)
+        logs = (tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+        out.append((label, argv, want, logs, time.perf_counter(),
+                    subprocess.Popen(
+                        [sys.executable, "-m", f"{PORT}.analysis", *argv,
+                         "--device", MAIN_DEVICE], cwd=HERE,
+                        env=dict(os.environ), stdout=logs[0],
+                        stderr=logs[1], text=True)))
+    return out
+
+
+def _lint_analysis_cli(rec: dict, started: list) -> None:
     """(d) The analysis CLI, each in a process of its own: ``--dryrun 8
     --serve --fixtures`` (the modes compose: one process) and ``--dryrun
     4``, exit 0; every fixture meets its contract."""
     runs = {}
-    for label, argv, want in (
-            ("dryrun 8 + serve + fixtures",
-             ["--dryrun", "8", "--serve", "--fixtures"],
-             ["analysis --dryrun 8: 4 steps clean",
-              "analysis --serve: 9 layouts clean", "fixture self-test: OK"]),
-            ("dryrun 4", ["--dryrun", "4"],
-             ["analysis --dryrun 4: 3 steps clean"])):
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", f"{PORT}.analysis", *argv, "--device",
-             MAIN_DEVICE], cwd=HERE, env=dict(os.environ),
-            capture_output=True, text=True, timeout=900)
-        s = time.perf_counter() - t0
-        lines = proc.stdout.splitlines()
-        bad = [ln for ln in lines if "CONTRACT VIOLATED" in ln]
-        check(proc.returncode == 0 and all(w in lines for w in want)
-              and not bad,
-              f"(d) analysis {label}: rc {proc.returncode} {bad}\n"
-              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-        runs[label] = dict(rc=proc.returncode, s=s)
-        print(f"chip_smoke: linter (d) analysis {' '.join(argv)}: rc 0 in "
-              f"{s:.1f} s — " + "; ".join(want))
+    try:
+        for label, argv, want, logs, t0, proc in started:
+            proc.wait(timeout=900)
+            s = time.perf_counter() - t0
+            stdout, stderr = (_rewind(f) for f in logs)
+            lines = stdout.splitlines()
+            bad = [ln for ln in lines if "CONTRACT VIOLATED" in ln]
+            check(proc.returncode == 0 and all(w in lines for w in want)
+                  and not bad,
+                  f"(d) analysis {label}: rc {proc.returncode} {bad}\n"
+                  f"{stdout[-3000:]}\n{stderr[-3000:]}")
+            runs[label] = dict(rc=proc.returncode, s=s)
+            print(f"chip_smoke: linter (d) analysis {' '.join(argv)}: rc 0 "
+                  f"in {s:.1f} s from its start beside phases 14-20 (c) — "
+                  + "; ".join(want))
+    finally:
+        _kill_all([proc for *_, proc in started])
     rec["analysis_cli"] = runs
+
+
+def _rewind(f) -> str:
+    f.seek(0)
+    return f.read()
 
 
 def _lint_ici(record: dict, rec: dict) -> None:
@@ -7185,10 +7301,11 @@ def _lint_ici(record: dict, rec: dict) -> None:
     rec["ici"] = dict(ranks=out, one_process=one["ici_bytes_per_step"])
 
 
-def phase_program_lint(record: dict, serve: dict,
-                       plain_handles: list) -> tuple[tuple, int]:
-    """Phase 20: the program linter on the card. Returns (a)'s K1-K3 and
-    (b)-(c)'s K4 launches."""
+def phase_program_lint(record: dict, serve: dict, plain_handles: list,
+                       analysis: list) -> tuple[tuple, int]:
+    """Phase 20 (a)-(d): the program linter on the card ((e) reads phase
+    16's record, so ``main`` runs it once the second lane is joined).
+    Returns (a)'s K1-K3 and (b)-(c)'s K4 launches."""
     import torch
 
     from simple_distributed_machine_learning_tpu_torch.models.gpt import (
@@ -7209,13 +7326,381 @@ def phase_program_lint(record: dict, serve: dict,
     secs["b"] = time.perf_counter() - t0 - sum(secs.values())
     k4 += _lint_cli_gates(rec)
     secs["c"] = time.perf_counter() - t0 - sum(secs.values())
-    _lint_analysis_cli(rec)
+    _lint_analysis_cli(rec, analysis)
     secs["d"] = time.perf_counter() - t0 - sum(secs.values())
-    _lint_ici(record, rec)
     rec["seconds"] = dict(secs, total=time.perf_counter() - t0)
     print(f"chip_smoke: phase 20 took {rec['seconds']['total']:.1f} s ("
           + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items()) + ")")
     return flash, k4
+
+
+# -- phase 21: serving across processes on the one card -------------------
+
+def serve_rank_worker(rank: int, world: int, port: int,
+                      out_path: str) -> None:
+    """(a)'s process (``python3 chip_smoke.py --serve-worker RANK WORLD
+    PORT OUT``): phase 3's weights and trace through the fused
+    tensor-parallel engine over a ``SERVE_RANKS_TP``-wide model mesh split
+    over ``world`` processes on the one card, warmed as phase 3 warms;
+    per decode call its K4 launches and the sums and bytes it put on the
+    wire, per tick its ``kv_drift`` pair."""
+    import dataclasses
+
+    import torch
+    sys.path.insert(0, HERE)
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        GPTConfig,
+        make_gpt_stages,
+    )
+    from simple_distributed_machine_learning_tpu_torch.ops.paged_attention import (  # noqa: E501
+        paged_attention,
+    )
+    from simple_distributed_machine_learning_tpu_torch.parallel import (
+        mesh as mesh_lib,
+    )
+    mesh_lib.bootstrap_distributed(rank, world, "localhost", port,
+                                   timeout_s=120)
+    cfg = GPTConfig(**SERVE_CFG)
+    stages = make_gpt_stages(0, cfg, 1)[0]
+    card = _stage_card()
+    mesh = mesh_lib.make_mesh(1, n_model=SERVE_RANKS_TP,
+                              devices=[card] * SERVE_RANKS_TP)
+    engine = _warm_engine(
+        stages, dataclasses.replace(cfg, n_tensor_parallel=SERVE_RANKS_TP),
+        "fused", mesh=mesh)
+    calls: list[dict] = []
+    decode = engine._decode
+
+    def counted(*args):
+        w0, l0 = dict(mesh_lib.WIRE), paged_attention.launches
+        out = decode(*args)
+        calls.append(dict(
+            launches=paged_attention.launches - l0,
+            **{k: mesh_lib.WIRE[k] - w0[k] for k in mesh_lib.WIRE}))
+        return out
+
+    engine._decode = counted
+    drift = []
+    inner = engine.kv_drift
+
+    def recorded():
+        pair = inner()
+        drift.append(pair)
+        return pair
+
+    engine.kv_drift = recorded
+    # where a sum's time goes: the wait for this process's own kernels
+    # (the host copy syncs on them anyway) and the gloo exchange, which
+    # holds the wait for the peer
+    split: dict = {"device_ms": [], "wire_ms": []}
+    all_reduce = mesh_lib.all_reduce
+
+    def timed(t, group=None, axes=()):
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = all_reduce(t, group, axes)
+        split["device_ms"].append((t1 - t0) * 1e3)
+        split["wire_ms"].append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    mesh_lib.all_reduce = timed
+    w0 = dict(mesh_lib.WIRE)
+    run = _serve(engine)
+    mesh_lib.all_reduce = all_reduce
+    rec = dict(
+        rank=rank, owned=list(mesh.view(0, 0, "model").owned),
+        completed=run["report"]["completed"], summary=run["summary"],
+        tokens=[h.tokens for h in run["handles"]],
+        greedy=[h.temperature == 0.0 for h in run["handles"]],
+        launches=run["launches"], decode_calls=run["decode"],
+        per_call=calls, drift=drift, tick_ms=run["tick_ms"],
+        tick_ms_p50=run["tick_ms_p50"],
+        wire={k: mesh_lib.WIRE[k] - w0[k] for k in mesh_lib.WIRE},
+        ticks=len(run["rows"]),
+        sum_device_ms_p50=statistics.median(split["device_ms"]),
+        sum_wire_ms_p50=statistics.median(split["wire_ms"]),
+        sum_device_ms_per_tick=sum(split["device_ms"]) / len(run["rows"]),
+        sum_wire_ms_per_tick=sum(split["wire_ms"]) / len(run["rows"]))
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+    torch.distributed.destroy_process_group()
+
+
+def _serve_rank_workers(tmp: str) -> list[dict]:
+    """``SERVE_RANKS_WORLD`` fresh ``--serve-worker`` processes; their
+    records by rank."""
+    port = _free_port()
+    outs = [os.path.join(tmp, f"serve-rank{r}.json")
+            for r in range(SERVE_RANKS_WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--serve-worker",
+         str(r), str(SERVE_RANKS_WORLD), str(port), outs[r]],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=_child_env(), cwd=HERE) for r in range(SERVE_RANKS_WORLD)]
+    try:
+        for r, p in enumerate(procs):
+            _, err = p.communicate(timeout=PROC_TIMEOUT_S)
+            check(p.returncode == 0, f"serve ranks (a) rank {r} exited "
+                                     f"{p.returncode}: {err[-2000:]}")
+    finally:
+        _kill_all(procs)
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def _serve_ranks_engine(rec: dict, record: dict, serve: dict,
+                        plain_handles: list) -> int:
+    """(a) Phase 3's trace on the TP engine over two processes. Returns
+    K4's launches, summed over the ranks."""
+    import tempfile
+
+    from simple_distributed_machine_learning_tpu_torch.serve.slots import (
+        kv_block_bytes,
+    )
+    cfg = SERVE_CFG
+    L, d = cfg["n_layers"], cfg["d_model"]
+    per_call = SERVE_RANKS_TP // SERVE_RANKS_WORLD * L
+    # the wire per decode call: the attention output's and the MLP pair's
+    # sums of every layer, one [n_slots, 1, d_model] f32 row block each
+    sums_per_call = 2 * L
+    bytes_per_call = sums_per_call * SERVE_SLOTS * d * 4
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = _serve_rank_workers(tmp)
+    greedy = [i for i, h in enumerate(plain_handles)
+              if h.temperature == 0.0]
+    phase3 = [plain_handles[i].tokens for i in greedy]
+    tp2 = record["overlap_tp_serve"]["serving"]["tp 2 none"]
+    one_tp2_p50 = tp2["tick_ms_p50"]
+    launches = 0
+    for r, g in enumerate(ranks):
+        calls = g["per_call"]
+        mine = [g["tokens"][i] for i in greedy]
+        exact = all(a == b for a, b in g["drift"])
+        live = max(a for a, _ in g["drift"])
+        h = cfg["n_heads"] // SERVE_RANKS_TP
+        shard_block = kv_block_bytes(L, h, SERVE_BLOCK, d // cfg["n_heads"])
+        s = g["summary"]
+        print(f"chip_smoke: serve ranks (a) rank {r} (model coordinate(s) "
+              f"{g['owned']}): {g['completed']}/{SERVE_SIM['n_requests']}, "
+              f"{s['tokens_per_sec']} tok/s, ttft p50/p95 "
+              f"{s['ttft_ms_p50']}/{s['ttft_ms_p95']} ms, tpot p50/p95 "
+              f"{s['tpot_ms_p50']}/{s['tpot_ms_p95']} ms; tick p50 "
+              f"{g['tick_ms_p50']:.3f} ms (phase 19 (b) one-process tp 2 "
+              f"{one_tp2_p50:.3f}, phase 3 {serve['tick_ms_p50']:.3f}); K4 "
+              f"{g['launches']} = {per_call} x {g['decode_calls']} decode "
+              f"calls; per decode call {sums_per_call} sums of "
+              f"{bytes_per_call // sums_per_call} B: "
+              f"{sorted({c['sums'] for c in calls})} sums, "
+              f"{sorted({c['sum_bytes'] for c in calls})} B; wire over the "
+              f"trace {g['wire']}; per-shard KV bytes max {live} (a block "
+              f"{shard_block} B), equal to the byte model every tick: "
+              f"{exact}; greedy streams equal to phase 3's "
+              f"{sum(a == b for a, b in zip(mine, phase3))}/{len(greedy)}; "
+              f"a sum's p50 {g['sum_device_ms_p50']:.3f} ms waiting for "
+              f"its own kernels + {g['sum_wire_ms_p50']:.3f} ms on gloo, "
+              f"per tick {g['sum_device_ms_per_tick']:.3f} + "
+              f"{g['sum_wire_ms_per_tick']:.3f} ms")
+        check(g["completed"] == SERVE_SIM["n_requests"],
+              f"serve ranks rank {r}: {g['completed']}/"
+              f"{SERVE_SIM['n_requests']}")
+        check(g["decode_calls"] > 0 and len(calls) == g["decode_calls"]
+              and all(c["launches"] == per_call for c in calls)
+              and g["launches"] == per_call * g["decode_calls"],
+              f"serve ranks rank {r}: K4 per decode call "
+              f"{sorted({c['launches'] for c in calls})} != {per_call}")
+        check(all(c["sums"] == sums_per_call
+                  and c["sum_bytes"] == bytes_per_call
+                  and c["sends"] == 0 for c in calls),
+              f"serve ranks rank {r}: the wire per decode call differs "
+              f"from {sums_per_call} sums of {bytes_per_call} B: "
+              f"{calls[:3]}")
+        check(g["wire"]["broadcast_bytes"] == 8 * g["wire"]["broadcasts"]
+              > 0, f"serve ranks rank {r}: the clock broadcasts "
+                   f"{g['wire']}")
+        check(exact and live > 0 and live % shard_block == 0,
+              f"serve ranks rank {r}: per-shard KV bytes differ from the "
+              f"byte model: {[p for p in g['drift'] if p[0] != p[1]][:4]}")
+        check(len(greedy) >= 2 and mine == phase3
+              and mine == tp2["greedy_tokens"],
+              f"serve ranks rank {r}: greedy streams differ from phase 3's "
+              f"or phase 19 (b)'s one-process tp 2")
+        launches += g["launches"]
+    check(ranks[0]["tokens"] == ranks[1]["tokens"]
+          and ranks[0]["wire"] == ranks[1]["wire"],
+          "serve ranks: the two ranks' streams or wire counts differ")
+    rec["engine"] = dict(
+        ranks=[{k: v for k, v in g.items() if k not in ("per_call", "drift",
+                                                         "tokens")}
+               for g in ranks],
+        launches_per_call=per_call, sums_per_call=sums_per_call,
+        sum_bytes_per_call=bytes_per_call,
+        one_process_tp2_tick_ms_p50=one_tp2_p50,
+        phase3_tick_ms_p50=serve["tick_ms_p50"],
+        greedy=len(greedy))
+    return launches
+
+
+def _serve_ranks_cli(rec: dict) -> None:
+    """(b) The CLI over two processes: ``--serve-sim`` at tp 1 and at
+    ``--serve-tp 2`` (both ranks 0-exit with equal request and token
+    counts, every rank printing), ``--scenario steady`` (both ranks print
+    the one-process run's lines, made in this call)."""
+    done = re.compile(r"^\| serve: (\d+/\d+) requests completed, (\d+) "
+                      r"tokens")
+    base = ["--model", "gpt", "--serve-sim", str(SERVE_RANKS_CLI_N)]
+    runs = {"tp1": base, "tp2": base + ["--serve-tp", "2"],
+            "scenario": ["--scenario", "steady"]}
+    # the three launches run together, beside the one-process run
+    t0 = time.perf_counter()
+    started: dict = {}
+    try:
+        for name, argv in runs.items():
+            started[name] = _start_ranks(2, argv)
+        one = [ln for ln in _cli(["--scenario", "steady"])
+               if ln.startswith("| scenario")]
+        done_ranks = {name: _wait_ranks(started[name], argv)
+                      for name, argv in runs.items()}
+    finally:
+        for procs in started.values():
+            _kill_all(procs)
+    launch_s = time.perf_counter() - t0
+    out = {}
+    for name in ("tp1", "tp2"):
+        ranks = done_ranks[name]
+        counts = [[m.groups() for m in map(done.match, so.splitlines()) if m]
+                  for _, so, _ in ranks]
+        check(len(counts[0]) == 1 and counts[0] == counts[1]
+              and counts[0][0][0] == f"{SERVE_RANKS_CLI_N}/"
+                                     f"{SERVE_RANKS_CLI_N}"
+              and all(("| serve: tp 2" in so) == (name == "tp2")
+                      for _, so, _ in ranks),
+              f"--serve-sim over two processes ({name}): {counts} "
+              f"{[so for _, so, _ in ranks]}")
+        out[name] = dict(counts=counts[0][0])
+        print(f"chip_smoke: serve ranks (b) CLI --serve-sim "
+              f"{SERVE_RANKS_CLI_N}{' --serve-tp 2' if name == 'tp2' else ''}"
+              f" --world_size 2: both ranks exit 0, {counts[0][0][0]} "
+              f"requests, {counts[0][0][1]} tokens each")
+    lines = [[ln for ln in so.splitlines() if ln.startswith("| scenario")]
+             for _, so, _ in done_ranks["scenario"]]
+    check(len(one) >= 3 and lines[0] == one and lines[1] == one,
+          f"--scenario steady over two processes: {lines} vs one process "
+          f"{one}")
+    out["scenario_steady"] = one
+    out["launch_s"] = launch_s
+    print(f"chip_smoke: serve ranks (b) CLI --scenario steady --world_size "
+          f"2: both ranks print the one-process run's {len(one)} lines "
+          f"({one[-1]}); the three two-process launches together "
+          f"{launch_s:.1f} s")
+    rec["cli"] = out
+
+
+def phase_serve_ranks(record: dict, serve: dict, plain_handles: list) -> int:
+    """Phase 21: serving across processes on the one card. Returns K4's
+    launches in (a)'s processes."""
+    rec: dict = {}
+    record["serve_ranks"] = rec
+    t0 = time.perf_counter()
+    launches = _serve_ranks_engine(rec, record, serve, plain_handles)
+    secs = {"a": time.perf_counter() - t0}
+    _serve_ranks_cli(rec)
+    secs["b"] = time.perf_counter() - t0 - secs["a"]
+    rec["seconds"] = dict(secs, total=time.perf_counter() - t0)
+    print(f"chip_smoke: phase 21 took {rec['seconds']['total']:.1f} s ("
+          + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items()) + ")")
+    return launches
+
+
+def lane_main(out_path: str) -> int:
+    """The second lane: phases 16-18 and 19 (a), (d) in a process of
+    their own, beside the first lane's serving, stages, linter and
+    cross-process serving phases. Its records and launch counts go to
+    ``out_path``."""
+    import signal
+
+    def stop(signum, frame):
+        raise SmokeFailure(f"the second lane was stopped (signal {signum})")
+    # a stop unwinds through every phase's ``finally``, which stops the
+    # processes the phase started
+    signal.signal(signal.SIGTERM, stop)
+    sys.path.insert(0, HERE)
+    record: dict = {}
+    secs: dict = {}
+    try:
+        t = time.perf_counter()
+        process_launches = phase_processes(record)
+        secs["16"] = time.perf_counter() - t
+        phase_tensor_parallel(record)
+        secs["17"] = time.perf_counter() - t - sum(secs.values())
+        spep_launches = phase_seq_expert(record)
+        secs["18"] = time.perf_counter() - t - sum(secs.values())
+        overlap_flash, cli_k4 = phase_overlap_training(record)
+        secs["19 (a), (d)"] = time.perf_counter() - t - sum(secs.values())
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    flash = [process_launches[i] + spep_launches[i] + overlap_flash[i]
+             for i in range(3)]
+    with open(out_path, "w") as f:
+        json.dump({"record": record, "flash": flash, "k4": cli_k4,
+                   "seconds": secs}, f)
+    return 0
+
+
+def start_lane(tmp: str):
+    """Start the second lane, its output to files under ``tmp``."""
+    out = open(os.path.join(tmp, "lane.out"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--lane",
+         os.path.join(tmp, "lane.json")], stdout=out,
+        stderr=subprocess.STDOUT, env=_child_env(), cwd=HERE,
+        start_new_session=True)
+    out.close()
+    return proc
+
+
+def _lane_log(tmp: str) -> str:
+    with open(os.path.join(tmp, "lane.out")) as f:
+        return f.read()
+
+
+def join_lane(proc, tmp: str, deadline: float) -> dict:
+    """Wait for the second lane (until ``deadline`` on the monotonic
+    clock), print its output here and return its results."""
+    try:
+        rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        rc = None
+    text = _lane_log(tmp)
+    check(rc == 0, f"the second lane (phases 16-18, 19 (a) and (d)) "
+                   f"{'ran past its deadline' if rc is None else f'exited {rc}'}"
+                   f": {text[-4000:]}")
+    print("chip_smoke: the second lane's output (phases 16-18, 19 (a) and "
+          "(d), run beside phases 8-15, 19 (b)-(c), 20 and 21):")
+    sys.stdout.write(text)
+    with open(os.path.join(tmp, "lane.json")) as f:
+        return json.load(f)
+
+
+def stop_lane(proc) -> None:
+    """Stop the second lane if it still runs: SIGTERM (its phases stop
+    their processes on the way out), then SIGKILL to its whole group."""
+    import signal
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            pass
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except (ProcessLookupError, PermissionError):
+        pass
+    proc.wait()
 
 
 def main() -> int:
@@ -7235,47 +7720,84 @@ def main() -> int:
         print(f"chip_smoke: the port package is not beside this script "
               f"({e})", file=sys.stderr)
         return 2
+    import tempfile
+
     from simple_distributed_machine_learning_tpu_torch.models.gpt import (
         GPTConfig,
         make_gpt_stages,
     )
     record: dict = {}
     t_start = time.perf_counter()
+    deadline = time.monotonic() + LANE_DEADLINE_S
+    secs: dict = {}
+
+    def timed(name: str, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        secs[name] = round(time.perf_counter() - t, 1)
+        return out
+    lane = None
+    analysis: list = []
+    lane_tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-lane-")
     try:
-        phase_build(record)
-        variants = phase_kernels(record)
-        flash_variants = phase_flash_kernels(record)
+        timed("1", phase_build, record)
+        variants = timed("2 K4", phase_kernels, record)
+        flash_variants = timed("2 flash", phase_flash_kernels, record)
         cfg = GPTConfig(**SERVE_CFG)
         stages = make_gpt_stages(0, cfg, 1)[0]
-        serve, plain_handles = phase_serve(stages, cfg, record)
-        spec = phase_spec_serve(stages, cfg, serve, plain_handles, record)
-        phase_profile(stages, cfg, record)
-        fault_launches = phase_serve_faults(stages, cfg, serve,
-                                            plain_handles, record)
-        fleet_launches = phase_fleet(stages, cfg, serve, plain_handles,
-                                     record)
-        tier_launches = phase_host_tier_adapters(stages, cfg, serve, record)
-        protocol_launches = phase_protocol_beam_dense(
-            stages, cfg, serve, plain_handles, spec, record)
+        serve, plain_handles = timed("3", phase_serve, stages, cfg, record)
+        spec = timed("3b", phase_spec_serve, stages, cfg, serve,
+                     plain_handles, record)
+        timed("4", phase_profile, stages, cfg, record)
+        # the kernels' times and phase 4's breakdown are taken alone; from
+        # here the second lane runs beside this one
+        lane = start_lane(lane_tmp.name)
+        fault_launches = timed("8", phase_serve_faults, stages, cfg, serve,
+                               plain_handles, record)
+        fleet_launches = timed("9", phase_fleet, stages, cfg, serve,
+                               plain_handles, record)
+        tier_launches = timed("11", phase_host_tier_adapters, stages, cfg,
+                              serve, record)
+        protocol_launches = timed("12", phase_protocol_beam_dense, stages,
+                                  cfg, serve, plain_handles, spec, record)
         del stages
-        train = phase_train("gpt_bf16", TRAIN_ROWS["gpt_bf16"], record)
-        phase_train("gpt", TRAIN_ROWS["gpt"], record)
-        phase_train_profile(TRAIN_ROWS["gpt_bf16"], record)
-        phase_main_path(record)
-        resilience_launches = phase_resilience(record)
-        telemetry_launches = phase_telemetry_native(record)
-        f1_row, lint_launches = phase_lint_drift(record)
-        stage_launches = phase_stages(record)
-        process_launches = phase_processes(record)
-        phase_tensor_parallel(record)
-        spep_launches = phase_seq_expert(record)
-        tp_serve_launches, overlap_flash = phase_overlap_tp_serve(
-            record, serve, plain_handles)
-        lint_flash, lint_k4 = phase_program_lint(record, serve,
-                                                 plain_handles)
+        train = timed("5 bf16", phase_train, "gpt_bf16",
+                      TRAIN_ROWS["gpt_bf16"], record)
+        timed("5 f32", phase_train, "gpt", TRAIN_ROWS["gpt"], record)
+        timed("6", phase_train_profile, TRAIN_ROWS["gpt_bf16"], record)
+        timed("7", phase_main_path, record)
+        resilience_launches = timed("10", phase_resilience, record)
+        telemetry_launches = timed("13", phase_telemetry_native, record)
+        analysis = start_analysis_cli()
+        f1_row, lint_launches = timed("14", phase_lint_drift, record)
+        stage_launches = timed("15", phase_stages, record)
+        tp_serve_launches = timed("19 (b), (c)", phase_overlap_tp_serve,
+                                  record, serve, plain_handles)
+        lint_flash, lint_k4 = timed("20 (a)-(d)", phase_program_lint,
+                                    record, serve, plain_handles, analysis)
+        ranks_k4 = timed("21", phase_serve_ranks, record, serve,
+                         plain_handles)
+        t = time.perf_counter()
+        laned = join_lane(lane, lane_tmp.name, deadline)
+        secs["waiting for the second lane"] = round(time.perf_counter() - t,
+                                                    1)
+        for key, val in laned["record"].items():
+            if isinstance(record.get(key), dict):
+                record[key].update(val)
+            else:
+                record[key] = val
+        _lint_ici(record, record["program_lint"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        _kill_all([proc for *_, proc in analysis])
+        if lane is not None:
+            stop_lane(lane)
+        lane_tmp.cleanup()
+    record["phase_seconds"] = dict(
+        secs, lane={k: round(v, 1) for k, v in laned["seconds"].items()})
+    print(f"chip_smoke: seconds by phase: {record['phase_seconds']}")
     main_v = next(v for v in variants
                   if v["dtype"] == "float32" and v["K"] == 1)
     kernels = {"kernels": [{
@@ -7288,11 +7810,13 @@ def main() -> int:
         # phase 8's scenarios and drills, phase 9's fleet runs, phase 11's
         # host-tier and adapter runs, phase 12's protocol drills, phase
         # 14's recorded ticks and drift traces, phase 19's
-        # tensor-parallel serving (tp x n_layers per decode call) and
-        # phase 20's linted engines and CLI gate run
+        # tensor-parallel serving (tp x n_layers per decode call),
+        # phase 20's linted engines and CLI gate run, and phase 21 (a)'s
+        # two processes (tp / W x n_layers per decode call in each)
         "launches": (serve["launches"] + spec["launches"] + fault_launches
                      + fleet_launches + tier_launches + protocol_launches
-                     + lint_launches + tp_serve_launches + lint_k4),
+                     + lint_launches + tp_serve_launches + laned["k4"]
+                     + lint_k4 + ranks_k4),
         "max_abs_err": max(v["max_abs_err"] for v in variants),
         "ms": main_v["ms"],
         "plain_ms": main_v["plain_ms"],
@@ -7320,8 +7844,7 @@ def main() -> int:
                         f"flash_attention.py:{line}",
             "launches": (train["launches"][i] + resilience_launches[i]
                          + telemetry_launches[i] + stage_launches[i]
-                         + process_launches[i] + spep_launches[i]
-                         + overlap_flash[i] + lint_flash[i]),
+                         + laned["flash"][i] + lint_flash[i]),
             "max_abs_err": max(v["max_abs_err"] for v in flash_variants
                                if v["name"] == name),
             "ms": timed["ms"],
@@ -7348,5 +7871,11 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--process-worker"]:
         process_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
                        sys.argv[5])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--lane"]:
+        sys.exit(lane_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--serve-worker"]:
+        serve_rank_worker(int(sys.argv[2]), int(sys.argv[3]),
+                          int(sys.argv[4]), sys.argv[5])
         sys.exit(0)
     sys.exit(main())

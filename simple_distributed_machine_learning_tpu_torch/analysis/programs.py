@@ -404,17 +404,18 @@ def _injected_findings() -> list[Finding]:
 
 def _reconcile_kernel_hbm(kernel_rows: list[HBMCost],
                           model_rows: list[HBMCost],
-                          sspec: ServeSpec) -> list[Finding]:
+                          sspec: ServeSpec, n_shards: int | None = None
+                          ) -> list[Finding]:
     """Cross-check the K/V stream bytes derived from the recorded launches
     against the tick model's gather rows: the fused kernel's claim — one
     read of resident K/V per tick — is computed from the launches' own
     specs, not asserted. The two agree EXACTLY or the gate fails. A TP
-    program launches once per model coordinate, each on its shard, where
-    the model bills one shard: the launches stream ``tp`` times its
-    row."""
+    program launches once per model coordinate this process runs
+    (``n_shards``; None: all ``tp``), each on its shard, where the model
+    bills one shard: the launches stream ``n_shards`` times its row."""
     if sspec.attn_kernel != "fused":
         return []
-    tp = sspec.tp
+    tp = sspec.tp if n_shards is None else n_shards
     derived: dict[str, int] = {}
     for h in kernel_rows:
         if h.op == "kernel.kv_stream":
@@ -759,6 +760,7 @@ def build_registry(stages, sspec: ServeSpec, mesh=None, draft_stages=None,
         make_slot_prefill,
         pack_tp_serve_params,
         tp_serve_devices,
+        tp_serve_shards,
     )
 
     dev = resolve_device(device)
@@ -769,11 +771,12 @@ def build_registry(stages, sspec: ServeSpec, mesh=None, draft_stages=None,
     NB = sspec.blocks_per_seq
     n_blocks = sspec.nb
     tp = sspec.tp
-    devices = tp_serve_devices(mesh, tp) if tp > 1 else None
+    devices = tp_serve_devices(mesh) if tp > 1 else None
     dense_params = [s.params for s in stages]
     if params is None:
-        params = (pack_tp_serve_params(dense_params, tp, devices) if tp > 1
-                  else dense_params)
+        params = (pack_tp_serve_params(dense_params, tp, devices,
+                                       tp_serve_shards(mesh))
+                  if tp > 1 else dense_params)
     params = abstractify(params)
     i32, i64, f32 = torch.int32, torch.int64, torch.float32
 
@@ -1132,6 +1135,9 @@ def lint_serve(stages, sspec: ServeSpec, name: str | None = None,
     from simple_distributed_machine_learning_tpu_torch.analysis import (
         analyze,
     )
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        tp_serve_shards,
+    )
     if sspec.tp > 1 and mesh is None:
         raise ValueError(
             f"lint_serve: sspec.cfg.n_tensor_parallel={sspec.tp} needs the "
@@ -1167,8 +1173,9 @@ def lint_serve(stages, sspec: ServeSpec, name: str | None = None,
     report.hbm.extend(kernel_rows)
     model_rows = hbm_tick_costs(sspec, n_layers=n_layers)
     report.hbm.extend(model_rows)
-    report.findings.extend(
-        _reconcile_kernel_hbm(kernel_rows, model_rows, sspec))
+    report.findings.extend(_reconcile_kernel_hbm(
+        kernel_rows, model_rows, sspec,
+        len(tp_serve_shards(mesh)) if sspec.tp > 1 else None))
     report.findings.extend(_injected_findings())
     return report
 

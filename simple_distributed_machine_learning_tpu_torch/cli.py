@@ -66,7 +66,17 @@ the optimizer state over the data axis; checkpoints are collective. With
 ``--peer-timeout T`` > 0 a watchdog subprocess per process
 (``utils/failure.py``, on ``--heartbeat-port``, default master_port + 1)
 turns a killed or frozen peer into a non-zero exit within about T
-seconds. ``--serve-sim`` and ``--scenario`` still run in one process only.
+seconds.
+
+``--serve-sim`` and ``--scenario`` run in every process of such a launch,
+and every process prints, as the JAX CLI's do: at ``--serve-tp 1`` each
+process serves the whole trace (or runs the scenario) on its own card,
+card ``rank mod n``; at ``--serve-tp T`` the T model coordinates of one
+serving mesh lie across the W processes (T / W each, the sums over gloo
+through the host, every clock read rank 0's), and every process serves
+the same trace in lockstep. Under ``--telemetry-dir`` only process 0
+writes the request journals and the request timeline there (two writers
+would corrupt them); the others keep theirs in a temporary directory.
 
 ``--tp M`` (``--model mlp`` or ``gpt``) adds a model axis: each stage is
 sharded M ways (Megatron: the MLP's column -> row pairs, the GPT's heads
@@ -105,8 +115,6 @@ cards (``| serving: tp T on ...``), where the JAX CLI needs T devices.
 from __future__ import annotations
 
 import argparse
-
-from simple_distributed_machine_learning_tpu_torch import _roadmap
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -426,6 +434,7 @@ def main(argv: list[str] | None = None) -> None:
         raise SystemExit("Must provide rank argument.")
     if args.world_size > 1:
         _refuse_one_process_paths(args)
+        _check_serve_world(args)
     from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
         bootstrap_distributed,
     )
@@ -456,18 +465,43 @@ def main(argv: list[str] | None = None) -> None:
 
 
 def _refuse_one_process_paths(args) -> None:
-    """The paths this package still runs in one process only."""
+    """The path that runs in one process only, with the JAX CLI's text."""
     if args.chaos is not None:
         raise SystemExit(
             "--chaos supervises in-process (single-process elastic "
             "restart); multi-process peer loss is the watchdog's domain "
             "(--peer-timeout)")
-    for flag, on in (("--serve-sim", args.serve_sim > 0),
-                     ("--scenario", args.scenario is not None)):
-        if on:
-            raise SystemExit(str(_roadmap.not_ported(
-                f"{flag} with --world_size {args.world_size}",
-                _roadmap.MULTI_PROCESS)))
+
+
+def _check_serve_world(args) -> None:
+    """``--serve-sim --serve-tp T`` over W processes, checked before the
+    rendezvous (every process exits alike, none is taken down by a
+    peer's watchdog first): the serving flags, then T against the heads,
+    the world's devices (one per process, the JAX CLI's count and text)
+    and the split of the mesh."""
+    if args.serve_sim <= 0 or args.scenario is not None:
+        return
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        GPTConfig,
+    )
+    from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
+        check_split,
+    )
+    _check_serve_args(args)
+    tp, world = args.serve_tp, args.world_size
+    heads = GPTConfig().n_heads
+    if heads % tp:
+        raise SystemExit(f"--serve-tp {tp} must divide the model's head "
+                         f"count ({heads})")
+    if tp > world:
+        raise SystemExit(
+            f"--serve-tp {tp} needs {tp} devices, have {world} (on CPU: "
+            f"XLA_FLAGS=--xla_force_host_platform_device_count={tp})")
+    if tp > 1:
+        try:
+            check_split(world, n_model=tp)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
 
 
 def _dispatch(args) -> None:
@@ -1191,6 +1225,34 @@ def _lint_serve_gate(args, stages, serve_cfg, mesh, draft_stages,
     print("| serve --lint: preflight clean")
 
 
+def _rank_device(args, device):
+    """This process's card for serving: card ``rank mod n`` of the n
+    visible cards over several processes (``_placement``'s rule, one
+    coordinate per process), ``device`` itself otherwise."""
+    if args.world_size > 1 and device.type == "cuda":
+        return _placement(device, args.world_size)[args.rank or 0]
+    return device
+
+
+def _serve_mesh(args, device):
+    """The ``--serve-tp T`` serving mesh: one process's T model
+    coordinates, coordinate m on card m mod n (where the JAX CLI needs T
+    devices); over W processes (:func:`_check_serve_world` passed), one
+    mesh across them, each process owning T / W coordinates on card
+    ``rank mod n``. Prints the placement."""
+    from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
+        make_mesh,
+    )
+    tp, world = args.serve_tp, args.world_size
+    mesh = make_mesh(1, n_model=tp, devices=_placement(
+        device, tp, tp // world if world > 1 else 1))
+    print(f"| serving: tp {tp} on "
+          + ", ".join(str(d) for d in mesh.coord_devices)
+          + (f" ({world} processes, {tp // world} coordinate(s) each, "
+             f"sums over the host)" if mesh.distributed else ""))
+    return mesh
+
+
 def _run_serve(args, n_stages: int, device) -> None:
     """--serve-sim N: continuous-batching inference over a simulated
     open-loop Poisson trace. Params come from --checkpoint-dir when a
@@ -1251,24 +1313,15 @@ def _run_serve(args, n_stages: int, device) -> None:
             f"room to generate: prefix + longest simulated prompt "
             f"({max(GPT_SERVE_PROMPTS)}) + 1 token must fit seq_len "
             f"{cfg.seq_len}")
-    # the model at --stages (a checkpoint written at that count restores
-    # onto it); the engine serves its merged stages on one card
-    stages, wire_dim, out_shape = make_gpt_stages(args.seed, cfg, n_stages,
-                                                  device)
-    # the serving deployment: the stages stay the dense build (the engine
-    # slices per shard itself), the serve cfg carries the TP width, and
-    # the mesh places model coordinate m on card m mod n (the JAX CLI
-    # needs --serve-tp devices)
+    device = _rank_device(args, device)
     serve_cfg, mesh = cfg, None
     if args.serve_tp > 1:
-        from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (  # noqa: E501
-            make_mesh,
-        )
         serve_cfg = dataclasses.replace(cfg, n_tensor_parallel=args.serve_tp)
-        mesh = make_mesh(1, n_model=args.serve_tp,
-                         devices=_placement(device, args.serve_tp))
-        print(f"| serving: tp {args.serve_tp} on "
-              + ", ".join(str(d) for d in mesh.coord_devices))
+        mesh = _serve_mesh(args, device)
+    # the model at --stages (a checkpoint written at that count restores
+    # onto it); the engine serves its merged stages
+    stages, wire_dim, out_shape = make_gpt_stages(args.seed, cfg, n_stages,
+                                                  device)
     draft_stages = draft_cfg = None
     if args.serve_spec_k:
         # the draft: the same config at half the layers, fresh weights
@@ -1288,7 +1341,7 @@ def _run_serve(args, n_stages: int, device) -> None:
             if args.checkpoint_dir else None)
     if ckpt and os.path.exists(ckpt):
         from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (  # noqa: E501
-            make_mesh,
+            Mesh,
         )
         from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (  # noqa: E501
             Pipeline,
@@ -1296,10 +1349,13 @@ def _run_serve(args, n_stages: int, device) -> None:
         from simple_distributed_machine_learning_tpu_torch.train.checkpoint import (  # noqa: E501
             restore_checkpoint,
         )
-        mesh = (make_mesh(n_stages, devices=[device] * n_stages)
-                if n_stages > 1 else None)
-        pipe = Pipeline(stages, mesh, wire_dim, out_shape,
-                        device=None if mesh else device)
+        # the training layout the checkpoint packs, every stage in this
+        # process (each process of a launch reads the whole file): a stage
+        # mesh of its own, apart from the serving mesh
+        stage_mesh = (Mesh((device,) * n_stages) if n_stages > 1
+                      else None)
+        pipe = Pipeline(stages, stage_mesh, wire_dim, out_shape,
+                        device=None if stage_mesh else device)
         st = restore_checkpoint(ckpt, pipe=pipe)
         params = st["params"]
         print(f"| serve: restored params from {ckpt} (step {st['step']})")
@@ -1307,12 +1363,17 @@ def _run_serve(args, n_stages: int, device) -> None:
         print("| serve: fresh-initialized params"
               + (f" (no checkpoint at {ckpt})" if ckpt else ""))
     metrics = ServeMetrics(outdir=args.telemetry_dir)
-    trace = None
-    if args.serve_trace:
-        if not args.telemetry_dir:
-            raise SystemExit("--serve-trace needs --telemetry-dir (the "
-                             "trace artifacts land next to metrics.jsonl)")
-        trace = ServeTrace(outdir=args.telemetry_dir)
+    if args.serve_trace and not args.telemetry_dir:
+        raise SystemExit("--serve-trace needs --telemetry-dir (the trace "
+                         "artifacts land next to metrics.jsonl)")
+    # the journals and the request timeline: two processes appending to
+    # one file corrupt it, so past rank 0 they go to a temporary directory
+    tmpdir = None
+    log_dir = args.telemetry_dir
+    if log_dir and (args.rank or 0) > 0:
+        tmpdir = tempfile.TemporaryDirectory(prefix="sdml-serve-")
+        log_dir = tmpdir.name
+    trace = ServeTrace(outdir=log_dir) if args.serve_trace else None
     engine_kw = dict(
         params=params, n_slots=args.serve_slots,
         block_size=args.serve_block_size,
@@ -1331,10 +1392,9 @@ def _run_serve(args, n_stages: int, device) -> None:
             engine_kw["adapters"] = AdapterStore(
                 serve_cfg, args.serve_adapter_rank, args.serve_slots,
                 device=device)
-    tmpdir = None
     if fleet_mode:
-        if args.telemetry_dir:
-            journal_dir = args.telemetry_dir
+        if log_dir:
+            journal_dir = log_dir
         else:
             tmpdir = tempfile.TemporaryDirectory(prefix="sdml-fleet-")
             journal_dir = tmpdir.name
@@ -1359,9 +1419,8 @@ def _run_serve(args, n_stages: int, device) -> None:
               + (f", chaos {args.serve_chaos!r}" if args.serve_chaos
                  else "") + ")")
     elif supervised:
-        if args.telemetry_dir:
-            journal_path = os.path.join(args.telemetry_dir,
-                                        "journal.jsonl")
+        if log_dir:
+            journal_path = os.path.join(log_dir, "journal.jsonl")
             if os.path.exists(journal_path):
                 os.unlink(journal_path)        # each --serve-sim run is fresh
         else:
@@ -1548,6 +1607,7 @@ def _run_scenario(args, n_stages: int, device) -> None:
     if args.serve_sim > 0:
         raise SystemExit("--scenario runs alone (drop --serve-sim/--chaos)")
     cfg = GPTConfig()
+    device = _rank_device(args, device)
     stages = make_gpt_stages(args.seed, cfg, n_stages, device)[0]
     report = run_scenario(args.scenario, stages, cfg,
                           outdir=args.telemetry_dir, device=device,

@@ -68,7 +68,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from simple_distributed_machine_learning_tpu_torch import _roadmap
 from simple_distributed_machine_learning_tpu_torch._device import (
     resolve_device,
 )
@@ -814,11 +813,11 @@ def _adapter_layers(bank, aid):
 
 
 def _bank_lookup(adapters: bool, bank, aids, dev, caller: str,
-                 devices=None):
+                 shards=None):
     """The per-layer lookup of a builder's trailing ``(bank, aids)``
     arguments, or None for a build without adapters. ``aids`` (an int or
-    a host array) becomes one index tensor per call. ``devices``: a TP
-    program's shard devices (:func:`_tp_adapter_layers`)."""
+    a host array) becomes one index tensor per call. ``shards``: a TP
+    program's :class:`_TPShards` (:func:`_tp_adapter_layers`)."""
     if not adapters:
         if bank is not None or aids is not None:
             raise ValueError(f"{caller} was built without adapters: drop "
@@ -829,8 +828,9 @@ def _bank_lookup(adapters: bool, bank, aids, dev, caller: str,
                          f"adapter bank and the row indices")
     if not isinstance(aids, int):
         aids = _on(aids, dev, torch.int64)
-    if devices is not None:
-        return _tp_adapter_layers(bank, aids, len(devices), devices)
+    if shards is not None:
+        return _tp_adapter_layers(bank, aids, shards.tp, shards.devices,
+                                  shards.owned)
     return _adapter_layers(bank, aids)
 
 
@@ -898,23 +898,28 @@ def _serve_block(bp, h, li, kc, vc, H, ab, attend, tail=None):
 # on its device; the fused paged programs launch K4 once per coordinate
 # and layer on its H/tp heads — and the attention output projection and
 # the MLP pair close with one sum over the coordinates, plain or the ring
-# of parallel/overlap.py. One process holds every coordinate (the JAX
-# shard_map's devices): the residual stream, the embedding and the head
-# are one replicated copy on the first coordinate's device, so the
-# sampling rows are computed once and every coordinate samples the same
-# bits — the JAX programs' re-replication of the rows (_close_rows, a
-# pmean over the model axis) has nothing to do here.
+# of parallel/overlap.py. A process holds the coordinates of the mesh it
+# owns (tp_serve_shards: all of them in one process, tp / W of them in
+# each of W processes) and the sums cross processes over the mesh's model
+# group. The residual stream, the embedding, the head and the sampling run
+# in every process on its first coordinate's device: the sums give every
+# process the same bits, so every process samples the same tokens — the
+# counterpart of the JAX programs' re-replication of the rows
+# (_close_rows, a pmean over the model axis).
 
-def pack_tp_serve_params(params_list, tp: int, devices=None):
+def pack_tp_serve_params(params_list, tp: int, devices=None, shards=None):
     """Slice dense per-stage trees into the TP serving layout: ``([per
-    layer, the tp shard trees], {"embed": ..., "head": ...})`` — shard
-    ``m``'s tree is exactly :func:`_slice_tp_block`'s, a copy of its own
-    on ``devices[m]`` (None: where the weights lie); embed and head stay
-    the dense build's, replicated."""
+    layer, the owned shard trees], {"embed": ..., "head": ...})`` — the
+    trees of the model coordinates ``shards`` (None: all ``tp``; a
+    process of a mesh across processes: :func:`tp_serve_shards`), shard
+    ``m``'s exactly :func:`_slice_tp_block`'s, a copy of its own on its
+    entry of ``devices`` (one per owned shard; None: where the weights
+    lie); embed and head stay the dense build's, replicated."""
     embed, blocks, head = _merged_stage_trees(params_list)
-    devices = list(devices) if devices is not None else [None] * tp
-    stacked = [[_slice_tp_block(bp, m, tp, devices[m]) for m in range(tp)]
-               for bp in blocks]
+    shards = list(range(tp) if shards is None else shards)
+    devices = list(devices) if devices is not None else [None] * len(shards)
+    stacked = [[_slice_tp_block(bp, m, tp, dev)
+                for m, dev in zip(shards, devices)] for bp in blocks]
     return stacked, {"embed": embed, "head": head}
 
 
@@ -925,31 +930,32 @@ def _tp_local_trees(params):
     return stacked, rep["embed"], rep["head"]
 
 
-def _tp_attn_tail(bps, h, parts, overlap="none"):
-    """TP twin of :func:`_dense_attn_tail`: ``bps`` the layer's shard
-    trees, ``parts`` each shard's attention over its ``H/tp`` heads. The
-    output projection is row-parallel (``wo`` rows are head-aligned),
-    closed by one sum over the coordinates (``overlap='none'``) or the
-    ring of ``overlap.ring_psum``; the MLP is the training path's column
-    -> row pair (``tensor.tp_pair_apply``, tanh GELU)."""
-    from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
-        MODEL_AXIS,
-        AxisView,
-    )
+def _tp_attn_tail(bps, h, parts, view, overlap="none"):
+    """TP twin of :func:`_dense_attn_tail`: ``bps`` the layer's owned
+    shard trees, ``parts`` each shard's attention over its ``H/tp``
+    heads. The output projection is row-parallel (``wo`` rows are
+    head-aligned), closed by one sum over the coordinates
+    (``overlap='none'``: the owned parts summed, then over ``view``'s
+    process group) or the ring of ``overlap.ring_psum`` over ``view``
+    (gloo hops across processes); the MLP is the training path's column
+    -> row pair (``tensor.tp_pair_apply``, tanh GELU). ``view``: the
+    model axis as this process sees it (:func:`tp_serve_view`)."""
     from simple_distributed_machine_learning_tpu_torch.parallel.overlap import (  # noqa: E501
         ring_psum,
     )
     from simple_distributed_machine_learning_tpu_torch.parallel.tensor import (  # noqa: E501
+        Shards,
         model_sum,
         tp_pair_apply,
     )
     zs = [_merge_heads(a) @ bp["attn"]["wo"] for bp, a in zip(bps, parts)]
-    red = (ring_psum(zs, AxisView.local(MODEL_AXIS, len(zs)))[0]
-           if overlap == "ring" else model_sum(zs))
+    red = (ring_psum(zs, view)[0] if overlap == "ring"
+           else model_sum(zs, view.group, size=view.size))
     h = h + _to(red, h.device)
     hn2 = layer_norm(bps[0]["ln2"], h)
     return h + tp_pair_apply(
-        [{"w1": bp["mlp_in"], "w2": bp["mlp_out"]} for bp in bps], hn2,
+        Shards([{"w1": bp["mlp_in"], "w2": bp["mlp_out"]} for bp in bps],
+               group=view.group, view=view), hn2,
         activation=_gelu, overlap=overlap)
 
 
@@ -957,28 +963,31 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def _tp_adapter_layers(bank, aid, tp, devices):
+def _tp_adapter_layers(bank, aid, tp, devices, shards=None):
     """TP twin of :func:`_adapter_layers`: the bank is replicated; each
-    shard takes its own output columns of the B factors (``bq``/``bv``
-    columns are head-aligned like ``wq``/``wv``'s Megatron column shards,
-    and a column slice commutes with the matmul), on its device.
-    ``at(li)`` is the list of the shards' factors."""
+    owned shard (``shards``, None: all ``tp``) takes its own output
+    columns of the B factors (``bq``/``bv`` columns are head-aligned like
+    ``wq``/``wv``'s Megatron column shards, and a column slice commutes
+    with the matmul), on its entry of ``devices``. ``at(li)`` is the list
+    of the owned shards' factors."""
     at_full = _adapter_layers(bank, aid)
+    shards = list(range(tp) if shards is None else shards)
 
     def at(li):
         aq, bq, av, bv = at_full(li)
         dc = bq.shape[-1] // tp
         return [tuple(_to(t, dev) for t in (
             aq, bq[..., m * dc:(m + 1) * dc], av,
-            bv[..., m * dc:(m + 1) * dc])) for m, dev in enumerate(devices)]
+            bv[..., m * dc:(m + 1) * dc]))
+            for m, dev in zip(shards, devices)]
 
     return at
 
 
 def _validate_tp_serve(cfg: GPTConfig, mesh, caller: str):
     """Serving TP validation: ``n_tensor_parallel > 1`` needs a mesh whose
-    ``model`` axis is exactly that size, in this one process; tp == 1
-    normalises the mesh to None."""
+    ``model`` axis is exactly that size (its coordinates in this process
+    or split over several); tp == 1 normalises the mesh to None."""
     from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
         MODEL_AXIS,
     )
@@ -990,34 +999,57 @@ def _validate_tp_serve(cfg: GPTConfig, mesh, caller: str):
         raise ValueError(
             f"{caller}: cfg.n_tensor_parallel={tp} needs a mesh with a "
             f"'{MODEL_AXIS}' axis of that size, got {got}")
-    if mesh.distributed:
-        raise _roadmap.not_ported(f"{caller}: serving across processes",
-                                  _roadmap.MULTI_PROCESS)
     return mesh
 
 
-def tp_serve_devices(mesh, tp: int) -> list[torch.device]:
-    """The device of each model coordinate of a serving mesh (replica 0,
-    stage 0)."""
-    return [mesh.device(0, 0, m) for m in range(tp)]
+def tp_serve_view(mesh):
+    """The model axis of a serving mesh (replica 0, stage 0) as this
+    process sees it: its owned coordinates and, when they are split over
+    processes, the model group the sums and the lockstep clock use."""
+    from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
+        MODEL_AXIS,
+    )
+    return mesh.view(0, 0, MODEL_AXIS)
+
+
+def tp_serve_shards(mesh) -> range:
+    """The model coordinates of a serving mesh this process owns: all
+    ``tp`` in one process, ``tp / W`` of them in each of W processes."""
+    return tp_serve_view(mesh).owned
+
+
+def tp_serve_devices(mesh) -> list[torch.device]:
+    """The device of each model coordinate of a serving mesh that this
+    process owns (:func:`tp_serve_shards`), in coordinate order."""
+    return [mesh.device(0, 0, m) for m in tp_serve_shards(mesh)]
+
+
+class _TPShards(NamedTuple):
+    """The model coordinates a TP serving program runs in this process:
+    the axis width, the owned coordinates and their devices."""
+    tp: int
+    owned: range
+    devices: list
 
 
 def _serve_plan(cfg: GPTConfig, mesh, dev: torch.device, caller: str):
-    """A serving builder's split: ``(tp, local heads, tail, shard
-    devices)``, the tail and devices None at tp 1. The first coordinate's
-    device is the program's own (``dev``), where the replicated stream
-    and the sampling run."""
+    """A serving builder's split: ``(tp, local heads, tail, shards)``, the
+    tail and :class:`_TPShards` None at tp 1. This process's first
+    coordinate's device is the program's own (``dev``), where the
+    replicated stream and the sampling run."""
     mesh = _validate_tp_serve(cfg, mesh, caller)
     if mesh is None:
         return 1, cfg.n_heads, None, None
     tp = cfg.n_tensor_parallel
-    devices = tp_serve_devices(mesh, tp)
+    devices = tp_serve_devices(mesh)
     if (devices[0].type, devices[0].index or 0) != (dev.type,
                                                     dev.index or 0):
         raise ValueError(f"{caller}: device={dev} differs from the mesh's "
                          f"first model coordinate's {devices[0]}")
     return (tp, cfg.n_heads // tp,
-            functools.partial(_tp_attn_tail, overlap=cfg.overlap), devices)
+            functools.partial(_tp_attn_tail, overlap=cfg.overlap,
+                              view=tp_serve_view(mesh)),
+            _TPShards(tp, tp_serve_shards(mesh), devices))
 
 
 def _serve_trees(params, tp: int):
@@ -1445,14 +1477,14 @@ def make_slot_prefill(stages, cfg: GPTConfig, max_len: int,
     _validate_slot_build(stages, cfg, max_len, "make_slot_prefill",
                          cache_dtype)
     dev = resolve_device(device)
-    tp, H, tail, devices = _serve_plan(cfg, mesh, dev, "make_slot_prefill")
+    tp, H, tail, shards = _serve_plan(cfg, mesh, dev, "make_slot_prefill")
 
     @torch.no_grad()
     def prefill(params, kc, vc, prompt, slot, key_data, temperature, top_k,
                 top_p, bank=None, aid=None):
         embed, blocks, head = _serve_trees(params, tp)
         at = _bank_lookup(adapters, bank, None if aid is None else int(aid),
-                          dev, "make_slot_prefill", devices)
+                          dev, "make_slot_prefill", shards)
         kc, vc, row = _slot_prefill_fwd(blocks, embed, head, kc, vc,
                                         _on(prompt, dev, torch.int64),
                                         int(slot), H, at=at, tail=tail)
@@ -1539,7 +1571,7 @@ def make_slot_decode_step(stages, cfg: GPTConfig, max_len: int,
     _validate_slot_build(stages, cfg, max_len, "make_slot_decode_step",
                          cache_dtype)
     dev = resolve_device(device)
-    tp, H, tail, devices = _serve_plan(cfg, mesh, dev,
+    tp, H, tail, shards = _serve_plan(cfg, mesh, dev,
                                        "make_slot_decode_step")
 
     @torch.no_grad()
@@ -1547,7 +1579,7 @@ def make_slot_decode_step(stages, cfg: GPTConfig, max_len: int,
              bank=None, aids=None):
         embed, blocks, head = _serve_trees(params, tp)
         at = _bank_lookup(adapters, bank, aids, dev, "make_slot_decode_step",
-                          devices)
+                          shards)
         kc, vc, rows = _slot_decode_fwd(
             blocks, embed, head, kc, vc, _on(toks, dev, torch.int64),
             _on(pos, dev, torch.int64), H, at=at, tail=tail)
@@ -1654,7 +1686,7 @@ def make_paged_prefill_chunk(stages, cfg: GPTConfig, max_len: int,
     _validate_paged_build(stages, cfg, max_len, block_size,
                           "make_paged_prefill_chunk", cache_dtype)
     dev = resolve_device(device)
-    tp, H, tail, devices = _serve_plan(cfg, mesh, dev,
+    tp, H, tail, shards = _serve_plan(cfg, mesh, dev,
                                        "make_paged_prefill_chunk")
 
     @torch.no_grad()
@@ -1662,7 +1694,7 @@ def make_paged_prefill_chunk(stages, cfg: GPTConfig, max_len: int,
               top_k, top_p, bank=None, aid=None):
         embed, blocks, head = _serve_trees(params, tp)
         at = _bank_lookup(adapters, bank, None if aid is None else int(aid),
-                          dev, "make_paged_prefill_chunk", devices)
+                          dev, "make_paged_prefill_chunk", shards)
         kc, vc, row = _paged_chunk_fwd(
             blocks, embed, head, kc, vc, _on(tokens, dev, torch.int64),
             int(p0), _on(table, dev, torch.int64), H, block_size, at=at,
@@ -1738,7 +1770,7 @@ def make_paged_decode_step(stages, cfg: GPTConfig, max_len: int,
                           "make_paged_decode_step", cache_dtype)
     _check_attn_kernel(kernel, "make_paged_decode_step")
     dev = resolve_device(device)
-    tp, H, tail, devices = _serve_plan(cfg, mesh, dev,
+    tp, H, tail, shards = _serve_plan(cfg, mesh, dev,
                                        "make_paged_decode_step")
 
     @torch.no_grad()
@@ -1746,7 +1778,7 @@ def make_paged_decode_step(stages, cfg: GPTConfig, max_len: int,
              top_ps, bank=None, aids=None):
         embed, blocks, head = _serve_trees(params, tp)
         at = _bank_lookup(adapters, bank, aids, dev,
-                          "make_paged_decode_step", devices)
+                          "make_paged_decode_step", shards)
         kc, vc, rows = _paged_decode_fwd(
             blocks, embed, head, kc, vc, _on(toks, dev, torch.int64),
             _on(pos, dev, torch.int64), _on(tables, dev, torch.int64),
@@ -2062,7 +2094,7 @@ def make_slot_verify_step(stages, cfg: GPTConfig, max_len: int, spec_k: int,
                          cache_dtype)
     _check_spec_k(spec_k, "make_slot_verify_step")
     dev = resolve_device(device)
-    tp, H, tail, devices = _serve_plan(cfg, mesh, dev,
+    tp, H, tail, shards = _serve_plan(cfg, mesh, dev,
                                        "make_slot_verify_step")
     K, ml = spec_k, max_len
 
@@ -2071,7 +2103,7 @@ def make_slot_verify_step(stages, cfg: GPTConfig, max_len: int, spec_k: int,
                key_data, temps, top_ks, top_ps, bank=None, aids=None):
         embed, blocks, head = _serve_trees(params, tp)
         at = _bank_lookup(adapters, bank, aids, dev, "make_slot_verify_step",
-                          devices)
+                          shards)
         toks = _on(toks, dev, torch.int64)
         drafts = _on(drafts, dev, torch.int64)
         valid_n = _on(valid_n, dev, torch.int64)
@@ -2165,7 +2197,7 @@ def make_paged_verify_step(stages, cfg: GPTConfig, max_len: int,
     _check_spec_k(spec_k, "make_paged_verify_step")
     _check_attn_kernel(kernel, "make_paged_verify_step")
     dev = resolve_device(device)
-    tp, H, tail, devices = _serve_plan(cfg, mesh, dev,
+    tp, H, tail, shards = _serve_plan(cfg, mesh, dev,
                                        "make_paged_verify_step")
     K, ml = spec_k, max_len
 
@@ -2175,7 +2207,7 @@ def make_paged_verify_step(stages, cfg: GPTConfig, max_len: int,
                aids=None):
         embed, blocks, head = _serve_trees(params, tp)
         at = _bank_lookup(adapters, bank, aids, dev,
-                          "make_paged_verify_step", devices)
+                          "make_paged_verify_step", shards)
         toks = _on(toks, dev, torch.int64)
         pos = _on(pos, dev, torch.int64)
         drafts = _on(drafts, dev, torch.int64)

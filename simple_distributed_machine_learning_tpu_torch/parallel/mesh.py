@@ -302,6 +302,31 @@ def process_count() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
+def check_split(world: int, n_data: int = 1, n_stages: int = 1,
+                n_model: int = 1, n_seq: int = 1, n_expert: int = 1) -> None:
+    """Raise unless ``world`` processes can split the ``n_data x n_stages
+    x n_model x n_seq x n_expert`` mesh (:func:`make_mesh`'s rule), with
+    its text — a check that needs no process group."""
+    groups = n_data * n_stages
+    block = n_model * n_seq * n_expert
+    need = groups * block
+    dims = f"{n_data}x{n_stages}x{n_model}x{n_seq}x{n_expert}"
+    if need % world or (groups % world and world % groups):
+        raise ValueError(
+            f"{world} processes cannot split a {dims} (data x stage x "
+            f"model x seq x expert) mesh: the process count must divide "
+            f"{need} and either divide {groups} or be a multiple of it")
+    per, qe = need // world, n_seq * n_expert
+    if per < block and not (per % qe == 0 if per >= qe else
+                            (qe % per == 0 and (per % n_expert == 0
+                                                or n_expert % per == 0))):
+        raise ValueError(
+            f"{world} processes cannot split a {dims} mesh: {per} "
+            f"coordinates per process do not form a box of one (data, "
+            f"stage)'s {n_model}x{n_seq}x{n_expert} model x seq x expert "
+            f"coordinates")
+
+
 def make_mesh(n_stages: int = 1, n_data: int | None = None,
               n_model: int = 1, n_seq: int = 1, n_expert: int = 1,
               devices: Sequence | None = None) -> Mesh | None:
@@ -322,26 +347,11 @@ def make_mesh(n_stages: int = 1, n_data: int | None = None,
     if bad:
         raise ValueError(f"mesh axes must be >= 1, got {bad}")
     world, rank = process_count(), process_index()
-    groups = n_data * n_stages
-    block = n_model * n_seq * n_expert
-    need = groups * block
-    dims = f"{n_data}x{n_stages}x{n_model}x{n_seq}x{n_expert}"
+    need = n_data * n_stages * n_model * n_seq * n_expert
     if devices is None and need == 1 and world == 1:
         return None
-    if need % world or (groups % world and world % groups):
-        raise ValueError(
-            f"{world} processes cannot split a {dims} (data x stage x "
-            f"model x seq x expert) mesh: the process count must divide "
-            f"{need} and either divide {groups} or be a multiple of it")
-    per, qe = need // world, n_seq * n_expert
-    if per < block and not (per % qe == 0 if per >= qe else
-                            (qe % per == 0 and (per % n_expert == 0
-                                                or n_expert % per == 0))):
-        raise ValueError(
-            f"{world} processes cannot split a {dims} mesh: {per} "
-            f"coordinates per process do not form a box of one (data, "
-            f"stage)'s {n_model}x{n_seq}x{n_expert} model x seq x expert "
-            f"coordinates")
+    check_split(world, n_data, n_stages, n_model, n_seq, n_expert)
+    dims = f"{n_data}x{n_stages}x{n_model}x{n_seq}x{n_expert}"
     devs = (visible_devices() if devices is None
             else [resolve_device(d) for d in devices])
     if need > len(devs):
@@ -414,8 +424,10 @@ def bootstrap_distributed(rank: int, world_size: int, master_addr: str,
 
 # -- the host-staged wire ------------------------------------------------------
 
-#: what this process sent over the wire: sends and bytes
-WIRE = {"sends": 0, "bytes": 0}
+#: what this process put on the wire: point-to-point sends and their
+#: bytes, the sums (``all_reduce``) and broadcasts and their payload bytes
+WIRE = {"sends": 0, "bytes": 0, "sums": 0, "sum_bytes": 0,
+        "broadcasts": 0, "broadcast_bytes": 0}
 
 
 class _Traced:
@@ -490,6 +502,8 @@ def all_reduce(t: torch.Tensor, group=None, axes=()) -> torch.Tensor:
         return out
     host = t.detach().to("cpu").clone()
     torch.distributed.all_reduce(host, group=group)
+    WIRE["sums"] += 1
+    WIRE["sum_bytes"] += host.numel() * host.element_size()
     return host.to(t.device)
 
 
@@ -505,7 +519,38 @@ def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
         return out
     host = t.detach().to("cpu").clone()
     torch.distributed.broadcast(host, src, group=group)
+    WIRE["broadcasts"] += 1
+    WIRE["broadcast_bytes"] += host.numel() * host.element_size()
     return host.to(t.device)
+
+
+class LockstepClock:
+    """A clock whose every reading is the reading of the axis's first
+    coordinate's process, broadcast over the axis's process group: one
+    8-byte broadcast per read. The processes of a serving mesh that spans
+    them must make the same admission, preemption and shedding decisions
+    on every tick, or they run different collective sequences; their
+    own clocks never agree exactly, so they all take one."""
+
+    def __init__(self, clock, view: AxisView) -> None:
+        self.clock = clock
+        self.view = view
+        self.src = view.ranks[0]
+
+    def __call__(self) -> float:
+        t = torch.tensor([float(self.clock())], dtype=torch.float64)
+        return float(broadcast(t, self.src, self.view.group)[0])
+
+
+def lockstep_clock(clock, view: AxisView | None):
+    """``clock`` read in lockstep over ``view``'s processes
+    (:class:`LockstepClock`); ``clock`` itself when the axis lies in this
+    process (or there is none), or when it already reads over ``view``."""
+    if view is None or view.group is None:
+        return clock
+    if isinstance(clock, LockstepClock) and clock.view == view:
+        return clock
+    return LockstepClock(clock, view)
 
 
 # -- the axis collectives --------------------------------------------------------

@@ -62,7 +62,13 @@ head-sharded pool per model coordinate (``serve/slots.py``); every tick
 runs head-sharded QKV/O and the column -> row MLP over the coordinates
 (K4 once per coordinate and layer on the fused paged path), and the
 speculative engine verifies over the shards after a single-device draft,
-two dispatches where one target fuses them.
+two dispatches where one target fuses them. Over a mesh whose model
+coordinates lie in several processes, each process runs the same engine
+on its own coordinates (``tp / W`` pools, K4 ``tp / W`` times per layer),
+the sums cross processes over the model group, and every clock read is
+the reading of the model axis's first process, broadcast over that group
+(``parallel/mesh.py::LockstepClock``): the processes then admit, preempt,
+shed and sample alike on every tick, and so run the same collectives.
 
 ``lint=True`` preflights the EXACT programs the engine just built
 (``analysis/programs.py::lint_engine``: scatter bounds over the block and
@@ -108,8 +114,13 @@ from simple_distributed_machine_learning_tpu_torch.models.gpt import (
     make_slot_verify_step,
     pack_tp_serve_params,
     tp_serve_devices,
+    tp_serve_shards,
+    tp_serve_view,
 )
 from simple_distributed_machine_learning_tpu_torch.ops.random import key_data
+from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
+    lockstep_clock,
+)
 from simple_distributed_machine_learning_tpu_torch.resilience.faults import (
     maybe_fire,
 )
@@ -236,10 +247,13 @@ class InferenceEngine:
     Tensor parallelism: build ``cfg`` with ``n_tensor_parallel = tp > 1``
     (the stages stay the dense build) and pass a ``mesh``
     (``parallel.make_mesh(1, n_model=tp, devices=...)``) whose ``model``
-    axis is exactly ``tp``, its first coordinate on ``device``: each
-    coordinate's weight shards and ``[.., H/tp, ..]`` pool live on its
-    device, and the pool's ``serve_kv_bytes_resident`` gauge reports per
-    shard bytes.
+    axis is exactly ``tp``, this process's first coordinate on
+    ``device``: each owned coordinate's weight shards and ``[.., H/tp,
+    ..]`` pool live on its device, and the pool's
+    ``serve_kv_bytes_resident`` gauge reports per shard bytes. Every
+    process of a mesh across processes builds the engine with the same
+    arguments and drives it with the same calls; ``clock`` is then read
+    in lockstep (module docstring).
     """
 
     def __init__(self, stages, cfg, *, params=None, n_slots: int = 4,
@@ -315,9 +329,9 @@ class InferenceEngine:
                 self._verify = make_slot_verify_step(
                     stages, cfg, self.max_len, spec_k, cache_dtype,
                     mesh=mesh, adapters=adp, device=self.device)
-        # the builders validated the mesh: each model coordinate's pool
-        # and weight shards go on its device
-        devices = (tp_serve_devices(self.mesh, self.tp) if self.tp > 1
+        # the builders validated the mesh: each owned model coordinate's
+        # pool and weight shards go on its device
+        devices = (tp_serve_devices(self.mesh) if self.tp > 1
                    else None)
         if kv_layout == "paged":
             self.pool = PagedKVPool(n_layers, n_slots, cfg.n_heads,
@@ -368,7 +382,7 @@ class InferenceEngine:
                     self._draft_cache_dtype, device=self.device)
             self._init_draft_pool(n_slots)
         if self.tp > 1:
-            self._place_tp(devices)
+            self._place_tp(tp_serve_shards(self.mesh), devices)
         if scheduler is None:
             scheduler = FCFSScheduler(self.pool)
         elif not isinstance(scheduler, FCFSScheduler) and callable(scheduler):
@@ -389,7 +403,11 @@ class InferenceEngine:
                     "InferenceEngine(lint=True): the serve-program "
                     "preflight found ERROR findings:\n" + report.format())
         self.metrics = metrics
-        self._clock = clock
+        # across processes every read is the model axis's first
+        # process's, broadcast (module docstring); else ``clock`` itself
+        self._clock = lockstep_clock(
+            clock, tp_serve_view(self.mesh) if self.mesh is not None
+            else None)
         # request tracing and the tick flight recorder: None by default,
         # one `is None` test per site on the hot path
         self.trace = trace
@@ -416,13 +434,14 @@ class InferenceEngine:
                 f"{self.device}, got "
                 f"{None if embed is None else embed['tok'].device}")
 
-    def _place_tp(self, devices) -> None:
+    def _place_tp(self, shards, devices) -> None:
         """The TP serving placement (the JAX ``_place_tp``): the dense
         stage weights sliced once into the Megatron serving layout
-        (``pack_tp_serve_params``), each model coordinate's block shards
-        on its device, embed and head replicated on the first; the pool
-        is already one head-sharded buffer per coordinate."""
-        self.params = pack_tp_serve_params(self.params, self.tp, devices)
+        (``pack_tp_serve_params``), each owned model coordinate's block
+        shards on its device, embed and head replicated; the pool is
+        already one head-sharded buffer per owned coordinate."""
+        self.params = pack_tp_serve_params(self.params, self.tp, devices,
+                                           shards)
 
     def _init_draft_pool(self, n_slots: int) -> None:
         """The draft model's K/V buffers: always the dense slot layout (one

@@ -66,6 +66,9 @@ import glob
 import os
 import time
 
+from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
+    lockstep_clock,
+)
 from simple_distributed_machine_learning_tpu_torch.resilience import faults
 from simple_distributed_machine_learning_tpu_torch.serve.journal import (
     RequestJournal,
@@ -250,6 +253,10 @@ class ServeFleet:
             if self.disaggregated:
                 role = "prefill" if i < prefill_replicas else "decode"
             self._spawn_replica(log=None, role=role)
+        # replicas over a mesh across processes read their clocks in
+        # lockstep; so does every reader of the fleet's (the simulator)
+        self._clock = lockstep_clock(clock, getattr(
+            self.replicas[0].supervisor._clock, "view", None))
 
     # -- replica lifecycle ---------------------------------------------------
 

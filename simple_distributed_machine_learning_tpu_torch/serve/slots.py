@@ -21,10 +21,14 @@ Port of ``serve/slots.py``, two layouts with one slot discipline:
   and that tick overwrites it before attending.
 
 With ``tp > 1`` (tensor-parallel serving) either layout holds one pool
-per model coordinate, each over its ``H/tp`` heads on its device — the
-JAX package's head-sharded placement — and every byte figure is per
-shard. The block tables, the block copies and the eviction are shared:
-a block means the same rows in every shard's pool.
+per model coordinate this process owns (all ``tp`` in one process, ``tp
+/ W`` in each of W processes over a mesh that spans them), each over its
+``H/tp`` heads on its device — the JAX package's head-sharded placement —
+and every byte figure is per shard: what one coordinate's pool pins,
+the same in every process. The block tables, the block copies and the
+eviction are shared: a block means the same rows in every shard's pool,
+and the processes of one mesh keep equal tables by making the same
+decisions each tick.
 
 Invariants raise instead of corrupting a neighbour: no double occupancy,
 no double allocation or free, no write into a block another sequence
@@ -233,12 +237,13 @@ def _check_tp(n_heads: int, tp: int) -> int:
 
 
 def _shard_devices(device, tp: int, devices) -> list[torch.device]:
-    """The device of each model coordinate's pool: ``devices`` (one per
-    coordinate), else ``device`` for all."""
+    """The device of each owned model coordinate's pool: ``devices`` (one
+    per coordinate this process owns: all ``tp``, or a share of them that
+    divides ``tp``), else ``device`` for all ``tp``."""
     if devices is None:
         return [resolve_device(device)] * tp
     devices = [resolve_device(d) for d in devices]
-    if len(devices) != tp:
+    if not devices or tp % len(devices):
         raise ValueError(f"{len(devices)} shard devices for tp={tp}")
     return devices
 
@@ -247,9 +252,9 @@ class KVCachePool(_SlotPoolBase):
     """Dense fixed-capacity slot pool; see module docstring. ``kc``/``vc``
     are f32 or bf16 tensors on ``device`` (None = ``"cuda"``); quantised
     dtypes are paged-only (dense rows hold no scales). With ``tp > 1``
-    they are lists, one ``[L, n_slots, H/tp, max_len, dh]`` pool per model
-    coordinate on its device (``devices``: one per coordinate, default
-    ``device``)."""
+    they are lists, one ``[L, n_slots, H/tp, max_len, dh]`` pool per owned
+    model coordinate on its device (``devices``: one per owned coordinate,
+    default every coordinate on ``device``)."""
 
     def __init__(self, n_layers: int, n_slots: int, n_heads: int,
                  max_len: int, head_dim: int, cache_dtype=None,
@@ -304,8 +309,8 @@ class PagedKVPool(_SlotPoolBase):
     ``kc``/``vc`` are torch tensors on ``device`` (None = ``"cuda"``), or
     ``models.gpt.QuantKV`` pairs for quantised dtypes; with ``tp > 1``
     lists of them, one ``[L, n_blocks+1, H/tp, bs, dh]`` pool (and its
-    scale planes) per model coordinate on its device (``devices``), all
-    addressed by the one set of block tables.
+    scale planes) per owned model coordinate on its device (``devices``),
+    all addressed by the one set of block tables.
     ``host_cache_blocks > 0`` turns on the host offload tier of that many
     blocks, whose uploads land ``prefetch_ticks`` ticks after they start
     (module docstring).

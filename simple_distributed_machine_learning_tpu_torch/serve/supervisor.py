@@ -48,7 +48,9 @@ disaggregated handoff.
 Clock reads: ``submit`` without an arrival stamp reads once, the deadline
 check once per tick while any open request carries a deadline; recovery,
 tracing and the fleet's half read none (the virtual-clock pins depend on
-it).
+it). Over an engine whose mesh spans processes the supervisor reads its
+clock in lockstep, as the engine does (``parallel/mesh.py::
+LockstepClock``).
 """
 
 from __future__ import annotations
@@ -59,6 +61,9 @@ import time
 
 import numpy as np
 
+from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (
+    lockstep_clock,
+)
 from simple_distributed_machine_learning_tpu_torch.resilience.faults import (
     DeviceWedged,
     EngineCrash,
@@ -273,6 +278,11 @@ class ServeSupervisor:
         self._user_cb: dict[int, object] = {}  # rid -> caller's on_token
         self._buckets: dict[str, tuple[float, float]] = {}
         self.engine = factory(False)
+        # an engine over a mesh across processes reads its clock in
+        # lockstep: the supervisor's reads (admission stamps, deadlines)
+        # take the same broadcast reading
+        self._clock = lockstep_clock(
+            clock, getattr(self.engine._clock, "view", None))
         self._attach_engine(prev_now=0.0)
         # cold start: a previous process's journal recovers here — its
         # finished streams become readable handles, its in-flight requests

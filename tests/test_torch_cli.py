@@ -151,8 +151,9 @@ def test_cli_metrics_json(tmp_path):
     # are ported: each case runs, or exits with the JAX CLI's own text
     # where the JAX CLI refuses it
     (["--overlap", "ring", "--sp", "2", "--model", "mlp"], "jax"),
-    (["--serve-sim", "4", "--model", "gpt", "--world_size", "2"], "item 6c"),
-    (["--scenario", "list", "--world_size", "2"], "item 6c"),
+    # serving across processes (the rest of 6c) is ported: two ranks
+    (["--serve-sim", "4", "--model", "gpt", "--world_size", "2"], "ranks"),
+    (["--scenario", "list", "--world_size", "2"], "ranks"),
     (["--overlap", "ring", "--tp", "2"], "jax"),
     (["--overlap", "ring", "--sp", "2"], "jax"),
     (["--overlap", "ring", "--ep", "2"], "jax"),
@@ -165,12 +166,29 @@ def test_cli_metrics_json(tmp_path):
     (["--serve-tp", "2", "--serve-sim", "4", "--model", "gpt"], None),
 ])
 def test_unported_flags_exit_naming_their_item(flag, item, capsys):
-    """What is left unported names its item: the one-process serving
-    paths (6c). ``--overlap ring`` and ``--serve-tp`` run (``None``), or
-    exit with the JAX CLI's text where it refuses the flags beside them
-    (``"jax"``). The linter (7.4) is ported (``"lint"``): ``--lint``
-    prints the clean preflight and trains, ``--lint-only`` stops after
-    it."""
+    """Every path is ported. ``--overlap ring`` and ``--serve-tp`` run
+    (``None``), or exit with the JAX CLI's text where it refuses the flags
+    beside them (``"jax"``). The linter (7.4) is ported (``"lint"``):
+    ``--lint`` prints the clean preflight and trains, ``--lint-only``
+    stops after it. ``--serve-sim`` and ``--scenario`` with ``--world_size
+    2`` (``"ranks"``) run on both ranks of a two-process launch, each
+    printing what one process prints."""
+    if item == "ranks":
+        ranks = _two_ranks(flag)
+        one = _two_ranks(flag, world=1)[0]
+        if "--scenario" in flag:
+            want = [ln for ln in one.stdout.splitlines()
+                    if ln.startswith("| ")]
+            assert len(want) == 13
+        else:
+            want = ["| serve: fresh-initialized params"]
+        for r in ranks:
+            assert r.returncode == 0, r.stderr[-2000:]
+            assert [ln for ln in r.stdout.splitlines()
+                    if ln in want] == want
+            assert ("| serve: 4/4 requests completed" in r.stdout) == (
+                "--serve-sim" in flag)
+        return
     if item == "lint":
         main(BASE + flag)
         out = capsys.readouterr().out
@@ -192,6 +210,42 @@ def test_unported_flags_exit_naming_their_item(flag, item, capsys):
     else:
         assert f"ROADMAP.md, Queue A: {item}" in msg and flag[0] in msg
     assert "\n" not in msg
+
+
+def _two_ranks(flag, world=2):
+    """``flag`` on the CLI over ``world`` CPU processes (free ports, one
+    torch thread, a timeout, killed in a ``finally``)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    def free():
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            return s.getsockname()[1]
+
+    port = free()
+    argv = flag[:flag.index("--world_size")] + flag[
+        flag.index("--world_size") + 2:]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "simple_distributed_machine_learning_tpu_torch"
+         ".cli", "--rank", str(r), "--world_size", str(world),
+         "--master_port", str(port), "--heartbeat-port", str(free()),
+         "--device", "cpu", "--data-root", "/nonexistent", *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, OMP_NUM_THREADS="1"),
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        for r in range(world)]
+    try:
+        return [subprocess.CompletedProcess(p.args, p.returncode, *out)
+                for p, out in ((p, p.communicate(timeout=180))
+                               for p in procs)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
 
 
 @pytest.mark.parametrize("argv", [
