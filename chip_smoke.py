@@ -372,7 +372,18 @@ or without the port beside it. Phases, each fatal on failure:
    --fixtures`` and ``--dryrun 4`` exiting 0, every fixture meeting its
    contract; (e) phase 16 (b)'s processes' ``ici_bytes_per_step`` equal
    to the wire's bytes per step (``WIRE``) plus the loss's 16 B sum over
-   the world, the one-process run's 8 in-card hops.
+   the world, the one-process run's 8 in-card hops; (f) the claims on
+   the model and expert axes at full width: the gpt_bf16 row's step at
+   tp 2 (dense attention, phase 17's) and phase 18's MoE row at ep 2
+   traced and linted — each clean, no launch, ``memory_allocated()``
+   unchanged, its graph nodes and host seconds printed — and again with
+   a defect seeded by a patch inside the phase (the model sum cut to one
+   shard's part; the replicated leaves left untied over the expert axis),
+   each flagged ``unreduced-gradient.missing-reduce`` on its axis; then
+   the CLI's ``--lint`` at ``--tp 2`` and at ``--experts 8 --ep 2 --attn
+   flash``, each training ``LINT_TRAIN_STEPS`` steps after a clean gate
+   (the MoE run's K1-K3 counted into the ``kernels`` line), their losses
+   printed.
 21. serving across processes on the one card: (a) two fresh processes
    (``--serve-worker``) serve phase 3's trace through the fused
    tensor-parallel engine at tp 2 over one model mesh split between them
@@ -728,7 +739,8 @@ PROC_STEPS = 10
 # GPT and LeNet, and a --lint run of LINT_TRAIN_STEPS steps; (b) phase 3's
 # trace through InferenceEngine(lint=True) at tp 1 and 2; (c) the CLI's
 # serve gate and its SDML_LINT_INJECT drills; (d) the analysis CLI's
-# --dryrun 8 --serve --fixtures and --dryrun 4; (e) phase 16 (b)'s gauge
+# --dryrun 8 --serve --fixtures and --dryrun 4; (e) phase 16 (b)'s gauge;
+# (f) the model and expert claims at tp 2 and ep 2, then their --lint CLIs
 LINT_TRAIN_STEPS = 3
 PROC_GENERATE, PROC_DECODE_T0, PROC_PINGS = 8, 16, 20
 PROC_PEER_TIMEOUT, PROC_PEER_LIMIT_S, PROC_TIMEOUT_S = 8, 60, 240
@@ -2771,6 +2783,10 @@ def phase_train_profile(row: dict, record: dict, n_steps: int = 5) -> None:
         params, state, _ = step(params, state, xs[0], ts[0])
         torch.cuda.synchronize()
         prof.step()
+        # an idle gap after the recording starts: no kernel runs near the
+        # window's edge, where the device clock's mapping onto the host's
+        # can place one outside it
+        time.sleep(0.05)
         t0 = time.perf_counter()
         for i in range(n_steps):
             params, state, _ = step(params, state, xs[i % TRAIN_POOL],
@@ -7066,6 +7082,144 @@ def _lint_training(rec: dict) -> tuple[int, int, int]:
     return got
 
 
+def _traced_lint(step, args, mesh, name: str):
+    """``analyze`` of ``step`` in its parts (one trace): the report, the
+    graph's node count and the host seconds."""
+    from simple_distributed_machine_learning_tpu_torch.analysis import (
+        _unwrap_specs,
+        analyze_program,
+        trace,
+    )
+    t0 = time.perf_counter()
+    a, kw, ranges, vary, positions = _unwrap_specs(args, {})
+    prog = trace.trace_program(step, *a, name=name, **kw)
+    report = analyze_program(prog, mesh=mesh, name=name, arg_ranges=ranges,
+                             arg_vary=vary, arg_positions=positions)
+    return report, len(prog.graph.nodes), time.perf_counter() - t0
+
+
+def _lint_claims(rec: dict) -> tuple[int, int, int]:
+    """(f) The claims on the model and expert axes at full width: the
+    gpt_bf16 row's step at tp 2 (dense attention, as phase 17 runs it)
+    and phase 18's MoE row at ep 2 (8 experts, top 2, flash), each traced
+    and linted clean with no launch and nothing allocated, then with its
+    defect seeded here — the model sum cut to one shard's part, the
+    replicated leaves left untied over the expert axis — flagged on its
+    axis; then the CLI's ``--lint`` at ``--tp 2`` and at ``--experts 8
+    --ep 2 --attn flash``. Returns the MoE CLI run's K1-K3."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from simple_distributed_machine_learning_tpu_torch.analysis import (
+        abstractify,
+        spec,
+    )
+    from simple_distributed_machine_learning_tpu_torch.models import gpt
+    from simple_distributed_machine_learning_tpu_torch.parallel import (
+        tensor as tensor_lib,
+    )
+    from simple_distributed_machine_learning_tpu_torch.train import (
+        make_train_step,
+    )
+    row = TRAIN_ROWS["gpt_bf16"]
+
+    def drop_model_sum():
+        orig = tensor_lib.model_sum
+        # BUG: each model coordinate keeps only its own partial product
+        tensor_lib.model_sum = (lambda parts, group=None, axis="model",
+                                size=None: parts[0])
+        return lambda: setattr(tensor_lib, "model_sum", orig)
+
+    def untie_experts():
+        orig = gpt._grad_sync_non_tp
+
+        def untied(shards, axis, path=(), sharded=None):
+            # BUG: every leaf handled as its shard's own, the replicated
+            # ones too: each copy keeps its own gradient
+            return orig(shards, axis, path, lambda p: True)
+        gpt._grad_sync_non_tp = untied
+        return lambda: setattr(gpt, "_grad_sync_non_tp", orig)
+
+    runs = (("tp2", "model", lambda: _tp_pipe(row, 2), drop_model_sum),
+            ("ep2", "expert", lambda: _spep_pipe(("ep", 2)), untie_experts))
+    out = {}
+    for name, axis, build, seed_defect in runs:
+        cfg, pipe, opt = build()
+        params = pipe.init_params()
+        state = opt.init(params)
+        ids = spec((row["batch"], cfg.seq_len), torch.int64, 0,
+                   cfg.vocab - 1)
+        args = (abstractify(params), abstractify(state), ids, ids, 0)
+        step = make_train_step(pipe, opt)
+        gc.collect()
+        _sync()
+        torch.cuda.reset_peak_memory_stats()
+        counts, mem = _flash_counts(), torch.cuda.memory_allocated()
+        clean, nodes, secs = _traced_lint(step, args, pipe.mesh,
+                                          f"{name} train_step")
+        restore = seed_defect()
+        try:
+            bad, _, bad_secs = _traced_lint(step, args, pipe.mesh,
+                                            f"{name} seeded defect")
+        finally:
+            restore()
+        _sync()
+        peak, after = torch.cuda.max_memory_allocated(), \
+            torch.cuda.memory_allocated()
+        check(_flash_counts() == counts and peak == mem and after <= mem,
+              f"(f) {name}: the traces launched or allocated: K1-K3 "
+              f"{counts} -> {_flash_counts()}, memory {mem} -> peak {peak}, "
+              f"after {after}")
+        # clean: no ERROR (the bf16 model sums warn low-precision-reduction,
+        # as in phase 17's lint)
+        check(clean.ok(), f"(f) {name} train step:\n{clean.format()}")
+        flagged = [f for f in bad.findings
+                   if f.rule == "unreduced-gradient.missing-reduce"
+                   and f"['{axis}']" in f.message]
+        check(flagged and not bad.ok(),
+              f"(f) {name}: the seeded defect passed:\n{bad.format()}")
+        warned = sorted({f.rule for f in clean.findings})
+        out[name] = dict(nodes=nodes, lint_s=secs, defect_lint_s=bad_secs,
+                         flagged=len(flagged), warnings=warned)
+        print(f"chip_smoke: linter (f) {name} gpt_bf16 train step "
+              f"({cfg.n_layers} layers, d {cfg.d_model}): clean (no ERROR; "
+              f"{len(clean.findings)} WARNING {warned}), {nodes} graph "
+              f"nodes, traced and linted in {secs:.2f} s (host clock), no "
+              f"launch, memory unchanged ({mem} B); the seeded defect "
+              f"flagged {len(flagged)} x missing-reduce on '{axis}' in "
+              f"{bad_secs:.2f} s")
+        del params, state, pipe, args, step
+        torch.cuda.empty_cache()
+    cli = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-claims-") as tmp:
+        data = ["--data-root", os.path.join(tmp, "nodata")]
+        for name, argv in (("tp2", ["--tp", "2"]),
+                           ("ep2", ["--experts", "8", "--ep", "2", "--attn",
+                                    "flash"])):
+            counts = _flash_counts()
+            r = _stage_cli(["--model", "gpt", "--lint"] + argv + data, tmp,
+                           f"claims-{name}", LINT_TRAIN_STEPS)
+            got = tuple(a - b for a, b in zip(_flash_counts(), counts))
+            check("| --lint: preflight clean" in r["lines"]
+                  and any(ln.startswith("Test set") for ln in r["lines"])
+                  and np.isfinite([r["train_loss"], r["eval_loss"]]).all(),
+                  f"(f) --lint {' '.join(argv)}: {r['lines'][-6:]}")
+            # the CLI's GPT has 2 layers: K2/K3 once a layer per step
+            want = 2 * LINT_TRAIN_STEPS if name == "ep2" else 0
+            check(got[1] == got[2] == want and got[0] >= got[1],
+                  f"(f) --lint {' '.join(argv)}: K1-K3 {got}")
+            cli[name] = dict(train_loss=r["train_loss"],
+                             eval_loss=r["eval_loss"], flash=got)
+            print(f"chip_smoke: linter (f) CLI --lint {' '.join(argv)} "
+                  f"--dryrun {LINT_TRAIN_STEPS}: preflight clean, then "
+                  f"trained: train/eval loss {r['train_loss']:.6f}/"
+                  f"{r['eval_loss']:.6f}, K1/K2/K3 {got}")
+    rec["claims"] = dict(steps=out, cli=cli)
+    return cli["ep2"]["flash"]
+
+
 def _lint_engine_run(stages, cfg, tp: int) -> tuple[dict, dict]:
     """An ``InferenceEngine(lint=True, attn_kernel="fused")`` at ``tp``
     (its coordinates on the one card): the construction (its lint
@@ -7303,9 +7457,9 @@ def _lint_ici(record: dict, rec: dict) -> None:
 
 def phase_program_lint(record: dict, serve: dict, plain_handles: list,
                        analysis: list) -> tuple[tuple, int]:
-    """Phase 20 (a)-(d): the program linter on the card ((e) reads phase
-    16's record, so ``main`` runs it once the second lane is joined).
-    Returns (a)'s K1-K3 and (b)-(c)'s K4 launches."""
+    """Phase 20 (a)-(d) and (f): the program linter on the card ((e) reads
+    phase 16's record, so ``main`` runs it once the second lane is
+    joined). Returns (a) and (f)'s K1-K3 and (b)-(c)'s K4 launches."""
     import torch
 
     from simple_distributed_machine_learning_tpu_torch.models.gpt import (
@@ -7328,6 +7482,9 @@ def phase_program_lint(record: dict, serve: dict, plain_handles: list,
     secs["c"] = time.perf_counter() - t0 - sum(secs.values())
     _lint_analysis_cli(rec, analysis)
     secs["d"] = time.perf_counter() - t0 - sum(secs.values())
+    claims = _lint_claims(rec)
+    flash = tuple(a + b for a, b in zip(flash, claims))
+    secs["f"] = time.perf_counter() - t0 - sum(secs.values())
     rec["seconds"] = dict(secs, total=time.perf_counter() - t0)
     print(f"chip_smoke: phase 20 took {rec['seconds']['total']:.1f} s ("
           + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items()) + ")")
@@ -7773,7 +7930,7 @@ def main() -> int:
         stage_launches = timed("15", phase_stages, record)
         tp_serve_launches = timed("19 (b), (c)", phase_overlap_tp_serve,
                                   record, serve, plain_handles)
-        lint_flash, lint_k4 = timed("20 (a)-(d)", phase_program_lint,
+        lint_flash, lint_k4 = timed("20 (a)-(d), (f)", phase_program_lint,
                                     record, serve, plain_handles, analysis)
         ranks_k4 = timed("21", phase_serve_ranks, record, serve,
                          plain_handles)
@@ -7829,7 +7986,7 @@ def main() -> int:
     # phase 13 (b)'s bf16 CLI run, phase 15 (b)'s runs of that row at 2
     # stages, phase 16 (b)'s over 2 processes (summed over the ranks),
     # phase 18 (b)'s mixture-of-experts runs of that row, phase 19 (a)'s
-    # with the ring dispatch and phase 20 (a)'s --lint CLI run
+    # with the ring dispatch and phase 20 (a) and (f)'s --lint CLI runs
     for i, (name, line) in enumerate((("flash_forward", 127),
                                       ("flash_dq", 300),
                                       ("flash_dkv", 338))):

@@ -10,16 +10,25 @@ carrying:
   each coordinate's tensors are separate objects, so the seeds come from
   the coordinates instead of ``in_names``: a replica's rows and a seq
   chunk (``trace.note_vary`` at the site that slices them), a shard's
-  parameters (``Pipeline._replica_params``), an argument declared
-  ``spec(..., vary=(...))``. An aten op's value varies over the union of
-  its inputs'; a noted ``psum``/``all_gather`` over an axis removes it,
+  parameters (``Pipeline._replica_params``: every leaf of a shard, as the
+  JAX buffer's ``in_specs`` map the model or expert axis over a whole
+  shard row), an argument declared ``spec(..., vary=(...))``. An aten
+  op's value varies over the union of its inputs'; a noted
+  ``psum``/``all_gather`` over an axis removes it,
   ``all_to_all``/``reduce_scatter``/``pbroadcast`` add it, a permute
-  keeps it. A value that is written into a parameter or state buffer in
-  place, or returned, while it still varies over a replica axis
-  (``data``, ``seq``) the buffer was not declared sharded over is a
+  keeps it, and so does a sum that moves no bytes
+  (``trace.note_replicated``: a tie of a replicated leaf's equal
+  per-shard copies, and in one process the backward sum of the shards'
+  input gradients). A value that is written into a parameter or state
+  buffer in place, or returned, while it still varies over a replica
+  axis (``data``, ``seq``) the buffer was not declared sharded over is a
   dropped reduction: ``unreduced-gradient.missing-reduce`` (re-tagged
   ``sharded-state.missing-gather`` when only a declared shard makes it
-  vary, as in JAX);
+  vary, as in JAX). So is a claimed value that still varies over its
+  claim's axes (``trace.note_claim``): the gradient of each replicated
+  leaf of a stage sharded over the ``model`` or ``expert`` axis, claimed
+  over that axis — the JAX rule flags any axis of size > 1 left in a
+  value its ``out_specs`` claim replicated, those two included;
 - the **cost table**: one :class:`~.report.CollectiveCost` row per noted
   call (JAX's ``_ici_factor``, copied as it is; a ``recv`` is billed at
   its ``send``).
@@ -72,8 +81,10 @@ from simple_distributed_machine_learning_tpu_torch.analysis.trace import (
 EMPTY: frozenset = frozenset()
 #: chained low-precision accumulation steps that make a running sum
 CARRY_STEPS = 8
-#: the axes parameters are replicated over: a value still varying over
-#: one of them when it lands in a parameter is a missing reduction
+#: the axes every parameter is replicated over: a value still varying
+#: over one of them when it lands in a parameter is a missing reduction
+#: (the replicated leaves of a sharded stage are claimed over its
+#: ``model`` or ``expert`` axis besides, leaf by leaf: ``trace.note_claim``)
 REPLICA_AXES = ("data", "seq")
 #: ops whose result aliases their first operand's storage
 VIEW_OPS = frozenset({
@@ -190,6 +201,9 @@ class Walker:
         for node, v in zip(self.p.placeholders, in_vary or ()):
             if v:
                 seeds[node] = seeds.get(node, EMPTY) | frozenset(v)
+        joins: dict = {}
+        for node, axes in self.p.joins:
+            joins[node] = joins.get(node, EMPTY) | axes
         outs: dict = {}
         for e in self.p.events:
             for o in e.outs:
@@ -213,7 +227,7 @@ class Walker:
                 elif e.prim in ("all_to_all", "reduce_scatter",
                                 "pbroadcast"):
                     v = v | ins | axes
-            env[node] = v
+            env[node] = v - joins.get(node, EMPTY)
         return env
 
     def check_replication(self, in_vary=None, placeholder_vary=None) -> None:
@@ -229,16 +243,7 @@ class Walker:
                 declared[node] = declared.get(node, EMPTY) | frozenset(v)
         seen: set = set()
 
-        def claim(node, target, what):
-            base = self.base(target)
-            allowed = declared.get(base, EMPTY) if base is not None \
-                else EMPTY
-            missing = sorted(a for a in env.get(node, EMPTY) - allowed
-                             if a in replica)
-            key = (base if base is not None else node, tuple(missing))
-            if not missing or key in seen:
-                return
-            seen.add(key)
+        def missing_reduce(node, missing, what):
             val = node_val(node)
             shape = tuple(getattr(val, "shape", ()))
             self._emit(
@@ -252,6 +257,18 @@ class Walker:
                      f"{missing} before the update, or declare the buffer "
                      f"sharded over it")
 
+        def claim(node, target, what):
+            base = self.base(target)
+            allowed = declared.get(base, EMPTY) if base is not None \
+                else EMPTY
+            missing = sorted(a for a in env.get(node, EMPTY) - allowed
+                             if a in replica)
+            key = (base if base is not None else node, tuple(missing))
+            if not missing or key in seen:
+                return
+            seen.add(key)
+            missing_reduce(node, missing, what)
+
         for node in self.p.graph.nodes:
             if is_mutation(node) and node.args:
                 base = self.base(node.args[0])
@@ -262,6 +279,14 @@ class Walker:
         out = next(n for n in self.p.graph.nodes if n.op == "output")
         for i, o in enumerate(_node_args(out)):
             claim(o, o, f"output {i}")
+        # the claimed values: a replicated leaf's gradient, over its
+        # sharded stage's axis
+        for node, axes, what in self.p.claims:
+            missing = sorted(a for a in env.get(node, EMPTY) & axes
+                             if sizes.get(a, 2) > 1)
+            if missing and (node, tuple(missing)) not in seen:
+                seen.add((node, tuple(missing)))
+                missing_reduce(node, missing, what or node.name)
 
     def base(self, node):
         """The storage owner a node's value aliases: through views and

@@ -17,9 +17,19 @@ device buffers, nothing launched — plus what the graph cannot show:
   ``all_reduce``, ...) only notes: it moves nothing. Outside a trace a
   note returns at once;
 - **coordinates** (:func:`note_vary`): where a program hands one mesh
-  coordinate its own slice of an input (a replica's rows, a seq chunk),
-  the slice is seeded with that coordinate's axes for the replication
-  analysis (``rules.py``);
+  coordinate its own slice of an input (a replica's rows, a seq chunk,
+  a shard's parameters), the slice is seeded with that coordinate's axes
+  for the replication analysis (``rules.py``);
+- **sums that move no bytes** (:func:`note_replicated`): a value that is
+  the same on every coordinate of an axis although nothing crossed a
+  wire for it — the equal per-shard copies of a replicated leaf once
+  tied (``tensor.tie``), and in one process the backward sum of the
+  shards' input gradients, which is autograd's own accumulation
+  (``tensor.grad_sync``);
+- **claims** (:func:`note_claim`): a gradient that must be the same on
+  every coordinate of an axis — a replicated leaf's of a stage sharded
+  over that axis (``Pipeline._reduce_grads``); the rules flag it when it
+  still varies there;
 - **kernel launches**: the kernel wrappers K1-K4 meet a fake tensor as a
   ``torch.library`` custom op (``sdml::...``) whose fake implementation
   returns the output's shape, so each launch is one graph node, and note
@@ -95,6 +105,8 @@ class Recorder:
     def __init__(self):
         self.events: list[Collective] = []
         self.seeds: list[tuple[Any, frozenset]] = []
+        self.joins: list[tuple[Any, frozenset]] = []
+        self.claims: list[tuple[Any, frozenset, str]] = []
 
 
 #: the open recorder, or None; every note tests it once
@@ -173,17 +185,45 @@ def note_collective(prim: str, axes, group_size: int, ins, outs, *,
         index=len(rec.events), summary=summary))
 
 
+def _noted(tensors, axes) -> tuple[list, frozenset]:
+    """The graph nodes of ``tensors`` (one tensor or a list; those outside
+    the trace dropped) and ``axes`` (one name or several) as a set."""
+    axes = frozenset((axes,) if isinstance(axes, str) else axes)
+    ts = tensors if isinstance(tensors, (list, tuple)) else [tensors]
+    nodes = [n for n in map(_node, ts) if n is not None]
+    return (nodes if axes else []), axes
+
+
 def note_vary(tensors, axes) -> None:
     """Seed ``tensors`` (one coordinate's own inputs) with the mesh axes
     they differ over, for the replication analysis."""
     rec = _recorder
     if rec is None:
         return
-    axes = frozenset((axes,) if isinstance(axes, str) else axes)
-    for t in (tensors if isinstance(tensors, (list, tuple)) else [tensors]):
-        node = _node(t)
-        if node is not None and axes:
-            rec.seeds.append((node, axes))
+    nodes, axes = _noted(tensors, axes)
+    rec.seeds.extend((n, axes) for n in nodes)
+
+
+def note_replicated(tensors, axes) -> None:
+    """Note ``tensors`` as the same on every coordinate of ``axes``: a
+    sum over the axis that moves no bytes, so it is neither billed nor a
+    rendezvous — for the replication analysis only."""
+    rec = _recorder
+    if rec is None:
+        return
+    nodes, axes = _noted(tensors, axes)
+    rec.joins.extend((n, axes) for n in nodes)
+
+
+def note_claim(tensors, axes, what: str = "") -> None:
+    """Claim ``tensors`` replicated over ``axes``: the rules flag each
+    one that still varies over one of them (``what`` names it in the
+    finding)."""
+    rec = _recorder
+    if rec is None:
+        return
+    nodes, axes = _noted(tensors, axes)
+    rec.claims.extend((n, axes, what) for n in nodes)
 
 
 # -- fake stand-ins ---------------------------------------------------------
@@ -340,15 +380,17 @@ def _fake_param(t):
 @dataclasses.dataclass
 class Program:
     """One traced program: the aten graph, its placeholders (aligned with
-    the flat tensor leaves of the arguments), the collectives and
-    coordinate seeds its sites noted, and the launch specs of its kernel
-    nodes (in graph order)."""
+    the flat tensor leaves of the arguments), the collectives, coordinate
+    seeds, replicated values and claims its sites noted, and the launch
+    specs of its kernel nodes (in graph order)."""
     name: str
     gm: Any
     placeholders: list
     events: list
     seeds: list
     launches: list
+    joins: list = dataclasses.field(default_factory=list)
+    claims: list = dataclasses.field(default_factory=list)
 
     @property
     def graph(self):
@@ -403,7 +445,8 @@ def trace_program(fn: Callable, *args, name: str = "", **kwargs) -> Program:
     placeholders = [n for n in gm.graph.nodes if n.op == "placeholder"]
     return Program(name=name or getattr(fn, "__name__", "") or "program",
                    gm=gm, placeholders=placeholders, events=rec.events,
-                   seeds=rec.seeds, launches=list(launches))
+                   seeds=rec.seeds, launches=list(launches),
+                   joins=rec.joins, claims=rec.claims)
 
 
 class _NoGenerators(torch.overrides.TorchFunctionMode):

@@ -513,10 +513,10 @@ def _clone_tree(tree, device=None):
     return {k: _clone_tree(v, device) for k, v in kids}
 
 
-def _grad_sync_non_tp(shards, path=(), sharded=None) -> list:
-    """This process's shard trees with every replicated leaf tied across
-    them (``parallel/tensor.py::tie``: one value forward, the full
-    gradient to each copy) and the sharded leaves (``sharded(path)``,
+def _grad_sync_non_tp(shards, axis: str, path=(), sharded=None) -> list:
+    """This process's shard trees on ``axis`` with every replicated leaf
+    tied across them (``parallel/tensor.py::tie``: one value forward, the
+    full gradient to each copy) and the sharded leaves (``sharded(path)``,
     default ``tensor.is_sharded_leaf``) as they are: per shard, a tree of
     plain dicts and lists."""
     from simple_distributed_machine_learning_tpu_torch._tree import (
@@ -531,9 +531,9 @@ def _grad_sync_non_tp(shards, path=(), sharded=None) -> list:
     if kids is None:
         if sharded(path):
             return list(shards)
-        return [tie(shards)] * len(shards)
-    cols = {k: _grad_sync_non_tp([sh[k] for sh in shards], path + (k,),
-                                 sharded)
+        return [tie(shards, axis)] * len(shards)
+    cols = {k: _grad_sync_non_tp([sh[k] for sh in shards], axis,
+                                 path + (k,), sharded)
             for k, _ in kids}
     if isinstance(shards[0], (list, nn.ModuleList)):
         return [[cols[k][i] for k, _ in kids] for i in range(len(shards))]
@@ -576,7 +576,8 @@ def _stage_apply_ep(params, x, key=None, deterministic=True, *, cfg):
     shards = as_shards(params)
     view = getattr(shards, "view", None) or AxisView.local(
         EXPERT_AXIS, cfg.n_expert_parallel)
-    trees = _grad_sync_non_tp(list(shards), sharded=is_expert_leaf)
+    trees = _grad_sync_non_tp(list(shards), view.name,
+                              sharded=is_expert_leaf)
     return _stage_apply(trees[0], x, key, deterministic, cfg=cfg,
                         ep=(trees, view))
 
@@ -591,7 +592,7 @@ def _stage_apply_tp(params, x, key=None, deterministic=True, *, cfg):
         as_shards,
     )
     shards = as_shards(params)
-    trees = _grad_sync_non_tp(list(shards))
+    trees = _grad_sync_non_tp(list(shards), shards.axis)
     p0 = trees[0]
     if "embed" in p0:
         ids = token_ids(x)
@@ -762,8 +763,9 @@ def _moe_train(bp, hn2: list, cfg: GPTConfig, ep=None):
             nb = b // D
             # each process routes only its own sequences: the cotangents
             # of the MoE input and of the router sum over the axis
-            xg = grad_sync(x, view.group)
-            router = grad_sync(trees[0]["moe"]["router"], view.group)
+            xg = grad_sync(x, view.group, axis=view.name)
+            router = grad_sync(trees[0]["moe"]["router"], view.group,
+                               axis=view.name)
             moe = Shards([{"router": router, "experts": t["moe"]["experts"]}
                           for t in trees], view.group, view.name, view)
             ys, aux_v = moe_apply_ep(

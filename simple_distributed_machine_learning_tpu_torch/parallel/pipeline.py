@@ -726,6 +726,8 @@ class Pipeline:
                 _trace.note_collective("psum", axes, len(rows),
                                        [r[i] for r in rows], [g],
                                        site="Pipeline._reduce_grads")
+            if isinstance(p, Shards) and _trace.active():
+                _claim_replicated(s, p, grads)
             group = self.mesh.grad_group(s)
             if group is not None and grads:
                 flat = mesh_lib.all_reduce(
@@ -966,6 +968,30 @@ class Pipeline:
             logp, tgt, None if weights is None else self._on(weights))
         hit = (logp.argmax(-1) == tgt) & (wb > 0)
         return num, den, hit.sum()
+
+
+def _claim_replicated(s: int, shards: Shards, grads: list) -> None:
+    """Claim the gradients of stage ``s``'s replicated leaves (``grads``
+    aligned with ``param_leaves([shards])``) replicated over the axis the
+    stage is sharded on, for a program trace: every shard's copy of such a
+    leaf must take the same gradient, or the copies drift apart. The
+    sharded leaves (``tensor.is_sharded_leaf``, ``expert.is_expert_leaf``)
+    are each coordinate's own and stay unclaimed."""
+    from simple_distributed_machine_learning_tpu_torch.parallel.expert import (
+        is_expert_leaf,
+    )
+    from simple_distributed_machine_learning_tpu_torch.parallel.tensor import (
+        is_sharded_leaf,
+    )
+    split = (is_expert_leaf if shards.axis == mesh_lib.EXPERT_AXIS
+             else is_sharded_leaf)
+    names = [(m, n) for m, shard in enumerate(shards) if shard is not None
+             for n, _ in shard.named_parameters()]
+    for g, (m, n) in zip(grads, names):
+        if not split(n.split(".")):
+            _trace.note_claim(g, shards.axis,
+                              f"the gradient of replicated leaf '{n}' of "
+                              f"stage {s}, shard {m}")
 
 
 def _gen_state(seed: int, device) -> torch.Tensor:

@@ -82,17 +82,36 @@ class Shards(list):
 
 
 class _GradSync(torch.autograd.Function):
-    """Identity forward; the backward sums the cotangent over ``group``."""
+    """Identity forward; the backward sums the cotangent over ``group``
+    (the processes of ``axis``)."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis = group, axis
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, ct):
         return mesh_lib.all_reduce(ct, ctx.group,
-                                   axes=(mesh_lib.MODEL_AXIS,)), None
+                                   axes=(ctx.axis,)), None, None
+
+
+class _LocalGradSum(torch.autograd.Function):
+    """Identity forward and backward, in a program trace only: the
+    backward notes its cotangent as summed over ``axis`` — in one process
+    the shards that read the input add their gradients into it (autograd's
+    own accumulation), a sum over the axis that moves no bytes."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        ct = ct.view_as(ct)
+        _trace.note_replicated(ct, ctx.axis)
+        return ct, None
 
 
 class _GradSyncRing(torch.autograd.Function):
@@ -139,24 +158,25 @@ class _Tie(torch.autograd.Function):
 
 
 def grad_sync(x: torch.Tensor, group=None, overlap: str = "none",
-              view=None) -> torch.Tensor:
-    """Identity forward; the backward sums ``x``'s gradient over the model
-    coordinates. In one process (``group`` None) the shards that read
-    ``x`` already add their gradients into it, so this is the identity;
-    across processes it is the ``all_reduce`` over ``group`` or, with
-    ``overlap='ring'``, the chunked ring of ``overlap.ring_psum`` over
-    ``view`` (the axis's ``mesh.AxisView``) in the mirrored direction:
-    each process enters its own gradient, and every process ends with the
-    same bits."""
+              view=None, axis: str = mesh_lib.MODEL_AXIS) -> torch.Tensor:
+    """Identity forward; the backward sums ``x``'s gradient over the
+    coordinates of ``axis`` (the model axis, or the expert axis of an MoE
+    input). In one process (``group`` None) the shards that read ``x``
+    already add their gradients into it, so this is the identity (a
+    program trace notes that sum); across processes it is the
+    ``all_reduce`` over ``group`` or, with ``overlap='ring'``, the chunked
+    ring of ``overlap.ring_psum`` over ``view`` (the axis's
+    ``mesh.AxisView``) in the mirrored direction: each process enters its
+    own gradient, and every process ends with the same bits."""
     check_overlap(overlap)
     if group is None:
-        return x
+        return _LocalGradSum.apply(x, axis) if _trace.active() else x
     if overlap == "ring":
         if view is None:
             raise ValueError("grad_sync(overlap='ring') across processes "
                              "needs the axis view (its ring order)")
         return _GradSyncRing.apply(x, view)
-    return _GradSync.apply(x, group)
+    return _GradSync.apply(x, group, axis)
 
 
 def model_sum(parts, group=None, axis: str = mesh_lib.MODEL_AXIS,
@@ -175,11 +195,18 @@ def model_sum(parts, group=None, axis: str = mesh_lib.MODEL_AXIS,
     return _ModelSum.apply(z, group, axis)
 
 
-def tie(copies) -> torch.Tensor:
-    """One replicated leaf from its local per-shard copies (all equal):
-    the first, with every copy receiving the full gradient."""
+def tie(copies, axis: str = mesh_lib.MODEL_AXIS) -> torch.Tensor:
+    """One replicated leaf from this process's per-shard copies of it on
+    ``axis`` (all equal): the first, with every copy receiving the full
+    gradient. A program trace notes the result as the same on every
+    coordinate of the axis (each shard's copy is seeded with it), so a
+    copy used untied still varies there."""
     copies = list(copies)
-    return copies[0] if len(copies) == 1 else _Tie.apply(*copies)
+    if len(copies) == 1 and not _trace.active():
+        return copies[0]
+    out = _Tie.apply(*copies)
+    _trace.note_replicated(out, axis)
+    return out
 
 
 def is_sharded_leaf(path) -> bool:
@@ -241,7 +268,7 @@ def tp_pair_apply(params, x: torch.Tensor, activation=relu, group=None,
              for p in shards]
     z = (ring_psum(parts, view)[0] if overlap == "ring"
          else model_sum(parts, group))
-    return z + tie(p["w2"]["b"] for p in shards)
+    return z + tie((p["w2"]["b"] for p in shards), shards.axis)
 
 
 def _model_view(shards, group):

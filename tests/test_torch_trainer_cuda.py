@@ -123,7 +123,7 @@ def test_gather_of_bad_token_ids_on_the_card_equals_the_cpu(cuda_device):
     ct = torch.randn(9, 4, generator=torch.Generator().manual_seed(1))
     outs = []
     for dev in ("cpu", cuda_device):
-        t = table.to(dev).requires_grad_(True)
+        t = table.detach().clone().to(dev).requires_grad_(True)
         out = layers.embedding_lookup(t, layers.token_ids(wire.to(dev)))
         out.backward(ct.to(dev))
         outs.append((out.detach().cpu(), t.grad.cpu()))
