@@ -399,6 +399,29 @@ or without the port beside it. Phases, each fatal on failure:
    ranks exit 0 with equal request and token counts) and ``--scenario
    steady`` (both ranks print the one-process run's lines, made in this
    call).
+22. the full-prefix decoder (``models/gpt.py::make_decoder``): (a) K1 at
+   its decode shapes (``DECODE_SHAPES``: B = 1 and 2 sequences of the
+   serving model's 8 heads x 256 x 64, f32) against its plain version
+   within phase 2's f32 tolerance, timed as phase 2 times it beside its
+   plain version, its bound and SDPA's forward (run right after phase 2,
+   alone on the card); (b) ``make_decoder`` greedy at ``SERVE_CFG`` with
+   ``attn_impl="flash"``, f32, B = 2, a 16-token prompt and 32 new tokens
+   (``FULL_DECODE``): exactly ``n_layers x n_new`` (128) K1 launches and
+   no K2/K3, every decoded position's log-probs within ``DECODE_LOGP_TOL``
+   of the dense-attention forward's on the same buffer (one
+   teacher-forced pass) and each token the dense argmax or within that
+   tolerance of it; ``make_cached_decoder``'s greedy tokens on the same
+   weights are reported beside them (first divergence and the top-2 gap
+   there), not asserted; (c) the same for the mixture-of-experts build
+   (``EP_MOE``), whose teacher-forced rows are taken step by step (the
+   router's rank-major capacity lets a later token's first choice take an
+   earlier token's second-choice slot, so each step's buffer is
+   rebuilt), and ``make_cached_decoder`` on it must raise naming
+   ``make_decoder``; (d) ``decoder_from_pipeline`` on a one-stage
+   ``gpt_bf16`` pipeline: ``PIPE_DECODE`` AdamW steps change its tokens,
+   which equal ``make_cached_decoder``'s on the live params. The host ms
+   per decoded token of (b) and (c) is printed; the K1-K3 launches of
+   (b)-(d) go into the ``kernels`` line.
 
 The phases run in two lanes. The first, this process, runs phases 1-4
 alone: the kernels' times and phase 4's breakdown are taken with nothing
@@ -407,7 +430,7 @@ else on the card. It then starts the second lane, ``chip_smoke.py --lane``
 it runs past ``LANE_DEADLINE_S``), which runs phases 16-18 and phase 19's
 (a) and (d) (they read phases 17 and 18's records), while this process
 runs phases 8, 9, 11, 12, 5, 6, 7, 10, 13, 14, 15, 19 (b)-(c), 20
-(a)-(d) and 21. It then waits for the second lane, prints its output,
+(a)-(d), 21 and 22 (b)-(d). It then waits for the second lane, prints its output,
 adds its records and launch counts to its own, and runs phase 20 (e)
 (it reads phase 16's record). So every host-clock and device time after
 phase 4 was taken beside the other lane's work on the same card and
@@ -794,6 +817,21 @@ TP_SERVE_HEADS = (4, 2)
 # --serve-sim SERVE_RANKS_CLI_N at tp 1 and tp 2 and --scenario steady over
 # two processes
 SERVE_RANKS_WORLD, SERVE_RANKS_TP, SERVE_RANKS_CLI_N = 2, 2, 8
+# phase 22: the full-prefix decoder — (a) K1 at the decode shapes, f32;
+# (b), (c) make_decoder greedy at SERVE_CFG (flash, then EP_MOE), B = 2,
+# held to the dense-attention forward's log-probs within DECODE_LOGP_TOL:
+# K1 matches its plain version within 1e-5 (FLASH_TOL), and four layers,
+# the final LayerNorm and the 8192-way head carry that to log-prob errors
+# near 1e-5 absolute, so 1e-4 leaves a tenfold margin while a decode that
+# read the wrong row or attended the padding moves the log-probs by far
+# more (random weights: the top-2 gap is often below 1e-3, which is why a
+# token may differ from the dense argmax within the tolerance); (d)
+# decoder_from_pipeline on the gpt_bf16 row after PIPE_DECODE["steps"]
+# AdamW steps
+DECODE_SHAPES = ((1, 8, 256, 64), (2, 8, 256, 64))
+FULL_DECODE = dict(batch=2, t0=16, n_new=32, seed=22)
+DECODE_LOGP_TOL = 1e-4
+PIPE_DECODE = dict(t0=16, n_new=16, steps=3)
 # the second lane (phases 16-18 and 19 (a), (d)) must end this many
 # seconds after the script starts; it is stopped then
 LANE_DEADLINE_S = 1100
@@ -7772,6 +7810,241 @@ def phase_serve_ranks(record: dict, serve: dict, plain_handles: list) -> int:
     return launches
 
 
+# -- phase 22 ------------------------------------------------------------------
+
+def phase_decode_kernel(record: dict) -> list[dict]:
+    """22 (a): K1 at the full-prefix decoder's shapes, f32, against its
+    plain version (phase 2's f32 tolerance), timed as phase 2 times it."""
+    import torch
+    import torch.nn.functional as F
+    from simple_distributed_machine_learning_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(22)
+    flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32,
+                        device=dev)
+    out = []
+    for shape in DECODE_SHAPES:
+        q, k, v, _ = _flash_inputs(shape, "float32", gen, dev)
+        got, ref = fa.flash_forward(q, k, v), fa.flash_forward_reference(
+            q, k, v)
+        torch.cuda.synchronize()
+        errs, ok = {}, True
+        for part, g, r in zip(("o", "l", "m"), got, ref):
+            rtol, atol = FLASH_TOL[("float32", part in ("l", "m"), False)]
+            errs[part], part_ok = _flash_err(g, r, rtol, atol)
+            ok = ok and part_ok
+        check(ok, f"K1 f32 {shape} disagrees with its plain version: {errs}")
+        row = dict(shape=list(shape), max_abs_err=max(errs.values()),
+                   ms=time_ms(lambda: fa.flash_forward(q, k, v), flush),
+                   plain_ms=time_ms(lambda: fa.flash_forward_reference(
+                       q, k, v), flush),
+                   library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                       q, k, v, is_causal=True), flush))
+        row["bound_ms"], row["bound_by"] = _flash_bound("flash_forward",
+                                                        shape, "float32")
+        print(f"chip_smoke: 22 (a) K1 f32 {shape}: vs plain max abs "
+              + ", ".join(f"{p} {e:.3e}" for p, e in errs.items())
+              + f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+              f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"library {row['library_ms']:.4f} ms")
+        out.append(row)
+    record["decode_kernel"] = out
+    return out
+
+
+def _decode_prompt(params, vocab: int, t0: int, batch: int, seed: int):
+    """Seeded prompt tokens on the device of ``params``' embedding."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, vocab, (batch, t0), generator=gen).to(
+        params[0]["embed"]["tok"].device)
+
+
+def _decode_rows(fused, params, toks, t0: int, seq_len: int,
+                 per_step: bool):
+    """The log-prob rows ``[B, n_new, V]`` a decode read at positions
+    ``t0 - 1 .. total - 2``, recomputed through ``fused`` on the decoded
+    tokens: one pass over the whole buffer, or (``per_step``) one pass per
+    position over the buffer as the decode held it then (zeros after)."""
+    import torch
+    b, total = toks.shape
+    with torch.no_grad():
+        if not per_step:
+            buf = torch.zeros((b, seq_len), dtype=torch.int64,
+                              device=toks.device)
+            buf[:, :total] = toks
+            return fused(params, buf, None, True)[:, t0 - 1:total - 1]
+        rows = []
+        for i in range(t0, total):
+            buf = torch.zeros((b, seq_len), dtype=torch.int64,
+                              device=toks.device)
+            buf[:, :i] = toks[:, :i]
+            rows.append(fused(params, buf, None, True)[:, i - 1])
+        return torch.stack(rows, 1)
+
+
+def _decode_full_width(name: str, extra: dict, rec: dict) -> int:
+    """22 (b)/(c): ``make_decoder`` greedy on the flash build ``extra`` of
+    ``SERVE_CFG``; returns its K1 launches."""
+    import torch
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        GPTConfig,
+        make_cached_decoder,
+        make_decoder,
+        make_gpt_stages,
+    )
+    from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (  # noqa: E501
+        fused_reference,
+    )
+    fd = FULL_DECODE
+    cfg = GPTConfig(**SERVE_CFG, **extra)
+    dense_cfg = GPTConfig(**SERVE_CFG, **dict(extra, attn_impl="dense"))
+    stages = make_gpt_stages(0, cfg, 1)[0]
+    dense = make_gpt_stages(0, dense_cfg, 1)[0]
+    params = [s.params for s in stages]
+    check(all(torch.equal(a, b) for a, b in zip(
+        params[0].state_dict().values(), dense[0].params.state_dict()
+        .values())), f"22 {name}: the dense twin holds other weights")
+    t0, n_new = fd["t0"], fd["n_new"]
+    prompt = _decode_prompt(params, cfg.vocab, t0, fd["batch"], fd["seed"])
+    dec = make_decoder(stages, t0, n_new)
+
+    def run():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = dec(params, prompt)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3 / n_new
+
+    first_ms = run()[1]             # this shape's first forward: warm-up
+    _reset_flash_counts()
+    toks, host_ms = run()
+    launches = _flash_counts()
+    prof = _profiled(lambda: dec(params, prompt))
+    want = cfg.n_layers * n_new
+    check(launches == (want, 0, 0),
+          f"22 {name}: make_decoder launched K1/K2/K3 {launches} times, "
+          f"not ({want}, 0, 0)")
+    check(toks.shape == (fd["batch"], t0 + n_new)
+          and torch.equal(toks[:, :t0].long(), prompt)
+          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
+          f"22 {name}: malformed tokens {tuple(toks.shape)}")
+    moe = cfg.n_experts > 0
+    rows = _decode_rows(fused_reference(dense), params, toks, t0,
+                        cfg.seq_len, per_step=moe)
+    flash_rows = _decode_rows(fused_reference(stages), params, toks, t0,
+                              cfg.seq_len, per_step=moe)
+    err = float((flash_rows - rows).abs().max())
+    picked = rows.gather(-1, toks[:, t0:].long()[..., None])[..., 0]
+    shortfall = float((rows.max(-1).values - picked).max())
+    argmax_hits = int((rows.argmax(-1) == toks[:, t0:].long()).sum())
+    check(err <= DECODE_LOGP_TOL and shortfall <= DECODE_LOGP_TOL,
+          f"22 {name}: flash decode log-probs {err:.3e} from the dense "
+          f"forward's, a token {shortfall:.3e} below the dense argmax "
+          f"(tolerance {DECODE_LOGP_TOL})")
+    r = dict(k1_launches=launches[0], host_ms_per_token=host_ms,
+             first_call_host_ms_per_token=first_ms,
+             device_busy_share=prof["device_busy_share"],
+             launches_per_token=prof["launches"] / n_new,
+             max_abs_logp_err=err, argmax_shortfall=shortfall,
+             argmax_hits=argmax_hits, tokens=fd["batch"] * n_new,
+             teacher_forced="per step" if moe else "one pass")
+    if moe:
+        try:
+            make_cached_decoder(stages, cfg, t0, n_new)
+            cached_err = None
+        except ValueError as e:
+            cached_err = str(e)
+        check(cached_err is not None and "make_decoder" in cached_err,
+              f"22 {name}: make_cached_decoder on the MoE build did not "
+              f"refuse naming make_decoder: {cached_err}")
+        r["cached_refusal"] = cached_err
+    else:
+        cached = make_cached_decoder(dense, dense_cfg, t0, n_new)(params,
+                                                                  prompt)
+        div = []
+        for bi in range(fd["batch"]):
+            diff = (cached[bi, t0:] != toks[bi, t0:]).nonzero()
+            if len(diff) == 0:
+                div.append(None)
+                continue
+            j = int(diff[0])
+            top2 = rows[bi, j].topk(2).values
+            div.append(dict(position=t0 + j,
+                            top2_gap=float(top2[0] - top2[1])))
+        r["cached_divergence"] = div
+    print(f"chip_smoke: 22 {name}: make_decoder {fd['batch']} x {n_new} "
+          f"tokens, K1 {launches[0]} launches, {host_ms:.3f} host ms per "
+          f"decoded token (first call {first_ms:.3f}; profiled: busy "
+          f"{r['device_busy_share']:.4f}, {r['launches_per_token']:.1f} "
+          f"launches per token); teacher-forced ({r['teacher_forced']}) dense "
+          f"log-probs max abs {err:.3e}, argmax shortfall {shortfall:.3e}, "
+          f"{argmax_hits}/{r['tokens']} the dense argmax"
+          + (f"; make_cached_decoder refuses: {r['cached_refusal']!r}" if moe
+             else f"; make_cached_decoder first divergence per row "
+                  f"{r['cached_divergence']}"))
+    rec[name] = r
+    return launches[0]
+
+
+def _decode_from_pipeline(rec: dict) -> tuple[int, int, int]:
+    """22 (d): ``decoder_from_pipeline`` on a one-stage gpt_bf16 pipeline
+    reads the live params: AdamW steps change its greedy tokens, which
+    equal ``make_cached_decoder``'s on those params."""
+    import torch
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        decoder_from_pipeline,
+        make_cached_decoder,
+    )
+    from simple_distributed_machine_learning_tpu_torch.train import (
+        make_train_step,
+    )
+    pd = PIPE_DECODE
+    cfg, pipe, opt, xs, ts = _train_setup(TRAIN_ROWS["gpt_bf16"], "flash")
+    params = pipe.init_params()
+    state = opt.init(params)
+    prompt = _decode_prompt(params, cfg.vocab, pd["t0"], 1,
+                            FULL_DECODE["seed"])
+    dec = decoder_from_pipeline(pipe, cfg, pd["t0"], pd["n_new"])
+    before = dec(params, prompt)
+    step = make_train_step(pipe, opt)
+    _reset_flash_counts()
+    for i in range(pd["steps"]):
+        params, state, loss = step(params, state, xs[0], ts[0], i)
+    torch.cuda.synchronize()
+    launches = _flash_counts()
+    after = dec(params, prompt)
+    live = make_cached_decoder(pipe.stages, cfg, pd["t0"], pd["n_new"])(
+        list(params), prompt)
+    want = cfg.n_layers * pd["steps"]
+    check(launches == (want, want, want),
+          f"22 (d): {pd['steps']} flash steps launched K1/K2/K3 {launches}")
+    check(not torch.equal(before, after),
+          "22 (d): decoder_from_pipeline ignored the training updates")
+    check(torch.equal(after, live),
+          "22 (d): decoder_from_pipeline differs from make_cached_decoder "
+          "on the live params")
+    changed = int((before != after)[:, pd["t0"]:].sum())
+    print(f"chip_smoke: 22 (d) decoder_from_pipeline on gpt_bf16: "
+          f"{pd['steps']} AdamW steps (loss {float(loss):.4f}) changed "
+          f"{changed}/{pd['n_new']} decoded tokens; equal to "
+          f"make_cached_decoder on the live params")
+    rec["pipeline"] = dict(steps=pd["steps"], changed_tokens=changed,
+                           launches=list(launches))
+    return launches
+
+
+def phase_full_prefix_decode(record: dict) -> tuple[int, int, int]:
+    """22 (b)-(d); returns their K1-K3 launches."""
+    rec = record.setdefault("full_prefix_decode", {})
+    k1 = (_decode_full_width("(b) flash", dict(attn_impl="flash"), rec)
+          + _decode_full_width("(c) moe", EP_MOE, rec))
+    pipe = _decode_from_pipeline(rec)
+    return (k1 + pipe[0], pipe[1], pipe[2])
+
+
 def lane_main(out_path: str) -> int:
     """The second lane: phases 16-18 and 19 (a), (d) in a process of
     their own, beside the first lane's serving, stages, linter and
@@ -7900,6 +8173,7 @@ def main() -> int:
         timed("1", phase_build, record)
         variants = timed("2 K4", phase_kernels, record)
         flash_variants = timed("2 flash", phase_flash_kernels, record)
+        timed("22 (a)", phase_decode_kernel, record)
         cfg = GPTConfig(**SERVE_CFG)
         stages = make_gpt_stages(0, cfg, 1)[0]
         serve, plain_handles = timed("3", phase_serve, stages, cfg, record)
@@ -7934,6 +8208,7 @@ def main() -> int:
                                     record, serve, plain_handles, analysis)
         ranks_k4 = timed("21", phase_serve_ranks, record, serve,
                          plain_handles)
+        decode_flash = timed("22 (b)-(d)", phase_full_prefix_decode, record)
         t = time.perf_counter()
         laned = join_lane(lane, lane_tmp.name, deadline)
         secs["waiting for the second lane"] = round(time.perf_counter() - t,
@@ -7986,7 +8261,8 @@ def main() -> int:
     # phase 13 (b)'s bf16 CLI run, phase 15 (b)'s runs of that row at 2
     # stages, phase 16 (b)'s over 2 processes (summed over the ranks),
     # phase 18 (b)'s mixture-of-experts runs of that row, phase 19 (a)'s
-    # with the ring dispatch and phase 20 (a) and (f)'s --lint CLI runs
+    # with the ring dispatch, phase 20 (a) and (f)'s --lint CLI runs and
+    # phase 22 (b)-(d)'s decodes (K1 per layer per token) and training steps
     for i, (name, line) in enumerate((("flash_forward", 127),
                                       ("flash_dq", 300),
                                       ("flash_dkv", 338))):
@@ -8001,7 +8277,8 @@ def main() -> int:
                         f"flash_attention.py:{line}",
             "launches": (train["launches"][i] + resilience_launches[i]
                          + telemetry_launches[i] + stage_launches[i]
-                         + laned["flash"][i] + lint_flash[i]),
+                         + laned["flash"][i] + lint_flash[i]
+                         + decode_flash[i]),
             "max_abs_err": max(v["max_abs_err"] for v in flash_variants
                                if v["name"] == name),
             "ms": timed["ms"],

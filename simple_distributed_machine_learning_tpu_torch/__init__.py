@@ -47,3 +47,15 @@ torch.backends.cudnn.deterministic = True
 torch.backends.cudnn.benchmark = False
 
 __version__ = "0.1.0"
+
+__all__ = ["make_mesh"]
+
+
+def __getattr__(name: str):
+    # lazy (PEP 562): importing the package imports no subpackage
+    if name == "make_mesh":
+        from simple_distributed_machine_learning_tpu_torch.parallel.mesh import (  # noqa: E501
+            make_mesh,
+        )
+        return make_mesh
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

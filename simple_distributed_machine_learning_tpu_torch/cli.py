@@ -853,15 +853,16 @@ def _run_gpt(args, n_stages: int, device) -> None:
 
 def _print_sample(args, trainer, cfg, test_ds) -> None:
     """--generate N: decode N tokens from the trained model with the
-    KV-cache decoder, straight from the live stage modules; over two or
-    more stages stage by stage (``models/pp_decode.py``; across processes
-    over replica 0's ring), one prompt. A one-stage run of several
-    processes skips, with the JAX CLI's line."""
+    KV-cache decoder, straight from the live stage modules
+    (``decoder_from_pipeline``); over two or more stages stage by stage
+    (``models/pp_decode.py``; across processes over replica 0's ring), one
+    prompt. A one-stage run of several processes skips, with the JAX CLI's
+    line."""
     import numpy as np
     import torch
 
     from simple_distributed_machine_learning_tpu_torch.models.gpt import (
-        make_cached_decoder,
+        decoder_from_pipeline,
     )
     from simple_distributed_machine_learning_tpu_torch.models.pp_decode import (  # noqa: E501
         make_pp_decoder,
@@ -882,9 +883,8 @@ def _print_sample(args, trainer, cfg, test_ds) -> None:
     if pipe.n_stages >= 2:
         dec = make_pp_decoder(pipe, cfg, t0, n_new, cache_dtype=cache_dtype)
     else:
-        dec = make_cached_decoder(pipe.stages, cfg, t0, n_new,
-                                  cache_dtype=cache_dtype,
-                                  device=pipe.device)
+        dec = decoder_from_pipeline(pipe, cfg, t0, n_new,
+                                    cache_dtype=cache_dtype)
     toks = _decode_timed(args, trainer, dec, prompt, n_new)
     if toks is None:
         return                           # not on replica 0's first stage

@@ -9,11 +9,16 @@ from simple_distributed_machine_learning_tpu_torch.models.beam import (  # noqa:
 from simple_distributed_machine_learning_tpu_torch.models.gpt import (  # noqa: F401
     GPT,
     GPTConfig,
+    decoder_from_pipeline,
+    generate,
     make_cached_decoder,
+    make_decoder,
     make_gpt_stages,
     make_paged_block_copy,
     make_paged_decode_step,
     make_paged_prefill_chunk,
+    make_slot_decode_step,
+    make_slot_prefill,
 )
 from simple_distributed_machine_learning_tpu_torch.models.lenet import (  # noqa: F401
     make_lenet_stages,

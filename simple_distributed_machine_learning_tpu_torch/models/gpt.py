@@ -25,6 +25,10 @@ experts over ``Stage.expert_shards``, tokens dispatched by all-to-all).
 The serving programs are plain closures over the shape scalars — the
 JAX package's ``jit`` builders without ``jit``: PyTorch runs eagerly.
 
+- :func:`make_decoder` — full-prefix decode, the training forward rerun
+  per token: every single-device build (MoE and flash included);
+  :func:`generate` and :func:`decoder_from_pipeline` wrap it and the
+  cached decoder;
 - :func:`make_cached_decoder` — solo KV-cache decode, the correctness
   anchor every served stream is held against;
 - :func:`make_paged_prefill_chunk` — one prompt chunk of one request into
@@ -71,7 +75,11 @@ from torch import nn
 from simple_distributed_machine_learning_tpu_torch._device import (
     resolve_device,
 )
-from simple_distributed_machine_learning_tpu_torch._tree import Tree, to_module
+from simple_distributed_machine_learning_tpu_torch._tree import (
+    Tree,
+    to_module,
+    tree_leaves,
+)
 from simple_distributed_machine_learning_tpu_torch.models.lora import (
     BANK_KEYS,
     lora_delta,
@@ -111,6 +119,7 @@ from simple_distributed_machine_learning_tpu_torch.parallel.expert import (
 )
 from simple_distributed_machine_learning_tpu_torch.parallel.pipeline import (
     Stage,
+    fused_reference,
 )
 from simple_distributed_machine_learning_tpu_torch.parallel.sequence import (
     SeqShards,
@@ -1436,6 +1445,134 @@ def _relay_decode(embed, stage_blocks, head, devs, prompt, key_data,
     dev = tok.device
     return torch.cat([prompt.to(device=dev, dtype=torch.int32),
                       torch.stack([t.to(dev) for t in out], 1)], 1)
+
+
+# -- full-prefix decode ----------------------------------------------------------
+
+def make_decoder(stages, prompt_len: int, n_new: int,
+                 temperature: float = 0.0, top_k: int | None = None,
+                 top_p: float | None = None, device=None):
+    """Full-prefix decode: ``decode(params, prompt, key_data=None) -> int32
+    [B, prompt_len + n_new]`` on ``device``.
+
+    Each new token reruns the whole stage composition
+    (``parallel/pipeline.py::fused_reference``, deterministic) over a
+    zero-padded token buffer of the first stage's sequence length and
+    reads the prediction for position ``i`` at ``i - 1``; causal attention
+    keeps the padding after it out of sight. Any single-device build
+    decodes so: MoE blocks route the whole buffer, as in training, and
+    ``attn_impl="flash"`` runs K1 once per layer per token at the full
+    sequence length. ``params`` is the stages' param list on ``device``.
+    Sampling is :func:`make_cached_decoder`'s (the same key splits and
+    counter ranges), so with the same ``key_data`` both draw the same
+    tokens. The JAX decoder is one jitted ``lax.scan``; this one loops on
+    the host, one fused forward per token, with no host sync inside."""
+    dev = resolve_device(device)
+    if prompt_len < 1:
+        raise ValueError(
+            "generate needs a non-empty prompt (t0 >= 1): the first decoded "
+            "token is conditioned on the prompt's last position")
+    _check_sampling_args(temperature, top_k, top_p)
+    _check_unsharded(stages, "make_decoder")
+    cfgs = [getattr(s.apply, "keywords", {}).get("cfg") for s in stages]
+    if any(c is not None and c.n_seq > 1 for c in cfgs):
+        raise ValueError(
+            "make_decoder is single-device: the stages of an n_seq > 1 "
+            "build run mesh collectives in their applies — decode with an "
+            "n_seq=1 build of the same weights")
+    seq_len = int(stages[0].in_shape[0])
+    total = prompt_len + n_new
+    if total > seq_len:
+        raise ValueError(
+            f"prompt {prompt_len} + n_new {n_new} exceeds the model's "
+            f"sequence length {seq_len}")
+    fused = fused_reference(stages)
+
+    @torch.no_grad()
+    def decode(params, prompt, key_data=None):
+        prompt = _on(prompt, dev, torch.int64)
+        b = prompt.shape[0]
+        buf = torch.zeros((b, seq_len), dtype=torch.int64, device=dev)
+        buf[:, :prompt_len] = prompt
+        kd = _on(_rng.key_data(0) if key_data is None else key_data, dev,
+                 torch.int64).reshape(1, 2).expand(b, 2)
+        knobs = _sampling_tensors(b, temperature, top_k, top_p, dev)
+        ctr0 = None
+        for i in range(prompt_len, total):
+            row = fused(params, buf, None, True)[:, i - 1]
+            if temperature <= 0.0:          # greedy: no key, no sampler
+                buf[:, i] = torch.argmax(row, dim=-1)
+                continue
+            if ctr0 is None:
+                width = row.shape[-1]
+                if top_k is not None and top_k > width:
+                    raise ValueError(
+                        f"top_k={top_k} exceeds the row width {width} "
+                        f"(the model's vocab)")
+                ctr0 = torch.arange(b, device=dev) * width
+            tok, kd2 = _sample_dyn(row, kd, *knobs, ctr0=ctr0)
+            kd = kd2[:1].expand(b, 2)
+            buf[:, i] = tok
+        return buf[:, :total].to(torch.int32)
+
+    return decode
+
+
+def generate(stages, prompt, n_new: int, key_data=None,
+             temperature: float = 0.0, cfg: GPTConfig | None = None,
+             top_k: int | None = None, top_p: float | None = None,
+             device=None) -> torch.Tensor:
+    """One-shot decode of ``prompt`` ``[B, T0]`` from the stages' own
+    params -> int32 ``[B, T0 + n_new]``: through the KV cache
+    (:func:`make_cached_decoder`) when given the stages' ``cfg``, else by
+    full-prefix recompute (:func:`make_decoder`). ``key_data``: see
+    :func:`make_cached_decoder`; sampling needs one."""
+    if temperature > 0.0 and key_data is None:
+        raise ValueError("sampling (temperature > 0) needs a PRNG key")
+    t0 = int(prompt.shape[1])
+    if cfg is not None:
+        dec = make_cached_decoder(stages, cfg, t0, n_new,
+                                  temperature=temperature, top_k=top_k,
+                                  top_p=top_p, device=device)
+    else:
+        dec = make_decoder(stages, t0, n_new, temperature=temperature,
+                           top_k=top_k, top_p=top_p, device=device)
+    return dec([s.params for s in stages], prompt, key_data)
+
+
+def decoder_from_pipeline(pipe, cfg: GPTConfig, prompt_len: int, n_new: int,
+                          temperature: float = 0.0, top_k: int | None = None,
+                          top_p: float | None = None, cache_dtype=None):
+    """Cached decode bound to a training ``Pipeline``: ``decode(params,
+    prompt, key_data=None)`` takes the pipeline's live per-stage params
+    (``pipe.init_params()``, which a train step updates in place), so a
+    decode after training or a restore reads the weights as they are now.
+    Stages away from ``pipe.device`` are copied there on each call; the
+    single-device :func:`make_cached_decoder` then runs on them. Tensor-
+    or expert-sharded stages and a mesh that spans processes are
+    refused."""
+    _check_unsharded(pipe.stages, "decoder_from_pipeline")
+    if pipe.mesh is not None and pipe.mesh.distributed:
+        raise ValueError(
+            "decoder_from_pipeline runs in one process and this mesh spans "
+            "processes — decode stage by stage with models.make_pp_decoder")
+    dev = pipe.device
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    dec = make_cached_decoder(pipe.stages, cfg, prompt_len, n_new,
+                              temperature=temperature, top_k=top_k,
+                              top_p=top_p, cache_dtype=cache_dtype,
+                              device=dev)
+
+    def local(p):
+        if all(t.device == dev for t in tree_leaves(p)):
+            return p
+        return _clone_tree(p, dev)
+
+    def decode(params, prompt, key_data=None):
+        return dec([local(p) for p in params], prompt, key_data)
+
+    return decode
 
 
 # -- dense slot-row programs (the degraded target's and the draft's pool) ----

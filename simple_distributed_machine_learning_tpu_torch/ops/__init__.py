@@ -36,8 +36,10 @@ from simple_distributed_machine_learning_tpu_torch.ops.layers import (  # noqa: 
     relu,
 )
 from simple_distributed_machine_learning_tpu_torch.ops.losses import (  # noqa: F401
+    accuracy,
     log_softmax,
     nll_loss,
+    softmax_cross_entropy,
 )
 from simple_distributed_machine_learning_tpu_torch.ops.paged_attention import (  # noqa: F401
     paged_attention,

@@ -1,4 +1,5 @@
-"""Loss ops (port of ``ops/losses.py``): ``log_softmax`` and ``nll_loss``."""
+"""Loss and metric ops (port of ``ops/losses.py``): ``log_softmax``,
+``nll_loss``, ``softmax_cross_entropy`` and ``accuracy``."""
 
 from __future__ import annotations
 
@@ -21,3 +22,16 @@ def nll_loss(log_probs: torch.Tensor, targets: torch.Tensor,
     if reduction == "none":
         return losses
     raise ValueError(f"unknown reduction: {reduction!r}")
+
+
+def softmax_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                          reduction: str = "mean") -> torch.Tensor:
+    """Cross entropy from raw logits (``nll_loss`` of ``log_softmax``)."""
+    return nll_loss(log_softmax(logits), targets, reduction=reduction)
+
+
+def accuracy(log_probs_or_logits: torch.Tensor,
+             targets: torch.Tensor) -> torch.Tensor:
+    """Fraction of rows whose argmax matches ``targets``, as f32."""
+    pred = torch.argmax(log_probs_or_logits, dim=-1)
+    return (pred == targets.long()).float().mean()

@@ -37,11 +37,11 @@ crashes to replay from disk. This module is that layer:
   (``tests/test_torch_sentinel.py``; ``chip_smoke.py`` phase 10 on the
   card).
 - **escalation** (:class:`SentinelExhausted`): repeated anomalies within
-  one ``window`` of steps (more than ``ring_size`` of them) mean the
-  fault is systematic, not transient — micro-rollback cannot converge, so
-  the sentinel raises and the elastic supervisor
-  (``resilience/supervisor.py``, which lists the exception as RECOVERABLE)
-  takes over with a full disk restore.
+  one ``window`` of steps (more than ``max_rollbacks`` of them, by
+  default ``ring_size``) mean the fault is systematic, not transient —
+  micro-rollback cannot converge, so the sentinel raises and the elastic
+  supervisor (``resilience/supervisor.py``, which lists the exception as
+  RECOVERABLE) takes over with a full disk restore.
 
 Detection→rollback→quarantine→escalate is driven by the Trainer's step
 loop (``train/trainer.py``); this module holds the state machine's memory
@@ -138,10 +138,11 @@ def _nbytes(v) -> int:
 
 
 class SentinelExhausted(RuntimeError):
-    """Micro-rollback cannot absorb the fault: more than ``ring_size``
-    anomalies within one ``window`` of steps. The elastic supervisor treats
-    this as RECOVERABLE (restore the last valid disk checkpoint, same
-    topology); anything above it treats it as the training run failing."""
+    """Micro-rollback cannot absorb the fault: more than ``max_rollbacks``
+    (by default ``ring_size``) anomalies within one ``window`` of steps.
+    The elastic supervisor treats this as RECOVERABLE (restore the last
+    valid disk checkpoint, same topology); anything above it treats it as
+    the training run failing."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,12 +151,12 @@ class SentinelConfig:
 
     window: int = 16            # EWMA horizon AND the escalation window
     snapshot_every: int = 4     # steps between ring snapshots
-    ring_size: int = 4          # retained snapshots (memory bound) AND
-    #                             the escalation budget
+    ring_size: int = 4          # retained snapshots (memory bound)
     spike_factor: float = 3.0   # loss > factor * (ewma + margin) = spike
     spike_margin: float = 0.25  # absolute slack so a near-zero EWMA does
     #                             not turn converged-loss jitter into spikes
     warmup_steps: int = 8       # healthy observations before spike checks
+    max_rollbacks: int | None = None   # escalation budget (None: ring_size)
 
     def __post_init__(self):
         if self.window < 2:
@@ -173,6 +174,14 @@ class SentinelConfig:
         if self.spike_margin < 0 or self.warmup_steps < 0:
             raise ValueError("sentinel spike_margin/warmup_steps must be "
                              ">= 0")
+        if self.max_rollbacks is not None and self.max_rollbacks < 1:
+            raise ValueError(f"sentinel max_rollbacks must be >= 1, got "
+                             f"{self.max_rollbacks}")
+
+    @property
+    def rollback_budget(self) -> int:
+        return (self.ring_size if self.max_rollbacks is None
+                else self.max_rollbacks)
 
 
 class Snapshot(NamedTuple):
@@ -452,12 +461,12 @@ class Sentinel:
             self._streak = 1
         self._last_anomaly_step = anomaly.step
         snap = self.ring.newest_at_or_before(anomaly.step)
-        if snap is None or self._streak > self.config.ring_size:
+        if snap is None or self._streak > self.config.rollback_budget:
             raise SentinelExhausted(
                 f"sentinel exhausted at step {anomaly.step} "
                 f"({anomaly.kind}): {self._streak} anomalies within a "
                 f"{self.config.window}-step window exceed the "
-                f"{self.config.ring_size}-rollback budget"
+                f"{self.config.rollback_budget}-rollback budget"
                 if snap is not None else
                 f"sentinel exhausted at step {anomaly.step} "
                 f"({anomaly.kind}): no snapshot at or before the anomaly "

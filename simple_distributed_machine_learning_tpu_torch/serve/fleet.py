@@ -96,16 +96,19 @@ class AutoscalePolicy:
     """Autoscaler knobs; see the module docstring.
 
     ``scale_out_queue_depth`` is the fleet-total queued-request high
-    watermark; ``scale_out_burn_rate`` optionally adds the SLO engine's
-    fast-window burn rate (None disables). Any signal held for ``scale_out_ticks``
-    consecutive fleet ticks spawns one replica. ``retire_idle_s`` is how
-    long a replica must sit idle before it retires."""
+    watermark; ``kv_frac_high`` optionally adds the paged-pool signal
+    (blocks in use over blocks total across alive replicas) and
+    ``scale_out_burn_rate`` the SLO engine's fast-window burn rate (None
+    disables either). Any signal held for ``scale_out_ticks`` consecutive
+    fleet ticks spawns one replica. ``retire_idle_s`` is how long a
+    replica must sit idle before it retires."""
 
     min_replicas: int = 1
     max_replicas: int = 4
     scale_out_queue_depth: int = 4
     scale_out_ticks: int = 3
     retire_idle_s: float = 0.5
+    kv_frac_high: float | None = None
     scale_out_burn_rate: float | None = None
 
     def __post_init__(self):
@@ -123,6 +126,9 @@ class AutoscalePolicy:
         if self.retire_idle_s <= 0:
             raise ValueError(f"retire_idle_s must be > 0, got "
                              f"{self.retire_idle_s}")
+        if self.kv_frac_high is not None and not 0 < self.kv_frac_high <= 1:
+            raise ValueError(f"kv_frac_high must be in (0, 1], got "
+                             f"{self.kv_frac_high}")
         if (self.scale_out_burn_rate is not None
                 and self.scale_out_burn_rate <= 0):
             raise ValueError(f"scale_out_burn_rate must be > 0, got "
@@ -705,11 +711,21 @@ class ServeFleet:
             self._spawn_replica(log="replace")
         alive = self._alive()
         qd = sum(r.supervisor.scheduler.queue_depth for r in alive)
+        kv_high = False
+        if pol.kv_frac_high is not None:
+            use = tot = 0
+            for r in alive:
+                stats = getattr(r.supervisor.pool, "stats", None)
+                if stats is not None:
+                    s = stats()
+                    use += s["blocks_in_use"]
+                    tot += s["blocks_total"]
+            kv_high = tot > 0 and use / tot >= pol.kv_frac_high
         burn_high = False
         if pol.scale_out_burn_rate is not None and self.slo is not None:
             burn_high = (max(self.slo.burn_rates().values(), default=0.0)
                          >= pol.scale_out_burn_rate)
-        if qd >= pol.scale_out_queue_depth or burn_high:
+        if qd >= pol.scale_out_queue_depth or kv_high or burn_high:
             self._backlog_ticks += 1
         else:
             self._backlog_ticks = 0

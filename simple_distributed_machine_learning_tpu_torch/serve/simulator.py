@@ -114,6 +114,16 @@ class SimConfig:
         if len(set(names)) != len(names):
             raise ValueError(f"duplicate traffic class names: {names}")
 
+    @classmethod
+    def from_duration(cls, rate: float, duration_s: float, **kw
+                      ) -> "SimConfig":
+        """The open-loop trace as ``rate`` req/s held for ``duration_s``
+        seconds: the expected arrivals, at least one."""
+        if duration_s <= 0:
+            raise ValueError(f"duration_s must be > 0, got {duration_s}")
+        return cls(n_requests=max(1, round(rate * duration_s)), rate=rate,
+                   **kw)
+
 
 def _rate_fn(sim: SimConfig):
     """The arrival-rate profile ``rate(t)`` and its ceiling (for

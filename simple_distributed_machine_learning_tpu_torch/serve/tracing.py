@@ -136,6 +136,15 @@ class ServeTrace:
         self._row("submit", r.rid, t, cls=r.cls,
                   prompt_len=int(r.prompt.shape[0]))
 
+    def on_gate(self, r, t: float) -> None:
+        """Boarding is gated on an in-flight host->HBM upload of this
+        request's prefix (``PagedKVPool.prefetch_blocked``): the ``queue``
+        wait ends and the ``prefetch`` wait begins, the split the
+        attribution fold reads. Once per blocked episode, stamped with the
+        engine's most recent clock read (no read of its own)."""
+        self._open_phase(r.rid, "prefetch", t)
+        self._row("gate", r.rid, t)
+
     def on_admit(self, r, t: float, slot: int) -> None:
         """Boarded a slot: queue wait ends, prefill begins. Paged admission
         performs no clock read of its own, so ``t`` is the engine's most

@@ -165,6 +165,10 @@ class MetricsRegistry:
                 self._schemas[name] = (cls.kind, label_keys)
             return inst
 
+    def instruments(self) -> list:
+        """Every registered series, in registration order."""
+        return list(self._series.values())
+
     def snapshot(self) -> dict:
         """JSON-serialisable map ``name{k=v,...} -> value`` (histograms map
         to their summary dict)."""

@@ -466,6 +466,52 @@ def test_burn_rate_feeds_autoscaler_scale_out(model, tmp_path, ttft_ms,
         tfleet.close()
 
 
+@pytest.mark.parametrize("kv_frac_high,scales_out", [(0.3, True),
+                                                      (1.0, False)])
+def test_kv_fraction_feeds_autoscaler_scale_out(model, tmp_path,
+                                                kv_frac_high, scales_out):
+    """The paged-pool scale-out signal (``AutoscalePolicy.kv_frac_high``,
+    held against the JAX fleet): with the queue-depth watermark out of
+    reach, blocks in use over blocks total at or above the threshold
+    count toward the backlog streak, so long prompts filling the pool
+    spawn a replica; a threshold the pool never reaches spawns none. The
+    replica log and the live count on every tick equal the JAX fleet's."""
+    pol = dict(min_replicas=1, max_replicas=2, scale_out_queue_depth=999,
+               scale_out_ticks=2, retire_idle_s=60.0,
+               kv_frac_high=kv_frac_high)
+    eng_kw = dict(n_slots=2, block_size=4, prefill_chunk=8, n_blocks=12,
+                  max_len=24)
+    jclock = jscen.VirtualClock(per_call_s=0.001)
+    jfleet = JaxFleet(
+        jax_factory(model[3], model[2], clock=jclock, **eng_kw),
+        str(tmp_path / "jax"), n_replicas=1, journal_sync=False,
+        clock=jclock, autoscale=JaxPolicy(**pol))
+    tfleet = _fleet(model, tmp_path, "port", clock=VirtualClock(0.001),
+                    n_replicas=1, engine_kw=eng_kw,
+                    autoscale=AutoscalePolicy(**pol))
+    try:
+        runs = []
+        for fleet in (jfleet, tfleet):
+            for seed in (1, 2):
+                fleet.submit(_prompt(12, seed), max_new_tokens=4,
+                             seed=seed)
+            seen = [fleet.n_alive]
+            for _ in range(4):
+                fleet.step()
+                seen.append(fleet.n_alive)
+            runs.append((seen, fleet.replica_log))
+        assert runs[1] == runs[0]
+        assert any(e["event"] == "scale-out"
+                   for e in tfleet.replica_log) == scales_out
+    finally:
+        jfleet.close()
+        tfleet.close()
+    for bad in (0.0, 1.5):
+        with pytest.raises(ValueError, match=r"kv_frac_high must be in "
+                                             r"\(0, 1\], got"):
+            AutoscalePolicy(kv_frac_high=bad)
+
+
 def test_fleet_replica_restart_writes_tagged_postmortem(model, tmp_path):
     faults.install(faults.FaultPlan.parse("engine-crash@serve.tick=2"))
     fleet = _fleet(model, tmp_path, "pm", n_replicas=2,

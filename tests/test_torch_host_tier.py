@@ -44,6 +44,12 @@ from simple_distributed_machine_learning_tpu.serve import (
 from simple_distributed_machine_learning_tpu.serve.engine import (
     InferenceEngine as JaxEngine,
 )
+from simple_distributed_machine_learning_tpu.serve.tracing import (
+    ServeTrace as JaxServeTrace,
+)
+from simple_distributed_machine_learning_tpu.telemetry import (
+    attribution as jatt,
+)
 from simple_distributed_machine_learning_tpu_torch.interop import (
     params_from_numpy,
 )
@@ -57,6 +63,7 @@ from simple_distributed_machine_learning_tpu_torch.serve import (
     InferenceEngine,
     PagedKVPool,
     ServeFleet,
+    ServeTrace,
     engine_factory,
 )
 from simple_distributed_machine_learning_tpu_torch.serve.flight import (
@@ -68,6 +75,9 @@ from simple_distributed_machine_learning_tpu_torch.serve.request import (
 )
 from simple_distributed_machine_learning_tpu_torch.serve.slots import (
     kv_block_bytes,
+)
+from simple_distributed_machine_learning_tpu_torch.telemetry import (
+    attribution as tatt,
 )
 
 KW = dict(vocab=32, seq_len=48, d_model=32, n_heads=2, n_layers=2)
@@ -243,6 +253,56 @@ def test_first_writer_wins_over_an_upload_in_flight(model):
     assert pool.blocks_in_use == 0
     assert len(pool._free_blocks) + pool.blocks_cached == pool.n_blocks
     assert h.tokens == _solo(model, p[:4], 6, 3)
+
+
+def _gate_drive(eng):
+    """Demote a prefix to the host tier, start its upload, then queue a
+    request that carries it: the request waits on its own upload (the
+    prefetch gate) until the blocks land, then boards. Returns its
+    tokens."""
+    pool = eng.pool
+    p = _prompt(9, 1)
+    eng.submit(p, max_new_tokens=4, seed=1)
+    eng.drain()
+    eng.submit(_prompt(16, 7), max_new_tokens=8, seed=2)
+    eng.drain()
+    assert pool.prefetch(p) is True
+    # a request in decode makes the ticks of the wait read the clock
+    busy = eng.submit(_prompt(5, 3), max_new_tokens=6, seed=4)
+    h = eng.submit(p, max_new_tokens=4, seed=3)
+    assert pool.prefetch_blocked(h)
+    eng.drain()
+    return [[int(t) for t in r.tokens] for r in (busy, h)]
+
+
+def test_traced_prefetch_gate_rows_and_attribution_equal_jax(model):
+    """A traced engine whose queued request waits on its own in-flight
+    upload writes one ``gate`` row (``ServeTrace.on_gate``: the queue wait
+    ends, the prefetch wait begins), and the attribution fold carries a
+    nonzero ``prefetch`` component; the rows and the attribution block
+    equal the JAX engine's on the same weights and virtual clock."""
+    runs = []
+    for make_eng, make_trace, clock, att in (
+            (JaxEngine, JaxServeTrace, jscen.VirtualClock(0.001), jatt),
+            (InferenceEngine, ServeTrace, tscen.VirtualClock(0.001), tatt)):
+        stages, cfg = ((model[1], model[0]) if make_eng is JaxEngine
+                       else (model[2], CFG))
+        kw = {} if make_eng is JaxEngine else {"device": "cpu"}
+        trace = make_trace()
+        eng = make_eng(stages, cfg, prefetch_ticks=3, clock=clock,
+                       trace=trace, **OFFLOAD_KW, **kw)
+        toks = _gate_drive(eng)
+        rows = trace.rows
+        runs.append((toks, rows, att.attribute(rows)))
+    (jtoks, jrows, jblock), (toks, rows, block) = runs
+    gates = [r for r in rows if r["ev"] == "gate"]
+    assert len(gates) == 1 and gates[0]["rid"] == 3
+    slow = {a["rid"]: a["components_ms"] for a in block["top_slow"]}
+    assert slow[3].get("prefetch", 0) > 0
+    assert toks == jtoks == [_solo(model, _prompt(5, 3), 6, 4),
+                             _solo(model, _prompt(9, 1), 4, 3)]
+    assert rows == jrows
+    assert block == jblock
 
 
 # -- routing-time prefetch ---------------------------------------------------------

@@ -254,6 +254,42 @@ def test_rollback_budget_is_the_ring_size_as_in_the_jax_package(ring):
     assert ours == drive(jsentinel)
 
 
+def test_max_rollbacks_sets_the_budget_apart_from_the_ring_as_in_jax():
+    """``SentinelConfig.max_rollbacks`` is the escalation budget beside
+    the ring: at ``max_rollbacks=1`` and ``ring_size=4`` the second NaN
+    within the window escalates, at the same step as the JAX package's
+    sentinel; the knob is validated with the JAX text."""
+    from simple_distributed_machine_learning_tpu.resilience import (
+        sentinel as jsentinel,
+    )
+
+    def drive(mod):
+        cfg = mod.SentinelConfig(ring_size=4, max_rollbacks=1, window=8)
+        assert cfg.rollback_budget == 1
+        assert mod.SentinelConfig(ring_size=3).rollback_budget == 3
+        sent = mod.Sentinel(cfg)
+        sent.ring.push(mod.Snapshot(step=0, epoch=1, batch_idx=0,
+                                    params=None, opt_leaves=(), ewma=None,
+                                    healthy=0, nbytes=0))
+        for step in range(1, 6):
+            anomaly = sent.observe(step, 1, step, float("nan"))
+            try:
+                sent.rollback(anomaly)
+            except mod.SentinelExhausted as e:
+                return step, sent.n_rollbacks, len(sent.journal), str(e)
+        return None
+
+    ours = drive(sys.modules[Sentinel.__module__])
+    assert ours[:3] == (2, 1, 2)
+    assert "1-rollback budget" in ours[3]
+    assert ours == drive(jsentinel)
+    for mod in (sys.modules[Sentinel.__module__], jsentinel):
+        with pytest.raises(ValueError,
+                           match="sentinel max_rollbacks must be >= 1, "
+                                 "got 0"):
+            mod.SentinelConfig(max_rollbacks=0)
+
+
 def test_observe_ewma_excludes_anomalies():
     s = Sentinel(SentinelConfig(warmup_steps=2, spike_factor=2.0,
                                 spike_margin=0.0))
