@@ -14,9 +14,10 @@ or without the port beside it. Phases, each fatal on failure:
    the build of every kernel from the checkout's sources (one ``nvcc`` per
    source, started together, into the git-ignored ``_build/`` directory),
    with ptxas's registers and spills per kernel (a spill in K4, or in K1
-   at a head dim up to 64, fails), and the count of tensor-core (``HMMA``)
-   instructions in each kernel's SASS (``cuobjdump``): all 12 bf16 K1-K3
-   instantiations must have some, the f32 flash kernels and K4 none;
+   or the f32 K3 at a head dim up to 64, fails), and the count of
+   tensor-core (``HMMA``) instructions in each kernel's SASS
+   (``cuobjdump``): all 12 bf16 K1-K3 and all 8 f32 (split-TF32) K1 and
+   K3 instantiations must have some, the f32 K2, K4 and F1 none;
 2. every kernel against its plain PyTorch version on the card, at the
    serving shapes (H = 8, dh = 64, block 16, 8 slots, positions up to
    255), for every cache dtype and K = 1 and 4, within rtol = atol =
@@ -38,9 +39,10 @@ or without the port beside it. Phases, each fatal on failure:
    then the flash kernels K1 (forward), K2 (dq) and K3 (dk/dv) against
    their plain versions, f32 and bf16, at the training shape (16, 8, 256,
    64), at a ragged T = 200 and at the tiny row's (32, 4, 64, 32), and in
-   bf16 at the edges of the tensor-core K1-K3 (head dims 8, 32, 40 and
-   128, T = 1, 65 and 200), within ``FLASH_TOL``, timed the same way
-   beside their bounds and the library yardstick
+   both dtypes at the edges of the tensor-core kernels (head dims 8, 32,
+   40 and 128, T = 1, 65 and 200), within ``FLASH_TOL``, timed the same way
+   beside their bounds (the f32 rows also beside the bound at the CUDA
+   cores' 67 TFLOP/s) and the library yardstick
    (``scaled_dot_product_attention``, forward and backward; K1 against
    SDPA's forward and K2 + K3 against SDPA's backward, each on one line);
 3. the port's serving path at full width: ``InferenceEngine(attn_kernel=
@@ -403,8 +405,9 @@ or without the port beside it. Phases, each fatal on failure:
    its decode shapes (``DECODE_SHAPES``: B = 1 and 2 sequences of the
    serving model's 8 heads x 256 x 64, f32) against its plain version
    within phase 2's f32 tolerance, timed as phase 2 times it beside its
-   plain version, its bound and SDPA's forward (run right after phase 2,
-   alone on the card); (b) ``make_decoder`` greedy at ``SERVE_CFG`` with
+   plain version, its bound and SDPA's forward, and at one sequence of T =
+   64 and 128 for the time a k tile adds (run right after phase 2, alone
+   on the card); (b) ``make_decoder`` greedy at ``SERVE_CFG`` with
    ``attn_impl="flash"``, f32, B = 2, a 16-token prompt and 32 new tokens
    (``FULL_DECODE``): exactly ``n_layers x n_new`` (128) K1 launches and
    no K2/K3, every decoded position's log-probs within ``DECODE_LOGP_TOL``
@@ -467,10 +470,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PORT = "simple_distributed_machine_learning_tpu_torch"
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s outside the
-# tensor cores (K4's and the f32 flash kernels' products: TF32 is off) and
-# dense bf16 tensor-core FLOP/s
+# tensor cores (K4's and the f32 K2's products), dense TF32 tensor-core
+# FLOP/s (the f32 K1 and K3: three TF32 products per f32 one, split TF32)
+# and dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 # flash kernel shapes [B, H, T, dh]: the gpt_bf16 row (batch 16, 8 heads,
 # seq 256, d 512), the same at a ragged T, and the tiny gpt row's f32
@@ -478,10 +483,11 @@ BF16_FLOPS = 989e12
 FLASH_SHAPE = (16, 8, 256, 64)
 FLASH_RAGGED = (16, 8, 200, 64)
 FLASH_TINY_SHAPE = (32, 4, 64, 32)
-# bf16 edge shapes of the tensor-core K1-K3 at a small B*H: head dims padded
-# to 32 and 128 and one not a multiple of 16 (40), each at T = 1 (one row),
-# 65 (one row past a tile) and 200 (a ragged tail); dh 64 at T = 1, 65; and
-# dh 8 (padded to 16, the smallest instantiation) at T = 65, 200
+# edge shapes of the tensor-core K1-K3 (bf16) and K1, K3 (f32), held in both
+# dtypes at a small B*H: head dims padded to 32 and 128 and one not a
+# multiple of 16 (40), each at T = 1 (one row), 65 (one row past a tile) and
+# 200 (a ragged tail); dh 64 at T = 1, 65; and dh 8 (padded to 16, the
+# smallest instantiation) at T = 65, 200
 FLASH_EDGES = ([(2, 4, t, dh) for dh in (32, 40, 128) for t in (1, 65, 200)]
                + [(2, 4, t, 64) for t in (1, 65)]
                + [(2, 4, t, 8) for t in (65, 200)])
@@ -829,6 +835,9 @@ SERVE_RANKS_WORLD, SERVE_RANKS_TP, SERVE_RANKS_CLI_N = 2, 2, 8
 # decoder_from_pipeline on the gpt_bf16 row after PIPE_DECODE["steps"]
 # AdamW steps
 DECODE_SHAPES = ((1, 8, 256, 64), (2, 8, 256, 64))
+# one sequence at shorter prefixes: K1's longest block walks T / 64 k
+# tiles, so the times over T = 64, 128, 256 give the cost of one k tile
+DECODE_SWEEP_T = (64, 128)
 FULL_DECODE = dict(batch=2, t0=16, n_new=32, seed=22)
 DECODE_LOGP_TOL = 1e-4
 PIPE_DECODE = dict(t0=16, n_new=16, steps=3)
@@ -971,16 +980,14 @@ def ptxas_report(log: str) -> dict[str, dict]:
 
 
 def _no_spill_required(name: str) -> bool:
-    """K4 everywhere, and K1 at head dims up to 64: the bf16 tensor-core
-    K1 padded to 16, 32 or 64, and the f32 SIMT K1's 4-column variant."""
+    """K4 everywhere; K1 (bf16 and f32) and the f32 K3 at head dims padded
+    to 16, 32 or 64."""
     import re
     if "paged_attn_kernel" in name:
         return True
-    m = re.search(r"flash_fwd_kernel(_bf16_mma)?(?:<(?:\(int\))?|ILi)(\d+)",
-                  name)
-    if not m:
-        return False
-    return int(m.group(2)) <= 64 if m.group(1) else int(m.group(2)) == 4
+    m = re.search(r"flash_(?:fwd_kernel_(?:bf16_mma|tf32)|dkv_kernel_tf32)"
+                  r"(?:<(?:\(int\))?|ILi)(\d+)", name)
+    return bool(m) and int(m.group(1)) <= 64
 
 
 def sass_hmma_counts(lib_path) -> dict[str, int]:
@@ -1039,14 +1046,15 @@ def phase_build(record: dict) -> None:
               f"spill {r.get('spill_stores', -1)}/{r.get('spill_loads', -1)}"
               f" bytes  {name}")
     held = [n for n in ptxas if _no_spill_required(n)]
-    # a fresh build reports the 4 K1 variants at dh <= 64 (f32, bf16 16 /
-    # 32 / 64) and K4's 18 (5 storage types x K up to 1, 4, 8, and f32 at
-    # dh > 128)
-    check(not ptxas or len(held) == 4 + 18,
-          f"ptxas reported {len(held)} K1/K4 kernels, not 22: {held}")
+    # a fresh build reports the 9 K1/K3 variants at dh <= 64 (bf16 K1, f32
+    # K1 and f32 K3, each 16 / 32 / 64) and K4's 18 (5 storage types x K
+    # up to 1, 4, 8, and f32 at dh > 128)
+    check(not ptxas or len(held) == 9 + 18,
+          f"ptxas reported {len(held)} K1/K3/K4 kernels, not 27: {held}")
     spills = [n for n in held if ptxas[n].get("spill_stores", 0)
               or ptxas[n].get("spill_loads", 0)]
-    check(not spills, f"K4 or K1 at dh <= 64 spills registers: {spills}")
+    check(not spills, f"K4, K1 or the f32 K3 at dh <= 64 spills registers: "
+                      f"{spills}")
     record["ptxas"] = ptxas
     print(f"chip_smoke: kernels built in {record['build_s']} s")
     hmma = sass_hmma_counts(builds[1].path)
@@ -1054,14 +1062,19 @@ def phase_build(record: dict) -> None:
     k4_hmma.update(sass_hmma_counts(builds[2].path))      # and F1
     for name, n in sorted({**hmma, **k4_hmma}.items()):
         print(f"chip_smoke:   SASS HMMA {n:5d}  {name}")
-    mma = {n: c for n, c in hmma.items() if "_bf16_mma" in n}
-    # the bf16 K1, K2 and K3, each at head dims padded to 16, 32, 64, 128
-    check(len(mma) == 12 and all(c > 0 for c in mma.values()),
-          f"the bf16 K1-K3 kernels are not all on the tensor cores: {mma}")
+
+    def tensor_core(name):
+        return "_bf16_mma" in name or "_tf32" in name
+
+    mma = {n: c for n, c in hmma.items() if tensor_core(n)}
+    # the bf16 K1, K2 and K3 and the f32 K1 and K3 (HMMA.1688.F32.TF32),
+    # each at head dims padded to 16, 32, 64, 128
+    check(len(mma) == 20 and all(c > 0 for c in mma.values()),
+          f"the bf16 K1-K3 and f32 K1, K3 kernels are not all on the tensor "
+          f"cores: {mma}")
     simt = {n: c for n, c in {**hmma, **k4_hmma}.items()
-            if "_bf16_mma" not in n and c}
-    check(not simt, f"the f32 flash kernels, K4 or F1 use tensor cores: "
-                    f"{simt}")
+            if not tensor_core(n) and c}
+    check(not simt, f"the f32 K2, K4 or F1 use tensor cores: {simt}")
     record["sass_hmma"] = {**hmma, **k4_hmma}
 
 
@@ -1304,14 +1317,12 @@ def phase_kernels(record: dict) -> dict:
     return variants + edges + multi + spec_timed
 
 
-def _flash_bound(name: str, shape, dtype) -> tuple[float, str]:
-    """Least time for one flash kernel's work at ``shape`` [B, H, T, dh]:
-    the larger of (bytes: each [B, H, T, dh] operand read once, each output
-    written once, f32 row statistics) / HBM rate and (the causal products'
-    operations: 2 per multiply-add over the T(T+1)/2 live pairs per head;
-    K1 does q.k and p.v, K2 adds do.v and ds.k, K3 q.k, do.v, p.do and
-    ds.q) / the peak rate of the input type (bf16 tensor cores; f32 outside
-    them, since TF32 is off)."""
+def _flash_work(name: str, shape, dtype) -> tuple[int, int]:
+    """(bytes, FLOP) of one flash kernel's work at ``shape`` [B, H, T, dh]:
+    each [B, H, T, dh] operand read once, each output written once, f32
+    row statistics; the causal products' operations, 2 per multiply-add
+    over the T(T+1)/2 live pairs per head (K1 does q.k and p.v, K2 adds
+    do.v and ds.k, K3 q.k, do.v, p.do and ds.q)."""
     B, H, T, dh = shape
     e = 2 if dtype == "bfloat16" else 4
     slab, rows = B * H * T * dh * e, B * H * T * 4
@@ -1320,11 +1331,32 @@ def _flash_bound(name: str, shape, dtype) -> tuple[float, str]:
         "flash_dq": (4 * slab + 3 * rows + slab, 3),
         "flash_dkv": (4 * slab + 3 * rows + 2 * slab, 4),
     }[name]
-    flops = products * 2 * B * H * (T * (T + 1) // 2) * dh
+    return nbytes, products * 2 * B * H * (T * (T + 1) // 2) * dh
+
+
+def _flash_bound(name: str, shape, dtype) -> tuple[float, str]:
+    """Least time for one flash kernel's work at ``shape`` (``_flash_work``):
+    the larger of its bytes / HBM rate and its operations / the rate of
+    the units that do them: the bf16 tensor cores; for f32 the TF32 tensor
+    cores at three TF32 products per f32 one (K1, K3: split TF32), or the
+    CUDA cores (K2)."""
+    nbytes, flops = _flash_work(name, shape, dtype)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / (BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS)
+    if dtype == "bfloat16":
+        t_ops = flops / BF16_FLOPS
+    elif name == "flash_dq":
+        t_ops = flops / F32_FLOPS
+    else:
+        t_ops = 3 * flops / TF32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def _flash_simt_bound(name: str, shape) -> float:
+    """The f32 bound as it stood while every f32 kernel ran on the CUDA
+    cores: bytes / HBM rate against FLOP / 67 TFLOP/s, in ms."""
+    nbytes, flops = _flash_work(name, shape, "float32")
+    return max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
 
 
 def _flash_inputs(shape, dtype, gen, dev):
@@ -1346,8 +1378,10 @@ def _flash_err(out, ref, rtol: float, atol: float) -> tuple[float, bool]:
 def phase_flash_kernels(record: dict) -> list[dict]:
     """K1, K2 and K3 against their plain versions on the card, for f32 and
     bf16, at the full-width training shape and at a ragged T = 200 (the
-    masked tail live), plus the tiny ``gpt`` row's f32 shape and the bf16
-    edge shapes ``FLASH_EDGES`` of the tensor-core K1-K3. K2 and K3 are
+    masked tail live), plus the tiny ``gpt`` row's f32 shape and the edge
+    shapes ``FLASH_EDGES`` of the tensor-core kernels, in both dtypes. The
+    f32 rows timed also print the bound at the CUDA cores' 67 TFLOP/s
+    beside the split-TF32 one. K2 and K3 are
     fed the plain forward's statistics, so each is held alone. Each kernel
     is timed (as phase 2 times K4) at the shape its bench row gives it,
     beside its plain version, its bound and the library yardstick:
@@ -1365,7 +1399,8 @@ def phase_flash_kernels(record: dict) -> list[dict]:
     cases = [("bfloat16", FLASH_SHAPE), ("bfloat16", FLASH_RAGGED),
              ("float32", FLASH_SHAPE), ("float32", FLASH_RAGGED),
              ("float32", FLASH_TINY_SHAPE)]
-    cases += [("bfloat16", shape) for shape in FLASH_EDGES]
+    cases += [(dtype, shape) for dtype in ("bfloat16", "float32")
+              for shape in FLASH_EDGES]
     timed = {("bfloat16", FLASH_SHAPE), ("float32", FLASH_TINY_SHAPE)}
     out = []
     for dtype, shape in cases:
@@ -1425,6 +1460,10 @@ def phase_flash_kernels(record: dict) -> list[dict]:
                          f"{v_['plain_ms']:.4f} ms, bound "
                          f"{v_['bound_ms']:.4f} ms ({v_['bound_by']}), "
                          f"library {v_['library_ms']:.4f} ms")
+                if dtype == "float32":
+                    v_["simt_bound_ms"] = _flash_simt_bound(name, shape)
+                    line += (f" (bound at 67 TFLOP/s f32: "
+                             f"{v_['simt_bound_ms']:.4f} ms)")
             print(line)
             check(ok, f"{name} {dtype} {tuple(shape)} disagrees with its "
                       f"plain version: {errs}")
@@ -7814,7 +7853,9 @@ def phase_serve_ranks(record: dict, serve: dict, plain_handles: list) -> int:
 
 def phase_decode_kernel(record: dict) -> list[dict]:
     """22 (a): K1 at the full-prefix decoder's shapes, f32, against its
-    plain version (phase 2's f32 tolerance), timed as phase 2 times it."""
+    plain version (phase 2's f32 tolerance), timed as phase 2 times it;
+    then at one sequence of T = 64 and 128 (``DECODE_SWEEP_T``), for the
+    time one k tile adds to the longest block."""
     import torch
     import torch.nn.functional as F
     from simple_distributed_machine_learning_tpu_torch.ops import (
@@ -7844,13 +7885,26 @@ def phase_decode_kernel(record: dict) -> list[dict]:
                        q, k, v, is_causal=True), flush))
         row["bound_ms"], row["bound_by"] = _flash_bound("flash_forward",
                                                         shape, "float32")
+        row["simt_bound_ms"] = _flash_simt_bound("flash_forward", shape)
         print(f"chip_smoke: 22 (a) K1 f32 {shape}: vs plain max abs "
               + ", ".join(f"{p} {e:.3e}" for p, e in errs.items())
               + f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
               f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
-              f"library {row['library_ms']:.4f} ms")
+              f"library {row['library_ms']:.4f} ms (bound at 67 TFLOP/s "
+              f"f32: {row['simt_bound_ms']:.4f} ms); "
+              f"{row['library_ms'] / row['ms']:.2f}x SDPA's speed")
         out.append(row)
+    sweep = {}
+    for t in DECODE_SWEEP_T:
+        q, k, v, _ = _flash_inputs((1, 8, t, 64), "float32", gen, dev)
+        sweep[t] = time_ms(lambda: fa.flash_forward(q, k, v), flush)
+    sweep[256] = out[0]["ms"]
+    per_tile = (sweep[256] - sweep[64]) / 3
+    print("chip_smoke: 22 (a) K1 f32 (1, 8, T, 64): "
+          + ", ".join(f"T {t} {ms:.4f} ms" for t, ms in sorted(sweep.items()))
+          + f"; {per_tile:.4f} ms per k tile of the longest block")
     record["decode_kernel"] = out
+    record["decode_kernel_sweep"] = dict(ms=sweep, per_k_tile_ms=per_tile)
     return out
 
 

@@ -2,8 +2,9 @@
 // backward passes, dq (K2) and dk/dv (K3), of the training path.
 //
 // Replaces simple_distributed_machine_learning_tpu/ops/flash_attention.py::
-//   _flash_kernel (K1), _dq_kernel (K2) and _dkv_kernel (K3),
-// the Pallas TPU kernels behind its jax.custom_vjp flash_attention.
+//   _flash_kernel (K1, :127), _dq_kernel (K2, :300) and _dkv_kernel (K3,
+//   :338), the Pallas TPU kernels behind its jax.custom_vjp
+//   flash_attention, each in two instantiations: bf16 and f32.
 //
 // What each computes, per (batch*head, 64-row tile), all in f32 from inputs
 // in the input dtype E (float or bf16), scale = 1/sqrt(dh):
@@ -30,22 +31,28 @@
 // sized for shared memory, and another blocking changes only the order of
 // f32 sums (and, in bf16, which running max p is rounded against in K1).
 //
-// What bounds it: at the training shapes (B 16, H 8, T 256, dh 64, bf16)
+// What bounds it. bf16, at the training shapes (B 16, H 8, T 256, dh 64):
 // each kernel does ~1-2 GFLOP of causal products against ~17-26 MB of
 // q/k/v/o/do traffic, so all three are bound by bytes (K1 17.0 MB, K2 21.4
 // MB, K3 25.6 MB: ~5-8 us at 3.35 TB/s, against 1.1-2.2 us of products at
-// the 989 TFLOP/s bf16 tensor-core rate). Each q (or k/v) tile is read from
-// device memory once per block and reused across the whole loop, and causal
-// tiles past the diagonal are neither loaded nor computed.
+// the 989 TFLOP/s bf16 tensor-core rate). f32 K1 and K3 do three TF32
+// products per f32 one (split TF32, below): at the full-prefix decoder's
+// K1 ([1|2, 8, 256, 64]) and the tiny training row's K1/K3 ([32, 4, 64,
+// 32]) bytes bound them too (0.6-1.9 us), but those grids are 32-128
+// blocks, so what bounds them in practice is the serial chain of the
+// longest block: per k (or q) tile, the split-TF32 products, the online
+// softmax of 16 rows a warp, the copies and a barrier (chip_smoke.py phase
+// 22 (a) times K1 f32 at T = 64, 128 and 256 for the cost of one k tile).
+// Each q (or k/v) tile is read from device
+// memory once per block and reused across the whole loop, and causal tiles
+// past the diagonal are neither loaded nor computed.
 //
-// Two implementations:
-// - SIMT, for f32 (K1, K2, K3): products on the CUDA cores in f32 from f32
-//   shared-memory tiles (each thread a 4 x 4 score sub-tile and a 4 x (dh/16)
-//   output sub-tile), scores in shared memory, a barrier between load,
-//   scores, softmax and accumulate. Bound in practice by issuing FMAs and
-//   the shared loads feeding them (8 loads per 16 FMAs), ~20x the byte
-//   bound. f32 stays here: TF32 tensor cores would keep ~10 bits and break
-//   the 1e-5 parity of f32 o and the 1e-4 parity of the f32 gradients.
+// Three implementations:
+// - SIMT, for the f32 K2: products on the CUDA cores in f32 from f32
+//   shared-memory tiles (each thread a 4 x 4 score sub-tile and a 4 x
+//   (dh/16) output sub-tile), scores in shared memory, a barrier between
+//   load, scores and accumulate. Bound in practice by issuing FMAs and the
+//   shared loads feeding them (8 loads per 16 FMAs), ~10x the byte bound.
 // - Tensor cores, for bf16 (K1, K2, K3: flash_*_kernel_bf16_mma): every
 //   product is mma.sync m16n8k16, bf16 x bf16 summed in f32 — the same
 //   casts as the TPU kernels' preferred_element_type=f32 dots, only the
@@ -73,6 +80,27 @@
 //   m and l are saved in the natural units of the scaled scores, which K2
 //   and K3 read back. A row wholly masked in a sub-block keeps m (the max
 //   with NEG_INF) and gets p = 0 from the mask, never from exp(0) = 1.
+// - Tensor cores in split TF32, for the f32 K1 and K3
+//   (flash_{fwd,dkv}_kernel_tf32): single-pass TF32 keeps ~10 bits and
+//   would break the 1e-5 parity of f32 o and the 1e-4 parity of the f32
+//   gradients; each operand split as hi + lo (mma_tf32.cuh), a product is
+//   three mma.sync m16n8k8 (lo.hi + hi.lo, then hi.hi) summed in f32, close
+//   to f32 accuracy. The bf16 kernels' structure (the same fragments of S,
+//   S^T, dP^T, the same softmax, masks and sub-block skips) with f32 tiles
+//   in shared memory (rows padded to DP + 4 floats, conflict-free for the
+//   32-bit fragment loads) and p, ds kept in f32. The accumulator's columns
+//   (2t, 2t + 1) are read as the next product's A columns (t, t + 4) by
+//   relabelling the contraction, and v (K1) or do and q (K3) are loaded in
+//   that order, so p and ds still never leave the registers. The streamed
+//   tiles are split as their fragments are loaded; q_w (K1, dh <= 64) and
+//   k_w, v_w (K3, dh <= 32) are split once and held. Against the chain
+//   above, each block runs 8 warps: two groups of 4, each warp 16 rows,
+//   group g taking the columns [32 g, 32 g + 32) of every tile of the
+//   other side, so two warps share each scheduler and each walks half the
+//   products; at the end group 1's online-softmax state (m, l, acc) merges
+//   into group 0's (K1) or its dk, dv sums are added (K3) through the idle
+//   stage buffers. Shared memory: K1 q + 2 x (k, v), 87 KB at dh 64, 169
+//   KB at 128; K3 k, v + 2 x (q, do, rows), 106 KB / 204 KB.
 // The next steps are wgmma and TMA.
 
 #include <cuda_runtime.h>
@@ -80,6 +108,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -90,16 +119,6 @@ constexpr int kRows = kTile / 16;          // tile rows per thread: ty + 16 i
 constexpr int kCols = kTile / 16;          // score columns per thread: tx + 16 j
 constexpr int kLdS = kTile + 1;            // padded row stride of a score tile
 constexpr int kMaxHeadDim = 128;
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // rows [r0, r0 + 64) of a contiguous [T, dh] f32 slab into shared memory
 // with row stride ld = dh + 1 (the pad keeps column reads conflict-free);
@@ -135,8 +154,9 @@ struct Args {
   void* dv;
   int T, dh;
   float scale;
-  int vec;             // dh % 8 == 0 and q/k/v/dout 16-byte aligned: rows
-                       // copy as 16-byte cp.async chunks (bf16 kernels)
+  int vec;             // dh a multiple of 16 bytes and q/k/v/dout 16-byte
+                       // aligned: rows copy as 16-byte cp.async chunks
+                       // (tensor-core kernels)
 };
 
 // s[i][j] = sum_d a[row_i][d] * b[col_j][d] over two [64, ld] tiles
@@ -161,136 +181,9 @@ __device__ __forceinline__ void tile_dots(float (&s)[kRows][kCols], const float*
   }
 }
 
-// ---- K1: forward (SIMT, f32) ---------------------------------------------------
-
-template <int JD>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
-  const int bh = blockIdx.x;
-  const int n_tiles = gridDim.y;
-  const int qt = n_tiles - 1 - blockIdx.y;      // the longest rows start first
-  const int T = a.T, dh = a.dh, ld = dh + 1;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int warp = tid >> 5, lane = tid & 31;
-  const long long base = static_cast<long long>(bh) * T * dh;
-  const float* q = static_cast<const float*>(a.q) + base;
-  const float* k = static_cast<const float*>(a.k) + base;
-  const float* v = static_cast<const float*>(a.v) + base;
-
-  extern __shared__ float smem[];
-  float* q_s = smem;                    // [64, ld]
-  float* k_s = q_s + kTile * ld;        // [64, ld]
-  float* v_s = k_s + kTile * ld;        // [64, ld]
-  float* p_s = v_s + kTile * ld;        // [64, kLdS] scores, then p
-  float* c_s = p_s + kTile * kLdS;      // [64] this tile's rescale factor
-  float* m_s = c_s + kTile;             // [64] running row max
-  float* l_s = m_s + kTile;             // [64] running row sum
-
-  const int q0 = qt * kTile;
-  load_tile(q_s, q, q0, T, dh);
-  for (int r = tid; r < kTile; r += kThreads) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
-  }
-  int dcol[JD];                          // this thread's head-dim columns,
-#pragma unroll                           // clamped in range (the clamped
-  for (int j = 0; j < JD; ++j) {         // duplicates are never stored)
-    dcol[j] = min(tx + 16 * j, dh - 1);
-  }
-  float acc[kRows][JD];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < JD; ++j) acc[i][j] = 0.f;
-
-  const int n_kt = (T + kTile - 1) / kTile;
-  const int last = min(n_kt - 1, (q0 + kTile - 1) / kTile);
-  for (int kt = 0; kt <= last; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();                     // the previous tile's readers are done
-    load_tile(k_s, k, k0, T, dh);
-    load_tile(v_s, v, k0, T, dh);
-    __syncthreads();
-
-    float s[kRows][kCols];
-    tile_dots(s, q_s, k_s, dh, ty, tx);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        const int qp = q0 + r, kp = k0 + c;
-        const bool live = qp >= kp && kp < T;
-        p_s[r * kLdS + c] = live ? s[i][j] * a.scale : kNegInf;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: one warp per row, two columns per lane
-    for (int r = warp; r < kTile; r += kThreads / 32) {
-      float* row = p_s + r * kLdS;
-      const int qp = q0 + r;
-      const float x0 = row[lane], x1 = row[lane + 32];
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(x0, x1)));
-      const int kp0 = k0 + lane, kp1 = kp0 + 32;
-      const float p0 = (qp >= kp0 && kp0 < T) ? expf(x0 - m_new) : 0.f;
-      const float p1 = (qp >= kp1 && kp1 < T) ? expf(x1 - m_new) : 0.f;
-      const float sum = warp_sum(p0 + p1);
-      row[lane] = p0;
-      row[lane + 32] = p1;
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        c_s[r] = corr;
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const float corr = c_s[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < JD; ++j) acc[i][j] *= corr;
-    }
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float pv[kRows], vv[JD];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = p_s[(ty + 16 * i) * kLdS + c];
-#pragma unroll
-      for (int j = 0; j < JD; ++j) vv[j] = v_s[c * ld + dcol[j]];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < JD; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
-  }
-  __syncthreads();
-
-  float* o = static_cast<float*>(a.o) + base;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = ty + 16 * i, qp = q0 + r;
-    if (qp >= T) continue;
-    const float den = fmaxf(l_s[r], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < JD; ++j) {
-      const int d = tx + 16 * j;
-      if (d < dh) o[static_cast<long long>(qp) * dh + d] = acc[i][j] / den;
-    }
-  }
-  for (int r = tid; r < kTile; r += kThreads) {
-    if (q0 + r < T) {
-      a.l[static_cast<long long>(bh) * T + q0 + r] = l_s[r];
-      a.m[static_cast<long long>(bh) * T + q0 + r] = m_s[r];
-    }
-  }
-}
-
-// SIMT K2/K3: p and ds of one (q tile, k tile) pair from the saved
-// statistics, for this thread's 4 x 4 entries (q rows ty + 16 i, k columns tx + 16 j); s and dp
-// are the raw q.k^T and do.v^T dots
+// SIMT K2: p and ds of one (q tile, k tile) pair from the saved
+// statistics, for this thread's 4 x 4 entries (q rows ty + 16 i, k columns
+// tx + 16 j); s and dp are the raw q.k^T and do.v^T dots
 __device__ __forceinline__ void recompute_p_ds(float (&s)[kRows][kCols],
                                                float (&dp)[kRows][kCols],
                                                const float* m_r, const float* li_r,
@@ -398,114 +291,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
   }
 }
 
-// ---- K3: dk, dv (SIMT, f32) ------------------------------------------------------
-
-template <int JD>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
-  const int bh = blockIdx.x;
-  const int kt = blockIdx.y;                    // the longest columns start first
-  const int T = a.T, dh = a.dh, ld = dh + 1;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const long long base = static_cast<long long>(bh) * T * dh;
-  const long long rbase = static_cast<long long>(bh) * T;
-  const float* q = static_cast<const float*>(a.q) + base;
-  const float* k = static_cast<const float*>(a.k) + base;
-  const float* v = static_cast<const float*>(a.v) + base;
-  const float* dout = static_cast<const float*>(a.dout) + base;
-
-  extern __shared__ float smem[];
-  float* k_s = smem;                    // [64, ld]
-  float* v_s = k_s + kTile * ld;        // [64, ld]
-  float* q_s = v_s + kTile * ld;        // [64, ld]
-  float* do_s = q_s + kTile * ld;       // [64, ld]
-  float* p_s = do_s + kTile * ld;       // [64 q, kLdS] round_E(p)
-  float* ds_s = p_s + kTile * kLdS;     // [64 q, kLdS] round_E(ds * scale)
-  float* m_r = ds_s + kTile * kLdS;     // [64]
-  float* li_r = m_r + kTile;
-  float* dl_r = li_r + kTile;
-
-  const int k0 = kt * kTile;
-  load_tile(k_s, k, k0, T, dh);
-  load_tile(v_s, v, k0, T, dh);
-  int dcol[JD];
-#pragma unroll
-  for (int j = 0; j < JD; ++j) dcol[j] = min(tx + 16 * j, dh - 1);
-  // this thread's dk/dv rows are k rows ty + 16 i, columns dcol[j]
-  float acc_k[kRows][JD], acc_v[kRows][JD];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < JD; ++j) {
-      acc_k[i][j] = 0.f;
-      acc_v[i][j] = 0.f;
-    }
-
-  const int n_qt = (T + kTile - 1) / kTile;
-  for (int qt = k0 / kTile; qt < n_qt; ++qt) {   // from the diagonal on
-    const int q0 = qt * kTile;
-    __syncthreads();
-    load_tile(q_s, q, q0, T, dh);
-    load_tile(do_s, dout, q0, T, dh);
-    load_rows(m_r, a.m + rbase, q0, T);
-    load_rows(li_r, a.linv + rbase, q0, T);
-    load_rows(dl_r, a.delta + rbase, q0, T);
-    __syncthreads();
-
-    float s[kRows][kCols], dp[kRows][kCols];    // [q row ty + 16 i, k col tx + 16 j]
-    tile_dots(s, q_s, k_s, dh, ty, tx);
-    tile_dots(dp, do_s, v_s, dh, ty, tx);
-    recompute_p_ds(s, dp, m_r, li_r, dl_r, q0, k0, T, a.scale, ty, tx);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int at = (ty + 16 * i) * kLdS + tx + 16 * j;
-        p_s[at] = s[i][j];
-        ds_s[at] = dp[i][j] * a.scale;
-      }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int r = 0; r < kTile; ++r) {
-      float pv[kRows], dsv[kRows], dov[JD], qv[JD];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        pv[i] = p_s[r * kLdS + ty + 16 * i];
-        dsv[i] = ds_s[r * kLdS + ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < JD; ++j) {
-        dov[j] = do_s[r * ld + dcol[j]];
-        qv[j] = q_s[r * ld + dcol[j]];
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < JD; ++j) {
-          acc_v[i][j] = fmaf(pv[i], dov[j], acc_v[i][j]);
-          acc_k[i][j] = fmaf(dsv[i], qv[j], acc_k[i][j]);
-        }
-    }
-  }
-
-  float* dk = static_cast<float*>(a.dk) + base;
-  float* dv = static_cast<float*>(a.dv) + base;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int kp = k0 + ty + 16 * i;
-    if (kp >= T) continue;
-#pragma unroll
-    for (int j = 0; j < JD; ++j) {
-      const int d = tx + 16 * j;
-      if (d < dh) {
-        dk[static_cast<long long>(kp) * dh + d] = acc_k[i][j];
-        dv[static_cast<long long>(kp) * dh + d] = acc_v[i][j];
-      }
-    }
-  }
-}
-
-// ---- K2, K3 in bf16: tensor cores ----------------------------------------------
+// ---- K1-K3 in bf16: tensor cores -----------------------------------------------
 
 constexpr int kMmaWarps = 4;                    // each warp owns 16 of the 64 rows
 constexpr int kMmaThreads = 32 * kMmaWarps;
@@ -525,24 +311,25 @@ struct MmaShape {
   static constexpr int TILE = kTile * LD;       // bf16 per [64, LD] tile
 };
 
-// rows [r0, r0 + 64) of a contiguous [T, dh] bf16 slab into a [64, LD]
-// shared tile: 16-byte cp.async chunks where the slab allows (vec), else
-// element copies; rows at or past T and columns at or past dh are zero
-template <int DP>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src, int r0,
-                                               int T, int dh, bool vec) {
-  constexpr int LD = MmaShape<DP>::LD, CH = DP / 8;
-  for (int i = threadIdx.x; i < kTile * CH; i += kMmaThreads) {
-    const int r = i / CH, c = (i - r * CH) * 8;
+// rows [r0, r0 + 64) of a contiguous [T, dh] slab of E (bf16 or f32) into
+// a [64, DP + W] shared tile, W = the E in 16 bytes (one chunk of row pad:
+// MmaShape / Tf32Shape's LD), by a block of NT threads: 16-byte cp.async
+// chunks where the slab allows (vec), else element copies; rows at or past
+// T and columns at or past dh are zero
+template <int DP, int NT, typename E>
+__device__ __forceinline__ void load_tile_async(E* dst, const E* src, int r0, int T, int dh,
+                                                bool vec) {
+  constexpr int W = 16 / sizeof(E), LD = DP + W, CH = DP / W;
+  for (int i = threadIdx.x; i < kTile * CH; i += NT) {
+    const int r = i / CH, c = (i - r * CH) * W;
     const int row = r0 + r;
-    __nv_bfloat16* d = dst + r * LD + c;
+    E* d = dst + r * LD + c;
     if (row < T && c < dh) {
-      const __nv_bfloat16* s = src + static_cast<long long>(row) * dh + c;
+      const E* s = src + static_cast<long long>(row) * dh + c;
       if (vec) {
-        sdml_mma::cp_async16(d, s);             // vec: dh % 8 == 0, so c + 8 <= dh
+        sdml_mma::cp_async16(d, s);             // vec: dh % W == 0, so c + W <= dh
       } else {
-        for (int j = 0; j < 8; ++j) d[j] = c + j < dh ? s[j] : __float2bfloat16(0.f);
+        for (int j = 0; j < W; ++j) d[j] = c + j < dh ? s[j] : E(0.f);
       }
     } else {
       *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
@@ -550,10 +337,12 @@ __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
   }
 }
 
-// per-row f32 statistics [r0, r0 + 64) by 4-byte cp.async (0 past T)
+// per-row f32 statistics [r0, r0 + 64) by 4-byte cp.async (0 past T), by a
+// block of NT threads
+template <int NT = kMmaThreads>
 __device__ __forceinline__ void load_rows_async(float* dst, const float* src, int r0,
                                                 int T) {
-  for (int r = threadIdx.x; r < kTile; r += kMmaThreads) {
+  for (int r = threadIdx.x; r < kTile; r += NT) {
     if (r0 + r < T) {
       sdml_mma::cp_async4(dst + r, src + r0 + r);
     } else {
@@ -630,9 +419,9 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_kernel_bf16_mma(Args a)
   const int q0 = qt * kTile;
   const int n_kt = (T + kTile - 1) / kTile;
   const int last = min(n_kt - 1, qt);
-  load_tile_bf16<DP>(q_s, q, q0, T, dh, vec);
-  load_tile_bf16<DP>(kv_s, k, 0, T, dh, vec);
-  load_tile_bf16<DP>(kv_s + S::TILE, v, 0, T, dh, vec);
+  load_tile_async<DP, kMmaThreads>(q_s, q, q0, T, dh, vec);
+  load_tile_async<DP, kMmaThreads>(kv_s, k, 0, T, dh, vec);
+  load_tile_async<DP, kMmaThreads>(kv_s + S::TILE, v, 0, T, dh, vec);
   cp_async_commit();
 
   const int wr = warp * 16;
@@ -655,8 +444,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_kernel_bf16_mma(Args a)
   for (int kt = 0; kt <= last; ++kt) {
     if (kt < last) {                             // the next k, v tile, in flight
       bf16* nxt = kv_s + ((kt + 1) & 1) * 2 * S::TILE;
-      load_tile_bf16<DP>(nxt, k, (kt + 1) * kTile, T, dh, vec);
-      load_tile_bf16<DP>(nxt + S::TILE, v, (kt + 1) * kTile, T, dh, vec);
+      load_tile_async<DP, kMmaThreads>(nxt, k, (kt + 1) * kTile, T, dh, vec);
+      load_tile_async<DP, kMmaThreads>(nxt + S::TILE, v, (kt + 1) * kTile, T, dh, vec);
     }
     cp_async_commit();
     cp_async_wait<1>();                          // this tile's copies have landed
@@ -797,10 +586,10 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dq_kernel_bf16_mma(Args a) 
   const int q0 = qt * kTile;
   const int n_kt = (T + kTile - 1) / kTile;
   const int last = min(n_kt - 1, qt);
-  load_tile_bf16<DP>(q_s, q, q0, T, dh, vec);
-  load_tile_bf16<DP>(do_s, dout, q0, T, dh, vec);
-  load_tile_bf16<DP>(kv_s, k, 0, T, dh, vec);
-  load_tile_bf16<DP>(kv_s + S::TILE, v, 0, T, dh, vec);
+  load_tile_async<DP, kMmaThreads>(q_s, q, q0, T, dh, vec);
+  load_tile_async<DP, kMmaThreads>(do_s, dout, q0, T, dh, vec);
+  load_tile_async<DP, kMmaThreads>(kv_s, k, 0, T, dh, vec);
+  load_tile_async<DP, kMmaThreads>(kv_s + S::TILE, v, 0, T, dh, vec);
   cp_async_commit();
 
   // this lane's two rows g and g + 8 of the warp's 16, and their statistics
@@ -832,8 +621,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dq_kernel_bf16_mma(Args a) 
   for (int kt = 0; kt <= last; ++kt) {
     if (kt < last) {                             // the next k, v tile, in flight
       bf16* nxt = kv_s + ((kt + 1) & 1) * 2 * S::TILE;
-      load_tile_bf16<DP>(nxt, k, (kt + 1) * kTile, T, dh, vec);
-      load_tile_bf16<DP>(nxt + S::TILE, v, (kt + 1) * kTile, T, dh, vec);
+      load_tile_async<DP, kMmaThreads>(nxt, k, (kt + 1) * kTile, T, dh, vec);
+      load_tile_async<DP, kMmaThreads>(nxt + S::TILE, v, (kt + 1) * kTile, T, dh, vec);
     }
     cp_async_commit();
     cp_async_wait<1>();                          // this tile's copies have landed
@@ -940,8 +729,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dkv_kernel_bf16_mma(Args a)
     bf16* dst = qd_s + 2 * stage * S::TILE;
     float* rows = st_s + 3 * kTile * stage;
     const int q0 = qt * kTile;
-    load_tile_bf16<DP>(dst, q, q0, T, dh, vec);
-    load_tile_bf16<DP>(dst + S::TILE, dout, q0, T, dh, vec);
+    load_tile_async<DP, kMmaThreads>(dst, q, q0, T, dh, vec);
+    load_tile_async<DP, kMmaThreads>(dst + S::TILE, dout, q0, T, dh, vec);
     load_rows_async(rows, a.m + rbase, q0, T);
     load_rows_async(rows + kTile, a.linv + rbase, q0, T);
     load_rows_async(rows + 2 * kTile, a.delta + rbase, q0, T);
@@ -949,8 +738,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dkv_kernel_bf16_mma(Args a)
 
   const int k0 = kt * kTile;
   const int n_qt = (T + kTile - 1) / kTile;
-  load_tile_bf16<DP>(k_s, k, k0, T, dh, vec);
-  load_tile_bf16<DP>(v_s, v, k0, T, dh, vec);
+  load_tile_async<DP, kMmaThreads>(k_s, k, k0, T, dh, vec);
+  load_tile_async<DP, kMmaThreads>(v_s, v, k0, T, dh, vec);
   load_stage(0, kt);                             // from the diagonal on
   cp_async_commit();
   cp_async_wait<0>();
@@ -1069,19 +858,480 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dkv_kernel_bf16_mma(Args a)
   }
 }
 
+// ---- K1, K3 in f32: split TF32 on the tensor cores ---------------------------------
+
+// 8 warps a block: two groups of 4, each warp owning 16 of the 64 rows (as
+// in the bf16 kernels), group g taking the 32 columns [32 g, 32 g + 32) of
+// every tile of the other side (keys in K1, queries in K3); the groups'
+// partial results merge through shared memory at the end
+constexpr int kTf32Warps = 8;
+constexpr int kTf32Threads = 32 * kTf32Warps;
+constexpr int kGroupCols = kTile / 2;
+
+// Shapes of the split-TF32 kernels for a head dim padded to DP (a multiple
+// of 16). The row stride LD = DP + 4 floats keeps every fragment load free
+// of bank conflicts (mma_tf32.cuh).
+template <int DP>
+struct Tf32Shape {
+  static constexpr int LD = DP + 4;
+  static constexpr int KS = DP / 8;             // k8 slices along dh
+  static constexpr int ND = DP / 8;             // n8 tiles along dh
+  static constexpr int SUB = DP > 64 ? 16 : 32; // keys (K1) / queries (K3) per step
+  static constexpr int NS = SUB / 8;            // n8 tiles (and k8 slices) of a sub-block
+  static constexpr int TILE = kTile * LD;       // floats per [64, LD] tile
+};
+
+static_assert(MmaShape<16>::LD - 16 == 16 / sizeof(__nv_bfloat16) &&
+                  Tf32Shape<16>::LD - 16 == 16 / sizeof(float),
+              "load_tile_async pads each shared row by one 16-byte chunk");
+
+// two adjacent output columns (col even) of a [T, dh] f32 row
+__device__ __forceinline__ void store_pair(float* dst, float x0, float x1, int col, int dh) {
+  if ((dh & 1) == 0 && col + 1 < dh) {
+    *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
+  } else {
+    if (col < dh) dst[0] = x0;
+    if (col + 1 < dh) dst[1] = x1;
+  }
+}
+
+// K1 in f32: one block per (b*h, 64 q rows), warp w owning q rows
+// 16 (w % 4)..16 (w % 4) + 15 and the keys [32 g, 32 g + 32) of every k
+// tile for group g = w / 4; each lane holds the running (m, l) of its rows
+// g and g + 8 over its group's keys. The bf16 K1's structure, with every
+// product in split TF32 and p kept in f32 (round_E is the identity); group
+// 1's (m, l, acc) merge into group 0's at the end.
+template <int DP>
+__global__ void __launch_bounds__(kTf32Threads) flash_fwd_kernel_tf32(Args a) {
+  using S = Tf32Shape<DP>;
+  using namespace sdml_mma;
+  // q_w's split fragments take DP registers a lane: held across the loop
+  // up to dh 64, re-read from shared memory at 128
+  constexpr bool kHoldQ = DP <= 64;
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;    // the longest rows start first
+  const int T = a.T, dh = a.dh;
+  const bool vec = a.vec != 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = warp >> 2;                    // this warp's half of each k tile
+  const int g = lane >> 2, t4 = lane & 3;
+  const long long base = static_cast<long long>(bh) * T * dh;
+  const long long rbase = static_cast<long long>(bh) * T;
+  const float* q = static_cast<const float*>(a.q) + base;
+  const float* k = static_cast<const float*>(a.k) + base;
+  const float* v = static_cast<const float*>(a.v) + base;
+
+  extern __shared__ uint4 smem_mma[];
+  float* q_s = reinterpret_cast<float*>(smem_mma); // [64, LD]
+  float* kv_s = q_s + S::TILE;                     // 2 stages of k, v [64, LD]
+
+  const int q0 = qt * kTile;
+  const int n_kt = (T + kTile - 1) / kTile;
+  const int last = min(n_kt - 1, qt);
+  load_tile_async<DP, kTf32Threads>(q_s, q, q0, T, dh, vec);
+  load_tile_async<DP, kTf32Threads>(kv_s, k, 0, T, dh, vec);
+  load_tile_async<DP, kTf32Threads>(kv_s + S::TILE, v, 0, T, dh, vec);
+  cp_async_commit();
+
+  const int wr = (warp & 3) * 16;
+  const int r_lo = q0 + wr + g, r_hi = r_lo + 8;
+  // the last key any live row of this warp sees (-1: no live row)
+  const int kmax = q0 + wr < T ? min(q0 + wr + 15, T - 1) : -1;
+
+  cp_async_wait<0>();
+  __syncthreads();
+  SplitA qa[kHoldQ ? S::KS : 1];                // q_w as A operands
+  if constexpr (kHoldQ) {
+#pragma unroll
+    for (int s = 0; s < S::KS; ++s) lds_a_split<S::LD>(qa[s], q_s, wr, s, lane);
+  }
+  float acc[S::ND][4];
+#pragma unroll
+  for (int n = 0; n < S::ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
+
+  for (int kt = 0; kt <= last; ++kt) {
+    if (kt < last) {                             // the next k, v tile, in flight
+      float* nxt = kv_s + ((kt + 1) & 1) * 2 * S::TILE;
+      load_tile_async<DP, kTf32Threads>(nxt, k, (kt + 1) * kTile, T, dh, vec);
+      load_tile_async<DP, kTf32Threads>(nxt + S::TILE, v, (kt + 1) * kTile, T, dh, vec);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();                          // this tile's copies have landed
+    __syncthreads();
+    const float* k_s = kv_s + (kt & 1) * 2 * S::TILE;
+    const float* v_s = k_s + S::TILE;
+    const int k0 = kt * kTile;
+#pragma unroll 1
+    for (int j0 = grp * kGroupCols; j0 < (grp + 1) * kGroupCols; j0 += S::SUB) {
+      const int kb = k0 + j0;
+      if (kb > kmax) break;                      // past every live row's diagonal
+      float s[S::NS][4];                         // [q row, key]
+#pragma unroll
+      for (int n = 0; n < S::NS; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < S::KS; ++ks) {
+        SplitA qf;
+        if constexpr (kHoldQ) {
+          qf = qa[ks];
+        } else {
+          lds_a_split<S::LD>(qf, q_s, wr, ks, lane);
+        }
+#pragma unroll
+        for (int n = 0; n < S::NS; ++n) {
+          SplitB kf;
+          lds_b_split<S::LD>(kf, k_s, j0 + 8 * n, ks, lane);
+          mma_3xtf32(s[n], qf, kf);
+        }
+      }
+      // element i of n8 tile n sits at row g + 8 (i / 2), key
+      // kb + 8 n + 2 t4 + i % 2; live: qpos >= kpos and kpos < T
+      bool live[S::NS][4];
+      float mx_lo = kNegInf, mx_hi = kNegInf;
+#pragma unroll
+      for (int n = 0; n < S::NS; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kp = kb + 8 * n + 2 * t4 + (i & 1);
+          live[n][i] = (i < 2 ? r_lo : r_hi) >= kp && kp < T;
+          s[n][i] = live[n][i] ? s[n][i] * a.scale : kNegInf;
+        }
+        mx_lo = fmaxf(mx_lo, fmaxf(s[n][0], s[n][1]));
+        mx_hi = fmaxf(mx_hi, fmaxf(s[n][2], s[n][3]));
+      }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {         // over the quad holding a row
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, o));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, o));
+      }
+      const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+      const float c_lo = expf(m_lo - mn_lo), c_hi = expf(m_hi - mn_hi);
+      float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+      for (int n = 0; n < S::NS; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = live[n][i] ? expf(s[n][i] - (i < 2 ? mn_lo : mn_hi)) : 0.f;
+          s[n][i] = p;
+          if (i < 2) sum_lo += p; else sum_hi += p;
+        }
+      }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, o);
+        sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, o);
+      }
+      l_lo = l_lo * c_lo + sum_lo;
+      l_hi = l_hi * c_hi + sum_hi;
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+#pragma unroll
+      for (int n = 0; n < S::ND; ++n) {
+        acc[n][0] *= c_lo;
+        acc[n][1] *= c_lo;
+        acc[n][2] *= c_hi;
+        acc[n][3] *= c_hi;
+      }
+      // acc += p . v over this sub-block's keys: n8 tile kk of p is the k8
+      // slice of keys kb + 8 kk .. + 7, in acc_a_split's order
+#pragma unroll
+      for (int kk = 0; kk < S::NS; ++kk) {
+        SplitA pa;
+        acc_a_split(pa, s[kk]);
+#pragma unroll
+        for (int d = 0; d < S::ND; ++d) {
+          SplitB vf;
+          lds_bt_split<S::LD>(vf, v_s, j0 + 8 * kk, 8 * d, lane);
+          mma_3xtf32(acc[d], pa, vf);
+        }
+      }
+    }
+    __syncthreads();                             // this stage is free for kt + 2
+  }
+
+  // group 1 hands its (m, l, acc) to group 0 through the (now idle) k/v
+  // stages: acc as a [64, LD] tile, then m and l per row
+  cp_async_wait<0>();
+  float* acc_s = kv_s;
+  float* ml_s = kv_s + S::TILE;
+  const int row_lo = wr + g, row_hi = row_lo + 8;
+  if (grp == 1) {
+#pragma unroll
+    for (int n = 0; n < S::ND; ++n) {
+      const int col = 8 * n + 2 * t4;
+      *reinterpret_cast<float2*>(acc_s + row_lo * S::LD + col) =
+          make_float2(acc[n][0], acc[n][1]);
+      *reinterpret_cast<float2*>(acc_s + row_hi * S::LD + col) =
+          make_float2(acc[n][2], acc[n][3]);
+    }
+    if (t4 == 0) {
+      ml_s[row_lo] = m_lo;
+      ml_s[row_hi] = m_hi;
+      ml_s[kTile + row_lo] = l_lo;
+      ml_s[kTile + row_hi] = l_hi;
+    }
+  }
+  __syncthreads();
+  if (grp == 1) return;
+  {
+    // every live row has key 0 in group 0, so m_lo / m_hi are finite there
+    const float m1_lo = ml_s[row_lo], m1_hi = ml_s[row_hi];
+    const float mn_lo = fmaxf(m_lo, m1_lo), mn_hi = fmaxf(m_hi, m1_hi);
+    const float c0_lo = expf(m_lo - mn_lo), c0_hi = expf(m_hi - mn_hi);
+    const float c1_lo = expf(m1_lo - mn_lo), c1_hi = expf(m1_hi - mn_hi);
+    l_lo = l_lo * c0_lo + ml_s[kTile + row_lo] * c1_lo;
+    l_hi = l_hi * c0_hi + ml_s[kTile + row_hi] * c1_hi;
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+#pragma unroll
+    for (int n = 0; n < S::ND; ++n) {
+      const int col = 8 * n + 2 * t4;
+      const float2 x_lo = *reinterpret_cast<const float2*>(acc_s + row_lo * S::LD + col);
+      const float2 x_hi = *reinterpret_cast<const float2*>(acc_s + row_hi * S::LD + col);
+      acc[n][0] = acc[n][0] * c0_lo + x_lo.x * c1_lo;
+      acc[n][1] = acc[n][1] * c0_lo + x_lo.y * c1_lo;
+      acc[n][2] = acc[n][2] * c0_hi + x_hi.x * c1_hi;
+      acc[n][3] = acc[n][3] * c0_hi + x_hi.y * c1_hi;
+    }
+  }
+
+  float* o = static_cast<float*>(a.o) + base;
+  const float den_lo = fmaxf(l_lo, 1e-30f), den_hi = fmaxf(l_hi, 1e-30f);
+#pragma unroll
+  for (int n = 0; n < S::ND; ++n) {
+    const int col = 8 * n + 2 * t4;
+    if (r_lo < T) store_pair(o + static_cast<long long>(r_lo) * dh + col,
+                             acc[n][0] / den_lo, acc[n][1] / den_lo, col, dh);
+    if (r_hi < T) store_pair(o + static_cast<long long>(r_hi) * dh + col,
+                             acc[n][2] / den_hi, acc[n][3] / den_hi, col, dh);
+  }
+  if (t4 == 0) {                                 // the quad's lanes agree
+    if (r_lo < T) {
+      a.l[rbase + r_lo] = l_lo;
+      a.m[rbase + r_lo] = m_lo;
+    }
+    if (r_hi < T) {
+      a.l[rbase + r_hi] = l_hi;
+      a.m[rbase + r_hi] = m_hi;
+    }
+  }
+}
+
+// K3 in f32: one block per (b*h, 64 k rows), warp w owning k rows
+// 16 (w % 4)..16 (w % 4) + 15 and the queries [32 g, 32 g + 32) of every q
+// tile for group g = w / 4, scores computed transposed ([key, query]) as in
+// the bf16 K3, every product in split TF32; group 1's dk, dv sums are added
+// to group 0's at the end
+template <int DP>
+__global__ void __launch_bounds__(kTf32Threads) flash_dkv_kernel_tf32(Args a) {
+  using S = Tf32Shape<DP>;
+  using namespace sdml_mma;
+  // k_w's and v_w's split fragments take 2 DP registers a lane: held
+  // across the loop up to dh 32, re-read from shared memory above
+  constexpr bool kHoldKV = DP <= 32;
+  const int bh = blockIdx.x;
+  const int kt = blockIdx.y;                     // the longest columns start first
+  const int T = a.T, dh = a.dh;
+  const bool vec = a.vec != 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = warp >> 2;                    // this warp's half of each q tile
+  const int g = lane >> 2, t4 = lane & 3;
+  const long long base = static_cast<long long>(bh) * T * dh;
+  const long long rbase = static_cast<long long>(bh) * T;
+  const float* q = static_cast<const float*>(a.q) + base;
+  const float* k = static_cast<const float*>(a.k) + base;
+  const float* v = static_cast<const float*>(a.v) + base;
+  const float* dout = static_cast<const float*>(a.dout) + base;
+
+  extern __shared__ uint4 smem_mma[];
+  float* k_s = reinterpret_cast<float*>(smem_mma); // [64, LD]
+  float* v_s = k_s + S::TILE;                      // [64, LD]
+  float* qd_s = v_s + S::TILE;                     // 2 stages of q, do [64, LD]
+  float* st_s = qd_s + 4 * S::TILE;                // 2 x m, linv, delta [64]
+
+  auto load_stage = [&](int stage, int qt) {
+    float* dst = qd_s + 2 * stage * S::TILE;
+    float* rows = st_s + 3 * kTile * stage;
+    const int q0 = qt * kTile;
+    load_tile_async<DP, kTf32Threads>(dst, q, q0, T, dh, vec);
+    load_tile_async<DP, kTf32Threads>(dst + S::TILE, dout, q0, T, dh, vec);
+    load_rows_async<kTf32Threads>(rows, a.m + rbase, q0, T);
+    load_rows_async<kTf32Threads>(rows + kTile, a.linv + rbase, q0, T);
+    load_rows_async<kTf32Threads>(rows + 2 * kTile, a.delta + rbase, q0, T);
+  };
+
+  const int k0 = kt * kTile;
+  const int n_qt = (T + kTile - 1) / kTile;
+  load_tile_async<DP, kTf32Threads>(k_s, k, k0, T, dh, vec);
+  load_tile_async<DP, kTf32Threads>(v_s, v, k0, T, dh, vec);
+  load_stage(0, kt);                             // from the diagonal on
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int wr = (warp & 3) * 16;
+  const int kr0 = k0 + wr;                       // this warp's first key
+  const bool live_w = kr0 < T;
+  SplitA ka[kHoldKV ? S::KS : 1], va[kHoldKV ? S::KS : 1];  // k_w, v_w as A operands
+  if constexpr (kHoldKV) {
+#pragma unroll
+    for (int s = 0; s < S::KS; ++s) {
+      lds_a_split<S::LD>(ka[s], k_s, wr, s, lane);
+      lds_a_split<S::LD>(va[s], v_s, wr, s, lane);
+    }
+  }
+  float acc_k[S::ND][4], acc_v[S::ND][4];
+#pragma unroll
+  for (int n = 0; n < S::ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc_k[n][i] = acc_v[n][i] = 0.f;
+
+  for (int qt = kt; qt < n_qt; ++qt) {
+    const int stage = (qt - kt) & 1;
+    if (qt + 1 < n_qt) load_stage(stage ^ 1, qt + 1);  // the next q tile, in flight
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* q_s = qd_s + 2 * stage * S::TILE;
+    const float* do_s = q_s + S::TILE;
+    const float* m_s = st_s + 3 * kTile * stage;
+    const float* li_s = m_s + kTile;
+    const float* dl_s = li_s + kTile;
+    const int q0 = qt * kTile;
+#pragma unroll 1
+    for (int j0 = grp * kGroupCols; j0 < (grp + 1) * kGroupCols; j0 += S::SUB) {
+      const int qb = q0 + j0;
+      if (!live_w || qb >= T) break;
+      if (qb + S::SUB <= kr0) continue;          // every query precedes every key
+      float st[S::NS][4], dpt[S::NS][4];         // s^T, dp^T: [key row, query]
+#pragma unroll
+      for (int n = 0; n < S::NS; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) st[n][i] = dpt[n][i] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < S::KS; ++ks) {
+        SplitA kf, vf;
+        if constexpr (kHoldKV) {
+          kf = ka[ks];
+          vf = va[ks];
+        } else {
+          lds_a_split<S::LD>(kf, k_s, wr, ks, lane);
+          lds_a_split<S::LD>(vf, v_s, wr, ks, lane);
+        }
+#pragma unroll
+        for (int n = 0; n < S::NS; ++n) {
+          SplitB qf, df;
+          lds_b_split<S::LD>(qf, q_s, j0 + 8 * n, ks, lane);
+          lds_b_split<S::LD>(df, do_s, j0 + 8 * n, ks, lane);
+          mma_3xtf32(st[n], kf, qf);
+          mma_3xtf32(dpt[n], vf, df);
+        }
+      }
+      // p^T in place of s^T and ds^T * scale in place of dp^T; element i of
+      // n8 tile n sits at key kr0 + g + 8 (i / 2), query column
+      // j0 + 8 n + 2 t4 + i % 2 of the tile
+#pragma unroll
+      for (int n = 0; n < S::NS; ++n) {
+        const int c = j0 + 8 * n + 2 * t4;
+        const float mc[2] = {m_s[c], m_s[c + 1]};
+        const float lc[2] = {li_s[c], li_s[c + 1]};
+        const float dc[2] = {dl_s[c], dl_s[c + 1]};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = i & 1;
+          const int kp = kr0 + g + 8 * (i >> 1);
+          const int qp = q0 + c + j;
+          const bool live = qp >= kp && kp < T && qp < T;
+          const float p = live ? expf(st[n][i] * a.scale - mc[j]) * lc[j] : 0.f;
+          dpt[n][i] = p * (dpt[n][i] - dc[j]) * a.scale;
+          st[n][i] = p;
+        }
+      }
+      // dv += p^T . do and dk += (ds * scale)^T . q: n8 tile kk of p^T and
+      // ds^T is the k8 slice of queries qb + 8 kk .. + 7, in acc_a_split's
+      // order
+#pragma unroll
+      for (int kk = 0; kk < S::NS; ++kk) {
+        SplitA pa, sa;
+        acc_a_split(pa, st[kk]);
+        acc_a_split(sa, dpt[kk]);
+#pragma unroll
+        for (int d = 0; d < S::ND; ++d) {
+          SplitB of, qf;
+          lds_bt_split<S::LD>(of, do_s, j0 + 8 * kk, 8 * d, lane);
+          lds_bt_split<S::LD>(qf, q_s, j0 + 8 * kk, 8 * d, lane);
+          mma_3xtf32(acc_v[d], pa, of);
+          mma_3xtf32(acc_k[d], sa, qf);
+        }
+      }
+    }
+    __syncthreads();                             // this stage is free for qt + 2
+  }
+
+  // group 1 hands its dk, dv sums to group 0 through the (now idle) q/do
+  // stages, as two [64, LD] tiles
+  cp_async_wait<0>();
+  float* dk_s = qd_s;
+  float* dv_s = qd_s + S::TILE;
+  const int row_lo = wr + g, row_hi = row_lo + 8;
+  if (grp == 1 && live_w) {
+#pragma unroll
+    for (int n = 0; n < S::ND; ++n) {
+      const int col = 8 * n + 2 * t4;
+      *reinterpret_cast<float2*>(dk_s + row_lo * S::LD + col) =
+          make_float2(acc_k[n][0], acc_k[n][1]);
+      *reinterpret_cast<float2*>(dk_s + row_hi * S::LD + col) =
+          make_float2(acc_k[n][2], acc_k[n][3]);
+      *reinterpret_cast<float2*>(dv_s + row_lo * S::LD + col) =
+          make_float2(acc_v[n][0], acc_v[n][1]);
+      *reinterpret_cast<float2*>(dv_s + row_hi * S::LD + col) =
+          make_float2(acc_v[n][2], acc_v[n][3]);
+    }
+  }
+  __syncthreads();
+  if (grp == 1 || !live_w) return;
+#pragma unroll
+  for (int n = 0; n < S::ND; ++n) {
+    const int col = 8 * n + 2 * t4;
+    const float2 k_lo = *reinterpret_cast<const float2*>(dk_s + row_lo * S::LD + col);
+    const float2 k_hi = *reinterpret_cast<const float2*>(dk_s + row_hi * S::LD + col);
+    const float2 v_lo = *reinterpret_cast<const float2*>(dv_s + row_lo * S::LD + col);
+    const float2 v_hi = *reinterpret_cast<const float2*>(dv_s + row_hi * S::LD + col);
+    acc_k[n][0] += k_lo.x;
+    acc_k[n][1] += k_lo.y;
+    acc_k[n][2] += k_hi.x;
+    acc_k[n][3] += k_hi.y;
+    acc_v[n][0] += v_lo.x;
+    acc_v[n][1] += v_lo.y;
+    acc_v[n][2] += v_hi.x;
+    acc_v[n][3] += v_hi.y;
+  }
+  float* dk = static_cast<float*>(a.dk) + base;
+  float* dv = static_cast<float*>(a.dv) + base;
+  const int r_lo = kr0 + g, r_hi = r_lo + 8;
+#pragma unroll
+  for (int n = 0; n < S::ND; ++n) {
+    const int col = 8 * n + 2 * t4;
+    if (r_lo < T) {
+      const long long at = static_cast<long long>(r_lo) * dh + col;
+      store_pair(dk + at, acc_k[n][0], acc_k[n][1], col, dh);
+      store_pair(dv + at, acc_v[n][0], acc_v[n][1], col, dh);
+    }
+    if (r_hi < T) {
+      const long long at = static_cast<long long>(r_hi) * dh + col;
+      store_pair(dk + at, acc_k[n][2], acc_k[n][3], col, dh);
+      store_pair(dv + at, acc_v[n][2], acc_v[n][3], col, dh);
+    }
+  }
+}
+
 // ---- launch --------------------------------------------------------------------
 
 enum Pass { kForward = 0, kDq = 1, kDkv = 2 };
-
-size_t smem_bytes(Pass pass, int dh) {
-  const size_t tile = static_cast<size_t>(kTile) * (dh + 1);
-  const size_t score = static_cast<size_t>(kTile) * kLdS;
-  switch (pass) {
-    case kForward: return (3 * tile + score + 3 * kTile) * sizeof(float);
-    case kDq: return (4 * tile + score + 3 * kTile) * sizeof(float);
-    default: return (4 * tile + 2 * score + 3 * kTile) * sizeof(float);
-  }
-}
 
 cudaError_t launch_kernel(void (*kernel)(Args), const Args& a, int BH, int threads,
                           size_t smem, cudaStream_t stream) {
@@ -1093,18 +1343,34 @@ cudaError_t launch_kernel(void (*kernel)(Args), const Args& a, int BH, int threa
   return cudaGetLastError();
 }
 
-// the SIMT kernels, f32
+// the SIMT K2, f32: q, do, k, v [64, dh + 1], the ds tile and 3 row vectors
 template <int JD>
-cudaError_t launch_simt(Pass pass, const Args& a, int BH, cudaStream_t stream) {
-  void (*kernel)(Args) = pass == kForward ? flash_fwd_kernel<JD>
-                         : pass == kDq    ? flash_dq_kernel<JD>
-                                          : flash_dkv_kernel<JD>;
-  return launch_kernel(kernel, a, BH, kThreads, smem_bytes(pass, a.dh), stream);
+cudaError_t launch_dq_simt(const Args& a, int BH, cudaStream_t stream) {
+  const size_t tile = static_cast<size_t>(kTile) * (a.dh + 1);
+  const size_t smem = (4 * tile + kTile * kLdS + 3 * kTile) * sizeof(float);
+  return launch_kernel(flash_dq_kernel<JD>, a, BH, kThreads, smem, stream);
 }
 
+template <int DP>
+cudaError_t launch_tf32(Pass pass, const Args& a, int BH, cudaStream_t stream) {
+  constexpr size_t tile = static_cast<size_t>(Tf32Shape<DP>::TILE) * sizeof(float);
+  if (pass == kForward) {                        // q + 2 stages of k, v
+    return launch_kernel(flash_fwd_kernel_tf32<DP>, a, BH, kTf32Threads, 5 * tile, stream);
+  }                                              // k, v + 2 stages of q, do, rows
+  return launch_kernel(flash_dkv_kernel_tf32<DP>, a, BH, kTf32Threads,
+                       6 * tile + 2 * 3 * kTile * sizeof(float), stream);
+}
+
+// f32: K1 and K3 in split TF32 on the tensor cores, head dim padded to 16,
+// 32, 64 or 128; K2 on the CUDA cores
 cudaError_t launch_f32(Pass pass, const Args& a, int BH, cudaStream_t stream) {
-  return a.dh <= 64 ? launch_simt<4>(pass, a, BH, stream)
-                    : launch_simt<8>(pass, a, BH, stream);
+  if (pass == kDq) {
+    return a.dh <= 64 ? launch_dq_simt<4>(a, BH, stream) : launch_dq_simt<8>(a, BH, stream);
+  }
+  if (a.dh <= 16) return launch_tf32<16>(pass, a, BH, stream);
+  if (a.dh <= 32) return launch_tf32<32>(pass, a, BH, stream);
+  if (a.dh <= 64) return launch_tf32<64>(pass, a, BH, stream);
+  return launch_tf32<128>(pass, a, BH, stream);
 }
 
 template <int DP>
@@ -1139,7 +1405,8 @@ int launch(Pass pass, Args a, int BH, int dtype, void* stream) {
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
                          reinterpret_cast<uintptr_t>(a.v) |
                          reinterpret_cast<uintptr_t>(a.dout);
-  a.vec = a.dh % 8 == 0 && (ptrs & 15u) == 0;
+  // 16-byte chunks: 4 f32 or 8 bf16
+  a.vec = a.dh % (dtype == 0 ? 4 : 8) == 0 && (ptrs & 15u) == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (dtype) {

@@ -7,8 +7,9 @@ without JAX; the repo's ``tests/conftest.py`` sets JAX up, so skip it there:
     python -m pytest --noconftest -m cuda tests/test_torch_*_cuda.py
 
 Without a card every test here skips. In bf16 all three kernels run on
-the tensor cores (K1 since its redesign, beside K2 and K3); in f32 on the
-CUDA cores. Tolerances are ``chip_smoke.py``'s:
+the tensor cores; in f32 K1 and K3 run on them in split TF32 (three TF32
+products per f32 one, close to f32 accuracy) and K2 on the CUDA cores.
+Tolerances are ``chip_smoke.py``'s:
 f32 ``(o, l, m)`` within rtol = atol = 1e-5 (f32 sums in another order),
 f32 gradients within 1e-4 (the JAX package's gradient tolerance,
 ``tests/test_flash_attention.py``), bf16 outputs within two bf16 ulps at 1.0
@@ -50,26 +51,29 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# (dtype, T, dh): f32 through the SIMT kernels at the training head dim, a
-# full and a ragged T; bf16 through the tensor-core K1-K3 at one T row (1),
-# one row past a tile (65), a ragged tail (200) and whole tiles (256), for
-# head dims padded to 32, 64 and 128 and one that is not a multiple of 16;
-# and dh 8, padded to 16 (the smallest instantiation)
-_CASES = ([(torch.float32, t, 64) for t in (256, 200)]
-          + [(torch.bfloat16, t, dh) for dh in (32, 64, 128, 40)
+# (dtype, [B, H, T, dh]): f32 (split-TF32 K1 and K3, SIMT K2) and bf16
+# (tensor-core K1-K3) at one T row (1), one row past a tile (65), a ragged
+# tail (200) and whole tiles (256), for head dims padded to 16 (8, the
+# smallest instantiation), 32, 64 and 128 and one that is not a multiple of
+# 16 (40); f32 also at the full-prefix decoder's shape (one sequence of the
+# serving model: 8 heads x 256 x 64)
+_CASES = ([(torch.float32, (2, 4, t, dh)) for dh in (8, 32, 40, 64, 128)
+           for t in (1, 65, 200, 256)]
+          + [(torch.float32, (1, 8, 256, 64))]
+          + [(torch.bfloat16, (2, 4, t, dh)) for dh in (32, 64, 128, 40)
              for t in (1, 65, 200, 256)]
-          + [(torch.bfloat16, t, 8) for t in (65, 200)])
+          + [(torch.bfloat16, (2, 4, t, 8)) for t in (65, 200)])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,t,dh", _CASES)
-def test_cuda_kernels_match_plain_versions(cuda_device, dtype, t, dh):
+@pytest.mark.parametrize("dtype,shape", _CASES)
+def test_cuda_kernels_match_plain_versions(cuda_device, dtype, shape):
     """K1, K2 and K3 on the card against their plain versions on the same
     inputs; K2 and K3 take the plain forward's statistics, so each kernel
     is held alone. T = 200 leaves the last tile's tail masked, T = 65 puts
     one row in a second tile, T = 1 is a single row."""
-    q, k, v, do = _inputs(9 + t + dh, (2, 4, t, dh), cuda_device, dtype,
-                          n=4)
+    t, dh = shape[2:]
+    q, k, v, do = _inputs(9 + t + dh, shape, cuda_device, dtype, n=4)
     before = _launches()
     got_f = tfa.flash_forward(q, k, v)
     ref_f = tfa.flash_forward_reference(q, k, v)
@@ -92,6 +96,7 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype, t, dh):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,shape", [(torch.float32, (2, 2, 96, 32)),
+                                         (torch.float32, (1, 8, 256, 64)),
                                          (torch.bfloat16, (2, 4, 200, 64))])
 def test_cuda_autograd_goes_through_the_kernels(cuda_device, dtype, shape):
     """``flash_attention``'s gradients (K1 forward, K2 + K3 backward)
