@@ -14,10 +14,10 @@ or without the port beside it. Phases, each fatal on failure:
    the build of every kernel from the checkout's sources (one ``nvcc`` per
    source, started together, into the git-ignored ``_build/`` directory),
    with ptxas's registers and spills per kernel (a spill in K4, or in K1
-   or the f32 K3 at a head dim up to 64, fails), and the count of
+   or the f32 K2 or K3 at a head dim up to 64, fails), and the count of
    tensor-core (``HMMA``) instructions in each kernel's SASS
-   (``cuobjdump``): all 12 bf16 K1-K3 and all 8 f32 (split-TF32) K1 and
-   K3 instantiations must have some, the f32 K2, K4 and F1 none;
+   (``cuobjdump``): all 12 bf16 and all 12 f32 (split-TF32) K1-K3
+   instantiations must have some, K4 and F1 none;
 2. every kernel against its plain PyTorch version on the card, at the
    serving shapes (H = 8, dh = 64, block 16, 8 slots, positions up to
    255), for every cache dtype and K = 1 and 4, within rtol = atol =
@@ -44,7 +44,8 @@ or without the port beside it. Phases, each fatal on failure:
    beside their bounds (the f32 rows also beside the bound at the CUDA
    cores' 67 TFLOP/s) and the library yardstick
    (``scaled_dot_product_attention``, forward and backward; K1 against
-   SDPA's forward and K2 + K3 against SDPA's backward, each on one line);
+   SDPA's forward and K2 + K3 against SDPA's backward, each on one line,
+   and the f32 K2 + K3 at the tiny row against SDPA's f32 backward);
 3. the port's serving path at full width: ``InferenceEngine(attn_kernel=
    "fused")`` serving the ``gpt_serve`` trace (24 requests, Poisson
    32/s, prompts 8/16/32, 24 new tokens) on the 21 M-parameter GPT
@@ -259,9 +260,10 @@ or without the port beside it. Phases, each fatal on failure:
    ``kernel-dtype-drift`` WARNING on f16, nothing on f32); then the clean
    f32 and f16 kernels bit-equal to the plain version, the racing one's
    rows 1-3 NaN and every element of its row 0 one cell's ``2·x``, and
-   F1 timed as phase 2 times K4 beside its plain version, its byte bound
-   and ``torch.mul(x, 2)``, its profiler cross-check in a process of its
-   own (all 40 launches seen); (b) ``programs.kernel_report`` on phase 3's
+   F1 timed as phase 2 times K4 beside its plain version, its byte bound,
+   ``torch.mul(x, 2)`` and the launch floor (a one-element ``torch.mul``
+   in the same harness, the least of three medians), its profiler
+   cross-check in a process of its own (all 40 launches seen); (b) ``programs.kernel_report`` on phase 3's
    deployment, f32 and int8, with ``spec_k`` 4 (draft == target): one
    decode and one verify tick's recorded K4 launches lint clean under
    the registry's contracts, and their derived ``kernel.kv_stream`` bytes
@@ -470,9 +472,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PORT = "simple_distributed_machine_learning_tpu_torch"
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s outside the
-# tensor cores (K4's and the f32 K2's products), dense TF32 tensor-core
-# FLOP/s (the f32 K1 and K3: three TF32 products per f32 one, split TF32)
-# and dense bf16 tensor-core FLOP/s
+# tensor cores (K4's and F1's products), dense TF32 tensor-core FLOP/s (the
+# f32 K1-K3: three TF32 products per f32 one, split TF32) and dense bf16
+# tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
@@ -483,7 +485,7 @@ BF16_FLOPS = 989e12
 FLASH_SHAPE = (16, 8, 256, 64)
 FLASH_RAGGED = (16, 8, 200, 64)
 FLASH_TINY_SHAPE = (32, 4, 64, 32)
-# edge shapes of the tensor-core K1-K3 (bf16) and K1, K3 (f32), held in both
+# edge shapes of the tensor-core K1-K3 (bf16 and f32), held in both
 # dtypes at a small B*H: head dims padded to 32 and 128 and one not a
 # multiple of 16 (40), each at T = 1 (one row), 65 (one row past a tile) and
 # 200 (a ragged tail); dh 64 at T = 1, 65; and dh 8 (padded to 16, the
@@ -980,13 +982,13 @@ def ptxas_report(log: str) -> dict[str, dict]:
 
 
 def _no_spill_required(name: str) -> bool:
-    """K4 everywhere; K1 (bf16 and f32) and the f32 K3 at head dims padded
-    to 16, 32 or 64."""
+    """K4 everywhere; K1 (bf16 and f32) and the f32 K2 and K3 at head dims
+    padded to 16, 32 or 64."""
     import re
     if "paged_attn_kernel" in name:
         return True
-    m = re.search(r"flash_(?:fwd_kernel_(?:bf16_mma|tf32)|dkv_kernel_tf32)"
-                  r"(?:<(?:\(int\))?|ILi)(\d+)", name)
+    m = re.search(r"flash_(?:fwd_kernel_(?:bf16_mma|tf32)"
+                  r"|(?:dq|dkv)_kernel_tf32)(?:<(?:\(int\))?|ILi)(\d+)", name)
     return bool(m) and int(m.group(1)) <= 64
 
 
@@ -1046,15 +1048,15 @@ def phase_build(record: dict) -> None:
               f"spill {r.get('spill_stores', -1)}/{r.get('spill_loads', -1)}"
               f" bytes  {name}")
     held = [n for n in ptxas if _no_spill_required(n)]
-    # a fresh build reports the 9 K1/K3 variants at dh <= 64 (bf16 K1, f32
-    # K1 and f32 K3, each 16 / 32 / 64) and K4's 18 (5 storage types x K
-    # up to 1, 4, 8, and f32 at dh > 128)
-    check(not ptxas or len(held) == 9 + 18,
-          f"ptxas reported {len(held)} K1/K3/K4 kernels, not 27: {held}")
+    # a fresh build reports the 12 K1-K3 variants at dh <= 64 (bf16 K1,
+    # f32 K1, f32 K2 and f32 K3, each 16 / 32 / 64) and K4's 18 (5 storage
+    # types x K up to 1, 4, 8, and f32 at dh > 128)
+    check(not ptxas or len(held) == 12 + 18,
+          f"ptxas reported {len(held)} K1-K3/K4 kernels, not 30: {held}")
     spills = [n for n in held if ptxas[n].get("spill_stores", 0)
               or ptxas[n].get("spill_loads", 0)]
-    check(not spills, f"K4, K1 or the f32 K3 at dh <= 64 spills registers: "
-                      f"{spills}")
+    check(not spills, f"K4, K1 or the f32 K2 or K3 at dh <= 64 spills "
+                      f"registers: {spills}")
     record["ptxas"] = ptxas
     print(f"chip_smoke: kernels built in {record['build_s']} s")
     hmma = sass_hmma_counts(builds[1].path)
@@ -1067,14 +1069,14 @@ def phase_build(record: dict) -> None:
         return "_bf16_mma" in name or "_tf32" in name
 
     mma = {n: c for n, c in hmma.items() if tensor_core(n)}
-    # the bf16 K1, K2 and K3 and the f32 K1 and K3 (HMMA.1688.F32.TF32),
-    # each at head dims padded to 16, 32, 64, 128
-    check(len(mma) == 20 and all(c > 0 for c in mma.values()),
-          f"the bf16 K1-K3 and f32 K1, K3 kernels are not all on the tensor "
+    # the bf16 and the f32 (HMMA.1688.F32.TF32) K1, K2 and K3, each at head
+    # dims padded to 16, 32, 64, 128
+    check(len(mma) == 24 and all(c > 0 for c in mma.values()),
+          f"the bf16 and f32 K1-K3 kernels are not all on the tensor "
           f"cores: {mma}")
     simt = {n: c for n, c in {**hmma, **k4_hmma}.items()
             if not tensor_core(n) and c}
-    check(not simt, f"the f32 K2, K4 or F1 use tensor cores: {simt}")
+    check(not simt, f"K4 or F1 use tensor cores: {simt}")
     record["sass_hmma"] = {**hmma, **k4_hmma}
 
 
@@ -1338,14 +1340,11 @@ def _flash_bound(name: str, shape, dtype) -> tuple[float, str]:
     """Least time for one flash kernel's work at ``shape`` (``_flash_work``):
     the larger of its bytes / HBM rate and its operations / the rate of
     the units that do them: the bf16 tensor cores; for f32 the TF32 tensor
-    cores at three TF32 products per f32 one (K1, K3: split TF32), or the
-    CUDA cores (K2)."""
+    cores at three TF32 products per f32 one (split TF32)."""
     nbytes, flops = _flash_work(name, shape, dtype)
     t_bytes = nbytes / HBM_BYTES_PER_S
     if dtype == "bfloat16":
         t_ops = flops / BF16_FLOPS
-    elif name == "flash_dq":
-        t_ops = flops / F32_FLOPS
     else:
         t_ops = 3 * flops / TF32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -1484,6 +1483,15 @@ def phase_flash_kernels(record: dict) -> list[dict]:
     record["flash_backward_vs_sdpa"] = dict(k2_k3_ms=bwd_ms,
                                             sdpa_backward_ms=sdpa_bwd,
                                             ratio=bwd_ms / sdpa_bwd)
+    tiny = {v["name"]: v for v in out if v["dtype"] == "float32"
+            and tuple(v["shape"]) == FLASH_TINY_SHAPE}
+    bwd32 = tiny["flash_dq"]["ms"] + tiny["flash_dkv"]["ms"]
+    sdpa32 = tiny["flash_dq"]["library_ms"]
+    print(f"chip_smoke: K2 + K3 f32 {FLASH_TINY_SHAPE}: {bwd32:.4f} ms "
+          f"against SDPA's backward {sdpa32:.4f} ms: {bwd32 / sdpa32:.2f}x")
+    record["flash_backward_f32_vs_sdpa"] = dict(k2_k3_ms=bwd32,
+                                                sdpa_backward_ms=sdpa32,
+                                                ratio=bwd32 / sdpa32)
     print("chip_smoke: flash library_ms: K1's is "
           "scaled_dot_product_attention(is_causal=True); K2's and K3's are "
           "both SDPA's whole backward (forward + autograd.grad, less the "
@@ -5104,10 +5112,18 @@ def _grid_on_card(rec: dict) -> dict:
     def kernel():
         launch(x, out, out_row, torch.float32)
 
-    ms = time_ms(kernel, flush)
+    def least_of_3(fn):
+        # the least of three medians, since the second lane's launches can
+        # land inside a timed run; F1, torch.mul and the floor all take it
+        return min(time_ms(fn, flush) for _ in range(3))
+
+    ms = least_of_3(kernel)
     plain_ms = time_ms(lambda: grid_scratch_reference(x, racing=False),
                        flush)
-    library_ms = time_ms(lambda: torch.mul(x, 2), flush)
+    library_ms = least_of_3(lambda: torch.mul(x, 2))
+    # the launch floor: one launch that moves a single element
+    one = torch.ones(1, device="cuda")
+    floor_ms = least_of_3(lambda: torch.mul(one, 2))
     seen_here = profiler_tally(kernel, flush, "grid_scratch_kernel")[1]
     grid_scratch.launches = n0           # timing launches are not the path
     profiler_ms = _f1_profiler_ms_fresh()
@@ -5117,7 +5133,8 @@ def _grid_on_card(rec: dict) -> dict:
     bound_ms = max(t_bytes, t_ops) * 1e3
     print(f"chip_smoke: lint (a) F1 {ms:.6f} ms per launch, plain "
           f"{plain_ms:.6f} ms, torch.mul "
-          f"{library_ms:.6f} ms, bound {bound_ms:.9f} ms ({nbytes} bytes); "
+          f"{library_ms:.6f} ms, bound {bound_ms:.9f} ms ({nbytes} bytes), "
+          f"launch floor (a one-element torch.mul) {floor_ms:.6f} ms; "
           f"{launches} launches from the fixtures; profiler cross-check "
           f"{profiler_ms:.6f} ms (a process of its own, 40 of 40 seen; in "
           f"this process, after phase 13 (b)'s --profile session, the "
@@ -5125,6 +5142,7 @@ def _grid_on_card(rec: dict) -> dict:
     rec["grid"] = dict(launches=launches, verdicts=verdicts,
                        race_cells=cells, ms=ms,
                        plain_ms=plain_ms, library_ms=library_ms,
+                       launch_floor_ms=floor_ms,
                        bound_ms=bound_ms, profiler_ms=profiler_ms,
                        profiler_seen_in_process=seen_here)
     return {

@@ -35,42 +35,37 @@
 // each kernel does ~1-2 GFLOP of causal products against ~17-26 MB of
 // q/k/v/o/do traffic, so all three are bound by bytes (K1 17.0 MB, K2 21.4
 // MB, K3 25.6 MB: ~5-8 us at 3.35 TB/s, against 1.1-2.2 us of products at
-// the 989 TFLOP/s bf16 tensor-core rate). f32 K1 and K3 do three TF32
+// the 989 TFLOP/s bf16 tensor-core rate). The f32 kernels do three TF32
 // products per f32 one (split TF32, below): at the full-prefix decoder's
-// K1 ([1|2, 8, 256, 64]) and the tiny training row's K1/K3 ([32, 4, 64,
+// K1 ([1|2, 8, 256, 64]) and the tiny training row's K1-K3 ([32, 4, 64,
 // 32]) bytes bound them too (0.6-1.9 us), but those grids are 32-128
 // blocks, so what bounds them in practice is the serial chain of the
-// longest block: per k (or q) tile, the split-TF32 products, the online
-// softmax of 16 rows a warp, the copies and a barrier (chip_smoke.py phase
-// 22 (a) times K1 f32 at T = 64, 128 and 256 for the cost of one k tile).
-// Each q (or k/v) tile is read from device
-// memory once per block and reused across the whole loop, and causal tiles
-// past the diagonal are neither loaded nor computed.
+// longest block: per k (or q) tile, the split-TF32 products, the softmax
+// (K1: online) of 16 rows a warp, the copies and a barrier (chip_smoke.py
+// phase 22 (a) times K1 f32 at T = 64, 128 and 256 for the cost of one k
+// tile). Each q (or k/v) tile is read from device memory once per block
+// and reused across the whole loop, and causal tiles past the diagonal
+// are neither loaded nor computed.
 //
-// Three implementations:
-// - SIMT, for the f32 K2: products on the CUDA cores in f32 from f32
-//   shared-memory tiles (each thread a 4 x 4 score sub-tile and a 4 x
-//   (dh/16) output sub-tile), scores in shared memory, a barrier between
-//   load, scores and accumulate. Bound in practice by issuing FMAs and the
-//   shared loads feeding them (8 loads per 16 FMAs), ~10x the byte bound.
-// - Tensor cores, for bf16 (K1, K2, K3: flash_*_kernel_bf16_mma): every
-//   product is mma.sync m16n8k16, bf16 x bf16 summed in f32 — the same
-//   casts as the TPU kernels' preferred_element_type=f32 dots, only the
-//   order of the f32 sums differs. 4 warps per 64-row tile, each owning 16
-//   rows: in K1 and K2, 16 q rows (K1: S = Q_w.K^T, the online softmax on
-//   the accumulator fragments, then O += round(P).V; K2: S = Q_w.K^T,
-//   dP = dO_w.V^T, then dq += dS.K); in K3, 16 k rows computing S^T =
-//   K_w.Q^T and dP^T = V_w.dO^T directly, so that p^T and ds^T come out as
-//   the A operands of dv += P^T.dO and dk += dS^T.Q. p and ds never leave
-//   the registers: an m16n8 accumulator pair is repacked in place as a k16
-//   A fragment (mma_bf16.cuh). Tiles stay bf16 in shared memory (rows
-//   padded to dh + 8 so ldmatrix is free of bank conflicts; the head dim
-//   padded with zeros to DP in {16, 32, 64, 128}), and a 2-stage cp.async
-//   ring copies the next k/v (K1, K2) or q/dO + row-statistics (K3) tile
-//   while this one is multiplied. Shared memory at dh 64: K1 45 KB a block
-//   (q + 2 x (k, v)), so 4 blocks fit an SM; K2 and K3 55 KB. Inside the
-//   diagonal tile each warp skips the 16- or 32-wide sub-blocks its causal
-//   mask zeroes whole.
+// Two implementations, both on the tensor cores:
+// - bf16 (K1, K2, K3: flash_*_kernel_bf16_mma): every product is mma.sync
+//   m16n8k16, bf16 x bf16 summed in f32 — the same casts as the TPU
+//   kernels' preferred_element_type=f32 dots, only the order of the f32
+//   sums differs. 4 warps per 64-row tile, each owning 16 rows: in K1 and
+//   K2, 16 q rows (K1: S = Q_w.K^T, the online softmax on the accumulator
+//   fragments, then O += round(P).V; K2: S = Q_w.K^T, dP = dO_w.V^T, then
+//   dq += dS.K); in K3, 16 k rows computing S^T = K_w.Q^T and dP^T =
+//   V_w.dO^T directly, so that p^T and ds^T come out as the A operands of
+//   dv += P^T.dO and dk += dS^T.Q. p and ds never leave the registers: an
+//   m16n8 accumulator pair is repacked in place as a k16 A fragment
+//   (mma_bf16.cuh). Tiles stay bf16 in shared memory (rows padded to dh +
+//   8 so ldmatrix is free of bank conflicts; the head dim padded with
+//   zeros to DP in {16, 32, 64, 128}), and a 2-stage cp.async ring copies
+//   the next k/v (K1, K2) or q/dO + row-statistics (K3) tile while this
+//   one is multiplied. Shared memory at dh 64: K1 45 KB a block (q + 2 x
+//   (k, v)), so 4 blocks fit an SM; K2 and K3 55 KB. Inside the diagonal
+//   tile each warp skips the 16- or 32-wide sub-blocks its causal mask
+//   zeroes whole.
 //   K1's online softmax runs per 16- or 32-key sub-block on the fragments:
 //   a row's max and sum reduce over the quad of lanes that holds it
 //   (__shfl_xor_sync 1, 2); l sums the unrounded f32 p, as the TPU kernel
@@ -80,27 +75,29 @@
 //   m and l are saved in the natural units of the scaled scores, which K2
 //   and K3 read back. A row wholly masked in a sub-block keeps m (the max
 //   with NEG_INF) and gets p = 0 from the mask, never from exp(0) = 1.
-// - Tensor cores in split TF32, for the f32 K1 and K3
-//   (flash_{fwd,dkv}_kernel_tf32): single-pass TF32 keeps ~10 bits and
-//   would break the 1e-5 parity of f32 o and the 1e-4 parity of the f32
-//   gradients; each operand split as hi + lo (mma_tf32.cuh), a product is
-//   three mma.sync m16n8k8 (lo.hi + hi.lo, then hi.hi) summed in f32, close
-//   to f32 accuracy. The bf16 kernels' structure (the same fragments of S,
-//   S^T, dP^T, the same softmax, masks and sub-block skips) with f32 tiles
-//   in shared memory (rows padded to DP + 4 floats, conflict-free for the
-//   32-bit fragment loads) and p, ds kept in f32. The accumulator's columns
-//   (2t, 2t + 1) are read as the next product's A columns (t, t + 4) by
-//   relabelling the contraction, and v (K1) or do and q (K3) are loaded in
-//   that order, so p and ds still never leave the registers. The streamed
-//   tiles are split as their fragments are loaded; q_w (K1, dh <= 64) and
-//   k_w, v_w (K3, dh <= 32) are split once and held. Against the chain
-//   above, each block runs 8 warps: two groups of 4, each warp 16 rows,
-//   group g taking the columns [32 g, 32 g + 32) of every tile of the
-//   other side, so two warps share each scheduler and each walks half the
-//   products; at the end group 1's online-softmax state (m, l, acc) merges
-//   into group 0's (K1) or its dk, dv sums are added (K3) through the idle
-//   stage buffers. Shared memory: K1 q + 2 x (k, v), 87 KB at dh 64, 169
-//   KB at 128; K3 k, v + 2 x (q, do, rows), 106 KB / 204 KB.
+// - f32 in split TF32 (K1, K2, K3: flash_*_kernel_tf32): single-pass TF32
+//   keeps ~10 bits and would break the 1e-5 parity of f32 o and the 1e-4
+//   parity of the f32 gradients; each operand split as hi + lo
+//   (mma_tf32.cuh), a product is three mma.sync m16n8k8 (lo.hi + hi.lo,
+//   then hi.hi) summed in f32, close to f32 accuracy. The bf16 kernels'
+//   structure (the same fragments of S, dP, S^T, dP^T, the same softmax,
+//   masks and sub-block skips) with f32 tiles in shared memory (rows
+//   padded to DP + 4 floats, conflict-free for the 32-bit fragment loads)
+//   and p, ds kept in f32. The accumulator's columns (2t, 2t + 1) are read
+//   as the next product's A columns (t, t + 4) by relabelling the
+//   contraction, and v (K1), k (K2) or do and q (K3) are loaded in that
+//   order, so p and ds still never leave the registers. The streamed tiles
+//   are split as their fragments are loaded; q_w (K1, dh <= 64), q_w and
+//   do_w (K2, dh <= 32) and k_w, v_w (K3, dh <= 32) are split once and
+//   held. Against the chain above, each block runs 8 warps: two groups of
+//   4, each warp 16 rows, group g taking the columns [32 g, 32 g + 32) of
+//   every tile of the other side, so two warps share each scheduler and
+//   each walks half the products; at the end group 1's online-softmax
+//   state (m, l, acc) merges into group 0's (K1) or its partial dq (K2) or
+//   dk, dv sums (K3) are added through the idle stage buffers. Shared
+//   memory: K1 q + 2 x (k, v), 87 KB at dh 64, 169 KB at 128; K2 q, do + 2
+//   x (k, v), 102 KB / 198 KB; K3 k, v + 2 x (q, do, rows), 106 KB / 204
+//   KB.
 // The next steps are wgmma and TMA.
 
 #include <cuda_runtime.h>
@@ -114,30 +111,7 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kTile = 64;                  // q rows and k rows per tile
-constexpr int kThreads = 256;              // thread (ty, tx) = (tid / 16, tid % 16)
-constexpr int kRows = kTile / 16;          // tile rows per thread: ty + 16 i
-constexpr int kCols = kTile / 16;          // score columns per thread: tx + 16 j
-constexpr int kLdS = kTile + 1;            // padded row stride of a score tile
 constexpr int kMaxHeadDim = 128;
-
-// rows [r0, r0 + 64) of a contiguous [T, dh] f32 slab into shared memory
-// with row stride ld = dh + 1 (the pad keeps column reads conflict-free);
-// rows at or past T are zero
-__device__ void load_tile(float* dst, const float* src, int r0, int T, int dh) {
-  const int ld = dh + 1;
-  for (int i = threadIdx.x; i < kTile * dh; i += kThreads) {
-    const int r = i / dh, d = i - r * dh;
-    const int row = r0 + r;
-    dst[r * ld + d] = row < T ? src[static_cast<long long>(row) * dh + d] : 0.f;
-  }
-}
-
-// per-row f32 statistics [r0, r0 + 64) (0 past T)
-__device__ void load_rows(float* dst, const float* src, int r0, int T) {
-  for (int r = threadIdx.x; r < kTile; r += kThreads) {
-    dst[r] = r0 + r < T ? src[r0 + r] : 0.f;
-  }
-}
 
 struct Args {
   const void* q;       // [BH, T, dh], contiguous, all four in the dtype
@@ -158,138 +132,6 @@ struct Args {
                        // aligned: rows copy as 16-byte cp.async chunks
                        // (tensor-core kernels)
 };
-
-// s[i][j] = sum_d a[row_i][d] * b[col_j][d] over two [64, ld] tiles
-__device__ __forceinline__ void tile_dots(float (&s)[kRows][kCols], const float* a,
-                                          const float* b, int dh, int ty, int tx) {
-  const int ld = dh + 1;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < dh; ++d) {
-    float av[kRows], bv[kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) av[i] = a[(ty + 16 * i) * ld + d];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) bv[j] = b[(tx + 16 * j) * ld + d];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-  }
-}
-
-// SIMT K2: p and ds of one (q tile, k tile) pair from the saved
-// statistics, for this thread's 4 x 4 entries (q rows ty + 16 i, k columns
-// tx + 16 j); s and dp are the raw q.k^T and do.v^T dots
-__device__ __forceinline__ void recompute_p_ds(float (&s)[kRows][kCols],
-                                               float (&dp)[kRows][kCols],
-                                               const float* m_r, const float* li_r,
-                                               const float* dl_r, int q0, int k0,
-                                               int T, float scale, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int r = ty + 16 * i, c = tx + 16 * j;
-      const int qp = q0 + r, kp = k0 + c;
-      const bool live = qp >= kp && kp < T && qp < T;
-      const float p = live ? expf(s[i][j] * scale - m_r[r]) * li_r[r] : 0.f;
-      s[i][j] = p;
-      dp[i][j] = p * (dp[i][j] - dl_r[r]);
-    }
-  }
-}
-
-// ---- K2: dq (SIMT, f32) ----------------------------------------------------------
-
-template <int JD>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
-  const int bh = blockIdx.x;
-  const int n_tiles = gridDim.y;
-  const int qt = n_tiles - 1 - blockIdx.y;
-  const int T = a.T, dh = a.dh, ld = dh + 1;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const long long base = static_cast<long long>(bh) * T * dh;
-  const long long rbase = static_cast<long long>(bh) * T;
-  const float* q = static_cast<const float*>(a.q) + base;
-  const float* k = static_cast<const float*>(a.k) + base;
-  const float* v = static_cast<const float*>(a.v) + base;
-  const float* dout = static_cast<const float*>(a.dout) + base;
-
-  extern __shared__ float smem[];
-  float* q_s = smem;                    // [64, ld]
-  float* do_s = q_s + kTile * ld;       // [64, ld]
-  float* k_s = do_s + kTile * ld;       // [64, ld]
-  float* v_s = k_s + kTile * ld;        // [64, ld]
-  float* ds_s = v_s + kTile * ld;       // [64, kLdS] round_E(ds * scale)
-  float* m_r = ds_s + kTile * kLdS;     // [64]
-  float* li_r = m_r + kTile;            // [64]
-  float* dl_r = li_r + kTile;           // [64]
-
-  const int q0 = qt * kTile;
-  load_tile(q_s, q, q0, T, dh);
-  load_tile(do_s, dout, q0, T, dh);
-  load_rows(m_r, a.m + rbase, q0, T);
-  load_rows(li_r, a.linv + rbase, q0, T);
-  load_rows(dl_r, a.delta + rbase, q0, T);
-  int dcol[JD];
-#pragma unroll
-  for (int j = 0; j < JD; ++j) dcol[j] = min(tx + 16 * j, dh - 1);
-  float acc[kRows][JD];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < JD; ++j) acc[i][j] = 0.f;
-
-  const int n_kt = (T + kTile - 1) / kTile;
-  const int last = min(n_kt - 1, (q0 + kTile - 1) / kTile);
-  for (int kt = 0; kt <= last; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile(k_s, k, k0, T, dh);
-    load_tile(v_s, v, k0, T, dh);
-    __syncthreads();
-
-    float s[kRows][kCols], dp[kRows][kCols];
-    tile_dots(s, q_s, k_s, dh, ty, tx);
-    tile_dots(dp, do_s, v_s, dh, ty, tx);
-    recompute_p_ds(s, dp, m_r, li_r, dl_r, q0, k0, T, a.scale, ty, tx);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j)
-        ds_s[(ty + 16 * i) * kLdS + tx + 16 * j] = dp[i][j] * a.scale;
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float dv_[kRows], kv[JD];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) dv_[i] = ds_s[(ty + 16 * i) * kLdS + c];
-#pragma unroll
-      for (int j = 0; j < JD; ++j) kv[j] = k_s[c * ld + dcol[j]];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < JD; ++j) acc[i][j] = fmaf(dv_[i], kv[j], acc[i][j]);
-    }
-  }
-
-  float* dq = static_cast<float*>(a.dq) + base;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int qp = q0 + ty + 16 * i;
-    if (qp >= T) continue;
-#pragma unroll
-    for (int j = 0; j < JD; ++j) {
-      const int d = tx + 16 * j;
-      if (d < dh) dq[static_cast<long long>(qp) * dh + d] = acc[i][j];
-    }
-  }
-}
 
 // ---- K1-K3 in bf16: tensor cores -----------------------------------------------
 
@@ -858,11 +700,11 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dkv_kernel_bf16_mma(Args a)
   }
 }
 
-// ---- K1, K3 in f32: split TF32 on the tensor cores ---------------------------------
+// ---- K1-K3 in f32: split TF32 on the tensor cores ----------------------------------
 
 // 8 warps a block: two groups of 4, each warp owning 16 of the 64 rows (as
 // in the bf16 kernels), group g taking the 32 columns [32 g, 32 g + 32) of
-// every tile of the other side (keys in K1, queries in K3); the groups'
+// every tile of the other side (keys in K1 and K2, queries in K3); the groups'
 // partial results merge through shared memory at the end
 constexpr int kTf32Warps = 8;
 constexpr int kTf32Threads = 32 * kTf32Warps;
@@ -876,7 +718,7 @@ struct Tf32Shape {
   static constexpr int LD = DP + 4;
   static constexpr int KS = DP / 8;             // k8 slices along dh
   static constexpr int ND = DP / 8;             // n8 tiles along dh
-  static constexpr int SUB = DP > 64 ? 16 : 32; // keys (K1) / queries (K3) per step
+  static constexpr int SUB = DP > 64 ? 16 : 32; // keys (K1, K2) / queries (K3) per step
   static constexpr int NS = SUB / 8;            // n8 tiles (and k8 slices) of a sub-block
   static constexpr int TILE = kTile * LD;       // floats per [64, LD] tile
 };
@@ -1121,6 +963,187 @@ __global__ void __launch_bounds__(kTf32Threads) flash_fwd_kernel_tf32(Args a) {
   }
 }
 
+// K2 in f32: one block per (b*h, 64 q rows), warp w owning q rows
+// 16 (w % 4)..16 (w % 4) + 15 and the keys [32 g, 32 g + 32) of every k
+// tile for group g = w / 4. The bf16 K2's structure, with every product in
+// split TF32 and ds kept in f32 (round_E is the identity): S = Q_w.K^T and
+// dP = dO_w.V^T as K1's S, then dq += dS.K as K1's P.V (ds read through
+// acc_a_split, k's rows loaded in its order). Each group sums a partial dq
+// over its keys; group 1's is added to group 0's at the end.
+template <int DP>
+__global__ void __launch_bounds__(kTf32Threads) flash_dq_kernel_tf32(Args a) {
+  using S = Tf32Shape<DP>;
+  using namespace sdml_mma;
+  // q_w's and do_w's split fragments take 2 DP registers a lane: held
+  // across the loop up to dh 32, re-read from shared memory above
+  constexpr bool kHoldQD = DP <= 32;
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;    // the longest rows start first
+  const int T = a.T, dh = a.dh;
+  const bool vec = a.vec != 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = warp >> 2;                    // this warp's half of each k tile
+  const int g = lane >> 2, t4 = lane & 3;
+  const long long base = static_cast<long long>(bh) * T * dh;
+  const long long rbase = static_cast<long long>(bh) * T;
+  const float* q = static_cast<const float*>(a.q) + base;
+  const float* k = static_cast<const float*>(a.k) + base;
+  const float* v = static_cast<const float*>(a.v) + base;
+  const float* dout = static_cast<const float*>(a.dout) + base;
+
+  extern __shared__ uint4 smem_mma[];
+  float* q_s = reinterpret_cast<float*>(smem_mma); // [64, LD]
+  float* do_s = q_s + S::TILE;                     // [64, LD]
+  float* kv_s = do_s + S::TILE;                    // 2 stages of k, v [64, LD]
+
+  const int q0 = qt * kTile;
+  const int n_kt = (T + kTile - 1) / kTile;
+  const int last = min(n_kt - 1, qt);
+  load_tile_async<DP, kTf32Threads>(q_s, q, q0, T, dh, vec);
+  load_tile_async<DP, kTf32Threads>(do_s, dout, q0, T, dh, vec);
+  load_tile_async<DP, kTf32Threads>(kv_s, k, 0, T, dh, vec);
+  load_tile_async<DP, kTf32Threads>(kv_s + S::TILE, v, 0, T, dh, vec);
+  cp_async_commit();
+
+  // this lane's two rows g and g + 8 of the warp's 16, and their statistics
+  const int wr = (warp & 3) * 16;
+  const int r_lo = q0 + wr + g, r_hi = r_lo + 8;
+  const float m_lo = r_lo < T ? a.m[rbase + r_lo] : 0.f;
+  const float m_hi = r_hi < T ? a.m[rbase + r_hi] : 0.f;
+  const float li_lo = r_lo < T ? a.linv[rbase + r_lo] : 0.f;
+  const float li_hi = r_hi < T ? a.linv[rbase + r_hi] : 0.f;
+  const float dl_lo = r_lo < T ? a.delta[rbase + r_lo] : 0.f;
+  const float dl_hi = r_hi < T ? a.delta[rbase + r_hi] : 0.f;
+  // the last key any live row of this warp sees (-1: no live row)
+  const int kmax = q0 + wr < T ? min(q0 + wr + 15, T - 1) : -1;
+
+  cp_async_wait<0>();
+  __syncthreads();
+  SplitA qa[kHoldQD ? S::KS : 1], da[kHoldQD ? S::KS : 1];  // q_w, do_w as A operands
+  if constexpr (kHoldQD) {
+#pragma unroll
+    for (int s = 0; s < S::KS; ++s) {
+      lds_a_split<S::LD>(qa[s], q_s, wr, s, lane);
+      lds_a_split<S::LD>(da[s], do_s, wr, s, lane);
+    }
+  }
+  float acc[S::ND][4];
+#pragma unroll
+  for (int n = 0; n < S::ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+  for (int kt = 0; kt <= last; ++kt) {
+    if (kt < last) {                             // the next k, v tile, in flight
+      float* nxt = kv_s + ((kt + 1) & 1) * 2 * S::TILE;
+      load_tile_async<DP, kTf32Threads>(nxt, k, (kt + 1) * kTile, T, dh, vec);
+      load_tile_async<DP, kTf32Threads>(nxt + S::TILE, v, (kt + 1) * kTile, T, dh, vec);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();                          // this tile's copies have landed
+    __syncthreads();
+    const float* k_s = kv_s + (kt & 1) * 2 * S::TILE;
+    const float* v_s = k_s + S::TILE;
+    const int k0 = kt * kTile;
+#pragma unroll 1
+    for (int j0 = grp * kGroupCols; j0 < (grp + 1) * kGroupCols; j0 += S::SUB) {
+      const int kb = k0 + j0;
+      if (kb > kmax) break;                      // past every live row's diagonal
+      float s[S::NS][4], dp[S::NS][4];           // [q row, key] and [q row, key]
+#pragma unroll
+      for (int n = 0; n < S::NS; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < S::KS; ++ks) {
+        SplitA qf, df;
+        if constexpr (kHoldQD) {
+          qf = qa[ks];
+          df = da[ks];
+        } else {
+          lds_a_split<S::LD>(qf, q_s, wr, ks, lane);
+          lds_a_split<S::LD>(df, do_s, wr, ks, lane);
+        }
+#pragma unroll
+        for (int n = 0; n < S::NS; ++n) {
+          SplitB kf, vf;
+          lds_b_split<S::LD>(kf, k_s, j0 + 8 * n, ks, lane);
+          lds_b_split<S::LD>(vf, v_s, j0 + 8 * n, ks, lane);
+          mma_3xtf32(s[n], qf, kf);
+          mma_3xtf32(dp[n], df, vf);
+        }
+      }
+      // ds * scale in place of s; element i of n8 tile n sits at row
+      // g + 8 (i / 2), key kb + 8 n + 2 t4 + i % 2
+#pragma unroll
+      for (int n = 0; n < S::NS; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const bool hi = i >= 2;
+          const int qp = hi ? r_hi : r_lo;
+          const int kp = kb + 8 * n + 2 * t4 + (i & 1);
+          const bool live = qp >= kp && kp < T && qp < T;
+          const float p =
+              live ? expf(s[n][i] * a.scale - (hi ? m_hi : m_lo)) * (hi ? li_hi : li_lo)
+                   : 0.f;
+          s[n][i] = p * (dp[n][i] - (hi ? dl_hi : dl_lo)) * a.scale;
+        }
+      }
+      // dq += (ds * scale) . k over this sub-block's keys: n8 tile kk of ds
+      // is the k8 slice of keys kb + 8 kk .. + 7, in acc_a_split's order
+#pragma unroll
+      for (int kk = 0; kk < S::NS; ++kk) {
+        SplitA sa;
+        acc_a_split(sa, s[kk]);
+#pragma unroll
+        for (int d = 0; d < S::ND; ++d) {
+          SplitB kf;
+          lds_bt_split<S::LD>(kf, k_s, j0 + 8 * kk, 8 * d, lane);
+          mma_3xtf32(acc[d], sa, kf);
+        }
+      }
+    }
+    __syncthreads();                             // this stage is free for kt + 2
+  }
+
+  // group 1 hands its partial dq to group 0 through the (now idle) k/v
+  // stages, as a [64, LD] tile
+  cp_async_wait<0>();
+  float* dq_s = kv_s;
+  const int row_lo = wr + g, row_hi = row_lo + 8;
+  if (grp == 1) {
+#pragma unroll
+    for (int n = 0; n < S::ND; ++n) {
+      const int col = 8 * n + 2 * t4;
+      *reinterpret_cast<float2*>(dq_s + row_lo * S::LD + col) =
+          make_float2(acc[n][0], acc[n][1]);
+      *reinterpret_cast<float2*>(dq_s + row_hi * S::LD + col) =
+          make_float2(acc[n][2], acc[n][3]);
+    }
+  }
+  __syncthreads();
+  if (grp == 1) return;
+#pragma unroll
+  for (int n = 0; n < S::ND; ++n) {
+    const int col = 8 * n + 2 * t4;
+    const float2 x_lo = *reinterpret_cast<const float2*>(dq_s + row_lo * S::LD + col);
+    const float2 x_hi = *reinterpret_cast<const float2*>(dq_s + row_hi * S::LD + col);
+    acc[n][0] += x_lo.x;
+    acc[n][1] += x_lo.y;
+    acc[n][2] += x_hi.x;
+    acc[n][3] += x_hi.y;
+  }
+  float* dq = static_cast<float*>(a.dq) + base;
+#pragma unroll
+  for (int n = 0; n < S::ND; ++n) {
+    const int col = 8 * n + 2 * t4;
+    if (r_lo < T) store_pair(dq + static_cast<long long>(r_lo) * dh + col, acc[n][0],
+                             acc[n][1], col, dh);
+    if (r_hi < T) store_pair(dq + static_cast<long long>(r_hi) * dh + col, acc[n][2],
+                             acc[n][3], col, dh);
+  }
+}
+
 // K3 in f32: one block per (b*h, 64 k rows), warp w owning k rows
 // 16 (w % 4)..16 (w % 4) + 15 and the queries [32 g, 32 g + 32) of every q
 // tile for group g = w / 4, scores computed transposed ([key, query]) as in
@@ -1343,30 +1366,24 @@ cudaError_t launch_kernel(void (*kernel)(Args), const Args& a, int BH, int threa
   return cudaGetLastError();
 }
 
-// the SIMT K2, f32: q, do, k, v [64, dh + 1], the ds tile and 3 row vectors
-template <int JD>
-cudaError_t launch_dq_simt(const Args& a, int BH, cudaStream_t stream) {
-  const size_t tile = static_cast<size_t>(kTile) * (a.dh + 1);
-  const size_t smem = (4 * tile + kTile * kLdS + 3 * kTile) * sizeof(float);
-  return launch_kernel(flash_dq_kernel<JD>, a, BH, kThreads, smem, stream);
-}
-
 template <int DP>
 cudaError_t launch_tf32(Pass pass, const Args& a, int BH, cudaStream_t stream) {
   constexpr size_t tile = static_cast<size_t>(Tf32Shape<DP>::TILE) * sizeof(float);
-  if (pass == kForward) {                        // q + 2 stages of k, v
-    return launch_kernel(flash_fwd_kernel_tf32<DP>, a, BH, kTf32Threads, 5 * tile, stream);
-  }                                              // k, v + 2 stages of q, do, rows
-  return launch_kernel(flash_dkv_kernel_tf32<DP>, a, BH, kTf32Threads,
-                       6 * tile + 2 * 3 * kTile * sizeof(float), stream);
+  switch (pass) {
+    case kForward:                               // q + 2 stages of k, v
+      return launch_kernel(flash_fwd_kernel_tf32<DP>, a, BH, kTf32Threads, 5 * tile,
+                           stream);
+    case kDq:                                    // q, do + 2 stages of k, v
+      return launch_kernel(flash_dq_kernel_tf32<DP>, a, BH, kTf32Threads, 6 * tile, stream);
+    default:                                     // k, v + 2 stages of q, do, rows
+      return launch_kernel(flash_dkv_kernel_tf32<DP>, a, BH, kTf32Threads,
+                           6 * tile + 2 * 3 * kTile * sizeof(float), stream);
+  }
 }
 
-// f32: K1 and K3 in split TF32 on the tensor cores, head dim padded to 16,
-// 32, 64 or 128; K2 on the CUDA cores
+// f32: K1-K3 in split TF32 on the tensor cores, head dim padded to 16, 32,
+// 64 or 128
 cudaError_t launch_f32(Pass pass, const Args& a, int BH, cudaStream_t stream) {
-  if (pass == kDq) {
-    return a.dh <= 64 ? launch_dq_simt<4>(a, BH, stream) : launch_dq_simt<8>(a, BH, stream);
-  }
   if (a.dh <= 16) return launch_tf32<16>(pass, a, BH, stream);
   if (a.dh <= 32) return launch_tf32<32>(pass, a, BH, stream);
   if (a.dh <= 64) return launch_tf32<64>(pass, a, BH, stream);

@@ -25,10 +25,9 @@ p·v, and ``ds·scale`` to k's (q's) dtype before the dq (dk) product. Masks:
 ``qpos >= kpos & kpos < T`` in the forward, ``& qpos < T`` in the backward,
 with the finite ``NEG_INF`` and ``l`` floored at ``1e-30``. The bf16 K1-K3
 run every product on the tensor cores (``mma.sync``: bf16 operands, f32
-sums, the same casts); the f32 K1 and K3 too, in split TF32 (each operand
-hi + lo in TF32, three products summed in f32: close to f32 accuracy); the
-f32 K2 computes on the CUDA cores in f32. p and ds stay in registers in
-every tensor-core kernel.
+sums, the same casts); the f32 K1-K3 too, in split TF32 (each operand
+hi + lo in TF32, three products summed in f32: close to f32 accuracy).
+p and ds stay in registers in every kernel.
 
 On a CPU tensor every wrapper computes its plain version
 (:func:`flash_forward_reference`, :func:`flash_backward_reference`) —

@@ -7,9 +7,9 @@ without JAX; the repo's ``tests/conftest.py`` sets JAX up, so skip it there:
     python -m pytest --noconftest -m cuda tests/test_torch_*_cuda.py
 
 Without a card every test here skips. In bf16 all three kernels run on
-the tensor cores; in f32 K1 and K3 run on them in split TF32 (three TF32
-products per f32 one, close to f32 accuracy) and K2 on the CUDA cores.
-Tolerances are ``chip_smoke.py``'s:
+the tensor cores; in f32 they run on them in split TF32 (three TF32
+products per f32 one, close to f32 accuracy). Tolerances are
+``chip_smoke.py``'s:
 f32 ``(o, l, m)`` within rtol = atol = 1e-5 (f32 sums in another order),
 f32 gradients within 1e-4 (the JAX package's gradient tolerance,
 ``tests/test_flash_attention.py``), bf16 outputs within two bf16 ulps at 1.0
@@ -51,15 +51,17 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# (dtype, [B, H, T, dh]): f32 (split-TF32 K1 and K3, SIMT K2) and bf16
-# (tensor-core K1-K3) at one T row (1), one row past a tile (65), a ragged
-# tail (200) and whole tiles (256), for head dims padded to 16 (8, the
-# smallest instantiation), 32, 64 and 128 and one that is not a multiple of
-# 16 (40); f32 also at the full-prefix decoder's shape (one sequence of the
-# serving model: 8 heads x 256 x 64)
+# (dtype, [B, H, T, dh]): f32 (split-TF32 K1-K3) and bf16 (tensor-core
+# K1-K3) at one T row (1), one row past a tile (65), a ragged tail (200)
+# and whole tiles (256), for head dims padded to 16 (8, the smallest
+# instantiation), 32, 64 and 128 and one that is not a multiple of 16 (40);
+# f32 also at the full-prefix decoder's shape (one sequence of the serving
+# model: 8 heads x 256 x 64) and the tiny ``gpt`` row's (batch 32, 4 heads
+# x 64 x 32)
 _CASES = ([(torch.float32, (2, 4, t, dh)) for dh in (8, 32, 40, 64, 128)
            for t in (1, 65, 200, 256)]
-          + [(torch.float32, (1, 8, 256, 64))]
+          + [(torch.float32, (1, 8, 256, 64)),
+             (torch.float32, (32, 4, 64, 32))]
           + [(torch.bfloat16, (2, 4, t, dh)) for dh in (32, 64, 128, 40)
              for t in (1, 65, 200, 256)]
           + [(torch.bfloat16, (2, 4, t, 8)) for t in (65, 200)])

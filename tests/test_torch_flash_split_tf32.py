@@ -1,14 +1,16 @@
 """The numerics of the f32 flash kernels' split-TF32 design, on the CPU.
 
-The f32 K1 (forward) and K3 (dk/dv) in ``ops/csrc/flash_attention.cu`` run
-every product on the TF32 tensor cores as three products: each f32 operand
+The f32 K1 (forward), K2 (dq) and K3 (dk/dv) in
+``ops/csrc/flash_attention.cu`` run every product on the TF32 tensor cores
+as three products: each f32 operand
 is split as ``x = hi + lo`` with both parts rounded to TF32 (nearest, ties
 away from zero), and ``a·b`` becomes ``lo_a·hi_b + hi_a·lo_b + hi_a·hi_b``
 summed in f32 (``ops/csrc/mma_tf32.cuh``). No card is needed to check that
 this keeps the kernels' parity: here the same rounding is emulated in
 torch by bit masking, the products are taken as the design takes them, and
 the result is held against the plain versions (``flash_forward_reference``,
-``flash_dkv_reference``) and the JAX kernel in Pallas interpret mode, with
+``flash_dq_reference``, ``flash_dkv_reference``) and the JAX kernels in
+Pallas interpret mode, with
 ``chip_smoke.py``'s ``FLASH_TOL``: f32 ``(o, l, m)`` within rtol = atol =
 1e-5, f32 gradients within 1e-4. Single-pass TF32, which the design
 rejects, misses the forward's limit at the full-prefix decoder's shape;
@@ -21,6 +23,7 @@ model's 8 heads x 256 x 64). Inputs come from numpy seeds.
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -83,6 +86,19 @@ def forward(q, k, v, mm):
     l = p.sum(-1)
     o = mm(p, v) / torch.clamp_min(l, 1e-30)[..., None]
     return o, l, m
+
+
+def dq(q, k, v, do, m, linv, delta, mm):
+    """K2's function with its three products through ``mm``: ``dq``."""
+    t, dh = q.shape[2], q.shape[3]
+    scale = 1.0 / math.sqrt(dh)
+    pos = torch.arange(t)
+    live = pos[:, None] >= pos[None, :]
+    s = mm(q, k.transpose(-1, -2)) * scale
+    p = torch.where(live, torch.exp(s - m[..., None]) * linv[..., None], 0.0)
+    dp = mm(do, v.transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    return mm(ds, k)
 
 
 def dkv(q, k, v, do, m, linv, delta, mm):
@@ -160,6 +176,38 @@ def test_split_tf32_dkv_matches_plain(shape):
     got = dkv(q, k, v, do, m, linv, delta, mm_split)
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.numpy(), r.numpy(), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("shape", [GPT_ROW, DECODE])
+def test_split_tf32_dq_matches_plain(shape):
+    """K2's design, its three products in split TF32, against the plain
+    version within the f32 gradient limit, fed the plain forward's
+    statistics as the kernel is."""
+    q, k, v, do = _inputs(sum(shape) + 2, shape, n=4)
+    o, l, m = tfa.flash_forward_reference(q, k, v)
+    linv, delta = tfa._backward_stats(o, l, do)
+    ref = tfa.flash_dq_reference(q, k, v, do, m, linv, delta)
+    got = dq(q, k, v, do, m, linv, delta, mm_split)
+    print(f"split TF32 dq at {shape}: max abs gap to the plain version "
+          f"{float((got - ref).abs().max()):.3e}")
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), **GRAD_TOL)
+
+
+def test_split_tf32_dq_matches_jax_kernel():
+    """At one small shape, the card's f32 chain in split TF32 (K1's
+    statistics into K2) against the JAX package's dq, taken by
+    ``jax.grad`` through its custom_vjp: the Pallas ``_dq_kernel`` in
+    interpret mode (blocks of 16), for the cotangent of ``sum(o * w)``."""
+    q, k, v, w = _inputs(11, (2, 3, 64, 32), n=4)
+
+    def loss(q, k, v):
+        return jnp.sum(jfa.flash_attention(q, k, v, 16, 16) * w.numpy())
+
+    jdq = jax.grad(loss)(*(jnp.asarray(a.numpy()) for a in (q, k, v)))
+    o, l, m = forward(q, k, v, mm_split)
+    linv, delta = tfa._backward_stats(o, l, w)
+    got = dq(q, k, v, w, m, linv, delta, mm_split)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jdq), **GRAD_TOL)
 
 
 def test_split_tf32_forward_matches_jax_kernel():
