@@ -17,13 +17,15 @@ or without the port beside it. Phases, each fatal on failure:
    or the f32 K2 or K3 at a head dim up to 64, fails), and the count of
    tensor-core (``HMMA``) instructions in each kernel's SASS
    (``cuobjdump``): all 12 bf16 and all 12 f32 (split-TF32) K1-K3
-   instantiations must have some, K4 and F1 none;
+   instantiations and the 6 wide ones (head dims past 128, both dtypes)
+   must have some, K4 and F1 none;
 2. every kernel against its plain PyTorch version on the card, at the
    serving shapes (H = 8, dh = 64, block 16, 8 slots, positions up to
    255), for every cache dtype and K = 1 and 4, within rtol = atol =
    1e-5 (both read the same stored bytes); a narrow pool's answer also
    within ``tests/tolerances.py::attn_tol`` of the unquantised f32
    pool's; then K4's edge cases (``K4_EDGES``: head dims 40, 128, 256,
+   320 and 512 (past 256: chunks of 256 output columns, f32 and int8),
    phase 8's head dims 16 (blocks of 8) and 32, blocks of 8 and 32, a table longer than the warp count, K = 4 and 8, a
    slot at position 0 beside a trash-routed one, a non-contiguous and a
    misaligned pool view) against the plain version; then K4 with more
@@ -35,13 +37,18 @@ or without the port beside it. Phases, each fatal on failure:
    flushed before each call, the flushes' own time subtracted; median of 5
    runs) beside its plain version and its bound, and K4 must beat its
    plain version at the f32 K = 1 case; so are the speculative verify's
-   cases (f32, 4 slots, K = 4 and K = 16);
+   cases (f32, 4 slots, K = 4 and K = 16) and the decode tick's at head
+   dims 256 and 512 (``K4_HEAD_DIMS``, f32 and int8);
    then the flash kernels K1 (forward), K2 (dq) and K3 (dk/dv) against
    their plain versions, f32 and bf16, at the training shape (16, 8, 256,
    64), at a ragged T = 200 and at the tiny row's (32, 4, 64, 32), and in
    both dtypes at the edges of the tensor-core kernels (head dims 8, 32,
-   40 and 128, T = 1, 65 and 200), within ``FLASH_TOL``, timed the same way
-   beside their bounds (the f32 rows also beside the bound at the CUDA
+   40 and 128, and the wide kernels' 160, 192, 256, 320 and 512, T = 1, 65
+   and 200), within ``FLASH_TOL``; then at ``FLASH_WIDE_SHAPES`` (phase
+   23's attention, 2 x 16 heads x 2048 x 256, and 8 heads of 512), in
+   both dtypes, timed (runs of 10, median of 3) beside their bounds and
+   SDPA's forward and backward. The training shape's rows are timed the
+   same way beside their bounds (the f32 rows also beside the bound at the CUDA
    cores' 67 TFLOP/s) and the library yardstick
    (``scaled_dot_product_attention``, forward and backward; K1 against
    SDPA's forward and K2 + K3 against SDPA's backward, each on one line,
@@ -427,13 +434,27 @@ or without the port beside it. Phases, each fatal on failure:
    which equal ``make_cached_decoder``'s on the live params. The host ms
    per decoded token of (b) and (c) is printed; the K1-K3 launches of
    (b)-(d) go into the ``kernels`` line.
+23. a GPT at GPT-J-6B's widths (``GPTJ_CFG``: d 4096, 16 heads of 256,
+   seq 2048, vocab 256, 2 of its 28 layers, 413 M parameters; random
+   weights from seed 0), through the port's entry points on the card: (a)
+   one-stage ``Pipeline`` training in f32 and in bf16, batch 2: the first
+   step's loss and gradients against an ``attn_impl="dense"`` twin's on
+   the same weights and batch (``GPTJ_TOL``), then 3 AdamW steps
+   (``make_train_step``) with finite losses, K1-K3 (the wide kernels, at
+   [2, 16, 2048, 256]) exactly ``n_layers`` times a step; (b)
+   ``make_decoder`` greedy in f32, 8 tokens from a 64-token prompt, K1
+   once per layer per token, the tokens equal to the dense decoder's; (c)
+   ``InferenceEngine(attn_kernel="fused")`` serving 4 greedy requests
+   (prompts 16-64, 8 new tokens) through K4 at head dim 256, K4 launched
+   ``n_layers`` times per decode call, every stream equal to solo decode
+   (``make_cached_decoder``). Its launches go into the ``kernels`` line.
 
 The phases run in two lanes. The first, this process, runs phases 1-4
 alone: the kernels' times and phase 4's breakdown are taken with nothing
 else on the card. It then starts the second lane, ``chip_smoke.py --lane``
 (a process of its own, stopped with its children if this one fails or
-it runs past ``LANE_DEADLINE_S``), which runs phases 16-18 and phase 19's
-(a) and (d) (they read phases 17 and 18's records), while this process
+it runs past ``LANE_DEADLINE_S``), which runs phases 16-18, phase 19's
+(a) and (d) (they read phases 17 and 18's records) and phase 23, while this process
 runs phases 8, 9, 11, 12, 5, 6, 7, 10, 13, 14, 15, 19 (b)-(c), 20
 (a)-(d), 21 and 22 (b)-(d). It then waits for the second lane, prints its output,
 adds its records and launch counts to its own, and runs phase 20 (e)
@@ -492,7 +513,15 @@ FLASH_TINY_SHAPE = (32, 4, 64, 32)
 # smallest instantiation) at T = 65, 200
 FLASH_EDGES = ([(2, 4, t, dh) for dh in (32, 40, 128) for t in (1, 65, 200)]
                + [(2, 4, t, 64) for t in (1, 65)]
-               + [(2, 4, t, 8) for t in (65, 200)])
+               + [(2, 4, t, 8) for t in (65, 200)]
+               # past dh 128, the wide kernels: 256-byte slices of the
+               # contraction, output column chunks (K1, K2 128; K3 64)
+               + [(2, 4, t, dh) for dh in (160, 192, 256, 320, 512)
+                  for t in (1, 65, 200)])
+# the wide kernels timed, both dtypes: phase 23's GPT-J-width attention
+# (batch 2, 16 heads x 2048 x 256) and the same width at head dim 512 (8
+# heads)
+FLASH_WIDE_SHAPES = ((2, 16, 2048, 256), (2, 8, 2048, 512))
 # (rtol, atol) of each flash kernel against its plain version, keyed by
 # (dtype, is a row statistic l/m, is a gradient): f32 at 1e-5 (o, l, m) and
 # 1e-4 (dq, dk, dv: tests/test_flash_attention.py's gradient tolerance);
@@ -529,7 +558,10 @@ K4_EDGES = [("float32", 1, dict(dh=40)), ("float32", 1, dict(dh=128)),
             ("float32", 8, {}), ("int8", 8, dict(dh=128)),
             ("float8_e4m3fn", 4, dict(dh=40, bs=32)),
             ("float32", 1, dict(layout="block-major")),
-            ("bfloat16", 4, dict(layout="misaligned"))]
+            ("bfloat16", 4, dict(layout="misaligned")),
+            # past 256 columns: chunks of 256, a block each
+            ("float32", 1, dict(dh=320)), ("int8", 1, dict(dh=320)),
+            ("float32", 4, dict(dh=512)), ("int8", 8, dict(dh=512))]
 SERVE_CFG = dict(vocab=8192, seq_len=256, d_model=512, n_heads=8, n_layers=4)
 SERVE_SLOTS, SERVE_BLOCK = 8, 16
 # bench.py's gpt_bf16 and gpt rows (bench.py::_configs), trained on the
@@ -559,6 +591,8 @@ SERVE_SIM = dict(n_requests=24, rate=32.0, seed=0, prompt_lens=(8, 16, 32),
 # and the speculative verify's timed cases (f32, 4 slots); phase 3b's
 # drives: JAX bench.py's SPEC_BENCH_K = 4 on 4 slots, and spec_k 12
 K4_MULTI_GROUP = (9, 12, 16)
+# K4 timed at phase 23's head dim and past the 256 columns a block makes
+K4_HEAD_DIMS = (("float32", 256), ("float32", 512), ("int8", 512))
 SPEC_SLOTS, SPEC_K, SPEC_K_WIDE = 4, 4, 12
 SPEC_WORKLOAD = dict(n_requests=24, prompt_lens=(8, 16, 32), max_new=24)
 # phase 7, the reference's main path: bench.py::_configs's mlp2 and mlp4
@@ -843,9 +877,25 @@ DECODE_SWEEP_T = (64, 128)
 FULL_DECODE = dict(batch=2, t0=16, n_new=32, seed=22)
 DECODE_LOGP_TOL = 1e-4
 PIPE_DECODE = dict(t0=16, n_new=16, steps=3)
-# the second lane (phases 16-18 and 19 (a), (d)) must end this many
+# the second lane (phases 16-18, 19 (a), (d) and 23) must end this many
 # seconds after the script starts; it is stopped then
 LANE_DEADLINE_S = 1100
+# phase 23: a GPT at GPT-J-6B's widths (EleutherAI's config: n_embd 4096,
+# n_head 16, so head dim 256; n_positions 2048) in the repo's own block
+# (learned positions, no rotary), cut from 28 layers to 2; vocab 256 (the
+# repo's byte-level corpus). Random weights from seed 0.
+GPTJ_CFG = dict(vocab=256, seq_len=2048, d_model=4096, n_heads=16,
+                mlp_ratio=4, n_layers=2)
+GPTJ_TRAIN = dict(batch=2, steps=3)
+GPTJ_DECODE = dict(t0=64, n_new=8, seed=25)
+GPTJ_SERVE = dict(n_slots=4, prompt_lens=(16, 32, 48, 64), max_new=8)
+# (loss rtol, gradients' relative L2 distance) of the first step, flash
+# against dense on the same weights and batch: f32 at the f32 kernels'
+# 1e-5 / 1e-4 (summation order); bf16 at the gpt_bf16 row's loss limit
+# (2e-3: the dense bf16 path rounds scores and probabilities to bf16, the
+# kernels keep them in f32) and 5e-2 for the gradients, whose bf16
+# products round p and ds at other places in each path
+GPTJ_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-3, 5e-2)}
 
 
 class SmokeFailure(RuntimeError):
@@ -1049,10 +1099,11 @@ def phase_build(record: dict) -> None:
               f" bytes  {name}")
     held = [n for n in ptxas if _no_spill_required(n)]
     # a fresh build reports the 12 K1-K3 variants at dh <= 64 (bf16 K1,
-    # f32 K1, f32 K2 and f32 K3, each 16 / 32 / 64) and K4's 18 (5 storage
-    # types x K up to 1, 4, 8, and f32 at dh > 128)
-    check(not ptxas or len(held) == 12 + 18,
-          f"ptxas reported {len(held)} K1-K3/K4 kernels, not 30: {held}")
+    # f32 K1, f32 K2 and f32 K3, each 16 / 32 / 64) and K4's 33 (5 storage
+    # types x K up to 1, 4, 8, f32 at 128 < dh <= 256, and the 15 of the
+    # chunks past 256)
+    check(not ptxas or len(held) == 12 + 33,
+          f"ptxas reported {len(held)} K1-K3/K4 kernels, not 45: {held}")
     spills = [n for n in held if ptxas[n].get("spill_stores", 0)
               or ptxas[n].get("spill_loads", 0)]
     check(not spills, f"K4, K1 or the f32 K2 or K3 at dh <= 64 spills "
@@ -1066,12 +1117,12 @@ def phase_build(record: dict) -> None:
         print(f"chip_smoke:   SASS HMMA {n:5d}  {name}")
 
     def tensor_core(name):
-        return "_bf16_mma" in name or "_tf32" in name
+        return "_bf16_mma" in name or "_tf32" in name or "_wide" in name
 
     mma = {n: c for n, c in hmma.items() if tensor_core(n)}
     # the bf16 and the f32 (HMMA.1688.F32.TF32) K1, K2 and K3, each at head
-    # dims padded to 16, 32, 64, 128
-    check(len(mma) == 24 and all(c > 0 for c in mma.values()),
+    # dims padded to 16, 32, 64, 128, and the wide K1-K3 in both dtypes
+    check(len(mma) == 30 and all(c > 0 for c in mma.values()),
           f"the bf16 and f32 K1-K3 kernels are not all on the tensor "
           f"cores: {mma}")
     simt = {n: c for n, c in {**hmma, **k4_hmma}.items()
@@ -1309,6 +1360,27 @@ def phase_kernels(record: dict) -> dict:
               f"({v['bound_by']}): {v['ms'] / v['bound_ms']:.1f}x the bound")
         check(ok and wide_ok, f"paged_attention spec verify K={K} "
                               f"disagrees: {v}")
+    # the decode tick at phase 23's head dim (256, the PR 4 path) and past
+    # it (512: chunks of 256 columns), f32 and int8, 8 slots, K = 1
+    head_dims = []
+    for name, dh in K4_HEAD_DIMS:
+        c = _pool_case(name, 1, gen, dev, dh=dh)
+        args = (c["q"], c["kc"], c["vc"], c["tables"], c["qpos"])
+        kw = dict(block_size=c["bs"], kscale=c["kscale"], vscale=c["vscale"])
+        v, ok, wide_ok = _against_plain(name, c)
+        v["bound_ms"], v["bound_by"] = _bound(c)
+        v["ms"] = time_ms(lambda: paged_attention(*args, **kw), flush)
+        v["plain_ms"] = time_ms(
+            lambda: paged_attention_reference(*args, **kw), flush)
+        head_dims.append(v)
+        print(f"chip_smoke: paged_attention {name} K=1 dh={dh}: vs plain max "
+              f"abs {v['max_abs_err']:.3e} {'ok' if ok else 'FAIL'}; kernel "
+              f"{v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, bound "
+              f"{v['bound_ms']:.4f} ms ({v['bound_by']}): "
+              f"{v['ms'] / v['bound_ms']:.1f}x the bound")
+        check(ok and wide_ok, f"paged_attention {name} dh={dh} disagrees: "
+                              f"{v}")
+    record["kernel_head_dims"] = head_dims
     print("chip_smoke: paged_attention library_ms: none — no single "
           "PyTorch call computes block-table-gathered attention "
           "(scaled_dot_product_attention needs the rows gathered first)")
@@ -1316,7 +1388,7 @@ def phase_kernels(record: dict) -> dict:
     record["kernel_edges"] = edges
     record["kernel_multi_group"] = multi
     record["kernel_spec_verify"] = spec_timed
-    return variants + edges + multi + spec_timed
+    return variants + edges + multi + spec_timed + head_dims
 
 
 def _flash_work(name: str, shape, dtype) -> tuple[int, int]:
@@ -1400,9 +1472,14 @@ def phase_flash_kernels(record: dict) -> list[dict]:
              ("float32", FLASH_TINY_SHAPE)]
     cases += [(dtype, shape) for dtype in ("bfloat16", "float32")
               for shape in FLASH_EDGES]
-    timed = {("bfloat16", FLASH_SHAPE), ("float32", FLASH_TINY_SHAPE)}
+    wide = [(dtype, shape) for shape in FLASH_WIDE_SHAPES
+            for dtype in ("bfloat16", "float32")]
+    cases += wide
+    timed = {("bfloat16", FLASH_SHAPE), ("float32", FLASH_TINY_SHAPE), *wide}
     out = []
     for dtype, shape in cases:
+        # the wide shapes' calls take milliseconds: fewer of them
+        n, reps = (10, 3) if (dtype, shape) in wide else (40, 5)
         q, k, v, do = _flash_inputs(shape, dtype, gen, dev)
         o_ref, l_ref, m_ref = fa.flash_forward_reference(q, k, v)
         linv, delta = fa._backward_stats(o_ref, l_ref, do)
@@ -1427,9 +1504,9 @@ def phase_flash_kernels(record: dict) -> list[dict]:
                 return torch.autograd.grad(sdpa(), (qg, kg, vg), do)
 
             fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True), flush)
+                q, k, v, is_causal=True), flush, n, reps)
             lib = {"flash_forward": fwd_ms,
-                   "backward": time_ms(sdpa_fb, flush) - fwd_ms}
+                   "backward": time_ms(sdpa_fb, flush, n, reps) - fwd_ms}
         for name, (kernel, plain) in runs.items():
             got, ref = kernel(), plain()
             torch.cuda.synchronize()
@@ -1450,8 +1527,8 @@ def phase_flash_kernels(record: dict) -> list[dict]:
                         f"{p} {e:.3e}" for p, e in errs.items())
                     + f" {'ok' if ok else 'FAIL'}")
             if lib:
-                v_["ms"] = time_ms(kernel, flush)
-                v_["plain_ms"] = time_ms(plain, flush)
+                v_["ms"] = time_ms(kernel, flush, n, reps)
+                v_["plain_ms"] = time_ms(plain, flush, n, reps)
                 v_["bound_ms"], v_["bound_by"] = _flash_bound(name, shape,
                                                               dtype)
                 v_["library_ms"] = lib.get(name, lib["backward"])
@@ -1492,6 +1569,26 @@ def phase_flash_kernels(record: dict) -> list[dict]:
     record["flash_backward_f32_vs_sdpa"] = dict(k2_k3_ms=bwd32,
                                                 sdpa_backward_ms=sdpa32,
                                                 ratio=bwd32 / sdpa32)
+    record["flash_wide"] = []
+    for dtype, shape in wide:
+        w = {v["name"]: v for v in out if v["dtype"] == dtype
+             and tuple(v["shape"]) == shape}
+        k23 = w["flash_dq"]["ms"] + w["flash_dkv"]["ms"]
+        row = dict(dtype=dtype, shape=list(shape),
+                   k1_ms=w["flash_forward"]["ms"],
+                   k1_bound_ms=w["flash_forward"]["bound_ms"],
+                   sdpa_forward_ms=w["flash_forward"]["library_ms"],
+                   k2_k3_ms=k23, sdpa_backward_ms=w["flash_dq"]["library_ms"],
+                   k2_k3_bound_ms=(w["flash_dq"]["bound_ms"]
+                                   + w["flash_dkv"]["bound_ms"]))
+        record["flash_wide"].append(row)
+        print(f"chip_smoke: wide K1 {dtype} {shape}: {row['k1_ms']:.4f} ms "
+              f"(bound {row['k1_bound_ms']:.4f}) against SDPA's forward "
+              f"{row['sdpa_forward_ms']:.4f} ms: "
+              f"{row['k1_ms'] / row['sdpa_forward_ms']:.2f}x; K2 + K3 "
+              f"{k23:.4f} ms (bound {row['k2_k3_bound_ms']:.4f}) against "
+              f"SDPA's backward {row['sdpa_backward_ms']:.4f} ms: "
+              f"{k23 / row['sdpa_backward_ms']:.2f}x")
     print("chip_smoke: flash library_ms: K1's is "
           "scaled_dot_product_attention(is_causal=True); K2's and K3's are "
           "both SDPA's whole backward (forward + autograd.grad, less the "
@@ -8117,8 +8214,208 @@ def phase_full_prefix_decode(record: dict) -> tuple[int, int, int]:
     return (k1 + pipe[0], pipe[1], pipe[2])
 
 
+# -- phase 23 ------------------------------------------------------------------
+
+def _gptj_pair(dtype: str | None):
+    """Phase 23's flash build of ``GPTJ_CFG`` and its dense twin on the
+    same weights (seed 0), each as a one-stage ``Pipeline`` (``dtype``: its
+    compute dtype); ``(cfg, flash stages, dense stages, flash pipe, dense
+    pipe)``."""
+    import torch
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        GPTConfig,
+        make_gpt_stages,
+    )
+    from simple_distributed_machine_learning_tpu_torch.parallel import (
+        Pipeline,
+    )
+    cfg = GPTConfig(**GPTJ_CFG, attn_impl="flash")
+    stages, wd, od = make_gpt_stages(0, cfg, 1)
+    dense = make_gpt_stages(0, GPTConfig(**GPTJ_CFG, attn_impl="dense"),
+                            1)[0]
+    check(all(torch.equal(a, b) for a, b in zip(
+        stages[0].params.state_dict().values(),
+        dense[0].params.state_dict().values())),
+          "23: the dense twin holds other weights")
+    cd = dtype and getattr(torch, dtype)
+    return (cfg, stages, dense, Pipeline(stages, None, wd, od,
+                                         compute_dtype=cd),
+            Pipeline(dense, None, wd, od, compute_dtype=cd))
+
+
+def _gptj_train(dtype: str | None, rec: dict) -> tuple[int, int, int]:
+    """23 (a): the first step's loss and gradients, flash against dense
+    on the same weights and batch, then ``GPTJ_TRAIN['steps']`` AdamW steps
+    through ``make_train_step``; returns the flash launches."""
+    import math
+
+    import torch
+    from simple_distributed_machine_learning_tpu_torch.train import (
+        adamw,
+        make_train_step,
+    )
+    name = dtype or "float32"
+    cfg, stages, dense, pipe, dpipe = _gptj_pair(dtype)
+    b, steps = GPTJ_TRAIN["batch"], GPTJ_TRAIN["steps"]
+    gen = torch.Generator().manual_seed(23)
+    shape = (steps, b, cfg.seq_len)
+    xs = torch.randint(0, cfg.vocab, shape, generator=gen).float().cuda()
+    ts = torch.randint(0, cfg.vocab, shape, generator=gen).cuda()
+    params = pipe.init_params()
+    _reset_flash_counts()
+    loss, grads = pipe.loss_and_grads(params, xs[0], ts[0], 0,
+                                      deterministic=True)
+    first = _flash_counts()
+    check(first == (cfg.n_layers,) * 3,
+          f"23 {name}: one step launched K1/K2/K3 {first} times, not "
+          f"{cfg.n_layers} each")
+    dloss, dgrads = dpipe.loss_and_grads(dpipe.init_params(), xs[0], ts[0],
+                                         0, deterministic=True)
+    check(_flash_counts() == first, f"23 {name}: the dense run launched "
+                                    f"a flash kernel")
+    loss_rel = abs(float(loss) - float(dloss)) / abs(float(dloss))
+    num = sum(float((g.float() - d.float()).pow(2).sum())
+              for g, d in zip(grads, dgrads))
+    den = sum(float(d.float().pow(2).sum()) for d in dgrads)
+    grad_rel = math.sqrt(num / den)
+    del grads, dgrads, dpipe, dense
+    loss_tol, grad_tol = GPTJ_TOL[name]
+    print(f"chip_smoke: 23 (a) {name}: first step flash vs dense loss "
+          f"{float(loss):.6f} / {float(dloss):.6f}, rel diff "
+          f"{loss_rel:.3e} (limit {loss_tol}); gradients' relative L2 "
+          f"distance {grad_rel:.3e} (limit {grad_tol})")
+    check(loss_rel <= loss_tol and grad_rel <= grad_tol,
+          f"23 {name}: flash and dense differ at the first step: loss "
+          f"{loss_rel}, gradients {grad_rel}")
+    opt = adamw(1e-4)
+    state = opt.init(params)
+    step = make_train_step(pipe, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_flash_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(steps):
+        params, state, loss = step(params, state, xs[i], ts[i], 0)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    counts = _flash_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_params = sum(p.numel() for p in stages[0].params.parameters())
+    print(f"chip_smoke: 23 (a) {name}: {steps} AdamW steps at batch {b} x "
+          f"{cfg.seq_len} ({n_params} params), losses "
+          + ", ".join(f"{v:.4f}" for v in losses)
+          + f"; K1/K2/K3 {counts}; {step_ms:.1f} host ms a step (the first "
+          f"included), peak {peak:.2f} GiB")
+    check(all(math.isfinite(v) for v in losses),
+          f"23 {name}: non-finite loss {losses}")
+    check(counts == (cfg.n_layers * steps,) * 3,
+          f"23 {name}: {steps} steps launched K1/K2/K3 {counts} times")
+    rec[f"train {name}"] = dict(
+        loss_rel=loss_rel, grad_rel=grad_rel, losses=losses,
+        launches=counts, step_ms=step_ms, peak_gib=peak, n_params=n_params)
+    return tuple(a + c for a, c in zip(first, counts))
+
+
+def _gptj_decode_serve(rec: dict) -> tuple[int, int]:
+    """23 (b) and (c): ``make_decoder`` greedy, flash against dense, and
+    ``InferenceEngine`` through K4 against solo decode; returns the K1 and
+    K4 launches."""
+    import numpy as np
+    import torch
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        make_cached_decoder,
+        make_decoder,
+    )
+    from simple_distributed_machine_learning_tpu_torch.ops.paged_attention import (  # noqa: E501
+        paged_attention,
+    )
+    from simple_distributed_machine_learning_tpu_torch.ops.random import (
+        key_data,
+    )
+    from simple_distributed_machine_learning_tpu_torch.serve import (
+        InferenceEngine,
+    )
+    cfg, stages, dense, _, _ = _gptj_pair(None)
+    params = [s.params for s in stages]
+    t0, n_new = GPTJ_DECODE["t0"], GPTJ_DECODE["n_new"]
+    prompt = _decode_prompt(params, cfg.vocab, t0, 1, GPTJ_DECODE["seed"])
+    dec = make_decoder(stages, t0, n_new)
+    dec(params, prompt)                          # warm-up
+    torch.cuda.synchronize()
+    _reset_flash_counts()
+    t = time.perf_counter()
+    toks = dec(params, prompt)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) * 1e3 / n_new
+    k1 = _flash_counts()
+    want = make_decoder(dense, t0, n_new)(params, prompt)
+    check(k1 == (cfg.n_layers * n_new, 0, 0),
+          f"23 (b): make_decoder launched K1/K2/K3 {k1} times, not "
+          f"({cfg.n_layers * n_new}, 0, 0)")
+    same = torch.equal(toks.long(), want.long())
+    print(f"chip_smoke: 23 (b) make_decoder f32 {n_new} tokens from a "
+          f"{t0}-token prompt: K1 {k1[0]} launches at [1, {cfg.n_heads}, "
+          f"{cfg.seq_len}, {cfg.d_model // cfg.n_heads}], {host_ms:.1f} host "
+          f"ms a token; tokens {toks[0, t0:].tolist()} equal the dense "
+          f"decoder's: {same}")
+    check(same, f"23 (b): flash tokens {toks.tolist()} != dense "
+                f"{want.tolist()}")
+    engine = InferenceEngine(stages, cfg, n_slots=GPTJ_SERVE["n_slots"],
+                             block_size=SERVE_BLOCK, attn_kernel="fused")
+    rng = np.random.default_rng(GPTJ_DECODE["seed"])
+    paged_attention.launches = 0
+    calls = _decode_calls_of(engine)
+    c0 = calls[0]
+    handles = [engine.submit(rng.integers(0, cfg.vocab, n).astype(np.int32),
+                             max_new_tokens=GPTJ_SERVE["max_new"])
+               for n in GPTJ_SERVE["prompt_lens"]]
+    t = time.perf_counter()
+    engine.drain()
+    wall = time.perf_counter() - t
+    k4, decode = paged_attention.launches, calls[0] - c0
+    same_solo = 0
+    for h in handles:
+        n = int(h.prompt.shape[0])
+        solo = make_cached_decoder(stages, cfg, n, h.max_new_tokens)(
+            params, h.prompt[None], key_data(h.seed))
+        same_solo += solo[0, n:].tolist() == h.tokens
+    print(f"chip_smoke: 23 (c) InferenceEngine (fused, {len(handles)} "
+          f"requests, prompts {GPTJ_SERVE['prompt_lens']}, "
+          f"{GPTJ_SERVE['max_new']} new): {wall:.2f} s, K4 {k4} launches = "
+          f"{cfg.n_layers} layers x {decode} decode calls: "
+          f"{k4 == cfg.n_layers * decode}; greedy streams equal to solo "
+          f"decode {same_solo}/{len(handles)}")
+    check(all(len(h.tokens) == h.max_new_tokens for h in handles),
+          "23 (c): a request did not finish")
+    check(decode > 0 and k4 == cfg.n_layers * decode,
+          f"23 (c): K4 launches {k4} != {cfg.n_layers} x {decode}")
+    check(same_solo == len(handles),
+          f"23 (c): {len(handles) - same_solo} greedy streams differ from "
+          f"solo decode")
+    rec["decode"] = dict(k1_launches=k1[0], host_ms_per_token=host_ms,
+                         tokens=toks[0, t0:].tolist(), equal_dense=same)
+    rec["serve"] = dict(k4_launches=k4, decode_calls=decode, wall_s=wall,
+                        equal_solo=same_solo, requests=len(handles))
+    return k1[0], k4
+
+
+def phase_gptj(record: dict) -> tuple[tuple[int, int, int], int]:
+    """23: ``GPTJ_CFG`` trains (f32, bf16), decodes and serves on the
+    card; returns its K1-K3 and K4 launches."""
+    rec = record.setdefault("gptj", {})
+    f32 = _gptj_train(None, rec)
+    gc.collect()
+    bf16 = _gptj_train("bfloat16", rec)
+    gc.collect()
+    k1, k4 = _gptj_decode_serve(rec)
+    gc.collect()
+    return (f32[0] + bf16[0] + k1, f32[1] + bf16[1], f32[2] + bf16[2]), k4
+
+
 def lane_main(out_path: str) -> int:
-    """The second lane: phases 16-18 and 19 (a), (d) in a process of
+    """The second lane: phases 16-18, 19 (a), (d) and 23 in a process of
     their own, beside the first lane's serving, stages, linter and
     cross-process serving phases. Its records and launch counts go to
     ``out_path``."""
@@ -8142,14 +8439,16 @@ def lane_main(out_path: str) -> int:
         secs["18"] = time.perf_counter() - t - sum(secs.values())
         overlap_flash, cli_k4 = phase_overlap_training(record)
         secs["19 (a), (d)"] = time.perf_counter() - t - sum(secs.values())
+        gptj_flash, gptj_k4 = phase_gptj(record)
+        secs["23"] = time.perf_counter() - t - sum(secs.values())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     flash = [process_launches[i] + spep_launches[i] + overlap_flash[i]
-             for i in range(3)]
+             + gptj_flash[i] for i in range(3)]
     with open(out_path, "w") as f:
-        json.dump({"record": record, "flash": flash, "k4": cli_k4,
-                   "seconds": secs}, f)
+        json.dump({"record": record, "flash": flash,
+                   "k4": cli_k4 + gptj_k4, "seconds": secs}, f)
     return 0
 
 
@@ -8178,11 +8477,11 @@ def join_lane(proc, tmp: str, deadline: float) -> dict:
     except subprocess.TimeoutExpired:
         rc = None
     text = _lane_log(tmp)
-    check(rc == 0, f"the second lane (phases 16-18, 19 (a) and (d)) "
+    check(rc == 0, f"the second lane (phases 16-18, 19 (a), (d) and 23) "
                    f"{'ran past its deadline' if rc is None else f'exited {rc}'}"
                    f": {text[-4000:]}")
-    print("chip_smoke: the second lane's output (phases 16-18, 19 (a) and "
-          "(d), run beside phases 8-15, 19 (b)-(c), 20 and 21):")
+    print("chip_smoke: the second lane's output (phases 16-18, 19 (a), (d) "
+          "and 23, run beside phases 8-15, 19 (b)-(c), 20-22):")
     sys.stdout.write(text)
     with open(os.path.join(tmp, "lane.json")) as f:
         return json.load(f)

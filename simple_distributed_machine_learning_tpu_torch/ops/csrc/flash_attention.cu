@@ -98,6 +98,10 @@
 //   memory: K1 q + 2 x (k, v), 87 KB at dh 64, 169 KB at 128; K2 q, do + 2
 //   x (k, v), 102 KB / 198 KB; K3 k, v + 2 x (q, do, rows), 106 KB / 204
 //   KB.
+// Head dims above 128, which the JAX kernels take by padding to a multiple
+// of 128 lanes, run the wide kernels (both dtypes, their section below):
+// the contraction over dh streamed in 256-byte slices, the outputs made in
+// column chunks, so that every head dim >= 1 fits a block.
 // The next steps are wgmma and TMA.
 
 #include <cuda_runtime.h>
@@ -111,7 +115,6 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kTile = 64;                  // q rows and k rows per tile
-constexpr int kMaxHeadDim = 128;
 
 struct Args {
   const void* q;       // [BH, T, dh], contiguous, all four in the dtype
@@ -153,19 +156,20 @@ struct MmaShape {
   static constexpr int TILE = kTile * LD;       // bf16 per [64, LD] tile
 };
 
-// rows [r0, r0 + 64) of a contiguous [T, dh] slab of E (bf16 or f32) into
-// a [64, DP + W] shared tile, W = the E in 16 bytes (one chunk of row pad:
-// MmaShape / Tf32Shape's LD), by a block of NT threads: 16-byte cp.async
-// chunks where the slab allows (vec), else element copies; rows at or past
-// T and columns at or past dh are zero
+// rows [r0, r0 + 64) x columns [c0, c0 + DP) of a contiguous [T, dh] slab
+// of E (bf16 or f32) into a [64, DP + W] shared tile, W = the E in 16 bytes
+// (one chunk of row pad: MmaShape / Tf32Shape / WideShape's LD), by a block
+// of NT threads: 16-byte cp.async chunks where the slab allows (vec; c0 a
+// multiple of W), else element copies; rows at or past T and columns at or
+// past dh are zero
 template <int DP, int NT, typename E>
 __device__ __forceinline__ void load_tile_async(E* dst, const E* src, int r0, int T, int dh,
-                                                bool vec) {
+                                                bool vec, int c0 = 0) {
   constexpr int W = 16 / sizeof(E), LD = DP + W, CH = DP / W;
   for (int i = threadIdx.x; i < kTile * CH; i += NT) {
-    const int r = i / CH, c = (i - r * CH) * W;
+    const int r = i / CH, c = c0 + (i - r * CH) * W;
     const int row = r0 + r;
-    E* d = dst + r * LD + c;
+    E* d = dst + r * LD + (c - c0);
     if (row < T && c < dh) {
       const E* s = src + static_cast<long long>(row) * dh + c;
       if (vec) {
@@ -1352,6 +1356,590 @@ __global__ void __launch_bounds__(kTf32Threads) flash_dkv_kernel_tf32(Args a) {
   }
 }
 
+// ---- K1-K3 at head dims above 128, both dtypes: the wide kernels ------------------
+//
+// Past dh 128 the tilings above do not fit: their tiles hold whole rows of
+// dh in shared memory (f32 K1-K3 at dh 256: 338-408 KB a block, past the
+// 227 KB a block may have) and their accumulators whole rows of the output
+// in registers (a warp's 16 rows of a 256-wide f32 accumulator are 128
+// registers a thread; K3 holds two). The wide kernels bound both for every
+// head dim:
+// - the contraction over dh (s = q.k^T, dp = do.v^T) is streamed in slices
+//   of DS columns, 256 bytes a row (128 bf16, 64 f32): a slice of each
+//   operand is a [64, DS + pad] tile of 17 KB, and the score accumulators
+//   of a warp are its 16 rows x 64 keys (or queries), whatever dh;
+// - the outputs are produced in column chunks of DC (K1 o and K2 dq: 128;
+//   K3 dk and dv: 64 each, so its two accumulators stay 64 registers), one
+//   chunk after the other by a loop inside the block: for each chunk the
+//   block walks its k (K3: q) tiles again and recomputes the scores over
+//   the whole contraction. So the grid stays (b*h, 64-row tile), the other
+//   side's tiles and the chunks are loops, and the products of the scores
+//   are done once per chunk (at dh 256: K1 and K2 twice, K3 four times;
+//   the price of any head dim in a bounded block).
+// Every step of the walk copies at most two 17 KB tiles through a 2-stage
+// cp.async ring (69.6 KB a block, 71.1 KB for K3 with its row statistics):
+// a q and a k slice (s), a do and a v slice (dp), then the chunk's v (K1),
+// k (K2) or do and q (K3) columns for the product that uses p or ds. Four
+// warps each own 16 rows; p and ds stay in registers (the A operands of
+// the next product, as above), through the same fragment code as the
+// narrow kernels (WarpMma: mma.sync m16n8k16 bf16, or split TF32 m16n8k8
+// f32). Each k tile runs as one 64-key block: the online softmax of K1
+// takes the tile's max over all 64 keys at once (the narrow kernels: 16 or
+// 32), and the diagonal tile computes its masked keys rather than skip
+// them. m and l are K1's at dh <= 128 in every way but the order of the
+// f32 sums; chunk 0 writes them.
+
+constexpr int kWideWarps = 4;
+constexpr int kWideThreads = 32 * kWideWarps;
+
+// Shapes of the wide kernels for element type E (bf16 or f32)
+template <typename E>
+struct WideShape {
+  static constexpr int PAD = 16 / sizeof(E);     // one 16-byte chunk of row pad
+  static constexpr int DS = 256 / sizeof(E);     // contraction columns per slice
+  static constexpr int LDS = DS + PAD;
+  static constexpr int SLOT = kTile * LDS;       // elements of one slice tile
+  static constexpr int DC = 128;                 // K1 o / K2 dq columns per chunk
+  static constexpr int LDC = DC + PAD;
+  static constexpr int DC3 = 64;                 // K3 dk, dv columns per chunk
+  static constexpr int LDC3 = DC3 + PAD;
+  static constexpr size_t STAGES = 4 * static_cast<size_t>(SLOT) * sizeof(E);
+};
+
+static_assert(kTile * WideShape<float>::LDC <= 2 * WideShape<float>::SLOT &&
+                  kTile * WideShape<__nv_bfloat16>::LDC <= 2 * WideShape<__nv_bfloat16>::SLOT,
+              "a K1 / K2 chunk tile fits one stage of two slots");
+static_assert(WideShape<float>::LDC3 <= WideShape<float>::LDS &&
+                  WideShape<__nv_bfloat16>::LDC3 <= WideShape<__nv_bfloat16>::LDS,
+              "a K3 chunk tile fits one slot");
+
+// A warp's products on the tensor cores, for the wide kernels:
+//   xyT: s[n] += X[xr0 + 0..15, 0..KW) . Y[yr0 + 8 n + 0..7, 0..KW)^T;
+//   pY:  acc[d] += round_E(P) . Y[yr0 + 0..8 NN, 8 d + 0..7], P the warp's NN
+//        m16n8 accumulators (16 rows x 8 NN columns) as the A operand.
+template <typename E>
+struct WarpMma;
+
+template <>
+struct WarpMma<__nv_bfloat16> {
+  using E = __nv_bfloat16;
+  template <int LDX, int LDY, int NN, int KW>
+  static __device__ __forceinline__ void xyT(float (&s)[NN][4], const E* x, int xr0,
+                                             const E* y, int yr0, int lane) {
+    using namespace sdml_mma;
+#pragma unroll
+    for (int ks = 0; ks < KW / 16; ++ks) {
+      uint32_t af[4];
+      ldmatrix_x4(af, x + a_off<LDX>(xr0, ks, lane));
+#pragma unroll
+      for (int n2 = 0; n2 < NN / 2; ++n2) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, y + b_off<LDY>(yr0 + 16 * n2, ks, lane));
+        mma_bf16_16816(s[2 * n2], af, bf[0], bf[1]);
+        mma_bf16_16816(s[2 * n2 + 1], af, bf[2], bf[3]);
+      }
+    }
+  }
+  template <int LDY, int NN, int ND>
+  static __device__ __forceinline__ void pY(float (&acc)[ND][4], const float (&p)[NN][4],
+                                            const E* y, int yr0, int lane) {
+    using namespace sdml_mma;
+#pragma unroll
+    for (int kk = 0; kk < NN / 2; ++kk) {
+      uint32_t af[4];
+      pack_a<NN>(af, p, kk);
+#pragma unroll
+      for (int d2 = 0; d2 < ND / 2; ++d2) {
+        uint32_t f[4];
+        ldmatrix_x4_trans(f, y + bt_off<LDY>(yr0 + 16 * kk, 16 * d2, lane));
+        mma_bf16_16816(acc[2 * d2], af, f[0], f[1]);
+        mma_bf16_16816(acc[2 * d2 + 1], af, f[2], f[3]);
+      }
+    }
+  }
+};
+
+template <>
+struct WarpMma<float> {
+  // A slice's products sum in fresh accumulators (half the n8 tiles at a
+  // time), added to s in f32 once per slice: the tensor cores round their
+  // f32 sums toward zero, so one accumulator carried through a 512-wide
+  // contraction (192 products a value) drifts past the 1e-5 of l and m,
+  // where a slice's chain (24) stays as short as the dh 64 kernels'.
+  template <int LDX, int LDY, int NN, int KW>
+  static __device__ __forceinline__ void xyT(float (&s)[NN][4], const float* x, int xr0,
+                                             const float* y, int yr0, int lane) {
+    using namespace sdml_mma;
+    constexpr int NH = NN / 2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float part[NH][4];
+#pragma unroll
+      for (int n = 0; n < NH; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) part[n][i] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KW / 8; ++ks) {
+        SplitA af;
+        lds_a_split<LDX>(af, x, xr0, ks, lane);
+#pragma unroll
+        for (int n = 0; n < NH; ++n) {
+          SplitB bf;
+          lds_b_split<LDY>(bf, y, yr0 + 8 * (h * NH + n), ks, lane);
+          mma_3xtf32(part[n], af, bf);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NH; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[h * NH + n][i] += part[n][i];
+    }
+  }
+  // n8 tile kk of P is the k8 slice of Y's rows yr0 + 8 kk .. + 7, in
+  // acc_a_split's order (lds_bt_split loads them so)
+  template <int LDY, int NN, int ND>
+  static __device__ __forceinline__ void pY(float (&acc)[ND][4], const float (&p)[NN][4],
+                                            const float* y, int yr0, int lane) {
+    using namespace sdml_mma;
+#pragma unroll
+    for (int kk = 0; kk < NN; ++kk) {
+      SplitA pa;
+      acc_a_split(pa, p[kk]);
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        SplitB f;
+        lds_bt_split<LDY>(f, y, yr0 + 8 * kk, 8 * d, lane);
+        mma_3xtf32(acc[d], pa, f);
+      }
+    }
+  }
+};
+
+template <int ND>
+__device__ __forceinline__ void zero_acc(float (&c)[ND][4]) {
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[n][i] = 0.f;
+}
+
+// A wide kernel walks (chunk c, other-side tile t in [t0, t1], step s in
+// [0, last_s]) in that nesting; (c, t, s) becomes the step after it
+__device__ __forceinline__ void next_step(int& c, int& t, int& s, int last_s, int t0, int t1) {
+  if (++s > last_s) {
+    s = 0;
+    if (++t > t1) {
+      t = t0;
+      ++c;
+    }
+  }
+}
+
+// K1, wide: one block per (b*h, 64 q rows), warp w owning q rows
+// 16w..16w+15. Per chunk c and k tile kt: ns steps of s += q_s.k_s^T, then
+// the step that takes the online softmax over the tile's 64 keys and
+// adds round_E(p) . v[:, chunk c].
+template <typename E>
+__global__ void __launch_bounds__(kWideThreads) flash_fwd_kernel_wide(Args a) {
+  using S = WideShape<E>;
+  using M = WarpMma<E>;
+  using namespace sdml_mma;
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;    // the longest rows start first
+  const int T = a.T, dh = a.dh;
+  const bool vec = a.vec != 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const long long base = static_cast<long long>(bh) * T * dh;
+  const long long rbase = static_cast<long long>(bh) * T;
+  const E* q = static_cast<const E*>(a.q) + base;
+  const E* k = static_cast<const E*>(a.k) + base;
+  const E* v = static_cast<const E*>(a.v) + base;
+  E* o = static_cast<E*>(a.o) + base;
+
+  extern __shared__ uint4 smem_mma[];
+  E* ring = reinterpret_cast<E*>(smem_mma);      // 2 stages of 2 slots
+
+  const int q0 = qt * kTile;
+  const int last = min((T + kTile - 1) / kTile - 1, qt);
+  const int ns = (dh + S::DS - 1) / S::DS;
+  const int nch = (dh + S::DC - 1) / S::DC;
+  const int wr = warp * 16;
+  const int r_lo = q0 + wr + g, r_hi = r_lo + 8;
+  const bool live_w = q0 + wr < T;               // this warp has a row below T
+
+  // step s < ns: the q and k slices s of k tile kt; s == ns: v's chunk c
+  auto issue = [&](int c, int kt, int s, int stage) {
+    E* dst = ring + stage * 2 * S::SLOT;
+    if (s < ns) {
+      load_tile_async<S::DS, kWideThreads>(dst, q, q0, T, dh, vec, s * S::DS);
+      load_tile_async<S::DS, kWideThreads>(dst + S::SLOT, k, kt * kTile, T, dh, vec,
+                                           s * S::DS);
+    } else {
+      load_tile_async<S::DC, kWideThreads>(dst, v, kt * kTile, T, dh, vec, c * S::DC);
+    }
+  };
+
+  float acc[S::DC / 8][4], sc[8][4];
+  float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
+  int c = 0, kt = 0, s = 0, stage = 0;
+  issue(0, 0, 0, 0);
+  cp_async_commit();
+#pragma unroll 1
+  for (;;) {
+    int nc = c, nkt = kt, nss = s;
+    next_step(nc, nkt, nss, ns, 0, last);
+    const bool more = nc < nch;
+    if (more) issue(nc, nkt, nss, stage ^ 1);    // the next step's tiles, in flight
+    cp_async_commit();
+    cp_async_wait<1>();                          // this step's copies have landed
+    __syncthreads();
+    const E* x = ring + stage * 2 * S::SLOT;
+    if (kt == 0 && s == 0) {                     // a new chunk
+      zero_acc(acc);
+      m_lo = m_hi = kNegInf;
+      l_lo = l_hi = 0.f;
+    }
+    if (s == 0) zero_acc(sc);
+    if (live_w && s < ns) {
+      M::template xyT<S::LDS, S::LDS, 8, S::DS>(sc, x, wr, x + S::SLOT, 0, lane);
+    } else if (live_w) {
+      // element i of n8 tile n sits at row g + 8 (i / 2), key
+      // kb + 8 n + 2 t4 + i % 2; live: qpos >= kpos and kpos < T
+      const int kb = kt * kTile;
+      bool live[8][4];
+      float mx_lo = kNegInf, mx_hi = kNegInf;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kp = kb + 8 * n + 2 * t4 + (i & 1);
+          live[n][i] = (i < 2 ? r_lo : r_hi) >= kp && kp < T;
+          sc[n][i] = live[n][i] ? sc[n][i] * a.scale : kNegInf;
+        }
+        mx_lo = fmaxf(mx_lo, fmaxf(sc[n][0], sc[n][1]));
+        mx_hi = fmaxf(mx_hi, fmaxf(sc[n][2], sc[n][3]));
+      }
+#pragma unroll
+      for (int sh = 1; sh <= 2; sh <<= 1) {      // over the quad holding a row
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, sh));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, sh));
+      }
+      const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+      const float c_lo = expf(m_lo - mn_lo), c_hi = expf(m_hi - mn_hi);
+      float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = live[n][i] ? expf(sc[n][i] - (i < 2 ? mn_lo : mn_hi)) : 0.f;
+          sc[n][i] = p;
+          if (i < 2) sum_lo += p; else sum_hi += p;
+        }
+      }
+#pragma unroll
+      for (int sh = 1; sh <= 2; sh <<= 1) {
+        sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, sh);
+        sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, sh);
+      }
+      l_lo = l_lo * c_lo + sum_lo;               // the unrounded f32 p
+      l_hi = l_hi * c_hi + sum_hi;
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+#pragma unroll
+      for (int n = 0; n < S::DC / 8; ++n) {
+        acc[n][0] *= c_lo;
+        acc[n][1] *= c_lo;
+        acc[n][2] *= c_hi;
+        acc[n][3] *= c_hi;
+      }
+      M::template pY<S::LDC, 8, S::DC / 8>(acc, sc, x, 0, lane);
+    }
+    __syncthreads();                             // this stage is free for the step after next
+    if (s == ns && kt == last) {                 // chunk c is complete
+      const float den_lo = fmaxf(l_lo, 1e-30f), den_hi = fmaxf(l_hi, 1e-30f);
+#pragma unroll
+      for (int n = 0; n < S::DC / 8; ++n) {
+        const int col = c * S::DC + 8 * n + 2 * t4;
+        if (r_lo < T) store_pair(o + static_cast<long long>(r_lo) * dh + col,
+                                 acc[n][0] / den_lo, acc[n][1] / den_lo, col, dh);
+        if (r_hi < T) store_pair(o + static_cast<long long>(r_hi) * dh + col,
+                                 acc[n][2] / den_hi, acc[n][3] / den_hi, col, dh);
+      }
+      if (c == 0 && t4 == 0) {                   // the quad's lanes agree
+        if (r_lo < T) {
+          a.l[rbase + r_lo] = l_lo;
+          a.m[rbase + r_lo] = m_lo;
+        }
+        if (r_hi < T) {
+          a.l[rbase + r_hi] = l_hi;
+          a.m[rbase + r_hi] = m_hi;
+        }
+      }
+    }
+    if (!more) break;
+    c = nc;
+    kt = nkt;
+    s = nss;
+    stage ^= 1;
+  }
+}
+
+// K2, wide: one block per (b*h, 64 q rows), warp w owning q rows
+// 16w..16w+15. Per chunk c and k tile kt: ns steps of s += q_s.k_s^T, ns of
+// dp += do_s.v_s^T, then the step that forms ds and adds
+// round_E(ds * scale) . k[:, chunk c].
+template <typename E>
+__global__ void __launch_bounds__(kWideThreads) flash_dq_kernel_wide(Args a) {
+  using S = WideShape<E>;
+  using M = WarpMma<E>;
+  using namespace sdml_mma;
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;    // the longest rows start first
+  const int T = a.T, dh = a.dh;
+  const bool vec = a.vec != 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const long long base = static_cast<long long>(bh) * T * dh;
+  const long long rbase = static_cast<long long>(bh) * T;
+  const E* q = static_cast<const E*>(a.q) + base;
+  const E* k = static_cast<const E*>(a.k) + base;
+  const E* v = static_cast<const E*>(a.v) + base;
+  const E* dout = static_cast<const E*>(a.dout) + base;
+  E* dq = static_cast<E*>(a.dq) + base;
+
+  extern __shared__ uint4 smem_mma[];
+  E* ring = reinterpret_cast<E*>(smem_mma);      // 2 stages of 2 slots
+
+  const int q0 = qt * kTile;
+  const int last = min((T + kTile - 1) / kTile - 1, qt);
+  const int ns = (dh + S::DS - 1) / S::DS;
+  const int nch = (dh + S::DC - 1) / S::DC;
+  const int wr = warp * 16;
+  const int r_lo = q0 + wr + g, r_hi = r_lo + 8;
+  const bool live_w = q0 + wr < T;
+  const float m_lo = r_lo < T ? a.m[rbase + r_lo] : 0.f;
+  const float m_hi = r_hi < T ? a.m[rbase + r_hi] : 0.f;
+  const float li_lo = r_lo < T ? a.linv[rbase + r_lo] : 0.f;
+  const float li_hi = r_hi < T ? a.linv[rbase + r_hi] : 0.f;
+  const float dl_lo = r_lo < T ? a.delta[rbase + r_lo] : 0.f;
+  const float dl_hi = r_hi < T ? a.delta[rbase + r_hi] : 0.f;
+
+  // step s < ns: q and k slices s; s < 2 ns: do and v slices s - ns;
+  // s == 2 ns: k's chunk c
+  auto issue = [&](int c, int kt, int s, int stage) {
+    E* dst = ring + stage * 2 * S::SLOT;
+    const int k0 = kt * kTile;
+    if (s < 2 * ns) {
+      const bool d = s >= ns;
+      const int c0 = (d ? s - ns : s) * S::DS;
+      load_tile_async<S::DS, kWideThreads>(dst, d ? dout : q, q0, T, dh, vec, c0);
+      load_tile_async<S::DS, kWideThreads>(dst + S::SLOT, d ? v : k, k0, T, dh, vec, c0);
+    } else {
+      load_tile_async<S::DC, kWideThreads>(dst, k, k0, T, dh, vec, c * S::DC);
+    }
+  };
+
+  float acc[S::DC / 8][4], sc[8][4], dp[8][4];
+  int c = 0, kt = 0, s = 0, stage = 0;
+  issue(0, 0, 0, 0);
+  cp_async_commit();
+#pragma unroll 1
+  for (;;) {
+    int nc = c, nkt = kt, nss = s;
+    next_step(nc, nkt, nss, 2 * ns, 0, last);
+    const bool more = nc < nch;
+    if (more) issue(nc, nkt, nss, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const E* x = ring + stage * 2 * S::SLOT;
+    if (kt == 0 && s == 0) zero_acc(acc);
+    if (s == 0) {
+      zero_acc(sc);
+      zero_acc(dp);
+    }
+    if (live_w && s < ns) {
+      M::template xyT<S::LDS, S::LDS, 8, S::DS>(sc, x, wr, x + S::SLOT, 0, lane);
+    } else if (live_w && s < 2 * ns) {
+      M::template xyT<S::LDS, S::LDS, 8, S::DS>(dp, x, wr, x + S::SLOT, 0, lane);
+    } else if (live_w) {
+      // ds * scale in place of s; element i of n8 tile n sits at row
+      // g + 8 (i / 2), key kb + 8 n + 2 t4 + i % 2
+      const int kb = kt * kTile;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const bool hi = i >= 2;
+          const int qp = hi ? r_hi : r_lo;
+          const int kp = kb + 8 * n + 2 * t4 + (i & 1);
+          const bool live = qp >= kp && kp < T && qp < T;
+          const float p =
+              live ? expf(sc[n][i] * a.scale - (hi ? m_hi : m_lo)) * (hi ? li_hi : li_lo)
+                   : 0.f;
+          sc[n][i] = p * (dp[n][i] - (hi ? dl_hi : dl_lo)) * a.scale;
+        }
+      }
+      M::template pY<S::LDC, 8, S::DC / 8>(acc, sc, x, 0, lane);
+    }
+    __syncthreads();
+    if (s == 2 * ns && kt == last) {             // chunk c is complete
+#pragma unroll
+      for (int n = 0; n < S::DC / 8; ++n) {
+        const int col = c * S::DC + 8 * n + 2 * t4;
+        if (r_lo < T) store_pair(dq + static_cast<long long>(r_lo) * dh + col, acc[n][0],
+                                 acc[n][1], col, dh);
+        if (r_hi < T) store_pair(dq + static_cast<long long>(r_hi) * dh + col, acc[n][2],
+                                 acc[n][3], col, dh);
+      }
+    }
+    if (!more) break;
+    c = nc;
+    kt = nkt;
+    s = nss;
+    stage ^= 1;
+  }
+}
+
+// K3, wide: one block per (b*h, 64 k rows), warp w owning k rows
+// 16w..16w+15, scores transposed ([key, query]) as in the narrow K3. Per
+// chunk c and q tile qt from the diagonal on: ns steps of
+// s^T += k_s.q_s^T, ns of dp^T += v_s.do_s^T, then the step that forms p^T
+// and ds^T from the q tile's row statistics and adds round_E(p)^T .
+// do[:, chunk c] to dv and round_E(ds * scale)^T . q[:, chunk c] to dk.
+template <typename E>
+__global__ void __launch_bounds__(kWideThreads) flash_dkv_kernel_wide(Args a) {
+  using S = WideShape<E>;
+  using M = WarpMma<E>;
+  using namespace sdml_mma;
+  const int bh = blockIdx.x;
+  const int kt = blockIdx.y;                     // the longest columns start first
+  const int T = a.T, dh = a.dh;
+  const bool vec = a.vec != 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const long long base = static_cast<long long>(bh) * T * dh;
+  const long long rbase = static_cast<long long>(bh) * T;
+  const E* q = static_cast<const E*>(a.q) + base;
+  const E* k = static_cast<const E*>(a.k) + base;
+  const E* v = static_cast<const E*>(a.v) + base;
+  const E* dout = static_cast<const E*>(a.dout) + base;
+  E* dk = static_cast<E*>(a.dk) + base;
+  E* dv = static_cast<E*>(a.dv) + base;
+
+  extern __shared__ uint4 smem_mma[];
+  E* ring = reinterpret_cast<E*>(smem_mma);      // 2 stages of 2 slots
+  float* st_s = reinterpret_cast<float*>(ring + 4 * S::SLOT);  // 2 x m, linv, delta [64]
+
+  const int k0 = kt * kTile;
+  const int n_qt = (T + kTile - 1) / kTile;
+  const int ns = (dh + S::DS - 1) / S::DS;
+  const int nch = (dh + S::DC3 - 1) / S::DC3;
+  const int wr = warp * 16;
+  const int kr0 = k0 + wr;                       // this warp's first key
+  const bool live_w = kr0 < T;
+
+  // step s < ns: k and q slices s; s < 2 ns: v and do slices s - ns;
+  // s == 2 ns: do's and q's chunk c, and the q tile's row statistics
+  auto issue = [&](int c, int qt, int s, int stage) {
+    E* dst = ring + stage * 2 * S::SLOT;
+    const int q0 = qt * kTile;
+    if (s < 2 * ns) {
+      const bool d = s >= ns;
+      const int c0 = (d ? s - ns : s) * S::DS;
+      load_tile_async<S::DS, kWideThreads>(dst, d ? v : k, k0, T, dh, vec, c0);
+      load_tile_async<S::DS, kWideThreads>(dst + S::SLOT, d ? dout : q, q0, T, dh, vec, c0);
+    } else {
+      load_tile_async<S::DC3, kWideThreads>(dst, dout, q0, T, dh, vec, c * S::DC3);
+      load_tile_async<S::DC3, kWideThreads>(dst + S::SLOT, q, q0, T, dh, vec, c * S::DC3);
+      float* rows = st_s + 3 * kTile * stage;
+      load_rows_async<kWideThreads>(rows, a.m + rbase, q0, T);
+      load_rows_async<kWideThreads>(rows + kTile, a.linv + rbase, q0, T);
+      load_rows_async<kWideThreads>(rows + 2 * kTile, a.delta + rbase, q0, T);
+    }
+  };
+
+  float acc_k[S::DC3 / 8][4], acc_v[S::DC3 / 8][4], st[8][4], dpt[8][4];
+  int c = 0, qt = kt, s = 0, stage = 0;
+  issue(0, kt, 0, 0);
+  cp_async_commit();
+#pragma unroll 1
+  for (;;) {
+    int nc = c, nqt = qt, nss = s;
+    next_step(nc, nqt, nss, 2 * ns, kt, n_qt - 1);
+    const bool more = nc < nch;
+    if (more) issue(nc, nqt, nss, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const E* x = ring + stage * 2 * S::SLOT;
+    if (qt == kt && s == 0) {
+      zero_acc(acc_k);
+      zero_acc(acc_v);
+    }
+    if (s == 0) {
+      zero_acc(st);
+      zero_acc(dpt);
+    }
+    if (live_w && s < ns) {
+      M::template xyT<S::LDS, S::LDS, 8, S::DS>(st, x, wr, x + S::SLOT, 0, lane);
+    } else if (live_w && s < 2 * ns) {
+      M::template xyT<S::LDS, S::LDS, 8, S::DS>(dpt, x, wr, x + S::SLOT, 0, lane);
+    } else if (live_w) {
+      // p^T in place of s^T and ds^T * scale in place of dp^T; element i of
+      // n8 tile n sits at key kr0 + g + 8 (i / 2), query column
+      // 8 n + 2 t4 + i % 2 of the tile
+      const float* m_s = st_s + 3 * kTile * stage;
+      const float* li_s = m_s + kTile;
+      const float* dl_s = li_s + kTile;
+      const int q0 = qt * kTile;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int col = 8 * n + 2 * t4;
+        const float mc[2] = {m_s[col], m_s[col + 1]};
+        const float lc[2] = {li_s[col], li_s[col + 1]};
+        const float dc[2] = {dl_s[col], dl_s[col + 1]};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = i & 1;
+          const int kp = kr0 + g + 8 * (i >> 1);
+          const int qp = q0 + col + j;
+          const bool live = qp >= kp && kp < T && qp < T;
+          const float p = live ? expf(st[n][i] * a.scale - mc[j]) * lc[j] : 0.f;
+          dpt[n][i] = p * (dpt[n][i] - dc[j]) * a.scale;
+          st[n][i] = p;
+        }
+      }
+      M::template pY<S::LDC3, 8, S::DC3 / 8>(acc_v, st, x, 0, lane);
+      M::template pY<S::LDC3, 8, S::DC3 / 8>(acc_k, dpt, x + S::SLOT, 0, lane);
+    }
+    __syncthreads();
+    if (s == 2 * ns && qt == n_qt - 1 && live_w) {  // chunk c is complete
+      const int r_lo = kr0 + g, r_hi = r_lo + 8;
+#pragma unroll
+      for (int n = 0; n < S::DC3 / 8; ++n) {
+        const int col = c * S::DC3 + 8 * n + 2 * t4;
+        if (r_lo < T) {
+          const long long at = static_cast<long long>(r_lo) * dh + col;
+          store_pair(dk + at, acc_k[n][0], acc_k[n][1], col, dh);
+          store_pair(dv + at, acc_v[n][0], acc_v[n][1], col, dh);
+        }
+        if (r_hi < T) {
+          const long long at = static_cast<long long>(r_hi) * dh + col;
+          store_pair(dk + at, acc_k[n][2], acc_k[n][3], col, dh);
+          store_pair(dv + at, acc_v[n][2], acc_v[n][3], col, dh);
+        }
+      }
+    }
+    if (!more) break;
+    c = nc;
+    qt = nqt;
+    s = nss;
+    stage ^= 1;
+  }
+}
+
 // ---- launch --------------------------------------------------------------------
 
 enum Pass { kForward = 0, kDq = 1, kDkv = 2 };
@@ -1381,13 +1969,28 @@ cudaError_t launch_tf32(Pass pass, const Args& a, int BH, cudaStream_t stream) {
   }
 }
 
+template <typename E>
+cudaError_t launch_wide(Pass pass, const Args& a, int BH, cudaStream_t stream) {
+  constexpr size_t ring = WideShape<E>::STAGES;  // 2 stages of 2 slice tiles
+  switch (pass) {
+    case kForward:
+      return launch_kernel(flash_fwd_kernel_wide<E>, a, BH, kWideThreads, ring, stream);
+    case kDq:
+      return launch_kernel(flash_dq_kernel_wide<E>, a, BH, kWideThreads, ring, stream);
+    default:                                     // and 2 x the q tile's rows
+      return launch_kernel(flash_dkv_kernel_wide<E>, a, BH, kWideThreads,
+                           ring + 2 * 3 * kTile * sizeof(float), stream);
+  }
+}
+
 // f32: K1-K3 in split TF32 on the tensor cores, head dim padded to 16, 32,
-// 64 or 128
+// 64 or 128; above 128 the wide kernels
 cudaError_t launch_f32(Pass pass, const Args& a, int BH, cudaStream_t stream) {
   if (a.dh <= 16) return launch_tf32<16>(pass, a, BH, stream);
   if (a.dh <= 32) return launch_tf32<32>(pass, a, BH, stream);
   if (a.dh <= 64) return launch_tf32<64>(pass, a, BH, stream);
-  return launch_tf32<128>(pass, a, BH, stream);
+  if (a.dh <= 128) return launch_tf32<128>(pass, a, BH, stream);
+  return launch_wide<float>(pass, a, BH, stream);
 }
 
 template <int DP>
@@ -1406,17 +2009,19 @@ cudaError_t launch_mma(Pass pass, const Args& a, int BH, cudaStream_t stream) {
   }
 }
 
-// the tensor-core K1-K3, head dim padded to 16, 32, 64 or 128
+// the tensor-core K1-K3, head dim padded to 16, 32, 64 or 128; above 128
+// the wide kernels
 cudaError_t launch_bf16(Pass pass, const Args& a, int BH, cudaStream_t stream) {
   if (a.dh <= 16) return launch_mma<16>(pass, a, BH, stream);
   if (a.dh <= 32) return launch_mma<32>(pass, a, BH, stream);
   if (a.dh <= 64) return launch_mma<64>(pass, a, BH, stream);
-  return launch_mma<128>(pass, a, BH, stream);
+  if (a.dh <= 128) return launch_mma<128>(pass, a, BH, stream);
+  return launch_wide<__nv_bfloat16>(pass, a, BH, stream);
 }
 
+// any head dim >= 1; T up to 65535 tiles (the grid's y axis)
 int launch(Pass pass, Args a, int BH, int dtype, void* stream) {
-  if (BH < 1 || BH > 2147483647 || a.T < 1 || a.T > 65535 * kTile || a.dh < 1 ||
-      a.dh > kMaxHeadDim) {
+  if (BH < 1 || BH > 2147483647 || a.T < 1 || a.T > 65535 * kTile || a.dh < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |

@@ -61,6 +61,15 @@
 //   enters a state, so its p is zero by the mask, not by the exponent.
 // - An odd head dim or a pool view whose rows are not aligned to the load
 //   width takes an element-wise load path inside the same kernel.
+// - Head dims above 256 (the JAX kernel takes any): the 32 lanes of a warp
+//   hold 256 output columns at most (8 each), so the output is made in
+//   chunks of 256 columns, one block per chunk (the grid's third axis runs
+//   over query groups x chunks). A block's ring loads its chunk's K and V
+//   columns as above; each row's score also needs the K columns of the
+//   other chunks, which its lanes read straight from the pool (no ring) and
+//   dot with q read from device memory. So a row's K bytes are read once
+//   per chunk, V's once: at dh 512 the kernel moves 1.5x its bound's
+//   bytes, a price paid only past 256.
 // The block table entries are read once per warp (a lane per entry, handed
 // round by shuffles), qpos once per thread.
 
@@ -74,7 +83,6 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kGroupQueries = 8;   // queries one block takes
-constexpr int kMaxHeadDim = 256;
 
 // Storage types: S is one stored element, V what a lane loads at once,
 // f() an element's f32 value.
@@ -134,12 +142,27 @@ struct Args {
   int KG;              // queries per group: min(K, kGroupQueries)
   int lpr, lpr_log2;   // lanes per row (a power of two)
   int vec;             // rows load as whole V chunks (dh and strides allow)
+  int nch;             // column chunks (dh > 256: ceil(dh / 256); else 1)
   long long k_sb, k_sh, k_sr, v_sb, v_sh, v_sr;        // element strides
   long long ks_sb, ks_sh, ks_sr, vs_sb, vs_sh, vs_sr;
   float scale;
 };
 
-template <class D, int KQ, int NCU>
+// a ring row's element offset in the pool, kept only where a block reads
+// the row's other column chunks (WIDE)
+template <bool WIDE>
+struct RowOffset {
+  __device__ __forceinline__ void set(long long) {}
+  __device__ __forceinline__ long long get() const { return 0; }
+};
+template <>
+struct RowOffset<true> {
+  long long off;
+  __device__ __forceinline__ void set(long long o) { off = o; }
+  __device__ __forceinline__ long long get() const { return off; }
+};
+
+template <class D, int KQ, int NCU, bool WIDE>
 __global__ void __launch_bounds__(32 * warps_for(KQ)) paged_attn_kernel(Args a) {
   using S = typename D::S;
   using V = typename D::V;
@@ -153,20 +176,25 @@ __global__ void __launch_bounds__(32 * warps_for(KQ)) paged_attn_kernel(Args a) 
   struct Row {
     Chunk k[NCU], v[NCU];
     float ks, vs;
+    RowOffset<WIDE> at;                          // WIDE: the K row's offset
   };
 
   const int s = blockIdx.x, h = blockIdx.y;
-  const int j0 = blockIdx.z * a.KG;              // the group's first query
+  // WIDE: the grid's third axis is (query group, column chunk ch)
+  const int grp = WIDE ? blockIdx.z / a.nch : blockIdx.z;
+  const int ch = WIDE ? blockIdx.z - grp * a.nch : 0;
+  const int j0 = grp * a.KG;                     // the group's first query
   const int K = min(a.KG, a.K - j0);             // queries of this group
   const int dh = a.dh, bs = a.bs, lpr = a.lpr;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rg = lane >> a.lpr_log2, cl = lane & (lpr - 1);
   const int rpw = 32 >> a.lpr_log2;              // rows a warp load covers
   const int nstep = (bs + rpw - 1) / rpw;        // loads per paged block
-  const int dhp = NCU * lpr * CPL;               // dh padded to the lanes
+  const int dhp = NCU * lpr * CPL;               // dh padded to the lanes (WIDE: a chunk)
+  const int cb = ch * dhp;                       // the chunk's first column
 
   extern __shared__ float smem[];
-  float* q_s = smem;                             // [K, dhp], 0 past dh
+  float* q_s = smem;                             // [K, dhp], 0 past dh (WIDE: the chunk's)
   float* red = q_s + K * dhp;                    // [W, K, dhp] warp accumulators
   float* ml = red + W * K * dhp;                 // [W, K, 2] warp (m, l)
 
@@ -174,7 +202,7 @@ __global__ void __launch_bounds__(32 * warps_for(KQ)) paged_attn_kernel(Args a) 
   const float* qg = a.q + row0 * dh;
   for (int i = threadIdx.x; i < K * dhp; i += 32 * W) {
     const int j = i / dhp, d = i - j * dhp;
-    q_s[i] = d < dh ? qg[j * dh + d] : 0.f;
+    q_s[i] = cb + d < dh ? qg[j * dh + cb + d] : 0.f;
   }
   int qp[KQ];
 #pragma unroll
@@ -202,11 +230,13 @@ __global__ void __launch_bounds__(32 * warps_for(KQ)) paged_attn_kernel(Args a) 
     }
     const int row = rg + l_step * rpw;
     const bool valid = row < bs && (warp + W * l_kbl) * bs + row <= last;
-    const S* kr = kc + phys * a.k_sb + h * a.k_sh + row * a.k_sr;
+    const long long koff = phys * a.k_sb + h * a.k_sh + row * a.k_sr;
+    const S* kr = kc + koff;
     const S* vr = vc + phys * a.v_sb + h * a.v_sh + row * a.v_sr;
+    r.at.set(koff);
 #pragma unroll
     for (int u = 0; u < NCU; ++u) {
-      const int c0 = (cl + u * lpr) * CPL;
+      const int c0 = cb + (cl + u * lpr) * CPL;
       const bool on = valid && c0 < dh;
       if (a.vec) {
         r.k[u].v = on ? __ldg(reinterpret_cast<const V*>(kr + c0)) : V{};
@@ -240,6 +270,37 @@ __global__ void __launch_bounds__(32 * warps_for(KQ)) paged_attn_kernel(Args a) 
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc[j][c] = 0.f;
   }
+  // WIDE: query j's dot with the row's K columns outside this block's chunk,
+  // read from the pool and q from device memory (0 past dh)
+  auto other_dot = [&](const Row& r, int j) {
+    const S* kr = kc + r.at.get();
+    const float* qr = qg + j * dh;
+    float dot = 0.f;
+    for (int x = 0; x < a.nch; ++x) {
+      if (x == ch) continue;
+#pragma unroll
+      for (int u = 0; u < NCU; ++u) {
+        const int c0 = x * dhp + (cl + u * lpr) * CPL;
+        if (c0 >= dh) continue;
+        Chunk kk;
+        if (a.vec) {
+          kk.v = __ldg(reinterpret_cast<const V*>(kr + c0));
+        } else {
+#pragma unroll
+          for (int e = 0; e < CPL; ++e) kk.e[e] = c0 + e < dh ? kr[c0 + e] : S(0);
+        }
+#pragma unroll
+        for (int e = 0; e < CPL; ++e) {
+          if (c0 + e < dh) {
+            const float kf = quant ? D::f(kk.e[e]) * r.ks : D::f(kk.e[e]);
+            dot = fmaf(__ldg(qr + c0 + e), kf, dot);
+          }
+        }
+      }
+    }
+    return dot;
+  };
+
   int c_kbl = 0, c_step = 0;
   auto fold = [&](const Row& r) {
     const int row = rg + c_step * rpw;
@@ -267,6 +328,9 @@ __global__ void __launch_bounds__(32 * warps_for(KQ)) paged_attn_kernel(Args a) 
         const float* qq = q_s + j * dhp + (cl + u * lpr) * CPL;
 #pragma unroll
         for (int e = 0; e < CPL; ++e) dot = fmaf(qq[e], kf[u * CPL + e], dot);
+      }
+      if constexpr (WIDE) {
+        if (valid) dot += other_dot(r, j);       // valid is one per warp (32 lanes a row)
       }
       for (int o = 1; o < lpr; o <<= 1) dot += __shfl_xor_sync(kFull, dot, o);
       if (valid && pos <= qp[j]) {               // a masked row stays out
@@ -334,10 +398,11 @@ __global__ void __launch_bounds__(32 * warps_for(KQ)) paged_attn_kernel(Args a) 
   }
   __syncthreads();
 
-  // merge the warps, in warp order
-  float* og = a.out + row0 * dh;
-  for (int i = threadIdx.x; i < K * dh; i += 32 * W) {
-    const int j = i / dh, d = i - j * dh;
+  // merge the warps, in warp order, into the chunk's ncol columns
+  const int ncol = WIDE ? min(dhp, dh - cb) : dh;
+  float* og = a.out + row0 * dh + cb;
+  for (int i = threadIdx.x; i < K * ncol; i += 32 * W) {
+    const int j = i / ncol, d = i - j * ncol;
     float mx = kNegInf;
     for (int w = 0; w < W; ++w) {
       if (ml[(w * K + j) * 2 + 1] > 0.f) mx = fmaxf(mx, ml[(w * K + j) * 2]);
@@ -351,11 +416,11 @@ __global__ void __launch_bounds__(32 * warps_for(KQ)) paged_attn_kernel(Args a) 
         den = fmaf(lw, e, den);
       }
     }
-    og[i] = num / fmaxf(den, 1e-30f);
+    og[j * dh + d] = num / fmaxf(den, 1e-30f);
   }
 }
 
-template <class D, int KQ, int NCU>
+template <class D, int KQ, int NCU, bool WIDE>
 cudaError_t launch_kq(const Args& a, cudaStream_t stream) {
   constexpr int W = warps_for(KQ);
   constexpr int CPL = sizeof(typename D::V) / sizeof(typename D::S);
@@ -363,20 +428,22 @@ cudaError_t launch_kq(const Args& a, cudaStream_t stream) {
   const size_t smem = (a.KG * dhp * (1 + W) + 2 * W * static_cast<size_t>(a.KG)) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_attn_kernel<D, KQ, NCU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        paged_attn_kernel<D, KQ, NCU, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const int groups = (a.K + a.KG - 1) / a.KG;
-  paged_attn_kernel<D, KQ, NCU><<<dim3(a.S, a.H, groups), 32 * W, smem, stream>>>(a);
+  const long long groups = static_cast<long long>((a.K + a.KG - 1) / a.KG) * a.nch;
+  if (groups > 65535) return cudaErrorInvalidValue;   // the grid's z axis
+  const dim3 grid(a.S, a.H, static_cast<unsigned>(groups));
+  paged_attn_kernel<D, KQ, NCU, WIDE><<<grid, 32 * W, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <class D, int NCU>
+template <class D, int NCU, bool WIDE>
 cudaError_t launch_ncu(const Args& a, cudaStream_t stream) {
-  if (a.KG == 1) return launch_kq<D, 1, NCU>(a, stream);
-  if (a.KG <= 4) return launch_kq<D, 4, NCU>(a, stream);
-  return launch_kq<D, kGroupQueries, NCU>(a, stream);
+  if (a.KG == 1) return launch_kq<D, 1, NCU, WIDE>(a, stream);
+  if (a.KG <= 4) return launch_kq<D, 4, NCU, WIDE>(a, stream);
+  return launch_kq<D, kGroupQueries, NCU, WIDE>(a, stream);
 }
 
 bool aligned(const void* p, long long stride_elems[3], size_t elem, size_t chunk) {
@@ -403,12 +470,15 @@ cudaError_t launch(Args a, cudaStream_t stream) {
   long long ks[3] = {a.k_sb, a.k_sh, a.k_sr}, vs[3] = {a.v_sb, a.v_sh, a.v_sr};
   a.vec = a.dh % CPL == 0 && aligned(a.kc, ks, sizeof(S), sizeof(V)) &&
           aligned(a.vc, vs, sizeof(S), sizeof(V));
-  if (cpr > a.lpr) {
-    // only f32 at dh > 128 needs two loads a lane per row
-    if constexpr (CPL == 4) return launch_ncu<D, 2>(a, stream);
-    return cudaErrorInvalidValue;
+  if (cpr <= a.lpr) return launch_ncu<D, 1, false>(a, stream);
+  if constexpr (CPL == 4) {
+    // f32 at 128 < dh <= 256: two loads a lane per row
+    if (cpr <= 64) return launch_ncu<D, 2, false>(a, stream);
   }
-  return launch_ncu<D, 1>(a, stream);
+  // dh > 256: chunks of 256 columns, 8 a lane (two f32 loads, one narrower)
+  constexpr int kNcu = CPL == 4 ? 2 : 1;
+  a.nch = (cpr + 32 * kNcu - 1) / (32 * kNcu);
+  return launch_ncu<D, kNcu, true>(a, stream);
 }
 
 }  // namespace
@@ -418,19 +488,18 @@ extern "C" {
 // dtype: 0 f32, 1 bf16, 2 int8, 3 float8_e4m3fn, 4 float8_e5m2.
 // strides: k_sb, k_sh, k_sr, v_sb, v_sh, v_sr, ks_sb, ks_sh, ks_sr,
 // vs_sb, vs_sh, vs_sr (elements). Any K (in groups of 8 along the grid's
-// third axis), dh <= 256. Returns the launch's cudaError_t.
+// third axis), any dh >= 1. Returns the launch's cudaError_t.
 int sdml_paged_attention(const float* q, const void* kc, const void* vc,
                          const float* ks, const float* vs, const int* tables,
                          const int* qpos, float* out, int S, int H, int K,
                          int dh, int bs, int NB, const long long* strides,
                          int dtype, void* stream) {
   if (S < 1 || H < 1 || H > 65535 || K < 1 ||
-      (K + kGroupQueries - 1) / kGroupQueries > 65535 || dh < 1 ||
-      dh > kMaxHeadDim || bs < 1 || NB < 1) {
+      (K + kGroupQueries - 1) / kGroupQueries > 65535 || dh < 1 || bs < 1 || NB < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a{q, kc, vc, ks, vs, tables, qpos, out, S, H, K, dh, bs, NB,
-         K < kGroupQueries ? K : kGroupQueries, 1, 0, 0,
+         K < kGroupQueries ? K : kGroupQueries, 1, 0, 0, 1,
          strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
          strides[6], strides[7], strides[8], strides[9], strides[10], strides[11],
          1.0f / sqrtf(static_cast<float>(dh))};

@@ -27,7 +27,12 @@ with the finite ``NEG_INF`` and ``l`` floored at ``1e-30``. The bf16 K1-K3
 run every product on the tensor cores (``mma.sync``: bf16 operands, f32
 sums, the same casts); the f32 K1-K3 too, in split TF32 (each operand
 hi + lo in TF32, three products summed in f32: close to f32 accuracy).
-p and ds stay in registers in every kernel.
+p and ds stay in registers in every kernel. Any head dim ``>= 1`` runs
+(the JAX kernels pad any to a multiple of 128 lanes): up to 128 the tiles
+hold whole rows of dh; past 128 the wide kernels stream the contraction in
+256-byte slices and make the outputs in column chunks
+(:func:`wide_tiling`), so a block's shared memory and registers stay
+bounded.
 
 On a CPU tensor every wrapper computes its plain version
 (:func:`flash_forward_reference`, :func:`flash_backward_reference`) —
@@ -68,7 +73,9 @@ from simple_distributed_machine_learning_tpu_torch.ops.attention import (
 )
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128
+#: the widest head dim the whole-row kernels take; wider ones run the wide
+#: kernels (``csrc/flash_attention.cu``, ``WideShape``)
+WHOLE_ROW_HEAD_DIM = 128
 #: dtypes the kernels are instantiated for -> their dtype code
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -206,10 +213,6 @@ def _check_kernel_inputs(q: torch.Tensor) -> None:
     if q.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"the flash kernels take float32 or bfloat16, got "
                          f"{q.dtype}")
-    if q.shape[3] > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {q.shape[3]} > {MAX_HEAD_DIM}: the "
-                         f"kernels keep 64-row tiles of dh floats in shared "
-                         f"memory")
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -368,6 +371,17 @@ def _(q, k, v, do, m, linv, delta):
 TILE = 64
 
 
+def wide_tiling(kernel: str, dh: int, dtype: torch.dtype):
+    """``(slice, chunk)`` columns of the wide kernels (dh > 128,
+    ``csrc/flash_attention.cu`` ``WideShape``), or None at dh <= 128: the
+    contraction over dh is streamed in slices of 256 bytes a row (128 bf16,
+    64 f32), and the outputs are made in chunks of 128 columns (K1's o,
+    K2's dq) or 64 (K3's dk and dv)."""
+    if dh <= WHOLE_ROW_HEAD_DIM:
+        return None
+    return 256 // dtype.itemsize, 64 if kernel == "flash_dkv" else 128
+
+
 def launch_spec(kernel: str, q: torch.Tensor):
     """The :class:`~..analysis.kernels.LaunchSpec` of one launch of K1
     (``"flash_forward"``), K2 (``"flash_dq"``) or K3 (``"flash_dkv"``) on
@@ -380,12 +394,22 @@ def launch_spec(kernel: str, q: torch.Tensor):
     owns q tile ``i`` (q, do and the row statistics at ``(bh, i)``), the
     loop reads k/v tile ``kb``; K3: the cell owns k/v tile ``j`` and the
     loop reads q, do and the statistics of tile ``qb``. The running sums
-    are f32."""
+    are f32.
+
+    At dh > 128 (:func:`wide_tiling`) the blocks are the wide kernels':
+    the loop is ``(chunk c, tile, slice s)``, every operand of the scores
+    (q, k, and in the backward do, v) is read as ``(1, 64, slice)`` blocks
+    at slice ``s``, the operand of the chunk's product (v in K1, k in K2,
+    do and q in K3) as ``(1, 64, chunk)`` at ``c``, and each output as
+    ``(1, 64, chunk)`` at ``c`` (l and m whole rows, once)."""
     from simple_distributed_machine_learning_tpu_torch.analysis.kernels import (  # noqa: E501
         LaunchSpec,
         Operand,
     )
     B, H, T, dh = q.shape
+    wide = wide_tiling(kernel, dh, q.dtype)
+    if wide is not None:
+        return _wide_launch_spec(kernel, q, wide)
     BH, n = B * H, -(-T // TILE)
     rows = (BH, T, dh)
     blk = (1, TILE, dh)
@@ -438,6 +462,77 @@ def launch_spec(kernel: str, q: torch.Tensor):
     return LaunchSpec(kernel=kernel,
                       where=f"{__name__}.{kernel} (ops/csrc/flash_attention.cu)",
                       grid=(BH, n), loop=(n,), operands=ops,
+                      scratch=(torch.float32,))
+
+
+def _wide_launch_spec(kernel: str, q: torch.Tensor, wide):
+    """:func:`launch_spec` at dh > 128: grid ``(B*H, ceil(T/64))``, loop
+    ``(chunks, tiles, slices)``."""
+    from simple_distributed_machine_learning_tpu_torch.analysis.kernels import (  # noqa: E501
+        LaunchSpec,
+        Operand,
+    )
+    B, H, T, dh = q.shape
+    BH, n = B * H, -(-T // TILE)
+    ds, dc = wide
+    n_s, n_c = -(-dh // ds), -(-dh // dc)
+    rows, stat = (BH, T, dh), (BH, T)
+    sl, ck, sblk = (1, TILE, ds), (1, TILE, dc), (1, TILE)
+    f32, dt = torch.float32, q.dtype
+
+    # index maps over (bh, i, c, kb, s): i the cell's tile, kb the loop's
+    def own_s(bh, i, c, kb, s):
+        return (bh, i, s)
+
+    def other_s(bh, i, c, kb, s):
+        return (bh, kb, s)
+
+    def own_c(bh, i, c, kb, s):
+        return (bh, i, c)
+
+    def other_c(bh, i, c, kb, s):
+        return (bh, kb, c)
+
+    def own_stat(bh, i, c, kb, s):
+        return (bh, i)
+
+    def other_stat(bh, i, c, kb, s):
+        return (bh, kb)
+
+    if kernel == "flash_forward":
+        ops = (Operand("q", rows, sl, dt, own_s),
+               Operand("k", rows, sl, dt, other_s),
+               Operand("v", rows, ck, dt, other_c),
+               Operand("o", rows, ck, dt, own_c, output=True),
+               Operand("l", stat, sblk, f32, own_stat, output=True),
+               Operand("m", stat, sblk, f32, own_stat, output=True))
+    elif kernel == "flash_dq":
+        ops = (Operand("q", rows, sl, dt, own_s),
+               Operand("do", rows, sl, dt, own_s),
+               Operand("m", stat, sblk, f32, own_stat),
+               Operand("linv", stat, sblk, f32, own_stat),
+               Operand("delta", stat, sblk, f32, own_stat),
+               Operand("k", rows, sl, dt, other_s),
+               Operand("v", rows, sl, dt, other_s),
+               Operand("k_chunk", rows, ck, dt, other_c),
+               Operand("dq", rows, ck, dt, own_c, output=True))
+    elif kernel == "flash_dkv":
+        ops = (Operand("k", rows, sl, dt, own_s),
+               Operand("v", rows, sl, dt, own_s),
+               Operand("q", rows, sl, dt, other_s),
+               Operand("do", rows, sl, dt, other_s),
+               Operand("do_chunk", rows, ck, dt, other_c),
+               Operand("q_chunk", rows, ck, dt, other_c),
+               Operand("m", stat, sblk, f32, other_stat),
+               Operand("linv", stat, sblk, f32, other_stat),
+               Operand("delta", stat, sblk, f32, other_stat),
+               Operand("dk", rows, ck, dt, own_c, output=True),
+               Operand("dv", rows, ck, dt, own_c, output=True))
+    else:
+        raise ValueError(f"no flash kernel {kernel!r}")
+    return LaunchSpec(kernel=kernel,
+                      where=f"{__name__}.{kernel} (ops/csrc/flash_attention.cu)",
+                      grid=(BH, n), loop=(n_c, n, n_s), operands=ops,
                       scratch=(torch.float32,))
 
 

@@ -64,10 +64,12 @@ NEG_INF = -1e30
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                   torch.float8_e4m3fn: 3, torch.float8_e5m2: 4}
 _QUANTIZED = (torch.int8, torch.float8_e4m3fn, torch.float8_e5m2)
-_MAX_HEAD_DIM = 256
 #: queries one block of the kernel takes: each lane holds its output
 #: columns for every query of its block in registers
 QUERIES_PER_GROUP = 8
+#: output columns one block makes: a warp's 32 lanes hold 8 each, so a
+#: head dim past 256 is made in chunks of 256, one block each
+CHUNK_COLUMNS = 256
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,6 +87,13 @@ def _library():
     built.lib.sdml_cuda_error_string.argtypes = [ctypes.c_int]
     built.lib.sdml_cuda_error_string.restype = ctypes.c_char_p
     return built
+
+
+def column_chunks(dh: int) -> int:
+    """Blocks per (slot, head, query group) for head dim ``dh``: 1 up to
+    ``CHUNK_COLUMNS``, else ``ceil(dh / 256)``; each reads the whole K
+    rows (for the scores) and its chunk's V columns."""
+    return 1 if dh <= CHUNK_COLUMNS else -(-int(dh) // CHUNK_COLUMNS)
 
 
 def query_groups(K: int) -> int:
@@ -152,7 +161,12 @@ def launch_spec(q, kc, vc, tables, qpos, *, block_size: int, kscale=None,
     of a quantised pool) at ``(tables[s, kb], h, 0, 0)``; queries and
     output ``(1, 1, min(K, 8), dh)`` at ``(s, h, g, 0)``. The online
     softmax state is f32. The tables carry no contract: the caller
-    declares one (``LaunchSpec.with_contracts``)."""
+    declares one (``LaunchSpec.with_contracts``).
+
+    Past 256 columns (:func:`column_chunks`) the grid is (S, H,
+    ``query_groups(K)``, chunks), the kernel's third axis running over
+    both (group-major): a block reads the K rows whole, V and writes out
+    ``(1, 1, ·, 256)`` at its chunk ``c``."""
     from simple_distributed_machine_learning_tpu_torch.analysis.bounds import (  # noqa: E501
         spec,
     )
@@ -160,33 +174,46 @@ def launch_spec(q, kc, vc, tables, qpos, *, block_size: int, kscale=None,
     NB = tables.shape[1]
     bs = int(block_size)
     qg = min(K, QUERIES_PER_GROUP)
+    n_ch = column_chunks(dh)
+    cw = dh if n_ch == 1 else CHUNK_COLUMNS
+    # the maps take (s, h, g[, c], kb, tbl, qp): c only where dh is chunked
+    grid = (S, H, query_groups(K)) + ((n_ch,) if n_ch > 1 else ())
 
-    def at_query(s, h, g, kb, tbl, qp):
+    def at_query(s, h, g, *rest):
         return (s, h, g, 0)
 
-    def at_block(s, h, g, kb, tbl, qp):
+    def at_out(s, h, g, *rest):
+        return (s, h, g, rest[0] if n_ch > 1 else 0)
+
+    def at_block(s, h, g, *rest):
+        kb, tbl = rest[-3], rest[-2]
         return (tbl[s, kb], h, 0, 0)
 
-    def at_scale(s, h, g, kb, tbl, qp):
+    def at_vblock(s, h, g, *rest):
+        kb, tbl = rest[-3], rest[-2]
+        return (tbl[s, kb], h, 0, rest[0] if n_ch > 1 else 0)
+
+    def at_scale(s, h, g, *rest):
+        kb, tbl = rest[-3], rest[-2]
         return (tbl[s, kb], h, 0)
 
     ops = [_kernels.Operand("q", tuple(q.shape), (1, 1, qg, dh), q.dtype,
                             at_query),
            _kernels.Operand("k", tuple(kc.shape), (1, 1, bs, dh), kc.dtype,
                             at_block),
-           _kernels.Operand("v", tuple(vc.shape), (1, 1, bs, dh), vc.dtype,
-                            at_block)]
+           _kernels.Operand("v", tuple(vc.shape), (1, 1, bs, cw), vc.dtype,
+                            at_vblock)]
     if kscale is not None:
         ops += [_kernels.Operand(name, tuple(t.shape), (1, 1, bs), t.dtype,
                                  at_scale)
                 for name, t in (("kscale", kscale), ("vscale", vscale))]
-    ops.append(_kernels.Operand("out", (S, H, K, dh), (1, 1, qg, dh),
-                                torch.float32, at_query, output=True))
+    ops.append(_kernels.Operand("out", (S, H, K, dh), (1, 1, qg, cw),
+                                torch.float32, at_out, output=True))
     return _kernels.LaunchSpec(
         kernel="paged_attention",
         where=f"{__name__}.paged_attention "
               f"(ops/csrc/paged_attention.cu)",
-        grid=(S, H, query_groups(K)), loop=(NB,), operands=tuple(ops),
+        grid=grid, loop=(NB,), operands=tuple(ops),
         tables=(("tables", spec((S, NB), tables.dtype)),
                 ("qpos", spec((S, K), qpos.dtype))),
         scratch=(torch.float32,))
@@ -289,9 +316,6 @@ def _(q, kc, vc, tables, qpos, block_size, kscale, vscale):
 
 def _launch(q, kc, vc, tables, qpos, bs, kscale, vscale) -> torch.Tensor:
     S, H, K, dh = q.shape
-    if dh > _MAX_HEAD_DIM:
-        raise ValueError(f"head dim {dh} > {_MAX_HEAD_DIM}: the kernel's "
-                         f"lanes hold at most 8 of 32 x 8 output columns")
     if q.dtype != torch.float32 or not q.is_contiguous():
         raise ValueError("q must be contiguous float32")
     if kc.dtype not in _KERNEL_DTYPES or vc.dtype != kc.dtype:

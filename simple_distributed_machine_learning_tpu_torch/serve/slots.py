@@ -77,6 +77,19 @@ from simple_distributed_machine_learning_tpu_torch._device import (
 )
 
 
+def _bind_seq_of(request) -> np.ndarray:
+    """The sequence admission must budget and prefill for: ``resume_seq``
+    where the request tracks preemption state, its plain prompt otherwise
+    (a duck-typed request driving the pool directly)."""
+    seq = getattr(request, "resume_seq", None)
+    return request.prompt if seq is None else seq
+
+
+def _bind_budget_of(request) -> int:
+    budget = getattr(request, "resume_max_new", None)
+    return request.max_new_tokens if budget is None else budget
+
+
 def _ns_of(request) -> bytes:
     """The request's prefix-cache NAMESPACE: the engine's version-qualified
     one (``_prefix_ns``, set from ``AdapterStore.namespace_of``; a
@@ -474,8 +487,8 @@ class PagedKVPool(_SlotPoolBase):
         n_shared_full = sum(1 for _, fill in chain if fill == self.block_size)
         n_shared_reclaimable = sum(1 for b, _ in chain if self.ref[b] == 0)
         budget = self.blocks_for(
-            self._rows_needed(int(request.resume_seq.shape[0]),
-                              request.resume_max_new)) - n_shared_full
+            self._rows_needed(int(np.asarray(_bind_seq_of(request)).shape[0]),
+                              _bind_budget_of(request))) - n_shared_full
         return max(0, budget - (self.blocks_available - n_shared_reclaimable))
 
     def freeable_blocks(self, slot: int) -> int:
@@ -490,21 +503,19 @@ class PagedKVPool(_SlotPoolBase):
             1 for b in self.tables[slot]
             if self.ref[b] == 1 and not self._cached.get(b))
 
-    def bind_seq(self, request) -> int:
-        """Attach an admitted request's sequence to its acquired slot:
-        reference the longest registered prefix's blocks of its
-        ``resume_seq`` (the prompt, plus the emitted tokens after a
-        preemption) and reserve the worst-case budget for the rest.
+    def begin_seq(self, slot: int, prompt: np.ndarray,
+                  max_new_tokens: int, ns: bytes = b"") -> int:
+        """Attach a sequence to an acquired slot: reference the longest
+        registered prefix of ``prompt`` (in namespace ``ns``) into the
+        slot's table and reserve the worst-case budget for the rest.
         Returns the first position prefill must compute (always <
-        ``len(resume_seq)``). Runs inside the scheduler's admission loop,
-        so the next admission probe already sees this reservation."""
-        slot = request.slot
+        ``len(prompt)``: the last prompt position is recomputed, so the
+        first token comes from a real forward pass)."""
         if self.tables[slot] or self._resv[slot]:
             raise RuntimeError(
-                f"bind_seq on slot {slot} with a live block table or "
-                f"reservation — the previous sequence was never unbound")
-        prompt = np.asarray(request.resume_seq)
-        ns = _ns_of(request)
+                f"begin_seq on slot {slot} with a live block table or "
+                f"reservation — the previous sequence was never ended")
+        prompt = np.asarray(prompt)
         self._slot_ns[slot] = ns
         shared_len, chain = self._probe_prefix(prompt, ns)
         for block, _fill in chain:
@@ -512,11 +523,11 @@ class PagedKVPool(_SlotPoolBase):
             self.tables[slot].append(block)
         n_shared_full = sum(1 for _, fill in chain if fill == self.block_size)
         budget = self.blocks_for(
-            self._rows_needed(int(prompt.shape[0]), request.resume_max_new)
+            self._rows_needed(int(prompt.shape[0]), max_new_tokens)
         ) - n_shared_full
         if budget > self.blocks_available:
             raise RuntimeError(
-                f"bind_seq short of blocks (need {budget}, have "
+                f"begin_seq short of blocks (need {budget}, have "
                 f"{self.blocks_available}) — the scheduler must check "
                 f"can_admit first")
         self._reserved += budget
@@ -524,7 +535,18 @@ class PagedKVPool(_SlotPoolBase):
         self.prefix_hit_blocks_total += len(chain)
         return shared_len
 
+    def bind_seq(self, request) -> int:
+        """:meth:`begin_seq` on an admitted request's acquired slot, for
+        its ``resume_seq`` (the prompt, plus the emitted tokens after a
+        preemption) and namespace. Runs inside the scheduler's admission
+        loop, so the next admission probe already sees this reservation."""
+        return self.begin_seq(request.slot, _bind_seq_of(request),
+                              _bind_budget_of(request), ns=_ns_of(request))
+
     def unbind_seq(self, slot: int) -> None:
+        self.end_seq(slot)
+
+    def end_seq(self, slot: int) -> None:
         """Detach the slot's sequence: decref every table block (registered
         ones stay cached, reclaimable) and return the unused reservation
         (the slot frees separately)."""
@@ -637,7 +659,7 @@ class PagedKVPool(_SlotPoolBase):
         """Probe memoised on the request, keyed by the registry epoch and
         the bind sequence's length (a blocked head-of-line request is
         re-probed every tick)."""
-        seq = np.asarray(request.resume_seq)
+        seq = np.asarray(_bind_seq_of(request))
         key = (self._registry_epoch, int(seq.shape[0]))
         memo = getattr(request, "_prefix_probe", None)
         if memo is not None and memo[0] == key:
@@ -847,7 +869,7 @@ class PagedKVPool(_SlotPoolBase):
         if not self._inflight:
             return False
         seq_b = _ns_of(request) + np.asarray(
-            request.resume_seq, np.int32).tobytes()
+            _bind_seq_of(request), np.int32).tobytes()
         for t in self._inflight:
             for key, _f, _hk, _hv in t["entries"]:
                 if len(key) < len(seq_b) and seq_b.startswith(key):

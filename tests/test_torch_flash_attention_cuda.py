@@ -64,7 +64,11 @@ _CASES = ([(torch.float32, (2, 4, t, dh)) for dh in (8, 32, 40, 64, 128)
              (torch.float32, (32, 4, 64, 32))]
           + [(torch.bfloat16, (2, 4, t, dh)) for dh in (32, 64, 128, 40)
              for t in (1, 65, 200, 256)]
-          + [(torch.bfloat16, (2, 4, t, 8)) for t in (65, 200)])
+          + [(torch.bfloat16, (2, 4, t, 8)) for t in (65, 200)]
+          # head dims past 128: the wide kernels (contraction in slices,
+          # outputs in column chunks), both dtypes, T = 1, 65 and 200
+          + [(dt, (1, 2, t, dh)) for dt in (torch.float32, torch.bfloat16)
+             for dh in (160, 192, 256, 320, 512) for t in (1, 65, 200)])
 
 
 @pytest.mark.cuda
@@ -99,7 +103,9 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,shape", [(torch.float32, (2, 2, 96, 32)),
                                          (torch.float32, (1, 8, 256, 64)),
-                                         (torch.bfloat16, (2, 4, 200, 64))])
+                                         (torch.bfloat16, (2, 4, 200, 64)),
+                                         (torch.float32, (1, 2, 130, 256)),
+                                         (torch.bfloat16, (1, 2, 130, 256))])
 def test_cuda_autograd_goes_through_the_kernels(cuda_device, dtype, shape):
     """``flash_attention``'s gradients (K1 forward, K2 + K3 backward)
     against autograd through the dense ``causal_attention_core``. bf16

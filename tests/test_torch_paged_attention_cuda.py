@@ -44,7 +44,13 @@ _CASES = ([(name, K, {}) for name in DTYPES for K in (1, 4)]
              ("bfloat16", 12, {}), ("float8_e4m3fn", 12, {}),
              ("float32", 16, {}), ("int8", 16, dict(dh=128)),
              ("float8_e5m2", 16, dict(bs=8, NB=12)),
-             ("float32", 16, dict(layout="misaligned"))])
+             ("float32", 16, dict(layout="misaligned"))]
+          # head dims past 256: output chunks of 256 columns, a block each,
+          # f32 and int8, one query group and two; one misaligned view
+          + [(name, K, dict(dh=dh)) for name in ("float32", "int8")
+             for dh in (320, 512) for K in (1, 9)]
+          + [("bfloat16", 4, dict(dh=320)),
+             ("float32", 1, dict(dh=321, layout="misaligned"))])
 
 
 def _toy_pool(seed, K, dh=16, bs=BS, NB=6, layout="layer"):
