@@ -13,12 +13,13 @@ or without the port beside it. Phases, each fatal on failure:
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions, and
    the build of every kernel from the checkout's sources (one ``nvcc`` per
    source, started together, into the git-ignored ``_build/`` directory),
-   with ptxas's registers and spills per kernel (a spill in K4, or in K1
-   or the f32 K2 or K3 at a head dim up to 64, fails), and the count of
-   tensor-core (``HMMA``) instructions in each kernel's SASS
-   (``cuobjdump``): all 12 bf16 and all 12 f32 (split-TF32) K1-K3
-   instantiations and the 6 wide ones (head dims past 128, both dtypes)
-   must have some, K4 and F1 none;
+   with ptxas's registers and spills per kernel (a spill in K4, in K1
+   or the f32 K2 or K3 at a head dim up to 64, or in the bf16 wide K2 or
+   K3 fails), and the count of tensor-core instructions (``HMMA``, and
+   ``HGMMA`` for wgmma) in each kernel's SASS (``cuobjdump``): all 12 bf16
+   and all 12 f32 (split-TF32) K1-K3 instantiations and the 6 wide ones
+   (head dims past 128, both dtypes) must have some, the bf16 wide K2 and
+   K3 ``HGMMA`` (wgmma), K4 and F1 none;
 2. every kernel against its plain PyTorch version on the card, at the
    serving shapes (H = 8, dh = 64, block 16, 8 slots, positions up to
    255), for every cache dtype and K = 1 and 4, within rtol = atol =
@@ -46,10 +47,11 @@ or without the port beside it. Phases, each fatal on failure:
    40 and 128, and the wide kernels' 160, 192, 256, 320 and 512, T = 1, 65
    and 200), within ``FLASH_TOL``; then at ``FLASH_WIDE_SHAPES`` (phase
    23's attention, 2 x 16 heads x 2048 x 256, and 8 heads of 512), in
-   both dtypes, timed (runs of 10, median of 3) beside their bounds and
-   SDPA's forward and backward. The training shape's rows are timed the
-   same way beside their bounds (the f32 rows also beside the bound at the CUDA
-   cores' 67 TFLOP/s) and the library yardstick
+   both dtypes, timed (runs of 10, median of 3) beside their bounds,
+   SDPA's forward and backward and, for K2 + K3, the times of their first
+   design (``WIDE_K2_K3_FIRST_MS``). The training shape's rows are timed
+   the same way beside their bounds (the f32 rows also beside the bound at
+   the CUDA cores' 67 TFLOP/s) and the library yardstick
    (``scaled_dot_product_attention``, forward and backward; K1 against
    SDPA's forward and K2 + K3 against SDPA's backward, each on one line,
    and the f32 K2 + K3 at the tiny row against SDPA's f32 backward);
@@ -522,6 +524,14 @@ FLASH_EDGES = ([(2, 4, t, dh) for dh in (32, 40, 128) for t in (1, 65, 200)]
 # (batch 2, 16 heads x 2048 x 256) and the same width at head dim 512 (8
 # heads)
 FLASH_WIDE_SHAPES = ((2, 16, 2048, 256), (2, 8, 2048, 512))
+# K2 + K3 device ms at those shapes in their first design (the contraction
+# in 256-byte slices, the scores recomputed per output chunk; this script's
+# phase 2 on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md), printed beside
+# this run's
+WIDE_K2_K3_FIRST_MS = {("bfloat16", (2, 16, 2048, 256)): 1.5070 + 3.8230,
+                      ("bfloat16", (2, 8, 2048, 512)): 3.4837 + 6.5997,
+                      ("float32", (2, 16, 2048, 256)): 6.1297 + 11.3614,
+                      ("float32", (2, 8, 2048, 512)): 11.1779 + 20.5372}
 # (rtol, atol) of each flash kernel against its plain version, keyed by
 # (dtype, is a row statistic l/m, is a gradient): f32 at 1e-5 (o, l, m) and
 # 1e-4 (dq, dk, dv: tests/test_flash_attention.py's gradient tolerance);
@@ -1033,19 +1043,21 @@ def ptxas_report(log: str) -> dict[str, dict]:
 
 def _no_spill_required(name: str) -> bool:
     """K4 everywhere; K1 (bf16 and f32) and the f32 K2 and K3 at head dims
-    padded to 16, 32 or 64."""
+    padded to 16, 32 or 64; the bf16 wide K2 and K3 (wgmma, whose
+    accumulators must stay in registers)."""
     import re
-    if "paged_attn_kernel" in name:
+    if "paged_attn_kernel" in name or "_kernel_wide_wgmma" in name:
         return True
     m = re.search(r"flash_(?:fwd_kernel_(?:bf16_mma|tf32)"
                   r"|(?:dq|dkv)_kernel_tf32)(?:<(?:\(int\))?|ILi)(\d+)", name)
     return bool(m) and int(m.group(1)) <= 64
 
 
-def sass_hmma_counts(lib_path) -> dict[str, int]:
-    """Tensor-core (``HMMA``) instructions in each kernel of a built
-    library, from ``cuobjdump -sass`` (beside ``nvcc``); names demangled
-    with ``cu++filt`` where the toolkit has it."""
+def sass_hmma_counts(lib_path, ops=("HMMA", "HGMMA")) -> dict[str, int]:
+    """Tensor-core instructions (``ops``: ``HMMA`` for mma.sync, ``HGMMA``
+    for wgmma) in each kernel of a built library, from ``cuobjdump
+    -sass`` (beside ``nvcc``); names demangled with ``cu++filt`` where the
+    toolkit has it."""
     out = subprocess.run([os.path.join(_toolkit_bin(), "cuobjdump"), "-sass",
                           str(lib_path)], capture_output=True, text=True,
                          timeout=300)
@@ -1056,7 +1068,7 @@ def sass_hmma_counts(lib_path) -> dict[str, int]:
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
             counts[name] = 0
-        elif name is not None and "HMMA" in line:
+        elif name is not None and any(op in line for op in ops):
             counts[name] += 1
     return _demangled(counts)
 
@@ -1099,22 +1111,24 @@ def phase_build(record: dict) -> None:
               f" bytes  {name}")
     held = [n for n in ptxas if _no_spill_required(n)]
     # a fresh build reports the 12 K1-K3 variants at dh <= 64 (bf16 K1,
-    # f32 K1, f32 K2 and f32 K3, each 16 / 32 / 64) and K4's 33 (5 storage
-    # types x K up to 1, 4, 8, f32 at 128 < dh <= 256, and the 15 of the
-    # chunks past 256)
-    check(not ptxas or len(held) == 12 + 33,
-          f"ptxas reported {len(held)} K1-K3/K4 kernels, not 45: {held}")
+    # f32 K1, f32 K2 and f32 K3, each 16 / 32 / 64), the bf16 wide K2 and
+    # K3 and K4's 33 (5 storage types x K up to 1, 4, 8, f32 at 128 < dh
+    # <= 256, and the 15 of the chunks past 256)
+    check(not ptxas or len(held) == 12 + 2 + 33,
+          f"ptxas reported {len(held)} K1-K3/K4 kernels, not 47: {held}")
     spills = [n for n in held if ptxas[n].get("spill_stores", 0)
               or ptxas[n].get("spill_loads", 0)]
-    check(not spills, f"K4, K1 or the f32 K2 or K3 at dh <= 64 spills "
-                      f"registers: {spills}")
+    check(not spills, f"K4, K1, the f32 K2 or K3 at dh <= 64 or the bf16 "
+                      f"wide K2 or K3 spills registers: {spills}")
     record["ptxas"] = ptxas
     print(f"chip_smoke: kernels built in {record['build_s']} s")
     hmma = sass_hmma_counts(builds[1].path)
     k4_hmma = sass_hmma_counts(builds[0].path)
     k4_hmma.update(sass_hmma_counts(builds[2].path))      # and F1
+    hgmma = sass_hmma_counts(builds[1].path, ("HGMMA",))
     for name, n in sorted({**hmma, **k4_hmma}.items()):
-        print(f"chip_smoke:   SASS HMMA {n:5d}  {name}")
+        print(f"chip_smoke:   SASS HMMA/HGMMA {n:5d} (HGMMA "
+              f"{hgmma.get(name, 0):4d})  {name}")
 
     def tensor_core(name):
         return "_bf16_mma" in name or "_tf32" in name or "_wide" in name
@@ -1125,10 +1139,15 @@ def phase_build(record: dict) -> None:
     check(len(mma) == 30 and all(c > 0 for c in mma.values()),
           f"the bf16 and f32 K1-K3 kernels are not all on the tensor "
           f"cores: {mma}")
+    wgmma = {n: hgmma.get(n, 0) for n in hmma if "_kernel_wide_wgmma" in n}
+    # the bf16 wide K2 and K3 on the warpgroup tensor cores
+    check(len(wgmma) == 2 and all(c > 0 for c in wgmma.values()),
+          f"the bf16 wide K2 and K3 do not run wgmma: {wgmma}")
     simt = {n: c for n, c in {**hmma, **k4_hmma}.items()
             if not tensor_core(n) and c}
     check(not simt, f"K4 or F1 use tensor cores: {simt}")
     record["sass_hmma"] = {**hmma, **k4_hmma}
+    record["sass_hgmma"] = hgmma
 
 
 # -- phase 2 ------------------------------------------------------------------
@@ -1578,17 +1597,22 @@ def phase_flash_kernels(record: dict) -> list[dict]:
                    k1_ms=w["flash_forward"]["ms"],
                    k1_bound_ms=w["flash_forward"]["bound_ms"],
                    sdpa_forward_ms=w["flash_forward"]["library_ms"],
+                   k2_ms=w["flash_dq"]["ms"], k3_ms=w["flash_dkv"]["ms"],
                    k2_k3_ms=k23, sdpa_backward_ms=w["flash_dq"]["library_ms"],
                    k2_k3_bound_ms=(w["flash_dq"]["bound_ms"]
-                                   + w["flash_dkv"]["bound_ms"]))
+                                   + w["flash_dkv"]["bound_ms"]),
+                   k2_k3_first_ms=WIDE_K2_K3_FIRST_MS[(dtype, shape)])
         record["flash_wide"].append(row)
         print(f"chip_smoke: wide K1 {dtype} {shape}: {row['k1_ms']:.4f} ms "
               f"(bound {row['k1_bound_ms']:.4f}) against SDPA's forward "
               f"{row['sdpa_forward_ms']:.4f} ms: "
               f"{row['k1_ms'] / row['sdpa_forward_ms']:.2f}x; K2 + K3 "
-              f"{k23:.4f} ms (bound {row['k2_k3_bound_ms']:.4f}) against "
-              f"SDPA's backward {row['sdpa_backward_ms']:.4f} ms: "
-              f"{k23 / row['sdpa_backward_ms']:.2f}x")
+              f"{row['k2_ms']:.4f} + {row['k3_ms']:.4f} = {k23:.4f} ms "
+              f"(bound {row['k2_k3_bound_ms']:.4f}) against SDPA's backward "
+              f"{row['sdpa_backward_ms']:.4f} ms: "
+              f"{k23 / row['sdpa_backward_ms']:.2f}x; the first design's "
+              f"K2 + K3 {row['k2_k3_first_ms']:.4f} ms: "
+              f"{row['k2_k3_first_ms'] / k23:.2f}x this run's")
     print("chip_smoke: flash library_ms: K1's is "
           "scaled_dot_product_attention(is_causal=True); K2's and K3's are "
           "both SDPA's whole backward (forward + autograd.grad, less the "

@@ -365,10 +365,11 @@ def predict_transfer_bytes(sspec: ServeSpec, n_blocks: int,
     return n_blocks * _host_block_bytes(sspec, n_layers)
 
 
-def engine_spec(engine) -> ServeSpec:
+def engine_spec(engine, prompt_lens: tuple | None = None) -> ServeSpec:
     """The :class:`ServeSpec` of a LIVE engine — the one engine->spec
-    mapping, shared by the registry and the runtime KV-drift gauge. A
-    live engine declares no prompt buckets (``prompt_lens`` None)."""
+    mapping, shared by the registry and the runtime KV-drift gauge.
+    ``prompt_lens`` are the prompt buckets to declare (None: none, as the
+    gauge passes)."""
     pool = engine.pool
     paged = engine.kv_layout == "paged"
     adapters = getattr(engine, "_adapters", None)
@@ -379,7 +380,7 @@ def engine_spec(engine) -> ServeSpec:
         n_blocks=pool.n_blocks if paged else None,
         prefill_chunk=engine.prefill_chunk,
         # the storage dtype (a quantised pool's narrow one)
-        cache_dtype=pool.cache_dtype,
+        cache_dtype=pool.cache_dtype, prompt_lens=prompt_lens,
         spec_k=engine.spec_k if engine.speculative else 0,
         draft_cfg=engine.draft_cfg,
         attn_kernel=engine.attn_kernel,
@@ -1217,7 +1218,7 @@ def lint_engine(engine, prompt_lens: tuple | None = None) -> Report:
     allocated. The programs the engine runs, without the solo-parity
     anchor no tick runs (a decode loop unrolled over the whole sequence,
     whose trace costs more than all of them)."""
-    sspec = dataclasses.replace(engine_spec(engine), prompt_lens=prompt_lens)
+    sspec = engine_spec(engine, prompt_lens)
     return lint_serve(engine.stages, sspec, mesh=engine.mesh,
                       draft_stages=engine.draft_stages, params=engine.params,
                       device=engine.device, anchor=False)

@@ -60,10 +60,11 @@ def _fused_apply(params, x, key=None, deterministic=True):
     return _fc_apply(params["fc"], h, key, deterministic)
 
 
-def make_lenet_stages(seed, n_stages: int = 1, device=None
+def make_lenet_stages(seed, n_stages: int = 2, device=None
                       ) -> tuple[list[Stage], int, int]:
     """Build LeNet as pipeline stages on ``device`` (None = ``"cuda"``):
-    ``n_stages=1`` the fused model, 2 the reference's conv|fc split.
+    ``n_stages=2`` (the default, as in JAX) the reference's conv|fc
+    split, 1 the fused model.
     Returns ``(stages, wire_dim, out_dim)``."""
     dev = resolve_device(device)
     gen = init_generator(seed)

@@ -99,10 +99,12 @@
 //   x (k, v), 102 KB / 198 KB; K3 k, v + 2 x (q, do, rows), 106 KB / 204
 //   KB.
 // Head dims above 128, which the JAX kernels take by padding to a multiple
-// of 128 lanes, run the wide kernels (both dtypes, their section below):
-// the contraction over dh streamed in 256-byte slices, the outputs made in
-// column chunks, so that every head dim >= 1 fits a block.
-// The next steps are wgmma and TMA.
+// of 128 lanes, run the wide kernels (both dtypes, their sections below):
+// K1 streams the contraction over dh in 256-byte slices and makes o in
+// column chunks; K2 and K3 keep the block's own tile in shared memory,
+// compute the scores once per tile pair up to dh 256 and keep all of dh's
+// output sums in registers (bf16 on wgmma fed by TMA, f32 in split TF32),
+// so that every head dim >= 1 fits a block.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -110,6 +112,7 @@
 
 #include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -1356,38 +1359,31 @@ __global__ void __launch_bounds__(kTf32Threads) flash_dkv_kernel_tf32(Args a) {
   }
 }
 
-// ---- K1-K3 at head dims above 128, both dtypes: the wide kernels ------------------
+// ---- K1 at head dims above 128, both dtypes: the wide forward ----------------------
 //
 // Past dh 128 the tilings above do not fit: their tiles hold whole rows of
-// dh in shared memory (f32 K1-K3 at dh 256: 338-408 KB a block, past the
-// 227 KB a block may have) and their accumulators whole rows of the output
-// in registers (a warp's 16 rows of a 256-wide f32 accumulator are 128
-// registers a thread; K3 holds two). The wide kernels bound both for every
-// head dim:
-// - the contraction over dh (s = q.k^T, dp = do.v^T) is streamed in slices
-//   of DS columns, 256 bytes a row (128 bf16, 64 f32): a slice of each
-//   operand is a [64, DS + pad] tile of 17 KB, and the score accumulators
-//   of a warp are its 16 rows x 64 keys (or queries), whatever dh;
-// - the outputs are produced in column chunks of DC (K1 o and K2 dq: 128;
-//   K3 dk and dv: 64 each, so its two accumulators stay 64 registers), one
-//   chunk after the other by a loop inside the block: for each chunk the
-//   block walks its k (K3: q) tiles again and recomputes the scores over
-//   the whole contraction. So the grid stays (b*h, 64-row tile), the other
-//   side's tiles and the chunks are loops, and the products of the scores
-//   are done once per chunk (at dh 256: K1 and K2 twice, K3 four times;
-//   the price of any head dim in a bounded block).
+// dh in shared memory (f32 K1 at dh 256: 338 KB a block, past the 227 KB a
+// block may have) and their accumulators whole rows of the output in
+// registers. The wide forward bounds both for every head dim:
+// - the contraction over dh (s = q.k^T) is streamed in slices of DS
+//   columns, 256 bytes a row (128 bf16, 64 f32): a slice of each operand is
+//   a [64, DS + pad] tile of 17 KB, and the score accumulators of a warp
+//   are its 16 rows x 64 keys, whatever dh;
+// - o is produced in column chunks of DC = 128, one chunk after the other
+//   by a loop inside the block: for each chunk the block walks its k tiles
+//   again and recomputes the scores over the whole contraction (twice at
+//   dh 256; the price of any head dim in a bounded block).
 // Every step of the walk copies at most two 17 KB tiles through a 2-stage
-// cp.async ring (69.6 KB a block, 71.1 KB for K3 with its row statistics):
-// a q and a k slice (s), a do and a v slice (dp), then the chunk's v (K1),
-// k (K2) or do and q (K3) columns for the product that uses p or ds. Four
-// warps each own 16 rows; p and ds stay in registers (the A operands of
-// the next product, as above), through the same fragment code as the
-// narrow kernels (WarpMma: mma.sync m16n8k16 bf16, or split TF32 m16n8k8
-// f32). Each k tile runs as one 64-key block: the online softmax of K1
+// cp.async ring (69.6 KB a block): a q and a k slice, then the chunk's v
+// columns for p.v. Four warps each own 16 rows; p stays in registers (the
+// A operand of the next product, as above), through the same fragment code
+// as the narrow kernels (WarpMma: mma.sync m16n8k16 bf16, or split TF32
+// m16n8k8 f32). Each k tile runs as one 64-key block: the online softmax
 // takes the tile's max over all 64 keys at once (the narrow kernels: 16 or
 // 32), and the diagonal tile computes its masked keys rather than skip
 // them. m and l are K1's at dh <= 128 in every way but the order of the
-// f32 sums; chunk 0 writes them.
+// f32 sums; chunk 0 writes them. K2 and K3 past dh 128 are the wide
+// backward kernels further down.
 
 constexpr int kWideWarps = 4;
 constexpr int kWideThreads = 32 * kWideWarps;
@@ -1399,19 +1395,14 @@ struct WideShape {
   static constexpr int DS = 256 / sizeof(E);     // contraction columns per slice
   static constexpr int LDS = DS + PAD;
   static constexpr int SLOT = kTile * LDS;       // elements of one slice tile
-  static constexpr int DC = 128;                 // K1 o / K2 dq columns per chunk
+  static constexpr int DC = 128;                 // K1 o columns per chunk
   static constexpr int LDC = DC + PAD;
-  static constexpr int DC3 = 64;                 // K3 dk, dv columns per chunk
-  static constexpr int LDC3 = DC3 + PAD;
   static constexpr size_t STAGES = 4 * static_cast<size_t>(SLOT) * sizeof(E);
 };
 
 static_assert(kTile * WideShape<float>::LDC <= 2 * WideShape<float>::SLOT &&
                   kTile * WideShape<__nv_bfloat16>::LDC <= 2 * WideShape<__nv_bfloat16>::SLOT,
-              "a K1 / K2 chunk tile fits one stage of two slots");
-static_assert(WideShape<float>::LDC3 <= WideShape<float>::LDS &&
-                  WideShape<__nv_bfloat16>::LDC3 <= WideShape<__nv_bfloat16>::LDS,
-              "a K3 chunk tile fits one slot");
+              "a K1 chunk tile fits one stage of two slots");
 
 // A warp's products on the tensor cores, for the wide kernels:
 //   xyT: s[n] += X[xr0 + 0..15, 0..KW) . Y[yr0 + 8 n + 0..7, 0..KW)^T;
@@ -1685,39 +1676,684 @@ __global__ void __launch_bounds__(kWideThreads) flash_fwd_kernel_wide(Args a) {
   }
 }
 
-// K2, wide: one block per (b*h, 64 q rows), warp w owning q rows
-// 16w..16w+15. Per chunk c and k tile kt: ns steps of s += q_s.k_s^T, ns of
-// dp += do_s.v_s^T, then the step that forms ds and adds
-// round_E(ds * scale) . k[:, chunk c].
-template <typename E>
-__global__ void __launch_bounds__(kWideThreads) flash_dq_kernel_wide(Args a) {
-  using S = WideShape<E>;
-  using M = WarpMma<E>;
-  using namespace sdml_mma;
+// ---- K2 and K3 at head dims above 128: the wide backward kernels ---------------
+//
+// Replace _dq_kernel (K2, :300) and _dkv_kernel (K3, :338) of the JAX
+// package's ops/flash_attention.py past dh 128, for bf16
+// (flash_{dq,dkv}_kernel_wide_wgmma) and f32 (flash_{dq,dkv}_kernel_wide_tf32).
+//
+// What bounds them. At [2, 16, 2048, 256] each does ~0.14 TFLOP of causal
+// products (s, dp and the output product, each 2 x 64 x 64 x dh a tile
+// pair) against ~0.1 GB of q/k/v/do traffic: bound by operations (bf16
+// 0.10-0.14 ms at 989 TFLOP/s; f32 three TF32 products a product, 0.6-0.8
+// ms at 495). Their first design streamed the contraction in 256-byte
+// slices with a [64, 64] score tile per 4-warp block and made the outputs
+// in chunks of 128 (K2) or 64 (K3) columns, recomputing the scores for
+// every chunk (K2 twice, K3 four times at dh 256) and streaming the
+// block's own rows again at every step: it was bound by what each step
+// copied through L2 into shared memory.
+//
+// The design here, for both dtypes: one block per (b*h, 64-row tile), one
+// launch, 8 warps in two halves; the block's own tile (K2: q and do; K3: k
+// and v) is loaded once and stays in shared memory; the other side's tiles
+// (K2: k, v; K3: q, do) stream through a 2-stage ring, each read from L2
+// once per tile pair; s and dp are computed once per tile pair over the
+// whole contraction, and the output sums for all of dh stay in registers:
+// - K2 splits each k tile's 64 keys: half h computes s and dp for q x keys
+//   [32 h, 32 h + 32), ds in registers, and dq_h += ds . k[those keys] over
+//   every column; the two partial dq add through shared memory once, at
+//   the end.
+// - K3 in bf16 splits each q tile's 64 queries the same way (s^T, dp^T,
+//   p^T and ds^T of 32 queries a half), then half 0 makes dv += p^T . do
+//   and half 1 dk += ds^T . q over all 64 queries, each taking the other
+//   half's operand fragments (bf16, 4 KB) through shared memory. In f32 K3
+//   splits the products: half 0 s^T, p^T and dv, half 1 dp^T and dk, with
+//   ds^T from half 0's p^T (f32, 16 KB).
+// Past dh 256 the resident tiles do not fit: the outputs are made in
+// chunks of 256 columns, and for each chunk the scores are computed again
+// over the whole contraction, with the own rows streamed beside the other
+// side's (slices of 128 bf16 or 64 f32 columns), so the scores are computed
+// ceil(dh / 256) times (twice at dh 512).
+// - bf16: two warpgroups on wgmma (s and dp m64n32k16 from shared memory,
+//   the chains unrolled; the outputs m64n256k16 with p / ds as the A
+//   operand from registers and the other side's tile as B, N-major). Tiles
+//   are [64, 64] blocks in the 128-byte swizzle (wgmma_bf16.cuh); the ring
+//   is filled by TMA from one thread, completing on an mbarrier per stage
+//   (by all threads with plain copies when dh is not a multiple of 8 or a
+//   pointer is not 16-byte aligned, which TMA cannot take). No branch that
+//   splits a warpgroup sits between its wgmmas (thread 0's TMA issue, the
+//   statistics and the stores are predicated instructions), so ptxas
+//   keeps them asynchronous; the softmax's exponential is ex2.approx. The
+//   outputs leave through a swizzled bf16 tile in shared memory, in
+//   16-byte rows. Shared memory 210 KB a block: own 64 KB, 2 stages x 64
+//   KB, exchange 16 KB.
+// - f32: split TF32 on mma.sync (WarpMma<float>'s fragments), the other
+//   side's tiles in 64-column slices through a cp.async ring, read twice per
+//   tile pair (for the scores, then for the output product); the scores'
+//   slice sums stay separate before they add (the f32 chain above). Shared
+//   memory: own 130 KB, 2 stages x 34 KB, K3 p 16 KB.
+// p and ds are rounded to the input dtype only as the output product's
+// operand, as in the narrow kernels; the sums are f32.
+
+constexpr int kBwdThreads = 256;                 // two groups of 4 warps
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The steps of a wide backward block: per other-side tile t (and, past dh
+// 256, per output chunk c), `per` steps s, the first ns of them score
+// steps. At dh <= 256 a bf16 step loads the tile and does both parts; an
+// f32 tile takes ns score steps, then as many output steps (64-column
+// slices); past 256 the score steps stream the contraction and the rest
+// make chunk c.
+struct WStep {
+  int c, t, s;
+  bool score, out;
+};
+
+__device__ __forceinline__ WStep wide_step(int i, int per, int ns, int ntiles, int t0) {
+  WStep w;
+  const int tile = i / per;
+  w.s = i - tile * per;
+  w.c = tile / ntiles;
+  w.t = t0 + (tile - w.c * ntiles);
+  w.score = w.s < ns;
+  w.out = w.s >= ns;
+  return w;
+}
+
+// ---- bf16: wgmma, TMA -------------------------------------------------------------
+
+constexpr uint32_t kWgTile = 4 * sdml_wg::kBlockBytes;    // a [64, 256] tile, 32 KB
+constexpr uint32_t kWgStage = 2 * kWgTile;                // two of them
+constexpr uint32_t kWgP = 64 * 64 * 4;                    // K3's fragment exchange
+constexpr size_t kWgSmem = 1024 + kWgStage * 3 + kWgP + 2 * 192 * 4 + 3 * 8;
+
+struct WgMaps {
+  const CUtensorMap* own_a;                      // K2: q, do; K3: k, v
+  const CUtensorMap* own_b;
+  const CUtensorMap* other_a;                    // K2: k, v; K3: q, do
+  const CUtensorMap* other_b;
+};
+
+// rows [r0, r0 + 64) x column blocks [b0, b0 + nb) of x ([T, dh] of one
+// b*h) into the swizzled tile at dst, by all threads with plain copies;
+// zeros past T and dh
+__device__ __forceinline__ void fill_swizzled(uint8_t* dst, const __nv_bfloat16* x, int b0,
+                                              int nb, int r0, int T, int dh) {
+  // a trip count the same in every thread (4096 elements a block)
+  for (int i0 = 0; i0 < nb * 4096; i0 += kBwdThreads) {
+    const int i = i0 + threadIdx.x;
+    const int b = i >> 12, r = (i >> 6) & 63, cc = i & 63;
+    const int row = r0 + r, col = (b0 + b) * 64 + cc;
+    const bool in = row < T && col < dh;
+    const __nv_bfloat16 val = x[in ? static_cast<long long>(row) * dh + col : 0];
+    *reinterpret_cast<__nv_bfloat16*>(dst + sdml_wg::swz(r, b * 64 + cc)) =
+        in ? val : __float2bfloat16(0.f);
+  }
+}
+
+// One load of a wide bf16 step: column blocks [b0, b0 + nb) of rows
+// [r0, r0 + 64) into dst
+struct WgLoad {
+  const CUtensorMap* map;
+  const __nv_bfloat16* x;
+  uint32_t off;
+  int b0, nb, r0;
+};
+
+// Loads `n` tiles into the stage at base, completing on bar: TMA from
+// thread 0, or plain copies by every thread and one arrival. Every thread
+// of the block calls it.
+__device__ __forceinline__ void wg_fill(const WgLoad (&ld)[4], int n, uint8_t* base, int bh,
+                                        int T, int dh, bool tma, uint32_t bar) {
+  using namespace sdml_wg;
+  if (tma) {
+    uint32_t bytes = 0;
+    for (int j = 0; j < n; ++j) bytes += ld[j].nb * kBlockBytes;
+    mbar_expect(bar, bytes);                     // thread 0's, as the loads
+    for (int j = 0; j < n; ++j)
+      for (int b = 0; b < ld[j].nb; ++b)
+        tma_load(smem_addr(base + ld[j].off + b * kBlockBytes), ld[j].map,
+                 (ld[j].b0 + b) * 64, ld[j].r0, bh, bar);
+  } else {
+    for (int j = 0; j < n; ++j)
+      fill_swizzled(base + ld[j].off, ld[j].x, ld[j].b0, ld[j].nb, ld[j].r0, T, dh);
+    fence_async_smem();
+    __syncthreads();
+    mbar_arrive(bar);                            // thread 0's
+  }
+}
+
+// The tiles of wide bf16 step w into a stage: at dh <= 256 the other side's
+// tile t whole (a at 0, b at 32 KB); past 256, a score step's 128-column
+// slice s of the other side's tile (a at 0, b at 32 KB) and of the own tile
+// (a at 16 KB, b at 48 KB), an output step the other side's chunk c (a, and
+// b when out_b)
+__device__ __forceinline__ int wg_step_loads(WgLoad (&ld)[4], const WStep& w, bool split,
+                                             bool out_b, int own_r0, int nbt,
+                                             const WgMaps& m, const __nv_bfloat16* own_a,
+                                             const __nv_bfloat16* own_b,
+                                             const __nv_bfloat16* oth_a,
+                                             const __nv_bfloat16* oth_b) {
+  const int r0 = w.t * kTile;
+  if (!split) {
+    ld[0] = WgLoad{m.other_a, oth_a, 0, 0, nbt, r0};
+    ld[1] = WgLoad{m.other_b, oth_b, kWgTile, 0, nbt, r0};
+    return 2;
+  }
+  if (w.score) {
+    const int b0 = 2 * w.s, nb = min(2, nbt - b0);
+    ld[0] = WgLoad{m.other_a, oth_a, 0, b0, nb, r0};
+    ld[1] = WgLoad{m.own_a, own_a, kWgTile / 2, b0, nb, own_r0};
+    ld[2] = WgLoad{m.other_b, oth_b, kWgTile, b0, nb, r0};
+    ld[3] = WgLoad{m.own_b, own_b, kWgTile + kWgTile / 2, b0, nb, own_r0};
+    return 4;
+  }
+  const int b0 = 4 * w.c, nb = min(4, nbt - b0);
+  ld[0] = WgLoad{m.other_a, oth_a, 0, b0, nb, r0};
+  ld[1] = WgLoad{m.other_b, oth_b, kWgTile, b0, nb, r0};
+  return out_b ? 2 : 1;
+}
+
+// the 64-column blocks of a score step's contraction: all of dh's at dh <=
+// 256 (3 or 4), else those of 128-column slice s below dh (1 or 2)
+__device__ __forceinline__ int wg_blocks(bool split, int s, int nbt) {
+  return split ? min(2, nbt - 2 * s) : nbt;
+}
+
+// The score chains of one step, unrolled: d[c] (+)= X[c] . Y[c]^T over NB
+// blocks (4 NB k16 steps, m64n32k16: 32 rows of Y from yr0) for each of the
+// NC chains; sd 0 for a step that starts the sums. A loop with a run-time
+// trip count would carry the accumulators through moves that serialize
+// the wgmmas.
+template <int NB, int NC>
+__device__ __forceinline__ void wg_score_chains(float (*d[NC])[16], const uint32_t (&x)[NC],
+                                                const uint32_t (&y)[NC], int yr0, int sd) {
+  using namespace sdml_wg;
+#pragma unroll
+  for (int kk = 0; kk < 4 * NB; ++kk)
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      wgmma_ss_n32(*d[c], desc_k(x[c], kk), desc_k(y[c], kk, yr0), sd || kk > 0);
+}
+
+template <int NC>
+__device__ __forceinline__ void wg_scores(int nb, float (*d[NC])[16], const uint32_t (&x)[NC],
+                                          const uint32_t (&y)[NC], int yr0, int sd) {
+  switch (nb) {
+    case 1: wg_score_chains<1, NC>(d, x, y, yr0, sd); break;
+    case 2: wg_score_chains<2, NC>(d, x, y, yr0, sd); break;
+    case 3: wg_score_chains<3, NC>(d, x, y, yr0, sd); break;
+    default: wg_score_chains<4, NC>(d, x, y, yr0, sd); break;
+  }
+}
+
+// the A fragment of k16 slice kk from accumulator n8 tiles 2 kk, 2 kk + 1
+template <int N>
+__device__ __forceinline__ void wg_pack(uint32_t (&af)[4], const float (&d)[N], int kk) {
+  af[0] = sdml_mma::pack_bf16(d[8 * kk], d[8 * kk + 1]);
+  af[1] = sdml_mma::pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+  af[2] = sdml_mma::pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+  af[3] = sdml_mma::pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+__device__ __forceinline__ uint8_t* align1024(void* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                    ~static_cast<uintptr_t>(1023));
+}
+
+// The end of a chunk: a warpgroup's [64, 256] f32 accumulator rounded to
+// bf16 into a swizzled [64, 256] tile at dst (32 KB) where `on`, then the
+// tile copied out by the whole block in 16-byte rows (element stores when
+// dh is not a multiple of 8 or a pointer not 16-byte aligned). Every store
+// is predicated: no branch splits a warpgroup between its wgmmas.
+__device__ __forceinline__ void wg_stage(uint8_t* dst, const float (&acc)[128], int warp,
+                                         int g, int t4, bool on) {
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      sdml_wg::st_shared_b32_if(dst + sdml_wg::swz(16 * warp + g + 8 * h, 8 * j + 2 * t4),
+                                sdml_mma::pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]),
+                                on);
+  }
+}
+
+// rows [r0, r0 + 64) x columns [c0, c0 + 256) of a [T, dh] bf16 output from
+// the staged tile at src, by all threads
+__device__ __forceinline__ void wg_copy_out(__nv_bfloat16* out, const uint8_t* src, int r0,
+                                            int c0, int T, int dh, bool vec) {
+#pragma unroll
+  for (int pass = 0; pass < 8; ++pass) {
+    const int r = 8 * pass + (threadIdx.x >> 5), ch = threadIdx.x & 31;
+    const int row = r0 + r, col = c0 + 8 * ch;
+    const uint4 v = *reinterpret_cast<const uint4*>(src + sdml_wg::swz(r, 8 * ch));
+    __nv_bfloat16* at = out + static_cast<long long>(min(row, T - 1)) * dh;
+    if (vec) {
+      sdml_wg::st_global_v4_if(at + min(col, dh - 8), v, row < T && col < dh);
+    } else {
+      const uint16_t* e = reinterpret_cast<const uint16_t*>(&v);
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        sdml_wg::st_global_b16_if(at + min(col + k, dh - 1), e[k], row < T && col + k < dh);
+    }
+  }
+}
+
+// K2, wide, bf16: one block per (b*h, 64 q rows); warpgroup h takes keys
+// [32 h, 32 h + 32) of every k tile. Per tile: s = q . k_h^T and dp =
+// do . v_h^T (m64n32k16), ds in registers, dq_h += round(ds * scale) .
+// k_h (m64n256k16); the two dq_h add through shared memory at the end of
+// each 256-column chunk.
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_dq_kernel_wide_wgmma(Args a, const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo) {
+  using namespace sdml_wg;
+  using bf16 = __nv_bfloat16;
   const int bh = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;    // the longest rows start first
   const int T = a.T, dh = a.dh;
-  const bool vec = a.vec != 0;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
+  const bool tma = a.vec != 0;
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127;
+  const int warp = wt >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
   const long long base = static_cast<long long>(bh) * T * dh;
   const long long rbase = static_cast<long long>(bh) * T;
-  const E* q = static_cast<const E*>(a.q) + base;
-  const E* k = static_cast<const E*>(a.k) + base;
-  const E* v = static_cast<const E*>(a.v) + base;
-  const E* dout = static_cast<const E*>(a.dout) + base;
-  E* dq = static_cast<E*>(a.dq) + base;
+  const bf16* q = static_cast<const bf16*>(a.q) + base;
+  const bf16* k = static_cast<const bf16*>(a.k) + base;
+  const bf16* v = static_cast<const bf16*>(a.v) + base;
+  const bf16* dout = static_cast<const bf16*>(a.dout) + base;
+  bf16* dq = static_cast<bf16*>(a.dq) + base;
 
   extern __shared__ uint4 smem_mma[];
-  E* ring = reinterpret_cast<E*>(smem_mma);      // 2 stages of 2 slots
+  uint8_t* own = align1024(smem_mma);            // q at 0, do at 32 KB
+  uint8_t* stages = own + kWgStage;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stages + 2 * kWgStage + kWgP + 2 * 192 * 4);
+  const uint32_t bar0 = smem_addr(bars), bar_own = bar0 + 16;
 
   const int q0 = qt * kTile;
   const int last = min((T + kTile - 1) / kTile - 1, qt);
-  const int ns = (dh + S::DS - 1) / S::DS;
-  const int nch = (dh + S::DC - 1) / S::DC;
-  const int wr = warp * 16;
-  const int r_lo = q0 + wr + g, r_hi = r_lo + 8;
-  const bool live_w = q0 + wr < T;
+  const int nbt = (dh + 63) >> 6;
+  const bool split = dh > 256;
+  const int ns = split ? (dh + 127) >> 7 : 1;
+  const int per = split ? ns + 1 : 1;
+  const int nch = split ? (dh + 255) >> 8 : 1;
+  const int ntiles = last + 1;
+  const int nsteps = nch * ntiles * per;
+  const WgMaps maps{&tq, &tdo, &tk, &tv};
+
+  if (tid == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    mbar_init(bar_own, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  auto issue = [&](int i, int st) {
+    WgLoad ld[4];
+    WStep w = wide_step(i, per, split ? ns : 1, ntiles, 0);
+    if (!split) w.score = w.out = true;
+    const int n = wg_step_loads(ld, w, split, false, q0, nbt, maps, q, dout, k, v);
+    wg_fill(ld, n, stages + st * kWgStage, bh, T, dh, tma, bar0 + 8 * st);
+  };
+  if (!split) {
+    const WgLoad ld[4] = {WgLoad{&tq, q, 0, 0, nbt, q0},
+                          WgLoad{&tdo, dout, kWgTile, 0, nbt, q0}, WgLoad{}, WgLoad{}};
+    wg_fill(ld, 2, own, bh, T, dh, tma, bar_own);
+  }
+  issue(0, 0);
+  if (nsteps > 1) issue(1, 1);
+
+  const int r_lo = q0 + 16 * warp + g, r_hi = r_lo + 8;
+  const float m_lo = r_lo < T ? a.m[rbase + r_lo] : 0.f;
+  const float m_hi = r_hi < T ? a.m[rbase + r_hi] : 0.f;
+  const float li_lo = r_lo < T ? a.linv[rbase + r_lo] : 0.f;
+  const float li_hi = r_hi < T ? a.linv[rbase + r_hi] : 0.f;
+  const float dl_lo = r_lo < T ? a.delta[rbase + r_lo] : 0.f;
+  const float dl_hi = r_hi < T ? a.delta[rbase + r_hi] : 0.f;
+  // exp(s scale - m) as 2^(s scale log2 e - m log2 e)
+  const float scale2 = a.scale * kLog2e, m2_lo = m_lo * kLog2e, m2_hi = m_hi * kLog2e;
+
+  float acc[128], sc[16], dp[16];
+#pragma unroll 1
+  for (int i = 0; i < nsteps; ++i) {
+    const int st = i & 1;
+    WStep w = wide_step(i, per, split ? ns : 1, ntiles, 0);
+    if (!split) w.score = w.out = true;
+    if (i == 0 && !split) mbar_wait(bar_own, 0);
+    mbar_wait(bar0 + 8 * st, (i >> 1) & 1);
+    const uint32_t sa = smem_addr(stages + st * kWgStage);
+    if (w.score) {
+      const uint32_t x[2] = {split ? sa + kWgTile / 2 : smem_addr(own),
+                             split ? sa + kWgTile + kWgTile / 2 : smem_addr(own) + kWgTile};
+      const uint32_t y[2] = {sa, sa + kWgTile};
+      float(*d[2])[16] = {&sc, &dp};
+      hold(sc);
+      hold(dp);
+      fence();
+      wg_scores<2>(wg_blocks(split, w.s, nbt), d, x, y, 32 * wg, w.s > 0);
+      commit();
+      wait_all();
+      hold(sc);
+      hold(dp);
+    }
+    if (w.out) {
+      // ds * scale in place of s: element i of n8 tile j sits at row
+      // 16 warp + g + 8 (i / 2), key 32 wg + 8 j + 2 t4 + i % 2
+      const int kb = w.t * kTile + 32 * wg;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool hi = e >= 2;
+          const int qp = hi ? r_hi : r_lo;
+          const int kp = kb + 8 * j + 2 * t4 + (e & 1);
+          const bool live = qp >= kp && kp < T && qp < T;
+          const float p = live ? exp2_approx(sc[4 * j + e] * scale2 - (hi ? m2_hi : m2_lo)) *
+                                     (hi ? li_hi : li_lo)
+                               : 0.f;
+          sc[4 * j + e] = p * (dp[4 * j + e] - (hi ? dl_hi : dl_lo)) * a.scale;
+        }
+      }
+      uint32_t af[2][4];
+      wg_pack(af[0], sc, 0);
+      wg_pack(af[1], sc, 1);
+      hold(acc);
+      fence();
+      // the chunk's first tile starts the sums (acc is written only here,
+      // never in a branch that splits a warpgroup)
+      wgmma_rs_n256_tb(acc, af[0], desc_n(sa, 32 * wg), w.t > 0);
+      wgmma_rs_n256_tb(acc, af[1], desc_n(sa, 32 * wg + 16), 1);
+      commit();
+      wait_all();
+      hold(acc);
+    }
+    __syncthreads();                             // this stage is free for step i + 2
+    if (i + 2 < nsteps) issue(i + 2, st);
+    if (w.out && w.t == last) {                  // chunk c is complete
+      // the two warpgroups' dq add through own's area (its rows are read
+      // no more): warpgroup 1's partial out, then every thread adds (the
+      // sum is warpgroup 0's; warpgroup 1's acc is started afresh by the
+      // next chunk's first wgmma), staged as bf16 and copied out
+      float* red = reinterpret_cast<float*>(own);
+#pragma unroll
+      for (int j = 0; j < 128; ++j) st_shared_if(red + j * 128 + wt, acc[j], wg == 1);
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < 128; ++j) acc[j] += red[j * 128 + wt];
+      __syncthreads();
+      wg_stage(own, acc, warp, g, t4, wg == 0);
+      __syncthreads();
+      wg_copy_out(dq, own, q0, 256 * w.c, T, dh, tma);
+      __syncthreads();
+    }
+  }
+}
+
+// K3, wide, bf16: one block per (b*h, 64 k rows), scores transposed
+// ([key, query]). Warpgroup h takes queries [32 h, 32 h + 32) of every q
+// tile from the diagonal on: s^T = k . q_h^T and dp^T = v . do_h^T
+// (m64n32k16), p^T and ds^T in registers. Warpgroup 0 makes dv +=
+// round(p)^T . do, warpgroup 1 dk += round(ds * scale)^T . q (m64n256k16):
+// each hands the other its half of the A operand (bf16 fragments, 4 KB a
+// warpgroup) through shared memory.
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_dkv_kernel_wide_wgmma(Args a, const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap tdo) {
+  using namespace sdml_wg;
+  using bf16 = __nv_bfloat16;
+  const int bh = blockIdx.x;
+  const int kt = blockIdx.y;                     // the longest columns start first
+  const int T = a.T, dh = a.dh;
+  const bool tma = a.vec != 0;
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127;
+  const int warp = wt >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const long long base = static_cast<long long>(bh) * T * dh;
+  const long long rbase = static_cast<long long>(bh) * T;
+  const bf16* q = static_cast<const bf16*>(a.q) + base;
+  const bf16* k = static_cast<const bf16*>(a.k) + base;
+  const bf16* v = static_cast<const bf16*>(a.v) + base;
+  const bf16* dout = static_cast<const bf16*>(a.dout) + base;
+
+  extern __shared__ uint4 smem_mma[];
+  uint8_t* own = align1024(smem_mma);            // k at 0, v at 32 KB
+  uint8_t* stages = own + kWgStage;
+  uint32_t* xf = reinterpret_cast<uint32_t*>(stages + 2 * kWgStage);  // [2][8][128]
+  float* rows_s = reinterpret_cast<float*>(xf) + 64 * 64;  // 2 x (m, linv, delta) [64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(rows_s + 2 * 192);
+  const uint32_t bar0 = smem_addr(bars), bar_own = bar0 + 16;
+
+  const int k0 = kt * kTile;
+  const int n_qt = (T + kTile - 1) / kTile;
+  const int nbt = (dh + 63) >> 6;
+  const bool split = dh > 256;
+  const int ns = split ? (dh + 127) >> 7 : 1;
+  const int per = split ? ns + 1 : 1;
+  const int nch = split ? (dh + 255) >> 8 : 1;
+  const int ntiles = n_qt - kt;
+  const int nsteps = nch * ntiles * per;
+  const WgMaps maps{&tk, &tv, &tq, &tdo};
+
+  // thread tid < 192's row statistic of step i's q tile (m, linv, delta:
+  // 64 each), loaded a step ahead; rows_s[192 (i & 1)..] holds step i's
+  const bool stat_on = tid < 192;
+  const float* stat_src = tid < 64 ? a.m : tid < 128 ? a.linv : a.delta;
+  auto row_stat = [&](int i) {
+    const int qp = wide_step(i, per, split ? ns : 1, ntiles, kt).t * kTile + (tid & 63);
+    return ld_global_if(stat_src + rbase + min(qp, T - 1), stat_on && i < nsteps && qp < T);
+  };
+  st_shared_if(rows_s + (stat_on ? tid : 0), row_stat(0), stat_on);
+  if (tid == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    mbar_init(bar_own, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  auto issue = [&](int i, int st) {
+    WgLoad ld[4];
+    WStep w = wide_step(i, per, split ? ns : 1, ntiles, kt);
+    if (!split) w.score = w.out = true;
+    const int n = wg_step_loads(ld, w, split, true, k0, nbt, maps, k, v, q, dout);
+    wg_fill(ld, n, stages + st * kWgStage, bh, T, dh, tma, bar0 + 8 * st);
+  };
+  if (!split) {
+    const WgLoad ld[4] = {WgLoad{&tk, k, 0, 0, nbt, k0}, WgLoad{&tv, v, kWgTile, 0, nbt, k0},
+                          WgLoad{}, WgLoad{}};
+    wg_fill(ld, 2, own, bh, T, dh, tma, bar_own);
+  }
+  issue(0, 0);
+  if (nsteps > 1) issue(1, 1);
+
+  const int kr = k0 + 16 * warp + g;             // this lane's keys kr, kr + 8
+  const float scale2 = a.scale * kLog2e;         // exp(x) as 2^(x log2 e)
+  const bool w0 = wg == 0;
+  float acc[128], sc[16], dp[16];
+#pragma unroll 1
+  for (int i = 0; i < nsteps; ++i) {
+    const int st = i & 1;
+    WStep w = wide_step(i, per, split ? ns : 1, ntiles, kt);
+    if (!split) w.score = w.out = true;
+    const int q0 = w.t * kTile;
+    const float* rows = rows_s + st * 192;
+    const float next_stat = row_stat(i + 1);     // stored at the step's end
+    if (i == 0 && !split) mbar_wait(bar_own, 0);
+    mbar_wait(bar0 + 8 * st, (i >> 1) & 1);
+    const uint32_t sa = smem_addr(stages + st * kWgStage);
+    if (w.score) {
+      // k . q_h^T and v . do_h^T
+      const uint32_t x[2] = {split ? sa + kWgTile / 2 : smem_addr(own),
+                             split ? sa + kWgTile + kWgTile / 2 : smem_addr(own) + kWgTile};
+      const uint32_t y[2] = {sa, sa + kWgTile};
+      float(*d[2])[16] = {&sc, &dp};
+      hold(sc);
+      hold(dp);
+      fence();
+      wg_scores<2>(wg_blocks(split, w.s, nbt), d, x, y, 32 * wg, w.s > 0);
+      commit();
+      wait_all();
+      hold(sc);
+      hold(dp);
+    }
+    if (w.out) {
+      // p^T in place of s^T, ds^T * scale in place of dp^T: element e of
+      // n8 tile j sits at key kr + 8 (e / 2), query column 32 wg + 8 j +
+      // 2 t4 + e % 2 of the tile
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 32 * wg + 8 * j + 2 * t4 + (e & 1);
+          const int kp = kr + 8 * (e >> 1), qp = q0 + col;
+          const bool live = qp >= kp && kp < T && qp < T;
+          const float p = live ? exp2_approx(sc[4 * j + e] * scale2 - rows[col] * kLog2e) *
+                                     rows[64 + col]
+                               : 0.f;
+          sc[4 * j + e] = p;
+          dp[4 * j + e] = p * (dp[4 * j + e] - rows[128 + col]) * a.scale;
+        }
+      }
+      // this warpgroup's k16 slices 2 wg, 2 wg + 1 of p^T and ds^T; the
+      // other warpgroup's half of the operand it multiplies (warpgroup 0
+      // p^T, 1 ds^T) comes through shared memory. Selects, not branches,
+      // pick each warpgroup's values: no branch that splits the two
+      // warpgroups writes a register a wgmma reads.
+      uint32_t ap[2][4], ad[2][4], got[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        wg_pack(ap[kk], sc, kk);
+        wg_pack(ad[kk], dp, kk);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          xf[(wg * 8 + kk * 4 + r) * 128 + wt] = w0 ? ad[kk][r] : ap[kk][r];
+      }
+      bar_sync(1, kBwdThreads);                  // both halves are in shared memory
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) got[kk][r] = xf[((1 - wg) * 8 + kk * 4 + r) * 128 + wt];
+      // warpgroup 0: dv += p^T . do; 1: dk += ds^T . q; the chunk's first
+      // tile starts the sums
+      const uint32_t y = sa + (w0 ? kWgTile : 0);
+      uint32_t af[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const uint32_t mine = w0 ? ap[kk & 1][r] : ad[kk & 1][r];
+          af[kk][r] = (kk >> 1) == wg ? mine : got[kk & 1][r];
+        }
+      hold(acc);
+      fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_n256_tb(acc, af[kk], desc_n(y, 16 * kk), kk > 0 || w.t > kt);
+      commit();
+      wait_all();
+      hold(acc);
+    }
+    // step i + 1's statistics (its buffer was last read in step i - 1)
+    st_shared_if(rows_s + 192 * (st ^ 1) + (stat_on ? tid : 0), next_stat, stat_on);
+    __syncthreads();                             // this stage and the halves are free
+    if (i + 2 < nsteps) issue(i + 2, st);
+    if (w.out && w.t == n_qt - 1) {              // chunk c is complete
+      // dv (warpgroup 0) and dk (1) staged in own's area (k, v are read no
+      // more past dh 256 or after the last step), then copied out
+      wg_stage(own + wg * kWgTile, acc, warp, g, t4, true);
+      __syncthreads();
+      wg_copy_out(static_cast<bf16*>(a.dv) + base, own, k0, 256 * w.c, T, dh, tma);
+      wg_copy_out(static_cast<bf16*>(a.dk) + base, own + kWgTile, k0, 256 * w.c, T, dh, tma);
+      __syncthreads();
+    }
+  }
+}
+
+// ---- f32: split TF32 on mma.sync ----------------------------------------------------
+
+constexpr int kSl = 64;                          // f32 columns of a streamed slice
+constexpr int kLdS = kSl + 4;                    // its row stride
+constexpr int kSlot = kTile * kLdS;              // floats of a slice tile
+constexpr int kLdR = 256 + 4;                    // row stride of a resident tile
+constexpr int kRes = kTile * kLdR;               // floats of a resident tile
+// K2: own q, do + 2 stages x (k, v) slices; past dh 256: 64 KB for the
+// partial-dq sum + 2 stages x (k, v, q, do) slices
+constexpr size_t kTfDqSmem =
+    sizeof(float) * (2 * kRes + 4 * kSlot > 16384 + 8 * kSlot ? 2 * kRes + 4 * kSlot
+                                                              : 16384 + 8 * kSlot);
+// K3: own k, v + 2 stages x (q, do) slices (past 256: 2 x 4 slices), p^T,
+// 2 x the q tile's rows
+constexpr size_t kTfDkvSmem =
+    (2 * static_cast<size_t>(kRes) + 4 * kSlot + 64 * 64 + 2 * 192) * sizeof(float);
+
+static_assert(kTfDqSmem <= 232448 && kTfDkvSmem <= 232448 && kWgSmem <= 232448,
+              "a wide backward block fits the 227 KB a block may have");
+
+// K2, wide, f32: one block per (b*h, 64 q rows); warp w owns q rows
+// 16 (w % 4).. and keys [32 h, 32 h + 32) of every k tile, h = w / 4. Per
+// tile: ns score steps (64-column slices of k and v: s += q_s . k_s^T,
+// dp += do_s . v_s^T), then the output steps over the slices of k (dq_h
+// += ds * scale . k_s, in f32); the two halves' dq add at the end.
+__global__ void __launch_bounds__(kBwdThreads, 1) flash_dq_kernel_wide_tf32(Args a) {
+  using namespace sdml_mma;
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int T = a.T, dh = a.dh;
+  const bool vec = a.vec != 0;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3, rw = warp & 3, h = warp >> 2, wt = tid & 127;
+  const long long base = static_cast<long long>(bh) * T * dh;
+  const long long rbase = static_cast<long long>(bh) * T;
+  const float* q = static_cast<const float*>(a.q) + base;
+  const float* k = static_cast<const float*>(a.k) + base;
+  const float* v = static_cast<const float*>(a.v) + base;
+  const float* dout = static_cast<const float*>(a.dout) + base;
+  float* dq = static_cast<float*>(a.dq) + base;
+
+  extern __shared__ uint4 smem_mma[];
+  float* sm = reinterpret_cast<float*>(smem_mma);
+  const bool split = dh > 256;
+  float* own = sm;                               // q, do (dh <= 256)
+  float* ring = split ? sm + 16384 : sm + 2 * kRes;
+  const int slots = split ? 4 : 2;
+
+  const int q0 = qt * kTile;
+  const int last = min((T + kTile - 1) / kTile - 1, qt);
+  const int nsl = (dh + kSl - 1) / kSl;
+  const int ns = nsl;                            // score steps per tile
+  const int per = ns + (split ? 4 : nsl);        // and output steps
+  const int nch = split ? (dh + 255) / 256 : 1;
+  const int ntiles = last + 1;
+  const int nsteps = nch * ntiles * per;
+
+  // score step s: k, v slices s (and past 256 q, do's); output step: k's
+  // slice of chunk c
+  auto issue = [&](int i, int stage) {
+    const WStep w = wide_step(i, per, ns, ntiles, 0);
+    float* dst = ring + stage * slots * kSlot;
+    const int k0 = w.t * kTile;
+    if (w.score) {
+      load_tile_async<kSl, kBwdThreads>(dst, k, k0, T, dh, vec, w.s * kSl);
+      load_tile_async<kSl, kBwdThreads>(dst + kSlot, v, k0, T, dh, vec, w.s * kSl);
+      if (split) {
+        load_tile_async<kSl, kBwdThreads>(dst + 2 * kSlot, q, q0, T, dh, vec, w.s * kSl);
+        load_tile_async<kSl, kBwdThreads>(dst + 3 * kSlot, dout, q0, T, dh, vec, w.s * kSl);
+      }
+    } else {
+      load_tile_async<kSl, kBwdThreads>(dst, k, k0, T, dh, vec,
+                                        w.c * 256 + (w.s - ns) * kSl);
+    }
+  };
+
+  if (!split) {
+    load_tile_async<256, kBwdThreads>(own, q, q0, T, dh, vec);
+    load_tile_async<256, kBwdThreads>(own + kRes, dout, q0, T, dh, vec);
+  }
+  issue(0, 0);
+  cp_async_commit();
+
+  const int r_lo = q0 + 16 * rw + g, r_hi = r_lo + 8;
   const float m_lo = r_lo < T ? a.m[rbase + r_lo] : 0.f;
   const float m_hi = r_hi < T ? a.m[rbase + r_hi] : 0.f;
   const float li_lo = r_lo < T ? a.linv[rbase + r_lo] : 0.f;
@@ -1725,218 +2361,242 @@ __global__ void __launch_bounds__(kWideThreads) flash_dq_kernel_wide(Args a) {
   const float dl_lo = r_lo < T ? a.delta[rbase + r_lo] : 0.f;
   const float dl_hi = r_hi < T ? a.delta[rbase + r_hi] : 0.f;
 
-  // step s < ns: q and k slices s; s < 2 ns: do and v slices s - ns;
-  // s == 2 ns: k's chunk c
-  auto issue = [&](int c, int kt, int s, int stage) {
-    E* dst = ring + stage * 2 * S::SLOT;
-    const int k0 = kt * kTile;
-    if (s < 2 * ns) {
-      const bool d = s >= ns;
-      const int c0 = (d ? s - ns : s) * S::DS;
-      load_tile_async<S::DS, kWideThreads>(dst, d ? dout : q, q0, T, dh, vec, c0);
-      load_tile_async<S::DS, kWideThreads>(dst + S::SLOT, d ? v : k, k0, T, dh, vec, c0);
-    } else {
-      load_tile_async<S::DC, kWideThreads>(dst, k, k0, T, dh, vec, c * S::DC);
-    }
-  };
-
-  float acc[S::DC / 8][4], sc[8][4], dp[8][4];
-  int c = 0, kt = 0, s = 0, stage = 0;
-  issue(0, 0, 0, 0);
-  cp_async_commit();
+  float acc[4][8][4], sc[4][4], dp[4][4];
 #pragma unroll 1
-  for (;;) {
-    int nc = c, nkt = kt, nss = s;
-    next_step(nc, nkt, nss, 2 * ns, 0, last);
-    const bool more = nc < nch;
-    if (more) issue(nc, nkt, nss, stage ^ 1);
+  for (int i = 0; i < nsteps; ++i) {
+    const int stage = i & 1;
+    if (i + 1 < nsteps) issue(i + 1, stage ^ 1);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const E* x = ring + stage * 2 * S::SLOT;
-    if (kt == 0 && s == 0) zero_acc(acc);
-    if (s == 0) {
-      zero_acc(sc);
-      zero_acc(dp);
+    const WStep w = wide_step(i, per, ns, ntiles, 0);
+    const float* x = ring + stage * slots * kSlot;
+    if (w.t == 0 && w.s == 0) {
+#pragma unroll
+      for (int o = 0; o < 4; ++o) zero_acc(acc[o]);
     }
-    if (live_w && s < ns) {
-      M::template xyT<S::LDS, S::LDS, 8, S::DS>(sc, x, wr, x + S::SLOT, 0, lane);
-    } else if (live_w && s < 2 * ns) {
-      M::template xyT<S::LDS, S::LDS, 8, S::DS>(dp, x, wr, x + S::SLOT, 0, lane);
-    } else if (live_w) {
-      // ds * scale in place of s; element i of n8 tile n sits at row
-      // g + 8 (i / 2), key kb + 8 n + 2 t4 + i % 2
-      const int kb = kt * kTile;
+    if (w.score) {
+      if (w.s == 0) {
+        zero_acc(sc);
+        zero_acc(dp);
+      }
+      if (split) {
+        WarpMma<float>::xyT<kLdS, kLdS, 4, kSl>(sc, x + 2 * kSlot, 16 * rw, x, 32 * h,
+                                                lane);
+        WarpMma<float>::xyT<kLdS, kLdS, 4, kSl>(dp, x + 3 * kSlot, 16 * rw, x + kSlot,
+                                                32 * h, lane);
+      } else {
+        WarpMma<float>::xyT<kLdR, kLdS, 4, kSl>(sc, own + w.s * kSl, 16 * rw, x, 32 * h,
+                                                lane);
+        WarpMma<float>::xyT<kLdR, kLdS, 4, kSl>(dp, own + kRes + w.s * kSl, 16 * rw,
+                                                x + kSlot, 32 * h, lane);
+      }
+      if (w.s == ns - 1) {
+        // ds * scale in place of s: element e of n8 tile n sits at row
+        // 16 rw + g + 8 (e / 2), key 32 h + 8 n + 2 t4 + e % 2
+        const int kb = w.t * kTile + 32 * h;
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+        for (int n = 0; n < 4; ++n) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const bool hi = i >= 2;
-          const int qp = hi ? r_hi : r_lo;
-          const int kp = kb + 8 * n + 2 * t4 + (i & 1);
-          const bool live = qp >= kp && kp < T && qp < T;
-          const float p =
-              live ? expf(sc[n][i] * a.scale - (hi ? m_hi : m_lo)) * (hi ? li_hi : li_lo)
-                   : 0.f;
-          sc[n][i] = p * (dp[n][i] - (hi ? dl_hi : dl_lo)) * a.scale;
+          for (int e = 0; e < 4; ++e) {
+            const bool hi = e >= 2;
+            const int qp = hi ? r_hi : r_lo;
+            const int kp = kb + 8 * n + 2 * t4 + (e & 1);
+            const bool live = qp >= kp && kp < T && qp < T;
+            const float p =
+                live ? expf(sc[n][e] * a.scale - (hi ? m_hi : m_lo)) * (hi ? li_hi : li_lo)
+                     : 0.f;
+            sc[n][e] = p * (dp[n][e] - (hi ? dl_hi : dl_lo)) * a.scale;
+          }
         }
       }
-      M::template pY<S::LDC, 8, S::DC / 8>(acc, sc, x, 0, lane);
-    }
-    __syncthreads();
-    if (s == 2 * ns && kt == last) {             // chunk c is complete
+    } else {
+      const int o = w.s - ns;
 #pragma unroll
-      for (int n = 0; n < S::DC / 8; ++n) {
-        const int col = c * S::DC + 8 * n + 2 * t4;
-        if (r_lo < T) store_pair(dq + static_cast<long long>(r_lo) * dh + col, acc[n][0],
-                                 acc[n][1], col, dh);
-        if (r_hi < T) store_pair(dq + static_cast<long long>(r_hi) * dh + col, acc[n][2],
-                                 acc[n][3], col, dh);
-      }
+      for (int oo = 0; oo < 4; ++oo)
+        if (oo == o) WarpMma<float>::template pY<kLdS, 4, 8>(acc[oo], sc, x, 32 * h, lane);
     }
-    if (!more) break;
-    c = nc;
-    kt = nkt;
-    s = nss;
-    stage ^= 1;
+    __syncthreads();                             // this stage is free for the step after next
+    if (w.out && w.s == per - 1 && w.t == last) {  // chunk c is complete
+      float* red = sm;                           // q, do are read no more (dh <= 256)
+      if (h == 1) {
+#pragma unroll
+        for (int o = 0; o < 4; ++o)
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) red[((o * 8 + n) * 4 + e) * 128 + wt] = acc[o][n][e];
+      }
+      __syncthreads();
+      if (h == 0) {
+#pragma unroll
+        for (int o = 0; o < 4; ++o) {
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[o][n][e] += red[((o * 8 + n) * 4 + e) * 128 + wt];
+            const int col = w.c * 256 + o * kSl + 8 * n + 2 * t4;
+            if (col < dh) {
+              if (r_lo < T) store_pair(dq + static_cast<long long>(r_lo) * dh + col,
+                                       acc[o][n][0], acc[o][n][1], col, dh);
+              if (r_hi < T) store_pair(dq + static_cast<long long>(r_hi) * dh + col,
+                                       acc[o][n][2], acc[o][n][3], col, dh);
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
   }
 }
 
-// K3, wide: one block per (b*h, 64 k rows), warp w owning k rows
-// 16w..16w+15, scores transposed ([key, query]) as in the narrow K3. Per
-// chunk c and q tile qt from the diagonal on: ns steps of
-// s^T += k_s.q_s^T, ns of dp^T += v_s.do_s^T, then the step that forms p^T
-// and ds^T from the q tile's row statistics and adds round_E(p)^T .
-// do[:, chunk c] to dv and round_E(ds * scale)^T . q[:, chunk c] to dk.
-template <typename E>
-__global__ void __launch_bounds__(kWideThreads) flash_dkv_kernel_wide(Args a) {
-  using S = WideShape<E>;
-  using M = WarpMma<E>;
+// K3, wide, f32: one block per (b*h, 64 k rows), scores transposed; warp w
+// owns k rows 16 (w % 4).. Half 0 (warps 0-3): s^T = k . q^T, p^T, dv +=
+// p^T . do; half 1 (warps 4-7): dp^T = v . do^T, ds^T (p^T from half 0
+// through shared memory), dk += ds^T . q. Per q tile: ns score
+// steps over 64-column slices of q and do, then the output steps over the
+// slices of do and q.
+__global__ void __launch_bounds__(kBwdThreads, 1) flash_dkv_kernel_wide_tf32(Args a) {
   using namespace sdml_mma;
   const int bh = blockIdx.x;
-  const int kt = blockIdx.y;                     // the longest columns start first
+  const int kt = blockIdx.y;
   const int T = a.T, dh = a.dh;
   const bool vec = a.vec != 0;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3, rw = warp & 3, h = warp >> 2, wt = tid & 127;
   const long long base = static_cast<long long>(bh) * T * dh;
   const long long rbase = static_cast<long long>(bh) * T;
-  const E* q = static_cast<const E*>(a.q) + base;
-  const E* k = static_cast<const E*>(a.k) + base;
-  const E* v = static_cast<const E*>(a.v) + base;
-  const E* dout = static_cast<const E*>(a.dout) + base;
-  E* dk = static_cast<E*>(a.dk) + base;
-  E* dv = static_cast<E*>(a.dv) + base;
+  const float* q = static_cast<const float*>(a.q) + base;
+  const float* k = static_cast<const float*>(a.k) + base;
+  const float* v = static_cast<const float*>(a.v) + base;
+  const float* dout = static_cast<const float*>(a.dout) + base;
 
   extern __shared__ uint4 smem_mma[];
-  E* ring = reinterpret_cast<E*>(smem_mma);      // 2 stages of 2 slots
-  float* st_s = reinterpret_cast<float*>(ring + 4 * S::SLOT);  // 2 x m, linv, delta [64]
+  float* sm = reinterpret_cast<float*>(smem_mma);
+  const bool split = dh > 256;
+  float* own = sm;                               // k, v (dh <= 256)
+  float* ring = split ? sm : sm + 2 * kRes;
+  const int slots = split ? 4 : 2;
+  float* pt = ring + 2 * slots * kSlot;          // p^T, [32][128]
+  float* rows_s = pt + 64 * 64;                  // 2 x (m, linv, delta) [64]
 
   const int k0 = kt * kTile;
   const int n_qt = (T + kTile - 1) / kTile;
-  const int ns = (dh + S::DS - 1) / S::DS;
-  const int nch = (dh + S::DC3 - 1) / S::DC3;
-  const int wr = warp * 16;
-  const int kr0 = k0 + wr;                       // this warp's first key
-  const bool live_w = kr0 < T;
+  const int nsl = (dh + kSl - 1) / kSl;
+  const int ns = nsl;
+  const int per = ns + (split ? 4 : nsl);
+  const int nch = split ? (dh + 255) / 256 : 1;
+  const int ntiles = n_qt - kt;
+  const int nsteps = nch * ntiles * per;
 
-  // step s < ns: k and q slices s; s < 2 ns: v and do slices s - ns;
-  // s == 2 ns: do's and q's chunk c, and the q tile's row statistics
-  auto issue = [&](int c, int qt, int s, int stage) {
-    E* dst = ring + stage * 2 * S::SLOT;
-    const int q0 = qt * kTile;
-    if (s < 2 * ns) {
-      const bool d = s >= ns;
-      const int c0 = (d ? s - ns : s) * S::DS;
-      load_tile_async<S::DS, kWideThreads>(dst, d ? v : k, k0, T, dh, vec, c0);
-      load_tile_async<S::DS, kWideThreads>(dst + S::SLOT, d ? dout : q, q0, T, dh, vec, c0);
-    } else {
-      load_tile_async<S::DC3, kWideThreads>(dst, dout, q0, T, dh, vec, c * S::DC3);
-      load_tile_async<S::DC3, kWideThreads>(dst + S::SLOT, q, q0, T, dh, vec, c * S::DC3);
-      float* rows = st_s + 3 * kTile * stage;
-      load_rows_async<kWideThreads>(rows, a.m + rbase, q0, T);
-      load_rows_async<kWideThreads>(rows + kTile, a.linv + rbase, q0, T);
-      load_rows_async<kWideThreads>(rows + 2 * kTile, a.delta + rbase, q0, T);
+  // score step s: q, do slices s (and past 256 k, v's), with the q tile's
+  // rows at the last; output step: q's and do's slice of chunk c
+  auto issue = [&](int i, int stage) {
+    const WStep w = wide_step(i, per, ns, ntiles, kt);
+    float* dst = ring + stage * slots * kSlot;
+    const int q0 = w.t * kTile;
+    const int c0 = w.score ? w.s * kSl : w.c * 256 + (w.s - ns) * kSl;
+    load_tile_async<kSl, kBwdThreads>(dst, q, q0, T, dh, vec, c0);
+    load_tile_async<kSl, kBwdThreads>(dst + kSlot, dout, q0, T, dh, vec, c0);
+    if (w.score && split) {
+      load_tile_async<kSl, kBwdThreads>(dst + 2 * kSlot, k, k0, T, dh, vec, c0);
+      load_tile_async<kSl, kBwdThreads>(dst + 3 * kSlot, v, k0, T, dh, vec, c0);
+    }
+    if (w.s == ns - 1) {
+      float* rows = rows_s + 192 * stage;
+      load_rows_async<kBwdThreads>(rows, a.m + rbase, q0, T);
+      load_rows_async<kBwdThreads>(rows + kTile, a.linv + rbase, q0, T);
+      load_rows_async<kBwdThreads>(rows + 2 * kTile, a.delta + rbase, q0, T);
     }
   };
 
-  float acc_k[S::DC3 / 8][4], acc_v[S::DC3 / 8][4], st[8][4], dpt[8][4];
-  int c = 0, qt = kt, s = 0, stage = 0;
-  issue(0, kt, 0, 0);
+  if (!split) {
+    load_tile_async<256, kBwdThreads>(own, k, k0, T, dh, vec);
+    load_tile_async<256, kBwdThreads>(own + kRes, v, k0, T, dh, vec);
+  }
+  issue(0, 0);
   cp_async_commit();
+
+  const int kr = k0 + 16 * rw + g;               // this lane's keys kr, kr + 8
+  float acc[4][8][4], sc[8][4];
 #pragma unroll 1
-  for (;;) {
-    int nc = c, nqt = qt, nss = s;
-    next_step(nc, nqt, nss, 2 * ns, kt, n_qt - 1);
-    const bool more = nc < nch;
-    if (more) issue(nc, nqt, nss, stage ^ 1);
+  for (int i = 0; i < nsteps; ++i) {
+    const int stage = i & 1;
+    if (i + 1 < nsteps) issue(i + 1, stage ^ 1);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const E* x = ring + stage * 2 * S::SLOT;
-    if (qt == kt && s == 0) {
-      zero_acc(acc_k);
-      zero_acc(acc_v);
-    }
-    if (s == 0) {
-      zero_acc(st);
-      zero_acc(dpt);
-    }
-    if (live_w && s < ns) {
-      M::template xyT<S::LDS, S::LDS, 8, S::DS>(st, x, wr, x + S::SLOT, 0, lane);
-    } else if (live_w && s < 2 * ns) {
-      M::template xyT<S::LDS, S::LDS, 8, S::DS>(dpt, x, wr, x + S::SLOT, 0, lane);
-    } else if (live_w) {
-      // p^T in place of s^T and ds^T * scale in place of dp^T; element i of
-      // n8 tile n sits at key kr0 + g + 8 (i / 2), query column
-      // 8 n + 2 t4 + i % 2 of the tile
-      const float* m_s = st_s + 3 * kTile * stage;
-      const float* li_s = m_s + kTile;
-      const float* dl_s = li_s + kTile;
-      const int q0 = qt * kTile;
+    const WStep w = wide_step(i, per, ns, ntiles, kt);
+    const float* x = ring + stage * slots * kSlot;
+    if (w.t == kt && w.s == 0) {
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const int col = 8 * n + 2 * t4;
-        const float mc[2] = {m_s[col], m_s[col + 1]};
-        const float lc[2] = {li_s[col], li_s[col + 1]};
-        const float dc[2] = {dl_s[col], dl_s[col + 1]};
+      for (int o = 0; o < 4; ++o) zero_acc(acc[o]);
+    }
+    if (w.score) {
+      if (w.s == 0) zero_acc(sc);
+      // half 0: k . q^T; half 1: v . do^T
+      if (split) {
+        WarpMma<float>::xyT<kLdS, kLdS, 8, kSl>(sc, x + (2 + h) * kSlot, 16 * rw,
+                                                x + h * kSlot, 0, lane);
+      } else {
+        WarpMma<float>::xyT<kLdR, kLdS, 8, kSl>(sc, own + h * kRes + w.s * kSl, 16 * rw,
+                                                x + h * kSlot, 0, lane);
+      }
+      if (w.s == ns - 1) {
+        // element e of n8 tile n sits at key kr + 8 (e / 2), query column
+        // 8 n + 2 t4 + e % 2 of the tile
+        const float* rows = rows_s + 192 * stage;
+        const int q0 = w.t * kTile;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int j = i & 1;
-          const int kp = kr0 + g + 8 * (i >> 1);
-          const int qp = q0 + col + j;
-          const bool live = qp >= kp && kp < T && qp < T;
-          const float p = live ? expf(st[n][i] * a.scale - mc[j]) * lc[j] : 0.f;
-          dpt[n][i] = p * (dpt[n][i] - dc[j]) * a.scale;
-          st[n][i] = p;
+        for (int n = 0; n < 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * n + 2 * t4 + (e & 1);
+            if (h == 0) {
+              const int kp = kr + 8 * (e >> 1), qp = q0 + col;
+              const bool live = qp >= kp && kp < T && qp < T;
+              const float p = live ? expf(sc[n][e] * a.scale - rows[col]) * rows[64 + col]
+                                   : 0.f;
+              sc[n][e] = p;
+              pt[(4 * n + e) * 128 + wt] = p;
+            } else {
+              sc[n][e] -= rows[128 + col];
+            }
+          }
         }
       }
-      M::template pY<S::LDC3, 8, S::DC3 / 8>(acc_v, st, x, 0, lane);
-      M::template pY<S::LDC3, 8, S::DC3 / 8>(acc_k, dpt, x + S::SLOT, 0, lane);
-    }
-    __syncthreads();
-    if (s == 2 * ns && qt == n_qt - 1 && live_w) {  // chunk c is complete
-      const int r_lo = kr0 + g, r_hi = r_lo + 8;
+    } else {
+      const int o = w.s - ns;
+      if (o == 0 && h == 1) {                    // ds^T from half 0's p^T
 #pragma unroll
-      for (int n = 0; n < S::DC3 / 8; ++n) {
-        const int col = c * S::DC3 + 8 * n + 2 * t4;
-        if (r_lo < T) {
-          const long long at = static_cast<long long>(r_lo) * dh + col;
-          store_pair(dk + at, acc_k[n][0], acc_k[n][1], col, dh);
-          store_pair(dv + at, acc_v[n][0], acc_v[n][1], col, dh);
-        }
-        if (r_hi < T) {
-          const long long at = static_cast<long long>(r_hi) * dh + col;
-          store_pair(dk + at, acc_k[n][2], acc_k[n][3], col, dh);
-          store_pair(dv + at, acc_v[n][2], acc_v[n][3], col, dh);
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[n][e] = pt[(4 * n + e) * 128 + wt] * sc[n][e] * a.scale;
+      }
+      // half 0: dv += p^T . do_s; half 1: dk += ds^T . q_s
+      const float* y = x + (h == 0 ? kSlot : 0);
+#pragma unroll
+      for (int oo = 0; oo < 4; ++oo)
+        if (oo == o) WarpMma<float>::template pY<kLdS, 8, 8>(acc[oo], sc, y, 0, lane);
+    }
+    __syncthreads();                             // this stage and p^T are free
+    if (w.out && w.s == per - 1 && w.t == n_qt - 1) {  // chunk c is complete
+      float* out = static_cast<float*>(h == 0 ? a.dv : a.dk) + base;
+      const int r_lo = kr, r_hi = kr + 8;
+#pragma unroll
+      for (int o = 0; o < 4; ++o) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int col = w.c * 256 + o * kSl + 8 * n + 2 * t4;
+          if (col >= dh) continue;
+          if (r_lo < T) store_pair(out + static_cast<long long>(r_lo) * dh + col,
+                                   acc[o][n][0], acc[o][n][1], col, dh);
+          if (r_hi < T) store_pair(out + static_cast<long long>(r_hi) * dh + col,
+                                   acc[o][n][2], acc[o][n][3], col, dh);
         }
       }
     }
-    if (!more) break;
-    c = nc;
-    qt = nqt;
-    s = nss;
-    stage ^= 1;
   }
 }
 
@@ -1969,18 +2629,71 @@ cudaError_t launch_tf32(Pass pass, const Args& a, int BH, cudaStream_t stream) {
   }
 }
 
+// libcuda's cuTensorMapEncodeTiled, found through the runtime's entry-point
+// query (the library links nothing past the runtime)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// the TMA map of a contiguous [BH, T, dh] bf16 tensor: [64, 64] boxes in the
+// 128-byte swizzle, zeros past T and dh
+bool tensor_map(CUtensorMap* map, const void* x, int BH, int T, int dh) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(dh) * 2,
+                                 static_cast<cuuint64_t>(T) * dh * 2};
+  const cuuint32_t box[3] = {64, 64, 1}, unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims,
+                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// K2 or K3 past dh 128 in bf16: TMA maps of q, k, v, do when the rows take
+// 16-byte boxes (vec), else the kernel's plain copies
+cudaError_t launch_wide_wgmma(Pass pass, const Args& a, int BH, cudaStream_t stream) {
+  CUtensorMap maps[4] = {};
+  if (a.vec) {
+    const void* xs[4] = {a.q, a.k, a.v, a.dout};
+    for (int j = 0; j < 4; ++j)
+      if (!tensor_map(&maps[j], xs[j], BH, a.T, a.dh)) return cudaErrorNotSupported;
+  }
+  auto kernel = pass == kDq ? flash_dq_kernel_wide_wgmma : flash_dkv_kernel_wide_wgmma;
+  const dim3 grid(BH, (a.T + kTile - 1) / kTile);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kWgSmem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kBwdThreads, kWgSmem, stream>>>(a, maps[0], maps[1], maps[2], maps[3]);
+  return cudaGetLastError();
+}
+
+// past dh 128: K1 the wide forward; K2 and K3 the wide backward kernels
+// (wgmma in bf16, split TF32 in f32)
 template <typename E>
 cudaError_t launch_wide(Pass pass, const Args& a, int BH, cudaStream_t stream) {
-  constexpr size_t ring = WideShape<E>::STAGES;  // 2 stages of 2 slice tiles
-  switch (pass) {
-    case kForward:
-      return launch_kernel(flash_fwd_kernel_wide<E>, a, BH, kWideThreads, ring, stream);
-    case kDq:
-      return launch_kernel(flash_dq_kernel_wide<E>, a, BH, kWideThreads, ring, stream);
-    default:                                     // and 2 x the q tile's rows
-      return launch_kernel(flash_dkv_kernel_wide<E>, a, BH, kWideThreads,
-                           ring + 2 * 3 * kTile * sizeof(float), stream);
-  }
+  if (pass == kForward)
+    return launch_kernel(flash_fwd_kernel_wide<E>, a, BH, kWideThreads, WideShape<E>::STAGES,
+                         stream);
+  if (sizeof(E) == 2) return launch_wide_wgmma(pass, a, BH, stream);
+  if (pass == kDq)
+    return launch_kernel(flash_dq_kernel_wide_tf32, a, BH, kBwdThreads, kTfDqSmem, stream);
+  return launch_kernel(flash_dkv_kernel_wide_tf32, a, BH, kBwdThreads, kTfDkvSmem, stream);
 }
 
 // f32: K1-K3 in split TF32 on the tensor cores, head dim padded to 16, 32,

@@ -29,10 +29,13 @@ sums, the same casts); the f32 K1-K3 too, in split TF32 (each operand
 hi + lo in TF32, three products summed in f32: close to f32 accuracy).
 p and ds stay in registers in every kernel. Any head dim ``>= 1`` runs
 (the JAX kernels pad any to a multiple of 128 lanes): up to 128 the tiles
-hold whole rows of dh; past 128 the wide kernels stream the contraction in
-256-byte slices and make the outputs in column chunks
-(:func:`wide_tiling`), so a block's shared memory and registers stay
-bounded.
+hold whole rows of dh; past 128 the wide kernels take over
+(:func:`wide_tiling`): K1 streams the contraction in 256-byte slices and
+makes o in column chunks; K2 and K3 keep the block's own rows in shared
+memory, compute the scores once per tile pair and keep all of dh's output
+sums in registers up to dh 256 (bf16 on ``wgmma`` fed by TMA, f32 in split
+TF32), and past 256 make the outputs in chunks of 256 columns. A block's
+shared memory and registers stay bounded at every head dim.
 
 On a CPU tensor every wrapper computes its plain version
 (:func:`flash_forward_reference`, :func:`flash_backward_reference`) —
@@ -371,15 +374,31 @@ def _(q, k, v, do, m, linv, delta):
 TILE = 64
 
 
+#: the head dim up to which the wide backward kernels keep the block's own
+#: rows whole in shared memory and make all of dh's outputs at once
+#: (``csrc/flash_attention.cu``, the wide backward kernels)
+RESIDENT_HEAD_DIM = 256
+
+
 def wide_tiling(kernel: str, dh: int, dtype: torch.dtype):
     """``(slice, chunk)`` columns of the wide kernels (dh > 128,
-    ``csrc/flash_attention.cu`` ``WideShape``), or None at dh <= 128: the
-    contraction over dh is streamed in slices of 256 bytes a row (128 bf16,
-    64 f32), and the outputs are made in chunks of 128 columns (K1's o,
-    K2's dq) or 64 (K3's dk and dv)."""
+    ``csrc/flash_attention.cu``), or None at dh <= 128: the contraction
+    over dh is read in slices of ``slice`` columns, and the outputs are
+    made in chunks of ``chunk`` columns.
+
+    K1 (the wide forward): slices of 256 bytes a row (128 bf16, 64 f32),
+    chunks of 128 columns. K2 and K3 (the wide backward): up to dh 256 the
+    outputs in one chunk of dh columns, read in slices of dh (bf16: each
+    tile whole, once) or 64 (f32); past 256, chunks of 256 columns, the
+    contraction in slices of 128 (bf16) or 64 (f32)."""
     if dh <= WHOLE_ROW_HEAD_DIM:
         return None
-    return 256 // dtype.itemsize, 64 if kernel == "flash_dkv" else 128
+    if kernel == "flash_forward":
+        return 256 // dtype.itemsize, 128
+    chunk = dh if dh <= RESIDENT_HEAD_DIM else 256
+    if dtype.itemsize == 4:
+        return 64, chunk
+    return (dh if dh <= RESIDENT_HEAD_DIM else 128), chunk
 
 
 def launch_spec(kernel: str, q: torch.Tensor):
@@ -401,7 +420,9 @@ def launch_spec(kernel: str, q: torch.Tensor):
     (q, k, and in the backward do, v) is read as ``(1, 64, slice)`` blocks
     at slice ``s``, the operand of the chunk's product (v in K1, k in K2,
     do and q in K3) as ``(1, 64, chunk)`` at ``c``, and each output as
-    ``(1, 64, chunk)`` at ``c`` (l and m whole rows, once)."""
+    ``(1, 64, chunk)`` at ``c`` (l and m whole rows, once). In K2 and K3
+    up to dh 256 the cell's own rows (K2 q, do; K3 k, v) are one
+    ``(1, 64, dh)`` block, read once and kept."""
     from simple_distributed_machine_learning_tpu_torch.analysis.kernels import (  # noqa: E501
         LaunchSpec,
         Operand,
@@ -499,6 +520,13 @@ def _wide_launch_spec(kernel: str, q: torch.Tensor, wide):
     def other_stat(bh, i, c, kb, s):
         return (bh, kb)
 
+    # the backward's own rows: one whole block, kept, up to dh 256
+    resident = kernel != "flash_forward" and dh <= RESIDENT_HEAD_DIM
+    own_blk = (1, TILE, dh) if resident else sl
+
+    def own_r(bh, i, c, kb, s):
+        return (bh, i, 0) if resident else (bh, i, s)
+
     if kernel == "flash_forward":
         ops = (Operand("q", rows, sl, dt, own_s),
                Operand("k", rows, sl, dt, other_s),
@@ -507,8 +535,8 @@ def _wide_launch_spec(kernel: str, q: torch.Tensor, wide):
                Operand("l", stat, sblk, f32, own_stat, output=True),
                Operand("m", stat, sblk, f32, own_stat, output=True))
     elif kernel == "flash_dq":
-        ops = (Operand("q", rows, sl, dt, own_s),
-               Operand("do", rows, sl, dt, own_s),
+        ops = (Operand("q", rows, own_blk, dt, own_r),
+               Operand("do", rows, own_blk, dt, own_r),
                Operand("m", stat, sblk, f32, own_stat),
                Operand("linv", stat, sblk, f32, own_stat),
                Operand("delta", stat, sblk, f32, own_stat),
@@ -517,8 +545,8 @@ def _wide_launch_spec(kernel: str, q: torch.Tensor, wide):
                Operand("k_chunk", rows, ck, dt, other_c),
                Operand("dq", rows, ck, dt, own_c, output=True))
     elif kernel == "flash_dkv":
-        ops = (Operand("k", rows, sl, dt, own_s),
-               Operand("v", rows, sl, dt, own_s),
+        ops = (Operand("k", rows, own_blk, dt, own_r),
+               Operand("v", rows, own_blk, dt, own_r),
                Operand("q", rows, sl, dt, other_s),
                Operand("do", rows, sl, dt, other_s),
                Operand("do_chunk", rows, ck, dt, other_c),

@@ -177,13 +177,16 @@ class CheckpointStore:
                 f"size mismatch) — falling back to an earlier one\n")
         return None
 
-    def restore_latest(self, pipe=None,
-                       opt_treedef_like: Any = None) -> dict | None:
+    def restore_latest(self, pipe=None, opt_treedef_like: Any = None,
+                       src_pipe=None) -> dict | None:
         """``restore_checkpoint`` of :meth:`latest_valid` onto ``pipe``
         (None when the store is empty); the returned dict gains the
-        manifest ``entry``. A generation written at another stage count
-        (its ``extra["n_stages"]``) is repacked from that many contiguous
-        stages of the same model (``train/checkpoint.py::split_layout``)."""
+        manifest ``entry``. ``src_pipe`` (a ``Pipeline`` or a list of
+        ``StageMeta``) is the layout the generation was written at, as in
+        the JAX store; without it, a generation written at another stage
+        count (its ``extra["n_stages"]``) is repacked from that many
+        contiguous stages of the same model
+        (``train/checkpoint.py::split_layout``)."""
         from simple_distributed_machine_learning_tpu_torch.train.checkpoint import (  # noqa: E501
             restore_checkpoint,
             split_layout,
@@ -191,8 +194,7 @@ class CheckpointStore:
         entry = self.latest_valid()
         if entry is None:
             return None
-        src_pipe = None
-        if pipe is not None:
+        if src_pipe is None and pipe is not None:
             src_n = int(entry["extra"].get("n_stages", len(pipe.metas)))
             if src_n != len(pipe.metas):
                 src_pipe = split_layout(pipe, src_n)

@@ -137,7 +137,7 @@ class ElasticTrainer(Trainer):
 
 
 def make_elastic_trainer(build_pipe, n_stages: int, store: CheckpointStore,
-                         train_ds, test_ds, config,
+                         train_ds, test_ds, config, opt=None,
                          opt_factory=None, telemetry=None) -> ElasticTrainer:
     """Build one attempt's trainer at ``n_stages``, resumed from the store.
 
@@ -152,14 +152,16 @@ def make_elastic_trainer(build_pipe, n_stages: int, store: CheckpointStore,
 
     ``opt_factory(pipe) -> Optimizer`` builds the optimizer against the
     attempt's OWN pipeline (pipe-dependent optimizers — e.g. replication-
-    weighted gradient clipping — must see the topology they run on); None
-    is the Trainer's default optimizer. ``telemetry`` (a
+    weighted gradient clipping — must see the topology they run on);
+    ``opt`` passes a fixed instance instead, and wins over the factory;
+    with neither, the Trainer's default optimizer. ``telemetry`` (a
     ``telemetry/session.py`` ``Telemetry``) is the attempt's session; one
     session passed to every attempt keeps appending its records across a
     restart.
     """
     pipe = build_pipe(n_stages)
-    opt = None if opt_factory is None else opt_factory(pipe)
+    if opt is None and opt_factory is not None:
+        opt = opt_factory(pipe)
     trainer = ElasticTrainer(pipe, train_ds, test_ds, config, store, opt=opt,
                              telemetry=telemetry)
     st = store.restore_latest(pipe=pipe, opt_treedef_like=trainer.opt_state)

@@ -57,7 +57,7 @@ def make_train_step(pipe: Pipeline, opt: Optimizer,
     return step
 
 
-def make_scanned_train_step(pipe: Pipeline, opt: Optimizer,
+def make_scanned_train_step(pipe: Pipeline, opt: Optimizer, unroll: int = 1,
                             pool_steps: int | None = None):
     """Returns ``step(params, opt_state, xs, targets, key=None) -> (params,
     opt_state, losses)``: ``xs``/``targets`` carry a leading ``n_steps``
@@ -66,8 +66,9 @@ def make_scanned_train_step(pipe: Pipeline, opt: Optimizer,
 
     ``pool_steps``: ``xs``/``targets`` are a POOL of ``P`` batches and the
     window runs ``pool_steps`` steps, reading batch ``t % P`` at step
-    ``t``. (An eager loop has no scan, so the JAX ``unroll`` has no
-    counterpart.) One dropout generator serves the whole window, each
+    ``t``. ``unroll`` is the JAX signature's ``lax.scan`` unroll factor,
+    taken and ignored: an eager loop has no scan to unroll, and any value
+    gives the same steps. One dropout generator serves the whole window, each
     step drawing after the last (over several stages it lies on the host
     and seeds each step's microbatch streams, so drawing needs no device
     sync)."""

@@ -16,7 +16,10 @@ Parts:
 - ``dryrun``: ``{n: [[report name, [rules], {prim: bytes}]]}`` for n = 2,
   4 and 8 (``preflight.dryrun_reports``: findings and the cost table
   summed by primitive);
-- ``serve``: ``{label: [rules]}`` for ``programs.default_registry_reports``.
+- ``serve``: ``{label: [rules]}`` for ``programs.default_registry_reports``;
+- ``engine_spec``: ``{label: {field: value}}`` of ``programs.engine_spec``
+  on the small live engines a JSON argument describes
+  (``tests/test_torch_signatures.py``).
 """
 
 from __future__ import annotations
@@ -82,7 +85,30 @@ def serve() -> dict:
             for rep in default_registry_reports()}
 
 
+def engine_spec() -> dict:
+    """The request is the JSON in ``sys.argv[2]``: ``{"model": GPTConfig
+    keywords, "cases": [[label, engine keywords, prompt buckets or null],
+    ...], "fields": [ServeSpec field or property, ...]}``."""
+    from simple_distributed_machine_learning_tpu.analysis.programs import (
+        engine_spec as spec_of,
+    )
+    from simple_distributed_machine_learning_tpu.models import gpt
+    from simple_distributed_machine_learning_tpu.serve.engine import (
+        InferenceEngine,
+    )
+    req = json.loads(sys.argv[2])
+    cfg = gpt.GPTConfig(**req["model"])
+    stages = gpt.make_gpt_stages(jax.random.key(0), cfg, 1)[0]
+    out = {}
+    for label, kw, lens in req["cases"]:
+        spec = spec_of(InferenceEngine(stages, cfg, **kw),
+                       None if lens is None else tuple(lens))
+        out[label] = {f: (list(v) if isinstance(v, tuple) else v)
+                      for f in req["fields"] for v in [getattr(spec, f)]}
+    return out
+
+
 if __name__ == "__main__":
     part = sys.argv[1]
     print(json.dumps({"fixtures": fixtures, "dryrun": dryrun,
-                      "serve": serve}[part]()))
+                      "serve": serve, "engine_spec": engine_spec}[part]()))

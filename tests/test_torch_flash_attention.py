@@ -154,13 +154,14 @@ def test_bf16_backward_matches_jax_kernels(t, bq, bk):
 def test_kernel_build_hash_follows_included_headers(tmp_path, monkeypatch):
     """A kernel library is named by a hash that covers the ``csrc`` headers
     its sources include, through other headers too, so an edited header
-    never loads a stale build; the flash kernels include ``mma_bf16.cuh``
-    and ``mma_tf32.cuh``."""
+    never loads a stale build; the flash kernels include ``mma_bf16.cuh``,
+    ``mma_tf32.cuh`` and ``wgmma_bf16.cuh``."""
     from simple_distributed_machine_learning_tpu_torch.ops import (
         _cuda_build as cb,
     )
     assert [p.name for p in cb._hashed_files(["flash_attention.cu"])] == [
-        "flash_attention.cu", "mma_bf16.cuh", "mma_tf32.cuh"]
+        "flash_attention.cu", "mma_bf16.cuh", "mma_tf32.cuh",
+        "wgmma_bf16.cuh"]
     monkeypatch.setattr(cb, "CSRC", tmp_path)
     (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <stdint.h>\n')
     (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')

@@ -65,8 +65,10 @@ _CASES = ([(torch.float32, (2, 4, t, dh)) for dh in (8, 32, 40, 64, 128)
           + [(torch.bfloat16, (2, 4, t, dh)) for dh in (32, 64, 128, 40)
              for t in (1, 65, 200, 256)]
           + [(torch.bfloat16, (2, 4, t, 8)) for t in (65, 200)]
-          # head dims past 128: the wide kernels (contraction in slices,
-          # outputs in column chunks), both dtypes, T = 1, 65 and 200
+          # head dims past 128: the wide kernels (K1: the contraction in
+          # slices, o in column chunks; K2, K3: the own tile resident, the
+          # outputs in chunks of 256 past dh 256), both dtypes, T = 1, 65
+          # and 200
           + [(dt, (1, 2, t, dh)) for dt in (torch.float32, torch.bfloat16)
              for dh in (160, 192, 256, 320, 512) for t in (1, 65, 200)])
 
@@ -126,3 +128,25 @@ def test_cuda_autograd_goes_through_the_kernels(cuda_device, dtype, shape):
         assert g.dtype == dtype
         np.testing.assert_allclose(g.float().cpu().numpy(), r.cpu().numpy(),
                                    **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [2112, 2100])
+def test_cuda_wide_backward_long_sequence_f32(cuda_device, t):
+    """K2 and K3 at dh 256 in f32 over 33 tiles (T 2112 whole, T 2100 with
+    a ragged tail): the longest output sums of the wide backward kernels'
+    checks (every tile pair adds to dq, dk and dv in registers) within the
+    f32 gradient tolerance of their plain versions."""
+    shape = (1, 2, t, 256)
+    q, k, v, do = _inputs(t, shape, cuda_device, torch.float32, n=4)
+    o, l, m = tfa.flash_forward_reference(q, k, v)
+    linv, delta = tfa._backward_stats(o, l, do)
+    bwd = (q, k, v, do, m, linv, delta)
+    before = _launches()
+    got = (tfa.flash_dq(*bwd), *tfa.flash_dkv(*bwd))
+    torch.cuda.synchronize()
+    assert _launches() == (before[0], before[1] + 1, before[2] + 1)
+    ref = (tfa.flash_dq_reference(*bwd), *tfa.flash_dkv_reference(*bwd))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                   **GRAD_TOL)

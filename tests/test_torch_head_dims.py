@@ -120,20 +120,33 @@ def test_flash_matches_jax_at_wide_head_dims(dtype, dh):
                                    **grad_tol)
 
 
-@pytest.mark.parametrize("dh", [129, 256, 512])
+@pytest.mark.parametrize("dh", [129, 160, 256, 320, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_launch_specs_at_wide_head_dims_lint_clean(dtype, dh):
     """Past dh 128 each launch spec declares the wide kernels' tiling:
-    grid ``(B*H, ceil(T/64))`` and the loop (chunks, tiles, slices), slices
-    of 256 bytes a row, chunks of 128 columns (K3: 64); the linter proves
-    every window in bounds and every output block written by one cell."""
+    grid ``(B*H, ceil(T/64))`` and the loop (chunks, tiles, slices). K1:
+    slices of 256 bytes a row, chunks of 128 columns. K2 and K3: up to dh
+    256 one chunk of dh, the own rows one kept ``(1, 64, dh)`` block, the
+    contraction whole (bf16) or in 64-column slices (f32); past 256
+    chunks of 256, the contraction in slices of 128 (bf16) or 64 (f32).
+    The linter proves every window in bounds and every output block
+    written by one cell."""
     q = torch.empty((2, 16, 2048, dh), dtype=dtype, device="meta")
-    ds = 256 // dtype.itemsize
+    f32 = dtype == torch.float32
     for name in ("flash_forward", "flash_dq", "flash_dkv"):
         spec = tfa.launch_spec(name, q)
-        dc = 64 if name == "flash_dkv" else 128
+        if name == "flash_forward":
+            ds, dc = 256 // dtype.itemsize, 128
+        elif dh <= 256:
+            ds, dc = (64 if f32 else dh), dh
+        else:
+            ds, dc = (64 if f32 else 128), 256
+        assert tfa.wide_tiling(name, dh, dtype) == (ds, dc)
         assert spec.grid == (32, 32)
         assert spec.loop == (-(-dh // dc), 32, -(-dh // ds))
+        own = "q" if name != "flash_dkv" else "k"
+        resident = name != "flash_forward" and dh <= 256
+        assert spec.operand(own).block == (1, 64, dh if resident else ds)
         assert kernels.lint(spec) == [], name
 
 
@@ -142,7 +155,7 @@ def test_flash_launch_spec_keeps_whole_rows_up_to_128():
     spec = tfa.launch_spec("flash_forward", q)
     assert spec.loop == (4,) and spec.operand("q").block == (1, 64, 128)
     assert tfa.wide_tiling("flash_forward", 128, torch.bfloat16) is None
-    assert tfa.wide_tiling("flash_dkv", 129, torch.float32) == (64, 64)
+    assert tfa.wide_tiling("flash_dkv", 129, torch.float32) == (64, 129)
 
 
 # -- paged K4 -----------------------------------------------------------------
