@@ -14,12 +14,13 @@ or without the port beside it. Phases, each fatal on failure:
    the build of every kernel from the checkout's sources (one ``nvcc`` per
    source, started together, into the git-ignored ``_build/`` directory),
    with ptxas's registers and spills per kernel (a spill in K4, in K1
-   or the f32 K2 or K3 at a head dim up to 64, or in the bf16 wide K2 or
-   K3 fails), and the count of tensor-core instructions (``HMMA``, and
+   or the f32 K2 or K3 at a head dim up to 64, or in the bf16 wide K1, K2
+   or K3 fails), and the count of tensor-core instructions (``HMMA``, and
    ``HGMMA`` for wgmma) in each kernel's SASS (``cuobjdump``): all 12 bf16
-   and all 12 f32 (split-TF32) K1-K3 instantiations and the 6 wide ones
-   (head dims past 128, both dtypes) must have some, the bf16 wide K2 and
-   K3 ``HGMMA`` (wgmma), K4 and F1 none;
+   and all 12 f32 (split-TF32) K1-K3 instantiations and the 8 wide ones
+   (head dims past 128, both dtypes; K1 one up to dh 256 and one past it)
+   must have some, the bf16 wide K1, K2 and K3 ``HGMMA`` (wgmma), the f32
+   wide ones ``HMMA.1688.F32.TF32``, K4 and F1 none;
 2. every kernel against its plain PyTorch version on the card, at the
    serving shapes (H = 8, dh = 64, block 16, 8 slots, positions up to
    255), for every cache dtype and K = 1 and 4, within rtol = atol =
@@ -44,12 +45,15 @@ or without the port beside it. Phases, each fatal on failure:
    their plain versions, f32 and bf16, at the training shape (16, 8, 256,
    64), at a ragged T = 200 and at the tiny row's (32, 4, 64, 32), and in
    both dtypes at the edges of the tensor-core kernels (head dims 8, 32,
-   40 and 128, and the wide kernels' 160, 192, 256, 320 and 512, T = 1, 65
-   and 200), within ``FLASH_TOL``; then at ``FLASH_WIDE_SHAPES`` (phase
-   23's attention, 2 x 16 heads x 2048 x 256, and 8 heads of 512), in
-   both dtypes, timed (runs of 10, median of 3) beside their bounds,
-   SDPA's forward and backward and, for K2 + K3, the times of their first
-   design (``WIDE_K2_K3_FIRST_MS``). The training shape's rows are timed
+   40 and 128, and the wide kernels' 160, 192, 196 (not a multiple of 8),
+   256, 320 and 512, T = 1, 65, 129 and 200, and ``FLASH_UNALIGNED``'s
+   inputs whose storage starts one element in: the wide kernels' plain
+   copies where TMA cannot go), within ``FLASH_TOL``; then at
+   ``FLASH_WIDE_SHAPES`` (phase 23's attention, 2 x 16 heads x 2048 x
+   256, and 8 heads of 512), in both dtypes, timed (runs of 10, median of
+   3) beside their bounds, SDPA's forward and backward and the times of
+   their first designs (``WIDE_K1_FIRST_MS``, ``WIDE_K2_K3_FIRST_MS``).
+   The training shape's rows are timed
    the same way beside their bounds (the f32 rows also beside the bound at
    the CUDA cores' 67 TFLOP/s) and the library yardstick
    (``scaled_dot_product_attention``, forward and backward; K1 against
@@ -516,18 +520,28 @@ FLASH_TINY_SHAPE = (32, 4, 64, 32)
 FLASH_EDGES = ([(2, 4, t, dh) for dh in (32, 40, 128) for t in (1, 65, 200)]
                + [(2, 4, t, 64) for t in (1, 65)]
                + [(2, 4, t, 8) for t in (65, 200)]
-               # past dh 128, the wide kernels: 256-byte slices of the
-               # contraction, output column chunks (K1, K2 128; K3 64)
-               + [(2, 4, t, dh) for dh in (160, 192, 256, 320, 512)
-                  for t in (1, 65, 200)])
+               # past dh 128, the wide kernels (resident rows up to dh 256,
+               # chunks of 256 columns past it; K1 128 q rows a block, so
+               # T = 65, 129 and 200 end in its second half or a second
+               # block); dh 196 is not a multiple of 8, which TMA cannot
+               # take
+               + [(2, 4, t, dh) for dh in (160, 192, 196, 256, 320, 512)
+                  for t in (1, 65, 129, 200)])
+# wide shapes held with inputs whose storage starts one element in
+# (contiguous, not 16-byte aligned: the wide kernels' plain copies)
+FLASH_UNALIGNED = ((2, 4, 200, 160), (2, 4, 129, 256), (2, 4, 65, 512))
 # the wide kernels timed, both dtypes: phase 23's GPT-J-width attention
 # (batch 2, 16 heads x 2048 x 256) and the same width at head dim 512 (8
 # heads)
 FLASH_WIDE_SHAPES = ((2, 16, 2048, 256), (2, 8, 2048, 512))
-# K2 + K3 device ms at those shapes in their first design (the contraction
-# in 256-byte slices, the scores recomputed per output chunk; this script's
-# phase 2 on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md), printed beside
-# this run's
+# K1 and K2 + K3 device ms at those shapes in their first design (the
+# contraction in 256-byte slices, the scores recomputed per output chunk;
+# this script's phase 2 on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md),
+# printed beside this run's
+WIDE_K1_FIRST_MS = {("bfloat16", (2, 16, 2048, 256)): 0.8621,
+                    ("bfloat16", (2, 8, 2048, 512)): 1.6736,
+                    ("float32", (2, 16, 2048, 256)): 3.2819,
+                    ("float32", (2, 8, 2048, 512)): 5.5883}
 WIDE_K2_K3_FIRST_MS = {("bfloat16", (2, 16, 2048, 256)): 1.5070 + 3.8230,
                       ("bfloat16", (2, 8, 2048, 512)): 3.4837 + 6.5997,
                       ("float32", (2, 16, 2048, 256)): 6.1297 + 11.3614,
@@ -906,6 +920,12 @@ GPTJ_SERVE = dict(n_slots=4, prompt_lens=(16, 32, 48, 64), max_new=8)
 # kernels keep them in f32) and 5e-2 for the gradients, whose bf16
 # products round p and ds at other places in each path
 GPTJ_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-3, 5e-2)}
+# phase 23's host ms with the first design of the wide K1 (an f32 and a
+# bf16 AdamW step, the first included, and a decoded token; this script on
+# an NVIDIA H100 80GB HBM3 at 700 W, PERF.md), printed beside this run's:
+# host clocks vary between calls
+GPTJ_FIRST_K1_MS = {"train float32": 249.5, "train bfloat16": 46.0,
+                    "decode": 37.2}
 
 
 class SmokeFailure(RuntimeError):
@@ -1043,7 +1063,7 @@ def ptxas_report(log: str) -> dict[str, dict]:
 
 def _no_spill_required(name: str) -> bool:
     """K4 everywhere; K1 (bf16 and f32) and the f32 K2 and K3 at head dims
-    padded to 16, 32 or 64; the bf16 wide K2 and K3 (wgmma, whose
+    padded to 16, 32 or 64; the bf16 wide K1, K2 and K3 (wgmma, whose
     accumulators must stay in registers)."""
     import re
     if "paged_attn_kernel" in name or "_kernel_wide_wgmma" in name:
@@ -1111,21 +1131,22 @@ def phase_build(record: dict) -> None:
               f" bytes  {name}")
     held = [n for n in ptxas if _no_spill_required(n)]
     # a fresh build reports the 12 K1-K3 variants at dh <= 64 (bf16 K1,
-    # f32 K1, f32 K2 and f32 K3, each 16 / 32 / 64), the bf16 wide K2 and
-    # K3 and K4's 33 (5 storage types x K up to 1, 4, 8, f32 at 128 < dh
-    # <= 256, and the 15 of the chunks past 256)
-    check(not ptxas or len(held) == 12 + 2 + 33,
-          f"ptxas reported {len(held)} K1-K3/K4 kernels, not 47: {held}")
+    # f32 K1, f32 K2 and f32 K3, each 16 / 32 / 64), the bf16 wide K1 (up
+    # to dh 256 and past it), K2 and K3 and K4's 33 (5 storage types x K up
+    # to 1, 4, 8, f32 at 128 < dh <= 256, and the 15 of the chunks past 256)
+    check(not ptxas or len(held) == 12 + 4 + 33,
+          f"ptxas reported {len(held)} K1-K3/K4 kernels, not 49: {held}")
     spills = [n for n in held if ptxas[n].get("spill_stores", 0)
               or ptxas[n].get("spill_loads", 0)]
     check(not spills, f"K4, K1, the f32 K2 or K3 at dh <= 64 or the bf16 "
-                      f"wide K2 or K3 spills registers: {spills}")
+                      f"wide K1, K2 or K3 spills registers: {spills}")
     record["ptxas"] = ptxas
     print(f"chip_smoke: kernels built in {record['build_s']} s")
     hmma = sass_hmma_counts(builds[1].path)
     k4_hmma = sass_hmma_counts(builds[0].path)
     k4_hmma.update(sass_hmma_counts(builds[2].path))      # and F1
     hgmma = sass_hmma_counts(builds[1].path, ("HGMMA",))
+    tf32 = sass_hmma_counts(builds[1].path, ("HMMA.1688.F32.TF32",))
     for name, n in sorted({**hmma, **k4_hmma}.items()):
         print(f"chip_smoke:   SASS HMMA/HGMMA {n:5d} (HGMMA "
               f"{hgmma.get(name, 0):4d})  {name}")
@@ -1135,14 +1156,20 @@ def phase_build(record: dict) -> None:
 
     mma = {n: c for n, c in hmma.items() if tensor_core(n)}
     # the bf16 and the f32 (HMMA.1688.F32.TF32) K1, K2 and K3, each at head
-    # dims padded to 16, 32, 64, 128, and the wide K1-K3 in both dtypes
-    check(len(mma) == 30 and all(c > 0 for c in mma.values()),
+    # dims padded to 16, 32, 64, 128, and the wide K1 (two each), K2 and K3
+    # in both dtypes
+    check(len(mma) == 32 and all(c > 0 for c in mma.values()),
           f"the bf16 and f32 K1-K3 kernels are not all on the tensor "
           f"cores: {mma}")
     wgmma = {n: hgmma.get(n, 0) for n in hmma if "_kernel_wide_wgmma" in n}
-    # the bf16 wide K2 and K3 on the warpgroup tensor cores
-    check(len(wgmma) == 2 and all(c > 0 for c in wgmma.values()),
-          f"the bf16 wide K2 and K3 do not run wgmma: {wgmma}")
+    # the bf16 wide K1 (two), K2 and K3 on the warpgroup tensor cores
+    check(len(wgmma) == 4 and all(c > 0 for c in wgmma.values()),
+          f"the bf16 wide K1, K2 and K3 do not run wgmma: {wgmma}")
+    wide_tf32 = {n: tf32.get(n, 0) for n in hmma if "_kernel_wide_tf32" in n}
+    # the f32 wide K1 (two), K2 and K3 in split TF32 on mma.sync
+    check(len(wide_tf32) == 4 and all(c > 0 for c in wide_tf32.values()),
+          f"the f32 wide K1, K2 and K3 do not run TF32 mma.sync: "
+          f"{wide_tf32}")
     simt = {n: c for n, c in {**hmma, **k4_hmma}.items()
             if not tensor_core(n) and c}
     check(not simt, f"K4 or F1 use tensor cores: {simt}")
@@ -1449,11 +1476,20 @@ def _flash_simt_bound(name: str, shape) -> float:
     return max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
 
 
-def _flash_inputs(shape, dtype, gen, dev):
+def _flash_inputs(shape, dtype, gen, dev, unaligned: bool = False):
+    """q, k, v, do from ``gen``; ``unaligned``: each contiguous with its
+    storage one element into a buffer, so not 16-byte aligned."""
     import torch
-    q, k, v, do = (torch.randn(shape, generator=gen).to(dev, getattr(
-        torch, dtype)) for _ in range(4))
-    return q, k, v, do
+    dt = getattr(torch, dtype)
+    out = []
+    for _ in range(4):
+        x = torch.randn(shape, generator=gen)
+        if unaligned:
+            buf = torch.empty(x.numel() + 1, dtype=dt, device=dev)
+            out.append(buf[1:].view(shape).copy_(x))
+        else:
+            out.append(x.to(dev, dt))
+    return tuple(out)
 
 
 def _flash_err(out, ref, rtol: float, atol: float) -> tuple[float, bool]:
@@ -1469,7 +1505,8 @@ def phase_flash_kernels(record: dict) -> list[dict]:
     """K1, K2 and K3 against their plain versions on the card, for f32 and
     bf16, at the full-width training shape and at a ragged T = 200 (the
     masked tail live), plus the tiny ``gpt`` row's f32 shape and the edge
-    shapes ``FLASH_EDGES`` of the tensor-core kernels, in both dtypes. The
+    shapes ``FLASH_EDGES`` of the tensor-core kernels and the unaligned
+    inputs ``FLASH_UNALIGNED``, in both dtypes. The
     f32 rows timed also print the bound at the CUDA cores' 67 TFLOP/s
     beside the split-TF32 one. K2 and K3 are
     fed the plain forward's statistics, so each is held alone. Each kernel
@@ -1486,20 +1523,22 @@ def phase_flash_kernels(record: dict) -> list[dict]:
     gen = torch.Generator().manual_seed(1)
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32,
                         device=dev)
-    cases = [("bfloat16", FLASH_SHAPE), ("bfloat16", FLASH_RAGGED),
-             ("float32", FLASH_SHAPE), ("float32", FLASH_RAGGED),
-             ("float32", FLASH_TINY_SHAPE)]
-    cases += [(dtype, shape) for dtype in ("bfloat16", "float32")
+    cases = [("bfloat16", FLASH_SHAPE, False), ("bfloat16", FLASH_RAGGED, False),
+             ("float32", FLASH_SHAPE, False), ("float32", FLASH_RAGGED, False),
+             ("float32", FLASH_TINY_SHAPE, False)]
+    cases += [(dtype, shape, False) for dtype in ("bfloat16", "float32")
               for shape in FLASH_EDGES]
+    cases += [(dtype, shape, True) for dtype in ("bfloat16", "float32")
+              for shape in FLASH_UNALIGNED]
     wide = [(dtype, shape) for shape in FLASH_WIDE_SHAPES
             for dtype in ("bfloat16", "float32")]
-    cases += wide
+    cases += [(dtype, shape, False) for dtype, shape in wide]
     timed = {("bfloat16", FLASH_SHAPE), ("float32", FLASH_TINY_SHAPE), *wide}
     out = []
-    for dtype, shape in cases:
+    for dtype, shape, unaligned in cases:
         # the wide shapes' calls take milliseconds: fewer of them
         n, reps = (10, 3) if (dtype, shape) in wide else (40, 5)
-        q, k, v, do = _flash_inputs(shape, dtype, gen, dev)
+        q, k, v, do = _flash_inputs(shape, dtype, gen, dev, unaligned)
         o_ref, l_ref, m_ref = fa.flash_forward_reference(q, k, v)
         linv, delta = fa._backward_stats(o_ref, l_ref, do)
         bwd = (q, k, v, do, m_ref, linv, delta)
@@ -1512,7 +1551,7 @@ def phase_flash_kernels(record: dict) -> list[dict]:
                           lambda: fa.flash_dkv_reference(*bwd)),
         }
         lib = {}
-        if (dtype, shape) in timed:
+        if (dtype, shape) in timed and not unaligned:
             qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
 
             def sdpa():
@@ -1540,8 +1579,10 @@ def phase_flash_kernels(record: dict) -> list[dict]:
                 errs[part], part_ok = _flash_err(g, r, rtol, atol)
                 ok = ok and part_ok
             v_ = dict(name=name, dtype=dtype, shape=list(shape),
-                      max_abs_err=max(errs.values()), errs=errs)
-            line = (f"chip_smoke: {name:13} {dtype:>8} {tuple(shape)}: vs "
+                      unaligned=unaligned, max_abs_err=max(errs.values()),
+                      errs=errs)
+            line = (f"chip_smoke: {name:13} {dtype:>8} {tuple(shape)}"
+                    f"{' unaligned' if unaligned else ''}: vs "
                     f"plain max abs " + ", ".join(
                         f"{p} {e:.3e}" for p, e in errs.items())
                     + f" {'ok' if ok else 'FAIL'}")
@@ -1560,8 +1601,9 @@ def phase_flash_kernels(record: dict) -> list[dict]:
                     line += (f" (bound at 67 TFLOP/s f32: "
                              f"{v_['simt_bound_ms']:.4f} ms)")
             print(line)
-            check(ok, f"{name} {dtype} {tuple(shape)} disagrees with its "
-                      f"plain version: {errs}")
+            check(ok, f"{name} {dtype} {tuple(shape)} (unaligned "
+                      f"{unaligned}) disagrees with its plain version: "
+                      f"{errs}")
             out.append(v_)
     main = {v["name"]: v for v in out if v["dtype"] == "bfloat16"
             and tuple(v["shape"]) == FLASH_SHAPE}
@@ -1591,12 +1633,13 @@ def phase_flash_kernels(record: dict) -> list[dict]:
     record["flash_wide"] = []
     for dtype, shape in wide:
         w = {v["name"]: v for v in out if v["dtype"] == dtype
-             and tuple(v["shape"]) == shape}
+             and tuple(v["shape"]) == shape and not v["unaligned"]}
         k23 = w["flash_dq"]["ms"] + w["flash_dkv"]["ms"]
         row = dict(dtype=dtype, shape=list(shape),
                    k1_ms=w["flash_forward"]["ms"],
                    k1_bound_ms=w["flash_forward"]["bound_ms"],
                    sdpa_forward_ms=w["flash_forward"]["library_ms"],
+                   k1_first_ms=WIDE_K1_FIRST_MS[(dtype, shape)],
                    k2_ms=w["flash_dq"]["ms"], k3_ms=w["flash_dkv"]["ms"],
                    k2_k3_ms=k23, sdpa_backward_ms=w["flash_dq"]["library_ms"],
                    k2_k3_bound_ms=(w["flash_dq"]["bound_ms"]
@@ -1606,7 +1649,9 @@ def phase_flash_kernels(record: dict) -> list[dict]:
         print(f"chip_smoke: wide K1 {dtype} {shape}: {row['k1_ms']:.4f} ms "
               f"(bound {row['k1_bound_ms']:.4f}) against SDPA's forward "
               f"{row['sdpa_forward_ms']:.4f} ms: "
-              f"{row['k1_ms'] / row['sdpa_forward_ms']:.2f}x; K2 + K3 "
+              f"{row['k1_ms'] / row['sdpa_forward_ms']:.2f}x; the first "
+              f"design's K1 {row['k1_first_ms']:.4f} ms: "
+              f"{row['k1_first_ms'] / row['k1_ms']:.2f}x this run's; K2 + K3 "
               f"{row['k2_ms']:.4f} + {row['k3_ms']:.4f} = {k23:.4f} ms "
               f"(bound {row['k2_k3_bound_ms']:.4f}) against SDPA's backward "
               f"{row['sdpa_backward_ms']:.4f} ms: "
@@ -8331,7 +8376,8 @@ def _gptj_train(dtype: str | None, rec: dict) -> tuple[int, int, int]:
           f"{cfg.seq_len} ({n_params} params), losses "
           + ", ".join(f"{v:.4f}" for v in losses)
           + f"; K1/K2/K3 {counts}; {step_ms:.1f} host ms a step (the first "
-          f"included), peak {peak:.2f} GiB")
+          f"included; with the first wide K1: "
+          f"{GPTJ_FIRST_K1_MS['train ' + name]:.1f}), peak {peak:.2f} GiB")
     check(all(math.isfinite(v) for v in losses),
           f"23 {name}: non-finite loss {losses}")
     check(counts == (cfg.n_layers * steps,) * 3,
@@ -8382,7 +8428,9 @@ def _gptj_decode_serve(rec: dict) -> tuple[int, int]:
     print(f"chip_smoke: 23 (b) make_decoder f32 {n_new} tokens from a "
           f"{t0}-token prompt: K1 {k1[0]} launches at [1, {cfg.n_heads}, "
           f"{cfg.seq_len}, {cfg.d_model // cfg.n_heads}], {host_ms:.1f} host "
-          f"ms a token; tokens {toks[0, t0:].tolist()} equal the dense "
+          f"ms a token (with the first wide K1: "
+          f"{GPTJ_FIRST_K1_MS['decode']:.1f}); tokens "
+          f"{toks[0, t0:].tolist()} equal the dense "
           f"decoder's: {same}")
     check(same, f"23 (b): flash tokens {toks.tolist()} != dense "
                 f"{want.tolist()}")

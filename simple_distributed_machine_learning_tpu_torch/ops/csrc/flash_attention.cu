@@ -99,12 +99,12 @@
 //   x (k, v), 102 KB / 198 KB; K3 k, v + 2 x (q, do, rows), 106 KB / 204
 //   KB.
 // Head dims above 128, which the JAX kernels take by padding to a multiple
-// of 128 lanes, run the wide kernels (both dtypes, their sections below):
-// K1 streams the contraction over dh in 256-byte slices and makes o in
-// column chunks; K2 and K3 keep the block's own tile in shared memory,
-// compute the scores once per tile pair up to dh 256 and keep all of dh's
-// output sums in registers (bf16 on wgmma fed by TMA, f32 in split TF32),
-// so that every head dim >= 1 fits a block.
+// of 128 lanes, run the wide kernels (both dtypes, their section below):
+// each keeps the block's own rows in shared memory (K1: 128 q rows a
+// block), computes the scores once per tile pair up to dh 256 and keeps
+// all of dh's output sums in registers (bf16 on wgmma fed by TMA, f32 in
+// split TF32), past 256 in chunks of 256 columns, so that every head dim
+// >= 1 fits a block.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -161,7 +161,7 @@ struct MmaShape {
 
 // rows [r0, r0 + 64) x columns [c0, c0 + DP) of a contiguous [T, dh] slab
 // of E (bf16 or f32) into a [64, DP + W] shared tile, W = the E in 16 bytes
-// (one chunk of row pad: MmaShape / Tf32Shape / WideShape's LD), by a block
+// (one chunk of row pad: MmaShape / Tf32Shape LD, kLdS, kLdR), by a block
 // of NT threads: 16-byte cp.async chunks where the slab allows (vec; c0 a
 // multiple of W), else element copies; rows at or past T and columns at or
 // past dh are zero
@@ -1359,111 +1359,116 @@ __global__ void __launch_bounds__(kTf32Threads) flash_dkv_kernel_tf32(Args a) {
   }
 }
 
-// ---- K1 at head dims above 128, both dtypes: the wide forward ----------------------
+// ---- K1, K2 and K3 at head dims above 128: the wide kernels -------------------
 //
-// Past dh 128 the tilings above do not fit: their tiles hold whole rows of
-// dh in shared memory (f32 K1 at dh 256: 338 KB a block, past the 227 KB a
-// block may have) and their accumulators whole rows of the output in
-// registers. The wide forward bounds both for every head dim:
-// - the contraction over dh (s = q.k^T) is streamed in slices of DS
-//   columns, 256 bytes a row (128 bf16, 64 f32): a slice of each operand is
-//   a [64, DS + pad] tile of 17 KB, and the score accumulators of a warp
-//   are its 16 rows x 64 keys, whatever dh;
-// - o is produced in column chunks of DC = 128, one chunk after the other
-//   by a loop inside the block: for each chunk the block walks its k tiles
-//   again and recomputes the scores over the whole contraction (twice at
-//   dh 256; the price of any head dim in a bounded block).
-// Every step of the walk copies at most two 17 KB tiles through a 2-stage
-// cp.async ring (69.6 KB a block): a q and a k slice, then the chunk's v
-// columns for p.v. Four warps each own 16 rows; p stays in registers (the
-// A operand of the next product, as above), through the same fragment code
-// as the narrow kernels (WarpMma: mma.sync m16n8k16 bf16, or split TF32
-// m16n8k8 f32). Each k tile runs as one 64-key block: the online softmax
-// takes the tile's max over all 64 keys at once (the narrow kernels: 16 or
-// 32), and the diagonal tile computes its masked keys rather than skip
-// them. m and l are K1's at dh <= 128 in every way but the order of the
-// f32 sums; chunk 0 writes them. K2 and K3 past dh 128 are the wide
-// backward kernels further down.
+// Replace _flash_kernel (K1, :127), _dq_kernel (K2, :300) and _dkv_kernel
+// (K3, :338) of the JAX package's ops/flash_attention.py past dh 128, which
+// the JAX kernels take by padding the head dim to a multiple of 128 lanes:
+// bf16 flash_{fwd,dq,dkv}_kernel_wide_wgmma, f32 flash_{fwd,dq,dkv}_kernel_wide_tf32.
+// The tilings above hold whole rows of dh in shared memory and whole output
+// rows in registers; past 128 they do not fit (the f32 K1 at dh 256 would
+// take 338 KB a block, past the 227 KB a block may have).
+//
+// What bounds them. At [2, 16, 2048, 256] K1 does ~0.07 TFLOP of causal
+// products (s and p . v, each 2 x 64 x 64 x dh a tile pair), K2 and K3
+// ~0.10-0.14 (s, dp and the output product), against 0.07-0.1 GB of
+// q/k/v/o/do traffic: bound by operations (bf16 0.07-0.14 ms at 989
+// TFLOP/s; f32 three TF32 products a product, 0.4-0.8 ms at 495). Their
+// first design streamed the contraction in 256-byte slices with a [64, 64]
+// score tile per 4-warp block and made the outputs in column chunks of
+// 128 (K1, K2) or 64 (K3), recomputing the scores for every chunk and
+// streaming the block's own rows again at every step: it was bound by what
+// each step copied through L2 into shared memory.
+//
+// The design here, for every kernel and both dtypes: one launch, 8 warps a
+// block; the block's own rows (K1: q; K2: q and do; K3: k and v) are loaded
+// once and stay in shared memory; the other side's tiles (K1, K2: k, v; K3:
+// q, do) stream through a 2-stage ring; the scores are computed once per
+// tile pair over the whole contraction, and the output sums for all of dh
+// stay in registers:
+// - K1 owns 128 q rows a block: each half of 64 rows (a warpgroup in bf16;
+//   4 warps of 16 rows in f32) takes all 64 keys of every k tile, so each
+//   k/v tile that lands in shared memory serves 128 rows (half the L2
+//   traffic per row of a 64-row block), and each half keeps its own
+//   running (m, l, o): the online softmax takes a tile's 64 keys at once,
+//   o is rescaled by exp(m_old - m_new), p is rounded to E only as the A
+//   operand of o += p . v and l sums the unrounded f32 p; no merge. When a
+//   block's last k tile lies past the first half's rows, bf16 computes that
+//   half's fully masked products there (p = 0) rather than branch around
+//   its wgmmas (below), f32 warps skip the tile.
+// - K2 splits each k tile's 64 keys: half h computes s and dp for q x keys
+//   [32 h, 32 h + 32), ds in registers, and dq_h += ds . k[those keys] over
+//   every column; the two partial dq add through shared memory once, at
+//   the end.
+// - K3 in bf16 splits each q tile's 64 queries the same way (s^T, dp^T,
+//   p^T and ds^T of 32 queries a half), then half 0 makes dv += p^T . do
+//   and half 1 dk += ds^T . q over all 64 queries, each taking the other
+//   half's operand fragments (bf16, 4 KB) through shared memory. In f32 K3
+//   splits the products: half 0 s^T, p^T and dv, half 1 dp^T and dk, with
+//   ds^T from half 0's p^T (f32, 16 KB).
+// Past dh 256 the resident rows do not fit: the outputs are made in chunks
+// of 256 columns, and for each chunk the scores are computed again over the
+// whole contraction, with the own rows streamed beside the other side's
+// (slices of 128 bf16 or 64 f32 columns), so the scores are computed
+// ceil(dh / 256) times (twice at dh 512).
+// - bf16: two warpgroups on wgmma (K1's s m64n64k16, K2 and K3's s and dp
+//   m64n32k16, from shared memory, the chains unrolled; the outputs
+//   m64n256k16 with p / ds as the A operand from registers and the other
+//   side's tile as B, N-major). Tiles are [64, 64] blocks in the 128-byte
+//   swizzle (wgmma_bf16.cuh); the ring is filled by TMA from one thread,
+//   completing on an mbarrier per stage (by all threads with plain copies
+//   when dh is not a multiple of 8 or a pointer is not 16-byte aligned,
+//   which TMA cannot take). No branch that splits a warpgroup sits between
+//   its wgmmas (K2 and K3: thread 0's TMA issue, the statistics and the
+//   stores are predicated instructions), so ptxas keeps them asynchronous.
+//   K1 issues its refills from one thread in a branch after the products'
+//   waits, which ptxas also keeps asynchronous: an issue predicated in every
+//   thread compiles to a loop over the lanes that every thread runs. K1's
+//   two warpgroups take turns to issue their products, so that one's
+//   softmax runs under the other's. The softmax's exponential is
+//   ex2.approx with log2(e) folded into the scale. The outputs leave
+//   through a swizzled bf16 tile in shared memory, in 16-byte rows. Shared
+//   memory a block: K1 q 64 KB + 2 stages x (k, v) 64 KB, 193 KB; K2 and
+//   K3 own 64 KB, 2 x 64 KB, exchange 16 KB, 210 KB.
+// - f32: split TF32 on mma.sync (WarpTf32's fragments), the other side's
+//   tiles in 64-column slices through a cp.async ring: K1 reads a k tile's
+//   slices for the scores, then v's for p . v, each slice split into its
+//   TF32 hi and lo parts once as it lands (not by each of the 8 warps that
+//   read it); K2 and K3 read the other side twice per tile pair (for the
+//   scores, then for the output product). The scores' slice sums stay
+//   separate before they add (WarpTf32). Shared memory: K1 q 130 KB + 2 x
+//   (slice, lo part) 34 KB, 198 KB; K2 and K3 own 130 KB, 2 stages x 34 KB,
+//   K3 p 16 KB. K1 keeps 128 rows in f32 too: 8 warps of 16 rows x 64 keys
+//   hold o (128 registers a lane) and s (32), as many as K2's dq and s, dp.
+// p and ds are rounded to the input dtype only as the output product's
+// operand, as in the narrow kernels; the sums are f32. m and l are K1's at
+// dh <= 128 in every way but the order of the f32 sums.
 
-constexpr int kWideWarps = 4;
-constexpr int kWideThreads = 32 * kWideWarps;
+constexpr int kBwdThreads = 256;                 // two groups of 4 warps
+constexpr int kFwdRows = 2 * kTile;              // q rows of a wide K1 block
+constexpr float kLog2e = 1.4426950408889634f;
 
-// Shapes of the wide kernels for element type E (bf16 or f32)
-template <typename E>
-struct WideShape {
-  static constexpr int PAD = 16 / sizeof(E);     // one 16-byte chunk of row pad
-  static constexpr int DS = 256 / sizeof(E);     // contraction columns per slice
-  static constexpr int LDS = DS + PAD;
-  static constexpr int SLOT = kTile * LDS;       // elements of one slice tile
-  static constexpr int DC = 128;                 // K1 o columns per chunk
-  static constexpr int LDC = DC + PAD;
-  static constexpr size_t STAGES = 4 * static_cast<size_t>(SLOT) * sizeof(E);
-};
-
-static_assert(kTile * WideShape<float>::LDC <= 2 * WideShape<float>::SLOT &&
-                  kTile * WideShape<__nv_bfloat16>::LDC <= 2 * WideShape<__nv_bfloat16>::SLOT,
-              "a K1 chunk tile fits one stage of two slots");
-
-// A warp's products on the tensor cores, for the wide kernels:
+// A warp's split-TF32 products (mma_tf32.cuh) for the f32 wide kernels:
 //   xyT: s[n] += X[xr0 + 0..15, 0..KW) . Y[yr0 + 8 n + 0..7, 0..KW)^T;
-//   pY:  acc[d] += round_E(P) . Y[yr0 + 0..8 NN, 8 d + 0..7], P the warp's NN
-//        m16n8 accumulators (16 rows x 8 NN columns) as the A operand.
-template <typename E>
-struct WarpMma;
-
-template <>
-struct WarpMma<__nv_bfloat16> {
-  using E = __nv_bfloat16;
-  template <int LDX, int LDY, int NN, int KW>
-  static __device__ __forceinline__ void xyT(float (&s)[NN][4], const E* x, int xr0,
-                                             const E* y, int yr0, int lane) {
-    using namespace sdml_mma;
-#pragma unroll
-    for (int ks = 0; ks < KW / 16; ++ks) {
-      uint32_t af[4];
-      ldmatrix_x4(af, x + a_off<LDX>(xr0, ks, lane));
-#pragma unroll
-      for (int n2 = 0; n2 < NN / 2; ++n2) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, y + b_off<LDY>(yr0 + 16 * n2, ks, lane));
-        mma_bf16_16816(s[2 * n2], af, bf[0], bf[1]);
-        mma_bf16_16816(s[2 * n2 + 1], af, bf[2], bf[3]);
-      }
-    }
-  }
-  template <int LDY, int NN, int ND>
-  static __device__ __forceinline__ void pY(float (&acc)[ND][4], const float (&p)[NN][4],
-                                            const E* y, int yr0, int lane) {
-    using namespace sdml_mma;
-#pragma unroll
-    for (int kk = 0; kk < NN / 2; ++kk) {
-      uint32_t af[4];
-      pack_a<NN>(af, p, kk);
-#pragma unroll
-      for (int d2 = 0; d2 < ND / 2; ++d2) {
-        uint32_t f[4];
-        ldmatrix_x4_trans(f, y + bt_off<LDY>(yr0 + 16 * kk, 16 * d2, lane));
-        mma_bf16_16816(acc[2 * d2], af, f[0], f[1]);
-        mma_bf16_16816(acc[2 * d2 + 1], af, f[2], f[3]);
-      }
-    }
-  }
-};
-
-template <>
-struct WarpMma<float> {
-  // A slice's products sum in fresh accumulators (half the n8 tiles at a
-  // time), added to s in f32 once per slice: the tensor cores round their
-  // f32 sums toward zero, so one accumulator carried through a 512-wide
-  // contraction (192 products a value) drifts past the 1e-5 of l and m,
-  // where a slice's chain (24) stays as short as the dh 64 kernels'.
-  template <int LDX, int LDY, int NN, int KW>
+//   pY:  acc[d] += P . Y[yr0 + 0..8 NN, 8 d + 0..7], P the warp's NN m16n8
+//        accumulators (16 rows x 8 NN columns) as the A operand.
+struct WarpTf32 {
+  // A slice's products sum in fresh accumulators (1 / HALVES of the n8
+  // tiles at a time: each half loads and splits x's fragments again, two
+  // halves hold half the registers), added to s in f32 once per slice: the
+  // tensor cores round their f32 sums toward zero, so one accumulator
+  // carried through a 512-wide contraction (192 products a value) drifts
+  // past the 1e-5 of l and m, where a slice's chain (24) stays as short as
+  // the dh 64 kernels'. PRE: y is split ahead, its hi part at y and its lo
+  // part at ylo.
+  template <int LDX, int LDY, int NN, int KW, bool PRE = false, int HALVES = 2>
   static __device__ __forceinline__ void xyT(float (&s)[NN][4], const float* x, int xr0,
-                                             const float* y, int yr0, int lane) {
+                                             const float* y, int yr0, int lane,
+                                             const float* ylo = nullptr) {
     using namespace sdml_mma;
-    constexpr int NH = NN / 2;
+    constexpr int NH = NN / HALVES;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < HALVES; ++h) {
       float part[NH][4];
 #pragma unroll
       for (int n = 0; n < NH; ++n)
@@ -1476,7 +1481,11 @@ struct WarpMma<float> {
 #pragma unroll
         for (int n = 0; n < NH; ++n) {
           SplitB bf;
-          lds_b_split<LDY>(bf, y, yr0 + 8 * (h * NH + n), ks, lane);
+          if constexpr (PRE) {
+            lds_b_pre<LDY>(bf, y, ylo, yr0 + 8 * (h * NH + n), ks, lane);
+          } else {
+            lds_b_split<LDY>(bf, y, yr0 + 8 * (h * NH + n), ks, lane);
+          }
           mma_3xtf32(part[n], af, bf);
         }
       }
@@ -1488,9 +1497,10 @@ struct WarpMma<float> {
   }
   // n8 tile kk of P is the k8 slice of Y's rows yr0 + 8 kk .. + 7, in
   // acc_a_split's order (lds_bt_split loads them so)
-  template <int LDY, int NN, int ND>
+  template <int LDY, int NN, int ND, bool PRE = false>
   static __device__ __forceinline__ void pY(float (&acc)[ND][4], const float (&p)[NN][4],
-                                            const float* y, int yr0, int lane) {
+                                            const float* y, int yr0, int lane,
+                                            const float* ylo = nullptr) {
     using namespace sdml_mma;
 #pragma unroll
     for (int kk = 0; kk < NN; ++kk) {
@@ -1499,7 +1509,11 @@ struct WarpMma<float> {
 #pragma unroll
       for (int d = 0; d < ND; ++d) {
         SplitB f;
-        lds_bt_split<LDY>(f, y, yr0 + 8 * kk, 8 * d, lane);
+        if constexpr (PRE) {
+          lds_bt_pre<LDY>(f, y, ylo, yr0 + 8 * kk, 8 * d, lane);
+        } else {
+          lds_bt_split<LDY>(f, y, yr0 + 8 * kk, 8 * d, lane);
+        }
         mma_3xtf32(acc[d], pa, f);
       }
     }
@@ -1514,229 +1528,6 @@ __device__ __forceinline__ void zero_acc(float (&c)[ND][4]) {
     for (int i = 0; i < 4; ++i) c[n][i] = 0.f;
 }
 
-// A wide kernel walks (chunk c, other-side tile t in [t0, t1], step s in
-// [0, last_s]) in that nesting; (c, t, s) becomes the step after it
-__device__ __forceinline__ void next_step(int& c, int& t, int& s, int last_s, int t0, int t1) {
-  if (++s > last_s) {
-    s = 0;
-    if (++t > t1) {
-      t = t0;
-      ++c;
-    }
-  }
-}
-
-// K1, wide: one block per (b*h, 64 q rows), warp w owning q rows
-// 16w..16w+15. Per chunk c and k tile kt: ns steps of s += q_s.k_s^T, then
-// the step that takes the online softmax over the tile's 64 keys and
-// adds round_E(p) . v[:, chunk c].
-template <typename E>
-__global__ void __launch_bounds__(kWideThreads) flash_fwd_kernel_wide(Args a) {
-  using S = WideShape<E>;
-  using M = WarpMma<E>;
-  using namespace sdml_mma;
-  const int bh = blockIdx.x;
-  const int qt = gridDim.y - 1 - blockIdx.y;    // the longest rows start first
-  const int T = a.T, dh = a.dh;
-  const bool vec = a.vec != 0;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const long long base = static_cast<long long>(bh) * T * dh;
-  const long long rbase = static_cast<long long>(bh) * T;
-  const E* q = static_cast<const E*>(a.q) + base;
-  const E* k = static_cast<const E*>(a.k) + base;
-  const E* v = static_cast<const E*>(a.v) + base;
-  E* o = static_cast<E*>(a.o) + base;
-
-  extern __shared__ uint4 smem_mma[];
-  E* ring = reinterpret_cast<E*>(smem_mma);      // 2 stages of 2 slots
-
-  const int q0 = qt * kTile;
-  const int last = min((T + kTile - 1) / kTile - 1, qt);
-  const int ns = (dh + S::DS - 1) / S::DS;
-  const int nch = (dh + S::DC - 1) / S::DC;
-  const int wr = warp * 16;
-  const int r_lo = q0 + wr + g, r_hi = r_lo + 8;
-  const bool live_w = q0 + wr < T;               // this warp has a row below T
-
-  // step s < ns: the q and k slices s of k tile kt; s == ns: v's chunk c
-  auto issue = [&](int c, int kt, int s, int stage) {
-    E* dst = ring + stage * 2 * S::SLOT;
-    if (s < ns) {
-      load_tile_async<S::DS, kWideThreads>(dst, q, q0, T, dh, vec, s * S::DS);
-      load_tile_async<S::DS, kWideThreads>(dst + S::SLOT, k, kt * kTile, T, dh, vec,
-                                           s * S::DS);
-    } else {
-      load_tile_async<S::DC, kWideThreads>(dst, v, kt * kTile, T, dh, vec, c * S::DC);
-    }
-  };
-
-  float acc[S::DC / 8][4], sc[8][4];
-  float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
-  int c = 0, kt = 0, s = 0, stage = 0;
-  issue(0, 0, 0, 0);
-  cp_async_commit();
-#pragma unroll 1
-  for (;;) {
-    int nc = c, nkt = kt, nss = s;
-    next_step(nc, nkt, nss, ns, 0, last);
-    const bool more = nc < nch;
-    if (more) issue(nc, nkt, nss, stage ^ 1);    // the next step's tiles, in flight
-    cp_async_commit();
-    cp_async_wait<1>();                          // this step's copies have landed
-    __syncthreads();
-    const E* x = ring + stage * 2 * S::SLOT;
-    if (kt == 0 && s == 0) {                     // a new chunk
-      zero_acc(acc);
-      m_lo = m_hi = kNegInf;
-      l_lo = l_hi = 0.f;
-    }
-    if (s == 0) zero_acc(sc);
-    if (live_w && s < ns) {
-      M::template xyT<S::LDS, S::LDS, 8, S::DS>(sc, x, wr, x + S::SLOT, 0, lane);
-    } else if (live_w) {
-      // element i of n8 tile n sits at row g + 8 (i / 2), key
-      // kb + 8 n + 2 t4 + i % 2; live: qpos >= kpos and kpos < T
-      const int kb = kt * kTile;
-      bool live[8][4];
-      float mx_lo = kNegInf, mx_hi = kNegInf;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int kp = kb + 8 * n + 2 * t4 + (i & 1);
-          live[n][i] = (i < 2 ? r_lo : r_hi) >= kp && kp < T;
-          sc[n][i] = live[n][i] ? sc[n][i] * a.scale : kNegInf;
-        }
-        mx_lo = fmaxf(mx_lo, fmaxf(sc[n][0], sc[n][1]));
-        mx_hi = fmaxf(mx_hi, fmaxf(sc[n][2], sc[n][3]));
-      }
-#pragma unroll
-      for (int sh = 1; sh <= 2; sh <<= 1) {      // over the quad holding a row
-        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, sh));
-        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, sh));
-      }
-      const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
-      const float c_lo = expf(m_lo - mn_lo), c_hi = expf(m_hi - mn_hi);
-      float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = live[n][i] ? expf(sc[n][i] - (i < 2 ? mn_lo : mn_hi)) : 0.f;
-          sc[n][i] = p;
-          if (i < 2) sum_lo += p; else sum_hi += p;
-        }
-      }
-#pragma unroll
-      for (int sh = 1; sh <= 2; sh <<= 1) {
-        sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, sh);
-        sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, sh);
-      }
-      l_lo = l_lo * c_lo + sum_lo;               // the unrounded f32 p
-      l_hi = l_hi * c_hi + sum_hi;
-      m_lo = mn_lo;
-      m_hi = mn_hi;
-#pragma unroll
-      for (int n = 0; n < S::DC / 8; ++n) {
-        acc[n][0] *= c_lo;
-        acc[n][1] *= c_lo;
-        acc[n][2] *= c_hi;
-        acc[n][3] *= c_hi;
-      }
-      M::template pY<S::LDC, 8, S::DC / 8>(acc, sc, x, 0, lane);
-    }
-    __syncthreads();                             // this stage is free for the step after next
-    if (s == ns && kt == last) {                 // chunk c is complete
-      const float den_lo = fmaxf(l_lo, 1e-30f), den_hi = fmaxf(l_hi, 1e-30f);
-#pragma unroll
-      for (int n = 0; n < S::DC / 8; ++n) {
-        const int col = c * S::DC + 8 * n + 2 * t4;
-        if (r_lo < T) store_pair(o + static_cast<long long>(r_lo) * dh + col,
-                                 acc[n][0] / den_lo, acc[n][1] / den_lo, col, dh);
-        if (r_hi < T) store_pair(o + static_cast<long long>(r_hi) * dh + col,
-                                 acc[n][2] / den_hi, acc[n][3] / den_hi, col, dh);
-      }
-      if (c == 0 && t4 == 0) {                   // the quad's lanes agree
-        if (r_lo < T) {
-          a.l[rbase + r_lo] = l_lo;
-          a.m[rbase + r_lo] = m_lo;
-        }
-        if (r_hi < T) {
-          a.l[rbase + r_hi] = l_hi;
-          a.m[rbase + r_hi] = m_hi;
-        }
-      }
-    }
-    if (!more) break;
-    c = nc;
-    kt = nkt;
-    s = nss;
-    stage ^= 1;
-  }
-}
-
-// ---- K2 and K3 at head dims above 128: the wide backward kernels ---------------
-//
-// Replace _dq_kernel (K2, :300) and _dkv_kernel (K3, :338) of the JAX
-// package's ops/flash_attention.py past dh 128, for bf16
-// (flash_{dq,dkv}_kernel_wide_wgmma) and f32 (flash_{dq,dkv}_kernel_wide_tf32).
-//
-// What bounds them. At [2, 16, 2048, 256] each does ~0.14 TFLOP of causal
-// products (s, dp and the output product, each 2 x 64 x 64 x dh a tile
-// pair) against ~0.1 GB of q/k/v/do traffic: bound by operations (bf16
-// 0.10-0.14 ms at 989 TFLOP/s; f32 three TF32 products a product, 0.6-0.8
-// ms at 495). Their first design streamed the contraction in 256-byte
-// slices with a [64, 64] score tile per 4-warp block and made the outputs
-// in chunks of 128 (K2) or 64 (K3) columns, recomputing the scores for
-// every chunk (K2 twice, K3 four times at dh 256) and streaming the
-// block's own rows again at every step: it was bound by what each step
-// copied through L2 into shared memory.
-//
-// The design here, for both dtypes: one block per (b*h, 64-row tile), one
-// launch, 8 warps in two halves; the block's own tile (K2: q and do; K3: k
-// and v) is loaded once and stays in shared memory; the other side's tiles
-// (K2: k, v; K3: q, do) stream through a 2-stage ring, each read from L2
-// once per tile pair; s and dp are computed once per tile pair over the
-// whole contraction, and the output sums for all of dh stay in registers:
-// - K2 splits each k tile's 64 keys: half h computes s and dp for q x keys
-//   [32 h, 32 h + 32), ds in registers, and dq_h += ds . k[those keys] over
-//   every column; the two partial dq add through shared memory once, at
-//   the end.
-// - K3 in bf16 splits each q tile's 64 queries the same way (s^T, dp^T,
-//   p^T and ds^T of 32 queries a half), then half 0 makes dv += p^T . do
-//   and half 1 dk += ds^T . q over all 64 queries, each taking the other
-//   half's operand fragments (bf16, 4 KB) through shared memory. In f32 K3
-//   splits the products: half 0 s^T, p^T and dv, half 1 dp^T and dk, with
-//   ds^T from half 0's p^T (f32, 16 KB).
-// Past dh 256 the resident tiles do not fit: the outputs are made in
-// chunks of 256 columns, and for each chunk the scores are computed again
-// over the whole contraction, with the own rows streamed beside the other
-// side's (slices of 128 bf16 or 64 f32 columns), so the scores are computed
-// ceil(dh / 256) times (twice at dh 512).
-// - bf16: two warpgroups on wgmma (s and dp m64n32k16 from shared memory,
-//   the chains unrolled; the outputs m64n256k16 with p / ds as the A
-//   operand from registers and the other side's tile as B, N-major). Tiles
-//   are [64, 64] blocks in the 128-byte swizzle (wgmma_bf16.cuh); the ring
-//   is filled by TMA from one thread, completing on an mbarrier per stage
-//   (by all threads with plain copies when dh is not a multiple of 8 or a
-//   pointer is not 16-byte aligned, which TMA cannot take). No branch that
-//   splits a warpgroup sits between its wgmmas (thread 0's TMA issue, the
-//   statistics and the stores are predicated instructions), so ptxas
-//   keeps them asynchronous; the softmax's exponential is ex2.approx. The
-//   outputs leave through a swizzled bf16 tile in shared memory, in
-//   16-byte rows. Shared memory 210 KB a block: own 64 KB, 2 stages x 64
-//   KB, exchange 16 KB.
-// - f32: split TF32 on mma.sync (WarpMma<float>'s fragments), the other
-//   side's tiles in 64-column slices through a cp.async ring, read twice per
-//   tile pair (for the scores, then for the output product); the scores'
-//   slice sums stay separate before they add (the f32 chain above). Shared
-//   memory: own 130 KB, 2 stages x 34 KB, K3 p 16 KB.
-// p and ds are rounded to the input dtype only as the output product's
-// operand, as in the narrow kernels; the sums are f32.
-
-constexpr int kBwdThreads = 256;                 // two groups of 4 warps
-constexpr float kLog2e = 1.4426950408889634f;
 
 // The steps of a wide backward block: per other-side tile t (and, past dh
 // 256, per output chunk c), `per` steps s, the first ns of them score
@@ -1766,6 +1557,7 @@ constexpr uint32_t kWgTile = 4 * sdml_wg::kBlockBytes;    // a [64, 256] tile, 3
 constexpr uint32_t kWgStage = 2 * kWgTile;                // two of them
 constexpr uint32_t kWgP = 64 * 64 * 4;                    // K3's fragment exchange
 constexpr size_t kWgSmem = 1024 + kWgStage * 3 + kWgP + 2 * 192 * 4 + 3 * 8;
+constexpr size_t kWgFwdSmem = 1024 + kWgStage * 3 + 9 * 8;  // K1: q, 2 stages
 
 struct WgMaps {
   const CUtensorMap* own_a;                      // K2: q, do; K3: k, v
@@ -1803,17 +1595,25 @@ struct WgLoad {
 // Loads `n` tiles into the stage at base, completing on bar: TMA from
 // thread 0, or plain copies by every thread and one arrival. Every thread
 // of the block calls it.
+// The TMA loads of `n` tiles into the stage at base, completing on bar,
+// issued by the thread where `leader` (its arrival announces the bytes)
+__device__ __forceinline__ void wg_tma(const WgLoad (&ld)[4], int n, uint8_t* base, int bh,
+                                       uint32_t bar, bool leader) {
+  using namespace sdml_wg;
+  uint32_t bytes = 0;
+  for (int j = 0; j < n; ++j) bytes += ld[j].nb * kBlockBytes;
+  mbar_expect(bar, bytes, leader);
+  for (int j = 0; j < n; ++j)
+    for (int b = 0; b < ld[j].nb; ++b)
+      tma_load(smem_addr(base + ld[j].off + b * kBlockBytes), ld[j].map, (ld[j].b0 + b) * 64,
+               ld[j].r0, bh, bar, leader);
+}
+
 __device__ __forceinline__ void wg_fill(const WgLoad (&ld)[4], int n, uint8_t* base, int bh,
                                         int T, int dh, bool tma, uint32_t bar) {
   using namespace sdml_wg;
   if (tma) {
-    uint32_t bytes = 0;
-    for (int j = 0; j < n; ++j) bytes += ld[j].nb * kBlockBytes;
-    mbar_expect(bar, bytes);                     // thread 0's, as the loads
-    for (int j = 0; j < n; ++j)
-      for (int b = 0; b < ld[j].nb; ++b)
-        tma_load(smem_addr(base + ld[j].off + b * kBlockBytes), ld[j].map,
-                 (ld[j].b0 + b) * 64, ld[j].r0, bh, bar);
+    wg_tma(ld, n, base, bh, bar, threadIdx.x == 0);  // thread 0's, as its arrival
   } else {
     for (int j = 0; j < n; ++j)
       fill_swizzled(base + ld[j].off, ld[j].x, ld[j].b0, ld[j].nb, ld[j].r0, T, dh);
@@ -1919,12 +1719,13 @@ __device__ __forceinline__ void wg_stage(uint8_t* dst, const float (&acc)[128], 
 }
 
 // rows [r0, r0 + 64) x columns [c0, c0 + 256) of a [T, dh] bf16 output from
-// the staged tile at src, by all threads
+// the staged tile at src, by NT threads (t: this one's index among them)
+template <int NT>
 __device__ __forceinline__ void wg_copy_out(__nv_bfloat16* out, const uint8_t* src, int r0,
-                                            int c0, int T, int dh, bool vec) {
+                                            int c0, int T, int dh, bool vec, int t) {
 #pragma unroll
-  for (int pass = 0; pass < 8; ++pass) {
-    const int r = 8 * pass + (threadIdx.x >> 5), ch = threadIdx.x & 31;
+  for (int pass = 0; pass < 64 * 32 / NT; ++pass) {
+    const int r = NT / 32 * pass + (t >> 5), ch = t & 31;
     const int row = r0 + r, col = c0 + 8 * ch;
     const uint4 v = *reinterpret_cast<const uint4*>(src + sdml_wg::swz(r, 8 * ch));
     __nv_bfloat16* at = out + static_cast<long long>(min(row, T - 1)) * dh;
@@ -2084,7 +1885,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       __syncthreads();
       wg_stage(own, acc, warp, g, t4, wg == 0);
       __syncthreads();
-      wg_copy_out(dq, own, q0, 256 * w.c, T, dh, tma);
+      wg_copy_out<kBwdThreads>(dq, own, q0, 256 * w.c, T, dh, tma, tid);
       __syncthreads();
     }
   }
@@ -2263,9 +2064,336 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       // more past dh 256 or after the last step), then copied out
       wg_stage(own + wg * kWgTile, acc, warp, g, t4, true);
       __syncthreads();
-      wg_copy_out(static_cast<bf16*>(a.dv) + base, own, k0, 256 * w.c, T, dh, tma);
-      wg_copy_out(static_cast<bf16*>(a.dk) + base, own + kWgTile, k0, 256 * w.c, T, dh, tma);
+      wg_copy_out<kBwdThreads>(static_cast<bf16*>(a.dv) + base, own, k0, 256 * w.c, T, dh, tma,
+                               tid);
+      wg_copy_out<kBwdThreads>(static_cast<bf16*>(a.dk) + base, own + kWgTile, k0, 256 * w.c, T,
+                               dh, tma, tid);
       __syncthreads();
+    }
+  }
+}
+
+// K1's score chain of one step, unrolled: s (+)= q . k^T over NB blocks
+// (4 NB k16 steps, m64n64k16: all 64 keys of the tile); sd 0 for a step
+// that starts the sums
+template <int NB>
+__device__ __forceinline__ void wg_qk_chain(float (&s)[32], uint32_t x, uint32_t y, int sd) {
+  using namespace sdml_wg;
+#pragma unroll
+  for (int kk = 0; kk < 4 * NB; ++kk) wgmma_ss_n64(s, desc_k(x, kk), desc_k(y, kk), sd || kk > 0);
+}
+
+// nb blocks: 3 or 4 up to dh 256 (q, k whole), 1 or 2 past it (slices)
+template <bool SPLIT>
+__device__ __forceinline__ void wg_qk(int nb, float (&s)[32], uint32_t x, uint32_t y, int sd) {
+  if (SPLIT) {
+    if (nb == 1) wg_qk_chain<1>(s, x, y, sd); else wg_qk_chain<2>(s, x, y, sd);
+  } else {
+    if (nb == 3) wg_qk_chain<3>(s, x, y, sd); else wg_qk_chain<4>(s, x, y, sd);
+  }
+}
+
+// Step i of a wide K1 block: up to dh 256 k tile i, whole (no division on
+// the way); past 256 the backward kernels' walk
+template <bool SPLIT>
+__device__ __forceinline__ WStep fwd_step(int i, int per, int ns, int ntiles) {
+  if (!SPLIT) return WStep{0, i, 0, true, true};
+  return wide_step(i, per, ns, ntiles, 0);
+}
+
+// max and sum over 8 values as a tree (4 deep rather than a chain of 8)
+__device__ __forceinline__ float max8(const float (&x)[8]) {
+  return fmaxf(fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3])),
+               fmaxf(fmaxf(x[4], x[5]), fmaxf(x[6], x[7])));
+}
+__device__ __forceinline__ float sum8(const float (&x)[8]) {
+  return ((x[0] + x[1]) + (x[2] + x[3])) + ((x[4] + x[5]) + (x[6] + x[7]));
+}
+
+// The first row of the second 64-row half of a K1 block at q0: q0 + 64, or
+// q0 again when that half lies wholly past T (its results are not stored,
+// and every TMA box then starts inside the tensor)
+__device__ __forceinline__ int second_half(int q0, int T) {
+  return q0 + kTile < T ? q0 + kTile : q0;
+}
+
+// K1, wide, bf16: one block per (b*h, 128 q rows); warpgroup h owns rows
+// [64 h, 64 h + 64) and takes all 64 keys of every k tile. Per tile: s =
+// q_h . k^T (m64n64k16), the online softmax on the accumulators, o_h +=
+// round(p) . v (m64n256k16, p the A operand from registers, v N-major).
+// Up to dh 256 q stays in shared memory, a step is one k tile (k and v on
+// a barrier each), and the warpgroups take turns to issue their products
+// (named barriers 1 and 2: 0's s, 1's s, 0's p . v, 1's p . v, ...), so
+// that one's softmax runs under the other's products; every warp arrives
+// on a stage's empty barrier when its product has read it, and warpgroup
+// 0's thread 0 refills it by TMA. Past 256 (SPLIT), per 256-column chunk of
+// o, a tile takes ns score steps (128-column slices of q and k) and one
+// step for v's chunk, in lockstep: the block refills a stage after a
+// __syncthreads at the step's end (a refill inside the score or output
+// branch, or the turns, made ptxas serialize that instantiation's wgmmas).
+// Without TMA (Args::vec 0) every refill is the block's plain copies, after
+// a __syncthreads.
+template <bool SPLIT>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_fwd_kernel_wide_wgmma(Args a, const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv) {
+  using namespace sdml_wg;
+  using bf16 = __nv_bfloat16;
+  const int bh = blockIdx.x;
+  const int qb = gridDim.y - 1 - blockIdx.y;    // the longest rows start first
+  const int T = a.T, dh = a.dh;
+  const bool tma = a.vec != 0;
+  const int tid = threadIdx.x, wt = tid & 127;
+  // up to dh 256 wg and warp are lane 0's, broadcast: uniform across the
+  // warp to the compiler, so the descriptors built from them stay in
+  // uniform registers (past 256 the broadcast costs a spill)
+  const int wg = SPLIT ? tid >> 7 : __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int warp = SPLIT ? wt >> 5 : __shfl_sync(0xffffffffu, wt >> 5, 0);
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const long long base = static_cast<long long>(bh) * T * dh;
+  const long long rbase = static_cast<long long>(bh) * T;
+  const bf16* q = static_cast<const bf16*>(a.q) + base;
+  const bf16* k = static_cast<const bf16*>(a.k) + base;
+  const bf16* v = static_cast<const bf16*>(a.v) + base;
+  bf16* o = static_cast<bf16*>(a.o) + base;
+
+  extern __shared__ uint4 smem_mma[];
+  uint8_t* own = align1024(smem_mma);            // q: half h at 32 KB h; then o
+  uint8_t* stages = own + kWgStage;
+  // mbarriers: full (count 1) and empty (the arriving warps) per stage and
+  // unit, unit 0 the scores' tiles (past 256 all of a step's), 1 v's; then
+  // own's
+  const uint32_t bar0 = smem_addr(stages + 2 * kWgStage);
+  auto full = [&](int st, int u) { return bar0 + 8 * (2 * st + u); };
+  auto empty = [&](int st, int u) { return bar0 + 32 + 8 * (2 * st + u); };
+  const uint32_t bar_own = bar0 + 64;
+
+  const int q0 = qb * kFwdRows, q1 = second_half(q0, T);
+  const int last = min((T + kTile - 1) / kTile - 1, 2 * qb + 1);
+  const int nbt = (dh + 63) >> 6;
+  const int ns = SPLIT ? (dh + 127) >> 7 : 1;
+  const int per = SPLIT ? ns + 1 : 1;
+  const int nch = SPLIT ? (dh + 255) >> 8 : 1;
+  const int ntiles = last + 1;
+  const int nsteps = nch * ntiles * per;
+
+  if (tid == 0) {
+    for (int j = 0; j < 4; ++j) {
+      mbar_init(bar0 + 8 * j, 1);
+      mbar_init(bar0 + 32 + 8 * j, 8);
+    }
+    mbar_init(bar_own, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  // step j's tiles of unit u: up to dh 256 k tile t whole (u 0, at 0) or
+  // v's (u 1, at 32 KB); past 256 a score step's 128-column slice s of both
+  // halves' q (at 0 and 16 KB) and of k (at 32 KB), an output step v's
+  // chunk c (at 0)
+  auto loads = [&](WgLoad (&ld)[4], int j, int u) {
+    const WStep w = fwd_step<SPLIT>(j, per, ns, ntiles);
+    const int r0 = w.t * kTile;
+    if (!SPLIT) {
+      ld[0] = u == 0 ? WgLoad{&tk, k, 0, 0, nbt, r0} : WgLoad{&tv, v, kWgTile, 0, nbt, r0};
+      return 1;
+    }
+    if (w.score) {
+      const int b0 = 2 * w.s, nb = min(2, nbt - b0);
+      ld[0] = WgLoad{&tq, q, 0, b0, nb, q0};
+      ld[1] = WgLoad{&tq, q, kWgTile / 2, b0, nb, q1};
+      ld[2] = WgLoad{&tk, k, kWgTile, b0, nb, r0};
+      return 3;
+    }
+    const int b0 = 4 * w.c;
+    ld[0] = WgLoad{&tv, v, 0, b0, min(4, nbt - b0), r0};
+    return 1;
+  };
+  // step j's TMA loads of unit u into stage j % 2, by one thread: a branch
+  // around the issue, which holds no register a wgmma reads (an issue
+  // predicated in every thread compiles to a loop over the lanes)
+  auto tma_step = [&](int j, int u) {
+    WgLoad ld[4];
+    const int n = loads(ld, j, u);
+    wg_tma(ld, n, stages + (j & 1) * kWgStage, bh, full(j & 1, u), true);
+  };
+  // this warpgroup's product on unit u of step i has completed. With TMA
+  // up to dh 256, every warp arrives on the stage's empty barrier, and
+  // warpgroup 0's thread 0 refills, where warpgroup 0 (ahead of 1) has time
+  // to spare and 1 is done: after s of step i v's tile i + 1 (its stage's
+  // v was step i - 1's), after p . v of step i k's tile i + 2. Otherwise
+  // the block loads step i + 2's tiles together after a __syncthreads.
+  auto release = [&](int i, int u) {
+    const int st = i & 1, j = i + 2;
+    if (tma && !SPLIT) {
+      mbar_arrive(empty(st, u), lane == 0);
+      const int jj = u == 0 ? i + 1 : i + 2, uu = 1 - u;
+      if (tid == 0 && jj >= 2 && jj < nsteps) {
+        mbar_wait(empty(jj & 1, uu), ((jj - 2) >> 1) & 1);
+        tma_step(jj, uu);
+      }
+    } else {
+      __syncthreads();
+      if (j < nsteps) {
+        WgLoad ld[4];
+        const int n = loads(ld, j, u);
+        wg_fill(ld, n, stages + st * kWgStage, bh, T, dh, tma, full(st, u));
+      }
+    }
+  };
+  const WgLoad own_ld[4] = {WgLoad{&tq, q, 0, 0, nbt, q0}, WgLoad{&tq, q, kWgTile, 0, nbt, q1},
+                            WgLoad{}, WgLoad{}};
+  if (tma && tid == 0) {
+    if (!SPLIT) wg_tma(own_ld, 2, own, bh, bar_own, true);
+    for (int j = 0; j < 2 && j < nsteps; ++j)
+      for (int u = 0; u < (SPLIT ? 1 : 2); ++u) tma_step(j, u);
+  } else if (!tma) {
+    if (!SPLIT) wg_fill(own_ld, 2, own, bh, T, dh, false, bar_own);
+    for (int j = 0; j < 2 && j < nsteps; ++j) {
+      for (int u = 0; u < (SPLIT ? 1 : 2); ++u) {
+        WgLoad ld[4];
+        const int n = loads(ld, j, u);
+        wg_fill(ld, n, stages + j * kWgStage, bh, T, dh, false, full(j, u));
+      }
+    }
+  }
+  if (!SPLIT) bar_arrive_if(1, kBwdThreads, wg == 1);  // warpgroup 0 issues first
+
+  // this lane's rows r_lo, r_hi: element e of n8 tile j of s sits at row
+  // r_lo + 8 (e / 2), key 8 j + 2 t4 + e % 2 of the tile
+  const int r_lo = q0 + kTile * wg + 16 * warp + g, r_hi = r_lo + 8;
+  const float scale2 = a.scale * kLog2e;         // exp(x) as 2^(x log2 e)
+  float acc[128], sc[32];
+  float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
+#pragma unroll 1
+  for (int i = 0; i < nsteps; ++i) {
+    const int st = i & 1;
+    const uint32_t ph = (i >> 1) & 1;
+    const WStep w = fwd_step<SPLIT>(i, per, ns, ntiles);
+    if (i == 0 && !SPLIT) mbar_wait(bar_own, 0);
+    const uint32_t sa = smem_addr(stages + st * kWgStage);
+    if (w.score) {
+      mbar_wait(full(st, 0), ph);
+      const uint32_t x = SPLIT ? sa + wg * (kWgTile / 2) : smem_addr(own) + wg * kWgTile;
+      if (!SPLIT) bar_sync(1 + wg, kBwdThreads);  // this warpgroup's turn
+      hold(sc);
+      fence();
+      wg_qk<SPLIT>(SPLIT ? min(2, nbt - 2 * w.s) : nbt, sc, x, SPLIT ? sa + kWgTile : sa,
+                   w.s > 0);
+      commit();
+      if (!SPLIT) bar_arrive(2 - wg, kBwdThreads);  // the other's
+      wait_all();
+      hold(sc);
+      if (!SPLIT) release(i, 0);
+    }
+    if (w.out) {
+      // a chunk's first tile starts (m, l) afresh (selects: acc is started
+      // by the chunk's first wgmma); keys past the diagonal or T are -inf
+      const bool first = w.t == 0;
+      m_lo = first ? kNegInf : m_lo;
+      m_hi = first ? kNegInf : m_hi;
+      l_lo = first ? 0.f : l_lo;
+      l_hi = first ? 0.f : l_hi;
+      // key 8 j + 2 t4 + e % 2 of the tile is live for a row while it is
+      // at most the row's last live key (its own position, or T - 1); a
+      // tile wholly below every row of the warpgroup and T needs no mask
+      const int kb = w.t * kTile;
+      const int lim_lo = min(r_lo, T - 1) - kb - 2 * t4, lim_hi = min(r_hi, T - 1) - kb - 2 * t4;
+      if (kb + kTile - 1 > min(q0 + kTile * wg, T - 1)) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[4 * j + e] = 8 * j + (e & 1) <= (e < 2 ? lim_lo : lim_hi) ? sc[4 * j + e] : -INFINITY;
+      }
+      float mx8_lo[8], mx8_hi[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mx8_lo[j] = fmaxf(sc[4 * j], sc[4 * j + 1]);
+        mx8_hi[j] = fmaxf(sc[4 * j + 2], sc[4 * j + 3]);
+      }
+      float mx_lo = max8(mx8_lo), mx_hi = max8(mx8_hi);
+#pragma unroll
+      for (int sh = 1; sh <= 2; sh <<= 1) {      // over the quad holding a row
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, sh));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, sh));
+      }
+      // m in the scaled scores' units (scale > 0: the max of s, scaled)
+      const float mn_lo = fmaxf(m_lo, mx_lo * a.scale), mn_hi = fmaxf(m_hi, mx_hi * a.scale);
+      const float c_lo = exp2_approx((m_lo - mn_lo) * kLog2e);
+      const float c_hi = exp2_approx((m_hi - mn_hi) * kLog2e);
+      const float mb_lo = mn_lo * kLog2e, mb_hi = mn_hi * kLog2e;
+      float s8_lo[8], s8_hi[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[4 * j + e] = exp2_approx(fmaf(sc[4 * j + e], scale2, e < 2 ? -mb_lo : -mb_hi));
+        s8_lo[j] = sc[4 * j] + sc[4 * j + 1];
+        s8_hi[j] = sc[4 * j + 2] + sc[4 * j + 3];
+      }
+      float sum_lo = sum8(s8_lo), sum_hi = sum8(s8_hi);
+#pragma unroll
+      for (int sh = 1; sh <= 2; sh <<= 1) {
+        sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, sh);
+        sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, sh);
+      }
+      l_lo = l_lo * c_lo + sum_lo;               // the unrounded f32 p
+      l_hi = l_hi * c_hi + sum_hi;
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        acc[4 * j] *= c_lo;
+        acc[4 * j + 1] *= c_lo;
+        acc[4 * j + 2] *= c_hi;
+        acc[4 * j + 3] *= c_hi;
+      }
+      uint32_t af[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wg_pack(af[kk], sc, kk);
+      // o_h += round(p) . v over the tile's 64 keys; the chunk's first tile
+      // starts the sums
+      mbar_wait(full(st, SPLIT ? 0 : 1), ph);
+      const uint32_t y = SPLIT ? sa : sa + kWgTile;
+      if (!SPLIT) bar_sync(1 + wg, kBwdThreads);
+      hold(acc);
+      fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_n256_tb(acc, af[kk], desc_n(y, 16 * kk), kk > 0 || w.t > 0);
+      commit();
+      // warpgroup 1's last products are the last turn: nothing waits on it
+      if (!SPLIT) bar_arrive_if(2 - wg, kBwdThreads, wg == 0 || i + 1 < nsteps);
+      wait_all();
+      hold(acc);
+      if (!SPLIT) release(i, 1);
+    }
+    if (SPLIT) release(i, 0);                    // outside the branches above
+    if (w.out && w.t == last) {                  // chunk c is complete
+      // o_h = acc / max(l, 1e-30), as a product with the reciprocal (an f32
+      // ulp from the quotient, below o's bf16 rounding), staged in this
+      // half's 32 KB of own's area (q is read no more past dh 256 or after
+      // the last step), then copied out by the warpgroup; l and m once,
+      // with the first chunk
+      const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f), inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        acc[4 * j] *= inv_lo;
+        acc[4 * j + 1] *= inv_lo;
+        acc[4 * j + 2] *= inv_hi;
+        acc[4 * j + 3] *= inv_hi;
+      }
+      uint8_t* half = own + wg * kWgTile;
+      wg_stage(half, acc, warp, g, t4, true);
+      const bool stat = w.c == 0 && t4 == 0;
+      st_global_f32_if(a.l + rbase + min(r_lo, T - 1), l_lo, stat && r_lo < T);
+      st_global_f32_if(a.m + rbase + min(r_lo, T - 1), m_lo, stat && r_lo < T);
+      st_global_f32_if(a.l + rbase + min(r_hi, T - 1), l_hi, stat && r_hi < T);
+      st_global_f32_if(a.m + rbase + min(r_hi, T - 1), m_hi, stat && r_hi < T);
+      bar_sync(4 + wg, 128);
+      wg_copy_out<128>(o, half, q0 + kTile * wg, 256 * w.c, T, dh, tma, wt);
+      bar_sync(4 + wg, 128);
     }
   }
 }
@@ -2287,8 +2415,31 @@ constexpr size_t kTfDqSmem =
 constexpr size_t kTfDkvSmem =
     (2 * static_cast<size_t>(kRes) + 4 * kSlot + 64 * 64 + 2 * 192) * sizeof(float);
 
-static_assert(kTfDqSmem <= 232448 && kTfDkvSmem <= 232448 && kWgSmem <= 232448,
-              "a wide backward block fits the 227 KB a block may have");
+// K1: q's 128 rows + 2 stages x a k or v slice and its lo part; past dh
+// 256 2 stages x (k, its lo part, q, q) slices
+constexpr size_t kTfFwdSmem =
+    sizeof(float) * (2 * kRes + 4 * kSlot > 8 * kSlot ? 2 * kRes + 4 * kSlot : 8 * kSlot);
+
+// A [64, kSl] f32 slice at hi (row stride kLdS) split in place into its
+// TF32 parts (mma_tf32.cuh's split_tf32): hi's at hi, lo's at lo; by all
+// threads, 16-byte rows
+__device__ __forceinline__ void split_slice(float* hi, float* lo) {
+  for (int c = threadIdx.x; c < kTile * kSl / 4; c += kBwdThreads) {
+    const int o = (c >> 4) * kLdS + (c & 15) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(hi + o);
+    uint4 h, l;
+    sdml_mma::split_tf32(x.x, h.x, l.x);
+    sdml_mma::split_tf32(x.y, h.y, l.y);
+    sdml_mma::split_tf32(x.z, h.z, l.z);
+    sdml_mma::split_tf32(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + o) = h;
+    *reinterpret_cast<uint4*>(lo + o) = l;
+  }
+}
+
+static_assert(kTfDqSmem <= 232448 && kTfDkvSmem <= 232448 && kTfFwdSmem <= 232448 &&
+                  kWgSmem <= 232448 && kWgFwdSmem <= 232448,
+              "a wide block fits the 227 KB a block may have");
 
 // K2, wide, f32: one block per (b*h, 64 q rows); warp w owns q rows
 // 16 (w % 4).. and keys [32 h, 32 h + 32) of every k tile, h = w / 4. Per
@@ -2381,15 +2532,15 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dq_kernel_wide_tf32(Args
         zero_acc(dp);
       }
       if (split) {
-        WarpMma<float>::xyT<kLdS, kLdS, 4, kSl>(sc, x + 2 * kSlot, 16 * rw, x, 32 * h,
-                                                lane);
-        WarpMma<float>::xyT<kLdS, kLdS, 4, kSl>(dp, x + 3 * kSlot, 16 * rw, x + kSlot,
-                                                32 * h, lane);
+        WarpTf32::xyT<kLdS, kLdS, 4, kSl>(sc, x + 2 * kSlot, 16 * rw, x, 32 * h,
+                                          lane);
+        WarpTf32::xyT<kLdS, kLdS, 4, kSl>(dp, x + 3 * kSlot, 16 * rw, x + kSlot,
+                                          32 * h, lane);
       } else {
-        WarpMma<float>::xyT<kLdR, kLdS, 4, kSl>(sc, own + w.s * kSl, 16 * rw, x, 32 * h,
-                                                lane);
-        WarpMma<float>::xyT<kLdR, kLdS, 4, kSl>(dp, own + kRes + w.s * kSl, 16 * rw,
-                                                x + kSlot, 32 * h, lane);
+        WarpTf32::xyT<kLdR, kLdS, 4, kSl>(sc, own + w.s * kSl, 16 * rw, x, 32 * h,
+                                          lane);
+        WarpTf32::xyT<kLdR, kLdS, 4, kSl>(dp, own + kRes + w.s * kSl, 16 * rw,
+                                          x + kSlot, 32 * h, lane);
       }
       if (w.s == ns - 1) {
         // ds * scale in place of s: element e of n8 tile n sits at row
@@ -2414,7 +2565,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dq_kernel_wide_tf32(Args
       const int o = w.s - ns;
 #pragma unroll
       for (int oo = 0; oo < 4; ++oo)
-        if (oo == o) WarpMma<float>::template pY<kLdS, 4, 8>(acc[oo], sc, x, 32 * h, lane);
+        if (oo == o) WarpTf32::pY<kLdS, 4, 8>(acc[oo], sc, x, 32 * h, lane);
     }
     __syncthreads();                             // this stage is free for the step after next
     if (w.out && w.s == per - 1 && w.t == last) {  // chunk c is complete
@@ -2536,11 +2687,11 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dkv_kernel_wide_tf32(Arg
       if (w.s == 0) zero_acc(sc);
       // half 0: k . q^T; half 1: v . do^T
       if (split) {
-        WarpMma<float>::xyT<kLdS, kLdS, 8, kSl>(sc, x + (2 + h) * kSlot, 16 * rw,
-                                                x + h * kSlot, 0, lane);
+        WarpTf32::xyT<kLdS, kLdS, 8, kSl>(sc, x + (2 + h) * kSlot, 16 * rw,
+                                          x + h * kSlot, 0, lane);
       } else {
-        WarpMma<float>::xyT<kLdR, kLdS, 8, kSl>(sc, own + h * kRes + w.s * kSl, 16 * rw,
-                                                x + h * kSlot, 0, lane);
+        WarpTf32::xyT<kLdR, kLdS, 8, kSl>(sc, own + h * kRes + w.s * kSl, 16 * rw,
+                                          x + h * kSlot, 0, lane);
       }
       if (w.s == ns - 1) {
         // element e of n8 tile n sits at key kr + 8 (e / 2), query column
@@ -2578,7 +2729,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dkv_kernel_wide_tf32(Arg
       const float* y = x + (h == 0 ? kSlot : 0);
 #pragma unroll
       for (int oo = 0; oo < 4; ++oo)
-        if (oo == o) WarpMma<float>::template pY<kLdS, 8, 8>(acc[oo], sc, y, 0, lane);
+        if (oo == o) WarpTf32::pY<kLdS, 8, 8>(acc[oo], sc, y, 0, lane);
     }
     __syncthreads();                             // this stage and p^T are free
     if (w.out && w.s == per - 1 && w.t == n_qt - 1) {  // chunk c is complete
@@ -2600,13 +2751,199 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_dkv_kernel_wide_tf32(Arg
   }
 }
 
+// K1, wide, f32: one block per (b*h, 128 q rows); warp w owns q rows
+// 16 w..16 w + 15 and takes all 64 keys of every k tile. Per tile: ns score
+// steps over 64-column slices of k (and past dh 256 of q: s += q_s . k_s^T),
+// the online softmax at the last of them, then the output steps over the
+// 64-column slices of v's chunk (o_s += p . v_s, in f32). Each k or v slice
+// is split into its TF32 parts once, when it lands (split_slice), rather than
+// by each of the 8 warps that read it. A warp whose rows all lie before a k
+// tile skips its products there. SPLIT: dh > 256.
+template <bool SPLIT>
+__global__ void __launch_bounds__(kBwdThreads, 1) flash_fwd_kernel_wide_tf32(Args a) {
+  using namespace sdml_mma;
+  const int bh = blockIdx.x;
+  const int qb = gridDim.y - 1 - blockIdx.y;    // the longest rows start first
+  const int T = a.T, dh = a.dh;
+  const bool vec = a.vec != 0;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const long long base = static_cast<long long>(bh) * T * dh;
+  const long long rbase = static_cast<long long>(bh) * T;
+  const float* q = static_cast<const float*>(a.q) + base;
+  const float* k = static_cast<const float*>(a.k) + base;
+  const float* v = static_cast<const float*>(a.v) + base;
+  float* o = static_cast<float*>(a.o) + base;
+
+  extern __shared__ uint4 smem_mma[];
+  float* sm = reinterpret_cast<float*>(smem_mma);
+  float* own = sm;                               // q's 128 rows (dh <= 256)
+  float* ring = SPLIT ? sm : sm + 2 * kRes;
+  const int slots = SPLIT ? 4 : 2;              // k or v, its lo part (, q, q)
+
+  const int q0 = qb * kFwdRows;
+  const int last = min((T + kTile - 1) / kTile - 1, 2 * qb + 1);
+  const int ns = (dh + kSl - 1) / kSl;           // score steps per tile
+  const int per = ns + (SPLIT ? 4 : ns);         // and output steps
+  const int nch = SPLIT ? (dh + 255) / 256 : 1;
+  const int ntiles = last + 1;
+  const int nsteps = nch * ntiles * per;
+
+  // score step s: k's slice s (and past 256 q's, both halves); output
+  // step: v's slice of chunk c
+  auto issue = [&](int i, int stage) {
+    const WStep w = wide_step(i, per, ns, ntiles, 0);
+    float* dst = ring + stage * slots * kSlot;
+    const int k0 = w.t * kTile;
+    if (w.score) {
+      load_tile_async<kSl, kBwdThreads>(dst, k, k0, T, dh, vec, w.s * kSl);
+      if (SPLIT) {
+        load_tile_async<kSl, kBwdThreads>(dst + 2 * kSlot, q, q0, T, dh, vec, w.s * kSl);
+        load_tile_async<kSl, kBwdThreads>(dst + 3 * kSlot, q, q0 + kTile, T, dh, vec,
+                                          w.s * kSl);
+      }
+    } else {
+      load_tile_async<kSl, kBwdThreads>(dst, v, k0, T, dh, vec,
+                                        w.c * 256 + (w.s - ns) * kSl);
+    }
+  };
+
+  if (!SPLIT) {
+    load_tile_async<256, kBwdThreads>(own, q, q0, T, dh, vec);
+    load_tile_async<256, kBwdThreads>(own + kRes, q, q0 + kTile, T, dh, vec);
+  }
+  issue(0, 0);
+  cp_async_commit();
+
+  const int wr = 16 * warp;
+  const int r_lo = q0 + wr + g, r_hi = r_lo + 8;
+  // the last key any live row of this warp sees (-1: no live row)
+  const int kmax = q0 + wr < T ? min(q0 + wr + 15, T - 1) : -1;
+  float acc[4][8][4], sc[8][4];
+  float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
+#pragma unroll 1
+  for (int i = 0; i < nsteps; ++i) {
+    const int stage = i & 1;
+    if (i + 1 < nsteps) issue(i + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const WStep w = wide_step(i, per, ns, ntiles, 0);
+    float* x = ring + stage * slots * kSlot;
+    split_slice(x, x + kSlot);
+    __syncthreads();
+    if (w.t == 0 && w.s == 0) {                  // a new chunk
+#pragma unroll
+      for (int oo = 0; oo < 4; ++oo) zero_acc(acc[oo]);
+      m_lo = m_hi = kNegInf;
+      l_lo = l_hi = 0.f;
+    }
+    const bool live_w = w.t * kTile <= kmax;     // a row of this warp sees a key of tile t
+    if (w.score && live_w) {
+      if (w.s == 0) zero_acc(sc);
+      if (SPLIT) {
+        WarpTf32::xyT<kLdS, kLdS, 8, kSl, true>(sc, x + 2 * kSlot, wr, x, 0, lane, x + kSlot);
+      } else {
+        WarpTf32::xyT<kLdR, kLdS, 8, kSl, true, 1>(sc, own + w.s * kSl, wr, x, 0, lane,
+                                                   x + kSlot);
+      }
+      if (w.s == ns - 1) {
+        // element e of n8 tile n sits at row r_lo + 8 (e / 2), key
+        // kb + 8 n + 2 t4 + e % 2; keys past the diagonal or T are -inf
+        const int kb = w.t * kTile;
+        float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kp = kb + 8 * n + 2 * t4 + (e & 1);
+            const bool live = (e < 2 ? r_lo : r_hi) >= kp && kp < T;
+            sc[n][e] = live ? sc[n][e] * a.scale : -INFINITY;
+          }
+          mx_lo = fmaxf(mx_lo, fmaxf(sc[n][0], sc[n][1]));
+          mx_hi = fmaxf(mx_hi, fmaxf(sc[n][2], sc[n][3]));
+        }
+#pragma unroll
+        for (int sh = 1; sh <= 2; sh <<= 1) {    // over the quad holding a row
+          mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, sh));
+          mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, sh));
+        }
+        const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+        const float c_lo = expf(m_lo - mn_lo), c_hi = expf(m_hi - mn_hi);
+        float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = expf(sc[n][e] - (e < 2 ? mn_lo : mn_hi));
+            sc[n][e] = p;
+            if (e < 2) sum_lo += p; else sum_hi += p;
+          }
+        }
+#pragma unroll
+        for (int sh = 1; sh <= 2; sh <<= 1) {
+          sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, sh);
+          sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, sh);
+        }
+        l_lo = l_lo * c_lo + sum_lo;
+        l_hi = l_hi * c_hi + sum_hi;
+        m_lo = mn_lo;
+        m_hi = mn_hi;
+#pragma unroll
+        for (int oo = 0; oo < 4; ++oo) {
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            acc[oo][n][0] *= c_lo;
+            acc[oo][n][1] *= c_lo;
+            acc[oo][n][2] *= c_hi;
+            acc[oo][n][3] *= c_hi;
+          }
+        }
+      }
+    } else if (w.out && live_w) {
+      const int o_s = w.s - ns;
+#pragma unroll
+      for (int oo = 0; oo < 4; ++oo)
+        if (oo == o_s) WarpTf32::pY<kLdS, 8, 8, true>(acc[oo], sc, x, 0, lane, x + kSlot);
+    }
+    __syncthreads();                             // this stage is free for the step after next
+    if (w.out && w.s == per - 1 && w.t == last) {  // chunk c is complete
+      const float den_lo = fmaxf(l_lo, 1e-30f), den_hi = fmaxf(l_hi, 1e-30f);
+#pragma unroll
+      for (int oo = 0; oo < 4; ++oo) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int col = w.c * 256 + oo * kSl + 8 * n + 2 * t4;
+          if (col < dh) {
+            if (r_lo < T) store_pair(o + static_cast<long long>(r_lo) * dh + col,
+                                     acc[oo][n][0] / den_lo, acc[oo][n][1] / den_lo, col, dh);
+            if (r_hi < T) store_pair(o + static_cast<long long>(r_hi) * dh + col,
+                                     acc[oo][n][2] / den_hi, acc[oo][n][3] / den_hi, col, dh);
+          }
+        }
+      }
+      if (w.c == 0 && t4 == 0) {                 // the quad's lanes agree
+        if (r_lo < T) {
+          a.l[rbase + r_lo] = l_lo;
+          a.m[rbase + r_lo] = m_lo;
+        }
+        if (r_hi < T) {
+          a.l[rbase + r_hi] = l_hi;
+          a.m[rbase + r_hi] = m_hi;
+        }
+      }
+    }
+  }
+}
+
 // ---- launch --------------------------------------------------------------------
 
 enum Pass { kForward = 0, kDq = 1, kDkv = 2 };
 
+// a grid of (BH, ceil(T / rows)): a block per b*h and `rows` rows
 cudaError_t launch_kernel(void (*kernel)(Args), const Args& a, int BH, int threads,
-                          size_t smem, cudaStream_t stream) {
-  const dim3 grid(BH, (a.T + kTile - 1) / kTile);
+                          size_t smem, cudaStream_t stream, int rows = kTile) {
+  const dim3 grid(BH, (a.T + rows - 1) / rows);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -2665,35 +3002,49 @@ bool tensor_map(CUtensorMap* map, const void* x, int BH, int T, int dh) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// K2 or K3 past dh 128 in bf16: TMA maps of q, k, v, do when the rows take
-// 16-byte boxes (vec), else the kernel's plain copies
+// K1, K2 or K3 past dh 128 in bf16: TMA maps of q, k, v (and do) when the
+// rows take 16-byte boxes (vec), else the kernel's plain copies
 cudaError_t launch_wide_wgmma(Pass pass, const Args& a, int BH, cudaStream_t stream) {
   CUtensorMap maps[4] = {};
+  const int n_maps = pass == kForward ? 3 : 4;
   if (a.vec) {
     const void* xs[4] = {a.q, a.k, a.v, a.dout};
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < n_maps; ++j)
       if (!tensor_map(&maps[j], xs[j], BH, a.T, a.dh)) return cudaErrorNotSupported;
+  }
+  cudaError_t err;
+  if (pass == kForward) {
+    auto fwd = a.dh > 256 ? flash_fwd_kernel_wide_wgmma<true> : flash_fwd_kernel_wide_wgmma<false>;
+    err = cudaFuncSetAttribute(fwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kWgFwdSmem));
+    if (err != cudaSuccess) return err;
+    const dim3 grid(BH, (a.T + kFwdRows - 1) / kFwdRows);
+    fwd<<<grid, kBwdThreads, kWgFwdSmem, stream>>>(a, maps[0], maps[1], maps[2]);
+    return cudaGetLastError();
   }
   auto kernel = pass == kDq ? flash_dq_kernel_wide_wgmma : flash_dkv_kernel_wide_wgmma;
   const dim3 grid(BH, (a.T + kTile - 1) / kTile);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kWgSmem));
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kWgSmem));
   if (err != cudaSuccess) return err;
   kernel<<<grid, kBwdThreads, kWgSmem, stream>>>(a, maps[0], maps[1], maps[2], maps[3]);
   return cudaGetLastError();
 }
 
-// past dh 128: K1 the wide forward; K2 and K3 the wide backward kernels
-// (wgmma in bf16, split TF32 in f32)
+// past dh 128 the wide kernels: wgmma in bf16, split TF32 in f32
 template <typename E>
 cudaError_t launch_wide(Pass pass, const Args& a, int BH, cudaStream_t stream) {
-  if (pass == kForward)
-    return launch_kernel(flash_fwd_kernel_wide<E>, a, BH, kWideThreads, WideShape<E>::STAGES,
-                         stream);
   if (sizeof(E) == 2) return launch_wide_wgmma(pass, a, BH, stream);
-  if (pass == kDq)
-    return launch_kernel(flash_dq_kernel_wide_tf32, a, BH, kBwdThreads, kTfDqSmem, stream);
-  return launch_kernel(flash_dkv_kernel_wide_tf32, a, BH, kBwdThreads, kTfDkvSmem, stream);
+  switch (pass) {
+    case kForward:
+      return launch_kernel(a.dh > 256 ? flash_fwd_kernel_wide_tf32<true>
+                                      : flash_fwd_kernel_wide_tf32<false>,
+                           a, BH, kBwdThreads, kTfFwdSmem, stream, kFwdRows);
+    case kDq:
+      return launch_kernel(flash_dq_kernel_wide_tf32, a, BH, kBwdThreads, kTfDqSmem, stream);
+    default:
+      return launch_kernel(flash_dkv_kernel_wide_tf32, a, BH, kBwdThreads, kTfDkvSmem, stream);
+  }
 }
 
 // f32: K1-K3 in split TF32 on the tensor cores, head dim padded to 16, 32,

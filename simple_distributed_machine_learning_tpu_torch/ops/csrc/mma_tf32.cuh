@@ -114,6 +114,28 @@ __device__ __forceinline__ void lds_bt_split(SplitB& f, const float* tile, int k
   split_tf32(p[LD], f.hi[1], f.lo[1]);
 }
 
+// The same two B fragments from a tile split ahead into its hi and lo parts
+// (split_tf32 of every element, stored as .b32 in two tiles of stride LD):
+// four plain loads, no arithmetic
+template <int LD>
+__device__ __forceinline__ void lds_b_pre(SplitB& f, const float* hi, const float* lo, int n0,
+                                          int ks, int lane) {
+  const int o = (n0 + (lane >> 2)) * LD + ks * 8 + (lane & 3);
+  f.hi[0] = __float_as_uint(hi[o]);
+  f.hi[1] = __float_as_uint(hi[o + 4]);
+  f.lo[0] = __float_as_uint(lo[o]);
+  f.lo[1] = __float_as_uint(lo[o + 4]);
+}
+template <int LD>
+__device__ __forceinline__ void lds_bt_pre(SplitB& f, const float* hi, const float* lo, int k0,
+                                           int d0, int lane) {
+  const int o = (k0 + 2 * (lane & 3)) * LD + d0 + (lane >> 2);
+  f.hi[0] = __float_as_uint(hi[o]);
+  f.hi[1] = __float_as_uint(hi[o + LD]);
+  f.lo[0] = __float_as_uint(lo[o]);
+  f.lo[1] = __float_as_uint(lo[o + LD]);
+}
+
 // An m16n8 accumulator as the A operand of one k8 slice, its columns
 // relabelled: A col t = acc col 2t, A col t + 4 = acc col 2t + 1
 __device__ __forceinline__ void acc_a_split(SplitA& f, const float (&c)[4]) {

@@ -87,21 +87,23 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
 __device__ __forceinline__ void mbar_fence_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
-// thread 0's arrival with `bytes` of TMA transactions to come; the other
-// threads' instruction is predicated off (no branch: a branch around it
-// would split the warpgroup ahead of the next wgmma)
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+// the arrival, where `on` (by default thread 0's), with `bytes` of TMA
+// transactions to come; the other threads' instruction is predicated off
+// (no branch: a branch around it would split the warpgroup ahead of the
+// next wgmma)
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes,
+                                            bool on = threadIdx.x == 0) {
   asm volatile(
-      "{\n.reg .pred q;\nsetp.eq.u32 q, %2, 0;\n"
+      "{\n.reg .pred q;\nsetp.ne.u32 q, %2, 0;\n"
       "@q mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n"
-      :: "r"(bar), "r"(bytes), "r"(static_cast<uint32_t>(threadIdx.x)) : "memory");
+      :: "r"(bar), "r"(bytes), "r"(static_cast<uint32_t>(on)) : "memory");
 }
-// thread 0's plain arrival
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+// a plain arrival where `on` (by default thread 0's)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar, bool on = threadIdx.x == 0) {
   asm volatile(
-      "{\n.reg .pred q;\nsetp.eq.u32 q, %1, 0;\n"
+      "{\n.reg .pred q;\nsetp.ne.u32 q, %1, 0;\n"
       "@q mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
-      :: "r"(bar), "r"(static_cast<uint32_t>(threadIdx.x)) : "memory");
+      :: "r"(bar), "r"(static_cast<uint32_t>(on)) : "memory");
 }
 // until the barrier's phase of parity `parity` has completed; the spin
 // stays inside the asm, so the compiler sees no divergent loop before the
@@ -119,21 +121,21 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 }
 
 // a [64 rows, 64 columns] box at (column c0, row r0, slab z) of a 3-D tensor
-// map into dst (1024-aligned), completing on bar; issued by thread 0 alone
-// (predicated, as mbar_expect)
+// map into dst (1024-aligned), completing on bar; issued by the thread where
+// `on` alone, by default thread 0 (predicated, as mbar_expect)
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int r0,
-                                         int z, uint32_t bar) {
+                                         int z, uint32_t bar, bool on = threadIdx.x == 0) {
   asm volatile(
-      "{\n.reg .pred q;\nsetp.eq.u32 q, %6, 0;\n"
+      "{\n.reg .pred q;\nsetp.ne.u32 q, %6, 0;\n"
       "@q cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3, %4}], [%5];\n}\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0), "r"(z), "r"(bar),
-         "r"(static_cast<uint32_t>(threadIdx.x))
+         "r"(static_cast<uint32_t>(on))
       : "memory");
 }
 
 // predicated accesses, for the same reason: st.shared.f32, ld.global.f32
-// (0 when off), st.shared.b32, st.global.v4 and st.global.b16
+// (0 when off), st.shared.b32, st.global.v4, st.global.b16 and st.global.f32
 __device__ __forceinline__ void st_shared_if(float* p, float v, bool on) {
   asm volatile("{\n.reg .pred q;\nsetp.ne.u32 q, %2, 0;\n@q st.shared.f32 [%0], %1;\n}\n"
                :: "r"(smem_addr(p)), "f"(v), "r"(static_cast<uint32_t>(on)) : "memory");
@@ -159,6 +161,10 @@ __device__ __forceinline__ void st_global_b16_if(void* p, uint16_t v, bool on) {
   asm volatile("{\n.reg .pred q;\nsetp.ne.u32 q, %2, 0;\n@q st.global.b16 [%0], %1;\n}\n"
                :: "l"(p), "h"(v), "r"(static_cast<uint32_t>(on)) : "memory");
 }
+__device__ __forceinline__ void st_global_f32_if(float* p, float v, bool on) {
+  asm volatile("{\n.reg .pred q;\nsetp.ne.u32 q, %2, 0;\n@q st.global.f32 [%0], %1;\n}\n"
+               :: "l"(p), "f"(v), "r"(static_cast<uint32_t>(on)) : "memory");
+}
 
 // generic-proxy writes to shared memory, made visible to wgmma and TMA
 __device__ __forceinline__ void fence_async_smem() {
@@ -170,6 +176,11 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
 }
 __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+// bar.arrive by the warps where `on` (the same in every lane of a warp)
+__device__ __forceinline__ void bar_arrive_if(int id, int n, bool on) {
+  asm volatile("{\n.reg .pred q;\nsetp.ne.u32 q, %2, 0;\n@q bar.arrive %0, %1;\n}\n"
+               :: "r"(id), "r"(n), "r"(static_cast<uint32_t>(on)) : "memory");
 }
 
 // 2^x on the special-function unit (ex2.approx.ftz: ~2^-22 relative), the
@@ -194,6 +205,25 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[0..32) (+)= A . B, m64n64k16, A and B from shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

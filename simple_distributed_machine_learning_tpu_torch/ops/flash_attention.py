@@ -30,12 +30,12 @@ hi + lo in TF32, three products summed in f32: close to f32 accuracy).
 p and ds stay in registers in every kernel. Any head dim ``>= 1`` runs
 (the JAX kernels pad any to a multiple of 128 lanes): up to 128 the tiles
 hold whole rows of dh; past 128 the wide kernels take over
-(:func:`wide_tiling`): K1 streams the contraction in 256-byte slices and
-makes o in column chunks; K2 and K3 keep the block's own rows in shared
-memory, compute the scores once per tile pair and keep all of dh's output
-sums in registers up to dh 256 (bf16 on ``wgmma`` fed by TMA, f32 in split
-TF32), and past 256 make the outputs in chunks of 256 columns. A block's
-shared memory and registers stay bounded at every head dim.
+(:func:`wide_tiling`): each keeps the block's own rows in shared memory
+(K1: 128 q rows a block, :data:`WIDE_FORWARD_ROWS`), computes the scores
+once per tile pair and keeps all of dh's output sums in registers up to dh
+256 (bf16 on ``wgmma`` fed by TMA, f32 in split TF32), and past 256 makes
+the outputs in chunks of 256 columns. A block's shared memory and
+registers stay bounded at every head dim.
 
 On a CPU tensor every wrapper computes its plain version
 (:func:`flash_forward_reference`, :func:`flash_backward_reference`) —
@@ -77,7 +77,7 @@ from simple_distributed_machine_learning_tpu_torch.ops.attention import (
 
 NEG_INF = -1e30
 #: the widest head dim the whole-row kernels take; wider ones run the wide
-#: kernels (``csrc/flash_attention.cu``, ``WideShape``)
+#: kernels (``csrc/flash_attention.cu``, the wide kernels' section)
 WHOLE_ROW_HEAD_DIM = 128
 #: dtypes the kernels are instantiated for -> their dtype code
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -374,10 +374,14 @@ def _(q, k, v, do, m, linv, delta):
 TILE = 64
 
 
-#: the head dim up to which the wide backward kernels keep the block's own
-#: rows whole in shared memory and make all of dh's outputs at once
-#: (``csrc/flash_attention.cu``, the wide backward kernels)
+#: the head dim up to which the wide kernels keep the block's own rows
+#: whole in shared memory and make all of dh's outputs at once
+#: (``csrc/flash_attention.cu``, the wide kernels)
 RESIDENT_HEAD_DIM = 256
+
+#: q rows a block of the wide K1 owns (``kFwdRows``): two tiles, each k/v
+#: tile serving both; K2 and K3 own one tile of :data:`TILE` rows
+WIDE_FORWARD_ROWS = 2 * TILE
 
 
 def wide_tiling(kernel: str, dh: int, dtype: torch.dtype):
@@ -386,15 +390,13 @@ def wide_tiling(kernel: str, dh: int, dtype: torch.dtype):
     over dh is read in slices of ``slice`` columns, and the outputs are
     made in chunks of ``chunk`` columns.
 
-    K1 (the wide forward): slices of 256 bytes a row (128 bf16, 64 f32),
-    chunks of 128 columns. K2 and K3 (the wide backward): up to dh 256 the
-    outputs in one chunk of dh columns, read in slices of dh (bf16: each
-    tile whole, once) or 64 (f32); past 256, chunks of 256 columns, the
-    contraction in slices of 128 (bf16) or 64 (f32)."""
+    K1, K2 and K3 alike: up to dh 256 the outputs in one chunk of dh
+    columns, the other side's tiles read in slices of dh (bf16: each tile
+    whole, once) or 64 (f32); past 256, chunks of 256 columns, the
+    contraction in slices of 128 (bf16) or 64 (f32), the own rows streamed
+    beside the other side's."""
     if dh <= WHOLE_ROW_HEAD_DIM:
         return None
-    if kernel == "flash_forward":
-        return 256 // dtype.itemsize, 128
     chunk = dh if dh <= RESIDENT_HEAD_DIM else 256
     if dtype.itemsize == 4:
         return 64, chunk
@@ -416,13 +418,16 @@ def launch_spec(kernel: str, q: torch.Tensor):
     are f32.
 
     At dh > 128 (:func:`wide_tiling`) the blocks are the wide kernels':
-    the loop is ``(chunk c, tile, slice s)``, every operand of the scores
-    (q, k, and in the backward do, v) is read as ``(1, 64, slice)`` blocks
-    at slice ``s``, the operand of the chunk's product (v in K1, k in K2,
-    do and q in K3) as ``(1, 64, chunk)`` at ``c``, and each output as
-    ``(1, 64, chunk)`` at ``c`` (l and m whole rows, once). In K2 and K3
-    up to dh 256 the cell's own rows (K2 q, do; K3 k, v) are one
-    ``(1, 64, dh)`` block, read once and kept."""
+    the loop is ``(chunk c, tile, slice s)``, the scores' operands are read
+    at slice ``s`` (the cell's own as ``(1, rows, slice)`` blocks, the
+    other side's tiles as ``(1, 64, slice)``), the operand of the chunk's
+    product (v in K1, k in K2, do and q in K3) as ``(1, 64, chunk)`` at
+    ``c``, and each output as ``(1, rows, chunk)`` at ``c`` (l and m whole
+    rows, once). Up to dh
+    256 the cell's own rows (K1 q; K2 q, do; K3 k, v) are one ``(1, rows,
+    dh)`` block, read once and kept. A K1 cell owns
+    :data:`WIDE_FORWARD_ROWS` q rows (grid ``(B*H, ceil(T/128))``), a K2 or
+    K3 cell 64."""
     from simple_distributed_machine_learning_tpu_torch.analysis.kernels import (  # noqa: E501
         LaunchSpec,
         Operand,
@@ -487,24 +492,25 @@ def launch_spec(kernel: str, q: torch.Tensor):
 
 
 def _wide_launch_spec(kernel: str, q: torch.Tensor, wide):
-    """:func:`launch_spec` at dh > 128: grid ``(B*H, ceil(T/64))``, loop
-    ``(chunks, tiles, slices)``."""
+    """:func:`launch_spec` at dh > 128: grid ``(B*H, ceil(T/rows))`` (K1
+    128 rows a cell, K2 and K3 64), loop ``(chunks, k/v or q tiles,
+    slices)`` over 64-row tiles."""
     from simple_distributed_machine_learning_tpu_torch.analysis.kernels import (  # noqa: E501
         LaunchSpec,
         Operand,
     )
     B, H, T, dh = q.shape
-    BH, n = B * H, -(-T // TILE)
+    cell = WIDE_FORWARD_ROWS if kernel == "flash_forward" else TILE
+    BH, n, n_cells = B * H, -(-T // TILE), -(-T // cell)
     ds, dc = wide
     n_s, n_c = -(-dh // ds), -(-dh // dc)
     rows, stat = (BH, T, dh), (BH, T)
-    sl, ck, sblk = (1, TILE, ds), (1, TILE, dc), (1, TILE)
+    sl, ck = (1, TILE, ds), (1, TILE, dc)
+    own_sl, own_ck, sblk = (1, cell, ds), (1, cell, dc), (1, cell)
     f32, dt = torch.float32, q.dtype
 
-    # index maps over (bh, i, c, kb, s): i the cell's tile, kb the loop's
-    def own_s(bh, i, c, kb, s):
-        return (bh, i, s)
-
+    # index maps over (bh, i, c, kb, s): i the cell's rows, kb the loop's
+    # tile
     def other_s(bh, i, c, kb, s):
         return (bh, kb, s)
 
@@ -520,18 +526,18 @@ def _wide_launch_spec(kernel: str, q: torch.Tensor, wide):
     def other_stat(bh, i, c, kb, s):
         return (bh, kb)
 
-    # the backward's own rows: one whole block, kept, up to dh 256
-    resident = kernel != "flash_forward" and dh <= RESIDENT_HEAD_DIM
-    own_blk = (1, TILE, dh) if resident else sl
+    # the cell's own rows: one whole block, kept, up to dh 256
+    resident = dh <= RESIDENT_HEAD_DIM
+    own_blk = (1, cell, dh) if resident else own_sl
 
     def own_r(bh, i, c, kb, s):
         return (bh, i, 0) if resident else (bh, i, s)
 
     if kernel == "flash_forward":
-        ops = (Operand("q", rows, sl, dt, own_s),
+        ops = (Operand("q", rows, own_blk, dt, own_r),
                Operand("k", rows, sl, dt, other_s),
                Operand("v", rows, ck, dt, other_c),
-               Operand("o", rows, ck, dt, own_c, output=True),
+               Operand("o", rows, own_ck, dt, own_c, output=True),
                Operand("l", stat, sblk, f32, own_stat, output=True),
                Operand("m", stat, sblk, f32, own_stat, output=True))
     elif kernel == "flash_dq":
@@ -543,7 +549,7 @@ def _wide_launch_spec(kernel: str, q: torch.Tensor, wide):
                Operand("k", rows, sl, dt, other_s),
                Operand("v", rows, sl, dt, other_s),
                Operand("k_chunk", rows, ck, dt, other_c),
-               Operand("dq", rows, ck, dt, own_c, output=True))
+               Operand("dq", rows, own_ck, dt, own_c, output=True))
     elif kernel == "flash_dkv":
         ops = (Operand("k", rows, own_blk, dt, own_r),
                Operand("v", rows, own_blk, dt, own_r),
@@ -554,13 +560,13 @@ def _wide_launch_spec(kernel: str, q: torch.Tensor, wide):
                Operand("m", stat, sblk, f32, other_stat),
                Operand("linv", stat, sblk, f32, other_stat),
                Operand("delta", stat, sblk, f32, other_stat),
-               Operand("dk", rows, ck, dt, own_c, output=True),
-               Operand("dv", rows, ck, dt, own_c, output=True))
+               Operand("dk", rows, own_ck, dt, own_c, output=True),
+               Operand("dv", rows, own_ck, dt, own_c, output=True))
     else:
         raise ValueError(f"no flash kernel {kernel!r}")
     return LaunchSpec(kernel=kernel,
                       where=f"{__name__}.{kernel} (ops/csrc/flash_attention.cu)",
-                      grid=(BH, n), loop=(n_c, n, n_s), operands=ops,
+                      grid=(BH, n_cells), loop=(n_c, n, n_s), operands=ops,
                       scratch=(torch.float32,))
 
 

@@ -33,10 +33,19 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_KERNEL_TOL = dict(rtol=2.0 ** -6, atol=2.0 ** -6)
 
 
-def _inputs(seed, shape, device, dtype=torch.float32, n=3):
+def _inputs(seed, shape, device, dtype=torch.float32, n=3, unaligned=False):
+    """``n`` tensors from a seed; ``unaligned``: each contiguous with its
+    storage one element into a buffer, so not 16-byte aligned."""
     rng = np.random.default_rng(seed)
-    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-            .to(device, dtype) for _ in range(n)]
+    out = []
+    for _ in range(n):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        if unaligned:
+            buf = torch.empty(x.numel() + 1, dtype=dtype, device=device)
+            out.append(buf[1:].view(shape).copy_(x))
+        else:
+            out.append(x.to(device, dtype))
+    return out
 
 
 def _launches():
@@ -65,12 +74,13 @@ _CASES = ([(torch.float32, (2, 4, t, dh)) for dh in (8, 32, 40, 64, 128)
           + [(torch.bfloat16, (2, 4, t, dh)) for dh in (32, 64, 128, 40)
              for t in (1, 65, 200, 256)]
           + [(torch.bfloat16, (2, 4, t, 8)) for t in (65, 200)]
-          # head dims past 128: the wide kernels (K1: the contraction in
-          # slices, o in column chunks; K2, K3: the own tile resident, the
-          # outputs in chunks of 256 past dh 256), both dtypes, T = 1, 65
-          # and 200
+          # head dims past 128: the wide kernels (the own rows resident, the
+          # outputs in chunks of 256 past dh 256; K1 128 q rows a block),
+          # both dtypes, T = 1, 65, 129 (past a K1 block) and 200; dh 196
+          # is not a multiple of 8, which TMA cannot take
           + [(dt, (1, 2, t, dh)) for dt in (torch.float32, torch.bfloat16)
-             for dh in (160, 192, 256, 320, 512) for t in (1, 65, 200)])
+             for dh in (160, 192, 196, 256, 320, 512)
+             for t in (1, 65, 129, 200)])
 
 
 @pytest.mark.cuda
@@ -94,6 +104,39 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype, shape):
     f32 = dtype == torch.float32
     for i, (g, r) in enumerate(zip(got_f, ref_f)):
         tol = F32_TOL if f32 or i > 0 else BF16_KERNEL_TOL   # l, m are f32
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   r.float().cpu().numpy(), **tol)
+    for g, r in zip(got_b, ref_b):
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   r.float().cpu().numpy(),
+                                   **(GRAD_TOL if f32 else BF16_KERNEL_TOL))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2, 65, 160), (1, 2, 200, 256),
+                                   (1, 2, 129, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_wide_kernels_take_unaligned_inputs(cuda_device, dtype, shape):
+    """K1, K2 and K3 past dh 128 on contiguous inputs whose storage starts
+    one element into a buffer (not 16-byte aligned, so no TMA box or
+    16-byte copy can take them): the kernels' plain copies, against the
+    plain versions on the same inputs."""
+    t, dh = shape[2:]
+    q, k, v, do = _inputs(11 + t + dh, shape, cuda_device, dtype, n=4,
+                          unaligned=True)
+    assert q.data_ptr() % 16 != 0 and q.is_contiguous()
+    before = _launches()
+    got_f = tfa.flash_forward(q, k, v)
+    ref_f = tfa.flash_forward_reference(q, k, v)
+    linv, delta = tfa._backward_stats(ref_f[0], ref_f[1], do)
+    bwd = (q, k, v, do, ref_f[2], linv, delta)
+    got_b = (tfa.flash_dq(*bwd), *tfa.flash_dkv(*bwd))
+    ref_b = (tfa.flash_dq_reference(*bwd), *tfa.flash_dkv_reference(*bwd))
+    torch.cuda.synchronize()
+    assert _launches() == tuple(n + 1 for n in before)
+    f32 = dtype == torch.float32
+    for i, (g, r) in enumerate(zip(got_f, ref_f)):
+        tol = F32_TOL if f32 or i > 0 else BF16_KERNEL_TOL
         np.testing.assert_allclose(g.float().cpu().numpy(),
                                    r.float().cpu().numpy(), **tol)
     for g, r in zip(got_b, ref_b):
@@ -150,3 +193,22 @@ def test_cuda_wide_backward_long_sequence_f32(cuda_device, t):
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
                                    **GRAD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [2112, 2100])
+def test_cuda_wide_forward_long_sequence_f32(cuda_device, t):
+    """K1 at dh 256 in f32 over 33 k tiles (T 2112 whole, T 2100 with a
+    ragged tail): the longest online softmax of the wide forward (o, l and
+    m carried over every k tile, the scores summed per 64-column slice)
+    within the f32 ``1e-5`` of its plain version."""
+    shape = (1, 2, t, 256)
+    q, k, v = _inputs(t + 1, shape, cuda_device, torch.float32)
+    before = _launches()
+    got = tfa.flash_forward(q, k, v)
+    torch.cuda.synchronize()
+    assert _launches() == (before[0] + 1, before[1], before[2])
+    ref = tfa.flash_forward_reference(q, k, v)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                   **F32_TOL)

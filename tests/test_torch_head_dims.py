@@ -83,12 +83,13 @@ def _arrays(seed, shape, n):
 # -- flash K1-K3 --------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dh", [160, 256])
+@pytest.mark.parametrize("dh", [160, 196, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_matches_jax_at_wide_head_dims(dtype, dh):
     """K1's ``(o, l, m)`` and the gradients of ``sum(o * w)`` through K2 and
     K3, at ``[1, 2, 64, dh]``: the JAX kernels pad dh to 256, the port's
-    card kernels run their wide tilings (the plain versions here)."""
+    card kernels run their wide tilings (the plain versions here); dh 196
+    is not a multiple of 8, which the card kernels take by plain copies."""
     q, k, v, w = _arrays(dh + len(dtype), (1, 2, 64, dh), 4)
     jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
     jq, jk, jv = (jnp.asarray(a).astype(jdt) for a in (q, k, v))
@@ -124,29 +125,29 @@ def test_flash_matches_jax_at_wide_head_dims(dtype, dh):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_launch_specs_at_wide_head_dims_lint_clean(dtype, dh):
     """Past dh 128 each launch spec declares the wide kernels' tiling:
-    grid ``(B*H, ceil(T/64))`` and the loop (chunks, tiles, slices). K1:
-    slices of 256 bytes a row, chunks of 128 columns. K2 and K3: up to dh
-    256 one chunk of dh, the own rows one kept ``(1, 64, dh)`` block, the
-    contraction whole (bf16) or in 64-column slices (f32); past 256
-    chunks of 256, the contraction in slices of 128 (bf16) or 64 (f32).
-    The linter proves every window in bounds and every output block
-    written by one cell."""
+    grid ``(B*H, ceil(T/rows))`` and the loop (chunks, 64-row tiles,
+    slices). K1 owns 128 q rows a cell, K2 and K3 64. All three: up to dh
+    256 one chunk of dh, the own rows one kept ``(1, rows, dh)`` block,
+    the contraction whole (bf16) or in 64-column slices (f32); past 256
+    chunks of 256, the own rows streamed beside the other side's in
+    slices of 128 (bf16) or 64 (f32). The linter proves every window in
+    bounds and every output block written by one cell."""
     q = torch.empty((2, 16, 2048, dh), dtype=dtype, device="meta")
     f32 = dtype == torch.float32
     for name in ("flash_forward", "flash_dq", "flash_dkv"):
         spec = tfa.launch_spec(name, q)
-        if name == "flash_forward":
-            ds, dc = 256 // dtype.itemsize, 128
-        elif dh <= 256:
+        if dh <= 256:
             ds, dc = (64 if f32 else dh), dh
         else:
             ds, dc = (64 if f32 else 128), 256
+        rows = 128 if name == "flash_forward" else 64
         assert tfa.wide_tiling(name, dh, dtype) == (ds, dc)
-        assert spec.grid == (32, 32)
+        assert spec.grid == (32, 2048 // rows)
         assert spec.loop == (-(-dh // dc), 32, -(-dh // ds))
         own = "q" if name != "flash_dkv" else "k"
-        resident = name != "flash_forward" and dh <= 256
-        assert spec.operand(own).block == (1, 64, dh if resident else ds)
+        assert spec.operand(own).block == (1, rows, dh if dh <= 256 else ds)
+        out = "o" if name == "flash_forward" else "dq" if own == "q" else "dk"
+        assert spec.operand(out).block == (1, rows, dc)
         assert kernels.lint(spec) == [], name
 
 
@@ -156,6 +157,12 @@ def test_flash_launch_spec_keeps_whole_rows_up_to_128():
     assert spec.loop == (4,) and spec.operand("q").block == (1, 64, 128)
     assert tfa.wide_tiling("flash_forward", 128, torch.bfloat16) is None
     assert tfa.wide_tiling("flash_dkv", 129, torch.float32) == (64, 129)
+    # the wide K1 tiles as K2 and K3: 128 q rows a cell, q kept whole up to
+    # dh 256, chunks of 256 past it
+    assert tfa.wide_tiling("flash_forward", 129, torch.bfloat16) == (129, 129)
+    assert tfa.wide_tiling("flash_forward", 256, torch.float32) == (64, 256)
+    assert tfa.wide_tiling("flash_forward", 512, torch.bfloat16) == (128, 256)
+    assert tfa.WIDE_FORWARD_ROWS == 2 * tfa.TILE == 128
 
 
 # -- paged K4 -----------------------------------------------------------------
