@@ -13,9 +13,9 @@ or without the port beside it. Phases, each fatal on failure:
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions, and
    the build of every kernel from the checkout's sources (one ``nvcc`` per
    source, started together, into the git-ignored ``_build/`` directory),
-   with ptxas's registers and spills per kernel (a spill in K4, in K1
-   or the f32 K2 or K3 at a head dim up to 64, or in the bf16 wide K1, K2
-   or K3 fails), and the count of tensor-core instructions (``HMMA``, and
+   with ptxas's registers and spills per kernel (a spill in K4, either
+   design, in K1 or the f32 K2 or K3 at a head dim up to 64, or in the
+   bf16 wide K1, K2 or K3 fails), and the count of tensor-core instructions (``HMMA``, and
    ``HGMMA`` for wgmma) in each kernel's SASS (``cuobjdump``): all 12 bf16
    and all 12 f32 (split-TF32) K1-K3 instantiations and the 8 wide ones
    (head dims past 128, both dtypes; K1 one up to dh 256 and one past it)
@@ -26,9 +26,11 @@ or without the port beside it. Phases, each fatal on failure:
    255), for every cache dtype and K = 1 and 4, within rtol = atol =
    1e-5 (both read the same stored bytes); a narrow pool's answer also
    within ``tests/tolerances.py::attn_tol`` of the unquantised f32
-   pool's; then K4's edge cases (``K4_EDGES``: head dims 40, 128, 256,
-   320 and 512 (past 256: chunks of 256 output columns, f32 and int8),
-   phase 8's head dims 16 (blocks of 8) and 32, blocks of 8 and 32, a table longer than the warp count, K = 4 and 8, a
+   pool's; then K4's edge cases (``K4_EDGES``: head dims 40 and 128, and
+   past 128 (the wide kernel: P blocks a slot, slabs through shared
+   memory) 160, 196, 256, 320 and 512, f32, bf16 and int8,
+   phase 8's head dims 16 (blocks of 8) and 32, blocks of 8 and 32, a
+   table longer than the warp count, K = 4 and 8, a
    slot at position 0 beside a trash-routed one, a non-contiguous and a
    misaligned pool view) against the plain version; then K4 with more
    queries per slot than one block takes (K = 9, 12 and 16: two query
@@ -39,8 +41,13 @@ or without the port beside it. Phases, each fatal on failure:
    flushed before each call, the flushes' own time subtracted; median of 5
    runs) beside its plain version and its bound, and K4 must beat its
    plain version at the f32 K = 1 case; so are the speculative verify's
-   cases (f32, 4 slots, K = 4 and K = 16) and the decode tick's at head
-   dims 256 and 512 (``K4_HEAD_DIMS``, f32 and int8);
+   cases (f32, 4 slots, K = 4 and K = 16), the decode tick's at head
+   dims 256 and 512 (``K4_HEAD_DIMS``, f32 and int8, beside their times
+   in K4's first design past 128, ``WIDE_K4_FIRST_MS``) and at a long
+   context (``K4_LONG``: 1 and 8 slots x 16 heads x dh 256 at position
+   2047 in f32, 8 in bf16, 8 x 8 heads x dh 512 in int8; each pool built
+   on the card, held against the plain version, beside the first
+   design's times ``K4_LONG_FIRST_MS``);
    then the flash kernels K1 (forward), K2 (dq) and K3 (dk/dv) against
    their plain versions, f32 and bf16, at the training shape (16, 8, 256,
    64), at a ragged T = 200 and at the tiny row's (32, 4, 64, 32), and in
@@ -451,7 +458,8 @@ or without the port beside it. Phases, each fatal on failure:
    ``make_decoder`` greedy in f32, 8 tokens from a 64-token prompt, K1
    once per layer per token, the tokens equal to the dense decoder's; (c)
    ``InferenceEngine(attn_kernel="fused")`` serving 4 greedy requests
-   (prompts 16-64, 8 new tokens) through K4 at head dim 256, K4 launched
+   (prompts 16-64, 8 new tokens) through K4 at head dim 256 (the wide
+   kernel, the ``kernels`` line's ``paged_attention_wide``), K4 launched
    ``n_layers`` times per decode call, every stream equal to solo decode
    (``make_cached_decoder``). Its launches go into the ``kernels`` line.
 
@@ -575,6 +583,11 @@ K4_EDGES = [("float32", 1, dict(dh=40)), ("float32", 1, dict(dh=128)),
             # phase 8's shapes: the scenario model (dh 16, blocks of 8)
             # and the CLI's default GPTConfig (dh 32, blocks of 16)
             ("float32", 1, dict(dh=16, bs=8)), ("float32", 1, dict(dh=32)),
+            # past 128: the wide kernel (P blocks a slot, slabs through
+            # shared memory), at 160 and 196 (rows of 392 f32 bytes: too
+            # narrow for 16-byte copies in bf16) too
+            ("float32", 1, dict(dh=160)), ("bfloat16", 4, dict(dh=196)),
+            ("int8", 9, dict(dh=160)), ("float32", 1, dict(dh=196, bs=8)),
             ("float32", 1, dict(dh=256)), ("bfloat16", 1, dict(dh=256)),
             ("int8", 1, dict(dh=40)),
             ("float32", 1, dict(bs=8)),     # 32 blocks: past the warp count
@@ -583,7 +596,6 @@ K4_EDGES = [("float32", 1, dict(dh=40)), ("float32", 1, dict(dh=128)),
             ("float8_e4m3fn", 4, dict(dh=40, bs=32)),
             ("float32", 1, dict(layout="block-major")),
             ("bfloat16", 4, dict(layout="misaligned")),
-            # past 256 columns: chunks of 256, a block each
             ("float32", 1, dict(dh=320)), ("int8", 1, dict(dh=320)),
             ("float32", 4, dict(dh=512)), ("int8", 8, dict(dh=512))]
 SERVE_CFG = dict(vocab=8192, seq_len=256, d_model=512, n_heads=8, n_layers=4)
@@ -615,8 +627,26 @@ SERVE_SIM = dict(n_requests=24, rate=32.0, seed=0, prompt_lens=(8, 16, 32),
 # and the speculative verify's timed cases (f32, 4 slots); phase 3b's
 # drives: JAX bench.py's SPEC_BENCH_K = 4 on 4 slots, and spec_k 12
 K4_MULTI_GROUP = (9, 12, 16)
-# K4 timed at phase 23's head dim and past the 256 columns a block makes
+# K4 timed at phase 23's head dim and past it (f32 and int8, 8 slots)
 K4_HEAD_DIMS = (("float32", 256), ("float32", 512), ("int8", 512))
+# their device ms in K4's first design past dh 128 (dh 256 on the
+# register-resident kernel with two f32 loads a lane, dh 512 in output
+# chunks of 256 columns; this script's phase 2 on an NVIDIA H100 80GB HBM3
+# at 700 W, PERF.md), printed beside this run's
+WIDE_K4_FIRST_MS = {("float32", 256): 0.0240, ("float32", 512): 0.0356,
+                    ("int8", 512): 0.0297}
+# K4 at a long context: (storage dtype, slots, heads, dh), every slot at
+# position 2047 (GPT-J-6B's 2048 positions), blocks of 16, K = 1; one
+# layer's pool built on the card from a seeded CUDA generator
+K4_LONG = (("float32", 1, 16, 256), ("float32", 8, 16, 256),
+           ("bfloat16", 8, 16, 256), ("int8", 8, 8, 512))
+K4_LONG_POS = 2047
+# their device ms on that first design, this script's cases timed on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md), printed beside this run's
+K4_LONG_FIRST_MS = {("float32", 1, 16, 256): 0.1491,
+                    ("float32", 8, 16, 256): 0.2030,
+                    ("bfloat16", 8, 16, 256): 0.1513,
+                    ("int8", 8, 8, 512): 0.2044}
 SPEC_SLOTS, SPEC_K, SPEC_K_WIDE = 4, 4, 12
 SPEC_WORKLOAD = dict(n_requests=24, prompt_lens=(8, 16, 32), max_new=24)
 # phase 7, the reference's main path: bench.py::_configs's mlp2 and mlp4
@@ -1062,11 +1092,12 @@ def ptxas_report(log: str) -> dict[str, dict]:
 
 
 def _no_spill_required(name: str) -> bool:
-    """K4 everywhere; K1 (bf16 and f32) and the f32 K2 and K3 at head dims
-    padded to 16, 32 or 64; the bf16 wide K1, K2 and K3 (wgmma, whose
-    accumulators must stay in registers)."""
+    """K4 everywhere (both designs); K1 (bf16 and f32) and the f32 K2 and
+    K3 at head dims padded to 16, 32 or 64; the bf16 wide K1, K2 and K3
+    (wgmma, whose accumulators must stay in registers)."""
     import re
-    if "paged_attn_kernel" in name or "_kernel_wide_wgmma" in name:
+    if ("paged_attn_kernel" in name or "paged_attn_wide_kernel" in name
+            or "_kernel_wide_wgmma" in name):
         return True
     m = re.search(r"flash_(?:fwd_kernel_(?:bf16_mma|tf32)"
                   r"|(?:dq|dkv)_kernel_tf32)(?:<(?:\(int\))?|ILi)(\d+)", name)
@@ -1132,10 +1163,10 @@ def phase_build(record: dict) -> None:
     held = [n for n in ptxas if _no_spill_required(n)]
     # a fresh build reports the 12 K1-K3 variants at dh <= 64 (bf16 K1,
     # f32 K1, f32 K2 and f32 K3, each 16 / 32 / 64), the bf16 wide K1 (up
-    # to dh 256 and past it), K2 and K3 and K4's 33 (5 storage types x K up
-    # to 1, 4, 8, f32 at 128 < dh <= 256, and the 15 of the chunks past 256)
-    check(not ptxas or len(held) == 12 + 4 + 33,
-          f"ptxas reported {len(held)} K1-K3/K4 kernels, not 49: {held}")
+    # to dh 256 and past it), K2 and K3 and K4's 30 (5 storage types x K up
+    # to 1, 4, 8, in each design: up to dh 128 and past it)
+    check(not ptxas or len(held) == 12 + 4 + 30,
+          f"ptxas reported {len(held)} K1-K3/K4 kernels, not 46: {held}")
     spills = [n for n in held if ptxas[n].get("spill_stores", 0)
               or ptxas[n].get("spill_loads", 0)]
     check(not spills, f"K4, K1, the f32 K2 or K3 at dh <= 64 or the bf16 "
@@ -1152,7 +1183,8 @@ def phase_build(record: dict) -> None:
               f"{hgmma.get(name, 0):4d})  {name}")
 
     def tensor_core(name):
-        return "_bf16_mma" in name or "_tf32" in name or "_wide" in name
+        return ("_bf16_mma" in name or "_tf32" in name
+                or "_wide" in name) and "paged_attn" not in name
 
     mma = {n: c for n, c in hmma.items() if tensor_core(n)}
     # the bf16 and the f32 (HMMA.1688.F32.TF32) K1, K2 and K3, each at head
@@ -1296,6 +1328,82 @@ def _bound(case: dict) -> tuple[float, str]:
                                        else "operations")
 
 
+def _long_case(name: str, S: int, H: int, dh: int, dev, seed: int) -> dict:
+    """One layer's pool for ``S`` slots at position ``K4_LONG_POS``, each
+    slot's table a random run of distinct blocks (block 0 the trash), all
+    made on the card from a seeded CUDA generator."""
+    import torch
+    from simple_distributed_machine_learning_tpu_torch.models.gpt import (
+        _quantize_rows,
+    )
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bs = SERVE_BLOCK
+    NB = (K4_LONG_POS + 1) // bs
+    nblk = S * NB + 1
+    kc = torch.randn((nblk, H, bs, dh), generator=gen, device=dev)
+    vc = torch.randn((nblk, H, bs, dh), generator=gen, device=dev)
+    if name in ("int8", "float8_e4m3fn", "float8_e5m2"):
+        (kd, ks), (vd, vs) = _quantize_rows(kc, name), _quantize_rows(vc, name)
+    else:
+        kd, vd = kc.to(getattr(torch, name)), vc.to(getattr(torch, name))
+        ks = vs = None
+    del kc, vc
+    perm = torch.randperm(nblk - 1, generator=gen, device=dev) + 1
+    return dict(q=torch.randn((S, H, 1, dh), generator=gen, device=dev),
+                kc=kd, vc=vd, kscale=ks, vscale=vs, bs=bs,
+                tables=perm.view(S, NB).to(torch.int32).contiguous(),
+                qpos=torch.full((S, 1), K4_LONG_POS, dtype=torch.int32,
+                                device=dev))
+
+
+def _k4_long(flush) -> list[dict]:
+    """``K4_LONG``'s cases: each against its plain version
+    (``SAME_BYTES_TOL``), then timed as the serving cases, beside its
+    bound and its time in K4's first design past dh 128
+    (``K4_LONG_FIRST_MS``)."""
+    import torch
+    from simple_distributed_machine_learning_tpu_torch.ops.paged_attention import (  # noqa: E501
+        paged_attention,
+        paged_attention_reference,
+    )
+    rows = []
+    for i, (name, S, H, dh) in enumerate(K4_LONG):
+        c = _long_case(name, S, H, dh, torch.device("cuda"), 28 + i)
+        args = (c["q"], c["kc"], c["vc"], c["tables"], c["qpos"])
+        kw = dict(block_size=c["bs"], kscale=c["kscale"], vscale=c["vscale"])
+        out = paged_attention(*args, **kw)
+        ref = paged_attention_reference(*args, **kw)
+        err = (out - ref).abs()
+        rtol, atol = SAME_BYTES_TOL
+        ok = bool(torch.isfinite(out).all()) and bool(
+            (err <= atol + rtol * ref.abs()).all())
+        del out, ref
+        v = dict(dtype=name, slots=S, heads=H, dh=dh, K=1, pos=K4_LONG_POS,
+                 bs=c["bs"], max_abs_err=float(err.max()), rtol=rtol,
+                 atol=atol)
+        del err
+        v["bound_ms"], v["bound_by"] = _bound(c)
+        v["ms"] = time_ms(lambda: paged_attention(*args, **kw), flush)
+        v["plain_ms"] = time_ms(
+            lambda: paged_attention_reference(*args, **kw), flush, n=10,
+            reps=3)
+        first = K4_LONG_FIRST_MS.get((name, S, H, dh))
+        v["first_ms"] = first
+        rows.append(v)
+        was = f"; first design {first:.4f} ms" if first else ""
+        print(f"chip_smoke: paged_attention long {name} {S} slots x {H} "
+              f"heads x dh {dh} at position {K4_LONG_POS}: vs plain max abs "
+              f"{v['max_abs_err']:.3e} {'ok' if ok else 'FAIL'}; kernel "
+              f"{v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, bound "
+              f"{v['bound_ms']:.4f} ms ({v['bound_by']}): "
+              f"{v['ms'] / v['bound_ms']:.2f}x the bound{was}")
+        check(ok, f"paged_attention long case {name} S={S} H={H} dh={dh} "
+                  f"disagrees with its plain version: {v}")
+        del c, args, kw
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_kernels(record: dict) -> dict:
     import torch
     from simple_distributed_machine_learning_tpu_torch.ops.paged_attention import (  # noqa: E501
@@ -1406,8 +1514,8 @@ def phase_kernels(record: dict) -> dict:
               f"({v['bound_by']}): {v['ms'] / v['bound_ms']:.1f}x the bound")
         check(ok and wide_ok, f"paged_attention spec verify K={K} "
                               f"disagrees: {v}")
-    # the decode tick at phase 23's head dim (256, the PR 4 path) and past
-    # it (512: chunks of 256 columns), f32 and int8, 8 slots, K = 1
+    # the decode tick at phase 23's head dim (256) and past it (512), f32
+    # and int8, 8 slots, K = 1: the wide kernel, beside its first design
     head_dims = []
     for name, dh in K4_HEAD_DIMS:
         c = _pool_case(name, 1, gen, dev, dh=dh)
@@ -1418,15 +1526,18 @@ def phase_kernels(record: dict) -> dict:
         v["ms"] = time_ms(lambda: paged_attention(*args, **kw), flush)
         v["plain_ms"] = time_ms(
             lambda: paged_attention_reference(*args, **kw), flush)
+        v["first_ms"] = WIDE_K4_FIRST_MS[(name, dh)]
         head_dims.append(v)
         print(f"chip_smoke: paged_attention {name} K=1 dh={dh}: vs plain max "
               f"abs {v['max_abs_err']:.3e} {'ok' if ok else 'FAIL'}; kernel "
               f"{v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, bound "
               f"{v['bound_ms']:.4f} ms ({v['bound_by']}): "
-              f"{v['ms'] / v['bound_ms']:.1f}x the bound")
+              f"{v['ms'] / v['bound_ms']:.1f}x the bound; first design "
+              f"{v['first_ms']:.4f} ms")
         check(ok and wide_ok, f"paged_attention {name} dh={dh} disagrees: "
                               f"{v}")
     record["kernel_head_dims"] = head_dims
+    record["kernel_long"] = _k4_long(flush)
     print("chip_smoke: paged_attention library_ms: none — no single "
           "PyTorch call computes block-table-gathered attention "
           "(scaled_dot_product_attention needs the rows gathered first)")
@@ -1434,7 +1545,8 @@ def phase_kernels(record: dict) -> dict:
     record["kernel_edges"] = edges
     record["kernel_multi_group"] = multi
     record["kernel_spec_verify"] = spec_timed
-    return variants + edges + multi + spec_timed + head_dims
+    return variants + edges + multi + spec_timed + head_dims + record[
+        "kernel_long"]
 
 
 def _flash_work(name: str, shape, dtype) -> tuple[int, int]:
@@ -8520,7 +8632,8 @@ def lane_main(out_path: str) -> int:
              + gptj_flash[i] for i in range(3)]
     with open(out_path, "w") as f:
         json.dump({"record": record, "flash": flash,
-                   "k4": cli_k4 + gptj_k4, "seconds": secs}, f)
+                   "k4": cli_k4 + gptj_k4, "k4_wide": gptj_k4,
+                   "seconds": secs}, f)
     return 0
 
 
@@ -8686,13 +8799,15 @@ def main() -> int:
         # host-tier and adapter runs, phase 12's protocol drills, phase
         # 14's recorded ticks and drift traces, phase 19's
         # tensor-parallel serving (tp x n_layers per decode call),
-        # phase 20's linted engines and CLI gate run, and phase 21 (a)'s
-        # two processes (tp / W x n_layers per decode call in each)
+        # phase 20's linted engines and CLI gate run, phase 21 (a)'s two
+        # processes (tp / W x n_layers per decode call in each) and phase
+        # 19 (d)'s CLI run: every head dim up to 128
         "launches": (serve["launches"] + spec["launches"] + fault_launches
                      + fleet_launches + tier_launches + protocol_launches
                      + lint_launches + tp_serve_launches + laned["k4"]
-                     + lint_k4 + ranks_k4),
-        "max_abs_err": max(v["max_abs_err"] for v in variants),
+                     - laned["k4_wide"] + lint_k4 + ranks_k4),
+        "max_abs_err": max(v["max_abs_err"] for v in variants
+                           if v["dh"] <= 128),
         "ms": main_v["ms"],
         "plain_ms": main_v["plain_ms"],
         "bound_ms": main_v["bound_ms"],
@@ -8730,8 +8845,33 @@ def main() -> int:
             "bound_by": timed["bound_by"],
             "library_ms": timed["library_ms"],
         })
+    # K4 past head dim 128 (the same wrapper and entry point, its own
+    # kernel): phase 23 (c)'s GPT-J-width serving at dh 256; its times at
+    # phase 2's f32 dh 256 case
+    wide_v = next(v for v in record["kernel_head_dims"]
+                  if (v["dtype"], v["dh"]) == ("float32", 256))
+    kernels["kernels"].append({
+        "name": "paged_attention_wide",
+        "route": "cuda",
+        "source": f"{PORT}/ops/csrc/paged_attention.cu",
+        "replaces": "simple_distributed_machine_learning_tpu/ops/"
+                    "paged_attention.py:67",
+        "launches": laned["k4_wide"],
+        "max_abs_err": max(v["max_abs_err"] for v in variants
+                           if v["dh"] > 128),
+        "ms": wide_v["ms"],
+        "plain_ms": wide_v["plain_ms"],
+        "bound_ms": wide_v["bound_ms"],
+        "bound_by": wide_v["bound_by"],
+        "library_ms": None,
+    })
     kernels["kernels"].append(f1_row)
     record["kernels"] = kernels["kernels"]
+    idle = [k["name"] for k in kernels["kernels"] if k["launches"] <= 0]
+    if idle:
+        print(f"chip_smoke: FAILED: the main path never launched {idle}",
+              file=sys.stderr)
+        return 1
     record["seconds"] = round(time.perf_counter() - t_start, 3)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:

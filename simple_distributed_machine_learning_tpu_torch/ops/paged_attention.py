@@ -7,14 +7,17 @@ per slot) and the speculative verify step (``_paged_verify_fwd``,
 On a CUDA tensor it launches the hand-written Hopper kernel
 ``csrc/paged_attention.cu``, which replaces the Pallas TPU kernel
 ``_paged_attn_kernel``: per (slot, head, group of at most 8 queries —
-:func:`query_groups`) its warps split
-the slot's block table up to its newest query position, read each K/V row
-of those blocks once straight into registers (dequantising int8/fp8 rows
-with their per-row f32 scales there), fold the position-masked f32 scores
-into online softmaxes of their own, and merge them once at the end — no
-gathered copy and no score matrix ever reaches device memory. The tick is
-bound by those K/V bytes, and at serving sizes by how many of their loads
-are in flight; see the source's header for the design.
+:func:`query_groups`) it reads each K/V row up to the group's newest query
+position once, dequantising int8/fp8 rows with their per-row f32 scales,
+folds the position-masked f32 scores into online softmaxes, and merges
+them once at the end — no gathered copy and no score matrix ever reaches
+device memory. Two designs (the source's header has both): up to head dim
+128 (:data:`NARROW_HEAD_DIM`) one block's warps split the slot's table and
+hold the rows in registers; past it :func:`key_parts` blocks of a
+thread-block cluster split the slot's live blocks (:func:`part_blocks`),
+stream whole slabs through shared memory and merge through distributed
+shared memory. The tick is bound by those K/V bytes, and at serving sizes
+by how many of their loads are in flight.
 
 On a CPU tensor the wrapper computes :func:`paged_attention_reference`,
 the plain version (gather rows, mask, softmax, einsum in f32) — the CPU
@@ -67,9 +70,13 @@ _QUANTIZED = (torch.int8, torch.float8_e4m3fn, torch.float8_e5m2)
 #: queries one block of the kernel takes: each lane holds its output
 #: columns for every query of its block in registers
 QUERIES_PER_GROUP = 8
-#: output columns one block makes: a warp's 32 lanes hold 8 each, so a
-#: head dim past 256 is made in chunks of 256, one block each
-CHUNK_COLUMNS = 256
+#: head dims the register-resident kernel takes; past it the wide one
+NARROW_HEAD_DIM = 128
+#: blocks a wide launch splits each (slot, head, query group) over at most:
+#: one thread-block cluster, whose portable size is 8
+MAX_KEY_PARTS = 8
+#: blocks a wide launch aims to give one slot: about the card's 132 SMs
+_SLOT_BLOCKS = 128
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,18 +89,39 @@ def _library():
     fn = built.lib.sdml_paged_attention
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
-                      ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     built.lib.sdml_cuda_error_string.argtypes = [ctypes.c_int]
     built.lib.sdml_cuda_error_string.restype = ctypes.c_char_p
     return built
 
 
-def column_chunks(dh: int) -> int:
-    """Blocks per (slot, head, query group) for head dim ``dh``: 1 up to
-    ``CHUNK_COLUMNS``, else ``ceil(dh / 256)``; each reads the whole K
-    rows (for the scores) and its chunk's V columns."""
-    return 1 if dh <= CHUNK_COLUMNS else -(-int(dh) // CHUNK_COLUMNS)
+def key_parts(dh: int, H: int, NB: int) -> int:
+    """Blocks (one thread-block cluster) each (slot, head, query group)
+    splits its table over: 1 up to :data:`NARROW_HEAD_DIM`; past it the
+    least power of two up to :data:`MAX_KEY_PARTS` that gives a slot's
+    ``H`` heads about the card's SMs, halved until it divides the table
+    width ``NB`` (so the launch spec's static cut bills each block once).
+    Fixed by the launch's shapes alone: never by the slot count or the
+    slots' positions, so a slot's arithmetic is the same alone or in a
+    batch."""
+    if int(dh) <= NARROW_HEAD_DIM:
+        return 1
+    p = 1
+    while p < MAX_KEY_PARTS and int(H) * p < _SLOT_BLOCKS:
+        p *= 2
+    while int(NB) % p:
+        p //= 2
+    return p
+
+
+def part_blocks(n_kb: int, parts: int, p: int) -> tuple[int, int]:
+    """The logical blocks ``[lo, hi)`` part ``p`` of ``parts`` takes of a
+    slot's ``n_kb`` live ones (``min(last // bs + 1, NB)``, ``last`` the
+    group's newest position), as the wide kernel cuts them: consecutive,
+    in order, sizes within one of each other; empty where ``n_kb <
+    parts``."""
+    return n_kb * p // parts, n_kb * (p + 1) // parts
 
 
 def query_groups(K: int) -> int:
@@ -153,20 +181,24 @@ def paged_attention_reference(q, kc, vc, tables, qpos, *, block_size: int,
 def launch_spec(q, kc, vc, tables, qpos, *, block_size: int, kscale=None,
                 vscale=None):
     """The :class:`~..analysis.kernels.LaunchSpec` of one launch on these
-    arguments (only their shapes and dtypes are read). Grid (S, H,
-    ``query_groups(K)``), all parallel; inside each block a loop over the
-    slot's logical blocks ``kb`` in ``[0, NB-1]`` (arbitrary: the kernel
-    stops at the group's newest position, so this is the most it reads).
-    K/V blocks ``(1, 1, bs, dh)`` (and the scale planes' ``(1, 1, bs)``
-    of a quantised pool) at ``(tables[s, kb], h, 0, 0)``; queries and
-    output ``(1, 1, min(K, 8), dh)`` at ``(s, h, g, 0)``. The online
-    softmax state is f32. The tables carry no contract: the caller
-    declares one (``LaunchSpec.with_contracts``).
+    arguments (only their shapes and dtypes are read). Up to
+    :data:`NARROW_HEAD_DIM`: grid (S, H, ``query_groups(K)``), all
+    parallel; inside each block a loop over the slot's logical blocks
+    ``kb`` in ``[0, NB-1]`` (arbitrary: the kernel stops at the group's
+    newest position, so this is the most it reads). K/V blocks ``(1, 1,
+    bs, dh)`` (and the scale planes' ``(1, 1, bs)`` of a quantised pool)
+    at ``(tables[s, kb], h, 0, 0)``; queries and output ``(1, 1, min(K,
+    8), dh)`` at ``(s, h, g, 0)``. The online softmax state is f32. The
+    tables carry no contract: the caller declares one
+    (``LaunchSpec.with_contracts``).
 
-    Past 256 columns (:func:`column_chunks`) the grid is (S, H,
-    ``query_groups(K)``, chunks), the kernel's third axis running over
-    both (group-major): a block reads the K rows whole, V and writes out
-    ``(1, 1, ·, 256)`` at its chunk ``c``."""
+    Past it the grid gains the :func:`key_parts` axis ``p`` (S, H,
+    ``query_groups(K)``, P) and the loop runs ``NB // P`` blocks, part
+    ``p`` taking ``kb = p * NB // P + i``: the P parts cover the table
+    once, so each K/V block is billed once per query group (the kernel
+    cuts each slot's live blocks the same way, :func:`part_blocks`). Each
+    part reads the group's queries whole and writes output columns
+    ``(1, 1, ·, ceil(dh / P))`` at its ``p``: the cluster's merge."""
     from simple_distributed_machine_learning_tpu_torch.analysis.bounds import (  # noqa: E501
         spec,
     )
@@ -174,46 +206,49 @@ def launch_spec(q, kc, vc, tables, qpos, *, block_size: int, kscale=None,
     NB = tables.shape[1]
     bs = int(block_size)
     qg = min(K, QUERIES_PER_GROUP)
-    n_ch = column_chunks(dh)
-    cw = dh if n_ch == 1 else CHUNK_COLUMNS
-    # the maps take (s, h, g[, c], kb, tbl, qp): c only where dh is chunked
-    grid = (S, H, query_groups(K)) + ((n_ch,) if n_ch > 1 else ())
+    wide = dh > NARROW_HEAD_DIM
+    P = key_parts(dh, H, NB)
+    per = NB // P
+    cw = -(-dh // P)
+    # the maps take (s, h, g[, p], kb or i, tbl, qp): p only past 128
+    grid = (S, H, query_groups(K)) + ((P,) if wide else ())
 
     def at_query(s, h, g, *rest):
         return (s, h, g, 0)
 
     def at_out(s, h, g, *rest):
-        return (s, h, g, rest[0] if n_ch > 1 else 0)
+        return (s, h, g, rest[0] if wide else 0)
+
+    def logical(rest):
+        """The logical block a map's trailing axes (p, i or kb) name."""
+        return rest[0] * per + rest[1] if wide else rest[0]
 
     def at_block(s, h, g, *rest):
-        kb, tbl = rest[-3], rest[-2]
-        return (tbl[s, kb], h, 0, 0)
-
-    def at_vblock(s, h, g, *rest):
-        kb, tbl = rest[-3], rest[-2]
-        return (tbl[s, kb], h, 0, rest[0] if n_ch > 1 else 0)
+        tbl = rest[-2]
+        return (tbl[s, logical(rest)], h, 0, 0)
 
     def at_scale(s, h, g, *rest):
-        kb, tbl = rest[-3], rest[-2]
-        return (tbl[s, kb], h, 0)
+        tbl = rest[-2]
+        return (tbl[s, logical(rest)], h, 0)
 
     ops = [_kernels.Operand("q", tuple(q.shape), (1, 1, qg, dh), q.dtype,
                             at_query),
            _kernels.Operand("k", tuple(kc.shape), (1, 1, bs, dh), kc.dtype,
                             at_block),
-           _kernels.Operand("v", tuple(vc.shape), (1, 1, bs, cw), vc.dtype,
-                            at_vblock)]
+           _kernels.Operand("v", tuple(vc.shape), (1, 1, bs, dh), vc.dtype,
+                            at_block)]
     if kscale is not None:
         ops += [_kernels.Operand(name, tuple(t.shape), (1, 1, bs), t.dtype,
                                  at_scale)
                 for name, t in (("kscale", kscale), ("vscale", vscale))]
-    ops.append(_kernels.Operand("out", (S, H, K, dh), (1, 1, qg, cw),
+    ops.append(_kernels.Operand("out", (S, H, K, dh),
+                                (1, 1, qg, cw if wide else dh),
                                 torch.float32, at_out, output=True))
     return _kernels.LaunchSpec(
         kernel="paged_attention",
         where=f"{__name__}.paged_attention "
               f"(ops/csrc/paged_attention.cu)",
-        grid=grid, loop=(NB,), operands=tuple(ops),
+        grid=grid, loop=(per if wide else NB,), operands=tuple(ops),
         tables=(("tables", spec((S, NB), tables.dtype)),
                 ("qpos", spec((S, K), qpos.dtype))),
         scratch=(torch.float32,))
@@ -343,7 +378,7 @@ def _launch(q, kc, vc, tables, qpos, bs, kscale, vscale) -> torch.Tensor:
         vscale.data_ptr() if quant else None,
         tables.data_ptr(), qpos.data_ptr(), out.data_ptr(),
         S, H, K, dh, bs, tables.shape[1], strides,
-        _KERNEL_DTYPES[kc.dtype], stream)
+        _KERNEL_DTYPES[kc.dtype], key_parts(dh, H, tables.shape[1]), stream)
     if rc != 0:
         msg = built.lib.sdml_cuda_error_string(rc).decode()
         raise RuntimeError(f"paged_attention kernel launch failed: {msg} "

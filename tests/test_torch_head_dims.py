@@ -59,8 +59,10 @@ from simple_distributed_machine_learning_tpu_torch.ops import (
     flash_attention as tfa,
 )
 from simple_distributed_machine_learning_tpu_torch.ops.paged_attention import (
-    column_chunks,
+    MAX_KEY_PARTS,
+    key_parts,
     paged_attention,
+    part_blocks,
 )
 from simple_distributed_machine_learning_tpu_torch.ops.paged_attention import (
     launch_spec as paged_launch_spec,
@@ -168,13 +170,20 @@ def test_flash_launch_spec_keeps_whole_rows_up_to_128():
 # -- paged K4 -----------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name,K", [("float32", 1), ("int8", 1),
-                                    ("float32", 9)])
-def test_paged_plain_version_matches_jax_at_dh_320(name, K):
-    """K4's plain version against the JAX kernel at head dim 320, past the
-    256 columns one block of the card's kernel makes."""
-    S, H, dh, bs, NB = 3, 2, 320, 4, 6
-    rng = np.random.default_rng(320 + K)
+_PLAIN_WIDE = ([("float32", 1, 320), ("int8", 1, 320), ("float32", 9, 320)]
+               + [(name, K, dh) for dh in (160, 512)
+                  for name in ("float32", "int8") for K in (1, 9)])
+
+
+@pytest.mark.parametrize(
+    "name,K,dh", _PLAIN_WIDE,
+    ids=[f"{n}-{k}" + ("" if d == 320 else f"-dh{d}") for n, k, d in _PLAIN_WIDE])
+def test_paged_plain_version_matches_jax_at_dh_320(name, K, dh):
+    """K4's plain version against the JAX kernel past head dim 128, where
+    the card runs the wide kernel: dh 320, and 160 and 512 in f32 and int8
+    with one query group and two."""
+    S, H, bs, NB = 3, 2, 4, 6
+    rng = np.random.default_rng(dh + K)
     q = rng.standard_normal((S, H, K, dh)).astype(np.float32)
     kc = rng.standard_normal((12, H, bs, dh)).astype(np.float32)
     vc = rng.standard_normal((12, H, bs, dh)).astype(np.float32)
@@ -203,27 +212,85 @@ def test_paged_plain_version_matches_jax_at_dh_320(name, K):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **F32_TOL)
 
 
-@pytest.mark.parametrize("dh", [256, 320, 512])
-def test_paged_launch_spec_chunks_past_256_lint_clean(dh):
-    """Past 256 columns the spec's grid gains the chunk axis (S, H, query
-    groups, chunks); V and the output are read and written a 256-column
-    chunk at a time, K whole. Lint-clean under the declared table
-    contract."""
-    S, H, K, bs, NB = 4, 2, 9, 16, 8
+def _meta_spec(dh, S=4, H=2, K=9, bs=16, NB=8):
+    """K4's launch spec on ``meta`` tensors (an int8 pool with its scale
+    planes), under the table contract ``[0, S * NB]``."""
     q = torch.empty((S, H, K, dh), device="meta")
     kc = torch.empty((S * NB + 1, H, bs, dh), dtype=torch.int8,
                      device="meta")
     sc = torch.empty((S * NB + 1, H, bs), device="meta")
     tables = torch.empty((S, NB), dtype=torch.int32, device="meta")
     qpos = torch.empty((S, K), dtype=torch.int32, device="meta")
-    spec = paged_launch_spec(q, kc, kc, tables, qpos, block_size=bs,
+    return paged_launch_spec(q, kc, kc, tables, qpos, block_size=bs,
                              kscale=sc, vscale=sc).with_contracts(
                                  tables=(0, S * NB))
-    n_ch = column_chunks(dh)
-    assert n_ch == (1 if dh <= 256 else -(-dh // 256))
-    assert spec.grid == (S, H, 2) + ((n_ch,) if n_ch > 1 else ())
-    assert spec.operand("v").block[-1] == min(dh, 256)
+
+
+@pytest.mark.parametrize("dh", [160, 256, 320, 512, 576])
+def test_paged_launch_spec_chunks_past_256_lint_clean(dh):
+    """Past head dim 128 the spec's grid gains the key-parts axis (S, H,
+    query groups, P) and the loop runs NB / P blocks, part p taking
+    logical blocks p NB / P + i; K and V are read whole, each part writes
+    its ceil(dh / P) output columns. Lint-clean under the declared table
+    contract."""
+    S, H, K, bs, NB = 4, 2, 9, 16, 8
+    spec = _meta_spec(dh, S, H, K, bs, NB)
+    P = key_parts(dh, H, NB)
+    assert P == MAX_KEY_PARTS == 8
+    assert spec.grid == (S, H, 2, P)
+    assert spec.loop == (NB // P,)
+    assert spec.operand("k").block == spec.operand("v").block == (1, 1, bs,
+                                                                  dh)
+    assert spec.operand("out").block == (1, 1, 8, -(-dh // P))
+    tbl = np.arange(S * NB).reshape(S, NB)
+    # part p, step i reads logical block p NB / P + i: each block once
+    seen = [kernels.concrete(spec, "k", 3, 1, 0, p, i, tables=(tbl, None))[0]
+            for p in range(P) for i in range(NB // P)]
+    assert seen == list(tbl[3])
     assert kernels.lint(spec) == []
+
+
+@pytest.mark.parametrize("dh", [320, 512])
+def test_paged_hbm_costs_bill_each_kv_row_once_past_256(dh):
+    """``kernel_hbm_costs`` bills each K/V row (and its scales) once per
+    query group past head dim 256, as the wide kernel reads it: no longer
+    once per 256-column chunk."""
+    S, H, K, bs, NB = 4, 2, 9, 16, 8
+    groups = 2
+    rows = S * groups * NB * H * bs
+    costs = {c.op: c.bytes_per_tick
+             for c in kernels.kernel_hbm_costs([_meta_spec(dh)])}
+    assert costs["kernel.kv_stream"] == 2 * rows * dh + 2 * rows * 4
+
+
+@pytest.mark.parametrize("NB,H,P", [(128, 16, 8), (16, 8, 8), (8, 2, 8),
+                                    (6, 2, 2), (12, 2, 4), (5, 2, 1),
+                                    (128, 32, 4), (128, 128, 1)])
+def test_paged_key_split_covers_each_slot_once(NB, H, P):
+    """The wide kernel's split: ``key_parts`` from the head count and the
+    table width alone, and ``part_blocks`` cutting each slot's live blocks
+    ``[0, n_kb)`` into consecutive parts that cover them once, in order,
+    whatever the batch around the slot — position 0 (one live block), a
+    trash-routed slot (table entries 0, one live block) and a full table
+    included."""
+    assert key_parts(256, H, NB) == P
+    assert key_parts(128, H, NB) == 1              # the narrow kernel
+    bs = 16
+    for last in (0, 1, bs - 1, bs, 5 * bs + 3, NB * bs - 1):
+        n_kb = min(last // bs + 1, NB)
+        cuts = [part_blocks(n_kb, P, p) for p in range(P)]
+        assert cuts[0][0] == 0 and cuts[-1][1] == n_kb
+        assert all(a[1] == b[0] for a, b in zip(cuts, cuts[1:]))
+        assert all(0 <= hi - lo <= -(-n_kb // P) for lo, hi in cuts)
+    # a slot's cut is its own, alone or among 8 slots at other positions
+    lasts = [NB * bs - 1, 0, 0, 37, bs, 5 * bs + 3, 2, NB * bs // 2]
+
+    def cut(last):
+        n_kb = min(last // bs + 1, NB)
+        return [part_blocks(n_kb, key_parts(256, H, NB), p) for p in range(P)]
+    batch = [cut(last) for last in lasts]
+    assert batch == [cut(last) for last in lasts[::-1]][::-1]
+    assert all(batch[i] == cut(lasts[i]) for i in range(len(lasts)))
 
 
 # -- a GPT at head dim 256 -------------------------------------------------

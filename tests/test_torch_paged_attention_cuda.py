@@ -45,12 +45,31 @@ _CASES = ([(name, K, {}) for name in DTYPES for K in (1, 4)]
              ("float32", 16, {}), ("int8", 16, dict(dh=128)),
              ("float8_e5m2", 16, dict(bs=8, NB=12)),
              ("float32", 16, dict(layout="misaligned"))]
-          # head dims past 256: output chunks of 256 columns, a block each,
+          # head dims past 256 (the wide kernel since dh 129),
           # f32 and int8, one query group and two; one misaligned view
           + [(name, K, dict(dh=dh)) for name in ("float32", "int8")
              for dh in (320, 512) for K in (1, 9)]
           + [("bfloat16", 4, dict(dh=320)),
              ("float32", 1, dict(dh=321, layout="misaligned"))])
+# past head dim 128 the wide kernel (key_parts blocks a slot, whole slabs
+# through shared memory): every storage dtype at every wide head dim (129
+# and 196 too narrow a row for 16-byte copies in some dtypes), K = 1, 4, 9
+# and 16, blocks of 8, 16 and 32 and tables of 5, 6, 12 and 40 blocks (1,
+# 2, 4 and 8 parts), and block-major and misaligned views
+WIDE_DIMS = (129, 160, 196, 256, 320, 512, 576)
+_WIDE_CASES = ([(name, 1, dict(dh=dh)) for name in DTYPES for dh in WIDE_DIMS]
+               + [(name, K, dict(dh=dh))
+                  for dh in WIDE_DIMS for K in (4, 9, 16)
+                  for name in ("float32", DTYPES[(dh + K) % 4 + 1])]
+               + [(name, K, dict(dh=dh, bs=bs, NB=NB))
+                  for name, K in (("float32", 1), ("int8", 9))
+                  for dh in (160, 256, 512)
+                  for bs, NB in ((8, 40), (16, 12), (32, 5))]
+               + [(name, K, dict(dh=dh, layout=layout))
+                  for layout in ("block-major", "misaligned")
+                  for name, K in (("float32", 1), ("bfloat16", 4),
+                                  ("float8_e5m2", 9))
+                  for dh in (129, 256, 576)])
 
 
 def _toy_pool(seed, K, dh=16, bs=BS, NB=6, layout="layer"):
@@ -108,13 +127,12 @@ def _case_id(case):
     return "-".join([name, f"K{K}"] + [f"{k}{v}" for k, v in opts.items()])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name,K,opts", _CASES, ids=map(_case_id, _CASES))
-def test_cuda_kernel_matches_plain_version(cuda_device, name, K, opts):
+def _against_plain(dev, name, K, opts, seed=11):
+    """The kernel on ``_toy_pool``'s case against the plain version, one
+    launch counted."""
     layout = opts.get("layout", "layer")
-    q, kc, vc, tables, qpos = _toy_pool(11, K, **opts)
+    q, kc, vc, tables, qpos = _toy_pool(seed, K, **opts)
     (tk, tks), (tv, tvs) = _stored(name, kc), _stored(name, vc)
-    dev = cuda_device
     args = [torch.from_numpy(q).to(dev), _layer_view(tk.to(dev), layout),
             _layer_view(tv.to(dev), layout), torch.from_numpy(tables).to(dev),
             torch.from_numpy(qpos).to(dev)]
@@ -130,6 +148,66 @@ def test_cuda_kernel_matches_plain_version(cuda_device, name, K, opts):
                                     vscale=scales[1])
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
                                **SAME_BYTES_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,K,opts", _CASES, ids=map(_case_id, _CASES))
+def test_cuda_kernel_matches_plain_version(cuda_device, name, K, opts):
+    _against_plain(cuda_device, name, K, opts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,K,opts", _WIDE_CASES,
+                         ids=map(_case_id, _WIDE_CASES))
+def test_cuda_wide_kernel_matches_plain_version(cuda_device, name, K, opts):
+    _against_plain(cuda_device, name, K, opts, seed=29)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,K,dh", [("float32", 1, 256), ("int8", 1, 512),
+                                       ("bfloat16", 9, 576),
+                                       ("float32", 16, 160)])
+def test_cuda_wide_kernel_at_2048_positions(cuda_device, name, K, dh):
+    """A slot at position 2047 (128 blocks of 16, 8 parts) beside a slot at
+    position 0 and a trash-routed one."""
+    _against_plain(cuda_device, name, K, dict(dh=dh, bs=16, NB=128), seed=7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,K,dh", [("float32", 1, 256), ("int8", 9, 512),
+                                       ("float8_e4m3fn", 4, 160)])
+def test_cuda_wide_kernel_slot_alone_equals_slot_in_batch(cuda_device, name,
+                                                          K, dh):
+    """Each of 8 slots launched alone (S = 1) gives its rows of the batch's
+    launch (S = 8) bit for bit: the parts and the cut of a slot's blocks
+    never depend on the other slots."""
+    rng = np.random.default_rng(dh + K)
+    S, H, bs, NB, n = 8, 2, 16, 12, 8 * 12 + 1
+    q = rng.standard_normal((S, H, K, dh)).astype(np.float32)
+    kc, vc = (rng.standard_normal((n, H, bs, dh)).astype(np.float32)
+              for _ in range(2))
+    pos = np.array([191, 100, 0, 17, 64, 150, 3, 0])
+    qpos = np.minimum(pos[:, None] + np.arange(K)[None, :],
+                      NB * bs - 1).astype(np.int32)
+    tables = (rng.permutation(n - 1)[:S * NB] + 1).reshape(S, NB)
+    tables[S - 1] = 0                              # trash-routed
+    (tk, tks), (tv, tvs) = _stored(name, kc), _stored(name, vc)
+    dev = cuda_device
+    t = dict(kc=tk.to(dev), vc=tv.to(dev),
+             kscale=None if tks is None else tks.to(dev),
+             vscale=None if tvs is None else tvs.to(dev))
+    qd = torch.from_numpy(q).to(dev)
+    td = torch.from_numpy(tables.astype(np.int32)).to(dev)
+    pd = torch.from_numpy(qpos).to(dev)
+    batch = paged_attention(qd, t["kc"], t["vc"], td, pd, block_size=bs,
+                            kscale=t["kscale"], vscale=t["vscale"])
+    alone = [paged_attention(qd[i:i + 1].contiguous(), t["kc"], t["vc"],
+                             td[i:i + 1].contiguous(),
+                             pd[i:i + 1].contiguous(), block_size=bs,
+                             kscale=t["kscale"], vscale=t["vscale"])
+             for i in range(S)]
+    torch.cuda.synchronize()
+    assert torch.equal(batch, torch.cat(alone, dim=0))
 
 
 @pytest.mark.cuda
